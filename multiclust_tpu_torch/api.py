@@ -1,0 +1,104 @@
+"""One-call library API (multiclust_tpu/api.py) with an explicit device.
+
+``fit_file`` / ``fit_dataset`` run read -> synchronize -> K-sweep
+multi-start.  The device defaults to ``cuda``; without a CUDA device they
+raise unless ``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from multiclust_tpu.config import Options
+from multiclust_tpu.io.dataset import Dataset
+
+
+@dataclasses.dataclass
+class FitOutput:
+    dataset: Dataset
+    estimate: "EstimateResult"          # noqa: F821 - runtime import
+
+    @property
+    def best(self):
+        """MaximizeResult of the best (AIC-selected) K."""
+        return self.estimate.per_K[self.estimate.aic_K]
+
+    @property
+    def Q(self) -> np.ndarray:
+        """Fitted admixture proportions of the selected K."""
+        return self.best.best_params.eta.cpu().numpy()
+
+    @property
+    def P(self) -> np.ndarray:
+        """Fitted allele frequencies of the selected K."""
+        return self.best.best_params.p.cpu().numpy()
+
+
+def resolve_device(device) -> torch.device:
+    """The fit device; a CUDA request without a CUDA device raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' to fit on the CPU")
+    return device
+
+
+def check_ported(opt: Options) -> None:
+    """Raise NotImplementedError for options outside the ported slice."""
+    missing = [
+        (not opt.admixture, "the mixture model (no -a)", "12"),
+        (opt.eta_constrained, "constrained eta (-c)", "11"),
+        (opt.n_bootstrap, "the bootstrap test (-b)", "15"),
+        (opt.n_repeat != 1, "the repeat-timing harness (-w)", "16"),
+        (opt.mesh_shape, "meshes (--mesh)", "17"),
+        (opt.checkpoint_dir, "--checkpoint", "8"),
+        (opt.verbosity > 3, "per-iteration traces (-v > 3)", "16"),
+    ]
+    for hit, what, item in missing:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not yet ported; see ROADMAP.md queue 1, "
+                f"item {item}")
+
+
+def fit_dataset(ds: Dataset, opt: Optional[Options] = None, *,
+                device="cuda", **kw) -> FitOutput:
+    """Fit a Dataset under the given options (kw override Options
+    fields) on ``device``."""
+    from multiclust_tpu_torch.init.random import codes_from_counts
+    from multiclust_tpu_torch.model.common import model_data_from_dataset
+    from multiclust_tpu_torch.runtime.ksweep import estimate_model
+    from multiclust_tpu_torch.runtime.multistart import device_policy
+
+    opt = opt or Options()
+    if kw:
+        opt = dataclasses.replace(opt, **kw)
+    check_ported(opt)
+    device = resolve_device(device)
+    opt = opt.synchronize(ds.I, ds.ploidy)
+    _, storage = device_policy(opt, device)
+    md = model_data_from_dataset(ds, dtype=getattr(torch, opt.dtype),
+                                 device=device, storage_dtype=storage)
+    codes = codes_from_counts(md.x, md.miss, ds.ploidy)
+
+    def n_parameters(K):
+        return ds.n_parameters(K, opt.admixture, opt.eta_constrained)
+
+    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes)
+    return FitOutput(dataset=ds, estimate=est)
+
+
+def fit_file(path: str, opt: Optional[Options] = None, *, device="cuda",
+             **kw) -> FitOutput:
+    """Read a STRUCTURE file and fit it on ``device``."""
+    from multiclust_tpu.io.structure import read_structure
+
+    opt = opt or Options()
+    if kw:
+        opt = dataclasses.replace(opt, **kw)
+    ds = read_structure(path, opt)
+    return fit_dataset(ds, opt, device=device)

@@ -1,0 +1,166 @@
+"""Admixture model initialization (multiclust_tpu/init/random.py,
+rnd_init.c).
+
+Every draw comes from an explicit ``torch.Generator`` on the data's
+device.  Its streams differ from JAX's threefry keys (and from the
+reference's libc ``rand()``), so draw-for-draw parity is impossible and
+the tests check these inits statistically; warm starts are the
+deterministic check.
+
+Documented deviation kept from the JAX package: ``random_allele_center``
+falls back to the random allele partition when no locus can supply K
+centers (every SNP panel at K > 2), where the reference's "random" starts
+would all be identical.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from multiclust_tpu.config import InitMethod, InitProcedure
+from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params
+
+Tensor = torch.Tensor
+
+
+def random_allele_partition(gen: torch.Generator, md: ModelData,
+                            codes: Tensor, K: int) -> Tensor:
+    """Assign every observed allele copy to a random cluster
+    (random_allele_partition, rnd_init.c:456-482).  Returns [I, L, P]
+    cluster labels (-1 for missing copies)."""
+    lab = torch.randint(0, K, codes.shape, generator=gen,
+                        device=codes.device)
+    return torch.where(codes >= 0, lab, -1)
+
+
+def random_allele_center(gen: torch.Generator, md: ModelData,
+                         codes: Tensor, K: int) -> Tensor:
+    """Per-locus random center alleles; copies matching a center join its
+    cluster, the others are assigned at random (random_allele_center,
+    rnd_init.c:496-580)."""
+    if K == 1:
+        return torch.where(codes >= 0, 0, -1)
+    if int(md.n_alleles.max()) < K:
+        return random_allele_partition(gen, md, codes, K)
+    L, M = md.L, md.M
+    dev = codes.device
+    # random permutation of the slots of each locus; invalid slots last
+    noise = torch.rand((L, M), generator=gen, device=dev)
+    noise = torch.where(md.mask, noise, 2.0)
+    rank = torch.argsort(torch.argsort(noise, dim=1), dim=1)
+    slots = torch.arange(M, device=dev)[None, :]
+    n_all = md.n_alleles.to(torch.int64)[:, None]
+    # inv[l, m] = cluster of slot m, or -1 when slot m is not a center
+    ident = torch.where(slots < n_all, slots, -1)
+    inv = torch.where(n_all < K, ident, torch.where(rank < K, rank, -1))
+    inv = torch.where(md.mask, inv, -1)
+    loci = torch.arange(L, device=dev)[None, :, None]
+    matched = inv[loci, codes.clamp(min=0)]           # [I, L, P]
+    rnd = torch.randint(0, K, codes.shape, generator=gen, device=dev)
+    lab = torch.where(matched >= 0, matched, rnd)
+    return torch.where(codes >= 0, lab, -1)
+
+
+def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
+                                     md: ModelData, K: int) -> Params:
+    """Add-one-smoothed counts given per-copy cluster labels
+    (initialize_parameters_admixture, rnd_init.c:590-705).  Counts are
+    exact integers, so bincounts give the JAX package's one-hot sums."""
+    dtype = md.dtype
+    I, L, P = codes.shape
+    M = md.M
+    valid = codes >= 0
+    lab = torch.where(valid, labels, K)               # K = discard bin
+    copies = torch.zeros((I, K + 1), dtype=dtype, device=codes.device)
+    copies.scatter_add_(1, lab.reshape(I, -1),
+                        torch.ones((I, L * P), dtype=dtype,
+                                   device=codes.device))
+    eta = (1.0 + copies[:, :K]) / (L * P + K)
+
+    slot = torch.where(valid, codes, M)               # M = discard bin
+    loci = torch.arange(L, device=codes.device)[None, :, None]
+    idx = (lab * L + loci) * (M + 1) + slot
+    pc = torch.bincount(idx.reshape(-1), minlength=(K + 1) * L * (M + 1))
+    pc = pc.reshape(K + 1, L, M + 1)[:K, :, :M].to(dtype)
+    pc = torch.where(md.mask[None], pc + 1.0, torch.zeros_like(pc))
+    return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
+
+
+def random_initialize(gen: torch.Generator, md: ModelData, K: int,
+                      method: InitMethod, codes: Tensor) -> Params:
+    if method == InitMethod.RANDOM_PARTITION:
+        labels = random_allele_partition(gen, md, codes, K)
+    else:
+        labels = random_allele_center(gen, md, codes, K)
+    return parameters_from_allele_partition(labels, codes, md, K)
+
+
+def rand_em_chunk(md: ModelData, n: int, hbm_budget: float = 2e9) -> int:
+    """Candidates to score at once: the plain scoring step materializes
+    about three [I, L*M] tensors per candidate."""
+    itemsize = torch.finfo(md.dtype).bits // 8
+    per_cand = 3 * md.I * md.L * md.M * itemsize
+    return max(1, min(n, int(hbm_budget // max(per_cand, 1))))
+
+
+def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
+                       cfg: EMConfig, method: InitMethod,
+                       n_rand_em_init: int, codes: Tensor,
+                       chunk: int = 0) -> Params:
+    """Rand-EM: run n starts through one EM step and keep the start whose
+    refined logL is best (randem_initialize_admixture, rnd_init.c:412-444).
+    The winning START, not its refined parameters, seeds the fit.
+    Candidates are scored in batches of ``chunk`` lanes, in the layout the
+    fit will run (the p0 layout through the kernel when it is active)."""
+    from multiclust_tpu_torch.opt.em import model_em_step, \
+        model_log_likelihood
+    from multiclust_tpu_torch.runtime.multistart import _pad_k, _to_bi_repr
+
+    n = n_rand_em_init if K > 1 else 1
+    c = chunk or rand_em_chunk(md, n)
+    cands = [random_initialize(gen, md, K, method, codes) for _ in range(n)]
+    lls = []
+    for lo in range(0, n, c):
+        batch = Params(eta=torch.stack([p.eta for p in cands[lo:lo + c]]),
+                       p=torch.stack([p.p for p in cands[lo:lo + c]]))
+        batch = _to_bi_repr(_pad_k(batch, cfg), cfg)
+        stepped, _, _ = model_em_step(batch, md, cfg)
+        lls.append(model_log_likelihood(stepped, md, cfg)[0])
+    return cands[int(torch.argmax(torch.cat(lls)))]
+
+
+def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
+               method: InitMethod = InitMethod.RANDOM_CENTERS,
+               procedure: InitProcedure = InitProcedure.NOTHING,
+               n_rand_em_init: int = 50, codes: Tensor = None) -> Params:
+    """One admixture start (initialize_model, rnd_init.c:54-89), unbatched
+    and unpadded: eta [I, K], p [K, L, M]."""
+    if not cfg.admixture or cfg.eta_constrained:
+        raise NotImplementedError(
+            "only the unconstrained admixture model is ported; see "
+            "ROADMAP.md queue 1, items 11-12")
+    if procedure == InitProcedure.RAND_EM:
+        return rand_em_initialize(gen, md, K, cfg, method, n_rand_em_init,
+                                  codes)
+    return random_initialize(gen, md, K, method, codes)
+
+
+def codes_from_counts(counts: Tensor, miss: Tensor, ploidy: int) -> Tensor:
+    """[I, L, P] int64 allele-slot index per copy (-1 for missing copies),
+    computed where ``counts`` [I, L, M] and ``miss`` [I, L] lie (the
+    device, as codes_from_counts_jax does; the host numpy version costs
+    seconds at cohort scale).  Copies are exchangeable, so the count
+    vector is expanded in slot order."""
+    dev = counts.device
+    a = torch.arange(ploidy, dtype=torch.int32, device=dev)
+    cum = torch.zeros(counts.shape[:2], dtype=torch.int32, device=dev)
+    codes = torch.zeros(counts.shape[:2] + (ploidy,), dtype=torch.int64,
+                        device=dev)
+    # codes[i,l,a] = number of slots m with cum[i,l,m] <= a; the running
+    # sum over the few slots is written out because torch.cumsum over an
+    # innermost dim of 2 took 0.19 s on an H100 at 16384 x 2048
+    for m in range(counts.shape[2]):
+        cum += counts[..., m].to(torch.int32)
+        codes += cum[..., None] <= a
+    observed = ploidy - miss.to(torch.int32)                      # [I, L]
+    return torch.where(a < observed[..., None], codes, -1)

@@ -1,0 +1,188 @@
+"""Admixture model, main-path part (multiclust_tpu/model/admixture.py).
+
+Likelihood (logL_admixture, log_likelihood.c:96-147):
+    logL = sum_{i,l,m} x_ilm log( sum_k eta_ik p_klm )
+
+The step never materializes the responsibility tensor: with
+w = x / (eta @ p) the whole EM step is four products,
+
+    denom = eta @ p,  A = w @ p^T,  B = eta^T @ w,  C = eta^T @ miss,
+
+because sum_lm d_iklm = eta_ik (A_ik + c_i) and sum_i d_iklm = p_klm (B_klm
++ C_kl).  Every function takes a chain batch: eta [B, I, K] and p
+[B, K, L, M], or the biallelic p0 layout p [B, Kp, L].  logL values are
+float64 sums of the per-individual terms, returned with the RMS scale of
+those terms that the noise floor reads (opt/em.py).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
+    is_bi_repr, safe_log
+from multiclust_tpu_torch.ops.fullstep_bi import admixture_fullstep_biallelic
+from multiclust_tpu_torch.ops.simplex import project_rows
+
+Tensor = torch.Tensor
+
+
+def _safe_div(num: Tensor, den: Tensor) -> Tensor:
+    ok = num > 0
+    return torch.where(ok, num / torch.where(den > 0, den,
+                                             torch.ones_like(den)),
+                       torch.zeros_like(num))
+
+
+def _k_valid(cfg: EMConfig, Kp: int, device) -> Optional[Tensor]:
+    """bool[Kp] marking true clusters under the K-padded layout, or None
+    when the parameters are unpadded."""
+    kt = cfg.k_true or Kp
+    if kt == Kp:
+        return None
+    return torch.arange(Kp, device=device) < kt
+
+
+def _project_eta_rows(eta: Tensor, cfg: EMConfig) -> Tensor:
+    kv = _k_valid(cfg, eta.shape[-1], eta.device)
+    if kv is None:
+        kv = torch.ones(eta.shape[-1], dtype=torch.bool, device=eta.device)
+    return project_rows(eta, kv, cfg.eta_lower_bound)
+
+
+def _normalize_p(pc: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
+    tot = pc.sum(dim=-1, keepdim=True)
+    ok = tot > 0
+    p = torch.where(md.mask & ok, pc / torch.where(ok, tot,
+                                                    torch.ones_like(tot)),
+                    torch.zeros_like(pc))
+    if cfg.do_projection:
+        p = project_rows(p, md.mask, cfg.p_lower_bound)
+        kv = _k_valid(cfg, p.shape[-3], p.device)
+        if kv is not None:
+            # keep K-padding rows exactly zero (projection would lift them)
+            p = torch.where(kv[:, None, None], p, torch.zeros_like(p))
+    return p
+
+
+def _ll_terms(per_i: Tensor) -> Tuple[Tensor, Tensor]:
+    """(logL [B], scale [B]) in float64 from per-individual terms."""
+    per_i = per_i.to(torch.float64)
+    return per_i.sum(dim=-1), torch.sqrt((per_i * per_i).sum(dim=-1))
+
+
+def _no_ll(eta: Tensor) -> Tuple[Tensor, Tensor]:
+    z = torch.zeros(eta.shape[0], dtype=torch.float64, device=eta.device)
+    return z, z
+
+
+def em_step(params: Params, md: ModelData, cfg: EMConfig,
+            want_ll: bool = True) -> Tuple[Params, Tensor, Tensor]:
+    """One fused E+M iteration for a chain batch; the logL is that of the
+    INPUT params.  ``want_ll=False`` skips the logL terms and returns
+    zeros (the blind steps of opt/em.blind_plain_steps)."""
+    if cfg.eta_constrained:
+        raise NotImplementedError(
+            "constrained eta (-c) is not yet ported; see ROADMAP.md "
+            "queue 1, item 11")
+    if cfg.bi_repr_active and is_bi_repr(params):
+        return _em_step_bi_repr(params, md, cfg, want_ll)
+    if cfg.use_pallas != "off" and params.p.dtype == torch.float32:
+        raise NotImplementedError(
+            "the generic multi-allelic admixture kernel (admixture_fullstep, "
+            "kernels.py:263) is not yet ported; see ROADMAP.md queue 2")
+    return _em_step_unconstrained(params, md, cfg, want_ll)
+
+
+def _bi_miss_inputs(md: ModelData, cfg: EMConfig, dtype):
+    """(c [I], miss [I, L] or None) for the biallelic kernel; miss keeps
+    its storage dtype (int8 on CUDA)."""
+    if not cfg.has_missing:
+        return torch.zeros(md.I, dtype=dtype, device=md.device), None
+    return md.c.to(dtype), md.miss
+
+
+def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
+                     want_ll: bool = True):
+    """Biallelic step on the p0 layout: params.p IS p0 [B, Kp, L] (pads
+    zero), one kernel pair per EM iteration for the whole chain batch."""
+    eta, p0 = params.eta, params.p
+    c, miss = _bi_miss_inputs(md, cfg, eta.dtype)
+    eta_new, per_i, p0n = admixture_fullstep_biallelic(
+        eta, p0, md.x0, md.x1, c, miss, k_true=cfg.k_true,
+        lb=float(cfg.eta_lower_bound), plb=float(cfg.p_lower_bound),
+        project=cfg.do_projection, compute_t=want_ll)
+    ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
+    return Params(eta=eta_new, p=p0n), ll, scale
+
+
+def log_likelihood_bi_repr(params: Params, md: ModelData):
+    """logL on the p0 layout (the accelerated accept test); same math as
+    the kernel's t terms."""
+    eta, p0 = params.eta, params.p
+    d0 = eta @ p0                                     # [B, I, L]
+    d1 = eta.sum(dim=-1, keepdim=True) - d0
+    t = (md.x0.to(eta.dtype) * safe_log(d0)
+         + md.x1.to(eta.dtype) * safe_log(d1))
+    return _ll_terms(t.sum(dim=-1))
+
+
+def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,
+                           want_ll: bool = True):
+    eta, p = params.eta, params.p                     # [B,I,K], [B,K,L,M]
+    nb, K = p.shape[0], p.shape[1]
+    p2 = p.reshape(nb, K, -1)                         # [B, K, LM]
+    x2 = md.x2d                                       # [I, LM]
+
+    denom = eta @ p2                                  # [B, I, LM]
+    w = _safe_div(x2, denom)
+
+    if want_ll:
+        t = torch.where(x2 > 0, x2 * safe_log(denom), torch.zeros_like(w))
+        ll, scale = _ll_terms(t.sum(dim=-1))
+    else:
+        ll, scale = _no_ll(eta)
+
+    # eta update: sum_lm d_iklm = eta_ik (A_ik + c_i)
+    A = w @ p2.transpose(-1, -2)                      # [B, I, K]
+    if cfg.has_missing:
+        A = A + md.c.to(A.dtype)[:, None]
+    eta_num = eta * A
+    tot = eta_num.sum(dim=-1, keepdim=True)
+    # zero-mass rows keep their eta instead of 0/0
+    ok = tot > 0
+    eta_new = torch.where(ok, eta_num / torch.where(ok, tot,
+                                                    torch.ones_like(tot)),
+                          eta)
+    if cfg.do_projection:
+        eta_new = _project_eta_rows(eta_new, cfg)
+
+    # p update: sum_i d_iklm = p_klm (B_klm + C_kl)
+    et = eta.transpose(-1, -2)
+    Bm = (et @ w).reshape(p.shape)                    # [B, K, L, M]
+    if cfg.has_missing:
+        Bm = Bm + (et @ md.miss.to(eta.dtype))[..., None]
+    p_new = _normalize_p(p * Bm, md, cfg)
+    return Params(eta=eta_new, p=p_new), ll, scale
+
+
+def log_likelihood(params: Params, md: ModelData):
+    """logL of full-layout params (logL_admixture)."""
+    eta, p = params.eta, params.p
+    denom = eta @ p.reshape(p.shape[0], p.shape[1], -1)
+    x2 = md.x2d
+    t = torch.where(x2 > 0, x2 * safe_log(denom), torch.zeros_like(denom))
+    return _ll_terms(t.sum(dim=-1))
+
+
+def posterior_allele_mass(params: Params, md: ModelData) -> Tensor:
+    """dik[i, k] = sum_{l,m} d_iklm, expected allele copies sourced from
+    cluster k, for unbatched full-layout params (partition_admixture,
+    write_file.c:350-382; indivq_admix :525-543; popq_admix :446-459)."""
+    p2 = params.p.reshape(params.p.shape[0], -1)
+    eta = params.eta
+    w = _safe_div(md.x2d.to(eta.dtype), eta @ p2)
+    A = w @ p2.T
+    return eta * (A + md.c.to(eta.dtype)[:, None])

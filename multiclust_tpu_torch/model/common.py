@@ -1,0 +1,206 @@
+"""Shared model-side containers and helpers (multiclust_tpu/model/common.py).
+
+The parameterization follows the reference: ``eta[I, K]`` per-individual
+admixture proportions and ``p[K, L, M]`` per-cluster allele frequencies on
+the padded dense allele axis.  The port writes the chain batch out as a
+leading dimension: the model functions take ``eta[B, I, K]`` and
+``p[B, K, L, M]`` (or the biallelic p0 layout ``p[B, Kp, L]``), where the
+JAX package vmaps over unbatched arrays.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+
+class Params(NamedTuple):
+    """Model parameters; ``map_params`` treats both fields uniformly."""
+
+    eta: Tensor  # [..., I, K]
+    p: Tensor    # [..., K, L, M] full, or [..., Kp, L] p0 layout
+
+    @property
+    def K(self) -> int:
+        return self.eta.shape[-1]
+
+
+def map_params(fn, *ps: Params) -> Params:
+    """Apply ``fn`` field by field across one or more Params."""
+    return Params(eta=fn(*(q.eta for q in ps)), p=fn(*(q.p for q in ps)))
+
+
+def is_bi_repr(params: Params) -> bool:
+    """p0 layout marker: p has as many dims as eta ([.., Kp, L])."""
+    return params.p.ndim == params.eta.ndim
+
+
+class ModelData(NamedTuple):
+    """Device-side genotype tensors consumed by the E/M steps.
+
+    Biallelic panels (M == 2) also carry ``x0``/``x1``, the two per-allele
+    [I, L] count planes the kernel reads, made once at construction; ``x``
+    is then a view of those planes, so the counts are stored once.
+    ``c`` holds the per-individual missing-copy totals in the compute
+    dtype, summed once after the cast (int8 sums overflow above 127).
+    """
+
+    x: Tensor          # [I, L, M] counts (compute dtype, or int8 on CUDA)
+    miss: Tensor       # [I, L] missing-copy counts (same storage rule)
+    mask: Tensor       # [L, M] bool valid allele lanes
+    n_alleles: Tensor  # [L] int32 valid lanes per locus
+    c: Tensor          # [I] missing totals, compute dtype
+    x0: Optional[Tensor] = None  # [I, L] allele-0 counts, storage dtype
+    x1: Optional[Tensor] = None  # [I, L] allele-1 counts, storage dtype
+
+    @property
+    def I(self) -> int:  # noqa: E743
+        return self.x.shape[0]
+
+    @property
+    def L(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def M(self) -> int:
+        return self.x.shape[2]
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Compute dtype: miss carries it on the CPU/f64 paths; int8
+        storage is only ever paired with float32 compute."""
+        if self.miss.dtype.is_floating_point:
+            return self.miss.dtype
+        if self.x.dtype.is_floating_point:
+            return self.x.dtype
+        return torch.float32
+
+    @property
+    def x2d(self) -> Tensor:
+        """[I, L*M] counts in the compute dtype."""
+        return self.x.reshape(self.I, -1).to(self.dtype)
+
+
+def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
+                    device, storage_dtype: Optional[torch.dtype] = None
+                    ) -> ModelData:
+    """Build ModelData from array-likes (numpy or tensors).
+
+    ``storage_dtype=torch.int8`` keeps x (and, for float32 compute, miss)
+    as int8 on the device; counts never exceed the ploidy, so the cast is
+    exact."""
+    device = torch.device(device)
+    miss_dtype = (storage_dtype if (storage_dtype is not None
+                                    and dtype == torch.float32) else dtype)
+    xt = torch.as_tensor(np.asarray(x)).to(device=device,
+                                           dtype=storage_dtype or dtype)
+    mt = torch.as_tensor(np.asarray(miss)).to(device=device, dtype=miss_dtype)
+    x0 = x1 = None
+    if xt.shape[2] == 2:
+        # the counts are held once, as two contiguous planes; x is a view
+        planes = xt.permute(2, 0, 1).contiguous()     # [2, I, L]
+        x0, x1 = planes[0], planes[1]
+        xt = planes.permute(1, 2, 0)
+    return ModelData(
+        x=xt, miss=mt,
+        mask=torch.as_tensor(np.asarray(mask), device=device,
+                             dtype=torch.bool),
+        n_alleles=torch.as_tensor(np.asarray(n_alleles), device=device,
+                                  dtype=torch.int32),
+        c=mt.sum(dim=1, dtype=dtype),
+        x0=x0, x1=x1)
+
+
+def model_data_from_dataset(ds, dtype: torch.dtype = torch.float32,
+                            device="cpu",
+                            storage_dtype: Optional[torch.dtype] = None
+                            ) -> ModelData:
+    """Lift a host Dataset (multiclust_tpu.io.dataset) onto ``device``."""
+    return make_model_data(ds.counts, ds.miss, ds.mask, ds.n_alleles,
+                           dtype=dtype, device=device,
+                           storage_dtype=storage_dtype)
+
+
+class EMConfig(NamedTuple):
+    """Static EM configuration (multiclust_tpu.model.common.EMConfig
+    without the mesh and the interpret mode)."""
+
+    admixture: bool = False
+    eta_constrained: bool = False
+    do_projection: bool = True
+    eta_lower_bound: float = 1e-8
+    p_lower_bound: float = 1e-8
+    abs_error: float = 1e-4
+    rel_error: float = 0.0
+    max_iter: int = 0
+    accel_scheme: int = 0
+    q: int = 1
+    n_init_iter: int = 0
+    adjust_step: int = 0
+    monotonicity: str = "warn"
+    # multiplier on the params-dtype rounding noise floor (opt/em.py)
+    noise_factor: float = 8.0
+    # "on": the biallelic admixture step goes through the CUDA kernel pair
+    # (ops/fullstep_bi.py; its plain version for CPU tensors); "off": the
+    # plain four-matmul step (model/admixture._em_step_unconstrained)
+    use_pallas: str = "off"
+    has_missing: bool = True
+    biallelic: bool = False
+    # true cluster count when the params carry K-padded lanes (pads zero)
+    k_true: int = 0
+    # 1 = check stop() every iteration, N > 1 = every N-th, 0 = adaptive
+    check_interval: int = 1
+
+    @property
+    def bi_repr_active(self) -> bool:
+        """Chains carry the biallelic p0 layout (p [.., Kp, L])."""
+        return (self.use_pallas != "off" and self.admixture
+                and not self.eta_constrained and self.biallelic
+                and bool(self.k_true))
+
+
+def k_padded_size(K: int, multiple: int = 128) -> int:
+    """Lane-aligned padded cluster count for the K-padded layout."""
+    return -(-K // multiple) * multiple
+
+
+def pad_params_k(params: Params, k_pad: int) -> Params:
+    """Zero-pad full-layout params to ``k_pad`` clusters (batched OK):
+    eta [..., I, K] -> [..., I, k_pad]; p [..., K, L, M] -> [..., k_pad, L,
+    M].  Pads contribute nothing and the masked projections keep them 0."""
+    K = params.p.shape[-3]
+    if k_pad <= K:
+        return params
+    d = k_pad - K
+    eta = torch.nn.functional.pad(params.eta, (0, d))
+    p = torch.nn.functional.pad(params.p, (0, 0, 0, 0, 0, d))
+    return Params(eta=eta, p=p)
+
+
+def unpad_params_k(params: Params, k_true: int) -> Params:
+    """Inverse of pad_params_k (batched OK)."""
+    K = params.p.shape[-3]
+    if k_true >= K:
+        return params
+    return Params(eta=params.eta[..., :k_true],
+                  p=params.p[..., :k_true, :, :])
+
+
+def make_kmask(K: int, Kp: int, dtype=torch.float32, device="cpu") -> Tensor:
+    """[Kp] 1.0/0.0 true-lane mask."""
+    return (torch.arange(Kp, device=device) < K).to(dtype)
+
+
+def safe_log(x: Tensor) -> Tensor:
+    """log with zeros mapped to a 0 contribution."""
+    ok = x > 0
+    return torch.where(ok, torch.log(torch.where(ok, x, torch.ones_like(x))),
+                       torch.zeros_like(x))

@@ -1,0 +1,126 @@
+"""Build, bind and count the port's CUDA kernels.
+
+The sources under ``multiclust_tpu_torch/csrc/`` are compiled with nvcc for
+``sm_90a`` at first use into one shared library with a plain C interface
+(``multiclust_tpu_torch/build/``, named by a hash of the sources so an
+edited source rebuilds), loaded with ctypes.  Every launch goes through
+``launch``, which runs on PyTorch's current stream, raises on a nonzero
+``cudaGetLastError()`` and counts the launch by kernel name.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# argtypes of every exported launcher; each returns a cudaError_t as int
+_SIGNATURES = {
+    "mc_fullstep_bi_rows": [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+}
+
+# launches per kernel since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmulticlust_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless it exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a temporary name in the build dir, then rename: a
+    # concurrent or interrupted build never leaves a partial library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", tmp] + [str(s) for s in _sources()]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    # nvcc's -Xptxas -v report: registers, shared memory, spills
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.mc_error_string.argtypes = [ctypes.c_int]
+        lib.mc_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream and count it.
+
+    ``args`` are the launcher's arguments without the trailing stream."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.mc_error_string(err).decode()}")
+    LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,445 @@
+"""Multi-start likelihood maximization (multiclust_tpu/runtime/multistart.py;
+maximize_likelihood, multiclust.c:471-656).
+
+A batch of EM chains runs in lockstep as the leading dimension of every
+state tensor (the JAX package vmaps instead); the reference's bookkeeping
+replays over finished chains in completion order, so the stop regimes
+keep their semantics:
+
+1. fixed count   (-n n_init)
+2. wall-clock    (-t minutes; checked between segments)
+3. target logL   (-u l <ll>, optionally x times)
+4. revisit count (-u n <times> of the best logL)
+
+The port pads only K, to 32 lanes, for the kernel; the kernel masks ragged
+I and L itself, so no row or loci padding exists here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from multiclust_tpu.config import AccelScheme, Options
+from multiclust_tpu.model.likelihood import aic as aic_fn, bic as bic_fn
+from multiclust_tpu_torch.init import random as rinit
+from multiclust_tpu_torch.model.admixture import posterior_allele_mass
+from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
+    is_bi_repr, k_padded_size, map_params, pad_params_k, unpad_params_k
+from multiclust_tpu_torch.opt import em as em_mod
+
+
+def device_policy(opt: Options, device):
+    """``(use_pallas, storage_dtype)`` for a fit on ``device``, as
+    Options.device_policy does for JAX backends (config.py:250-273): the
+    biallelic kernel is on for float32 admixture fits on CUDA, where
+    counts are stored int8; CPU fits run the plain step in the compute
+    dtype.  ``opt.use_pallas`` overrides the kernel choice on the CPU
+    only: on CUDA the kernel is the one route of a float32 admixture
+    fit."""
+    on_cuda = torch.device(device).type == "cuda"
+    kernel = on_cuda and opt.admixture and opt.dtype == "float32"
+    up = opt.use_pallas
+    if up is None:
+        up = kernel
+    elif kernel and not up:
+        raise ValueError("float32 admixture fits on CUDA run the biallelic "
+                         "kernel; use_pallas=False is for CPU tensors")
+    storage = torch.int8 if (on_cuda and opt.dtype == "float32") else None
+    return bool(up), storage
+
+
+def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
+    """Static EM config; ``md`` fixes has_missing and biallelic."""
+    if opt.mesh_shape:
+        raise NotImplementedError(
+            "meshes (--mesh) are not yet ported; see ROADMAP.md queue 1, "
+            "item 17")
+    use_pallas, _ = device_policy(opt, md.device)
+    return EMConfig(
+        admixture=opt.admixture, eta_constrained=opt.eta_constrained,
+        do_projection=opt.do_projection,
+        eta_lower_bound=opt.eta_lower_bound,
+        p_lower_bound=opt.p_lower_bound,
+        abs_error=opt.abs_error, rel_error=opt.rel_error,
+        max_iter=opt.max_iter, accel_scheme=int(opt.accel_scheme),
+        q=opt.q, n_init_iter=opt.n_init_iter, adjust_step=opt.adjust_step,
+        monotonicity=opt.resolved_monotonicity(),
+        use_pallas="on" if use_pallas else "off",
+        has_missing=bool((md.miss > 0).any()),
+        biallelic=md.M == 2 and bool((md.n_alleles == 2).all()),
+        k_true=K if (opt.admixture and not opt.eta_constrained) else 0,
+        check_interval=opt.check_interval)
+
+
+def _pad_k(params: Params, cfg: EMConfig) -> Params:
+    """K-pad admixture params to the kernel's 32-lane layout (pads zero);
+    no-op for the plain path."""
+    if (cfg.use_pallas != "off" and cfg.admixture
+            and not cfg.eta_constrained and cfg.k_true):
+        return pad_params_k(params, k_padded_size(cfg.k_true, 32))
+    return params
+
+
+def _to_bi_repr(params: Params, cfg: EMConfig) -> Params:
+    """Full K-padded params [.., Kp, L, 2] -> the p0 layout [.., Kp, L]
+    (model/common.EMConfig.bi_repr_active); no-op when inactive."""
+    if not cfg.bi_repr_active or is_bi_repr(params):
+        return params
+    return Params(eta=params.eta.contiguous(),
+                  p=params.p[..., 0].contiguous())
+
+
+def _unpad_k(params: Params, cfg: EMConfig) -> Params:
+    """Back to dense K-sized full-layout params (harvest time only)."""
+    if cfg.bi_repr_active and is_bi_repr(params):
+        kt = cfg.k_true or params.p.shape[-2]
+        p0 = params.p[..., :kt, :]
+        params = Params(eta=params.eta[..., :kt],
+                        p=torch.stack([p0, 1.0 - p0], dim=-1))
+    if cfg.k_true and params.p.shape[-3] != cfg.k_true:
+        params = unpad_params_k(params, cfg.k_true)
+    return params
+
+
+@dataclasses.dataclass
+class MaximizeResult:
+    """Statistics across initializations (the _model fields kept across
+    inits, multiclust.h:337-355)."""
+
+    K: int
+    best_params: Optional[Params] = None
+    max_logL: float = -np.inf
+    first_max_logL: float = -np.inf
+    aic: float = np.inf
+    bic: float = np.inf
+    n_init: int = 0            # counted (converged) initializations
+    n_launched: int = 0        # chains actually computed
+    n_iter_all: int = 0        # EM iterations of every harvested chain
+    n_total_iter: int = 0
+    n_max_iter: int = 0
+    n_maxll_init: int = -1
+    n_maxll_times: int = 0
+    n_targetll_times: int = 0
+    n_targetll_init: int = 0
+    time_stop: bool = False
+    ever_converged: bool = False
+    any_failed: bool = False
+    mono_viol: bool = False
+    arand: float = 0.0
+    seconds: float = 0.0
+
+
+def _host_converged(opt: Options, a: float, b: float) -> bool:
+    """Host-side converged() (em_alg.c:163-182) for solution comparison."""
+    if not np.isfinite(b):
+        return False
+    abs_diff = abs(a - b)
+    keep = False
+    if opt.abs_error:
+        keep |= abs_diff > opt.abs_error
+    if opt.rel_error:
+        keep |= abs_diff / abs(b) > opt.rel_error
+    return not keep
+
+
+def _draw_init_batch(gen: torch.Generator, n: int, md: ModelData, K: int,
+                     cfg: EMConfig, opt: Options, codes) -> Params:
+    starts = [rinit.initialize(gen, md, K, cfg,
+                               method=opt.initialization_method,
+                               procedure=opt.initialization_procedure,
+                               n_rand_em_init=opt.n_rand_em_init,
+                               codes=codes) for _ in range(n)]
+    return Params(eta=torch.stack([s.eta for s in starts]),
+                  p=torch.stack([s.p for s in starts]))
+
+
+def _make_state(params_b: Params, md: ModelData, cfg: EMConfig
+                ) -> em_mod.EMState:
+    """Fresh chain states with their warmup/secant prologue."""
+    state = em_mod.init_state(_to_bi_repr(params_b, cfg), cfg)
+    for _ in range(cfg.n_init_iter):
+        state = em_mod.plain_step(state, md, cfg)
+    if cfg.accel_scheme != int(AccelScheme.NONE):
+        for _ in range(cfg.q - 1):
+            state = em_mod.two_em_steps(state, md, cfg)[0]
+    return state
+
+
+def _segment(state: em_mod.EMState, md: ModelData, cfg: EMConfig,
+             segment: int) -> em_mod.EMState:
+    body = (em_mod.accel_macro_step
+            if cfg.accel_scheme != int(AccelScheme.NONE)
+            else em_mod.plain_macro_step)
+    for _ in range(segment):
+        state = body(state, md, cfg)
+    return state
+
+
+def fit_batch(params_b: Params, md: ModelData, cfg: EMConfig, *,
+              segment: int = 16, n_seconds: float = 0.0,
+              start_time: Optional[float] = None):
+    """Run a batch of chains to convergence, reading the stop flags once
+    per segment of macro steps; returns (EMState batch, timed_out)."""
+    t0 = time.time() if start_time is None else start_time
+    state = _make_state(params_b, md, cfg)
+    timed_out = False
+    while not bool(state.stopped.all()):
+        if n_seconds and (time.time() - t0) > n_seconds:
+            timed_out = True
+            break
+        state = _segment(state, md, cfg, segment)
+    return state, timed_out
+
+
+def _make_progress(opt: Options, K: int, t0: float, quiet: bool):
+    """Per-init completion line (multiclust.c:618-627) at verbosity >
+    QUIET when writing files; hh:mm:ss is the time since the sweep
+    started, since batched chains finish together."""
+    if quiet or opt.verbosity <= 2 or not opt.write_files:
+        return None
+
+    def pr(res: MaximizeResult, ll: float, conv: bool, iters: int) -> None:
+        d = int(time.time() - t0)
+        print("K = %d, initialization = %d: %f (%s) in %3d iterations, "
+              "%02d:%02d:%02d (%f; %d), seed: %u"
+              % (K, res.n_launched - 1, ll,
+                 "converged" if conv else "not converged", iters,
+                 d // 3600, (d % 3600) // 60, d % 60, res.max_logL,
+                 res.n_maxll_times, opt.seed))
+    return pr
+
+
+def _bookkeep_lane(res: MaximizeResult, opt: Options, n_parameters: int,
+                   I: int, ll: float, conv: bool, iters: int, failed: bool,
+                   mono: bool, get_params, timed_out: bool,
+                   on_improve=None, progress=None) -> bool:
+    """Per-chain bookkeeping (multiclust.c:538-652); returns True when a
+    stop regime is satisfied."""
+    res.n_launched += 1
+    res.n_iter_all += iters
+    res.any_failed |= failed
+    res.mono_viol |= mono
+    if conv:
+        res.ever_converged = True
+    # iteration stats (multiclust.c:538-543)
+    if conv or (res.n_init == 0 and timed_out):
+        res.n_total_iter += iters
+        res.n_max_iter = max(res.n_max_iter, iters)
+        res.n_init += 1
+    # same-solution bookkeeping (multiclust.c:546-554)
+    if conv and _host_converged(opt, ll, res.first_max_logL):
+        res.n_maxll_times += 1
+    elif conv and ll > res.first_max_logL:
+        res.n_maxll_times = 1
+        res.first_max_logL = ll
+        res.n_maxll_init = res.n_init
+    # better solution (multiclust.c:557-560)
+    if ll > res.max_logL and np.isfinite(ll):
+        res.max_logL = ll
+        res.aic = aic_fn(ll, n_parameters)
+        res.bic = bic_fn(ll, n_parameters, I)
+        res.best_params = get_params()
+        if on_improve is not None:
+            # best-so-far persistence (multiclust.c:584-600)
+            on_improve(res)
+    if progress is not None:
+        progress(res, ll, conv, iters)
+
+    # stop regimes (multiclust.c:629-652)
+    if timed_out:
+        res.time_stop = True
+        return True
+    if (opt.target_revisit and not opt.target_ll
+            and res.n_maxll_times >= opt.target_revisit):
+        return True
+    if opt.target_ll and (ll > opt.desired_ll
+                          or _host_converged(opt, ll, opt.desired_ll)):
+        if not res.n_targetll_times:
+            res.n_targetll_init = res.n_init
+        res.n_targetll_times += 1
+        if (not opt.target_revisit
+                or opt.target_revisit <= res.n_targetll_times):
+            return True
+    if (not opt.target_revisit and not opt.target_ll
+            and not opt.n_seconds and res.n_launched >= opt.n_init):
+        return True
+    return False
+
+
+def _harvest(state: em_mod.EMState, cfg: EMConfig):
+    """Host copies of the per-lane results and a lane -> params getter."""
+    host = {f: getattr(state, f).cpu().numpy()
+            for f in ("logL", "converged", "n_iter", "failed", "mono_viol")}
+
+    def get(lane):
+        return _unpad_k(map_params(lambda t: t[lane], state.params), cfg)
+    return host, get
+
+
+def _run_continuous(gen, res: MaximizeResult, md: ModelData, K: int,
+                    cfg: EMConfig, opt: Options, n_parameters: int, codes,
+                    t0: float, segment: int = 16, on_improve=None,
+                    progress=None) -> None:
+    """Continuous batching: B chains run in lockstep segments; a stopped
+    lane is harvested and refilled with a fresh start at once instead of
+    idling until the slowest chain finishes."""
+    fixed_n = (not opt.target_revisit and not opt.target_ll
+               and not opt.n_seconds)
+    B = opt.batch_chains or min(max(opt.n_init, 1), 8)
+    if fixed_n:
+        B = min(B, opt.n_init)
+
+    def fresh_states(n):
+        pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes), cfg)
+        return _make_state(pb, md, cfg)
+
+    state = fresh_states(B)
+    launched = B
+    harvested = np.zeros(B, dtype=bool)
+
+    def bookkeep(lanes, timed_out) -> bool:
+        host, get = _harvest(state, cfg)
+        for lane in lanes:
+            harvested[lane] = True
+            if _bookkeep_lane(
+                    res, opt, n_parameters, md.I, float(host["logL"][lane]),
+                    bool(host["converged"][lane]),
+                    int(host["n_iter"][lane]), bool(host["failed"][lane]),
+                    bool(host["mono_viol"][lane]),
+                    lambda ln=lane: get(ln), timed_out,
+                    on_improve=on_improve, progress=progress):
+                return True
+        return False
+
+    while True:
+        stopped = state.stopped.cpu().numpy()
+        fresh_lanes = np.nonzero(stopped & ~harvested)[0]
+        if fresh_lanes.size and bookkeep(fresh_lanes, False):
+            return
+
+        want_more = (launched < opt.n_init) if fixed_n else True
+        refillable = np.nonzero(harvested)[0]
+        if want_more and refillable.size:
+            nref = refillable.size
+            if fixed_n:
+                nref = min(nref, opt.n_init - launched)
+            lanes = refillable[:nref]
+            idx = torch.as_tensor(lanes, device=md.device)
+            fresh = fresh_states(nref)
+            state = em_mod.tree_map(
+                lambda old, new: old.index_copy(0, idx, new), state, fresh)
+            launched += nref
+            harvested[lanes] = False
+        elif harvested.all():
+            return  # nothing active and no more chains wanted
+
+        if opt.n_seconds and (time.time() - t0) > opt.n_seconds:
+            # harvest the active lanes as timed out (best-so-far logL
+            # counts, multiclust.c:538-560 with time_stop)
+            if not bookkeep(np.nonzero(~harvested)[0], True):
+                res.time_stop = True
+            return
+
+        state = _segment(state, md, cfg, segment)
+
+
+def _single_init(gen, md, K, cfg, opt, codes, warm):
+    if warm is not None:
+        return _pad_k(warm, cfg)
+    return _pad_k(rinit.initialize(
+        gen, md, K, cfg, method=opt.initialization_method,
+        procedure=opt.initialization_procedure,
+        n_rand_em_init=opt.n_rand_em_init, codes=codes), cfg)
+
+
+def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
+                        opt: Options, n_parameters: int, codes=None,
+                        warm: Optional[Params] = None, true_partition=None,
+                        on_improve=None, quiet: bool = False
+                        ) -> MaximizeResult:
+    """Maximize over initializations (maximize_likelihood,
+    multiclust.c:471-656).  ``on_improve(res)`` fires whenever an init
+    improves the best logL (best-so-far outputs, multiclust.c:584-600);
+    ``quiet`` suppresses the per-init progress lines."""
+    if opt.checkpoint_dir:
+        raise NotImplementedError(
+            "--checkpoint is not yet ported; see ROADMAP.md queue 1, item 8")
+    if opt.verbosity > 3:
+        raise NotImplementedError(
+            "per-iteration traces (-v > 3) are not yet ported; see "
+            "ROADMAP.md queue 1, item 16")
+    cfg = cfg_from_options(opt, K, md)
+    res = MaximizeResult(K=K)
+    t0 = time.time()
+    progress = _make_progress(opt, K, t0, quiet)
+
+    if K == 1:
+        params = _single_init(gen, md, K, cfg, opt, codes, warm)
+        state = em_mod.fit_k1(
+            _to_bi_repr(map_params(lambda t: t[None], params), cfg), md, cfg)
+        ll = float(state.logL[0])
+        res.best_params = _unpad_k(map_params(lambda t: t[0], state.params),
+                                   cfg)
+        res.max_logL = res.first_max_logL = ll
+        res.aic = aic_fn(ll, n_parameters)
+        res.bic = bic_fn(ll, n_parameters, md.I)
+        res.n_init = res.n_launched = 1
+        res.n_total_iter = res.n_max_iter = 1
+        res.n_maxll_init = 1
+        res.n_maxll_times = 1
+        res.ever_converged = True
+        res.seconds = time.time() - t0
+        _score_arand(res, md, opt, true_partition)
+        return res
+
+    if warm is None:
+        _run_continuous(gen, res, md, K, cfg, opt, n_parameters, codes, t0,
+                        on_improve=on_improve, progress=progress)
+        res.seconds = time.time() - t0
+        _score_arand(res, md, opt, true_partition)
+        return res
+
+    # -Q/-P warm start: every init identical (initialize_model,
+    # rnd_init.c:74-76), one chain per batch
+    warm_b = map_params(lambda t: t[None], _pad_k(warm, cfg))
+    while True:
+        states, timed_out = fit_batch(warm_b, md, cfg,
+                                      n_seconds=opt.n_seconds, start_time=t0)
+        host, get = _harvest(states, cfg)
+        if _bookkeep_lane(
+                res, opt, n_parameters, md.I, float(host["logL"][0]),
+                bool(host["converged"][0]), int(host["n_iter"][0]),
+                bool(host["failed"][0]), bool(host["mono_viol"][0]),
+                lambda: get(0), timed_out, on_improve=on_improve,
+                progress=progress):
+            break
+        # warm starts are deterministic; more chains are pointless unless
+        # a count/target regime explicitly asks for them
+        if (res.n_launched >= opt.n_init
+                and not (opt.target_revisit or opt.target_ll
+                         or opt.n_seconds)):
+            break
+
+    res.seconds = time.time() - t0
+    _score_arand(res, md, opt, true_partition)
+    return res
+
+
+def hard_partition(params: Params, md: ModelData) -> np.ndarray:
+    """MAP cluster per individual (partition_admixture,
+    write_file.c:350-382) for unbatched full-layout params."""
+    return torch.argmax(posterior_allele_mass(params, md),
+                        dim=1).cpu().numpy()
+
+
+def _score_arand(res: MaximizeResult, md, opt: Options, true_partition):
+    if true_partition is None or res.best_params is None:
+        return
+    from multiclust_tpu.stats.rand_index import adjusted_rand
+    res.arand = adjusted_rand(np.asarray(true_partition),
+                              hard_partition(res.best_params, md))

@@ -1,0 +1,125 @@
+"""The port's biallelic full-step kernel function against the JAX package.
+
+On the CPU the port's wrapper runs its plain PyTorch version; it is held
+to the Pallas kernel in interpret mode (float32) and to the JAX XLA step
+(float64).  The CUDA kernel itself is held to the plain version on the
+card by tests/test_torch_cuda.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multiclust_tpu.model import admixture as jadm
+from multiclust_tpu.model.common import EMConfig as JaxEMConfig, \
+    ModelData as JaxModelData, Params as JaxParams
+from multiclust_tpu.ops import df64
+from multiclust_tpu.ops.kernels import \
+    admixture_fullstep_biallelic as jax_fullstep_bi
+from multiclust_tpu_torch.ops import fullstep_bi as fb
+
+torch.set_num_threads(2)
+
+# float32: the interpret-mode kernel and the plain version sum in other
+# orders (test_kernels.py:196-199 holds the kernel to XLA the same way)
+F32 = dict(rtol=1e-4, atol=5e-5)
+
+
+def _inputs(seed, I, L, K, Kp, miss_rate):
+    """eta [I, Kp] and p0 [Kp, L] with zero pad lanes, and genotypes.
+    Sharp Dirichlet rows and p0 near 0/1 make the eta Michelot and the p0
+    clip pin lanes for the bounds used below."""
+    rng = np.random.default_rng(seed)
+    eta = np.zeros((I, Kp))
+    eta[:, :K] = rng.dirichlet(np.full(K, 0.3), size=I)
+    p0 = np.zeros((Kp, L))
+    p0[:K] = rng.uniform(0.01, 0.99, size=(K, L))
+    miss = (rng.binomial(2, miss_rate, size=(I, L)) if miss_rate
+            else np.zeros((I, L), np.int64))
+    x0 = rng.binomial(2 - miss, 0.5)
+    return eta, p0, x0, 2 - miss - x0, miss
+
+
+@pytest.mark.parametrize("K", [4, 20])
+@pytest.mark.parametrize("miss_rate", [0.0, 0.15])
+@pytest.mark.parametrize("compute_t", [True, False])
+@pytest.mark.parametrize("project", [True, False])
+def test_fullstep_matches_pallas_interpret(K, miss_rate, compute_t,
+                                           project):
+    I, L, Kp = 64, 128, 32
+    eta, p0, x0, x1, miss = _inputs(K + 7, I, L, K, Kp, miss_rate)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=project,
+              compute_t=compute_t)
+    c = miss.sum(axis=1).astype(np.float32)
+    je, jt, jp = jax_fullstep_bi(
+        jnp.asarray(eta, jnp.float32), jnp.asarray(p0, jnp.float32),
+        jnp.asarray(x0, jnp.int8), jnp.asarray(x1, jnp.int8),
+        jnp.asarray(c[:, None]),
+        jnp.asarray(miss, jnp.int8) if miss_rate else None,
+        ti=64, tl=128, interpret=True, **kw)
+
+    def t8(a):
+        return torch.as_tensor(a, dtype=torch.int8)
+
+    te, tt, tp = fb.admixture_fullstep_biallelic(
+        torch.as_tensor(eta, dtype=torch.float32)[None],
+        torch.as_tensor(p0, dtype=torch.float32)[None], t8(x0), t8(x1),
+        torch.as_tensor(c), t8(miss) if miss_rate else None, **kw)
+    np.testing.assert_allclose(te[0].numpy(), np.asarray(je), **F32)
+    np.testing.assert_allclose(tt[0].numpy(), np.asarray(jt), **F32)
+    np.testing.assert_allclose(tp[0].numpy(), np.asarray(jp), **F32)
+    # pad lanes stay exactly zero; the p0 clip keeps the upper bound below
+    # 1 in float32
+    assert (te[0, :, K:] == 0).all() and (tp[0, K:] == 0).all()
+    if project:
+        lo, hi = fb.p0_clip_bounds(0.05)
+        assert hi < 1.0
+        live = tp[0, :K]
+        assert float(live.min()) >= np.float32(lo)
+        assert float(live.max()) <= np.float32(hi)
+
+
+@pytest.mark.parametrize("miss_rate", [0.0, 0.15])
+@pytest.mark.parametrize("project", [True, False])
+def test_fullstep_f64_matches_xla_step(miss_rate, project):
+    """In float64 the plain version is the JAX XLA step (four products,
+    p rebuilt as [K, L, 2]) on the p0 layout, to 1e-10."""
+    I, L, K, Kp = 48, 70, 4, 32
+    eta, p0, x0, x1, miss = _inputs(3, I, L, K, Kp, miss_rate)
+    md = JaxModelData(x=jnp.asarray(np.stack([x0, x1], axis=2), jnp.float64),
+                      miss=jnp.asarray(miss, jnp.float64),
+                      mask=jnp.ones((L, 2), bool),
+                      n_alleles=jnp.full((L,), 2, jnp.int32))
+    cfg = JaxEMConfig(admixture=True, has_missing=miss_rate > 0,
+                      do_projection=project, eta_lower_bound=0.01,
+                      p_lower_bound=1e-8)
+    full = JaxParams(eta=jnp.asarray(eta[:, :K]),
+                     p=jnp.asarray(np.stack([p0[:K], 1 - p0[:K]], axis=2)))
+    ref, ll, _ = jadm._em_step_unconstrained(full, md, cfg)
+
+    te, tt, tp = fb.admixture_fullstep_biallelic(
+        torch.as_tensor(eta)[None], torch.as_tensor(p0)[None],
+        torch.as_tensor(x0), torch.as_tensor(x1),
+        torch.as_tensor(miss.sum(axis=1), dtype=torch.float64),
+        torch.as_tensor(miss) if miss_rate else None,
+        k_true=K, lb=0.01, plb=1e-8, project=project)
+    np.testing.assert_allclose(te[0, :, :K].numpy(), np.asarray(ref.eta),
+                               rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(tp[0, :K].numpy(), np.asarray(ref.p)[:, :, 0],
+                               rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(float(tt.sum()), float(df64.df_value(ll)),
+                               rtol=1e-10)
+
+
+def test_wrapper_refuses_unsupported_cuda_shapes():
+    """The CUDA path validates before launching: Kp above 128 raises
+    (no fallback), as does a non-int8 genotype plane."""
+    eta = torch.zeros(1, 8, 160)
+    p0 = torch.zeros(1, 160, 5)
+    x = torch.zeros(8, 5, dtype=torch.int8)
+    with pytest.raises(ValueError, match="Kp=160"):
+        fb._check_cuda_inputs(eta, p0, x, x)
+    with pytest.raises(ValueError, match="x1 dtype"):
+        fb._check_cuda_inputs(torch.zeros(1, 8, 32), torch.zeros(1, 32, 5),
+                              x, x.float())
