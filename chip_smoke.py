@@ -1,20 +1,33 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the admixture main path at
-the full panel width, through its hand-written CUDA kernels.
+the full panel width, through its hand-written CUDA kernels, for biallelic
+and for multi-allelic panels.
 
 Run from the root of a checkout with ``python3 chip_smoke.py``.  Phases,
 each raising on failure:
 
 1. device: a CUDA device is required; prints the card's name and limit;
-2. build: compiles ``multiclust_tpu_torch/csrc/*.cu`` with nvcc;
+2. build: compiles ``multiclust_tpu_torch/csrc/*.cu`` with nvcc, one nvcc
+   per source, concurrently;
 3. kernels: the biallelic EM-step kernel pair against its plain PyTorch
    version at I=16384, L=2048, K=20 (Kp=32), chain batches 1 and 4,
    missing 0 % and 2 %, logL terms on and off; median CUDA-event times;
-4. fit: ``api.fit_dataset`` on a simulated 16384 x 2048, K=20 panel
-   (plain EM with the adaptive interval, then SQUAREM), with the kernel
-   launch counts of that run; then a small warm-start fit held to the
-   float64 CPU path;
+4. fit: ``api.fit_dataset`` on a simulated 16384 x 2048, K=20 biallelic
+   panel (plain EM with the adaptive interval, then SQUAREM), with the
+   kernel launch counts of that run; then a small warm-start fit held to
+   the float64 CPU path;
 5. CLI: ``multiclust_tpu_torch.cli.main`` on a 1024 x 1000, K=3 STRUCTURE
-   file with 5 % missing.
+   file with 5 % missing;
+6. generic kernels: the multi-allelic rows pass, columns pass and p
+   epilogue against their plain versions at I=16384, L=2048, M=4, K=20,
+   chain batches 1 and 4, missing 0 % and 2 %, logL terms on and off; a
+   jagged panel (80 % M=2, 20 % M=8 loci, dense at M=8); the sweep
+   statistics and an a0 / emit_a chain;
+7. generic fits: ``api.fit_dataset`` on a simulated 16384 x 2048, M=4,
+   K=20 panel with 1 % missing (plain EM with the adaptive interval, then
+   SQUAREM), with the generic kernels' launch counts; then a small
+   warm-start M=5 fit held to the float64 CPU path;
+8. generic CLI: a 512 x 200 STRUCTURE file with 3-6 alleles per locus and
+   5 % missing, SQUAREM from Rand-EM starts.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -34,6 +47,17 @@ I_FULL, L_FULL, K_FULL = 16384, 2048, 20
 RTOL, ATOL = 1e-4, 5e-5
 TPU_KERNEL = "multiclust_tpu/ops/kernels.py:344"
 SOURCE = "multiclust_tpu_torch/csrc/fullstep_bi.cu"
+BI_KERNELS = ("mc_fullstep_bi_rows", "mc_fullstep_bi_cols")
+M_FULL = 4
+GENERIC_TPU = "multiclust_tpu/ops/kernels.py:263"
+GENERIC_SOURCE = "multiclust_tpu_torch/csrc/fullstep.cu"
+GENERIC_KERNELS = ("mc_fullstep_rows", "mc_fullstep_cols", "mc_fullstep_p")
+# the sweep statistics are the generic kernels with finish=False
+SWEEP_TPU = {"admixture_sweep_fused": "multiclust_tpu/ops/kernels.py:1510",
+             "admixture_sweep_stats": "multiclust_tpu/ops/kernels.py:1593"}
+OUT_FILES = ("sim.str.admix.K=3.out.txt", "sim.str.admix.K=3.etaik.txt",
+             "sim.str.admix.K=3.pklm.txt", "sim.str_admix_popq_3.popq",
+             "sim.str_admix_indivq_3.indivq")
 
 
 def card() -> str:
@@ -151,16 +175,20 @@ def check_fit(out, wall, label, where):
     eta, p = res.best_params
     assert np.isfinite(res.max_logL) and not res.mono_viol, label
     assert not res.any_failed, label
-    assert eta.shape == (out.dataset.I, K_FULL)
-    assert p.shape == (K_FULL, out.dataset.L, 2)
+    ds = out.dataset
+    assert eta.shape == (ds.I, K_FULL)
+    assert p.shape == (K_FULL, ds.L, ds.M)
+    mask = torch.as_tensor(ds.mask, device=p.device)
     lb = 1e-8 * (1 - 1e-6)
-    assert float(eta.min()) >= lb and float(p.min()) >= lb, label
+    assert float(eta.min()) >= lb and float(p[:, mask].min()) >= lb, label
+    assert (p[:, ~mask] == 0).all(), label
     torch.testing.assert_close(eta.sum(dim=1), torch.ones_like(eta[:, 0]),
                                rtol=0, atol=1e-5)
+    # the masked lanes are 0, so the sum runs over the valid lanes
     torch.testing.assert_close(p.sum(dim=2), torch.ones_like(p[..., 0]),
                                rtol=0, atol=1e-6)
     n = res.n_iter_all
-    cells = n * out.dataset.I * out.dataset.L * 2
+    cells = n * ds.I * ds.L * ds.M
     print(f"fit {label}: logL {res.max_logL:.4f}, {n} EM iterations over "
           f"{res.n_launched} chains; fit_dataset {wall:.3f} s wall "
           f"({n / wall:.1f} iterations/s, {cells / wall / 1e9:.2f} Gcells/s), "
@@ -189,7 +217,7 @@ def phase_fit(build, dev, where):
     build.reset_launch_counts()
     plain = timed_fit("plain EM")
     squarem = timed_fit("SQUAREM", accel_scheme=1)
-    launches = dict(build.LAUNCHES)
+    launches = {name: build.LAUNCHES[name] for name in BI_KERNELS}
     print(f"launches in the fits: {launches}", flush=True)
     # one launch of each pass serves the whole chain batch (2 lanes)
     steps = (plain.n_iter_all + squarem.n_iter_all) // 2
@@ -255,15 +283,262 @@ def phase_cli(build, where):
         rc = main(["-f", path, "-a", "-k", "3", "-n", "4", "-s", "1",
                    "-d", tmp])
         torch.cuda.synchronize()
-        launches = dict(build.LAUNCHES)
+        launches = {name: build.LAUNCHES[name] for name in BI_KERNELS}
         assert rc == 0, rc
-        for f in ("sim.str.admix.K=3.out.txt", "sim.str.admix.K=3.etaik.txt",
-                  "sim.str.admix.K=3.pklm.txt", "sim.str_admix_popq_3.popq",
-                  "sim.str_admix_indivq_3.indivq"):
+        for f in OUT_FILES:
             assert os.path.getsize(os.path.join(tmp, f)) > 0, f
     assert all(n > 0 for n in launches.values()), launches
     print(f"cli: rc 0 in {time.time() - t0:.2f} s, launches {launches} on "
           f"{where}", flush=True)
+
+
+def generic_counts(seed, I, L, n_alleles, K, miss_rate, dev):
+    """Admixture-model genotypes for multi-allelic loci, drawn on ``dev``
+    from ``seed``: each observed copy draws its allele from (Q P)_il over
+    the locus's n_alleles[l] valid slots.  Returns counts [I, L, M] int8,
+    miss [I, L] int8 and the mask [L, M], all on ``dev``."""
+    n_alleles = torch.as_tensor(n_alleles, device=dev)
+    M = int(n_alleles.max())
+    mask = torch.arange(M, device=dev)[None, :] < n_alleles[:, None]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.tensor(rng.dirichlet(np.full(K, 0.5), size=I),
+                     dtype=torch.float32, device=dev)
+    P = torch.tensor(rng.dirichlet(np.full(M, 0.7), size=(K, L)),
+                     dtype=torch.float32, device=dev) * mask
+    P /= P.sum(dim=-1, keepdim=True)
+    cum = (Q @ P.reshape(K, -1)).view(I, L, M).cumsum(dim=-1)
+    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
+            < miss_rate).sum(dim=-1).to(torch.int8)
+    counts = torch.zeros((I, L, M), dtype=torch.int8, device=dev)
+    top = (n_alleles - 1).to(torch.int64)
+    for a in range(2):
+        u = torch.rand((I, L, 1), generator=gen, device=dev)
+        allele = torch.minimum((u > cum).sum(dim=-1), top)
+        counts.scatter_add_(2, allele[..., None],
+                            (a < 2 - miss)[..., None].to(torch.int8))
+    return counts, miss, mask
+
+
+def generic_inputs(seed, B, I, L, n_alleles, K, Kp, miss_rate, dev):
+    """Full-step inputs on ``dev``: eta [B, I, Kp] and p2 [B, Kp, L*M] with
+    zero pads, x2 int8 [I, L*M], c [I], miss [I, L] int8 or None, mask."""
+    counts, miss, mask = generic_counts(seed, I, L, n_alleles, K, miss_rate,
+                                        dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    M = mask.shape[1]
+    eta = torch.zeros((B, I, Kp), device=dev)
+    eta[..., :K] = torch.rand((B, I, K), generator=gen, device=dev) + 0.05
+    eta /= eta.sum(dim=-1, keepdim=True)
+    p = torch.zeros((B, Kp, L, M), device=dev)
+    p[:, :K] = (torch.rand((B, K, L, M), generator=gen, device=dev)
+                + 0.05) * mask
+    p /= p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    return (eta, p.view(B, Kp, L * M), counts.view(I, L * M),
+            miss.sum(dim=1, dtype=torch.float32),
+            miss if miss_rate else None, mask)
+
+
+def phase_generic_kernels(fs, dev, where):
+    """The generic kernels against their plain versions at the full shape,
+    then each kernel alone at the fit's shape (its CUDA-event time for
+    the kernels' record), the sweep statistics and an a0 chain."""
+    K, Kp = K_FULL, 32
+    full_m = np.full(L_FULL, M_FULL)
+    errs = {"rows": 0.0, "cols": 0.0, "p": 0.0}
+    cases = [(B, miss_rate, full_m, "M=4") for B in (1, 4)
+             for miss_rate in (0.0, 0.02)]
+    # the jagged mix of bench.py:199-201, dense at M = 8
+    jag = np.where(np.random.default_rng(10).random(L_FULL) < 0.8, 2, 8)
+    cases.append((2, 0.02, jag, "jagged 80 % M=2 + 20 % M=8"))
+    for seed, (B, miss_rate, n_all, label) in enumerate(cases):
+        args = generic_inputs(20 + 2 * seed, B, I_FULL, L_FULL, n_all, K,
+                              Kp, miss_rate, dev)
+        for compute_t in (True, False):
+            kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True,
+                      compute_t=compute_t)
+            got = fs.admixture_fullstep(*args, **kw)
+            ref = fs.admixture_fullstep_reference(*args, **kw)
+            torch.cuda.synchronize()
+            e_eta, e_t, e_p = (max_err(g, r) for g, r in zip(got, ref))
+            assert (got[0][..., K:] == 0).all() and (got[2][:, K:] == 0).all()
+            assert (got[2][..., ~args[-1]] == 0).all()
+            errs["rows"] = max(errs["rows"], e_eta, e_t)
+            errs["p"] = max(errs["p"], e_p)
+            k_ms = median_ms(lambda: fs.admixture_fullstep(*args, **kw))
+            p_ms = median_ms(lambda: fs.admixture_fullstep_reference(
+                *args, **kw))
+            cells = B * I_FULL * args[1].shape[-1]
+            print(f"generic step {label} B={B} miss={miss_rate:.2f} "
+                  f"compute_t={compute_t}: max|d| eta'={e_eta:.3e} "
+                  f"t={e_t:.3e} p'={e_p:.3e} (rtol {RTOL}, atol {ATOL}); "
+                  f"kernel {k_ms:.3f} ms ({cells / k_ms / 1e6:.2f} "
+                  f"Glanes/s), plain {p_ms:.3f} ms "
+                  f"({cells / p_ms / 1e6:.2f} Glanes/s) on {where}",
+                  flush=True)
+        del args, got, ref
+        torch.cuda.empty_cache()
+
+    # each kernel alone at the fit's shape (chain batch 2, 1 % missing)
+    e, p2, x2, c, m, mask = generic_inputs(40, 2, I_FULL, L_FULL, full_m,
+                                           K, Kp, 0.01, dev)
+    row_kw = dict(k_true=K, lb=1e-8, project=True, compute_t=True)
+    p_kw = dict(k_true=K, plb=1e-8, project=True)
+    part = fs.fullstep_partials(e, p2, x2, m, M=M_FULL)
+    passes = {
+        "rows": (lambda: fs.fullstep_rows(e, p2, x2, c, **row_kw),
+                 lambda: fs.fullstep_rows_reference(e, p2, x2, c, **row_kw)),
+        # the columns pass's partials, compared summed over segments
+        "cols": (lambda: (fs.fullstep_partials(
+                     e, p2, x2, m, M=M_FULL).sum(dim=1),),
+                 lambda: (fs.fullstep_partials_reference(
+                     e, p2, x2, m)[:, 0],)),
+        "p": (lambda: (fs.fullstep_p(p2, part, mask, M=M_FULL, **p_kw),),
+              lambda: (fs.fullstep_p_reference(p2, part, mask, **p_kw),)),
+    }
+    ms = {}
+    for name, (kernel, plain) in passes.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max(max_err(g, r) for g, r in zip(got, ref))
+        errs[name] = max(errs[name], err)
+        ms[name] = (median_ms(kernel), median_ms(plain))
+        print(f"generic pass {name} B=2 miss=0.01: max|d| {err:.3e}; kernel "
+              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms on {where}",
+              flush=True)
+
+    # the sweep statistics (finish=False) and an a0 / emit_a chain
+    got = fs.admixture_sweep_stats(e, p2, x2)
+    ref = fs.admixture_sweep_stats_reference(e, p2, x2)
+    torch.cuda.synchronize()
+    sweep_err = max(max_err(g, r) for g, r in zip(got, ref))
+    sweep_ms = (median_ms(lambda: fs.admixture_sweep_stats(e, p2, x2)),
+                median_ms(lambda: fs.admixture_sweep_stats_reference(
+                    e, p2, x2)))
+    print(f"generic sweep stats B=2: max|d| {sweep_err:.3e}; kernel "
+          f"{sweep_ms[0]:.3f} ms, plain {sweep_ms[1]:.3f} ms on {where}",
+          flush=True)
+    h = (L_FULL // 2) * M_FULL
+    halves = [(p2[..., :h].contiguous(), x2[:, :h].contiguous()),
+              (p2[..., h:].contiguous(), x2[:, h:].contiguous())]
+    A, _ = fs.fullstep_rows(e, *halves[0], c, finish=False, **row_kw)
+    chain = fs.fullstep_rows(e, *halves[1], c, A, **row_kw)
+    A_ref, _ = fs.fullstep_rows_reference(e, *halves[0], c, finish=False,
+                                          **row_kw)
+    chain_ref = fs.fullstep_rows_reference(e, *halves[1], c, A_ref,
+                                           **row_kw)
+    torch.cuda.synchronize()
+    chain_err = max([max_err(A, A_ref)]
+                    + [max_err(g, r) for g, r in zip(chain, chain_ref)])
+    print(f"generic a0 / emit_a chain of two launches B=2: max|d| "
+          f"{chain_err:.3e} on {where}", flush=True)
+    errs["rows"] = max(errs["rows"], chain_err)
+    return errs, ms, (sweep_err, sweep_ms)
+
+
+def phase_fit_generic(build, dev, where):
+    from multiclust_tpu_torch.api import fit_dataset
+    from multiclust_tpu_torch.convert import dataset_from_counts
+
+    counts, miss, _ = generic_counts(42, I_FULL, L_FULL,
+                                     np.full(L_FULL, M_FULL), K_FULL, 0.01,
+                                     dev)
+    ds = dataset_from_counts(counts.cpu().numpy(), miss.cpu().numpy(), 2)
+    assert ds.M == M_FULL
+    base = dict(admixture=True, min_K=K_FULL, max_K=K_FULL, n_init=2,
+                max_iter=100, seed=3, verbosity=2)
+
+    def timed_fit(label, **kw):
+        t0 = time.time()
+        out = fit_dataset(ds, device=dev, **base, **kw)
+        torch.cuda.synchronize()
+        return check_fit(out, time.time() - t0, label, where)
+
+    build.reset_launch_counts()
+    plain = timed_fit("M=4 plain EM")
+    squarem = timed_fit("M=4 SQUAREM", accel_scheme=1)
+    launches = {name: build.LAUNCHES[name] for name in GENERIC_KERNELS}
+    print(f"launches in the M=4 fits: {dict(build.LAUNCHES)}", flush=True)
+    # one launch of each kernel serves the whole chain batch (2 lanes)
+    steps = (plain.n_iter_all + squarem.n_iter_all) // 2
+    for name, n in launches.items():
+        assert n >= steps > 0, (name, n, steps)
+    assert not any(build.LAUNCHES[name] for name in BI_KERNELS)
+    return launches
+
+
+def phase_reference_generic(dev):
+    """A small multi-allelic warm-start fit through the generic kernels,
+    held to the plain float64 step on the CPU over the same 30
+    iterations."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+    from multiclust_tpu_torch.model.common import EMConfig
+    from multiclust_tpu_torch.opt.driver import fit
+    from multiclust_tpu_torch.runtime.multistart import _pad_k
+
+    I, L, M, K = 600, 300, 5, 3
+    counts, miss, mask = (t.numpy() for t in generic_counts(
+        43, I, L, np.full(L, M), K, 0.05, "cpu"))
+    n_all = mask.sum(axis=1)
+    rng = np.random.default_rng(14)
+    eta = rng.dirichlet(np.full(K, 2.0), size=I)
+    p = rng.dirichlet(np.full(M, 2.0), size=(K, L))
+    base = dict(admixture=True, has_missing=True, k_true=K, max_iter=30,
+                abs_error=1e-12, eta_lower_bound=1e-8, p_lower_bound=1e-8)
+    cpu = fit(params_from_numpy(eta, p),
+              model_data_from_numpy(counts, miss, mask, n_all),
+              EMConfig(**base))
+    cfg = EMConfig(use_pallas="on", **base)
+    warm = params_from_numpy(eta, p, device=dev, dtype=torch.float32)
+    gpu = fit(_pad_k(warm, cfg),
+              model_data_from_numpy(counts, miss, mask, n_all, device=dev,
+                                    dtype=torch.float32), cfg)
+    print(f"reference fit M=5: kernel path logL {gpu.logL:.4f} vs float64 "
+          f"CPU {cpu.logL:.4f} after {gpu.n_iter} iterations", flush=True)
+    assert gpu.n_iter == cpu.n_iter == 31
+    assert abs(gpu.logL - cpu.logL) < 0.1
+
+
+def write_structure(path, counts, miss):
+    """STRUCTURE rows, one per allele copy: allele m + 1 once for each
+    count of slot m, then -9 for each missing copy."""
+    I, L, M = counts.shape
+    with open(path, "w") as fh:
+        fh.write(" ".join(f"loc{l}" for l in range(L)) + "\n")
+        for i in range(I):
+            copies = [np.concatenate([np.repeat(np.arange(1, M + 1),
+                                                counts[i, l]),
+                                      np.full(miss[i, l], -9)])
+                      for l in range(L)]
+            for a in range(2):
+                fh.write(f"ind{i} pop0 "
+                         + " ".join(str(c[a]) for c in copies) + "\n")
+
+
+def phase_cli_generic(build, where):
+    from multiclust_tpu_torch.cli import main
+
+    I, L = 512, 200
+    n_all = np.random.default_rng(44).integers(3, 7, size=L)
+    counts, miss, _ = (t.numpy() for t in generic_counts(
+        45, I, L, n_all, 3, 0.05, "cpu"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sim.str")
+        write_structure(path, counts, miss)
+        build.reset_launch_counts()
+        t0 = time.time()
+        # -m 5: Rand-EM starts, scored through the generic kernels
+        rc = main(["-f", path, "-a", "-k", "3", "-n", "4", "-s", "1",
+                   "-m", "5", "-d", tmp])
+        torch.cuda.synchronize()
+        launches = {name: build.LAUNCHES[name] for name in GENERIC_KERNELS}
+        assert rc == 0, rc
+        for f in OUT_FILES:
+            assert os.path.getsize(os.path.join(tmp, f)) > 0, f
+    assert all(n > 0 for n in launches.values()), launches
+    print(f"cli M<=6: rc 0 in {time.time() - t0:.2f} s, launches {launches} "
+          f"on {where}", flush=True)
 
 
 def main() -> int:
@@ -271,7 +546,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from multiclust_tpu_torch.ops import build, fullstep_bi as fb
+    from multiclust_tpu_torch.ops import build, fullstep as fs, \
+        fullstep_bi as fb
 
     dev = torch.device("cuda")
     where = card()
@@ -290,13 +566,33 @@ def main() -> int:
     launches = phase_fit(build, dev, where)
     phase_reference(dev)
     phase_cli(build, where)
+    g_errs, g_ms, (sweep_err, sweep_ms) = phase_generic_kernels(fs, dev,
+                                                                where)
+    launches.update(phase_fit_generic(build, dev, where))
+    phase_reference_generic(dev)
+    phase_cli_generic(build, where)
 
-    record = {"kernels": [
+    kernels = [
         {"name": f"fullstep_bi_{name}", "route": "cuda", "source": SOURCE,
          "replaces": TPU_KERNEL,
          "launches": launches[f"mc_fullstep_bi_{name}"],
          "max_abs_err": errs[name], "ms": ms[name][0],
-         "plain_ms": ms[name][1]} for name in ("rows", "cols")]}
+         "plain_ms": ms[name][1]} for name in ("rows", "cols")]
+    kernels += [
+        {"name": f"fullstep_{name}", "route": "cuda",
+         "source": GENERIC_SOURCE, "replaces": GENERIC_TPU,
+         "launches": launches[f"mc_fullstep_{name}"],
+         "max_abs_err": g_errs[name], "ms": g_ms[name][0],
+         "plain_ms": g_ms[name][1]} for name in ("rows", "cols", "p")]
+    # the sweeps' port is the generic rows, columns and p kernels with
+    # finish=False: its launches are those kernels' launches in the M=4
+    # fits, its times and error those of one admixture_sweep_stats call
+    kernels += [
+        {"name": name, "route": "cuda", "source": GENERIC_SOURCE,
+         "replaces": tpu, "launches": launches["mc_fullstep_rows"],
+         "max_abs_err": sweep_err, "ms": sweep_ms[0],
+         "plain_ms": sweep_ms[1]} for name, tpu in SWEEP_TPU.items()]
+    record = {"kernels": kernels}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "simplex.cuh"
+
 namespace {
 
 constexpr int NT = 256;       // threads per block, both passes
@@ -47,60 +49,9 @@ constexpr int ROW_TL = 32;    // columns per rows-pass tile
 constexpr int COL_TC = 16;    // columns per columns-pass block
 constexpr int COL_RI = 32;    // rows per columns-pass tile
 constexpr float DMIN = 1e-30f;
-constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// Michelot projection of one row held by one warp (lane owns k = lane +
-// 32 j) onto {x >= lb on lanes < k_true, sum = 1}; pad lanes end at 0.
-// Same passes as ops/simplex.project_rows.
-template <int KJ>
-__device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
-                              float lb) {
-  bool fr[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    fr[j] = lane + 32 * j < k_true;
-    if (!fr[j]) w[j] = 0.f;
-  }
-  while (true) {
-    float nf = 0.f, cs = 0.f;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      nf += fr[j] ? 1.f : 0.f;
-      cs += w[j];
-    }
-    nf = warp_sum(nf);
-    cs = warp_sum(cs);
-    const float off = (cs - 1.f) / fmaxf(nf, 1.f);
-    bool pinned = false;
-    float nf2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      if (fr[j]) {
-        const float w2 = w[j] - off;
-        if (w2 < lb) {
-          w[j] = lb;
-          fr[j] = false;
-          pinned = true;
-        } else {
-          w[j] = w2;
-        }
-      }
-      nf2 += fr[j] ? 1.f : 0.f;
-    }
-    const bool any_pinned = __any_sync(FULL, pinned);
-    nf2 = warp_sum(nf2);
-    if (!any_pinned || nf2 < 0.5f) break;
-  }
-#pragma unroll
-  for (int j = 0; j < KJ; ++j)
-    if (lane + 32 * j >= k_true) w[j] = 0.f;
-}
+using mc::michelot_warp;
+using mc::warp_sum;
 
 template <int KP>
 __global__ void __launch_bounds__(NT) fullstep_bi_rows_kernel(

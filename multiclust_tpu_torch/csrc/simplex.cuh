@@ -1,0 +1,111 @@
+// Warp-level helpers shared by the admixture kernels: sums over a warp or
+// an aligned group of lanes, and the Michelot projection onto the
+// lower-bounded simplex (michelot_project, simplex.c:109-143; the same
+// passes as ops/simplex.project_rows and the TPU's `_michelot_tile`,
+// multiclust_tpu/ops/kernels.py:154).
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace mc {
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// sum over an aligned group of G lanes (G a power of two <= 32); every
+// lane of the warp must call it
+template <int G = 32>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
+
+// Michelot projection of one row held by one warp (lane owns k = lane +
+// 32 j) onto {x >= lb on lanes < k_true, sum = 1}; pad lanes end at 0.
+template <int KJ>
+__device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
+                              float lb) {
+  bool fr[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    fr[j] = lane + 32 * j < k_true;
+    if (!fr[j]) w[j] = 0.f;
+  }
+  while (true) {
+    float nf = 0.f, cs = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      nf += fr[j] ? 1.f : 0.f;
+      cs += w[j];
+    }
+    nf = warp_sum(nf);
+    cs = warp_sum(cs);
+    const float off = (cs - 1.f) / fmaxf(nf, 1.f);
+    bool pinned = false;
+    float nf2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      if (fr[j]) {
+        const float w2 = w[j] - off;
+        if (w2 < lb) {
+          w[j] = lb;
+          fr[j] = false;
+          pinned = true;
+        } else {
+          w[j] = w2;
+        }
+      }
+      nf2 += fr[j] ? 1.f : 0.f;
+    }
+    const bool any_pinned = __any_sync(FULL, pinned);
+    nf2 = warp_sum(nf2);
+    if (!any_pinned || nf2 < 0.5f) break;
+  }
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j >= k_true) w[j] = 0.f;
+}
+
+// Michelot projection of rows held by aligned groups of G lanes (lane g
+// of a group owns slots g + G j); `fr` marks the free (valid) slots on
+// entry, the others must hold 0.  Groups finish at different passes, so
+// the loop runs until every group of the warp is done and a finished
+// group's passes change nothing.  Every lane of the warp must call it.
+template <int G, int MJ>
+__device__ void michelot_group(float (&w)[MJ], bool (&fr)[MJ], float lb) {
+  bool done = false;
+  while (true) {
+    float nf = 0.f, cs = 0.f;
+#pragma unroll
+    for (int j = 0; j < MJ; ++j) {
+      nf += fr[j] ? 1.f : 0.f;
+      cs += w[j];
+    }
+    nf = group_sum<G>(nf);
+    cs = group_sum<G>(cs);
+    const float off = (cs - 1.f) / fmaxf(nf, 1.f);
+    float pinned = 0.f, nf2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < MJ; ++j) {
+      if (!done && fr[j]) {
+        const float w2 = w[j] - off;
+        if (w2 < lb) {
+          w[j] = lb;
+          fr[j] = false;
+          pinned = 1.f;
+        } else {
+          w[j] = w2;
+        }
+      }
+      nf2 += fr[j] ? 1.f : 0.f;
+    }
+    pinned = group_sum<G>(pinned);
+    nf2 = group_sum<G>(nf2);
+    done = done || pinned < 0.5f || nf2 < 0.5f;
+    if (__all_sync(FULL, done)) break;
+  }
+}
+
+}  // namespace mc

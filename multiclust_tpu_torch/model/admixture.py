@@ -23,6 +23,8 @@ import torch
 
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     is_bi_repr, safe_log
+from multiclust_tpu_torch.ops.fullstep import admixture_fullstep, \
+    normalize_p
 from multiclust_tpu_torch.ops.fullstep_bi import admixture_fullstep_biallelic
 from multiclust_tpu_torch.ops.simplex import project_rows
 
@@ -53,18 +55,8 @@ def _project_eta_rows(eta: Tensor, cfg: EMConfig) -> Tensor:
 
 
 def _normalize_p(pc: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
-    tot = pc.sum(dim=-1, keepdim=True)
-    ok = tot > 0
-    p = torch.where(md.mask & ok, pc / torch.where(ok, tot,
-                                                    torch.ones_like(tot)),
-                    torch.zeros_like(pc))
-    if cfg.do_projection:
-        p = project_rows(p, md.mask, cfg.p_lower_bound)
-        kv = _k_valid(cfg, p.shape[-3], p.device)
-        if kv is not None:
-            # keep K-padding rows exactly zero (projection would lift them)
-            p = torch.where(kv[:, None, None], p, torch.zeros_like(p))
-    return p
+    return normalize_p(pc, md.mask, k_true=cfg.k_true or pc.shape[-3],
+                       plb=cfg.p_lower_bound, project=cfg.do_projection)
 
 
 def _ll_terms(per_i: Tensor) -> Tuple[Tensor, Tensor]:
@@ -90,15 +82,13 @@ def em_step(params: Params, md: ModelData, cfg: EMConfig,
     if cfg.bi_repr_active and is_bi_repr(params):
         return _em_step_bi_repr(params, md, cfg, want_ll)
     if cfg.use_pallas != "off" and params.p.dtype == torch.float32:
-        raise NotImplementedError(
-            "the generic multi-allelic admixture kernel (admixture_fullstep, "
-            "kernels.py:263) is not yet ported; see ROADMAP.md queue 2")
+        return _em_step_generic(params, md, cfg, want_ll)
     return _em_step_unconstrained(params, md, cfg, want_ll)
 
 
-def _bi_miss_inputs(md: ModelData, cfg: EMConfig, dtype):
-    """(c [I], miss [I, L] or None) for the biallelic kernel; miss keeps
-    its storage dtype (int8 on CUDA)."""
+def _miss_inputs(md: ModelData, cfg: EMConfig, dtype):
+    """(c [I], miss [I, L] or None) for the kernels; miss keeps its
+    storage dtype (int8 on CUDA)."""
     if not cfg.has_missing:
         return torch.zeros(md.I, dtype=dtype, device=md.device), None
     return md.c.to(dtype), md.miss
@@ -109,7 +99,7 @@ def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
     """Biallelic step on the p0 layout: params.p IS p0 [B, Kp, L] (pads
     zero), one kernel pair per EM iteration for the whole chain batch."""
     eta, p0 = params.eta, params.p
-    c, miss = _bi_miss_inputs(md, cfg, eta.dtype)
+    c, miss = _miss_inputs(md, cfg, eta.dtype)
     eta_new, per_i, p0n = admixture_fullstep_biallelic(
         eta, p0, md.x0, md.x1, c, miss, k_true=cfg.k_true,
         lb=float(cfg.eta_lower_bound), plb=float(cfg.p_lower_bound),
@@ -127,6 +117,25 @@ def log_likelihood_bi_repr(params: Params, md: ModelData):
     t = (md.x0.to(eta.dtype) * safe_log(d0)
          + md.x1.to(eta.dtype) * safe_log(d1))
     return _ll_terms(t.sum(dim=-1))
+
+
+def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
+                     want_ll: bool = True):
+    """Generic (multi-allelic) float32 step on the K-padded full layout
+    (the single-device branch of _em_step_unconstrained_pallas,
+    multiclust_tpu/model/admixture.py:477-574): one kernel triple per EM
+    iteration for the whole chain batch (ops/fullstep.py), x read as its
+    int8 [I, L*M] view, p normalized and projected on the card."""
+    eta, p = params.eta, params.p                     # [B,I,Kp], [B,Kp,L,M]
+    nb, Kp = p.shape[0], p.shape[1]
+    c, miss = _miss_inputs(md, cfg, eta.dtype)
+    eta_new, per_i, p_new = admixture_fullstep(
+        eta, p.reshape(nb, Kp, -1), md.x_lanes, c, miss, md.mask,
+        k_true=cfg.k_true or Kp, lb=float(cfg.eta_lower_bound),
+        plb=float(cfg.p_lower_bound), project=cfg.do_projection,
+        compute_t=want_ll)
+    ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
+    return Params(eta=eta_new, p=p_new), ll, scale
 
 
 def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,

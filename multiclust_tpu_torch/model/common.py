@@ -42,9 +42,12 @@ def is_bi_repr(params: Params) -> bool:
 class ModelData(NamedTuple):
     """Device-side genotype tensors consumed by the E/M steps.
 
-    Biallelic panels (M == 2) also carry ``x0``/``x1``, the two per-allele
-    [I, L] count planes the kernel reads, made once at construction; ``x``
-    is then a view of those planes, so the counts are stored once.
+    Biallelic panels (every locus with two alleles) also carry
+    ``x0``/``x1``, the two per-allele [I, L] count planes the biallelic
+    kernel reads, made once at construction; ``x`` is then a view of those
+    planes, so the counts are stored once.  Every other panel keeps ``x``
+    contiguous, and ``x_lanes`` is its [I, L*M] view for the generic
+    kernel.
     ``c`` holds the per-individual missing-copy totals in the compute
     dtype, summed once after the cast (int8 sums overflow above 127).
     """
@@ -88,6 +91,14 @@ class ModelData(NamedTuple):
         """[I, L*M] counts in the compute dtype."""
         return self.x.reshape(self.I, -1).to(self.dtype)
 
+    @property
+    def x_lanes(self) -> Tensor:
+        """[I, L*M] counts in the storage dtype (int8 on CUDA), a view of
+        ``x``: the generic kernel casts in registers, so no step makes a
+        float copy.  Raises on the biallelic planes layout, which the
+        generic step never reads."""
+        return self.x.view(self.I, -1)
+
 
 def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
                     device, storage_dtype: Optional[torch.dtype] = None
@@ -104,7 +115,7 @@ def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
                                            dtype=storage_dtype or dtype)
     mt = torch.as_tensor(np.asarray(miss)).to(device=device, dtype=miss_dtype)
     x0 = x1 = None
-    if xt.shape[2] == 2:
+    if xt.shape[2] == 2 and bool((np.asarray(n_alleles) == 2).all()):
         # the counts are held once, as two contiguous planes; x is a view
         planes = xt.permute(2, 0, 1).contiguous()     # [2, I, L]
         x0, x1 = planes[0], planes[1]

@@ -1,7 +1,8 @@
 """Build, bind and count the port's CUDA kernels.
 
 The sources under ``multiclust_tpu_torch/csrc/`` are compiled with nvcc for
-``sm_90a`` at first use into one shared library with a plain C interface
+``sm_90a`` at first use (one nvcc per source, run concurrently, then one
+link) into one shared library with a plain C interface
 (``multiclust_tpu_torch/build/``, named by a hash of the sources so an
 edited source rebuilds), loaded with ctypes.  Every launch goes through
 ``launch``, which runs on PyTorch's current stream, raises on a nonzero
@@ -35,6 +36,12 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "mc_fullstep_cols": [_P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _P],
+    "mc_fullstep_p": [_P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 # launches per kernel since the last reset_launch_counts()
@@ -63,32 +70,51 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):   # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmulticlust_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Run the commands concurrently; (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    results = []
+    for p in procs:
+        text = p.communicate()[0]
+        results.append((p.returncode, text))
+    return results
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists."""
+    """Compile csrc/*.cu into the shared library unless it exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name in the build dir, then rename: a
-    # concurrent or interrupted build never leaves a partial library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp] + [str(s) for s in _sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # compile into a temporary directory in the build dir, then rename the
+    # library: a concurrent or interrupted build never leaves a partial one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (s.stem + ".o")) for s in _sources()]
+        results = _run([
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", "-o", o, str(s)]
+            for s, o in zip(_sources(), objs)])
+        report = "".join(text for _, text in results)
+        if any(rc != 0 for rc, _ in results):
+            raise RuntimeError("nvcc failed:\n" + report)
+        lib = str(Path(tmp) / "lib.so")
+        [(rc, text)] = _run([[nvcc, "-shared", "-o", lib] + objs])
+        if rc != 0:
+            raise RuntimeError("nvcc link failed:\n" + text)
+        os.replace(lib, out)
     # nvcc's -Xptxas -v report: registers, shared memory, spills
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    out.with_suffix(".ptxas.txt").write_text(report)
     return out
 
 

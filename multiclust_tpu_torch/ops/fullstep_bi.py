@@ -134,7 +134,8 @@ def _check_cuda_inputs(eta, p0, x0, x1, *extra):
     L = p0.shape[-1]
     if Kp not in KP_SUPPORTED:
         raise ValueError(f"Kp={Kp}: the CUDA kernel takes Kp in "
-                         f"{KP_SUPPORTED} (K <= 128)")
+                         f"{KP_SUPPORTED} (K <= 128); see ROADMAP.md queue 3, "
+                         f"'Kp > 128 on CUDA'")
     if p0.shape != (B, Kp, L):
         raise ValueError(f"p0 shape {tuple(p0.shape)} != {(B, Kp, L)}")
     for name, t, dt, shape in (("eta", eta, torch.float32, None),

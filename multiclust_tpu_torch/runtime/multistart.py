@@ -36,10 +36,11 @@ from multiclust_tpu_torch.opt import em as em_mod
 def device_policy(opt: Options, device):
     """``(use_pallas, storage_dtype)`` for a fit on ``device``, as
     Options.device_policy does for JAX backends (config.py:250-273): the
-    biallelic kernel is on for float32 admixture fits on CUDA, where
+    admixture kernels (the biallelic pair on biallelic panels, the generic
+    triple on any other) are on for float32 admixture fits on CUDA, where
     counts are stored int8; CPU fits run the plain step in the compute
     dtype.  ``opt.use_pallas`` overrides the kernel choice on the CPU
-    only: on CUDA the kernel is the one route of a float32 admixture
+    only: on CUDA the kernels are the one route of a float32 admixture
     fit."""
     on_cuda = torch.device(device).type == "cuda"
     kernel = on_cuda and opt.admixture and opt.dtype == "float32"
@@ -47,8 +48,8 @@ def device_policy(opt: Options, device):
     if up is None:
         up = kernel
     elif kernel and not up:
-        raise ValueError("float32 admixture fits on CUDA run the biallelic "
-                         "kernel; use_pallas=False is for CPU tensors")
+        raise ValueError("float32 admixture fits on CUDA run the admixture "
+                         "kernels; use_pallas=False is for CPU tensors")
     storage = torch.int8 if (on_cuda and opt.dtype == "float32") else None
     return bool(up), storage
 

@@ -11,10 +11,19 @@ import numpy as np
 import pytest
 import torch
 
-from multiclust_tpu_torch.ops import build, fullstep_bi as fb
+from multiclust_tpu_torch.ops import build, fullstep as fs, \
+    fullstep_bi as fb
 
 # float32: the kernel and the plain version sum in other orders
 F32 = dict(rtol=1e-4, atol=5e-5)
+BI_KERNELS = ("mc_fullstep_bi_rows", "mc_fullstep_bi_cols")
+GENERIC_KERNELS = ("mc_fullstep_rows", "mc_fullstep_cols", "mc_fullstep_p")
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
 
 
 def _step_args(seed, B, I, L, K, Kp, miss_rate, dev):
@@ -52,7 +61,7 @@ def test_fullstep_kernel_matches_plain(B, I, L, K, Kp, miss_rate,
     got = fb.admixture_fullstep_biallelic(*args, **kw)
     ref = fb.admixture_fullstep_biallelic_reference(*args, **kw)
     torch.cuda.synchronize()
-    for name in build.LAUNCHES:
+    for name in BI_KERNELS:
         assert build.LAUNCHES[name] == before[name] + 1
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, **F32)
@@ -61,3 +70,115 @@ def test_fullstep_kernel_matches_plain(B, I, L, K, Kp, miss_rate,
     again = fb.admixture_fullstep_biallelic(*args, **kw)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+def _generic_args(seed, B, I, L, M, K, Kp, miss_rate, dev, small=2):
+    """eta [B, I, Kp], p2 [B, Kp, L*M] (zero pads, on a jagged allele
+    mask: 30 % of the loci have ``small`` valid slots), x2 [I, L*M] int8,
+    c [I], miss [I, L] int8 or None, mask [L, M]."""
+    rng = np.random.default_rng(seed)
+    n_all = np.where(rng.random(L) < 0.3, small, M)
+    mask = np.arange(M)[None, :] < n_all[:, None]
+    eta = np.zeros((B, I, Kp), np.float32)
+    eta[:, :, :K] = rng.dirichlet(np.full(K, 0.3), size=(B, I))
+    p = np.zeros((B, Kp, L, M), np.float32)
+    p[:, :K] = rng.dirichlet(np.full(M, 0.5), size=(B, K, L)) * mask
+    p[:, :K] /= p[:, :K].sum(axis=-1, keepdims=True)
+    miss = rng.binomial(2, miss_rate, size=(I, L))
+    freq = np.broadcast_to(mask / n_all[:, None], (I, L, M))
+    x = rng.multinomial(2 - miss, freq)
+    return (torch.tensor(eta, device=dev),
+            torch.tensor(p.reshape(B, Kp, L * M), device=dev),
+            torch.tensor(x.reshape(I, L * M), dtype=torch.int8, device=dev),
+            torch.tensor(miss.sum(1), dtype=torch.float32, device=dev),
+            torch.tensor(miss, dtype=torch.int8, device=dev)
+            if miss_rate else None,
+            torch.tensor(mask, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,L,M,K,Kp,miss_rate,compute_t,project", [
+    (1, 1001, 333, 3, 20, 32, 0.02, True, True),   # ragged I and L*M
+    (2, 777, 129, 8, 40, 64, 0.0, True, True),
+    (1, 300, 50, 40, 70, 96, 0.05, False, True),   # two slots per lane
+    (3, 300, 101, 4, 128, 128, 0.1, True, False),
+    (1, 40, 17, 5, 3, 32, 0.1, True, True),        # one row segment
+])
+def test_generic_fullstep_kernel_matches_plain(B, I, L, M, K, Kp, miss_rate,
+                                               compute_t, project):
+    dev = _cuda()
+    args = _generic_args(K, B, I, L, M, K, Kp, miss_rate, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=project,
+              compute_t=compute_t)
+    before = dict(build.LAUNCHES)
+    got = fs.admixture_fullstep(*args, **kw)
+    ref = fs.admixture_fullstep_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for name in GENERIC_KERNELS:
+        assert build.LAUNCHES[name] == before[name] + 1
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **F32)
+    eta_new, _, p_new = got
+    assert (eta_new[..., K:] == 0).all() and (p_new[:, K:] == 0).all()
+    assert (p_new[..., ~args[-1]] == 0).all()
+    # the kernels are deterministic: no atomics, fixed-order partial sums
+    again = fs.admixture_fullstep(*args, **kw)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+def test_generic_zero_mass_cluster_is_uniform():
+    """A real cluster with no mass gets 1/n_alleles on every valid lane."""
+    dev = _cuda()
+    eta, p2, x2, c, miss, mask = _generic_args(5, 1, 500, 64, 6, 5, 32,
+                                               0.05, dev, small=3)
+    eta[..., 2] = 0.0
+    eta /= eta.sum(dim=-1, keepdim=True)
+    got = fs.fullstep_cols(eta, p2, x2, miss, mask, k_true=5, plb=1e-8,
+                           project=True)
+    ref = fs.fullstep_cols_reference(eta, p2, x2, miss, mask, k_true=5,
+                                     plb=1e-8, project=True)
+    torch.testing.assert_close(got, ref, **F32)
+    want = torch.where(mask, 1.0 / mask.sum(dim=1, keepdim=True), 0.0)
+    torch.testing.assert_close(got[0, 2], want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_generic_sweep_and_a0_chain_match_plain():
+    """finish=False: the sweep statistics, and an a0 / emit_a chain of two
+    launches, against their plain versions."""
+    dev = _cuda()
+    eta, p2, x2, c, miss, mask = _generic_args(6, 2, 999, 210, 4, 20, 32,
+                                               0.02, dev)
+    got = fs.admixture_sweep_stats(eta, p2, x2)
+    ref = fs.admixture_sweep_stats_reference(eta, p2, x2)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **F32)
+    kw = dict(k_true=20, lb=0.01, project=True)
+    h = 100 * 4
+    halves = [(p2[..., :h].contiguous(), x2[:, :h].contiguous()),
+              (p2[..., h:].contiguous(), x2[:, h:].contiguous())]
+    A, _ = fs.fullstep_rows(eta, *halves[0], c, finish=False, **kw)
+    A_ref, _ = fs.fullstep_rows_reference(eta, *halves[0], c, finish=False,
+                                          **kw)
+    torch.testing.assert_close(A, A_ref, **F32)
+    e2, t2 = fs.fullstep_rows(eta, *halves[1], c, A, **kw)
+    e2_ref, t2_ref = fs.fullstep_rows_reference(eta, *halves[1], c, A_ref,
+                                                **kw)
+    torch.testing.assert_close(e2, e2_ref, **F32)
+    torch.testing.assert_close(t2, t2_ref, **F32)
+
+
+@pytest.mark.cuda
+def test_generic_kernels_refuse_kp160():
+    dev = _cuda()
+    eta = torch.zeros(1, 8, 160, device=dev)
+    p2 = torch.zeros(1, 160, 12, device=dev)
+    x2 = torch.zeros(8, 12, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+        fs.fullstep_rows(eta, p2, x2, k_true=150, lb=0.0, project=False)
+    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+        fs.fullstep_cols(eta, p2, x2, None,
+                         torch.ones(4, 3, dtype=torch.bool, device=dev),
+                         k_true=150)

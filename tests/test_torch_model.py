@@ -39,6 +39,12 @@ def _dataset(seed, K=3, I=40, L=60, M=2, missing_rate=0.1):
     return simulate_admixture_fast(rng, Q, P, missing_rate=missing_rate)
 
 
+def _biallelic(ds):
+    """The panel with both allele slots of every locus valid (monomorphic
+    loci keep an unobserved second allele): the biallelic layout."""
+    return dataset_from_counts(ds.counts, ds.miss, ds.ploidy)
+
+
 def _warm(seed, ds, K):
     """Random full-layout params on the dataset's allele mask."""
     rng = np.random.default_rng(seed)
@@ -73,7 +79,7 @@ def test_em_step_matches_jax_f64(M, missing_rate):
 def test_log_likelihoods_match_jax():
     """log_likelihood (full layout) and log_likelihood_bi_repr (p0
     layout, K-padded) agree with JAX and with each other to 1e-10."""
-    ds = _dataset(4, missing_rate=0.05)
+    ds = _biallelic(_dataset(4, missing_rate=0.05))
     K = 3
     eta, p = _warm(5, ds, K)
     jll, jsc = jadm.log_likelihood(JaxParams(eta=jnp.asarray(eta),
@@ -135,7 +141,9 @@ def test_convert_roundtrips_exactly():
     back = params_from_numpy(eta_pad, p0_pad, n_rows=30, n_loci=20)
     assert (back.eta.numpy() == eta).all() and (back.p.numpy() == p0).all()
     ds = _dataset(6)
-    md = model_data_from_numpy(ds.counts, ds.miss, ds.mask, ds.n_alleles)
+    assert (ds.n_alleles == 1).any()         # monomorphic loci: not biallelic
+    bi = _biallelic(ds)
+    md = model_data_from_numpy(bi.counts, bi.miss, bi.mask, bi.n_alleles)
     assert (md.x.numpy() == ds.counts).all()
     assert (md.x0.numpy() == ds.counts[:, :, 0]).all()
     assert (md.x1.numpy() == ds.counts[:, :, 1]).all()
@@ -143,6 +151,11 @@ def test_convert_roundtrips_exactly():
     # the counts are stored once: x is a view of the two planes
     assert md.x.data_ptr() == md.x0.data_ptr()
     assert (md.c.numpy() == ds.miss.sum(axis=1)).all()
+    # any other panel keeps x contiguous, x_lanes its [I, L*M] view
+    md = model_data_from_numpy(ds.counts, ds.miss, ds.mask, ds.n_alleles)
+    assert md.x0 is None and md.x.is_contiguous()
+    assert md.x_lanes.data_ptr() == md.x.data_ptr()
+    assert (md.x_lanes.numpy() == ds.counts.reshape(ds.I, -1)).all()
     back = dataset_from_counts(ds.counts, ds.miss, ds.ploidy)
     assert (back.counts == ds.counts).all() and (back.miss == ds.miss).all()
     assert back.ploidy == ds.ploidy and (back.n_alleles == 2).all()
@@ -186,6 +199,7 @@ def test_import_leaves_jax_out():
             "multiclust_tpu_torch.model.admixture",
             "multiclust_tpu_torch.ops.simplex",
             "multiclust_tpu_torch.ops.build",
+            "multiclust_tpu_torch.ops.fullstep",
             "multiclust_tpu_torch.ops.fullstep_bi",
             "multiclust_tpu_torch.opt.em", "multiclust_tpu_torch.opt.driver",
             "multiclust_tpu_torch.init.random",
