@@ -1,6 +1,6 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: the admixture main path at
-the full panel width, through its hand-written CUDA kernels, for biallelic
-and for multi-allelic panels.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the admixture and mixture
+main paths at the full panel width, through their hand-written CUDA
+kernels, for biallelic and for multi-allelic panels.
 
 Run from the root of a checkout with ``python3 chip_smoke.py``.  Phases,
 each raising on failure:
@@ -27,7 +27,20 @@ each raising on failure:
    SQUAREM), with the generic kernels' launch counts; then a small
    warm-start M=5 fit held to the float64 CPU path;
 8. generic CLI: a 512 x 200 STRUCTURE file with 3-6 alleles per locus and
-   5 % missing, SQUAREM from Rand-EM starts.
+   5 % missing, SQUAREM from Rand-EM starts;
+9. mixture kernels: the biallelic mixture step (rows pass, columns pass,
+   eta finish, p0 epilogue) and the sweep statistics against their plain
+   versions at I=16384, L=2048, K=20 (Kp=32), chain batches 1 and 4,
+   missing 0 % (one stream, the ploidy fold) and 2 % (two streams); each
+   pass alone at the fit's shape;
+10. mixture fits: ``api.fit_dataset(admixture=False)`` on a 16384 x 2048,
+   K=20 biallelic panel simulated under the mixture model (plain EM with
+   the adaptive interval and SQUAREM, missing-free; plain EM with 1 %
+   missing), with the mixture kernels' launch counts; a small warm-start
+   fit held to the float64 CPU path; one M=4 mixture fit through the plain
+   route (its eta and p finish on the card);
+11. mixture CLIs: a 1024 x 1000, K=3 STRUCTURE file with 5 % missing,
+   fitted without -a and with -a -c.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -55,6 +68,10 @@ GENERIC_KERNELS = ("mc_fullstep_rows", "mc_fullstep_cols", "mc_fullstep_p")
 # the sweep statistics are the generic kernels with finish=False
 SWEEP_TPU = {"admixture_sweep_fused": "multiclust_tpu/ops/kernels.py:1510",
              "admixture_sweep_stats": "multiclust_tpu/ops/kernels.py:1593"}
+MIX_TPU = "multiclust_tpu/ops/kernels.py:1215"
+MIX_SWEEP_TPU = "multiclust_tpu/ops/kernels.py:1361"
+MIX_SOURCE = "multiclust_tpu_torch/csrc/mixture_bi.cu"
+MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_eta", "mc_mix_p")
 OUT_FILES = ("sim.str.admix.K=3.out.txt", "sim.str.admix.K=3.etaik.txt",
              "sim.str.admix.K=3.pklm.txt", "sim.str_admix_popq_3.popq",
              "sim.str_admix_indivq_3.indivq")
@@ -173,16 +190,18 @@ def simulated_counts(rng, I, L, K, miss_rate):
 def check_fit(out, wall, label, where):
     res = out.best
     eta, p = res.best_params
-    assert np.isfinite(res.max_logL) and not res.mono_viol, label
+    assert np.isfinite(res.max_logL) and not res.mono_viol, \
+        (label, res.max_logL, res.mono_viol, res.n_iter_all)
     assert not res.any_failed, label
     ds = out.dataset
-    assert eta.shape == (ds.I, K_FULL)
+    # the mixture shares one K-vector eta across individuals
+    assert eta.shape == ((ds.I, K_FULL) if eta.dim() == 2 else (K_FULL,))
     assert p.shape == (K_FULL, ds.L, ds.M)
     mask = torch.as_tensor(ds.mask, device=p.device)
     lb = 1e-8 * (1 - 1e-6)
     assert float(eta.min()) >= lb and float(p[:, mask].min()) >= lb, label
     assert (p[:, ~mask] == 0).all(), label
-    torch.testing.assert_close(eta.sum(dim=1), torch.ones_like(eta[:, 0]),
+    torch.testing.assert_close(eta.sum(dim=-1), torch.ones_like(eta[..., 0]),
                                rtol=0, atol=1e-5)
     # the masked lanes are 0, so the sum runs over the valid lanes
     torch.testing.assert_close(p.sum(dim=2), torch.ones_like(p[..., 0]),
@@ -541,13 +560,265 @@ def phase_cli_generic(build, where):
           f"on {where}", flush=True)
 
 
+def mixture_counts(seed, I, L, K, miss_rate, dev, spread=None):
+    """Mixture-model genotypes drawn on ``dev`` from ``seed``: individual i
+    belongs to cluster z_i ~ eta, and each observed copy carries allele 0
+    with probability P0[z_i, l].  P0 is uniform on [0.1, 0.9] per cluster,
+    or with ``spread`` one shared locus frequency plus N(0, spread) per
+    cluster (weakly separated clusters).  Returns numpy counts [I, L, 2],
+    miss [I, L] and z."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eta = rng.dirichlet(np.full(K, 5.0))
+    if spread is None:
+        P0 = rng.uniform(0.1, 0.9, size=(K, L))
+    else:
+        P0 = np.clip(rng.uniform(0.2, 0.8, size=L)
+                     + rng.normal(0.0, spread, size=(K, L)), 0.05, 0.95)
+    P0 = torch.tensor(P0, dtype=torch.float32, device=dev)
+    z = torch.tensor(rng.choice(K, size=I, p=eta), device=dev)
+    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
+            < miss_rate).sum(dim=-1)
+    x0 = torch.zeros((I, L), dtype=torch.int64, device=dev)
+    for a in range(2):
+        u = torch.rand((I, L), generator=gen, device=dev)
+        x0 += (u < P0[z]) & (a < 2 - miss)
+    counts = torch.stack([x0, 2 - miss - x0], dim=-1)
+    return counts.cpu().numpy(), miss.cpu().numpy(), z.cpu().numpy()
+
+
+def mixture_step_inputs(seed, B, I, L, K, Kp, miss_rate, dev):
+    """Kernel-route inputs on ``dev``, K-padded as model/mixture.py builds
+    them (pads: lp 0, bias -1e30): lp0 [B, Kp, L], x0 int8 [I, L], bias
+    [B, Kp], and lp1 / x1 with missing data (two streams); missing-free
+    inputs fold x1 = 2 - x0 into lp0 = log p0 - log p1 and the bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p0 = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
+    eta = torch.rand((B, K), generator=gen, device=dev) + 0.1
+    eta /= eta.sum(dim=-1, keepdim=True)
+    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
+            < miss_rate).sum(dim=-1)
+    x0 = sum(((torch.rand((I, L), generator=gen, device=dev) < 0.5)
+              & (a < 2 - miss)).to(torch.int8) for a in range(2))
+    lp0 = torch.zeros((B, Kp, L), device=dev)
+    bias = torch.full((B, Kp), -1e30, device=dev)
+    if not miss_rate:
+        lp0[:, :K] = torch.log(p0) - torch.log1p(-p0)
+        bias[:, :K] = 2 * torch.log1p(-p0).sum(dim=-1) + torch.log(eta)
+        return lp0, x0, bias, None, None
+    lp1 = torch.zeros_like(lp0)
+    lp0[:, :K], lp1[:, :K] = torch.log(p0), torch.log1p(-p0)
+    bias[:, :K] = torch.log(eta)
+    return lp0, x0, bias, lp1, (2 - miss - x0).to(torch.int8)
+
+
+def phase_mixture_kernels(mb, dev, where):
+    """The mixture step and the sweep against their plain versions at the
+    full shape, then each pass alone at the fit's shape (chain batch 2,
+    one stream) for the kernels' record."""
+    K, Kp = K_FULL, 32
+    errs = {"rows": 0.0, "cols": 0.0, "eta": 0.0, "p": 0.0, "sweep": 0.0}
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
+    for seed, (B, miss_rate) in enumerate(
+            [(B, m) for B in (1, 4) for m in (0.0, 0.02)]):
+        args = mixture_step_inputs(60 + seed, B, I_FULL, L_FULL, K, Kp,
+                                   miss_rate, dev)
+        got = mb.mixture_fullstep_biallelic(*args, **kw)
+        ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
+        torch.cuda.synchronize()
+        e_eta, e_t, e_p = (max_err(g, r) for g, r in zip(got, ref))
+        assert (got[0][:, K:] == 0).all()
+        errs["eta"] = max(errs["eta"], e_eta)
+        errs["rows"] = max(errs["rows"], e_t)
+        errs["p"] = max(errs["p"], e_p)
+        sweep = mb.mixture_sweep_stats(*args)
+        sweep_ref = mb.mixture_sweep_stats_reference(*args)
+        torch.cuda.synchronize()
+        e_sw = max(max_err(g, r) for g, r in zip(sweep, sweep_ref)
+                   if g is not None)
+        errs["sweep"] = max(errs["sweep"], e_sw)
+        k_ms = median_ms(lambda: mb.mixture_fullstep_biallelic(*args, **kw))
+        p_ms = median_ms(lambda: mb.mixture_fullstep_biallelic_reference(
+            *args, **kw))
+        cells = B * I_FULL * L_FULL
+        print(f"mixture step B={B} miss={miss_rate:.2f}: max|d| "
+              f"eta'={e_eta:.3e} t={e_t:.3e} p0'={e_p:.3e} sweep={e_sw:.3e} "
+              f"(rtol {RTOL}, atol {ATOL}); kernel {k_ms:.3f} ms "
+              f"({cells / k_ms / 1e6:.2f} Gcells/s), plain {p_ms:.3f} ms "
+              f"({cells / p_ms / 1e6:.2f} Gcells/s) on {where}", flush=True)
+        del args, got, ref, sweep, sweep_ref
+        torch.cuda.empty_cache()
+
+    # each pass alone at the fit's shape (chain batch 2, missing-free)
+    lp0, x0, bias, _, _ = mixture_step_inputs(70, 2, I_FULL, L_FULL, K, Kp,
+                                              0.0, dev)
+    v, _ = mb.mixture_rows(lp0, x0, bias)
+    part, vpart = mb.mixture_partials(v, x0)
+    _, vtot = mb.mixture_eta(vpart, k_true=K, lb=1e-8, project=True)
+    eta_kw = dict(k_true=K, lb=1e-8, project=True)
+    p_kw = dict(plb=1e-8, ploidy=2, project=True)
+    passes = {
+        "rows": (lambda: mb.mixture_rows(lp0, x0, bias),
+                 lambda: mb.mixture_rows_reference(lp0, x0, bias)),
+        # the partials, compared summed over segments
+        "cols": (lambda: tuple(t.sum(dim=1)
+                               for t in mb.mixture_partials(v, x0)),
+                 lambda: tuple(t[:, 0]
+                               for t in mb.mixture_cols_reference(v, x0))),
+        "eta": (lambda: mb.mixture_eta(vpart, **eta_kw),
+                lambda: mb.mixture_eta_reference(vpart, **eta_kw)),
+        "p": (lambda: (mb.mixture_p(part, vtot, **p_kw),),
+              lambda: (mb.mixture_p_reference(part, vtot, **p_kw),)),
+        "sweep": (lambda: mb.mixture_sweep_stats(lp0, x0, bias)[:3],
+                  lambda: mb.mixture_sweep_stats_reference(lp0, x0,
+                                                           bias)[:3]),
+    }
+    ms = {}
+    for name, (kernel, plain) in passes.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max(max_err(g, r) for g, r in zip(got, ref))
+        errs[name] = max(errs[name], err)
+        ms[name] = (median_ms(kernel), median_ms(plain))
+        print(f"mixture pass {name} B=2 miss=0.00: max|d| {err:.3e}; kernel "
+              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms on {where}",
+              flush=True)
+    return errs, ms
+
+
+def phase_fit_mixture(build, dev, where):
+    """Full-size mixture fits through the kernel route; every mixture
+    kernel launches at least once per EM step of the chain batch."""
+    from multiclust_tpu_torch.api import fit_dataset
+    from multiclust_tpu_torch.convert import dataset_from_counts
+
+    base = dict(admixture=False, min_K=K_FULL, max_K=K_FULL, n_init=2,
+                max_iter=100, seed=3, verbosity=2)
+    panels = {}
+    for miss_rate in (0.0, 0.01):
+        counts, miss, _ = mixture_counts(80, I_FULL, L_FULL, K_FULL,
+                                         miss_rate, dev)
+        panels[miss_rate] = dataset_from_counts(counts, miss, 2)
+    assert not panels[0.0].miss.any() and panels[0.01].miss.any()
+
+    def timed_fit(label, miss_rate, **kw):
+        t0 = time.time()
+        out = fit_dataset(panels[miss_rate], device=dev, **base, **kw)
+        torch.cuda.synchronize()
+        return check_fit(out, time.time() - t0, label, where)
+
+    build.reset_launch_counts()
+    fits = [timed_fit("mixture plain EM", 0.0),
+            timed_fit("mixture SQUAREM", 0.0, accel_scheme=1),
+            timed_fit("mixture plain EM 1 % missing", 0.01)]
+    launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
+    print(f"launches in the mixture fits: {dict(build.LAUNCHES)}",
+          flush=True)
+    # one launch of each kernel serves the whole chain batch (2 lanes)
+    steps = sum(r.n_iter_all for r in fits) // 2
+    for name, n in launches.items():
+        assert n >= steps > 0, (name, n, steps)
+    assert not any(build.LAUNCHES[name]
+                   for name in BI_KERNELS + GENERIC_KERNELS)
+    return launches
+
+
+def phase_reference_mixture(build, dev):
+    """A small warm-start mixture fit through the kernels, held to the
+    plain float64 step on the CPU over at most 30 iterations."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+    from multiclust_tpu_torch.model.common import EMConfig
+    from multiclust_tpu_torch.opt.driver import fit
+
+    I, L, K = 600, 500, 3
+    # weakly separated clusters keep the posteriors soft, so the fit runs
+    # its 30 iterations instead of settling in a few
+    counts, miss, _ = mixture_counts(81, I, L, K, 0.05, "cpu", spread=0.04)
+    mask, n_all = np.ones((L, 2), bool), np.full(L, 2)
+    rng = np.random.default_rng(82)
+    eta = rng.dirichlet(np.full(K, 3.0))
+    p0 = rng.uniform(0.2, 0.8, size=(K, L))
+    p = np.stack([p0, 1 - p0], axis=2)
+    base = dict(admixture=False, has_missing=True, biallelic=True, ploidy=2,
+                max_iter=30, abs_error=1e-12, eta_lower_bound=1e-8,
+                p_lower_bound=1e-8)
+    cpu = fit(params_from_numpy(eta, p),
+              model_data_from_numpy(counts, miss, mask, n_all),
+              EMConfig(**base))
+    build.reset_launch_counts()
+    gpu = fit(params_from_numpy(eta, p, device=dev, dtype=torch.float32),
+              model_data_from_numpy(counts, miss, mask, n_all, device=dev,
+                                    dtype=torch.float32),
+              EMConfig(use_pallas="on", **base))
+    print(f"reference mixture fit: kernel path logL {gpu.logL:.4f} after "
+          f"{gpu.n_iter} iterations vs float64 CPU {cpu.logL:.4f} after "
+          f"{cpu.n_iter}", flush=True)
+    assert build.LAUNCHES["mc_mix_rows"] >= gpu.n_iter > 20
+    assert gpu.n_iter <= 31 and cpu.n_iter <= 31
+    assert abs(gpu.logL - cpu.logL) < 0.1
+
+
+def phase_fit_mixture_generic(build, dev, where):
+    """One M=4 mixture fit through the plain route: products in torch, the
+    eta finish and the p epilogue on the card."""
+    from multiclust_tpu_torch.api import fit_dataset
+    from multiclust_tpu_torch.convert import dataset_from_counts
+
+    counts, miss, _ = generic_counts(83, I_FULL, L_FULL,
+                                     np.full(L_FULL, M_FULL), K_FULL, 0.01,
+                                     dev)
+    ds = dataset_from_counts(counts.cpu().numpy(), miss.cpu().numpy(), 2)
+    build.reset_launch_counts()
+    t0 = time.time()
+    out = fit_dataset(ds, device=dev, admixture=False, min_K=K_FULL,
+                      max_K=K_FULL, n_init=2, max_iter=100, seed=3,
+                      verbosity=2)
+    torch.cuda.synchronize()
+    res = check_fit(out, time.time() - t0, "mixture M=4 plain EM", where)
+    print(f"launches in the M=4 mixture fit: {dict(build.LAUNCHES)}",
+          flush=True)
+    steps = res.n_iter_all // 2
+    assert build.LAUNCHES["mc_mix_eta"] >= steps > 0
+    assert build.LAUNCHES["mc_fullstep_p"] >= steps
+    assert not build.LAUNCHES["mc_mix_rows"]
+
+
+def phase_cli_mixture(build, where):
+    """The CLI without -a (the mixture, through its kernels) and with
+    -a -c (constrained eta, on the collapsed data)."""
+    from multiclust_tpu_torch.cli import main
+
+    counts, miss, _ = mixture_counts(84, 1024, 1000, 3, 0.05, "cpu")
+    for flags in ([], ["-a", "-c"]):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "sim.str")
+            write_structure(path, counts, miss)
+            build.reset_launch_counts()
+            t0 = time.time()
+            rc = main(["-f", path, "-k", "3", "-n", "4", "-s", "1",
+                       "-d", tmp] + flags)
+            torch.cuda.synchronize()
+            assert rc == 0, rc
+            outs = [f for f in os.listdir(tmp) if f != "sim.str"]
+            assert len(outs) == 5, outs
+            assert all(os.path.getsize(os.path.join(tmp, f)) > 0
+                       for f in outs), outs
+        launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
+        if not flags:
+            assert all(n > 0 for n in launches.values()), launches
+        print(f"cli {' '.join(flags) or '(mixture)'}: rc 0 in "
+              f"{time.time() - t0:.2f} s, files {sorted(outs)}, launches "
+              f"{launches} on {where}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from multiclust_tpu_torch.ops import build, fullstep as fs, \
-        fullstep_bi as fb
+        fullstep_bi as fb, mixture_bi as mb
 
     dev = torch.device("cuda")
     where = card()
@@ -571,6 +842,11 @@ def main() -> int:
     launches.update(phase_fit_generic(build, dev, where))
     phase_reference_generic(dev)
     phase_cli_generic(build, where)
+    m_errs, m_ms = phase_mixture_kernels(mb, dev, where)
+    mix_launches = phase_fit_mixture(build, dev, where)
+    phase_reference_mixture(build, dev)
+    phase_fit_mixture_generic(build, dev, where)
+    phase_cli_mixture(build, where)
 
     kernels = [
         {"name": f"fullstep_bi_{name}", "route": "cuda", "source": SOURCE,
@@ -592,6 +868,21 @@ def main() -> int:
          "replaces": tpu, "launches": launches["mc_fullstep_rows"],
          "max_abs_err": sweep_err, "ms": sweep_ms[0],
          "plain_ms": sweep_ms[1]} for name, tpu in SWEEP_TPU.items()]
+    kernels += [
+        {"name": f"mixture_{name}", "route": "cuda", "source": MIX_SOURCE,
+         "replaces": MIX_TPU, "launches": mix_launches[f"mc_mix_{name}"],
+         "max_abs_err": m_errs[name], "ms": m_ms[name][0],
+         "plain_ms": m_ms[name][1]} for name in ("rows", "cols", "eta", "p")]
+    # the resident sweep's port is the mixture rows and columns passes
+    # with the raw epilogue (finish=False): its launches are the rows
+    # pass's launches in the mixture fits, its times and error those of
+    # one mixture_sweep_stats call
+    kernels.append(
+        {"name": "mixture_sweep_resident", "route": "cuda",
+         "source": MIX_SOURCE, "replaces": MIX_SWEEP_TPU,
+         "launches": mix_launches["mc_mix_rows"],
+         "max_abs_err": m_errs["sweep"], "ms": m_ms["sweep"][0],
+         "plain_ms": m_ms["sweep"][1]})
     record = {"kernels": kernels}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

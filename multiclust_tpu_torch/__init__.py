@@ -1,4 +1,5 @@
-"""multiclust-tpu on PyTorch and CUDA: the admixture main path on one GPU.
+"""multiclust-tpu on PyTorch and CUDA: the admixture and mixture models on
+one GPU.
 
 A second package beside the JAX reference (``multiclust_tpu``), mirroring
 its layout module for module.  The JAX-free host layer of the reference
@@ -6,9 +7,10 @@ its layout module for module.  The JAX-free host layer of the reference
 ``model/likelihood``, ``cli.parse_args``) is imported, not copied; this
 package imports ``torch`` and never ``jax``.
 
-The biallelic admixture EM step runs as a hand-written CUDA kernel pair
-(``csrc/fullstep_bi.cu``, built with nvcc at first use into ``build/``);
-on CPU tensors every kernel wrapper runs its plain PyTorch version.
+The EM steps run as hand-written CUDA kernels (``csrc/*.cu``: biallelic
+and generic admixture, biallelic mixture; built with nvcc at first use
+into ``build/``); on CPU tensors every kernel wrapper runs its plain
+PyTorch version.
 """
 
 __version__ = "0.1.0"

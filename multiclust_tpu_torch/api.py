@@ -29,7 +29,9 @@ class FitOutput:
 
     @property
     def Q(self) -> np.ndarray:
-        """Fitted admixture proportions of the selected K."""
+        """Fitted mixing proportions of the selected K: [I, K] admixture
+        proportions, or the shared [K] vector (mixture, constrained
+        eta)."""
         return self.best.best_params.eta.cpu().numpy()
 
     @property
@@ -50,8 +52,6 @@ def resolve_device(device) -> torch.device:
 def check_ported(opt: Options) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
     missing = [
-        (not opt.admixture, "the mixture model (no -a)", "12"),
-        (opt.eta_constrained, "constrained eta (-c)", "11"),
         (opt.n_bootstrap, "the bootstrap test (-b)", "15"),
         (opt.n_repeat != 1, "the repeat-timing harness (-w)", "16"),
         (opt.mesh_shape, "meshes (--mesh)", "17"),
@@ -83,7 +83,9 @@ def fit_dataset(ds: Dataset, opt: Optional[Options] = None, *,
     _, storage = device_policy(opt, device)
     md = model_data_from_dataset(ds, dtype=getattr(torch, opt.dtype),
                                  device=device, storage_dtype=storage)
-    codes = codes_from_counts(md.x, md.miss, ds.ploidy)
+    # allele codes seed the admixture starts only
+    codes = (codes_from_counts(md.x, md.miss, ds.ploidy) if opt.admixture
+             else None)
 
     def n_parameters(K):
         return ds.n_parameters(K, opt.admixture, opt.eta_constrained)

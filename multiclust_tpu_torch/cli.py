@@ -85,11 +85,18 @@ def _main(argv: Optional[List[str]] = None) -> int:
     _, storage = device_policy(opt, device)
     md = model_data_from_dataset(ds, dtype=dtype, device=device,
                                  storage_dtype=storage)
-    codes = codes_from_counts(md.x, md.miss, ds.ploidy)
+    # allele codes seed the admixture starts only
+    codes = (codes_from_counts(md.x, md.miss, ds.ploidy) if opt.admixture
+             else None)
 
     warm = None
     if opt.qfile and opt.pfile:
-        eta = read_qfile(opt.qfile, ds.I, opt.max_K, per_individual=True)
+        # per-individual eta for unconstrained admixture, a K-vector for
+        # the mixture and constrained eta (initialize_model,
+        # rnd_init.c:74-76)
+        per_individual = opt.admixture and not opt.eta_constrained
+        eta = read_qfile(opt.qfile, ds.I, opt.max_K,
+                         per_individual=per_individual)
         p = read_pfile(opt.pfile, ds.L, opt.max_K)
         if ds.M != p.shape[-1]:
             # the reference's read_pfile assumes biallelic loci
@@ -133,20 +140,25 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
 def _write_outputs(opt: Options, ds, md, K: int, mres) -> None:
     from multiclust_tpu.io import writers
-    from multiclust_tpu_torch.model.admixture import posterior_allele_mass
-    from multiclust_tpu_torch.runtime.multistart import hard_partition
+    from multiclust_tpu_torch.runtime.multistart import posterior_mass
 
     params = mres.best_params
     eta = params.eta.cpu().numpy().astype(np.float64)
     p = params.p.cpu().numpy().astype(np.float64)
-    count_K = np.bincount(hard_partition(params, md), minlength=K)
+    mass = posterior_mass(params, md, opt.admixture, opt.eta_constrained)
+    mass = mass.cpu().numpy().astype(np.float64)
+    count_K = np.bincount(np.argmax(mass, axis=1), minlength=K)
     writers.write_file_detail(opt, ds, K, mres.max_logL,
                               mres.ever_converged, mres.aic, mres.bic,
                               count_K, eta, p)
-    dik = posterior_allele_mass(params, md).cpu().numpy().astype(np.float64)
-    writers.write_popq(opt, ds, K, dik / (ds.ploidy * ds.L))
-    writers.write_indivq(opt, ds, K,
-                         writers.admixture_indivq_mass(opt, ds, eta, dik))
+    if opt.admixture:
+        writers.write_popq(opt, ds, K, mass / (ds.ploidy * ds.L))
+        writers.write_indivq(
+            opt, ds, K, writers.admixture_indivq_mass(opt, ds, eta, mass))
+    else:
+        # the mixture's popq and indivq are its posterior
+        writers.write_popq(opt, ds, K, mass)
+        writers.write_indivq(opt, ds, K, mass)
 
 
 if __name__ == "__main__":

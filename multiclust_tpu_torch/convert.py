@@ -1,9 +1,12 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 Parameters come in either layout of the JAX package: full (eta [.., I, K],
-p [.., K, L, M]) or the biallelic p0 layout (p [.., Kp, Lp]).  The JAX
+or the K-vector eta [.., K] of the mixture and of constrained eta; p
+[.., K, L, M]) or the biallelic p0 layout (p [.., Kp, Lp]).  The JAX
 engine pads rows and loci for its TPU tiles; ``n_rows``/``n_loci`` trim
-those pads, since the port keeps I and L as they are.
+those pads, since the port keeps I and L as they are.  A K-vector eta is
+told by its shape against p's (p has two more dims), and carries no rows
+to trim.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ def params_from_numpy(eta, p, *, device="cpu",
     """Numpy (or JAX) parameter arrays -> port Params on ``device``."""
     eta = np.asarray(eta)
     p = np.asarray(p)
-    if n_rows is not None:
+    eta_vector = p.ndim == eta.ndim + 2
+    if n_rows is not None and not eta_vector:
         eta = eta[..., :n_rows, :]
     if n_loci is not None:
         p = p[..., :n_loci] if p.ndim == eta.ndim else p[..., :n_loci, :]

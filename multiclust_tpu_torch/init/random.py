@@ -1,5 +1,6 @@
-"""Admixture model initialization (multiclust_tpu/init/random.py,
-rnd_init.c).
+"""Model initialization (multiclust_tpu/init/random.py, rnd_init.c): the
+mixture model's individual partitions and the admixture model's allele
+partitions.
 
 Every draw comes from an explicit ``torch.Generator`` on the data's
 device.  Its streams differ from JAX's threefry keys (and from the
@@ -10,7 +11,10 @@ deterministic check.
 Documented deviation kept from the JAX package: ``random_allele_center``
 falls back to the random allele partition when no locus can supply K
 centers (every SNP panel at K > 2), where the reference's "random" starts
-would all be identical.
+would all be identical.  So is its deviation from the reference's
+``initialize_parameters_mixture`` (plain add-one smoothing) and from its
+missing-data correction of ``random_individual_center`` (against center
+k's missing counts, not center 0's).
 """
 
 from __future__ import annotations
@@ -21,6 +25,61 @@ from multiclust_tpu.config import InitMethod, InitProcedure
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params
 
 Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# mixture model
+
+def random_individual_partition(gen: torch.Generator, md: ModelData,
+                                K: int) -> Tensor:
+    """I_K[i] ~ Uniform{0..K-1} (rnd_init.c:173-179)."""
+    return torch.randint(0, K, (md.I,), generator=gen, device=md.device)
+
+
+def random_individual_center(gen: torch.Generator, md: ModelData,
+                             K: int) -> Tensor:
+    """K distinct random centers; each individual joins the center nearest
+    in L1 distance on the counts, with the missing-data correction
+    (rnd_init.c:192-259):
+        dist[i, k] = sum_lm |x_i - x_c| - sum_l |miss_i - miss_c| / n_l
+    over the loci with any missing copy; each center joins its own
+    cluster."""
+    dev = md.device
+    if K == 1:
+        return torch.zeros(md.I, dtype=torch.int64, device=dev)
+    centers = torch.randperm(md.I, generator=gen, device=dev)[:K]
+    x = md.x.to(md.dtype)
+    missf = md.miss.to(md.dtype)
+    denom = torch.clamp(md.n_alleles.to(md.dtype), min=1.0)
+    has_miss = missf.max(dim=0).values > 0            # [L]
+    dists = []
+    for c in centers.tolist():                        # one [I, L, M] at a time
+        d = (x - x[c]).abs().sum(dim=(1, 2))
+        corr = torch.where(has_miss, (missf - missf[c]).abs() / denom,
+                           torch.zeros_like(missf)).sum(dim=1)
+        dists.append(d - corr)
+    assign = torch.argmin(torch.stack(dists, dim=1), dim=1)
+    assign[centers] = torch.arange(K, device=dev)
+    return assign
+
+
+def parameters_from_partition_mixture(I_K: Tensor, md: ModelData,
+                                      K: int) -> Params:
+    """Add-one-smoothed counts given a hard partition
+    (initialize_parameters_mixture, rnd_init.c:268-339): eta [K], p [K, L,
+    M].  Counts are exact integers, so bincounts and an index sum give the
+    JAX package's one-hot sums."""
+    dtype = md.dtype
+    eta = (1.0 + torch.bincount(I_K, minlength=K).to(dtype)) / (md.I + K)
+    pc = torch.zeros((K, md.L * md.M), dtype=dtype, device=md.device)
+    pc.index_add_(0, I_K, md.x2d)
+    pc = torch.where(md.mask[None], pc.reshape(K, md.L, md.M) + 1.0,
+                     torch.zeros((), dtype=dtype, device=md.device))
+    return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
+
+
+# ---------------------------------------------------------------------------
+# admixture model
 
 
 def random_allele_partition(gen: torch.Generator, md: ModelData,
@@ -62,10 +121,13 @@ def random_allele_center(gen: torch.Generator, md: ModelData,
 
 
 def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
-                                     md: ModelData, K: int) -> Params:
+                                     md: ModelData, K: int,
+                                     eta_constrained: bool = False
+                                     ) -> Params:
     """Add-one-smoothed counts given per-copy cluster labels
-    (initialize_parameters_admixture, rnd_init.c:590-705).  Counts are
-    exact integers, so bincounts give the JAX package's one-hot sums."""
+    (initialize_parameters_admixture, rnd_init.c:590-705): eta [I, K], or
+    the shared eta [K] under ``eta_constrained``.  Counts are exact
+    integers, so bincounts give the JAX package's one-hot sums."""
     dtype = md.dtype
     I, L, P = codes.shape
     M = md.M
@@ -75,7 +137,10 @@ def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
     copies.scatter_add_(1, lab.reshape(I, -1),
                         torch.ones((I, L * P), dtype=dtype,
                                    device=codes.device))
-    eta = (1.0 + copies[:, :K]) / (L * P + K)
+    if eta_constrained:
+        eta = (1.0 + copies[:, :K].sum(dim=0)) / (I * L * P + K)
+    else:
+        eta = (1.0 + copies[:, :K]) / (L * P + K)
 
     slot = torch.where(valid, codes, M)               # M = discard bin
     loci = torch.arange(L, device=codes.device)[None, :, None]
@@ -87,12 +152,23 @@ def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
 
 
 def random_initialize(gen: torch.Generator, md: ModelData, K: int,
-                      method: InitMethod, codes: Tensor) -> Params:
+                      method: InitMethod, codes: Tensor = None, *,
+                      admixture: bool = True,
+                      eta_constrained: bool = False) -> Params:
+    """One random start of the admixture model (allele partitions, from
+    ``codes``) or of the mixture model (individual partitions)."""
+    if admixture:
+        if method == InitMethod.RANDOM_PARTITION:
+            labels = random_allele_partition(gen, md, codes, K)
+        else:
+            labels = random_allele_center(gen, md, codes, K)
+        return parameters_from_allele_partition(labels, codes, md, K,
+                                                eta_constrained)
     if method == InitMethod.RANDOM_PARTITION:
-        labels = random_allele_partition(gen, md, codes, K)
+        part = random_individual_partition(gen, md, K)
     else:
-        labels = random_allele_center(gen, md, codes, K)
-    return parameters_from_allele_partition(labels, codes, md, K)
+        part = random_individual_center(gen, md, K)
+    return parameters_from_partition_mixture(part, md, K)
 
 
 def rand_em_chunk(md: ModelData, n: int, hbm_budget: float = 2e9) -> int:
@@ -105,44 +181,51 @@ def rand_em_chunk(md: ModelData, n: int, hbm_budget: float = 2e9) -> int:
 
 def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
                        cfg: EMConfig, method: InitMethod,
-                       n_rand_em_init: int, codes: Tensor,
-                       chunk: int = 0) -> Params:
+                       n_rand_em_init: int, codes: Tensor = None,
+                       md_score: ModelData = None, chunk: int = 0
+                       ) -> Params:
     """Rand-EM: run n starts through one EM step and keep the start whose
-    refined logL is best (randem_initialize_admixture, rnd_init.c:412-444).
-    The winning START, not its refined parameters, seeds the fit.
-    Candidates are scored in batches of ``chunk`` lanes, in the layout the
-    fit will run (the p0 layout through the kernel when it is active)."""
+    refined logL is best (randem_initialize_mixture, rnd_init.c:123-161;
+    randem_initialize_admixture :412-444).  The winning START, not its
+    refined parameters, seeds the fit.  Candidates are drawn on ``md`` and
+    scored on ``md_score`` (the collapsed data of a constrained-eta fit;
+    ``md`` by default) in batches of ``chunk`` lanes, in the layout the fit
+    will run (the p0 layout through the kernel when it is active)."""
     from multiclust_tpu_torch.opt.em import model_em_step, \
         model_log_likelihood
     from multiclust_tpu_torch.runtime.multistart import _pad_k, _to_bi_repr
 
+    md_score = md if md_score is None else md_score
     n = n_rand_em_init if K > 1 else 1
-    c = chunk or rand_em_chunk(md, n)
-    cands = [random_initialize(gen, md, K, method, codes) for _ in range(n)]
+    c = chunk or rand_em_chunk(md_score, n)
+    cands = [random_initialize(gen, md, K, method, codes,
+                               admixture=cfg.admixture,
+                               eta_constrained=cfg.eta_constrained)
+             for _ in range(n)]
     lls = []
     for lo in range(0, n, c):
         batch = Params(eta=torch.stack([p.eta for p in cands[lo:lo + c]]),
                        p=torch.stack([p.p for p in cands[lo:lo + c]]))
         batch = _to_bi_repr(_pad_k(batch, cfg), cfg)
-        stepped, _, _ = model_em_step(batch, md, cfg)
-        lls.append(model_log_likelihood(stepped, md, cfg)[0])
+        stepped, _, _ = model_em_step(batch, md_score, cfg)
+        lls.append(model_log_likelihood(stepped, md_score, cfg)[0])
     return cands[int(torch.argmax(torch.cat(lls)))]
 
 
 def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
                method: InitMethod = InitMethod.RANDOM_CENTERS,
                procedure: InitProcedure = InitProcedure.NOTHING,
-               n_rand_em_init: int = 50, codes: Tensor = None) -> Params:
-    """One admixture start (initialize_model, rnd_init.c:54-89), unbatched
-    and unpadded: eta [I, K], p [K, L, M]."""
-    if not cfg.admixture or cfg.eta_constrained:
-        raise NotImplementedError(
-            "only the unconstrained admixture model is ported; see "
-            "ROADMAP.md queue 1, items 11-12")
+               n_rand_em_init: int = 50, codes: Tensor = None,
+               md_score: ModelData = None) -> Params:
+    """One start (initialize_model, rnd_init.c:54-89), unbatched and
+    unpadded: eta [I, K] (admixture) or [K] (mixture, constrained eta), p
+    [K, L, M].  ``md_score`` is where Rand-EM scores its candidates."""
     if procedure == InitProcedure.RAND_EM:
         return rand_em_initialize(gen, md, K, cfg, method, n_rand_em_init,
-                                  codes)
-    return random_initialize(gen, md, K, method, codes)
+                                  codes, md_score=md_score)
+    return random_initialize(gen, md, K, method, codes,
+                             admixture=cfg.admixture,
+                             eta_constrained=cfg.eta_constrained)
 
 
 def codes_from_counts(counts: Tensor, miss: Tensor, ploidy: int) -> Tensor:

@@ -10,7 +10,9 @@ w = x / (eta @ p) the whole EM step is four products,
 
 because sum_lm d_iklm = eta_ik (A_ik + c_i) and sum_i d_iklm = p_klm (B_klm
 + C_kl).  Every function takes a chain batch: eta [B, I, K] and p
-[B, K, L, M], or the biallelic p0 layout p [B, Kp, L].  logL values are
+[B, K, L, M], or the biallelic p0 layout p [B, Kp, L]; constrained eta
+(cfg.eta_constrained) is one K-vector per chain, eta [B, K], and its step
+reads only the column sums of the data.  logL values are
 float64 sums of the per-individual terms, returned with the RMS scale of
 those terms that the noise floor reads (opt/em.py).
 """
@@ -76,9 +78,7 @@ def em_step(params: Params, md: ModelData, cfg: EMConfig,
     INPUT params.  ``want_ll=False`` skips the logL terms and returns
     zeros (the blind steps of opt/em.blind_plain_steps)."""
     if cfg.eta_constrained:
-        raise NotImplementedError(
-            "constrained eta (-c) is not yet ported; see ROADMAP.md "
-            "queue 1, item 11")
+        return _em_step_constrained(params, md, cfg, want_ll)
     if cfg.bi_repr_active and is_bi_repr(params):
         return _em_step_bi_repr(params, md, cfg, want_ll)
     if cfg.use_pallas != "off" and params.p.dtype == torch.float32:
@@ -177,6 +177,48 @@ def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,
     return Params(eta=eta_new, p=p_new), ll, scale
 
 
+def _em_step_constrained(params: Params, md: ModelData, cfg: EMConfig,
+                         want_ll: bool = True):
+    """Constrained-eta step (eta [B, K] shared by every individual): the
+    data enter only through the column sums sum_i x_ilm and sum_i miss_il,
+    so ``md`` may be the collapsed 1-row data (collapse_for_constrained).
+    The logL terms are per allele lane."""
+    eta, p = params.eta, params.p                     # [B, K], [B,K,L,M]
+    nb, K = p.shape[0], p.shape[1]
+    p2 = p.reshape(nb, K, -1)                         # [B, K, LM]
+    colx = md.x2d.sum(dim=0)                          # [LM]
+    msum = md.miss.to(eta.dtype).sum(dim=0)           # [L]
+
+    denom = (eta[:, None, :] @ p2)[:, 0]              # [B, LM]
+    if want_ll:
+        t = torch.where(colx > 0, colx * safe_log(denom),
+                        torch.zeros_like(denom))
+        ll, scale = _ll_terms(t)
+    else:
+        ll, scale = _no_ll(eta)
+
+    S = _safe_div(colx, denom).reshape(nb, md.L, md.M) + msum[:, None]
+    S = torch.where(md.mask, S, torch.zeros_like(S)).reshape(nb, -1)
+
+    a = (p2 @ S[..., None])[..., 0]                   # [B, K]
+    eta_num = eta * a
+    eta_new = eta_num / eta_num.sum(dim=-1, keepdim=True)
+    if cfg.do_projection:
+        eta_new = _project_eta_rows(eta_new, cfg)
+    p_new = _normalize_p(p * S.reshape(nb, 1, md.L, md.M), md, cfg)
+    return Params(eta=eta_new, p=p_new), ll, scale
+
+
+def log_likelihood_constrained(params: Params, md: ModelData):
+    """logL of constrained-eta params (eta [B, K]) from the column sums;
+    ``md`` may be the collapsed data."""
+    eta, p = params.eta, params.p
+    denom = (eta[:, None, :] @ p.reshape(p.shape[0], p.shape[1], -1))[:, 0]
+    colx = md.x2d.sum(dim=0)
+    return _ll_terms(torch.where(colx > 0, colx * safe_log(denom),
+                                 torch.zeros_like(denom)))
+
+
 def log_likelihood(params: Params, md: ModelData):
     """logL of full-layout params (logL_admixture)."""
     eta, p = params.eta, params.p
@@ -186,12 +228,16 @@ def log_likelihood(params: Params, md: ModelData):
     return _ll_terms(t.sum(dim=-1))
 
 
-def posterior_allele_mass(params: Params, md: ModelData) -> Tensor:
+def posterior_allele_mass(params: Params, md: ModelData,
+                          eta_constrained: bool = False) -> Tensor:
     """dik[i, k] = sum_{l,m} d_iklm, expected allele copies sourced from
     cluster k, for unbatched full-layout params (partition_admixture,
-    write_file.c:350-382; indivq_admix :525-543; popq_admix :446-459)."""
+    write_file.c:350-382; indivq_admix :525-543; popq_admix :446-459).
+    ``eta_constrained``: eta is the shared K-vector."""
     p2 = params.p.reshape(params.p.shape[0], -1)
     eta = params.eta
+    if eta_constrained:
+        eta = eta[None, :].expand(md.I, -1)
     w = _safe_div(md.x2d.to(eta.dtype), eta @ p2)
     A = w @ p2.T
     return eta * (A + md.c.to(eta.dtype)[:, None])

@@ -1,11 +1,15 @@
 """Shared model-side containers and helpers (multiclust_tpu/model/common.py).
 
 The parameterization follows the reference: ``eta[I, K]`` per-individual
-admixture proportions and ``p[K, L, M]`` per-cluster allele frequencies on
-the padded dense allele axis.  The port writes the chain batch out as a
-leading dimension: the model functions take ``eta[B, I, K]`` and
-``p[B, K, L, M]`` (or the biallelic p0 layout ``p[B, Kp, L]``), where the
-JAX package vmaps over unbatched arrays.
+admixture proportions (a K-vector ``eta[K]`` for the mixture model and for
+constrained-eta admixture) and ``p[K, L, M]`` per-cluster allele
+frequencies on the padded dense allele axis.  The port writes the chain
+batch out as a leading dimension: the model functions take ``eta[B, I, K]``
+(or ``eta[B, K]``) and ``p[B, K, L, M]`` (or the biallelic p0 layout
+``p[B, Kp, L]``), where the JAX package vmaps over unbatched arrays.  A
+batched K-vector eta has as many dims as an unbatched per-individual one,
+so which it is follows from the EMConfig (the mixture, or
+``eta_constrained``), never from ``eta.ndim``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ Tensor = torch.Tensor
 class Params(NamedTuple):
     """Model parameters; ``map_params`` treats both fields uniformly."""
 
-    eta: Tensor  # [..., I, K]
+    eta: Tensor  # [..., I, K], or [..., K] (mixture, constrained eta)
     p: Tensor    # [..., K, L, M] full, or [..., Kp, L] p0 layout
 
     @property
@@ -159,12 +163,16 @@ class EMConfig(NamedTuple):
     monotonicity: str = "warn"
     # multiplier on the params-dtype rounding noise floor (opt/em.py)
     noise_factor: float = 8.0
-    # "on": the biallelic admixture step goes through the CUDA kernel pair
-    # (ops/fullstep_bi.py; its plain version for CPU tensors); "off": the
-    # plain four-matmul step (model/admixture._em_step_unconstrained)
+    # "on": float32 steps go through the CUDA kernels (admixture:
+    # ops/fullstep_bi.py or ops/fullstep.py; biallelic mixture:
+    # ops/mixture_bi.py; their plain versions for CPU tensors); "off":
+    # the plain matmul steps
     use_pallas: str = "off"
     has_missing: bool = True
     biallelic: bool = False
+    # allele copies per (i, l), pinned from the data (Options.synchronize):
+    # the missing-free biallelic mixture folds x1 = ploidy - x0
+    ploidy: int = 2
     # true cluster count when the params carry K-padded lanes (pads zero)
     k_true: int = 0
     # 1 = check stop() every iteration, N > 1 = every N-th, 0 = adaptive
@@ -176,6 +184,18 @@ class EMConfig(NamedTuple):
         return (self.use_pallas != "off" and self.admixture
                 and not self.eta_constrained and self.biallelic
                 and bool(self.k_true))
+
+
+def collapse_for_constrained(md: ModelData) -> ModelData:
+    """Constrained-eta admixture sufficient statistics: with shared mixing
+    proportions the step depends on the data only through the column sums
+    sum_i x_ilm and sum_i miss_il, so the fit runs on a collapsed 1-row
+    dataset in the compute dtype (the sums overflow int8)."""
+    dtype = md.dtype
+    miss = md.miss.to(dtype).sum(dim=0, keepdim=True)
+    return ModelData(x=md.x.to(dtype).sum(dim=0, keepdim=True), miss=miss,
+                     mask=md.mask, n_alleles=md.n_alleles,
+                     c=miss.sum(dim=1))
 
 
 def k_padded_size(K: int, multiple: int = 128) -> int:
@@ -210,8 +230,11 @@ def make_kmask(K: int, Kp: int, dtype=torch.float32, device="cpu") -> Tensor:
     return (torch.arange(Kp, device=device) < K).to(dtype)
 
 
-def safe_log(x: Tensor) -> Tensor:
-    """log with zeros mapped to a 0 contribution."""
+def safe_log(x: Tensor, valid: Optional[Tensor] = None) -> Tensor:
+    """log with zeros (and lanes outside ``valid``) mapped to a 0
+    contribution."""
     ok = x > 0
+    if valid is not None:
+        ok = ok & valid
     return torch.where(ok, torch.log(torch.where(ok, x, torch.ones_like(x))),
                        torch.zeros_like(x))

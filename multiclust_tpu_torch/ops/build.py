@@ -42,6 +42,11 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _P],
     "mc_fullstep_p": [_P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mc_mix_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mc_mix_eta": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "mc_mix_p": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I,
+                 _P],
 }
 
 # launches per kernel since the last reset_launch_counts()
@@ -131,6 +136,11 @@ def library() -> ctypes.CDLL:
         lib.mc_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def launch(name: str, device: torch.device, *args) -> None:

@@ -30,7 +30,8 @@ from typing import Optional, Tuple
 import torch
 
 from multiclust_tpu_torch.ops import build
-from multiclust_tpu_torch.ops.fullstep_bi import KP_SUPPORTED, col_segments
+from multiclust_tpu_torch.ops.build import ptr as _ptr
+from multiclust_tpu_torch.ops.fullstep_bi import check_kp, col_segments
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
@@ -173,10 +174,7 @@ def _check_cuda_inputs(eta, p2, x2, *extra):
                          f"{tuple(eta.shape)} and {tuple(p2.shape)}")
     B, I, Kp = eta.shape
     LM = p2.shape[-1]
-    if Kp not in KP_SUPPORTED:
-        raise ValueError(f"Kp={Kp}: the CUDA kernels take Kp in "
-                         f"{KP_SUPPORTED} (K <= 128); see ROADMAP.md queue 3, "
-                         f"'Kp > 128 on CUDA'")
+    check_kp(Kp)
     if p2.shape != (B, Kp, LM):
         raise ValueError(f"p2 shape {tuple(p2.shape)} != {(B, Kp, LM)}")
     for name, t, dt, shape in (("eta", eta, torch.float32, None),
@@ -191,10 +189,6 @@ def _check_cuda_inputs(eta, p2, x2, *extra):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     return B, I, LM, Kp
-
-
-def _ptr(t: Optional[Tensor]):
-    return None if t is None else t.data_ptr()
 
 
 def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,

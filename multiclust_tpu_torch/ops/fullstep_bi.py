@@ -126,16 +126,21 @@ def admixture_fullstep_biallelic_reference(eta, p0, x0, x1, c, miss=None,
     return eta_new, t, p0_new
 
 
+def check_kp(Kp: int) -> None:
+    """Raise for a padded cluster count the CUDA kernels do not take."""
+    if Kp not in KP_SUPPORTED:
+        raise ValueError(f"Kp={Kp}: the CUDA kernels take Kp in "
+                         f"{KP_SUPPORTED} (K <= 128); see ROADMAP.md queue 3, "
+                         f"'Kp > 128 on CUDA'")
+
+
 def _check_cuda_inputs(eta, p0, x0, x1, *extra):
     if eta.dim() != 3 or p0.dim() != 3:
         raise ValueError(f"eta [B, I, Kp] and p0 [B, Kp, L] expected, got "
                          f"{tuple(eta.shape)} and {tuple(p0.shape)}")
     B, I, Kp = eta.shape
     L = p0.shape[-1]
-    if Kp not in KP_SUPPORTED:
-        raise ValueError(f"Kp={Kp}: the CUDA kernel takes Kp in "
-                         f"{KP_SUPPORTED} (K <= 128); see ROADMAP.md queue 3, "
-                         f"'Kp > 128 on CUDA'")
+    check_kp(Kp)
     if p0.shape != (B, Kp, L):
         raise ValueError(f"p0 shape {tuple(p0.shape)} != {(B, Kp, L)}")
     for name, t, dt, shape in (("eta", eta, torch.float32, None),
@@ -172,13 +177,15 @@ def fullstep_bi_rows(eta, p0, x0, x1, c, *, k_true: int, lb: float,
     return eta_new, t
 
 
-def col_segments(I: int, L: int, B: int, n_sm: int) -> Tuple[int, int]:
-    """(segments, rows per segment) splitting I for the columns pass: at
-    least 4 blocks per SM when I allows, each segment >= 4 row tiles."""
-    blocks = -(-L // COL_TC) * B
-    n_seg = max(1, min(-(-4 * n_sm // blocks), -(-I // (4 * COL_RI))))
+def col_segments(I: int, L: int, B: int, n_sm: int, *, tc: int = COL_TC,
+                 ri: int = COL_RI, per_sm: int = 4) -> Tuple[int, int]:
+    """(segments, rows per segment) splitting I for a columns pass of
+    ``tc`` columns per block and ``ri`` rows per tile: at least ``per_sm``
+    blocks per SM when I allows, each segment >= 4 row tiles."""
+    blocks = -(-L // tc) * B
+    n_seg = max(1, min(-(-per_sm * n_sm // blocks), -(-I // (4 * ri))))
     seg_rows = -(-I // n_seg)
-    seg_rows = -(-seg_rows // COL_RI) * COL_RI
+    seg_rows = -(-seg_rows // ri) * ri
     return -(-I // seg_rows), seg_rows
 
 
@@ -201,7 +208,7 @@ def fullstep_bi_cols(eta, p0, x0, x1, miss=None, *, plb: float,
     p0_new = torch.empty_like(p0)
     build.launch("mc_fullstep_bi_cols", eta.device,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
-                 x1.data_ptr(), None if miss is None else miss.data_ptr(),
+                 x1.data_ptr(), build.ptr(miss),
                  part.data_ptr(), p0_new.data_ptr(), B, I, L, Kp, n_seg,
                  seg_rows, lo, hi, int(project))
     return p0_new

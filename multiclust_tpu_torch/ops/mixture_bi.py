@@ -1,0 +1,264 @@
+"""Biallelic mixture EM step: the CUDA kernels and their plain PyTorch
+versions.
+
+Replaces the Pallas TPU kernels ``mixture_fullstep_biallelic`` /
+``_mix_scores_kernel``, ``_mix_counts_kernel``
+(multiclust_tpu/ops/kernels.py:1139-1313) and the single-pass sweep
+``mixture_sweep_resident`` / ``_mix_resident_kernel`` (:1316-1415).  The
+kernel source, ``csrc/mixture_bi.cu``, splits the step into a rows pass
+(scores, row softmax: v and the logsumexp t), a columns pass (per-segment
+partials of B0 = v^T x0, B1 = v^T x1, and of sum_i v), an eta finish (the
+partials' fixed-order sum, normalized and projected: ``_finish_eta``,
+which JAX runs in XLA) and a p0 epilogue (the p0 update of
+``_mix_counts_kernel``).  ``finish=False`` returns the raw statistics
+instead; rows, columns and the raw epilogue together are the sweep
+(``mixture_sweep_stats``).  Every step of the finish runs on the card, so
+a kernel-route EM step never reads the host.
+
+The wrappers launch the kernels for CUDA tensors and run the plain version
+only for CPU tensors; there is no fallback for CUDA tensors.  Shapes: a
+chain batch B leads.  lp0/lp1 [B, Kp, L] f32 with Kp in {32, 64, 96, 128},
+bias [B, Kp] f32 (K-pad lanes -1e30, their lp 0), x0/x1 [I, L] int8.
+One-stream calls (x1 None) fold x1 = ploidy - x0 (lp0 = log p0 - log p1);
+two-stream calls carry missing data.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from multiclust_tpu_torch.ops import build
+from multiclust_tpu_torch.ops.build import ptr as _ptr
+from multiclust_tpu_torch.ops.fullstep_bi import check_kp, col_segments, \
+    p0_clip_bounds
+from multiclust_tpu_torch.ops.simplex import project_rows
+
+Tensor = torch.Tensor
+
+# columns-pass tiling of csrc/mixture_bi.cu (COL_TC loci per block, COL_RI
+# rows per tile); the row-segment count is chosen here
+COL_TC, COL_RI = 128, 16
+
+
+def _streams(x0: Tensor, x1: Optional[Tensor]):
+    return (x0,) if x1 is None else (x0, x1)
+
+
+def mixture_rows_reference(lp0: Tensor, x0: Tensor, bias: Tensor,
+                           lp1: Optional[Tensor] = None,
+                           x1: Optional[Tensor] = None
+                           ) -> Tuple[Tensor, Tensor]:
+    """Plain version of the rows pass: (v [B, I, Kp], t [B, I]).  The
+    scores and the softmax run in float64 whatever the input dtype: at L
+    in the thousands |s| ~ 10^3, and float32 rounding of s alone would move
+    v by more than the kernel's 1e-4 tolerance."""
+    dtype, f64 = lp0.dtype, torch.float64
+    s = x0.to(f64) @ lp0.to(f64).transpose(-1, -2)    # [B, I, Kp]
+    if lp1 is not None:
+        s = s + x1.to(f64) @ lp1.to(f64).transpose(-1, -2)
+    s = s + bias.to(f64)[:, None, :]
+    m = s.max(dim=-1, keepdim=True).values
+    e = torch.exp(s - m)
+    tot = e.sum(dim=-1, keepdim=True)
+    return ((e / tot).to(dtype),
+            (torch.log(tot[..., 0]) + m[..., 0]).to(dtype))
+
+
+def mixture_cols_reference(v: Tensor, x0: Tensor,
+                           x1: Optional[Tensor] = None
+                           ) -> Tuple[Tensor, Tensor]:
+    """Plain version of the columns pass as a single row segment: the B
+    partials [B, 1, S, Kp, L] (S = 1 or 2 streams: B0 = v^T x0, B1 =
+    v^T x1) and the v sums [B, 1, Kp]."""
+    vt = v.transpose(-1, -2)                          # [B, Kp, I]
+    part = torch.stack([vt @ x.to(v.dtype) for x in _streams(x0, x1)],
+                       dim=1)
+    return part[:, None], v.sum(dim=1)[:, None]
+
+
+def mixture_eta_reference(vpart: Tensor, *, k_true: int, lb: float,
+                          project: bool) -> Tuple[Tensor, Tensor]:
+    """Plain version of the eta finish (``_finish_eta``, mixture.py:106):
+    (eta' [B, Kp], vtot [B, Kp]) from the v sums [B, S, Kp]."""
+    vtot = vpart.sum(dim=1)
+    eta = vtot / vtot.sum(dim=-1, keepdim=True)
+    if project:
+        lanes = torch.arange(eta.shape[-1], device=eta.device) < k_true
+        eta = project_rows(eta, lanes, lb)
+    return eta, vtot
+
+
+def mixture_p_reference(part: Tensor, vtot: Tensor, *, plb: float,
+                        ploidy: int, project: bool, finish: bool = True):
+    """Plain version of the p0 epilogue (``_mix_counts_kernel``'s finish,
+    kernels.py:1196-1210): p0' [B, Kp, L] from the partials [B, S, 1|2,
+    Kp, L], or the raw (B0, B1) under ``finish=False`` (B1 None for one
+    stream)."""
+    Bm = part.sum(dim=1)                              # [B, 1|2, Kp, L]
+    two = Bm.shape[1] == 2
+    if not finish:
+        return Bm[:, 0], (Bm[:, 1] if two else None)
+    pc0 = Bm[:, 0] + plb
+    if two:
+        pc1 = Bm[:, 1] + plb
+    else:
+        # sum_i v_ik x1_il = ploidy vtot_k - B0_kl (x1 = ploidy - x0)
+        pc1 = ploidy * vtot[..., None] - Bm[:, 0] + plb
+    q = pc0 / (pc0 + pc1)
+    if project:
+        lo, hi = p0_clip_bounds(plb, q.dtype)
+        q = torch.clamp(q, lo, hi)
+    return q
+
+
+def mixture_fullstep_biallelic_reference(lp0, x0, bias, lp1=None, x1=None,
+                                         *, k_true: int, lb: float,
+                                         plb: float, ploidy: int,
+                                         project: bool):
+    """Plain PyTorch version of the whole step: (eta' [B, Kp], t [B, I],
+    p0' [B, Kp, L])."""
+    v, t = mixture_rows_reference(lp0, x0, bias, lp1, x1)
+    part, vpart = mixture_cols_reference(v, x0, x1)
+    eta, vtot = mixture_eta_reference(vpart, k_true=k_true, lb=lb,
+                                      project=project)
+    return eta, t, mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
+                                       project=project)
+
+
+def mixture_sweep_stats_reference(lp0, x0, bias, lp1=None, x1=None):
+    """Plain version of the sweep statistics (``mixture_sweep_resident``):
+    raw v [B, I, Kp], t [B, I], B0 [B, Kp, L] and B1 (None for one
+    stream)."""
+    v, t = mixture_rows_reference(lp0, x0, bias, lp1, x1)
+    part, _ = mixture_cols_reference(v, x0, x1)
+    b0, b1 = mixture_p_reference(part, None, plb=0.0, ploidy=0,
+                                 project=False, finish=False)
+    return v, t, b0, b1
+
+
+def _check(name: str, t: Tensor, dev, dtype, shape) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} dtype {t.dtype}, kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def mixture_rows(lp0, x0, bias, lp1=None, x1=None):
+    """Rows pass: (v [B, I, Kp], t [B, I])."""
+    if not lp0.is_cuda:
+        return mixture_rows_reference(lp0, x0, bias, lp1, x1)
+    if (lp1 is None) != (x1 is None):
+        raise ValueError("lp1 and x1 come together (two-stream variant)")
+    B, Kp, L = lp0.shape
+    check_kp(Kp)
+    I = x0.shape[0]
+    dev = lp0.device
+    _check("lp0", lp0, dev, torch.float32, (B, Kp, L))
+    _check("x0", x0, dev, torch.int8, (I, L))
+    _check("bias", bias, dev, torch.float32, (B, Kp))
+    if lp1 is not None:
+        _check("lp1", lp1, dev, torch.float32, (B, Kp, L))
+        _check("x1", x1, dev, torch.int8, (I, L))
+    v = torch.empty((B, I, Kp), dtype=torch.float32, device=dev)
+    t = torch.empty((B, I), dtype=torch.float32, device=dev)
+    build.launch("mc_mix_rows", dev, lp0.data_ptr(), _ptr(lp1),
+                 x0.data_ptr(), _ptr(x1), bias.data_ptr(), v.data_ptr(),
+                 t.data_ptr(), B, I, L, Kp)
+    return v, t
+
+
+def mixture_partials(v, x0, x1=None):
+    """Columns pass: the per-row-segment B partials [B, n_seg, 1|2, Kp, L]
+    and v sums [B, n_seg, Kp]."""
+    if not v.is_cuda:
+        return mixture_cols_reference(v, x0, x1)
+    B, I, Kp = v.shape
+    check_kp(Kp)
+    L = x0.shape[1]
+    dev = v.device
+    _check("v", v, dev, torch.float32, (B, I, Kp))
+    _check("x0", x0, dev, torch.int8, (I, L))
+    if x1 is not None:
+        _check("x1", x1, dev, torch.int8, (I, L))
+    # two blocks per SM: each block is a 128-locus tile, and fewer
+    # segments mean fewer partials to write and sum
+    n_seg, seg_rows = col_segments(
+        I, L, B, torch.cuda.get_device_properties(dev).multi_processor_count,
+        tc=COL_TC, ri=COL_RI, per_sm=2)
+    ns = 1 if x1 is None else 2
+    part = torch.empty((B, n_seg, ns, Kp, L), dtype=torch.float32,
+                       device=dev)
+    vpart = torch.empty((B, n_seg, Kp), dtype=torch.float32, device=dev)
+    build.launch("mc_mix_cols", dev, v.data_ptr(), x0.data_ptr(), _ptr(x1),
+                 part.data_ptr(), vpart.data_ptr(), B, I, L, Kp, n_seg,
+                 seg_rows)
+    return part, vpart
+
+
+def mixture_eta(vpart, *, k_true: int, lb: float, project: bool):
+    """Eta finish: (eta' [B, Kp], vtot [B, Kp]) from the v sums [B, S,
+    Kp]."""
+    if not vpart.is_cuda:
+        return mixture_eta_reference(vpart, k_true=k_true, lb=lb,
+                                     project=project)
+    B, n_seg, Kp = vpart.shape
+    check_kp(Kp)
+    _check("vpart", vpart, vpart.device, torch.float32, (B, n_seg, Kp))
+    vtot = torch.empty((B, Kp), dtype=torch.float32, device=vpart.device)
+    eta = torch.empty_like(vtot)
+    build.launch("mc_mix_eta", vpart.device, vpart.data_ptr(),
+                 vtot.data_ptr(), eta.data_ptr(), B, Kp, n_seg, int(k_true),
+                 float(lb), int(project))
+    return eta, vtot
+
+
+def mixture_p(part, vtot, *, plb: float, ploidy: int, project: bool,
+              finish: bool = True):
+    """p0 epilogue: p0' [B, Kp, L], or the raw (B0, B1) under
+    ``finish=False`` (B1 None for one stream; vtot may then be None)."""
+    if not part.is_cuda:
+        return mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
+                                   project=project, finish=finish)
+    B, n_seg, ns, Kp, L = part.shape
+    dev = part.device
+    _check("part", part, dev, torch.float32, (B, n_seg, ns, Kp, L))
+    if finish:
+        _check("vtot", vtot, dev, torch.float32, (B, Kp))
+    two = ns == 2
+    lo, hi = p0_clip_bounds(plb)
+    out0 = torch.empty((B, Kp, L), dtype=torch.float32, device=dev)
+    out1 = torch.empty_like(out0) if (two and not finish) else None
+    build.launch("mc_mix_p", dev, part.data_ptr(), _ptr(vtot),
+                 out0.data_ptr(), _ptr(out1), B, Kp, L, n_seg, int(two), lo,
+                 hi, float(ploidy), int(project), int(finish))
+    return out0 if finish else (out0, out1)
+
+
+def mixture_fullstep_biallelic(lp0, x0, bias, lp1=None, x1=None, *,
+                               k_true: int, lb: float, plb: float,
+                               ploidy: int, project: bool):
+    """One biallelic mixture EM step for a chain batch: (eta' [B, Kp],
+    t [B, I], p0' [B, Kp, L]).  The eta Michelot and the p0 clip share
+    ``project`` (cfg.do_projection)."""
+    v, t = mixture_rows(lp0, x0, bias, lp1, x1)
+    part, vpart = mixture_partials(v, x0, x1)
+    eta, vtot = mixture_eta(vpart, k_true=k_true, lb=lb, project=project)
+    return eta, t, mixture_p(part, vtot, plb=plb, ploidy=ploidy,
+                             project=project)
+
+
+def mixture_sweep_stats(lp0, x0, bias, lp1=None, x1=None):
+    """Sweep statistics v, t, B0 [B, Kp, L] and B1 (None for one stream)
+    with no eta or p finish (``mixture_sweep_resident``): the same passes
+    as the full step, with the raw epilogue."""
+    v, t = mixture_rows(lp0, x0, bias, lp1, x1)
+    part, _ = mixture_partials(v, x0, x1)
+    b0, b1 = mixture_p(part, None, plb=0.0, ploidy=0, project=False,
+                       finish=False)
+    return v, t, b0, b1

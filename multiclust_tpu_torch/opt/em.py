@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from multiclust_tpu.config import AccelScheme
-from multiclust_tpu_torch.model import admixture
+from multiclust_tpu_torch.model import admixture, mixture
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     is_bi_repr, map_params
 from multiclust_tpu_torch.ops.fullstep_bi import p0_clip_bounds
@@ -128,17 +128,15 @@ def _eps(params: Params) -> float:
 def model_em_step(params: Params, md: ModelData, cfg: EMConfig,
                   want_ll: bool = True):
     if not cfg.admixture:
-        raise NotImplementedError(
-            "the mixture model is not yet ported; see ROADMAP.md queue 1, "
-            "item 12")
+        return mixture.em_step(params, md, cfg, want_ll)
     return admixture.em_step(params, md, cfg, want_ll)
 
 
 def model_log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
     if not cfg.admixture:
-        raise NotImplementedError(
-            "the mixture model is not yet ported; see ROADMAP.md queue 1, "
-            "item 12")
+        return mixture.log_likelihood(params, md, cfg)
+    if cfg.eta_constrained:
+        return admixture.log_likelihood_constrained(params, md)
     if cfg.bi_repr_active and is_bi_repr(params):
         return admixture.log_likelihood_bi_repr(params, md)
     return admixture.log_likelihood(params, md)

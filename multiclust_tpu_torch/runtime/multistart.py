@@ -29,33 +29,38 @@ from multiclust_tpu.model.likelihood import aic as aic_fn, bic as bic_fn
 from multiclust_tpu_torch.init import random as rinit
 from multiclust_tpu_torch.model.admixture import posterior_allele_mass
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
-    is_bi_repr, k_padded_size, map_params, pad_params_k, unpad_params_k
+    collapse_for_constrained, is_bi_repr, k_padded_size, map_params, \
+    pad_params_k, unpad_params_k
+from multiclust_tpu_torch.model.mixture import e_step
 from multiclust_tpu_torch.opt import em as em_mod
 
 
 def device_policy(opt: Options, device):
     """``(use_pallas, storage_dtype)`` for a fit on ``device``, as
     Options.device_policy does for JAX backends (config.py:250-273): the
-    admixture kernels (the biallelic pair on biallelic panels, the generic
-    triple on any other) are on for float32 admixture fits on CUDA, where
-    counts are stored int8; CPU fits run the plain step in the compute
-    dtype.  ``opt.use_pallas`` overrides the kernel choice on the CPU
-    only: on CUDA the kernels are the one route of a float32 admixture
-    fit."""
+    kernels are on for float32 fits on CUDA, where counts are stored int8
+    (admixture: the biallelic pair on biallelic panels, the generic triple
+    on any other; mixture: the biallelic mixture kernels on biallelic
+    panels, the plain products with the eta and p finish on the card on
+    any other); CPU fits run the plain step in the compute dtype.
+    ``opt.use_pallas`` overrides the kernel choice on the CPU only: on CUDA
+    the kernels are the one route of a float32 fit."""
     on_cuda = torch.device(device).type == "cuda"
-    kernel = on_cuda and opt.admixture and opt.dtype == "float32"
+    kernel = on_cuda and opt.dtype == "float32"
     up = opt.use_pallas
     if up is None:
         up = kernel
     elif kernel and not up:
-        raise ValueError("float32 admixture fits on CUDA run the admixture "
-                         "kernels; use_pallas=False is for CPU tensors")
+        raise ValueError("float32 fits on CUDA run the kernels; "
+                         "use_pallas=False is for CPU tensors")
     storage = torch.int8 if (on_cuda and opt.dtype == "float32") else None
     return bool(up), storage
 
 
 def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
-    """Static EM config; ``md`` fixes has_missing and biallelic."""
+    """Static EM config; ``md`` fixes has_missing and biallelic, and the
+    data-pinned ``opt.ploidy`` (Options.synchronize) the biallelic
+    mixture's fold."""
     if opt.mesh_shape:
         raise NotImplementedError(
             "meshes (--mesh) are not yet ported; see ROADMAP.md queue 1, "
@@ -73,6 +78,7 @@ def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
         use_pallas="on" if use_pallas else "off",
         has_missing=bool((md.miss > 0).any()),
         biallelic=md.M == 2 and bool((md.n_alleles == 2).all()),
+        ploidy=opt.ploidy,
         k_true=K if (opt.admixture and not opt.eta_constrained) else 0,
         check_interval=opt.check_interval)
 
@@ -149,12 +155,14 @@ def _host_converged(opt: Options, a: float, b: float) -> bool:
 
 
 def _draw_init_batch(gen: torch.Generator, n: int, md: ModelData, K: int,
-                     cfg: EMConfig, opt: Options, codes) -> Params:
+                     cfg: EMConfig, opt: Options, codes,
+                     md_score: Optional[ModelData] = None) -> Params:
     starts = [rinit.initialize(gen, md, K, cfg,
                                method=opt.initialization_method,
                                procedure=opt.initialization_procedure,
                                n_rand_em_init=opt.n_rand_em_init,
-                               codes=codes) for _ in range(n)]
+                               codes=codes, md_score=md_score)
+              for _ in range(n)]
     return Params(eta=torch.stack([s.eta for s in starts]),
                   p=torch.stack([s.p for s in starts]))
 
@@ -282,13 +290,14 @@ def _harvest(state: em_mod.EMState, cfg: EMConfig):
     return host, get
 
 
-def _run_continuous(gen, res: MaximizeResult, md: ModelData, K: int,
-                    cfg: EMConfig, opt: Options, n_parameters: int, codes,
-                    t0: float, segment: int = 16, on_improve=None,
-                    progress=None) -> None:
+def _run_continuous(gen, res: MaximizeResult, md: ModelData,
+                    md_fit: ModelData, K: int, cfg: EMConfig, opt: Options,
+                    n_parameters: int, codes, t0: float, segment: int = 16,
+                    on_improve=None, progress=None) -> None:
     """Continuous batching: B chains run in lockstep segments; a stopped
     lane is harvested and refilled with a fresh start at once instead of
-    idling until the slowest chain finishes."""
+    idling until the slowest chain finishes.  Starts are drawn on ``md``,
+    the chains run (and Rand-EM scores) on ``md_fit``."""
     fixed_n = (not opt.target_revisit and not opt.target_ll
                and not opt.n_seconds)
     B = opt.batch_chains or min(max(opt.n_init, 1), 8)
@@ -296,8 +305,9 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData, K: int,
         B = min(B, opt.n_init)
 
     def fresh_states(n):
-        pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes), cfg)
-        return _make_state(pb, md, cfg)
+        pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
+                                     md_fit), cfg)
+        return _make_state(pb, md_fit, cfg)
 
     state = fresh_states(B)
     launched = B
@@ -330,7 +340,7 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData, K: int,
             if fixed_n:
                 nref = min(nref, opt.n_init - launched)
             lanes = refillable[:nref]
-            idx = torch.as_tensor(lanes, device=md.device)
+            idx = torch.as_tensor(lanes, device=md_fit.device)
             fresh = fresh_states(nref)
             state = em_mod.tree_map(
                 lambda old, new: old.index_copy(0, idx, new), state, fresh)
@@ -346,16 +356,17 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData, K: int,
                 res.time_stop = True
             return
 
-        state = _segment(state, md, cfg, segment)
+        state = _segment(state, md_fit, cfg, segment)
 
 
-def _single_init(gen, md, K, cfg, opt, codes, warm):
+def _single_init(gen, md, K, cfg, opt, codes, warm, md_score=None):
     if warm is not None:
         return _pad_k(warm, cfg)
     return _pad_k(rinit.initialize(
         gen, md, K, cfg, method=opt.initialization_method,
         procedure=opt.initialization_procedure,
-        n_rand_em_init=opt.n_rand_em_init, codes=codes), cfg)
+        n_rand_em_init=opt.n_rand_em_init, codes=codes,
+        md_score=md_score), cfg)
 
 
 def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
@@ -378,11 +389,17 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     res = MaximizeResult(K=K)
     t0 = time.time()
     progress = _make_progress(opt, K, t0, quiet)
+    # constrained-eta fits depend on the data only through its column
+    # sums: they run (and Rand-EM scores) on the collapsed data, while
+    # starts, the hard partition and AIC/BIC use the full data
+    md_fit = collapse_for_constrained(md) if (
+        cfg.admixture and cfg.eta_constrained) else md
 
     if K == 1:
-        params = _single_init(gen, md, K, cfg, opt, codes, warm)
+        params = _single_init(gen, md, K, cfg, opt, codes, warm, md_fit)
         state = em_mod.fit_k1(
-            _to_bi_repr(map_params(lambda t: t[None], params), cfg), md, cfg)
+            _to_bi_repr(map_params(lambda t: t[None], params), cfg), md_fit,
+            cfg)
         ll = float(state.logL[0])
         res.best_params = _unpad_k(map_params(lambda t: t[0], state.params),
                                    cfg)
@@ -399,8 +416,8 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
         return res
 
     if warm is None:
-        _run_continuous(gen, res, md, K, cfg, opt, n_parameters, codes, t0,
-                        on_improve=on_improve, progress=progress)
+        _run_continuous(gen, res, md, md_fit, K, cfg, opt, n_parameters,
+                        codes, t0, on_improve=on_improve, progress=progress)
         res.seconds = time.time() - t0
         _score_arand(res, md, opt, true_partition)
         return res
@@ -409,7 +426,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     # rnd_init.c:74-76), one chain per batch
     warm_b = map_params(lambda t: t[None], _pad_k(warm, cfg))
     while True:
-        states, timed_out = fit_batch(warm_b, md, cfg,
+        states, timed_out = fit_batch(warm_b, md_fit, cfg,
                                       n_seconds=opt.n_seconds, start_time=t0)
         host, get = _harvest(states, cfg)
         if _bookkeep_lane(
@@ -431,16 +448,28 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     return res
 
 
-def hard_partition(params: Params, md: ModelData) -> np.ndarray:
-    """MAP cluster per individual (partition_admixture,
-    write_file.c:350-382) for unbatched full-layout params."""
-    return torch.argmax(posterior_allele_mass(params, md),
-                        dim=1).cpu().numpy()
+def posterior_mass(params: Params, md: ModelData, admixture: bool,
+                   eta_constrained: bool = False) -> torch.Tensor:
+    """[I, K] cluster mass per individual of unbatched full-layout params:
+    the mixture's posterior (partition_mixture, write_file.c:582-600), or
+    the admixture's posterior allele mass (partition_admixture
+    :350-382)."""
+    if admixture:
+        return posterior_allele_mass(params, md, eta_constrained)
+    return e_step(Params(params.eta[None], params.p[None]), md)[0][0]
 
+
+def hard_partition(params: Params, md: ModelData, admixture: bool,
+                   eta_constrained: bool = False) -> np.ndarray:
+    """MAP cluster per individual: the argmax of ``posterior_mass``."""
+    return torch.argmax(posterior_mass(params, md, admixture,
+                                       eta_constrained), dim=1).cpu().numpy()
 
 def _score_arand(res: MaximizeResult, md, opt: Options, true_partition):
     if true_partition is None or res.best_params is None:
         return
     from multiclust_tpu.stats.rand_index import adjusted_rand
     res.arand = adjusted_rand(np.asarray(true_partition),
-                              hard_partition(res.best_params, md))
+                              hard_partition(res.best_params, md,
+                                             opt.admixture,
+                                             opt.eta_constrained))

@@ -12,12 +12,13 @@ import pytest
 import torch
 
 from multiclust_tpu_torch.ops import build, fullstep as fs, \
-    fullstep_bi as fb
+    fullstep_bi as fb, mixture_bi as mb
 
 # float32: the kernel and the plain version sum in other orders
 F32 = dict(rtol=1e-4, atol=5e-5)
 BI_KERNELS = ("mc_fullstep_bi_rows", "mc_fullstep_bi_cols")
 GENERIC_KERNELS = ("mc_fullstep_rows", "mc_fullstep_cols", "mc_fullstep_p")
+MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_eta", "mc_mix_p")
 
 
 def _cuda():
@@ -182,3 +183,148 @@ def test_generic_kernels_refuse_kp160():
         fs.fullstep_cols(eta, p2, x2, None,
                          torch.ones(4, 3, dtype=torch.bool, device=dev),
                          k_true=150)
+
+
+def _mix_args(seed, B, I, L, K, Kp, miss_rate, ploidy, dev):
+    """Mixture kernel inputs on ``dev``: lp0 (and lp1) [B, Kp, L] and the
+    bias [B, Kp] as model/mixture._kernel_inputs builds them (pads: lp 0,
+    bias -1e30), x0 (and x1) int8 [I, L]; one stream without missing
+    data (the ploidy fold), two with."""
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(0.02, 0.98, size=(B, K, L))
+    eta = rng.dirichlet(np.ones(K), size=B)
+    miss = rng.binomial(ploidy, miss_rate, size=(I, L))
+    x0 = rng.binomial(ploidy - miss, rng.uniform(0.1, 0.9, size=(1, L)))
+    lp0 = np.zeros((B, Kp, L), np.float32)
+    lp1 = np.zeros((B, Kp, L), np.float32)
+    bias = np.full((B, Kp), -1e30, np.float32)
+    if miss_rate:
+        lp0[:, :K], lp1[:, :K] = np.log(p0), np.log1p(-p0)
+        bias[:, :K] = np.log(eta)
+    else:
+        lp0[:, :K] = np.log(p0) - np.log1p(-p0)
+        bias[:, :K] = ploidy * np.log1p(-p0).sum(-1) + np.log(eta)
+    two = bool(miss_rate)
+    return (torch.tensor(lp0, device=dev),
+            torch.tensor(x0, dtype=torch.int8, device=dev),
+            torch.tensor(bias, device=dev),
+            torch.tensor(lp1, device=dev) if two else None,
+            torch.tensor(ploidy - miss - x0, dtype=torch.int8, device=dev)
+            if two else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,L,K,Kp,miss_rate,ploidy,project", [
+    (1, 1001, 999, 20, 32, 0.02, 2, True),     # ragged against tiles
+    (2, 1001, 999, 20, 32, 0.0, 2, True),      # one stream, ploidy fold
+    (2, 777, 129, 40, 64, 0.0, 4, False),
+    (1, 300, 500, 70, 96, 0.05, 4, True),
+    (3, 300, 257, 128, 128, 0.1, 2, False),
+    (1, 40, 17, 3, 32, 0.0, 2, True),          # one row segment
+])
+def test_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate, ploidy,
+                                     project):
+    """The four mixture kernels (rows, columns, eta finish, p0 epilogue)
+    and the sweep route against their plain versions; reruns are
+    bit-equal (no atomics, fixed-order partial sums)."""
+    dev = _cuda()
+    args = _mix_args(K, B, I, L, K, Kp, miss_rate, ploidy, dev)
+    kw = dict(k_true=K, lb=1e-3, plb=1e-3, ploidy=ploidy, project=project)
+    before = dict(build.LAUNCHES)
+    got = mb.mixture_fullstep_biallelic(*args, **kw)
+    torch.cuda.synchronize()
+    for name in MIX_KERNELS:
+        assert build.LAUNCHES[name] == before[name] + 1
+    ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **F32)
+    eta = got[0]
+    assert (eta[:, K:] == 0).all()
+    if project:
+        assert float(eta[:, :K].min()) >= 1e-3 * (1 - 1e-6)
+    torch.testing.assert_close(eta.sum(dim=1), torch.ones(B, device=dev),
+                               rtol=0, atol=1e-6)
+    again = mb.mixture_fullstep_biallelic(*args, **kw)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    sweep = mb.mixture_sweep_stats(*args)
+    sweep_ref = mb.mixture_sweep_stats_reference(*args)
+    assert (sweep[3] is None) == (miss_rate == 0)
+    for g, r in zip(sweep, sweep_ref):
+        if g is not None:
+            torch.testing.assert_close(g, r, **F32)
+    assert (sweep[0][..., K:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_mixture_kernels_refuse_kp160():
+    dev = _cuda()
+    lp = torch.zeros(1, 160, 12, device=dev)
+    x = torch.zeros(8, 12, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+        mb.mixture_rows(lp, x, torch.zeros(1, 160, device=dev))
+    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+        mb.mixture_partials(torch.zeros(1, 8, 160, device=dev), x)
+    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+        mb.mixture_eta(torch.zeros(1, 1, 160, device=dev), k_true=150,
+                       lb=0.0, project=False)
+
+
+def _mixture_fit_inputs(dev, M, missing_rate, seed=3):
+    """A mixture panel's ModelData on ``dev`` (int8 storage) and on the
+    CPU (float32), with warm-start params for a batch of two chains."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    I, L, K = 500, 300, 5
+    z = rng.integers(0, K, size=I)
+    P = rng.dirichlet(np.full(M, 0.5), size=(K, L))
+    miss = rng.binomial(2, missing_rate, size=(I, L))
+    counts = rng.multinomial(2 - miss, P[z])
+    mask, n_all = np.ones((L, M), bool), np.full(L, M)
+    eta = rng.dirichlet(np.full(K, 3.0), size=2)
+    p = rng.dirichlet(np.full(M, 2.0), size=(2, K, L))
+    mds = [model_data_from_numpy(counts, miss, mask, n_all, device=d,
+                                 dtype=torch.float32) for d in (dev, "cpu")]
+    return mds, [params_from_numpy(eta, p, device=d, dtype=torch.float32)
+                 for d in (dev, "cpu")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,missing_rate", [(2, 0.0), (2, 0.02), (4, 0.02)])
+def test_mixture_blind_steps_read_no_host(M, missing_rate):
+    """Blind mixture steps on the card, called as opt/em.blind_plain_steps
+    calls them, make no host read (the biallelic kernel route, and the
+    multi-allelic route with its eta and p finish on the card) and agree
+    with the same route's plain versions on the CPU."""
+    from multiclust_tpu_torch.model import mixture
+    from multiclust_tpu_torch.model.common import EMConfig
+    from multiclust_tpu_torch.opt import em as em_mod
+
+    dev = _cuda()
+    (md, md_cpu), (params, params_cpu) = _mixture_fit_inputs(
+        dev, M, missing_rate)
+    cfg = EMConfig(admixture=False, use_pallas="on", biallelic=M == 2,
+                   has_missing=missing_rate > 0, ploidy=2)
+    assert mixture._kernel_ok(md, cfg, params) == (M == 2)
+    state = em_mod.init_state(params, cfg)
+    n_lane = torch.full((2,), 3, dtype=torch.int64, device=dev)
+    before = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = em_mod.blind_plain_steps(state, md, cfg, n_lane, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = {n: build.LAUNCHES[n] - before[n] for n in build.LAUNCHES}
+    if M == 2:
+        assert all(launched[n] == 3 for n in MIX_KERNELS), launched
+    else:
+        assert launched["mc_mix_eta"] == launched["mc_fullstep_p"] == 3
+    want = params_cpu
+    for _ in range(3):
+        want, _, _ = mixture.em_step(want, md_cpu, cfg, want_ll=False)
+    torch.testing.assert_close(out.params.eta.cpu(), want.eta, **F32)
+    torch.testing.assert_close(out.params.p.cpu(), want.p, **F32)

@@ -205,8 +205,8 @@ def test_cli_multistart_squarem_writes_every_file(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-k", "3"], "mixture model"),
-    (["-a", "-k", "3", "-c"], "constrained eta"),
+    (["-k", "3", "-w", "n", "2"], "repeat-timing"),
+    (["-a", "-k", "3", "-c", "-b", "2"], "bootstrap"),
     (["-a", "-k", "3", "-b", "2"], "bootstrap"),
     (["-a", "-k", "3", "--mesh", "2x1"], "meshes"),
 ])

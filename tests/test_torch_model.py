@@ -197,6 +197,8 @@ def test_import_leaves_jax_out():
             "multiclust_tpu_torch.cli", "multiclust_tpu_torch.convert",
             "multiclust_tpu_torch.model.common",
             "multiclust_tpu_torch.model.admixture",
+            "multiclust_tpu_torch.model.mixture",
+            "multiclust_tpu_torch.ops.mixture_bi",
             "multiclust_tpu_torch.ops.simplex",
             "multiclust_tpu_torch.ops.build",
             "multiclust_tpu_torch.ops.fullstep",
