@@ -40,7 +40,30 @@ each raising on failure:
    fit held to the float64 CPU path; one M=4 mixture fit through the plain
    route (its eta and p finish on the card);
 11. mixture CLIs: a 1024 x 1000, K=3 STRUCTURE file with 5 % missing,
-   fitted without -a and with -a -c.
+   fitted without -a and with -a -c;
+12. biobank kernels: on a panel made on the card from a seed, 8192 x
+   131072, K=20, 1 % missing, chain batches 1 and 2: the three routes of
+   the biallelic step (the pair, the streamed step with its segmented rows
+   pass and finish kernel, the chunked loop over column windows) against
+   the plain version, which works in column windows; logL terms on and
+   off, emit_a / emit_b once; each pass alone; the rows passes again at
+   2048 x 524288;
+13. biobank fits: ``api.fit_model_data`` on that panel, 2 chains, plain EM
+   with the adaptive interval and then SQUAREM, iteration cap 50, and one
+   plain-EM fit at 2048 x 524288, which the router sends down the chunked
+   loop; the route, iterations/s, cells/s and the peak allocation;
+14. biobank reference: a warm-start 30-iteration fit at 256 x 131072
+   through the kernels, held to the float64 CPU fit;
+15. one mixture fit at 8192 x 131072 through the mixture kernels;
+16. biobank CLI: a 512 x 8192 STRUCTURE file, ``-a -k 3``, down the
+   streamed route.
+
+Every kernel's record carries its bound: the least time this card could
+take for the same work, the larger of the bytes the call must move (its
+input and output tensors, each once) over 3.35 TB/s and its operations
+over 67 TFLOP/s (IEEE float32 outside the tensor cores, the arithmetic
+the kernels are held to).  No single PyTorch call computes any of these
+functions, so ``library_ms`` is null throughout.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -72,6 +95,16 @@ MIX_TPU = "multiclust_tpu/ops/kernels.py:1215"
 MIX_SWEEP_TPU = "multiclust_tpu/ops/kernels.py:1361"
 MIX_SOURCE = "multiclust_tpu_torch/csrc/mixture_bi.cu"
 MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_eta", "mc_mix_p")
+I_BIO, L_BIO = 8192, 131072          # the wide biobank panel
+I_NARROW, L_NARROW = 2048, 524288    # the same cells, four times as wide
+STREAM_TPU = "multiclust_tpu/ops/kernels.py:1007"
+CHUNK_TPU = "multiclust_tpu/ops/kernels.py:829"
+STREAM_KERNELS = ("mc_fullstep_bi_rows_seg", "mc_fullstep_bi_finish",
+                  "mc_fullstep_bi_cols")
+# the card's published peaks: device memory, and float32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 OUT_FILES = ("sim.str.admix.K=3.out.txt", "sim.str.admix.K=3.etaik.txt",
              "sim.str.admix.K=3.pklm.txt", "sim.str_admix_popq_3.popq",
              "sim.str_admix_indivq_3.indivq")
@@ -120,6 +153,33 @@ def max_err(got, ref) -> float:
     return float((got - ref).abs().max())
 
 
+def tensors_bytes(*groups) -> int:
+    """Bytes of every tensor in the (nested) groups, each counted once."""
+    total = 0
+    for g in groups:
+        if torch.is_tensor(g):
+            total += g.numel() * g.element_size()
+        elif g is not None:
+            total += tensors_bytes(*g)
+    return total
+
+
+def bound(n_bytes: float, n_flop: float):
+    """(bound_ms, bound_by) of a call that must move ``n_bytes`` and do
+    ``n_flop`` float32 operations."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_flop / F32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def kernel_record(name, source, replaces, launches, err, ms, bnd):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms[0], "plain_ms": ms[1], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": None}
+
+
 def phase_kernels(fb, dev, where):
     rng = np.random.default_rng(1)
     K, Kp = K_FULL, 32
@@ -164,17 +224,24 @@ def phase_kernels(fb, dev, where):
                  lambda: (fb.fullstep_bi_cols_reference(
                      e, p, a, z, m, plb=1e-8, project=True),)),
     }
-    ms = {}
+    # operations: two contractions of I x L x K (d0 and A; d0 and B0, B1
+    # as two) at 2 a multiply-add, and ~10 / ~6 a cell elementwise
+    cells = 2 * I_FULL * L_FULL
+    flop = {"rows": (4 * K + 10) * cells, "cols": (6 * K + 6) * cells}
+    inputs = {"rows": (e, p, a, z, c), "cols": (e, p, a, z, m)}
+    ms, bnd = {}, {}
     for name, (kernel, plain) in passes.items():
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = max(max_err(g, r) for g, r in zip(got, ref))
         errs[name] = max(errs[name], err)
         ms[name] = (median_ms(kernel), median_ms(plain))
+        bnd[name] = bound(tensors_bytes(inputs[name], got), flop[name])
         print(f"pass {name} B=2 miss=0.01: max|d| {err:.3e}; kernel "
-              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms on {where}",
+              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
+              f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
-    return errs, ms
+    return errs, ms, bnd
 
 
 def simulated_counts(rng, I, L, K, miss_rate):
@@ -187,13 +254,15 @@ def simulated_counts(rng, I, L, K, miss_rate):
     return np.stack([x0, 2 - miss - x0], axis=2), miss
 
 
-def check_fit(out, wall, label, where):
+def check_fit(out, wall, label, where, md=None):
+    """Checks of a finished fit; ``md`` stands in for the host Dataset when
+    the panel was made on the device."""
     res = out.best
     eta, p = res.best_params
     assert np.isfinite(res.max_logL) and not res.mono_viol, \
         (label, res.max_logL, res.mono_viol, res.n_iter_all)
     assert not res.any_failed, label
-    ds = out.dataset
+    ds = out.dataset if md is None else md
     # the mixture shares one K-vector eta across individuals
     assert eta.shape == ((ds.I, K_FULL) if eta.dim() == 2 else (K_FULL,))
     assert p.shape == (K_FULL, ds.L, ds.M)
@@ -278,6 +347,21 @@ def phase_reference(dev):
     assert abs(gpu.logL - cpu.logL) < 0.1
 
 
+def write_structure_biallelic(path, counts, miss):
+    """STRUCTURE rows of a biallelic panel, one per allele copy."""
+    I, L = miss.shape
+    with open(path, "w") as fh:
+        fh.write(" ".join(f"loc{l}" for l in range(L)) + "\n")
+        for i in range(I):
+            # copy a carries allele 1 when a < x0, allele 2 when
+            # observed otherwise, -9 when missing
+            for a in range(2):
+                obs = a < 2 - miss[i]
+                allele = np.where(a < counts[i, :, 0], 1, 2)
+                row = np.where(obs, allele, -9)
+                fh.write(f"ind{i} pop0 " + " ".join(map(str, row)) + "\n")
+
+
 def phase_cli(build, where):
     from multiclust_tpu_torch.cli import main
 
@@ -286,17 +370,7 @@ def phase_cli(build, where):
     counts, miss = simulated_counts(rng, I, L, K, 0.05)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sim.str")
-        with open(path, "w") as fh:
-            fh.write(" ".join(f"loc{l}" for l in range(L)) + "\n")
-            for i in range(I):
-                # copy a carries allele 1 when a < x0, allele 2 when
-                # observed otherwise, -9 when missing
-                for a in range(2):
-                    obs = a < 2 - miss[i]
-                    allele = np.where(a < counts[i, :, 0], 1, 2)
-                    row = np.where(obs, allele, -9)
-                    fh.write(f"ind{i} pop0 " + " ".join(map(str, row))
-                             + "\n")
+        write_structure_biallelic(path, counts, miss)
         build.reset_launch_counts()
         t0 = time.time()
         rc = main(["-f", path, "-a", "-k", "3", "-n", "4", "-s", "1",
@@ -415,15 +489,25 @@ def phase_generic_kernels(fs, dev, where):
         "p": (lambda: (fs.fullstep_p(p2, part, mask, M=M_FULL, **p_kw),),
               lambda: (fs.fullstep_p_reference(p2, part, mask, **p_kw),)),
     }
-    ms = {}
+    # operations: d and A (rows), d and B (columns), 2 a multiply-add per
+    # lane and cluster, plus ~5 / ~3 a lane elementwise; the p epilogue
+    # ~10 a p entry
+    lanes = 2 * I_FULL * L_FULL * M_FULL
+    flop = {"rows": (4 * K + 5) * lanes, "cols": (4 * K + 3) * lanes,
+            "p": 10 * p2.numel()}
+    inputs = {"rows": (e, p2, x2, c), "cols": (e, p2, x2, m),
+              "p": (p2, part[:, :1], mask)}
+    ms, bnd = {}, {}
     for name, (kernel, plain) in passes.items():
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = max(max_err(g, r) for g, r in zip(got, ref))
         errs[name] = max(errs[name], err)
         ms[name] = (median_ms(kernel), median_ms(plain))
+        bnd[name] = bound(tensors_bytes(inputs[name], got), flop[name])
         print(f"generic pass {name} B=2 miss=0.01: max|d| {err:.3e}; kernel "
-              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms on {where}",
+              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
+              f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
 
     # the sweep statistics (finish=False) and an a0 / emit_a chain
@@ -434,8 +518,11 @@ def phase_generic_kernels(fs, dev, where):
     sweep_ms = (median_ms(lambda: fs.admixture_sweep_stats(e, p2, x2)),
                 median_ms(lambda: fs.admixture_sweep_stats_reference(
                     e, p2, x2)))
+    # the sweep's d, A and B contractions over x read once
+    bnd["sweep"] = bound(tensors_bytes((e, p2, x2), got), 6 * K * lanes)
     print(f"generic sweep stats B=2: max|d| {sweep_err:.3e}; kernel "
-          f"{sweep_ms[0]:.3f} ms, plain {sweep_ms[1]:.3f} ms on {where}",
+          f"{sweep_ms[0]:.3f} ms, plain {sweep_ms[1]:.3f} ms, bound "
+          f"{bnd['sweep'][0]:.3f} ms ({bnd['sweep'][1]}) on {where}",
           flush=True)
     h = (L_FULL // 2) * M_FULL
     halves = [(p2[..., :h].contiguous(), x2[:, :h].contiguous()),
@@ -452,7 +539,7 @@ def phase_generic_kernels(fs, dev, where):
     print(f"generic a0 / emit_a chain of two launches B=2: max|d| "
           f"{chain_err:.3e} on {where}", flush=True)
     errs["rows"] = max(errs["rows"], chain_err)
-    return errs, ms, (sweep_err, sweep_ms)
+    return errs, ms, (sweep_err, sweep_ms), bnd
 
 
 def phase_fit_generic(build, dev, where):
@@ -673,17 +760,28 @@ def phase_mixture_kernels(mb, dev, where):
                   lambda: mb.mixture_sweep_stats_reference(lp0, x0,
                                                            bias)[:3]),
     }
-    ms = {}
+    # operations: one contraction of I x L x K each for the scores (rows)
+    # and for B0 (columns), 2 a multiply-add, and the softmax's ~20 a
+    # posterior; the finishes ~10 an entry
+    cells = 2 * I_FULL * L_FULL
+    flop = {"rows": 2 * K * cells + 20 * v.numel(), "cols": 2 * K * cells,
+            "eta": 10 * vpart.numel(), "p": 10 * lp0.numel(),
+            "sweep": 4 * K * cells + 20 * v.numel()}
+    inputs = {"rows": (lp0, x0, bias), "cols": (v, x0), "eta": (vpart,),
+              "p": (part[:, :1], vtot), "sweep": (lp0, x0, bias)}
+    ms, bnd = {}, {}
     for name, (kernel, plain) in passes.items():
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
         err = max(max_err(g, r) for g, r in zip(got, ref))
         errs[name] = max(errs[name], err)
         ms[name] = (median_ms(kernel), median_ms(plain))
+        bnd[name] = bound(tensors_bytes(inputs[name], got), flop[name])
         print(f"mixture pass {name} B=2 miss=0.00: max|d| {err:.3e}; kernel "
-              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms on {where}",
+              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
+              f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
-    return errs, ms
+    return errs, ms, bnd
 
 
 def phase_fit_mixture(build, dev, where):
@@ -812,6 +910,343 @@ def phase_cli_mixture(build, where):
               f"{launches} on {where}", flush=True)
 
 
+def max_err_cast(got, ref) -> float:
+    """max_err across the routes' t dtypes (float32 or float64)."""
+    return max_err(got.to(ref.dtype), ref)
+
+
+def phase_biobank_kernels(fb, dev, where):
+    """The three routes of the biallelic step at 8192 x 131072 against the
+    windowed plain version, then each new kernel alone at the fits' shape
+    (chain batch 2) for the kernels' record, then the rows passes at
+    2048 x 524288."""
+    from multiclust_tpu_torch.route_times import device_panel, \
+        device_step_params
+
+    K, Kp = K_FULL, 32
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True)
+    planes, miss = device_panel(90, I_BIO, L_BIO, K, 0.01, dev)
+    x0, x1 = planes[0], planes[1]
+    c = miss.sum(dim=1, dtype=torch.float32)
+    n_sm = fb.device_sm_count(dev)
+    errs = {k: 0.0 for k in ("rows_seg", "finish", "cols_window", "chunked")}
+    quick = dict(n=5, warm=1)
+    for B in (1, 2):
+        eta, p0 = device_step_params(91 + B, B, I_BIO, L_BIO, K, Kp, dev)
+        _, seg_cols = fb.row_segments(B, I_BIO, L_BIO, n_sm)
+        routes = {
+            "pair": lambda **k: fb.admixture_fullstep_biallelic(
+                eta, p0, x0, x1, c, miss, **kw, **k),
+            "streamed": lambda **k: fb.admixture_fullstep_biallelic_streamed(
+                eta, p0, x0, x1, c, miss, seg_cols=seg_cols, **kw, **k),
+            "chunked": lambda **k: fb.admixture_fullstep_biallelic_chunked(
+                eta, p0, x0, x1, c, miss, window=L_BIO // 4, **kw, **k),
+        }
+        for compute_t in (True, False):
+            ref = fb.admixture_fullstep_biallelic_streamed_reference(
+                eta, p0, x0, x1, c, miss, compute_t=compute_t, **kw)
+            for name, fn in routes.items():
+                got = fn(compute_t=compute_t)
+                torch.cuda.synchronize()
+                e_eta, e_t, e_p = (max_err_cast(g, r)
+                                   for g, r in zip(got, ref))
+                assert (got[0][..., K:] == 0).all()
+                assert (got[2][:, K:] == 0).all()
+                if name != "pair":
+                    key = "chunked" if name == "chunked" else "rows_seg"
+                    errs[key] = max(errs[key], e_eta, e_t)
+                    errs["cols_window"] = max(errs["cols_window"], e_p)
+                k_ms = median_ms(lambda: fn(compute_t=compute_t), **quick)
+                cells = B * I_BIO * L_BIO * 2
+                print(f"biobank step {name} B={B} compute_t={compute_t}: "
+                      f"max|d| eta'={e_eta:.3e} t={e_t:.3e} p0'={e_p:.3e} "
+                      f"(rtol {RTOL}, atol {ATOL}); kernel {k_ms:.3f} ms "
+                      f"({cells / k_ms / 1e6:.2f} Gcells/s) on {where}",
+                      flush=True)
+            del ref, got
+        if B == 2:
+            break
+        del eta, p0, routes
+        torch.cuda.empty_cache()
+
+    # the raw outputs once (chain batch 2): emit_b, and emit_a + emit_b
+    for emit_a in (False, True):
+        ref = fb.admixture_fullstep_biallelic_streamed_reference(
+            eta, p0, x0, x1, c, miss, emit_a=emit_a, emit_b=True, **kw)
+        for name in ("streamed", "chunked"):
+            got = routes[name](emit_a=emit_a, emit_b=True)
+            torch.cuda.synchronize()
+            e = [max_err_cast(g, r) for g, r in zip(got, ref)]
+            key = "chunked" if name == "chunked" else "rows_seg"
+            errs[key] = max(errs[key], e[0], e[1])
+            errs["cols_window"] = max(errs["cols_window"], e[2], e[3])
+            print(f"biobank {name} emit_a={emit_a} emit_b=True B=2: max|d| "
+                  f"first={e[0]:.3e} t={e[1]:.3e} B0={e[2]:.3e} "
+                  f"B1={e[3]:.3e} on {where}", flush=True)
+        del ref, got
+
+    # each new kernel alone at the fits' shape (chain batch 2)
+    win = dict(l_lo=0, l_hi=L_BIO)
+    fin = dict(k_true=K, lb=1e-8, project_eta=True)
+    apart, tpart = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols, **win)
+    outs = (torch.empty_like(p0),)
+    outs_ref = (torch.empty_like(p0),)
+
+    def cols(fn, o):
+        fn(eta, p0, x0, x1, miss, o, plb=1e-8, project=True, **win)
+        return o
+
+    passes = {
+        # the partials, compared summed over segments
+        "rows_seg": (lambda: tuple(t.sum(dim=1) for t in fb.rows_partials(
+                         eta, p0, x0, x1, seg_cols=seg_cols, **win)),
+                     lambda: tuple(t[:, 0] for t in
+                                   fb.rows_partials_reference(
+                                       eta, p0, x0, x1, **win))),
+        "finish": (lambda: fb.rows_finish(eta, apart, tpart, c, **fin),
+                   lambda: fb.rows_finish_reference(eta, apart, tpart, c,
+                                                    **fin)),
+        "cols_window": (lambda: cols(fb.cols_window, outs),
+                        lambda: cols(fb.cols_window_reference, outs_ref)),
+        "chunked": (lambda: routes["chunked"](),
+                    lambda: fb.admixture_fullstep_biallelic_chunked_reference(
+                        eta, p0, x0, x1, c, miss, window=L_BIO // 4, **kw)),
+    }
+    # operations as the pair's: d0 and A (rows), d0, B0 and B1 (columns),
+    # 2 a multiply-add per cell and cluster, plus the elementwise terms;
+    # the finish ~10 a partial entry
+    cells = 2 * I_BIO * L_BIO
+    flop = {"rows_seg": (4 * K + 10) * cells, "finish": 10 * apart.numel(),
+            "cols_window": (6 * K + 6) * cells,
+            "chunked": (10 * K + 16) * cells}
+    inputs = {"rows_seg": (eta, p0, x0, x1), "finish": (eta, apart, tpart, c),
+              "cols_window": (eta, p0, x0, x1, miss),
+              "chunked": (eta, p0, x0, x1, c, miss)}
+    ms, bnd = {}, {}
+    for name, (kernel, plain) in passes.items():
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max(max_err_cast(g, r) for g, r in zip(got, ref))
+        errs[name] = max(errs[name], err)
+        bnd[name] = bound(tensors_bytes(inputs[name], got), flop[name])
+        del got, ref
+        ms[name] = (median_ms(kernel, **quick),
+                    median_ms(plain, n=2, warm=1))
+        print(f"biobank pass {name} B=2: max|d| {err:.3e}; kernel "
+              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
+              f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
+              flush=True)
+    t_ms = median_ms(lambda: fb.rows_log_likelihood_terms(eta, p0, x0, x1),
+                     **quick)
+    print(f"biobank logL terms alone (rows pass, A phase skipped) B=2: "
+          f"{t_ms:.3f} ms on {where}", flush=True)
+    del planes, miss, x0, x1, c, eta, p0, apart, tpart, outs, outs_ref, \
+        routes, passes
+    torch.cuda.empty_cache()
+
+    # the rows passes where the panel is short: 2048 x 524288
+    planes, miss = device_panel(95, I_NARROW, L_NARROW, K, 0.01, dev)
+    x0, x1 = planes[0], planes[1]
+    c = miss.sum(dim=1, dtype=torch.float32)
+    row_kw = dict(k_true=K, lb=1e-8, project=True, compute_t=True)
+    for B in (1, 2):
+        eta, p0 = device_step_params(96 + B, B, I_NARROW, L_NARROW, K, Kp,
+                                     dev)
+        n_seg, seg_cols = fb.row_segments(B, I_NARROW, L_NARROW, n_sm)
+        ref_a, ref_t = fb.rows_partials_reference(
+            eta, p0, x0, x1, l_lo=0, l_hi=L_NARROW)
+        ref = fb.rows_finish_reference(eta, ref_a, ref_t, c, **fin)
+
+        def seg_rows():
+            return fb.rows_finish(eta, *fb.rows_partials(
+                eta, p0, x0, x1, l_lo=0, l_hi=L_NARROW, seg_cols=seg_cols),
+                c, **fin)
+
+        def pair_rows():
+            return fb.fullstep_bi_rows(eta, p0, x0, x1, c, **row_kw)
+
+        line = []
+        for name, fn in (("segmented", seg_rows), ("unsegmented", pair_rows)):
+            got = fn()
+            torch.cuda.synchronize()
+            e = [max_err_cast(g, r) for g, r in zip(got, ref)]
+            errs["rows_seg"] = max(errs["rows_seg"], *e) \
+                if name == "segmented" else errs["rows_seg"]
+            line.append(f"{name} max|d| eta'={e[0]:.3e} t={e[1]:.3e} "
+                        f"{median_ms(fn, **quick):.3f} ms")
+            del got
+        print(f"narrow rows pass {I_NARROW} x {L_NARROW} B={B} ({n_seg} "
+              f"segments of {seg_cols}): " + "; ".join(line) + f" on {where}",
+              flush=True)
+        del eta, p0, ref_a, ref_t, ref
+        torch.cuda.empty_cache()
+    return errs, ms, bnd
+
+
+def phase_biobank_fits(build, dev, where):
+    """Whole fits at the biobank widths through ``api.fit_model_data``, the
+    panels made on the card: 8192 x 131072 under plain EM and SQUAREM (the
+    streamed route), 2048 x 524288 under plain EM (the chunked loop)."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model.common import model_data_from_planes
+    from multiclust_tpu_torch.route_times import device_panel
+
+    base = dict(admixture=True, min_K=K_FULL, max_K=K_FULL, n_init=2,
+                seed=3, verbosity=2)
+
+    def timed_fit(md, label, route, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = fit_model_data(md, 2, **base, **kw)
+        torch.cuda.synchronize()
+        res = check_fit(out, time.time() - t0, label, where, md=md)
+        assert res.route.startswith(route), (label, res.route)
+        print(f"fit {label}: route {res.route}, {res.batch_chains} chains in "
+              f"lockstep, peak allocation "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB of "
+              f"which the panel {tensors_bytes(md.x0, md.x1, md.miss) / 2 ** 30:.2f}"
+              f" GiB, on {where}", flush=True)
+        return res
+
+    build.reset_launch_counts()
+    md = model_data_from_planes(*device_panel(100, I_BIO, L_BIO, K_FULL,
+                                              0.01, dev))
+    fits = [timed_fit(md, "biobank plain EM", "streamed", max_iter=50),
+            timed_fit(md, "biobank SQUAREM", "streamed", max_iter=50,
+                      accel_scheme=1)]
+    del md
+    torch.cuda.empty_cache()
+    stream_steps = sum(r.n_iter_all for r in fits) // 2
+    assert build.LAUNCHES["mc_fullstep_bi_rows_seg"] >= stream_steps > 0
+    assert not build.LAUNCHES["fullstep_bi_chunked"]
+    md = model_data_from_planes(*device_panel(101, I_NARROW, L_NARROW,
+                                              K_FULL, 0.01, dev))
+    narrow = timed_fit(md, "narrow plain EM", "chunked", max_iter=20)
+    del md
+    torch.cuda.empty_cache()
+    launches = {name: build.LAUNCHES[name]
+                for name in STREAM_KERNELS + ("fullstep_bi_chunked",)}
+    print(f"launches in the biobank fits: {dict(build.LAUNCHES)}",
+          flush=True)
+    # one launch of each kernel serves the whole chain batch (2 lanes),
+    # and the chunked loop makes one for each of its windows
+    steps = stream_steps + narrow.n_iter_all // 2
+    for name in STREAM_KERNELS:
+        assert launches[name] >= steps, (name, launches[name], steps)
+    assert launches["fullstep_bi_chunked"] >= 2 * (narrow.n_iter_all // 2)
+    assert not build.LAUNCHES["mc_fullstep_bi_rows"]
+    return launches
+
+
+def phase_biobank_reference(build, dev):
+    """A warm-start fit at the full biobank width and a reduced height
+    (256 x 131072, so the t sums run over 131072 loci) through the
+    streamed route, held to the plain float64 step on the CPU over the
+    same 30 iterations.  At |logL| ~ 4e7 the float32 terms alone differ
+    from float64 ones by more than the 0.1 that the small reference fits
+    are held to (a fifth of an ulp a term is 0.8 over 3e7 terms), so both
+    the trajectories and the t sums themselves (the kernel's float32 terms
+    under its float64 finish, against float64 terms at the same
+    parameters) are held to the noise floor that the convergence test
+    reads there, noise_factor x eps x scale (opt/em.py)."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+    from multiclust_tpu_torch.model.admixture import log_likelihood_bi_repr
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+    from multiclust_tpu_torch.opt.driver import fit
+    from multiclust_tpu_torch.runtime.multistart import _pad_k, _to_bi_repr
+
+    rng = np.random.default_rng(104)
+    I, L, K = 256, L_BIO, 3
+    counts, miss = simulated_counts(rng, I, L, K, 0.01)
+    mask, n_all = np.ones((L, 2), bool), np.full(L, 2)
+    eta = rng.dirichlet(np.full(K, 2.0), size=I)
+    p0 = rng.uniform(0.2, 0.8, size=(K, L))
+    p = np.stack([p0, 1 - p0], axis=2)
+    base = dict(admixture=True, has_missing=True, biallelic=True, k_true=K,
+                max_iter=30, abs_error=1e-12, eta_lower_bound=1e-8,
+                p_lower_bound=1e-8)
+    t0 = time.time()
+    md64 = model_data_from_numpy(counts, miss, mask, n_all)
+    cpu = fit(params_from_numpy(eta, p), md64, EMConfig(**base))
+    t_cpu = time.time() - t0
+    cfg = EMConfig(use_pallas="on", **base)
+    warm = params_from_numpy(eta, p, device=dev, dtype=torch.float32)
+    md32 = model_data_from_numpy(counts, miss, mask, n_all, device=dev,
+                                 dtype=torch.float32)
+    build.reset_launch_counts()
+    gpu = fit(_to_bi_repr(_pad_k(warm, cfg), cfg), md32, cfg)
+    gap = gpu.logL - cpu.logL
+    # the t sums alone: the fitted float32 parameters scored by the rows
+    # pass on the card and by float64 terms on the CPU
+    final = gpu.state.params
+    ll32 = float(log_likelihood_bi_repr(final, md32)[0][0])
+    ll64 = float(log_likelihood_bi_repr(
+        Params(eta=final.eta.double().cpu(), p=final.p.double().cpu()),
+        md64)[0][0])
+    floor = (cfg.noise_factor * torch.finfo(torch.float32).eps
+             * float(gpu.state.scale[0]))
+    print(f"biobank reference fit {I} x {L}: streamed route logL "
+          f"{gpu.logL:.4f} vs float64 CPU {cpu.logL:.4f} (gap {gap:+.4f}, "
+          f"{abs(gap / cpu.logL):.2e} of |logL|) after {gpu.n_iter} "
+          f"iterations; t sums at the fitted parameters {ll32:.4f} on the "
+          f"card vs {ll64:.4f} in float64 (gap {ll32 - ll64:+.4f}); the "
+          f"convergence test's noise floor there {floor:.4f}; the CPU fit "
+          f"took {t_cpu:.1f} s", flush=True)
+    assert gpu.n_iter == cpu.n_iter == 31
+    assert build.LAUNCHES["mc_fullstep_bi_rows_seg"] >= 31
+    assert not build.LAUNCHES["mc_fullstep_bi_rows"]
+    assert abs(gap) < floor and abs(ll32 - ll64) < floor
+
+
+def phase_biobank_mixture(build, dev, where):
+    """One mixture fit at 8192 x 131072 through the mixture kernels."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model.common import model_data_from_planes
+    from multiclust_tpu_torch.route_times import device_panel
+
+    md = model_data_from_planes(*device_panel(105, I_BIO, L_BIO, K_FULL,
+                                              0.01, dev))
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fit_model_data(md, 2, admixture=False, min_K=K_FULL, max_K=K_FULL,
+                         n_init=2, max_iter=30, seed=3, verbosity=2)
+    torch.cuda.synchronize()
+    res = check_fit(out, time.time() - t0, "biobank mixture plain EM", where,
+                    md=md)
+    launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
+    print(f"biobank mixture fit: launches {launches}, peak allocation "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {where}",
+          flush=True)
+    assert all(n >= res.n_iter_all // 2 > 0 for n in launches.values())
+
+
+def phase_cli_biobank(build, where):
+    """The CLI on a short and wide file, 512 x 8192, which the router
+    sends down the streamed route."""
+    from multiclust_tpu_torch.cli import main
+
+    rng = np.random.default_rng(106)
+    counts, miss = simulated_counts(rng, 512, 8192, 3, 0.02)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sim.str")
+        write_structure_biallelic(path, counts, miss)
+        build.reset_launch_counts()
+        t0 = time.time()
+        rc = main(["-f", path, "-a", "-k", "3", "-n", "4", "-d", tmp])
+        torch.cuda.synchronize()
+        launches = {name: build.LAUNCHES[name]
+                    for name in STREAM_KERNELS + ("mc_fullstep_bi_rows",)}
+        assert rc == 0, rc
+        for f in OUT_FILES:
+            assert os.path.getsize(os.path.join(tmp, f)) > 0, f
+    assert all(launches[name] > 0 for name in STREAM_KERNELS), launches
+    assert not launches["mc_fullstep_bi_rows"], launches
+    print(f"cli 512 x 8192: rc 0 in {time.time() - t0:.2f} s, launches "
+          f"{launches} on {where}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -833,56 +1268,70 @@ def main() -> int:
     build.library()
     print(f"build: {time.time() - t0:.1f} s ({lib.name})", flush=True)
 
-    errs, ms = phase_kernels(fb, dev, where)
+    errs, ms, bnd = phase_kernels(fb, dev, where)
     launches = phase_fit(build, dev, where)
     phase_reference(dev)
     phase_cli(build, where)
-    g_errs, g_ms, (sweep_err, sweep_ms) = phase_generic_kernels(fs, dev,
-                                                                where)
+    g_errs, g_ms, (sweep_err, sweep_ms), g_bnd = phase_generic_kernels(
+        fs, dev, where)
     launches.update(phase_fit_generic(build, dev, where))
     phase_reference_generic(dev)
     phase_cli_generic(build, where)
-    m_errs, m_ms = phase_mixture_kernels(mb, dev, where)
+    m_errs, m_ms, m_bnd = phase_mixture_kernels(mb, dev, where)
     mix_launches = phase_fit_mixture(build, dev, where)
     phase_reference_mixture(build, dev)
     phase_fit_mixture_generic(build, dev, where)
     phase_cli_mixture(build, where)
 
+    b_errs, b_ms, b_bnd = phase_biobank_kernels(fb, dev, where)
+    bio_launches = phase_biobank_fits(build, dev, where)
+    phase_biobank_reference(build, dev)
+    phase_biobank_mixture(build, dev, where)
+    phase_cli_biobank(build, where)
+
     kernels = [
-        {"name": f"fullstep_bi_{name}", "route": "cuda", "source": SOURCE,
-         "replaces": TPU_KERNEL,
-         "launches": launches[f"mc_fullstep_bi_{name}"],
-         "max_abs_err": errs[name], "ms": ms[name][0],
-         "plain_ms": ms[name][1]} for name in ("rows", "cols")]
+        kernel_record(f"fullstep_bi_{name}", SOURCE, TPU_KERNEL,
+                      launches[f"mc_fullstep_bi_{name}"], errs[name],
+                      ms[name], bnd[name]) for name in ("rows", "cols")]
     kernels += [
-        {"name": f"fullstep_{name}", "route": "cuda",
-         "source": GENERIC_SOURCE, "replaces": GENERIC_TPU,
-         "launches": launches[f"mc_fullstep_{name}"],
-         "max_abs_err": g_errs[name], "ms": g_ms[name][0],
-         "plain_ms": g_ms[name][1]} for name in ("rows", "cols", "p")]
+        kernel_record(f"fullstep_{name}", GENERIC_SOURCE, GENERIC_TPU,
+                      launches[f"mc_fullstep_{name}"], g_errs[name],
+                      g_ms[name], g_bnd[name])
+        for name in ("rows", "cols", "p")]
     # the sweeps' port is the generic rows, columns and p kernels with
     # finish=False: its launches are those kernels' launches in the M=4
     # fits, its times and error those of one admixture_sweep_stats call
     kernels += [
-        {"name": name, "route": "cuda", "source": GENERIC_SOURCE,
-         "replaces": tpu, "launches": launches["mc_fullstep_rows"],
-         "max_abs_err": sweep_err, "ms": sweep_ms[0],
-         "plain_ms": sweep_ms[1]} for name, tpu in SWEEP_TPU.items()]
+        kernel_record(name, GENERIC_SOURCE, tpu,
+                      launches["mc_fullstep_rows"], sweep_err, sweep_ms,
+                      g_bnd["sweep"]) for name, tpu in SWEEP_TPU.items()]
     kernels += [
-        {"name": f"mixture_{name}", "route": "cuda", "source": MIX_SOURCE,
-         "replaces": MIX_TPU, "launches": mix_launches[f"mc_mix_{name}"],
-         "max_abs_err": m_errs[name], "ms": m_ms[name][0],
-         "plain_ms": m_ms[name][1]} for name in ("rows", "cols", "eta", "p")]
+        kernel_record(f"mixture_{name}", MIX_SOURCE, MIX_TPU,
+                      mix_launches[f"mc_mix_{name}"], m_errs[name],
+                      m_ms[name], m_bnd[name])
+        for name in ("rows", "cols", "eta", "p")]
     # the resident sweep's port is the mixture rows and columns passes
     # with the raw epilogue (finish=False): its launches are the rows
     # pass's launches in the mixture fits, its times and error those of
     # one mixture_sweep_stats call
     kernels.append(
-        {"name": "mixture_sweep_resident", "route": "cuda",
-         "source": MIX_SOURCE, "replaces": MIX_SWEEP_TPU,
-         "launches": mix_launches["mc_mix_rows"],
-         "max_abs_err": m_errs["sweep"], "ms": m_ms["sweep"][0],
-         "plain_ms": m_ms["sweep"][1]})
+        kernel_record("mixture_sweep_resident", MIX_SOURCE, MIX_SWEEP_TPU,
+                      mix_launches["mc_mix_rows"], m_errs["sweep"],
+                      m_ms["sweep"], m_bnd["sweep"]))
+    # the streamed step's kernels (the segmented rows pass, its finish, the
+    # windowed columns pass with its epilogue) and the chunked loop of
+    # them, with their launches in the biobank fits
+    kernels += [
+        kernel_record(f"fullstep_bi_{name}", SOURCE, STREAM_TPU,
+                      bio_launches[launcher], b_errs[name], b_ms[name],
+                      b_bnd[name])
+        for name, launcher in (("rows_seg", "mc_fullstep_bi_rows_seg"),
+                               ("finish", "mc_fullstep_bi_finish"),
+                               ("cols_window", "mc_fullstep_bi_cols"))]
+    kernels.append(
+        kernel_record("fullstep_bi_chunked", SOURCE, CHUNK_TPU,
+                      bio_launches["fullstep_bi_chunked"], b_errs["chunked"],
+                      b_ms["chunked"], b_bnd["chunked"]))
     record = {"kernels": kernels}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,13 +13,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from multiclust_tpu.config import Options
-from multiclust_tpu.io.dataset import Dataset
+from multiclust_tpu_torch.config import Options
+from multiclust_tpu_torch.io.dataset import Dataset
 
 
 @dataclasses.dataclass
 class FitOutput:
-    dataset: Dataset
+    dataset: Optional[Dataset]          # None for a panel made on the device
     estimate: "EstimateResult"          # noqa: F821 - runtime import
 
     @property
@@ -65,13 +65,39 @@ def check_ported(opt: Options) -> None:
                 f"item {item}")
 
 
+def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
+                   dataset: Optional[Dataset] = None, **kw) -> FitOutput:
+    """Fit a panel that already lies on its device as ModelData (one
+    generated there, model/common.model_data_from_planes; or the one
+    ``fit_dataset`` uploads) under the given options."""
+    from multiclust_tpu_torch.init.random import codes_from_counts
+    from multiclust_tpu_torch.runtime.ksweep import estimate_model
+
+    opt = opt or Options()
+    if kw:
+        opt = dataclasses.replace(opt, **kw)
+    check_ported(opt)
+    resolve_device(md.device)
+    opt = opt.synchronize(md.I, ploidy)
+    # allele codes seed the admixture starts only
+    codes = (codes_from_counts(md.x, md.miss, ploidy) if opt.admixture
+             else None)
+    free_p = int((md.n_alleles - 1).sum())
+
+    def n_parameters(K):
+        # Dataset.n_parameters (multiclust.c:1267-1277)
+        per_i = opt.admixture and not opt.eta_constrained
+        return (md.I * (K - 1) if per_i else K - 1) + free_p * K
+
+    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes)
+    return FitOutput(dataset=dataset, estimate=est)
+
+
 def fit_dataset(ds: Dataset, opt: Optional[Options] = None, *,
                 device="cuda", **kw) -> FitOutput:
     """Fit a Dataset under the given options (kw override Options
     fields) on ``device``."""
-    from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.model.common import model_data_from_dataset
-    from multiclust_tpu_torch.runtime.ksweep import estimate_model
     from multiclust_tpu_torch.runtime.multistart import device_policy
 
     opt = opt or Options()
@@ -79,25 +105,16 @@ def fit_dataset(ds: Dataset, opt: Optional[Options] = None, *,
         opt = dataclasses.replace(opt, **kw)
     check_ported(opt)
     device = resolve_device(device)
-    opt = opt.synchronize(ds.I, ds.ploidy)
     _, storage = device_policy(opt, device)
     md = model_data_from_dataset(ds, dtype=getattr(torch, opt.dtype),
                                  device=device, storage_dtype=storage)
-    # allele codes seed the admixture starts only
-    codes = (codes_from_counts(md.x, md.miss, ds.ploidy) if opt.admixture
-             else None)
-
-    def n_parameters(K):
-        return ds.n_parameters(K, opt.admixture, opt.eta_constrained)
-
-    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes)
-    return FitOutput(dataset=ds, estimate=est)
+    return fit_model_data(md, ds.ploidy, opt, dataset=ds)
 
 
 def fit_file(path: str, opt: Optional[Options] = None, *, device="cuda",
              **kw) -> FitOutput:
     """Read a STRUCTURE file and fit it on ``device``."""
-    from multiclust_tpu.io.structure import read_structure
+    from multiclust_tpu_torch.io.structure import read_structure
 
     opt = opt or Options()
     if kw:

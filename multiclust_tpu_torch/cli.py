@@ -1,11 +1,15 @@
-"""Command-line interface of the port, flag-compatible with the JAX CLI
-(multiclust_tpu/cli.py, single-process path).
+"""Command-line interface of the port, flag-compatible with the reference
+binary and with the JAX CLI (multiclust_tpu/cli.py, single-process path).
 
-Run as ``python -m multiclust_tpu_torch.cli <reference flags>``.  Flags are
-parsed by ``multiclust_tpu.cli.parse_args``; ``--platform cpu`` fits on
-the CPU in float64, as the JAX CLI does, and the default fits on CUDA.
-Flags outside the ported slice raise a usage error that names the
-ROADMAP.md item.
+Parser semantics follow parse_options (multiclust.c:1396-1735): single-pass
+switch on the first non-dash character with multi-character disambiguation
+(e.g. -b vs --bound by prefix "bou").  See fprint_usage
+(multiclust.c:1744-1891) for the documented surface.
+
+Run as ``python -m multiclust_tpu_torch.cli <reference flags>``.
+``--platform cpu`` fits on the CPU in float64, as the JAX CLI does, and the
+default fits on CUDA.  Flags outside the ported slice raise a usage error
+that names the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -17,15 +21,354 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from multiclust_tpu.cli import UsageError, parse_args, print_model_state
-from multiclust_tpu.config import Options
+from multiclust_tpu_torch.config import AccelScheme, InitProcedure, \
+    Options, OutputFormat
 
+
+class UsageError(SystemExit):
+    def __init__(self, msg: str):
+        super().__init__(f"multiclust-tpu: {msg}\nTry '-h' for help.")
+
+
+def _need(argv, i, flag):
+    if i >= len(argv):
+        raise UsageError(f"option '{flag}' requires an argument")
+    return argv[i]
+
+
+def parse_args(argv: List[str]) -> Options:
+    opt = Options()
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if len(arg) < 2 or arg[0] != "-":
+            raise UsageError(f"unrecognized argument '{arg}'")
+        name = arg.lstrip("-")
+        if not name:
+            raise UsageError(f"unrecognized argument '{arg}'")
+        a = name[0]
+        i += 1
+        if a == "a":
+            opt.admixture = True
+        elif a == "A":
+            opt.afile = _need(argv, i, arg); i += 1
+        elif a == "b":
+            if name.startswith("bou"):
+                opt.lower_bound = float(_need(argv, i, arg)); i += 1
+                if opt.lower_bound < 0:
+                    raise UsageError("--bound must be >= 0")
+            else:
+                opt.n_bootstrap = int(_need(argv, i, arg)); i += 1
+                if opt.n_bootstrap < 0:
+                    raise UsageError("-b must be >= 0")
+        elif a == "B":
+            pass  # debug-only simplified loop in the reference (-B)
+        elif a == "c":
+            if name.startswith("check-") or name.startswith("checki"):
+                # --check-interval N (extension): evaluate convergence
+                # only every N-th plain-EM iteration (config.Options)
+                opt.check_interval = int(_need(argv, i, arg)); i += 1
+                if opt.check_interval < 0:
+                    raise UsageError("--check-interval must be >= 0")
+            elif name.startswith("com"):
+                # --compile-cache <dir|off> (extension)
+                opt.compile_cache = _need(argv, i, arg); i += 1
+            elif name.startswith("ch"):
+                opt.checkpoint_dir = _need(argv, i, arg); i += 1
+            else:
+                opt.eta_constrained = True
+        elif a == "d":
+            opt.path = _need(argv, i, arg); i += 1
+        elif a == "e":
+            opt.rel_error = float(_need(argv, i, arg)); i += 1
+        elif a == "E":
+            opt.abs_error = float(_need(argv, i, arg)); i += 1
+        elif a == "f":
+            if name.startswith("fo"):
+                fmt = _need(argv, i, arg); i += 1
+                if fmt == "ped":
+                    opt.output_format = OutputFormat.PED
+                elif fmt == "stru":
+                    opt.output_format = OutputFormat.STRUCTURE
+                else:
+                    raise UsageError(f"unknown output format '{fmt}'")
+            else:
+                opt.filename = _need(argv, i, arg); i += 1
+        elif a == "g":
+            opt.adjust_step = int(_need(argv, i, arg)); i += 1
+        elif a == "h":
+            print_usage()
+            raise SystemExit(0)
+        elif a == "i":
+            if name.startswith("im"):
+                opt.imputation_method = 1
+                if i < len(argv) and not argv[i].startswith("-"):
+                    opt.imputed_outfile = argv[i]; i += 1
+            else:
+                opt.n_init_iter = int(_need(argv, i, arg)); i += 1
+        elif a == "I":
+            if name == "I1":
+                opt.one_plus = True
+            opt.alleles_are_indices = True
+        elif a == "1":
+            opt.min_K = int(_need(argv, i, arg)); i += 1
+        elif a == "2":
+            opt.max_K = int(_need(argv, i, arg)); i += 1
+        elif a == "k":
+            opt.max_K = int(_need(argv, i, arg)); i += 1
+            opt.min_K = opt.max_K
+        elif a == "m":
+            if name.startswith("mi"):
+                opt.missing_value = int(_need(argv, i, arg)); i += 1
+            elif name.startswith("me"):
+                # --mesh DxM: (data_shards, loci_shards) device mesh for
+                # the production fit path; "auto" = all devices on data
+                spec = _need(argv, i, arg); i += 1
+                if spec == "auto":
+                    opt.mesh_shape = (-1, 1)  # resolved at run time
+                else:
+                    try:
+                        d, m_ = spec.lower().split("x")
+                        opt.mesh_shape = (int(d), int(m_))
+                    except ValueError:
+                        raise UsageError(
+                            f"--mesh wants DxM or 'auto', got '{spec}'")
+            else:
+                opt.n_rand_em_init = int(_need(argv, i, arg)); i += 1
+                if opt.n_rand_em_init == 0:
+                    opt.initialization_procedure = InitProcedure.NOTHING
+                else:
+                    opt.initialization_procedure = InitProcedure.RAND_EM
+        elif a == "M":
+            opt.parallel = True
+            opt.n_repeat = 1
+            opt.verbosity = 1  # SILENT
+        elif a == "n":
+            opt.n_init = int(_need(argv, i, arg)); i += 1
+            if opt.n_init == 0:
+                opt.n_repeat = 0
+        elif a == "o":
+            opt.outfile_name = _need(argv, i, arg); i += 1
+        elif a == "p":
+            if name.startswith("pr"):
+                opt.do_projection = False
+            elif name.startswith("pl"):
+                opt.write_plus_one = True
+            else:
+                opt.ploidy = int(_need(argv, i, arg)); i += 1
+                if opt.ploidy < 1:
+                    raise UsageError("-p must be >= 1")
+        elif a == "P":
+            opt.pfile = _need(argv, i, arg); i += 1
+        elif a == "Q":
+            opt.qfile = _need(argv, i, arg); i += 1
+        elif a == "R":
+            opt.R_format = True
+        elif a == "r":
+            opt.seed = int(_need(argv, i, arg)); i += 1
+        elif a == "x":
+            # block relaxation: parsed but never implemented in the
+            # reference ("[KSD TODO: no block relax implemented]",
+            # em_alg.c:80); accepted and ignored for compatibility
+            pass
+        elif a == "s":
+            if name.startswith("si"):
+                opt.simulate = True
+                opt.admix_qfile = _need(argv, i, arg); i += 1
+                opt.admix_pfile = _need(argv, i, arg); i += 1
+                if i < len(argv) and not argv[i].startswith("-"):
+                    opt.simulate_outfile = argv[i]; i += 1
+            else:
+                s = int(_need(argv, i, arg)); i += 1
+                if s < 0:
+                    raise UsageError("-s must be >= 0")
+                opt.accel_scheme = AccelScheme(min(s, 4)) \
+                    if s <= 4 else AccelScheme.QN
+                if s >= 4:
+                    opt.accel_scheme = s  # resolved in synchronize()
+        elif a == "t":
+            opt.n_seconds = 60 * int(_need(argv, i, arg)); i += 1
+        elif a == "T" or (a == "C" and len(name) == 1):
+            opt.max_iter = int(_need(argv, i, arg)); i += 1
+        elif a == "u":
+            while i < len(argv) and not argv[i].startswith("-"):
+                sub = argv[i]; i += 1
+                if sub == "l":
+                    opt.target_ll = True
+                    opt.desired_ll = float(_need(argv, i, arg)); i += 1
+                elif sub == "n":
+                    opt.target_revisit = int(_need(argv, i, arg)); i += 1
+                else:
+                    raise UsageError(f"unknown -u selector '{sub}'")
+        elif a == "v":
+            if i < len(argv):
+                try:
+                    opt.verbosity = int(argv[i]); i += 1
+                except ValueError:
+                    opt.verbosity = 6  # VERBOSE
+            else:
+                opt.verbosity = 6
+        elif a == "w":
+            while i < len(argv) and not argv[i].startswith("-"):
+                sub = argv[i]; i += 1
+                if sub == "t":
+                    opt.repeat_seconds = 60 * int(_need(argv, i, arg))
+                    i += 1
+                elif sub == "m":
+                    opt.max_repeat_seconds = 60 * int(_need(argv, i, arg))
+                    i += 1
+                elif sub == "n":
+                    opt.n_repeat = int(_need(argv, i, arg)); i += 1
+                    if opt.n_repeat <= 0:
+                        raise UsageError("-w n must be > 0")
+                else:
+                    raise UsageError(f"unknown -w selector '{sub}'")
+            opt.write_files = False
+        else:
+            raise UsageError(f"unknown option '{arg}'")
+
+    if opt.filename is None and not opt.simulate:
+        raise UsageError(
+            "You must specify the data file with command line option '-f'.")
+    return opt
+
+
+def print_usage():
+    """Full usage text (fprint_usage, multiclust.c:1744-1891), with the
+    same option documentation plus the additions without a reference
+    counterpart."""
+    opt = Options()
+    print(f"""
+NAME
+\tmulticlust-tpu - Maximum likelihood clustering of discrete data
+\t(PyTorch/CUDA port of the multiclust reimplementation)
+
+SYNOPSIS
+\tpython -m multiclust_tpu_torch.cli [-k <n> | -1 <n> -2 <n>] [-a -b <n>
+\t\t--bound <d> -c -C <n> -d <s> -e <d> -E <d> -g <n> -h -i <n> -I
+\t\t-m <n> --missing <n> -M -n <n> -o <s> -p <n> --projection --plus
+\t\t-Q <s> -P <s> -A <s> -r <n> -R -s <n> -t <n> -T <n> -u <s> -v [n]
+\t\t-w <s> -x --impute [<s>] --mesh <s> --checkpoint <s>
+\t\t--check-interval <n> --platform <s>] -f <s> [--format <s>]
+\tpython -m multiclust_tpu_torch.cli --simulate <qfile> <pfile> [<ofile>]
+
+\twhere <n> stands for integer, <s> for string, <d> for double
+
+DESCRIPTION
+\tmulticlust-tpu clusters multivariate discrete data observed on a
+\tsample of individuals using the EM algorithm.  It handles data
+\tmissing at random and assumes coordinates within an individual are
+\tindependent.  It allows the admixture model, where each coordinate
+\tis independently drawn from a cluster, or the mixture model, where
+\teach individual is drawn from a cluster.  Fits run as batched
+\tEM chains on one CUDA device.
+
+OPTIONS
+\t-a\tChoose admixture model (default: no).
+\t-b, --bootstrap
+\t\tBootstrap test of H0: K=<k>-1 vs. Ha: K=<k>, where <k> is
+\t\tgiven by -k.  Argument = number of bootstraps (default: {opt.n_bootstrap}).
+\t--bound\tLower bound for allele and mixing/admixing proportions
+\t\t(default: {opt.lower_bound:e}).
+\t-B\tDEBUG ONLY: accepted for compatibility; ignored.
+\t-c\tConstrain mixing proportions identical across individuals
+\t\t(only enforced with -a; default: no).
+\t-C, -T\tThe maximum number of iterations to fit (default: {opt.max_iter}).
+\t-d\tDirectory where output files are written (default: {opt.path}).
+\t-e\tAllowable log likelihood relative error for convergence
+\t\t(default: {opt.rel_error:.1e}).
+\t-E\tAllowable log likelihood absolute error for convergence
+\t\t(default: {opt.abs_error:.1e}).
+\t-f\tName of data file (STRUCTURE format).
+\t--format
+\t\tFormat of data output file (default: stru).
+\t\t\tstru\tSTRUCTURE format, the default.
+\t\t\tped\tPlink's ped format.
+\t-g\tAdjust step size at most this many times (default: {opt.adjust_step}).
+\t-h\tThis help.
+\t-i\tInitial iterations prior to acceleration (default: {opt.n_init_iter}).
+\t--impute [<file>]
+\t\tImpute missing alleles by locus mode; optionally write the
+\t\timputed dataset to <file>.
+\t-I\tAlleles are indices (no sorting, etc.) (default: no).
+\t-I1\tAlleles are indices plus 1 (default: no).
+\t-k\tThe number of clusters to fit (default: {opt.max_K}).
+\t-1\tThe minimum number of clusters to fit (default: {opt.min_K}).
+\t-2\tThe maximum number of clusters to fit (default: {opt.max_K}).
+\t-m\tThe number of Rand EM initializations, 0 to avoid Rand EM
+\t\t(default: {opt.n_rand_em_init}).
+\t--missing
+\t\tInteger value that indicates missing (default: -9).
+\t-M\tParallel scripting mode: print only max log likelihood on
+\t\tstdout (default: off).  
+\t-n\tNumber of initializations to run EM to convergence
+\t\t(default: {opt.n_init}).
+\t-o\tOption to create unique output file name.
+\t-p\tThe ploidy (default: {opt.ploidy}).
+\t--projection
+\t\tTurn off simplex projection (default: on).
+\t--plus\tPlus one to alleles when writing data (default: off).
+\t-Q, -P\tWarm-start files: -Q mixing proportions (I*K values for
+\t\tunconstrained admixture, K otherwise), -P biallelic allele
+\t\tfrequencies (L rows of K values).  Unlike the reference,
+\t\tthese warm-start the mixture model too.
+\t-A\tTrue-partition file; report the adjusted Rand index.
+\t-r\tRandom number seed (default: {opt.seed}).
+\t-R\tData file in R format (default: no).
+\t-s\tThe acceleration scheme (default: 0).
+\t\t\t0 (default) - no acceleration
+\t\t\t1 - SQUAREM version 1
+\t\t\t2 - SQUAREM version 2
+\t\t\t3 - SQUAREM version 3
+\t\t\t4 - Quasi Newton version 1 (1 secant condition)
+\t\t\t5 - Quasi Newton version 2 (2 secant conditions)
+\t\t\t6 - Quasi Newton version 3 (3 secant conditions)
+\t--simulate <qfile> <pfile> [<ofile>]
+\t\tSimulate data from admixture <qfile>, <pfile>, and write
+\t\tdata to <ofile>.
+\t-u\tIterate until beat target:
+\t\t-u n #: repeat until reach same max # times (default: {opt.target_revisit})
+\t\t-u l #: repeat until reach max log likelihood # (default: {opt.desired_ll:f})
+\t-t\tThe time (in minutes) to maximize likelihood (default: 0).
+\t\tBe sure to check convergence if you set the above!
+\t-v\tLevel of verbosity (default: {opt.verbosity}).
+\t\t0 silence, 1 silent, 2 quiet, 3 minimal (per-init progress),
+\t\t4+ per-iteration traces.
+\t-w\tRepeat-timing harness (disables file output):
+\t\t-w n <n>: repeat at least <n> times (default: {opt.n_repeat})
+\t\t-w t <n>: repeat at least <n> minutes (default: 0)
+\t\t-w m <n>: repeat at most <n> minutes (default: 0)
+\t-x\tBlock relaxation: accepted for compatibility; never
+\t\timplemented in the reference (em_alg.c:80) and ignored here.
+
+OPTIONS WITHOUT A REFERENCE COUNTERPART
+\t--mesh <DxM|auto>
+\t\tDevice mesh for multi-device fits (not yet ported).
+\t--checkpoint <dir>
+\t\tPersist/resume the multi-start sweep state (not yet ported).
+\t--compile-cache <dir|off>
+\t\tAccepted for compatibility with the JAX CLI and unused.
+\t--check-interval <n>
+\t\tEvaluate convergence only every n-th plain-EM iteration; the
+\t\titerations in between skip the log-likelihood entirely (faster
+\t\tat small K).  Never stops prematurely (EM is monotone); the
+\t\titeration cap gains granularity n.  0 (default) adapts the
+\t\tinterval from the measured logL deltas (1..16); 1 restores
+\t\treference per-iteration semantics.  Forced to 1 under -s and
+\t\tat verbosity > 3.
+\t--platform <cpu|cuda>
+\t\tThe fit device (default cuda; cpu implies float64 semantics).
+""")
+
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: Optional[List[str]] = None) -> int:
     """CLI entry: errors are reported through the message() taxonomy, the
     error code becoming the exit status (main, multiclust.c:157-164)."""
-    from multiclust_tpu.messages import Err, MsgType, MulticlustError, \
-        message
+    from multiclust_tpu_torch.messages import Err, MsgType, \
+        MulticlustError, message
     try:
         return _main(argv)
     except MulticlustError as e:
@@ -49,7 +392,6 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
     opt = parse_args(argv)
     if opt.simulate:
-        from multiclust_tpu.cli import _run_simulate
         return _run_simulate(opt)
 
     from multiclust_tpu_torch.api import check_ported
@@ -66,8 +408,8 @@ def _main(argv: Optional[List[str]] = None) -> int:
         raise UsageError("no CUDA device is available; run with "
                          "--platform cpu")
 
-    from multiclust_tpu.io.structure import read_structure
-    from multiclust_tpu.io.warm_start import read_afile, read_pfile, \
+    from multiclust_tpu_torch.io.structure import read_structure
+    from multiclust_tpu_torch.io.warm_start import read_afile, read_pfile, \
         read_qfile
     from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.model.common import Params, \
@@ -78,7 +420,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
     ds = read_structure(opt.filename, opt)
     if opt.imputation_method and opt.imputed_outfile:
         # write the imputed dataset (read_file, read_file.c:295-296)
-        from multiclust_tpu.io.writers import write_data
+        from multiclust_tpu_torch.io.writers import write_data
         write_data(opt, ds, opt.imputed_outfile)
     opt = opt.synchronize(ds.I, ds.ploidy)
     dtype = getattr(torch, opt.dtype)
@@ -125,6 +467,10 @@ def _main(argv: Optional[List[str]] = None) -> int:
     def on_model_done(K, mres):
         if opt.write_files and mres.best_params is not None:
             _write_outputs(opt, ds, md, K, mres)
+        if opt.verbosity > 2 and mres.route:
+            # how the biallelic admixture step ran on the card
+            print(f"K = {K}: step route {mres.route}, "
+                  f"{mres.batch_chains} chains in lockstep")
         if opt.verbosity:
             print_model_state(opt, ds, mres, time.time() - t_start)
 
@@ -139,7 +485,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
 
 def _write_outputs(opt: Options, ds, md, K: int, mres) -> None:
-    from multiclust_tpu.io import writers
+    from multiclust_tpu_torch.io import writers
     from multiclust_tpu_torch.runtime.multistart import posterior_mass
 
     params = mres.best_params
@@ -159,6 +505,84 @@ def _write_outputs(opt: Options, ds, md, K: int, mres) -> None:
         # the mixture's popq and indivq are its posterior
         writers.write_popq(opt, ds, K, mass)
         writers.write_indivq(opt, ds, K, mass)
+
+
+def _run_simulate(opt: Options) -> int:
+    """--simulate qfile pfile [ofile] (multiclust.c:101-116)."""
+    from multiclust_tpu_torch.io.warm_start import read_admixture_pfile, \
+        read_admixture_qfile
+    from multiclust_tpu_torch.io.writers import write_data
+    from multiclust_tpu_torch.stats.sim import simulate_admixture_fast
+
+    Q = read_admixture_qfile(opt.admix_qfile)
+    P = read_admixture_pfile(opt.admix_pfile, Q.shape[1])
+    rng = np.random.default_rng(opt.seed)
+    ds = simulate_admixture_fast(rng, Q, P, ploidy=opt.ploidy)
+    write_data(opt, ds, opt.simulate_outfile)
+    if opt.verbosity:
+        print(f"Simulated {ds.I} individuals x {ds.L} loci -> "
+              f"{opt.simulate_outfile}")
+    return 0
+
+
+def print_model_state(opt: Options, ds, mres, diff: float,
+                      newline: bool = True) -> None:
+    """print_model_state (multiclust.c:718-791), compact form."""
+    out = sys.stdout
+    if opt.compact:
+        out.write("%s %s %s %d %u %e %e %e %e %f %f %f " % (
+            opt.filename, opt.accel_abbreviation,
+            "admix" if opt.admixture else "mix", mres.K, opt.seed,
+            opt.eta_lower_bound, opt.p_lower_bound,
+            opt.abs_error, opt.rel_error,
+            mres.max_logL, mres.aic, mres.bic))
+        out.write("%f " % mres.arand if opt.afile else "ND ")
+        d = int(diff)
+        out.write("%s %02d:%02d:%02d %d %d %d %d" % (
+            "converged" if mres.ever_converged else "not",
+            d // 3600, (d % 3600) // 60, d % 60,
+            mres.n_total_iter, mres.n_init, mres.n_maxll_init,
+            mres.n_maxll_times))
+        if opt.target_ll:
+            out.write(" %f %d %d" % (opt.desired_ll, mres.n_targetll_init,
+                                     mres.n_targetll_times))
+        if mres.time_stop:
+            out.write(" time")
+        if newline:
+            out.write("\n")
+    else:
+        # long form (print_model_state, multiclust.c:748-790)
+        d = int(diff)
+        out.write(f"Dataset: {opt.filename}\n")
+        out.write(f"Method/Model: {opt.accel_abbreviation}, "
+                  f"{'admix' if opt.admixture else 'mix'}, K={mres.K}\n")
+        out.write("Convergence: ae=%e, re=%e\n"
+                  % (opt.abs_error, opt.rel_error))
+        out.write("Bounds: e=%e, p=%e\n"
+                  % (opt.eta_lower_bound, opt.p_lower_bound))
+        out.write("Total number of iterations: %d\n" % mres.n_total_iter)
+        out.write("Total time: %02d:%02d:%02d\n"
+                  % (d // 3600, (d % 3600) // 60, d % 60))
+        out.write("Iteration of max log likelihood: %d of %d\n"
+                  % (mres.n_maxll_init, mres.n_init))
+        out.write("Number of times reach max log likelihood: %d\n"
+                  % mres.n_maxll_times)
+        out.write(f"Maximum log likelihood: {mres.max_logL:f}\n")
+        out.write(f"AIC: {mres.aic:f}\nBIC: {mres.bic:f}\n")
+        out.write("Converged: %s\n" %
+                  ("yes" if mres.ever_converged else "no"))
+        if opt.target_ll and mres.n_targetll_times:
+            out.write("Iteration of target log likelihood (%f): %d\n"
+                      % (opt.desired_ll, mres.n_targetll_init))
+            out.write("Number of times reach target log likelihood "
+                      "(%f): %d\n"
+                      % (opt.desired_ll, mres.n_targetll_times))
+        elif opt.target_ll and not opt.target_revisit:
+            out.write("WARNING: Did not reach target log likelihood "
+                      "(%f).\n" % opt.desired_ll)
+        if mres.time_stop:
+            out.write("WARNING: Fitting stopped because ran out of time\n")
+
 
 
 if __name__ == "__main__":

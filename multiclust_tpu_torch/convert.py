@@ -11,11 +11,15 @@ to trim.
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from multiclust_tpu_torch.config import Options
+from multiclust_tpu_torch.io.dataset import Dataset, from_counts
 from multiclust_tpu_torch.model.common import ModelData, Params, \
     make_model_data
 
@@ -42,11 +46,49 @@ def params_to_numpy(params: Params) -> Tuple[np.ndarray, np.ndarray]:
             params.p.detach().cpu().numpy())
 
 
-def dataset_from_counts(counts, miss, ploidy: int = 2):
+def p0_from_padded(p0, n_loci: int) -> np.ndarray:
+    """A JAX-side p0 layout [.., Kp, Lp] -> [.., Kp, n_loci].  A chunked or
+    streamed JAX fit pads loci to its tile multiple (pads zero); the port
+    pads no loci, so the pad columns are dropped."""
+    return np.ascontiguousarray(np.asarray(p0)[..., :n_loci])
+
+
+def p0_to_padded(p0, n_loci_padded: int) -> np.ndarray:
+    """Inverse of ``p0_from_padded``: zero pad columns restored up to the
+    JAX layout's ``n_loci_padded``."""
+    p0 = np.asarray(p0)
+    pad = n_loci_padded - p0.shape[-1]
+    if pad < 0:
+        raise ValueError(f"p0 has {p0.shape[-1]} loci, more than the padded "
+                         f"width {n_loci_padded}")
+    return np.pad(p0, [(0, 0)] * (p0.ndim - 1) + [(0, pad)])
+
+
+def dataset_from_counts(counts, miss, ploidy: int = 2, **kw) -> Dataset:
     """Counts [I, L, M] and missing copies [I, L] -> the host Dataset that
-    ``api.fit_dataset`` takes (multiclust_tpu.io.dataset.from_counts)."""
-    from multiclust_tpu.io.dataset import from_counts
-    return from_counts(counts, miss, ploidy)
+    ``api.fit_dataset`` takes (io/dataset.from_counts; ``kw`` as there)."""
+    return from_counts(np.asarray(counts), np.asarray(miss), ploidy, **kw)
+
+
+def dataset_from(ds) -> Dataset:
+    """The port's Dataset from any object with the same field names (a
+    Dataset of the JAX package, handed across by the tests)."""
+    return Dataset(**{f.name: getattr(ds, f.name)
+                      for f in dataclasses.fields(Dataset)})
+
+
+def options_from(obj) -> Options:
+    """The port's Options from any object with the same field names (an
+    Options of the JAX package, handed across by the tests).  Enum fields
+    cross by their ``.value`` and are rebuilt as the port's own enums."""
+    defaults = Options()
+    kw = {}
+    for f in dataclasses.fields(Options):
+        v = getattr(obj, f.name)
+        if isinstance(v, enum.Enum):
+            v = type(getattr(defaults, f.name))(v.value)
+        kw[f.name] = v
+    return Options(**kw)
 
 
 def model_data_from_numpy(x, miss, mask, n_alleles, *, device="cpu",

@@ -23,14 +23,16 @@ __device__ __forceinline__ float group_sum(float v) {
 __device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 
 // Michelot projection of one row held by one warp (lane owns k = lane +
-// 32 j) onto {x >= lb on lanes < k_true, sum = 1}; pad lanes end at 0.
+// 32 j) onto {x >= lb on the valid lanes, sum = 1}; the other lanes end
+// at 0.  `valid` is the true-lane set: static (k < k_true) or read from a
+// runtime mask, as the TPU's `_michelot_tile` takes either.
 template <int KJ>
-__device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
-                              float lb) {
+__device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
+                                   float lb) {
   bool fr[KJ];
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
-    fr[j] = lane + 32 * j < k_true;
+    fr[j] = valid[j];
     if (!fr[j]) w[j] = 0.f;
   }
   while (true) {
@@ -65,7 +67,17 @@ __device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
   }
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
-    if (lane + 32 * j >= k_true) w[j] = 0.f;
+    if (!valid[j]) w[j] = 0.f;
+}
+
+// the same with the static lane set k < k_true
+template <int KJ>
+__device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
+                              float lb) {
+  bool valid[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) valid[j] = lane + 32 * j < k_true;
+  michelot_warp_mask<KJ>(w, valid, lb);
 }
 
 // Michelot projection of rows held by aligned groups of G lanes (lane g

@@ -21,8 +21,9 @@ from __future__ import annotations
 
 import torch
 
-from multiclust_tpu.config import InitMethod, InitProcedure
-from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params
+from multiclust_tpu_torch.config import InitMethod, InitProcedure
+from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
+    column_window
 
 Tensor = torch.Tensor
 
@@ -81,6 +82,23 @@ def parameters_from_partition_mixture(I_K: Tensor, md: ModelData,
 # ---------------------------------------------------------------------------
 # admixture model
 
+# a start holds about this many bytes of int64 temporaries per allele copy
+# (labels, matches, draws, slots, bin indices); a panel whose I x L x P
+# copies need more than the budget is drawn one window of loci at a time
+INIT_BYTES_PER_COPY = 64
+INIT_BYTES = 8 << 30
+
+
+def init_window(md: ModelData, ploidy: int, budget: int = None) -> int:
+    """Loci per window of an admixture start: all of L when the start's
+    temporaries fit ``budget`` bytes (by default INIT_BYTES, and on CUDA at
+    most a quarter of what the device has free)."""
+    if budget is None:
+        budget = INIT_BYTES
+        if md.device.type == "cuda":
+            budget = min(budget, torch.cuda.mem_get_info(md.device)[0] // 4)
+    return column_window(md.L, INIT_BYTES_PER_COPY * md.I * ploidy, budget)
+
 
 def random_allele_partition(gen: torch.Generator, md: ModelData,
                             codes: Tensor, K: int) -> Tensor:
@@ -93,31 +111,69 @@ def random_allele_partition(gen: torch.Generator, md: ModelData,
 
 
 def random_allele_center(gen: torch.Generator, md: ModelData,
-                         codes: Tensor, K: int) -> Tensor:
+                         codes: Tensor, K: int, lo: int = 0,
+                         hi: int = None) -> Tensor:
     """Per-locus random center alleles; copies matching a center join its
     cluster, the others are assigned at random (random_allele_center,
-    rnd_init.c:496-580)."""
+    rnd_init.c:496-580).  ``codes`` may cover only the loci [lo, hi) of
+    ``md``."""
     if K == 1:
         return torch.where(codes >= 0, 0, -1)
     if int(md.n_alleles.max()) < K:
         return random_allele_partition(gen, md, codes, K)
-    L, M = md.L, md.M
+    hi = md.L if hi is None else hi
+    L, M = hi - lo, md.M
     dev = codes.device
+    mask = md.mask[lo:hi]
     # random permutation of the slots of each locus; invalid slots last
     noise = torch.rand((L, M), generator=gen, device=dev)
-    noise = torch.where(md.mask, noise, 2.0)
+    noise = torch.where(mask, noise, 2.0)
     rank = torch.argsort(torch.argsort(noise, dim=1), dim=1)
     slots = torch.arange(M, device=dev)[None, :]
-    n_all = md.n_alleles.to(torch.int64)[:, None]
+    n_all = md.n_alleles[lo:hi].to(torch.int64)[:, None]
     # inv[l, m] = cluster of slot m, or -1 when slot m is not a center
     ident = torch.where(slots < n_all, slots, -1)
     inv = torch.where(n_all < K, ident, torch.where(rank < K, rank, -1))
-    inv = torch.where(md.mask, inv, -1)
+    inv = torch.where(mask, inv, -1)
     loci = torch.arange(L, device=dev)[None, :, None]
-    matched = inv[loci, codes.clamp(min=0)]           # [I, L, P]
+    matched = inv[loci, codes.clamp(min=0).long()]    # [I, L, P]
     rnd = torch.randint(0, K, codes.shape, generator=gen, device=dev)
     lab = torch.where(matched >= 0, matched, rnd)
     return torch.where(codes >= 0, lab, -1)
+
+
+def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
+                            dtype: torch.dtype):
+    """Exact counts of a labelled window of loci: copies [I, K], the
+    copies of each individual given to each cluster, and pc [K, L, M], the
+    copies of each allele slot given to each cluster."""
+    I, L, P = codes.shape
+    dev = codes.device
+    valid = codes >= 0
+    lab = torch.where(valid, labels, K)               # K = discard bin
+    copies = torch.zeros((I, K + 1), dtype=dtype, device=dev)
+    copies.scatter_add_(1, lab.reshape(I, -1),
+                        torch.ones((I, L * P), dtype=dtype, device=dev))
+    slot = torch.where(valid, codes.long(), M)        # M = discard bin
+    loci = torch.arange(L, device=dev)[None, :, None]
+    idx = (lab * L + loci) * (M + 1) + slot
+    pc = torch.bincount(idx.reshape(-1), minlength=(K + 1) * L * (M + 1))
+    pc = pc.reshape(K + 1, L, M + 1)[:K, :, :M].to(dtype)
+    return copies[:, :K], pc
+
+
+def parameters_from_allele_counts(copies: Tensor, pc: Tensor,
+                                  md: ModelData, n_copies: int,
+                                  eta_constrained: bool = False) -> Params:
+    """Add-one-smoothed parameters from the exact counts of a whole panel
+    (``n_copies`` = L x P copies per individual)."""
+    I, K = copies.shape
+    if eta_constrained:
+        eta = (1.0 + copies.sum(dim=0)) / (I * n_copies + K)
+    else:
+        eta = (1.0 + copies) / (n_copies + K)
+    pc = torch.where(md.mask[None], pc + 1.0, torch.zeros_like(pc))
+    return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
 
 
 def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
@@ -128,40 +184,54 @@ def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
     (initialize_parameters_admixture, rnd_init.c:590-705): eta [I, K], or
     the shared eta [K] under ``eta_constrained``.  Counts are exact
     integers, so bincounts give the JAX package's one-hot sums."""
-    dtype = md.dtype
-    I, L, P = codes.shape
-    M = md.M
-    valid = codes >= 0
-    lab = torch.where(valid, labels, K)               # K = discard bin
-    copies = torch.zeros((I, K + 1), dtype=dtype, device=codes.device)
-    copies.scatter_add_(1, lab.reshape(I, -1),
-                        torch.ones((I, L * P), dtype=dtype,
-                                   device=codes.device))
-    if eta_constrained:
-        eta = (1.0 + copies[:, :K].sum(dim=0)) / (I * L * P + K)
-    else:
-        eta = (1.0 + copies[:, :K]) / (L * P + K)
+    _, L, P = codes.shape
+    copies, pc = allele_partition_counts(labels, codes, md.M, K, md.dtype)
+    return parameters_from_allele_counts(copies, pc, md, L * P,
+                                         eta_constrained)
 
-    slot = torch.where(valid, codes, M)               # M = discard bin
-    loci = torch.arange(L, device=codes.device)[None, :, None]
-    idx = (lab * L + loci) * (M + 1) + slot
-    pc = torch.bincount(idx.reshape(-1), minlength=(K + 1) * L * (M + 1))
-    pc = pc.reshape(K + 1, L, M + 1)[:K, :, :M].to(dtype)
-    pc = torch.where(md.mask[None], pc + 1.0, torch.zeros_like(pc))
-    return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
+
+def _allele_labels(gen, md, codes, K, method, lo=0, hi=None):
+    if method == InitMethod.RANDOM_PARTITION:
+        return random_allele_partition(gen, md, codes, K)
+    return random_allele_center(gen, md, codes, K, lo, hi)
+
+
+def windowed_allele_start(gen: torch.Generator, md: ModelData,
+                          codes: Tensor, K: int, method: InitMethod,
+                          eta_constrained: bool, window: int) -> Params:
+    """An admixture start drawn and counted ``window`` loci at a time, so
+    that no temporary grows with the whole I x L x P.  The counts are
+    those of the unwindowed path for the same labels; the draws come in
+    another order (one window after another)."""
+    _, L, P = codes.shape
+    copies = None
+    pcs = []
+    for lo in range(0, L, window):
+        hi = min(L, lo + window)
+        cw = codes[:, lo:hi]
+        labels = _allele_labels(gen, md, cw, K, method, lo, hi)
+        cp, pc = allele_partition_counts(labels, cw, md.M, K, md.dtype)
+        copies = cp if copies is None else copies + cp
+        pcs.append(pc)
+    return parameters_from_allele_counts(copies, torch.cat(pcs, dim=1), md,
+                                         L * P, eta_constrained)
 
 
 def random_initialize(gen: torch.Generator, md: ModelData, K: int,
                       method: InitMethod, codes: Tensor = None, *,
                       admixture: bool = True,
-                      eta_constrained: bool = False) -> Params:
+                      eta_constrained: bool = False,
+                      budget: int = None) -> Params:
     """One random start of the admixture model (allele partitions, from
-    ``codes``) or of the mixture model (individual partitions)."""
+    ``codes``) or of the mixture model (individual partitions).  An
+    admixture start whose temporaries exceed ``budget`` bytes
+    (``init_window``) is drawn in windows of loci."""
     if admixture:
-        if method == InitMethod.RANDOM_PARTITION:
-            labels = random_allele_partition(gen, md, codes, K)
-        else:
-            labels = random_allele_center(gen, md, codes, K)
+        window = init_window(md, codes.shape[-1], budget)
+        if window < md.L:
+            return windowed_allele_start(gen, md, codes, K, method,
+                                         eta_constrained, window)
+        labels = _allele_labels(gen, md, codes, K, method)
         return parameters_from_allele_partition(labels, codes, md, K,
                                                 eta_constrained)
     if method == InitMethod.RANDOM_PARTITION:
@@ -229,21 +299,26 @@ def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
 
 
 def codes_from_counts(counts: Tensor, miss: Tensor, ploidy: int) -> Tensor:
-    """[I, L, P] int64 allele-slot index per copy (-1 for missing copies),
-    computed where ``counts`` [I, L, M] and ``miss`` [I, L] lie (the
-    device, as codes_from_counts_jax does; the host numpy version costs
-    seconds at cohort scale).  Copies are exchangeable, so the count
-    vector is expanded in slot order."""
+    """[I, L, P] allele-slot index per copy (-1 for missing copies), int8
+    (int16 when a locus has more than 127 slots): a biobank panel's codes
+    are then as large as its data, not eight times that.  Computed where
+    ``counts`` [I, L, M] and ``miss`` [I, L] lie (the device, as
+    codes_from_counts_jax does; the host numpy version costs seconds at
+    cohort scale).  Copies are exchangeable, so the count vector is
+    expanded in slot order."""
     dev = counts.device
-    a = torch.arange(ploidy, dtype=torch.int32, device=dev)
-    cum = torch.zeros(counts.shape[:2], dtype=torch.int32, device=dev)
-    codes = torch.zeros(counts.shape[:2] + (ploidy,), dtype=torch.int64,
+    small = torch.int8 if counts.shape[2] <= 127 and ploidy <= 127 \
+        else torch.int16
+    a = torch.arange(ploidy, dtype=small, device=dev)
+    cum = torch.zeros(counts.shape[:2], dtype=small, device=dev)
+    codes = torch.zeros(counts.shape[:2] + (ploidy,), dtype=small,
                         device=dev)
     # codes[i,l,a] = number of slots m with cum[i,l,m] <= a; the running
     # sum over the few slots is written out because torch.cumsum over an
     # innermost dim of 2 took 0.19 s on an H100 at 16384 x 2048
     for m in range(counts.shape[2]):
-        cum += counts[..., m].to(torch.int32)
+        cum += counts[..., m].to(small)
         codes += cum[..., None] <= a
-    observed = ploidy - miss.to(torch.int32)                      # [I, L]
-    return torch.where(a < observed[..., None], codes, -1)
+    observed = (ploidy - miss.to(torch.int32)).to(small)          # [I, L]
+    return torch.where(a < observed[..., None], codes,
+                       torch.full((), -1, dtype=small, device=dev))

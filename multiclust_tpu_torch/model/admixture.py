@@ -24,10 +24,12 @@ from typing import Optional, Tuple
 import torch
 
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
-    is_bi_repr, safe_log
+    WINDOW_BYTES, column_window, is_bi_repr, safe_log
 from multiclust_tpu_torch.ops.fullstep import admixture_fullstep, \
     normalize_p
-from multiclust_tpu_torch.ops.fullstep_bi import admixture_fullstep_biallelic
+from multiclust_tpu_torch.ops.fullstep_bi import Route, \
+    admixture_fullstep_biallelic_routed, device_sm_count, pick_route, \
+    rows_log_likelihood_terms, scratch_budget
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
@@ -73,14 +75,16 @@ def _no_ll(eta: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def em_step(params: Params, md: ModelData, cfg: EMConfig,
-            want_ll: bool = True) -> Tuple[Params, Tensor, Tensor]:
+            want_ll: bool = True, route: Optional[Route] = None
+            ) -> Tuple[Params, Tensor, Tensor]:
     """One fused E+M iteration for a chain batch; the logL is that of the
     INPUT params.  ``want_ll=False`` skips the logL terms and returns
-    zeros (the blind steps of opt/em.blind_plain_steps)."""
+    zeros (the blind steps of opt/em.blind_plain_steps).  ``route`` fixes
+    the biallelic step's route (``bi_route`` picks it when None)."""
     if cfg.eta_constrained:
         return _em_step_constrained(params, md, cfg, want_ll)
     if cfg.bi_repr_active and is_bi_repr(params):
-        return _em_step_bi_repr(params, md, cfg, want_ll)
+        return _em_step_bi_repr(params, md, cfg, want_ll, route)
     if cfg.use_pallas != "off" and params.p.dtype == torch.float32:
         return _em_step_generic(params, md, cfg, want_ll)
     return _em_step_unconstrained(params, md, cfg, want_ll)
@@ -94,29 +98,58 @@ def _miss_inputs(md: ModelData, cfg: EMConfig, dtype):
     return md.c.to(dtype), md.miss
 
 
+def bi_route(n_chains: int, md: ModelData, cfg: EMConfig, Kp: int) -> Route:
+    """The biallelic step's route for a batch of ``n_chains`` on ``md``
+    (ops/fullstep_bi.pick_route, the counterpart of
+    pick_layout_biallelic_any): from the shapes, the device's SM count and
+    the scratch budget of the fit (read from the device when the config
+    carries none)."""
+    budget = cfg.scratch_budget or scratch_budget(md.device)
+    return pick_route(n_chains, md.I, md.L, Kp, device_sm_count(md.device),
+                      budget)
+
+
 def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
-                     want_ll: bool = True):
+                     want_ll: bool = True, route: Optional[Route] = None):
     """Biallelic step on the p0 layout: params.p IS p0 [B, Kp, L] (pads
-    zero), one kernel pair per EM iteration for the whole chain batch."""
+    zero), one routed step (a kernel pair, the streamed pair with its
+    finish, or the chunked loop of them) per EM iteration for the whole
+    chain batch."""
     eta, p0 = params.eta, params.p
+    if route is None:
+        route = bi_route(eta.shape[0], md, cfg, eta.shape[-1])
     c, miss = _miss_inputs(md, cfg, eta.dtype)
-    eta_new, per_i, p0n = admixture_fullstep_biallelic(
-        eta, p0, md.x0, md.x1, c, miss, k_true=cfg.k_true,
+    eta_new, per_i, p0n = admixture_fullstep_biallelic_routed(
+        eta, p0, md.x0, md.x1, c, miss, route=route, k_true=cfg.k_true,
         lb=float(cfg.eta_lower_bound), plb=float(cfg.p_lower_bound),
         project=cfg.do_projection, compute_t=want_ll)
     ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
     return Params(eta=eta_new, p=p0n), ll, scale
 
 
-def log_likelihood_bi_repr(params: Params, md: ModelData):
-    """logL on the p0 layout (the accelerated accept test); same math as
-    the kernel's t terms."""
+def log_likelihood_bi_repr(params: Params, md: ModelData,
+                           budget: int = WINDOW_BYTES):
+    """logL on the p0 layout (the accelerated accept test).  Float32
+    chains on CUDA take the t terms of the segmented rows pass (A phase
+    skipped): the same terms as the step's own, and no [B, I, L]
+    temporary.  Elsewhere the plain terms are summed one column window of
+    about ``budget`` bytes at a time, each individual's in float64."""
     eta, p0 = params.eta, params.p
-    d0 = eta @ p0                                     # [B, I, L]
-    d1 = eta.sum(dim=-1, keepdim=True) - d0
-    t = (md.x0.to(eta.dtype) * safe_log(d0)
-         + md.x1.to(eta.dtype) * safe_log(d1))
-    return _ll_terms(t.sum(dim=-1))
+    if eta.is_cuda and eta.dtype == torch.float32:
+        return _ll_terms(rows_log_likelihood_terms(eta, p0, md.x0, md.x1))
+    B, I, _ = eta.shape
+    itemsize = torch.finfo(eta.dtype).bits // 8
+    win = column_window(md.L, 6 * B * I * itemsize, budget)
+    s = eta.sum(dim=-1, keepdim=True)
+    per_i = torch.zeros((B, I), dtype=torch.float64, device=eta.device)
+    for lo in range(0, md.L, win):
+        hi = min(md.L, lo + win)
+        d0 = eta @ p0[..., lo:hi]                     # [B, I, window]
+        d1 = s - d0
+        t = (md.x0[:, lo:hi].to(eta.dtype) * safe_log(d0)
+             + md.x1[:, lo:hi].to(eta.dtype) * safe_log(d1))
+        per_i += t.sum(dim=-1).to(torch.float64)
+    return _ll_terms(per_i)
 
 
 def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
@@ -229,15 +262,26 @@ def log_likelihood(params: Params, md: ModelData):
 
 
 def posterior_allele_mass(params: Params, md: ModelData,
-                          eta_constrained: bool = False) -> Tensor:
+                          eta_constrained: bool = False,
+                          budget: int = WINDOW_BYTES) -> Tensor:
     """dik[i, k] = sum_{l,m} d_iklm, expected allele copies sourced from
     cluster k, for unbatched full-layout params (partition_admixture,
     write_file.c:350-382; indivq_admix :525-543; popq_admix :446-459).
-    ``eta_constrained``: eta is the shared K-vector."""
-    p2 = params.p.reshape(params.p.shape[0], -1)
+    ``eta_constrained``: eta is the shared K-vector.  The [I, L*M]
+    temporaries are made one window of loci at a time, about ``budget``
+    bytes each."""
+    p = params.p                                      # [K, L, M]
+    K = p.shape[0]
     eta = params.eta
     if eta_constrained:
         eta = eta[None, :].expand(md.I, -1)
-    w = _safe_div(md.x2d.to(eta.dtype), eta @ p2)
-    A = w @ p2.T
+    itemsize = torch.finfo(eta.dtype).bits // 8
+    win = column_window(md.L, 4 * md.I * md.M * itemsize, budget)
+    A = None
+    for lo in range(0, md.L, win):
+        hi = min(md.L, lo + win)
+        p2 = p[:, lo:hi].reshape(K, -1)
+        xw = md.x[:, lo:hi].reshape(md.I, -1).to(eta.dtype)
+        a_w = _safe_div(xw, eta @ p2) @ p2.T
+        A = a_w if A is None else A + a_w
     return eta * (A + md.c.to(eta.dtype)[:, None])

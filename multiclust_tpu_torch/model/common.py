@@ -104,6 +104,18 @@ class ModelData(NamedTuple):
         return self.x.view(self.I, -1)
 
 
+def _to_device(a, device, dtype: torch.dtype) -> Tensor:
+    """An array-like as a ``dtype`` tensor on ``device``.  A tensor stays
+    where it is made (no round trip through numpy); a host array is cast
+    on the host when that narrows it, so the wide type is never
+    uploaded."""
+    if not torch.is_tensor(a):
+        a = torch.as_tensor(np.asarray(a))
+        if a.element_size() > torch.empty((), dtype=dtype).element_size():
+            a = a.to(dtype)
+    return a.to(device=device, dtype=dtype)
+
+
 def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
                     device, storage_dtype: Optional[torch.dtype] = None
                     ) -> ModelData:
@@ -115,37 +127,67 @@ def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
     device = torch.device(device)
     miss_dtype = (storage_dtype if (storage_dtype is not None
                                     and dtype == torch.float32) else dtype)
-    xt = torch.as_tensor(np.asarray(x)).to(device=device,
-                                           dtype=storage_dtype or dtype)
-    mt = torch.as_tensor(np.asarray(miss)).to(device=device, dtype=miss_dtype)
+    mt = _to_device(miss, device, miss_dtype)
+    n_all = torch.as_tensor(np.asarray(n_alleles) if not torch.is_tensor(
+        n_alleles) else n_alleles).to(device=device, dtype=torch.int32)
+    biallelic = bool((n_all == 2).all())
     x0 = x1 = None
-    if xt.shape[2] == 2 and bool((np.asarray(n_alleles) == 2).all()):
-        # the counts are held once, as two contiguous planes; x is a view
-        planes = xt.permute(2, 0, 1).contiguous()     # [2, I, L]
+    if np.shape(x)[2] == 2 and biallelic:
+        # the counts are held once, as two contiguous planes; x is a view.
+        # A host array is split into planes on the host, so the device
+        # never holds the panel twice
+        if torch.is_tensor(x):
+            planes = _to_device(x, device, storage_dtype or dtype).permute(
+                2, 0, 1).contiguous()                 # [2, I, L]
+        else:
+            planes = _to_device(
+                np.ascontiguousarray(np.moveaxis(np.asarray(x), 2, 0)),
+                device, storage_dtype or dtype)
         x0, x1 = planes[0], planes[1]
         xt = planes.permute(1, 2, 0)
+    else:
+        xt = _to_device(x, device, storage_dtype or dtype)
     return ModelData(
         x=xt, miss=mt,
-        mask=torch.as_tensor(np.asarray(mask), device=device,
-                             dtype=torch.bool),
-        n_alleles=torch.as_tensor(np.asarray(n_alleles), device=device,
-                                  dtype=torch.int32),
+        mask=torch.as_tensor(np.asarray(mask) if not torch.is_tensor(mask)
+                             else mask).to(device=device, dtype=torch.bool),
+        n_alleles=n_all,
         c=mt.sum(dim=1, dtype=dtype),
         x0=x0, x1=x1)
+
+
+def model_data_from_planes(planes: Tensor, miss: Tensor, *,
+                           dtype: torch.dtype = torch.float32) -> ModelData:
+    """ModelData of a strictly biallelic panel from its two count planes
+    [2, I, L] and miss [I, L], tensors in their storage dtype already on
+    the device (a panel generated there): used as they are, with no copy
+    and no round trip through the host."""
+    if planes.dim() != 3 or planes.shape[0] != 2 \
+            or planes.shape[1:] != miss.shape or not planes.is_contiguous():
+        raise ValueError(f"planes [2, I, L] contiguous and miss [I, L] "
+                         f"expected, got {tuple(planes.shape)} and "
+                         f"{tuple(miss.shape)}")
+    L = planes.shape[2]
+    dev = planes.device
+    return ModelData(
+        x=planes.permute(1, 2, 0), miss=miss,
+        mask=torch.ones((L, 2), dtype=torch.bool, device=dev),
+        n_alleles=torch.full((L,), 2, dtype=torch.int32, device=dev),
+        c=miss.sum(dim=1, dtype=dtype), x0=planes[0], x1=planes[1])
 
 
 def model_data_from_dataset(ds, dtype: torch.dtype = torch.float32,
                             device="cpu",
                             storage_dtype: Optional[torch.dtype] = None
                             ) -> ModelData:
-    """Lift a host Dataset (multiclust_tpu.io.dataset) onto ``device``."""
+    """Lift a host Dataset (io/dataset.py) onto ``device``."""
     return make_model_data(ds.counts, ds.miss, ds.mask, ds.n_alleles,
                            dtype=dtype, device=device,
                            storage_dtype=storage_dtype)
 
 
 class EMConfig(NamedTuple):
-    """Static EM configuration (multiclust_tpu.model.common.EMConfig
+    """Static EM configuration (the JAX package's model/common.EMConfig
     without the mesh and the interpret mode)."""
 
     admixture: bool = False
@@ -177,6 +219,10 @@ class EMConfig(NamedTuple):
     k_true: int = 0
     # 1 = check stop() every iteration, N > 1 = every N-th, 0 = adaptive
     check_interval: int = 1
+    # bytes the biallelic step's partials may take (the router's budget,
+    # ops/fullstep_bi.pick_route), read from the device once per fit;
+    # 0 = ask the device at each step
+    scratch_budget: int = 0
 
     @property
     def bi_repr_active(self) -> bool:
@@ -196,6 +242,18 @@ def collapse_for_constrained(md: ModelData) -> ModelData:
     return ModelData(x=md.x.to(dtype).sum(dim=0, keepdim=True), miss=miss,
                      mask=md.mask, n_alleles=md.n_alleles,
                      c=miss.sum(dim=1))
+
+
+# temporaries that grow with I x L are made one column window at a time,
+# each window holding about this many bytes of them
+WINDOW_BYTES = 1 << 30
+
+
+def column_window(L: int, bytes_per_column: int,
+                  budget: int = WINDOW_BYTES) -> int:
+    """Columns per window so that ``bytes_per_column`` a column stays
+    under ``budget`` bytes: L when the whole panel fits."""
+    return max(1, min(L, int(budget) // max(int(bytes_per_column), 1)))
 
 
 def k_padded_size(K: int, multiple: int = 128) -> int:

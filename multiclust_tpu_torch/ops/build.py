@@ -34,8 +34,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "mc_fullstep_bi_rows": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "mc_fullstep_bi_rows_seg": [_P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mc_fullstep_bi_finish": [_P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "mc_fullstep_cols": [_P, _P, _P, _P, _P,
@@ -49,8 +53,14 @@ _SIGNATURES = {
                  _P],
 }
 
+# a loop of launches that is a kernel of its own in the JAX package (the
+# chunked biallelic step) is counted under its own name as well: once per
+# window, where the loop launches the window's rows pass
+LOOP_COUNTS = ("fullstep_bi_chunked",)
+
 # launches per kernel since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+LAUNCHES: Dict[str, int] = {name: 0
+                            for name in tuple(_SIGNATURES) + LOOP_COUNTS}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -143,8 +153,10 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream and count it.
+def launch(name: str, device: torch.device, *args,
+           loop: Optional[str] = None) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream and count it
+    (and, for a launch made by one of LOOP_COUNTS, that loop too).
 
     ``args`` are the launcher's arguments without the trailing stream."""
     lib = library()
@@ -155,6 +167,8 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.mc_error_string(err).decode()}")
     LAUNCHES[name] += 1
+    if loop is not None:
+        LAUNCHES[loop] += 1
 
 
 def reset_launch_counts() -> None:

@@ -12,9 +12,23 @@ B0/B1 resident cannot carry over.  The price is reading x twice, against
 once on the TPU; the step is bound by IEEE f32 FMA (no TF32) and shared
 memory issue, not by device memory (see the .cu header).
 
+Three routes run the step (``pick_route`` chooses, the counterpart of
+``pick_layout_biallelic_any``, kernels.py:809):
+
+* ``pair``: the rows pass and the columns pass above, as they stand;
+* ``streamed`` (``admixture_fullstep_biallelic_streamed``, kernels.py:1007):
+  the rows pass also splits L into column segments, so that a wide and
+  short panel fills the card; a finish kernel sums the segments' partials
+  in order (t in float64) and finishes eta;
+* ``chunked`` (``admixture_fullstep_biallelic_chunked``, kernels.py:829): a
+  loop of such steps over column windows, raw A + r threaded from window
+  to window through ``a0``/``emit_a``; it bounds the partials' scratch.
+
 The wrappers launch the kernels for CUDA tensors and run the plain
 version only for CPU tensors; there is no fallback for CUDA tensors.
-Variants ported: ``miss``, ``compute_t`` and ``project``.  Shapes: eta
+Variants: ``miss``, ``compute_t`` and ``project`` on every route;
+``emit_a``, ``emit_b``, ``a0``, a runtime ``kmask`` and ``project_eta`` on
+the streamed and chunked ones (which return t in float64).  Shapes: eta
 [B, I, Kp] f32 with Kp in {32, 64, 96, 128}, p0 [B, Kp, L] f32, x0/x1
 [I, L] int8, c [I] f32 missing totals, miss [I, L] int8 or None.  Pad
 lanes (k >= k_true) of eta and p0 must be zero and stay zero.
@@ -22,7 +36,7 @@ lanes (k >= k_true) of eta and p0 must be zero and stay zero.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,7 +122,7 @@ def fullstep_bi_cols_reference(eta: Tensor, p0: Tensor, x0: Tensor,
     q0 = torch.where(ok, pc0 / torch.where(ok, tot, torch.ones_like(tot)),
                      zero)
     if project:
-        lo, hi = p0_clip_bounds(plb)
+        lo, hi = p0_clip_bounds(plb, dtype)
         q0 = torch.where(ok, torch.clamp(q0, lo, hi), zero)
     return q0
 
@@ -209,8 +223,8 @@ def fullstep_bi_cols(eta, p0, x0, x1, miss=None, *, plb: float,
     build.launch("mc_fullstep_bi_cols", eta.device,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
                  x1.data_ptr(), build.ptr(miss),
-                 part.data_ptr(), p0_new.data_ptr(), B, I, L, Kp, n_seg,
-                 seg_rows, lo, hi, int(project))
+                 part.data_ptr(), p0_new.data_ptr(), None, None,
+                 B, I, L, Kp, 0, L, n_seg, seg_rows, lo, hi, int(project))
     return p0_new
 
 
@@ -225,3 +239,519 @@ def admixture_fullstep_biallelic(eta, p0, x0, x1, c, miss=None, *,
     p0_new = fullstep_bi_cols(eta, p0, x0, x1, miss, plb=plb,
                               project=project)
     return eta_new, t, p0_new
+
+
+# ---------------------------------------------------------------------------
+# streamed and chunked steps (column segments and column windows)
+
+# rows-pass tiling of csrc/fullstep_bi.cu: ROW_R rows per block, ROW_TL
+# columns per tile; a column segment is at least MIN_SEG_COLS wide
+ROW_R, ROW_TL = 32, 32
+MIN_SEG_COLS = 1024
+# Thresholds set from times on an H100 (PERF.md; route_times.py measures
+# them).  A rows grid of at
+# least PAIR_BLOCKS_PER_SM blocks per SM fills the card and takes the
+# unsegmented pair; a smaller one splits L until it holds
+# ROWS_BLOCKS_PER_SM blocks per SM (the segmented pass kept gaining up to
+# 16-32 segments at 8192 x 131072 and 2048 x 524288).
+PAIR_BLOCKS_PER_SM = 6
+ROWS_BLOCKS_PER_SM = 32
+# The partials of one window stay under this many bytes whatever the card
+# has free: they grow with B x Kp x L, and the chunked loop that bounds
+# them costs up to 6 % of a step at the biobank shapes.
+SCRATCH_CAP = 192 << 20
+# grid y/z limit, and the widest L whose int column arithmetic cannot
+# overflow in the kernels
+GRID_YZ_MAX = 65535
+L_MAX = 2 ** 31 - 2 ** 20
+# the plain versions work in column windows of about this many bytes
+REFERENCE_BYTES = 1 << 30
+
+
+class Route(NamedTuple):
+    """How one step runs: ``pair`` (``seg_cols`` 0), ``streamed`` or
+    ``chunked``; ``window`` columns per window (L unless chunked) and
+    ``seg_cols`` columns per rows-pass segment within a window;
+    ``scratch_bytes`` the partials one window allocates for the chain
+    batch (``window_scratch_bytes``)."""
+
+    name: str
+    seg_cols: int
+    window: int
+    scratch_bytes: int
+
+    def describe(self) -> str:
+        return (f"{self.name} (window {self.window}, segment "
+                f"{self.seg_cols or self.window} columns, scratch "
+                f"{self.scratch_bytes} bytes)")
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def row_segments(B: int, I: int, W: int, n_sm: int, *,
+                 per_sm: int = ROWS_BLOCKS_PER_SM) -> Tuple[int, int]:
+    """(segments, columns per segment) splitting a window of W columns for
+    the segmented rows pass: one segment when the (chain, 32 rows) blocks
+    alone fill the card (PAIR_BLOCKS_PER_SM a SM), else enough segments
+    for ``per_sm`` blocks per SM when W allows, each segment >=
+    MIN_SEG_COLS wide and a multiple of the tile."""
+    blocks = B * -(-I // ROW_R)
+    n = 1
+    if blocks < PAIR_BLOCKS_PER_SM * n_sm:
+        n = max(1, min(-(-per_sm * n_sm // blocks), W // MIN_SEG_COLS,
+                       GRID_YZ_MAX))
+    seg_cols = _ceil_to(-(-W // n), ROW_TL)
+    return -(-W // seg_cols), seg_cols
+
+
+def cols_partials_bytes(B: int, I: int, W: int, Kp: int, n_sm: int) -> int:
+    """Bytes of the columns pass's partials over a window of W columns,
+    [B, row segments, 2, Kp, W] float32: they grow with B x Kp x W, and a
+    narrower window is what bounds them."""
+    n_rseg, _ = col_segments(I, W, B, n_sm)
+    return 4 * B * n_rseg * 2 * Kp * W
+
+
+def window_scratch_bytes(B: int, I: int, W: int, Kp: int, n_sm: int,
+                         n_cseg: int) -> int:
+    """Bytes of partials one window of W columns allocates: the columns
+    pass's, and the segmented rows pass's [B, n_cseg, I, Kp + 1] (none for
+    the pair, n_cseg = 0).  The rows pass's need no bound: it splits L
+    only while B x I is small, so they stay near 32 blocks an SM x 32 rows
+    x Kp, or are as large as eta itself (one segment)."""
+    return (cols_partials_bytes(B, I, W, Kp, n_sm)
+            + 4 * B * n_cseg * I * (Kp + 1))
+
+
+def pick_route(B: int, I: int, L: int, Kp: int, n_sm: int,
+               budget: int) -> Route:
+    """The route of a step for a chain batch of B on an I x L panel: the
+    pair when its rows grid fills the SMs, the streamed step when it does
+    not, the chunked loop when the columns pass's partials over all L
+    would take more than ``budget`` bytes.  Raises when no window fits or
+    an index would overflow."""
+    check_kp(Kp)
+    if L > L_MAX or B > GRID_YZ_MAX:
+        raise ValueError(f"L={L} or B={B} beyond the kernels' index range "
+                         f"(L <= {L_MAX}, B <= {GRID_YZ_MAX})")
+    n_cseg, seg_cols = row_segments(B, I, L, n_sm)
+    if cols_partials_bytes(B, I, L, Kp, n_sm) <= budget:
+        if n_cseg == 1:
+            return Route("pair", 0, L,
+                         window_scratch_bytes(B, I, L, Kp, n_sm, 0))
+        return Route("streamed", seg_cols, L,
+                     window_scratch_bytes(B, I, L, Kp, n_sm, n_cseg))
+    n_win = 2
+    while True:
+        W = _ceil_to(-(-L // n_win), ROW_TL)
+        need = cols_partials_bytes(B, I, W, Kp, n_sm)
+        if need <= budget:
+            n_cseg, seg_cols = row_segments(B, I, W, n_sm)
+            return Route("chunked", seg_cols, W,
+                         window_scratch_bytes(B, I, W, Kp, n_sm, n_cseg))
+        if W <= MIN_SEG_COLS:
+            raise MemoryError(
+                f"no window of the chunked step fits: {need} bytes of "
+                f"partials for {W} columns (B={B}, I={I}, Kp={Kp}) against "
+                f"a budget of {budget} bytes")
+        n_win *= 2
+
+
+def device_sm_count(device) -> int:
+    """SMs of a CUDA device; an H100's count for the CPU, where the router
+    only has to be consistent."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def scratch_budget(device) -> int:
+    """Bytes the columns pass's partials of one step may take on
+    ``device``: an eighth of what is free, at most SCRATCH_CAP."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return SCRATCH_CAP
+    free, _ = torch.cuda.mem_get_info(device)
+    return min(SCRATCH_CAP, free // 8)
+
+
+def _lanes_valid(Kp: int, k_true: int, kmask: Optional[Tensor], device):
+    if kmask is not None:
+        return kmask.to(device).reshape(Kp) > 0.5
+    return torch.arange(Kp, device=device) < k_true
+
+
+def window_stats_reference(eta: Tensor, p0: Tensor, x0: Tensor, x1: Tensor,
+                           miss: Optional[Tensor], lo: int, hi: int, *,
+                           compute_t: bool = True, want_a: bool = True,
+                           want_b: bool = True):
+    """Plain statistics of the columns [lo, hi): raw A + r [B, I, Kp], t
+    [B, I] float64, and B0/B1 [B, Kp, hi - lo] with the miss fold.  Works
+    in sub-windows of about REFERENCE_BYTES of temporaries, so it fits on
+    a card beside a panel of any width."""
+    dtype = eta.dtype
+    B, I, Kp = eta.shape
+    itemsize = torch.finfo(dtype).bits // 8
+    sub = max(ROW_TL, REFERENCE_BYTES // (8 * B * I * itemsize))
+    araw = eta.new_zeros((B, I, Kp)) if want_a else None
+    t = torch.zeros((B, I), dtype=torch.float64, device=eta.device)
+    b0 = eta.new_empty((B, Kp, hi - lo)) if want_b else None
+    b1 = torch.empty_like(b0) if want_b else None
+    s = eta.sum(dim=-1, keepdim=True)
+    et = eta.transpose(-1, -2)
+    for a in range(lo, hi, sub):
+        e = min(hi, a + sub)
+        pw = p0[..., a:e]
+        d0 = eta @ pw
+        d1 = torch.clamp(s - d0, min=D_MIN)
+        d0 = torch.clamp(d0, min=D_MIN)
+        x0f, x1f = x0[:, a:e].to(dtype), x1[:, a:e].to(dtype)
+        if compute_t:
+            t += (x0f * torch.log(d0) + x1f * torch.log(d1)).sum(
+                dim=-1).to(torch.float64)
+        w0, w1 = x0f / d0, x1f / d1
+        if want_a:
+            araw += ((w0 - w1) @ pw.transpose(-1, -2)
+                     + w1.sum(dim=-1, keepdim=True))
+        if want_b:
+            if miss is not None:
+                m = miss[:, a:e].to(dtype)
+                w0, w1 = w0 + m, w1 + m
+            b0[..., a - lo:e - lo] = et @ w0
+            b1[..., a - lo:e - lo] = et @ w1
+    return araw, t, b0, b1
+
+
+def finish_eta_reference(eta: Tensor, araw: Tensor, c: Tensor, *,
+                         k_true: int, lb: float, project_eta: bool,
+                         kmask: Optional[Tensor] = None) -> Tensor:
+    """eta' from the raw A + r: add c, normalize (zero-mass rows keep
+    their eta), Michelot over the static or the runtime lane set."""
+    num = eta * (araw + c.to(eta.dtype)[:, None])
+    tot = num.sum(dim=-1, keepdim=True)
+    ok = tot > 0
+    eta_new = torch.where(ok, num / torch.where(ok, tot, torch.ones_like(tot)),
+                          eta)
+    if project_eta:
+        eta_new = project_rows(
+            eta_new, _lanes_valid(eta.shape[-1], k_true, kmask, eta.device),
+            lb)
+    return eta_new
+
+
+def p0_update_reference(p0: Tensor, b0: Tensor, b1: Tensor, *, plb: float,
+                        project: bool) -> Tensor:
+    """p0' = clip(p0 B0 / (p0 B0 + (1 - p0) B1)) from raw B0/B1."""
+    pc0 = p0 * b0
+    pc1 = (1.0 - p0) * b1
+    tot = pc0 + pc1
+    ok = tot > 0
+    zero = torch.zeros((), dtype=p0.dtype, device=p0.device)
+    q0 = torch.where(ok, pc0 / torch.where(ok, tot, torch.ones_like(tot)),
+                     zero)
+    if project:
+        lo, hi = p0_clip_bounds(plb, p0.dtype)
+        q0 = torch.where(ok, torch.clamp(q0, lo, hi), zero)
+    return q0
+
+
+def _check_window(L: int, l_lo: int, l_hi: int, B: int) -> None:
+    if not 0 <= l_lo < l_hi <= L or L > L_MAX or B > GRID_YZ_MAX:
+        raise ValueError(f"window [{l_lo}, {l_hi}) of L={L} (B={B}) is "
+                         f"outside the kernels' range")
+
+
+def rows_partials_reference(eta, p0, x0, x1, *, l_lo: int, l_hi: int,
+                            compute_t: bool = True, compute_a: bool = True):
+    """Plain version of ``rows_partials``: one segment, its t in
+    float64."""
+    araw, t, _, _ = window_stats_reference(
+        eta, p0, x0, x1, None, l_lo, l_hi, compute_t=compute_t,
+        want_a=compute_a, want_b=False)
+    return (araw[:, None] if compute_a else None), t[:, None]
+
+
+def rows_partials(eta, p0, x0, x1, *, l_lo: int, l_hi: int, seg_cols: int,
+                  compute_t: bool = True, compute_a: bool = True,
+                  loop: Optional[str] = None):
+    """Segmented rows pass over the window [l_lo, l_hi): the segments' raw
+    A + r partials [B, n_seg, I, Kp] (None without ``compute_a``) and t
+    partials [B, n_seg, I]."""
+    if not eta.is_cuda:
+        return rows_partials_reference(
+            eta, p0, x0, x1, l_lo=l_lo, l_hi=l_hi, compute_t=compute_t,
+            compute_a=compute_a)
+    B, I, L, Kp = _check_cuda_inputs(eta, p0, x0, x1)
+    _check_window(L, l_lo, l_hi, B)
+    n_seg = -(-(l_hi - l_lo) // max(seg_cols, 1))
+    if seg_cols <= 0 or n_seg > GRID_YZ_MAX:
+        raise ValueError(f"{n_seg} segments of {seg_cols} columns exceed "
+                         f"the grid's limit")
+    dev = eta.device
+    apart = (torch.empty((B, n_seg, I, Kp), dtype=torch.float32, device=dev)
+             if compute_a else None)
+    tpart = torch.empty((B, n_seg, I), dtype=torch.float32, device=dev)
+    build.launch("mc_fullstep_bi_rows_seg", dev,
+                 eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
+                 x1.data_ptr(), build.ptr(apart), tpart.data_ptr(),
+                 B, I, L, Kp, l_lo, l_hi, seg_cols, n_seg, int(compute_t),
+                 int(compute_a), loop=loop)
+    return apart, tpart
+
+
+def rows_finish_reference(eta, apart, tpart, c, a0=None, kmask=None, *,
+                          k_true: int, lb: float, project_eta: bool,
+                          compute_t: bool = True, emit_a: bool = False):
+    """Plain version of ``rows_finish``."""
+    t = tpart.to(torch.float64).sum(dim=1) if compute_t else torch.zeros(
+        eta.shape[:2], dtype=torch.float64, device=eta.device)
+    if apart is None:
+        return None, t
+    araw = apart.sum(dim=1) if a0 is None else a0 + apart.sum(dim=1)
+    if emit_a:
+        return araw, t
+    return finish_eta_reference(eta, araw, c, k_true=k_true, lb=lb,
+                                project_eta=project_eta, kmask=kmask), t
+
+
+def rows_finish(eta, apart, tpart, c, a0=None, kmask=None, *, k_true: int,
+                lb: float, project_eta: bool, compute_t: bool = True,
+                emit_a: bool = False):
+    """Finish of the segmented rows pass: the partials summed in segment
+    order (t in float64) on top of the ``a0`` seed, then the raw A + r
+    (``emit_a``) or eta' with c added, normalized and projected over the
+    static ``k_true`` lanes or the runtime ``kmask``.  Returns (eta' or
+    raw A + r, or None when ``apart`` is None; t [B, I] float64)."""
+    if not eta.is_cuda:
+        return rows_finish_reference(
+            eta, apart, tpart, c, a0, kmask, k_true=k_true, lb=lb,
+            project_eta=project_eta, compute_t=compute_t, emit_a=emit_a)
+    B, I, Kp = eta.shape
+    check_kp(Kp)
+    n_seg = tpart.shape[1]
+    checks = [("eta", eta, torch.float32, (B, I, Kp)),
+              ("tpart", tpart, torch.float32, (B, n_seg, I)),
+              ("c", c, torch.float32, (I,))]
+    if apart is not None:
+        checks.append(("apart", apart, torch.float32, (B, n_seg, I, Kp)))
+    if a0 is not None:
+        checks.append(("a0", a0, torch.float32, (B, I, Kp)))
+    if kmask is not None:
+        checks.append(("kmask", kmask, torch.float32, (Kp,)))
+    for name, t, dt, shape in checks:
+        if (t.device != eta.device or t.dtype != dt
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: contiguous {dt} {shape} on "
+                             f"{eta.device} expected, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    out = torch.empty_like(eta) if apart is not None else None
+    t = torch.empty((B, I), dtype=torch.float64, device=eta.device)
+    build.launch("mc_fullstep_bi_finish", eta.device,
+                 eta.data_ptr(), build.ptr(apart), tpart.data_ptr(),
+                 build.ptr(a0), c.data_ptr(), build.ptr(kmask),
+                 build.ptr(out), t.data_ptr(), B, I, Kp, n_seg, int(k_true),
+                 float(lb), int(emit_a), int(project_eta), int(compute_t))
+    return out, t
+
+
+def _rows_window(eta, p0, x0, x1, c, a0, kmask, *, l_lo: int, l_hi: int,
+                 seg_cols: int, k_true: int, lb: float, project_eta: bool,
+                 compute_t: bool, emit_a: bool, compute_a: bool = True,
+                 loop: Optional[str] = None):
+    """Segmented rows pass and its finish over the window [l_lo, l_hi)."""
+    apart, tpart = rows_partials(eta, p0, x0, x1, l_lo=l_lo, l_hi=l_hi,
+                                 seg_cols=seg_cols, compute_t=compute_t,
+                                 compute_a=compute_a, loop=loop)
+    return rows_finish(eta, apart, tpart, c, a0, kmask, k_true=k_true,
+                       lb=lb, project_eta=project_eta, compute_t=compute_t,
+                       emit_a=emit_a)
+
+
+def cols_window_reference(eta, p0, x0, x1, miss, outs, *, l_lo: int,
+                          l_hi: int, plb: float, project: bool) -> None:
+    """Plain version of ``cols_window``."""
+    _, _, b0, b1 = window_stats_reference(
+        eta, p0, x0, x1, miss, l_lo, l_hi, compute_t=False, want_a=False)
+    if len(outs) == 2:
+        outs[0][..., l_lo:l_hi] = b0
+        outs[1][..., l_lo:l_hi] = b1
+    else:
+        outs[0][..., l_lo:l_hi] = p0_update_reference(
+            p0[..., l_lo:l_hi], b0, b1, plb=plb, project=project)
+
+
+def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
+                plb: float, project: bool) -> None:
+    """Columns pass and epilogue over the window [l_lo, l_hi), written at
+    the window's columns of the full-width ``outs``: (p0',) or, for emit_b,
+    (B0, B1) with the miss fold."""
+    emit_b = len(outs) == 2
+    if not eta.is_cuda:
+        return cols_window_reference(eta, p0, x0, x1, miss, outs, l_lo=l_lo,
+                                     l_hi=l_hi, plb=plb, project=project)
+    extra = ()
+    if miss is not None:
+        extra = (("miss", miss, torch.int8, tuple(x0.shape)),)
+    B, I, L, Kp = _check_cuda_inputs(eta, p0, x0, x1, *extra)
+    _check_window(L, l_lo, l_hi, B)
+    W = l_hi - l_lo
+    lo, hi = p0_clip_bounds(plb)
+    n_seg, seg_rows = col_segments(
+        I, W, B, torch.cuda.get_device_properties(
+            eta.device).multi_processor_count)
+    if n_seg > GRID_YZ_MAX:
+        raise ValueError(f"{n_seg} row segments exceed the grid's limit")
+    part = torch.empty((B, n_seg, 2, Kp, W), dtype=torch.float32,
+                       device=eta.device)
+    build.launch("mc_fullstep_bi_cols", eta.device,
+                 eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
+                 x1.data_ptr(), build.ptr(miss), part.data_ptr(),
+                 None if emit_b else outs[0].data_ptr(),
+                 outs[0].data_ptr() if emit_b else None,
+                 outs[1].data_ptr() if emit_b else None,
+                 B, I, L, Kp, l_lo, l_hi, n_seg, seg_rows, lo, hi,
+                 int(project))
+
+
+def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
+                                         kmask=None, *, window: int,
+                                         seg_cols: Optional[int] = None,
+                                         k_true: int, lb: float, plb: float,
+                                         project: bool,
+                                         compute_t: bool = True,
+                                         emit_b: bool = False,
+                                         emit_a: bool = False,
+                                         project_eta: Optional[bool] = None,
+                                         a0: Optional[Tensor] = None):
+    """The step as a loop over column windows of ``window`` columns (the
+    last may be short), the contract of the JAX package's
+    ``admixture_fullstep_biallelic_chunked``: raw A + r is threaded from
+    window to window through a0/emit_a, t is summed, c is added and eta
+    finished on the last window, and p0' (or raw B0/B1) is complete per
+    window.  Every window reads the full-width arrays at its columns.
+
+    Returns (eta', t [B, I] float64, p0'); under ``emit_b`` (eta', t, B0,
+    B1) with the miss fold in B0/B1; under ``emit_a`` the first output is
+    the raw A + r (c not added).  ``kmask`` [Kp] 1.0/0.0 replaces the
+    static ``k_true`` lane set; ``project_eta`` switches the eta Michelot
+    apart from the p0 clip, which stays governed by ``project``; ``a0``
+    seeds the first window.  One window over all L is the streamed step."""
+    B, I, Kp = eta.shape
+    L = p0.shape[-1]
+    window = min(int(window), L)
+    if seg_cols is None:
+        _, seg_cols = row_segments(B, I, window,
+                                   device_sm_count(eta.device))
+    if project_eta is None:
+        project_eta = project
+    outs = ((torch.empty_like(p0), torch.empty_like(p0)) if emit_b
+            else (torch.empty_like(p0),))
+    loop = "fullstep_bi_chunked" if window < L else None
+    t_sum = None
+    for l_lo in range(0, L, window):
+        l_hi = min(L, l_lo + window)
+        last = l_hi == L
+        a0, t = _rows_window(
+            eta, p0, x0, x1, c, a0, kmask, l_lo=l_lo, l_hi=l_hi,
+            seg_cols=min(seg_cols, l_hi - l_lo), k_true=k_true, lb=lb,
+            project_eta=project_eta, compute_t=compute_t,
+            emit_a=emit_a or not last, loop=loop)
+        t_sum = t if t_sum is None else t_sum + t
+        cols_window(eta, p0, x0, x1, miss, outs, l_lo=l_lo, l_hi=l_hi,
+                    plb=plb, project=project)
+    return (a0, t_sum) + outs
+
+
+def admixture_fullstep_biallelic_streamed(eta, p0, x0, x1, c, miss=None,
+                                          kmask=None, *,
+                                          seg_cols: Optional[int] = None,
+                                          **kw):
+    """The step with the rows pass split into column segments of
+    ``seg_cols`` (chosen to fill the card when None), the counterpart of
+    the JAX package's ``admixture_fullstep_biallelic_streamed``; arguments
+    and returns as ``admixture_fullstep_biallelic_chunked``."""
+    return admixture_fullstep_biallelic_chunked(
+        eta, p0, x0, x1, c, miss, kmask, window=p0.shape[-1],
+        seg_cols=seg_cols, **kw)
+
+
+def admixture_fullstep_biallelic_chunked_reference(eta, p0, x0, x1, c,
+                                                   miss=None, kmask=None, *,
+                                                   window: int, k_true: int,
+                                                   lb: float, plb: float,
+                                                   project: bool,
+                                                   compute_t: bool = True,
+                                                   emit_b: bool = False,
+                                                   emit_a: bool = False,
+                                                   project_eta=None,
+                                                   a0=None, seg_cols=None):
+    """Plain PyTorch version of the chunked step (any device), in column
+    windows: same arguments and returns; ``seg_cols`` is accepted and has
+    no meaning here."""
+    L = p0.shape[-1]
+    window = min(int(window), L)
+    if project_eta is None:
+        project_eta = project
+    araw = None if a0 is None else a0.clone()
+    t_sum = None
+    outs = ((torch.empty_like(p0), torch.empty_like(p0)) if emit_b
+            else (torch.empty_like(p0),))
+    for l_lo in range(0, L, window):
+        l_hi = min(L, l_lo + window)
+        a_w, t, b0, b1 = window_stats_reference(
+            eta, p0, x0, x1, miss, l_lo, l_hi, compute_t=compute_t)
+        araw = a_w if araw is None else araw + a_w
+        t_sum = t if t_sum is None else t_sum + t
+        if emit_b:
+            outs[0][..., l_lo:l_hi] = b0
+            outs[1][..., l_lo:l_hi] = b1
+        else:
+            outs[0][..., l_lo:l_hi] = p0_update_reference(
+                p0[..., l_lo:l_hi], b0, b1, plb=plb, project=project)
+    first = araw if emit_a else finish_eta_reference(
+        eta, araw, c, k_true=k_true, lb=lb, project_eta=project_eta,
+        kmask=kmask)
+    return (first, t_sum) + outs
+
+
+def admixture_fullstep_biallelic_streamed_reference(eta, p0, x0, x1, c,
+                                                    miss=None, kmask=None,
+                                                    **kw):
+    """Plain PyTorch version of the streamed step (any device)."""
+    return admixture_fullstep_biallelic_chunked_reference(
+        eta, p0, x0, x1, c, miss, kmask, window=p0.shape[-1], **kw)
+
+
+def rows_log_likelihood_terms(eta, p0, x0, x1, *, seg_cols=None) -> Tensor:
+    """t [B, I] float64, the per-individual logL terms of (eta, p0), from
+    the segmented rows pass with its A phase skipped: no [B, I, L]
+    temporary exists (CUDA), or one column window of it (CPU)."""
+    B, I, _ = eta.shape
+    L = p0.shape[-1]
+    if seg_cols is None:
+        _, seg_cols = row_segments(B, I, L, device_sm_count(eta.device))
+    c = eta.new_zeros(I)
+    return _rows_window(eta, p0, x0, x1, c, None, None, l_lo=0, l_hi=L,
+                        seg_cols=seg_cols, k_true=0, lb=0.0,
+                        project_eta=False, compute_t=True, emit_a=True,
+                        compute_a=False)[1]
+
+
+def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None, *,
+                                        route: Route, k_true: int, lb: float,
+                                        plb: float, project: bool,
+                                        compute_t: bool = True):
+    """One step by ``route`` (pick_route): (eta', t, p0')."""
+    if route.name == "pair":
+        return admixture_fullstep_biallelic(
+            eta, p0, x0, x1, c, miss, k_true=k_true, lb=lb, plb=plb,
+            project=project, compute_t=compute_t)
+    if route.name not in ("streamed", "chunked"):
+        raise ValueError(f"unknown route {route.name!r}")
+    return admixture_fullstep_biallelic_chunked(
+        eta, p0, x0, x1, c, miss, window=route.window,
+        seg_cols=route.seg_cols, k_true=k_true, lb=lb, plb=plb,
+        project=project, compute_t=compute_t)

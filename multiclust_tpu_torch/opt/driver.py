@@ -14,7 +14,7 @@ import dataclasses
 import time
 from typing import Optional
 
-from multiclust_tpu.config import AccelScheme
+from multiclust_tpu_torch.config import AccelScheme
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     map_params
 from multiclust_tpu_torch.opt import em as em_mod

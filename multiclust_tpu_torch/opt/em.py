@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from multiclust_tpu.config import AccelScheme
+from multiclust_tpu_torch.config import AccelScheme
 from multiclust_tpu_torch.model import admixture, mixture
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     is_bi_repr, map_params

@@ -1,0 +1,157 @@
+"""Times of the biallelic admixture step's three routes on one GPU, the
+measurements behind the router's thresholds (ops/fullstep_bi.pick_route).
+
+Run with ``python -m multiclust_tpu_torch.route_times`` (a CUDA device is
+required).  For each of the four shapes 16384 x 2048, 65536 x 16384,
+8192 x 131072 and 2048 x 524288 (K = 20, 1 % missing, chain batches 1 and
+2; the last three are 2^30 cells, 1 GiB an int8 plane) it prints what the
+router picks and the median CUDA-event time of the pair, of the streamed
+step at 2-32 column segments, of the chunked loop at 2-8 windows, of each
+rows pass alone, of the logL terms alone and of the windowed plain version,
+every result held to the plain version first (rtol 1e-4, atol 5e-5).  The
+first line is the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from multiclust_tpu_torch.ops import fullstep_bi as fb
+
+SHAPES = ((16384, 2048), (65536, 16384), (8192, 131072), (2048, 524288))
+K, KP = 20, 32
+
+
+def device_panel(seed: int, I: int, L: int, K: int, miss_rate: float, dev):
+    """Admixture-model genotypes of a strictly biallelic panel, drawn on
+    ``dev`` from ``seed`` in blocks of rows (no [I, L] float tensor): the
+    two int8 count planes [2, I, L] and miss [I, L] int8."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.tensor(rng.dirichlet(np.full(K, 0.5), size=I),
+                     dtype=torch.float32, device=dev)
+    P0 = torch.tensor(rng.beta(0.8, 0.8, size=(K, L)).clip(0.01, 0.99),
+                      dtype=torch.float32, device=dev)
+    planes = torch.empty((2, I, L), dtype=torch.int8, device=dev)
+    miss = torch.empty((I, L), dtype=torch.int8, device=dev)
+    rows = max(1, (1 << 27) // L)
+    for lo in range(0, I, rows):
+        hi = min(I, lo + rows)
+        prob = Q[lo:hi] @ P0
+        m = (torch.rand((hi - lo, L, 2), generator=gen, device=dev)
+             < miss_rate).sum(dim=-1)
+        x0 = torch.zeros((hi - lo, L), dtype=torch.int64, device=dev)
+        for a in range(2):
+            u = torch.rand((hi - lo, L), generator=gen, device=dev)
+            x0 += (u < prob) & (a < 2 - m)
+        planes[0, lo:hi], planes[1, lo:hi], miss[lo:hi] = x0, 2 - m - x0, m
+    return planes, miss
+
+
+def device_step_params(seed: int, B: int, I: int, L: int, K: int, Kp: int,
+                       dev):
+    """eta [B, I, Kp] and p0 [B, Kp, L] with zero pads, drawn on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eta = torch.zeros((B, I, Kp), device=dev)
+    eta[..., :K] = torch.rand((B, I, K), generator=gen, device=dev) + 0.05
+    eta /= eta.sum(dim=-1, keepdim=True)
+    p0 = torch.zeros((B, Kp, L), device=dev)
+    p0[:, :K] = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
+    return eta, p0
+
+
+def median_ms(fn, n: int = 5, warm: int = 1) -> float:
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _held(got, ref) -> None:
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.to(r.dtype), r, rtol=1e-4, atol=5e-5)
+
+
+def time_shape(I: int, L: int, dev) -> None:
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True)
+    planes, miss = device_panel(1, I, L, K, 0.01, dev)
+    x0, x1 = planes[0], planes[1]
+    c = miss.sum(dim=1, dtype=torch.float32)
+    n_sm = fb.device_sm_count(dev)
+    for B in (1, 2):
+        eta, p0 = device_step_params(2, B, I, L, K, KP, dev)
+        print(f"{I} x {L}, {B} chains: router "
+              f"{fb.pick_route(B, I, L, KP, n_sm, fb.scratch_budget(dev))}",
+              flush=True)
+        ref = fb.admixture_fullstep_biallelic_streamed_reference(
+            eta, p0, x0, x1, c, miss, **kw)
+        steps = {"pair": lambda: fb.admixture_fullstep_biallelic(
+            eta, p0, x0, x1, c, miss, **kw)}
+        for n_seg in (2, 4, 8, 16, 32):
+            sc = -(-L // n_seg // 32) * 32
+            steps[f"streamed, {n_seg} segments"] = (
+                lambda sc=sc: fb.admixture_fullstep_biallelic_streamed(
+                    eta, p0, x0, x1, c, miss, seg_cols=sc, **kw))
+        for n_win in (2, 4, 8):
+            w = -(-L // n_win // 32) * 32
+            steps[f"chunked, {n_win} windows"] = (
+                lambda w=w: fb.admixture_fullstep_biallelic_chunked(
+                    eta, p0, x0, x1, c, miss, window=w, **kw))
+        for name, fn in steps.items():
+            _held(fn(), ref)
+            print(f"  step {name}: {median_ms(fn):.3f} ms", flush=True)
+        row_kw = dict(k_true=K, lb=1e-8, project=True)
+        fin = dict(k_true=K, lb=1e-8, project_eta=True)
+        print(f"  rows pass unsegmented (fused finish): "
+              f"{median_ms(lambda: fb.fullstep_bi_rows(eta, p0, x0, x1, c, **row_kw)):.3f}"
+              f" ms; columns pass: "
+              f"{median_ms(lambda: fb.fullstep_bi_cols(eta, p0, x0, x1, miss, plb=1e-8, project=True)):.3f}"
+              f" ms", flush=True)
+        for n_seg in (1, 2, 4, 8, 16, 32):
+            sc = -(-L // n_seg // 32) * 32
+
+            def rows(sc=sc):
+                return fb.rows_finish(eta, *fb.rows_partials(
+                    eta, p0, x0, x1, l_lo=0, l_hi=L, seg_cols=sc), c, **fin)
+            print(f"  rows pass, {n_seg} segments + finish: "
+                  f"{median_ms(rows):.3f} ms", flush=True)
+        print(f"  logL terms alone: "
+              f"{median_ms(lambda: fb.rows_log_likelihood_terms(eta, p0, x0, x1)):.3f}"
+              f" ms; plain step in column windows: "
+              f"{median_ms(lambda: fb.admixture_fullstep_biallelic_streamed_reference(eta, p0, x0, x1, c, miss, **kw), n=2):.3f}"
+              f" ms", flush=True)
+        del eta, p0, ref, steps
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("route_times: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda")
+    for I, L in SHAPES:
+        time_shape(I, L, dev)
+    print(f"peak allocation "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -14,7 +14,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from multiclust_tpu.config import Options
+from multiclust_tpu_torch.config import Options
 from multiclust_tpu_torch.model.common import ModelData
 from multiclust_tpu_torch.runtime.multistart import MaximizeResult, \
     maximize_likelihood

@@ -24,14 +24,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from multiclust_tpu.config import AccelScheme, Options
-from multiclust_tpu.model.likelihood import aic as aic_fn, bic as bic_fn
+from multiclust_tpu_torch.config import AccelScheme, Options
+from multiclust_tpu_torch.model.likelihood import aic as aic_fn, bic as bic_fn
 from multiclust_tpu_torch.init import random as rinit
-from multiclust_tpu_torch.model.admixture import posterior_allele_mass
+from multiclust_tpu_torch.model.admixture import bi_route, \
+    posterior_allele_mass
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     collapse_for_constrained, is_bi_repr, k_padded_size, map_params, \
     pad_params_k, unpad_params_k
 from multiclust_tpu_torch.model.mixture import e_step
+from multiclust_tpu_torch.ops.fullstep_bi import scratch_budget
 from multiclust_tpu_torch.opt import em as em_mod
 
 
@@ -80,7 +82,9 @@ def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
         biallelic=md.M == 2 and bool((md.n_alleles == 2).all()),
         ploidy=opt.ploidy,
         k_true=K if (opt.admixture and not opt.eta_constrained) else 0,
-        check_interval=opt.check_interval)
+        check_interval=opt.check_interval,
+        # the router's scratch budget, read from the device once per fit
+        scratch_budget=scratch_budget(md.device) if use_pallas else 0)
 
 
 def _pad_k(params: Params, cfg: EMConfig) -> Params:
@@ -113,6 +117,45 @@ def _unpad_k(params: Params, cfg: EMConfig) -> Params:
     return params
 
 
+# chains that run in lockstep unless -batch_chains says otherwise, and the
+# share of the device's free memory their states and scratch may take
+MAX_AUTO_CHAINS = 8
+CHAIN_MEMORY_SHARE = 0.5
+
+
+def chain_bytes(md: ModelData, K: int, cfg: EMConfig) -> int:
+    """Bytes one chain holds while it runs: its parameters, about eight
+    more tensors of their size (the new iterate, the selects of the state
+    machine, a trial point) and the secant ring's 2 q copies, plus the
+    step's scratch for one chain (the biallelic route's own count; the
+    generic and mixture steps' partials are of the size of p)."""
+    itemsize = torch.finfo(md.dtype).bits // 8
+    Kp = k_padded_size(K, 32) if cfg.use_pallas != "off" else K
+    lanes = md.L if cfg.bi_repr_active else md.L * md.M
+    n_eta = md.I * Kp if cfg.admixture and not cfg.eta_constrained else Kp
+    params = (n_eta + Kp * lanes) * itemsize
+    copies = 9 + (2 * cfg.q if cfg.accel_scheme else 0)
+    if cfg.bi_repr_active:
+        scratch = bi_route(1, md, cfg, Kp).scratch_bytes
+    else:
+        scratch = 2 * Kp * lanes * itemsize
+    return copies * params + scratch
+
+
+def chain_batch(opt: Options, md: ModelData, K: int, cfg: EMConfig) -> int:
+    """Chains to run in lockstep: ``opt.batch_chains`` when given, else up
+    to MAX_AUTO_CHAINS, as many as CHAIN_MEMORY_SHARE of the device's free
+    memory holds (``chain_bytes`` each; asked once per fit), at least
+    one."""
+    if opt.batch_chains:
+        return opt.batch_chains
+    B = min(max(opt.n_init, 1), MAX_AUTO_CHAINS)
+    if md.device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(md.device)
+        B = min(B, int(CHAIN_MEMORY_SHARE * free) // chain_bytes(md, K, cfg))
+    return max(B, 1)
+
+
 @dataclasses.dataclass
 class MaximizeResult:
     """Statistics across initializations (the _model fields kept across
@@ -139,6 +182,10 @@ class MaximizeResult:
     mono_viol: bool = False
     arand: float = 0.0
     seconds: float = 0.0
+    # how the biallelic admixture step ran (ops/fullstep_bi.Route.describe;
+    # empty for every other step) and the chains run in lockstep
+    route: str = ""
+    batch_chains: int = 1
 
 
 def _host_converged(opt: Options, a: float, b: float) -> bool:
@@ -300,9 +347,12 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
     the chains run (and Rand-EM scores) on ``md_fit``."""
     fixed_n = (not opt.target_revisit and not opt.target_ll
                and not opt.n_seconds)
-    B = opt.batch_chains or min(max(opt.n_init, 1), 8)
+    B = chain_batch(opt, md_fit, K, cfg)
     if fixed_n:
         B = min(B, opt.n_init)
+    res.batch_chains = B
+    if cfg.bi_repr_active:
+        res.route = bi_route(B, md_fit, cfg, k_padded_size(K, 32)).describe()
 
     def fresh_states(n):
         pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
@@ -425,6 +475,8 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     # -Q/-P warm start: every init identical (initialize_model,
     # rnd_init.c:74-76), one chain per batch
     warm_b = map_params(lambda t: t[None], _pad_k(warm, cfg))
+    if cfg.bi_repr_active:
+        res.route = bi_route(1, md_fit, cfg, k_padded_size(K, 32)).describe()
     while True:
         states, timed_out = fit_batch(warm_b, md_fit, cfg,
                                       n_seconds=opt.n_seconds, start_time=t0)
@@ -465,10 +517,11 @@ def hard_partition(params: Params, md: ModelData, admixture: bool,
     return torch.argmax(posterior_mass(params, md, admixture,
                                        eta_constrained), dim=1).cpu().numpy()
 
+
 def _score_arand(res: MaximizeResult, md, opt: Options, true_partition):
     if true_partition is None or res.best_params is None:
         return
-    from multiclust_tpu.stats.rand_index import adjusted_rand
+    from multiclust_tpu_torch.stats.rand_index import adjusted_rand
     res.arand = adjusted_rand(np.asarray(true_partition),
                               hard_partition(res.best_params, md,
                                              opt.admixture,

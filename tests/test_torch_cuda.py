@@ -328,3 +328,205 @@ def test_mixture_blind_steps_read_no_host(M, missing_rate):
         want, _, _ = mixture.em_step(want, md_cpu, cfg, want_ll=False)
     torch.testing.assert_close(out.params.eta.cpu(), want.eta, **F32)
     torch.testing.assert_close(out.params.p.cpu(), want.p, **F32)
+
+
+# ---------------------------------------------------------------------------
+# the streamed and chunked biallelic steps
+
+STREAM_KERNELS = ("mc_fullstep_bi_rows_seg", "mc_fullstep_bi_finish",
+                  "mc_fullstep_bi_cols")
+
+
+def _stream_close(got, ref):
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.to(r.dtype), r, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(20, 32), (40, 64), (70, 96), (128, 128)])
+@pytest.mark.parametrize("B,miss_rate,compute_t", [(1, 0.02, True),
+                                                   (2, 0.0, False)])
+def test_streamed_and_chunked_kernels_match_plain(K, Kp, B, miss_rate,
+                                                  compute_t):
+    """Ragged I = 1001 x L = 4099 with a segment size (1056) and a window
+    (1312) that leave a short last segment and window; bit-equal reruns;
+    the three routes against each other."""
+    dev = _cuda()
+    args = _step_args(K + B, B, 1001, 4099, K, Kp, miss_rate, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=True, compute_t=compute_t)
+    ref = fb.admixture_fullstep_biallelic_streamed_reference(*args, **kw)
+    before = dict(build.LAUNCHES)
+    streamed = fb.admixture_fullstep_biallelic_streamed(*args, seg_cols=1056,
+                                                        **kw)
+    torch.cuda.synchronize()
+    for name in STREAM_KERNELS:
+        assert build.LAUNCHES[name] == before[name] + 1
+    assert build.LAUNCHES["fullstep_bi_chunked"] == \
+        before["fullstep_bi_chunked"]
+    chunked = fb.admixture_fullstep_biallelic_chunked(*args, window=1312,
+                                                      **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fullstep_bi_chunked"] == \
+        before["fullstep_bi_chunked"] + 4
+    pair = fb.admixture_fullstep_biallelic(*args, **kw)
+    for got in (streamed, chunked, pair):
+        _stream_close(got, ref)
+        assert (got[0][..., K:] == 0).all() and (got[2][:, K:] == 0).all()
+    assert streamed[1].dtype == torch.float64
+    for fn, extra in ((fb.admixture_fullstep_biallelic_streamed,
+                       dict(seg_cols=1056)),
+                      (fb.admixture_fullstep_biallelic_chunked,
+                       dict(window=1312))):
+        a, b = fn(*args, **extra, **kw), fn(*args, **extra, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["emit_b", "emit_ab", "kmask",
+                                     "project_eta_off", "a0", "no_project"])
+@pytest.mark.parametrize("route", ["streamed", "chunked"])
+def test_streamed_variants_match_plain(variant, route):
+    dev = _cuda()
+    K, Kp = 20, 32
+    args = _step_args(7, 2, 1001, 4099, K, Kp, 0.03, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+    extra = {}
+    if variant.startswith("emit"):
+        kw.update(emit_b=True, emit_a=variant == "emit_ab")
+    elif variant == "kmask":
+        kw["k_true"] = Kp
+        extra["kmask"] = (torch.arange(Kp, device=dev) < K).float()
+    elif variant == "project_eta_off":
+        kw["project_eta"] = False
+    elif variant == "a0":
+        kw.update(emit_a=True, emit_b=True)
+        extra["a0"] = torch.rand((2, 1001, Kp), device=dev)
+    else:
+        kw["project"] = False
+    if route == "streamed":
+        got = fb.admixture_fullstep_biallelic_streamed(
+            *args, seg_cols=1056, **kw, **extra)
+    else:
+        got = fb.admixture_fullstep_biallelic_chunked(
+            *args, window=1312, **kw, **extra)
+    ref = fb.admixture_fullstep_biallelic_chunked_reference(
+        *args, window=4099, **kw, **extra)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == (4 if kw.get("emit_b") else 3)
+    _stream_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_rows_pass_terms_and_each_new_kernel_alone():
+    """The segmented rows pass, its finish and the windowed columns pass,
+    each against its plain version; the t-only pass skips A."""
+    dev = _cuda()
+    K, Kp = 20, 32
+    eta, p0, x0, x1, c, miss = _step_args(9, 2, 1001, 4099, K, Kp, 0.03, dev)
+    win = dict(l_lo=1000, l_hi=3001)
+    apart, tpart = fb.rows_partials(eta, p0, x0, x1, seg_cols=512, **win)
+    ref_a, ref_t = fb.rows_partials_reference(eta, p0, x0, x1, **win)
+    assert apart.shape == (2, 4, 1001, Kp) and tpart.shape == (2, 4, 1001)
+    torch.testing.assert_close(apart.sum(dim=1), ref_a[:, 0], **F32)
+    torch.testing.assert_close(tpart.double().sum(dim=1), ref_t[:, 0], **F32)
+    fin = dict(k_true=K, lb=0.01, project_eta=True)
+    got = fb.rows_finish(eta, apart, tpart, c, **fin)
+    ref = fb.rows_finish_reference(eta, apart, tpart, c, **fin)
+    _stream_close(got, ref)
+    for emit_b in (False, True):
+        outs = tuple(torch.zeros_like(p0) for _ in range(1 + emit_b))
+        refs = tuple(torch.zeros_like(p0) for _ in range(1 + emit_b))
+        fb.cols_window(eta, p0, x0, x1, miss, outs, plb=0.05, project=True,
+                       **win)
+        fb.cols_window_reference(eta, p0, x0, x1, miss, refs, plb=0.05,
+                                 project=True, **win)
+        _stream_close(outs, refs)
+        # nothing outside the window is written
+        assert all((o[..., :1000] == 0).all() and (o[..., 3001:] == 0).all()
+                   for o in outs)
+    before = build.LAUNCHES["mc_fullstep_bi_rows_seg"]
+    t = fb.rows_log_likelihood_terms(eta, p0, x0, x1)
+    want = fb.admixture_fullstep_biallelic_streamed_reference(
+        eta, p0, x0, x1, c, miss, k_true=K, lb=0.01, plb=0.05,
+        project=True)[1]
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mc_fullstep_bi_rows_seg"] == before + 1
+    torch.testing.assert_close(t, want, **F32)
+
+
+@pytest.mark.cuda
+def test_streamed_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _cuda()
+    eta, p0, x0, x1, c, miss = _step_args(11, 1, 64, 256, 5, 32, 0.0, dev)
+    with pytest.raises(ValueError, match="window"):
+        fb.rows_partials(eta, p0, x0, x1, l_lo=0, l_hi=300, seg_cols=64)
+    with pytest.raises(ValueError, match="segments"):
+        fb.rows_partials(eta, p0, x0, x1, l_lo=0, l_hi=256, seg_cols=0)
+    with pytest.raises(ValueError, match="dtype"):
+        fb.rows_partials(eta, p0, x0.float(), x1, l_lo=0, l_hi=256,
+                         seg_cols=64)
+    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+        fb.admixture_fullstep_biallelic_streamed(
+            torch.zeros(1, 8, 160, device=dev),
+            torch.zeros(1, 160, 12, device=dev),
+            torch.zeros(8, 12, dtype=torch.int8, device=dev),
+            torch.zeros(8, 12, dtype=torch.int8, device=dev),
+            torch.zeros(8, device=dev), k_true=150, lb=0.0, plb=0.0,
+            project=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget,route", [(0, "streamed"),
+                                          (3 << 20, "chunked")])
+def test_routed_blind_steps_read_no_host(budget, route):
+    """Blind admixture steps down the streamed and the chunked route, as
+    opt/em.blind_plain_steps calls them, make no host read, and the
+    SQUAREM logL takes the rows pass."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+    from multiclust_tpu_torch.model import admixture
+    from multiclust_tpu_torch.model.common import EMConfig
+    from multiclust_tpu_torch.opt import em as em_mod
+    from multiclust_tpu_torch.runtime.multistart import _pad_k, _to_bi_repr
+
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    I, L, K = 300, 8192, 4
+    miss = rng.binomial(2, 0.02, size=(I, L))
+    x0 = rng.binomial(2 - miss, 0.5)
+    counts = np.stack([x0, 2 - miss - x0], axis=2)
+    mask, n_all = np.ones((L, 2), bool), np.full(L, 2)
+    eta = rng.dirichlet(np.full(K, 2.0), size=(2, I))
+    p0 = rng.uniform(0.2, 0.8, size=(2, K, L))
+    p = np.stack([p0, 1 - p0], axis=-1)
+    cfg = EMConfig(admixture=True, use_pallas="on", biallelic=True, k_true=K,
+                   scratch_budget=budget or fb.SCRATCH_CAP)
+    mds = [model_data_from_numpy(counts, miss, mask, n_all, device=d,
+                                 dtype=torch.float32) for d in (dev, "cpu")]
+    pars = [_to_bi_repr(_pad_k(params_from_numpy(
+        eta, p, device=d, dtype=torch.float32), cfg), cfg)
+        for d in (dev, "cpu")]
+    assert admixture.bi_route(2, mds[0], cfg, 32).name == route
+    state = em_mod.init_state(pars[0], cfg)
+    n_lane = torch.full((2,), 3, dtype=torch.int64, device=dev)
+    before = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = em_mod.blind_plain_steps(state, mds[0], cfg, n_lane, 3)
+        ll = admixture.log_likelihood_bi_repr(out.params, mds[0])[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = {n: build.LAUNCHES[n] - before[n] for n in build.LAUNCHES}
+    assert launched["mc_fullstep_bi_rows"] == 0
+    assert launched["mc_fullstep_bi_rows_seg"] >= 4
+    assert (launched["fullstep_bi_chunked"] > 0) == (route == "chunked")
+    want = pars[1]
+    for _ in range(3):
+        want, _, _ = admixture.em_step(want, mds[1], cfg, want_ll=False)
+    torch.testing.assert_close(out.params.eta.cpu(), want.eta, **F32)
+    torch.testing.assert_close(out.params.p.cpu(), want.p, **F32)
+    torch.testing.assert_close(
+        ll.cpu(), admixture.log_likelihood_bi_repr(want, mds[1])[0],
+        rtol=1e-6, atol=0)

@@ -17,7 +17,7 @@ from multiclust_tpu.model.common import EMConfig as JaxEMConfig, \
 from multiclust_tpu.opt.driver import fit as jax_fit
 from multiclust_tpu.runtime.ksweep import estimate_model as jax_estimate
 from multiclust_tpu.stats.sim import simulate_admixture_fast
-from multiclust_tpu_torch.convert import params_from_numpy
+from multiclust_tpu_torch.convert import options_from, params_from_numpy
 from multiclust_tpu_torch.model.common import EMConfig, \
     model_data_from_dataset
 from multiclust_tpu_torch.opt.driver import fit
@@ -87,7 +87,8 @@ def test_estimate_model_matches_jax_f64():
                       warm=JaxParams(eta=jnp.asarray(eta),
                                      p=jnp.asarray(p)))
     te = estimate_model(0, model_data_from_dataset(ds, dtype=torch.float64),
-                        opt, n_par, warm=params_from_numpy(eta, p))
+                        options_from(opt), n_par,
+                        warm=params_from_numpy(eta, p))
     jr, tr = je.per_K[3], te.per_K[3]
     for a in ("max_logL", "aic", "bic"):
         np.testing.assert_allclose(getattr(tr, a), getattr(jr, a),
@@ -128,10 +129,10 @@ def test_estimate_model_f32_kernel_path_matches_interpret(monkeypatch):
                       warm=JaxParams(eta=jnp.asarray(eta, jnp.float32),
                                      p=jnp.asarray(p, jnp.float32)))
     tmd = model_data_from_dataset(ds, dtype=torch.float32)
-    te = estimate_model(0, tmd, opt, n_par,
+    te = estimate_model(0, tmd, options_from(opt), n_par,
                         warm=params_from_numpy(eta, p, dtype=torch.float32))
     from multiclust_tpu_torch.runtime.multistart import cfg_from_options
-    assert cfg_from_options(opt, 3, tmd).bi_repr_active
+    assert cfg_from_options(options_from(opt), 3, tmd).bi_repr_active
     jr, tr = je.per_K[3], te.per_K[3]
     assert not (tr.ever_converged or jr.ever_converged)   # both capped
     assert not tr.mono_viol and not tr.any_failed
@@ -211,7 +212,7 @@ def test_cli_multistart_squarem_writes_every_file(tmp_path, capsys):
     (["-a", "-k", "3", "--mesh", "2x1"], "meshes"),
 ])
 def test_cli_rejects_unported_flags(tmp_path, argv, what):
-    from multiclust_tpu.cli import UsageError
+    from multiclust_tpu_torch.cli import UsageError
     from multiclust_tpu_torch.cli import main
 
     with pytest.raises(UsageError, match=what):
@@ -221,7 +222,7 @@ def test_cli_rejects_unported_flags(tmp_path, argv, what):
 def test_default_device_needs_cuda(tmp_path, monkeypatch):
     """Without a CUDA device the API and CLI raise instead of falling
     back to the CPU."""
-    from multiclust_tpu.cli import UsageError
+    from multiclust_tpu_torch.cli import UsageError
     from multiclust_tpu_torch.api import fit_dataset
     from multiclust_tpu_torch.cli import main
 

@@ -32,6 +32,7 @@ from multiclust_tpu_torch.model import admixture as tadm
 from multiclust_tpu_torch.model.common import EMConfig, Params, \
     make_model_data, model_data_from_dataset
 from multiclust_tpu_torch.ops import fullstep as fs
+from multiclust_tpu_torch.convert import dataset_from, options_from
 from multiclust_tpu_torch.opt.driver import fit
 from multiclust_tpu_torch.runtime.multistart import _pad_k
 
@@ -344,7 +345,7 @@ def test_fit_dataset_takes_the_generic_route(monkeypatch):
                   write_files=False,
                   initialization_procedure=InitProcedure.RAND_EM,
                   n_rand_em_init=3)
-    out = fit_dataset(ds, opt, device="cpu")
+    out = fit_dataset(dataset_from(ds), options_from(opt), device="cpu")
     res = out.best
     assert calls and np.isfinite(res.max_logL) and not res.mono_viol
     eta, p = res.best_params
@@ -354,7 +355,8 @@ def test_fit_dataset_takes_the_generic_route(monkeypatch):
     # on CUDA the kernels are the one route of such a fit
     from multiclust_tpu_torch.runtime.multistart import device_policy
     with pytest.raises(ValueError, match="kernels"):
-        device_policy(dataclasses.replace(opt, use_pallas=False), "cuda")
+        device_policy(options_from(dataclasses.replace(
+            opt, use_pallas=False)), "cuda")
 
 
 def test_cuda_wrappers_refuse_unsupported_shapes():

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from multiclust_tpu.config import InitMethod, Options
+from multiclust_tpu.config import InitMethod as JaxInitMethod, Options
 from multiclust_tpu.model import admixture as jadm, mixture as jmix
 from multiclust_tpu.model.common import EMConfig as JaxEMConfig, \
     Params as JaxParams, collapse_for_constrained as jax_collapse, \
@@ -21,7 +21,8 @@ from multiclust_tpu.opt.driver import fit as jax_fit
 from multiclust_tpu.runtime.ksweep import estimate_model as jax_estimate
 from multiclust_tpu.stats.sim import random_model, simulate_admixture_fast, \
     simulate_mixture
-from multiclust_tpu_torch.convert import dataset_from_counts, \
+from multiclust_tpu_torch.config import InitMethod
+from multiclust_tpu_torch.convert import dataset_from_counts, options_from, \
     params_from_numpy, params_to_numpy
 from multiclust_tpu_torch.init import random as rinit
 from multiclust_tpu_torch.model import admixture as tadm, mixture as tmix
@@ -350,7 +351,8 @@ def test_estimate_model_matches_jax(model, accel):
                       warm=JaxParams(eta=jnp.asarray(eta),
                                      p=jnp.asarray(p)))
     te = estimate_model(0, model_data_from_dataset(ds, dtype=torch.float64),
-                        opt, n_par, warm=params_from_numpy(eta, p))
+                        options_from(opt), n_par,
+                        warm=params_from_numpy(eta, p))
     jr, tr = je.per_K[3], te.per_K[3]
     for a in ("max_logL", "aic", "bic"):
         np.testing.assert_allclose(getattr(tr, a), getattr(jr, a),
@@ -368,7 +370,7 @@ def test_k1_matches_jax(model):
           else _admixture_panel(35))
     opt = _opt(admixture=model != "mixture",
                eta_constrained=model != "mixture", min_K=1, max_K=1,
-               initialization_method=InitMethod.RANDOM_PARTITION)
+               initialization_method=JaxInitMethod.RANDOM_PARTITION)
     opt = opt.synchronize(ds.I, ds.ploidy)
 
     def n_par(K):
@@ -382,7 +384,7 @@ def test_k1_matches_jax(model):
                       jax_model_data(ds, dtype=jnp.float64), opt, n_par,
                       codes=None if codes is None else jnp.asarray(codes))
     tmd = model_data_from_dataset(ds, dtype=torch.float64)
-    te = estimate_model(0, tmd, opt, n_par,
+    te = estimate_model(0, tmd, options_from(opt), n_par,
                         codes=None if codes is None
                         else rinit.codes_from_counts(tmd.x, tmd.miss, 2))
     # K = 1 starts are draw-free: every copy joins the one cluster
@@ -440,7 +442,7 @@ def test_hard_partition_and_policy():
     want = jax_partition(JaxParams(eta=jnp.asarray(eta), p=jnp.asarray(p)),
                          jax_model_data(ds, dtype=jnp.float64), False)
     np.testing.assert_array_equal(got, want)
-    opt = Options(admixture=False, dtype="float32")
+    opt = options_from(Options(admixture=False, dtype="float32"))
     assert device_policy(opt, "cuda") == (True, torch.int8)
     assert device_policy(opt, "cpu") == (False, None)
     ds4, _ = _mixture_panel(44, ploidy=4)

@@ -12,15 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from multiclust_tpu.config import InitMethod, Options
+from multiclust_tpu.config import Options as JaxOptions
 from multiclust_tpu.model import admixture as jadm
 from multiclust_tpu.model.common import EMConfig as JaxEMConfig, \
     Params as JaxParams, model_data_from_dataset as jax_model_data
 from multiclust_tpu.ops import df64
 from multiclust_tpu.ops.simplex import project_rows as jax_project_rows
 from multiclust_tpu.stats.sim import random_model, simulate_admixture_fast
+from multiclust_tpu_torch.config import InitMethod
 from multiclust_tpu_torch.convert import dataset_from_counts, \
-    model_data_from_numpy, params_from_numpy, params_to_numpy
+    model_data_from_numpy, options_from, params_from_numpy, params_to_numpy
 from multiclust_tpu_torch.init import random as rinit
 from multiclust_tpu_torch.model import admixture as tadm
 from multiclust_tpu_torch.model.common import EMConfig, Params, \
@@ -164,7 +165,7 @@ def test_convert_roundtrips_exactly():
 def test_device_policy_keeps_the_kernel_on_cuda():
     """float32 admixture fits on CUDA take the kernel, and cannot be
     switched to the plain step; CPU fits keep the override."""
-    opt = Options(admixture=True, dtype="float32")
+    opt = options_from(JaxOptions(admixture=True, dtype="float32"))
     assert device_policy(opt, "cuda") == (True, torch.int8)
     assert device_policy(opt, "cpu") == (False, None)
     on = dataclasses.replace(opt, use_pallas=True)
@@ -251,7 +252,9 @@ def test_codes_from_counts_matches_jax(M):
         got = rinit.codes_from_counts(torch.as_tensor(ds.counts).to(dtype),
                                       torch.as_tensor(ds.miss).to(dtype),
                                       ds.ploidy)
-        assert got.dtype == torch.int64
+        # codes are stored as narrow as the data (a biobank panel's int64
+        # codes would take eight times its planes)
+        assert got.dtype == torch.int8
         np.testing.assert_array_equal(got.numpy(), want)
 
 
