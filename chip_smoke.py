@@ -11,9 +11,15 @@ each raising on failure:
 3. kernels: the biallelic EM-step kernel pair against its plain PyTorch
    version at I=16384, L=2048, K=20 (Kp=32), chain batches 1 and 4,
    missing 0 % and 2 %, logL terms on and off; median CUDA-event times;
+   each pass of the pair alone at chain batches 2 and 32 (the batch at
+   which the router gives this panel to the pair); the streamed step as
+   the router splits this panel for chain batches 1, 2 and 4 (its column
+   segments and row segments), each of its kernels against plain;
 4. fit: ``api.fit_dataset`` on a simulated 16384 x 2048, K=20 biallelic
-   panel (plain EM with the adaptive interval, then SQUAREM), with the
-   kernel launch counts of that run; then a small warm-start fit held to
+   panel: 2 chains (plain EM with the adaptive interval, then SQUAREM),
+   which the router sends down the streamed route, then 32 chains in
+   lockstep, which it gives to the pair; the kernel launch counts of each
+   run on its own, counted from 0; then a small warm-start fit held to
    the float64 CPU path;
 5. CLI: ``multiclust_tpu_torch.cli.main`` on a 1024 x 1000, K=3 STRUCTURE
    file with 5 % missing;
@@ -47,7 +53,11 @@ each raising on failure:
    pass and finish kernel, the chunked loop over column windows) against
    the plain version, which works in column windows; logL terms on and
    off, emit_a / emit_b once; each pass alone; the rows passes again at
-   2048 x 524288;
+   2048 x 524288; then the two redesigned kernels at Kp = 64 and 128, on
+   an unaligned panel (1000 x 1003) and on a window with an odd start,
+   each against its plain version and rerun bit-equal, the compiler's
+   register / shared-memory / spill report of them and their share of
+   the bound;
 13. biobank fits: ``api.fit_model_data`` on that panel, 2 chains, plain EM
    with the adaptive interval and then SQUAREM, iteration cap 50, and one
    plain-EM fit at 2048 x 524288, which the router sends down the chunked
@@ -84,6 +94,13 @@ RTOL, ATOL = 1e-4, 5e-5
 TPU_KERNEL = "multiclust_tpu/ops/kernels.py:344"
 SOURCE = "multiclust_tpu_torch/csrc/fullstep_bi.cu"
 BI_KERNELS = ("mc_fullstep_bi_rows", "mc_fullstep_bi_cols")
+# a biallelic admixture step launches one of the two rows kernels (the
+# fused one on the pair route, the segmented one with its finish on the
+# streamed and chunked routes) and the columns kernel
+BI_ROWS = ("mc_fullstep_bi_rows", "mc_fullstep_bi_rows_seg")
+# chains in lockstep at which the router gives the 16384 x 2048 panel to the
+# pair: its rows grid then fills the card without a column split
+PAIR_CHAINS = 32
 M_FULL = 4
 GENERIC_TPU = "multiclust_tpu/ops/kernels.py:263"
 GENERIC_SOURCE = "multiclust_tpu_torch/csrc/fullstep.cu"
@@ -212,36 +229,100 @@ def phase_kernels(fb, dev, where):
                       f"({cells / k_ms / 1e6:.2f} Gcells/s), plain "
                       f"{p_ms:.3f} ms ({cells / p_ms / 1e6:.2f} Gcells/s) "
                       f"on {where}", flush=True)
-    # each pass at the fit's shape (chain batch 2, 1 % missing)
-    e, p, a, z, c, m = step_inputs(rng, 2, I_FULL, L_FULL, K, Kp, 0.01, dev)
-    row_kw = dict(k_true=K, lb=1e-8, project=True, compute_t=True)
-    passes = {
-        "rows": (lambda: fb.fullstep_bi_rows(e, p, a, z, c, **row_kw),
-                 lambda: fb.fullstep_bi_rows_reference(e, p, a, z, c,
-                                                       **row_kw)),
-        "cols": (lambda: (fb.fullstep_bi_cols(e, p, a, z, m, plb=1e-8,
-                                              project=True),),
-                 lambda: (fb.fullstep_bi_cols_reference(
-                     e, p, a, z, m, plb=1e-8, project=True),)),
-    }
-    # operations: two contractions of I x L x K (d0 and A; d0 and B0, B1
-    # as two) at 2 a multiply-add, and ~10 / ~6 a cell elementwise
-    cells = 2 * I_FULL * L_FULL
-    flop = {"rows": (4 * K + 10) * cells, "cols": (6 * K + 6) * cells}
-    inputs = {"rows": (e, p, a, z, c), "cols": (e, p, a, z, m)}
+    # each pass of the pair alone, 1 % missing: at the 2-chain fits' batch
+    # and at 32 chains, where the router gives this panel to the pair
+    # (the kernels' record)
     ms, bnd = {}, {}
-    for name, (kernel, plain) in passes.items():
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        err = max(max_err(g, r) for g, r in zip(got, ref))
-        errs[name] = max(errs[name], err)
-        ms[name] = (median_ms(kernel), median_ms(plain))
-        bnd[name] = bound(tensors_bytes(inputs[name], got), flop[name])
-        print(f"pass {name} B=2 miss=0.01: max|d| {err:.3e}; kernel "
-              f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
-              f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
-              flush=True)
+    for B in (2, PAIR_CHAINS):
+        e, p, a, z, c, m = step_inputs(rng, B, I_FULL, L_FULL, K, Kp, 0.01,
+                                       dev)
+        row_kw = dict(k_true=K, lb=1e-8, project=True, compute_t=True)
+        passes = {
+            "rows": (lambda: fb.fullstep_bi_rows(e, p, a, z, c, **row_kw),
+                     lambda: fb.fullstep_bi_rows_reference(e, p, a, z, c,
+                                                           **row_kw)),
+            "cols": (lambda: (fb.fullstep_bi_cols(e, p, a, z, m, plb=1e-8,
+                                                  project=True, k_true=K),),
+                     lambda: (fb.fullstep_bi_cols_reference(
+                         e, p, a, z, m, plb=1e-8, project=True),)),
+        }
+        # operations: two contractions of I x L x K (d0 and A; d0 and B0,
+        # B1 as two) at 2 a multiply-add, and ~10 / ~6 a cell elementwise
+        cells = B * I_FULL * L_FULL
+        flop = {"rows": (4 * K + 10) * cells, "cols": (6 * K + 6) * cells}
+        inputs = {"rows": (e, p, a, z, c), "cols": (e, p, a, z, m)}
+        for name, (kernel, plain) in passes.items():
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max(max_err(g, r) for g, r in zip(got, ref))
+            errs[name] = max(errs[name], err)
+            bnd[name, B] = bound(tensors_bytes(inputs[name], got),
+                                 flop[name])
+            del ref
+            ms[name, B] = (median_ms(kernel),
+                           median_ms(plain, n=5, warm=1))
+            print(f"pass {name} B={B} miss=0.01: max|d| {err:.3e}; kernel "
+                  f"{ms[name, B][0]:.3f} ms, plain {ms[name, B][1]:.3f} ms, "
+                  f"bound {bnd[name, B][0]:.3f} ms ({bnd[name, B][1]}) on "
+                  f"{where}", flush=True)
+        del e, p, a, z, c, m, passes, inputs, got
+        torch.cuda.empty_cache()
     return errs, ms, bnd
+
+
+def phase_routed_kernels(fb, dev, where):
+    """The streamed step as the router splits the 16384 x 2048 panel for
+    chain batches 1, 2 and 4 (the fits' route there): the segmented rows
+    pass, its finish and the windowed columns pass, with the route's own
+    column segments and row segments, each against its plain version.
+    Returns the largest error of each kernel."""
+    rng = np.random.default_rng(6)
+    K, Kp = K_FULL, 32
+    n_sm = fb.device_sm_count(dev)
+    win = dict(l_lo=0, l_hi=L_FULL)
+    fin = dict(k_true=K, lb=1e-8, project_eta=True)
+    errs = {}
+    for B in (1, 2, 4):
+        e, p, a, z, c, m = step_inputs(rng, B, I_FULL, L_FULL, K, Kp, 0.01,
+                                       dev)
+        route = fb.pick_route(B, I_FULL, L_FULL, Kp, n_sm,
+                              fb.scratch_budget(dev), K)
+        assert route.name == "streamed" and route.n_rseg > 1, route
+
+        def rows():
+            return fb.rows_partials(e, p, a, z, seg_cols=route.seg_cols,
+                                    k_true=K, **win)
+
+        def cols(fn, outs, **kw):
+            fn(e, p, a, z, m, outs, plb=1e-8, project=True, **win, **kw)
+            return outs[0]
+
+        apart, tpart = rows()
+        ref_a, ref_t = fb.rows_partials_reference(e, p, a, z, **win)
+        got = fb.rows_finish(e, apart, tpart, c, **fin)
+        ref = fb.rows_finish_reference(e, apart, tpart, c, **fin)
+        out = cols(fb.cols_window, (torch.empty_like(p),), k_true=K,
+                   n_rseg=route.n_rseg)
+        out_ref = cols(fb.cols_window_reference, (torch.empty_like(p),))
+        torch.cuda.synchronize()
+        assert apart.shape[1] == -(-L_FULL // route.seg_cols) > 1
+        e_rows = max(max_err(apart.sum(dim=1), ref_a[:, 0]),
+                     max_err_cast(tpart.double().sum(dim=1), ref_t[:, 0]))
+        e_fin = max(max_err_cast(g, r) for g, r in zip(got, ref))
+        e_cols = max_err(out, out_ref)
+        assert (got[0][..., K:] == 0).all() and (out[:, K:] == 0).all()
+        for key, err in (("rows_seg", e_rows), ("finish", e_fin),
+                         ("cols_window", e_cols)):
+            errs[key] = max(errs.get(key, 0.0), err)
+        print(f"routed step {I_FULL} x {L_FULL} B={B}, "
+              f"{route.describe()}: max|d| raw A + r, t {e_rows:.3e}, "
+              f"eta', t {e_fin:.3e}, p0' {e_cols:.3e} (rtol {RTOL}, atol "
+              f"{ATOL}); rows pass {median_ms(rows):.3f} ms, finish "
+              f"{median_ms(lambda: fb.rows_finish(e, apart, tpart, c, **fin)):.3f}"
+              f" ms, columns pass "
+              f"{median_ms(lambda: cols(fb.cols_window, (out,), k_true=K, n_rseg=route.n_rseg)):.3f}"
+              f" ms on {where}", flush=True)
+    return errs
 
 
 def simulated_counts(rng, I, L, K, miss_rate):
@@ -298,25 +379,43 @@ def phase_fit(build, dev, where):
 
     def timed_fit(label, **kw):
         t0 = time.time()
-        out = fit_dataset(ds, device=dev, **base, **kw)
+        out = fit_dataset(ds, device=dev, **{**base, **kw})
         torch.cuda.synchronize()
         return check_fit(out, time.time() - t0, label, where)
 
     build.reset_launch_counts()
     plain = timed_fit("plain EM")
     squarem = timed_fit("SQUAREM", accel_scheme=1)
-    launches = {name: build.LAUNCHES[name] for name in BI_KERNELS}
-    print(f"launches in the fits: {launches}", flush=True)
+    launches = {name: build.LAUNCHES[name] for name in STREAM_KERNELS}
+    print(f"launches in the 2-chain fits: {dict(build.LAUNCHES)} (route "
+          f"{plain.route})", flush=True)
+    assert plain.route.startswith("streamed"), plain.route
     # one launch of each pass serves the whole chain batch (2 lanes)
     steps = (plain.n_iter_all + squarem.n_iter_all) // 2
-    for name, n in launches.items():
-        assert n >= steps > 0, (name, n, steps)
-    return launches
+    assert all(n >= steps > 0 for n in launches.values()), launches
+    assert not build.LAUNCHES["mc_fullstep_bi_rows"]
+
+    # 32 chains in lockstep: the pair, counted from 0 on its own
+    build.reset_launch_counts()
+    many = timed_fit(f"plain EM, {PAIR_CHAINS} chains", n_init=PAIR_CHAINS,
+                     batch_chains=PAIR_CHAINS, max_iter=10)
+    pair = {name: build.LAUNCHES[name] for name in BI_KERNELS}
+    print(f"launches in the {PAIR_CHAINS}-chain fit: {dict(build.LAUNCHES)} "
+          f"(route {many.route})", flush=True)
+    assert many.route.startswith("pair"), many.route
+    assert many.batch_chains == PAIR_CHAINS
+    steps = many.n_iter_all // PAIR_CHAINS
+    assert all(n >= steps > 0 for n in pair.values()), pair
+    assert not build.LAUNCHES["mc_fullstep_bi_rows_seg"]
+    return pair
 
 
-def phase_reference(dev):
-    """A small warm-start fit through the kernel path, held to the plain
-    float64 step on the CPU over the same 30 iterations."""
+def phase_reference(build, dev):
+    """A small warm-start fit through the kernel path (600 x 500 is too
+    narrow to split, so the router takes the pair and its fused rows
+    kernel), held to the plain float64 step on the CPU over the same 30
+    iterations; the pair's launches in this fit are printed on its
+    line."""
     from multiclust_tpu_torch.convert import model_data_from_numpy, \
         params_from_numpy
     from multiclust_tpu_torch.model.common import EMConfig
@@ -338,13 +437,17 @@ def phase_reference(dev):
               EMConfig(**base))
     cfg = EMConfig(use_pallas="on", **base)
     warm = params_from_numpy(eta, p, device=dev, dtype=torch.float32)
+    build.reset_launch_counts()
     gpu = fit(_to_bi_repr(_pad_k(warm, cfg), cfg),
               model_data_from_numpy(counts, miss, mask, n_all, device=dev,
                                     dtype=torch.float32), cfg)
+    launches = {name: build.LAUNCHES[name] for name in BI_KERNELS}
     print(f"reference fit: kernel path logL {gpu.logL:.4f} vs float64 CPU "
-          f"{cpu.logL:.4f} after {gpu.n_iter} iterations", flush=True)
+          f"{cpu.logL:.4f} after {gpu.n_iter} iterations, launches "
+          f"{launches}", flush=True)
     assert gpu.n_iter == cpu.n_iter == 31
     assert abs(gpu.logL - cpu.logL) < 0.1
+    assert all(n >= 31 for n in launches.values()), launches
 
 
 def write_structure_biallelic(path, counts, miss):
@@ -376,11 +479,13 @@ def phase_cli(build, where):
         rc = main(["-f", path, "-a", "-k", "3", "-n", "4", "-s", "1",
                    "-d", tmp])
         torch.cuda.synchronize()
-        launches = {name: build.LAUNCHES[name] for name in BI_KERNELS}
+        launches = {name: build.LAUNCHES[name]
+                    for name in BI_KERNELS + BI_ROWS[1:]}
         assert rc == 0, rc
         for f in OUT_FILES:
             assert os.path.getsize(os.path.join(tmp, f)) > 0, f
-    assert all(n > 0 for n in launches.values()), launches
+    assert sum(launches[name] for name in BI_ROWS) > 0, launches
+    assert launches["mc_fullstep_bi_cols"] > 0, launches
     print(f"cli: rc 0 in {time.time() - t0:.2f} s, launches {launches} on "
           f"{where}", flush=True)
 
@@ -933,7 +1038,7 @@ def phase_biobank_kernels(fb, dev, where):
     quick = dict(n=5, warm=1)
     for B in (1, 2):
         eta, p0 = device_step_params(91 + B, B, I_BIO, L_BIO, K, Kp, dev)
-        _, seg_cols = fb.row_segments(B, I_BIO, L_BIO, n_sm)
+        _, seg_cols = fb.row_segments(B, I_BIO, L_BIO, n_sm, k_true=K, Kp=Kp)
         routes = {
             "pair": lambda **k: fb.admixture_fullstep_biallelic(
                 eta, p0, x0, x1, c, miss, **kw, **k),
@@ -988,25 +1093,27 @@ def phase_biobank_kernels(fb, dev, where):
     # each new kernel alone at the fits' shape (chain batch 2)
     win = dict(l_lo=0, l_hi=L_BIO)
     fin = dict(k_true=K, lb=1e-8, project_eta=True)
-    apart, tpart = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols, **win)
+    apart, tpart = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols,
+                                    k_true=K, **win)
     outs = (torch.empty_like(p0),)
     outs_ref = (torch.empty_like(p0),)
 
-    def cols(fn, o):
-        fn(eta, p0, x0, x1, miss, o, plb=1e-8, project=True, **win)
+    def cols(fn, o, **kw):
+        fn(eta, p0, x0, x1, miss, o, plb=1e-8, project=True, **win, **kw)
         return o
 
     passes = {
         # the partials, compared summed over segments
         "rows_seg": (lambda: tuple(t.sum(dim=1) for t in fb.rows_partials(
-                         eta, p0, x0, x1, seg_cols=seg_cols, **win)),
+                         eta, p0, x0, x1, seg_cols=seg_cols, k_true=K,
+                         **win)),
                      lambda: tuple(t[:, 0] for t in
                                    fb.rows_partials_reference(
                                        eta, p0, x0, x1, **win))),
         "finish": (lambda: fb.rows_finish(eta, apart, tpart, c, **fin),
                    lambda: fb.rows_finish_reference(eta, apart, tpart, c,
                                                     **fin)),
-        "cols_window": (lambda: cols(fb.cols_window, outs),
+        "cols_window": (lambda: cols(fb.cols_window, outs, k_true=K),
                         lambda: cols(fb.cols_window_reference, outs_ref)),
         "chunked": (lambda: routes["chunked"](),
                     lambda: fb.admixture_fullstep_biallelic_chunked_reference(
@@ -1036,8 +1143,8 @@ def phase_biobank_kernels(fb, dev, where):
               f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
               f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
-    t_ms = median_ms(lambda: fb.rows_log_likelihood_terms(eta, p0, x0, x1),
-                     **quick)
+    t_ms = median_ms(lambda: fb.rows_log_likelihood_terms(
+        eta, p0, x0, x1, k_true=K), **quick)
     print(f"biobank logL terms alone (rows pass, A phase skipped) B=2: "
           f"{t_ms:.3f} ms on {where}", flush=True)
     del planes, miss, x0, x1, c, eta, p0, apart, tpart, outs, outs_ref, \
@@ -1052,15 +1159,16 @@ def phase_biobank_kernels(fb, dev, where):
     for B in (1, 2):
         eta, p0 = device_step_params(96 + B, B, I_NARROW, L_NARROW, K, Kp,
                                      dev)
-        n_seg, seg_cols = fb.row_segments(B, I_NARROW, L_NARROW, n_sm)
+        n_seg, seg_cols = fb.row_segments(B, I_NARROW, L_NARROW, n_sm,
+                                          k_true=K, Kp=Kp)
         ref_a, ref_t = fb.rows_partials_reference(
             eta, p0, x0, x1, l_lo=0, l_hi=L_NARROW)
         ref = fb.rows_finish_reference(eta, ref_a, ref_t, c, **fin)
 
         def seg_rows():
             return fb.rows_finish(eta, *fb.rows_partials(
-                eta, p0, x0, x1, l_lo=0, l_hi=L_NARROW, seg_cols=seg_cols),
-                c, **fin)
+                eta, p0, x0, x1, l_lo=0, l_hi=L_NARROW, seg_cols=seg_cols,
+                k_true=K), c, **fin)
 
         def pair_rows():
             return fb.fullstep_bi_rows(eta, p0, x0, x1, c, **row_kw)
@@ -1081,6 +1189,63 @@ def phase_biobank_kernels(fb, dev, where):
         del eta, p0, ref_a, ref_t, ref
         torch.cuda.empty_cache()
     return errs, ms, bnd
+
+
+def phase_redesign_shapes(fb, build, dev, where):
+    """The two redesigned kernels of the biallelic step (the segmented
+    rows pass with the loop it shares with the fused rows kernel, and the
+    windowed columns pass) where the fits do not take them: Kp = 64 and
+    128 (K = 40, 100), an unaligned panel (I = 1000, L = 1003: byte
+    loads) and a window with an odd start, each against its plain version
+    and rerun bit-equal; then what the compiler made of them."""
+    from multiclust_tpu_torch.kernel_report import ptxas_lines
+
+    rng = np.random.default_rng(110)
+    cases = [("Kp=64", 1, 4096, 4096, 40, 64, 0, 4096),
+             ("Kp=128", 1, 4096, 4096, 100, 128, 0, 4096),
+             ("unaligned 1000 x 1003", 2, 1000, 1003, 20, 32, 0, 1003),
+             ("odd window start", 2, 4096, 4096, 20, 32, 1001, 3999)]
+    for label, B, I, L, K, Kp, l_lo, l_hi in cases:
+        eta, p0, x0, x1, c, miss = step_inputs(rng, B, I, L, K, Kp, 0.02, dev)
+        win = dict(l_lo=l_lo, l_hi=l_hi)
+        seg_cols = -(-(l_hi - l_lo) // 3 // 32) * 32
+
+        def rows():
+            return fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols,
+                                    k_true=K, **win)
+
+        def cols():
+            outs = (torch.zeros_like(p0), torch.zeros_like(p0))
+            fb.cols_window(eta, p0, x0, x1, miss, outs, plb=1e-8,
+                           project=True, k_true=K, n_rseg=3, **win)
+            return outs
+
+        ref_a, ref_t = fb.rows_partials_reference(eta, p0, x0, x1, **win)
+        refs = (torch.zeros_like(p0), torch.zeros_like(p0))
+        fb.cols_window_reference(eta, p0, x0, x1, miss, refs, plb=1e-8,
+                                 project=True, **win)
+        (apart, tpart), outs = rows(), cols()
+        torch.cuda.synchronize()
+        errs = [max_err(apart.sum(dim=1), ref_a[:, 0]),
+                max_err_cast(tpart.double().sum(dim=1), ref_t[:, 0]),
+                max_err(outs[0], refs[0]), max_err(outs[1], refs[1])]
+        again_rows, again_cols = rows(), cols()
+        assert torch.equal(apart, again_rows[0])
+        assert torch.equal(tpart, again_rows[1])
+        assert all(torch.equal(u, v) for u, v in zip(outs, again_cols))
+        assert all((o[:, K:] == 0).all() for o in outs)
+        print(f"redesigned kernels, {label} (B={B}, {I} x {L}, K={K}, "
+              f"window [{l_lo}, {l_hi})): max|d| raw A + r {errs[0]:.3e}, "
+              f"t {errs[1]:.3e}, B0 {errs[2]:.3e}, B1 {errs[3]:.3e} (rtol "
+              f"{RTOL}, atol {ATOL}); reruns bit-equal; rows pass "
+              f"{median_ms(rows, n=5, warm=1):.3f} ms, columns pass "
+              f"{median_ms(cols, n=5, warm=1):.3f} ms on {where}",
+              flush=True)
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    for name, text in ptxas_lines(
+            report, "fullstep_bi_(?:rows|rows_seg|cols)_"):
+        print(f"ptxas {name}: {text}", flush=True)
+        assert " 0 bytes spill stores, 0 bytes spill loads" in text, name
 
 
 def phase_biobank_fits(build, dev, where):
@@ -1269,8 +1434,10 @@ def main() -> int:
     print(f"build: {time.time() - t0:.1f} s ({lib.name})", flush=True)
 
     errs, ms, bnd = phase_kernels(fb, dev, where)
+    routed_errs = phase_routed_kernels(fb, dev, where)
+    # the pair's launches are those of the 32-chain fit alone
     launches = phase_fit(build, dev, where)
-    phase_reference(dev)
+    phase_reference(build, dev)
     phase_cli(build, where)
     g_errs, g_ms, (sweep_err, sweep_ms), g_bnd = phase_generic_kernels(
         fs, dev, where)
@@ -1284,15 +1451,34 @@ def main() -> int:
     phase_cli_mixture(build, where)
 
     b_errs, b_ms, b_bnd = phase_biobank_kernels(fb, dev, where)
+    for key, err in routed_errs.items():
+        b_errs[key] = max(b_errs[key], err)
+    phase_redesign_shapes(fb, build, dev, where)
+    for label, key, t, b in (
+            ("fused rows pass 16384 x 2048, 2 chains", ("rows", 2), ms, bnd),
+            ("columns pass 16384 x 2048, 2 chains", ("cols", 2), ms, bnd),
+            (f"fused rows pass 16384 x 2048, {PAIR_CHAINS} chains",
+             ("rows", PAIR_CHAINS), ms, bnd),
+            (f"columns pass 16384 x 2048, {PAIR_CHAINS} chains",
+             ("cols", PAIR_CHAINS), ms, bnd),
+            ("segmented rows pass 8192 x 131072, 2 chains", "rows_seg", b_ms,
+             b_bnd),
+            ("windowed columns pass 8192 x 131072, 2 chains", "cols_window",
+             b_ms, b_bnd)):
+        print(f"share of bound, {label}: {t[key][0]:.3f} ms "
+              f"against {b[key][0]:.3f} ms ({b[key][1]}): "
+              f"{100 * b[key][0] / t[key][0]:.1f} % on {where}", flush=True)
     bio_launches = phase_biobank_fits(build, dev, where)
     phase_biobank_reference(build, dev)
     phase_biobank_mixture(build, dev, where)
     phase_cli_biobank(build, where)
 
+    # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
         kernel_record(f"fullstep_bi_{name}", SOURCE, TPU_KERNEL,
                       launches[f"mc_fullstep_bi_{name}"], errs[name],
-                      ms[name], bnd[name]) for name in ("rows", "cols")]
+                      ms[name, PAIR_CHAINS], bnd[name, PAIR_CHAINS])
+        for name in ("rows", "cols")]
     kernels += [
         kernel_record(f"fullstep_{name}", GENERIC_SOURCE, GENERIC_TPU,
                       launches[f"mc_fullstep_{name}"], g_errs[name],

@@ -16,254 +16,512 @@
 // The TPU runs its grid in order and keeps B0/B1 resident in VMEM across
 // all row blocks.  Hopper blocks run concurrently, so the step is split
 // into two passes that each read x once, with no atomics (deterministic):
+// a rows pass (d, w, t, A, eta') and a columns pass (d, w again, B0/B1 as
+// per-row-segment partials, then an epilogue that adds the partials in
+// segment order and applies the p0' update).  The streamed and chunked
+// steps (the TPU's `admixture_fullstep_biallelic_streamed`, kernels.py:1007
+// with bodies `_bi_istats_kernel` :887 and `_bi_lstats_kernel` :944, and
+// `admixture_fullstep_biallelic_chunked`, :829) are the same passes with
+// the rows pass also split into column segments (a finish kernel sums the
+// segments' partials in order, t in float64) and both passes taking a
+// column window [l_lo, l_hi) on arrays that keep their full-L strides.
 //
-// * rows pass: one block per (chain, 32 rows); loops over all L in
-//   32-column tiles with the p0 tile in shared memory, keeps A, sum w1 and
-//   t in registers, and finishes eta' with one warp per row (normalize,
-//   then Michelot with warp shuffles).  eta' goes to a new buffer because
-//   the columns pass reads the old eta.
-// * columns pass: one block per (chain, row segment, 16 columns); loops
-//   over its segment of I in 32-row tiles, recomputes d and w (+ miss),
-//   keeps B0/B1 [Kp, 16] in registers and writes them as the segment's
-//   partial sums; a small epilogue kernel adds the partials in segment
-//   order and applies the p0' update.  The caller picks the segment count
-//   so that the grid fills the card even for one chain.
+// What bounds the two passes, and what the design does about it.  All four
+// products (d0 twice, A, B0/B1) are IEEE f32 FMA on the CUDA cores (no
+// TF32), 2-3 bytes of x a cell against 40-60 FMA and two reciprocals (the
+// rows pass: two logf as well): the limit is instruction issue, and
+// before it the SM's shared-memory path (32 lanes of load a clock against
+// 128 FMA).  So:
 //
-// Streamed and chunked steps (the TPU's
-// `admixture_fullstep_biallelic_streamed`, kernels.py:1007 with bodies
-// `_bi_istats_kernel` :887 and `_bi_lstats_kernel` :944, and
-// `admixture_fullstep_biallelic_chunked`, :829).  On the TPU "unbounded L"
-// means p0 streams through VMEM; both passes here already stream p0
-// through shared memory.  What a wide and short panel lacks on this card
-// is blocks: one rows-pass block per (chain, 32 rows) leaves SMs idle when
-// I / 32 is small however large L is.  So:
+// * Register tiles.  Every product is done on small per-thread output
+//   tiles whose operands are read from shared memory as float4, with the
+//   contracted index in the vector where that saves a transposed copy:
+//   one layout of each tile serves both products of a pass (eta as (row,
+//   clusters), p0 as (cluster, columns), w as (row, columns)).  The lanes
+//   of a warp split as GL cluster lanes x CW lanes of the other index, so
+//   that a warp's loads are GL + CW distinct float4 and not 32: 0.09-0.13
+//   loads a FMA, 0.4-0.5 shared-memory wavefronts per clock of FMA.
+// * Stop at K.  The host picks the lane tile from k_true (`lane_tile`):
+//   G = ceil(k_true / 4) cluster groups of four, JT = ceil(G / 8) groups a
+//   thread, GL = ceil(G / JT) cluster lanes, CW = 32 / GL; the k loops run
+//   over KC = 4 GL JT lanes (K = 20: 20), lanes beyond KC are neither
+//   loaded nor computed, and what is written there is exact (zeros, or
+//   the row's sum of w1 in the raw A + r, as the plain version has it).
+//   With a runtime kmask the caller states the largest K; the mask is not
+//   read in these loops.
+// * Columns pass: a warp owns 4 CW columns for a whole row segment, its
+//   p0 tile resident in shared memory and its B0/B1 tile (4 JT clusters x
+//   4 columns x 2 alleles a thread) in registers; the block's eight warps
+//   share the streamed eta tile of 4 GL rows (K = 20: 192 columns x 20
+//   rows a tile), which arrives by cp.async into a ring of two buffers
+//   while the tile before it is computed: one barrier a tile.  The d
+//   phase computes 4 rows x 4 columns a thread, the rowsum of eta once a
+//   tile a warp.
+// * Rows pass: a warp owns 4 CW rows (at most 32), its eta rows resident
+//   in shared memory and its A tile (4 rows x 4 JT clusters a thread) in
+//   registers; the block shares the streamed p0 tile of 32 columns
+//   (cp.async, ring of two, one barrier a tile).  The d phase computes CW
+//   rows x 4 columns a thread, then the divisions and logs of those cells;
+//   t and sum w1 stay in registers for the whole segment.
+// * The cells' elementwise part is IEEE float32: w = x * __frcp_rn(d)
+//   and logf.  The reciprocal has a numerator of 1 because x / d with x =
+//   0, a third of all cells, leaves the division's fast path (its range
+//   check sends a zero numerator to the slow routine); for counts 0, 1
+//   and 2 the product is bit-equal to the quotient.  With the products
+//   tiled, the two logf (~25 instructions each) and the two reciprocals
+//   (~10 each) are most of what a rows-pass cell costs; the instruction
+//   mix is in PERF.md.
+// * x0, x1 and miss are read four bytes a thread (a warp reads whole
+//   32-byte sectors of a row) straight into registers, one tile ahead of
+//   their use; the vector path needs L % 4 == 0 and a window start that is
+//   a multiple of 4, else the same loads are made byte by byte.  Ragged I
+//   and L edges are masked in the loads (zero x, zero eta or p0), not in
+//   the arithmetic.
 //
-// * segmented rows pass: one block per (chain, 32 rows, column segment)
-//   writes its raw A + r [Kp] and t per row as that segment's partials;
-// * finish kernel: one warp per row sums the partials in segment order
-//   (no atomics; t in float64, since a row's float32 sum over 10^5 loci
-//   loses digits that the convergence test reads), adds the a0 seed and
-//   either writes the raw A + r (emit_a) or adds c, normalizes and runs
-//   the Michelot projection with the static k_true or a runtime kmask;
-// * both passes take a column window [l_lo, l_hi) on arrays that keep
-//   their full-L strides, so the chunked loop slices nothing; the
-//   columns pass's partials cover only the window, which is what bounds
-//   its scratch; its epilogue writes the p0 update or, under emit_b, the
-//   raw B0/B1 (miss fold included) into full-width outputs.
-//
-// Bound: three contractions of I x L x Kp per pass pair (d0 twice, A, and
-// B0/B1 as two), all in IEEE f32 FMA on the CUDA cores (no TF32), so the
-// step is bound by f32 FMA and shared-memory issue rate, not by device
-// memory: x is 2-3 bytes per cell and is read twice (once per pass),
-// against once on the TPU.  Ragged I and L edges are masked here; the
-// caller pads only K, to Kp in {32, 64, 96, 128}.
+// The caller pads only K, to Kp in {32, 64, 96, 128}.  Sums are in a
+// fixed order: reruns are bit-equal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "simplex.cuh"
 
+// dynamic shared memory of every kernel here, 16-byte aligned
+extern __shared__ float4 dyn_smem4[];
+
+// 16-byte asynchronous copy to shared memory; the bytes past `src_bytes`
+// are filled with zeros
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 namespace {
 
 constexpr int NT = 256;       // threads per block, both passes
-constexpr int ROW_R = 32;     // rows per rows-pass block
+constexpr int NW = NT / 32;   // warps per block
+constexpr int ROW_AR = 4;     // rows per thread, A phase of the rows pass
 constexpr int ROW_TL = 32;    // columns per rows-pass tile
-constexpr int COL_TC = 16;    // columns per columns-pass block
-constexpr int COL_RI = 32;    // rows per columns-pass tile
+constexpr int ROW_CW_MAX = 8; // at most 4 x 8 rows a warp
+constexpr int COL_CT = 4;     // columns per thread, columns pass
+constexpr int COL_DR = 4;     // rows per thread, d phase of the columns pass
+// rows of w a step of the B-phase loop and 4-column steps of the A-phase
+// loop unrolled together (measured: 4 and 8 beat 2, 1 and 2, 4)
+constexpr int B_UNROLL = 4, A_UNROLL = 8;
 constexpr float DMIN = 1e-30f;
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may ask
 
 using mc::michelot_warp;
 using mc::warp_sum;
 
-constexpr int ROW_RI = ROW_R / (NT / 32);  // rows per warp, rows passes
+// How the lanes of a warp and the registers of a thread split the cluster
+// axis for k_true clusters: kc lanes are computed (a multiple of 4, >=
+// k_true, <= Kp), in jt groups of four a thread on gl cluster lanes; cw
+// lanes are left for the other axis.  ops/fullstep_bi.lane_tile mirrors it.
+struct LaneTile {
+  int kc, jt, gl, cw;
+};
 
-// eta rows of a rows-pass block into shared memory, with their sums
-template <int KP>
-__device__ __forceinline__ void rows_load_eta(
-    float (&eta_s)[ROW_R][KP + 1], float (&s_s)[ROW_R],
-    const float* __restrict__ eta_b, int row0, int I) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < ROW_R * KP; e += NT) {
-    const int r = e / KP, k = e % KP, row = row0 + r;
-    eta_s[r][k] = row < I ? eta_b[(size_t)row * KP + k] : 0.f;
+LaneTile lane_tile(int k_true, int Kp, int cw_max) {
+  const int k = k_true < 1 || k_true > Kp ? Kp : k_true;
+  const int g = (k + 3) / 4;
+  LaneTile t;
+  t.jt = (g + 7) / 8;
+  t.gl = (g + t.jt - 1) / t.jt;
+  t.cw = 32 / t.gl < cw_max ? 32 / t.gl : cw_max;
+  t.kc = 4 * t.gl * t.jt;
+  return t;
+}
+
+// four int8 of a row starting at `off`, of which the first n are wanted
+// (n <= 0: none); one 4-byte load where the address is aligned
+__device__ __forceinline__ uint32_t load_x4(const int8_t* __restrict__ x,
+                                            size_t off, int n, int vec) {
+  if (n <= 0) return 0u;
+  if (vec && n >= 4) return *reinterpret_cast<const uint32_t*>(x + off);
+  uint32_t v = 0u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < n) v |= (uint32_t)(uint8_t)x[off + q] << (8 * q);
+  return v;
+}
+
+__device__ __forceinline__ float x_byte(uint32_t v, int q) {
+  return (float)(int8_t)(v >> (8 * q));
+}
+
+__device__ __forceinline__ float f4_get(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ const float4& ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[q] += sum over the four k of e.k * pv[k].q: one row of a d tile
+__device__ __forceinline__ void d_row(float (&acc)[4], const float4& e,
+                                      const float4 (&pv)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    acc[q] = fmaf(e.x, f4_get(pv[0], q), acc[q]);
+    acc[q] = fmaf(e.y, f4_get(pv[1], q), acc[q]);
+    acc[q] = fmaf(e.z, f4_get(pv[2], q), acc[q]);
+    acc[q] = fmaf(e.w, f4_get(pv[3], q), acc[q]);
   }
-  __syncthreads();
-  for (int r = warp; r < ROW_R; r += NT / 32) {
-    float v = 0.f;
-    for (int k = lane; k < KP; k += 32) v += eta_s[r][k];
-    v = warp_sum(v);
-    if (lane == 0) s_s[r] = v;
+}
+
+// ---------------------------------------------------------------------------
+// rows pass
+
+// Shared memory of a rows-pass block, in floats: eta_s [R][KP + 4], p_s
+// [2][KC][ROW_TL + 4], w_s [NW][RW][ROW_TL + 4], t_s [R], r_s [R], and
+// for the fused kernel a_s [R][KP + 1]; R = NW RW rows, RW = 4 CW.
+constexpr int ROW_PS = ROW_TL + 4;
+
+__host__ __device__ inline int rows_smem_floats(int KP, const LaneTile& lt,
+                                                int fused) {
+  const int R = NW * ROW_AR * lt.cw;
+  return R * (KP + 4) + 2 * lt.kc * ROW_PS + R * ROW_PS + 2 * R +
+         (fused ? R * (KP + 1) : 0);
+}
+
+// the p0 tile of the columns [l0, l0 + ROW_TL) below c_hi into p_s
+// [KC][ROW_PS], zeros past c_hi: 16-byte asynchronous copies where rows
+// are aligned, plain loads otherwise
+__device__ __forceinline__ void rows_issue_p(float* p_s,
+                                             const float* __restrict__ p_b,
+                                             int L, int l0, int c_hi, int KC,
+                                             int vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    for (int e = tid; e < KC * (ROW_TL / 4); e += NT) {
+      const int k = e / (ROW_TL / 4), c4 = 4 * (e % (ROW_TL / 4));
+      const int n = min(4, c_hi - (l0 + c4));
+      const float* src = p_b + (size_t)k * L + (n > 0 ? l0 + c4 : 0);
+      cp_async16(p_s + k * ROW_PS + c4, src, n > 0 ? 4 * n : 0);
+    }
+  } else {
+    for (int e = tid; e < KC * ROW_TL; e += NT) {
+      const int k = e / ROW_TL, cc = e % ROW_TL, col = l0 + cc;
+      p_s[k * ROW_PS + cc] = col < c_hi ? p_b[(size_t)k * L + col] : 0.f;
+    }
   }
+  cp_async_commit();
 }
 
 // The rows passes' loop over the columns [c_lo, c_hi) of arrays with row
-// stride L.  Warp w owns rows w + 8 i: in the d/w phase lane = column, in
-// the A phase lane = cluster (k = lane + 32 j).  Adds into tpart (t, per
-// lane), rpart (sum of w1, per lane) and acc ((w0 - w1) @ p0^T); with
-// compute_a == 0 only t is wanted and the A phase is skipped.
+// stride L, for the block's rows [row0, row0 + R).  Warp w owns the rows
+// rw0 = w RW ...; in the d phase lane = (ar = lane / 8 row lane, cl = lane
+// % 8 column lane) and a thread computes rows ar + 4 i (i < CW) x columns
+// 4 cl .. 4 cl + 3; in the A phase lane = (a cluster lane, c row lane) and
+// a thread owns rows c + CW i (i < 4) x clusters a + GL (4 j + q).  Leaves
+// (w0 - w1) @ p0^T in acc and each row's t and sum of w1 in t_s and r_s;
+// with compute_a == 0 only t is wanted and the A phase is skipped.
 template <int KP>
 __device__ __forceinline__ void rows_accumulate(
-    float (&eta_s)[ROW_R][KP + 1], float (&p_s)[KP][ROW_TL + 1],
-    float (&w_s)[ROW_R][ROW_TL + 1], float (&s_s)[ROW_R],
+    float* smem, const float* __restrict__ eta_b,
     const float* __restrict__ p_b, const int8_t* __restrict__ x0,
     const int8_t* __restrict__ x1, int row0, int I, int L, int c_lo,
-    int c_hi, int compute_t, int compute_a, float (&tpart)[ROW_RI],
-    float (&rpart)[ROW_RI], float (&acc)[ROW_RI][KP / 32]) {
-  constexpr int KJ = KP / 32;
-  constexpr int RI = ROW_RI;
+    int c_hi, int compute_t, int compute_a, const LaneTile& lt, int vec,
+    float (&acc)[KP / 32][4][ROW_AR]) {
+  constexpr int JTM = KP / 32, ES = KP + 4;
+  const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
+  const int RW = ROW_AR * CW, R = NW * RW;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* eta_s = smem;
+  float* p_s = eta_s + R * ES;
+  float* w_w = p_s + 2 * KC * ROW_PS + warp * RW * ROW_PS;
+  float* t_s = p_s + 2 * KC * ROW_PS + R * ROW_PS;
+  float* r_s = t_s + R;
+  const int rw0 = warp * RW;
+  const int ar = lane >> 3, cl = lane & 7;
+  int a = lane / CW, c = lane % CW;
+  if (a >= GL) a = 0, c = 0;   // spare lanes repeat lane 0's work
+
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    tpart[i] = 0.f;
-    rpart[i] = 0.f;
+  for (int j = 0; j < JTM; ++j)
 #pragma unroll
-    for (int j = 0; j < KJ; ++j) acc[i][j] = 0.f;
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < ROW_AR; ++i) acc[j][q][i] = 0.f;
+
+  // the block's eta rows, all Kp lanes (the fused finish reads them)
+  for (int e = tid; e < R * (KP / 4); e += NT) {
+    const int r = e / (KP / 4), k4 = 4 * (e % (KP / 4)), row = row0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < I) v = ld4(eta_b + (size_t)row * KP + k4);
+    *reinterpret_cast<float4*>(eta_s + r * ES + k4) = v;
+  }
+  rows_issue_p(p_s, p_b, L, c_lo, c_hi, KC, vec);
+
+  // x of the thread's cells, one tile ahead
+  uint32_t xa[ROW_CW_MAX], xb[ROW_CW_MAX];
+  auto load_x = [&](int l0) {
+    const int col = l0 + 4 * cl;
+#pragma unroll
+    for (int i = 0; i < ROW_CW_MAX; ++i) {
+      const int row = row0 + rw0 + ar + 4 * i;
+      const int n = (i < CW && row < I) ? c_hi - col : 0;
+      const size_t off = (size_t)row * L + col;
+      xa[i] = load_x4(x0, off, n, vec);
+      xb[i] = load_x4(x1, off, n, vec);
+    }
+  };
+  load_x(c_lo);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // rowsum(eta) of the warp's rows, kept in r_s until the loop is over
+  for (int r = lane; r < RW; r += 32) {
+    float s = 0.f;
+    for (int k4 = 0; k4 < KC; k4 += 4) {
+      const float4 v = ld4(eta_s + (rw0 + r) * ES + k4);
+      s += (v.x + v.y) + (v.z + v.w);
+    }
+    r_s[rw0 + r] = s;
+  }
+  __syncwarp();
+  float tacc[ROW_CW_MAX], racc[ROW_CW_MAX];
+#pragma unroll
+  for (int i = 0; i < ROW_CW_MAX; ++i) {
+    tacc[i] = 0.f;
+    racc[i] = 0.f;
   }
 
-  for (int l0 = c_lo; l0 < c_hi; l0 += ROW_TL) {
-    __syncthreads();
-    for (int e = tid; e < KP * ROW_TL; e += NT) {
-      const int k = e / ROW_TL, cc = e % ROW_TL, col = l0 + cc;
-      p_s[k][cc] = col < c_hi ? p_b[(size_t)k * L + col] : 0.f;
+  int buf = 0;
+  for (int l0 = c_lo; l0 < c_hi; l0 += ROW_TL, buf ^= 1) {
+    const float* pt = p_s + buf * KC * ROW_PS;
+    if (l0 + ROW_TL < c_hi)
+      rows_issue_p(p_s + (buf ^ 1) * KC * ROW_PS, p_b, L, l0 + ROW_TL, c_hi,
+                   KC, vec);
+    // d phase
+    float d0[ROW_CW_MAX][4];
+#pragma unroll
+    for (int i = 0; i < ROW_CW_MAX; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d0[i][q] = 0.f;
+    for (int k4 = 0; k4 < KC; k4 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pv[q] = ld4(pt + (k4 + q) * ROW_PS + 4 * cl);
+#pragma unroll
+      for (int i = 0; i < ROW_CW_MAX; ++i)
+        if (i < CW)
+          d_row(d0[i], ld4(eta_s + (rw0 + ar + 4 * i) * ES + k4), pv);
     }
-    __syncthreads();
-    float d0[RI];
+    // the cells' divisions and logs
 #pragma unroll
-    for (int i = 0; i < RI; ++i) d0[i] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < KP; ++k) {
-      const float pv = p_s[k][lane];
+    for (int i = 0; i < ROW_CW_MAX; ++i) {
+      if (i < CW) {
+        const float srow = r_s[rw0 + ar + 4 * i];
+        float wv[4], tt = 0.f, rr = 0.f;
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
-        d0[i] = fmaf(eta_s[warp + 8 * i][k], pv, d0[i]);
-    }
-    const int col = l0 + lane;
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = warp + 8 * i, row = row0 + r;
-      float w = 0.f;
-      if (row < I && col < c_hi) {
-        const size_t off = (size_t)row * L + col;
-        const float a0 = (float)x0[off], a1 = (float)x1[off];
-        const float dd0 = fmaxf(d0[i], DMIN);
-        const float dd1 = fmaxf(s_s[r] - d0[i], DMIN);
-        const float w0 = a0 / dd0, w1 = a1 / dd1;
-        if (compute_t) tpart[i] += a0 * logf(dd0) + a1 * logf(dd1);
-        rpart[i] += w1;
-        w = w0 - w1;
+        for (int q = 0; q < 4; ++q) {
+          const float a0 = x_byte(xa[i], q), a1 = x_byte(xb[i], q);
+          const float dd0 = fmaxf(d0[i][q], DMIN);
+          const float dd1 = fmaxf(srow - d0[i][q], DMIN);
+          const float w0 = a0 * __frcp_rn(dd0), w1 = a1 * __frcp_rn(dd1);
+          if (compute_t) tt += a0 * logf(dd0) + a1 * logf(dd1);
+          rr += w1;
+          wv[q] = w0 - w1;
+        }
+        tacc[i] += tt;
+        racc[i] += rr;
+        if (compute_a)
+          *reinterpret_cast<float4*>(w_w + (ar + 4 * i) * ROW_PS + 4 * cl) =
+              make_float4(wv[0], wv[1], wv[2], wv[3]);
       }
-      w_s[r][lane] = w;
     }
-    if (!compute_a) continue;  // uniform across the block
-    __syncthreads();
-#pragma unroll 8
-    for (int cc = 0; cc < ROW_TL; ++cc) {
-      float wv[RI];
+    if (l0 + ROW_TL < c_hi) load_x(l0 + ROW_TL);
+    if (compute_a) {  // uniform across the block
+      __syncwarp();
+      // A phase: the contracted column index in the vector
+#pragma unroll A_UNROLL
+      for (int l4 = 0; l4 < ROW_TL; l4 += 4) {
+        float4 wr[ROW_AR];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) wv[i] = w_s[warp + 8 * i][cc];
+        for (int i = 0; i < ROW_AR; ++i)
+          wr[i] = ld4(w_w + (c + CW * i) * ROW_PS + l4);
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float pv = p_s[lane + 32 * j][cc];
+        for (int j = 0; j < JTM; ++j) {
+          if (j == 0 || j < JT) {
 #pragma unroll
-        for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(wv[i], pv, acc[i][j]);
+            for (int q = 0; q < 4; ++q) {
+              const float4 pk = ld4(pt + (a + GL * (4 * j + q)) * ROW_PS + l4);
+#pragma unroll
+              for (int i = 0; i < ROW_AR; ++i) {
+                float v = acc[j][q][i];
+                v = fmaf(wr[i].x, pk.x, v);
+                v = fmaf(wr[i].y, pk.y, v);
+                v = fmaf(wr[i].z, pk.z, v);
+                v = fmaf(wr[i].w, pk.w, v);
+                acc[j][q][i] = v;
+              }
+            }
+          }
+        }
       }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // each row's t and sum of w1: over the 8 column lanes, in a fixed order
+  __syncwarp();   // the row sums in r_s have been read
+#pragma unroll
+  for (int i = 0; i < ROW_CW_MAX; ++i) {
+    float tt = tacc[i], rr = racc[i];
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) {
+      tt += __shfl_xor_sync(mc::FULL, tt, o);
+      rr += __shfl_xor_sync(mc::FULL, rr, o);
+    }
+    if (i < CW && cl == 0) {
+      t_s[rw0 + ar + 4 * i] = tt;
+      r_s[rw0 + ar + 4 * i] = rr;
     }
   }
+  __syncwarp();
 }
 
 template <int KP>
-__global__ void __launch_bounds__(NT) fullstep_bi_rows_kernel(
-    const float* __restrict__ eta, const float* __restrict__ p0,
-    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    const float* __restrict__ c, float* __restrict__ eta_new,
-    float* __restrict__ t_out, int I, int L, int k_true, float lb,
-    int project, int compute_t) {
-  constexpr int KJ = KP / 32;
-  constexpr int RI = ROW_RI;
-  __shared__ float eta_s[ROW_R][KP + 1];
-  __shared__ float p_s[KP][ROW_TL + 1];
-  __shared__ float w_s[ROW_R][ROW_TL + 1];
-  __shared__ float s_s[ROW_R];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+__global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
+    fullstep_bi_rows_kernel(const float* __restrict__ eta,
+                            const float* __restrict__ p0,
+                            const int8_t* __restrict__ x0,
+                            const int8_t* __restrict__ x1,
+                            const float* __restrict__ c,
+                            float* __restrict__ eta_new,
+                            float* __restrict__ t_out, int I, int L,
+                            int k_true, float lb, int project, int compute_t,
+                            LaneTile lt, int vec) {
+  constexpr int KJ = KP / 32, JTM = KP / 32, ES = KP + 4, AS = KP + 1;
+  const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
+  const int RW = ROW_AR * CW, R = NW * RW;
+  float* smem = reinterpret_cast<float*>(dyn_smem4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.z;
-  const int row0 = blockIdx.x * ROW_R;
+  const int row0 = blockIdx.x * R, rw0 = warp * RW;
   const float* eta_b = eta + (size_t)b * I * KP;
   const float* p_b = p0 + (size_t)b * KP * L;
 
-  rows_load_eta<KP>(eta_s, s_s, eta_b, row0, I);
-  float tpart[RI], rpart[RI], acc[RI][KJ];
-  rows_accumulate<KP>(eta_s, p_s, w_s, s_s, p_b, x0, x1, row0, I, L, 0, L,
-                      compute_t, 1, tpart, rpart, acc);
+  float acc[JTM][4][ROW_AR];
+  rows_accumulate<KP>(smem, eta_b, p_b, x0, x1, row0, I, L, 0, L, compute_t,
+                      1, lt, vec, acc);
+  const float* eta_s = smem;
+  const float* t_s = smem + R * ES + 2 * KC * ROW_PS + R * ROW_PS;
+  const float* r_s = t_s + R;
+  float* a_s = smem + R * ES + 2 * KC * ROW_PS + R * ROW_PS + 2 * R;
 
+  // raw A + r of the warp's rows through shared memory, so that the finish
+  // has lane = cluster; lanes past KC hold 0 (their eta is 0)
+  int a = lane / CW, cr = lane % CW;
+  if (a >= GL) a = 0, cr = 0;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const float tt = warp_sum(tpart[i]);
-    const float rr = warp_sum(rpart[i]);
-    const int r = warp + 8 * i, row = row0 + r;
-    if (row >= I) continue;  // uniform across the warp
+  for (int i = 0; i < ROW_AR; ++i) {
+    const int r = rw0 + cr + CW * i;
+    const float rr = r_s[r];
+#pragma unroll
+    for (int j = 0; j < JTM; ++j)
+      if (j == 0 || j < JT)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          a_s[r * AS + a + GL * (4 * j + q)] = acc[j][q][i] + rr;
+  }
+  for (int r = 0; r < RW; ++r)
+    for (int k = KC + lane; k < KP; k += 32) a_s[(rw0 + r) * AS + k] = 0.f;
+  __syncwarp();
+
+  for (int rl = 0; rl < RW; ++rl) {
+    const int r = rw0 + rl, row = row0 + r;
+    if (row >= I) break;  // uniform across the warp
     const float ci = c[row];
     float num[KJ], part = 0.f;
 #pragma unroll
     for (int j = 0; j < KJ; ++j) {
-      num[j] = eta_s[r][lane + 32 * j] * (acc[i][j] + rr + ci);
+      num[j] = eta_s[r * ES + lane + 32 * j] * (a_s[r * AS + lane + 32 * j] + ci);
       part += num[j];
     }
     const float tot = warp_sum(part);
 #pragma unroll
     for (int j = 0; j < KJ; ++j)
-      num[j] = tot > 0.f ? num[j] / tot : eta_s[r][lane + 32 * j];
+      num[j] = tot > 0.f ? num[j] / tot : eta_s[r * ES + lane + 32 * j];
     if (project) michelot_warp<KJ>(num, lane, k_true, lb);
     float* out = eta_new + ((size_t)b * I + row) * KP;
 #pragma unroll
     for (int j = 0; j < KJ; ++j) out[lane + 32 * j] = num[j];
-    if (lane == 0) t_out[(size_t)b * I + row] = compute_t ? tt : 0.f;
+    if (lane == 0) t_out[(size_t)b * I + row] = compute_t ? t_s[r] : 0.f;
   }
 }
 
-// Segmented rows pass: block (x = 32 rows, y = column segment, z = chain)
+// Segmented rows pass: block (x = R rows, y = column segment, z = chain)
 // covers the columns [l_lo + y seg_cols, + seg_cols) of the window
 // [l_lo, l_hi) and writes its raw A + r and t as that segment's partials,
 // apart [B, n_seg, I, KP] and tpart [B, n_seg, I].
 template <int KP>
-__global__ void __launch_bounds__(NT) fullstep_bi_rows_seg_kernel(
-    const float* __restrict__ eta, const float* __restrict__ p0,
-    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    float* __restrict__ apart, float* __restrict__ tpart_out, int I, int L,
-    int l_lo, int l_hi, int seg_cols, int compute_t, int compute_a) {
-  constexpr int KJ = KP / 32;
-  constexpr int RI = ROW_RI;
-  __shared__ float eta_s[ROW_R][KP + 1];
-  __shared__ float p_s[KP][ROW_TL + 1];
-  __shared__ float w_s[ROW_R][ROW_TL + 1];
-  __shared__ float s_s[ROW_R];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+__global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
+    fullstep_bi_rows_seg_kernel(const float* __restrict__ eta,
+                                const float* __restrict__ p0,
+                                const int8_t* __restrict__ x0,
+                                const int8_t* __restrict__ x1,
+                                float* __restrict__ apart,
+                                float* __restrict__ tpart_out, int I, int L,
+                                int l_lo, int l_hi, int seg_cols,
+                                int compute_t, int compute_a, LaneTile lt,
+                                int vec) {
+  constexpr int JTM = KP / 32, ES = KP + 4;
+  const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
+  const int RW = ROW_AR * CW, R = NW * RW;
+  float* smem = reinterpret_cast<float*>(dyn_smem4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
-  const int row0 = blockIdx.x * ROW_R;
+  const int row0 = blockIdx.x * R, rw0 = warp * RW;
   const int c_lo = l_lo + seg * seg_cols;
   const int c_hi = min(l_hi, c_lo + seg_cols);
   const float* eta_b = eta + (size_t)b * I * KP;
   const float* p_b = p0 + (size_t)b * KP * L;
 
-  rows_load_eta<KP>(eta_s, s_s, eta_b, row0, I);
-  float tpart[RI], rpart[RI], acc[RI][KJ];
-  rows_accumulate<KP>(eta_s, p_s, w_s, s_s, p_b, x0, x1, row0, I, L, c_lo,
-                      c_hi, compute_t, compute_a, tpart, rpart, acc);
+  float acc[JTM][4][ROW_AR];
+  rows_accumulate<KP>(smem, eta_b, p_b, x0, x1, row0, I, L, c_lo, c_hi,
+                      compute_t, compute_a, lt, vec, acc);
+  const float* t_s = smem + R * ES + 2 * KC * ROW_PS + R * ROW_PS;
+  const float* r_s = t_s + R;
+  const size_t o0 = ((size_t)b * n_seg + seg) * I;
 
+  for (int rl = lane; rl < RW; rl += 32) {
+    const int row = row0 + rw0 + rl;
+    if (row < I) tpart_out[o0 + row] = t_s[rw0 + rl];
+  }
+  if (!compute_a) return;
+  int a = lane / CW, cr = lane % CW;
+  if (a >= GL) a = 0, cr = 0;
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const float tt = warp_sum(tpart[i]);
-    const float rr = warp_sum(rpart[i]);
-    const int row = row0 + warp + 8 * i;
-    if (row >= I) continue;  // uniform across the warp
-    const size_t o = ((size_t)b * n_seg + seg) * I + row;
-    if (compute_a) {
+  for (int i = 0; i < ROW_AR; ++i) {
+    const int r = rw0 + cr + CW * i, row = row0 + r;
+    if (row >= I) continue;
+    const float rr = r_s[r];
+    float* out = apart + (o0 + row) * KP;
 #pragma unroll
-      for (int j = 0; j < KJ; ++j)
-        apart[o * KP + lane + 32 * j] = acc[i][j] + rr;
-    }
-    if (lane == 0) tpart_out[o] = tt;
+    for (int j = 0; j < JTM; ++j)
+      if (j == 0 || j < JT)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          out[a + GL * (4 * j + q)] = acc[j][q][i] + rr;
+  }
+  // lanes past KC: p0 is zero there, so A + r is the row's sum of w1
+  for (int rl = 0; rl < RW; ++rl) {
+    const int row = row0 + rw0 + rl;
+    if (row >= I) break;
+    const float rr = r_s[rw0 + rl];
+    for (int k = KC + lane; k < KP; k += 32) apart[(o0 + row) * KP + k] = rr;
   }
 }
 
@@ -332,114 +590,223 @@ __global__ void __launch_bounds__(NT) fullstep_bi_finish_kernel(
   for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = num[j];
 }
 
-template <int KP>
-__global__ void __launch_bounds__(NT) fullstep_bi_cols_kernel(
-    const float* __restrict__ eta, const float* __restrict__ p0,
-    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    const int8_t* __restrict__ miss, float* __restrict__ part, int I,
-    int L, int l_lo, int l_hi, int seg_rows) {
-  constexpr int KJ = KP / 16;
-  constexpr int RG = COL_RI / (NT / COL_TC);  // rows per thread, d/w phase
-  __shared__ float p_s[KP][COL_TC + 1];
-  __shared__ float eta_s[COL_RI][KP + 1];
-  __shared__ float w0_s[COL_RI][COL_TC + 1];
-  __shared__ float w1_s[COL_RI][COL_TC + 1];
-  __shared__ float s_s[COL_RI];
+// ---------------------------------------------------------------------------
+// columns pass
 
+// Shared memory of a columns-pass block, in floats: eta_s [2][RI][KP + 4],
+// p_s [KC][TC], w_s [NW][2][RI][TCW], s_s [NW][RI]; RI = 4 GL rows a tile,
+// TCW = 4 CW columns a warp, TC = NW TCW columns a block.
+__host__ __device__ inline int cols_smem_floats(int KP, const LaneTile& lt) {
+  const int RI = COL_DR * lt.gl, TCW = COL_CT * lt.cw, TC = NW * TCW;
+  return 2 * RI * (KP + 4) + lt.kc * TC + NW * 2 * RI * TCW + NW * RI;
+}
+
+// the KC lanes of the eta rows [r0, r0 + RI) below r_hi into eta_s
+// [RI][KP + 4] by 16-byte asynchronous copies, zeros past r_hi
+template <int KP>
+__device__ __forceinline__ void cols_issue_eta(float* eta_s,
+                                               const float* __restrict__ eta_b,
+                                               int r0, int r_hi, int RI,
+                                               int KC) {
+  const int n4 = KC / 4;
+  for (int e = threadIdx.x; e < RI * n4; e += NT) {
+    const int r = e / n4, k4 = 4 * (e % n4), row = r0 + r;
+    const bool ok = row < r_hi;
+    cp_async16(eta_s + r * (KP + 4) + k4,
+               eta_b + (size_t)(ok ? row : r0) * KP + k4, ok ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// Block (x = TC columns of the window, y = row segment, z = chain).  Warp
+// w owns the columns colw = w TCW ... of the block's tile: lane = (a
+// cluster lane, cg column lane); in the d phase a thread computes rows a +
+// GL i (i < 4) x columns 4 cg .. 4 cg + 3 of the eta tile, in the B phase
+// it owns clusters 4 (a + GL j) .. + 3 (j < JT) x the same four columns x
+// both alleles.  The warp's w0 and w1 go through its own shared memory, so
+// only the shared eta tiles need the block's barrier.
+template <int KP>
+__global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
+    fullstep_bi_cols_kernel(const float* __restrict__ eta,
+                            const float* __restrict__ p0,
+                            const int8_t* __restrict__ x0,
+                            const int8_t* __restrict__ x1,
+                            const int8_t* __restrict__ miss,
+                            float* __restrict__ part, int I, int L, int l_lo,
+                            int l_hi, int seg_rows, LaneTile lt, int vec) {
+  constexpr int JTM = KP / 32, ES = KP + 4;
+  const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
+  const int RI = COL_DR * GL, TCW = COL_CT * CW, TC = NW * TCW;
+  float* smem = reinterpret_cast<float*>(dyn_smem4);
+  float* eta_s = smem;
+  float* p_s = eta_s + 2 * RI * ES;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* w0_w = p_s + KC * TC + warp * 2 * RI * TCW;
+  float* w1_w = w0_w + RI * TCW;
+  float* s_w = p_s + KC * TC + NW * 2 * RI * TCW + warp * RI;
+
   const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
-  const int col0 = l_lo + blockIdx.x * COL_TC;
+  const int col0 = l_lo + blockIdx.x * TC;
   const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
-  // thread owns column cl; in the d/w phase rows g + 16 i, in the B phase
-  // clusters k = g + 16 j
-  const int cl = tid % COL_TC, g = tid / COL_TC, col = col0 + cl;
+  int a = lane / CW, cg = lane % CW;
+  if (a >= GL) a = 0, cg = 0;   // spare lanes repeat lane 0's work
+  const int colw = warp * TCW + COL_CT * cg;  // within the block's tile
+  const int col = col0 + colw;
   const float* eta_b = eta + (size_t)b * I * KP;
   const float* p_b = p0 + (size_t)b * KP * L;
 
-  for (int e = tid; e < KP * COL_TC; e += NT) {
-    const int k = e / COL_TC, cc = e % COL_TC, cg = col0 + cc;
-    p_s[k][cc] = cg < l_hi ? p_b[(size_t)k * L + cg] : 0.f;
-  }
-  float acc0[KJ], acc1[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    acc0[j] = 0.f;
-    acc1[j] = 0.f;
+  cols_issue_eta<KP>(eta_s, eta_b, r_lo, r_hi, RI, KC);
+  for (int e = tid; e < KC * TC; e += NT) {
+    const int k = e / TC, cc = e % TC, cgl = col0 + cc;
+    p_s[e] = cgl < l_hi ? p_b[(size_t)k * L + cgl] : 0.f;
   }
 
-  for (int r0 = r_lo; r0 < r_hi; r0 += COL_RI) {
-    __syncthreads();
-    for (int e = tid; e < COL_RI * KP; e += NT) {
-      const int r = e / KP, k = e % KP, row = r0 + r;
-      eta_s[r][k] = row < r_hi ? eta_b[(size_t)row * KP + k] : 0.f;
-    }
-    __syncthreads();
-    for (int r = warp; r < COL_RI; r += NT / 32) {
-      float v = 0.f;
-      for (int k = lane; k < KP; k += 32) v += eta_s[r][k];
-      v = warp_sum(v);
-      if (lane == 0) s_s[r] = v;
-    }
-    __syncthreads();
+  uint32_t xa[COL_DR], xb[COL_DR], xm[COL_DR];
+  auto load_x = [&](int r0) {
 #pragma unroll
-    for (int i = 0; i < RG; ++i) {
-      const int r = g + (NT / COL_TC) * i, row = r0 + r;
-      float d0 = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < KP; ++k) d0 = fmaf(eta_s[r][k], p_s[k][cl], d0);
-      float w0 = 0.f, w1 = 0.f;
-      if (row < r_hi && col < l_hi) {
-        const size_t off = (size_t)row * L + col;
-        const float m = miss != nullptr ? (float)miss[off] : 0.f;
-        w0 = (float)x0[off] / fmaxf(d0, DMIN) + m;
-        w1 = (float)x1[off] / fmaxf(s_s[r] - d0, DMIN) + m;
-      }
-      w0_s[r][cl] = w0;
-      w1_s[r][cl] = w1;
+    for (int i = 0; i < COL_DR; ++i) {
+      const int row = r0 + a + GL * i;
+      const int n = row < r_hi ? l_hi - col : 0;
+      const size_t off = (size_t)row * L + col;
+      xa[i] = load_x4(x0, off, n, vec);
+      xb[i] = load_x4(x1, off, n, vec);
+      xm[i] = miss != nullptr ? load_x4(miss, off, n, vec) : 0u;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < COL_RI; ++r) {
-      const float wa = w0_s[r][cl], wb = w1_s[r][cl];
+  };
+  load_x(r_lo);
+
+  float acc0[JTM][4][COL_CT], acc1[JTM][4][COL_CT];
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float e = eta_s[r][g + 16 * j];
-        acc0[j] = fmaf(e, wa, acc0[j]);
-        acc1[j] = fmaf(e, wb, acc1[j]);
+  for (int j = 0; j < JTM; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int cc = 0; cc < COL_CT; ++cc) {
+        acc0[j][q][cc] = 0.f;
+        acc1[j][q][cc] = 0.f;
+      }
+  cp_async_wait_all();
+  __syncthreads();
+
+  int buf = 0;
+  for (int r0 = r_lo; r0 < r_hi; r0 += RI, buf ^= 1) {
+    const float* es = eta_s + buf * RI * ES;
+    if (r0 + RI < r_hi)
+      cols_issue_eta<KP>(eta_s + (buf ^ 1) * RI * ES, eta_b, r0 + RI, r_hi,
+                         RI, KC);
+    // rowsum(eta) of the tile's rows, once a warp
+    for (int r = lane; r < RI; r += 32) {
+      float s = 0.f;
+      for (int k4 = 0; k4 < KC; k4 += 4) {
+        const float4 v = ld4(es + r * ES + k4);
+        s += (v.x + v.y) + (v.z + v.w);
+      }
+      s_w[r] = s;
+    }
+    __syncwarp();
+    // d phase: the contracted cluster index in eta's vector
+    float d0[COL_DR][4];
+#pragma unroll
+    for (int i = 0; i < COL_DR; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d0[i][q] = 0.f;
+    for (int k4 = 0; k4 < KC; k4 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pv[q] = ld4(p_s + (k4 + q) * TC + colw);
+#pragma unroll
+      for (int i = 0; i < COL_DR; ++i)
+        d_row(d0[i], ld4(es + (a + GL * i) * ES + k4), pv);
+    }
+#pragma unroll
+    for (int i = 0; i < COL_DR; ++i) {
+      const int r = a + GL * i;
+      const float s = s_w[r];
+      float u0[4], u1[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float m = x_byte(xm[i], q);
+        u0[q] = fmaf(x_byte(xa[i], q), __frcp_rn(fmaxf(d0[i][q], DMIN)), m);
+        u1[q] = fmaf(x_byte(xb[i], q), __frcp_rn(fmaxf(s - d0[i][q], DMIN)),
+                     m);
+      }
+      *reinterpret_cast<float4*>(w0_w + r * TCW + COL_CT * cg) =
+          make_float4(u0[0], u0[1], u0[2], u0[3]);
+      *reinterpret_cast<float4*>(w1_w + r * TCW + COL_CT * cg) =
+          make_float4(u1[0], u1[1], u1[2], u1[3]);
+    }
+    if (r0 + RI < r_hi) load_x(r0 + RI);
+    __syncwarp();
+    // B phase
+#pragma unroll B_UNROLL
+    for (int r = 0; r < RI; ++r) {
+      const float4 u0 = ld4(w0_w + r * TCW + COL_CT * cg);
+      const float4 u1 = ld4(w1_w + r * TCW + COL_CT * cg);
+#pragma unroll
+      for (int j = 0; j < JTM; ++j) {
+        if (j == 0 || j < JT) {
+          const float4 e = ld4(es + r * ES + 4 * (a + GL * j));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float ev = f4_get(e, q);
+            acc0[j][q][0] = fmaf(ev, u0.x, acc0[j][q][0]);
+            acc0[j][q][1] = fmaf(ev, u0.y, acc0[j][q][1]);
+            acc0[j][q][2] = fmaf(ev, u0.z, acc0[j][q][2]);
+            acc0[j][q][3] = fmaf(ev, u0.w, acc0[j][q][3]);
+            acc1[j][q][0] = fmaf(ev, u1.x, acc1[j][q][0]);
+            acc1[j][q][1] = fmaf(ev, u1.y, acc1[j][q][1]);
+            acc1[j][q][2] = fmaf(ev, u1.z, acc1[j][q][2]);
+            acc1[j][q][3] = fmaf(ev, u1.w, acc1[j][q][3]);
+          }
+        }
       }
     }
+    cp_async_wait_all();
+    __syncthreads();
   }
 
-  if (col >= l_hi) return;
-  // part[b][seg][allele][k][column of the window]
+  // part[b][seg][allele][k][column of the window], lanes k < KC only
   const size_t W = (size_t)(l_hi - l_lo);
   float* out = part + ((size_t)b * n_seg + seg) * 2 * KP * W;
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    const size_t kw = (size_t)(g + 16 * j) * W + (col - l_lo);
-    out[kw] = acc0[j];
-    out[(size_t)KP * W + kw] = acc1[j];
+  for (int j = 0; j < JTM; ++j) {
+    if (j == 0 || j < JT) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const size_t kw = (size_t)(4 * (a + GL * j) + q) * W + (col - l_lo);
+#pragma unroll
+        for (int cc = 0; cc < COL_CT; ++cc) {
+          if (col + cc < l_hi) {
+            out[kw + cc] = acc0[j][q][cc];
+            out[(size_t)KP * W + kw + cc] = acc1[j][q][cc];
+          }
+        }
+      }
+    }
   }
 }
 
 // p0' epilogue over the window [l_lo, l_lo + W): B0/B1 = the segments'
-// partials summed in segment order (deterministic), then p0' = clip(p0 B0
-// / (p0 B0 + (1 - p0) B1)), or under emit_b the raw B0/B1, written at the
+// partials summed in segment order (deterministic; lanes k >= kc were not
+// computed and count as the zeros they are), then p0' = clip(p0 B0 / (p0
+// B0 + (1 - p0) B1)), or under emit_b the raw B0/B1, written at the
 // window's columns of full-width [B, Kp, L] outputs.
 __global__ void __launch_bounds__(NT) fullstep_bi_p0_kernel(
     const float* __restrict__ p0, const float* __restrict__ part,
     float* __restrict__ p0_new, float* __restrict__ b0_out,
-    float* __restrict__ b1_out, int Kp, int L, int l_lo, int W, int n_seg,
-    float plb, float pub, int project) {
+    float* __restrict__ b1_out, int Kp, int kc, int L, int l_lo, int W,
+    int n_seg, float plb, float pub, int project) {
   const int b = blockIdx.y;
   const size_t KW = (size_t)Kp * W;
   const size_t kw = (size_t)blockIdx.x * NT + threadIdx.x;
   if (kw >= KW) return;
   const float* pb = part + (size_t)b * n_seg * 2 * KW + kw;
   float b0 = 0.f, b1 = 0.f;
-  for (int s = 0; s < n_seg; ++s) {
-    b0 += pb[(size_t)(2 * s) * KW];
-    b1 += pb[(size_t)(2 * s + 1) * KW];
+  if (kw < (size_t)kc * W) {
+    for (int s = 0; s < n_seg; ++s) {
+      b0 += pb[(size_t)(2 * s) * KW];
+      b1 += pb[(size_t)(2 * s + 1) * KW];
+    }
   }
   const size_t o =
       ((size_t)b * Kp + kw / W) * L + l_lo + kw % W;
@@ -456,11 +823,35 @@ __global__ void __launch_bounds__(NT) fullstep_bi_p0_kernel(
   p0_new[o] = q;
 }
 
+// lets a block of `kernel` ask for more than 48 KB of dynamic shared
+// memory (per device, so it is set before every launch)
+template <typename Kernel>
+int allow_smem(Kernel kernel) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+}
+
+bool kp_ok(int Kp) { return Kp == 32 || Kp == 64 || Kp == 96 || Kp == 128; }
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/build.py).  Pointers are
 // device pointers; `stream` is a cudaStream_t.  Each returns the
-// cudaGetLastError() of its launch.
+// cudaGetLastError() of its launch.  k_true outside [1, Kp] means Kp.
+
+// the lane tile the kernels take for k_true clusters: kc computed lanes,
+// rows a rows-pass block, columns a columns-pass block, rows a columns-
+// pass tile (ops/fullstep_bi.lane_tile is held to this by the card's tests)
+extern "C" void mc_fullstep_bi_tiles(int k_true, int Kp, int* kc,
+                                     int* row_block, int* col_block,
+                                     int* col_tile_rows) {
+  const LaneTile r = lane_tile(k_true, Kp, ROW_CW_MAX);
+  const LaneTile c = lane_tile(k_true, Kp, 32);
+  *kc = c.kc;
+  *row_block = NW * ROW_AR * r.cw;
+  *col_block = NW * COL_CT * c.cw;
+  *col_tile_rows = COL_DR * c.gl;
+}
 
 extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
                                    const void* x0, const void* x1,
@@ -468,7 +859,12 @@ extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
                                    int B, int I, int L, int Kp, int k_true,
                                    float lb, int project, int compute_t,
                                    void* stream) {
-  const dim3 grid((I + ROW_R - 1) / ROW_R, 1, B);
+  if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
+  const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
+  const int R = NW * ROW_AR * lt.cw;
+  const size_t smem = sizeof(float) * (size_t)rows_smem_floats(Kp, lt, 1);
+  const int vec = L % 4 == 0;
+  const dim3 grid((I + R - 1) / R, 1, B);
   cudaStream_t s = (cudaStream_t)stream;
   const float* e = (const float*)eta;
   const float* p = (const float*)p0;
@@ -477,19 +873,20 @@ extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
   const float* cc = (const float*)c;
   float* en = (float*)eta_new;
   float* t = (float*)t_out;
-#define MC_ROWS(KP)                                                       \
-  fullstep_bi_rows_kernel<KP><<<grid, NT, 0, s>>>(e, p, a, z, cc, en, t, \
-                                                  I, L, k_true, lb,      \
-                                                  project, compute_t)
+  int err = 0;
+#define MC_ROWS(KP)                                         \
+  err = allow_smem(fullstep_bi_rows_kernel<KP>);            \
+  if (err == 0)                                             \
+  fullstep_bi_rows_kernel<KP><<<grid, NT, smem, s>>>        \
+  (e, p, a, z, cc, en, t, I, L, k_true, lb, project, compute_t, lt, vec)
   switch (Kp) {
     case 32: MC_ROWS(32); break;
     case 64: MC_ROWS(64); break;
     case 96: MC_ROWS(96); break;
-    case 128: MC_ROWS(128); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: MC_ROWS(128); break;
   }
 #undef MC_ROWS
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // Segmented rows pass over the window [l_lo, l_hi) in n_seg segments of
@@ -497,11 +894,18 @@ extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
 extern "C" int mc_fullstep_bi_rows_seg(const void* eta, const void* p0,
                                        const void* x0, const void* x1,
                                        void* apart, void* tpart, int B,
-                                       int I, int L, int Kp, int l_lo,
-                                       int l_hi, int seg_cols, int n_seg,
-                                       int compute_t, int compute_a,
-                                       void* stream) {
-  const dim3 grid((I + ROW_R - 1) / ROW_R, n_seg, B);
+                                       int I, int L, int Kp, int k_true,
+                                       int l_lo, int l_hi, int seg_cols,
+                                       int n_seg, int compute_t,
+                                       int compute_a, void* stream) {
+  if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
+  const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
+  const int R = NW * ROW_AR * lt.cw;
+  const size_t smem = sizeof(float) * (size_t)rows_smem_floats(Kp, lt, 0);
+  // every segment starts at a multiple of 4 when the window and the
+  // segment size do
+  const int vec = L % 4 == 0 && l_lo % 4 == 0 && seg_cols % 4 == 0;
+  const dim3 grid((I + R - 1) / R, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
   const float* e = (const float*)eta;
   const float* p = (const float*)p0;
@@ -509,18 +913,21 @@ extern "C" int mc_fullstep_bi_rows_seg(const void* eta, const void* p0,
   const int8_t* z = (const int8_t*)x1;
   float* ap = (float*)apart;
   float* tp = (float*)tpart;
-#define MC_ROWS_SEG(KP)                                                  \
-  fullstep_bi_rows_seg_kernel<KP><<<grid, NT, 0, s>>>(                   \
-      e, p, a, z, ap, tp, I, L, l_lo, l_hi, seg_cols, compute_t, compute_a)
+  int err = 0;
+#define MC_ROWS_SEG(KP)                                                      \
+  err = allow_smem(fullstep_bi_rows_seg_kernel<KP>);                         \
+  if (err == 0)                                                              \
+  fullstep_bi_rows_seg_kernel<KP><<<grid, NT, smem, s>>>                     \
+  (e, p, a, z, ap, tp, I, L, l_lo, l_hi, seg_cols, compute_t, compute_a, lt, \
+   vec)
   switch (Kp) {
     case 32: MC_ROWS_SEG(32); break;
     case 64: MC_ROWS_SEG(64); break;
     case 96: MC_ROWS_SEG(96); break;
-    case 128: MC_ROWS_SEG(128); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: MC_ROWS_SEG(128); break;
   }
 #undef MC_ROWS_SEG
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // Finish of the segmented rows pass; a0, kmask and out may be null.
@@ -534,10 +941,10 @@ extern "C" int mc_fullstep_bi_finish(const void* eta, const void* apart,
   const dim3 grid((I + NT / 32 - 1) / (NT / 32), B);
   cudaStream_t s = (cudaStream_t)stream;
 #define MC_FINISH(KP)                                                     \
-  fullstep_bi_finish_kernel<KP><<<grid, NT, 0, s>>>(                      \
-      (const float*)eta, (const float*)apart, (const float*)tpart,        \
-      (const float*)a0, (const float*)c, (const float*)kmask, (float*)out, \
-      (double*)t_out, I, n_seg, k_true, lb, emit_a, project_eta, compute_t)
+  fullstep_bi_finish_kernel<KP><<<grid, NT, 0, s>>>                       \
+  ((const float*)eta, (const float*)apart, (const float*)tpart,           \
+   (const float*)a0, (const float*)c, (const float*)kmask, (float*)out,   \
+   (double*)t_out, I, n_seg, k_true, lb, emit_a, project_eta, compute_t)
   switch (Kp) {
     case 32: MC_FINISH(32); break;
     case 64: MC_FINISH(64); break;
@@ -556,12 +963,17 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
                                    const void* x0, const void* x1,
                                    const void* miss, void* part,
                                    void* p0_new, void* b0_out, void* b1_out,
-                                   int B, int I, int L, int Kp, int l_lo,
-                                   int l_hi, int n_seg, int seg_rows,
-                                   float plb, float pub, int project,
-                                   void* stream) {
+                                   int B, int I, int L, int Kp, int k_true,
+                                   int l_lo, int l_hi, int n_seg,
+                                   int seg_rows, float plb, float pub,
+                                   int project, void* stream) {
+  if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
+  const LaneTile lt = lane_tile(k_true, Kp, 32);
+  const int TC = NW * COL_CT * lt.cw;
+  const size_t smem = sizeof(float) * (size_t)cols_smem_floats(Kp, lt);
+  const int vec = L % 4 == 0 && l_lo % 4 == 0;
   const int W = l_hi - l_lo;
-  const dim3 grid((W + COL_TC - 1) / COL_TC, n_seg, B);
+  const dim3 grid((W + TC - 1) / TC, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
   const float* e = (const float*)eta;
   const float* p = (const float*)p0;
@@ -569,25 +981,26 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
   const int8_t* z = (const int8_t*)x1;
   const int8_t* m = (const int8_t*)miss;
   float* pt = (float*)part;
-#define MC_COLS(KP)                                                  \
-  fullstep_bi_cols_kernel<KP><<<grid, NT, 0, s>>>(e, p, a, z, m, pt, \
-                                                  I, L, l_lo, l_hi,  \
-                                                  seg_rows)
+  int err = 0;
+#define MC_COLS(KP)                                         \
+  err = allow_smem(fullstep_bi_cols_kernel<KP>);            \
+  if (err == 0)                                             \
+  fullstep_bi_cols_kernel<KP><<<grid, NT, smem, s>>>        \
+  (e, p, a, z, m, pt, I, L, l_lo, l_hi, seg_rows, lt, vec)
   switch (Kp) {
     case 32: MC_COLS(32); break;
     case 64: MC_COLS(64); break;
     case 96: MC_COLS(96); break;
-    case 128: MC_COLS(128); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: MC_COLS(128); break;
   }
 #undef MC_COLS
-  int err = (int)cudaGetLastError();
+  if (err == 0) err = (int)cudaGetLastError();
   if (err != 0) return err;
   const size_t KW = (size_t)Kp * W;
   const dim3 grid2((unsigned)((KW + NT - 1) / NT), B);
-  fullstep_bi_p0_kernel<<<grid2, NT, 0, s>>>(
-      p, pt, (float*)p0_new, (float*)b0_out, (float*)b1_out, Kp, L, l_lo, W,
-      n_seg, plb, pub, project);
+  fullstep_bi_p0_kernel<<<grid2, NT, 0, s>>>
+  (p, pt, (float*)p0_new, (float*)b0_out, (float*)b1_out, Kp, lt.kc, L, l_lo,
+   W, n_seg, plb, pub, project);
   return (int)cudaGetLastError();
 }
 

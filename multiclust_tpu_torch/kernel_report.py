@@ -1,0 +1,78 @@
+"""What the compiler made of the biallelic step's kernels: registers,
+shared memory and spills (``nvcc -Xptxas -v``), and the static instruction
+mix of each kernel's machine code (``cuobjdump -sass``).
+
+Run with ``python -m multiclust_tpu_torch.kernel_report [Kp ...]`` where
+nvcc and a CUDA toolkit are installed (default Kp: 32).  The mix counts
+every instruction of a kernel once, the byte-load path and the prologue
+included; the loops over a tile are fully unrolled, so the counts of FFMA,
+MUFU and LDS are those of one tile plus that fringe.
+"""
+
+from __future__ import annotations
+
+import collections
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+from multiclust_tpu_torch.ops import build
+
+KERNELS = ("fullstep_bi_rows_kernel", "fullstep_bi_rows_seg_kernel",
+           "fullstep_bi_cols_kernel")
+
+
+def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
+    """(kernel, 'Used ... registers ...; n bytes spill ...') pairs of the
+    -Xptxas -v report for the kernels whose mangled name has ``pattern``."""
+    lines = report.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for \w*?(" + pattern
+                      + r"\w*?kernel)(?:ILi(\d+)E)?", line)
+        if m and i + 2 < len(lines):
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            used = lines[i + 2].replace("ptxas info    : ", "").strip()
+            spill = lines[i + 1].strip()
+            out.append((name, f"{used}; {spill}"))
+    return out
+
+
+def sass_mix(lib: Path, kernel: str, kp: int):
+    """Opcode counts of one kernel's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = collections.Counter()
+    inside = False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = f"{kernel}ILi{kp}E" in line
+        elif inside:
+            m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)",
+                         line)
+            if m:
+                counts[m.group(1)] += 1
+    return counts
+
+
+def main(argv) -> int:
+    kps = [int(a) for a in argv] or [32]
+    lib = build.build()
+    report = lib.with_suffix(".ptxas.txt").read_text()
+    for name, text in ptxas_lines(report):
+        print(f"ptxas {name}: {text}", flush=True)
+    for kp in kps:
+        for kernel in KERNELS:
+            mix = sass_mix(lib, kernel, kp)
+            total = sum(mix.values())
+            top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))
+            print(f"sass {kernel}<{kp}>: {total} instructions: {top}",
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

@@ -106,7 +106,7 @@ def bi_route(n_chains: int, md: ModelData, cfg: EMConfig, Kp: int) -> Route:
     carries none)."""
     budget = cfg.scratch_budget or scratch_budget(md.device)
     return pick_route(n_chains, md.I, md.L, Kp, device_sm_count(md.device),
-                      budget)
+                      budget, cfg.k_true)
 
 
 def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
@@ -128,15 +128,17 @@ def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
 
 
 def log_likelihood_bi_repr(params: Params, md: ModelData,
-                           budget: int = WINDOW_BYTES):
+                           budget: int = WINDOW_BYTES, k_true: int = 0):
     """logL on the p0 layout (the accelerated accept test).  Float32
     chains on CUDA take the t terms of the segmented rows pass (A phase
     skipped): the same terms as the step's own, and no [B, I, L]
     temporary.  Elsewhere the plain terms are summed one column window of
-    about ``budget`` bytes at a time, each individual's in float64."""
+    about ``budget`` bytes at a time, each individual's in float64.
+    ``k_true`` (0: all padded lanes) is where the kernel's loops stop."""
     eta, p0 = params.eta, params.p
     if eta.is_cuda and eta.dtype == torch.float32:
-        return _ll_terms(rows_log_likelihood_terms(eta, p0, md.x0, md.x1))
+        return _ll_terms(rows_log_likelihood_terms(eta, p0, md.x0, md.x1,
+                                                   k_true=k_true))
     B, I, _ = eta.shape
     itemsize = torch.finfo(eta.dtype).bits // 8
     win = column_window(md.L, 6 * B * I * itemsize, budget)

@@ -35,11 +35,13 @@ _SIGNATURES = {
     "mc_fullstep_bi_rows": [_P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "mc_fullstep_bi_rows_seg": [_P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P],
     "mc_fullstep_bi_finish": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                            _P],
     "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "mc_fullstep_cols": [_P, _P, _P, _P, _P,
@@ -142,10 +144,23 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        # the kernels' own tile arithmetic, for the tests of its mirror
+        lib.mc_fullstep_bi_tiles.argtypes = [_I, _I] + [
+            ctypes.POINTER(ctypes.c_int)] * 4
+        lib.mc_fullstep_bi_tiles.restype = None
         lib.mc_error_string.argtypes = [ctypes.c_int]
         lib.mc_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_tiles(lib: ctypes.CDLL, k_true: int, Kp: int):
+    """(kc, rows of a rows-pass block, columns of a columns-pass block,
+    rows of a columns-pass tile) as ``lib``'s mc_fullstep_bi_tiles has
+    them."""
+    out = [ctypes.c_int() for _ in range(4)]
+    lib.mc_fullstep_bi_tiles(k_true, Kp, *(ctypes.byref(o) for o in out))
+    return tuple(o.value for o in out)
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -38,6 +38,9 @@ Tensor = torch.Tensor
 
 # allele slots per locus the p epilogue takes (csrc/fullstep.cu)
 M_MAX = 1024
+# columns-pass tiling of csrc/fullstep.cu: COL_TC lanes per block, COL_RI
+# rows per tile
+COL_TC, COL_RI = 16, 32
 
 
 def _weights(eta: Tensor, p2: Tensor, x2: Tensor):
@@ -237,7 +240,7 @@ def fullstep_partials(eta, p2, x2, miss=None, *, M: int):
     B, I, LM, Kp = _check_cuda_inputs(eta, p2, x2, *extra)
     n_seg, seg_rows = col_segments(
         I, LM, B, torch.cuda.get_device_properties(
-            eta.device).multi_processor_count)
+            eta.device).multi_processor_count, tc=COL_TC, ri=COL_RI)
     part = torch.empty((B, n_seg, Kp, LM), dtype=torch.float32,
                        device=eta.device)
     build.launch("mc_fullstep_cols", eta.device,

@@ -1,5 +1,5 @@
-"""Biallelic admixture full EM step: the CUDA kernel pair and its plain
-PyTorch version.
+"""Biallelic admixture full EM step: the CUDA kernels and their plain
+PyTorch versions.
 
 Replaces the Pallas TPU kernel ``admixture_fullstep_biallelic`` /
 ``_fullstep_bi_kernel`` (multiclust_tpu/ops/kernels.py:344-615).  The
@@ -9,13 +9,20 @@ columns pass (d, w again, per-segment B0/B1 partials, then the p0 update
 over their fixed-order sum), each reading x once:
 Hopper blocks run concurrently, so the TPU's in-order grid that keeps
 B0/B1 resident cannot carry over.  The price is reading x twice, against
-once on the TPU; the step is bound by IEEE f32 FMA (no TF32) and shared
-memory issue, not by device memory (see the .cu header).
+once on the TPU.  Both passes are bound by instruction issue, not by
+device memory: IEEE f32 FMA on the CUDA cores (no TF32) in the columns
+pass, ``logf`` and the reciprocals of the cells in the rows pass.  The
+kernels keep the SM's shared-memory loads out of the way with register
+tiles read as float4, stop their k loops at the lane tile of ``k_true``
+(``lane_tile``), give a warp 4 x 32 / GL columns or rows, and stream the
+other operand through cp.async rings (see the .cu header).  The tile
+sizes depend on ``k_true``, so the segment arithmetic here
+(``cols_row_segments``, ``row_segments``, ``pick_route``) takes it.
 
 Three routes run the step (``pick_route`` chooses, the counterpart of
 ``pick_layout_biallelic_any``, kernels.py:809):
 
-* ``pair``: the rows pass and the columns pass above, as they stand;
+* ``pair``: the rows pass with its fused eta finish and the columns pass;
 * ``streamed`` (``admixture_fullstep_biallelic_streamed``, kernels.py:1007):
   the rows pass also splits L into column segments, so that a wide and
   short panel fills the card; a finish kernel sums the segments' partials
@@ -31,7 +38,8 @@ Variants: ``miss``, ``compute_t`` and ``project`` on every route;
 the streamed and chunked ones (which return t in float64).  Shapes: eta
 [B, I, Kp] f32 with Kp in {32, 64, 96, 128}, p0 [B, Kp, L] f32, x0/x1
 [I, L] int8, c [I] f32 missing totals, miss [I, L] int8 or None.  Pad
-lanes (k >= k_true) of eta and p0 must be zero and stay zero.
+lanes (k >= k_true) of eta and p0 must be zero and stay zero: the kernels
+neither load nor compute them.
 """
 
 from __future__ import annotations
@@ -47,9 +55,13 @@ from multiclust_tpu_torch.ops.simplex import project_rows
 Tensor = torch.Tensor
 
 KP_SUPPORTED = (32, 64, 96, 128)
-# columns-pass tiling of csrc/fullstep_bi.cu (COL_TC columns per block,
-# COL_RI rows per tile); the row-segment count is chosen here
-COL_TC, COL_RI = 16, 32
+# tile constants of csrc/fullstep_bi.cu, under its names: warps a block;
+# rows a thread in the rows pass's A phase, columns a rows-pass tile, the
+# most row lanes of a rows-pass warp; columns a thread and rows a thread
+# (d phase) in the columns pass
+NW = 8
+ROW_AR, ROW_TL, ROW_CW_MAX = 4, 32, 8
+COL_CT, COL_DR = 4, 4
 # padded / degenerate columns have d = 0 with x = 0: the clamp keeps
 # 0 / d at 0 and 0 * log(d) at 0
 D_MIN = 1e-30
@@ -140,6 +152,39 @@ def admixture_fullstep_biallelic_reference(eta, p0, x0, x1, c, miss=None,
     return eta_new, t, p0_new
 
 
+class LaneTile(NamedTuple):
+    """How a warp's lanes and a thread's registers split the cluster axis
+    (``lane_tile`` of csrc/fullstep_bi.cu): ``kc`` computed lanes, ``jt``
+    groups of four a thread, ``gl`` cluster lanes, ``cw`` lanes of the
+    other axis."""
+
+    kc: int
+    jt: int
+    gl: int
+    cw: int
+
+
+def lane_tile(k_true: int, Kp: int, cw_max: int = 32) -> LaneTile:
+    """The kernels' lane tile for ``k_true`` clusters padded to ``Kp``
+    (``k_true`` outside [1, Kp] means Kp)."""
+    k = Kp if not 1 <= k_true <= Kp else k_true
+    g = -(-k // 4)
+    jt = -(-g // 8)
+    gl = -(-g // jt)
+    return LaneTile(4 * gl * jt, jt, gl, min(32 // gl, cw_max))
+
+
+def rows_block(k_true: int, Kp: int) -> int:
+    """Rows of a rows-pass block."""
+    return NW * ROW_AR * lane_tile(k_true, Kp, ROW_CW_MAX).cw
+
+
+def cols_tile(k_true: int, Kp: int) -> Tuple[int, int]:
+    """(columns of a columns-pass block, rows of its eta tile)."""
+    lt = lane_tile(k_true, Kp)
+    return NW * COL_CT * lt.cw, COL_DR * lt.gl
+
+
 def check_kp(Kp: int) -> None:
     """Raise for a padded cluster count the CUDA kernels do not take."""
     if Kp not in KP_SUPPORTED:
@@ -191,74 +236,81 @@ def fullstep_bi_rows(eta, p0, x0, x1, c, *, k_true: int, lb: float,
     return eta_new, t
 
 
-def col_segments(I: int, L: int, B: int, n_sm: int, *, tc: int = COL_TC,
-                 ri: int = COL_RI, per_sm: int = 4) -> Tuple[int, int]:
+def col_segments(I: int, L: int, B: int, n_sm: int, *, tc: int, ri: int,
+                 per_sm: int = 4) -> Tuple[int, int]:
     """(segments, rows per segment) splitting I for a columns pass of
     ``tc`` columns per block and ``ri`` rows per tile: at least ``per_sm``
     blocks per SM when I allows, each segment >= 4 row tiles."""
     blocks = -(-L // tc) * B
-    n_seg = max(1, min(-(-per_sm * n_sm // blocks), -(-I // (4 * ri))))
+    n_seg = max(1, min(-(-per_sm * n_sm // blocks), -(-I // (4 * ri)),
+                       GRID_YZ_MAX))
     seg_rows = -(-I // n_seg)
     seg_rows = -(-seg_rows // ri) * ri
     return -(-I // seg_rows), seg_rows
 
 
 def fullstep_bi_cols(eta, p0, x0, x1, miss=None, *, plb: float,
-                     project: bool):
-    """Columns pass: p0' [B, Kp, L] (reads the OLD eta)."""
+                     project: bool, k_true: int = 0, n_rseg: int = 0):
+    """Columns pass: p0' [B, Kp, L] (reads the OLD eta).  ``k_true`` (0:
+    all Kp lanes) is where the kernel's cluster loops stop; ``n_rseg`` as
+    in ``cols_window``."""
     if not eta.is_cuda:
         return fullstep_bi_cols_reference(eta, p0, x0, x1, miss, plb=plb,
                                           project=project)
-    extra = ()
-    if miss is not None:
-        extra = (("miss", miss, torch.int8, tuple(x0.shape)),)
-    B, I, L, Kp = _check_cuda_inputs(eta, p0, x0, x1, *extra)
-    lo, hi = p0_clip_bounds(plb)
-    n_seg, seg_rows = col_segments(
-        I, L, B, torch.cuda.get_device_properties(
-            eta.device).multi_processor_count)
-    part = torch.empty((B, n_seg, 2, Kp, L), dtype=torch.float32,
-                       device=eta.device)
     p0_new = torch.empty_like(p0)
-    build.launch("mc_fullstep_bi_cols", eta.device,
-                 eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
-                 x1.data_ptr(), build.ptr(miss),
-                 part.data_ptr(), p0_new.data_ptr(), None, None,
-                 B, I, L, Kp, 0, L, n_seg, seg_rows, lo, hi, int(project))
+    cols_window(eta, p0, x0, x1, miss, (p0_new,), l_lo=0, l_hi=p0.shape[-1],
+                plb=plb, project=project, k_true=k_true, n_rseg=n_rseg)
     return p0_new
 
 
 def admixture_fullstep_biallelic(eta, p0, x0, x1, c, miss=None, *,
                                  k_true: int, lb: float, plb: float,
-                                 project: bool, compute_t: bool = True):
+                                 project: bool, compute_t: bool = True,
+                                 n_rseg: int = 0):
     """One biallelic admixture EM step for a chain batch:
     (eta' [B, I, Kp], t [B, I], p0' [B, Kp, L]).  The p0 clip and the eta
-    Michelot share ``project`` (kernels.py:435, :452)."""
+    Michelot share ``project`` (kernels.py:435, :452); ``n_rseg`` as in
+    ``cols_window``."""
     eta_new, t = fullstep_bi_rows(eta, p0, x0, x1, c, k_true=k_true, lb=lb,
                                   project=project, compute_t=compute_t)
     p0_new = fullstep_bi_cols(eta, p0, x0, x1, miss, plb=plb,
-                              project=project)
+                              project=project, k_true=k_true, n_rseg=n_rseg)
     return eta_new, t, p0_new
 
 
 # ---------------------------------------------------------------------------
 # streamed and chunked steps (column segments and column windows)
 
-# rows-pass tiling of csrc/fullstep_bi.cu: ROW_R rows per block, ROW_TL
-# columns per tile; a column segment is at least MIN_SEG_COLS wide
-ROW_R, ROW_TL = 32, 32
-MIN_SEG_COLS = 1024
-# Thresholds set from times on an H100 (PERF.md; route_times.py measures
-# them).  A rows grid of at
-# least PAIR_BLOCKS_PER_SM blocks per SM fills the card and takes the
-# unsegmented pair; a smaller one splits L until it holds
-# ROWS_BLOCKS_PER_SM blocks per SM (the segmented pass kept gaining up to
-# 16-32 segments at 8192 x 131072 and 2048 x 524288).
-PAIR_BLOCKS_PER_SM = 6
-ROWS_BLOCKS_PER_SM = 32
+# Thresholds set from times on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# section 6; route_times.py measures them and prints the lines named
+# here, at K = 20 and chain batches 1 and 2).
+# Rows pass ("rows pass: unsegmented ..., n segments + finish"): it keeps
+# gaining from column segments until the grid holds about 20 blocks an SM
+# (65536 x 16384 x 2 chains, 5 blocks an SM from its rows alone: 16.8 ms
+# at 1 segment, 14.5 at 4; 8192 x 131072 x 2: 15.4 at 16 segments, 14.7 at
+# 32), so the segmented pass splits L up to ROWS_BLOCKS_PER_SM blocks an
+# SM, in segments of at least MIN_SEG_COLS columns (16384 x 2048: 8
+# segments of 256 beat 4 and 16).  The fused kernel of the pair equals the
+# one-segment pass within 1 % wherever both were timed and loses to more
+# segments, so the pair is taken only where no split is wanted: a rows
+# grid of PAIR_BLOCKS_PER_SM blocks an SM on its own, or a window too
+# narrow for two segments.
+# All of these were set at K = 20 (two blocks an SM); at Kp >= 64 a block
+# fills an SM and fewer segments win ("route_times --k 100": one rows
+# segment and 4 row segments of the columns pass at 16384 x 2048 x 2).
+MIN_SEG_COLS = 256
+PAIR_BLOCKS_PER_SM = 20
+ROWS_BLOCKS_PER_SM = 20
+# Columns pass ("columns pass: router row segments, n row segments"): it
+# splits I until its grid holds COLS_BLOCKS_PER_SM blocks an SM, in at
+# most COLS_MAX_RSEG segments (16384 x 2048 x 1 chain: 0.32 ms at 64
+# segments, 0.39 at 164; 8192 x 131072 x 2: 13.2 ms at 2, 14.0 at 16).
+COLS_BLOCKS_PER_SM = 16
+COLS_MAX_RSEG = 64
 # The partials of one window stay under this many bytes whatever the card
 # has free: they grow with B x Kp x L, and the chunked loop that bounds
-# them costs up to 6 % of a step at the biobank shapes.
+# them costs up to 3 % of a step at the biobank shapes ("step chunked"
+# against "step streamed").
 SCRATCH_CAP = 192 << 20
 # grid y/z limit, and the widest L whose int column arithmetic cannot
 # overflow in the kernels
@@ -273,16 +325,19 @@ class Route(NamedTuple):
     ``chunked``; ``window`` columns per window (L unless chunked) and
     ``seg_cols`` columns per rows-pass segment within a window;
     ``scratch_bytes`` the partials one window allocates for the chain
-    batch (``window_scratch_bytes``)."""
+    batch (``window_scratch_bytes``); ``n_rseg`` the row segments of the
+    columns pass, which every route hands to it."""
 
     name: str
     seg_cols: int
     window: int
     scratch_bytes: int
+    n_rseg: int = 0
 
     def describe(self) -> str:
         return (f"{self.name} (window {self.window}, segment "
-                f"{self.seg_cols or self.window} columns, scratch "
+                f"{self.seg_cols or self.window} columns, "
+                f"{self.n_rseg or 'auto'} row segments, scratch "
                 f"{self.scratch_bytes} bytes)")
 
 
@@ -291,13 +346,15 @@ def _ceil_to(n: int, m: int) -> int:
 
 
 def row_segments(B: int, I: int, W: int, n_sm: int, *,
-                 per_sm: int = ROWS_BLOCKS_PER_SM) -> Tuple[int, int]:
+                 per_sm: int = ROWS_BLOCKS_PER_SM, k_true: int = 0,
+                 Kp: int = 32) -> Tuple[int, int]:
     """(segments, columns per segment) splitting a window of W columns for
-    the segmented rows pass: one segment when the (chain, 32 rows) blocks
-    alone fill the card (PAIR_BLOCKS_PER_SM a SM), else enough segments
+    the segmented rows pass: one segment when the (chain, row block) grid
+    alone fills the card (PAIR_BLOCKS_PER_SM a SM), else enough segments
     for ``per_sm`` blocks per SM when W allows, each segment >=
-    MIN_SEG_COLS wide and a multiple of the tile."""
-    blocks = B * -(-I // ROW_R)
+    MIN_SEG_COLS wide and a multiple of the tile.  The row block is that
+    of ``k_true`` clusters padded to ``Kp``."""
+    blocks = B * -(-I // rows_block(k_true, Kp))
     n = 1
     if blocks < PAIR_BLOCKS_PER_SM * n_sm:
         n = max(1, min(-(-per_sm * n_sm // blocks), W // MIN_SEG_COLS,
@@ -306,51 +363,78 @@ def row_segments(B: int, I: int, W: int, n_sm: int, *,
     return -(-W // seg_cols), seg_cols
 
 
-def cols_partials_bytes(B: int, I: int, W: int, Kp: int, n_sm: int) -> int:
+def cols_row_segments(B: int, I: int, W: int, Kp: int, n_sm: int,
+                      k_true: int = 0,
+                      budget: Optional[int] = None) -> Tuple[int, int]:
+    """(row segments, rows per segment) of the columns pass over a window
+    of W columns: as many as fill the card at the tile of ``k_true``
+    (``col_segments`` for COLS_BLOCKS_PER_SM blocks an SM), but no more
+    than COLS_MAX_RSEG, than keep the partials within ``budget`` bytes
+    (SCRATCH_CAP when None) or below the bytes of x the pass reads, and at
+    least one."""
+    tc, ri = cols_tile(k_true, Kp)
+    n_want, _ = col_segments(I, W, B, n_sm, tc=tc, ri=ri,
+                             per_sm=COLS_BLOCKS_PER_SM)
+    cap = SCRATCH_CAP if budget is None else budget
+    n = max(1, min(n_want, COLS_MAX_RSEG, cap // (8 * B * Kp * W),
+                   3 * I // (8 * Kp)))
+    seg_rows = _ceil_to(-(-I // n), ri)
+    return -(-I // seg_rows), seg_rows
+
+
+def cols_partials_bytes(B: int, I: int, W: int, Kp: int, n_sm: int,
+                        k_true: int = 0,
+                        budget: Optional[int] = None) -> int:
     """Bytes of the columns pass's partials over a window of W columns,
     [B, row segments, 2, Kp, W] float32: they grow with B x Kp x W, and a
-    narrower window is what bounds them."""
-    n_rseg, _ = col_segments(I, W, B, n_sm)
+    narrower window is what bounds them (the row segments give way to the
+    budget first)."""
+    n_rseg, _ = cols_row_segments(B, I, W, Kp, n_sm, k_true, budget)
     return 4 * B * n_rseg * 2 * Kp * W
 
 
 def window_scratch_bytes(B: int, I: int, W: int, Kp: int, n_sm: int,
-                         n_cseg: int) -> int:
+                         n_cseg: int, k_true: int = 0,
+                         budget: Optional[int] = None) -> int:
     """Bytes of partials one window of W columns allocates: the columns
     pass's, and the segmented rows pass's [B, n_cseg, I, Kp + 1] (none for
     the pair, n_cseg = 0).  The rows pass's need no bound: it splits L
-    only while B x I is small, so they stay near 32 blocks an SM x 32 rows
-    x Kp, or are as large as eta itself (one segment)."""
-    return (cols_partials_bytes(B, I, W, Kp, n_sm)
+    only while B x I is small, so they stay near ROWS_BLOCKS_PER_SM blocks
+    an SM x a block's rows x Kp, or are as large as eta itself (one
+    segment)."""
+    return (cols_partials_bytes(B, I, W, Kp, n_sm, k_true, budget)
             + 4 * B * n_cseg * I * (Kp + 1))
 
 
 def pick_route(B: int, I: int, L: int, Kp: int, n_sm: int,
-               budget: int) -> Route:
+               budget: int, k_true: int = 0) -> Route:
     """The route of a step for a chain batch of B on an I x L panel: the
     pair when its rows grid fills the SMs, the streamed step when it does
     not, the chunked loop when the columns pass's partials over all L
-    would take more than ``budget`` bytes.  Raises when no window fits or
-    an index would overflow."""
+    would take more than ``budget`` bytes even in one row segment.
+    ``k_true`` (0: Kp) sets the kernels' tiles.  Raises when no window fits
+    or an index would overflow."""
     check_kp(Kp)
     if L > L_MAX or B > GRID_YZ_MAX:
         raise ValueError(f"L={L} or B={B} beyond the kernels' index range "
                          f"(L <= {L_MAX}, B <= {GRID_YZ_MAX})")
-    n_cseg, seg_cols = row_segments(B, I, L, n_sm)
-    if cols_partials_bytes(B, I, L, Kp, n_sm) <= budget:
-        if n_cseg == 1:
-            return Route("pair", 0, L,
-                         window_scratch_bytes(B, I, L, Kp, n_sm, 0))
-        return Route("streamed", seg_cols, L,
-                     window_scratch_bytes(B, I, L, Kp, n_sm, n_cseg))
+
+    def route(name: str, W: int) -> Route:
+        n_cseg, seg_cols = row_segments(B, I, W, n_sm, k_true=k_true, Kp=Kp)
+        if name == "streamed" and n_cseg == 1:
+            name, n_cseg, seg_cols = "pair", 0, 0
+        n_rseg, _ = cols_row_segments(B, I, W, Kp, n_sm, k_true, budget)
+        return Route(name, seg_cols, W, window_scratch_bytes(
+            B, I, W, Kp, n_sm, n_cseg, k_true, budget), n_rseg)
+
+    if cols_partials_bytes(B, I, L, Kp, n_sm, k_true, budget) <= budget:
+        return route("streamed", L)
     n_win = 2
     while True:
         W = _ceil_to(-(-L // n_win), ROW_TL)
-        need = cols_partials_bytes(B, I, W, Kp, n_sm)
+        need = cols_partials_bytes(B, I, W, Kp, n_sm, k_true, budget)
         if need <= budget:
-            n_cseg, seg_cols = row_segments(B, I, W, n_sm)
-            return Route("chunked", seg_cols, W,
-                         window_scratch_bytes(B, I, W, Kp, n_sm, n_cseg))
+            return route("chunked", W)
         if W <= MIN_SEG_COLS:
             raise MemoryError(
                 f"no window of the chunked step fits: {need} bytes of "
@@ -476,10 +560,11 @@ def rows_partials_reference(eta, p0, x0, x1, *, l_lo: int, l_hi: int,
 
 def rows_partials(eta, p0, x0, x1, *, l_lo: int, l_hi: int, seg_cols: int,
                   compute_t: bool = True, compute_a: bool = True,
-                  loop: Optional[str] = None):
+                  loop: Optional[str] = None, k_true: int = 0):
     """Segmented rows pass over the window [l_lo, l_hi): the segments' raw
     A + r partials [B, n_seg, I, Kp] (None without ``compute_a``) and t
-    partials [B, n_seg, I]."""
+    partials [B, n_seg, I].  ``k_true`` (0: all Kp lanes) is where the
+    kernel's cluster loops stop."""
     if not eta.is_cuda:
         return rows_partials_reference(
             eta, p0, x0, x1, l_lo=l_lo, l_hi=l_hi, compute_t=compute_t,
@@ -497,8 +582,8 @@ def rows_partials(eta, p0, x0, x1, *, l_lo: int, l_hi: int, seg_cols: int,
     build.launch("mc_fullstep_bi_rows_seg", dev,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
                  x1.data_ptr(), build.ptr(apart), tpart.data_ptr(),
-                 B, I, L, Kp, l_lo, l_hi, seg_cols, n_seg, int(compute_t),
-                 int(compute_a), loop=loop)
+                 B, I, L, Kp, int(k_true), l_lo, l_hi, seg_cols, n_seg,
+                 int(compute_t), int(compute_a), loop=loop)
     return apart, tpart
 
 
@@ -564,7 +649,8 @@ def _rows_window(eta, p0, x0, x1, c, a0, kmask, *, l_lo: int, l_hi: int,
     """Segmented rows pass and its finish over the window [l_lo, l_hi)."""
     apart, tpart = rows_partials(eta, p0, x0, x1, l_lo=l_lo, l_hi=l_hi,
                                  seg_cols=seg_cols, compute_t=compute_t,
-                                 compute_a=compute_a, loop=loop)
+                                 compute_a=compute_a, loop=loop,
+                                 k_true=k_true)
     return rows_finish(eta, apart, tpart, c, a0, kmask, k_true=k_true,
                        lb=lb, project_eta=project_eta, compute_t=compute_t,
                        emit_a=emit_a)
@@ -584,10 +670,15 @@ def cols_window_reference(eta, p0, x0, x1, miss, outs, *, l_lo: int,
 
 
 def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
-                plb: float, project: bool) -> None:
+                plb: float, project: bool, k_true: int = 0,
+                n_rseg: int = 0) -> None:
     """Columns pass and epilogue over the window [l_lo, l_hi), written at
     the window's columns of the full-width ``outs``: (p0',) or, for emit_b,
-    (B0, B1) with the miss fold."""
+    (B0, B1) with the miss fold.  ``k_true`` (0: all Kp lanes) is where
+    the kernel's cluster loops stop.  ``n_rseg`` row segments: a routed
+    step passes its route's, chosen within the fit's scratch budget; 0,
+    for a caller without a route, takes ``cols_row_segments`` within
+    SCRATCH_CAP."""
     emit_b = len(outs) == 2
     if not eta.is_cuda:
         return cols_window_reference(eta, p0, x0, x1, miss, outs, l_lo=l_lo,
@@ -599,9 +690,12 @@ def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
     _check_window(L, l_lo, l_hi, B)
     W = l_hi - l_lo
     lo, hi = p0_clip_bounds(plb)
-    n_seg, seg_rows = col_segments(
-        I, W, B, torch.cuda.get_device_properties(
-            eta.device).multi_processor_count)
+    if n_rseg:
+        seg_rows = _ceil_to(-(-I // n_rseg), cols_tile(k_true, Kp)[1])
+        n_seg = -(-I // seg_rows)
+    else:
+        n_seg, seg_rows = cols_row_segments(
+            B, I, W, Kp, device_sm_count(eta.device), k_true)
     if n_seg > GRID_YZ_MAX:
         raise ValueError(f"{n_seg} row segments exceed the grid's limit")
     part = torch.empty((B, n_seg, 2, Kp, W), dtype=torch.float32,
@@ -612,8 +706,8 @@ def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
                  None if emit_b else outs[0].data_ptr(),
                  outs[0].data_ptr() if emit_b else None,
                  outs[1].data_ptr() if emit_b else None,
-                 B, I, L, Kp, l_lo, l_hi, n_seg, seg_rows, lo, hi,
-                 int(project))
+                 B, I, L, Kp, int(k_true), l_lo, l_hi, n_seg, seg_rows, lo,
+                 hi, int(project))
 
 
 def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
@@ -625,7 +719,8 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
                                          emit_b: bool = False,
                                          emit_a: bool = False,
                                          project_eta: Optional[bool] = None,
-                                         a0: Optional[Tensor] = None):
+                                         a0: Optional[Tensor] = None,
+                                         n_rseg: int = 0):
     """The step as a loop over column windows of ``window`` columns (the
     last may be short), the contract of the JAX package's
     ``admixture_fullstep_biallelic_chunked``: raw A + r is threaded from
@@ -638,13 +733,16 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
     the raw A + r (c not added).  ``kmask`` [Kp] 1.0/0.0 replaces the
     static ``k_true`` lane set; ``project_eta`` switches the eta Michelot
     apart from the p0 clip, which stays governed by ``project``; ``a0``
-    seeds the first window.  One window over all L is the streamed step."""
+    seeds the first window; ``n_rseg`` fixes the columns pass's row
+    segments (0: chosen to fill the card).  One window over all L is the
+    streamed step."""
     B, I, Kp = eta.shape
     L = p0.shape[-1]
     window = min(int(window), L)
     if seg_cols is None:
         _, seg_cols = row_segments(B, I, window,
-                                   device_sm_count(eta.device))
+                                   device_sm_count(eta.device),
+                                   k_true=k_true, Kp=Kp)
     if project_eta is None:
         project_eta = project
     outs = ((torch.empty_like(p0), torch.empty_like(p0)) if emit_b
@@ -661,7 +759,7 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
             emit_a=emit_a or not last, loop=loop)
         t_sum = t if t_sum is None else t_sum + t
         cols_window(eta, p0, x0, x1, miss, outs, l_lo=l_lo, l_hi=l_hi,
-                    plb=plb, project=project)
+                    plb=plb, project=project, k_true=k_true, n_rseg=n_rseg)
     return (a0, t_sum) + outs
 
 
@@ -725,17 +823,20 @@ def admixture_fullstep_biallelic_streamed_reference(eta, p0, x0, x1, c,
         eta, p0, x0, x1, c, miss, kmask, window=p0.shape[-1], **kw)
 
 
-def rows_log_likelihood_terms(eta, p0, x0, x1, *, seg_cols=None) -> Tensor:
+def rows_log_likelihood_terms(eta, p0, x0, x1, *, seg_cols=None,
+                              k_true: int = 0) -> Tensor:
     """t [B, I] float64, the per-individual logL terms of (eta, p0), from
     the segmented rows pass with its A phase skipped: no [B, I, L]
-    temporary exists (CUDA), or one column window of it (CPU)."""
-    B, I, _ = eta.shape
+    temporary exists (CUDA), or one column window of it (CPU).  ``k_true``
+    (0: all Kp lanes) is where the kernel's cluster loops stop."""
+    B, I, Kp = eta.shape
     L = p0.shape[-1]
     if seg_cols is None:
-        _, seg_cols = row_segments(B, I, L, device_sm_count(eta.device))
+        _, seg_cols = row_segments(B, I, L, device_sm_count(eta.device),
+                                   k_true=k_true, Kp=Kp)
     c = eta.new_zeros(I)
     return _rows_window(eta, p0, x0, x1, c, None, None, l_lo=0, l_hi=L,
-                        seg_cols=seg_cols, k_true=0, lb=0.0,
+                        seg_cols=seg_cols, k_true=k_true, lb=0.0,
                         project_eta=False, compute_t=True, emit_a=True,
                         compute_a=False)[1]
 
@@ -748,10 +849,10 @@ def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None, *,
     if route.name == "pair":
         return admixture_fullstep_biallelic(
             eta, p0, x0, x1, c, miss, k_true=k_true, lb=lb, plb=plb,
-            project=project, compute_t=compute_t)
+            project=project, compute_t=compute_t, n_rseg=route.n_rseg)
     if route.name not in ("streamed", "chunked"):
         raise ValueError(f"unknown route {route.name!r}")
     return admixture_fullstep_biallelic_chunked(
         eta, p0, x0, x1, c, miss, window=route.window,
         seg_cols=route.seg_cols, k_true=k_true, lb=lb, plb=plb,
-        project=project, compute_t=compute_t)
+        project=project, compute_t=compute_t, n_rseg=route.n_rseg)

@@ -138,7 +138,8 @@ def model_log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
     if cfg.eta_constrained:
         return admixture.log_likelihood_constrained(params, md)
     if cfg.bi_repr_active and is_bi_repr(params):
-        return admixture.log_likelihood_bi_repr(params, md)
+        return admixture.log_likelihood_bi_repr(params, md,
+                                                k_true=cfg.k_true)
     return admixture.log_likelihood(params, md)
 
 

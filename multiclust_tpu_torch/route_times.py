@@ -5,15 +5,25 @@ Run with ``python -m multiclust_tpu_torch.route_times`` (a CUDA device is
 required).  For each of the four shapes 16384 x 2048, 65536 x 16384,
 8192 x 131072 and 2048 x 524288 (K = 20, 1 % missing, chain batches 1 and
 2; the last three are 2^30 cells, 1 GiB an int8 plane) it prints what the
-router picks and the median CUDA-event time of the pair, of the streamed
-step at 2-32 column segments, of the chunked loop at 2-8 windows, of each
-rows pass alone, of the logL terms alone and of the windowed plain version,
-every result held to the plain version first (rtol 1e-4, atol 5e-5).  The
-first line is the card's name and power limit.
+router picks (route, window, column segment, row segments, the kernels'
+tiles) and the median CUDA-event time of the routed step, of the pair, of
+the streamed step at 2-32 column segments, of the chunked loop at 2-8
+windows, of each rows pass and of the columns pass alone at several segment
+counts, of the logL terms alone and of the windowed plain version, every
+step held to the plain version first (rtol 1e-4, atol 5e-5).  Each pass's
+line carries its bound (the larger of its tensors over 3.35 TB/s and its
+operations over 67 TFLOP/s, the counts chip_smoke.py uses) and the share
+of it that the best time reaches.  The first line is the card's name and
+power limit.
+
+``--k K`` times another cluster count (padded to the next of 32, 64, 96,
+128 lanes) and ``--shapes IxL,IxL`` other panels, for the kernels' wider
+instantiations: ``--k 100 --shapes 16384x2048,8192x131072``.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import sys
 
@@ -24,6 +34,18 @@ from multiclust_tpu_torch.ops import fullstep_bi as fb
 
 SHAPES = ((16384, 2048), (65536, 16384), (8192, 131072), (2048, 524288))
 K, KP = 20, 32
+# the card's published peaks: device memory, and float32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def bound_ms(tensors, flop: float) -> float:
+    """The least ms the card could take: ``tensors`` moved once each, or
+    ``flop`` float32 operations."""
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors
+                  if t is not None)
+    return max(n_bytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S) * 1e3
 
 
 def device_panel(seed: int, I: int, L: int, K: int, miss_rate: float, dev):
@@ -85,6 +107,14 @@ def _held(got, ref) -> None:
         torch.testing.assert_close(g.to(r.dtype), r, rtol=1e-4, atol=5e-5)
 
 
+def _share(label: str, times: dict, bound: float) -> str:
+    best = min(times, key=times.get)
+    return (f"  {label}: " + ", ".join(f"{n} {t:.3f}" for n, t in
+                                        times.items())
+            + f" ms; bound {bound:.3f} ms, best ({best}) reaches "
+            f"{100 * bound / times[best]:.1f} % of it")
+
+
 def time_shape(I: int, L: int, dev) -> None:
     kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True)
     planes, miss = device_panel(1, I, L, K, 0.01, dev)
@@ -93,12 +123,16 @@ def time_shape(I: int, L: int, dev) -> None:
     n_sm = fb.device_sm_count(dev)
     for B in (1, 2):
         eta, p0 = device_step_params(2, B, I, L, K, KP, dev)
-        print(f"{I} x {L}, {B} chains: router "
-              f"{fb.pick_route(B, I, L, KP, n_sm, fb.scratch_budget(dev))}",
-              flush=True)
+        route = fb.pick_route(B, I, L, KP, n_sm, fb.scratch_budget(dev), K)
+        print(f"{I} x {L}, {B} chains: router {route.describe()}; rows "
+              f"block {fb.rows_block(K, KP)} rows, columns block "
+              f"{fb.cols_tile(K, KP)[0]} columns x {fb.cols_tile(K, KP)[1]} "
+              f"rows a tile", flush=True)
         ref = fb.admixture_fullstep_biallelic_streamed_reference(
             eta, p0, x0, x1, c, miss, **kw)
-        steps = {"pair": lambda: fb.admixture_fullstep_biallelic(
+        steps = {"routed": lambda: fb.admixture_fullstep_biallelic_routed(
+            eta, p0, x0, x1, c, miss, route=route, **kw),
+            "pair": lambda: fb.admixture_fullstep_biallelic(
             eta, p0, x0, x1, c, miss, **kw)}
         for n_seg in (2, 4, 8, 16, 32):
             sc = -(-L // n_seg // 32) * 32
@@ -113,31 +147,54 @@ def time_shape(I: int, L: int, dev) -> None:
         for name, fn in steps.items():
             _held(fn(), ref)
             print(f"  step {name}: {median_ms(fn):.3f} ms", flush=True)
+        # each pass alone, with the operations chip_smoke.py counts: two
+        # contractions of I x L x K a pass (B0 and B1 as two) at 2 a
+        # multiply-add, and ~10 / ~6 a cell elementwise
+        cells = B * I * L
         row_kw = dict(k_true=K, lb=1e-8, project=True)
         fin = dict(k_true=K, lb=1e-8, project_eta=True)
-        print(f"  rows pass unsegmented (fused finish): "
-              f"{median_ms(lambda: fb.fullstep_bi_rows(eta, p0, x0, x1, c, **row_kw)):.3f}"
-              f" ms; columns pass: "
-              f"{median_ms(lambda: fb.fullstep_bi_cols(eta, p0, x0, x1, miss, plb=1e-8, project=True)):.3f}"
-              f" ms", flush=True)
+        rows = {"unsegmented (fused finish)": median_ms(
+            lambda: fb.fullstep_bi_rows(eta, p0, x0, x1, c, **row_kw))}
         for n_seg in (1, 2, 4, 8, 16, 32):
             sc = -(-L // n_seg // 32) * 32
 
-            def rows(sc=sc):
+            def seg(sc=sc):
                 return fb.rows_finish(eta, *fb.rows_partials(
-                    eta, p0, x0, x1, l_lo=0, l_hi=L, seg_cols=sc), c, **fin)
-            print(f"  rows pass, {n_seg} segments + finish: "
-                  f"{median_ms(rows):.3f} ms", flush=True)
+                    eta, p0, x0, x1, l_lo=0, l_hi=L, seg_cols=sc, k_true=K),
+                    c, **fin)
+            rows[f"{n_seg} segments + finish"] = median_ms(seg)
+        print(_share("rows pass", rows, bound_ms(
+            (eta, p0, x0, x1, c, eta, c), (4 * K + 10) * cells)), flush=True)
+        outs = (torch.empty_like(p0),)
+        cols = {}
+        for n_rseg in (0, 1, 2, 4, 16, 64):
+            if 8 * B * KP * L * n_rseg > 1 << 30:
+                continue   # partials of more than 1 GiB
+            cols[f"{n_rseg or 'router'} row segments"] = median_ms(
+                lambda n=n_rseg: fb.cols_window(
+                    eta, p0, x0, x1, miss, outs, l_lo=0, l_hi=L, plb=1e-8,
+                    project=True, k_true=K, n_rseg=n or route.n_rseg))
+        print(_share("columns pass", cols, bound_ms(
+            (eta, p0, x0, x1, miss, p0), (6 * K + 6) * cells)), flush=True)
         print(f"  logL terms alone: "
-              f"{median_ms(lambda: fb.rows_log_likelihood_terms(eta, p0, x0, x1)):.3f}"
+              f"{median_ms(lambda: fb.rows_log_likelihood_terms(eta, p0, x0, x1, k_true=K)):.3f}"
               f" ms; plain step in column windows: "
               f"{median_ms(lambda: fb.admixture_fullstep_biallelic_streamed_reference(eta, p0, x0, x1, c, miss, **kw), n=2):.3f}"
               f" ms", flush=True)
-        del eta, p0, ref, steps
+        del eta, p0, ref, steps, outs
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    global K, KP, SHAPES
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--k", type=int, default=K)
+    ap.add_argument("--shapes", default=",".join(
+        f"{I}x{L}" for I, L in SHAPES))
+    args = ap.parse_args(argv)
+    K, KP = args.k, -(-args.k // 32) * 32
+    SHAPES = tuple(tuple(int(n) for n in s.split("x"))
+                   for s in args.shapes.split(","))
     if not torch.cuda.is_available():
         print("route_times: no CUDA device", file=sys.stderr)
         return 1
@@ -146,6 +203,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda")
+    print(f"K = {K} on {KP} lanes", flush=True)
     for I, L in SHAPES:
         time_shape(I, L, dev)
     print(f"peak allocation "

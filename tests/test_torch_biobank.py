@@ -467,7 +467,8 @@ def test_router_keeps_its_budget(I, L, B, Kp):
     assert r.window % 32 == 0 or r.window == L
     if r.name == "pair":
         assert r.seg_cols == 0
-        assert B * -(-I // 32) >= fb.PAIR_BLOCKS_PER_SM * 132
+        assert B * -(-I // fb.rows_block(0, Kp)) >= \
+            fb.PAIR_BLOCKS_PER_SM * 132
     else:
         assert r.seg_cols % 32 == 0 and r.seg_cols >= fb.MIN_SEG_COLS
         n_cseg = -(-r.window // r.seg_cols)
@@ -481,8 +482,16 @@ def test_router_keeps_its_budget(I, L, B, Kp):
 
 def test_router_cases():
     cap = fb.SCRATCH_CAP
-    assert fb.pick_route(2, 16384, 2048, 32, 132, cap).name == "pair"
-    assert fb.pick_route(2, 65536, 16384, 32, 132, cap).name == "pair"
+    # the rows pass gains from column segments up to ~20 blocks an SM, so
+    # the pair is left to grids that hold as many from their rows alone
+    # and to windows too narrow to split
+    assert fb.pick_route(2, 16384, 2048, 32, 132, cap).name == "streamed"
+    assert fb.pick_route(2, 65536, 16384, 32, 132, cap).name == "streamed"
+    assert fb.pick_route(8, 65536, 16384, 32, 132, cap, 20).name == "pair"
+    assert fb.pick_route(1, 600, 500, 32, 132, cap, 3).name == "pair"
+    # 32 chains in lockstep fill the card from 16384 rows alone, 16 do not
+    assert fb.pick_route(32, 16384, 2048, 32, 132, cap, 20).name == "pair"
+    assert fb.pick_route(16, 16384, 2048, 32, 132, cap, 20).name == "streamed"
     wide = fb.pick_route(2, 8192, 131072, 32, 132, cap)
     assert wide.name == "streamed" and wide.window == 131072
     assert -(-131072 // wide.seg_cols) >= 8
@@ -491,15 +500,18 @@ def test_router_cases():
     assert fb.pick_route(1, 2048, 524288, 32, 132, cap).name == "streamed"
     # fewer SMs to fill, fewer segments
     small = fb.pick_route(2, 8192, 131072, 32, 16, cap)
-    assert small.name == "pair"
+    assert small.name == "streamed"
+    assert small.seg_cols > 4 * wide.seg_cols
     # eight chains' partials outgrow the cap where two chains' do not
     assert fb.pick_route(8, 8192, 131072, 32, 132, cap).name == "chunked"
     # a smaller budget, more windows; none that fits, an error with counts
     tight = fb.pick_route(2, 8192, 131072, 32, 132, 16 << 20)
     assert tight.name == "chunked" and tight.window == 32768
-    assert fb.cols_partials_bytes(2, 8192, 32768, 32, 132) <= 16 << 20
+    assert fb.cols_partials_bytes(2, 8192, 32768, 32, 132, 0,
+                                  16 << 20) <= 16 << 20
+    assert tight.n_rseg == 1
     with pytest.raises(MemoryError, match="bytes"):
-        fb.pick_route(2, 8192, 131072, 32, 132, 1 << 20)
+        fb.pick_route(2, 8192, 131072, 32, 132, 1 << 16)
     with pytest.raises(ValueError, match="Kp=160"):
         fb.pick_route(1, 100, 100, 160, 132, cap)
     with pytest.raises(ValueError, match="index range"):
@@ -515,3 +527,90 @@ def test_bi_route_reads_the_config_budget():
     tight = tadm.bi_route(1, md, cfg._replace(scratch_budget=400_000), 32)
     assert tight.name == "chunked" and tight.window < 4096
     assert fb.cols_partials_bytes(1, 64, tight.window, 32, 132) <= 400_000
+
+
+# ---------------------------------------------------------------------------
+# segment arithmetic at the kernels' lane tiles
+
+@pytest.mark.parametrize("I,L", SHAPES)
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("K,Kp", [(20, 32), (100, 128)])
+def test_segments_cover_the_panel(I, L, B, K, Kp):
+    """Row segments of the columns pass cover I exactly in multiples of
+    its eta tile, column segments of the rows pass cover W in multiples of
+    its tile, both within the grid's limit; the route's scratch keeps the
+    budget."""
+    budget = fb.SCRATCH_CAP
+    r = fb.pick_route(B, I, L, Kp, 132, budget, K)
+    tc, ri = fb.cols_tile(K, Kp)
+    assert tc % 32 == 0 and ri % 4 == 0
+    n_rseg, seg_rows = fb.cols_row_segments(B, I, r.window, Kp, 132, K,
+                                            budget)
+    assert n_rseg == r.n_rseg and 1 <= n_rseg <= fb.GRID_YZ_MAX
+    assert seg_rows % ri == 0
+    assert (n_rseg - 1) * seg_rows < I <= n_rseg * seg_rows
+    assert fb.cols_partials_bytes(B, I, r.window, Kp, 132, K, budget) == \
+        8 * B * n_rseg * Kp * r.window <= budget
+    # the partials stay below the bytes of x the pass reads
+    assert 8 * B * n_rseg * K * r.window <= 3 * B * I * r.window
+    n_cseg, seg_cols = fb.row_segments(B, I, r.window, 132, k_true=K, Kp=Kp)
+    assert seg_cols % fb.ROW_TL == 0 and 1 <= n_cseg <= fb.GRID_YZ_MAX
+    assert (n_cseg - 1) * seg_cols < r.window <= n_cseg * seg_cols
+    if r.name == "pair":
+        assert n_cseg == 1 and r.seg_cols == 0
+        assert B * -(-I // fb.rows_block(K, Kp)) >= \
+            fb.PAIR_BLOCKS_PER_SM * 132
+    else:
+        assert r.seg_cols == seg_cols
+        assert seg_cols >= fb.MIN_SEG_COLS or n_cseg == 1
+    assert r.scratch_bytes == fb.window_scratch_bytes(
+        B, I, r.window, Kp, 132, 0 if r.name == "pair" else n_cseg, K,
+        budget)
+    assert str(r.n_rseg) in r.describe()
+
+
+def test_row_segments_give_way_to_the_budget():
+    """A budget below what the card-filling row segments would take cuts
+    the segments before it cuts the window."""
+    B, I, W, Kp, K = 2, 16384, 2048, 32, 20
+    free, _ = fb.cols_row_segments(B, I, W, Kp, 132, K)
+    one = 8 * B * Kp * W
+    assert free > 4
+    tight, seg_rows = fb.cols_row_segments(B, I, W, Kp, 132, K, 4 * one)
+    assert tight <= 4 and seg_rows * tight >= I
+    assert fb.cols_row_segments(B, I, W, Kp, 132, K, one // 2)[0] == 1
+    r = fb.pick_route(B, I, W, Kp, 132, 4 * one, K)
+    assert r.window == W and r.n_rseg == tight
+
+
+@pytest.mark.parametrize("name", ["pair", "streamed", "chunked"])
+def test_every_route_hands_its_row_segments_to_the_columns_pass(monkeypatch,
+                                                                name):
+    """The columns pass's row segments have one source in a routed step,
+    the route, whichever of the three it is."""
+    seen = []
+    real = fb.cols_window
+
+    def spy(*args, n_rseg=0, **kw):
+        seen.append(n_rseg)
+        return real(*args, n_rseg=n_rseg, **kw)
+
+    def cols(eta, p0, x0, x1, miss=None, *, plb, project, k_true=0,
+             n_rseg=0):
+        # the CPU wrapper returns its plain version before the window call
+        out = torch.empty_like(p0)
+        fb.cols_window(eta, p0, x0, x1, miss, (out,), l_lo=0,
+                       l_hi=p0.shape[-1], plb=plb, project=project,
+                       k_true=k_true, n_rseg=n_rseg)
+        return out
+
+    monkeypatch.setattr(fb, "cols_window", spy)
+    monkeypatch.setattr(fb, "fullstep_bi_cols", cols)
+    args = _torch_args(*_inputs(71, 24, 96), True)
+    window = 40 if name == "chunked" else 96
+    route = fb.Route(name, 0 if name == "pair" else 32, window, 0, 5)
+    got = fb.admixture_fullstep_biallelic_routed(*args, route=route, **KW)
+    assert seen == [5] * -(-96 // window)
+    ref = fb.admixture_fullstep_biallelic_reference(*args, **KW)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.to(r.dtype), r, rtol=1e-5, atol=1e-6)

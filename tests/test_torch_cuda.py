@@ -530,3 +530,126 @@ def test_routed_blind_steps_read_no_host(budget, route):
     torch.testing.assert_close(
         ll.cpu(), admixture.log_likelihood_bi_repr(want, mds[1])[0],
         rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned rows and columns kernels: lane tiles, load paths, windows
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(3, 32), (20, 32), (21, 32), (32, 32),
+                                  (40, 64), (70, 96), (100, 128),
+                                  (128, 128)])
+@pytest.mark.parametrize("I,L,l_lo,l_hi,miss_rate", [
+    (1000, 1003, 0, 1003, 0.03),     # L % 4 != 0: byte loads
+    (1000, 1024, 40, 1000, 0.0),     # aligned window, vector loads
+    (777, 1024, 41, 999, 0.03),      # odd window start: byte loads
+    (9, 7, 0, 7, 0.1),               # smaller than one tile either way
+])
+def test_redesigned_kernels_match_plain(K, Kp, I, L, l_lo, l_hi, miss_rate):
+    """The segmented rows pass (1 and 33 column segments, t and A on and
+    off) and the windowed columns pass (1 and 3 row segments, p0' and raw
+    B0/B1) against their plain versions; reruns bit-equal; lanes past
+    k_true exact."""
+    dev = _cuda()
+    eta, p0, x0, x1, c, miss = _step_args(K + L, 2, I, L, K, Kp, miss_rate,
+                                          dev)
+    win = dict(l_lo=l_lo, l_hi=l_hi)
+    W = l_hi - l_lo
+    ref_a, ref_t = fb.rows_partials_reference(eta, p0, x0, x1, **win)
+    for n_seg in (1, 33):
+        seg_cols = max(32, -(-W // n_seg // 32) * 32)
+        apart, tpart = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols,
+                                        k_true=K, **win)
+        assert apart.shape[1] == tpart.shape[1] == -(-W // seg_cols)
+        torch.testing.assert_close(apart.sum(dim=1), ref_a[:, 0], **F32)
+        torch.testing.assert_close(tpart.double().sum(dim=1), ref_t[:, 0],
+                                   **F32)
+        again = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols,
+                                 k_true=K, **win)
+        assert torch.equal(apart, again[0]) and torch.equal(tpart, again[1])
+        none, t_only = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols,
+                                        k_true=K, compute_a=False, **win)
+        assert none is None and torch.equal(t_only, tpart)
+        a_only, t_zero = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg_cols,
+                                          k_true=K, compute_t=False, **win)
+        assert torch.equal(a_only, apart) and (t_zero == 0).all()
+    for n_rseg in (1, 3):
+        for emit_b in (False, True):
+            outs = tuple(torch.zeros_like(p0) for _ in range(1 + emit_b))
+            refs = tuple(torch.zeros_like(p0) for _ in range(1 + emit_b))
+            twice = tuple(torch.zeros_like(p0) for _ in range(1 + emit_b))
+            kw = dict(plb=0.05, project=True, **win)
+            fb.cols_window(eta, p0, x0, x1, miss, outs, k_true=K,
+                           n_rseg=n_rseg, **kw)
+            fb.cols_window(eta, p0, x0, x1, miss, twice, k_true=K,
+                           n_rseg=n_rseg, **kw)
+            fb.cols_window_reference(eta, p0, x0, x1, miss, refs, **kw)
+            _stream_close(outs, refs)
+            for o, t in zip(outs, twice):
+                assert torch.equal(o, t)
+                assert (o[:, K:] == 0).all()
+                assert (o[..., :l_lo] == 0).all() and \
+                    (o[..., l_hi:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(3, 32), (21, 32), (40, 64), (100, 128)])
+def test_fused_rows_kernel_matches_plain(K, Kp):
+    """The pair's rows kernel (fused eta finish) at a ragged shape."""
+    dev = _cuda()
+    eta, p0, x0, x1, c, _ = _step_args(K, 2, 1000, 1003, K, Kp, 0.03, dev)
+    for project, compute_t in ((True, True), (False, False)):
+        kw = dict(k_true=K, lb=0.01, project=project, compute_t=compute_t)
+        got = fb.fullstep_bi_rows(eta, p0, x0, x1, c, **kw)
+        ref = fb.fullstep_bi_rows_reference(eta, p0, x0, x1, c, **kw)
+        _stream_close(got, ref)
+        assert (got[0][..., K:] == 0).all()
+        again = fb.fullstep_bi_rows(eta, p0, x0, x1, c, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_routed_pair_takes_the_routes_row_segments():
+    """The pair under a route: its columns pass splits I as the route
+    says (bit-equal to the same split asked of the pass directly)."""
+    dev = _cuda()
+    K, Kp = 20, 32
+    eta, p0, x0, x1, c, miss = _step_args(7, 2, 1000, 1024, K, Kp, 0.03, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+    route = fb.Route("pair", 0, 1024, 0, 3)
+    got = fb.admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss,
+                                                 route=route, **kw)
+    ref = fb.admixture_fullstep_biallelic_reference(eta, p0, x0, x1, c, miss,
+                                                    **kw)
+    _stream_close(got, ref)
+    direct = fb.fullstep_bi_cols(eta, p0, x0, x1, miss, plb=0.05,
+                                 project=True, k_true=K, n_rseg=3)
+    assert torch.equal(got[2], direct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp", [32, 64, 96, 128])
+def test_tiles_match_the_python_mirror(Kp):
+    """``lane_tile``, ``rows_block`` and ``cols_tile`` against the built
+    library's own arithmetic."""
+    _cuda()
+    lib = build.library()
+    for K in range(0, Kp + 1):
+        kc, row_block, col_block, col_rows = build.kernel_tiles(lib, K, Kp)
+        assert kc == fb.lane_tile(K, Kp).kc
+        assert row_block == fb.rows_block(K, Kp)
+        assert (col_block, col_rows) == fb.cols_tile(K, Kp)
+
+
+@pytest.mark.cuda
+def test_build_reports_no_spills():
+    """The -Xptxas -v report of csrc/fullstep_bi.cu: no kernel spills."""
+    import re
+
+    _cuda()
+    build.library()
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    spills = [(int(a), int(b)) for a, b in re.findall(
+        r"fullstep_bi\w+\n.*?(\d+) bytes spill stores, (\d+) bytes spill "
+        r"loads", report)]
+    assert len(spills) >= 17 and all(s == (0, 0) for s in spills), spills

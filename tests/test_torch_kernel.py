@@ -123,3 +123,83 @@ def test_wrapper_refuses_unsupported_cuda_shapes():
     with pytest.raises(ValueError, match="x1 dtype"):
         fb._check_cuda_inputs(torch.zeros(1, 8, 32), torch.zeros(1, 32, 5),
                               x, x.float())
+
+
+# ---------------------------------------------------------------------------
+# the kernels' tile constants and the pad lanes their k loops leave out
+
+def _cu_constants():
+    """``constexpr int NAME = <int or NAME / int>;`` of csrc/fullstep_bi.cu."""
+    import re
+    from pathlib import Path
+
+    text = (Path(fb.__file__).resolve().parent.parent / "csrc"
+            / "fullstep_bi.cu").read_text()
+    out = {}
+    for name, expr in re.findall(
+            r"constexpr int (\w+) = ([\w /]+);", text):
+        m = re.fullmatch(r"(\w+) / (\d+)", expr)
+        if expr.isdigit():
+            out[name] = int(expr)
+        elif m and m.group(1) in out:
+            out[name] = out[m.group(1)] // int(m.group(2))
+    return out
+
+
+@pytest.mark.parametrize("name", ["NW", "ROW_AR", "ROW_TL", "ROW_CW_MAX",
+                                  "COL_CT", "COL_DR"])
+def test_tile_constants_mirror_the_source(name):
+    """ops/fullstep_bi.py's tile constants say what csrc/fullstep_bi.cu
+    says: the segment arithmetic of the router rests on them."""
+    assert _cu_constants()[name] == getattr(fb, name)
+
+
+@pytest.mark.parametrize("Kp", [32, 64, 96, 128])
+def test_lane_tile_covers_k(Kp):
+    """The lane tile computes at least k_true lanes and at most Kp, fits a
+    warp, and gives blocks of the sizes the docstrings state."""
+    for K in range(1, Kp + 1):
+        lt = fb.lane_tile(K, Kp)
+        assert K <= lt.kc <= Kp and lt.kc == 4 * lt.gl * lt.jt
+        assert lt.jt <= Kp // 32 and 1 <= lt.gl <= 8
+        assert lt.gl * lt.cw <= 32 and lt.cw >= 4
+        assert fb.rows_block(K, Kp) == 32 * min(lt.cw, fb.ROW_CW_MAX)
+        assert fb.cols_tile(K, Kp) == (32 * lt.cw, 4 * lt.gl)
+    assert fb.lane_tile(0, Kp) == fb.lane_tile(Kp, Kp)
+    assert fb.lane_tile(20, 32) == (20, 1, 5, 6)
+    assert fb.rows_block(20, 32) == 192 and fb.cols_tile(20, 32) == (192, 20)
+
+
+def _pad_to(t, Kp, dim):
+    shape = list(t.shape)
+    shape[dim] = Kp - shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
+@pytest.mark.parametrize("miss_rate", [0.0, 0.1])
+def test_plain_versions_do_not_read_pad_lanes(miss_rate):
+    """K = 20 padded to Kp = 32 and to Kp = 64 gives the same eta', t,
+    p0', raw A + r and B0/B1 on the first 20 lanes and exact zeros beyond
+    (raw A + r: the row's sum of w1, since p0 is zero there).  The kernels'
+    k loops stop at the lane tile of k_true because of this."""
+    I, L, K = 40, 70, 20
+    eta, p0, x0, x1, miss = _inputs(31, I, L, K, K, miss_rate)
+    t8 = lambda a: torch.as_tensor(a, dtype=torch.int8)  # noqa: E731
+    c = torch.as_tensor(miss.sum(axis=1), dtype=torch.float32)
+    outs = []
+    for Kp in (32, 64):
+        e = _pad_to(torch.as_tensor(eta, dtype=torch.float32)[None], Kp, 2)
+        p = _pad_to(torch.as_tensor(p0, dtype=torch.float32)[None], Kp, 1)
+        args = (e, p, t8(x0), t8(x1), c, t8(miss) if miss_rate else None)
+        kw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+        step = fb.admixture_fullstep_biallelic_reference(*args, **kw)
+        raw = fb.admixture_fullstep_biallelic_streamed_reference(
+            *args, emit_a=True, emit_b=True, **kw)
+        assert (step[0][..., K:] == 0).all() and (step[2][:, K:] == 0).all()
+        assert (raw[2][:, K:] == 0).all() and (raw[3][:, K:] == 0).all()
+        # raw A + r on a pad lane is the row's sum of w1, one value a row
+        assert (raw[0][..., K:] == raw[0][..., K:K + 1]).all()
+        outs.append((step[0][..., :K], step[1], step[2][:, :K],
+                     raw[0][..., :K], raw[2][:, :K], raw[3][:, :K]))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
