@@ -25,9 +25,12 @@ each raising on failure:
    file with 5 % missing;
 6. generic kernels: the multi-allelic rows pass, columns pass and p
    epilogue against their plain versions at I=16384, L=2048, M=4, K=20,
-   chain batches 1 and 4, missing 0 % and 2 %, logL terms on and off; a
-   jagged panel (80 % M=2, 20 % M=8 loci, dense at M=8); the sweep
-   statistics and an a0 / emit_a chain;
+   chain batches 1, 2 and 4 with the segments the wrappers pick, missing
+   0 % and 2 %, logL terms on and off; a jagged panel (80 % M=2, 20 % M=8
+   loci, dense at M=8); each pass alone beside a yardstick the port never
+   calls (the two float32 matmuls of its shapes); the sweep statistics and
+   an a0 / emit_a chain; the rows and columns passes at Kp = 64 and 128 on
+   an unaligned panel, rerun bit-equal, and their compiler report;
 7. generic fits: ``api.fit_dataset`` on a simulated 16384 x 2048, M=4,
    K=20 panel with 1 % missing (plain EM with the adaptive interval, then
    SQUAREM), with the generic kernels' launch counts; then a small
@@ -537,14 +540,17 @@ def generic_inputs(seed, B, I, L, n_alleles, K, Kp, miss_rate, dev):
             miss if miss_rate else None, mask)
 
 
-def phase_generic_kernels(fs, dev, where):
+def phase_generic_kernels(fs, build, dev, where):
     """The generic kernels against their plain versions at the full shape,
     then each kernel alone at the fit's shape (its CUDA-event time for
     the kernels' record), the sweep statistics and an a0 chain."""
+    from multiclust_tpu_torch.ops.fullstep_bi import row_segments
+
     K, Kp = K_FULL, 32
     full_m = np.full(L_FULL, M_FULL)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {"rows": 0.0, "cols": 0.0, "p": 0.0}
-    cases = [(B, miss_rate, full_m, "M=4") for B in (1, 4)
+    cases = [(B, miss_rate, full_m, "M=4") for B in (1, 2, 4)
              for miss_rate in (0.0, 0.02)]
     # the jagged mix of bench.py:199-201, dense at M = 8
     jag = np.where(np.random.default_rng(10).random(L_FULL) < 0.8, 2, 8)
@@ -567,8 +573,13 @@ def phase_generic_kernels(fs, dev, where):
             p_ms = median_ms(lambda: fs.admixture_fullstep_reference(
                 *args, **kw))
             cells = B * I_FULL * args[1].shape[-1]
+            # the segments the wrappers pick for this batch
+            LM = cells // B // I_FULL
+            segs = (row_segments(B, I_FULL, LM, n_sm, k_true=K, Kp=Kp)[0],
+                    fs.cols_segments(B, I_FULL, LM, Kp, n_sm, K)[0])
             print(f"generic step {label} B={B} miss={miss_rate:.2f} "
-                  f"compute_t={compute_t}: max|d| eta'={e_eta:.3e} "
+                  f"compute_t={compute_t} ({segs[0]} lane segments, "
+                  f"{segs[1]} row segments): max|d| eta'={e_eta:.3e} "
                   f"t={e_t:.3e} p'={e_p:.3e} (rtol {RTOL}, atol {ATOL}); "
                   f"kernel {k_ms:.3f} ms ({cells / k_ms / 1e6:.2f} "
                   f"Glanes/s), plain {p_ms:.3f} ms "
@@ -582,13 +593,14 @@ def phase_generic_kernels(fs, dev, where):
                                            K, Kp, 0.01, dev)
     row_kw = dict(k_true=K, lb=1e-8, project=True, compute_t=True)
     p_kw = dict(k_true=K, plb=1e-8, project=True)
-    part = fs.fullstep_partials(e, p2, x2, m, M=M_FULL)
+    part = fs.fullstep_partials(e, p2, x2, m, M=M_FULL, k_true=K)
     passes = {
-        "rows": (lambda: fs.fullstep_rows(e, p2, x2, c, **row_kw),
+        "rows": (lambda: fs.fullstep_rows(e, p2, x2, c, M=M_FULL,
+                                          **row_kw),
                  lambda: fs.fullstep_rows_reference(e, p2, x2, c, **row_kw)),
         # the columns pass's partials, compared summed over segments
         "cols": (lambda: (fs.fullstep_partials(
-                     e, p2, x2, m, M=M_FULL).sum(dim=1),),
+                     e, p2, x2, m, M=M_FULL, k_true=K).sum(dim=1),),
                  lambda: (fs.fullstep_partials_reference(
                      e, p2, x2, m)[:, 0],)),
         "p": (lambda: (fs.fullstep_p(p2, part, mask, M=M_FULL, **p_kw),),
@@ -615,8 +627,24 @@ def phase_generic_kernels(fs, dev, where):
               f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
 
-    # the sweep statistics (finish=False) and an a0 / emit_a chain
+    # the yardstick the port never calls: each pass's two products alone,
+    # float32 torch.matmul (TF32 off) on K-wide operands
+    e_k, p_k = e[..., :K].contiguous(), p2[:, :K].contiguous()
+    w = torch.rand(x2.shape, device=dev).expand(2, -1, -1).contiguous()
+    mm = {"rows": median_ms(lambda: (e_k @ p_k, w @ p_k.transpose(1, 2))),
+          "cols": median_ms(lambda: (e_k @ p_k, e_k.transpose(1, 2) @ w))}
+    del w
+    print(f"yardstick, not a route of the port: two float32 matmuls of the "
+          f"rows pass's shapes (d, A) {mm['rows']:.3f} ms, of the columns "
+          f"pass's (d, B) {mm['cols']:.3f} ms; the kernels "
+          f"{ms['rows'][0]:.3f} and {ms['cols'][0]:.3f} ms on {where}",
+          flush=True)
+
+    # the sweep statistics (finish=False), its launches counted from 0 on
+    # its own (no fit calls it), and an a0 / emit_a chain
+    build.reset_launch_counts()
     got = fs.admixture_sweep_stats(e, p2, x2)
+    sweep_launches = build.LAUNCHES["mc_fullstep_rows"]
     ref = fs.admixture_sweep_stats_reference(e, p2, x2)
     torch.cuda.synchronize()
     sweep_err = max(max_err(g, r) for g, r in zip(got, ref))
@@ -644,7 +672,51 @@ def phase_generic_kernels(fs, dev, where):
     print(f"generic a0 / emit_a chain of two launches B=2: max|d| "
           f"{chain_err:.3e} on {where}", flush=True)
     errs["rows"] = max(errs["rows"], chain_err)
-    return errs, ms, (sweep_err, sweep_ms), bnd
+    return errs, ms, (sweep_err, sweep_ms, sweep_launches), bnd
+
+
+def phase_generic_shapes(fs, build, dev, where):
+    """The two redesigned generic kernels where the M = 4 fits do not take
+    them: Kp = 64 and 128 (K = 40, 100) on an unaligned panel (I = 1000,
+    L*M = 1003 x 3: byte loads, ragged tiles), in the segments the
+    wrappers pick, each against its plain version and rerun bit-equal;
+    then what the compiler made of them."""
+    from multiclust_tpu_torch.kernel_report import ptxas_lines
+    from multiclust_tpu_torch.ops.fullstep_bi import row_segments
+
+    I, L, M = 1000, 1003, 3
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for seed, (K, Kp) in enumerate(((40, 64), (100, 128))):
+        e, p2, x2, c, m, mask = generic_inputs(
+            60 + seed, 2, I, L, np.full(L, M), K, Kp, 0.02, dev)
+        row_kw = dict(k_true=K, lb=1e-8, project=True)
+
+        def rows():
+            return fs.fullstep_rows(e, p2, x2, c, M=M, **row_kw)
+
+        def cols():
+            return fs.fullstep_partials(e, p2, x2, m, M=M, k_true=K)
+
+        ref_rows = fs.fullstep_rows_reference(e, p2, x2, c, **row_kw)
+        ref_part = fs.fullstep_partials_reference(e, p2, x2, m)[:, 0]
+        got_rows, part = rows(), cols()
+        torch.cuda.synchronize()
+        err = max([max_err(g, r) for g, r in zip(got_rows, ref_rows)]
+                  + [max_err(part.sum(dim=1), ref_part)])
+        assert (part[:, :, K:] == 0).all()
+        assert all(torch.equal(u, v) for u, v in zip(got_rows, rows()))
+        assert torch.equal(part, cols())
+        segs = row_segments(2, I, L * M, n_sm, k_true=K, Kp=Kp)[0]
+        print(f"redesigned generic kernels, Kp={Kp} (K={K}, B=2, {I} x "
+              f"{L} x M={M}): max|d| {err:.3e} (rtol {RTOL}, atol "
+              f"{ATOL}); reruns bit-equal; rows pass "
+              f"{median_ms(rows, n=5, warm=1):.3f} ms ({segs} lane "
+              f"segments), columns pass {median_ms(cols, n=5, warm=1):.3f} "
+              f"ms ({part.shape[1]} row segments) on {where}", flush=True)
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    for name, text in ptxas_lines(report, "fullstep_(?:rows|cols)_"):
+        print(f"ptxas {name}: {text}", flush=True)
+        assert " 0 bytes spill stores, 0 bytes spill loads" in text, name
 
 
 def phase_fit_generic(build, dev, where):
@@ -1439,8 +1511,9 @@ def main() -> int:
     launches = phase_fit(build, dev, where)
     phase_reference(build, dev)
     phase_cli(build, where)
-    g_errs, g_ms, (sweep_err, sweep_ms), g_bnd = phase_generic_kernels(
-        fs, dev, where)
+    g_errs, g_ms, (sweep_err, sweep_ms, sweep_launches), g_bnd = \
+        phase_generic_kernels(fs, build, dev, where)
+    phase_generic_shapes(fs, build, dev, where)
     launches.update(phase_fit_generic(build, dev, where))
     phase_reference_generic(dev)
     phase_cli_generic(build, where)
@@ -1464,7 +1537,11 @@ def main() -> int:
             ("segmented rows pass 8192 x 131072, 2 chains", "rows_seg", b_ms,
              b_bnd),
             ("windowed columns pass 8192 x 131072, 2 chains", "cols_window",
-             b_ms, b_bnd)):
+             b_ms, b_bnd),
+            ("generic rows pass 16384 x 2048 x M=4, 2 chains", "rows", g_ms,
+             g_bnd),
+            ("generic columns pass 16384 x 2048 x M=4, 2 chains", "cols",
+             g_ms, g_bnd)):
         print(f"share of bound, {label}: {t[key][0]:.3f} ms "
               f"against {b[key][0]:.3f} ms ({b[key][1]}): "
               f"{100 * b[key][0] / t[key][0]:.1f} % on {where}", flush=True)
@@ -1479,18 +1556,23 @@ def main() -> int:
                       launches[f"mc_fullstep_bi_{name}"], errs[name],
                       ms[name, PAIR_CHAINS], bnd[name, PAIR_CHAINS])
         for name in ("rows", "cols")]
+    # a launch of the generic rows pass is two kernels, the pass and its
+    # finish (tiles.cuh's rows_finish_kernel), counted once and timed
+    # together: the record's name says so
     kernels += [
-        kernel_record(f"fullstep_{name}", GENERIC_SOURCE, GENERIC_TPU,
+        kernel_record(record, GENERIC_SOURCE, GENERIC_TPU,
                       launches[f"mc_fullstep_{name}"], g_errs[name],
                       g_ms[name], g_bnd[name])
-        for name in ("rows", "cols", "p")]
+        for name, record in (("rows", "fullstep_rows+rows_finish"),
+                             ("cols", "fullstep_cols"), ("p", "fullstep_p"))]
     # the sweeps' port is the generic rows, columns and p kernels with
-    # finish=False: its launches are those kernels' launches in the M=4
-    # fits, its times and error those of one admixture_sweep_stats call
+    # finish=False; no fit calls it: its launches are those of one
+    # admixture_sweep_stats call counted on their own, its times and error
+    # those of such a call
     kernels += [
-        kernel_record(name, GENERIC_SOURCE, tpu,
-                      launches["mc_fullstep_rows"], sweep_err, sweep_ms,
-                      g_bnd["sweep"]) for name, tpu in SWEEP_TPU.items()]
+        kernel_record(name, GENERIC_SOURCE, tpu, sweep_launches, sweep_err,
+                      sweep_ms, g_bnd["sweep"])
+        for name, tpu in SWEEP_TPU.items()]
     kernels += [
         kernel_record(f"mixture_{name}", MIX_SOURCE, MIX_TPU,
                       mix_launches[f"mc_mix_{name}"], m_errs[name],

@@ -1,5 +1,5 @@
 // Generic (multi-allelic) admixture full EM step for Hopper (sm_90a): a
-// rows pass, a columns pass and a p epilogue.
+// rows pass with its finish, a columns pass and a p epilogue.
 //
 // Replaces the Pallas TPU kernels `admixture_fullstep` / `_fullstep_kernel`
 // (multiclust_tpu/ops/kernels.py:200-341) and, with `finish` = 0, the
@@ -18,235 +18,340 @@
 // padded and masked lanes stay free of NaN.
 //
 // The TPU runs its grid in order and keeps B resident in VMEM across all
-// row blocks.  Hopper blocks run concurrently, so the step is split the
-// way csrc/fullstep_bi.cu splits the biallelic one, with no atomics
-// (deterministic):
+// row blocks.  Hopper blocks run concurrently, so the step is split as
+// csrc/fullstep_bi.cu splits the biallelic one, with no atomics
+// (deterministic), and built from the same register tiles and cp.async
+// rings (csrc/tiles.cuh):
 //
-// * rows pass: one block per (chain, 32 rows); loops over all L*M lanes
-//   in 32-lane tiles with the p2 tile in shared memory, keeps A and t in
-//   registers, and finishes eta' with one warp per row (lane = cluster).
-//   eta' goes to a new buffer because the columns pass reads the old eta.
-//   `finish` = 0 writes the raw A (no c, no finish) for a0 chaining and
-//   the sweep statistics.
-// * columns pass: one block per (chain, row segment, 16 lanes); loops
-//   over its segment of I in 32-row tiles, recomputes denom and w (+ the
-//   locus's miss count), keeps B [Kp, 16] in registers and writes it as
-//   the segment's partial sums.
+// * rows pass: block (chain, rows, column segment) runs the rows loop of
+//   tiles.cuh with the generic cells: its eta rows resident in shared
+//   memory, p2 tiles of 32 lanes streamed through a ring of two, d as a
+//   register tile of CW rows x 4 lanes a thread, w once through the warp's
+//   shared memory, A = w p2^T as a register tile of 4 rows x 4 JT clusters
+//   kept across all tiles.  It writes the segment's raw A and t; the
+//   finish kernel of tiles.cuh sums the segments in order (t in float64),
+//   adds a0 and c and runs the eta finish and Michelot one warp a row, or
+//   writes the raw A under `finish` = 0.  The segments (ops/fullstep.py
+//   picks them as the biallelic streamed step does) fill the card when
+//   the chain batch's rows alone do not.  Where M is a multiple of 4 a
+//   thread's four lanes are one locus, at most ploidy of them non-zero,
+//   and the sparse cells take the reciprocal and the log of those only.
+// * columns pass: block (chain, row segment, TC lanes) keeps its p2 block
+//   [KC][TC] resident and streams eta, x and miss tiles of 4 GL rows
+//   through a cp.async ring of two (x and miss as whole 4-byte words of
+//   the block's lanes and loci), one barrier a tile; d is a register tile
+//   of 4 rows x 4 lanes a thread, B = eta^T (w + miss) one of 4 JT
+//   clusters x the same 4 lanes, kept across the segment and written as
+//   its partials (rows k >= KC written 0).  A thread reads its four lanes'
+//   x as one word and the miss count once per (row, locus).  No load is
+//   held in registers, so the kernel fits 80 registers and three blocks
+//   an SM at Kp = 32 (the register lookahead of x and miss that the
+//   biallelic kernel keeps took 113 and two blocks, 1.66-1.69 ms against
+//   1.24-1.27 at 16384 x 2048 x M = 4, 2 chains, K = 20; NVIDIA H100
+//   80GB HBM3, 700 W, PERF.md).  TC = 8 x 4 CW lanes (K = 20: 192), so eta
+//   passes through L2 L*M / TC times a step and not L*M / 16.
 // * p epilogue: one aligned group of G lanes per (chain, k, locus) sums
 //   the partials in segment order, forms p B, normalizes over the valid
 //   lanes and runs the masked Michelot with plb on the card, keeping the
 //   K-pad rows exactly 0 (`_normalize_p`, model/admixture.py:72-88, which
 //   JAX runs in XLA after the kernel).  `finish` = 0 writes raw B instead.
 //
-// Bound: four contractions of I x L*M x Kp per step (denom twice, A, B),
-// in IEEE f32 FMA on the CUDA cores (no TF32); x is one byte per lane and
-// is read twice.  The step is bound by FMA and shared-memory issue, not by
-// device memory.  Not exploited yet: x is zero on at least M - ploidy of
-// each locus's M lanes, and there w and t vanish; the TPU computes the
-// dense product anyway, and so does this first port.
+// Bound: four contractions of I x L*M x K per step (denom twice, A, B) in
+// IEEE f32 FMA on the CUDA cores (no TF32), against one byte of x a lane
+// read twice: instruction issue and latency, not device memory.  The k
+// loops stop at the lane tile of k_true (K = 20: 20 of Kp = 32 lanes).
+// Per lane the passes do 2 K FMA of products, a reciprocal, and in the
+// rows pass a logf under x > 0.  w = x * __frcp_rn(d): a division x / d
+// with x = 0 leaves the division's fast path (its range check sends a
+// zero numerator to the slow routine), and x is 0 on at least M - ploidy
+// of a locus's M lanes.  For counts 0, 1, 2 and 4 (ploidy <= 2, and the
+// power-of-two counts of any ploidy) the product is bit-equal to the
+// quotient; a count of 3 may differ from x / d in the last bit.  Not
+// exploited yet: the dense products are computed where x = 0 all the same
+// (ROADMAP queue 3, zero lanes).
 //
-// Ragged I and L*M edges are masked here; the caller pads only K, to Kp in
-// {32, 64, 96, 128}.
+// Ragged I and L*M edges are masked in the loads; the caller pads only K,
+// to Kp in {32, 64, 96, 128}.  Sums are in a fixed order: reruns are
+// bit-equal.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "simplex.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int NT = 256;       // threads per block, every kernel
-constexpr int ROW_R = 32;     // rows per rows-pass block
-constexpr int ROW_TL = 32;    // lanes per rows-pass tile
-constexpr int COL_TC = 16;    // lanes per columns-pass block
-constexpr int COL_RI = 32;    // rows per columns-pass tile
+// rows of w a step of the columns pass's B-phase loop unrolled together
+constexpr int GB_UNROLL = 4;
 
-using mc::michelot_warp;
-using mc::warp_sum;
-
-// x / denom and x log(denom) where x > 0; a zero denominator counts as 1
-__device__ __forceinline__ float lane_weight(int x, float d) {
-  return x > 0 ? (float)x / (d > 0.f ? d : 1.f) : 0.f;
-}
-
-template <int KP>
-__global__ void __launch_bounds__(NT) fullstep_rows_kernel(
-    const float* __restrict__ eta, const float* __restrict__ p2,
-    const int8_t* __restrict__ x2, const float* __restrict__ c,
-    const float* __restrict__ a0, float* __restrict__ out,
-    float* __restrict__ t_out, int I, int LM, int k_true, float lb,
-    int project, int compute_t, int finish) {
-  constexpr int KJ = KP / 32;
-  constexpr int RI = ROW_R / (NT / 32);  // rows per warp
-  __shared__ float eta_s[ROW_R][KP + 1];
-  __shared__ float p_s[KP][ROW_TL + 1];
-  __shared__ float w_s[ROW_R][ROW_TL + 1];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * ROW_R;
-  const float* eta_b = eta + (size_t)b * I * KP;
-  const float* p_b = p2 + (size_t)b * KP * LM;
-
-  for (int e = tid; e < ROW_R * KP; e += NT) {
-    const int r = e / KP, k = e % KP, row = row0 + r;
-    eta_s[r][k] = row < I ? eta_b[(size_t)row * KP + k] : 0.f;
-  }
-
-  // warp w owns rows w + 8 i: in the denom/w phase lane = allele lane,
-  // in the A phase and the eta finish lane = cluster (k = lane + 32 j)
-  float tpart[RI], acc[RI][KJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    tpart[i] = 0.f;
-    const int row = row0 + warp + 8 * i;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j)
-      acc[i][j] = (a0 != nullptr && row < I)
-                      ? a0[((size_t)b * I + row) * KP + lane + 32 * j]
-                      : 0.f;
-  }
-
-  for (int l0 = 0; l0 < LM; l0 += ROW_TL) {
-    __syncthreads();
-    for (int e = tid; e < KP * ROW_TL; e += NT) {
-      const int k = e / ROW_TL, cc = e % ROW_TL, col = l0 + cc;
-      p_s[k][cc] = col < LM ? p_b[(size_t)k * LM + col] : 0.f;
-    }
-    __syncthreads();
-    float d[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) d[i] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < KP; ++k) {
-      const float pv = p_s[k][lane];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-        d[i] = fmaf(eta_s[warp + 8 * i][k], pv, d[i]);
-    }
-    const int col = l0 + lane;
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = warp + 8 * i, row = row0 + r;
-      float w = 0.f;
-      if (row < I && col < LM) {
-        const int x = x2[(size_t)row * LM + col];
-        w = lane_weight(x, d[i]);
-        if (compute_t && x > 0)
-          tpart[i] += (float)x * logf(d[i] > 0.f ? d[i] : 1.f);
-      }
-      w_s[r][lane] = w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int cc = 0; cc < ROW_TL; ++cc) {
-      float wv[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) wv[i] = w_s[warp + 8 * i][cc];
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float pv = p_s[lane + 32 * j][cc];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(wv[i], pv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const float tt = warp_sum(tpart[i]);
-    const int r = warp + 8 * i, row = row0 + r;
-    if (row >= I) continue;  // uniform across the warp
-    float* o = out + ((size_t)b * I + row) * KP;
-    if (lane == 0) t_out[(size_t)b * I + row] = compute_t ? tt : 0.f;
-    if (!finish) {
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = acc[i][j];
-      continue;
-    }
-    const float ci = c != nullptr ? c[row] : 0.f;
-    float num[KJ], part = 0.f;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      num[j] = eta_s[r][lane + 32 * j] * (acc[i][j] + ci);
-      part += num[j];
-    }
-    const float tot = warp_sum(part);
-#pragma unroll
-    for (int j = 0; j < KJ; ++j)
-      num[j] = tot > 0.f ? num[j] / tot : eta_s[r][lane + 32 * j];
-    if (project) michelot_warp<KJ>(num, lane, k_true, lb);
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = num[j];
-  }
-}
-
-template <int KP>
-__global__ void __launch_bounds__(NT) fullstep_cols_kernel(
-    const float* __restrict__ eta, const float* __restrict__ p2,
-    const int8_t* __restrict__ x2, const int8_t* __restrict__ miss,
-    float* __restrict__ part, int I, int L, int M, int seg_rows) {
-  constexpr int KJ = KP / 16;
-  constexpr int RG = COL_RI / (NT / COL_TC);  // rows per thread, w phase
-  __shared__ float p_s[KP][COL_TC + 1];
-  __shared__ float eta_s[COL_RI][KP + 1];
-  __shared__ float w_s[COL_RI][COL_TC + 1];
-
-  const int tid = threadIdx.x;
+// Segmented rows pass: block (x = R rows, y = column segment, z = chain)
+// covers the lanes [y seg_cols, + seg_cols) of [0, LM) and writes its raw
+// A and t as that segment's partials, apart [B, n_seg, I, KP] (lanes k >=
+// KC written 0: p2 is zero there) and tpart [B, n_seg, I].  C: the
+// generic cells, kSparse where each thread's four lanes are one locus.
+template <int KP, Cells C>
+__global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
+    fullstep_rows_kernel(const float* __restrict__ eta,
+                         const float* __restrict__ p2,
+                         const int8_t* __restrict__ x2,
+                         float* __restrict__ apart,
+                         float* __restrict__ tpart_out, int I, int LM,
+                         int seg_cols, int compute_t, LaneTile lt, int vec) {
+  constexpr int JTM = KP / 32, ES = KP + 4;
+  const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
+  const int RW = ROW_AR * CW, R = NW * RW;
+  float* smem = reinterpret_cast<float*>(dyn_smem4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
-  const int LM = L * M;
-  const int col0 = blockIdx.x * COL_TC;
-  const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
-  // thread owns lane cl; in the w phase rows g + 16 i, in the B phase
-  // clusters k = g + 16 j
-  const int cl = tid % COL_TC, g = tid / COL_TC, col = col0 + cl;
-  const int locus = col / M;
+  const int row0 = blockIdx.x * R, rw0 = warp * RW;
+  const int c_lo = seg * seg_cols, c_hi = min(LM, c_lo + seg_cols);
   const float* eta_b = eta + (size_t)b * I * KP;
   const float* p_b = p2 + (size_t)b * KP * LM;
 
-  for (int e = tid; e < KP * COL_TC; e += NT) {
-    const int k = e / COL_TC, cc = e % COL_TC, cg = col0 + cc;
-    p_s[k][cc] = cg < LM ? p_b[(size_t)k * LM + cg] : 0.f;
-  }
-  float acc[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) acc[j] = 0.f;
+  float acc[JTM][4][ROW_AR];
+  rows_accumulate<KP, C>(smem, eta_b, p_b, x2, nullptr, row0, I, LM, c_lo,
+                         c_hi, compute_t, 1, lt, vec, acc);
+  const float* t_s = smem + R * ES + 2 * KC * ROW_PS + R * ROW_PS;
+  const size_t o0 = ((size_t)b * n_seg + seg) * I;
 
-  for (int r0 = r_lo; r0 < r_hi; r0 += COL_RI) {
-    __syncthreads();
-    for (int e = tid; e < COL_RI * KP; e += NT) {
-      const int r = e / KP, k = e % KP, row = r0 + r;
-      eta_s[r][k] = row < r_hi ? eta_b[(size_t)row * KP + k] : 0.f;
-    }
-    __syncthreads();
+  for (int rl = lane; rl < RW; rl += 32) {
+    const int row = row0 + rw0 + rl;
+    if (row < I) tpart_out[o0 + row] = t_s[rw0 + rl];
+  }
+  int a = lane / CW, cr = lane % CW;
+  if (a >= GL) a = 0, cr = 0;
 #pragma unroll
-    for (int i = 0; i < RG; ++i) {
-      const int r = g + (NT / COL_TC) * i, row = r0 + r;
-      float d = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < KP; ++k) d = fmaf(eta_s[r][k], p_s[k][cl], d);
-      float w = 0.f;
-      if (row < r_hi && col < LM) {
-        w = lane_weight(x2[(size_t)row * LM + col], d);
-        if (miss != nullptr) w += (float)miss[(size_t)row * L + locus];
+  for (int i = 0; i < ROW_AR; ++i) {
+    const int row = row0 + rw0 + cr + CW * i;
+    if (row >= I) continue;
+    float* out = apart + (o0 + row) * KP;
+#pragma unroll
+    for (int j = 0; j < JTM; ++j)
+      if (j == 0 || j < JT)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[a + GL * (4 * j + q)] = acc[j][q][i];
+  }
+  for (int rl = 0; rl < RW; ++rl) {
+    const int row = row0 + rw0 + rl;
+    if (row >= I) break;
+    for (int k = KC + lane; k < KP; k += 32) apart[(o0 + row) * KP + k] = 0.f;
+  }
+}
+
+// Bytes a row of a columns-pass block's miss tile takes: the loci of TC
+// lanes at M a locus, from a multiple of 4 below the first, in words.
+__host__ __device__ inline int miss_tile_bytes(int TC, int M) {
+  return ((TC + M - 1) / M + 8) & ~3;
+}
+
+// Shared memory of a columns-pass block: in floats eta_s [2][RI][KP + 4],
+// p_s [KC][TC], w_s [NW][RI][TCW]; then in bytes x_s [2][RI][TC] and m_s
+// [2][RI][MS]; RI = 4 GL rows a tile, TCW = 4 CW lanes a warp, TC = NW TCW
+// lanes a block, MS = miss_tile_bytes(TC, M).
+__host__ __device__ inline int cols_smem_bytes(int KP, const LaneTile& lt,
+                                               int M) {
+  const int RI = COL_DR * lt.gl, TCW = COL_CT * lt.cw, TC = NW * TCW;
+  return 4 * (2 * RI * (KP + 4) + lt.kc * TC + NW * RI * TCW) +
+         2 * RI * (TC + miss_tile_bytes(TC, M));
+}
+
+// The x and miss tiles of the rows [r0, r0 + RI) below r_hi into x_s
+// [RI][TC] (the lanes [col0, col0 + TC)) and m_s [RI][MS] (the loci from
+// lstart, a multiple of 4), zeros past the edges: 4-byte asynchronous
+// copies where the rows are aligned (xv, mv), plain loads otherwise.
+__device__ __forceinline__ void cols_issue_xm(
+    int8_t* x_s, int8_t* m_s, const int8_t* __restrict__ x2,
+    const int8_t* __restrict__ miss, int r0, int r_hi, int RI, int col0,
+    int TC, int MS, int LM, int L, int lstart, int xv, int mv) {
+  const int XW = TC / 4, MW = MS / 4;
+  for (int e = threadIdx.x; e < RI * XW; e += NT) {
+    const int r = e / XW, c4 = 4 * (e % XW), row = r0 + r, col = col0 + c4;
+    const int n = row < r_hi ? min(4, LM - col) : 0;
+    int8_t* dst = x_s + r * TC + c4;
+    if (xv)
+      cp_async4(dst, n > 0 ? x2 + (size_t)row * LM + col : x2, max(n, 0));
+    else
+      *reinterpret_cast<uint32_t*>(dst) =
+          load_x4(x2, (size_t)row * LM + col, n, 0);
+  }
+  if (miss == nullptr) return;
+  for (int e = threadIdx.x; e < RI * MW; e += NT) {
+    const int r = e / MW, c4 = 4 * (e % MW), row = r0 + r, l = lstart + c4;
+    const int n = row < r_hi ? min(4, L - l) : 0;
+    int8_t* dst = m_s + r * MS + c4;
+    if (mv)
+      cp_async4(dst, n > 0 ? miss + (size_t)row * L + l : miss, max(n, 0));
+    else
+      *reinterpret_cast<uint32_t*>(dst) =
+          load_x4(miss, (size_t)row * L + l, n, 0);
+  }
+}
+
+// Block (x = TC lanes, y = row segment, z = chain).  Warp w owns the lanes
+// colw = w TCW ... of the block's tile: lane = (a cluster lane, cg lane
+// of the allele axis); in the d phase a thread computes rows a + GL i (i <
+// 4) x lanes 4 cg .. 4 cg + 3 of the eta tile, in the B phase it owns
+// clusters 4 (a + GL j) .. + 3 (j < JT) x the same four lanes.  The eta,
+// x and miss tiles of the next rows arrive by cp.async while a tile is
+// computed, so no thread holds loads in flight in its registers; the
+// warp's w goes through its own shared memory, so the ring needs the
+// block's barrier once a tile.  part[b][seg][k][lane] over all KP rows.
+template <int KP>
+__global__ void __launch_bounds__(NT, KP <= 32 ? 3 : 2)
+    fullstep_cols_kernel(const float* __restrict__ eta,
+                         const float* __restrict__ p2,
+                         const int8_t* __restrict__ x2,
+                         const int8_t* __restrict__ miss,
+                         float* __restrict__ part, int I, int L, int M,
+                         int seg_rows, LaneTile lt, int xv, int mv) {
+  constexpr int JTM = KP / 32, ES = KP + 4;
+  const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
+  const int RI = COL_DR * GL, TCW = COL_CT * CW, TC = NW * TCW;
+  const int LM = L * M, MS = miss_tile_bytes(TC, M);
+  float* smem = reinterpret_cast<float*>(dyn_smem4);
+  float* eta_s = smem;
+  float* p_s = eta_s + 2 * RI * ES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* w_w = p_s + KC * TC + warp * RI * TCW;
+  int8_t* x_s = reinterpret_cast<int8_t*>(p_s + KC * TC + NW * RI * TCW);
+  int8_t* m_s = x_s + 2 * RI * TC;
+
+  const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
+  const int col0 = blockIdx.x * TC;
+  const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
+  const int lstart = (col0 / M) & ~3;
+  int a = lane / CW, cg = lane % CW;
+  if (a >= GL) a = 0, cg = 0;   // spare lanes repeat lane 0's work
+  const int colw = warp * TCW + COL_CT * cg;  // within the block's tile
+  const int col = col0 + colw;
+  const int ncol = LM - col;  // the thread's lanes below LM (if < 4)
+  const float* eta_b = eta + (size_t)b * I * KP;
+  const float* p_b = p2 + (size_t)b * KP * LM;
+
+  cols_issue_xm(x_s, m_s, x2, miss, r_lo, r_hi, RI, col0, TC, MS, LM, L,
+                lstart, xv, mv);
+  cols_issue_eta<KP>(eta_s, eta_b, r_lo, r_hi, RI, KC);
+  for (int e = tid; e < KC * TC; e += NT) {
+    const int k = e / TC, cc = e % TC, cgl = col0 + cc;
+    p_s[e] = cgl < LM ? p_b[(size_t)k * LM + cgl] : 0.f;
+  }
+
+  // The loci of the thread's four lanes (col is a multiple of 4): for M
+  // >= 2 they are l0 for the lanes q < qs and l0 + 1 for the others (qs =
+  // 4 when M is a multiple of 4), so miss is read once per (row, locus)
+  // and spread over the lanes by the byte masks; M = 1: four loci, one
+  // word.
+  const int lm = col / M - lstart;   // l0 within the miss tile
+  const int qs = M >= 2 ? min(4, M - col % M) : 4;
+  const uint32_t lo_mask =
+      0x01010101u & (qs >= 4 ? ~0u : (1u << (8 * qs)) - 1u);
+  const uint32_t hi_mask = 0x01010101u & ~lo_mask;
+
+  float acc[JTM][4][COL_CT];
+#pragma unroll
+  for (int j = 0; j < JTM; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int cc = 0; cc < COL_CT; ++cc) acc[j][q][cc] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  int buf = 0;
+  for (int r0 = r_lo; r0 < r_hi; r0 += RI, buf ^= 1) {
+    const float* es = eta_s + buf * RI * ES;
+    const int8_t* xs = x_s + buf * RI * TC;
+    const int8_t* ms = m_s + buf * RI * MS;
+    if (r0 + RI < r_hi) {
+      cols_issue_xm(x_s + (buf ^ 1) * RI * TC, m_s + (buf ^ 1) * RI * MS,
+                    x2, miss, r0 + RI, r_hi, RI, col0, TC, MS, LM, L, lstart,
+                    xv, mv);
+      cols_issue_eta<KP>(eta_s + (buf ^ 1) * RI * ES, eta_b, r0 + RI, r_hi,
+                         RI, KC);
+    }
+    // d phase: the contracted cluster index in eta's vector
+    float d[COL_DR][4];
+#pragma unroll
+    for (int i = 0; i < COL_DR; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d[i][q] = 0.f;
+    for (int k4 = 0; k4 < KC; k4 += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) pv[q] = ld4(p_s + (k4 + q) * TC + colw);
+#pragma unroll
+      for (int i = 0; i < COL_DR; ++i)
+        d_row(d[i], ld4(es + (a + GL * i) * ES + k4), pv);
+    }
+    // w + miss of the cells; rows and lanes past the edges hold x = 0 and
+    // miss = 0 (and eta = 0)
+#pragma unroll
+    for (int i = 0; i < COL_DR; ++i) {
+      const int r = a + GL * i;
+      const uint32_t xw =
+          *reinterpret_cast<const uint32_t*>(xs + r * TC + colw);
+      uint32_t mw = 0u;
+      if (miss != nullptr) {
+        const int8_t* mr = ms + r * MS + lm;
+        if (M == 1)
+          mw = *reinterpret_cast<const uint32_t*>(mr);
+        else
+          mw = (uint32_t)(uint8_t)mr[0] * lo_mask |
+               (qs < 4 ? (uint32_t)(uint8_t)mr[1] * hi_mask : 0u);
       }
-      w_s[r][cl] = w;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < COL_RI; ++r) {
-      const float wv = w_s[r][cl];
+      float u[4];
 #pragma unroll
-      for (int j = 0; j < KJ; ++j)
-        acc[j] = fmaf(eta_s[r][g + 16 * j], wv, acc[j]);
+      for (int q = 0; q < 4; ++q) {
+        const float sd = d[i][q] > 0.f ? d[i][q] : 1.f;
+        u[q] = fmaf(x_byte(xw, q), __frcp_rn(sd), x_byte(mw, q));
+      }
+      *reinterpret_cast<float4*>(w_w + r * TCW + COL_CT * cg) =
+          make_float4(u[0], u[1], u[2], u[3]);
     }
+    __syncwarp();
+    // B phase
+#pragma unroll GB_UNROLL
+    for (int r = 0; r < RI; ++r) {
+      const float4 u = ld4(w_w + r * TCW + COL_CT * cg);
+#pragma unroll
+      for (int j = 0; j < JTM; ++j) {
+        if (j == 0 || j < JT) {
+          const float4 e = ld4(es + r * ES + 4 * (a + GL * j));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float ev = f4_get(e, q);
+            acc[j][q][0] = fmaf(ev, u.x, acc[j][q][0]);
+            acc[j][q][1] = fmaf(ev, u.y, acc[j][q][1]);
+            acc[j][q][2] = fmaf(ev, u.z, acc[j][q][2]);
+            acc[j][q][3] = fmaf(ev, u.w, acc[j][q][3]);
+          }
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
   }
 
-  if (col >= LM) return;
-  // part[b][seg][k][j]
-  float* o = part + ((size_t)b * n_seg + seg) * KP * LM;
+  // part[b][seg][k][lane]: the computed rows, then zeros on k >= KC
+  float* out = part + ((size_t)b * n_seg + seg) * KP * LM + col;
+  const int vec = LM % 4 == 0;
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) o[(size_t)(g + 16 * j) * LM + col] = acc[j];
+  for (int j = 0; j < JTM; ++j) {
+    if (j == 0 || j < JT) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float* o = out + (size_t)(4 * (a + GL * j) + q) * LM;
+        if (vec && ncol >= COL_CT) {
+          *reinterpret_cast<float4*>(o) = make_float4(
+              acc[j][q][0], acc[j][q][1], acc[j][q][2], acc[j][q][3]);
+        } else {
+#pragma unroll
+          for (int cc = 0; cc < COL_CT; ++cc)
+            if (cc < ncol) o[cc] = acc[j][q][cc];
+        }
+      }
+    }
+  }
+  for (int k = KC + a; k < KP; k += GL)
+    for (int cc = 0; cc < COL_CT; ++cc)
+      if (cc < ncol) out[(size_t)k * LM + cc] = 0.f;
 }
 
 // p epilogue: one aligned group of G lanes per (chain, k, locus); lane g
@@ -303,67 +408,107 @@ __global__ void __launch_bounds__(NT) fullstep_p_kernel(
     if (live && m < M) out[off + m] = v[j];
   }
 }
-
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/build.py).  Pointers are
 // device pointers, optional ones may be null; `stream` is a cudaStream_t.
-// Each returns the cudaGetLastError() of its launch.
+// Each returns the cudaGetLastError() of its launches.  k_true outside
+// [1, Kp] means Kp.
 
+// Rows pass in n_seg segments of seg_cols lanes (n_seg <= 65535) into the
+// scratch apart [B, n_seg, I, Kp] and tpart [B, n_seg, I], then its
+// finish: eta' (or the raw A when finish = 0) into out [B, I, Kp] and t
+// into t_out [B, I] float64.  c and a0 may be null.  M: the allele slots
+// a locus, or 0 when the caller does not say (the dense cells).
 extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
                                 const void* x2, const void* c,
-                                const void* a0, void* out, void* t_out,
-                                int B, int I, int LM, int Kp, int k_true,
-                                float lb, int project, int compute_t,
-                                int finish, void* stream) {
-  const dim3 grid((I + ROW_R - 1) / ROW_R, 1, B);
+                                const void* a0, void* apart, void* tpart,
+                                void* out, void* t_out, int B, int I, int LM,
+                                int M, int Kp, int k_true, float lb,
+                                int project, int compute_t, int finish,
+                                int seg_cols, int n_seg, void* stream) {
+  if (!kp_ok(Kp) || seg_cols < 1) return (int)cudaErrorInvalidValue;
+  const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
+  const int R = NW * ROW_AR * lt.cw;
+  const size_t smem = sizeof(float) * (size_t)rows_smem_floats(Kp, lt, 0);
+  // every segment starts at a multiple of 4 when the rows and the
+  // segment size do
+  const int vec =
+      LM % 4 == 0 && seg_cols % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
+  const dim3 grid((I + R - 1) / R, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
   const float* e = (const float*)eta;
   const float* p = (const float*)p2;
   const int8_t* x = (const int8_t*)x2;
-  const float* cc = (const float*)c;
-  const float* a = (const float*)a0;
-  float* o = (float*)out;
-  float* t = (float*)t_out;
-#define MC_ROWS(KP)                                                        \
-  fullstep_rows_kernel<KP><<<grid, NT, 0, s>>>(e, p, x, cc, a, o, t, I, LM, \
-                                               k_true, lb, project,        \
-                                               compute_t, finish)
-  switch (Kp) {
-    case 32: MC_ROWS(32); break;
-    case 64: MC_ROWS(64); break;
-    case 96: MC_ROWS(96); break;
-    case 128: MC_ROWS(128); break;
-    default: return (int)cudaErrorInvalidValue;
+  float* ap = (float*)apart;
+  float* tp = (float*)tpart;
+  int err = 0;
+  // a segment starts at a multiple of 32 lanes, so a thread's four lanes
+  // are one locus when M is a multiple of 4 (and vec holds)
+  const bool sparse = vec && M > 0 && M % 4 == 0;
+#define MC_ROWS(KP, C)                                                  \
+  err = allow_smem(fullstep_rows_kernel<KP, C>);                        \
+  if (err == 0)                                                         \
+  fullstep_rows_kernel<KP, C><<<grid, NT, smem, s>>>                    \
+  (e, p, x, ap, tp, I, LM, seg_cols, compute_t, lt, vec)
+#define MC_ROWS_KP(C)                      \
+  switch (Kp) {                            \
+    case 32: MC_ROWS(32, C); break;        \
+    case 64: MC_ROWS(64, C); break;        \
+    case 96: MC_ROWS(96, C); break;        \
+    default: MC_ROWS(128, C); break;       \
   }
+  if (sparse) {
+    MC_ROWS_KP(Cells::kSparse)
+  } else {
+    MC_ROWS_KP(Cells::kDense)
+  }
+#undef MC_ROWS_KP
 #undef MC_ROWS
+  if (err == 0) err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  launch_rows_finish(eta, apart, tpart, a0, c, nullptr, out, t_out, B, I,
+                     Kp, n_seg, k_true, lb, !finish, project, compute_t, s);
   return (int)cudaGetLastError();
 }
 
+// Columns pass in n_seg row segments of seg_rows rows (n_seg <= 65535):
+// part [B, n_seg, Kp, L*M]; miss may be null.
 extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
                                 const void* x2, const void* miss,
                                 void* part, int B, int I, int L, int M,
-                                int Kp, int n_seg, int seg_rows,
+                                int Kp, int k_true, int n_seg, int seg_rows,
                                 void* stream) {
-  const dim3 grid((L * M + COL_TC - 1) / COL_TC, n_seg, B);
+  if (!kp_ok(Kp) || M < 1) return (int)cudaErrorInvalidValue;
+  const LaneTile lt = lane_tile(k_true, Kp, 32);
+  const int TC = NW * COL_CT * lt.cw;
+  const size_t smem = (size_t)cols_smem_bytes(Kp, lt, M);
+  const int LM = L * M;
+  // the tiles of x and miss arrive by cp.async where every row starts at
+  // a multiple of 4 bytes, else by plain loads
+  const int xv = LM % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
+  const int mv = L % 4 == 0 && ((uintptr_t)miss & 3) == 0;
+  const dim3 grid((LM + TC - 1) / TC, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
   const float* e = (const float*)eta;
   const float* p = (const float*)p2;
   const int8_t* x = (const int8_t*)x2;
   const int8_t* m = (const int8_t*)miss;
   float* pt = (float*)part;
-#define MC_COLS(KP)                                                 \
-  fullstep_cols_kernel<KP><<<grid, NT, 0, s>>>(e, p, x, m, pt, I, L, \
-                                               M, seg_rows)
+  int err = 0;
+#define MC_COLS(KP)                                                     \
+  err = allow_smem(fullstep_cols_kernel<KP>);                           \
+  if (err == 0)                                                         \
+  fullstep_cols_kernel<KP><<<grid, NT, smem, s>>>                       \
+  (e, p, x, m, pt, I, L, M, seg_rows, lt, xv, mv)
   switch (Kp) {
     case 32: MC_COLS(32); break;
     case 64: MC_COLS(64); break;
     case 96: MC_COLS(96); break;
-    case 128: MC_COLS(128); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: MC_COLS(128); break;
   }
 #undef MC_COLS
-  return (int)cudaGetLastError();
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // M <= 1024: G lanes per (k, locus) row, MJ slots per lane

@@ -79,318 +79,17 @@
 //   the arithmetic.
 //
 // The caller pads only K, to Kp in {32, 64, 96, 128}.  Sums are in a
-// fixed order: reruns are bit-equal.
+// fixed order: reruns are bit-equal.  The tiles, the cp.async helpers, the
+// rows loop (rows_accumulate) and the rows finish live in tiles.cuh, which
+// the generic step (csrc/fullstep.cu) shares.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "simplex.cuh"
-
-// dynamic shared memory of every kernel here, 16-byte aligned
-extern __shared__ float4 dyn_smem4[];
-
-// 16-byte asynchronous copy to shared memory; the bytes past `src_bytes`
-// are filled with zeros
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+#include "tiles.cuh"
 
 namespace {
 
-constexpr int NT = 256;       // threads per block, both passes
-constexpr int NW = NT / 32;   // warps per block
-constexpr int ROW_AR = 4;     // rows per thread, A phase of the rows pass
-constexpr int ROW_TL = 32;    // columns per rows-pass tile
-constexpr int ROW_CW_MAX = 8; // at most 4 x 8 rows a warp
-constexpr int COL_CT = 4;     // columns per thread, columns pass
-constexpr int COL_DR = 4;     // rows per thread, d phase of the columns pass
-// rows of w a step of the B-phase loop and 4-column steps of the A-phase
-// loop unrolled together (measured: 4 and 8 beat 2, 1 and 2, 4)
-constexpr int B_UNROLL = 4, A_UNROLL = 8;
-constexpr float DMIN = 1e-30f;
-constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may ask
-
-using mc::michelot_warp;
-using mc::warp_sum;
-
-// How the lanes of a warp and the registers of a thread split the cluster
-// axis for k_true clusters: kc lanes are computed (a multiple of 4, >=
-// k_true, <= Kp), in jt groups of four a thread on gl cluster lanes; cw
-// lanes are left for the other axis.  ops/fullstep_bi.lane_tile mirrors it.
-struct LaneTile {
-  int kc, jt, gl, cw;
-};
-
-LaneTile lane_tile(int k_true, int Kp, int cw_max) {
-  const int k = k_true < 1 || k_true > Kp ? Kp : k_true;
-  const int g = (k + 3) / 4;
-  LaneTile t;
-  t.jt = (g + 7) / 8;
-  t.gl = (g + t.jt - 1) / t.jt;
-  t.cw = 32 / t.gl < cw_max ? 32 / t.gl : cw_max;
-  t.kc = 4 * t.gl * t.jt;
-  return t;
-}
-
-// four int8 of a row starting at `off`, of which the first n are wanted
-// (n <= 0: none); one 4-byte load where the address is aligned
-__device__ __forceinline__ uint32_t load_x4(const int8_t* __restrict__ x,
-                                            size_t off, int n, int vec) {
-  if (n <= 0) return 0u;
-  if (vec && n >= 4) return *reinterpret_cast<const uint32_t*>(x + off);
-  uint32_t v = 0u;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    if (q < n) v |= (uint32_t)(uint8_t)x[off + q] << (8 * q);
-  return v;
-}
-
-__device__ __forceinline__ float x_byte(uint32_t v, int q) {
-  return (float)(int8_t)(v >> (8 * q));
-}
-
-__device__ __forceinline__ float f4_get(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ const float4& ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc[q] += sum over the four k of e.k * pv[k].q: one row of a d tile
-__device__ __forceinline__ void d_row(float (&acc)[4], const float4& e,
-                                      const float4 (&pv)[4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    acc[q] = fmaf(e.x, f4_get(pv[0], q), acc[q]);
-    acc[q] = fmaf(e.y, f4_get(pv[1], q), acc[q]);
-    acc[q] = fmaf(e.z, f4_get(pv[2], q), acc[q]);
-    acc[q] = fmaf(e.w, f4_get(pv[3], q), acc[q]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// rows pass
-
-// Shared memory of a rows-pass block, in floats: eta_s [R][KP + 4], p_s
-// [2][KC][ROW_TL + 4], w_s [NW][RW][ROW_TL + 4], t_s [R], r_s [R], and
-// for the fused kernel a_s [R][KP + 1]; R = NW RW rows, RW = 4 CW.
-constexpr int ROW_PS = ROW_TL + 4;
-
-__host__ __device__ inline int rows_smem_floats(int KP, const LaneTile& lt,
-                                                int fused) {
-  const int R = NW * ROW_AR * lt.cw;
-  return R * (KP + 4) + 2 * lt.kc * ROW_PS + R * ROW_PS + 2 * R +
-         (fused ? R * (KP + 1) : 0);
-}
-
-// the p0 tile of the columns [l0, l0 + ROW_TL) below c_hi into p_s
-// [KC][ROW_PS], zeros past c_hi: 16-byte asynchronous copies where rows
-// are aligned, plain loads otherwise
-__device__ __forceinline__ void rows_issue_p(float* p_s,
-                                             const float* __restrict__ p_b,
-                                             int L, int l0, int c_hi, int KC,
-                                             int vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-    for (int e = tid; e < KC * (ROW_TL / 4); e += NT) {
-      const int k = e / (ROW_TL / 4), c4 = 4 * (e % (ROW_TL / 4));
-      const int n = min(4, c_hi - (l0 + c4));
-      const float* src = p_b + (size_t)k * L + (n > 0 ? l0 + c4 : 0);
-      cp_async16(p_s + k * ROW_PS + c4, src, n > 0 ? 4 * n : 0);
-    }
-  } else {
-    for (int e = tid; e < KC * ROW_TL; e += NT) {
-      const int k = e / ROW_TL, cc = e % ROW_TL, col = l0 + cc;
-      p_s[k * ROW_PS + cc] = col < c_hi ? p_b[(size_t)k * L + col] : 0.f;
-    }
-  }
-  cp_async_commit();
-}
-
-// The rows passes' loop over the columns [c_lo, c_hi) of arrays with row
-// stride L, for the block's rows [row0, row0 + R).  Warp w owns the rows
-// rw0 = w RW ...; in the d phase lane = (ar = lane / 8 row lane, cl = lane
-// % 8 column lane) and a thread computes rows ar + 4 i (i < CW) x columns
-// 4 cl .. 4 cl + 3; in the A phase lane = (a cluster lane, c row lane) and
-// a thread owns rows c + CW i (i < 4) x clusters a + GL (4 j + q).  Leaves
-// (w0 - w1) @ p0^T in acc and each row's t and sum of w1 in t_s and r_s;
-// with compute_a == 0 only t is wanted and the A phase is skipped.
-template <int KP>
-__device__ __forceinline__ void rows_accumulate(
-    float* smem, const float* __restrict__ eta_b,
-    const float* __restrict__ p_b, const int8_t* __restrict__ x0,
-    const int8_t* __restrict__ x1, int row0, int I, int L, int c_lo,
-    int c_hi, int compute_t, int compute_a, const LaneTile& lt, int vec,
-    float (&acc)[KP / 32][4][ROW_AR]) {
-  constexpr int JTM = KP / 32, ES = KP + 4;
-  const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
-  const int RW = ROW_AR * CW, R = NW * RW;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* eta_s = smem;
-  float* p_s = eta_s + R * ES;
-  float* w_w = p_s + 2 * KC * ROW_PS + warp * RW * ROW_PS;
-  float* t_s = p_s + 2 * KC * ROW_PS + R * ROW_PS;
-  float* r_s = t_s + R;
-  const int rw0 = warp * RW;
-  const int ar = lane >> 3, cl = lane & 7;
-  int a = lane / CW, c = lane % CW;
-  if (a >= GL) a = 0, c = 0;   // spare lanes repeat lane 0's work
-
-#pragma unroll
-  for (int j = 0; j < JTM; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int i = 0; i < ROW_AR; ++i) acc[j][q][i] = 0.f;
-
-  // the block's eta rows, all Kp lanes (the fused finish reads them)
-  for (int e = tid; e < R * (KP / 4); e += NT) {
-    const int r = e / (KP / 4), k4 = 4 * (e % (KP / 4)), row = row0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < I) v = ld4(eta_b + (size_t)row * KP + k4);
-    *reinterpret_cast<float4*>(eta_s + r * ES + k4) = v;
-  }
-  rows_issue_p(p_s, p_b, L, c_lo, c_hi, KC, vec);
-
-  // x of the thread's cells, one tile ahead
-  uint32_t xa[ROW_CW_MAX], xb[ROW_CW_MAX];
-  auto load_x = [&](int l0) {
-    const int col = l0 + 4 * cl;
-#pragma unroll
-    for (int i = 0; i < ROW_CW_MAX; ++i) {
-      const int row = row0 + rw0 + ar + 4 * i;
-      const int n = (i < CW && row < I) ? c_hi - col : 0;
-      const size_t off = (size_t)row * L + col;
-      xa[i] = load_x4(x0, off, n, vec);
-      xb[i] = load_x4(x1, off, n, vec);
-    }
-  };
-  load_x(c_lo);
-  cp_async_wait_all();
-  __syncthreads();
-
-  // rowsum(eta) of the warp's rows, kept in r_s until the loop is over
-  for (int r = lane; r < RW; r += 32) {
-    float s = 0.f;
-    for (int k4 = 0; k4 < KC; k4 += 4) {
-      const float4 v = ld4(eta_s + (rw0 + r) * ES + k4);
-      s += (v.x + v.y) + (v.z + v.w);
-    }
-    r_s[rw0 + r] = s;
-  }
-  __syncwarp();
-  float tacc[ROW_CW_MAX], racc[ROW_CW_MAX];
-#pragma unroll
-  for (int i = 0; i < ROW_CW_MAX; ++i) {
-    tacc[i] = 0.f;
-    racc[i] = 0.f;
-  }
-
-  int buf = 0;
-  for (int l0 = c_lo; l0 < c_hi; l0 += ROW_TL, buf ^= 1) {
-    const float* pt = p_s + buf * KC * ROW_PS;
-    if (l0 + ROW_TL < c_hi)
-      rows_issue_p(p_s + (buf ^ 1) * KC * ROW_PS, p_b, L, l0 + ROW_TL, c_hi,
-                   KC, vec);
-    // d phase
-    float d0[ROW_CW_MAX][4];
-#pragma unroll
-    for (int i = 0; i < ROW_CW_MAX; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) d0[i][q] = 0.f;
-    for (int k4 = 0; k4 < KC; k4 += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) pv[q] = ld4(pt + (k4 + q) * ROW_PS + 4 * cl);
-#pragma unroll
-      for (int i = 0; i < ROW_CW_MAX; ++i)
-        if (i < CW)
-          d_row(d0[i], ld4(eta_s + (rw0 + ar + 4 * i) * ES + k4), pv);
-    }
-    // the cells' divisions and logs
-#pragma unroll
-    for (int i = 0; i < ROW_CW_MAX; ++i) {
-      if (i < CW) {
-        const float srow = r_s[rw0 + ar + 4 * i];
-        float wv[4], tt = 0.f, rr = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float a0 = x_byte(xa[i], q), a1 = x_byte(xb[i], q);
-          const float dd0 = fmaxf(d0[i][q], DMIN);
-          const float dd1 = fmaxf(srow - d0[i][q], DMIN);
-          const float w0 = a0 * __frcp_rn(dd0), w1 = a1 * __frcp_rn(dd1);
-          if (compute_t) tt += a0 * logf(dd0) + a1 * logf(dd1);
-          rr += w1;
-          wv[q] = w0 - w1;
-        }
-        tacc[i] += tt;
-        racc[i] += rr;
-        if (compute_a)
-          *reinterpret_cast<float4*>(w_w + (ar + 4 * i) * ROW_PS + 4 * cl) =
-              make_float4(wv[0], wv[1], wv[2], wv[3]);
-      }
-    }
-    if (l0 + ROW_TL < c_hi) load_x(l0 + ROW_TL);
-    if (compute_a) {  // uniform across the block
-      __syncwarp();
-      // A phase: the contracted column index in the vector
-#pragma unroll A_UNROLL
-      for (int l4 = 0; l4 < ROW_TL; l4 += 4) {
-        float4 wr[ROW_AR];
-#pragma unroll
-        for (int i = 0; i < ROW_AR; ++i)
-          wr[i] = ld4(w_w + (c + CW * i) * ROW_PS + l4);
-#pragma unroll
-        for (int j = 0; j < JTM; ++j) {
-          if (j == 0 || j < JT) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const float4 pk = ld4(pt + (a + GL * (4 * j + q)) * ROW_PS + l4);
-#pragma unroll
-              for (int i = 0; i < ROW_AR; ++i) {
-                float v = acc[j][q][i];
-                v = fmaf(wr[i].x, pk.x, v);
-                v = fmaf(wr[i].y, pk.y, v);
-                v = fmaf(wr[i].z, pk.z, v);
-                v = fmaf(wr[i].w, pk.w, v);
-                acc[j][q][i] = v;
-              }
-            }
-          }
-        }
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-  }
-
-  // each row's t and sum of w1: over the 8 column lanes, in a fixed order
-  __syncwarp();   // the row sums in r_s have been read
-#pragma unroll
-  for (int i = 0; i < ROW_CW_MAX; ++i) {
-    float tt = tacc[i], rr = racc[i];
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) {
-      tt += __shfl_xor_sync(mc::FULL, tt, o);
-      rr += __shfl_xor_sync(mc::FULL, rr, o);
-    }
-    if (i < CW && cl == 0) {
-      t_s[rw0 + ar + 4 * i] = tt;
-      r_s[rw0 + ar + 4 * i] = rr;
-    }
-  }
-  __syncwarp();
-}
+// rows of w a step of the columns pass's B-phase loop unrolled together
+// (measured: 4 beats 1 and 2)
+constexpr int B_UNROLL = 4;
 
 template <int KP>
 __global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
@@ -414,8 +113,8 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
   const float* p_b = p0 + (size_t)b * KP * L;
 
   float acc[JTM][4][ROW_AR];
-  rows_accumulate<KP>(smem, eta_b, p_b, x0, x1, row0, I, L, 0, L, compute_t,
-                      1, lt, vec, acc);
+  rows_accumulate<KP, Cells::kBi>(smem, eta_b, p_b, x0, x1, row0, I, L, 0,
+                                  L, compute_t, 1, lt, vec, acc);
   const float* eta_s = smem;
   const float* t_s = smem + R * ES + 2 * KC * ROW_PS + R * ROW_PS;
   const float* r_s = t_s + R;
@@ -490,8 +189,9 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
   const float* p_b = p0 + (size_t)b * KP * L;
 
   float acc[JTM][4][ROW_AR];
-  rows_accumulate<KP>(smem, eta_b, p_b, x0, x1, row0, I, L, c_lo, c_hi,
-                      compute_t, compute_a, lt, vec, acc);
+  rows_accumulate<KP, Cells::kBi>(smem, eta_b, p_b, x0, x1, row0, I, L,
+                                  c_lo, c_hi, compute_t, compute_a, lt, vec,
+                                  acc);
   const float* t_s = smem + R * ES + 2 * KC * ROW_PS + R * ROW_PS;
   const float* r_s = t_s + R;
   const size_t o0 = ((size_t)b * n_seg + seg) * I;
@@ -525,71 +225,6 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
   }
 }
 
-// Finish of the segmented rows pass, one warp per row: the segments'
-// partials summed in segment order (t in float64), the a0 seed added,
-// then either the raw A + r (emit_a: c is not added, the caller finishes)
-// or eta' = Michelot(normalize(eta (A + r + c))) over the static lanes
-// k < k_true or the runtime kmask.  `out` null: only t is wanted.
-template <int KP>
-__global__ void __launch_bounds__(NT) fullstep_bi_finish_kernel(
-    const float* __restrict__ eta, const float* __restrict__ apart,
-    const float* __restrict__ tpart, const float* __restrict__ a0,
-    const float* __restrict__ c, const float* __restrict__ kmask,
-    float* __restrict__ out, double* __restrict__ t_out, int I, int n_seg,
-    int k_true, float lb, int emit_a, int project_eta, int compute_t) {
-  constexpr int KJ = KP / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int row = blockIdx.x * (NT / 32) + warp;
-  if (row >= I) return;  // uniform across the warp
-  const size_t br = (size_t)b * I + row;
-  if (lane == 0) {
-    double tt = 0.0;
-    if (compute_t)
-      for (int s = 0; s < n_seg; ++s)
-        tt += (double)tpart[((size_t)b * n_seg + s) * I + row];
-    t_out[br] = tt;
-  }
-  if (out == nullptr) return;
-  float a[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j)
-    a[j] = a0 != nullptr ? a0[br * KP + lane + 32 * j] : 0.f;
-  for (int s = 0; s < n_seg; ++s) {
-    const float* ap = apart + (((size_t)b * n_seg + s) * I + row) * KP;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) a[j] += ap[lane + 32 * j];
-  }
-  float* o = out + br * KP;
-  if (emit_a) {
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = a[j];
-    return;
-  }
-  const float ci = c[row];
-  float e[KJ], num[KJ], part = 0.f;
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    e[j] = eta[br * KP + lane + 32 * j];
-    num[j] = e[j] * (a[j] + ci);
-    part += num[j];
-  }
-  const float tot = warp_sum(part);
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) num[j] = tot > 0.f ? num[j] / tot : e[j];
-  if (project_eta) {
-    bool valid[KJ];
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      const int k = lane + 32 * j;
-      valid[j] = kmask != nullptr ? kmask[k] > 0.5f : k < k_true;
-    }
-    mc::michelot_warp_mask<KJ>(num, valid, lb);
-  }
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = num[j];
-}
-
 // ---------------------------------------------------------------------------
 // columns pass
 
@@ -599,23 +234,6 @@ __global__ void __launch_bounds__(NT) fullstep_bi_finish_kernel(
 __host__ __device__ inline int cols_smem_floats(int KP, const LaneTile& lt) {
   const int RI = COL_DR * lt.gl, TCW = COL_CT * lt.cw, TC = NW * TCW;
   return 2 * RI * (KP + 4) + lt.kc * TC + NW * 2 * RI * TCW + NW * RI;
-}
-
-// the KC lanes of the eta rows [r0, r0 + RI) below r_hi into eta_s
-// [RI][KP + 4] by 16-byte asynchronous copies, zeros past r_hi
-template <int KP>
-__device__ __forceinline__ void cols_issue_eta(float* eta_s,
-                                               const float* __restrict__ eta_b,
-                                               int r0, int r_hi, int RI,
-                                               int KC) {
-  const int n4 = KC / 4;
-  for (int e = threadIdx.x; e < RI * n4; e += NT) {
-    const int r = e / n4, k4 = 4 * (e % n4), row = r0 + r;
-    const bool ok = row < r_hi;
-    cp_async16(eta_s + r * (KP + 4) + k4,
-               eta_b + (size_t)(ok ? row : r0) * KP + k4, ok ? 16 : 0);
-  }
-  cp_async_commit();
 }
 
 // Block (x = TC columns of the window, y = row segment, z = chain).  Warp
@@ -823,34 +441,18 @@ __global__ void __launch_bounds__(NT) fullstep_bi_p0_kernel(
   p0_new[o] = q;
 }
 
-// lets a block of `kernel` ask for more than 48 KB of dynamic shared
-// memory (per device, so it is set before every launch)
-template <typename Kernel>
-int allow_smem(Kernel kernel) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-}
-
-bool kp_ok(int Kp) { return Kp == 32 || Kp == 64 || Kp == 96 || Kp == 128; }
-
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/build.py).  Pointers are
 // device pointers; `stream` is a cudaStream_t.  Each returns the
 // cudaGetLastError() of its launch.  k_true outside [1, Kp] means Kp.
 
-// the lane tile the kernels take for k_true clusters: kc computed lanes,
-// rows a rows-pass block, columns a columns-pass block, rows a columns-
-// pass tile (ops/fullstep_bi.lane_tile is held to this by the card's tests)
+// the tiles the kernels of tiles.cuh take for k_true clusters, here and
+// in csrc/fullstep.cu (pass_tiles)
 extern "C" void mc_fullstep_bi_tiles(int k_true, int Kp, int* kc,
                                      int* row_block, int* col_block,
                                      int* col_tile_rows) {
-  const LaneTile r = lane_tile(k_true, Kp, ROW_CW_MAX);
-  const LaneTile c = lane_tile(k_true, Kp, 32);
-  *kc = c.kc;
-  *row_block = NW * ROW_AR * r.cw;
-  *col_block = NW * COL_CT * c.cw;
-  *col_tile_rows = COL_DR * c.gl;
+  pass_tiles(k_true, Kp, kc, row_block, col_block, col_tile_rows);
 }
 
 extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
@@ -938,21 +540,10 @@ extern "C" int mc_fullstep_bi_finish(const void* eta, const void* apart,
                                      int Kp, int n_seg, int k_true,
                                      float lb, int emit_a, int project_eta,
                                      int compute_t, void* stream) {
-  const dim3 grid((I + NT / 32 - 1) / (NT / 32), B);
-  cudaStream_t s = (cudaStream_t)stream;
-#define MC_FINISH(KP)                                                     \
-  fullstep_bi_finish_kernel<KP><<<grid, NT, 0, s>>>                       \
-  ((const float*)eta, (const float*)apart, (const float*)tpart,           \
-   (const float*)a0, (const float*)c, (const float*)kmask, (float*)out,   \
-   (double*)t_out, I, n_seg, k_true, lb, emit_a, project_eta, compute_t)
-  switch (Kp) {
-    case 32: MC_FINISH(32); break;
-    case 64: MC_FINISH(64); break;
-    case 96: MC_FINISH(96); break;
-    case 128: MC_FINISH(128); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef MC_FINISH
+  if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
+  launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B, I, Kp,
+                     n_seg, k_true, lb, emit_a, project_eta, compute_t,
+                     (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

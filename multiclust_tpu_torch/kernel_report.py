@@ -1,9 +1,11 @@
-"""What the compiler made of the biallelic step's kernels: registers,
-shared memory and spills (``nvcc -Xptxas -v``), and the static instruction
-mix of each kernel's machine code (``cuobjdump -sass``).
+"""What the compiler made of the admixture step's contraction kernels, the
+biallelic ones (csrc/fullstep_bi.cu) and the generic rows and columns
+passes (csrc/fullstep.cu): registers, shared memory and spills (``nvcc
+-Xptxas -v``), and the static instruction mix of each kernel's machine
+code (``cuobjdump -sass``: FFMA against LDS, MUFU and the rest).
 
 Run with ``python -m multiclust_tpu_torch.kernel_report [Kp ...]`` where
-nvcc and a CUDA toolkit are installed (default Kp: 32).  The mix counts
+nvcc and a CUDA toolkit are installed (default Kp: 32 and 128).  The mix counts
 every instruction of a kernel once, the byte-load path and the prologue
 included; the loops over a tile are fully unrolled, so the counts of FFMA,
 MUFU and LDS are those of one tile plus that fringe.
@@ -21,22 +23,38 @@ from pathlib import Path
 from multiclust_tpu_torch.ops import build
 
 KERNELS = ("fullstep_bi_rows_kernel", "fullstep_bi_rows_seg_kernel",
-           "fullstep_bi_cols_kernel")
+           "fullstep_bi_cols_kernel", "fullstep_rows_kernel",
+           "fullstep_cols_kernel")
 
 
 def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
     """(kernel, 'Used ... registers ...; n bytes spill ...') pairs of the
-    -Xptxas -v report for the kernels whose mangled name has ``pattern``."""
+    -Xptxas -v report for the kernels whose name starts with ``pattern``
+    (a regular expression).  The mangled name carries each identifier's
+    length before it (and, for a kernel in an unnamed namespace, the
+    source file's name before that), which is how the kernel's own name
+    is told from the file's."""
     lines = report.splitlines()
     out = []
     for i, line in enumerate(lines):
-        m = re.search(r"Function properties for \w*?(" + pattern
-                      + r"\w*?kernel)(?:ILi(\d+)E)?", line)
-        if m and i + 2 < len(lines):
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        if "Function properties for " not in line or i + 2 >= len(lines):
+            continue
+        mangled = line.split("Function properties for ")[1]
+        name = None
+        for m in re.finditer(pattern, mangled):
+            digits = re.search(r"\d+$", mangled[:m.start()])
+            for k in range(1, len(digits.group()) + 1 if digits else 1):
+                n = int(digits.group()[-k:])
+                ident = mangled[m.start():m.start() + n]
+                if n == len(ident) and ident.endswith("kernel"):
+                    targ = re.match(r"ILi(\d+)E", mangled[m.start() + n:])
+                    name = ident + (f"<{targ.group(1)}>" if targ else "")
+                    break
+            if name:
+                break
+        if name:
             used = lines[i + 2].replace("ptxas info    : ", "").strip()
-            spill = lines[i + 1].strip()
-            out.append((name, f"{used}; {spill}"))
+            out.append((name, f"{used}; {lines[i + 1].strip()}"))
     return out
 
 
@@ -49,7 +67,7 @@ def sass_mix(lib: Path, kernel: str, kp: int):
     inside = False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = f"{kernel}ILi{kp}E" in line
+            inside = f"{len(kernel)}{kernel}ILi{kp}E" in line
         elif inside:
             m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)",
                          line)
@@ -59,10 +77,10 @@ def sass_mix(lib: Path, kernel: str, kp: int):
 
 
 def main(argv) -> int:
-    kps = [int(a) for a in argv] or [32]
+    kps = [int(a) for a in argv] or [32, 128]
     lib = build.build()
     report = lib.with_suffix(".ptxas.txt").read_text()
-    for name, text in ptxas_lines(report):
+    for name, text in ptxas_lines(report, "fullstep_(?:bi_)?(?:rows|cols)"):
         print(f"ptxas {name}: {text}", flush=True)
     for kp in kps:
         for kernel in KERNELS:

@@ -42,10 +42,11 @@ _SIGNATURES = {
     "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                             _P],
-    "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                         _P],
     "mc_fullstep_cols": [_P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mc_fullstep_p": [_P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -157,7 +158,8 @@ def library() -> ctypes.CDLL:
 def kernel_tiles(lib: ctypes.CDLL, k_true: int, Kp: int):
     """(kc, rows of a rows-pass block, columns of a columns-pass block,
     rows of a columns-pass tile) as ``lib``'s mc_fullstep_bi_tiles has
-    them."""
+    them: the tiles of csrc/tiles.cuh, which the biallelic and the generic
+    kernels share."""
     out = [ctypes.c_int() for _ in range(4)]
     lib.mc_fullstep_bi_tiles(k_true, Kp, *(ctypes.byref(o) for o in out))
     return tuple(o.value for o in out)

@@ -14,6 +14,14 @@ returns the raw statistics instead: A from the rows pass (the ``a0`` /
 ``emit_a`` chaining of jagged buckets), B from the columns pass; the two
 together are the sweep statistics.
 
+The CUDA passes are built from the biallelic step's register tiles (see
+``csrc/fullstep.cu``): the rows pass splits L*M into column segments and
+finishes eta in a second kernel, as the biallelic streamed step does, and
+the columns pass splits I into row segments; both stop their cluster
+loops at the lane tile of ``k_true`` (``fullstep_bi.lane_tile``), so the
+segment arithmetic takes it (``fullstep_bi.row_segments``,
+``cols_segments``).
+
 The wrappers launch the kernels for CUDA tensors and run the plain version
 only for CPU tensors; there is no fallback for CUDA tensors.  Shapes: a
 chain batch B leads.  eta [B, I, Kp] f32 with Kp in {32, 64, 96, 128}, p2
@@ -31,16 +39,15 @@ import torch
 
 from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
-from multiclust_tpu_torch.ops.fullstep_bi import check_kp, col_segments
+from multiclust_tpu_torch.ops.fullstep_bi import COLS_BLOCKS_PER_SM, \
+    COLS_MAX_RSEG, SCRATCH_CAP, check_kp, col_segments, \
+    cols_tile, device_sm_count, row_segments
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
 
 # allele slots per locus the p epilogue takes (csrc/fullstep.cu)
 M_MAX = 1024
-# columns-pass tiling of csrc/fullstep.cu: COL_TC lanes per block, COL_RI
-# rows per tile
-COL_TC, COL_RI = 16, 32
 
 
 def _weights(eta: Tensor, p2: Tensor, x2: Tensor):
@@ -194,11 +201,40 @@ def _check_cuda_inputs(eta, p2, x2, *extra):
     return B, I, LM, Kp
 
 
+def cols_segments(B: int, I: int, LM: int, Kp: int, n_sm: int,
+                  k_true: int = 0) -> Tuple[int, int]:
+    """(row segments, rows per segment) of the columns pass: enough for
+    COLS_BLOCKS_PER_SM blocks an SM at the tile of ``k_true``, at most
+    COLS_MAX_RSEG, with the partials [B, n, Kp, L*M] no larger than
+    SCRATCH_CAP or than the int8 x the pass reads, and at least one."""
+    tc, ri = cols_tile(k_true, Kp)
+    n_want, _ = col_segments(I, LM, B, n_sm, tc=tc, ri=ri,
+                             per_sm=COLS_BLOCKS_PER_SM)
+    n = max(1, min(n_want, COLS_MAX_RSEG, SCRATCH_CAP // (4 * B * Kp * LM),
+                   I // (4 * B * Kp)))
+    seg_rows = -(-I // n)
+    seg_rows = -(-seg_rows // ri) * ri
+    return -(-I // seg_rows), seg_rows
+
+
+def _check_k_true(k_true: int, Kp: int) -> None:
+    if not 0 <= k_true <= Kp:
+        raise ValueError(f"k_true={k_true} outside [0, Kp={Kp}]: the "
+                         f"kernels' cluster loops stop at k_true (0: Kp)")
+
+
 def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,
                   project: bool, compute_t: bool = True,
-                  finish: bool = True):
+                  finish: bool = True, M: int = 0):
     """Rows pass: (eta' [B, I, Kp] in a new buffer, t [B, I]), or (raw A,
-    t) under ``finish=False``; ``a0`` [B, I, Kp] seeds A."""
+    t) under ``finish=False``; ``a0`` [B, I, Kp] seeds A.  ``k_true`` is
+    where the kernels' cluster loops stop; the L*M lanes are split into
+    segments as the biallelic streamed step splits its columns
+    (``fullstep_bi.row_segments``).  ``M`` the allele slots a locus where
+    the caller knows them (0: not said): at M a multiple of 4 the kernel
+    computes the reciprocals and logs of the set lanes only, with the same
+    result."""
+    _check_k_true(k_true, eta.shape[-1])
     if not eta.is_cuda:
         return fullstep_rows_reference(
             eta, p2, x2, c, a0, k_true=k_true, lb=lb, project=project,
@@ -209,14 +245,21 @@ def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,
     if a0 is not None:
         extra += (("a0", a0, torch.float32, tuple(eta.shape)),)
     B, I, LM, Kp = _check_cuda_inputs(eta, p2, x2, *extra)
+    n_seg, seg_cols = row_segments(B, I, LM, device_sm_count(eta.device),
+                                   k_true=k_true, Kp=Kp)
+    dev = eta.device
+    apart = torch.empty((B, n_seg, I, Kp), dtype=torch.float32, device=dev)
+    tpart = torch.empty((B, n_seg, I), dtype=torch.float32, device=dev)
     out = torch.empty_like(eta)
-    t = torch.empty((B, I), dtype=torch.float32, device=eta.device)
-    build.launch("mc_fullstep_rows", eta.device,
+    t = torch.empty((B, I), dtype=torch.float64, device=dev)
+    build.launch("mc_fullstep_rows", dev,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(c),
-                 _ptr(a0), out.data_ptr(), t.data_ptr(), B, I, LM, Kp,
+                 _ptr(a0), apart.data_ptr(), tpart.data_ptr(),
+                 out.data_ptr(), t.data_ptr(), B, I, LM, int(M), Kp,
                  int(k_true), float(lb), int(project), int(compute_t),
-                 int(finish))
-    return out, t
+                 int(finish), seg_cols, n_seg)
+    # summed over the segments in float64, returned as the plain version's
+    return out, t.to(torch.float32)
 
 
 def _loci(LM: int, M: int) -> int:
@@ -227,25 +270,28 @@ def _loci(LM: int, M: int) -> int:
     return LM // M
 
 
-def fullstep_partials(eta, p2, x2, miss=None, *, M: int):
+def fullstep_partials(eta, p2, x2, miss=None, *, M: int, k_true: int = 0):
     """Columns pass: per-row-segment partials of B = eta^T (w + miss),
     [B, n_seg, Kp, L*M] (reads the OLD eta); M is the allele slots per
-    locus, which maps a lane to its locus's miss count."""
+    locus, which maps a lane to its locus's miss count.  ``k_true`` (0:
+    all Kp lanes) is where the kernel's cluster loops stop: rows k >= it
+    come out 0.  The rows are split into ``cols_segments``."""
     L = _loci(p2.shape[-1], M)
+    _check_k_true(k_true, eta.shape[-1])
     if not eta.is_cuda:
         return fullstep_partials_reference(eta, p2, x2, miss)
     extra = ()
     if miss is not None:
         extra = (("miss", miss, torch.int8, (eta.shape[1], L)),)
     B, I, LM, Kp = _check_cuda_inputs(eta, p2, x2, *extra)
-    n_seg, seg_rows = col_segments(
-        I, LM, B, torch.cuda.get_device_properties(
-            eta.device).multi_processor_count, tc=COL_TC, ri=COL_RI)
+    n_seg, seg_rows = cols_segments(B, I, LM, Kp,
+                                    device_sm_count(eta.device), k_true)
     part = torch.empty((B, n_seg, Kp, LM), dtype=torch.float32,
                        device=eta.device)
     build.launch("mc_fullstep_cols", eta.device,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(miss),
-                 part.data_ptr(), B, I, L, M, Kp, n_seg, seg_rows)
+                 part.data_ptr(), B, I, L, M, Kp, int(k_true), n_seg,
+                 seg_rows)
     return part
 
 
@@ -283,14 +329,16 @@ def fullstep_cols(eta, p2, x2, miss=None, mask=None, *, k_true: int = 0,
                   plb: float = 0.0, project: bool = False,
                   finish: bool = True):
     """Columns pass and p epilogue: p' [B, Kp, L, M] (reads the OLD eta),
-    or raw B [B, Kp, L*M] under ``finish=False``."""
+    or raw B [B, Kp, L*M] under ``finish=False``.  ``k_true`` (0: all Kp
+    lanes) bounds both the kernels' cluster loops and the projection's
+    lanes."""
     if mask is not None:
         M = mask.shape[1]
     elif miss is not None:
         M = p2.shape[-1] // miss.shape[-1]
     else:
         M = 1
-    part = fullstep_partials(eta, p2, x2, miss, M=M)
+    part = fullstep_partials(eta, p2, x2, miss, M=M, k_true=k_true)
     return fullstep_p(p2, part, mask, M=M, k_true=k_true, plb=plb,
                       project=project, finish=finish)
 
@@ -301,7 +349,8 @@ def admixture_fullstep(eta, p2, x2, c, miss, mask, *, k_true: int, lb: float,
     (eta' [B, I, Kp], t [B, I], p' [B, Kp, L, M]).  The eta Michelot and
     the p projection share ``project`` (cfg.do_projection)."""
     eta_new, t = fullstep_rows(eta, p2, x2, c, k_true=k_true, lb=lb,
-                               project=project, compute_t=compute_t)
+                               project=project, compute_t=compute_t,
+                               M=mask.shape[1])
     p_new = fullstep_cols(eta, p2, x2, miss, mask, k_true=k_true, plb=plb,
                           project=project)
     return eta_new, t, p_new
@@ -313,4 +362,5 @@ def admixture_sweep_stats(eta, p2, x2, *, compute_t: bool = True):
     the same passes as the full step, with ``finish=False``."""
     A, t = fullstep_rows(eta, p2, x2, k_true=eta.shape[-1], lb=0.0,
                          project=False, compute_t=compute_t, finish=False)
-    return A, t, fullstep_cols(eta, p2, x2, finish=False)
+    return A, t, fullstep_cols(eta, p2, x2, k_true=eta.shape[-1],
+                               finish=False)

@@ -19,6 +19,20 @@ power limit.
 ``--k K`` times another cluster count (padded to the next of 32, 64, 96,
 128 lanes) and ``--shapes IxL,IxL`` other panels, for the kernels' wider
 instantiations: ``--k 100 --shapes 16384x2048,8192x131072``.
+
+``--generic`` times the generic (multi-allelic) admixture step instead, on
+a panel of ``--m`` allele slots a locus (default 4; shapes default
+16384 x 2048) at the chain batches ``--chains`` (default 1,2,4): the step
+held to its plain version, its median CUDA-event time over ``--reps``
+calls, the device time of each of its kernels inside it (torch.profiler:
+the rows pass with its finish, the columns pass, the p epilogue), each
+pass's bound and the share of it reached, the columns pass with its
+epilogue on CUDA events, and the plain step.  ``--generic --fit`` runs
+``api.fit_dataset`` on the panel instead, 2 chains from seed 3, plain EM
+with the adaptive interval twice (the first fit of a process also pays
+the library's load) and then SQUAREM, cap 100.  This mode calls only the
+step's entry point and the plain versions, so a tree whose wrappers take
+other arguments is timed by the same file (copied into its package).
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ import sys
 import numpy as np
 import torch
 
+from multiclust_tpu_torch.ops import fullstep as fs
 from multiclust_tpu_torch.ops import fullstep_bi as fb
 
 SHAPES = ((16384, 2048), (65536, 16384), (8192, 131072), (2048, 524288))
@@ -185,16 +200,153 @@ def time_shape(I: int, L: int, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def lanes_panel(seed: int, I: int, L: int, M: int, dev):
+    """Admixture-model genotypes at M allele slots a locus, drawn on
+    ``dev`` from ``seed`` in blocks of rows: x [I, L*M] int8 and miss [I,
+    L] int8 (each of two copies missing with 1 %)."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Q = torch.tensor(rng.dirichlet(np.full(K, 0.5), size=I),
+                     dtype=torch.float32, device=dev)
+    P = torch.tensor(rng.dirichlet(np.full(M, 0.7), size=(K, L)),
+                     dtype=torch.float32, device=dev)
+    x = torch.zeros((I, L, M), dtype=torch.int8, device=dev)
+    miss = torch.empty((I, L), dtype=torch.int8, device=dev)
+    rows = max(1, (1 << 26) // (L * M))
+    for lo in range(0, I, rows):
+        hi = min(I, lo + rows)
+        cum = (Q[lo:hi] @ P.reshape(K, -1)).view(hi - lo, L, M).cumsum(-1)
+        m = (torch.rand((hi - lo, L, 2), generator=gen, device=dev)
+             < 0.01).sum(dim=-1)
+        for a in range(2):
+            u = torch.rand((hi - lo, L, 1), generator=gen, device=dev)
+            allele = torch.clamp((u > cum).sum(dim=-1), max=M - 1)
+            x[lo:hi].scatter_add_(2, allele[..., None],
+                                  (a < 2 - m)[..., None].to(torch.int8))
+        miss[lo:hi] = m
+    return x.view(I, L * M), miss
+
+
+# the generic step's kernels by name, as the profiler sees them
+GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel", "rows_finish_kernel"),
+                   "columns pass": ("fullstep_cols_kernel",),
+                   "p epilogue": ("fullstep_p_kernel",)}
+
+
+def kernel_device_ms(fn, n: int, groups) -> dict:
+    """Device ms that each group of kernels (by name) takes in a call of
+    ``fn``: torch.profiler's kernel times summed over ``n`` calls, / n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(groups, 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, names in groups.items():
+            if any(name in ev.key for name in names):
+                out[label] += ev.device_time_total / 1e3 / n
+    return out
+
+
+def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
+    x2, miss = lanes_panel(1, I, L, M, dev)
+    c = miss.sum(dim=1, dtype=torch.float32)
+    mask = torch.ones((L, M), dtype=torch.bool, device=dev)
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True)
+    print(f"{I} x {L} x M = {M}, K = {K} on {KP} lanes: "
+          f"{100 * float((x2 == 0).float().mean()):.1f} % of the lanes "
+          f"have x = 0", flush=True)
+    for B in chains:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        eta = torch.zeros((B, I, KP), device=dev)
+        eta[..., :K] = torch.rand((B, I, K), generator=gen, device=dev) + 0.05
+        eta /= eta.sum(dim=-1, keepdim=True)
+        p = torch.zeros((B, KP, L, M), device=dev)
+        p[:, :K] = torch.rand((B, K, L, M), generator=gen, device=dev) + 0.05
+        p2 = (p / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)).view(
+            B, KP, L * M)
+        del p
+
+        def step():
+            return fs.admixture_fullstep(eta, p2, x2, c, miss, mask, **kw)
+
+        ref = fs.admixture_fullstep_reference(eta, p2, x2, c, miss, mask,
+                                              **kw)
+        _held(step(), ref)
+        del ref
+        step_ms = median_ms(step, n)
+        cols_ms = median_ms(lambda: fs.fullstep_cols(
+            eta, p2, x2, miss, mask, k_true=K, plb=1e-8, project=True), n)
+        dev_ms = kernel_device_ms(step, n, GENERIC_KERNELS)
+        plain_ms = median_ms(lambda: fs.admixture_fullstep_reference(
+            eta, p2, x2, c, miss, mask, **kw), max(2, n // 4))
+        lanes = B * I * L * M
+        bounds = {"rows pass": bound_ms((eta, p2, x2, c, eta, c),
+                                        (4 * K + 5) * lanes),
+                  "columns pass": bound_ms((eta, p2, x2, miss, p2),
+                                           (4 * K + 3) * lanes)}
+        print(f" {B} chains: step {step_ms:.3f} ms (plain {plain_ms:.3f}); "
+              f"columns pass + p epilogue {cols_ms:.3f} ms on CUDA events",
+              flush=True)
+        for label, ms in dev_ms.items():
+            line = f"  {label}: {ms:.3f} ms of device time a step"
+            if not ms:
+                line = f"  {label}: not measured (no device events)"
+            elif label in bounds:
+                line += (f"; bound {bounds[label]:.3f} ms, "
+                         f"{100 * bounds[label] / ms:.1f} % of it")
+            print(line, flush=True)
+        del eta, p2
+        torch.cuda.empty_cache()
+
+
+def time_generic_fits(I: int, L: int, M: int, dev) -> None:
+    import time
+
+    from multiclust_tpu_torch.api import fit_dataset
+    from multiclust_tpu_torch.convert import dataset_from_counts
+
+    x2, miss = lanes_panel(42, I, L, M, dev)
+    ds = dataset_from_counts(x2.view(I, L, M).cpu().numpy(),
+                             miss.cpu().numpy(), 2)
+    base = dict(admixture=True, min_K=K, max_K=K, n_init=2, max_iter=100,
+                seed=3, verbosity=0)
+    for label, kw in (("plain EM, first in the process", {}),
+                      ("plain EM", {}), ("SQUAREM", {"accel_scheme": 1})):
+        t0 = time.time()
+        res = fit_dataset(ds, device=dev, **base, **kw).best
+        torch.cuda.synchronize()
+        print(f"fit {I} x {L} x M = {M}, K = {K}, {label}: "
+              f"{res.n_iter_all} iterations over the chains, logL "
+              f"{res.max_logL:.4f}, monotonicity violated: "
+              f"{bool(res.mono_viol)}; {time.time() - t0:.3f} s of wall, "
+              f"init + EM {res.seconds:.3f} s", flush=True)
+
+
 def main(argv=None) -> int:
     global K, KP, SHAPES
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k", type=int, default=K)
-    ap.add_argument("--shapes", default=",".join(
-        f"{I}x{L}" for I, L in SHAPES))
+    ap.add_argument("--shapes")
+    ap.add_argument("--generic", action="store_true")
+    ap.add_argument("--m", type=int, default=4)
+    ap.add_argument("--chains", default="1,2,4")
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--fit", action="store_true")
     args = ap.parse_args(argv)
     K, KP = args.k, -(-args.k // 32) * 32
-    SHAPES = tuple(tuple(int(n) for n in s.split("x"))
-                   for s in args.shapes.split(","))
+    if args.shapes:
+        SHAPES = tuple(tuple(int(n) for n in s.split("x"))
+                       for s in args.shapes.split(","))
+    elif args.generic:
+        SHAPES = ((16384, 2048),)
     if not torch.cuda.is_available():
         print("route_times: no CUDA device", file=sys.stderr)
         return 1
@@ -205,7 +357,14 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"K = {K} on {KP} lanes", flush=True)
     for I, L in SHAPES:
-        time_shape(I, L, dev)
+        if args.generic and args.fit:
+            time_generic_fits(I, L, args.m, dev)
+        elif args.generic:
+            time_generic(I, L, args.m, [int(b) for b in
+                                        args.chains.split(",")],
+                         args.reps, dev)
+        else:
+            time_shape(I, L, dev)
     print(f"peak allocation "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return 0

@@ -73,21 +73,23 @@ def test_fullstep_kernel_matches_plain(B, I, L, K, Kp, miss_rate,
         assert torch.equal(g, a)
 
 
-def _generic_args(seed, B, I, L, M, K, Kp, miss_rate, dev, small=2):
+def _generic_args(seed, B, I, L, M, K, Kp, miss_rate, dev, small=2,
+                  ploidy=2):
     """eta [B, I, Kp], p2 [B, Kp, L*M] (zero pads, on a jagged allele
-    mask: 30 % of the loci have ``small`` valid slots), x2 [I, L*M] int8,
-    c [I], miss [I, L] int8 or None, mask [L, M]."""
+    mask: 30 % of the loci have ``small`` valid slots), x2 [I, L*M] int8
+    (``ploidy`` copies a locus, less the missing ones), c [I], miss [I, L]
+    int8 or None, mask [L, M]."""
     rng = np.random.default_rng(seed)
-    n_all = np.where(rng.random(L) < 0.3, small, M)
+    n_all = np.where(rng.random(L) < 0.3, min(small, M), M)
     mask = np.arange(M)[None, :] < n_all[:, None]
     eta = np.zeros((B, I, Kp), np.float32)
     eta[:, :, :K] = rng.dirichlet(np.full(K, 0.3), size=(B, I))
     p = np.zeros((B, Kp, L, M), np.float32)
     p[:, :K] = rng.dirichlet(np.full(M, 0.5), size=(B, K, L)) * mask
     p[:, :K] /= p[:, :K].sum(axis=-1, keepdims=True)
-    miss = rng.binomial(2, miss_rate, size=(I, L))
+    miss = rng.binomial(ploidy, miss_rate, size=(I, L))
     freq = np.broadcast_to(mask / n_all[:, None], (I, L, M))
-    x = rng.multinomial(2 - miss, freq)
+    x = rng.multinomial(ploidy - miss, freq)
     return (torch.tensor(eta, device=dev),
             torch.tensor(p.reshape(B, Kp, L * M), device=dev),
             torch.tensor(x.reshape(I, L * M), dtype=torch.int8, device=dev),
@@ -97,18 +99,37 @@ def _generic_args(seed, B, I, L, M, K, Kp, miss_rate, dev, small=2):
             torch.tensor(mask, device=dev))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,I,L,M,K,Kp,miss_rate,compute_t,project", [
+# K in {3, 20, 21, 32, 40, 100} across the four Kp, M in {2, 3, 5, 8, 40}
+# in turn; I and L*M multiples of no tile unless stated
+_GENERIC_CASES = [
+    # B, I, L, M, K, Kp, miss_rate, compute_t, project
     (1, 1001, 333, 3, 20, 32, 0.02, True, True),   # ragged I and L*M
     (2, 777, 129, 8, 40, 64, 0.0, True, True),
     (1, 300, 50, 40, 70, 96, 0.05, False, True),   # two slots per lane
     (3, 300, 101, 4, 128, 128, 0.1, True, False),
     (1, 40, 17, 5, 3, 32, 0.1, True, True),        # one row segment
-])
+    (2, 1000, 257, 2, 21, 32, 0.03, True, True),
+    (1, 999, 201, 5, 32, 32, 0.0, False, True),
+    (2, 513, 77, 3, 3, 64, 0.02, True, True),
+    (1, 700, 61, 8, 20, 64, 0.05, True, False),
+    (2, 401, 13, 40, 21, 64, 0.0, True, True),
+    (1, 650, 99, 2, 32, 64, 0.02, True, True),
+    (2, 333, 45, 5, 3, 96, 0.0, True, True),
+    (1, 555, 71, 3, 40, 96, 0.03, True, True),
+    (2, 300, 33, 8, 100, 128, 0.02, True, True),
+    (1, 257, 23, 40, 20, 128, 0.05, True, True),
+    (2, 513, 150, 2, 3, 128, 0.0, False, True),
+    (1, 1024, 64, 4, 40, 128, 0.02, True, True),   # aligned, vector loads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,L,M,K,Kp,miss_rate,compute_t,project",
+                         _GENERIC_CASES)
 def test_generic_fullstep_kernel_matches_plain(B, I, L, M, K, Kp, miss_rate,
                                                compute_t, project):
     dev = _cuda()
-    args = _generic_args(K, B, I, L, M, K, Kp, miss_rate, dev)
+    args = _generic_args(K + L, B, I, L, M, K, Kp, miss_rate, dev)
     kw = dict(k_true=K, lb=0.01, plb=0.05, project=project,
               compute_t=compute_t)
     before = dict(build.LAUNCHES)
@@ -129,6 +150,76 @@ def test_generic_fullstep_kernel_matches_plain(B, I, L, M, K, Kp, miss_rate,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 3])
+def test_generic_kernels_at_ploidy_four(M):
+    """Counts of 3 and 4 a lane: w = x * rcp(d) is not bit-equal to x / d
+    for a count of 3, and stays within the float32 tolerance of the plain
+    version."""
+    dev = _cuda()
+    args = _generic_args(41 + M, 2, 700, 64, M, 20, 32, 0.02, dev,
+                         ploidy=4)
+    x2 = args[2]
+    assert (x2 == 3).any() and (x2 == 4).any()
+    kw = dict(k_true=20, lb=0.01, plb=0.05, project=True)
+    got = fs.admixture_fullstep(*args, **kw)
+    ref = fs.admixture_fullstep_reference(*args, **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **F32)
+    raw = fs.fullstep_cols(*args[:3], args[4], k_true=20, finish=False)
+    raw_ref = fs.fullstep_cols_reference(*args[:3], args[4], finish=False)
+    torch.testing.assert_close(raw, raw_ref, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(3, 32), (20, 32), (40, 64), (70, 96),
+                                  (100, 128)])
+def test_generic_passes_at_any_split(K, Kp):
+    """The splits the wrappers pick for a short, wide panel (the rows pass
+    in several lane segments) and a tall, narrow one (one lane segment,
+    the columns pass in several row segments), each pass against its
+    plain version and rerun bit-equal: raw A (finish=False), eta' and t,
+    the partials (rows k >= K exactly 0) and raw B with the miss fold; the
+    rows pass's set-lane cells (M = 4) bit-equal to its dense ones."""
+    dev = _cuda()
+    n_sm = fb.device_sm_count(dev)
+    lane_segs, row_segs = [], []
+    kw = dict(k_true=K, lb=0.01, project=True)
+    for seed, (I, L) in enumerate(((1001, 211), (3100, 80))):
+        eta, p2, x2, c, miss, mask = _generic_args(K + seed, 2, I, L, 5, K,
+                                                   Kp, 0.03, dev)
+        LM = p2.shape[-1]
+        lane_segs.append(fb.row_segments(2, I, LM, n_sm, k_true=K, Kp=Kp)[0])
+        row_segs.append(fs.cols_segments(2, I, LM, Kp, n_sm, K)[0])
+        for finish in (False, True):
+            got = fs.fullstep_rows(eta, p2, x2, c, finish=finish, **kw)
+            ref = fs.fullstep_rows_reference(eta, p2, x2, c, finish=finish,
+                                             **kw)
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g, r, **F32)
+            again = fs.fullstep_rows(eta, p2, x2, c, finish=finish, **kw)
+            assert all(torch.equal(u, v) for u, v in zip(got, again))
+        ref_part = fs.fullstep_partials_reference(eta, p2, x2, miss)[:, 0]
+        part = fs.fullstep_partials(eta, p2, x2, miss, M=5, k_true=K)
+        assert part.shape[1] == row_segs[-1]
+        assert (part[:, :, K:] == 0).all()
+        torch.testing.assert_close(part.sum(dim=1), ref_part, **F32)
+        assert torch.equal(part, fs.fullstep_partials(eta, p2, x2, miss,
+                                                      M=5, k_true=K))
+        raw = fs.fullstep_cols(eta, p2, x2, miss, k_true=K, finish=False)
+        torch.testing.assert_close(raw, ref_part, **F32)
+    assert lane_segs[0] > 1 and lane_segs[1] == 1, lane_segs
+    assert row_segs[1] > 1, row_segs
+    # M = 4: the cells of the set lanes only; the same bits as the dense
+    # cells of M unsaid
+    e4, p4, x4, c4, _, _ = _generic_args(K + 2, 2, 1001, 211, 4, K, Kp,
+                                         0.03, dev)
+    for finish in (False, True):
+        sparse = fs.fullstep_rows(e4, p4, x4, c4, finish=finish, M=4, **kw)
+        dense = fs.fullstep_rows(e4, p4, x4, c4, finish=finish, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(sparse, dense))
+
+
+@pytest.mark.cuda
 def test_generic_zero_mass_cluster_is_uniform():
     """A real cluster with no mass gets 1/n_alleles on every valid lane."""
     dev = _cuda()
@@ -146,17 +237,21 @@ def test_generic_zero_mass_cluster_is_uniform():
 
 
 @pytest.mark.cuda
-def test_generic_sweep_and_a0_chain_match_plain():
-    """finish=False: the sweep statistics, and an a0 / emit_a chain of two
-    launches, against their plain versions."""
+@pytest.mark.parametrize("K,Kp", [(20, 32), (40, 64), (100, 128)])
+def test_generic_sweep_and_a0_chain_match_plain(K, Kp):
+    """finish=False: the sweep statistics (all Kp lanes computed), and an
+    a0 / emit_a chain of two launches (the loops stopped at K), against
+    their plain versions."""
     dev = _cuda()
-    eta, p2, x2, c, miss, mask = _generic_args(6, 2, 999, 210, 4, 20, 32,
+    eta, p2, x2, c, miss, mask = _generic_args(6, 2, 999, 210, 4, K, Kp,
                                                0.02, dev)
+    before = dict(build.LAUNCHES)
     got = fs.admixture_sweep_stats(eta, p2, x2)
     ref = fs.admixture_sweep_stats_reference(eta, p2, x2)
+    assert all(build.LAUNCHES[n] == before[n] + 1 for n in GENERIC_KERNELS)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, **F32)
-    kw = dict(k_true=20, lb=0.01, project=True)
+    kw = dict(k_true=K, lb=0.01, project=True)
     h = 100 * 4
     halves = [(p2[..., :h].contiguous(), x2[:, :h].contiguous()),
               (p2[..., h:].contiguous(), x2[:, h:].contiguous())]
@@ -631,7 +726,9 @@ def test_routed_pair_takes_the_routes_row_segments():
 @pytest.mark.parametrize("Kp", [32, 64, 96, 128])
 def test_tiles_match_the_python_mirror(Kp):
     """``lane_tile``, ``rows_block`` and ``cols_tile`` against the built
-    library's own arithmetic."""
+    library's own arithmetic (csrc/tiles.cuh, the tiles of the biallelic
+    and of the generic kernels, whose segments ops/fullstep.py computes
+    from the same mirror)."""
     _cuda()
     lib = build.library()
     for K in range(0, Kp + 1):
@@ -643,13 +740,27 @@ def test_tiles_match_the_python_mirror(Kp):
 
 @pytest.mark.cuda
 def test_build_reports_no_spills():
-    """The -Xptxas -v report of csrc/fullstep_bi.cu: no kernel spills."""
-    import re
+    """The -Xptxas -v report of every kernel of csrc/fullstep_bi.cu and of
+    the generic rows and columns passes of csrc/fullstep.cu: none spills,
+    at every Kp.  Left out by name: the generic p epilogue
+    ``fullstep_p_kernel``, whose instances for M > 64 spill 12-24 bytes
+    (ROADMAP.md queue 3)."""
+    from multiclust_tpu_torch.kernel_report import ptxas_lines
 
     _cuda()
     build.library()
     report = build.library_path().with_suffix(".ptxas.txt").read_text()
-    spills = [(int(a), int(b)) for a, b in re.findall(
-        r"fullstep_bi\w+\n.*?(\d+) bytes spill stores, (\d+) bytes spill "
-        r"loads", report)]
-    assert len(spills) >= 17 and all(s == (0, 0) for s in spills), spills
+    lines = ptxas_lines(
+        report, "fullstep_(?:bi_)?(?:rows|cols)|fullstep_bi_p0|rows_finish")
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in text
+               for _, text in lines), lines
+    names = [name for name, _ in lines]
+    for kernel in ("fullstep_rows_kernel", "fullstep_cols_kernel",
+                   "fullstep_bi_rows_kernel", "fullstep_bi_rows_seg_kernel",
+                   "fullstep_bi_cols_kernel", "rows_finish_kernel"):
+        for kp in (32, 64, 96, 128):
+            assert f"{kernel}<{kp}>" in names, (kernel, kp, names)
+    assert "fullstep_bi_p0_kernel" in names, names
+    # the finish kernel is built into both sources, the generic rows pass
+    # with its dense and its sparse cells
+    assert len(names) == 33, names

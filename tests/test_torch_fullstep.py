@@ -362,7 +362,8 @@ def test_fit_dataset_takes_the_generic_route(monkeypatch):
 def test_cuda_wrappers_refuse_unsupported_shapes():
     """The wrappers validate before launching: Kp above 128 raises with
     the ROADMAP item (no fallback), as do more than M_MAX allele slots,
-    lanes that are not whole loci and a p epilogue without its mask."""
+    lanes that are not whole loci, a p epilogue without its mask and a
+    k_true (where the kernels' cluster loops stop) outside [0, Kp]."""
     x = torch.zeros(8, 10, dtype=torch.int8)
     with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
         fs._check_cuda_inputs(torch.zeros(1, 8, 160), torch.zeros(1, 160, 10),
@@ -379,7 +380,45 @@ def test_cuda_wrappers_refuse_unsupported_shapes():
     with pytest.raises(ValueError, match="dividing"):
         fs.fullstep_partials(torch.zeros(1, 8, 32), torch.zeros(1, 32, 10),
                              x, M=3)
+    args = (torch.zeros(1, 8, 32), torch.zeros(1, 32, 10), x)
+    for k_true in (33, -1):
+        with pytest.raises(ValueError, match="k_true"):
+            fs.fullstep_partials(*args, M=5, k_true=k_true)
+        with pytest.raises(ValueError, match="k_true"):
+            fs.fullstep_cols(*args, k_true=k_true, finish=False)
+        with pytest.raises(ValueError, match="k_true"):
+            fs.fullstep_rows(*args, k_true=k_true, lb=0.0, project=False)
+    # 0 means all Kp lanes, as every k_true in [1, Kp] is taken
+    for k_true in (0, 1, 32):
+        assert fs.fullstep_partials(*args, M=5, k_true=k_true).shape == (
+            1, 1, 32, 10)
 
+
+
+@pytest.mark.parametrize("K,Kp", [(20, 32), (40, 64), (70, 96), (100, 128)])
+def test_cols_segments_fill_the_card_within_their_caps(K, Kp):
+    """The columns pass's row segments (on 132 SMs): whole eta tiles that
+    cover I, at most COLS_MAX_RSEG, partials no larger than SCRATCH_CAP
+    or than the int8 x the pass reads; the fit's panel (16384 x 2048 x M =
+    4) gets about COLS_BLOCKS_PER_SM blocks an SM at 1, 2 and 4 chains, a
+    short panel one segment."""
+    from multiclust_tpu_torch.ops import fullstep_bi as fb
+
+    n_sm = 132
+    tc, ri = fb.cols_tile(K, Kp)
+    for B, I, LM in ((1, 16384, 8192), (2, 16384, 8192), (4, 16384, 8192),
+                     (2, 40, 85), (2, 3100, 400), (1, 100000, 64),
+                     (2, 8192, 1 << 20)):
+        n, seg_rows = fs.cols_segments(B, I, LM, Kp, n_sm, K)
+        assert 1 <= n <= fb.COLS_MAX_RSEG
+        assert seg_rows % ri == 0 and (n - 1) * seg_rows < I <= n * seg_rows
+        if n > 1:
+            part_bytes = 4 * B * n * Kp * LM
+            assert part_bytes <= min(fb.SCRATCH_CAP, I * LM)
+        if I == 16384:
+            blocks = -(-LM // tc) * B * n
+            assert blocks >= (fb.COLS_BLOCKS_PER_SM - 1) * n_sm, (B, n)
+    assert fs.cols_segments(2, 40, 85, Kp, n_sm, K)[0] == 1
 
 def _write_structure(x, miss, path):
     """STRUCTURE rows, one per allele copy: allele m + 1 once for each

@@ -129,12 +129,13 @@ def test_wrapper_refuses_unsupported_cuda_shapes():
 # the kernels' tile constants and the pad lanes their k loops leave out
 
 def _cu_constants():
-    """``constexpr int NAME = <int or NAME / int>;`` of csrc/fullstep_bi.cu."""
+    """``constexpr int NAME = <int or NAME / int>;`` of csrc/tiles.cuh, the
+    register tiles that csrc/fullstep_bi.cu and csrc/fullstep.cu share."""
     import re
     from pathlib import Path
 
     text = (Path(fb.__file__).resolve().parent.parent / "csrc"
-            / "fullstep_bi.cu").read_text()
+            / "tiles.cuh").read_text()
     out = {}
     for name, expr in re.findall(
             r"constexpr int (\w+) = ([\w /]+);", text):
@@ -149,8 +150,9 @@ def _cu_constants():
 @pytest.mark.parametrize("name", ["NW", "ROW_AR", "ROW_TL", "ROW_CW_MAX",
                                   "COL_CT", "COL_DR"])
 def test_tile_constants_mirror_the_source(name):
-    """ops/fullstep_bi.py's tile constants say what csrc/fullstep_bi.cu
-    says: the segment arithmetic of the router rests on them."""
+    """ops/fullstep_bi.py's tile constants say what the biallelic and the
+    generic kernels are built with (csrc/tiles.cuh): the segment
+    arithmetic of ops/fullstep_bi.py and ops/fullstep.py rests on them."""
     assert _cu_constants()[name] == getattr(fb, name)
 
 
