@@ -40,8 +40,13 @@ each raising on failure:
 9. mixture kernels: the biallelic mixture step (rows pass, columns pass,
    eta finish, p0 epilogue) and the sweep statistics against their plain
    versions at I=16384, L=2048, K=20 (Kp=32), chain batches 1 and 4,
-   missing 0 % (one stream, the ploidy fold) and 2 % (two streams); each
-   pass alone at the fit's shape;
+   missing 0 % (one stream, the ploidy fold) and 2 % (two streams), the
+   columns pass with the segments its wrapper picks; each pass alone at
+   the fit's shape, beside a yardstick the port never calls (one
+   torch.matmul of each pass's product, float64 and float32); the sweep's
+   launches, counted on a call of its own (no fit calls it); the step at
+   Kp = 128 on an unaligned panel, rerun bit-equal, and the compiler's
+   report of the two contraction kernels;
 10. mixture fits: ``api.fit_dataset(admixture=False)`` on a 16384 x 2048,
    K=20 biallelic panel simulated under the mixture model (plain EM with
    the adaptive interval and SQUAREM, missing-free; plain EM with 1 %
@@ -67,16 +72,24 @@ each raising on failure:
    loop; the route, iterations/s, cells/s and the peak allocation;
 14. biobank reference: a warm-start 30-iteration fit at 256 x 131072
    through the kernels, held to the float64 CPU fit;
-15. one mixture fit at 8192 x 131072 through the mixture kernels;
+15. biobank mixture: the mixture step and the sweep at 8192 x 131072, 2
+   chains, one stream and two (1 % missing), against their plain
+   versions with the row segments the columns wrapper picks (one segment
+   of 256 stages on an H100), and the columns pass alone on a soft v;
+   then one mixture fit at that shape through the mixture kernels;
 16. biobank CLI: a 512 x 8192 STRUCTURE file, ``-a -k 3``, down the
    streamed route.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
 input and output tensors, each once) over 3.35 TB/s and its operations
-over 67 TFLOP/s (IEEE float32 outside the tensor cores, the arithmetic
-the kernels are held to).  No single PyTorch call computes any of these
-functions, so ``library_ms`` is null throughout.
+over 67 TFLOP/s (IEEE float32 outside the tensor cores for the admixture
+kernels, float64 on the tensor cores for the mixture rows and columns
+passes: the same rate).  ``library_ms`` of the mixture rows and columns
+passes is one float64 torch.matmul of the pass's product (the softmax
+left out), the port's plain arithmetic in one library call; no single
+PyTorch call computes the other functions (phase 6 prints two float32
+matmuls a generic pass beside them), so theirs is null.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -193,11 +206,12 @@ def bound(n_bytes: float, n_flop: float):
                                    else "operations")
 
 
-def kernel_record(name, source, replaces, launches, err, ms, bnd):
+def kernel_record(name, source, replaces, launches, err, ms, bnd,
+                  library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms[0], "plain_ms": ms[1], "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": None}
+            "bound_by": bnd[1], "library_ms": library_ms}
 
 
 def phase_kernels(fb, dev, where):
@@ -825,61 +839,24 @@ def phase_cli_generic(build, where):
 
 
 def mixture_counts(seed, I, L, K, miss_rate, dev, spread=None):
-    """Mixture-model genotypes drawn on ``dev`` from ``seed``: individual i
-    belongs to cluster z_i ~ eta, and each observed copy carries allele 0
-    with probability P0[z_i, l].  P0 is uniform on [0.1, 0.9] per cluster,
-    or with ``spread`` one shared locus frequency plus N(0, spread) per
-    cluster (weakly separated clusters).  Returns numpy counts [I, L, 2],
-    miss [I, L] and z."""
-    rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    eta = rng.dirichlet(np.full(K, 5.0))
-    if spread is None:
-        P0 = rng.uniform(0.1, 0.9, size=(K, L))
-    else:
-        P0 = np.clip(rng.uniform(0.2, 0.8, size=L)
-                     + rng.normal(0.0, spread, size=(K, L)), 0.05, 0.95)
-    P0 = torch.tensor(P0, dtype=torch.float32, device=dev)
-    z = torch.tensor(rng.choice(K, size=I, p=eta), device=dev)
-    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
-            < miss_rate).sum(dim=-1)
-    x0 = torch.zeros((I, L), dtype=torch.int64, device=dev)
-    for a in range(2):
-        u = torch.rand((I, L), generator=gen, device=dev)
-        x0 += (u < P0[z]) & (a < 2 - miss)
-    counts = torch.stack([x0, 2 - miss - x0], dim=-1)
-    return counts.cpu().numpy(), miss.cpu().numpy(), z.cpu().numpy()
+    """Mixture-model genotypes of ``route_times.mixture_planes`` (drawn on
+    ``dev`` from ``seed``; ``spread`` as there) as numpy counts [I, L, 2]
+    and miss [I, L]."""
+    from multiclust_tpu_torch.route_times import mixture_planes
+
+    planes, miss = mixture_planes(seed, I, L, K, miss_rate, dev, spread)
+    return (planes.permute(1, 2, 0).long().cpu().numpy(),
+            miss.long().cpu().numpy())
 
 
-def mixture_step_inputs(seed, B, I, L, K, Kp, miss_rate, dev):
-    """Kernel-route inputs on ``dev``, K-padded as model/mixture.py builds
-    them (pads: lp 0, bias -1e30): lp0 [B, Kp, L], x0 int8 [I, L], bias
-    [B, Kp], and lp1 / x1 with missing data (two streams); missing-free
-    inputs fold x1 = 2 - x0 into lp0 = log p0 - log p1 and the bias."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    p0 = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
-    eta = torch.rand((B, K), generator=gen, device=dev) + 0.1
-    eta /= eta.sum(dim=-1, keepdim=True)
-    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
-            < miss_rate).sum(dim=-1)
-    x0 = sum(((torch.rand((I, L), generator=gen, device=dev) < 0.5)
-              & (a < 2 - miss)).to(torch.int8) for a in range(2))
-    lp0 = torch.zeros((B, Kp, L), device=dev)
-    bias = torch.full((B, Kp), -1e30, device=dev)
-    if not miss_rate:
-        lp0[:, :K] = torch.log(p0) - torch.log1p(-p0)
-        bias[:, :K] = 2 * torch.log1p(-p0).sum(dim=-1) + torch.log(eta)
-        return lp0, x0, bias, None, None
-    lp1 = torch.zeros_like(lp0)
-    lp0[:, :K], lp1[:, :K] = torch.log(p0), torch.log1p(-p0)
-    bias[:, :K] = torch.log(eta)
-    return lp0, x0, bias, lp1, (2 - miss - x0).to(torch.int8)
-
-
-def phase_mixture_kernels(mb, dev, where):
+def phase_mixture_kernels(mb, build, dev, where):
     """The mixture step and the sweep against their plain versions at the
     full shape, then each pass alone at the fit's shape (chain batch 2,
-    one stream) for the kernels' record."""
+    one stream) for the kernels' record, with the matmul yardstick of the
+    two contraction passes; the step at Kp = 128; the compiler's report."""
+    from multiclust_tpu_torch.kernel_report import ptxas_lines
+    from multiclust_tpu_torch.route_times import mixture_step_inputs
+
     K, Kp = K_FULL, 32
     errs = {"rows": 0.0, "cols": 0.0, "eta": 0.0, "p": 0.0, "sweep": 0.0}
     kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
@@ -938,8 +915,8 @@ def phase_mixture_kernels(mb, dev, where):
                                                            bias)[:3]),
     }
     # operations: one contraction of I x L x K each for the scores (rows)
-    # and for B0 (columns), 2 a multiply-add, and the softmax's ~20 a
-    # posterior; the finishes ~10 an entry
+    # and for B0 (columns), 2 a multiply-add (float64 on the tensor
+    # cores), and the softmax's ~20 a posterior; the finishes ~10 an entry
     cells = 2 * I_FULL * L_FULL
     flop = {"rows": 2 * K * cells + 20 * v.numel(), "cols": 2 * K * cells,
             "eta": 10 * vpart.numel(), "p": 10 * lp0.numel(),
@@ -958,7 +935,68 @@ def phase_mixture_kernels(mb, dev, where):
               f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
               f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
-    return errs, ms, bnd
+
+    # the yardstick the port never calls: each pass's product alone, one
+    # torch.matmul on K-wide operands, in float64 (the plain version's
+    # arithmetic, cuBLAS on the float64 tensor cores) and in float32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    library = {}
+    for dtype in (torch.float64, torch.float32):
+        xx = x0.to(dtype)
+        lp_t = lp0[:, :K].to(dtype).transpose(1, 2)            # [B, L, K]
+        v_t = v[..., :K].to(dtype).transpose(1, 2).contiguous()  # [B, K, I]
+        library[dtype] = {
+            "rows": median_ms(lambda: torch.matmul(xx, lp_t)),
+            "cols": median_ms(lambda: torch.matmul(v_t, xx))}
+        del xx, lp_t, v_t
+    # the sweep's launches, counted from 0 on a call of its own (no fit
+    # calls it)
+    build.reset_launch_counts()
+    mb.mixture_sweep_stats(lp0, x0, bias)
+    torch.cuda.synchronize()
+    sweep_launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
+    assert sweep_launches == {"mc_mix_rows": 1, "mc_mix_cols": 1,
+                              "mc_mix_eta": 0, "mc_mix_p": 1}, sweep_launches
+    print(f"launches of one mixture_sweep_stats call: {sweep_launches}",
+          flush=True)
+    print(f"yardstick, not a route of the port: one matmul of the rows "
+          f"pass's product (x lp^T) {library[torch.float64]['rows']:.3f} ms "
+          f"in float64, {library[torch.float32]['rows']:.3f} ms in float32; "
+          f"of the columns pass's (v^T x) "
+          f"{library[torch.float64]['cols']:.3f} / "
+          f"{library[torch.float32]['cols']:.3f} ms; the kernels "
+          f"{ms['rows'][0]:.3f} and {ms['cols'][0]:.3f} ms on {where}",
+          flush=True)
+    del lp0, x0, bias, v, part, vpart, vtot
+    torch.cuda.empty_cache()
+
+    # Kp = 128 (K = 100) on an unaligned panel, one stream and two
+    for miss_rate in (0.0, 0.02):
+        args = mixture_step_inputs(75, 2, 4000, 4001, 100, 128, miss_rate,
+                                   dev)
+        kw128 = dict(kw, k_true=100)
+        got = mb.mixture_fullstep_biallelic(*args, **kw128)
+        ref = mb.mixture_fullstep_biallelic_reference(*args, **kw128)
+        torch.cuda.synchronize()
+        e_eta, e_t, e_p = (max_err(g, r) for g, r in zip(got, ref))
+        again = mb.mixture_fullstep_biallelic(*args, **kw128)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+        for name, err in (("eta", e_eta), ("rows", e_t), ("p", e_p)):
+            errs[name] = max(errs[name], err)
+        step_ms = median_ms(
+            lambda: mb.mixture_fullstep_biallelic(*args, **kw128), n=5,
+            warm=1)
+        print(f"mixture step Kp=128 (K=100, B=2, 4000 x 4001, miss="
+              f"{miss_rate:.2f}): max|d| eta'={e_eta:.3e} t={e_t:.3e} "
+              f"p0'={e_p:.3e} (rtol {RTOL}, atol {ATOL}); reruns bit-equal; "
+              f"{step_ms:.3f} ms on {where}", flush=True)
+        del args, got, ref, again
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    for name, text in ptxas_lines(report, "mix_(?:rows|cols)"):
+        print(f"ptxas {name}: {text}", flush=True)
+        assert " 0 bytes spill stores, 0 bytes spill loads" in text, name
+    return errs, ms, bnd, library[torch.float64], \
+        sweep_launches["mc_mix_rows"]
 
 
 def phase_fit_mixture(build, dev, where):
@@ -971,7 +1009,7 @@ def phase_fit_mixture(build, dev, where):
                 max_iter=100, seed=3, verbosity=2)
     panels = {}
     for miss_rate in (0.0, 0.01):
-        counts, miss, _ = mixture_counts(80, I_FULL, L_FULL, K_FULL,
+        counts, miss = mixture_counts(80, I_FULL, L_FULL, K_FULL,
                                          miss_rate, dev)
         panels[miss_rate] = dataset_from_counts(counts, miss, 2)
     assert not panels[0.0].miss.any() and panels[0.01].miss.any()
@@ -1009,7 +1047,7 @@ def phase_reference_mixture(build, dev):
     I, L, K = 600, 500, 3
     # weakly separated clusters keep the posteriors soft, so the fit runs
     # its 30 iterations instead of settling in a few
-    counts, miss, _ = mixture_counts(81, I, L, K, 0.05, "cpu", spread=0.04)
+    counts, miss = mixture_counts(81, I, L, K, 0.05, "cpu", spread=0.04)
     mask, n_all = np.ones((L, 2), bool), np.full(L, 2)
     rng = np.random.default_rng(82)
     eta = rng.dirichlet(np.full(K, 3.0))
@@ -1064,7 +1102,7 @@ def phase_cli_mixture(build, where):
     -a -c (constrained eta, on the collapsed data)."""
     from multiclust_tpu_torch.cli import main
 
-    counts, miss, _ = mixture_counts(84, 1024, 1000, 3, 0.05, "cpu")
+    counts, miss = mixture_counts(84, 1024, 1000, 3, 0.05, "cpu")
     for flags in ([], ["-a", "-c"]):
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "sim.str")
@@ -1436,6 +1474,61 @@ def phase_biobank_reference(build, dev):
     assert abs(gap) < floor and abs(ll32 - ll64) < floor
 
 
+def phase_biobank_mixture_kernels(mb, dev, where):
+    """The mixture step and the sweep at 8192 x 131072, 2 chains, one
+    stream and two (1 % missing), against their plain versions, with the
+    row segments the columns wrapper picks (one segment of hundreds of
+    stages here); the columns pass alone on a soft v, whose v sums are
+    fractional over the whole segment."""
+    from multiclust_tpu_torch.ops.fullstep_bi import device_sm_count
+    from multiclust_tpu_torch.route_times import mixture_step_inputs
+
+    K, Kp, B = K_FULL, 32, 2
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
+    errs = {"rows": 0.0, "cols": 0.0, "eta": 0.0, "p": 0.0, "sweep": 0.0}
+    gen = torch.Generator(device=dev).manual_seed(107)
+    for seed, miss_rate in ((108, 0.0), (109, 0.01)):
+        args = mixture_step_inputs(seed, B, I_BIO, L_BIO, K, Kp, miss_rate,
+                                   dev)
+        two = miss_rate > 0
+        n_seg, seg_rows = mb.cols_segments(I_BIO, L_BIO, B, Kp, two,
+                                           device_sm_count(dev))
+        got = mb.mixture_fullstep_biallelic(*args, **kw)
+        ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
+        torch.cuda.synchronize()
+        e_eta, e_t, e_p = (max_err(g, r) for g, r in zip(got, ref))
+        assert (got[0][:, K:] == 0).all()
+        del got, ref
+        sweep = mb.mixture_sweep_stats(*args)
+        sweep_ref = mb.mixture_sweep_stats_reference(*args)
+        torch.cuda.synchronize()
+        e_sw = max(max_err(g, r) for g, r in zip(sweep, sweep_ref)
+                   if g is not None)
+        del sweep, sweep_ref
+        # a soft v: softmax of N(0, 1) scores over the K live lanes
+        v = torch.zeros((B, I_BIO, Kp), device=dev)
+        v[..., :K] = torch.softmax(torch.randn((B, I_BIO, K), generator=gen,
+                                               device=dev), dim=-1)
+        x0, x1 = args[1], args[4]
+        cols = [t.sum(dim=1) for t in mb.mixture_partials(v, x0, x1)]
+        cols_ref = [t[:, 0] for t in mb.mixture_cols_reference(v, x0, x1)]
+        torch.cuda.synchronize()
+        e_c = max(max_err(g, r) for g, r in zip(cols, cols_ref))
+        for name, err in (("eta", e_eta), ("rows", e_t), ("p", e_p),
+                          ("sweep", e_sw), ("cols", e_c)):
+            errs[name] = max(errs[name], err)
+        print(f"mixture step {I_BIO} x {L_BIO} B={B} miss={miss_rate:.2f} "
+              f"({'two streams' if two else 'one stream'}; columns pass in "
+              f"{n_seg} row segment(s) of {seg_rows} rows, "
+              f"{-(-seg_rows // mb.COL_RI)} stages of {mb.COL_RI}): max|d| "
+              f"eta'={e_eta:.3e} t={e_t:.3e} p0'={e_p:.3e} sweep={e_sw:.3e}, "
+              f"columns pass on a soft v {e_c:.3e} (rtol {RTOL}, atol "
+              f"{ATOL}) on {where}", flush=True)
+        del args, v, cols, cols_ref
+        torch.cuda.empty_cache()
+    return errs
+
+
 def phase_biobank_mixture(build, dev, where):
     """One mixture fit at 8192 x 131072 through the mixture kernels."""
     from multiclust_tpu_torch.api import fit_model_data
@@ -1517,7 +1610,8 @@ def main() -> int:
     launches.update(phase_fit_generic(build, dev, where))
     phase_reference_generic(dev)
     phase_cli_generic(build, where)
-    m_errs, m_ms, m_bnd = phase_mixture_kernels(mb, dev, where)
+    m_errs, m_ms, m_bnd, m_lib, m_sweep_launches = phase_mixture_kernels(
+        mb, build, dev, where)
     mix_launches = phase_fit_mixture(build, dev, where)
     phase_reference_mixture(build, dev)
     phase_fit_mixture_generic(build, dev, where)
@@ -1541,12 +1635,18 @@ def main() -> int:
             ("generic rows pass 16384 x 2048 x M=4, 2 chains", "rows", g_ms,
              g_bnd),
             ("generic columns pass 16384 x 2048 x M=4, 2 chains", "cols",
-             g_ms, g_bnd)):
+             g_ms, g_bnd),
+            ("mixture rows pass 16384 x 2048, 2 chains", "rows", m_ms,
+             m_bnd),
+            ("mixture columns pass 16384 x 2048, 2 chains", "cols", m_ms,
+             m_bnd)):
         print(f"share of bound, {label}: {t[key][0]:.3f} ms "
               f"against {b[key][0]:.3f} ms ({b[key][1]}): "
               f"{100 * b[key][0] / t[key][0]:.1f} % on {where}", flush=True)
     bio_launches = phase_biobank_fits(build, dev, where)
     phase_biobank_reference(build, dev)
+    for name, err in phase_biobank_mixture_kernels(mb, dev, where).items():
+        m_errs[name] = max(m_errs[name], err)
     phase_biobank_mixture(build, dev, where)
     phase_cli_biobank(build, where)
 
@@ -1576,16 +1676,16 @@ def main() -> int:
     kernels += [
         kernel_record(f"mixture_{name}", MIX_SOURCE, MIX_TPU,
                       mix_launches[f"mc_mix_{name}"], m_errs[name],
-                      m_ms[name], m_bnd[name])
+                      m_ms[name], m_bnd[name], m_lib.get(name))
         for name in ("rows", "cols", "eta", "p")]
     # the resident sweep's port is the mixture rows and columns passes
-    # with the raw epilogue (finish=False): its launches are the rows
-    # pass's launches in the mixture fits, its times and error those of
-    # one mixture_sweep_stats call
+    # with the raw epilogue (finish=False); no fit calls it: its launches
+    # are those of one mixture_sweep_stats call counted on their own, its
+    # times and error those of such calls
     kernels.append(
         kernel_record("mixture_sweep_resident", MIX_SOURCE, MIX_SWEEP_TPU,
-                      mix_launches["mc_mix_rows"], m_errs["sweep"],
-                      m_ms["sweep"], m_bnd["sweep"]))
+                      m_sweep_launches, m_errs["sweep"], m_ms["sweep"],
+                      m_bnd["sweep"]))
     # the streamed step's kernels (the segmented rows pass, its finish, the
     # windowed columns pass with its epilogue) and the chunked loop of
     # them, with their launches in the biobank fits

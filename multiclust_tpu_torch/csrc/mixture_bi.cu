@@ -26,15 +26,13 @@
 // csrc/fullstep_bi.cu splits the admixture one, with no atomics
 // (deterministic):
 //
-// * rows pass: one block per (chain, 64 rows); loops over L in 16-locus
-//   tiles (x tile and transposed lp tile in shared memory), keeps the
-//   scores in registers with lane = cluster, and finishes the softmax and
-//   the logsumexp with warp shuffles.  Writes v [B, I, Kp] and t [B, I].
-// * columns pass: one block per (chain, row segment, 128 loci); loops over
-//   its segment of I in 16-row tiles, each thread an outer-product tile of
-//   Kp/8 clusters by 4 loci, and writes B0 (B1) as the segment's partial
-//   sums; the blocks of the first locus tile also write the segment's sum
-//   of v (for vtot).
+// * rows pass: one block per (chain, 128 rows), a warp per 16 rows; loops
+//   over L in stages of 32 loci (16 where Kp x streams > 192).  Writes v
+//   [B, I, Kp] and t [B, I].
+// * columns pass: one block per (chain, row segment, TC loci); loops over
+//   its segment of I in stages of 32 rows and writes B0 (B1) as the
+//   segment's partial sums; the blocks of the first locus tile also write
+//   the segment's sum of v (for vtot).
 // * eta finish: one warp per chain sums the vtot partials in segment order,
 //   normalizes and projects eta with the warp Michelot of simplex.cuh.
 //   It never reads the host.
@@ -42,240 +40,527 @@
 //   segment order and applies the p0 update; `finish` = 0 writes the raw
 //   B0 (B1) instead (the sweep statistics).
 //
-// Precision: at L in the thousands the scores reach |s| ~ 10^3, where one
-// float32 rounding step (6e-5 at 1000) moves v by as much, so the rows
-// pass sums each 16-locus tile in float32 and the tiles in float64, and
-// takes the row max and s - m in float64 (the plain version scores in
-// float64 too).
+// Both contractions run on the float64 tensor cores (`mma.sync` m16n8k16,
+// DMMA): x holds counts and lp and v are float32, so every product is
+// exact in float64, and the scores and B0/B1 are summed in float64 over
+// the whole of L (rows) or of the row segment (columns), as the plain
+// version's float64 product does.  At L in the thousands |s| reaches 10^3,
+// where a float32 rounding of s alone would move v by 1e-4; the rows pass
+// takes the row max and s - m in float64, then expf(s - m) and t =
+// log(tot) + m.  The columns pass rounds its partials to float32 once, at
+// the end of the segment.
 //
-// Bound: two contractions of I x L x Kp per stream (scores and B), in IEEE
-// f32 FMA on the CUDA cores (no TF32); x is one byte per cell per stream
-// and is read twice, against once by the TPU's single-pass kernel.  The
-// rows pass issues about one shared-memory load per 2.7 FMA and is bound
-// by shared-memory issue; the columns pass's register tile lifts that to
-// about 3 FMA per load at Kp = 32 and more at larger Kp.  Ragged I and L
-// are masked here; the caller pads only K, to Kp in {32, 64, 96, 128}.
+// Operands: x (int8) and lp or v (float32) tiles stream through cp.async
+// rings in shared memory, two stages in flight, one barrier a stage.  The
+// float32 tile of the operand that every warp reads (lp, v) is converted
+// once a stage into a float64 tile, each thread converting the elements
+// it copied (its own copies are complete after its cp.async wait, so that
+// takes no barrier); x is converted to float64 while a fragment is built.
+// A fragment's contraction slot p of thread t stands for locus 4 t + p of
+// a 16-locus step (rows pass: one 32-bit load of four counts a row) or
+// row t + 4 p of a 16-row step (columns pass: bank-free float64 loads of
+// v).
+//
+// Cluster tiles stop at K: the rows pass reads the live lanes from the
+// bias (a lane past the last one above -1e29 is a pad lane, whose v is
+// exactly 0) and computes ceil(K / 8) tiles of 8; the columns pass skips,
+// a stage at a time, every tile of 8 clusters whose v is all zero in the
+// stage (pad lanes always; its products would add exactly 0) and writes
+// zeros for the pad rows, which the p0 epilogue reads.
+//
+// Bound: two contractions of I x L x K per stream (scores and B) on the
+// float64 tensor cores (67 TFLOP/s dense, the rate of float32 outside
+// them); x is one byte per cell per stream and is read twice, against
+// once by the TPU's single-pass kernel.  Both passes reach about 40 % of
+// that bound at 16384 x 2048, K = 20, and 44-47 % at K = 100 (PERF.md):
+// a warp issues its fragment loads and conversions beside each DMMA.
+// Ragged I and L are masked here; the caller pads only K, to Kp in {32,
+// 64, 96, 128}.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "simplex.cuh"
+#include "smem.cuh"
 
 namespace {
 
-constexpr int NT = 256;       // threads per block, rows and columns passes
+constexpr int NT = 256;       // threads per block, every kernel
 constexpr int NW = NT / 32;   // warps per block
-constexpr int ROW_R = 64;     // rows per rows-pass block (8 per warp)
-constexpr int ROW_TL = 16;    // loci per rows-pass tile
-constexpr int COL_TC = 128;   // loci per columns-pass block (4 per lane)
-constexpr int COL_RI = 16;    // rows per columns-pass tile
+constexpr int ROW_R = 16 * NW;  // rows per rows-pass block (16 per warp)
+constexpr int COL_RI = 32;    // rows per columns-pass stage
+// v sums: stages a thread sums in float32 before it adds them to its
+// float64 slots (the v sums of a segment stay float64 at any length)
+constexpr int VSUM_ST = 32;
+// a lane whose bias is at most this is a K-pad lane (model/mixture.py pads
+// with PAD_BIAS = -1e30; a CPU test in tests/test_torch_mixture.py checks
+// PAD_BIAS against this)
+constexpr float PAD_BIAS_MAX = -1e29f;
 
+using mc::FULL;
 using mc::michelot_warp;
 using mc::warp_sum;
 
-__device__ __forceinline__ double warp_max(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmax(v, __shfl_xor_sync(mc::FULL, v, o));
-  return v;
+// c += a b on one 16 x 8 tile in float64 with a contraction of 16 slots
+// (mma.sync m16n8k16; m16n8k8 and m16n8k4 timed the same within 7 %):
+// with g = lane / 4 and t = lane % 4, a[i] is A[g + 8 (i % 2)][slot i / 2],
+// b[p] is B[slot p][g] and c[j] is C[g + 8 (j / 2)][2 t + j % 2].  The four
+// slots p of thread t are four of the 16 contracted indices, the caller's
+// to choose, the same in a and b.
+__device__ __forceinline__ void dmma16(double (&c)[4], const double (&a)[8],
+                                       const double (&b)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
+// count q (0-3) of four int8 counts packed in w, as float64
+__device__ __forceinline__ double xcount(uint32_t w, int q) {
+  return (double)(int)(int8_t)(w >> (8 * q));
+}
+
+__device__ __forceinline__ double warp4_max(double v) {
+  v = fmax(v, __shfl_xor_sync(FULL, v, 1));
+  return fmax(v, __shfl_xor_sync(FULL, v, 2));
+}
+
+// ---------------------------------------------------------------------------
+// rows pass
+
+// Shared memory of a rows-pass block: the float64 lp tiles [2][NS][KP][PS]
+// (two stages), the float32 lp ring [2][NS][KP][TL] and the x ring
+// [3][NS][ROW_R][XS] bytes.  TL loci a stage; XS bytes an x row (16 or 48,
+// so that the 32-bit reads of 8 rows x 4 words hit 32 banks); PS doubles
+// an lp row (TL + 2: 16 bytes past a multiple of 128).
 template <int KP, bool X1>
-__global__ void __launch_bounds__(NT) mix_rows_kernel(
+struct RowsTile {
+  static constexpr int NS = X1 ? 2 : 1;
+  static constexpr int TL = KP * NS > 192 ? 16 : 32;
+  static constexpr int XS = TL == 16 ? 16 : 48;
+  static constexpr int PS = TL + 2;
+  static constexpr int D_BYTES = 2 * NS * KP * PS * 8;
+  static constexpr int F_BYTES = 2 * NS * KP * TL * 4;
+  static constexpr int X_BYTES = 3 * NS * ROW_R * XS;
+  static constexpr int SMEM = D_BYTES + F_BYTES + X_BYTES;
+};
+
+// Warp w owns rows 16 w .. 16 w + 15 of the block and all live cluster
+// tiles: an m16 x n8 float64 accumulator per 8 clusters (A = x, B = lp^T,
+// the contraction over loci), kept over the whole of L.  `vec`: every row
+// of x and lp is 16-byte aligned (cp.async); otherwise plain loads.
+template <int KP, bool X1>
+__global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     const float* __restrict__ lp0, const float* __restrict__ lp1,
     const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
     const float* __restrict__ bias, float* __restrict__ v_out,
-    float* __restrict__ t_out, int I, int L) {
-  constexpr int KJ = KP / 32;
-  constexpr int RI = ROW_R / NW;  // rows per warp
-  constexpr int NS = X1 ? 2 : 1;  // genotype streams
-  __shared__ __align__(16) float x_s[NS][ROW_R][ROW_TL + 4];
-  __shared__ float p_s[NS][ROW_TL][KP + 1];
+    float* __restrict__ t_out, int I, int L, int vec) {
+  using T = RowsTile<KP, X1>;
+  constexpr int NS = T::NS, TL = T::TL, XS = T::XS, PS = T::PS;
+  constexpr int NT8 = KP / 8;
+  double* lpd = reinterpret_cast<double*>(dyn_smem4);
+  float* lpf = reinterpret_cast<float*>(dyn_smem4) + T::D_BYTES / 4;
+  int8_t* xs = reinterpret_cast<int8_t*>(dyn_smem4) + T::D_BYTES + T::F_BYTES;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
   const int row0 = blockIdx.x * ROW_R;
-  const float* lps[2] = {lp0 + (size_t)b * KP * L,
-                         X1 ? lp1 + (size_t)b * KP * L : nullptr};
-  const int8_t* xs[2] = {x0, x1};
+  const float* bias_b = bias + (size_t)b * KP;
+  const float* lp0_b = lp0 + (size_t)b * KP * L;
+  const float* lp1_b = X1 ? lp1 + (size_t)b * KP * L : lp0_b;
 
-  // warp w owns rows w + 8 i; lane owns clusters k = lane + 32 j.  Each
-  // tile's float32 partial joins a float64 score: |s| reaches thousands
-  // at L in the thousands, where float32 rounding alone would move v by
-  // more than 1e-4
-  double acc[RI][KJ];
+  // live cluster tiles: up to the last lane above the pad bias (all Kp
+  // lanes if none is)
+  int kc = 0;
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) acc[i][j] = 0.0;
+  for (int j = 0; j < KP / 32; ++j) {
+    const unsigned m =
+        __ballot_sync(FULL, !(bias_b[lane + 32 * j] <= PAD_BIAS_MAX));
+    if (m) kc = 32 * j + 32 - __clz(m);
+  }
+  const int nt_live = kc ? (kc + 7) / 8 : NT8;
+  const int KC = 8 * nt_live;
+  const int n_st = (L + TL - 1) / TL;
 
-  for (int l0 = 0; l0 < L; l0 += ROW_TL) {
-    __syncthreads();
+  // copies of stage st: x into ring slot st % 3, lp (KC lanes) into float32
+  // slot st % 2
+  auto issue = [&](int st) {
+    const int l0 = st * TL;
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      for (int e = tid; e < ROW_R * ROW_TL; e += NT) {
-        const int r = e / ROW_TL, cc = e % ROW_TL;
-        const int row = row0 + r, col = l0 + cc;
-        x_s[s][r][cc] = (row < I && col < L)
-                            ? (float)xs[s][(size_t)row * L + col] : 0.f;
+      const int8_t* x = s ? x1 : x0;
+      const float* lp = s ? lp1_b : lp0_b;
+      int8_t* xd = xs + ((st % 3) * NS + s) * ROW_R * XS;
+      for (int e = tid; e < ROW_R * (TL / 16); e += NT) {
+        const int r = e / (TL / 16), c16 = 16 * (e % (TL / 16));
+        const int row = row0 + r, col = l0 + c16;
+        const int n = row < I ? min(16, L - col) : 0;
+        const int8_t* src = x + (size_t)row * L + col;
+        int8_t* dst = xd + r * XS + c16;
+        if (vec) {
+          cp_async16(dst, n > 0 ? src : x, max(n, 0));
+        } else {
+#pragma unroll
+          for (int q = 0; q < 16; ++q) dst[q] = q < n ? src[q] : 0;
+        }
       }
-      for (int e = tid; e < KP * ROW_TL; e += NT) {
-        const int k = e / ROW_TL, cc = e % ROW_TL, col = l0 + cc;
-        p_s[s][cc][k] = col < L ? lps[s][(size_t)k * L + col] : 0.f;
+      float* fd = lpf + ((st & 1) * NS + s) * KP * TL;
+      for (int e = tid; e < KC * (TL / 4); e += NT) {
+        const int k = e / (TL / 4), c4 = 4 * (e % (TL / 4)), col = l0 + c4;
+        const int n = min(4, L - col);
+        const float* src = lp + (size_t)k * L + col;
+        float* dst = fd + k * TL + c4;
+        if (vec) {
+          cp_async16(dst, n > 0 ? src : lp, 4 * max(n, 0));
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dst[q] = q < n ? src[q] : 0.f;
+        }
       }
     }
-    __syncthreads();
-    float tile[RI][KJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) tile[i][j] = 0.f;
+    cp_async_commit();
+  };
+  // the float64 lp tile of stage st from the elements this thread copied
+  auto convert = [&](int st) {
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
+      const float* fs = lpf + ((st & 1) * NS + s) * KP * TL;
+      double* ds = lpd + ((st & 1) * NS + s) * KP * PS;
+      for (int e = tid; e < KC * (TL / 4); e += NT) {
+        const int k = e / (TL / 4), c4 = 4 * (e % (TL / 4));
+        const float4 f = *reinterpret_cast<const float4*>(fs + k * TL + c4);
+        double2* d = reinterpret_cast<double2*>(ds + k * PS + c4);
+        d[0] = make_double2(f.x, f.y);
+        d[1] = make_double2(f.z, f.w);
+      }
+    }
+  };
+
+  double acc[NT8][4];
 #pragma unroll
-      for (int cc = 0; cc < ROW_TL; cc += 4) {
-        float pv[4][KJ];
+  for (int n = 0; n < NT8; ++n)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+    for (int j = 0; j < 4; ++j) acc[n][j] = 0.0;
+
+  issue(0);
+  if (n_st > 1) issue(1); else cp_async_commit();
+  cp_async_wait<1>();
+  convert(0);
+  __syncthreads();
+  for (int st = 0; st < n_st; ++st) {
+    if (st + 2 < n_st) issue(st + 2); else cp_async_commit();
+    cp_async_wait<1>();
+    if (st + 1 < n_st) convert(st + 1);
+    const int8_t* xt = xs + (st % 3) * NS * ROW_R * XS;
+    const double* dt = lpd + (st & 1) * NS * KP * PS;
 #pragma unroll
-          for (int j = 0; j < KJ; ++j) pv[q][j] = p_s[s][cc + q][lane + 32 * j];
+    for (int c = 0; c < TL / 16; ++c) {
 #pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float4 xv =
-              *reinterpret_cast<const float4*>(&x_s[s][warp + NW * i][cc]);
+      for (int s = 0; s < NS; ++s) {
+        // slot p of thread t: locus 16 c + 4 t + p; rows g and g + 8
+        const int8_t* xr =
+            xt + (s * ROW_R + 16 * warp + g) * XS + 16 * c + 4 * t;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(xr);
+        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(xr + 8 * XS);
+        double a[8];
 #pragma unroll
-          for (int j = 0; j < KJ; ++j) {
-            float a = tile[i][j];
-            a = fmaf(xv.x, pv[0][j], a);
-            a = fmaf(xv.y, pv[1][j], a);
-            a = fmaf(xv.z, pv[2][j], a);
-            a = fmaf(xv.w, pv[3][j], a);
-            tile[i][j] = a;
+        for (int p = 0; p < 4; ++p) {
+          a[2 * p] = xcount(w0, p);
+          a[2 * p + 1] = xcount(w1, p);
+        }
+        const double* dr = dt + (s * KP + g) * PS + 16 * c + 4 * t;
+#pragma unroll
+        for (int n = 0; n < NT8; ++n) {
+          if (n < nt_live) {
+            const double2 b01 =
+                *reinterpret_cast<const double2*>(dr + 8 * n * PS);
+            const double2 b23 =
+                *reinterpret_cast<const double2*>(dr + 8 * n * PS + 2);
+            const double bb[4] = {b01.x, b01.y, b23.x, b23.y};
+            dmma16(acc[n], a, bb);
           }
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) acc[i][j] += (double)tile[i][j];
+    __syncthreads();
   }
 
-  const float* bias_b = bias + (size_t)b * KP;
+  // epilogue, rows g and g + 8 of the warp: lanes 4 g .. 4 g + 3 hold a
+  // row's scores, clusters 8 n + 2 t + {0, 1}
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = row0 + warp + NW * i;
-    if (row >= I) continue;  // uniform across the warp
-    // the max is taken in float64, so s - m is small and exact enough
-    double sd[KJ], m = -INFINITY;
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 16 * warp + g + 8 * h;
+    // s = acc + bias in float64, formed again for the exponentials (the
+    // same bits) rather than held
+    double m = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      sd[j] = acc[i][j] + (double)bias_b[lane + 32 * j];
-      m = fmax(m, sd[j]);
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (n < nt_live)
+          m = fmax(m, acc[n][2 * h + j] + (double)bias_b[8 * n + 2 * t + j]);
+    m = warp4_max(m);
+    float e[NT8][2], part = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        e[n][j] = n < nt_live
+                      ? expf((float)(acc[n][2 * h + j] +
+                                     (double)bias_b[8 * n + 2 * t + j] - m))
+                      : 0.f;
+        part += e[n][j];
+      }
+    part += __shfl_xor_sync(FULL, part, 1);
+    const float tot = part + __shfl_xor_sync(FULL, part, 2);
+    if (row < I) {
+      float* v = v_out + ((size_t)b * I + row) * KP + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+        *reinterpret_cast<float2*>(v + 8 * n) =
+            make_float2(e[n][0] / tot, e[n][1] / tot);
+      if (t == 0)
+        t_out[(size_t)b * I + row] = (float)((double)logf(tot) + m);
     }
-    m = warp_max(m);
-    float e[KJ], part = 0.f;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      e[j] = expf((float)(sd[j] - m));
-      part += e[j];
-    }
-    const float tot = warp_sum(part);
-    float* v = v_out + ((size_t)b * I + row) * KP;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) v[lane + 32 * j] = e[j] / tot;
-    if (lane == 0) t_out[(size_t)b * I + row] = (float)((double)logf(tot) + m);
   }
 }
 
+// ---------------------------------------------------------------------------
+// columns pass
+
+// Tiles of the columns pass for Kp and the streams: a warp computes one
+// tile of 16 loci by NTW tiles of 8 clusters (A = x^T, B = v, the
+// contraction over rows), 4 NS NTW float64 accumulators a thread (at most
+// 32); the block's NW warps are WL locus warps x WN cluster warps, TC = 16
+// WL loci.  MINB blocks an SM: two where ptxas fits the kernel in 128
+// registers with no spill (Kp = 32, one stream: 110 registers; the others
+// spill 8-168 bytes there, measured), else one.  ops/mixture_bi.cols_tile
+// and cols_blocks_per_sm mirror TC and MINB.
+constexpr int cols_ntw(int nt8, int ns) {
+  for (int d = nt8; d > 1; --d)
+    if (nt8 % d == 0 && ns * d <= 8 && NW % (nt8 / d) == 0) return d;
+  return 1;
+}
+
 template <int KP, bool X1>
-__global__ void __launch_bounds__(NT) mix_cols_kernel(
+struct ColsTile {
+  static constexpr int NS = X1 ? 2 : 1;
+  static constexpr int NT8 = KP / 8;
+  static constexpr int NTW = cols_ntw(NT8, NS);
+  static constexpr int WN = NT8 / NTW;
+  static constexpr int WL = NW / WN;
+  static constexpr int TC = 16 * WL;
+  static constexpr int MINB = KP == 32 && !X1 ? 2 : 1;
+  // bytes an x row (the 16-bit reads of 4 rows x 4 words hit distinct
+  // banks), doubles a v row (4 past a multiple of 16, likewise)
+  static constexpr int XS = TC + 16;
+  static constexpr int VS = KP + 4;
+  static constexpr int D_BYTES = 2 * COL_RI * VS * 8;
+  static constexpr int F_BYTES = 2 * COL_RI * KP * 4;
+  static constexpr int X_BYTES = 3 * NS * COL_RI * XS;
+  static constexpr int S_BYTES = COL_RI * KP * 8;   // float64 v sums
+  static constexpr int SMEM =
+      D_BYTES + F_BYTES + X_BYTES + S_BYTES + 2 * NW * 4;
+};
+
+// Block (locus tile, row segment, chain).  Warp (wl, wn) owns loci col0 +
+// 16 wl .. 16 wl + 15 and cluster tiles wn NTW ..; in a 16-row step, slot
+// p of thread t is row t + 4 p.  The v sums of the first locus tile's
+// blocks are taken from the thread's own copies of v: float32 over at
+// most VSUM_ST stages, then added to the thread's own float64 slots of
+// `vs` (no barrier), and summed over the rows of a stage in float64 at the
+// end.
+template <int KP, bool X1>
+__global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
     const float* __restrict__ v, const int8_t* __restrict__ x0,
     const int8_t* __restrict__ x1, float* __restrict__ part,
-    float* __restrict__ vpart, int I, int L, int seg_rows) {
-  constexpr int KJ = KP / NW;     // clusters per thread: k = warp KJ + j
-  constexpr int NS = X1 ? 2 : 1;  // genotype streams
-  __shared__ __align__(16) float x_s[NS][COL_RI][COL_TC];
-  __shared__ __align__(16) float v_s[COL_RI][KP];
+    float* __restrict__ vpart, int I, int L, int seg_rows, int vec) {
+  using T = ColsTile<KP, X1>;
+  constexpr int NS = T::NS, NTW = T::NTW, TC = T::TC;
+  constexpr int XS = T::XS, VS = T::VS, RI = COL_RI;
+  constexpr int JV = RI * KP / 4 / NT;   // v chunks of 4 a thread a stage
+  double* vd = reinterpret_cast<double*>(dyn_smem4);
+  float* vf = reinterpret_cast<float*>(dyn_smem4) + T::D_BYTES / 4;
+  int8_t* xs = reinterpret_cast<int8_t*>(dyn_smem4) + T::D_BYTES + T::F_BYTES;
+  double* vs = reinterpret_cast<double*>(xs + T::X_BYTES);
+  uint32_t* flags = reinterpret_cast<uint32_t*>(vs + RI * KP);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wl = warp % T::WL, wn = warp / T::WL;
   const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
-  const int col0 = blockIdx.x * COL_TC;
+  const int col0 = blockIdx.x * TC;
   const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
   const bool first = blockIdx.x == 0;
   const float* v_b = v + (size_t)b * I * KP;
-  const int8_t* xs[2] = {x0, x1};
+  const int n_st = (r_hi - r_lo + RI - 1) / RI;
 
-  // lane owns loci col0 + 4 lane .. + 3, warp owns clusters warp KJ + j
-  float acc[NS][KJ][4];
+  auto issue = [&](int st) {
+    const int r0 = r_lo + st * RI;
+    float* fd = vf + (st & 1) * RI * KP;
 #pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int j = 0; j < KJ; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[s][j][q] = 0.f;
-  float vsum = 0.f;  // first locus tile, tid < KP: sum of v[:, tid]
-
-  for (int r0 = r_lo; r0 < r_hi; r0 += COL_RI) {
-    __syncthreads();
-    for (int e = tid; e < COL_RI * KP; e += NT) {
-      const int r = e / KP, k = e % KP, row = r0 + r;
-      v_s[r][k] = row < r_hi ? v_b[(size_t)row * KP + k] : 0.f;
+    for (int j = 0; j < JV; ++j) {
+      const int e = tid + NT * j, r = e / (KP / 4), c4 = 4 * (e % (KP / 4));
+      const int row = r0 + r;
+      const bool ok = row < r_hi;
+      cp_async16(fd + r * KP + c4, v_b + (size_t)(ok ? row : r_lo) * KP + c4,
+                 ok ? 16 : 0);
     }
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      for (int e = tid; e < COL_RI * COL_TC; e += NT) {
-        const int r = e / COL_TC, c = e % COL_TC;
-        const int row = r0 + r, col = col0 + c;
-        x_s[s][r][c] = (row < r_hi && col < L)
-                           ? (float)xs[s][(size_t)row * L + col] : 0.f;
-      }
-    }
-    __syncthreads();
-    if (first && tid < KP) {
+      const int8_t* x = s ? x1 : x0;
+      int8_t* xd = xs + ((st % 3) * NS + s) * RI * XS;
+      for (int e = tid; e < RI * (TC / 16); e += NT) {
+        const int r = e / (TC / 16), c16 = 16 * (e % (TC / 16));
+        const int row = r0 + r, col = col0 + c16;
+        const int n = row < r_hi ? min(16, L - col) : 0;
+        const int8_t* src = x + (size_t)row * L + col;
+        int8_t* dst = xd + r * XS + c16;
+        if (vec) {
+          cp_async16(dst, n > 0 ? src : x, max(n, 0));
+        } else {
 #pragma unroll
-      for (int r = 0; r < COL_RI; ++r) vsum += v_s[r][tid];
-    }
-#pragma unroll 4
-    for (int r = 0; r < COL_RI; ++r) {
-      float vv[KJ];
-#pragma unroll
-      for (int q = 0; q < KJ / 4; ++q) {
-        const float4 t =
-            *reinterpret_cast<const float4*>(&v_s[r][warp * KJ + 4 * q]);
-        vv[4 * q] = t.x;
-        vv[4 * q + 1] = t.y;
-        vv[4 * q + 2] = t.z;
-        vv[4 * q + 3] = t.w;
-      }
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const float4 xv = *reinterpret_cast<const float4*>(&x_s[s][r][4 * lane]);
-#pragma unroll
-        for (int j = 0; j < KJ; ++j) {
-          acc[s][j][0] = fmaf(vv[j], xv.x, acc[s][j][0]);
-          acc[s][j][1] = fmaf(vv[j], xv.y, acc[s][j][1]);
-          acc[s][j][2] = fmaf(vv[j], xv.z, acc[s][j][2]);
-          acc[s][j][3] = fmaf(vv[j], xv.w, acc[s][j][3]);
+          for (int q = 0; q < 16; ++q) dst[q] = q < n ? src[q] : 0;
         }
       }
     }
-  }
+    cp_async_commit();
+  };
+  // the float64 v tile of stage st from this thread's own copies, the
+  // warp's bits of the cluster tiles with a nonzero v, and (first locus
+  // tile) the v sums of the thread's chunks, element 4 (tid + NT j) + q
+  // of a [RI, KP] stage: float32 in registers over VSUM_ST stages, then
+  // added to the same element of vs in float64
+  float vsum[JV][4];
+  auto flush_vsum = [&]() {
+#pragma unroll
+    for (int j = 0; j < JV; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        vs[4 * (tid + NT * j) + q] += (double)vsum[j][q];
+        vsum[j][q] = 0.f;
+      }
+  };
+#pragma unroll
+  for (int j = 0; j < JV; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      vsum[j][q] = 0.f;
+      if (first) vs[4 * (tid + NT * j) + q] = 0.0;
+    }
+  auto convert = [&](int st) {
+    const float* fs = vf + (st & 1) * RI * KP;
+    double* ds = vd + (st & 1) * RI * VS;
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int j = 0; j < JV; ++j) {
+      const int e = tid + NT * j, r = e / (KP / 4), c4 = 4 * (e % (KP / 4));
+      const float4 f = *reinterpret_cast<const float4*>(fs + r * KP + c4);
+      double2* d = reinterpret_cast<double2*>(ds + r * VS + c4);
+      d[0] = make_double2(f.x, f.y);
+      d[1] = make_double2(f.z, f.w);
+      if (f.x != 0.f || f.y != 0.f || f.z != 0.f || f.w != 0.f)
+        bits |= 1u << (c4 / 8);
+      if (first) {
+        vsum[j][0] += f.x;
+        vsum[j][1] += f.y;
+        vsum[j][2] += f.z;
+        vsum[j][3] += f.w;
+      }
+    }
+    if (first && st % VSUM_ST == VSUM_ST - 1) flush_vsum();
+    bits = __reduce_or_sync(FULL, bits);
+    if (lane == 0) flags[(st & 1) * NW + warp] = bits;
+  };
 
-  if (first && tid < KP) vpart[((size_t)b * n_seg + seg) * KP + tid] = vsum;
-  // part[b][seg][stream][k][l]
-  float* out = part + ((size_t)b * n_seg + seg) * NS * KP * L;
+  double acc[NS][NTW][4];
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
-    for (int j = 0; j < KJ; ++j)
+    for (int n = 0; n < NTW; ++n)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int col = col0 + 4 * lane + q;
-        if (col < L)
-          out[((size_t)s * KP + warp * KJ + j) * L + col] = acc[s][j][q];
+      for (int j = 0; j < 4; ++j) acc[s][n][j] = 0.0;
+
+  issue(0);
+  if (n_st > 1) issue(1); else cp_async_commit();
+  cp_async_wait<1>();
+  convert(0);
+  __syncthreads();
+  for (int st = 0; st < n_st; ++st) {
+    if (st + 2 < n_st) issue(st + 2); else cp_async_commit();
+    cp_async_wait<1>();
+    if (st + 1 < n_st) convert(st + 1);
+    const uint4 f0 = *reinterpret_cast<const uint4*>(flags + (st & 1) * NW);
+    const uint4 f1 =
+        *reinterpret_cast<const uint4*>(flags + (st & 1) * NW + 4);
+    const uint32_t live =
+        f0.x | f0.y | f0.z | f0.w | f1.x | f1.y | f1.z | f1.w;
+    const int8_t* xt = xs + (st % 3) * NS * RI * XS + 16 * wl + 2 * g;
+    const double* dt = vd + (st & 1) * RI * VS;
+#pragma unroll
+    for (int c = 0; c < RI / 16; ++c) {
+      // A: loci 2 g (m = g) and 2 g + 1 (m = g + 8) of the warp's tile
+      double a[NS][8];
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const uint32_t w = *reinterpret_cast<const uint16_t*>(
+              xt + (s * RI + 16 * c + t + 4 * p) * XS);
+          a[s][2 * p] = xcount(w, 0);
+          a[s][2 * p + 1] = xcount(w, 1);
+        }
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int nt = wn * NTW + n;
+        if ((live >> nt) & 1u) {
+          double bb[4];
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            bb[p] = dt[(16 * c + t + 4 * p) * VS + 8 * nt + g];
+#pragma unroll
+          for (int s = 0; s < NS; ++s) dmma16(acc[s][n], a[s], bb);
+        }
       }
+    }
+    __syncthreads();
+  }
+
+  // part[b][seg][stream][k][l]: a thread holds loci 2 g, 2 g + 1 of its
+  // warp's tile for clusters 8 nt + 2 t + {0, 1}
+  float* out = part + ((size_t)b * n_seg + seg) * NS * KP * L;
+  const int lc = col0 + 16 * wl + 2 * g;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int k = 8 * (wn * NTW + n) + 2 * t + jj;
+        const float o0 = (float)acc[s][n][jj], o1 = (float)acc[s][n][2 + jj];
+        float* dst = out + ((size_t)s * KP + k) * L + lc;
+        if (vec && lc + 2 <= L) {
+          *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+        } else {
+          if (lc < L) dst[0] = o0;
+          if (lc + 1 < L) dst[1] = o1;
+        }
+      }
+
+  if (first) {   // uniform across the block
+    // the v sums over the segment: each thread's last stages into its
+    // slots, then summed over the stage's rows in order in float64
+    flush_vsum();
+    __syncthreads();
+    if (tid < KP) {
+      double s = 0.0;
+      for (int r = 0; r < RI; ++r) s += vs[r * KP + tid];
+      vpart[((size_t)b * n_seg + seg) * KP + tid] = (float)s;
+    }
+  }
 }
 
 // eta finish: one warp per chain; vtot = the segments' v sums in segment
@@ -342,8 +627,12 @@ __global__ void __launch_bounds__(NT) mix_p_kernel(
 
 // Plain C interface, bound with ctypes (ops/build.py).  Pointers are
 // device pointers; lp1/x1 (and out1) are null for the one-stream variant.
-// `stream` is a cudaStream_t.  Each returns the cudaGetLastError() of its
-// launch.
+// `stream` is a cudaStream_t.  Each returns the error of its shared-memory
+// opt-in, or else the cudaGetLastError() of its launch.
+
+static bool aligned16(const void* p) {
+  return p == nullptr || ((uintptr_t)p & 15u) == 0;
+}
 
 extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
                            const void* x1, const void* bias, void* v_out,
@@ -359,13 +648,21 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
   float* v = (float*)v_out;
   float* t = (float*)t_out;
   const bool two = lp1 != nullptr;
-#define MC_ROWS(KP)                                                       \
-  if (two)                                                                \
-    mix_rows_kernel<KP, true><<<grid, NT, 0, s>>>(a, c, x, z, bs, v, t, I, \
-                                                  L);                     \
-  else                                                                    \
-    mix_rows_kernel<KP, false><<<grid, NT, 0, s>>>(a, c, x, z, bs, v, t,  \
-                                                   I, L)
+  const int vec = L % 16 == 0 && aligned16(lp0) && aligned16(lp1) &&
+                  aligned16(x0) && aligned16(x1);
+  int err = 0;
+#define MC_ROWS_ONE(KP, X1)                                                  \
+  {                                                                          \
+    auto kern = mix_rows_kernel<KP, X1>;                                     \
+    constexpr int smem = RowsTile<KP, X1>::SMEM;                             \
+    static_assert(smem <= SMEM_MAX, "rows-pass tiles exceed shared memory");\
+    err = allow_smem(kern);                                                  \
+    if (err == 0)                                                            \
+      kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, v, t, I, L, vec);          \
+  }
+#define MC_ROWS(KP)              \
+  if (two) MC_ROWS_ONE(KP, true) \
+  else MC_ROWS_ONE(KP, false)
   switch (Kp) {
     case 32: MC_ROWS(32); break;
     case 64: MC_ROWS(64); break;
@@ -374,13 +671,13 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef MC_ROWS
-  return (int)cudaGetLastError();
+#undef MC_ROWS_ONE
+  return err ? err : (int)cudaGetLastError();
 }
 
 extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
                            void* part, void* vpart, int B, int I, int L,
                            int Kp, int n_seg, int seg_rows, void* stream) {
-  const dim3 grid((L + COL_TC - 1) / COL_TC, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
   const float* vv = (const float*)v;
   const int8_t* x = (const int8_t*)x0;
@@ -388,13 +685,23 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
   float* pt = (float*)part;
   float* vp = (float*)vpart;
   const bool two = x1 != nullptr;
-#define MC_COLS(KP)                                                          \
-  if (two)                                                                   \
-    mix_cols_kernel<KP, true><<<grid, NT, 0, s>>>(vv, x, z, pt, vp, I, L,    \
-                                                  seg_rows);                 \
-  else                                                                       \
-    mix_cols_kernel<KP, false><<<grid, NT, 0, s>>>(vv, x, z, pt, vp, I, L,   \
-                                                   seg_rows)
+  if (!aligned16(v)) return (int)cudaErrorMisalignedAddress;
+  const int vec = L % 16 == 0 && aligned16(x0) && aligned16(x1) &&
+                  aligned16(part);
+  int err = 0;
+#define MC_COLS_ONE(KP, X1)                                                  \
+  {                                                                          \
+    using T = ColsTile<KP, X1>;                                              \
+    auto kern = mix_cols_kernel<KP, X1>;                                     \
+    static_assert(T::SMEM <= SMEM_MAX, "columns tiles exceed shared memory");\
+    const dim3 grid((L + T::TC - 1) / T::TC, n_seg, B);                      \
+    err = allow_smem(kern);                                                  \
+    if (err == 0)                                                            \
+      kern<<<grid, NT, T::SMEM, s>>>(vv, x, z, pt, vp, I, L, seg_rows, vec); \
+  }
+#define MC_COLS(KP)              \
+  if (two) MC_COLS_ONE(KP, true) \
+  else MC_COLS_ONE(KP, false)
   switch (Kp) {
     case 32: MC_COLS(32); break;
     case 64: MC_COLS(64); break;
@@ -403,7 +710,39 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef MC_COLS
-  return (int)cudaGetLastError();
+#undef MC_COLS_ONE
+  return err ? err : (int)cudaGetLastError();
+}
+
+template <int KP, bool X1>
+static int cols_tile_info(int* tc, int* blocks) {
+  using T = ColsTile<KP, X1>;
+  auto kern = mix_cols_kernel<KP, X1>;
+  *tc = T::TC;
+  const int err = allow_smem(kern);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, NT,
+                                                            T::SMEM);
+}
+
+// The columns pass's tile for Kp and one (two = 0) or two streams: loci a
+// block (TC), rows a stage, and the blocks an SM of the current device
+// holds; ops/mixture_bi.cols_tile, COL_RI and cols_blocks_per_sm mirror
+// them.  Returns cudaErrorInvalidValue for a Kp the kernels do not take.
+extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
+                            int* blocks) {
+  *rows = COL_RI;
+#define MC_TILE(KP)                                                      \
+  return two ? cols_tile_info<KP, true>(tc, blocks)                      \
+             : cols_tile_info<KP, false>(tc, blocks)
+  switch (Kp) {
+    case 32: MC_TILE(32);
+    case 64: MC_TILE(64);
+    case 96: MC_TILE(96);
+    case 128: MC_TILE(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MC_TILE
 }
 
 extern "C" int mc_mix_eta(const void* vpart, void* vtot, void* eta, int B,

@@ -12,9 +12,7 @@
 #include <stdint.h>
 
 #include "simplex.cuh"
-
-// dynamic shared memory of every kernel that includes this, 16-byte aligned
-extern __shared__ float4 dyn_smem4[];
+#include "smem.cuh"
 
 namespace {
 
@@ -29,32 +27,9 @@ constexpr int COL_DR = 4;     // rows per thread, d phase of the columns pass
 // (measured: 8 beats 2 and 4)
 constexpr int A_UNROLL = 8;
 constexpr float DMIN = 1e-30f;
-constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may ask
 
 using mc::michelot_warp;
 using mc::warp_sum;
-
-// 16-byte asynchronous copy to shared memory; the bytes past `src_bytes`
-// are filled with zeros
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-// 4-byte asynchronous copy to shared memory, zeros past `src_bytes`
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // How the lanes of a warp and the registers of a thread split the cluster
 // axis for k_true clusters: kc lanes are computed (a multiple of 4, >=
@@ -490,14 +465,6 @@ inline void pass_tiles(int k_true, int Kp, int* kc, int* row_block,
   *row_block = NW * ROW_AR * r.cw;
   *col_block = NW * COL_CT * c.cw;
   *col_tile_rows = COL_DR * c.gl;
-}
-
-// lets a block of `kernel` ask for more than 48 KB of dynamic shared
-// memory (per device, so it is set before every launch)
-template <typename Kernel>
-int allow_smem(Kernel kernel) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
 }
 
 inline bool kp_ok(int Kp) {

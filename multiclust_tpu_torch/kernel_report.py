@@ -1,8 +1,11 @@
-"""What the compiler made of the admixture step's contraction kernels, the
-biallelic ones (csrc/fullstep_bi.cu) and the generic rows and columns
-passes (csrc/fullstep.cu): registers, shared memory and spills (``nvcc
--Xptxas -v``), and the static instruction mix of each kernel's machine
-code (``cuobjdump -sass``: FFMA against LDS, MUFU and the rest).
+"""What the compiler made of the port's contraction kernels: the
+biallelic admixture ones (csrc/fullstep_bi.cu), the generic rows and
+columns passes (csrc/fullstep.cu) and the biallelic mixture rows and
+columns passes (csrc/mixture_bi.cu, one and two streams): registers,
+shared memory and spills (``nvcc -Xptxas -v``), and the static instruction
+mix of each kernel's machine code (``cuobjdump -sass``: FFMA against LDS,
+MUFU and the rest; DMMA, the float64 tensor-core product, counted on a
+line of its own for the mixture passes).
 
 Run with ``python -m multiclust_tpu_torch.kernel_report [Kp ...]`` where
 nvcc and a CUDA toolkit are installed (default Kp: 32 and 128).  The mix counts
@@ -22,9 +25,16 @@ from pathlib import Path
 
 from multiclust_tpu_torch.ops import build
 
-KERNELS = ("fullstep_bi_rows_kernel", "fullstep_bi_rows_seg_kernel",
-           "fullstep_bi_cols_kernel", "fullstep_rows_kernel",
-           "fullstep_cols_kernel")
+# (kernel, mangled template arguments after Kp): the mixture passes take
+# a bool for their second stream
+KERNELS = (("fullstep_bi_rows_kernel", ""),
+           ("fullstep_bi_rows_seg_kernel", ""),
+           ("fullstep_bi_cols_kernel", ""), ("fullstep_rows_kernel", ""),
+           ("fullstep_cols_kernel", ""), ("mix_rows_kernel", "Lb0E"),
+           ("mix_rows_kernel", "Lb1E"), ("mix_cols_kernel", "Lb0E"),
+           ("mix_cols_kernel", "Lb1E"))
+# the contraction kernels' names in the -Xptxas -v report
+CONTRACTIONS = "fullstep_(?:bi_)?(?:rows|cols)|mix_(?:rows|cols)"
 
 
 def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
@@ -47,8 +57,13 @@ def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
                 n = int(digits.group()[-k:])
                 ident = mangled[m.start():m.start() + n]
                 if n == len(ident) and ident.endswith("kernel"):
-                    targ = re.match(r"ILi(\d+)E", mangled[m.start() + n:])
-                    name = ident + (f"<{targ.group(1)}>" if targ else "")
+                    targ = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
+                                    mangled[m.start() + n:])
+                    if targ and targ.group(2):
+                        two = "true" if targ.group(2) == "1" else "false"
+                        name = ident + f"<{targ.group(1)}, {two}>"
+                    else:
+                        name = ident + (f"<{targ.group(1)}>" if targ else "")
                     break
             if name:
                 break
@@ -58,8 +73,9 @@ def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
     return out
 
 
-def sass_mix(lib: Path, kernel: str, kp: int):
-    """Opcode counts of one kernel's SASS."""
+def sass_mix(lib: Path, kernel: str, kp: int, targs: str = ""):
+    """Opcode counts of one kernel's SASS (``targs``: its mangled template
+    arguments after Kp)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -67,7 +83,7 @@ def sass_mix(lib: Path, kernel: str, kp: int):
     inside = False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = f"{len(kernel)}{kernel}ILi{kp}E" in line
+            inside = f"{len(kernel)}{kernel}ILi{kp}E{targs}" in line
         elif inside:
             m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)",
                          line)
@@ -80,15 +96,18 @@ def main(argv) -> int:
     kps = [int(a) for a in argv] or [32, 128]
     lib = build.build()
     report = lib.with_suffix(".ptxas.txt").read_text()
-    for name, text in ptxas_lines(report, "fullstep_(?:bi_)?(?:rows|cols)"):
+    for name, text in ptxas_lines(report, CONTRACTIONS):
         print(f"ptxas {name}: {text}", flush=True)
     for kp in kps:
-        for kernel in KERNELS:
-            mix = sass_mix(lib, kernel, kp)
+        for kernel, targs in KERNELS:
+            mix = sass_mix(lib, kernel, kp, targs)
             total = sum(mix.values())
             top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))
-            print(f"sass {kernel}<{kp}>: {total} instructions: {top}",
-                  flush=True)
+            two = ", two streams" if targs == "Lb1E" else ""
+            label = f"{kernel}<{kp}{two}>"
+            print(f"sass {label}: {total} instructions: {top}", flush=True)
+            if kernel.startswith("mix_"):
+                print(f"sass {label}: DMMA {mix['DMMA']}", flush=True)
     return 0
 
 

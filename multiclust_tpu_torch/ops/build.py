@@ -149,6 +149,9 @@ def library() -> ctypes.CDLL:
         lib.mc_fullstep_bi_tiles.argtypes = [_I, _I] + [
             ctypes.POINTER(ctypes.c_int)] * 4
         lib.mc_fullstep_bi_tiles.restype = None
+        lib.mc_mix_tiles.argtypes = [_I, _I] + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+        lib.mc_mix_tiles.restype = ctypes.c_int
         lib.mc_error_string.argtypes = [ctypes.c_int]
         lib.mc_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -162,6 +165,19 @@ def kernel_tiles(lib: ctypes.CDLL, k_true: int, Kp: int):
     kernels share."""
     out = [ctypes.c_int() for _ in range(4)]
     lib.mc_fullstep_bi_tiles(k_true, Kp, *(ctypes.byref(o) for o in out))
+    return tuple(o.value for o in out)
+
+
+def mixture_tiles(lib: ctypes.CDLL, Kp: int, two: bool):
+    """(loci of a block, rows of a stage, blocks an SM of the current
+    device holds) of the mixture columns pass as ``lib``'s mc_mix_tiles
+    has them (csrc/mixture_bi.cu, ColsTile, and the occupancy of the
+    compiled kernel)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    err = lib.mc_mix_tiles(Kp, int(two), *(ctypes.byref(o) for o in out))
+    if err != 0:
+        raise RuntimeError(f"mc_mix_tiles(Kp={Kp}): "
+                           f"{lib.mc_error_string(err).decode()}")
     return tuple(o.value for o in out)
 
 

@@ -10,7 +10,11 @@ kernel source, ``csrc/mixture_bi.cu``, splits the step into a rows pass
 partials of B0 = v^T x0, B1 = v^T x1, and of sum_i v), an eta finish (the
 partials' fixed-order sum, normalized and projected: ``_finish_eta``,
 which JAX runs in XLA) and a p0 epilogue (the p0 update of
-``_mix_counts_kernel``).  ``finish=False`` returns the raw statistics
+``_mix_counts_kernel``).  The rows and columns passes contract on the
+float64 tensor cores, as the plain versions' float64 products do; their
+cluster tiles stop at K, which the rows pass reads from the bias (pad
+lanes -1e30) and the columns pass from v (tiles whose v is all zero).
+``finish=False`` returns the raw statistics
 instead; rows, columns and the raw epilogue together are the sweep
 (``mixture_sweep_stats``).  Every step of the finish runs on the card, so
 a kernel-route EM step never reads the host.
@@ -31,15 +35,50 @@ import torch
 
 from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
-from multiclust_tpu_torch.ops.fullstep_bi import check_kp, col_segments, \
-    p0_clip_bounds
+from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX, check_kp, \
+    device_sm_count, p0_clip_bounds
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
 
-# columns-pass tiling of csrc/mixture_bi.cu (COL_TC loci per block, COL_RI
-# rows per tile); the row-segment count is chosen here
-COL_TC, COL_RI = 128, 16
+# the columns pass's tiling in csrc/mixture_bi.cu (ColsTile): warps a
+# block, rows a stage; the row-segment count is chosen here
+NW, COL_RI = 8, 32
+
+
+def cols_tile(Kp: int, two: bool) -> int:
+    """Loci a columns-pass block for Kp lanes and one or two streams, as
+    ``ColsTile`` in csrc/mixture_bi.cu computes it (``mc_mix_tiles``
+    reports it): a warp computes one tile of 16 loci by ``ntw`` tiles of 8
+    clusters, at most 8 float64 accumulator tiles a thread over the
+    streams, and the block's NW warps split the Kp / 8 cluster tiles into
+    groups of ``ntw``."""
+    ns, nt8 = (2 if two else 1), Kp // 8
+    ntw = next((d for d in range(nt8, 1, -1)
+                if nt8 % d == 0 and ns * d <= 8 and NW % (nt8 // d) == 0), 1)
+    return 16 * (NW // (nt8 // ntw))
+
+
+def cols_blocks_per_sm(Kp: int, two: bool) -> int:
+    """Columns-pass blocks an SM holds (``ColsTile::MINB``): two at Kp = 32
+    with one stream, one elsewhere."""
+    return 2 if Kp == 32 and not two else 1
+
+
+def cols_segments(I: int, L: int, B: int, Kp: int, two: bool,
+                  n_sm: int) -> Tuple[int, int]:
+    """(segments, rows per segment) of I for the columns pass: as many
+    row segments as fill the card's block slots in one wave without
+    passing them (a block is a tile of ``cols_tile`` loci of one chain; a
+    wave a few blocks past the slots costs a second wave, and fewer
+    segments mean fewer partials to write and sum), each segment whole
+    stages of COL_RI rows and at least 4 of them, at most GRID_YZ_MAX."""
+    blocks = -(-L // cols_tile(Kp, two)) * B
+    n_seg = max(1, min(cols_blocks_per_sm(Kp, two) * n_sm // blocks,
+                       -(-I // (4 * COL_RI)), GRID_YZ_MAX))
+    seg_rows = -(-I // n_seg)
+    seg_rows = -(-seg_rows // COL_RI) * COL_RI
+    return -(-I // seg_rows), seg_rows
 
 
 def _streams(x0: Tensor, x1: Optional[Tensor]):
@@ -186,12 +225,9 @@ def mixture_partials(v, x0, x1=None):
     _check("x0", x0, dev, torch.int8, (I, L))
     if x1 is not None:
         _check("x1", x1, dev, torch.int8, (I, L))
-    # two blocks per SM: each block is a 128-locus tile, and fewer
-    # segments mean fewer partials to write and sum
-    n_seg, seg_rows = col_segments(
-        I, L, B, torch.cuda.get_device_properties(dev).multi_processor_count,
-        tc=COL_TC, ri=COL_RI, per_sm=2)
     ns = 1 if x1 is None else 2
+    n_seg, seg_rows = cols_segments(I, L, B, Kp, ns == 2,
+                                    device_sm_count(dev))
     part = torch.empty((B, n_seg, ns, Kp, L), dtype=torch.float32,
                        device=dev)
     vpart = torch.empty((B, n_seg, Kp), dtype=torch.float32, device=dev)

@@ -20,6 +20,23 @@ power limit.
 128 lanes) and ``--shapes IxL,IxL`` other panels, for the kernels' wider
 instantiations: ``--k 100 --shapes 16384x2048,8192x131072``.
 
+``--mixture`` times the biallelic mixture step instead (16384 x 2048 by
+default; one stream, the ploidy fold, and two streams, 2 % missing) at the
+chain batches ``--chains``: the step held to its plain version, its median
+CUDA-event time over ``--reps`` calls, the device time of each of its
+kernels inside it (torch.profiler: the rows pass, the columns pass, the
+eta finish, the p0 epilogue), the two passes' bounds (their operations on
+the float64 tensor cores at 67 TFLOP/s, or their tensors over 3.35 TB/s)
+and the share reached, and the plain step and plain rows pass.
+``--mixture --fit`` runs ``api.fit_model_data`` on a mixture panel made on
+the card from seed 80 instead, 2 chains, plain EM with the adaptive
+interval twice (the first fit of a process also pays the library's load),
+cap 100, missing-free, then SQUAREM and plain EM at 1 % missing: the
+panels and fits of chip_smoke.py's phase 10; at 8192 x 131072
+(``--shapes``) plain EM twice, 1 % missing, cap 30.
+Like ``--generic`` it calls only the step's entry point, the fit's and the
+plain versions, so a parent tree is timed by the same file.
+
 ``--generic`` times the generic (multi-allelic) admixture step instead, on
 a panel of ``--m`` allele slots a locus (default 4; shapes default
 16384 x 2048) at the chain batches ``--chains`` (default 1,2,4): the step
@@ -44,8 +61,10 @@ import sys
 import numpy as np
 import torch
 
+from multiclust_tpu_torch.model.mixture import PAD_BIAS
 from multiclust_tpu_torch.ops import fullstep as fs
 from multiclust_tpu_torch.ops import fullstep_bi as fb
+from multiclust_tpu_torch.ops import mixture_bi as mb
 
 SHAPES = ((16384, 2048), (65536, 16384), (8192, 131072), (2048, 524288))
 K, KP = 20, 32
@@ -63,30 +82,40 @@ def bound_ms(tensors, flop: float) -> float:
     return max(n_bytes / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S) * 1e3
 
 
+def count_planes(gen, I: int, L: int, miss_rate: float, prob, dev):
+    """Diploid biallelic genotypes drawn on ``dev`` from ``gen`` in blocks
+    of rows (no [I, L] float tensor): each copy is missing with probability
+    ``miss_rate`` and else carries allele 0 with probability ``prob(lo,
+    hi)`` [hi - lo, L] (rows lo to hi).  Returns the two int8 count planes
+    [2, I, L] and miss [I, L] int8."""
+    planes = torch.empty((2, I, L), dtype=torch.int8, device=dev)
+    miss = torch.empty((I, L), dtype=torch.int8, device=dev)
+    rows = max(1, (1 << 27) // L)
+    for lo in range(0, I, rows):
+        hi = min(I, lo + rows)
+        p = prob(lo, hi)
+        m = (torch.rand((hi - lo, L, 2), generator=gen, device=dev)
+             < miss_rate).sum(dim=-1)
+        x0 = torch.zeros((hi - lo, L), dtype=torch.int64, device=dev)
+        for a in range(2):
+            u = torch.rand((hi - lo, L), generator=gen, device=dev)
+            x0 += (u < p) & (a < 2 - m)
+        planes[0, lo:hi], planes[1, lo:hi], miss[lo:hi] = x0, 2 - m - x0, m
+    return planes, miss
+
+
 def device_panel(seed: int, I: int, L: int, K: int, miss_rate: float, dev):
     """Admixture-model genotypes of a strictly biallelic panel, drawn on
-    ``dev`` from ``seed`` in blocks of rows (no [I, L] float tensor): the
-    two int8 count planes [2, I, L] and miss [I, L] int8."""
+    ``dev`` from ``seed`` (``count_planes``): the two int8 count planes
+    [2, I, L] and miss [I, L] int8."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     Q = torch.tensor(rng.dirichlet(np.full(K, 0.5), size=I),
                      dtype=torch.float32, device=dev)
     P0 = torch.tensor(rng.beta(0.8, 0.8, size=(K, L)).clip(0.01, 0.99),
                       dtype=torch.float32, device=dev)
-    planes = torch.empty((2, I, L), dtype=torch.int8, device=dev)
-    miss = torch.empty((I, L), dtype=torch.int8, device=dev)
-    rows = max(1, (1 << 27) // L)
-    for lo in range(0, I, rows):
-        hi = min(I, lo + rows)
-        prob = Q[lo:hi] @ P0
-        m = (torch.rand((hi - lo, L, 2), generator=gen, device=dev)
-             < miss_rate).sum(dim=-1)
-        x0 = torch.zeros((hi - lo, L), dtype=torch.int64, device=dev)
-        for a in range(2):
-            u = torch.rand((hi - lo, L), generator=gen, device=dev)
-            x0 += (u < prob) & (a < 2 - m)
-        planes[0, lo:hi], planes[1, lo:hi], miss[lo:hi] = x0, 2 - m - x0, m
-    return planes, miss
+    return count_planes(gen, I, L, miss_rate, lambda lo, hi: Q[lo:hi] @ P0,
+                        dev)
 
 
 def device_step_params(seed: int, B: int, I: int, L: int, K: int, Kp: int,
@@ -330,12 +359,154 @@ def time_generic_fits(I: int, L: int, M: int, dev) -> None:
               f"init + EM {res.seconds:.3f} s", flush=True)
 
 
+# the mixture step's kernels by name, as the profiler sees them
+MIXTURE_KERNELS = {"rows pass": ("mix_rows_kernel",),
+                   "columns pass": ("mix_cols_kernel",),
+                   "eta finish": ("mix_eta_kernel",),
+                   "p0 epilogue": ("mix_p_kernel",)}
+
+
+def mixture_planes(seed: int, I: int, L: int, K: int, miss_rate: float,
+                   dev, spread=None):
+    """Mixture-model genotypes drawn on ``dev`` from ``seed``
+    (``count_planes``): individual i belongs to cluster z_i ~ eta, each
+    observed copy carries allele 0 with probability P0[z_i, l], uniform on
+    [0.1, 0.9] per cluster, or with ``spread`` one shared locus frequency
+    plus N(0, spread) per cluster (weakly separated clusters).  Returns
+    the two int8 count planes [2, I, L] and miss [I, L] int8."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eta = rng.dirichlet(np.full(K, 5.0))
+    if spread is None:
+        P0 = rng.uniform(0.1, 0.9, size=(K, L))
+    else:
+        P0 = np.clip(rng.uniform(0.2, 0.8, size=L)
+                     + rng.normal(0.0, spread, size=(K, L)), 0.05, 0.95)
+    P0 = torch.tensor(P0, dtype=torch.float32, device=dev)
+    z = torch.tensor(rng.choice(K, size=I, p=eta), device=dev)
+    return count_planes(gen, I, L, miss_rate, lambda lo, hi: P0[z[lo:hi]],
+                        dev)
+
+
+def mixture_step_inputs(seed: int, B: int, I: int, L: int, K: int,
+                        Kp: int, miss_rate: float, dev):
+    """Kernel-route inputs of the mixture step on ``dev``, K-padded as
+    model/mixture.py builds them (pads: lp 0, bias PAD_BIAS): lp0 [B, Kp, L],
+    x0 int8 [I, L], bias [B, Kp], and lp1 / x1 with missing data (two
+    streams); missing-free inputs fold x1 = 2 - x0 into lp0 = log p0 -
+    log p1 and the bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p0 = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
+    eta = torch.rand((B, K), generator=gen, device=dev) + 0.1
+    eta /= eta.sum(dim=-1, keepdim=True)
+    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
+            < miss_rate).sum(dim=-1)
+    x0 = sum(((torch.rand((I, L), generator=gen, device=dev) < 0.5)
+              & (a < 2 - miss)).to(torch.int8) for a in range(2))
+    lp0 = torch.zeros((B, Kp, L), device=dev)
+    bias = torch.full((B, Kp), PAD_BIAS, device=dev)
+    if not miss_rate:
+        lp0[:, :K] = torch.log(p0) - torch.log1p(-p0)
+        bias[:, :K] = 2 * torch.log1p(-p0).sum(dim=-1) + torch.log(eta)
+        return lp0, x0, bias, None, None
+    lp1 = torch.zeros_like(lp0)
+    lp0[:, :K], lp1[:, :K] = torch.log(p0), torch.log1p(-p0)
+    bias[:, :K] = torch.log(eta)
+    return lp0, x0, bias, lp1, (2 - miss - x0).to(torch.int8)
+
+
+def time_mixture(I: int, L: int, chains, n: int, dev) -> None:
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
+    for two in (False, True):
+        for B in chains:
+            args = mixture_step_inputs(60 + B, B, I, L, K, KP,
+                                       0.02 if two else 0.0, dev)
+
+            def step():
+                return mb.mixture_fullstep_biallelic(*args, **kw)
+
+            _held(step(), mb.mixture_fullstep_biallelic_reference(*args,
+                                                                  **kw))
+            step_ms = median_ms(step, n)
+            dev_ms = kernel_device_ms(step, n, MIXTURE_KERNELS)
+            plain_ms = median_ms(
+                lambda: mb.mixture_fullstep_biallelic_reference(*args, **kw),
+                max(2, n // 4))
+            plain_rows_ms = median_ms(
+                lambda: mb.mixture_rows_reference(*args), max(2, n // 4))
+            # one contraction of I x L x K a stream for the scores and one
+            # for B, 2 a multiply-add, and the softmax's ~20 a posterior
+            lp0, x0, bias, lp1, x1 = args
+            ns = 2 if two else 1
+            flop = 2 * K * ns * B * I * L
+            v = torch.empty((B, I, KP), device=dev)
+            t = torch.empty((B, I), device=dev)
+            part = torch.empty((B, ns, KP, L), device=dev)
+            bounds = {"rows pass": bound_ms((lp0, x0, bias, lp1, x1, v, t),
+                                            flop + 20 * v.numel()),
+                      "columns pass": bound_ms((v, x0, x1, part), flop)}
+            streams = "two streams" if two else "one stream"
+            print(f"mixture {I} x {L}, {streams}, {B} chains: step "
+                  f"{step_ms:.3f} ms (plain {plain_ms:.3f}, plain rows pass "
+                  f"{plain_rows_ms:.3f}) on CUDA events", flush=True)
+            for label, ms in dev_ms.items():
+                line = f"  {label}: {ms:.3f} ms of device time a step"
+                if not ms:
+                    line = f"  {label}: not measured (no device events)"
+                elif label in bounds:
+                    line += (f"; bound {bounds[label]:.3f} ms, "
+                             f"{100 * bounds[label] / ms:.1f} % of it")
+                print(line, flush=True)
+            del args, v, t, part
+            torch.cuda.empty_cache()
+
+
+def time_mixture_fits(I: int, L: int, dev) -> None:
+    import time
+
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model.common import model_data_from_planes
+    from multiclust_tpu_torch.ops import build
+
+    wide = L > 16384
+    md = model_data_from_planes(*mixture_planes(80, I, L, K,
+                                                0.01 if wide else 0.0, dev))
+    base = dict(admixture=False, min_K=K, max_K=K, n_init=2,
+                max_iter=30 if wide else 100, seed=3, verbosity=0)
+    fits = [("plain EM, first in the process", md, {}), ("plain EM", md, {})]
+    if not wide:
+        # chip_smoke.py's other two mixture fits of this panel
+        md_miss = model_data_from_planes(*mixture_planes(80, I, L, K, 0.01,
+                                                         dev))
+        fits += [("SQUAREM", md, {"accel_scheme": 1}),
+                 ("plain EM, 1 % missing", md_miss, {})]
+    for label, data, kw in fits:
+        build.reset_launch_counts()
+        t0 = time.time()
+        res = fit_model_data(data, 2, **base, **kw).best
+        torch.cuda.synchronize()
+        print(f"mixture fit {I} x {L}, K = {K}, {label}: "
+              f"{res.n_iter_all} iterations over the chains, logL "
+              f"{res.max_logL:.4f}, monotonicity violated: "
+              f"{bool(res.mono_viol)}; {time.time() - t0:.3f} s of wall, "
+              f"init + EM {res.seconds:.3f} s; rows-pass launches "
+              f"{build.LAUNCHES['mc_mix_rows']}", flush=True)
+    # the plain-EM fit once more under the profiler: its kernels' device
+    # time
+    dev_ms = kernel_device_ms(lambda: fit_model_data(md, 2, **base), 1,
+                              MIXTURE_KERNELS)
+    print("  device ms of the fit's kernels: " + ", ".join(
+        f"{label} {ms:.3f}" for label, ms in dev_ms.items())
+        + f"; together {sum(dev_ms.values()):.3f}", flush=True)
+
+
 def main(argv=None) -> int:
     global K, KP, SHAPES
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--k", type=int, default=K)
     ap.add_argument("--shapes")
     ap.add_argument("--generic", action="store_true")
+    ap.add_argument("--mixture", action="store_true")
     ap.add_argument("--m", type=int, default=4)
     ap.add_argument("--chains", default="1,2,4")
     ap.add_argument("--reps", type=int, default=20)
@@ -345,7 +516,7 @@ def main(argv=None) -> int:
     if args.shapes:
         SHAPES = tuple(tuple(int(n) for n in s.split("x"))
                        for s in args.shapes.split(","))
-    elif args.generic:
+    elif args.generic or args.mixture:
         SHAPES = ((16384, 2048),)
     if not torch.cuda.is_available():
         print("route_times: no CUDA device", file=sys.stderr)
@@ -357,12 +528,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"K = {K} on {KP} lanes", flush=True)
     for I, L in SHAPES:
-        if args.generic and args.fit:
+        chains = [int(b) for b in args.chains.split(",")]
+        if args.mixture and args.fit:
+            time_mixture_fits(I, L, dev)
+        elif args.mixture:
+            time_mixture(I, L, chains, args.reps, dev)
+        elif args.generic and args.fit:
             time_generic_fits(I, L, args.m, dev)
         elif args.generic:
-            time_generic(I, L, args.m, [int(b) for b in
-                                        args.chains.split(",")],
-                         args.reps, dev)
+            time_generic(I, L, args.m, chains, args.reps, dev)
         else:
             time_shape(I, L, dev)
     print(f"peak allocation "

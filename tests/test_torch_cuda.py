@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from multiclust_tpu_torch.model.mixture import PAD_BIAS
 from multiclust_tpu_torch.ops import build, fullstep as fs, \
     fullstep_bi as fb, mixture_bi as mb
 
@@ -283,7 +284,7 @@ def test_generic_kernels_refuse_kp160():
 def _mix_args(seed, B, I, L, K, Kp, miss_rate, ploidy, dev):
     """Mixture kernel inputs on ``dev``: lp0 (and lp1) [B, Kp, L] and the
     bias [B, Kp] as model/mixture._kernel_inputs builds them (pads: lp 0,
-    bias -1e30), x0 (and x1) int8 [I, L]; one stream without missing
+    bias PAD_BIAS), x0 (and x1) int8 [I, L]; one stream without missing
     data (the ploidy fold), two with."""
     rng = np.random.default_rng(seed)
     p0 = rng.uniform(0.02, 0.98, size=(B, K, L))
@@ -292,7 +293,7 @@ def _mix_args(seed, B, I, L, K, Kp, miss_rate, ploidy, dev):
     x0 = rng.binomial(ploidy - miss, rng.uniform(0.1, 0.9, size=(1, L)))
     lp0 = np.zeros((B, Kp, L), np.float32)
     lp1 = np.zeros((B, Kp, L), np.float32)
-    bias = np.full((B, Kp), -1e30, np.float32)
+    bias = np.full((B, Kp), PAD_BIAS, np.float32)
     if miss_rate:
         lp0[:, :K], lp1[:, :K] = np.log(p0), np.log1p(-p0)
         bias[:, :K] = np.log(eta)
@@ -316,12 +317,22 @@ def _mix_args(seed, B, I, L, K, Kp, miss_rate, ploidy, dev):
     (1, 300, 500, 70, 96, 0.05, 4, True),
     (3, 300, 257, 128, 128, 0.1, 2, False),
     (1, 40, 17, 3, 32, 0.0, 2, True),          # one row segment
+    # K not a multiple of 8 at each Kp, aligned L (cp.async) and ragged
+    (2, 1003, 1024, 37, 64, 0.0, 2, True),
+    (1, 515, 333, 70, 96, 0.0, 2, False),
+    (2, 300, 400, 125, 128, 0.0, 4, True),     # ploidy 4, one stream
+    (1, 700, 256, 125, 128, 0.03, 4, True),    # ploidy 4, two streams
+    (2, 4000, 96, 20, 32, 0.0, 2, True),       # many row segments
+    (1, 3001, 112, 37, 64, 0.02, 2, True),
+    (2, 130, 160, 24, 32, 0.02, 2, True),      # two segments, K = 3 tiles
+    (1, 129, 2048, 32, 32, 0.0, 2, True),      # every lane live
 ])
 def test_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate, ploidy,
                                      project):
     """The four mixture kernels (rows, columns, eta finish, p0 epilogue)
     and the sweep route against their plain versions; reruns are
-    bit-equal (no atomics, fixed-order partial sums)."""
+    bit-equal (no atomics, fixed-order partial sums).  The columns pass
+    runs with the segments its wrapper picks (one, a few or many)."""
     dev = _cuda()
     args = _mix_args(K, B, I, L, K, Kp, miss_rate, ploidy, dev)
     kw = dict(k_true=K, lb=1e-3, plb=1e-3, ploidy=ploidy, project=project)
@@ -349,6 +360,119 @@ def test_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate, ploidy,
         if g is not None:
             torch.testing.assert_close(g, r, **F32)
     assert (sweep[0][..., K:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("miss_rate", [0.0, 0.02])
+def test_mixture_rows_pass_at_large_scores(miss_rate):
+    """At 64 x 131072 |s| reaches 10^5: the float64 tensor-core sums keep t
+    at rtol 1e-6 of the float64 plain version, and v within the kernels'
+    usual tolerance of the plain version, with one stream (the ploidy
+    fold) and with two (missing data)."""
+    dev = _cuda()
+    lp0, x0, bias, lp1, x1 = _mix_args(11, 1, 64, 131072, 20, 32,
+                                       miss_rate, 2, dev)
+    v, t = mb.mixture_rows(lp0, x0, bias, lp1, x1)
+    v_ref, _ = mb.mixture_rows_reference(lp0, x0, bias, lp1, x1)
+    _, t64 = mb.mixture_rows_reference(
+        lp0.double(), x0, bias.double(),
+        None if lp1 is None else lp1.double(), x1)
+    torch.cuda.synchronize()
+    assert float(t64.abs().min()) > 1e4
+    torch.testing.assert_close(t.double(), t64, rtol=1e-6, atol=0)
+    torch.testing.assert_close(v, v_ref, **F32)
+    again = mb.mixture_rows(lp0, x0, bias, lp1, x1)
+    assert torch.equal(v, again[0]) and torch.equal(t, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp,K,two", [(32, 20, False), (32, 20, True),
+                                      (128, 100, False)])
+def test_mixture_columns_pass_in_one_long_segment(Kp, K, two):
+    """Where the locus tiles alone fill the card the columns wrapper takes
+    one row segment: here 8199 rows, 257 stages of 32, the last ragged.
+    That segment's partials (B0, B1) and v sums, on a soft v whose sums
+    are fractional, against the plain version; reruns bit-equal."""
+    dev = _cuda()
+    I = 8199
+    n_sm = fb.device_sm_count(dev)
+    L = mb.cols_tile(Kp, two) * mb.cols_blocks_per_sm(Kp, two) * n_sm + 5
+    n_seg, seg_rows = mb.cols_segments(I, L, 1, Kp, two, n_sm)
+    assert n_seg == 1 and seg_rows // mb.COL_RI == 257
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x0, x1 = (torch.randint(0, 3, (I, L), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    x1 = x1 if two else None
+    v = torch.zeros((1, I, Kp), device=dev)
+    v[..., :K] = torch.softmax(
+        torch.randn((1, I, K), generator=gen, device=dev), dim=-1)
+    part, vpart = mb.mixture_partials(v, x0, x1)
+    part_ref, vpart_ref = mb.mixture_cols_reference(v, x0, x1)
+    assert part.shape[1] == vpart.shape[1] == 1
+    torch.testing.assert_close(part, part_ref, **F32)
+    torch.testing.assert_close(vpart, vpart_ref, **F32)
+    again = mb.mixture_partials(v, x0, x1)
+    assert torch.equal(part, again[0]) and torch.equal(vpart, again[1])
+
+
+@pytest.mark.cuda
+def test_mixture_kernels_stop_at_the_live_lanes():
+    """The rows pass reads the live lanes from the bias (pads: PAD_BIAS) and
+    computes ceil(K / 8) tiles of 8 whatever the pad lanes' lp hold; with
+    no live lane it computes all Kp.  The columns pass skips the tiles
+    whose v is all zero, a pad tile and one in the middle alike, and
+    writes zeros there."""
+    dev = _cuda()
+    lp0, x0, bias, _, _ = _mix_args(12, 2, 600, 512, 20, 64, 0.0, 2, dev)
+    noisy = lp0.clone()
+    noisy[:, 20:] = torch.randn_like(noisy[:, 20:])
+    for lp in (lp0, noisy):
+        got = mb.mixture_rows(lp, x0, bias)
+        ref = mb.mixture_rows_reference(lp, x0, bias)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, **F32)
+        assert (got[0][..., 20:] == 0).all()
+    flat = torch.full_like(bias, PAD_BIAS)
+    v, t = mb.mixture_rows(lp0, x0, flat)
+    torch.testing.assert_close(v, torch.full_like(v, 1 / 64), **F32)
+    torch.testing.assert_close(
+        t, mb.mixture_rows_reference(lp0, x0, flat)[1], **F32)
+    v = mb.mixture_rows(lp0, x0, bias)[0].clone()
+    v[..., 8:16] = 0   # a dead tile between live ones
+    part, vpart = mb.mixture_partials(v, x0)
+    part_ref, vpart_ref = mb.mixture_cols_reference(v, x0)
+    torch.testing.assert_close(part.sum(dim=1), part_ref[:, 0], **F32)
+    torch.testing.assert_close(vpart.sum(dim=1), vpart_ref[:, 0], **F32)
+    assert (part[..., 8:16, :] == 0).all() and (part[..., 24:, :] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp", [32, 64, 96, 128])
+def test_mixture_tiles_match_the_python_mirror(Kp):
+    """``cols_tile``, COL_RI and ``cols_blocks_per_sm``, which choose the
+    columns pass's segments, against the built library's own tile
+    (csrc/mixture_bi.cu) and the compiled kernel's occupancy."""
+    _cuda()
+    lib = build.library()
+    for two in (False, True):
+        assert build.mixture_tiles(lib, Kp, two) == (
+            mb.cols_tile(Kp, two), mb.COL_RI, mb.cols_blocks_per_sm(Kp, two))
+
+
+@pytest.mark.cuda
+def test_mixture_passes_run_on_the_float64_tensor_cores():
+    """The machine code of both mixture contraction kernels, at every Kp
+    and both stream variants, holds DMMA instructions (kernel_report's
+    opcode mix, from cuobjdump)."""
+    from multiclust_tpu_torch.kernel_report import sass_mix
+
+    _cuda()
+    lib = build.build()
+    for kernel in ("mix_rows_kernel", "mix_cols_kernel"):
+        for kp in (32, 64, 96, 128):
+            for targs in ("Lb0E", "Lb1E"):
+                mix = sass_mix(lib, kernel, kp, targs)
+                assert mix["DMMA"] > 0, (kernel, kp, targs, mix)
 
 
 @pytest.mark.cuda
@@ -740,18 +864,20 @@ def test_tiles_match_the_python_mirror(Kp):
 
 @pytest.mark.cuda
 def test_build_reports_no_spills():
-    """The -Xptxas -v report of every kernel of csrc/fullstep_bi.cu and of
-    the generic rows and columns passes of csrc/fullstep.cu: none spills,
-    at every Kp.  Left out by name: the generic p epilogue
-    ``fullstep_p_kernel``, whose instances for M > 64 spill 12-24 bytes
-    (ROADMAP.md queue 3)."""
+    """The -Xptxas -v report of every kernel of csrc/fullstep_bi.cu, of
+    the generic rows and columns passes of csrc/fullstep.cu and of the
+    mixture rows and columns passes of csrc/mixture_bi.cu (both stream
+    variants): none spills, at every Kp.  Left out by name: the generic p
+    epilogue ``fullstep_p_kernel``, whose instances for M > 64 spill 12-24
+    bytes (ROADMAP.md queue 3)."""
     from multiclust_tpu_torch.kernel_report import ptxas_lines
 
     _cuda()
     build.library()
     report = build.library_path().with_suffix(".ptxas.txt").read_text()
     lines = ptxas_lines(
-        report, "fullstep_(?:bi_)?(?:rows|cols)|fullstep_bi_p0|rows_finish")
+        report, "fullstep_(?:bi_)?(?:rows|cols)|fullstep_bi_p0|rows_finish"
+        "|mix_(?:rows|cols)")
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in text
                for _, text in lines), lines
     names = [name for name, _ in lines]
@@ -760,7 +886,11 @@ def test_build_reports_no_spills():
                    "fullstep_bi_cols_kernel", "rows_finish_kernel"):
         for kp in (32, 64, 96, 128):
             assert f"{kernel}<{kp}>" in names, (kernel, kp, names)
+    for kernel in ("mix_rows_kernel", "mix_cols_kernel"):
+        for kp in (32, 64, 96, 128):
+            for two in ("false", "true"):
+                assert f"{kernel}<{kp}, {two}>" in names, (kernel, kp, names)
     assert "fullstep_bi_p0_kernel" in names, names
-    # the finish kernel is built into both sources, the generic rows pass
-    # with its dense and its sparse cells
-    assert len(names) == 33, names
+    # the finish kernel is built into both admixture sources, the generic
+    # rows pass with its dense and its sparse cells; 16 mixture passes
+    assert len(names) == 49, names

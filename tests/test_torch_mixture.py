@@ -586,3 +586,118 @@ def test_blind_steps_match_checked_steps():
     assert int(blind.n_iter[0]) == 3
     _, ll0, _ = tmix.em_step(params, md, cfg, want_ll=False)
     assert float(ll0[0]) == 0.0
+
+
+# the columns pass's tile (loci a block) at each Kp, one and two streams:
+# a warp takes one 16-locus MMA tile by as many 8-cluster tiles as keep
+# 8 accumulator tiles a thread, and the cluster tiles split over warps
+# beyond that
+MIX_COLS_TILES = {(32, False): 128, (32, True): 128, (64, False): 128,
+                  (64, True): 64, (96, False): 64, (96, True): 32,
+                  (128, False): 64, (128, True): 32}
+
+
+@pytest.mark.parametrize("Kp,two", sorted(MIX_COLS_TILES))
+def test_mixture_cols_tile_mirror(Kp, two):
+    """``ops/mixture_bi.cols_tile``, the Python mirror of the columns
+    pass's ColsTile (the card's tests hold it to the built library): the
+    block's loci are one 16-locus MMA tile for each of its locus warps, at
+    most 32 float64 accumulators a thread; two blocks an SM only at Kp =
+    32 with one stream."""
+    from multiclust_tpu_torch.ops import mixture_bi as mb
+
+    tc = mb.cols_tile(Kp, two)
+    assert tc == MIX_COLS_TILES[Kp, two]
+    ns, nt8 = (2 if two else 1), Kp // 8
+    wl = tc // 16                           # locus warps
+    wn = mb.NW // wl                        # cluster warps
+    assert wl * wn == mb.NW and nt8 % wn == 0
+    assert 4 * ns * (nt8 // wn) <= 32
+    assert mb.cols_blocks_per_sm(Kp, two) == (2 if (Kp, two) == (32, False)
+                                              else 1)
+
+
+@pytest.mark.parametrize("I,L,B", [(1, 17, 1), (40, 2048, 2),
+                                   (16384, 2048, 2), (16384, 2048, 32),
+                                   (8192, 131072, 2), (131072, 64, 32),
+                                   (131071, 1000, 7), (4000, 96, 2)])
+def test_mixture_cols_segments_cover_rows(I, L, B):
+    """The row segments of the columns pass cover I exactly, in whole
+    stages of COL_RI rows, each at least 4 stages where there is more than
+    one, their blocks fit one wave of the card where there is more than
+    one segment, and their count stays within the grid's limit (65535) for
+    I up to 2^17 rows and B up to 32 chains, at every Kp and both stream
+    variants."""
+    from multiclust_tpu_torch.ops import mixture_bi as mb
+    from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX
+
+    for Kp in (32, 64, 96, 128):
+        for two in (False, True):
+            n_seg, seg_rows = mb.cols_segments(I, L, B, Kp, two, 132)
+            assert 1 <= n_seg <= GRID_YZ_MAX
+            assert seg_rows % mb.COL_RI == 0
+            assert (n_seg - 1) * seg_rows < I <= n_seg * seg_rows
+            assert n_seg == 1 or seg_rows >= 4 * mb.COL_RI
+            # one wave: the blocks fit the card's slots (132 SMs)
+            tiles = -(-L // mb.cols_tile(Kp, two)) * B
+            assert n_seg == 1 or \
+                n_seg * tiles <= mb.cols_blocks_per_sm(Kp, two) * 132
+
+
+def test_kernel_report_names_the_mixture_passes():
+    """``kernel_report.ptxas_lines`` tells the two stream variants of a
+    mixture pass apart by their bool template argument, and keeps the
+    admixture kernels' names as they were."""
+    from multiclust_tpu_torch.kernel_report import CONTRACTIONS, ptxas_lines
+
+    def entry(mangled, regs):
+        return (f"ptxas info    : Function properties for {mangled}\n"
+                f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                f"spill loads\nptxas info    : Used {regs} registers, used "
+                f"1 barriers\n")
+
+    report = (entry("_ZN53_GLOBAL__N__3e1c2b7a_13_mixture_bi_cu_9f0d1e2a_"
+                    "3141515mix_rows_kernelILi32ELb1EEEvPKfS2_PKaS4_S2_PfS5"
+                    "_iii", 112)
+              + entry("_ZN53_GLOBAL__N__3e1c2b7a_13_mixture_bi_cu_9f0d1e2a_"
+                      "3141515mix_cols_kernelILi128ELb0EEEvPKfPKaS4_PfS5_iiii",
+                      177)
+              + entry("_ZN54_GLOBAL__N__0a1b2c3d_14_fullstep_bi_cu_4d5e6f7a_"
+                      "2718223fullstep_bi_cols_kernelILi64EEEvPKfS2_PKaS4_S4_"
+                      "S2_PfS5_S5_S5_iiiiiiiiffi", 128)
+              + entry("_ZN53_GLOBAL__N__3e1c2b7a_13_mixture_bi_cu_9f0d1e2a_"
+                      "3141512mix_p_kernelEPKfS1_PfS2_iiiiifffii", 30))
+    lines = ptxas_lines(report, CONTRACTIONS)
+    assert [name for name, _ in lines] == [
+        "mix_rows_kernel<32, true>", "mix_cols_kernel<128, false>",
+        "fullstep_bi_cols_kernel<64>"]
+    assert lines[0][1] == ("Used 112 registers, used 1 barriers; 0 bytes "
+                           "stack frame, 0 bytes spill stores, 0 bytes "
+                           "spill loads")
+
+
+@pytest.mark.parametrize("miss_rate", [0.0, 0.02])
+def test_pad_bias_marks_the_pad_lanes_for_the_rows_kernel(miss_rate):
+    """model/mixture.PAD_BIAS, the bias of the K-pad lanes, lies at or below
+    the threshold under which csrc/mixture_bi.cu's rows pass takes a lane
+    for a pad lane (PAD_BIAS_MAX), and the live lanes' bias above it, in
+    inputs built as route_times.mixture_step_inputs builds them for
+    chip_smoke.py."""
+    import re
+    from pathlib import Path
+
+    from multiclust_tpu_torch.ops import mixture_bi as mb
+    from multiclust_tpu_torch.route_times import mixture_step_inputs
+
+    src = Path(mb.__file__).parents[1] / "csrc" / "mixture_bi.cu"
+    m = re.search(r"constexpr float PAD_BIAS_MAX = ([-+0-9.e]+)f;",
+                  src.read_text())
+    threshold = np.float32(m.group(1))
+    assert np.float32(tmix.PAD_BIAS) <= threshold
+    K, Kp = 5, 32
+    _, _, bias, _, _ = mixture_step_inputs(3, 2, 40, 300, K, Kp, miss_rate,
+                                           "cpu")
+    assert bias.dtype == torch.float32
+    assert (bias[:, K:] == tmix.PAD_BIAS).all()
+    assert (bias[:, K:] <= float(threshold)).all()
+    assert (bias[:, :K] > float(threshold)).all()
