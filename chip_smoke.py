@@ -78,7 +78,19 @@ each raising on failure:
    of 256 stages on an H100), and the columns pass alone on a soft v;
    then one mixture fit at that shape through the mixture kernels;
 16. biobank CLI: a 512 x 8192 STRUCTURE file, ``-a -k 3``, down the
-   streamed route.
+   streamed route;
+17. bootstrap: ``api.fit_model_data`` with ``-k 3 -b 16 -n 2`` on two
+   16384 x 2048 panels made on the card, 1 % missing: the mixture model
+   on a mixture-model panel, and ``-a`` (iteration cap 100) on an
+   admixture-model panel; each replicate fit as a lattice of 16 x 2
+   chains through the kernels of its route, with the launches counted
+   from 0 on each run; replicate 0 refitted alone from the same starts
+   (``fit_batch``) to the lattice's statistic; one lattice step at that
+   shape under ``torch.cuda.set_sync_debug_mode("error")``; the admixture
+   run again with ``--checkpoint`` into a fresh directory, under
+   ``torch.profiler`` (the device's busy share), and once more from it
+   (same statistics, no kernel launched); then ``-w n 2`` and ``-v 4``
+   CLI runs on phase 16's file.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -130,6 +142,7 @@ MIX_SOURCE = "multiclust_tpu_torch/csrc/mixture_bi.cu"
 MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_eta", "mc_mix_p")
 I_BIO, L_BIO = 8192, 131072          # the wide biobank panel
 I_NARROW, L_NARROW = 2048, 524288    # the same cells, four times as wide
+BOOT_REPS = 16                       # bootstrap replicates (-b)
 STREAM_TPU = "multiclust_tpu/ops/kernels.py:1007"
 CHUNK_TPU = "multiclust_tpu/ops/kernels.py:829"
 STREAM_KERNELS = ("mc_fullstep_bi_rows_seg", "mc_fullstep_bi_finish",
@@ -1552,29 +1565,182 @@ def phase_biobank_mixture(build, dev, where):
     assert all(n >= res.n_iter_all // 2 > 0 for n in launches.values())
 
 
-def phase_cli_biobank(build, where):
+def phase_cli_biobank(build, where, tmp):
     """The CLI on a short and wide file, 512 x 8192, which the router
-    sends down the streamed route."""
+    sends down the streamed route; the file stays in ``tmp``."""
     from multiclust_tpu_torch.cli import main
 
     rng = np.random.default_rng(106)
     counts, miss = simulated_counts(rng, 512, 8192, 3, 0.02)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "sim.str")
-        write_structure_biallelic(path, counts, miss)
-        build.reset_launch_counts()
-        t0 = time.time()
-        rc = main(["-f", path, "-a", "-k", "3", "-n", "4", "-d", tmp])
-        torch.cuda.synchronize()
-        launches = {name: build.LAUNCHES[name]
-                    for name in STREAM_KERNELS + ("mc_fullstep_bi_rows",)}
-        assert rc == 0, rc
-        for f in OUT_FILES:
-            assert os.path.getsize(os.path.join(tmp, f)) > 0, f
+    path = os.path.join(tmp, "sim.str")
+    write_structure_biallelic(path, counts, miss)
+    build.reset_launch_counts()
+    t0 = time.time()
+    rc = main(["-f", path, "-a", "-k", "3", "-n", "4", "-d", tmp])
+    torch.cuda.synchronize()
+    launches = {name: build.LAUNCHES[name]
+                for name in STREAM_KERNELS + ("mc_fullstep_bi_rows",)}
+    assert rc == 0, rc
+    for f in OUT_FILES:
+        assert os.path.getsize(os.path.join(tmp, f)) > 0, f
     assert all(launches[name] > 0 for name in STREAM_KERNELS), launches
     assert not launches["mc_fullstep_bi_rows"], launches
     print(f"cli 512 x 8192: rc 0 in {time.time() - t0:.2f} s, launches "
           f"{launches} on {where}", flush=True)
+    return path
+
+
+def route_kernels(route: str):
+    """The kernels a biallelic admixture step of ``route`` launches
+    (ops/fullstep_bi.Route.describe)."""
+    if route.startswith("pair"):
+        return BI_KERNELS
+    if route.startswith("chunked"):
+        return STREAM_KERNELS + ("fullstep_bi_chunked",)
+    return STREAM_KERNELS
+
+
+def phase_bootstrap(build, dev, where, cli_path):
+    """The bootstrap LRT (-b) through ``api.fit_model_data`` on two
+    16384 x 2048 panels made on the card, then resumed from a checkpoint,
+    then the -w and -v 4 CLI runs on ``cli_path``."""
+    import contextlib
+    import io
+
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.cli import main
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.model.common import Lattice, map_params, \
+        model_data_from_planes
+    from multiclust_tpu_torch.opt import em as em_mod
+    from multiclust_tpu_torch.route_times import device_panel, \
+        mixture_planes
+    from multiclust_tpu_torch.runtime.multistart import _to_bi_repr, \
+        cfg_from_options, fit_batch
+    from multiclust_tpu_torch.runtime.observe import profile
+    from multiclust_tpu_torch.stats import bootstrap as bs
+
+    K, B, n_reps, seed = 3, 2, BOOT_REPS, 11
+    base = dict(min_K=K, max_K=K, n_init=B, n_bootstrap=n_reps, seed=seed,
+                verbosity=0)
+
+    def run(label, md, admixture, **kw):
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = fit_model_data(md, 2, admixture=admixture, **base, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(build.LAUNCHES)
+        boot = out.bootstrap
+        ts = np.asarray(boot.ts_bs)
+        cells = md.I * md.L * md.M * boot.chain_iterations
+        print(f"bootstrap {label}: ts_obs {out.estimate.ts:.4f}, p-value "
+              f"{boot.pvalue}, ts {[round(t, 4) for t in boot.ts_bs]}; "
+              f"chunk {boot.chunk} replicates x {B} chains, routes "
+              f"{boot.routes or 'mixture kernels'}; fit_model_data "
+              f"{wall:.3f} s, bootstrap {boot.seconds:.3f} s "
+              f"({boot.seconds / n_reps:.3f} s a replicate, "
+              f"{boot.chain_iterations} chain-iterations, "
+              f"{cells / max(boot.seconds, 1e-9) / 1e9:.2f} Gcells/s); peak "
+              f"allocation {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+              f" GiB; launches {({k: n for k, n in launches.items() if n})}"
+              f" on {where}", flush=True)
+        assert len(ts) == n_reps and np.isfinite(ts).all(), (label, ts)
+        return out, launches, wall
+
+    def refit_replicate_0(label, md, out, admixture, **kw):
+        """Replicate 0 alone from its lattice starts, and one lattice step
+        of replicates 0 and 1 that reads nothing from the device."""
+        opt = Options(admixture=admixture, **base, **kw).synchronize(md.I, 2)
+        reps = [bs.draw_replicate(seed, r, md, out.estimate.h0_params, 2,
+                                  admixture) for r in (0, 1)]
+        maxll = {}
+        for k in (K - 1, K):
+            cfg = cfg_from_options(opt, k, md)
+            starts = [bs.replicate_starts(seed, r, k, rep, cfg, opt, 2)
+                      for r, rep in enumerate(reps)]
+            state, _ = fit_batch(starts[0], bs._fit_data(reps[0], cfg), cfg)
+            maxll[k] = float(state.logL.max())
+        lat = Lattice(reps=tuple(reps), B=B, live=frozenset({0, 1}))
+        params = _to_bi_repr(map_params(lambda *t: torch.cat(t), *starts),
+                             cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            em_mod.model_em_step(params, lat, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ts0 = maxll[K] - maxll[K - 1]
+        print(f"bootstrap {label}: replicate 0 refitted alone: ts "
+              f"{ts0:.6f} against the lattice's {out.bootstrap.ts_bs[0]:.6f}"
+              f"; a lattice step of 2 replicates read nothing from the "
+              f"device", flush=True)
+        assert ts0 == out.bootstrap.ts_bs[0], (label, ts0)
+
+    # (a) the default model
+    md = model_data_from_planes(*mixture_planes(200, I_FULL, L_FULL, K, 0.01,
+                                                dev))
+    out, launches, _ = run("mixture", md, False)
+    assert out.bootstrap.pvalue == 0.0, out.bootstrap.pvalue
+    steps = out.bootstrap.chain_iterations // B
+    assert all(launches[k] >= steps > 0 for k in MIX_KERNELS), launches
+    refit_replicate_0("mixture", md, out, False)
+    del md
+
+    # (b) admixture, and (c) the same resumed from a checkpoint
+    md = model_data_from_planes(*device_panel(201, I_FULL, L_FULL, K, 0.01,
+                                              dev))
+    out, launches, wall = run("admixture", md, True, max_iter=100)
+    assert out.bootstrap.pvalue == 0.0, out.bootstrap.pvalue
+    steps = out.bootstrap.chain_iterations // B
+    for route in out.bootstrap.routes.values():
+        assert all(launches[k] > 0 for k in route_kernels(route)), launches
+    assert sum(launches[k] for k in BI_ROWS) >= steps > 0, launches
+    refit_replicate_0("admixture", md, out, True, max_iter=100)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        # the checkpointed run under torch.profiler: the device's busy
+        # share of a bootstrap whose lattices loop over their replicates
+        with profile(os.path.join(ckpt_dir, "profile")) as prof:
+            first, _, w1 = run("admixture, checkpointed", md, True,
+                               max_iter=100, checkpoint_dir=ckpt_dir)
+        busy = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        again, launches, w2 = run("admixture, resumed", md, True,
+                                  max_iter=100, checkpoint_dir=ckpt_dir)
+    print(f"bootstrap resume: {w1:.3f} s checkpointed (under "
+          f"torch.profiler: the device busy {busy:.3f} s, "
+          f"{100 * busy / w1:.1f} % of it), {w2:.3f} s resumed "
+          f"({sum(launches.values())} launches); the checkpointed run's "
+          f"statistics are (b)'s: "
+          f"{first.bootstrap.ts_bs == out.bootstrap.ts_bs}", flush=True)
+    assert again.bootstrap.ts_bs == first.bootstrap.ts_bs
+    assert again.bootstrap.pvalue == first.bootstrap.pvalue
+    assert not any(launches.values()), launches
+    del md
+    torch.cuda.empty_cache()
+
+    # (d) the -w and -v 4 CLI runs
+    for flags in (["-w", "n", "2"], ["-v", "4"]):
+        build.reset_launch_counts()
+        out_buf, err_buf = io.StringIO(), io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out_buf), \
+                contextlib.redirect_stderr(err_buf):
+            rc = main(["-f", cli_path, "-a", "-k", "3", "-n", "2", "-d",
+                       os.path.dirname(cli_path)] + flags)
+        torch.cuda.synchronize()
+        assert rc == 0, (flags, rc, err_buf.getvalue()[-2000:])
+        trace = [ln for ln in err_buf.getvalue().splitlines()
+                 if "(delta)" in ln]
+        last = out_buf.getvalue().strip().splitlines()[-1]
+        assert build.LAUNCHES["mc_fullstep_bi_cols"] > 0 and sum(
+            build.LAUNCHES[k] for k in BI_ROWS) > 0, build.LAUNCHES
+        assert bool(trace) == (flags[0] == "-v"), len(trace)
+        print(f"cli 512 x 8192 {' '.join(flags)}: rc 0 in "
+              f"{time.time() - t0:.2f} s, last line {last!r}"
+              + (f", {len(trace)} trace lines, the last {trace[-1]!r}"
+                 if trace else "") + f" on {where}", flush=True)
 
 
 def main() -> int:
@@ -1648,7 +1814,11 @@ def main() -> int:
     for name, err in phase_biobank_mixture_kernels(mb, dev, where).items():
         m_errs[name] = max(m_errs[name], err)
     phase_biobank_mixture(build, dev, where)
-    phase_cli_biobank(build, where)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_path = phase_cli_biobank(build, where, tmp)
+        t0 = time.time()
+        phase_bootstrap(build, dev, where, cli_path)
+        print(f"bootstrap phase: {time.time() - t0:.1f} s", flush=True)
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [

@@ -1,8 +1,9 @@
 """One-call library API (multiclust_tpu/api.py) with an explicit device.
 
 ``fit_file`` / ``fit_dataset`` run read -> synchronize -> K-sweep
-multi-start.  The device defaults to ``cuda``; without a CUDA device they
-raise unless ``device="cpu"`` is passed.
+multi-start -> the bootstrap test when ``n_bootstrap`` asks for it.  The
+device defaults to ``cuda``; without a CUDA device they raise unless
+``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from multiclust_tpu_torch.io.dataset import Dataset
 class FitOutput:
     dataset: Optional[Dataset]          # None for a panel made on the device
     estimate: "EstimateResult"          # noqa: F821 - runtime import
+    bootstrap: Optional["BootstrapResult"] = None  # noqa: F821
 
     @property
     def best(self):
@@ -51,27 +53,21 @@ def resolve_device(device) -> torch.device:
 
 def check_ported(opt: Options) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
-    missing = [
-        (opt.n_bootstrap, "the bootstrap test (-b)", "15"),
-        (opt.n_repeat != 1, "the repeat-timing harness (-w)", "16"),
-        (opt.mesh_shape, "meshes (--mesh)", "17"),
-        (opt.checkpoint_dir, "--checkpoint", "8"),
-        (opt.verbosity > 3, "per-iteration traces (-v > 3)", "16"),
-    ]
-    for hit, what, item in missing:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not yet ported; see ROADMAP.md queue 1, "
-                f"item {item}")
+    if opt.mesh_shape:
+        raise NotImplementedError(
+            "meshes (--mesh) are not yet ported; see ROADMAP.md queue 1, "
+            "item 17")
 
 
 def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
                    dataset: Optional[Dataset] = None, **kw) -> FitOutput:
     """Fit a panel that already lies on its device as ModelData (one
     generated there, model/common.model_data_from_planes; or the one
-    ``fit_dataset`` uploads) under the given options."""
+    ``fit_dataset`` uploads) under the given options, then run the
+    bootstrap test when ``n_bootstrap`` is set."""
     from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.runtime.ksweep import estimate_model
+    from multiclust_tpu_torch.stats.bootstrap import run_bootstrap
 
     opt = opt or Options()
     if kw:
@@ -89,8 +85,14 @@ def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
         per_i = opt.admixture and not opt.eta_constrained
         return (md.I * (K - 1) if per_i else K - 1) + free_p * K
 
-    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes)
-    return FitOutput(dataset=dataset, estimate=est)
+    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
+                         checkpoint_dir=opt.checkpoint_dir)
+    boot = None
+    if opt.n_bootstrap:
+        boot = run_bootstrap(opt.seed, md, opt, n_parameters, est.ts,
+                             est.h0_params, ploidy,
+                             checkpoint_dir=opt.checkpoint_dir)
+    return FitOutput(dataset=dataset, estimate=est, bootstrap=boot)
 
 
 def fit_dataset(ds: Dataset, opt: Optional[Options] = None, *,

@@ -345,7 +345,7 @@ OPTIONS WITHOUT A REFERENCE COUNTERPART
 \t--mesh <DxM|auto>
 \t\tDevice mesh for multi-device fits (not yet ported).
 \t--checkpoint <dir>
-\t\tPersist/resume the multi-start sweep state (not yet ported).
+\t\tPersist/resume the multi-start sweep state and the bootstrap.
 \t--compile-cache <dir|off>
 \t\tAccepted for compatibility with the JAX CLI and unused.
 \t--check-interval <n>
@@ -458,6 +458,12 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
     t_start = time.time()
 
+    if opt.n_repeat != 1:
+        from multiclust_tpu_torch.runtime.timing import timed_model_estimation
+        timed_model_estimation(opt.seed, md, opt, n_parameters, codes=codes,
+                               warm=warm, true_partition=truth)
+        return 0
+
     def on_model_improve(K, mres):
         # best-so-far persistence: rewrite the per-K files whenever an
         # init improves the best logL (multiclust.c:584-600)
@@ -477,10 +483,24 @@ def _main(argv: Optional[List[str]] = None) -> int:
     est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
                          warm=warm, true_partition=truth,
                          on_model_done=on_model_done,
-                         on_improve=on_model_improve)
+                         on_improve=on_model_improve,
+                         checkpoint_dir=opt.checkpoint_dir)
     if opt.parallel:
         # -M: stdout carries only the max log likelihood
         print(f"{est.last.max_logL:f}")
+
+    if opt.n_bootstrap:
+        from multiclust_tpu_torch.stats.bootstrap import run_bootstrap
+
+        def log(rep, ts, ntime):
+            print(f"Bootstrap dataset {rep + 1} (of {opt.n_bootstrap}): "
+                  f"test statistics bs={ts:f} obs={est.ts:f} "
+                  f"({ntime / (rep + 1):f})")
+
+        bres = run_bootstrap(opt.seed, md, opt, n_parameters, est.ts,
+                             est.h0_params, ds.ploidy, log=log,
+                             checkpoint_dir=opt.checkpoint_dir)
+        print(f"p-value to reject H0: K={bres.null_K} is {bres.pvalue:f}")
     return 0
 
 

@@ -104,6 +104,24 @@ class ModelData(NamedTuple):
         return self.x.view(self.I, -1)
 
 
+class Lattice(NamedTuple):
+    """The data of a replicate lattice (stats/bootstrap.py): an R x B
+    lattice of chains in which lanes r*B .. r*B + B - 1 of every state
+    tensor fit replicate r on ``reps[r]``.  The replicates share miss,
+    mask, n_alleles and c; only their counts differ.  opt/em.py steps the
+    replicates in ``live`` one after another, each through the routed
+    step of a B-chain batch, and leaves the lanes of the others as they
+    are (every one of them has stopped)."""
+
+    reps: tuple        # ModelData per replicate
+    B: int             # chains per replicate
+    live: frozenset    # replicates with a running chain
+
+    @property
+    def mask(self) -> Tensor:
+        return self.reps[0].mask
+
+
 def _to_device(a, device, dtype: torch.dtype) -> Tensor:
     """An array-like as a ``dtype`` tensor on ``device``.  A tensor stays
     where it is made (no round trip through numpy); a host array is cast

@@ -5,14 +5,17 @@ collection of q-1 secant pairs, then plain or accelerated macro steps until
 convergence, the iteration cap, or the wall-clock cap (-t,
 stop_condition em_alg.c:145-161).  The chain runs as a batch of one lane
 through the batched state machine of opt/em.py, with one host read of the
-stop flag per macro step.
+stop flag per macro step; a ``trace`` (runtime/observe.make_trace_printer)
+gets the logL, the iteration count and the step kind from that same read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from multiclust_tpu_torch.config import AccelScheme
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
@@ -43,10 +46,21 @@ class FitResult:
         return int(self.state.n_iter[0])
 
 
+def cfg_label(cfg: EMConfig, accel_step: bool) -> str:
+    """The trace's step kind: EM, or the accelerator's abbreviation when
+    the accelerated point was accepted."""
+    if not accel_step:
+        return "EM"
+    return {1: "S1", 2: "S2", 3: "S3", 4: f"Q{cfg.q}"}.get(
+        int(cfg.accel_scheme), "EM")
+
+
 def fit(params0: Params, md: ModelData, cfg: EMConfig, *,
         n_seconds: float = 0.0,
-        start_time: Optional[float] = None) -> FitResult:
-    """Run one EM chain (unbatched params) to convergence."""
+        start_time: Optional[float] = None,
+        trace: Optional[Callable] = None) -> FitResult:
+    """Run one EM chain (unbatched params) to convergence;
+    ``trace(logL, n_iter, kind)`` is called after every step."""
     t0 = time.time() if start_time is None else start_time
     params0 = map_params(lambda t: t[None], params0)
     if params0.K == 1:
@@ -59,25 +73,40 @@ def fit(params0: Params, md: ModelData, cfg: EMConfig, *,
     def timed_out() -> bool:
         return bool(n_seconds) and (time.time() - t0) > n_seconds
 
+    def stopped(state, kind=None) -> bool:
+        """The stop flag, and the trace line of the step just made (kind
+        None: from the state's accel flag), in one host read."""
+        if trace is None:
+            return bool(state.stopped[0])
+        ll, n, acc, stop = torch.stack([
+            state.logL[0], state.n_iter[0].double(),
+            state.accel_step[0].double(), state.stopped[0].double()]).tolist()
+        trace(ll, int(n), kind or cfg_label(cfg, bool(acc)))
+        return bool(stop)
+
     # warmup (em_alg.c:61-64)
+    stop = False
     for _ in range(cfg.n_init_iter):
-        if bool(state.stopped[0]) or timed_out():
+        if stop or timed_out():
             break
         state = em_mod.plain_step(state, md, cfg)
+        stop = stopped(state, "EM")
 
     time_stop = False
     if accel:
         # collect all but the last secant condition (em_alg.c:69-74)
         for _ in range(cfg.q - 1):
-            if bool(state.stopped[0]) or timed_out():
+            if stop or timed_out():
                 break
             state = em_mod.two_em_steps(state, md, cfg)[0]
+            stop = stopped(state, "EM")
 
     step = em_mod.accel_macro_step if accel else em_mod.plain_macro_step
-    while not bool(state.stopped[0]):
+    while not stop:
         if timed_out():
             time_stop = True
             break
         state = step(state, md, cfg)
+        stop = stopped(state)
     return FitResult(state=state, time_stop=time_stop,
                      seconds=time.time() - t0)

@@ -13,7 +13,12 @@ terms are rounded to float32) and scale the RMS of the per-individual
 terms; on float64 the floor is negligible and reference semantics hold.
 
 Host reads: blind runs never read the device.  The adaptive interval is
-read once per macro step, and backtracking reads one flag per trial.
+read once per macro step, an accelerated macro step reads whether any lane
+still runs, and backtracking reads one flag per trial.
+
+A replicate lattice (model/common.Lattice) runs through the same machine:
+``model_em_step`` and ``model_log_likelihood`` step each live replicate's
+lanes on that replicate's counts.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ import torch
 
 from multiclust_tpu_torch.config import AccelScheme
 from multiclust_tpu_torch.model import admixture, mixture
-from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
-    is_bi_repr, map_params
+from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
+    ModelData, Params, is_bi_repr, map_params
 from multiclust_tpu_torch.ops.fullstep_bi import p0_clip_bounds
 from multiclust_tpu_torch.ops.simplex import project_rows
 
@@ -86,6 +91,7 @@ class EMState(NamedTuple):
     stopped: Tensor       # [B] bool: converged | iteration cap | failure
     failed: Tensor        # [B] bool: NaN or fatal monotonicity violation
     mono_viol: Tensor     # [B] bool: any monotonicity violation observed
+    accel_step: Tensor    # [B] bool: the last accepted step was accelerated
     ring: Optional[AccelRing]
     # adaptive check interval (cfg.check_interval == 0): logL-free
     # iterations before the next stop() check, escalated while the logL
@@ -114,7 +120,7 @@ def init_state(params: Params, cfg: EMConfig) -> EMState:
     return EMState(
         params=params, logL=f(-float("inf")), scale=f(0.0), n_iter=zi(),
         converged=zb(), stopped=zb(), failed=zb(), mono_viol=zb(),
-        ring=ring,
+        accel_step=zb(), ring=ring,
         interval=torch.ones(nb, dtype=torch.int64, device=dev))
 
 
@@ -125,14 +131,40 @@ def _eps(params: Params) -> float:
 # ---------------------------------------------------------------------------
 # model dispatch
 
+def _cat(parts):
+    if isinstance(parts[0], Params):
+        return map_params(lambda *ts: torch.cat(ts), *parts)
+    return torch.cat(parts)
+
+
+def _over_replicates(fn, params: Params, lat: Lattice, stopped_out):
+    """``fn(params_r, md_r)`` for each live replicate's B lanes, joined in
+    lane order; a replicate out of ``lat.live`` gives ``stopped_out(
+    params_r)`` (its lanes have stopped, so no caller reads its values)."""
+    B = lat.B
+    outs = []
+    for r, md_r in enumerate(lat.reps):
+        p_r = map_params(lambda t: t[r * B:(r + 1) * B], params)
+        outs.append(fn(p_r, md_r) if r in lat.live else stopped_out(p_r))
+    return tuple(_cat(parts) for parts in zip(*outs))
+
+
 def model_em_step(params: Params, md: ModelData, cfg: EMConfig,
                   want_ll: bool = True):
+    if isinstance(md, Lattice):
+        return _over_replicates(
+            lambda p, m: model_em_step(p, m, cfg, want_ll), params, md,
+            lambda p: (p,) + admixture._no_ll(p.eta))
     if not cfg.admixture:
         return mixture.em_step(params, md, cfg, want_ll)
     return admixture.em_step(params, md, cfg, want_ll)
 
 
 def model_log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
+    if isinstance(md, Lattice):
+        return _over_replicates(
+            lambda p, m: model_log_likelihood(p, m, cfg), params, md,
+            lambda p: admixture._no_ll(p.eta))
     if not cfg.admixture:
         return mixture.log_likelihood(params, md, cfg)
     if cfg.eta_constrained:
@@ -200,7 +232,8 @@ def _apply_stop(state: EMState, new_params: Params, ll: Tensor,
         converged=sel(conv, state.converged),
         stopped=sel(stopped, state.stopped),
         failed=sel(failed, state.failed),
-        mono_viol=sel(mono_viol | state.mono_viol, state.mono_viol))
+        mono_viol=sel(mono_viol | state.mono_viol, state.mono_viol),
+        accel_step=state.accel_step & ~live)
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +448,15 @@ def accel_macro_step(state: EMState, md: ModelData,
                      cfg: EMConfig) -> EMState:
     """One accelerated iteration (accelerated_em_step, accel_em.c:35-114):
     two EM steps for a secant pair, then a guarded accelerated jump with
-    optional Varadhan backtracking, falling back to the EM iterate."""
+    optional Varadhan backtracking, falling back to the EM iterate.  A
+    macro step of stopped lanes only changes nothing, so it returns at
+    once after one host read."""
+    if not bool((~state.stopped).any()):
+        return state
+    return _accel_jump(state, md, cfg)
+
+
+def _accel_jump(state: EMState, md: ModelData, cfg: EMConfig) -> EMState:
     scheme = int(cfg.accel_scheme)
     pre_stopped = state.stopped
     state2, x0 = two_em_steps(state, md, cfg)
@@ -454,7 +495,9 @@ def accel_macro_step(state: EMState, md: ModelData,
 
     # accept the accelerated point or fall back to the EM iterate
     # (accel_em.c:90-113); the jump itself does not call stop()
-    return state2._replace(params=lane_select(accept, xt, x2))
+    return state2._replace(params=lane_select(accept, xt, x2),
+                           accel_step=torch.where(live, accept,
+                                                  state2.accel_step))
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,24 @@
 """K-sweep and model selection (multiclust_tpu/runtime/ksweep.py;
 estimate_model, multiclust.c:365-452).
 
-Fits K = min_K..max_K one after another, each K with its own static
-``k_true`` and its own generator stream, and tracks the AIC/BIC argmin.
+Fits K = min_K..max_K one after another (or only H0 and Ha when
+bootstrapping: null_K = max_K - 1, alt_K = max_K, synchronize
+multiclust.c:874-877), each K with its own static ``k_true`` and its own
+generator stream, tracks the AIC/BIC argmin, and records the
+likelihood-ratio test statistic of the bootstrap.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from multiclust_tpu_torch.config import Options
-from multiclust_tpu_torch.model.common import ModelData
+from multiclust_tpu_torch.model.common import ModelData, Params
 from multiclust_tpu_torch.runtime.multistart import MaximizeResult, \
     maximize_likelihood
 
@@ -26,7 +29,10 @@ class EstimateResult:
     aic_K: int
     bic_K: int
     min_aic: float
-    max_logL: float            # of the largest K
+    max_logL: float            # of the largest / alternative K
+    max_logL_H0: float = -float("inf")
+    ts: float = 0.0            # logL(Ha) - logL(H0) when bootstrapping
+    h0_params: Optional[Params] = None
     seconds: float = 0.0
 
     @property
@@ -36,16 +42,19 @@ class EstimateResult:
 
 def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
                    codes=None, warm=None, true_partition=None,
-                   on_model_done=None, on_improve=None) -> EstimateResult:
+                   bootstrap: bool = False, on_model_done=None,
+                   on_improve=None, checkpoint_dir=None) -> EstimateResult:
     """``n_parameters_fn(K) -> int`` gives the AIC/BIC parameter count;
     ``on_improve(K, res)`` fires when an init improves K's best logL and
-    ``on_model_done(K, res)`` when K is finished."""
-    if opt.n_bootstrap:
-        raise NotImplementedError(
-            "the bootstrap test (-b) is not yet ported; see ROADMAP.md "
-            "queue 1, item 15")
+    ``on_model_done(K, res)`` when K is finished.  ``bootstrap`` marks a
+    replicate fit: no ``on_improve`` and no per-init progress lines, as
+    in the reference (:584 ``!bootstrap``).  ``checkpoint_dir`` persists
+    and resumes each K (runtime/checkpoint.py)."""
     t0 = time.time()
-    ks = list(range(opt.min_K, opt.max_K + 1))
+    if opt.n_bootstrap:
+        ks = [opt.max_K - 1, opt.max_K]
+    else:
+        ks = list(range(opt.min_K, opt.max_K + 1))
     # one generator stream per K, as the JAX package splits one key per K
     seeds = np.random.SeedSequence(seed).generate_state(len(ks))
     per_K: Dict[int, MaximizeResult] = {}
@@ -55,9 +64,10 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
         gen = torch.Generator(device=md.device).manual_seed(int(s))
         res = maximize_likelihood(
             gen, md, K, opt, n_parameters_fn(K), codes=codes, warm=warm,
-            true_partition=true_partition,
-            on_improve=(lambda r, K=K: on_improve(K, r)) if on_improve
-            else None)
+            true_partition=true_partition, checkpoint_dir=checkpoint_dir,
+            on_improve=((lambda r, K=K: on_improve(K, r))
+                        if on_improve and not bootstrap else None),
+            quiet=bootstrap)
         per_K[K] = res
         if res.aic < min_aic:
             min_aic, aic_K = res.aic, K
@@ -65,6 +75,17 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
             min_bic, bic_K = res.bic, K
         if on_model_done:
             on_model_done(K, res)
-    return EstimateResult(per_K=per_K, aic_K=aic_K, bic_K=bic_K,
-                          min_aic=min_aic, max_logL=per_K[ks[-1]].max_logL,
-                          seconds=time.time() - t0)
+    out = EstimateResult(per_K=per_K, aic_K=aic_K, bic_K=bic_K,
+                         min_aic=min_aic, max_logL=per_K[ks[-1]].max_logL,
+                         seconds=time.time() - t0)
+    if opt.n_bootstrap:
+        h0 = per_K[ks[0]]
+        out.max_logL_H0, out.h0_params = h0.max_logL, h0.best_params
+        diff = out.max_logL - out.max_logL_H0
+        if diff <= 0:
+            raise RuntimeError(
+                "Null hypothesis likelihood exceeds alternative hypothesis "
+                "likelihood.  Try increasing number of initializations "
+                "(command-line option -n)")
+        out.ts = diff
+    return out

@@ -422,19 +422,16 @@ def _single_init(gen, md, K, cfg, opt, codes, warm, md_score=None):
 def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
                         opt: Options, n_parameters: int, codes=None,
                         warm: Optional[Params] = None, true_partition=None,
+                        checkpoint_dir: Optional[str] = None,
                         on_improve=None, quiet: bool = False
                         ) -> MaximizeResult:
     """Maximize over initializations (maximize_likelihood,
-    multiclust.c:471-656).  ``on_improve(res)`` fires whenever an init
-    improves the best logL (best-so-far outputs, multiclust.c:584-600);
-    ``quiet`` suppresses the per-init progress lines."""
-    if opt.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint is not yet ported; see ROADMAP.md queue 1, item 8")
-    if opt.verbosity > 3:
-        raise NotImplementedError(
-            "per-iteration traces (-v > 3) are not yet ported; see "
-            "ROADMAP.md queue 1, item 16")
+    multiclust.c:471-656).  ``checkpoint_dir`` persists the counters, the
+    best parameters and ``gen``'s state after every batch of chains and
+    resumes from them (runtime/checkpoint.py); ``on_improve(res)`` fires
+    whenever an init improves the best logL (best-so-far outputs,
+    multiclust.c:584-600); ``quiet`` suppresses the per-init progress
+    lines (bootstrap replicate fits)."""
     cfg = cfg_from_options(opt, K, md)
     res = MaximizeResult(K=K)
     t0 = time.time()
@@ -444,6 +441,16 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     # starts, the hard partition and AIC/BIC use the full data
     md_fit = collapse_for_constrained(md) if (
         cfg.admixture and cfg.eta_constrained) else md
+
+    if checkpoint_dir:
+        from multiclust_tpu_torch.runtime import checkpoint as ckpt
+        loaded = ckpt.load(checkpoint_dir, K, dtype=md.dtype,
+                           device=md.device, gen=gen)
+        if loaded is not None:
+            res = loaded
+            if _regimes_satisfied(res, opt):
+                _score_arand(res, md, opt, true_partition)
+                return res
 
     if K == 1:
         params = _single_init(gen, md, K, cfg, opt, codes, warm, md_fit)
@@ -465,39 +472,82 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
         _score_arand(res, md, opt, true_partition)
         return res
 
-    if warm is None:
+    def checkpoint():
+        res.seconds = time.time() - t0
+        if checkpoint_dir:
+            from multiclust_tpu_torch.runtime import checkpoint as ckpt
+            ckpt.save(checkpoint_dir, K, res, gen)
+
+    # at verbosity > MINIMAL the reference prints one line per EM
+    # iteration (stop, em_alg.c:123-136): one traced chain a round
+    serial = opt.verbosity > 3
+    if not serial and warm is None:
         _run_continuous(gen, res, md, md_fit, K, cfg, opt, n_parameters,
                         codes, t0, on_improve=on_improve, progress=progress)
-        res.seconds = time.time() - t0
+        checkpoint()
         _score_arand(res, md, opt, true_partition)
         return res
 
     # -Q/-P warm start: every init identical (initialize_model,
-    # rnd_init.c:74-76), one chain per batch
-    warm_b = map_params(lambda t: t[None], _pad_k(warm, cfg))
+    # rnd_init.c:74-76); one chain a round
+    if warm is not None:
+        warm_b = map_params(lambda t: t[None], _pad_k(warm, cfg))
     if cfg.bi_repr_active:
         res.route = bi_route(1, md_fit, cfg, k_padded_size(K, 32)).describe()
     while True:
-        states, timed_out = fit_batch(warm_b, md_fit, cfg,
-                                      n_seconds=opt.n_seconds, start_time=t0)
+        if serial:
+            states, timed_out = _fit_serial_traced(
+                gen, md, md_fit, K, cfg, opt, codes, warm, t0)
+        else:
+            states, timed_out = fit_batch(warm_b, md_fit, cfg,
+                                          n_seconds=opt.n_seconds,
+                                          start_time=t0)
         host, get = _harvest(states, cfg)
-        if _bookkeep_lane(
-                res, opt, n_parameters, md.I, float(host["logL"][0]),
-                bool(host["converged"][0]), int(host["n_iter"][0]),
-                bool(host["failed"][0]), bool(host["mono_viol"][0]),
-                lambda: get(0), timed_out, on_improve=on_improve,
-                progress=progress):
-            break
+        done = _bookkeep_lane(
+            res, opt, n_parameters, md.I, float(host["logL"][0]),
+            bool(host["converged"][0]), int(host["n_iter"][0]),
+            bool(host["failed"][0]), bool(host["mono_viol"][0]),
+            lambda: get(0), timed_out, on_improve=on_improve,
+            progress=progress)
         # warm starts are deterministic; more chains are pointless unless
         # a count/target regime explicitly asks for them
-        if (res.n_launched >= opt.n_init
+        if (warm is not None and res.n_launched >= opt.n_init
                 and not (opt.target_revisit or opt.target_ll
                          or opt.n_seconds)):
+            done = True
+        checkpoint()
+        if done:
             break
-
-    res.seconds = time.time() - t0
     _score_arand(res, md, opt, true_partition)
     return res
+
+
+def _regimes_satisfied(res: MaximizeResult, opt: Options) -> bool:
+    """Is a resumed sweep already past its stop regime?"""
+    if res.time_stop:
+        return True
+    if opt.target_revisit and not opt.target_ll:
+        return res.n_maxll_times >= opt.target_revisit
+    if opt.target_ll:
+        needed = opt.target_revisit or 1
+        return res.n_targetll_times >= needed
+    if not opt.n_seconds:
+        return res.n_launched >= opt.n_init
+    return False
+
+
+def _fit_serial_traced(gen, md, md_fit, K, cfg, opt, codes, warm, t0):
+    """One chain, traced line by line at verbosity > MINIMAL (the trace
+    reads the logL, the iteration and the step kind in the one host read
+    a step makes); returns (its state, a batch of one, timed_out)."""
+    from multiclust_tpu_torch.opt.driver import fit
+    from multiclust_tpu_torch.runtime.observe import make_trace_printer
+
+    params = _single_init(gen, md, K, cfg, opt, codes, warm, md_fit)
+    out = fit(_to_bi_repr(params, cfg), md_fit, cfg,
+              n_seconds=opt.n_seconds, start_time=t0,
+              trace=make_trace_printer(opt.verbosity))
+    return out.state, out.time_stop
 
 
 def posterior_mass(params: Params, md: ModelData, admixture: bool,

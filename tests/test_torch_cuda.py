@@ -894,3 +894,117 @@ def test_build_reports_no_spills():
     # the finish kernel is built into both admixture sources, the generic
     # rows pass with its dense and its sparse cells; 16 mixture passes
     assert len(names) == 49, names
+
+
+def _lattice(dev, admixture, R=3, B=2, I=2048, L=1024, K=3):
+    """An R x B bootstrap lattice on the card: replicates of a simulated
+    panel drawn from random H0 parameters, and their K-padded starts in
+    the layout the chains run."""
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.convert import params_from_numpy
+    from multiclust_tpu_torch.model.common import map_params, \
+        model_data_from_planes
+    from multiclust_tpu_torch.route_times import device_panel
+    from multiclust_tpu_torch.runtime.multistart import _to_bi_repr, \
+        cfg_from_options
+    from multiclust_tpu_torch.stats import bootstrap as bs
+
+    md = model_data_from_planes(*device_panel(3, I, L, K, 0.01, dev))
+    opt = Options(admixture=admixture, min_K=K, max_K=K, n_init=B,
+                  n_bootstrap=R).synchronize(I, 2)
+    cfg = cfg_from_options(opt, K, md)
+    rng = np.random.default_rng(4)
+    p0 = rng.uniform(0.05, 0.95, size=(K, L))
+    h0 = params_from_numpy(
+        rng.dirichlet(np.ones(K), size=I if admixture else None),
+        np.stack([p0, 1 - p0], axis=2), device=dev, dtype=torch.float32)
+    reps = [bs.draw_replicate(7, r, md, h0, 2, admixture) for r in range(R)]
+    starts = [bs.replicate_starts(7, r, K, rep, cfg, opt, 2)
+              for r, rep in enumerate(reps)]
+    params = _to_bi_repr(map_params(lambda *t: torch.cat(t), *starts), cfg)
+    return md, reps, params, cfg
+
+
+def _route_launches(admixture) -> int:
+    """The fewest launches of a kernel of the step's route since the
+    counts were reset: the biallelic admixture step's columns pass and
+    either rows pass, or each of the four mixture kernels."""
+    if admixture:
+        return min(build.LAUNCHES["mc_fullstep_bi_cols"],
+                   build.LAUNCHES["mc_fullstep_bi_rows"]
+                   + build.LAUNCHES["mc_fullstep_bi_rows_seg"])
+    return min(build.LAUNCHES[k] for k in MIX_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admixture", [True, False])
+def test_lattice_step_is_each_replicates_step(admixture):
+    """A lattice's model step (opt/em.model_em_step over all R x B lanes)
+    reads nothing from the device and gives, bit for bit, each
+    replicate's own routed step of its B chains; so does its logL."""
+    from multiclust_tpu_torch.model.common import Lattice, map_params
+    from multiclust_tpu_torch.opt import em as em_mod
+
+    dev = _cuda()
+    _, reps, params, cfg = _lattice(dev, admixture)
+    R, B = len(reps), params.eta.shape[0] // len(reps)
+    lat = Lattice(reps=tuple(reps), B=B, live=frozenset(range(R)))
+    build.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, ll, scale = em_mod.model_em_step(params, lat, cfg)
+        ll2, _ = em_mod.model_log_likelihood(new, lat, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _route_launches(admixture) >= R, build.LAUNCHES
+    for r, rep in enumerate(reps):
+        lanes = slice(r * B, (r + 1) * B)
+        own = map_params(lambda t: t[lanes], params)
+        ref, ref_ll, ref_scale = em_mod.model_em_step(own, rep, cfg)
+        assert torch.equal(new.eta[lanes], ref.eta)
+        assert torch.equal(new.p[lanes], ref.p)
+        assert torch.equal(ll[lanes], ref_ll)
+        assert torch.equal(scale[lanes], ref_scale)
+        assert torch.equal(ll2[lanes], em_mod.model_log_likelihood(
+            ref, rep, cfg)[0])
+    # a replicate out of ``live`` keeps its lanes as they are
+    frozen = lat._replace(live=frozenset({0}))
+    out, _, _ = em_mod.model_em_step(params, frozen, cfg)
+    assert torch.equal(out.p[B:], params.p[B:])
+    assert torch.equal(out.p[:B], new.p[:B])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admixture", [True, False])
+def test_simulate_replicate_on_the_card_keeps_miss(admixture):
+    """Replicates drawn on the card keep every missing copy: x0 + x1 =
+    ploidy - miss, int8 planes, md's own miss tensor."""
+    dev = _cuda()
+    md, reps, _, _ = _lattice(dev, admixture)
+    for rep in reps:
+        assert rep.x0.dtype == torch.int8 and rep.miss is md.miss
+        assert torch.equal(rep.x0.int() + rep.x1.int(), 2 - md.miss.int())
+    assert not torch.equal(reps[0].x0, reps[1].x0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admixture", [True, False])
+def test_bootstrap_api_run_at_4096_x_2048(admixture):
+    """A -b 4 run through the API on a 4096 x 2048 panel made on the card:
+    finite statistics, a p-value of the direct count, every replicate in
+    one lattice, and the kernels of the route launched."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model.common import model_data_from_planes
+    from multiclust_tpu_torch.route_times import device_panel
+
+    dev = _cuda()
+    md = model_data_from_planes(*device_panel(5, 4096, 2048, 3, 0.01, dev))
+    build.reset_launch_counts()
+    out = fit_model_data(md, 2, admixture=admixture, min_K=3, max_K=3,
+                         n_init=2, n_bootstrap=4, max_iter=100, seed=3,
+                         verbosity=0)
+    boot = out.bootstrap
+    ts = np.asarray(boot.ts_bs)
+    assert len(ts) == 4 and np.isfinite(ts).all() and boot.chunk == 4
+    assert boot.pvalue == (ts >= out.estimate.ts).sum() / 4
+    assert _route_launches(admixture) > 0, build.LAUNCHES

@@ -205,10 +205,30 @@ def test_cli_multistart_squarem_writes_every_file(tmp_path, capsys):
     assert np.isfinite(float(line[9])) and int(line[16]) == 4  # n_init
 
 
+@pytest.mark.parametrize("argv,last", [
+    (["-k", "3", "-w", "n", "2"], "Average iterations: "),
+    (["-a", "-k", "3", "-c", "-b", "2"], "p-value to reject H0: K=2 is "),
+    (["-a", "-k", "3", "-b", "2"], "p-value to reject H0: K=2 is "),
+])
+def test_cli_runs_timing_and_bootstrap(tmp_path, capsys, argv, last):
+    """-w and -b run on the CPU: the timing summary's last line, and one
+    line per bootstrap replicate before the p-value."""
+    from multiclust_tpu_torch.cli import main
+
+    ds = _panel(9, I=40, L=40)
+    data = str(tmp_path / "sim.str")
+    _write_structure(ds, data)
+    assert main(["-f", data, "-n", "2", "-E", "1e-2", "--platform", "cpu",
+                 "-d", str(tmp_path)] + argv) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[-1].startswith(last)
+    if "-b" in argv:
+        assert [ln.split(":")[0] for ln in out[-3:-1]] == [
+            "Bootstrap dataset 1 (of 2)", "Bootstrap dataset 2 (of 2)"]
+        assert 0.0 <= float(out[-1].split()[-1]) <= 1.0
+
+
 @pytest.mark.parametrize("argv,what", [
-    (["-k", "3", "-w", "n", "2"], "repeat-timing"),
-    (["-a", "-k", "3", "-c", "-b", "2"], "bootstrap"),
-    (["-a", "-k", "3", "-b", "2"], "bootstrap"),
     (["-a", "-k", "3", "--mesh", "2x1"], "meshes"),
 ])
 def test_cli_rejects_unported_flags(tmp_path, argv, what):
