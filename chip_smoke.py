@@ -90,7 +90,18 @@ each raising on failure:
    run again with ``--checkpoint`` into a fresh directory, under
    ``torch.profiler`` (the device's busy share), and once more from it
    (same statistics, no kernel launched); then ``-w n 2`` and ``-v 4``
-   CLI runs on phase 16's file.
+   CLI runs on phase 16's file;
+18. jagged: jagged-M bucketing (model/bucketed.py) on the jagged mix of
+   bench.py:199-201 made on the card, 16384 x 2048, K=20, 80 % M=2 + 20 %
+   M=8 loci interleaved, 1 % missing, 2 chains: the bucketed step through
+   the generic kernels (one launch chain a bucket, launches counted)
+   against its plain version and the dense step on the same parameters;
+   plain EM and SQUAREM fits through ``api.fit_model_data``, bucketed and
+   with the dense layout forced (``worth_bucketing`` patched, as the tests
+   force it): iterations, logL gap against the noise floor, walls, useful
+   cells/s (I x sum_l M_l a chain iteration); a microsatellite-like panel
+   (2..20 alleles a locus, the 8-bucket cap); a -b 4 -k 3 -n 2 bootstrap
+   and a mixture fit on the jagged panel.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -1743,6 +1754,158 @@ def phase_bootstrap(build, dev, where, cli_path):
                  if trace else "") + f" on {where}", flush=True)
 
 
+def phase_jagged(build, dev, where):
+    """Jagged-M bucketing (model/bucketed.py) on the jagged mix of
+    bench.py:199-201, made on the card: (a) the bucketed step against its
+    plain version and the dense step; (b) plain EM and SQUAREM fits,
+    bucketed and dense-forced; (c) a microsatellite-like panel at the
+    8-bucket cap; (d) a -b 4 -k 3 -n 2 bootstrap and a mixture fit."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model import admixture as adm, bucketed as bk
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+    from multiclust_tpu_torch.opt import em as em_mod
+    from multiclust_tpu_torch.route_times import jagged_panel
+
+    K, Kp, B = K_FULL, 32, 2
+    eps32 = float(np.finfo(np.float32).eps)
+    md = jagged_panel(300, I_FULL, L_FULL, dev)
+    useful = I_FULL * int(md.n_alleles.sum())
+    plan = bk.plan_for(md)
+    bd = bk.bucketize_model_data(md, plan)
+    print(f"jagged {I_FULL} x {L_FULL} (80 % M=2 + 20 % M=8), K={K}: plan "
+          f"{plan.describe()}; {useful} useful cells a chain iteration on "
+          f"{where}", flush=True)
+
+    # (a) the step, kernels against plain and against the dense step
+    gen = torch.Generator(device=dev).manual_seed(301)
+    eta = torch.zeros((B, I_FULL, Kp), device=dev)
+    eta[..., :K] = torch.rand((B, I_FULL, K), generator=gen,
+                              device=dev) + 0.05
+    eta /= eta.sum(dim=-1, keepdim=True)
+    p = torch.zeros((B, Kp, L_FULL, md.M), device=dev)
+    p[:, :K] = (torch.rand((B, K, L_FULL, md.M), generator=gen, device=dev)
+                + 0.05) * md.mask
+    p /= p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    cfg = EMConfig(admixture=True, has_missing=True, use_pallas="on",
+                   k_true=K)
+    params = bk.split_params_like(Params(eta, p), bd)
+    build.reset_launch_counts()
+    got, ll, _ = adm.em_step(params, bd, cfg)
+    torch.cuda.synchronize()
+    per_bucket = {n: build.LAUNCHES[n] for n in GENERIC_KERNELS}
+    assert all(n == plan.n_buckets for n in per_bucket.values()), per_bucket
+    ref, ll_ref, _ = adm.em_step(params, bd, cfg._replace(use_pallas="off"))
+    dense, ll_dense, _ = adm.em_step(Params(eta, p), md, cfg)
+    torch.cuda.synchronize()
+    err = max([max_err(got.eta, ref.eta)]
+              + [max_err(g, r) for g, r in zip(got.p, ref.p)])
+    err_dense = max(max_err(got.eta, dense.eta),
+                    max_err(bk.merge_params_like(got, bd).p, dense.p))
+    torch.testing.assert_close(ll, ll_ref, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ll, ll_dense, rtol=1e-5, atol=0)
+    ms_b = median_ms(lambda: adm.em_step(params, bd, cfg))
+    ms_d = median_ms(lambda: adm.em_step(Params(eta, p), md, cfg))
+    ms_p = median_ms(lambda: adm.em_step(
+        params, bd, cfg._replace(use_pallas="off")), n=5, warm=1)
+    print(f"jagged step B={B}: one launch of each generic kernel a bucket "
+          f"({per_bucket}); max|d| against plain {err:.3e}, against the "
+          f"dense step {err_dense:.3e} (rtol {RTOL}, atol {ATOL}); "
+          f"bucketed {ms_b:.3f} ms ({useful * B / ms_b / 1e6:.2f} G useful "
+          f"cells/s), dense {ms_d:.3f} ms ({ms_d / ms_b:.2f}x), plain "
+          f"bucketed {ms_p:.3f} ms on {where}", flush=True)
+    del eta, p, params, got, ref, dense
+    torch.cuda.empty_cache()
+
+    # (b) fits, bucketed and dense-forced
+    base = dict(admixture=True, min_K=K, max_K=K, n_init=2, max_iter=100,
+                seed=3, verbosity=0)
+
+    def fit(label, dense_forced=False, panel=md, **kw):
+        real = bk.worth_bucketing
+        if dense_forced:
+            bk.worth_bucketing = lambda *a, **k: False
+        try:
+            t0 = time.time()
+            res = fit_model_data(panel, 2, **{**base, **kw}).estimate.last
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            bk.worth_bucketing = real
+        assert np.isfinite(res.max_logL) and not res.any_failed, label
+        assert bool(res.buckets) != dense_forced, (label, res.buckets)
+        eta_b, p_b = res.best_params
+        assert (p_b[:, ~panel.mask] == 0).all(), label
+        # the fit's own noise floor (opt/em.py): from the scale of its
+        # logL terms at the best parameters
+        _, scale = em_mod.model_log_likelihood(
+            Params(eta_b[None], p_b[None]),
+            bk.bucketize_model_data(panel, bk.plan_for(panel)),
+            EMConfig(admixture=kw.get("admixture", True), has_missing=True))
+        n = res.n_iter_all
+        cells = I_FULL * int(panel.n_alleles.sum()) * n
+        print(f"jagged fit {label}: {n} iterations over the chains, logL "
+              f"{res.max_logL:.4f} (noise floor 8 eps32 x scale "
+              f"{8 * eps32 * float(scale[0]):.3f}); wall {wall:.3f} s, init "
+              f"+ EM {res.seconds:.3f} s, {cells / res.seconds / 1e9:.2f} G "
+              f"useful cells/s of init + EM on {where}", flush=True)
+        return res, 8 * eps32 * float(scale[0])
+
+    build.reset_launch_counts()
+    plain_b, floor = fit("plain EM, bucketed")
+    sq_b, _ = fit("SQUAREM, bucketed", accel_scheme=1)
+    launches = {n: build.LAUNCHES[n] for n in GENERIC_KERNELS}
+    steps = (plain_b.n_iter_all + sq_b.n_iter_all) // 2 * plan.n_buckets
+    assert all(n >= steps > 0 for n in launches.values()), (launches, steps)
+    print(f"launches in the bucketed fits: {launches} "
+          f"({plan.n_buckets} buckets)", flush=True)
+    plain_d, _ = fit("plain EM, dense-forced", dense_forced=True)
+    sq_d, _ = fit("SQUAREM, dense-forced", dense_forced=True,
+                  accel_scheme=1)
+    for label, b, d in (("plain EM", plain_b, plain_d),
+                        ("SQUAREM", sq_b, sq_d)):
+        print(f"jagged {label}: bucketed {b.n_iter_all} iterations against "
+              f"dense {d.n_iter_all}; logL gap {b.max_logL - d.max_logL:.4f}"
+              f" against the noise floor {floor:.3f}; init + EM "
+              f"{b.seconds:.3f} s against {d.seconds:.3f} s "
+              f"({d.seconds / b.seconds:.2f}x) on {where}", flush=True)
+
+    # (c) a microsatellite-like panel at the same I x L, 2..20 alleles
+    n_ms = np.random.default_rng(302).integers(2, 21, size=L_FULL)
+    ms = jagged_panel(303, I_FULL, L_FULL, dev, n_alleles=n_ms)
+    ms_plan = bk.plan_for(ms)
+    assert ms_plan.n_buckets == 8, ms_plan
+    build.reset_launch_counts()
+    ms_res, _ = fit("microsatellites 2..20, plain EM, cap 10", panel=ms,
+                    max_iter=10)
+    ms_launch = {n: build.LAUNCHES[n] for n in GENERIC_KERNELS}
+    assert all(n >= ms_res.n_iter_all // 2 * 8 for n in
+               ms_launch.values()), ms_launch
+    print(f"microsatellite plan {ms_plan.describe()}; launches "
+          f"{ms_launch} on {where}", flush=True)
+    del ms
+    torch.cuda.empty_cache()
+
+    # (d) the bootstrap and a mixture fit on the jagged panel
+    build.reset_launch_counts()
+    t0 = time.time()
+    out = fit_model_data(md, 2, admixture=True, min_K=3, max_K=3, n_init=2,
+                         n_bootstrap=4, max_iter=100, seed=11, verbosity=0)
+    torch.cuda.synchronize()
+    boot = out.bootstrap
+    assert len(boot.ts_bs) == 4 and np.isfinite(boot.ts_bs).all()
+    assert all(build.LAUNCHES[n] > 0 for n in GENERIC_KERNELS)
+    print(f"jagged bootstrap -b 4 -k 3 -n 2: ts {boot.ts_bs}, p-value "
+          f"{boot.pvalue}, {boot.chain_iterations} chain-iterations, "
+          f"bootstrap {boot.seconds:.3f} s, run {time.time() - t0:.3f} s on "
+          f"{where}", flush=True)
+    build.reset_launch_counts()
+    mix, _ = fit("mixture model, bucketed", admixture=False)
+    assert build.LAUNCHES["mc_mix_eta"] > 0 and \
+        build.LAUNCHES["mc_fullstep_p"] >= plan.n_buckets, build.LAUNCHES
+    del md, bd
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1819,6 +1982,9 @@ def main() -> int:
         t0 = time.time()
         phase_bootstrap(build, dev, where, cli_path)
         print(f"bootstrap phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    phase_jagged(build, dev, where)
+    print(f"jagged phase: {time.time() - t0:.1f} s", flush=True)
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [

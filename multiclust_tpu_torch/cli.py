@@ -477,6 +477,9 @@ def _main(argv: Optional[List[str]] = None) -> int:
             # how the biallelic admixture step ran on the card
             print(f"K = {K}: step route {mres.route}, "
                   f"{mres.batch_chains} chains in lockstep")
+        if opt.verbosity > 2 and mres.buckets:
+            # the jagged panel's bucketing plan (model/bucketed.py)
+            print(f"K = {K}: jagged loci bucketed: {mres.buckets}")
         if opt.verbosity:
             print_model_state(opt, ds, mres, time.time() - t_start)
 

@@ -15,6 +15,10 @@ because sum_lm d_iklm = eta_ik (A_ik + c_i) and sum_i d_iklm = p_klm (B_klm
 reads only the column sums of the data.  logL values are
 float64 sums of the per-individual terms, returned with the RMS scale of
 those terms that the noise floor reads (opt/em.py).
+
+A jagged panel's bucketed layout (model/bucketed.py) runs the same sums one
+bucket at a time: A, t and the constrained step's a add up over the
+buckets, p is updated bucket by bucket at its own M_b, eta once.
 """
 
 from __future__ import annotations
@@ -23,10 +27,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from multiclust_tpu_torch.model.bucketed import BucketedData, \
+    split_params_like
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     WINDOW_BYTES, column_window, is_bi_repr, safe_log
 from multiclust_tpu_torch.ops.fullstep import admixture_fullstep, \
-    normalize_p
+    fullstep_cols, fullstep_rows, normalize_p
 from multiclust_tpu_torch.ops.fullstep_bi import Route, \
     admixture_fullstep_biallelic_routed, device_sm_count, pick_route, \
     rows_log_likelihood_terms, scratch_budget
@@ -81,6 +87,8 @@ def em_step(params: Params, md: ModelData, cfg: EMConfig,
     INPUT params.  ``want_ll=False`` skips the logL terms and returns
     zeros (the blind steps of opt/em.blind_plain_steps).  ``route`` fixes
     the biallelic step's route (``bi_route`` picks it when None)."""
+    if isinstance(md, BucketedData):
+        return _em_step_bucketed(params, md, cfg, want_ll)
     if cfg.eta_constrained:
         return _em_step_constrained(params, md, cfg, want_ll)
     if cfg.bi_repr_active and is_bi_repr(params):
@@ -173,26 +181,31 @@ def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
     return Params(eta=eta_new, p=p_new), ll, scale
 
 
-def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,
-                           want_ll: bool = True):
-    eta, p = params.eta, params.p                     # [B,I,K], [B,K,L,M]
+def _sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
+           want_ll: bool):
+    """One block of loci's part of the plain step (``_bucket_sweep`` and
+    ``_finish_bucket_p``, multiclust_tpu/model/admixture.py:662-684): (A
+    [B, I, K] without c, t [B, I] or None, p' [B, K, L, M])."""
     nb, K = p.shape[0], p.shape[1]
     p2 = p.reshape(nb, K, -1)                         # [B, K, LM]
     x2 = md.x2d                                       # [I, LM]
-
     denom = eta @ p2                                  # [B, I, LM]
     w = _safe_div(x2, denom)
-
-    if want_ll:
-        t = torch.where(x2 > 0, x2 * safe_log(denom), torch.zeros_like(w))
-        ll, scale = _ll_terms(t.sum(dim=-1))
-    else:
-        ll, scale = _no_ll(eta)
-
-    # eta update: sum_lm d_iklm = eta_ik (A_ik + c_i)
-    A = w @ p2.transpose(-1, -2)                      # [B, I, K]
+    t = (torch.where(x2 > 0, x2 * safe_log(denom),
+                     torch.zeros_like(w)).sum(dim=-1) if want_ll else None)
+    # p update: sum_i d_iklm = p_klm (B_klm + C_kl)
+    et = eta.transpose(-1, -2)
+    Bm = (et @ w).reshape(p.shape)                    # [B, K, L, M]
     if cfg.has_missing:
-        A = A + md.c.to(A.dtype)[:, None]
+        Bm = Bm + (et @ md.miss.to(eta.dtype))[..., None]
+    # eta statistics: sum_lm d_iklm = eta_ik (A_ik + c_i)
+    return w @ p2.transpose(-1, -2), t, _normalize_p(p * Bm, md, cfg)
+
+
+def _eta_update(eta: Tensor, A: Tensor, c: Tensor, cfg: EMConfig) -> Tensor:
+    """eta' from the merged A (c added when data are missing)."""
+    if cfg.has_missing:
+        A = A + c.to(A.dtype)[:, None]
     eta_num = eta * A
     tot = eta_num.sum(dim=-1, keepdim=True)
     # zero-mass rows keep their eta instead of 0/0
@@ -202,14 +215,40 @@ def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,
                           eta)
     if cfg.do_projection:
         eta_new = _project_eta_rows(eta_new, cfg)
+    return eta_new
 
-    # p update: sum_i d_iklm = p_klm (B_klm + C_kl)
-    et = eta.transpose(-1, -2)
-    Bm = (et @ w).reshape(p.shape)                    # [B, K, L, M]
-    if cfg.has_missing:
-        Bm = Bm + (et @ md.miss.to(eta.dtype))[..., None]
-    p_new = _normalize_p(p * Bm, md, cfg)
-    return Params(eta=eta_new, p=p_new), ll, scale
+
+def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,
+                           want_ll: bool = True):
+    A, t, p_new = _sweep(params.eta, params.p, md, cfg, want_ll)
+    ll, scale = _ll_terms(t) if want_ll else _no_ll(params.eta)
+    return Params(eta=_eta_update(params.eta, A, md.c, cfg), p=p_new), \
+        ll, scale
+
+
+def _constrained_sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
+                       want_ll: bool):
+    """One block of loci's part of the constrained step: (a [B, K], the
+    per-lane logL terms [B, LM] or None, p' [B, K, L, M])."""
+    nb, K = p.shape[0], p.shape[1]
+    p2 = p.reshape(nb, K, -1)                         # [B, K, LM]
+    colx = md.x2d.sum(dim=0)                          # [LM]
+    msum = md.miss.to(eta.dtype).sum(dim=0)           # [L]
+    denom = (eta[:, None, :] @ p2)[:, 0]              # [B, LM]
+    t = (torch.where(colx > 0, colx * safe_log(denom),
+                     torch.zeros_like(denom)) if want_ll else None)
+    S = _safe_div(colx, denom).reshape(nb, md.L, md.M) + msum[:, None]
+    S = torch.where(md.mask, S, torch.zeros_like(S)).reshape(nb, -1)
+    a = (p2 @ S[..., None])[..., 0]                   # [B, K]
+    return a, t, _normalize_p(p * S.reshape(nb, 1, md.L, md.M), md, cfg)
+
+
+def _constrained_eta(eta: Tensor, a: Tensor, cfg: EMConfig) -> Tensor:
+    eta_num = eta * a
+    eta_new = eta_num / eta_num.sum(dim=-1, keepdim=True)
+    if cfg.do_projection:
+        eta_new = _project_eta_rows(eta_new, cfg)
+    return eta_new
 
 
 def _em_step_constrained(params: Params, md: ModelData, cfg: EMConfig,
@@ -218,49 +257,133 @@ def _em_step_constrained(params: Params, md: ModelData, cfg: EMConfig,
     data enter only through the column sums sum_i x_ilm and sum_i miss_il,
     so ``md`` may be the collapsed 1-row data (collapse_for_constrained).
     The logL terms are per allele lane."""
-    eta, p = params.eta, params.p                     # [B, K], [B,K,L,M]
-    nb, K = p.shape[0], p.shape[1]
-    p2 = p.reshape(nb, K, -1)                         # [B, K, LM]
-    colx = md.x2d.sum(dim=0)                          # [LM]
-    msum = md.miss.to(eta.dtype).sum(dim=0)           # [L]
+    a, t, p_new = _constrained_sweep(params.eta, params.p, md, cfg, want_ll)
+    ll, scale = _ll_terms(t) if want_ll else _no_ll(params.eta)
+    return Params(eta=_constrained_eta(params.eta, a, cfg), p=p_new), \
+        ll, scale
 
-    denom = (eta[:, None, :] @ p2)[:, 0]              # [B, LM]
-    if want_ll:
-        t = torch.where(colx > 0, colx * safe_log(denom),
-                        torch.zeros_like(denom))
-        ll, scale = _ll_terms(t)
-    else:
-        ll, scale = _no_ll(eta)
 
-    S = _safe_div(colx, denom).reshape(nb, md.L, md.M) + msum[:, None]
-    S = torch.where(md.mask, S, torch.zeros_like(S)).reshape(nb, -1)
+def _em_step_bucketed(params: Params, bd: BucketedData, cfg: EMConfig,
+                      want_ll: bool = True):
+    """The step on a bucketed panel (``_em_step_bucketed``,
+    multiclust_tpu/model/admixture.py:879-932): float32 chains with the
+    kernels on take ``_bucketed_fullstep_chain``; every other step the
+    plain sweep one bucket at a time, A and t summed over the buckets, eta
+    updated once from the merged A."""
+    params = split_params_like(params, bd)
+    eta = params.eta
+    if cfg.eta_constrained:
+        return _em_step_constrained_bucketed(params, bd, cfg, want_ll)
+    if cfg.use_pallas != "off" and eta.dtype == torch.float32:
+        return _bucketed_fullstep_chain(params, bd, cfg, want_ll)
+    A, per_i, new_ps = None, None, []
+    for md_b, p_b in zip(bd.buckets, params.p):
+        A_b, t_b, p_new = _sweep(eta, p_b, md_b, cfg, want_ll)
+        A = A_b if A is None else A + A_b
+        if want_ll:
+            per_i = t_b if per_i is None else per_i + t_b
+        new_ps.append(p_new)
+    ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
+    return Params(eta=_eta_update(eta, A, bd.c, cfg), p=tuple(new_ps)), \
+        ll, scale
 
-    a = (p2 @ S[..., None])[..., 0]                   # [B, K]
-    eta_num = eta * a
-    eta_new = eta_num / eta_num.sum(dim=-1, keepdim=True)
-    if cfg.do_projection:
-        eta_new = _project_eta_rows(eta_new, cfg)
-    p_new = _normalize_p(p * S.reshape(nb, 1, md.L, md.M), md, cfg)
-    return Params(eta=eta_new, p=p_new), ll, scale
+
+def _bucketed_fullstep_chain(params: Params, bd: BucketedData,
+                             cfg: EMConfig, want_ll: bool = True):
+    """The bucketed step through the generic kernels, one launch chain a
+    bucket at its own M_b (``_bucketed_fullstep_chain``,
+    multiclust_tpu/model/admixture.py:787-839).  The rows passes run in
+    plan order and thread A through ``a0``: raw (``finish=False``, no c)
+    on every bucket but the last, which adds c and finishes and projects
+    eta once, on the merged A; t is summed over the buckets in float64.
+    Every pass reads the OLD eta.  Each bucket's columns pass and p
+    epilogue then update its p, as the JAX package's consolidated epilogue
+    ``_bucketed_p_epilogue`` (:687-717) does in one XLA pass for the same
+    per-locus function."""
+    eta = params.eta                                  # [B, I, Kp]
+    nb, Kp = eta.shape[0], eta.shape[-1]
+    kw = dict(k_true=cfg.k_true or Kp, project=cfg.do_projection)
+    c = bd.c.to(eta.dtype) if cfg.has_missing else None
+    last = len(bd.buckets) - 1
+    A, per_i = None, None
+    for j, (md_b, p_b) in enumerate(zip(bd.buckets, params.p)):
+        A, t_b = fullstep_rows(
+            eta, p_b.reshape(nb, Kp, -1), md_b.x_lanes,
+            c if j == last else None, A, lb=float(cfg.eta_lower_bound),
+            compute_t=want_ll, finish=j == last, M=md_b.M, **kw)
+        if want_ll:
+            t_b = t_b.to(torch.float64)
+            per_i = t_b if per_i is None else per_i + t_b
+    new_ps = tuple(
+        fullstep_cols(eta, p_b.reshape(nb, Kp, -1), md_b.x_lanes,
+                      md_b.miss if cfg.has_missing else None, md_b.mask,
+                      plb=float(cfg.p_lower_bound), **kw)
+        for md_b, p_b in zip(bd.buckets, params.p))
+    ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
+    return Params(eta=A, p=new_ps), ll, scale
+
+
+def _em_step_constrained_bucketed(params: Params, bd: BucketedData,
+                                  cfg: EMConfig, want_ll: bool = True):
+    """The constrained step on a bucketed (collapsed) panel
+    (``_em_step_constrained_bucketed``,
+    multiclust_tpu/model/admixture.py:842-876): each bucket's a-term and
+    per-lane logL terms at its own M_b, eta updated once."""
+    eta = params.eta
+    a, ts, new_ps = None, [], []
+    for md_b, p_b in zip(bd.buckets, params.p):
+        a_b, t_b, p_new = _constrained_sweep(eta, p_b, md_b, cfg, want_ll)
+        a = a_b if a is None else a + a_b
+        ts.append(t_b)
+        new_ps.append(p_new)
+    ll, scale = (_ll_terms(torch.cat(ts, dim=-1)) if want_ll
+                 else _no_ll(eta))
+    return Params(eta=_constrained_eta(eta, a, cfg), p=tuple(new_ps)), \
+        ll, scale
+
+
+def log_likelihood_bucketed(params: Params, bd: BucketedData,
+                            cfg: EMConfig):
+    """logL on a bucketed panel (``log_likelihood_bucketed``,
+    multiclust_tpu/model/admixture.py:935-948), one bucket at a time in
+    plain torch: no [B, I, L M_max] temporary."""
+    params = split_params_like(params, bd)
+    if cfg.eta_constrained:
+        return _ll_terms(torch.cat([
+            _constrained_terms(params.eta, p_b, md_b)
+            for md_b, p_b in zip(bd.buckets, params.p)], dim=-1))
+    per_i = None
+    for md_b, p_b in zip(bd.buckets, params.p):
+        t = _terms(params.eta, p_b, md_b).to(torch.float64)
+        per_i = t if per_i is None else per_i + t
+    return _ll_terms(per_i)
+
+
+def _constrained_terms(eta: Tensor, p: Tensor, md: ModelData) -> Tensor:
+    """Per-lane logL terms [B, LM] of constrained-eta params."""
+    denom = (eta[:, None, :] @ p.reshape(p.shape[0], p.shape[1], -1))[:, 0]
+    colx = md.x2d.sum(dim=0)
+    return torch.where(colx > 0, colx * safe_log(denom),
+                       torch.zeros_like(denom))
+
+
+def _terms(eta: Tensor, p: Tensor, md: ModelData) -> Tensor:
+    """Per-individual logL terms [B, I] of full-layout params."""
+    denom = eta @ p.reshape(p.shape[0], p.shape[1], -1)
+    x2 = md.x2d
+    return torch.where(x2 > 0, x2 * safe_log(denom),
+                       torch.zeros_like(denom)).sum(dim=-1)
 
 
 def log_likelihood_constrained(params: Params, md: ModelData):
     """logL of constrained-eta params (eta [B, K]) from the column sums;
     ``md`` may be the collapsed data."""
-    eta, p = params.eta, params.p
-    denom = (eta[:, None, :] @ p.reshape(p.shape[0], p.shape[1], -1))[:, 0]
-    colx = md.x2d.sum(dim=0)
-    return _ll_terms(torch.where(colx > 0, colx * safe_log(denom),
-                                 torch.zeros_like(denom)))
+    return _ll_terms(_constrained_terms(params.eta, params.p, md))
 
 
 def log_likelihood(params: Params, md: ModelData):
     """logL of full-layout params (logL_admixture)."""
-    eta, p = params.eta, params.p
-    denom = eta @ p.reshape(p.shape[0], p.shape[1], -1)
-    x2 = md.x2d
-    t = torch.where(x2 > 0, x2 * safe_log(denom), torch.zeros_like(denom))
-    return _ll_terms(t.sum(dim=-1))
+    return _ll_terms(_terms(params.eta, params.p, md))
 
 
 def posterior_allele_mass(params: Params, md: ModelData,

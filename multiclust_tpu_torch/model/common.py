@@ -14,7 +14,7 @@ so which it is follows from the EMConfig (the mixture, or
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,24 +23,41 @@ Tensor = torch.Tensor
 
 
 class Params(NamedTuple):
-    """Model parameters; ``map_params`` treats both fields uniformly."""
+    """Model parameters; ``map_params`` treats every tensor uniformly."""
 
     eta: Tensor  # [..., I, K], or [..., K] (mixture, constrained eta)
-    p: Tensor    # [..., K, L, M] full, or [..., Kp, L] p0 layout
+    # [..., K, L, M] full, [..., Kp, L] p0 layout, or a tuple of per-bucket
+    # [..., K, L_b, M_b] (model/bucketed.py)
+    p: Union[Tensor, Tuple[Tensor, ...]]
 
     @property
     def K(self) -> int:
         return self.eta.shape[-1]
 
 
+def _map_leaves(fn, *xs):
+    if isinstance(xs[0], tuple):
+        return tuple(_map_leaves(fn, *parts) for parts in zip(*xs))
+    return fn(*xs)
+
+
 def map_params(fn, *ps: Params) -> Params:
-    """Apply ``fn`` field by field across one or more Params."""
-    return Params(eta=fn(*(q.eta for q in ps)), p=fn(*(q.p for q in ps)))
+    """Apply ``fn`` tensor by tensor across one or more Params (into each
+    bucket of a bucketed p)."""
+    return Params(eta=fn(*(q.eta for q in ps)),
+                  p=_map_leaves(fn, *(q.p for q in ps)))
+
+
+def param_leaves(params: Params) -> Tuple[Tensor, ...]:
+    """The tensors of ``params``: eta, then p or each bucket's p."""
+    p = params.p
+    return (params.eta,) + (p if isinstance(p, tuple) else (p,))
 
 
 def is_bi_repr(params: Params) -> bool:
     """p0 layout marker: p has as many dims as eta ([.., Kp, L])."""
-    return params.p.ndim == params.eta.ndim
+    return (not isinstance(params.p, tuple)
+            and params.p.ndim == params.eta.ndim)
 
 
 class ModelData(NamedTuple):

@@ -15,7 +15,9 @@ Every function takes a chain batch: eta [B, K], p [B, K, L, M] in the
 full, unpadded layout.  Float32 biallelic fits with the kernels on run
 ``_em_step_bi_kernel`` (ops/mixture_bi.py), which K-pads lp and the bias
 per call; every other fit runs the plain products here, with the eta and
-p finish on the card when the kernels are on (no host read per step).
+p finish on the card when the kernels are on (no host read per step).  A
+jagged panel's bucketed layout (model/bucketed.py) sums the scores over
+its buckets and updates each bucket's p at its own M_b.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from multiclust_tpu_torch.model.admixture import _ll_terms, _no_ll
+from multiclust_tpu_torch.model.bucketed import BucketedData, \
+    split_params_like
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     k_padded_size, safe_log
 from multiclust_tpu_torch.ops.fullstep import fullstep_p
@@ -53,12 +57,23 @@ def _x0(md: ModelData, dtype: torch.dtype) -> Tensor:
     return x0.to(dtype)
 
 
-def scores(params: Params, md: ModelData) -> Tensor:
-    """[B, I, K] per-individual per-cluster log scores, float64."""
-    logp = safe_log(params.p, md.mask).to(F64)       # [B, K, L, M]
+def _allele_scores(p: Tensor, md: ModelData) -> Tensor:
+    """[B, I, K] sum_lm x_ilm log p_klm over md's loci, float64."""
+    logp = safe_log(p, md.mask).to(F64)              # [B, K, L, M]
     nb, K = logp.shape[:2]
-    s = (md.x.reshape(md.I, -1).to(F64)
-         @ logp.reshape(nb, K, -1).transpose(-1, -2))
+    return (md.x.reshape(md.I, -1).to(F64)
+            @ logp.reshape(nb, K, -1).transpose(-1, -2))
+
+
+def scores(params: Params, md: ModelData) -> Tensor:
+    """[B, I, K] per-individual per-cluster log scores, float64; on a
+    bucketed panel summed over the buckets, each cast to float64 at its
+    own M_b."""
+    if isinstance(md, BucketedData):
+        s = sum(_allele_scores(p_b, md_b)
+                for md_b, p_b in zip(md.buckets, params.p))
+    else:
+        s = _allele_scores(params.p, md)
     return s + safe_log(params.eta).to(F64)[:, None, :]
 
 
@@ -86,7 +101,7 @@ def _posterior_and_ll(s: Tensor, dtype: torch.dtype):
 
 def e_step(params: Params, md: ModelData):
     """Posterior v [B, I, K] plus the logL of the input params."""
-    return _posterior_and_ll(scores(params, md), params.p.dtype)
+    return _posterior_and_ll(scores(params, md), params.eta.dtype)
 
 
 def _bi_fast(md: ModelData, cfg: EMConfig) -> bool:
@@ -113,12 +128,14 @@ def _on_card(cfg: EMConfig, t: Tensor) -> bool:
 def log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
     """logL (logL_mixture) without the M-step; the kernel route reads it
     from the rows pass, which never casts the counts to float."""
-    if _kernel_ok(md, cfg, params):
+    if isinstance(md, BucketedData):
+        params = split_params_like(params, md)
+    elif _kernel_ok(md, cfg, params):
         lp0, x0, bias, lp1, x1 = _kernel_inputs(params, md, cfg)
         return _ll_terms(mixture_rows(lp0, x0, bias, lp1, x1)[1])
     s = (_scores_bi(params, md, cfg.ploidy) if _bi_fast(md, cfg)
          else scores(params, md))
-    _, ll, scale = _posterior_and_ll(s, params.p.dtype)
+    _, ll, scale = _posterior_and_ll(s, params.eta.dtype)
     return ll, scale
 
 
@@ -161,11 +178,21 @@ def _finish_eta(v: Tensor, cfg: EMConfig) -> Tensor:
     return eta
 
 
-def m_step(v: Tensor, md: ModelData, cfg: EMConfig) -> Params:
-    """Parameter update given the posteriors (m_step_mixture)."""
+def _counts_p(v: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
+    """p' from the expected counts v^T x over md's loci."""
     nb, _, K = v.shape
     pc = (v.transpose(-1, -2) @ md.x2d).reshape(nb, K, md.L, md.M)
-    return Params(eta=_finish_eta(v, cfg), p=_finish_p(pc, md, cfg))
+    return _finish_p(pc, md, cfg)
+
+
+def m_step(v: Tensor, md: ModelData, cfg: EMConfig) -> Params:
+    """Parameter update given the posteriors (m_step_mixture); on a
+    bucketed panel eta is finished once and p bucket by bucket."""
+    if isinstance(md, BucketedData):
+        p = tuple(_counts_p(v, md_b, cfg) for md_b in md.buckets)
+    else:
+        p = _counts_p(v, md, cfg)
+    return Params(eta=_finish_eta(v, cfg), p=p)
 
 
 def _m_step_bi(v: Tensor, md: ModelData, cfg: EMConfig) -> Params:
@@ -219,8 +246,12 @@ def em_step(params: Params, md: ModelData, cfg: EMConfig,
             want_ll: bool = True) -> Tuple[Params, Tensor, Tensor]:
     """One EM iteration; the logL is that of the INPUT params (em_step,
     em_alg.c:195-207).  ``want_ll=False`` lets the kernel route skip the
-    float64 logL sums (the plain route gets the logL with the posterior)."""
-    if _kernel_ok(md, cfg, params):
+    float64 logL sums (the plain route gets the logL with the posterior).
+    A bucketed panel takes the plain products bucket by bucket
+    (``_em_step_bucketed``, multiclust_tpu/model/mixture.py:276-301)."""
+    if isinstance(md, BucketedData):
+        params = split_params_like(params, md)
+    elif _kernel_ok(md, cfg, params):
         return _em_step_bi_kernel(params, md, cfg, want_ll)
     if _bi_fast(md, cfg):
         v, ll, scale = _posterior_and_ll(_scores_bi(params, md, cfg.ploidy),

@@ -18,7 +18,9 @@ still runs, and backtracking reads one flag per trial.
 
 A replicate lattice (model/common.Lattice) runs through the same machine:
 ``model_em_step`` and ``model_log_likelihood`` step each live replicate's
-lanes on that replicate's counts.
+lanes on that replicate's counts.  So does a jagged panel's bucketed layout
+(model/bucketed.py): every helper below recurses into the tuple of
+per-bucket p, and the model steps dispatch on BucketedData.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ import torch
 
 from multiclust_tpu_torch.config import AccelScheme
 from multiclust_tpu_torch.model import admixture, mixture
+from multiclust_tpu_torch.model.bucketed import BucketedData
 from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
-    ModelData, Params, is_bi_repr, map_params
+    ModelData, Params, is_bi_repr, map_params, param_leaves
 from multiclust_tpu_torch.ops.fullstep_bi import p0_clip_bounds
 from multiclust_tpu_torch.ops.simplex import project_rows
 
@@ -41,13 +44,16 @@ Tensor = torch.Tensor
 # batched helpers (a lane is the leading dimension of every tensor)
 
 def tree_map(fn, *trees):
-    """Apply ``fn`` to every tensor leaf of nested NamedTuples."""
+    """Apply ``fn`` to every tensor leaf of nested NamedTuples and tuples
+    (a bucketed p)."""
     first = trees[0]
     if first is None:
         return None
-    if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*(tree_map(fn, *parts)
-                             for parts in zip(*trees)))
+    if isinstance(first, tuple):
+        parts = (tree_map(fn, *leaves) for leaves in zip(*trees))
+        if hasattr(first, "_fields"):
+            return type(first)(*parts)
+        return tuple(parts)
     return fn(*trees)
 
 
@@ -68,7 +74,8 @@ def tree_sub(a: Params, b: Params) -> Params:
 def tree_vdot(a: Params, b: Params) -> Tensor:
     """Per-lane dot product over every parameter block (step_size sums
     the etaik and pklm blocks together, accel_em.c:140-184)."""
-    return sum((x * y).flatten(1).sum(dim=1) for x, y in zip(a, b))
+    return sum((x * y).flatten(1).sum(dim=1)
+               for x, y in zip(param_leaves(a), param_leaves(b)))
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +132,7 @@ def init_state(params: Params, cfg: EMConfig) -> EMState:
 
 
 def _eps(params: Params) -> float:
-    return torch.finfo(params.p.dtype).eps
+    return torch.finfo(params.eta.dtype).eps
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +174,8 @@ def model_log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
             lambda p: admixture._no_ll(p.eta))
     if not cfg.admixture:
         return mixture.log_likelihood(params, md, cfg)
+    if isinstance(md, BucketedData):
+        return admixture.log_likelihood_bucketed(params, md, cfg)
     if cfg.eta_constrained:
         return admixture.log_likelihood_constrained(params, md)
     if cfg.bi_repr_active and is_bi_repr(params):
@@ -193,8 +202,8 @@ def _converged(cfg: EMConfig, prev: Tensor, ll: Tensor, scale: Tensor,
 
 
 def _params_finite(params: Params) -> Tensor:
-    return (torch.isfinite(params.eta).flatten(1).all(dim=1)
-            & torch.isfinite(params.p).flatten(1).all(dim=1))
+    return torch.stack([torch.isfinite(t).flatten(1).all(dim=1)
+                        for t in param_leaves(params)]).all(dim=0)
 
 
 def _apply_stop(state: EMState, new_params: Params, ll: Tensor,
@@ -399,16 +408,28 @@ def _project_params(params: Params, md: ModelData, cfg: EMConfig
     if not cfg.do_projection:
         return params
     eta = admixture._project_eta_rows(params.eta, cfg)
+    if isinstance(params.p, tuple):
+        # bucketed p: each bucket projected with its own mask
+        # (multiclust_tpu/opt/em.py:396-408)
+        bd = md.reps[0] if isinstance(md, Lattice) else md
+        return Params(eta=eta, p=tuple(
+            _project_p(pb, md_b.mask, cfg)
+            for md_b, pb in zip(bd.buckets, params.p)))
     if cfg.bi_repr_active and is_bi_repr(params):
         # p0 layout: the closed 2-simplex projection of (p0, 1 - p0) is a
         # clip, with the kernel's bounds
         lo, hi = p0_clip_bounds(cfg.p_lower_bound, params.p.dtype)
         return Params(eta=eta, p=torch.clamp(params.p, lo, hi))
-    p = project_rows(params.p, md.mask, cfg.p_lower_bound)
+    return Params(eta=eta, p=_project_p(params.p, md.mask, cfg))
+
+
+def _project_p(p: Tensor, mask: Tensor, cfg: EMConfig) -> Tensor:
+    """Full-layout p projected on ``mask``, K-pad rows kept zero."""
+    p = project_rows(p, mask, cfg.p_lower_bound)
     kv = admixture._k_valid(cfg, p.shape[-3], p.device)
     if kv is not None:
         p = torch.where(kv[:, None, None], p, torch.zeros_like(p))
-    return Params(eta=eta, p=p)
+    return p
 
 
 def qn_point(x0: Params, ring: AccelRing, cfg: EMConfig) -> Params:
@@ -429,11 +450,12 @@ def qn_point(x0: Params, ring: AccelRing, cfg: EMConfig) -> Params:
     def flat(t):
         return t.reshape(nb, q, -1)
 
+    U, V = param_leaves(ring.u), param_leaves(ring.v)
     A = sum(torch.einsum("bqn,brn->bqr", flat(uu), flat(uu))
             - torch.einsum("bqn,brn->bqr", flat(uu), flat(vv))
-            for uu, vv in zip(ring.u, ring.v))
+            for uu, vv in zip(U, V))
     c = sum(torch.einsum("bqn,bn->bq", flat(uu), un.reshape(nb, -1))
-            for uu, un in zip(ring.u, u_new))
+            for uu, un in zip(U, param_leaves(u_new)))
     y, info = torch.linalg.solve_ex(A, c)
     y = torch.where((info != 0)[:, None], torch.full_like(y, float("nan")),
                     y)

@@ -50,6 +50,24 @@ with the adaptive interval twice (the first fit of a process also pays
 the library's load) and then SQUAREM, cap 100.  This mode calls only the
 step's entry point and the plain versions, so a tree whose wrappers take
 other arguments is timed by the same file (copied into its package).
+
+``--jagged`` times the admixture step on a jagged panel instead: the mix of
+bench.py:199-201 (80 % of the loci with 2 alleles, the rest 8,
+interleaved; 16384 x 2048 by default, 1 % missing), made on the card from
+seed 300, at the chain batches ``--chains``: the bucketed step
+(model/bucketed.py, one launch chain a bucket) held to its plain version
+and to the dense step on the same parameters, its median CUDA-event time,
+its kernels' device time summed over the buckets, the dense step through
+the generic kernels at M = 8 and the plain bucketed step.  ``--jagged
+--fit`` runs ``api.fit_model_data`` on that panel, 2 chains from seed 3,
+cap 100: plain EM twice (the first fit of a process also pays the
+library's load) and SQUAREM, bucketed and with the dense layout forced
+(``model.bucketed.worth_bucketing`` patched, as the tests force it), with
+iterations, logL, walls and useful cells/s (I x sum_l M_l a chain
+iteration, as bench.py:199 counts them).  A tree without
+model/bucketed.py (before the port bucketed jagged panels) runs the
+dense step and the fits as it runs them, so the same file times a parent
+tree.
 """
 
 from __future__ import annotations
@@ -500,6 +518,149 @@ def time_mixture_fits(I: int, L: int, dev) -> None:
         + f"; together {sum(dev_ms.values()):.3f}", flush=True)
 
 
+def jagged_panel(seed: int, I: int, L: int, dev, n_alleles=None):
+    """A jagged panel drawn on ``dev`` from ``seed``: by default the mix of
+    bench.py:199-201 (80 % of the loci with 2 alleles, the rest 8,
+    interleaved), else the loci's ``n_alleles``; admixture-model genotypes
+    over each locus's valid slots, 1 % of the copies missing.  Returns the
+    ModelData of a float32 fit (x int8 [I, L, max n_alleles])."""
+    from multiclust_tpu_torch.model.common import make_model_data
+
+    rng = np.random.default_rng(seed)
+    n_all = (np.where(rng.random(L) < 0.8, 2, 8) if n_alleles is None
+             else np.asarray(n_alleles))
+    M = int(n_all.max())
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_dev = torch.as_tensor(n_all, device=dev)
+    mask = torch.arange(M, device=dev)[None] < n_dev[:, None]
+    Q = torch.tensor(rng.dirichlet(np.full(K, 0.5), size=I),
+                     dtype=torch.float32, device=dev)
+    P = torch.tensor(rng.dirichlet(np.full(M, 0.7), size=(K, L)),
+                     dtype=torch.float32, device=dev) * mask
+    P /= P.sum(dim=-1, keepdim=True)
+    x = torch.zeros((I, L, M), dtype=torch.int8, device=dev)
+    miss = torch.empty((I, L), dtype=torch.int8, device=dev)
+    rows = max(1, (1 << 26) // (L * M))
+    for lo in range(0, I, rows):
+        hi = min(I, lo + rows)
+        cum = (Q[lo:hi] @ P.reshape(K, -1)).view(hi - lo, L, M).cumsum(-1)
+        m = (torch.rand((hi - lo, L, 2), generator=gen, device=dev)
+             < 0.01).sum(dim=-1)
+        for a in range(2):
+            u = torch.rand((hi - lo, L, 1), generator=gen, device=dev)
+            allele = torch.minimum((u > cum).sum(dim=-1), n_dev - 1)
+            x[lo:hi].scatter_add_(2, allele[..., None],
+                                  (a < 2 - m)[..., None].to(torch.int8))
+        miss[lo:hi] = m
+    return make_model_data(x, miss, mask, n_dev, dtype=torch.float32,
+                           device=dev, storage_dtype=torch.int8)
+
+
+def _bucketed_module():
+    """model/bucketed.py, or None in a tree without it."""
+    try:
+        from multiclust_tpu_torch.model import bucketed
+    except ImportError:
+        return None
+    return bucketed
+
+
+def time_jagged(I: int, L: int, chains, n: int, dev) -> None:
+    from multiclust_tpu_torch.model import admixture as adm
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+
+    bk = _bucketed_module()
+    md = jagged_panel(300, I, L, dev)
+    useful = I * int(md.n_alleles.sum())
+    bd = bk.bucketize_model_data(md, bk.plan_for(md)) if bk else None
+    print(f"jagged {I} x {L}, K = {K} on {KP} lanes: "
+          + (bd.plan.describe() if bd else "no model/bucketed.py: dense")
+          + f"; {useful} useful cells a chain iteration", flush=True)
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True)
+    for B in chains:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        eta = torch.zeros((B, I, KP), device=dev)
+        eta[..., :K] = torch.rand((B, I, K), generator=gen, device=dev) + 0.05
+        eta /= eta.sum(dim=-1, keepdim=True)
+        p = torch.zeros((B, KP, L, md.M), device=dev)
+        p[:, :K] = (torch.rand((B, K, L, md.M), generator=gen, device=dev)
+                    + 0.05) * md.mask
+        p /= p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+        p2 = p.view(B, KP, -1)
+
+        def dense():
+            return fs.admixture_fullstep(eta, p2, md.x_lanes, md.c, md.miss,
+                                         md.mask, **kw)
+
+        _held(dense(), fs.admixture_fullstep_reference(
+            eta, p2, md.x_lanes, md.c, md.miss, md.mask, **kw))
+        dense_ms = median_ms(dense, n)
+        line = (f" {B} chains: dense step (M = {md.M}) {dense_ms:.3f} ms "
+                f"({useful * B / dense_ms / 1e6:.2f} G useful cells/s)")
+        if bd is not None:
+            cfg = EMConfig(admixture=True, has_missing=True,
+                           use_pallas="on", k_true=K)
+            params = bk.split_params_like(Params(eta, p), bd)
+
+            def step():
+                return adm.em_step(params, bd, cfg)
+
+            got = step()
+            ref = adm.em_step(params, bd, cfg._replace(use_pallas="off"))
+            _held((got[0].eta,) + got[0].p, (ref[0].eta,) + ref[0].p)
+            d_eta, _, d_p = dense()
+            _held((got[0].eta, bk.merge_params_like(got[0], bd).p),
+                  (d_eta, d_p))
+            del ref, d_eta, d_p
+            step_ms = median_ms(step, n)
+            dev_ms = kernel_device_ms(step, n, GENERIC_KERNELS)
+            plain_ms = median_ms(lambda: adm.em_step(
+                params, bd, cfg._replace(use_pallas="off")), max(2, n // 4))
+            line += (f"; bucketed step {step_ms:.3f} ms "
+                     f"({useful * B / step_ms / 1e6:.2f} G useful cells/s, "
+                     f"the dense step takes {dense_ms / step_ms:.2f}x), "
+                     f"plain bucketed {plain_ms:.3f} ms; device time a "
+                     f"step: " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in dev_ms.items()))
+        print(line, flush=True)
+        del eta, p, p2
+        torch.cuda.empty_cache()
+
+
+def time_jagged_fits(I: int, L: int, dev) -> None:
+    import time
+
+    from multiclust_tpu_torch.api import fit_model_data
+
+    bk = _bucketed_module()
+    md = jagged_panel(300, I, L, dev)
+    useful = I * int(md.n_alleles.sum())
+    base = dict(admixture=True, min_K=K, max_K=K, n_init=2, max_iter=100,
+                seed=3, verbosity=0)
+    for label, kw in (("plain EM, first in the process", {}),
+                      ("plain EM", {}), ("SQUAREM", {"accel_scheme": 1})):
+        for layout in ("bucketed", "dense") if bk else ("dense",):
+            real = bk.worth_bucketing if bk else None
+            if layout == "dense" and bk:
+                bk.worth_bucketing = lambda *a, **k: False
+            try:
+                t0 = time.time()
+                res = fit_model_data(md, 2, **base, **kw).estimate.last
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            finally:
+                if bk:
+                    bk.worth_bucketing = real
+            n = res.n_iter_all
+            print(f"jagged fit {I} x {L}, K = {K}, {label}, {layout}: {n} "
+                  f"iterations over the chains, logL {res.max_logL:.4f}, "
+                  f"monotonicity violated: {bool(res.mono_viol)}; "
+                  f"{wall:.3f} s of wall ({useful * n / wall / 1e9:.2f} G "
+                  f"useful cells/s), init + EM {res.seconds:.3f} s "
+                  f"({useful * n / res.seconds / 1e9:.2f} G useful "
+                  f"cells/s)", flush=True)
+
+
 def main(argv=None) -> int:
     global K, KP, SHAPES
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -507,6 +668,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes")
     ap.add_argument("--generic", action="store_true")
     ap.add_argument("--mixture", action="store_true")
+    ap.add_argument("--jagged", action="store_true")
     ap.add_argument("--m", type=int, default=4)
     ap.add_argument("--chains", default="1,2,4")
     ap.add_argument("--reps", type=int, default=20)
@@ -516,7 +678,7 @@ def main(argv=None) -> int:
     if args.shapes:
         SHAPES = tuple(tuple(int(n) for n in s.split("x"))
                        for s in args.shapes.split(","))
-    elif args.generic or args.mixture:
+    elif args.generic or args.mixture or args.jagged:
         SHAPES = ((16384, 2048),)
     if not torch.cuda.is_available():
         print("route_times: no CUDA device", file=sys.stderr)
@@ -529,7 +691,11 @@ def main(argv=None) -> int:
     print(f"K = {K} on {KP} lanes", flush=True)
     for I, L in SHAPES:
         chains = [int(b) for b in args.chains.split(",")]
-        if args.mixture and args.fit:
+        if args.jagged and args.fit:
+            time_jagged_fits(I, L, dev)
+        elif args.jagged:
+            time_jagged(I, L, chains, args.reps, dev)
+        elif args.mixture and args.fit:
             time_mixture_fits(I, L, dev)
         elif args.mixture:
             time_mixture(I, L, chains, args.reps, dev)

@@ -33,7 +33,7 @@ _COUNTER_FIELDS = [
 ]
 # the port's own MaximizeResult fields; a file without them (one the JAX
 # package wrote) loads with their defaults
-_PORT_FIELDS = ["n_iter_all", "route", "batch_chains"]
+_PORT_FIELDS = ["n_iter_all", "route", "batch_chains", "buckets"]
 
 
 def _write(path: str, **arrays) -> str:

@@ -12,7 +12,11 @@ keep their semantics:
 4. revisit count (-u n <times> of the best logL)
 
 The port pads only K, to 32 lanes, for the kernel; the kernel masks ragged
-I and L itself, so no row or loci padding exists here.
+I and L itself, so no row or loci padding exists here.  A jagged panel
+(M > 2, ``model.bucketed.worth_bucketing``) runs its chains on the bucketed
+layout: starts are drawn and Rand-EM scored on the dense data, split by the
+plan before the first step, and merged back to dense original-order p at
+harvest, so outputs and checkpoints see the dense layout.
 """
 
 from __future__ import annotations
@@ -27,11 +31,14 @@ import torch
 from multiclust_tpu_torch.config import AccelScheme, Options
 from multiclust_tpu_torch.model.likelihood import aic as aic_fn, bic as bic_fn
 from multiclust_tpu_torch.init import random as rinit
+from multiclust_tpu_torch.model import bucketed
 from multiclust_tpu_torch.model.admixture import bi_route, \
     posterior_allele_mass
-from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
-    collapse_for_constrained, is_bi_repr, k_padded_size, map_params, \
-    pad_params_k, unpad_params_k
+from multiclust_tpu_torch.model.bucketed import BucketedData, \
+    merge_params_like, split_params_like
+from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
+    ModelData, Params, collapse_for_constrained, is_bi_repr, \
+    k_padded_size, map_params, pad_params_k, unpad_params_k
 from multiclust_tpu_torch.model.mixture import e_step
 from multiclust_tpu_torch.ops.fullstep_bi import scratch_budget
 from multiclust_tpu_torch.opt import em as em_mod
@@ -105,8 +112,21 @@ def _to_bi_repr(params: Params, cfg: EMConfig) -> Params:
                   p=params.p[..., 0].contiguous())
 
 
-def _unpad_k(params: Params, cfg: EMConfig) -> Params:
-    """Back to dense K-sized full-layout params (harvest time only)."""
+def _to_fit_layout(params: Params, md, cfg: EMConfig) -> Params:
+    """Dense K-padded params -> the layout the chains run on ``md``: split
+    by the plan of a bucketed panel (or of a lattice of them), else the
+    p0 layout where it is active."""
+    bd = md.reps[0] if isinstance(md, Lattice) else md
+    if isinstance(bd, BucketedData):
+        return split_params_like(params, bd)
+    return _to_bi_repr(params, cfg)
+
+
+def _unpad_k(params: Params, cfg: EMConfig, md_fit=None) -> Params:
+    """Back to dense K-sized full-layout params in original locus order
+    (harvest time only); bucketed p is merged by ``md_fit``'s plan."""
+    if isinstance(params.p, tuple):
+        params = merge_params_like(params, md_fit)
     if cfg.bi_repr_active and is_bi_repr(params):
         kt = cfg.k_true or params.p.shape[-2]
         p0 = params.p[..., :kt, :]
@@ -123,15 +143,22 @@ MAX_AUTO_CHAINS = 8
 CHAIN_MEMORY_SHARE = 0.5
 
 
-def chain_bytes(md: ModelData, K: int, cfg: EMConfig) -> int:
+def chain_bytes(md: ModelData, K: int, cfg: EMConfig,
+                plan: Optional[bucketed.JaggedPlan] = None) -> int:
     """Bytes one chain holds while it runs: its parameters, about eight
     more tensors of their size (the new iterate, the selects of the state
     machine, a trial point) and the secant ring's 2 q copies, plus the
     step's scratch for one chain (the biallelic route's own count; the
-    generic and mixture steps' partials are of the size of p)."""
+    generic and mixture steps' partials are of the size of p).  A
+    bucketed panel (or ``plan``) counts its tight lanes."""
     itemsize = torch.finfo(md.dtype).bits // 8
     Kp = k_padded_size(K, 32) if cfg.use_pallas != "off" else K
-    lanes = md.L if cfg.bi_repr_active else md.L * md.M
+    if isinstance(md, BucketedData):
+        plan = md.plan
+    if cfg.bi_repr_active:
+        lanes = md.L
+    else:
+        lanes = plan.lanes if plan is not None else md.L * md.M
     n_eta = md.I * Kp if cfg.admixture and not cfg.eta_constrained else Kp
     params = (n_eta + Kp * lanes) * itemsize
     copies = 9 + (2 * cfg.q if cfg.accel_scheme else 0)
@@ -183,9 +210,12 @@ class MaximizeResult:
     arand: float = 0.0
     seconds: float = 0.0
     # how the biallelic admixture step ran (ops/fullstep_bi.Route.describe;
-    # empty for every other step) and the chains run in lockstep
+    # empty for every other step), the chains run in lockstep, and the
+    # bucketing plan of a jagged panel (model/bucketed.JaggedPlan.describe;
+    # empty for the dense layout)
     route: str = ""
     batch_chains: int = 1
+    buckets: str = ""
 
 
 def _host_converged(opt: Options, a: float, b: float) -> bool:
@@ -216,8 +246,9 @@ def _draw_init_batch(gen: torch.Generator, n: int, md: ModelData, K: int,
 
 def _make_state(params_b: Params, md: ModelData, cfg: EMConfig
                 ) -> em_mod.EMState:
-    """Fresh chain states with their warmup/secant prologue."""
-    state = em_mod.init_state(_to_bi_repr(params_b, cfg), cfg)
+    """Fresh chain states, in the layout the chains run on ``md``, with
+    their warmup/secant prologue."""
+    state = em_mod.init_state(_to_fit_layout(params_b, md, cfg), cfg)
     for _ in range(cfg.n_init_iter):
         state = em_mod.plain_step(state, md, cfg)
     if cfg.accel_scheme != int(AccelScheme.NONE):
@@ -327,24 +358,42 @@ def _bookkeep_lane(res: MaximizeResult, opt: Options, n_parameters: int,
     return False
 
 
-def _harvest(state: em_mod.EMState, cfg: EMConfig):
-    """Host copies of the per-lane results and a lane -> params getter."""
+def _harvest(state: em_mod.EMState, cfg: EMConfig, md_fit):
+    """Host copies of the per-lane results and a lane -> params getter
+    (dense params: bucketed p merged by ``md_fit``'s plan)."""
     host = {f: getattr(state, f).cpu().numpy()
             for f in ("logL", "converged", "n_iter", "failed", "mono_viol")}
 
     def get(lane):
-        return _unpad_k(map_params(lambda t: t[lane], state.params), cfg)
+        return _unpad_k(map_params(lambda t: t[lane], state.params), cfg,
+                        md_fit)
     return host, get
 
 
+def _fit_data(md: ModelData, cfg: EMConfig,
+              plan: Optional[bucketed.JaggedPlan]):
+    """(what the chains run on, its dense layout): the collapsed column
+    sums of constrained-eta fits, or ``md``; bucketed by ``plan``
+    (``model.bucketed.plan_for``) after the collapse, as the JAX package's
+    ``_prepare_fit_data`` (multistart.py:713-794) does.  Starts, the hard
+    partition and AIC/BIC use ``md``; Rand-EM scores on the dense
+    layout."""
+    dense = collapse_for_constrained(md) if (
+        cfg.admixture and cfg.eta_constrained) else md
+    if plan is None:
+        return dense, dense
+    return bucketed.bucketize_model_data(dense, plan), dense
+
+
 def _run_continuous(gen, res: MaximizeResult, md: ModelData,
-                    md_fit: ModelData, K: int, cfg: EMConfig, opt: Options,
-                    n_parameters: int, codes, t0: float, segment: int = 16,
-                    on_improve=None, progress=None) -> None:
+                    md_fit: ModelData, md_score: ModelData, K: int,
+                    cfg: EMConfig, opt: Options, n_parameters: int, codes,
+                    t0: float, segment: int = 16, on_improve=None,
+                    progress=None) -> None:
     """Continuous batching: B chains run in lockstep segments; a stopped
     lane is harvested and refilled with a fresh start at once instead of
-    idling until the slowest chain finishes.  Starts are drawn on ``md``,
-    the chains run (and Rand-EM scores) on ``md_fit``."""
+    idling until the slowest chain finishes.  Starts are drawn on ``md``
+    and Rand-EM scored on ``md_score``; the chains run on ``md_fit``."""
     fixed_n = (not opt.target_revisit and not opt.target_ll
                and not opt.n_seconds)
     B = chain_batch(opt, md_fit, K, cfg)
@@ -356,7 +405,7 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
 
     def fresh_states(n):
         pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
-                                     md_fit), cfg)
+                                     md_score), cfg)
         return _make_state(pb, md_fit, cfg)
 
     state = fresh_states(B)
@@ -364,7 +413,7 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
     harvested = np.zeros(B, dtype=bool)
 
     def bookkeep(lanes, timed_out) -> bool:
-        host, get = _harvest(state, cfg)
+        host, get = _harvest(state, cfg, md_fit)
         for lane in lanes:
             harvested[lane] = True
             if _bookkeep_lane(
@@ -436,11 +485,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     res = MaximizeResult(K=K)
     t0 = time.time()
     progress = _make_progress(opt, K, t0, quiet)
-    # constrained-eta fits depend on the data only through its column
-    # sums: they run (and Rand-EM scores) on the collapsed data, while
-    # starts, the hard partition and AIC/BIC use the full data
-    md_fit = collapse_for_constrained(md) if (
-        cfg.admixture and cfg.eta_constrained) else md
+    md_fit, md_score = _fit_data(md, cfg, bucketed.plan_for(md))
 
     if checkpoint_dir:
         from multiclust_tpu_torch.runtime import checkpoint as ckpt
@@ -452,14 +497,16 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
                 _score_arand(res, md, opt, true_partition)
                 return res
 
+    if isinstance(md_fit, BucketedData):
+        res.buckets = md_fit.plan.describe()
     if K == 1:
-        params = _single_init(gen, md, K, cfg, opt, codes, warm, md_fit)
+        params = _single_init(gen, md, K, cfg, opt, codes, warm, md_score)
         state = em_mod.fit_k1(
-            _to_bi_repr(map_params(lambda t: t[None], params), cfg), md_fit,
-            cfg)
+            _to_fit_layout(map_params(lambda t: t[None], params), md_fit,
+                           cfg), md_fit, cfg)
         ll = float(state.logL[0])
         res.best_params = _unpad_k(map_params(lambda t: t[0], state.params),
-                                   cfg)
+                                   cfg, md_fit)
         res.max_logL = res.first_max_logL = ll
         res.aic = aic_fn(ll, n_parameters)
         res.bic = bic_fn(ll, n_parameters, md.I)
@@ -482,8 +529,9 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     # iteration (stop, em_alg.c:123-136): one traced chain a round
     serial = opt.verbosity > 3
     if not serial and warm is None:
-        _run_continuous(gen, res, md, md_fit, K, cfg, opt, n_parameters,
-                        codes, t0, on_improve=on_improve, progress=progress)
+        _run_continuous(gen, res, md, md_fit, md_score, K, cfg, opt,
+                        n_parameters, codes, t0, on_improve=on_improve,
+                        progress=progress)
         checkpoint()
         _score_arand(res, md, opt, true_partition)
         return res
@@ -497,12 +545,12 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     while True:
         if serial:
             states, timed_out = _fit_serial_traced(
-                gen, md, md_fit, K, cfg, opt, codes, warm, t0)
+                gen, md, md_fit, md_score, K, cfg, opt, codes, warm, t0)
         else:
             states, timed_out = fit_batch(warm_b, md_fit, cfg,
                                           n_seconds=opt.n_seconds,
                                           start_time=t0)
-        host, get = _harvest(states, cfg)
+        host, get = _harvest(states, cfg, md_fit)
         done = _bookkeep_lane(
             res, opt, n_parameters, md.I, float(host["logL"][0]),
             bool(host["converged"][0]), int(host["n_iter"][0]),
@@ -536,15 +584,16 @@ def _regimes_satisfied(res: MaximizeResult, opt: Options) -> bool:
     return False
 
 
-def _fit_serial_traced(gen, md, md_fit, K, cfg, opt, codes, warm, t0):
+def _fit_serial_traced(gen, md, md_fit, md_score, K, cfg, opt, codes, warm,
+                       t0):
     """One chain, traced line by line at verbosity > MINIMAL (the trace
     reads the logL, the iteration and the step kind in the one host read
     a step makes); returns (its state, a batch of one, timed_out)."""
     from multiclust_tpu_torch.opt.driver import fit
     from multiclust_tpu_torch.runtime.observe import make_trace_printer
 
-    params = _single_init(gen, md, K, cfg, opt, codes, warm, md_fit)
-    out = fit(_to_bi_repr(params, cfg), md_fit, cfg,
+    params = _single_init(gen, md, K, cfg, opt, codes, warm, md_score)
+    out = fit(_to_fit_layout(params, md_fit, cfg), md_fit, cfg,
               n_seconds=opt.n_seconds, start_time=t0,
               trace=make_trace_printer(opt.verbosity))
     return out.state, out.time_stop

@@ -29,8 +29,12 @@ device, not with libc ``rand()``):
 * a biallelic replicate is drawn straight into its two count planes (P
   Bernoulli comparisons a cell, in windows of loci), never as a one-hot
   [I, L, P, M] tensor;
-* jagged-M replicates fit dense, where the JAX package buckets their loci
-  (ROADMAP item 13), and replicates are not sharded over a mesh (item 17).
+* replicates are not sharded over a mesh (ROADMAP item 17).
+
+The replicates of a jagged panel fit bucketed, as the JAX package's do
+(multiclust_tpu/stats/bootstrap.py:151-168): every replicate shares the
+panel's n_alleles, so one plan buckets them all.  Each dense draw is
+bucketed once, after its starts are drawn on it and before its fits.
 """
 
 from __future__ import annotations
@@ -44,10 +48,12 @@ import numpy as np
 import torch
 
 from multiclust_tpu_torch.init.random import codes_from_counts
+from multiclust_tpu_torch.model import bucketed
 from multiclust_tpu_torch.model.common import Lattice, ModelData, Params, \
-    collapse_for_constrained, column_window, k_padded_size, map_params
+    column_window, k_padded_size, map_params
 from multiclust_tpu_torch.model.admixture import bi_route
 from multiclust_tpu_torch.runtime import checkpoint as ckpt
+from multiclust_tpu_torch.runtime import multistart as ms
 from multiclust_tpu_torch.runtime.multistart import CHAIN_MEMORY_SHARE, \
     _draw_init_batch, _make_state, _pad_k, _segment, cfg_from_options, \
     chain_bytes
@@ -157,12 +163,11 @@ def replicate_starts(seed: int, rep: int, K: int, rep_md: ModelData, cfg,
                                    opt, codes, _fit_data(rep_md, cfg)), cfg)
 
 
-def _fit_data(rep_md: ModelData, cfg) -> ModelData:
+def _fit_data(rep_md: ModelData, cfg,
+              plan: Optional[bucketed.JaggedPlan] = None):
     """What a replicate's chains run on: its collapsed column sums under
-    constrained eta, its counts otherwise."""
-    if cfg.admixture and cfg.eta_constrained:
-        return collapse_for_constrained(rep_md)
-    return rep_md
+    constrained eta, its counts otherwise; bucketed by ``plan``."""
+    return ms._fit_data(rep_md, cfg, plan)[0]
 
 
 def fit_lattice(params: Params, reps, cfg, segment: int = 16):
@@ -208,27 +213,32 @@ def _batched_ts(seed: int, md: ModelData, opt, h0_params: Params,
     B = max(opt.n_init, 1)
     ks = (opt.max_K - 1, opt.max_K)
     cfgs = {K: cfg_from_options(opt, K, md) for K in ks}
+    plan = bucketed.plan_for(md)
     out.chunk = replicate_chunk(
-        md, B, n_reps, max(chain_bytes(md, K, cfgs[K]) for K in ks))
+        md, B, n_reps, max(chain_bytes(md, K, cfgs[K], plan) for K in ks))
     for K in ks:
         if cfgs[K].bi_repr_active:
             out.routes[K] = bi_route(B, md, cfgs[K],
                                      k_padded_size(K, 32)).describe()
-    # jagged-M replicates fit dense here, where the JAX package buckets
-    # their loci by the panel's shared plan (ROADMAP queue 1, item 13)
     ts = list(done)
     for lo in range(len(ts), n_reps, out.chunk):
-        idx = range(lo, min(n_reps, lo + out.chunk))
-        reps = [draw_replicate(seed, r, md, h0_params, ploidy, opt.admixture)
-                for r in idx]
+        starts = {K: [] for K in ks}
+        fit_reps = []
+        for r in range(lo, min(n_reps, lo + out.chunk)):
+            rep = draw_replicate(seed, r, md, h0_params, ploidy,
+                                 opt.admixture)
+            for K in ks:
+                starts[K].append(replicate_starts(seed, r, K, rep, cfgs[K],
+                                                  opt, ploidy))
+            # the fit data depend on the model type, not on K
+            fit_reps.append(_fit_data(rep, cfgs[ks[0]], plan))
+            del rep
         maxll = {}
         for K in ks:
-            cfg = cfgs[K]
-            starts = [replicate_starts(seed, r, K, rep, cfg, opt, ploidy)
-                      for r, rep in zip(idx, reps)]
-            state = fit_lattice(map_params(lambda *t: torch.cat(t), *starts),
-                                [_fit_data(rep, cfg) for rep in reps], cfg)
-            lls = state.logL.cpu().numpy().reshape(len(reps), B)
+            state = fit_lattice(
+                map_params(lambda *t: torch.cat(t), *starts[K]), fit_reps,
+                cfgs[K])
+            lls = state.logL.cpu().numpy().reshape(len(fit_reps), B)
             maxll[K] = np.where(np.isfinite(lls), lls, -np.inf).max(axis=1)
             out.chain_iterations += int(state.n_iter.sum())
         new = (maxll[ks[1]] - maxll[ks[0]]).tolist()

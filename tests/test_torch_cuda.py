@@ -1008,3 +1008,143 @@ def test_bootstrap_api_run_at_4096_x_2048(admixture):
     assert len(ts) == 4 and np.isfinite(ts).all() and boot.chunk == 4
     assert boot.pvalue == (ts >= out.estimate.ts).sum() / 4
     assert _route_launches(admixture) > 0, build.LAUNCHES
+
+
+def _jagged_panel(dev, I=16384, B=2, K=20, Kp=32, miss_rate=0.01, seed=7):
+    """A jagged panel made on the card from a seed, and its bucketing:
+    interleaved loci with 2, 3, 4 and 8 alleles (200, 64, 80 and 100 of
+    them), so the plan has a 64-locus bucket at M_b = 3, one at M_b = 4
+    and counts drawn uniformly on each locus's slots; K-padded float32
+    parameters of B chains on its buckets, and the EMConfig of a float32
+    fit with the kernels on."""
+    from multiclust_tpu_torch.model import bucketed as bk
+    from multiclust_tpu_torch.model.common import EMConfig, Params, \
+        make_model_data
+
+    rng = np.random.default_rng(seed)
+    n_all = rng.permutation(np.repeat([2, 3, 4, 8], [200, 64, 80, 100]))
+    L, M = n_all.size, 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_dev = torch.as_tensor(n_all, device=dev)
+    mask = torch.arange(M, device=dev)[None] < n_dev[:, None]
+    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
+            < miss_rate).sum(dim=-1).to(torch.int8)
+    counts = torch.zeros((I, L, M), dtype=torch.int8, device=dev)
+    for a in range(2):
+        allele = (torch.rand((I, L), generator=gen, device=dev)
+                  * n_dev).long()
+        counts.scatter_add_(2, allele[..., None],
+                            (a < 2 - miss)[..., None].to(torch.int8))
+    md = make_model_data(counts, miss, mask, n_dev, dtype=torch.float32,
+                         device=dev, storage_dtype=torch.int8)
+    plan = bk.plan_for(md)
+    assert plan.Ms == (2, 3, 4, 8) and plan.Ls == (200, 64, 80, 100)
+    bd = bk.bucketize_model_data(md, plan)
+    eta = torch.zeros((B, I, Kp), device=dev)
+    eta[..., :K] = torch.rand((B, I, K), generator=gen, device=dev) + 0.05
+    eta /= eta.sum(dim=-1, keepdim=True)
+    p = torch.zeros((B, Kp, L, M), device=dev)
+    p[:, :K] = (torch.rand((B, K, L, M), generator=gen, device=dev)
+                + 0.05) * mask
+    p /= p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    cfg = EMConfig(admixture=True, has_missing=True, use_pallas="on",
+                   k_true=K)
+    return md, bd, bk.split_params_like(Params(eta, p), bd), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_ll", [True, False])
+def test_bucketed_step_matches_plain(want_ll):
+    """The bucketed admixture step through the generic kernels at I =
+    16384 (one launch chain a bucket, a 64-locus bucket at M_b = 3 among
+    them) against its plain version on the same tensors, with no host
+    read, and against the dense step on the same parameters; reruns are
+    bit-equal."""
+    from multiclust_tpu_torch.model import admixture as adm, \
+        bucketed as bk
+
+    dev = _cuda()
+    md, bd, params, cfg = _jagged_panel(dev)
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = adm.em_step(params, bd, cfg, want_ll)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name in GENERIC_KERNELS:
+        assert build.LAUNCHES[name] == len(bd.buckets), build.LAUNCHES
+    ref = adm.em_step(params, bd, cfg._replace(use_pallas="off"), want_ll)
+    for g, r in zip(got[0].p, ref[0].p):
+        torch.testing.assert_close(g, r, **F32)
+    torch.testing.assert_close(got[0].eta, ref[0].eta, **F32)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=0)
+    dense = adm.em_step(bk.merge_params_like(params, bd), md, cfg, want_ll)
+    torch.testing.assert_close(bk.merge_params_like(got[0], bd).p,
+                               dense[0].p, **F32)
+    torch.testing.assert_close(got[0].eta, dense[0].eta, **F32)
+    again = adm.em_step(params, bd, cfg, want_ll)
+    assert torch.equal(got[0].eta, again[0].eta)
+    assert all(torch.equal(g, a) for g, a in zip(got[0].p, again[0].p))
+    assert torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_bucketed_mixture_step_matches_plain():
+    """The bucketed mixture step, its eta finish (mc_mix_eta) and each
+    bucket's p epilogue (mc_fullstep_p at M_b) on the card, against the
+    plain finish on the same tensors."""
+    from multiclust_tpu_torch.model import mixture as mix
+    from multiclust_tpu_torch.model.common import Params
+
+    dev = _cuda()
+    _, bd, params, cfg = _jagged_panel(dev, I=4096, B=2)
+    K = cfg.k_true
+    eta = torch.rand((2, K), device=dev) + 0.1
+    params = Params(eta / eta.sum(dim=-1, keepdim=True),
+                    tuple(p[:, :K].contiguous() for p in params.p))
+    cfg = cfg._replace(admixture=False, k_true=0)
+    build.reset_launch_counts()
+    got = mix.em_step(params, bd, cfg)
+    assert build.LAUNCHES["mc_mix_eta"] == 1
+    assert build.LAUNCHES["mc_fullstep_p"] == len(bd.buckets)
+    ref = mix.em_step(params, bd, cfg._replace(use_pallas="off"))
+    torch.testing.assert_close(got[0].eta, ref[0].eta, **F32)
+    for g, r in zip(got[0].p, ref[0].p):
+        torch.testing.assert_close(g, r, **F32)
+    assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,kw", [
+    ("QN", dict(admixture=True, accel_scheme=4, q=2)),
+    ("-a -c", dict(admixture=True, eta_constrained=True)),
+    ("mixture, SQUAREM", dict(admixture=False, accel_scheme=1)),
+    ("K-sweep", dict(admixture=True, min_K=2)),
+])
+def test_bucketed_api_fits_on_the_card(tmp_path, label, kw):
+    """api.fit_model_data on a jagged panel on the card fits bucketed by
+    default, returns dense p with exact zeros off the mask, and a run
+    resumed from its checkpoint returns the same parameters without a
+    launch."""
+    from multiclust_tpu_torch.api import fit_model_data
+
+    dev = _cuda()
+    md, bd, _, _ = _jagged_panel(dev, I=2048)
+    opts = {**dict(min_K=3, max_K=3, n_init=2, max_iter=60, seed=4,
+                   verbosity=0, checkpoint_dir=str(tmp_path)), **kw}
+    out = fit_model_data(md, 2, **opts)
+    for res in out.estimate.per_K.values():
+        assert res.buckets == bd.plan.describe(), res.buckets
+        eta, p = res.best_params
+        assert np.isfinite(res.max_logL) and not res.any_failed
+        assert p.shape == (res.K, md.L, md.M) and p.is_cuda
+        assert (p[:, ~md.mask] == 0).all()
+        torch.testing.assert_close(p.sum(dim=-1), torch.ones_like(p[..., 0]),
+                                   rtol=0, atol=1e-5)
+    build.reset_launch_counts()
+    again = fit_model_data(md, 2, **opts)
+    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    for K, res in again.estimate.per_K.items():
+        assert torch.equal(res.best_params.p,
+                           out.estimate.per_K[K].best_params.p)

@@ -56,6 +56,7 @@ def test_port_runs_without_the_jax_package(tmp_path):
     mods = _port_modules()
     assert "multiclust_tpu_torch.io.structure" in mods
     assert "multiclust_tpu_torch.stats.sim" in mods
+    assert "multiclust_tpu_torch.model.bucketed" in mods
     code = textwrap.dedent(f"""
         import importlib, os, sys
         import numpy as np
@@ -79,6 +80,18 @@ def test_port_runs_without_the_jax_package(tmp_path):
                           n_init=2, max_iter=20, dtype="float64", verbosity=0,
                           write_files=False)
         assert np.isfinite(out.best.max_logL)
+        # a jagged panel (80 % of the loci with 2 alleles, the rest 8)
+        # fits bucketed
+        from multiclust_tpu_torch.convert import dataset_from_counts
+        n_all = np.where(rng.random(100) < 0.8, 2, 8)
+        counts = np.stack([rng.multinomial(2, (np.arange(8) < n) / n)
+                           for _ in range(30) for n in n_all])
+        jag = fit_dataset(dataset_from_counts(
+            counts.reshape(30, 100, 8), np.zeros((30, 100), int), 2,
+            n_alleles=n_all), device="cpu", admixture=True, min_K=2,
+            max_K=2, n_init=1, max_iter=20, dtype="float64", verbosity=0,
+            write_files=False)
+        assert jag.best.buckets.startswith("2 buckets")
         path = os.path.join({str(tmp_path)!r}, "sim.str")
         write_data(Options(path={str(tmp_path)!r}), ds, path)
         assert main(["-f", path, "-a", "-k", "2", "-n", "2", "-T", "20",
