@@ -14,7 +14,12 @@ each raising on failure:
    each pass of the pair alone at chain batches 2 and 32 (the batch at
    which the router gives this panel to the pair); the streamed step as
    the router splits this panel for chain batches 1, 2 and 4 (its column
-   segments and row segments), each of its kernels against plain;
+   segments and row segments), each of its kernels against plain, the p0
+   epilogue also alone on partials of the route's row segments; the raw
+   sums of the finish and of the epilogue bit-equal to the partials added
+   in segment order, and so the t of the t-only finish (SQUAREM's logL
+   terms); the two reductions' times with their bounds, the live lanes
+   they read and every tensor once;
 4. fit: ``api.fit_dataset`` on a simulated 16384 x 2048, K=20 biallelic
    panel: 2 chains (plain EM with the adaptive interval, then SQUAREM),
    which the router sends down the streamed route, then 32 chains in
@@ -24,7 +29,9 @@ each raising on failure:
 5. CLI: ``multiclust_tpu_torch.cli.main`` on a 1024 x 1000, K=3 STRUCTURE
    file with 5 % missing;
 6. generic kernels: the multi-allelic rows pass, columns pass and p
-   epilogue against their plain versions at I=16384, L=2048, M=4, K=20,
+   epilogue (its raw B bit-equal to the partials added in segment order,
+   its bound both ways) against their plain versions at I=16384, L=2048,
+   M=4, K=20,
    chain batches 1, 2 and 4 with the segments the wrappers pick, missing
    0 % and 2 %, logL terms on and off; a jagged panel (80 % M=2, 20 % M=8
    loci, dense at M=8); each pass alone beside a yardstick the port never
@@ -60,12 +67,13 @@ each raising on failure:
    the biallelic step (the pair, the streamed step with its segmented rows
    pass and finish kernel, the chunked loop over column windows) against
    the plain version, which works in column windows; logL terms on and
-   off, emit_a / emit_b once; each pass alone; the rows passes again at
+   off, emit_a / emit_b once; each pass alone, the p0 epilogue on
+   partials of the route's row segments; the rows passes again at
    2048 x 524288; then the two redesigned kernels at Kp = 64 and 128, on
    an unaligned panel (1000 x 1003) and on a window with an odd start,
    each against its plain version and rerun bit-equal, the compiler's
-   register / shared-memory / spill report of them and their share of
-   the bound;
+   register / shared-memory / spill report of them, of the rows finish
+   and of the generic p epilogue, and their share of the bound;
 13. biobank fits: ``api.fit_model_data`` on that panel, 2 chains, plain EM
    with the adaptive interval and then SQUAREM, iteration cap 50, and one
    plain-EM fit at 2048 x 524288, which the router sends down the chunked
@@ -108,11 +116,15 @@ take for the same work, the larger of the bytes the call must move (its
 input and output tensors, each once) over 3.35 TB/s and its operations
 over 67 TFLOP/s (IEEE float32 outside the tensor cores for the admixture
 kernels, float64 on the tensor cores for the mixture rows and columns
-passes: the same rate).  ``library_ms`` of the mixture rows and columns
-passes is one float64 torch.matmul of the pass's product (the softmax
-left out), the port's plain arithmetic in one library call; no single
-PyTorch call computes the other functions (phase 6 prints two float32
-matmuls a generic pass beside them), so theirs is null.
+passes: the same rate).  The segment reductions (the finish, the p0
+epilogue, the generic p epilogue) must read only the live lanes of their
+partials (the lane tile of K): their ``bound_ms`` counts those bytes, and
+``bound_every_tensor_ms`` every tensor of the call once beside it.
+``library_ms`` of the mixture rows and columns passes is one float64
+torch.matmul of the pass's product (the softmax left out), the port's
+plain arithmetic in one library call; no single PyTorch call computes the
+other functions (phase 6 prints two float32 matmuls a generic pass beside
+them), so theirs is null.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -156,8 +168,13 @@ I_NARROW, L_NARROW = 2048, 524288    # the same cells, four times as wide
 BOOT_REPS = 16                       # bootstrap replicates (-b)
 STREAM_TPU = "multiclust_tpu/ops/kernels.py:1007"
 CHUNK_TPU = "multiclust_tpu/ops/kernels.py:829"
+# the columns pass's launcher also runs the p0 epilogue, once a call
 STREAM_KERNELS = ("mc_fullstep_bi_rows_seg", "mc_fullstep_bi_finish",
                   "mc_fullstep_bi_cols")
+# the TPU kernels the finish and the p0 epilogue take the place of: the
+# last steps of the streamed step's two passes
+FINISH_TPU = "multiclust_tpu/ops/kernels.py:887"
+P0_TPU = "multiclust_tpu/ops/kernels.py:944"
 # the card's published peaks: device memory, and float32 outside the
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -232,10 +249,16 @@ def bound(n_bytes: float, n_flop: float):
 
 def kernel_record(name, source, replaces, launches, err, ms, bnd,
                   library_ms=None):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms[0], "plain_ms": ms[1], "bound_ms": bnd[0],
-            "bound_by": bnd[1], "library_ms": library_ms}
+    """A record of the kernels line; ``bnd`` (bound_ms, bound_by) or, for
+    a segment reduction, (bound_ms from the live lanes it reads,
+    bound_by, the bound of every tensor of the call once)."""
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": ms[0], "plain_ms": ms[1], "bound_ms": bnd[0],
+           "bound_by": bnd[1], "library_ms": library_ms}
+    if len(bnd) > 2:
+        rec["bound_every_tensor_ms"] = bnd[2]
+    return rec
 
 
 def phase_kernels(fb, dev, where):
@@ -311,13 +334,73 @@ def phase_kernels(fb, dev, where):
     return errs, ms, bnd
 
 
+def segment_partials(gen, B, n_seg, Kp, W, kc, dev):
+    """Columns-pass partials [B, n_seg, 2, Kp, W] drawn on the card, NaN on
+    the lanes past kc, which the columns pass leaves unwritten and the p0
+    epilogue must not read."""
+    part = torch.rand((B, n_seg, 2, Kp, W), generator=gen, device=dev) * 64
+    part[:, :, :, kc:] = float("nan")
+    return part
+
+
+def check_p0_epilogue(fb, p0, part, K):
+    """The p0 epilogue alone on ``part`` over all of p0's columns against
+    its plain version: raw B0/B1 bit-equal to the partials summed in
+    segment order, p0' within the float32 tolerance.  Returns the largest
+    error, and the kernel and its plain version as calls that return
+    (p0',)."""
+    win = dict(l_lo=0, l_hi=p0.shape[-1], k_true=K, plb=1e-8, project=True)
+    raw = (torch.empty_like(p0), torch.empty_like(p0))
+    raw_ref = (torch.empty_like(p0), torch.empty_like(p0))
+    fb.p0_epilogue(p0, part, raw, **win)
+    fb.p0_epilogue_reference(p0, part, raw_ref, **win)
+    out, out_ref = torch.empty_like(p0), torch.empty_like(p0)
+
+    def kernel():
+        fb.p0_epilogue(p0, part, (out,), **win)
+        return (out,)
+
+    def plain():
+        fb.p0_epilogue_reference(p0, part, (out_ref,), **win)
+        return (out_ref,)
+
+    kernel(), plain()
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(raw, raw_ref))
+    assert (out[:, K:] == 0).all()
+    return max_err(out, out_ref), kernel, plain
+
+
+def reduction_bytes(fb, B, I, L, Kp, K, n_cseg, n_rseg):
+    """(finish, p0 epilogue) bytes, each as (every tensor of the call once,
+    only the live lanes it reads): route_times's byte counts."""
+    from multiclust_tpu_torch.route_times import finish_bytes, p0_bytes
+
+    kc = fb.lane_tile(K, Kp).kc
+    return (finish_bytes(B, I, Kp, n_cseg, kc),
+            p0_bytes(B, Kp, L, n_rseg, kc))
+
+
+def share_line(name, t_ms, n_bytes):
+    """A reduction's time beside its bound (the live lanes it must read)
+    and beside every tensor of the call once, both over 3.35 TB/s."""
+    every, live = (n / HBM_BYTES_PER_S * 1e3 for n in n_bytes)
+    return (f"{name} {t_ms:.4f} ms, bound {live:.4f} ms "
+            f"({100 * live / t_ms:.1f} %; the live lanes), every tensor "
+            f"once {every:.4f} ms ({100 * every / t_ms:.1f} %)")
+
+
 def phase_routed_kernels(fb, dev, where):
     """The streamed step as the router splits the 16384 x 2048 panel for
     chain batches 1, 2 and 4 (the fits' route there): the segmented rows
     pass, its finish and the windowed columns pass, with the route's own
-    column segments and row segments, each against its plain version.
-    Returns the largest error of each kernel."""
+    column segments and row segments, each against its plain version; the
+    t-only finish bit-equal to the ordered t; the p0 epilogue alone on
+    partials of the route's row segments.  The
+    finish's and the epilogue's times on CUDA events, with their bounds
+    both ways.  Returns the largest error of each kernel."""
     rng = np.random.default_rng(6)
+    gen = torch.Generator(device=dev).manual_seed(6)
     K, Kp = K_FULL, 32
     n_sm = fb.device_sm_count(dev)
     win = dict(l_lo=0, l_hi=L_FULL)
@@ -352,17 +435,37 @@ def phase_routed_kernels(fb, dev, where):
         e_fin = max(max_err_cast(g, r) for g, r in zip(got, ref))
         e_cols = max_err(out, out_ref)
         assert (got[0][..., K:] == 0).all() and (out[:, K:] == 0).all()
+        # the raw sums of the finish, bit-equal to the ordered ones
+        raw, t_raw = fb.rows_finish(e, apart, tpart, c, emit_a=True, **fin)
+        assert torch.equal(raw, fb.ordered_segment_sum(apart))
+        t_want = fb.ordered_segment_sum(tpart, dtype=torch.float64)
+        assert torch.equal(t_raw, t_want)
+        # the t-only kernel (SQUAREM's logL terms) on the route's segments
+        none, t_only = fb.rows_finish(e, None, tpart, c, **fin)
+        assert none is None and torch.equal(t_only, t_want)
+        n_rseg = route.n_rseg
+        part = segment_partials(gen, B, n_rseg, Kp, L_FULL,
+                                fb.lane_tile(K, Kp).kc, dev)
+        e_p0, p0_once, _ = check_p0_epilogue(fb, p, part, K)
         for key, err in (("rows_seg", e_rows), ("finish", e_fin),
-                         ("cols_window", e_cols)):
+                         ("cols_window", e_cols), ("p0_epilogue", e_p0)):
             errs[key] = max(errs.get(key, 0.0), err)
+        fin_ms = median_ms(lambda: fb.rows_finish(e, apart, tpart, c, **fin))
+        p0_ms = median_ms(p0_once)
+        fin_bnd, p0_bnd = reduction_bytes(fb, B, I_FULL, L_FULL, Kp, K,
+                                          apart.shape[1], n_rseg)
         print(f"routed step {I_FULL} x {L_FULL} B={B}, "
               f"{route.describe()}: max|d| raw A + r, t {e_rows:.3e}, "
-              f"eta', t {e_fin:.3e}, p0' {e_cols:.3e} (rtol {RTOL}, atol "
-              f"{ATOL}); rows pass {median_ms(rows):.3f} ms, finish "
-              f"{median_ms(lambda: fb.rows_finish(e, apart, tpart, c, **fin)):.3f}"
-              f" ms, columns pass "
+              f"eta', t {e_fin:.3e}, p0' {e_cols:.3e}, p0' of the "
+              f"epilogue alone {e_p0:.3e} (rtol {RTOL}, atol {ATOL}; the "
+              f"raw sums of the finish and the epilogue bit-equal to the "
+              f"ordered ones); rows pass {median_ms(rows):.3f} ms, columns "
+              f"pass "
               f"{median_ms(lambda: cols(fb.cols_window, (out,), k_true=K, n_rseg=route.n_rseg)):.3f}"
-              f" ms on {where}", flush=True)
+              f" ms; {share_line('finish', fin_ms, fin_bnd)}; "
+              f"{share_line('p0 epilogue', p0_ms, p0_bnd)} on {where}",
+              flush=True)
+        del part
     return errs
 
 
@@ -651,7 +754,7 @@ def phase_generic_kernels(fs, build, dev, where):
     flop = {"rows": (4 * K + 5) * lanes, "cols": (4 * K + 3) * lanes,
             "p": 10 * p2.numel()}
     inputs = {"rows": (e, p2, x2, c), "cols": (e, p2, x2, m),
-              "p": (p2, part[:, :1], mask)}
+              "p": (p2, part, mask)}
     ms, bnd = {}, {}
     for name, (kernel, plain) in passes.items():
         got, ref = kernel(), plain()
@@ -664,6 +767,24 @@ def phase_generic_kernels(fs, build, dev, where):
               f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
               f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
+    # the p epilogue's raw B bit-equal to the partials added in segment
+    # order; its bound from the live lanes it reads (the record's), and
+    # every tensor once beside it
+    from multiclust_tpu_torch.ops.fullstep_bi import lane_tile, \
+        ordered_segment_sum
+    from multiclust_tpu_torch.route_times import p_bytes
+
+    raw = fs.fullstep_p(p2, part, mask, M=M_FULL, k_true=K, finish=False)
+    torch.cuda.synchronize()
+    assert torch.equal(raw, ordered_segment_sum(part))
+    p_bnd = p_bytes(2, Kp, L_FULL * M_FULL, part.shape[1],
+                    lane_tile(K, Kp).kc)
+    bnd["p"] = bound(p_bnd[1], flop["p"]) + (bound(p_bnd[0], flop["p"])[0],)
+    print(f"generic p epilogue B=2 ({part.shape[1]} row segments; raw B "
+          f"bit-equal to the ordered sum): "
+          f"{share_line('kernel', ms['p'][0], p_bnd)} on {where}",
+          flush=True)
+    del raw
 
     # the yardstick the port never calls: each pass's two products alone,
     # float32 torch.matmul (TF32 off) on K-wide operands
@@ -1236,6 +1357,14 @@ def phase_biobank_kernels(fb, dev, where):
         fn(eta, p0, x0, x1, miss, o, plb=1e-8, project=True, **win, **kw)
         return o
 
+    # the p0 epilogue alone on partials of the fits' row segments
+    route = fb.pick_route(2, I_BIO, L_BIO, Kp, n_sm, fb.scratch_budget(dev),
+                          K)
+    gen = torch.Generator(device=dev).manual_seed(94)
+    part = segment_partials(gen, 2, route.n_rseg, Kp, L_BIO,
+                            fb.lane_tile(K, Kp).kc, dev)
+    e_p0, p0_kernel, p0_plain = check_p0_epilogue(fb, p0, part, K)
+    errs["p0_epilogue"] = e_p0
     passes = {
         # the partials, compared summed over segments
         "rows_seg": (lambda: tuple(t.sum(dim=1) for t in fb.rows_partials(
@@ -1252,17 +1381,23 @@ def phase_biobank_kernels(fb, dev, where):
         "chunked": (lambda: routes["chunked"](),
                     lambda: fb.admixture_fullstep_biallelic_chunked_reference(
                         eta, p0, x0, x1, c, miss, window=L_BIO // 4, **kw)),
+        "p0_epilogue": (p0_kernel, p0_plain),
     }
     # operations as the pair's: d0 and A (rows), d0, B0 and B1 (columns),
     # 2 a multiply-add per cell and cluster, plus the elementwise terms;
-    # the finish ~10 a partial entry
+    # the finish ~10 a live partial entry
     cells = 2 * I_BIO * L_BIO
-    flop = {"rows_seg": (4 * K + 10) * cells, "finish": 10 * apart.numel(),
+    kc = fb.lane_tile(K, Kp).kc
+    # the epilogue one add a live partial entry and ~6 an output
+    flop = {"rows_seg": (4 * K + 10) * cells,
+            "finish": 10 * apart.numel() // Kp * kc,
             "cols_window": (6 * K + 6) * cells,
-            "chunked": (10 * K + 16) * cells}
+            "chunked": (10 * K + 16) * cells,
+            "p0_epilogue": part.numel() // Kp * kc + 6 * p0.numel()}
     inputs = {"rows_seg": (eta, p0, x0, x1), "finish": (eta, apart, tpart, c),
               "cols_window": (eta, p0, x0, x1, miss),
-              "chunked": (eta, p0, x0, x1, c, miss)}
+              "chunked": (eta, p0, x0, x1, c, miss),
+              "p0_epilogue": (p0, part)}
     ms, bnd = {}, {}
     for name, (kernel, plain) in passes.items():
         got, ref = kernel(), plain()
@@ -1277,12 +1412,28 @@ def phase_biobank_kernels(fb, dev, where):
               f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
               f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
               flush=True)
+    # the reductions' records take their bound from the live lanes they
+    # read, every tensor once beside it
+    fin_bnd, p0_bnd = reduction_bytes(fb, 2, I_BIO, L_BIO, Kp, K,
+                                      apart.shape[1], route.n_rseg)
+    for name, b in (("finish", fin_bnd), ("p0_epilogue", p0_bnd)):
+        bnd[name] = bound(b[1], flop[name]) + (bound(b[0], flop[name])[0],)
+    # the t-only kernel (the logL terms) on the fits' column segments
+    none, t_only = fb.rows_finish(eta, None, tpart, c, k_true=K, lb=1e-8,
+                                  project_eta=True)
+    assert none is None and torch.equal(t_only, fb.ordered_segment_sum(
+        tpart, dtype=torch.float64))
+    del t_only
+    print(f"biobank reductions B=2: "
+          f"{share_line('finish', ms['finish'][0], fin_bnd)}; "
+          f"{share_line('p0 epilogue', ms['p0_epilogue'][0], p0_bnd)} on "
+          f"{where}", flush=True)
     t_ms = median_ms(lambda: fb.rows_log_likelihood_terms(
         eta, p0, x0, x1, k_true=K), **quick)
     print(f"biobank logL terms alone (rows pass, A phase skipped) B=2: "
           f"{t_ms:.3f} ms on {where}", flush=True)
     del planes, miss, x0, x1, c, eta, p0, apart, tpart, outs, outs_ref, \
-        routes, passes
+        routes, passes, part, p0_kernel, p0_plain
     torch.cuda.empty_cache()
 
     # the rows passes where the panel is short: 2048 x 524288
@@ -1377,7 +1528,8 @@ def phase_redesign_shapes(fb, build, dev, where):
               flush=True)
     report = build.library_path().with_suffix(".ptxas.txt").read_text()
     for name, text in ptxas_lines(
-            report, "fullstep_bi_(?:rows|rows_seg|cols)_"):
+            report, "fullstep_bi_(?:rows|rows_seg|cols)_|rows_finish"
+            "|fullstep_p_kernel"):
         print(f"ptxas {name}: {text}", flush=True)
         assert " 0 bytes spill stores, 0 bytes spill loads" in text, name
 
@@ -2030,8 +2182,16 @@ def main() -> int:
                       bio_launches[launcher], b_errs[name], b_ms[name],
                       b_bnd[name])
         for name, launcher in (("rows_seg", "mc_fullstep_bi_rows_seg"),
-                               ("finish", "mc_fullstep_bi_finish"),
                                ("cols_window", "mc_fullstep_bi_cols"))]
+    # the two segment reductions, each with the TPU pass step it replaces
+    kernels += [
+        kernel_record(f"fullstep_bi_{name}", SOURCE, tpu,
+                      bio_launches[launcher], b_errs[name], b_ms[name],
+                      b_bnd[name])
+        for name, launcher, tpu in (
+            ("finish", "mc_fullstep_bi_finish", FINISH_TPU),
+            # the columns launcher runs the epilogue once a call
+            ("p0_epilogue", "mc_fullstep_bi_cols", P0_TPU))]
     kernels.append(
         kernel_record("fullstep_bi_chunked", SOURCE, CHUNK_TPU,
                       bio_launches["fullstep_bi_chunked"], b_errs["chunked"],

@@ -354,47 +354,106 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 3 : 2)
       if (cc < ncol) out[(size_t)k * LM + cc] = 0.f;
 }
 
-// p epilogue: one aligned group of G lanes per (chain, k, locus); lane g
-// owns the allele slots m = g + G j.  B = the segments' partials summed
-// in segment order (deterministic).
+// p epilogue: one aligned group of G lanes per (chain, k, locus) of the
+// live lanes k < kl; lane g owns the allele slots m = g + G j.  B = the
+// segments' partials summed in segment order (deterministic), then p' as
+// in the header, or raw B under `finish` = 0.
+//
+// Bound by device memory: each partial is read once for one add.  A
+// thread streams its slots' partials through its own cp.async ring in
+// shared memory, P_RING floats (P_RING / MJ segments, at least one, in
+// flight), and adds each segment as it lands; no thread reads another's
+// copies, so the ring needs no barrier.  Rows k >= kl (the lanes past the
+// lane tile of k_true, which the columns pass writes 0) are not read:
+// their threads do not exist, and the live rows' threads write them 0,
+// the value p' and B take there.  The free-slot set is one bit a slot,
+// so no array of the group's Michelot leaves registers (MJ <= 32).
+constexpr int P_RING = 16;   // floats of a thread's ring
+
+__host__ __device__ constexpr int p_depth(int MJ) {
+  return MJ >= P_RING ? 1 : P_RING / MJ;
+}
+
 template <int G, int MJ>
 __global__ void __launch_bounds__(NT) fullstep_p_kernel(
     const float* __restrict__ p2, const float* __restrict__ part,
     const uint8_t* __restrict__ mask, float* __restrict__ out, int Kp,
-    int L, int M, int n_seg, int k_true, float plb, int project,
+    int kl, int L, int M, int n_seg, int k_true, float plb, int project,
     int finish) {
-  const int b = blockIdx.y;
-  const int g = threadIdx.x % G;
-  const int row = blockIdx.x * (NT / G) + threadIdx.x / G;  // k * L + l
-  const bool live = row < Kp * L;
-  const int k = live ? row / L : 0, l = live ? row % L : 0;
+  constexpr int D = p_depth(MJ);
+  static_assert(MJ <= 32, "the free set holds one bit a slot");
+  static_assert(4 * NT * MJ * D <= 48 * 1024,
+                "the ring outgrows the shared memory a block gets unasked");
+  float* ring = reinterpret_cast<float*>(dyn_smem4);  // [slot][j][NT]
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int g = tid % G;
+  const size_t rows = (size_t)kl * L;   // live (k, locus) rows a chain
+  const size_t row = (size_t)blockIdx.x * (NT / G) + tid / G;  // k L + l
+  const bool live = row < rows;  // every lane takes part in the shuffles
+  const int k = live ? (int)(row / L) : 0, l = live ? (int)(row % L) : 0;
   const size_t KLM = (size_t)Kp * L * M;
-  const size_t off = (size_t)b * KLM + (size_t)row * M;  // [b][k][l][m]
-  const float* pp = part + (size_t)b * n_seg * KLM + (size_t)row * M;
+  const size_t off = (size_t)b * KLM + (live ? row : 0) * M;  // [b][k][l][m]
+  const float* pp = part + (size_t)b * n_seg * KLM + (live ? row : 0) * M;
 
+  auto issue = [&](int s) {
+    if (live && s < n_seg) {
+#pragma unroll
+      for (int j = 0; j < MJ; ++j) {
+        const int m = g + G * j;
+        if (m < M)
+          cp_async4(ring + ((s % D) * MJ + j) * NT + tid,
+                    pp + (size_t)s * KLM + m, 4);
+      }
+    }
+    cp_async_commit();
+  };
   float v[MJ];
-  bool fr[MJ];
+#pragma unroll
+  for (int j = 0; j < MJ; ++j) v[j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < D - 1; ++s) issue(s);
+  for (int s = 0; s < n_seg; ++s) {
+    // the slot refilled here was read a step before: that read stays
+    // ahead of the copy
+    asm volatile("" ::: "memory");
+    issue(s + D - 1);
+    cp_async_wait<D - 1>();
+#pragma unroll
+    for (int j = 0; j < MJ; ++j)
+      if (live && g + G * j < M) v[j] += ring[((s % D) * MJ + j) * NT + tid];
+  }
+
+  // the rows k >= kl of the chain, zeros, written by the live rows' lanes
+  if (live) {
+    for (size_t pr = row; pr < (size_t)(Kp - kl) * L; pr += rows)
+#pragma unroll
+      for (int j = 0; j < MJ; ++j) {
+        const int m = g + G * j;
+        if (m < M) out[(size_t)b * KLM + (rows + pr) * M + m] = 0.f;
+      }
+  }
+  if (!finish) {  // uniform: the flag is the launch's
+#pragma unroll
+    for (int j = 0; j < MJ; ++j) {
+      const int m = g + G * j;
+      if (live && m < M) out[off + m] = v[j];
+    }
+    return;
+  }
+  unsigned fr = 0u;   // the free slots: valid alleles of a live row
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < MJ; ++j) {
     const int m = g + G * j;
     const bool in = live && m < M;
-    float bm = 0.f;
-    if (in)
-      for (int q = 0; q < n_seg; ++q) bm += pp[(size_t)q * KLM + m];
-    if (!finish) {
-      if (in) out[off + m] = bm;
-      continue;
-    }
-    v[j] = in ? p2[off + m] * bm : 0.f;
+    v[j] = in ? p2[off + m] * v[j] : 0.f;
     s += v[j];
-    fr[j] = in && mask[(size_t)l * M + m] != 0;
+    if (in && mask[(size_t)l * M + m] != 0) fr |= 1u << j;
   }
-  if (!finish) return;  // uniform: the flag is the launch's
   const float tot = mc::group_sum<G>(s);
 #pragma unroll
   for (int j = 0; j < MJ; ++j)
-    v[j] = (fr[j] && tot > 0.f) ? v[j] / tot : 0.f;
+    v[j] = ((fr >> j & 1u) && tot > 0.f) ? v[j] / tot : 0.f;
   if (project) {
     mc::michelot_group<G, MJ>(v, fr, plb);
     if (k >= k_true) {
@@ -467,9 +526,9 @@ extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
 #undef MC_ROWS
   if (err == 0) err = (int)cudaGetLastError();
   if (err != 0) return err;
-  launch_rows_finish(eta, apart, tpart, a0, c, nullptr, out, t_out, B, I,
-                     Kp, n_seg, k_true, lb, !finish, project, compute_t, s);
-  return (int)cudaGetLastError();
+  return launch_rows_finish(eta, apart, tpart, a0, c, nullptr, out, t_out,
+                            B, I, Kp, n_seg, k_true, lb, !finish, project,
+                            compute_t, s);
 }
 
 // Columns pass in n_seg row segments of seg_rows rows (n_seg <= 65535):
@@ -511,21 +570,28 @@ extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
-// M <= 1024: G lanes per (k, locus) row, MJ slots per lane
+// M <= 1024: G lanes per (k, locus) row, MJ slots per lane; the lanes of
+// part past the lane tile of k_true must be zero (the columns pass writes
+// them so) and are not read
 extern "C" int mc_fullstep_p(const void* p2, const void* part,
                              const void* mask, void* out, int B, int Kp,
                              int L, int M, int n_seg, int k_true, float plb,
                              int project, int finish, void* stream) {
+  if (n_seg < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)p2;
   const float* pt = (const float*)part;
   const uint8_t* mk = (const uint8_t*)mask;
   float* o = (float*)out;
-  const int rows = Kp * L;
-#define MC_P(G, MJ)                                                      \
-  fullstep_p_kernel<G, MJ>                                               \
-      <<<dim3((rows + NT / G - 1) / (NT / G), B), NT, 0, s>>>(           \
-          p, pt, mk, o, Kp, L, M, n_seg, k_true, plb, project, finish)
+  const int kc = lane_tile(k_true, Kp, 32).kc;
+  const int kl = kc < Kp ? kc : Kp;   // Kp = K = 3: the multi-allelic mixture
+  // NT / G live (k, locus) rows a block; a thread's ring of p_depth(MJ)
+  // segments, or of all of them where there are fewer
+#define MC_P(G, MJ)                                                        \
+  fullstep_p_kernel<G, MJ>                                                 \
+      <<<dim3((unsigned)(((size_t)kl * L + NT / G - 1) / (NT / G)), B), NT, \
+          4 * NT * MJ * (n_seg < p_depth(MJ) ? n_seg : p_depth(MJ)), s>>>(  \
+          p, pt, mk, o, Kp, kl, L, M, n_seg, k_true, plb, project, finish)
   if (M <= 4) MC_P(4, 1);
   else if (M <= 8) MC_P(8, 1);
   else if (M <= 16) MC_P(16, 1);

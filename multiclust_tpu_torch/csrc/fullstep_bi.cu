@@ -441,6 +441,20 @@ __global__ void __launch_bounds__(NT) fullstep_bi_p0_kernel(
   p0_new[o] = q;
 }
 
+// launches the epilogue over B chains (the columns pass's partials `part`
+// [B, n_seg, 2, Kp, W]); returns the launch's cudaError_t
+inline int launch_p0(const float* p0, const float* part, float* p0_new,
+                     float* b0_out, float* b1_out, int B, int Kp, int kc,
+                     int L, int l_lo, int W, int n_seg, float plb, float pub,
+                     int project, cudaStream_t s) {
+  const size_t KW = (size_t)Kp * W;
+  const dim3 grid((unsigned)((KW + NT - 1) / NT), B);
+  fullstep_bi_p0_kernel<<<grid, NT, 0, s>>>(p0, part, p0_new, b0_out, b1_out,
+                                            Kp, kc, L, l_lo, W, n_seg, plb,
+                                            pub, project);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/build.py).  Pointers are
@@ -541,10 +555,9 @@ extern "C" int mc_fullstep_bi_finish(const void* eta, const void* apart,
                                      float lb, int emit_a, int project_eta,
                                      int compute_t, void* stream) {
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
-  launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B, I, Kp,
-                     n_seg, k_true, lb, emit_a, project_eta, compute_t,
-                     (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  return launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B,
+                            I, Kp, n_seg, k_true, lb, emit_a, project_eta,
+                            compute_t, (cudaStream_t)stream);
 }
 
 // Columns pass and epilogue over the window [l_lo, l_hi); `part` holds
@@ -587,12 +600,23 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
 #undef MC_COLS
   if (err == 0) err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const size_t KW = (size_t)Kp * W;
-  const dim3 grid2((unsigned)((KW + NT - 1) / NT), B);
-  fullstep_bi_p0_kernel<<<grid2, NT, 0, s>>>
-  (p, pt, (float*)p0_new, (float*)b0_out, (float*)b1_out, Kp, lt.kc, L, l_lo,
-   W, n_seg, plb, pub, project);
-  return (int)cudaGetLastError();
+  return launch_p0(p, pt, (float*)p0_new, (float*)b0_out, (float*)b1_out, B,
+                   Kp, lt.kc, L, l_lo, W, n_seg, plb, pub, project, s);
+}
+
+// The epilogue alone over the window [l_lo, l_hi) from partials `part`
+// [B, n_seg, 2, Kp, l_hi - l_lo] (lanes k < kc read): p0' into p0_new, or
+// the raw B0/B1 into b0_out/b1_out when they are non-null (emit_b).
+extern "C" int mc_fullstep_bi_p0(const void* p0, const void* part,
+                                 void* p0_new, void* b0_out, void* b1_out,
+                                 int B, int L, int Kp, int k_true, int l_lo,
+                                 int l_hi, int n_seg, float plb, float pub,
+                                 int project, void* stream) {
+  if (!kp_ok(Kp) || n_seg < 1) return (int)cudaErrorInvalidValue;
+  return launch_p0((const float*)p0, (const float*)part, (float*)p0_new,
+                   (float*)b0_out, (float*)b1_out, B, Kp,
+                   lane_tile(k_true, Kp, 32).kc, L, l_lo, l_hi - l_lo, n_seg,
+                   plb, pub, project, (cudaStream_t)stream);
 }
 
 extern "C" const char* mc_error_string(int err) {

@@ -25,7 +25,9 @@ __device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 // Michelot projection of one row held by one warp (lane owns k = lane +
 // 32 j) onto {x >= lb on the valid lanes, sum = 1}; the other lanes end
 // at 0.  `valid` is the true-lane set: static (k < k_true) or read from a
-// runtime mask, as the TPU's `_michelot_tile` takes either.
+// runtime mask, as the TPU's `_michelot_tile` takes either.  The free
+// lanes are counted by ballot: whole numbers, equal to a warp sum of
+// them, so a pass needs one warp sum (of w) where the passes are latency.
 template <int KJ>
 __device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
                                    float lb) {
@@ -35,18 +37,20 @@ __device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
     fr[j] = valid[j];
     if (!fr[j]) w[j] = 0.f;
   }
-  while (true) {
-    float nf = 0.f, cs = 0.f;
+  auto free_lanes = [&]() {
+    int n = 0;
 #pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      nf += fr[j] ? 1.f : 0.f;
-      cs += w[j];
-    }
-    nf = warp_sum(nf);
+    for (int j = 0; j < KJ; ++j) n += __popc(__ballot_sync(FULL, fr[j]));
+    return (float)n;
+  };
+  float nf = free_lanes();
+  while (true) {
+    float cs = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) cs += w[j];
     cs = warp_sum(cs);
     const float off = (cs - 1.f) / fmaxf(nf, 1.f);
     bool pinned = false;
-    float nf2 = 0.f;
 #pragma unroll
     for (int j = 0; j < KJ; ++j) {
       if (fr[j]) {
@@ -59,11 +63,10 @@ __device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
           w[j] = w2;
         }
       }
-      nf2 += fr[j] ? 1.f : 0.f;
     }
     const bool any_pinned = __any_sync(FULL, pinned);
-    nf2 = warp_sum(nf2);
-    if (!any_pinned || nf2 < 0.5f) break;
+    nf = free_lanes();
+    if (!any_pinned || nf < 0.5f) break;
   }
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
@@ -81,18 +84,20 @@ __device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
 }
 
 // Michelot projection of rows held by aligned groups of G lanes (lane g
-// of a group owns slots g + G j); `fr` marks the free (valid) slots on
-// entry, the others must hold 0.  Groups finish at different passes, so
-// the loop runs until every group of the warp is done and a finished
+// of a group owns slots g + G j); bit j of `fr` marks slot j free (valid)
+// on entry, the others must hold 0.  Groups finish at different passes,
+// so the loop runs until every group of the warp is done and a finished
 // group's passes change nothing.  Every lane of the warp must call it.
 template <int G, int MJ>
-__device__ void michelot_group(float (&w)[MJ], bool (&fr)[MJ], float lb) {
+__device__ __forceinline__ void michelot_group(float (&w)[MJ], unsigned fr,
+                                               float lb) {
+  static_assert(MJ <= 32, "one bit of fr a slot");
   bool done = false;
   while (true) {
     float nf = 0.f, cs = 0.f;
 #pragma unroll
     for (int j = 0; j < MJ; ++j) {
-      nf += fr[j] ? 1.f : 0.f;
+      nf += (fr >> j & 1u) ? 1.f : 0.f;
       cs += w[j];
     }
     nf = group_sum<G>(nf);
@@ -101,17 +106,17 @@ __device__ void michelot_group(float (&w)[MJ], bool (&fr)[MJ], float lb) {
     float pinned = 0.f, nf2 = 0.f;
 #pragma unroll
     for (int j = 0; j < MJ; ++j) {
-      if (!done && fr[j]) {
+      if (!done && (fr >> j & 1u)) {
         const float w2 = w[j] - off;
         if (w2 < lb) {
           w[j] = lb;
-          fr[j] = false;
+          fr &= ~(1u << j);
           pinned = 1.f;
         } else {
           w[j] = w2;
         }
       }
-      nf2 += fr[j] ? 1.f : 0.f;
+      nf2 += (fr >> j & 1u) ? 1.f : 0.f;
     }
     pinned = group_sum<G>(pinned);
     nf2 = group_sum<G>(nf2);

@@ -343,86 +343,259 @@ __device__ __forceinline__ void rows_accumulate(
   __syncwarp();
 }
 
-// Finish of a segmented rows pass, one warp per row: the segments'
-// partials summed in segment order (t in float64), the a0 seed added,
-// then either the raw A (emit_a: c is not added, the caller finishes) or
-// eta' = Michelot(normalize(eta (A + c))) over the static lanes k <
-// k_true or the runtime kmask.  `out` null: only t is wanted; c, a0 and
-// kmask may be null.
+// Finish of a segmented rows pass: the segments' partials summed in
+// segment order on top of the a0 seed (A in float32, t in float64), then
+// either the raw A (emit_a: c is not added, the caller finishes) or eta' =
+// Michelot(normalize(eta (A + c))) over the static lanes k < k_true or the
+// runtime kmask.  It replaces the last column step of the TPU's streamed
+// pass A (`_bi_istats_kernel`, multiclust_tpu/ops/kernels.py:887).
+//
+// Bound by device memory and by the latency of a row's finish (its warp
+// sums and Michelot passes are chains of shuffles), so it wants many rows
+// in flight at once and few registers.  One warp a row, lane = cluster;
+// the row's partials arrive as units of `sc` segments (only the
+// kc live lanes of each, and under emit_a the first pad lane, whose value
+// every pad lane of the producer carries: the row's sum of w1 in the
+// biallelic pass, 0 in the generic one), their t partials and, in the
+// first unit, the row's eta, a0 and c, by 16-byte cp.async copies into
+// the warp's ring of FIN_DEPTH slots in shared memory: every load of a
+// row's first units is in flight at once, and no warp waits for another.
+// The sums keep segment order and each row's finish the arithmetic and
+// lane layout of a one-warp-a-row finish (the Michelot counts its free
+// lanes by ballot: whole numbers, the same bits), so the raw A and t are
+// the ordered sums of the partials.  Four rows a warp, their finishes
+// interleaved or not, measured slower on an H100 (PERF.md): the
+// registers they hold cut the warps an SM keeps.  Loading the partials
+// straight into registers was faster at Kp = 32 on 16384 x 2048, where
+// the rows pass's partials still sit in L2, and slower at Kp = 64-128
+// and at 8192 x 131072 (PERF.md).  c, a0 and kmask may be null.  Pad
+// lanes of eta must be zero: they are not read, and eta' there is
+// written 0.
+struct FinishTile {
+  // live lanes, staged lanes a partial, segments a unit; a unit's layout
+  // in floats (eta, a0, c, A partials, t partials) and size; ring slots;
+  // the block's shared memory in bytes
+  int kc, kcl, sc, eta_off, a0_off, c_off, a_off, t_off, unit, slots,
+      smem_bytes;
+};
+
+constexpr int FIN_DEPTH = 3;            // units of a warp's ring
+constexpr int FIN_UNIT_BYTES = 1024;    // A partials a unit holds at least
+
+// every part of a unit at a multiple of 4 floats (16-byte copies): kc
+// and kcl are multiples of 4, Kp of 32
+inline FinishTile finish_tile(int k_true, int Kp, int n_seg, int emit_a,
+                              int compute_t, int has_a0) {
+  FinishTile f;
+  f.kc = lane_tile(k_true, Kp, 32).kc;
+  f.kcl = emit_a && f.kc < Kp ? f.kc + 4 : f.kc;
+  if (n_seg < 1) n_seg = 1;
+  f.sc = (FIN_UNIT_BYTES + 4 * f.kcl - 1) / (4 * f.kcl);
+  if (f.sc > n_seg) f.sc = n_seg;
+  int off = 0;
+  f.eta_off = off;
+  off += emit_a ? 0 : f.kc;
+  f.a0_off = off;
+  off += has_a0 ? Kp : 0;
+  f.c_off = off;
+  off += 4;
+  f.a_off = off;
+  off += f.sc * f.kcl;
+  f.t_off = off;
+  off += compute_t ? f.sc : 0;
+  f.unit = (off + 3) / 4 * 4;
+  const int chunks = (n_seg + f.sc - 1) / f.sc;
+  f.slots = chunks < FIN_DEPTH ? chunks : FIN_DEPTH;
+  f.smem_bytes = 4 * NW * f.slots * f.unit;
+  return f;
+}
+
+// blocks an SM the finish asks room for: the more warps (rows) an SM
+// holds, the more of the rows' load and Michelot latency overlaps; the
+// counts are the most that build without spills at each Kp
+__host__ __device__ constexpr int fin_blocks(int KP) {
+  return KP <= 32 ? 6 : 4;
+}
+
 template <int KP>
-__global__ void __launch_bounds__(NT) rows_finish_kernel(
+__global__ void __launch_bounds__(NT, fin_blocks(KP)) rows_finish_kernel(
     const float* __restrict__ eta, const float* __restrict__ apart,
     const float* __restrict__ tpart, const float* __restrict__ a0,
     const float* __restrict__ c, const float* __restrict__ kmask,
     float* __restrict__ out, double* __restrict__ t_out, int I, int n_seg,
-    int k_true, float lb, int emit_a, int project_eta, int compute_t) {
+    int k_true, float lb, int emit_a, int project_eta, int compute_t,
+    FinishTile ft) {
   constexpr int KJ = KP / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int row = blockIdx.x * (NT / 32) + warp;
-  if (row >= I) return;  // uniform across the warp
-  const size_t br = (size_t)b * I + row;
-  if (lane == 0) {
-    double tt = 0.0;
-    if (compute_t)
-      for (int s = 0; s < n_seg; ++s)
-        tt += (double)tpart[((size_t)b * n_seg + s) * I + row];
-    t_out[br] = tt;
-  }
-  if (out == nullptr) return;
-  float a[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j)
-    a[j] = a0 != nullptr ? a0[br * KP + lane + 32 * j] : 0.f;
-  for (int s = 0; s < n_seg; ++s) {
-    const float* ap = apart + (((size_t)b * n_seg + s) * I + row) * KP;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) a[j] += ap[lane + 32 * j];
-  }
-  float* o = out + br * KP;
-  if (emit_a) {
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = a[j];
-    return;
-  }
-  const float ci = c != nullptr ? c[row] : 0.f;
-  float e[KJ], num[KJ], part = 0.f;
+  const int row = blockIdx.x * NW + warp;
+  if (row >= I) return;   // warps share nothing
+  const size_t br = (size_t)blockIdx.y * I + row;
+  float* ring = reinterpret_cast<float*>(dyn_smem4) + warp * ft.slots * ft.unit;
+  const int kc = ft.kc, kcl = ft.kcl, sc = ft.sc;
+  const int n_chunk = (n_seg + sc - 1) / sc;
+  // the row's partials of segment s: A at ap + s I KP, t at tp + s I
+  const float* ap = apart + ((size_t)blockIdx.y * n_seg * I + row) * KP;
+  const float* tp = tpart + (size_t)blockIdx.y * n_seg * I + row;
+  // a lane copies lanes k4 .. k4 + 3 of the segments s_in, s_in + spl, ..
+  const int k4n = kcl / 4, spl = 32 / k4n, s_in = lane / k4n;
+  const int k4 = 4 * (lane - s_in * k4n);
+
+  // chunk q of the row's segments (and on q = 0 its eta, a0, c) into
+  // its slot
+  auto issue = [&](int q) {
+    if (q < n_chunk) {
+      float* d = ring + (q % FIN_DEPTH) * ft.unit;
+      const int s0 = sc * q, ns = min(sc, n_seg - s0);
+      if (s_in < spl)
+        for (int s = s_in; s < ns; s += spl)
+          cp_async16(d + ft.a_off + s * kcl + k4,
+                     ap + (size_t)(s0 + s) * I * KP + k4, 16);
+      if (compute_t)
+        for (int s = lane; s < ns; s += 32)
+          cp_async4(d + ft.t_off + s, tp + (size_t)(s0 + s) * I, 4);
+      if (q == 0) {
+        if (!emit_a && 4 * lane < kc)
+          cp_async16(d + ft.eta_off + 4 * lane, eta + br * KP + 4 * lane, 16);
+        if (a0 != nullptr && 4 * lane < KP)
+          cp_async16(d + ft.a0_off + 4 * lane, a0 + br * KP + 4 * lane, 16);
+        if (c != nullptr && lane == 0) cp_async4(d + ft.c_off, c + row, 4);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // the staged lane each lane adds: its own below kc, the first pad lane
+  // above it where that is staged (emit_a), none otherwise
+  int kcol[KJ];
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
-    e[j] = eta[br * KP + lane + 32 * j];
-    num[j] = e[j] * (a[j] + ci);
-    part += num[j];
+    const int k = lane + 32 * j;
+    kcol[j] = k < kc ? k : kcl > kc ? kc : -1;
   }
-  const float tot = warp_sum(part);
+  float a[KJ] = {}, e[KJ] = {}, ci = 0.f;
+  double tt = 0.0;
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) num[j] = tot > 0.f ? num[j] / tot : e[j];
-  if (project_eta) {
-    bool valid[KJ];
+  for (int q = 0; q < FIN_DEPTH - 1; ++q) issue(q);
+  for (int q = 0; q < n_chunk; ++q) {
+    __syncwarp();   // every lane is done with the slot refilled here
+    issue(q + FIN_DEPTH - 1);
+    cp_async_wait<FIN_DEPTH - 1>();
+    __syncwarp();   // the chunk's copies, made by all lanes, seen by all
+    const float* d = ring + (q % FIN_DEPTH) * ft.unit;
+    if (q == 0) {   // the row's seed, eta and c
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int k = lane + 32 * j;
+        a[j] = a0 != nullptr && kcol[j] >= 0 ? d[ft.a0_off + k] : 0.f;
+        e[j] = !emit_a && k < kc ? d[ft.eta_off + k] : 0.f;
+      }
+      if (c != nullptr) ci = d[ft.c_off];
+    }
+    const int ns = min(sc, n_seg - sc * q);
+    for (int s = 0; s < ns; ++s) {
+      const float* ar = d + ft.a_off + s * kcl;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        if (kcol[j] >= 0) a[j] += ar[kcol[j]];
+    }
+    if (compute_t && lane == 0)
+      for (int s = 0; s < ns; ++s) tt += (double)d[ft.t_off + s];
+  }
+  if (lane == 0) t_out[br] = tt;
+  float* o = out + br * KP;
+  if (!emit_a) {
+    float part = 0.f;
 #pragma unroll
     for (int j = 0; j < KJ; ++j) {
-      const int k = lane + 32 * j;
-      valid[j] = kmask != nullptr ? kmask[k] > 0.5f : k < k_true;
+      a[j] = e[j] * (a[j] + ci);
+      part += a[j];
     }
-    mc::michelot_warp_mask<KJ>(num, valid, lb);
+    const float tot = warp_sum(part);
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) a[j] = tot > 0.f ? a[j] / tot : e[j];
+    if (project_eta) {
+      bool valid[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int k = lane + 32 * j;
+        valid[j] = kmask != nullptr ? kmask[k] > 0.5f : k < k_true;
+      }
+      mc::michelot_warp_mask<KJ>(a, valid, lb);
+    }
   }
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = num[j];
+  for (int j = 0; j < KJ; ++j) o[lane + 32 * j] = a[j];
 }
 
-// launches the finish over B chains of I rows (Kp checked by the caller)
-inline void launch_rows_finish(const void* eta, const void* apart,
-                               const void* tpart, const void* a0,
-                               const void* c, const void* kmask, void* out,
-                               void* t_out, int B, int I, int Kp, int n_seg,
-                               int k_true, float lb, int emit_a,
-                               int project_eta, int compute_t,
-                               cudaStream_t s) {
+// Only t (no A partials): one row a thread, each streaming its n_seg
+// partials through its own cp.async ring of FIN_T_DEPTH in shared memory
+// (consecutive threads, consecutive rows: whole 128-byte lines a warp)
+// and adding them in segment order in float64.
+constexpr int FIN_T_NT = 64;      // rows (threads) of a t-only block
+constexpr int FIN_T_DEPTH = 16;   // segments of a thread's ring
+
+__global__ void __launch_bounds__(FIN_T_NT) rows_finish_t_kernel(
+    const float* __restrict__ tpart, double* __restrict__ t_out, int I,
+    int n_seg, int compute_t) {
+  float* ring = reinterpret_cast<float*>(dyn_smem4);  // [slot][FIN_T_NT]
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const int row = blockIdx.x * FIN_T_NT + tid;
+  if (row >= I) return;
+  double tt = 0.0;
+  if (compute_t) {
+    const float* src = tpart + (size_t)b * n_seg * I + row;
+    auto issue = [&](int s) {
+      if (s < n_seg)
+        cp_async4(ring + (s % FIN_T_DEPTH) * FIN_T_NT + tid,
+                  src + (size_t)s * I, 4);
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < FIN_T_DEPTH - 1; ++s) issue(s);
+    for (int s = 0; s < n_seg; ++s) {
+      // the slot refilled here was read a step before: that read stays
+      // ahead of the copy
+      asm volatile("" ::: "memory");
+      issue(s + FIN_T_DEPTH - 1);
+      cp_async_wait<FIN_T_DEPTH - 1>();
+      tt += (double)ring[(s % FIN_T_DEPTH) * FIN_T_NT + tid];
+    }
+  }
+  t_out[(size_t)b * I + row] = tt;
+}
+
+// launches the finish over B chains of I rows (Kp checked by the caller);
+// `out` null: only t; returns the launch's cudaError_t
+inline int launch_rows_finish(const void* eta, const void* apart,
+                              const void* tpart, const void* a0,
+                              const void* c, const void* kmask, void* out,
+                              void* t_out, int B, int I, int Kp, int n_seg,
+                              int k_true, float lb, int emit_a,
+                              int project_eta, int compute_t,
+                              cudaStream_t s) {
+  if (out == nullptr) {
+    const int slots = n_seg < FIN_T_DEPTH ? n_seg : FIN_T_DEPTH;
+    rows_finish_t_kernel<<<dim3((I + FIN_T_NT - 1) / FIN_T_NT, B), FIN_T_NT,
+                           4 * FIN_T_NT * slots, s>>>(
+        (const float*)tpart, (double*)t_out, I, n_seg, compute_t);
+    return (int)cudaGetLastError();
+  }
+  // the 16-byte copies of apart, eta and a0
+  if (((uintptr_t)apart | (uintptr_t)eta | (uintptr_t)a0) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const FinishTile ft =
+      finish_tile(k_true, Kp, n_seg, emit_a, compute_t, a0 != nullptr);
+  if (ft.smem_bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid((I + NW - 1) / NW, B);
+  int err = 0;
 #define MC_FINISH(KP)                                                     \
-  rows_finish_kernel<KP><<<grid, NT, 0, s>>>                              \
+  if (ft.smem_bytes > 48 * 1024) err = allow_smem(rows_finish_kernel<KP>); \
+  if (err == 0)                                                           \
+  rows_finish_kernel<KP><<<grid, NT, ft.smem_bytes, s>>>                  \
   ((const float*)eta, (const float*)apart, (const float*)tpart,           \
    (const float*)a0, (const float*)c, (const float*)kmask, (float*)out,   \
-   (double*)t_out, I, n_seg, k_true, lb, emit_a, project_eta, compute_t)
+   (double*)t_out, I, n_seg, k_true, lb, emit_a, project_eta, compute_t,  \
+   ft)
   switch (Kp) {
     case 32: MC_FINISH(32); break;
     case 64: MC_FINISH(64); break;
@@ -430,6 +603,7 @@ inline void launch_rows_finish(const void* eta, const void* apart,
     default: MC_FINISH(128); break;
   }
 #undef MC_FINISH
+  return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -57,11 +57,13 @@ def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
                 n = int(digits.group()[-k:])
                 ident = mangled[m.start():m.start() + n]
                 if n == len(ident) and ident.endswith("kernel"):
-                    targ = re.match(r"ILi(\d+)E(?:Lb([01])E)?",
+                    targ = re.match(r"ILi(\d+)E(?:Lb([01])E|Li(\d+)E)?",
                                     mangled[m.start() + n:])
                     if targ and targ.group(2):
                         two = "true" if targ.group(2) == "1" else "false"
                         name = ident + f"<{targ.group(1)}, {two}>"
+                    elif targ and targ.group(3):
+                        name = ident + f"<{targ.group(1)}, {targ.group(3)}>"
                     else:
                         name = ident + (f"<{targ.group(1)}>" if targ else "")
                     break

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                             _P],
+    "mc_fullstep_bi_p0": [_P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
                          _P],

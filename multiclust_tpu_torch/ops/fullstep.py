@@ -298,7 +298,9 @@ def fullstep_partials(eta, p2, x2, miss=None, *, M: int, k_true: int = 0):
 def fullstep_p(p2, part, mask=None, *, M: int, k_true: int = 0,
                plb: float = 0.0, project: bool = False, finish: bool = True):
     """p epilogue: p' [B, Kp, L, M] from the partials, or raw B [B, Kp,
-    L*M] under ``finish=False``."""
+    L*M] under ``finish=False``.  The kernel reads the partials' lanes
+    below the lane tile of ``k_true``; the lanes past it must be zero, as
+    the columns pass writes them, and come out 0."""
     B, Kp, LM = p2.shape
     L = _loci(LM, M)
     if finish and (mask is None or tuple(mask.shape) != (L, M)):

@@ -609,7 +609,11 @@ def rows_finish(eta, apart, tpart, c, a0=None, kmask=None, *, k_true: int,
     order (t in float64) on top of the ``a0`` seed, then the raw A + r
     (``emit_a``) or eta' with c added, normalized and projected over the
     static ``k_true`` lanes or the runtime ``kmask``.  Returns (eta' or
-    raw A + r, or None when ``apart`` is None; t [B, I] float64)."""
+    raw A + r, or None when ``apart`` is None; t [B, I] float64).  The
+    kernel reads the lanes of ``apart`` below the lane tile of ``k_true``
+    and, for ``emit_a``, the first lane past it as the value of every pad
+    lane: the rows passes write one value a row there (the row's sum of
+    w1, or 0)."""
     if not eta.is_cuda:
         return rows_finish_reference(
             eta, apart, tpart, c, a0, kmask, k_true=k_true, lb=lb,
@@ -632,6 +636,10 @@ def rows_finish(eta, apart, tpart, c, a0=None, kmask=None, *, k_true: int,
             raise ValueError(f"{name}: contiguous {dt} {shape} on "
                              f"{eta.device} expected, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    for name, t in (("apart", apart), ("eta", eta), ("a0", a0)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start at a multiple of 16 bytes "
+                             f"(the finish stages it by 16-byte copies)")
     out = torch.empty_like(eta) if apart is not None else None
     t = torch.empty((B, I), dtype=torch.float64, device=eta.device)
     build.launch("mc_fullstep_bi_finish", eta.device,
@@ -708,6 +716,75 @@ def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
                  outs[1].data_ptr() if emit_b else None,
                  B, I, L, Kp, int(k_true), l_lo, l_hi, n_seg, seg_rows, lo,
                  hi, int(project))
+
+
+# ---------------------------------------------------------------------------
+# the segment reductions: the rows finish and the p0 epilogue
+
+def ordered_segment_sum(parts: Tensor, seed: Optional[Tensor] = None, *,
+                        dtype: Optional[torch.dtype] = None) -> Tensor:
+    """``parts`` [B, n_seg, ...] summed over the segment axis one segment
+    after another, on top of ``seed`` (zeros when None), in ``dtype``
+    (that of ``parts`` when None): the order of the finish's and the p0
+    epilogue's sums (A and B0/B1 in float32, t in float64), so that their
+    raw outputs are bit-equal to this."""
+    dtype = parts.dtype if dtype is None else dtype
+    if seed is None:
+        acc = torch.zeros(parts.shape[:1] + parts.shape[2:], dtype=dtype,
+                          device=parts.device)
+    else:
+        acc = seed.to(dtype)
+    for s in range(parts.shape[1]):
+        acc = acc + parts[:, s].to(dtype)
+    return acc
+
+
+def p0_epilogue_reference(p0, part, outs, *, l_lo: int, l_hi: int,
+                          k_true: int, plb: float, project: bool) -> None:
+    """Plain version of ``p0_epilogue``."""
+    kc = lane_tile(k_true, p0.shape[1]).kc
+    b0, b1 = (ordered_segment_sum(part[:, :, a]) for a in (0, 1))
+    b0[:, kc:] = 0.0
+    b1[:, kc:] = 0.0
+    if len(outs) == 2:
+        outs[0][..., l_lo:l_hi] = b0
+        outs[1][..., l_lo:l_hi] = b1
+    else:
+        outs[0][..., l_lo:l_hi] = p0_update_reference(
+            p0[..., l_lo:l_hi], b0, b1, plb=plb, project=project)
+
+
+def p0_epilogue(p0, part, outs, *, l_lo: int, l_hi: int, k_true: int,
+                plb: float, project: bool) -> None:
+    """The columns pass's epilogue alone (``cols_window`` runs it after
+    the pass): the partials ``part`` [B, n_seg, 2, Kp, l_hi - l_lo], of
+    which the lanes below the lane tile of ``k_true`` are read and the
+    rest count as zeros, summed in segment order, written at the window's
+    columns of the full-width ``outs``: (p0',) or, for emit_b, (B0, B1)."""
+    if not p0.is_cuda:
+        return p0_epilogue_reference(p0, part, outs, l_lo=l_lo, l_hi=l_hi,
+                                     k_true=k_true, plb=plb, project=project)
+    B, Kp, L = p0.shape
+    check_kp(Kp)
+    _check_window(L, l_lo, l_hi, B)
+    n_seg = part.shape[1] if part.dim() == 5 else 0
+    checks = [("p0", p0, (B, Kp, L)),
+              ("part", part, (B, max(n_seg, 1), 2, Kp, l_hi - l_lo))]
+    checks += [(f"outs[{i}]", o, (B, Kp, L)) for i, o in enumerate(outs)]
+    for name, t, shape in checks:
+        if (t.device != p0.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: contiguous float32 {shape} on "
+                             f"{p0.device} expected, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    emit_b = len(outs) == 2
+    lo, hi = p0_clip_bounds(plb)
+    build.launch("mc_fullstep_bi_p0", p0.device, p0.data_ptr(),
+                 part.data_ptr(), None if emit_b else outs[0].data_ptr(),
+                 outs[0].data_ptr() if emit_b else None,
+                 outs[1].data_ptr() if emit_b else None,
+                 B, L, Kp, int(k_true), l_lo, l_hi, n_seg, lo, hi,
+                 int(project))
 
 
 def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,

@@ -51,6 +51,23 @@ the library's load) and then SQUAREM, cap 100.  This mode calls only the
 step's entry point and the plain versions, so a tree whose wrappers take
 other arguments is timed by the same file (copied into its package).
 
+``--kernels`` times the biallelic step as the router runs it instead
+(16384 x 2048 by default) at the chain batches ``--chains``: the routed
+step held to its plain version, its median CUDA-event time over
+``--reps`` calls, and the device time of each of its kernels inside it
+(torch.profiler: the rows pass, the rows finish, the columns pass, the p0
+epilogue), each with its bound and the share reached; the finish's and
+the epilogue's bounds both ways, every tensor of the call once and only
+the live lanes (k below the lane tile of K) of the partials and of eta
+or p0.  ``--kernels --k 100`` and ``--shapes 8192x131072 --chains 2``
+time the wider kernels and the biobank panel.  It calls only the routed
+step and the plain version, so a parent tree is timed by the same file.
+``--finish-alone`` times the rows finish alone instead, at the router's
+column segments for each chain batch, launched back to back (its partials
+in L2 as far as they fit) and with L2 flushed before each launch (a 256 MB
+buffer written): the device time of each with the finish's bounds.  It
+calls only the finish's wrapper and its plain version.
+
 ``--jagged`` times the admixture step on a jagged panel instead: the mix of
 bench.py:199-201 (80 % of the loci with 2 alleles, the rest 8,
 interleaved; 16384 x 2048 by default, 1 % missing), made on the card from
@@ -275,9 +292,157 @@ def lanes_panel(seed: int, I: int, L: int, M: int, dev):
 
 
 # the generic step's kernels by name, as the profiler sees them
-GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel", "rows_finish_kernel"),
+GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel",),
+                   "rows finish": ("rows_finish_kernel",),
                    "columns pass": ("fullstep_cols_kernel",),
                    "p epilogue": ("fullstep_p_kernel",)}
+# the biallelic step's, on any of its routes
+BI_KERNELS = {"rows pass": ("fullstep_bi_rows_seg_kernel",
+                            "fullstep_bi_rows_kernel"),
+              "rows finish": ("rows_finish_kernel",),
+              "columns pass": ("fullstep_bi_cols_kernel",),
+              "p0 epilogue": ("fullstep_bi_p0_kernel",)}
+
+
+def finish_bytes(B: int, I: int, Kp: int, n_seg: int, kc: int):
+    """Bytes the rows finish must move for B chains of I rows over n_seg
+    segments, as a pair: every tensor of the call once (apart, tpart, eta,
+    c, eta' and t in float64), and only the lanes it has to read (the kc
+    live lanes of apart and eta; eta' is written in full)."""
+    rest = 4 * B * n_seg * I + 4 * I + 4 * B * I * Kp + 8 * B * I
+    return (4 * B * I * Kp * (n_seg + 1) + rest,
+            4 * B * I * kc * (n_seg + 1) + rest)
+
+
+def p0_bytes(B: int, Kp: int, W: int, n_seg: int, kc: int):
+    """Bytes the p0 epilogue must move over a window of W columns and
+    n_seg row segments, as a pair: every tensor once (the partials [B,
+    n_seg, 2, Kp, W], p0 and p0' at the window's columns), and only the kc
+    live lanes of the partials and of p0 (p0' is written in full)."""
+    return (4 * B * Kp * W * (2 * n_seg + 2),
+            4 * B * W * (kc * (2 * n_seg + 1) + Kp))
+
+
+def p_bytes(B: int, Kp: int, LM: int, n_seg: int, kl: int):
+    """Bytes the generic p epilogue must move over L*M lanes and n_seg row
+    segments, as a pair: every tensor once (the partials [B, n_seg, Kp,
+    L*M], p2, the [L, M] mask, p'), and only the kl live lanes of the
+    partials and of p2 (p' is written in full)."""
+    return (4 * B * Kp * LM * (n_seg + 2) + LM,
+            4 * B * LM * (kl * (n_seg + 1) + Kp) + LM)
+
+
+def _kernel_line(label: str, ms: float, bnd) -> str:
+    """A kernel's device time with its bound (a number, or a pair: every
+    tensor once, the live lanes) and the share of it reached."""
+    if not ms:
+        return f"  {label}: not run or not measured (no device events)"
+    line = f"  {label}: {ms:.4f} ms of device time a step"
+    if bnd is None:
+        return line
+    bnd = bnd if isinstance(bnd, tuple) else (bnd,)
+    line += f"; bound {bnd[0]:.4f} ms, {100 * bnd[0] / ms:.1f} % of it"
+    if len(bnd) == 2:
+        line += (f"; live-lane bound {bnd[1]:.4f} ms, "
+                 f"{100 * bnd[1] / ms:.1f} % of it")
+    return line
+
+
+def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
+    """The routed biallelic step, held to its plain version: its median
+    CUDA-event time and each of its kernels' device time inside it
+    (torch.profiler), with each kernel's bound; the finish and the p0
+    epilogue with theirs both ways (every tensor once, the live lanes)."""
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True)
+    planes, miss = device_panel(1, I, L, K, 0.01, dev)
+    x0, x1 = planes[0], planes[1]
+    c = miss.sum(dim=1, dtype=torch.float32)
+    n_sm = fb.device_sm_count(dev)
+    kc = fb.lane_tile(K, KP).kc
+    for B in chains:
+        eta, p0 = device_step_params(2, B, I, L, K, KP, dev)
+        route = fb.pick_route(B, I, L, KP, n_sm, fb.scratch_budget(dev), K)
+
+        def step():
+            return fb.admixture_fullstep_biallelic_routed(
+                eta, p0, x0, x1, c, miss, route=route, **kw)
+
+        _held(step(), fb.admixture_fullstep_biallelic_streamed_reference(
+            eta, p0, x0, x1, c, miss, **kw))
+        step_ms = median_ms(step, n)
+        dev_ms = kernel_device_ms(step, n, BI_KERNELS)
+        # the bytes of every window's finish and epilogue
+        ri = fb.cols_tile(K, KP)[1]
+        seg_rows = -(-(-(-I // route.n_rseg)) // ri) * ri
+        n_rseg = -(-I // seg_rows)
+        fin, epi = [0, 0], [0, 0]
+        for lo in range(0, L, route.window):
+            W = min(L, lo + route.window) - lo
+            n_cseg = -(-W // route.seg_cols) if route.seg_cols else 0
+            if n_cseg:
+                fin = [a + b for a, b in zip(fin, finish_bytes(
+                    B, I, KP, n_cseg, kc))]
+            epi = [a + b for a, b in zip(epi, p0_bytes(B, KP, W, n_rseg,
+                                                       kc))]
+        cells = B * I * L
+        bounds = {
+            "rows pass": bound_ms((eta, p0, x0, x1, c, eta, c),
+                                  (4 * K + 10) * cells),
+            "rows finish": (tuple(b / HBM_BYTES_PER_S * 1e3 for b in fin)
+                            if fin[0] else None),
+            "columns pass": bound_ms((eta, p0, x0, x1, miss, p0),
+                                     (6 * K + 6) * cells),
+            "p0 epilogue": tuple(b / HBM_BYTES_PER_S * 1e3 for b in epi)}
+        print(f"{I} x {L}, K = {K} on {KP} lanes, {B} chains: router "
+              f"{route.describe()}; routed step {step_ms:.4f} ms on CUDA "
+              f"events", flush=True)
+        for label, ms in dev_ms.items():
+            print(_kernel_line(label, ms, bounds[label]), flush=True)
+        del eta, p0
+        torch.cuda.empty_cache()
+
+
+def time_finish_alone(I: int, L: int, chains, n: int, dev) -> None:
+    """The rows finish alone on partials of the router's column segments
+    (random, one value a row on the pad lanes as the rows passes write
+    them), its device time (torch.profiler) two ways: launched back to
+    back, so the partials the launch before read sit in the 50 MB L2 as
+    far as they fit, and with a 256 MB buffer written before each launch,
+    so they come from device memory; each with its bounds."""
+    kc = fb.lane_tile(K, KP).kc
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.empty(2 ** 26, device=dev)   # 256 MB
+    n_sm = fb.device_sm_count(dev)
+    for B in chains:
+        route = fb.pick_route(B, I, L, KP, n_sm, fb.scratch_budget(dev), K)
+        W = min(L, route.window)
+        n_seg = -(-W // route.seg_cols) if route.seg_cols else 1
+        eta, _ = device_step_params(2, B, I, L, K, KP, dev)
+        apart = torch.rand((B, n_seg, I, KP), generator=gen, device=dev)
+        apart[..., kc:] = apart[..., kc:kc + 1]
+        tpart = -torch.rand((B, n_seg, I), generator=gen, device=dev) * 50
+        c = torch.rand((I,), generator=gen, device=dev) * 4
+        kw = dict(k_true=K, lb=1e-8, project_eta=True)
+
+        def warm():
+            return fb.rows_finish(eta, apart, tpart, c, **kw)
+
+        def cold():
+            flush.fill_(1.0)
+            return fb.rows_finish(eta, apart, tpart, c, **kw)
+
+        _held(warm(), fb.rows_finish_reference(eta, apart, tpart, c, **kw))
+        bnd = tuple(b / HBM_BYTES_PER_S * 1e3
+                    for b in finish_bytes(B, I, KP, n_seg, kc))
+        print(f"{I} x {L}, K = {K} on {KP} lanes, {B} chains, {n_seg} "
+              f"column segments ({4 * apart.numel() / 1e6:.1f} MB of A "
+              f"partials): the finish alone", flush=True)
+        for label, fn in (("L2 warm", warm), ("L2 flushed", cold)):
+            ms = kernel_device_ms(fn, n, {label: ("rows_finish_kernel",)})
+            print(_kernel_line(f"rows finish, {label}", ms[label], bnd),
+                  flush=True)
+        del eta, apart, tpart
+        torch.cuda.empty_cache()
 
 
 def kernel_device_ms(fn, n: int, groups) -> dict:
@@ -335,21 +500,23 @@ def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
         plain_ms = median_ms(lambda: fs.admixture_fullstep_reference(
             eta, p2, x2, c, miss, mask, **kw), max(2, n // 4))
         lanes = B * I * L * M
+        n_sm = fb.device_sm_count(dev)
+        n_cseg = fb.row_segments(B, I, L * M, n_sm, k_true=K, Kp=KP)[0]
+        n_rseg = fs.cols_segments(B, I, L * M, KP, n_sm, K)[0]
+        kc = fb.lane_tile(K, KP).kc
+        ms_of = lambda b: tuple(n / HBM_BYTES_PER_S * 1e3 for n in b)
         bounds = {"rows pass": bound_ms((eta, p2, x2, c, eta, c),
                                         (4 * K + 5) * lanes),
+                  "rows finish": ms_of(finish_bytes(B, I, KP, n_cseg, kc)),
                   "columns pass": bound_ms((eta, p2, x2, miss, p2),
-                                           (4 * K + 3) * lanes)}
+                                           (4 * K + 3) * lanes),
+                  "p epilogue": ms_of(p_bytes(B, KP, L * M, n_rseg,
+                                              min(kc, KP)))}
         print(f" {B} chains: step {step_ms:.3f} ms (plain {plain_ms:.3f}); "
               f"columns pass + p epilogue {cols_ms:.3f} ms on CUDA events",
               flush=True)
         for label, ms in dev_ms.items():
-            line = f"  {label}: {ms:.3f} ms of device time a step"
-            if not ms:
-                line = f"  {label}: not measured (no device events)"
-            elif label in bounds:
-                line += (f"; bound {bounds[label]:.3f} ms, "
-                         f"{100 * bounds[label] / ms:.1f} % of it")
-            print(line, flush=True)
+            print(_kernel_line(label, ms, bounds[label]), flush=True)
         del eta, p2
         torch.cuda.empty_cache()
 
@@ -669,6 +836,8 @@ def main(argv=None) -> int:
     ap.add_argument("--generic", action="store_true")
     ap.add_argument("--mixture", action="store_true")
     ap.add_argument("--jagged", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--finish-alone", action="store_true")
     ap.add_argument("--m", type=int, default=4)
     ap.add_argument("--chains", default="1,2,4")
     ap.add_argument("--reps", type=int, default=20)
@@ -678,7 +847,8 @@ def main(argv=None) -> int:
     if args.shapes:
         SHAPES = tuple(tuple(int(n) for n in s.split("x"))
                        for s in args.shapes.split(","))
-    elif args.generic or args.mixture or args.jagged:
+    elif (args.generic or args.mixture or args.jagged or args.kernels
+          or args.finish_alone):
         SHAPES = ((16384, 2048),)
     if not torch.cuda.is_available():
         print("route_times: no CUDA device", file=sys.stderr)
@@ -691,7 +861,11 @@ def main(argv=None) -> int:
     print(f"K = {K} on {KP} lanes", flush=True)
     for I, L in SHAPES:
         chains = [int(b) for b in args.chains.split(",")]
-        if args.jagged and args.fit:
+        if args.kernels:
+            time_bi_kernels(I, L, chains, args.reps, dev)
+        elif args.finish_alone:
+            time_finish_alone(I, L, chains, args.reps, dev)
+        elif args.jagged and args.fit:
             time_jagged_fits(I, L, dev)
         elif args.jagged:
             time_jagged(I, L, chains, args.reps, dev)

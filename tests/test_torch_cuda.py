@@ -867,9 +867,10 @@ def test_build_reports_no_spills():
     """The -Xptxas -v report of every kernel of csrc/fullstep_bi.cu, of
     the generic rows and columns passes of csrc/fullstep.cu and of the
     mixture rows and columns passes of csrc/mixture_bi.cu (both stream
-    variants): none spills, at every Kp.  Left out by name: the generic p
-    epilogue ``fullstep_p_kernel``, whose instances for M > 64 spill 12-24
-    bytes (ROADMAP.md queue 3)."""
+    variants): none spills, at every Kp; the rows finish (with A at every
+    Kp, and t-only) in both admixture sources and the generic p epilogue
+    at every lane split (G lanes a locus, MJ slots a lane; up to M = 1024)
+    among them."""
     from multiclust_tpu_torch.kernel_report import ptxas_lines
 
     _cuda()
@@ -877,23 +878,218 @@ def test_build_reports_no_spills():
     report = build.library_path().with_suffix(".ptxas.txt").read_text()
     lines = ptxas_lines(
         report, "fullstep_(?:bi_)?(?:rows|cols)|fullstep_bi_p0|rows_finish"
-        "|mix_(?:rows|cols)")
+        "|fullstep_p_kernel|mix_(?:rows|cols)")
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in text
                for _, text in lines), lines
     names = [name for name, _ in lines]
     for kernel in ("fullstep_rows_kernel", "fullstep_cols_kernel",
                    "fullstep_bi_rows_kernel", "fullstep_bi_rows_seg_kernel",
-                   "fullstep_bi_cols_kernel", "rows_finish_kernel"):
+                   "fullstep_bi_cols_kernel"):
         for kp in (32, 64, 96, 128):
             assert f"{kernel}<{kp}>" in names, (kernel, kp, names)
     for kernel in ("mix_rows_kernel", "mix_cols_kernel"):
         for kp in (32, 64, 96, 128):
             for two in ("false", "true"):
                 assert f"{kernel}<{kp}, {two}>" in names, (kernel, kp, names)
+    for kp in (32, 64, 96, 128):
+        assert names.count(f"rows_finish_kernel<{kp}>") == 2, names
+    assert names.count("rows_finish_t_kernel") == 2, names
     assert "fullstep_bi_p0_kernel" in names, names
-    # the finish kernel is built into both admixture sources, the generic
-    # rows pass with its dense and its sparse cells; 16 mixture passes
-    assert len(names) == 49, names
+    for g, mj in ((4, 1), (8, 1), (16, 1), (32, 1), (32, 2), (32, 4),
+                  (32, 8), (32, 32)):
+        assert f"fullstep_p_kernel<{g}, {mj}>" in names, names
+    # the finish kernels are built into both admixture sources (4 + 1
+    # instances each), the generic rows pass with its dense and its
+    # sparse cells; 8 generic p epilogues; 16 mixture passes
+    assert len(names) == 59, names
+
+
+# ---------------------------------------------------------------------------
+# the segment reductions: the rows finish and the p0 epilogue
+
+SEGMENTS = [1, 3, 8, 62, 64, 256]
+LANES = [(20, 32), (40, 64), (70, 96), (100, 128)]
+
+
+def _finish_args(seed, B, I, K, Kp, n_seg, dev):
+    """eta with zero pads, the partials apart [B, n_seg, I, Kp] with one
+    value a (segment, row) on every lane past the lane tile of K, as the
+    rows passes write them, tpart, a seed a0 whose pad lanes differ, c."""
+    rng = np.random.default_rng(seed)
+    kc = fb.lane_tile(K, Kp).kc
+    eta = np.zeros((B, I, Kp), np.float32)
+    eta[..., :K] = rng.dirichlet(np.full(K, 0.3), size=(B, I))
+    apart = rng.uniform(-1.0, 3.0, size=(B, n_seg, I, Kp)).astype(np.float32)
+    apart[..., kc:] = apart[..., kc:kc + 1]
+    t = lambda a: torch.tensor(a, device=dev)
+    return (t(eta), t(apart),
+            t(rng.normal(-50.0, 20.0, size=(B, n_seg, I)).astype(np.float32)),
+            t(rng.uniform(0.0, 2.0, size=(B, I, Kp)).astype(np.float32)),
+            t(rng.uniform(0.0, 4.0, size=I).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", LANES)
+@pytest.mark.parametrize("n_seg", SEGMENTS)
+def test_finish_kernel_sums_the_segments_in_order(K, Kp, n_seg):
+    """The rows finish at 1 and 4 chains on a ragged I: the raw A (emit_a,
+    with and without a0) and t bit-equal to the partials added one
+    segment after another (float32 and float64), pad lanes included; eta'
+    (static lanes, a runtime kmask, the Michelot off) against the plain
+    finish of that sum; the t-only and the t-off variants; reruns
+    bit-equal."""
+    dev = _cuda()
+    I = 1001 if n_seg <= 8 else 301
+    kmask = (torch.arange(Kp, device=dev) < K - 3).float()
+    for B in (1, 4):
+        eta, apart, tpart, a0, c = _finish_args(K + n_seg + B, B, I, K, Kp,
+                                                n_seg, dev)
+        fin = dict(k_true=K, lb=0.01)
+        t_want = fb.ordered_segment_sum(tpart, dtype=torch.float64)
+        for seed in (None, a0):
+            got, t = fb.rows_finish(eta, apart, tpart, c, seed, **fin,
+                                    project_eta=True, emit_a=True)
+            assert torch.equal(got, fb.ordered_segment_sum(apart, seed))
+            assert torch.equal(t, t_want)
+        araw = fb.ordered_segment_sum(apart)
+        for kw in (dict(project_eta=True), dict(project_eta=False),
+                   dict(project_eta=True, kmask=kmask)):
+            got, t = fb.rows_finish(eta, apart, tpart, c, **fin, **kw)
+            again = fb.rows_finish(eta, apart, tpart, c, **fin, **kw)
+            want = fb.finish_eta_reference(eta, araw, c, **fin, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **F32)
+            assert (got[..., K:] == 0).all()
+            assert torch.equal(t, t_want)
+            assert torch.equal(got, again[0]) and torch.equal(t, again[1])
+        none, t = fb.rows_finish(eta, None, tpart, c, **fin,
+                                 project_eta=True)
+        assert none is None and torch.equal(t, t_want)
+        _, t_off = fb.rows_finish(eta, apart, tpart, c, **fin,
+                                  project_eta=True, compute_t=False)
+        assert (t_off == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", LANES)
+@pytest.mark.parametrize("n_seg", SEGMENTS)
+def test_p0_epilogue_sums_the_segments_in_order(K, Kp, n_seg):
+    """The p0 epilogue alone at 1 and 4 chains, on a window of 16-byte
+    units (L = 1024, [64, 576)) and of single columns (L = 1003, [1,
+    1000)): raw B0/B1 (emit_b) bit-equal to the partials added one segment
+    after another, p0' (clipped and not) against the plain update of that
+    sum; the lanes past the lane tile are not read (NaN there) and come
+    out 0; nothing outside the window is written; reruns bit-equal."""
+    dev = _cuda()
+    kc = fb.lane_tile(K, Kp).kc
+    for B, (L, lo, hi) in ((1, (1024, 64, 576)), (4, (1003, 1, 1000))):
+        if n_seg > 8:
+            hi = lo + 160
+        rng = np.random.default_rng(K + n_seg + B)
+        part = rng.uniform(0.0, 50.0, size=(B, n_seg, 2, Kp, hi - lo))
+        part[:, :, :, kc:] = np.nan
+        part = torch.tensor(part.astype(np.float32), device=dev)
+        p0 = np.zeros((B, Kp, L), np.float32)
+        p0[:, :K] = rng.uniform(0.0, 1.0, size=(B, K, L))
+        p0 = torch.tensor(p0, device=dev)
+        win = dict(l_lo=lo, l_hi=hi, k_true=K, plb=0.05)
+        b = [fb.ordered_segment_sum(part[:, :, a]) for a in (0, 1)]
+        for out in b:
+            out[:, kc:] = 0.0
+        outs = (torch.zeros_like(p0), torch.zeros_like(p0))
+        fb.p0_epilogue(p0, part, outs, project=True, **win)
+        for o, want in zip(outs, b):
+            assert torch.equal(o[..., lo:hi], want)
+            assert (o[..., :lo] == 0).all() and (o[..., hi:] == 0).all()
+        for project in (True, False):
+            got, again = torch.zeros_like(p0), torch.zeros_like(p0)
+            fb.p0_epilogue(p0, part, (got,), project=project, **win)
+            fb.p0_epilogue(p0, part, (again,), project=project, **win)
+            want = fb.p0_update_reference(p0[..., lo:hi], *b, plb=0.05,
+                                          project=project)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got[..., lo:hi], want, **F32)
+            assert (got[:, kc:] == 0).all() and torch.equal(got, again)
+            assert (got[..., :lo] == 0).all() and (got[..., hi:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_segment_reductions_read_no_host():
+    """The finish, the biallelic p0 epilogue alone and inside the columns
+    pass, and the generic p epilogue make no host read; each launch is
+    counted under its own entry point."""
+    dev = _cuda()
+    K, Kp, n_seg = 20, 32, 8
+    eta, apart, tpart, a0, c = _finish_args(5, 2, 1001, K, Kp, n_seg, dev)
+    _, p0, x0, x1, _, miss = _step_args(5, 2, 1001, 1024, K, Kp, 0.02, dev)
+    part = torch.rand((2, n_seg, 2, Kp, 1024), device=dev)
+    outs = [torch.zeros_like(p0) for _ in range(3)]
+    before = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fb.rows_finish(eta, apart, tpart, c, a0, k_true=K, lb=0.01,
+                       project_eta=True)
+        fb.rows_finish(eta, None, tpart, c, k_true=K, lb=0.01,
+                       project_eta=True)
+        fb.p0_epilogue(p0, part, outs[:1], l_lo=0, l_hi=1024, k_true=K,
+                       plb=0.05, project=True)
+        fb.cols_window(eta, p0, x0, x1, miss, outs[1:], l_lo=0, l_hi=1024,
+                       plb=0.05, project=True, k_true=K, n_rseg=3)
+        fs.fullstep_p(p0, part[:, :, 0].contiguous(),
+                      torch.ones((512, 2), dtype=torch.bool, device=dev),
+                      M=2, k_true=K, plb=0.05, project=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launched = {n: build.LAUNCHES[n] - before[n] for n in build.LAUNCHES}
+    assert launched["mc_fullstep_bi_finish"] == 2
+    assert launched["mc_fullstep_bi_cols"] == 1
+    assert launched["mc_fullstep_bi_p0"] == 1
+    assert launched["mc_fullstep_p"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 3, 4, 7, 8, 20, 64, 100, 300, 1024])
+def test_generic_p_epilogue_sums_the_segments_in_order(M):
+    """The generic p epilogue at 1 and 4 chains over 1, 3 and 64 segments,
+    K = 21 of Kp = 32 (lanes 21-23 of the lane tile zero, as the columns
+    pass leaves them; lanes 24-31 NaN: not read, they come out 0): raw B
+    (finish=False) bit-equal to the partials added one segment after
+    another; p', projected and not, against the plain normalization of
+    that sum; reruns bit-equal."""
+    dev = _cuda()
+    K, Kp = 21, 32
+    kc = fb.lane_tile(K, Kp).kc
+    L = max(3, 2048 // M)
+    rng = np.random.default_rng(M)
+    mask = rng.random((L, M)) < 0.7
+    mask[:, 0] = True
+    p = np.where(mask, rng.uniform(0.1, 1.0, size=(4, Kp, L, M)), 0.0)
+    p[:, K:] = 0.0
+    mask_t = torch.tensor(mask, device=dev)
+    for B in (1, 4):
+        p2 = torch.tensor(p[:B].reshape(B, Kp, L * M).astype(np.float32),
+                          device=dev)
+        for n_seg in (1, 3, 64):
+            part = rng.uniform(0.0, 5.0, size=(B, n_seg, Kp, L * M))
+            part[:, :, K:kc] = 0.0
+            part[:, :, kc:] = np.nan
+            part = torch.tensor(part.astype(np.float32), device=dev)
+            want = fb.ordered_segment_sum(part)
+            want[:, kc:] = 0.0
+            raw = fs.fullstep_p(p2, part, mask_t, M=M, k_true=K,
+                                finish=False)
+            assert torch.equal(raw, want)
+            for project in (True, False):
+                kw = dict(M=M, k_true=K, plb=0.01, project=project)
+                got = fs.fullstep_p(p2, part, mask_t, **kw)
+                again = fs.fullstep_p(p2, part, mask_t, **kw)
+                ref = fs.normalize_p((p2 * want).view(B, Kp, L, M), mask_t,
+                                     k_true=K, plb=0.01, project=project)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, ref, **F32)
+                assert (got[:, K:] == 0).all() and torch.equal(got, again)
 
 
 def _lattice(dev, admixture, R=3, B=2, I=2048, L=1024, K=3):
