@@ -109,7 +109,25 @@ each raising on failure:
    force it): iterations, logL gap against the noise floor, walls, useful
    cells/s (I x sum_l M_l a chain iteration); a microsatellite-like panel
    (2..20 alleles a locus, the 8-bucket cap); a -b 4 -k 3 -n 2 bootstrap
-   and a mixture fit on the jagged panel.
+   and a mixture fit on the jagged panel;
+19. mesh (runtime/mesh.py over torch.distributed): (a) NCCL at world size
+   1 on the card through ``initialize_distributed`` with a ``file://``
+   init: all_reduce in float32 and float64, broadcast, the row gather and
+   both subgroups on card tensors; (b) 2 and 4 ranks on the one card over
+   an explicit gloo group, as child processes of this script (each with a
+   timeout; a child that fails, hangs or disagrees fails the phase), on
+   2x1, 1x2 and 2x2 meshes: the main path's 16384 x 2048, K = 20, 2
+   chains, 1 % missing, made from seeds on the card: one meshed biallelic
+   step (the sharded variants ``emit_b``, and ``emit_a`` with the loci
+   split) and one generic M = 4 step (``finish=False``; the sweep
+   statistics with the loci split), each held to the unsharded kernel
+   step; on 2x1 a plain-EM fit from the same start held to the unsharded
+   fit's logL within the float32 noise floor of opt/em.py.  The unsharded
+   steps and fit run in this process before any process group exists.
+   Each rank's launches are counted from 0 before its meshed step, and
+   the wrappers it called are recorded with their sharded-variant flags:
+   the kernels line's ``mesh`` entry holds both, shape by shape.  These
+   ranks share one card: their times are no multi-GPU speed.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -125,6 +143,10 @@ torch.matmul of the pass's product (the softmax left out), the port's
 plain arithmetic in one library call; no single PyTorch call computes the
 other functions (phase 6 prints two float32 matmuls a generic pass beside
 them), so theirs is null.
+
+Records of kernels the mesh phase launched name the sharded variants it
+took (``mesh_variants``) and their launches on each rank of each shape
+(``mesh_launches_per_rank``).
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -182,6 +204,10 @@ F32_FLOP_PER_S = 67e12
 OUT_FILES = ("sim.str.admix.K=3.out.txt", "sim.str.admix.K=3.etaik.txt",
              "sim.str.admix.K=3.pklm.txt", "sim.str_admix_popq_3.popq",
              "sim.str_admix_indivq_3.indivq")
+# the mesh phase: shapes run as groups of child processes on the one card
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+MESH_TIMEOUT = 240
+MESH_FIT_ITERS = 300
 
 
 def card() -> str:
@@ -800,7 +826,8 @@ def phase_generic_kernels(fs, build, dev, where):
           flush=True)
 
     # the sweep statistics (finish=False), its launches counted from 0 on
-    # its own (no fit calls it), and an a0 / emit_a chain
+    # a call of its own (of the fits only a meshed one with the loci split
+    # calls it, phase 19), and an a0 / emit_a chain
     build.reset_launch_counts()
     got = fs.admixture_sweep_stats(e, p2, x2)
     sweep_launches = build.LAUNCHES["mc_fullstep_rows"]
@@ -2058,6 +2085,344 @@ def phase_jagged(build, dev, where):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the mesh
+
+def phase_nccl_world_one(where):
+    """NCCL at world size 1: the helpers of runtime/mesh.py on card
+    tensors, through a process group of one rank."""
+    import torch.distributed as dist
+
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dev = mesh_mod.initialize_distributed(
+            num_processes=1, process_id=0, device="cuda",
+            init_method="file://" + os.path.join(tmp, "init"))
+        try:
+            assert dist.get_backend() == "nccl", dist.get_backend()
+            mesh = mesh_mod.make_mesh((1, 1))
+            gen = torch.Generator(device=dev).manual_seed(19)
+            # a mesh's sums skip an axis of one shard, so the collectives
+            # are called here on its groups themselves
+            for dtype in (torch.float32, torch.float64):
+                x = torch.rand((3, 1000, 32), generator=gen, device=dev,
+                               dtype=dtype)
+                for group in (mesh.data_group, mesh.model_group):
+                    got = x.clone()
+                    dist.all_reduce(got, group=group)
+                    assert torch.equal(got, x), (dtype, group)
+                # the row gather as Mesh.gather makes it: the block in a
+                # zero-filled buffer, summed over the data group
+                lo, hi = mesh.rows(1000)
+                whole = x.new_zeros(x.shape)
+                whole.narrow(1, lo, hi - lo).copy_(x[:, lo:hi])
+                dist.all_reduce(whole, group=mesh.data_group)
+                assert torch.equal(whole, x), dtype
+            y = torch.arange(5, device=dev, dtype=torch.float64)
+            assert torch.equal(mesh.broadcast(y.clone()), y)
+            assert mesh_mod.sync_host_flag(True)
+            assert mesh_mod.world_min(7) == 7
+            flags = torch.tensor([True, False], device=dev)
+            assert torch.equal(mesh_mod.any_over_world(flags), flags)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    print(f"mesh: NCCL at world size 1 on {dev}: all_reduce float32 and "
+          f"float64 over the data and model groups, broadcast, the row "
+          f"gather, sync_host_flag and world_min agree, on {where}",
+          flush=True)
+
+
+def mesh_panels(dev):
+    """The main path's panels made on the card from seeds (the same on
+    every rank): a biallelic 16384 x 2048 and an M = 4 one, 1 % missing,
+    and 2-chain starts of each (K = 20, K-padded to 32 lanes)."""
+    from multiclust_tpu_torch.model.common import Params, make_model_data
+
+    panels = {}
+    for name, n_alleles, seed in (("biallelic", 2, 191), ("generic", M_FULL,
+                                                         192)):
+        counts, miss, mask = generic_counts(
+            seed, I_FULL, L_FULL, np.full(L_FULL, n_alleles), K_FULL, 0.01,
+            dev)
+        md = make_model_data(counts, miss, mask,
+                             torch.full((L_FULL,), n_alleles, device=dev),
+                             dtype=torch.float32, device=dev,
+                             storage_dtype=torch.int8)
+        gen = torch.Generator(device=dev).manual_seed(seed + 100)
+        eta = torch.rand((2, I_FULL, K_FULL), generator=gen,
+                         device=dev) + 0.05
+        p = (torch.rand((2, K_FULL, L_FULL, mask.shape[1]), generator=gen,
+                        device=dev) + 0.05) * mask
+        panels[name] = (md, Params(eta=eta / eta.sum(-1, keepdim=True),
+                                   p=p / p.sum(-1, keepdim=True)))
+    return panels
+
+
+def mesh_step(md, start, mesh, build, n_timed=3):
+    """One meshed kernel step of ``start`` on this rank's block (launches
+    counted from 0 before it), its wall over ``n_timed`` more, and the
+    whole results of both lanes; ``mesh`` None: the unsharded step."""
+    import torch.distributed as dist
+
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.opt import em as em_mod
+    from multiclust_tpu_torch.runtime import multistart as ms
+
+    opt = Options(admixture=True, dtype="float32", use_pallas=True,
+                  mesh_shape=None if mesh is None else mesh.shape)
+    cfg = ms.cfg_from_options(opt, K_FULL, md)
+    md_fit, _ = ms._fit_data(md, cfg, None)
+    params = ms._to_fit_layout(
+        ms._pad_k(ms._warm_block(start, md, cfg), cfg), md_fit, cfg)
+    build.reset_launch_counts()
+    new, ll, scale = em_mod.model_em_step(params, md_fit, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    if mesh is not None:
+        dist.barrier()
+    t0 = time.time()
+    for _ in range(n_timed):
+        em_mod.model_em_step(params, md_fit, cfg)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / max(n_timed, 1)
+    whole = [ms.lane_params(new, b, cfg, md_fit) for b in range(2)]
+    return whole, ll, launches, wall
+
+
+def mesh_fit(md, start, mesh):
+    """A plain-EM fit of one chain from ``start``: its logL, iterations,
+    whole best parameters and wall."""
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.model.common import Params
+    from multiclust_tpu_torch.runtime.multistart import maximize_likelihood
+
+    opt = Options(admixture=True, min_K=K_FULL, max_K=K_FULL, n_init=1,
+                  max_iter=MESH_FIT_ITERS, verbosity=0, dtype="float32",
+                  use_pallas=True, mesh_shape=None if mesh is None else mesh.shape
+                  ).synchronize(I_FULL, 2)
+    warm = Params(eta=start.eta[0], p=start.p[0])
+    t0 = time.time()
+    res = maximize_likelihood(torch.Generator(device=md.device).manual_seed(
+        1), md, K_FULL, opt, 0, warm=warm)
+    torch.cuda.synchronize()
+    return res.max_logL, res.n_iter_all, res.best_params, time.time() - t0
+
+
+# the wrappers model/admixture.py calls on the meshed kernel routes: the
+# mesh children record each call with its sharded-variant flags
+MESH_SPIED = ("admixture_fullstep_biallelic_chunked", "admixture_sweep_stats",
+              "fullstep_rows", "fullstep_cols", "rows_finish", "p0_epilogue",
+              "fullstep_p")
+
+
+def spy_variants(calls: set) -> None:
+    """Make every call of a MESH_SPIED wrapper from model/admixture.py add
+    ``name(flags)`` to ``calls``, the flags being the ``emit_*`` and
+    ``finish`` arguments the call passed."""
+    from multiclust_tpu_torch.model import admixture
+
+    for name in MESH_SPIED:
+        def wrapped(*a, _fn=getattr(admixture, name), _name=name, **kw):
+            flags = ",".join(f"{k}={kw[k]}" for k in sorted(kw)
+                             if k.startswith(("emit", "finish")))
+            calls.add(f"{_name}({flags})")
+            return _fn(*a, **kw)
+        setattr(admixture, name, wrapped)
+
+
+def mesh_child(task: str, rank: int, world: int, init: str) -> int:
+    """A rank of the mesh phase: joins the gloo group on the one card and
+    runs the meshed steps (and on 2x1 the fit) of its shape; writes its
+    launches, the variants its steps called and its walls to
+    ``task.rank<r>``, and rank 0 its whole results to ``task.rank0.pt``
+    for the parent to hold to the unsharded ones."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from multiclust_tpu_torch.ops import build
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
+
+    with open(task) as fh:
+        shape = tuple(json.load(fh)["shape"])
+    dev = mesh_mod.initialize_distributed(
+        num_processes=world, process_id=rank, backend="gloo", device="cuda",
+        init_method=init)
+    mesh = mesh_mod.cached_mesh(shape)
+    calls = set()
+    spy_variants(calls)
+    panels = mesh_panels(dev)
+    out = {"rank": rank, "steps": {}}
+    whole_out = {}
+    for name, (md, start) in panels.items():
+        calls.clear()
+        whole, ll, launches, wall = mesh_step(md, start, mesh, build)
+        out["steps"][name] = {"launches": launches,
+                              "variants": sorted(calls),
+                              "wall_ms": 1e3 * wall}
+        whole_out[name] = {"whole": [(w.eta.cpu(), w.p.cpu())
+                                     for w in whole], "ll": ll.cpu()}
+    if shape == (2, 1):
+        md, start = panels["biallelic"]
+        ll, n_iter, best, wall = mesh_fit(md, start, mesh)
+        out["fit"] = {"logL": ll, "n_iter": n_iter, "wall_s": wall}
+    if rank == 0:
+        torch.save(whole_out, f"{task}.rank0.pt")
+    with open(f"{task}.rank{rank}", "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_references(build, dev):
+    """The unsharded kernel steps and fit of the mesh phase's panels, run
+    here before any process group exists: each panel's whole lanes and
+    logL, and the fit's logL, iterations, float32 noise floor (opt/em.py)
+    and wall."""
+    from multiclust_tpu_torch.model import admixture as adm
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+
+    panels = mesh_panels(dev)
+    steps = {}
+    for name, (md, start) in panels.items():
+        whole, ll, _, _ = mesh_step(md, start, None, build, n_timed=0)
+        steps[name] = {"whole": [(w.eta.cpu(), w.p.cpu()) for w in whole],
+                       "ll": ll.cpu()}
+    md, start = panels["biallelic"]
+    ll, n_iter, best, wall = mesh_fit(md, start, None)
+    _, scale = adm.log_likelihood(Params(eta=best.eta[None],
+                                         p=best.p[None]), md)
+    floor = (EMConfig().noise_factor * float(np.finfo(np.float32).eps)
+             * float(scale[0]))
+    del panels, md, start, best
+    torch.cuda.empty_cache()
+    return steps, {"logL": ll, "n_iter": n_iter, "floor": floor,
+                   "wall_s": wall}
+
+
+def phase_mesh(build, dev, where, tmp):
+    """2 and 4 ranks on the one card over gloo, a child process a rank,
+    each shape held to the unsharded kernel step and fit; returns each
+    shape's records, rank by rank."""
+    ref_steps, ref_fit = mesh_references(build, dev)
+    results = {}
+    for shape in MESH_SHAPES:
+        D, M = shape
+        n = D * M
+        task = os.path.join(tmp, f"mesh_{D}x{M}.json")
+        with open(task, "w") as fh:
+            json.dump({"shape": shape}, fh)
+        init = "file://" + os.path.join(tmp, f"init_{D}x{M}")
+        t0 = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-child", task,
+             str(r), str(n), init], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        try:
+            logs = [p.communicate(timeout=max(
+                1.0, MESH_TIMEOUT - (time.time() - t0)))[0] for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise RuntimeError(f"mesh {D}x{M}: a rank outlived "
+                               f"{MESH_TIMEOUT} s")
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"mesh {D}x{M} rank {r} exited "
+                                   f"{p.returncode}:\n{log}")
+        recs = []
+        for r in range(n):
+            with open(f"{task}.rank{r}") as fh:
+                recs.append(json.load(fh))
+        got = torch.load(f"{task}.rank0.pt")
+        for name, ref in ref_steps.items():
+            err = 0.0
+            for g, w in zip(got[name]["whole"], ref["whole"]):
+                err = max(err, max_err(g[0], w[0]), max_err(g[1], w[1]))
+            torch.testing.assert_close(got[name]["ll"], ref["ll"],
+                                       rtol=1e-5, atol=0)
+            recs[0]["steps"][name]["max_abs_err"] = err
+            print(f"mesh {D}x{M} {name} step: max|d| against the unsharded "
+                  f"kernel step {err:.3e} (rtol {RTOL}, atol {ATOL}); "
+                  f"launches a rank "
+                  f"{[q['steps'][name]['launches'] for q in recs]}; "
+                  f"variants {recs[0]['steps'][name]['variants']}; a meshed "
+                  f"step {recs[0]['steps'][name]['wall_ms']:.2f} ms wall on "
+                  f"rank 0", flush=True)
+        if "fit" in recs[0]:
+            f = recs[0]["fit"]
+            gap = abs(f["logL"] - ref_fit["logL"])
+            assert gap <= ref_fit["floor"], (f, ref_fit)
+            print(f"mesh {D}x{M} plain-EM fit from the same start: logL "
+                  f"{f['logL']:.4f} in {f['n_iter']} iterations "
+                  f"({f['wall_s']:.2f} s), unsharded {ref_fit['logL']:.4f} "
+                  f"in {ref_fit['n_iter']} ({ref_fit['wall_s']:.2f} s): gap "
+                  f"{gap:.4f} against the float32 noise floor "
+                  f"{ref_fit['floor']:.4f}", flush=True)
+        print(f"mesh {D}x{M}: {time.time() - t0:.1f} s wall with the "
+              f"children's start-up, on {where}", flush=True)
+        results[f"{D}x{M}"] = recs
+    print(f"mesh: the ranks of each shape shared one card ({where}) over "
+          f"gloo, which stages CUDA tensors through the host: these times "
+          f"are no multi-GPU speed", flush=True)
+    return results
+
+
+def check_mesh_launches(results):
+    """Each rank's meshed steps launched the kernels of their route, with
+    the sharded variants the shape calls for, the same on every rank."""
+    for shape, recs in results.items():
+        split = not shape.endswith("x1")
+        for q in recs:
+            bi = q["steps"]["biallelic"]
+            gen = q["steps"]["generic"]
+            assert bi["variants"] == recs[0]["steps"]["biallelic"][
+                "variants"], (shape, bi)
+            assert gen["variants"] == recs[0]["steps"]["generic"][
+                "variants"], (shape, gen)
+            launches = bi["launches"]
+            need_bi = ["mc_fullstep_bi_rows_seg", "mc_fullstep_bi_finish",
+                       "mc_fullstep_bi_cols", "mc_fullstep_bi_p0"]
+            assert all(launches.get(k, 0) >= 1 for k in need_bi), (
+                shape, launches)
+            # the loci split adds the finish of the merged A + r
+            assert launches["mc_fullstep_bi_finish"] == 1 + split, (
+                shape, launches)
+            assert (f"admixture_fullstep_biallelic_chunked(emit_a={split},"
+                    f"emit_b=True)") in bi["variants"], (shape, bi)
+            assert "p0_epilogue()" in bi["variants"], (shape, bi)
+            assert ("rows_finish()" in bi["variants"]) == split, (shape, bi)
+            launches = gen["launches"]
+            need_gen = ["mc_fullstep_rows", "mc_fullstep_cols",
+                        "mc_fullstep_p"]
+            assert all(launches.get(k, 0) >= 1 for k in need_gen), (
+                shape, launches)
+            assert launches["mc_fullstep_p"] == 2, (shape, launches)
+            assert launches.get("mc_fullstep_bi_finish", 0) == split, (
+                shape, launches)
+            assert ("admixture_sweep_stats()" in gen["variants"]) == split, (
+                shape, gen)
+            assert ("fullstep_cols(finish=False)" in gen["variants"]) == (
+                not split), (shape, gen)
+
+
+def mesh_record(results):
+    """The kernels line's ``mesh`` entry: for each shape and each meshed
+    step (biallelic, generic), the launches of each rank as the step's
+    launch counts read them, the wrappers with the sharded-variant flags
+    its calls passed (``spy_variants``) and rank 0's max |d| against the
+    unsharded step."""
+    return {shape: {name: {"launches_per_rank": [q["steps"][name]["launches"]
+                                                 for q in recs],
+                           "variants": recs[0]["steps"][name]["variants"],
+                           "max_abs_err": recs[0]["steps"][name][
+                               "max_abs_err"]}
+                    for name in recs[0]["steps"]}
+            for shape, recs in results.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2137,6 +2502,13 @@ def main() -> int:
     t0 = time.time()
     phase_jagged(build, dev, where)
     print(f"jagged phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    torch.cuda.empty_cache()   # the children share this card
+    phase_nccl_world_one(where)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_results = phase_mesh(build, dev, where, tmp)
+    check_mesh_launches(mesh_results)
+    print(f"mesh phase: {time.time() - t0:.1f} s", flush=True)
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
@@ -2154,7 +2526,8 @@ def main() -> int:
         for name, record in (("rows", "fullstep_rows+rows_finish"),
                              ("cols", "fullstep_cols"), ("p", "fullstep_p"))]
     # the sweeps' port is the generic rows, columns and p kernels with
-    # finish=False; no fit calls it: its launches are those of one
+    # finish=False; of the fits only a meshed one with the loci split calls
+    # it (the mesh entry below): its launches here are those of one
     # admixture_sweep_stats call counted on their own, its times and error
     # those of such a call
     kernels += [
@@ -2196,7 +2569,7 @@ def main() -> int:
         kernel_record("fullstep_bi_chunked", SOURCE, CHUNK_TPU,
                       bio_launches["fullstep_bi_chunked"], b_errs["chunked"],
                       b_ms["chunked"], b_bnd["chunked"]))
-    record = {"kernels": kernels}
+    record = {"kernels": kernels, "mesh": mesh_record(mesh_results)}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2205,4 +2578,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        raise SystemExit(mesh_child(sys.argv[2], int(sys.argv[3]),
+                                    int(sys.argv[4]), sys.argv[5]))
     raise SystemExit(main())

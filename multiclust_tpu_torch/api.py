@@ -3,7 +3,10 @@
 ``fit_file`` / ``fit_dataset`` run read -> synchronize -> K-sweep
 multi-start -> the bootstrap test when ``n_bootstrap`` asks for it.  The
 device defaults to ``cuda``; without a CUDA device they raise unless
-``device="cpu"`` is passed.
+``device="cpu"`` is passed.  A meshed fit (``mesh_shape``) runs in every
+process of a group that ``runtime/mesh.initialize_distributed`` joined,
+each on its own device with the whole panel; every process gets the whole
+results.
 """
 
 from __future__ import annotations
@@ -53,10 +56,13 @@ def resolve_device(device) -> torch.device:
 
 def check_ported(opt: Options) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
-    if opt.mesh_shape:
+    from multiclust_tpu_torch.runtime.mesh import world_size
+
+    if opt.checkpoint_dir and world_size() > 1:
         raise NotImplementedError(
-            "meshes (--mesh) are not yet ported; see ROADMAP.md queue 1, "
-            "item 17")
+            "--checkpoint is single-process for now: multi-process "
+            "checkpoints come with per-process ingest and writers (ROADMAP.md "
+            "queue 1, item 17b)")
 
 
 def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
@@ -74,7 +80,7 @@ def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
         opt = dataclasses.replace(opt, **kw)
     check_ported(opt)
     resolve_device(md.device)
-    opt = opt.synchronize(md.I, ploidy)
+    opt = opt.synchronize(md.I_total, ploidy)
     # allele codes seed the admixture starts only
     codes = (codes_from_counts(md.x, md.miss, ploidy) if opt.admixture
              else None)
@@ -83,7 +89,7 @@ def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
     def n_parameters(K):
         # Dataset.n_parameters (multiclust.c:1267-1277)
         per_i = opt.admixture and not opt.eta_constrained
-        return (md.I * (K - 1) if per_i else K - 1) + free_p * K
+        return (md.I_total * (K - 1) if per_i else K - 1) + free_p * K
 
     est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
                          checkpoint_dir=opt.checkpoint_dir)

@@ -343,9 +343,16 @@ OPTIONS
 
 OPTIONS WITHOUT A REFERENCE COUNTERPART
 \t--mesh <DxM|auto>
-\t\tDevice mesh for multi-device fits (not yet ported).
+\t\tProcess mesh for multi-device fits: D data (individual) shards
+\t\tx M loci shards, one process per device; 'auto' puts every
+\t\tprocess on the data axis.  Each process is started with
+\t\tMULTICLUST_COORDINATOR=<host:port of process 0>,
+\t\tMULTICLUST_NUM_PROCESSES=<D*M> and MULTICLUST_PROCESS_ID=<rank>
+\t\t(NCCL on cuda, gloo on cpu); every process reads the whole file
+\t\tand process 0 writes the output files.
 \t--checkpoint <dir>
-\t\tPersist/resume the multi-start sweep state and the bootstrap.
+\t\tPersist/resume the multi-start sweep state and the bootstrap
+\t\t(single-process only for now).
 \t--compile-cache <dir|off>
 \t\tAccepted for compatibility with the JAX CLI and unused.
 \t--check-interval <n>
@@ -394,11 +401,6 @@ def _main(argv: Optional[List[str]] = None) -> int:
     if opt.simulate:
         return _run_simulate(opt)
 
-    from multiclust_tpu_torch.api import check_ported
-    try:
-        check_ported(opt)
-    except NotImplementedError as e:
-        raise UsageError(str(e))
     if platform == "cpu":
         opt.dtype = "float64"  # reference-precision semantics on CPU
         device = torch.device("cpu")
@@ -407,6 +409,29 @@ def _main(argv: Optional[List[str]] = None) -> int:
     else:
         raise UsageError("no CUDA device is available; run with "
                          "--platform cpu")
+
+    # multi-process bring-up from MULTICLUST_COORDINATOR /
+    # MULTICLUST_NUM_PROCESSES / MULTICLUST_PROCESS_ID (a no-op for one
+    # process): NCCL on cuda, gloo on cpu; one process per device
+    from multiclust_tpu_torch.api import check_ported
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
+    from multiclust_tpu_torch.runtime.multistart import mesh_shape_of
+    device = mesh_mod.initialize_distributed(device=device) or device
+    n_proc = mesh_mod.world_size()
+    shape = mesh_shape_of(opt)
+    if shape is None and n_proc > 1:
+        raise UsageError("multi-process runs require --mesh")
+    if shape is not None and shape[0] * shape[1] != n_proc:
+        raise UsageError(f"mesh shape {shape[0]}x{shape[1]} does not cover "
+                         f"{n_proc} process(es): a mesh runs one process "
+                         f"per device (MULTICLUST_NUM_PROCESSES)")
+    opt.mesh_shape = shape
+    try:
+        check_ported(opt)
+    except NotImplementedError as e:
+        raise UsageError(str(e))
+    # process 0 writes the output files; every process prints
+    writer = mesh_mod.rank() == 0
 
     from multiclust_tpu_torch.io.structure import read_structure
     from multiclust_tpu_torch.io.warm_start import read_afile, read_pfile, \
@@ -418,7 +443,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
     from multiclust_tpu_torch.runtime.multistart import device_policy
 
     ds = read_structure(opt.filename, opt)
-    if opt.imputation_method and opt.imputed_outfile:
+    if opt.imputation_method and opt.imputed_outfile and writer:
         # write the imputed dataset (read_file, read_file.c:295-296)
         from multiclust_tpu_torch.io.writers import write_data
         write_data(opt, ds, opt.imputed_outfile)
@@ -467,11 +492,11 @@ def _main(argv: Optional[List[str]] = None) -> int:
     def on_model_improve(K, mres):
         # best-so-far persistence: rewrite the per-K files whenever an
         # init improves the best logL (multiclust.c:584-600)
-        if opt.write_files and mres.best_params is not None:
+        if writer and opt.write_files and mres.best_params is not None:
             _write_outputs(opt, ds, md, K, mres)
 
     def on_model_done(K, mres):
-        if opt.write_files and mres.best_params is not None:
+        if writer and opt.write_files and mres.best_params is not None:
             _write_outputs(opt, ds, md, K, mres)
         if opt.verbosity > 2 and mres.route:
             # how the biallelic admixture step ran on the card

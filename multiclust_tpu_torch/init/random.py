@@ -15,6 +15,13 @@ would all be identical.  So is its deviation from the reference's
 ``initialize_parameters_mixture`` (plain add-one smoothing) and from its
 missing-data correction of ``random_individual_center`` (against center
 k's missing counts, not center 0's).
+
+Under a mesh (runtime/mesh.py) every rank makes the whole panel's draws
+from the same generator, so the starts equal the unsharded fit's, and
+counts its own block of them: the per-individual counts over its loci are
+summed over the model group, the per-locus counts over its rows over the
+data group, and a rank's start is its block (eta rows, p loci).  Every rank
+holds the whole panel (``md``, ``codes``) until the ingest is per process.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import torch
 from multiclust_tpu_torch.config import InitMethod, InitProcedure
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     column_window
+from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
+    world_min
 
 Tensor = torch.Tensor
 
@@ -65,18 +74,32 @@ def random_individual_center(gen: torch.Generator, md: ModelData,
 
 
 def parameters_from_partition_mixture(I_K: Tensor, md: ModelData,
-                                      K: int) -> Params:
+                                      K: int, mesh=None) -> Params:
     """Add-one-smoothed counts given a hard partition
     (initialize_parameters_mixture, rnd_init.c:268-339): eta [K], p [K, L,
     M].  Counts are exact integers, so bincounts and an index sum give the
-    JAX package's one-hot sums."""
+    JAX package's one-hot sums.  Under a ``mesh`` the p of this rank's
+    loci, from the counts of its rows summed over the data group."""
     dtype = md.dtype
     eta = (1.0 + torch.bincount(I_K, minlength=K).to(dtype)) / (md.I + K)
-    pc = torch.zeros((K, md.L * md.M), dtype=dtype, device=md.device)
-    pc.index_add_(0, I_K, md.x2d)
-    pc = torch.where(md.mask[None], pc.reshape(K, md.L, md.M) + 1.0,
+    (r0, r1), (l0, l1) = _block(md, mesh)
+    L = l1 - l0
+    pc = torch.zeros((K, L * md.M), dtype=dtype, device=md.device)
+    pc.index_add_(0, I_K[r0:r1],
+                  md.x[r0:r1, l0:l1].reshape(r1 - r0, -1).to(dtype))
+    if mesh is not None:
+        pc = mesh.sum(pc, DATA_AXIS)
+    pc = torch.where(md.mask[l0:l1][None], pc.reshape(K, L, md.M) + 1.0,
                      torch.zeros((), dtype=dtype, device=md.device))
     return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
+
+
+def _block(md: ModelData, mesh):
+    """([r0, r1), [l0, l1)): this rank's rows and loci of the whole panel
+    ``md``, or all of them without a mesh."""
+    if mesh is None:
+        return (0, md.I), (0, md.L)
+    return mesh.rows(md.I), mesh.loci(md.L)
 
 
 # ---------------------------------------------------------------------------
@@ -164,15 +187,23 @@ def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
 
 def parameters_from_allele_counts(copies: Tensor, pc: Tensor,
                                   md: ModelData, n_copies: int,
-                                  eta_constrained: bool = False) -> Params:
+                                  eta_constrained: bool = False,
+                                  mesh=None) -> Params:
     """Add-one-smoothed parameters from the exact counts of a whole panel
-    (``n_copies`` = L x P copies per individual)."""
-    I, K = copies.shape
+    (``n_copies`` = L x P copies per individual).  Under a ``mesh`` copies
+    are those of this rank's rows and pc of its loci of the whole panel
+    ``md``, each already summed over the other axis's ranks; the shared eta
+    of ``eta_constrained`` sums the rows over the data group."""
+    K = copies.shape[1]
+    _, (l0, l1) = _block(md, mesh)
     if eta_constrained:
-        eta = (1.0 + copies.sum(dim=0)) / (I * n_copies + K)
+        col = copies.sum(dim=0)
+        if mesh is not None:
+            col = mesh.sum(col, DATA_AXIS)
+        eta = (1.0 + col) / (md.I * n_copies + K)
     else:
         eta = (1.0 + copies) / (n_copies + K)
-    pc = torch.where(md.mask[None], pc + 1.0, torch.zeros_like(pc))
+    pc = torch.where(md.mask[l0:l1][None], pc + 1.0, torch.zeros_like(pc))
     return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
 
 
@@ -198,36 +229,53 @@ def _allele_labels(gen, md, codes, K, method, lo=0, hi=None):
 
 def windowed_allele_start(gen: torch.Generator, md: ModelData,
                           codes: Tensor, K: int, method: InitMethod,
-                          eta_constrained: bool, window: int) -> Params:
+                          eta_constrained: bool, window: int,
+                          mesh=None) -> Params:
     """An admixture start drawn and counted ``window`` loci at a time, so
     that no temporary grows with the whole I x L x P.  The counts are
     those of the unwindowed path for the same labels; the draws come in
-    another order (one window after another)."""
+    another order (one window after another), except with one window.
+    Under a ``mesh`` each window's labels are drawn whole and this rank
+    counts its block of them; its start is its block."""
     _, L, P = codes.shape
+    (r0, r1), (l0, l1) = _block(md, mesh)
     copies = None
     pcs = []
     for lo in range(0, L, window):
         hi = min(L, lo + window)
         cw = codes[:, lo:hi]
         labels = _allele_labels(gen, md, cw, K, method, lo, hi)
-        cp, pc = allele_partition_counts(labels, cw, md.M, K, md.dtype)
+        a, b = max(lo, l0) - lo, min(hi, l1) - lo    # this rank's loci
+        if a >= b:
+            continue
+        cp, pc = allele_partition_counts(labels[r0:r1, a:b],
+                                         cw[r0:r1, a:b], md.M, K, md.dtype)
         copies = cp if copies is None else copies + cp
         pcs.append(pc)
-    return parameters_from_allele_counts(copies, torch.cat(pcs, dim=1), md,
-                                         L * P, eta_constrained)
+    pc = torch.cat(pcs, dim=1)
+    if mesh is not None:
+        copies = mesh.sum(copies, MODEL_AXIS)
+        pc = mesh.sum(pc, DATA_AXIS)
+    return parameters_from_allele_counts(copies, pc, md, L * P,
+                                         eta_constrained, mesh)
 
 
 def random_initialize(gen: torch.Generator, md: ModelData, K: int,
                       method: InitMethod, codes: Tensor = None, *,
                       admixture: bool = True,
                       eta_constrained: bool = False,
-                      budget: int = None) -> Params:
+                      budget: int = None, mesh=None) -> Params:
     """One random start of the admixture model (allele partitions, from
     ``codes``) or of the mixture model (individual partitions).  An
     admixture start whose temporaries exceed ``budget`` bytes
-    (``init_window``) is drawn in windows of loci."""
+    (``init_window``) is drawn in windows of loci.  Under a ``mesh`` this
+    rank's block of the start (every rank takes the least window)."""
     if admixture:
         window = init_window(md, codes.shape[-1], budget)
+        if mesh is not None:
+            return windowed_allele_start(gen, md, codes, K, method,
+                                         eta_constrained, world_min(window),
+                                         mesh)
         if window < md.L:
             return windowed_allele_start(gen, md, codes, K, method,
                                          eta_constrained, window)
@@ -238,7 +286,7 @@ def random_initialize(gen: torch.Generator, md: ModelData, K: int,
         part = random_individual_partition(gen, md, K)
     else:
         part = random_individual_center(gen, md, K)
-    return parameters_from_partition_mixture(part, md, K)
+    return parameters_from_partition_mixture(part, md, K, mesh)
 
 
 def rand_em_chunk(md: ModelData, n: int, hbm_budget: float = 2e9) -> int:
@@ -260,23 +308,28 @@ def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
     refined parameters, seeds the fit.  Candidates are drawn on ``md`` and
     scored on ``md_score`` (the collapsed data of a constrained-eta fit;
     ``md`` by default) in batches of ``chunk`` lanes, in the layout the fit
-    will run (the p0 layout through the kernel when it is active)."""
+    will run (the p0 layout through the kernel when it is active).  Under a
+    mesh ``md`` is the whole panel and ``md_score`` this rank's block: each
+    candidate is this rank's block of it, scored by the meshed step and
+    logL, so every rank keeps the same winner."""
     from multiclust_tpu_torch.opt.em import model_em_step, \
         model_log_likelihood
-    from multiclust_tpu_torch.runtime.multistart import _pad_k, _to_bi_repr
+    from multiclust_tpu_torch.runtime.multistart import _pad_k, \
+        _to_fit_layout
 
     md_score = md if md_score is None else md_score
     n = n_rand_em_init if K > 1 else 1
     c = chunk or rand_em_chunk(md_score, n)
     cands = [random_initialize(gen, md, K, method, codes,
                                admixture=cfg.admixture,
-                               eta_constrained=cfg.eta_constrained)
+                               eta_constrained=cfg.eta_constrained,
+                               mesh=cfg.mesh)
              for _ in range(n)]
     lls = []
     for lo in range(0, n, c):
         batch = Params(eta=torch.stack([p.eta for p in cands[lo:lo + c]]),
                        p=torch.stack([p.p for p in cands[lo:lo + c]]))
-        batch = _to_bi_repr(_pad_k(batch, cfg), cfg)
+        batch = _to_fit_layout(_pad_k(batch, cfg), md_score, cfg)
         stepped, _, _ = model_em_step(batch, md_score, cfg)
         lls.append(model_log_likelihood(stepped, md_score, cfg)[0])
     return cands[int(torch.argmax(torch.cat(lls)))]
@@ -289,13 +342,15 @@ def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
                md_score: ModelData = None) -> Params:
     """One start (initialize_model, rnd_init.c:54-89), unbatched and
     unpadded: eta [I, K] (admixture) or [K] (mixture, constrained eta), p
-    [K, L, M].  ``md_score`` is where Rand-EM scores its candidates."""
+    [K, L, M]; under a mesh (cfg.mesh) this rank's block of it.
+    ``md_score`` is where Rand-EM scores its candidates."""
     if procedure == InitProcedure.RAND_EM:
         return rand_em_initialize(gen, md, K, cfg, method, n_rand_em_init,
                                   codes, md_score=md_score)
     return random_initialize(gen, md, K, method, codes,
                              admixture=cfg.admixture,
-                             eta_constrained=cfg.eta_constrained)
+                             eta_constrained=cfg.eta_constrained,
+                             mesh=cfg.mesh)
 
 
 def codes_from_counts(counts: Tensor, miss: Tensor, ploidy: int) -> Tensor:

@@ -19,6 +19,15 @@ those terms that the noise floor reads (opt/em.py).
 A jagged panel's bucketed layout (model/bucketed.py) runs the same sums one
 bucket at a time: A, t and the constrained step's a add up over the
 buckets, p is updated bucket by bucket at its own M_b, eta once.
+
+Under a mesh (cfg.mesh, runtime/mesh.py) every function runs on this
+rank's block of rows and loci and writes out the collectives GSPMD inserts
+for the JAX package: the per-individual sums over loci (A + r, t, the
+constrained step's a and logL lanes) over the model group, the per-locus
+sums over individuals (B, B0/B1) and the logL over the data group.  The
+step takes the route the unmeshed step takes on the block's shape, with
+the kernels' sharded variants (``emit_b``, ``emit_a``, ``finish=False``)
+where a sum must cross ranks before a finish.
 """
 
 from __future__ import annotations
@@ -32,11 +41,15 @@ from multiclust_tpu_torch.model.bucketed import BucketedData, \
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     WINDOW_BYTES, column_window, is_bi_repr, safe_log
 from multiclust_tpu_torch.ops.fullstep import admixture_fullstep, \
-    fullstep_cols, fullstep_rows, normalize_p
+    admixture_sweep_stats, fullstep_cols, fullstep_p, fullstep_rows, \
+    normalize_p
 from multiclust_tpu_torch.ops.fullstep_bi import Route, \
-    admixture_fullstep_biallelic_routed, device_sm_count, pick_route, \
-    rows_log_likelihood_terms, scratch_budget
+    admixture_fullstep_biallelic_chunked, \
+    admixture_fullstep_biallelic_routed, device_sm_count, p0_epilogue, \
+    pick_route, rows_finish, rows_log_likelihood_terms, scratch_budget
 from multiclust_tpu_torch.ops.simplex import project_rows
+from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
+    sum_over
 
 Tensor = torch.Tensor
 
@@ -69,10 +82,16 @@ def _normalize_p(pc: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
                        plb=cfg.p_lower_bound, project=cfg.do_projection)
 
 
-def _ll_terms(per_i: Tensor) -> Tuple[Tensor, Tensor]:
-    """(logL [B], scale [B]) in float64 from per-individual terms."""
+def _ll_terms(per_i: Tensor, mesh=None, axis: str = DATA_AXIS
+              ) -> Tuple[Tensor, Tensor]:
+    """(logL [B], scale [B]) in float64 from per-individual terms (or the
+    constrained step's per-lane terms); under a mesh this rank's terms,
+    their sums and sums of squares added over ``axis``."""
     per_i = per_i.to(torch.float64)
-    return per_i.sum(dim=-1), torch.sqrt((per_i * per_i).sum(dim=-1))
+    ll, sq = per_i.sum(dim=-1), (per_i * per_i).sum(dim=-1)
+    if mesh is not None:
+        ll, sq = mesh.sum(torch.stack([ll, sq]), axis).unbind(0)
+    return ll, torch.sqrt(sq)
 
 
 def _no_ll(eta: Tensor) -> Tuple[Tensor, Tensor]:
@@ -126,6 +145,8 @@ def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
     eta, p0 = params.eta, params.p
     if route is None:
         route = bi_route(eta.shape[0], md, cfg, eta.shape[-1])
+    if cfg.mesh is not None:
+        return _em_step_bi_repr_meshed(params, md, cfg, want_ll, route)
     c, miss = _miss_inputs(md, cfg, eta.dtype)
     eta_new, per_i, p0n = admixture_fullstep_biallelic_routed(
         eta, p0, md.x0, md.x1, c, miss, route=route, k_true=cfg.k_true,
@@ -135,18 +156,59 @@ def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
     return Params(eta=eta_new, p=p0n), ll, scale
 
 
+def _em_step_bi_repr_meshed(params: Params, md: ModelData, cfg: EMConfig,
+                            want_ll: bool, route: Route):
+    """The biallelic step on this rank's (I_loc, L_loc) block
+    (``_em_step_bi_repr_meshed``, multiclust_tpu/model/admixture.py:
+    170-280): the streamed or chunked step of the block's route (the pair
+    takes no ``emit_*`` flag, so it runs as one segment a window) with
+    ``emit_b``: raw B0/B1, summed over the data group, then the p0
+    epilogue on this rank's loci.  With the loci split (M > 1) also
+    ``emit_a``: the raw A + r (no c) and t cover only this rank's loci, so
+    they are summed over the model group before the rows finish adds c and
+    finishes eta, as a single segment."""
+    mesh = cfg.mesh
+    eta, p0 = params.eta, params.p
+    lb, plb = float(cfg.eta_lower_bound), float(cfg.p_lower_bound)
+    c, miss = _miss_inputs(md, cfg, eta.dtype)
+    emit_a = mesh.model_shards > 1
+    eta_new, per_i, b0, b1 = admixture_fullstep_biallelic_chunked(
+        eta, p0, md.x0, md.x1, c, miss, window=route.window,
+        seg_cols=route.seg_cols or route.window, k_true=cfg.k_true, lb=lb,
+        plb=plb, project=cfg.do_projection, compute_t=want_ll, emit_b=True,
+        emit_a=emit_a, n_rseg=route.n_rseg)
+    if emit_a:
+        araw = mesh.sum(eta_new, MODEL_AXIS)
+        if want_ll:
+            per_i = mesh.sum(per_i, MODEL_AXIS)
+        eta_new, _ = rows_finish(
+            eta, araw[:, None], eta.new_zeros((eta.shape[0], 1,
+                                               eta.shape[1])), c,
+            k_true=cfg.k_true, lb=lb, project_eta=cfg.do_projection,
+            compute_t=False)
+    part = mesh.sum(torch.stack([b0, b1], dim=1), DATA_AXIS)
+    p0n = torch.empty_like(p0)
+    p0_epilogue(p0, part[:, None], (p0n,), l_lo=0, l_hi=p0.shape[-1],
+                k_true=cfg.k_true, plb=plb, project=cfg.do_projection)
+    ll, scale = _ll_terms(per_i, mesh) if want_ll else _no_ll(eta)
+    return Params(eta=eta_new, p=p0n), ll, scale
+
+
 def log_likelihood_bi_repr(params: Params, md: ModelData,
-                           budget: int = WINDOW_BYTES, k_true: int = 0):
+                           budget: int = WINDOW_BYTES, k_true: int = 0,
+                           mesh=None):
     """logL on the p0 layout (the accelerated accept test).  Float32
     chains on CUDA take the t terms of the segmented rows pass (A phase
     skipped): the same terms as the step's own, and no [B, I, L]
     temporary.  Elsewhere the plain terms are summed one column window of
     about ``budget`` bytes at a time, each individual's in float64.
-    ``k_true`` (0: all padded lanes) is where the kernel's loops stop."""
+    ``k_true`` (0: all padded lanes) is where the kernel's loops stop.
+    Under a ``mesh`` the block's terms are summed over the model group."""
     eta, p0 = params.eta, params.p
     if eta.is_cuda and eta.dtype == torch.float32:
-        return _ll_terms(rows_log_likelihood_terms(eta, p0, md.x0, md.x1,
-                                                   k_true=k_true))
+        per_i = rows_log_likelihood_terms(eta, p0, md.x0, md.x1,
+                                          k_true=k_true)
+        return _ll_terms(_sum_loci(per_i, mesh), mesh)
     B, I, _ = eta.shape
     itemsize = torch.finfo(eta.dtype).bits // 8
     win = column_window(md.L, 6 * B * I * itemsize, budget)
@@ -159,7 +221,15 @@ def log_likelihood_bi_repr(params: Params, md: ModelData,
         t = (md.x0[:, lo:hi].to(eta.dtype) * safe_log(d0)
              + md.x1[:, lo:hi].to(eta.dtype) * safe_log(d1))
         per_i += t.sum(dim=-1).to(torch.float64)
-    return _ll_terms(per_i)
+    return _ll_terms(_sum_loci(per_i, mesh), mesh)
+
+
+def _sum_loci(per_i: Tensor, mesh) -> Tensor:
+    """Per-individual terms of this rank's loci summed over the model
+    group (float64)."""
+    if mesh is None:
+        return per_i
+    return mesh.sum(per_i.to(torch.float64), MODEL_AXIS)
 
 
 def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
@@ -172,6 +242,8 @@ def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
     eta, p = params.eta, params.p                     # [B,I,Kp], [B,Kp,L,M]
     nb, Kp = p.shape[0], p.shape[1]
     c, miss = _miss_inputs(md, cfg, eta.dtype)
+    if cfg.mesh is not None:
+        return _em_step_generic_meshed(params, md, cfg, want_ll, c, miss)
     eta_new, per_i, p_new = admixture_fullstep(
         eta, p.reshape(nb, Kp, -1), md.x_lanes, c, miss, md.mask,
         k_true=cfg.k_true or Kp, lb=float(cfg.eta_lower_bound),
@@ -181,11 +253,64 @@ def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
     return Params(eta=eta_new, p=p_new), ll, scale
 
 
+def _em_step_generic_meshed(params: Params, md: ModelData, cfg: EMConfig,
+                            want_ll: bool, c: Tensor, miss):
+    """The generic float32 step on this rank's block.  Loci whole (M = 1,
+    ``_sharded_fullstep``, multiclust_tpu/model/admixture.py:340-380): the
+    rows pass with its eta finish, the columns pass with ``finish=False``,
+    raw B (miss folded in) summed over the data group, then the p epilogue
+    on the merged B.  Loci split (``_sharded_sweep`` and
+    ``_em_step_unconstrained_pallas_meshed``, :383-420, :622-660): the
+    sweep statistics A, t, B of ``admixture_sweep_stats``; A and t summed
+    over the model group, B over the data group; then the rows finish (c
+    added, eta finished as a single segment) and the p epilogue on the
+    merged statistics."""
+    mesh = cfg.mesh
+    eta, p = params.eta, params.p
+    nb, Kp = p.shape[0], p.shape[1]
+    k_true = cfg.k_true or Kp
+    lb = float(cfg.eta_lower_bound)
+    p2 = p.reshape(nb, Kp, -1)
+    if mesh.model_shards == 1:
+        eta_new, per_i = fullstep_rows(
+            eta, p2, md.x_lanes, c, k_true=k_true, lb=lb,
+            project=cfg.do_projection, compute_t=want_ll, M=md.M)
+        p_new = _generic_p(eta, p2, md, cfg, k_true)
+    else:
+        A, per_i, Bm = admixture_sweep_stats(
+            eta, p2, md.x_lanes, miss, M=md.M, k_true=k_true,
+            compute_t=want_ll)
+        A = mesh.sum(A, MODEL_AXIS)
+        if want_ll:
+            per_i = _sum_loci(per_i, mesh)
+        eta_new, _ = rows_finish(
+            eta, A[:, None], eta.new_zeros((nb, 1, eta.shape[1])), c,
+            k_true=k_true, lb=lb, project_eta=cfg.do_projection,
+            compute_t=False)
+        Bm = mesh.sum(Bm, DATA_AXIS)
+        p_new = fullstep_p(p2, Bm[:, None], md.mask, M=md.M, k_true=k_true,
+                           plb=float(cfg.p_lower_bound),
+                           project=cfg.do_projection)
+    ll, scale = _ll_terms(per_i, mesh) if want_ll else _no_ll(eta)
+    return Params(eta=eta_new, p=p_new), ll, scale
+
+
 def _sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
            want_ll: bool):
     """One block of loci's part of the plain step (``_bucket_sweep`` and
     ``_finish_bucket_p``, multiclust_tpu/model/admixture.py:662-684): (A
-    [B, I, K] without c, t [B, I] or None, p' [B, K, L, M])."""
+    [B, I, K] without c, t [B, I] or None, p' [B, K, L, M]).  Under a mesh
+    B is summed over the data group before p is normalized; A and t are
+    this rank's loci's."""
+    A, t, Bm = _sweep_stats(eta, p, md, cfg, want_ll)
+    Bm = sum_over(cfg.mesh, Bm, DATA_AXIS)
+    return A, t, _normalize_p(p * Bm, md, cfg)
+
+
+def _sweep_stats(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
+                 want_ll: bool):
+    """The plain sweep statistics of one block of loci: (A, t or None, B
+    [B, K, L, M] with the miss fold)."""
     nb, K = p.shape[0], p.shape[1]
     p2 = p.reshape(nb, K, -1)                         # [B, K, LM]
     x2 = md.x2d                                       # [I, LM]
@@ -199,7 +324,7 @@ def _sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
     if cfg.has_missing:
         Bm = Bm + (et @ md.miss.to(eta.dtype))[..., None]
     # eta statistics: sum_lm d_iklm = eta_ik (A_ik + c_i)
-    return w @ p2.transpose(-1, -2), t, _normalize_p(p * Bm, md, cfg)
+    return w @ p2.transpose(-1, -2), t, Bm
 
 
 def _eta_update(eta: Tensor, A: Tensor, c: Tensor, cfg: EMConfig) -> Tensor:
@@ -220,8 +345,15 @@ def _eta_update(eta: Tensor, A: Tensor, c: Tensor, cfg: EMConfig) -> Tensor:
 
 def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,
                            want_ll: bool = True):
+    """The plain step; under a mesh A and t are summed over the model
+    group before the eta update and the logL (the formulation GSPMD
+    shards for the JAX package)."""
+    mesh = cfg.mesh
     A, t, p_new = _sweep(params.eta, params.p, md, cfg, want_ll)
-    ll, scale = _ll_terms(t) if want_ll else _no_ll(params.eta)
+    A = sum_over(mesh, A, MODEL_AXIS)
+    if want_ll:
+        t = _sum_loci(t, mesh)
+    ll, scale = _ll_terms(t, mesh) if want_ll else _no_ll(params.eta)
     return Params(eta=_eta_update(params.eta, A, md.c, cfg), p=p_new), \
         ll, scale
 
@@ -258,7 +390,12 @@ def _em_step_constrained(params: Params, md: ModelData, cfg: EMConfig,
     so ``md`` may be the collapsed 1-row data (collapse_for_constrained).
     The logL terms are per allele lane."""
     a, t, p_new = _constrained_sweep(params.eta, params.p, md, cfg, want_ll)
-    ll, scale = _ll_terms(t) if want_ll else _no_ll(params.eta)
+    mesh = cfg.mesh
+    # the a-term and the logL lanes of this rank's loci: summed over the
+    # model group (the collapsed data is whole on each data group)
+    a = sum_over(mesh, a, MODEL_AXIS)
+    ll, scale = (_ll_terms(t, mesh, MODEL_AXIS) if want_ll
+                 else _no_ll(params.eta))
     return Params(eta=_constrained_eta(params.eta, a, cfg), p=p_new), \
         ll, scale
 
@@ -283,7 +420,7 @@ def _em_step_bucketed(params: Params, bd: BucketedData, cfg: EMConfig,
         if want_ll:
             per_i = t_b if per_i is None else per_i + t_b
         new_ps.append(p_new)
-    ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
+    ll, scale = _ll_terms(per_i, cfg.mesh) if want_ll else _no_ll(eta)
     return Params(eta=_eta_update(eta, A, bd.c, cfg), p=tuple(new_ps)), \
         ll, scale
 
@@ -315,12 +452,26 @@ def _bucketed_fullstep_chain(params: Params, bd: BucketedData,
             t_b = t_b.to(torch.float64)
             per_i = t_b if per_i is None else per_i + t_b
     new_ps = tuple(
-        fullstep_cols(eta, p_b.reshape(nb, Kp, -1), md_b.x_lanes,
-                      md_b.miss if cfg.has_missing else None, md_b.mask,
-                      plb=float(cfg.p_lower_bound), **kw)
+        _generic_p(eta, p_b.reshape(nb, Kp, -1), md_b, cfg, kw["k_true"])
         for md_b, p_b in zip(bd.buckets, params.p))
-    ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
+    ll, scale = _ll_terms(per_i, cfg.mesh) if want_ll else _no_ll(eta)
     return Params(eta=A, p=new_ps), ll, scale
+
+
+def _generic_p(eta: Tensor, p2: Tensor, md: ModelData, cfg: EMConfig,
+               k_true: int) -> Tensor:
+    """p' of one block of loci through the generic columns pass and p
+    epilogue; under a mesh the raw B (``finish=False``) is summed over the
+    data group before the epilogue."""
+    kw = dict(k_true=k_true, plb=float(cfg.p_lower_bound),
+              project=cfg.do_projection)
+    miss = md.miss if cfg.has_missing else None
+    if cfg.mesh is None:
+        return fullstep_cols(eta, p2, md.x_lanes, miss, md.mask, **kw)
+    Bm = fullstep_cols(eta, p2, md.x_lanes, miss, md.mask, k_true=k_true,
+                       finish=False)
+    Bm = cfg.mesh.sum(Bm, DATA_AXIS)
+    return fullstep_p(p2, Bm[:, None], md.mask, M=md.M, **kw)
 
 
 def _em_step_constrained_bucketed(params: Params, bd: BucketedData,
@@ -346,7 +497,8 @@ def log_likelihood_bucketed(params: Params, bd: BucketedData,
                             cfg: EMConfig):
     """logL on a bucketed panel (``log_likelihood_bucketed``,
     multiclust_tpu/model/admixture.py:935-948), one bucket at a time in
-    plain torch: no [B, I, L M_max] temporary."""
+    plain torch: no [B, I, L M_max] temporary.  Buckets compose with
+    data-axis meshes only: a rank's rows hold every locus."""
     params = split_params_like(params, bd)
     if cfg.eta_constrained:
         return _ll_terms(torch.cat([
@@ -356,7 +508,7 @@ def log_likelihood_bucketed(params: Params, bd: BucketedData,
     for md_b, p_b in zip(bd.buckets, params.p):
         t = _terms(params.eta, p_b, md_b).to(torch.float64)
         per_i = t if per_i is None else per_i + t
-    return _ll_terms(per_i)
+    return _ll_terms(per_i, cfg.mesh)
 
 
 def _constrained_terms(eta: Tensor, p: Tensor, md: ModelData) -> Tensor:
@@ -375,15 +527,19 @@ def _terms(eta: Tensor, p: Tensor, md: ModelData) -> Tensor:
                        torch.zeros_like(denom)).sum(dim=-1)
 
 
-def log_likelihood_constrained(params: Params, md: ModelData):
+def log_likelihood_constrained(params: Params, md: ModelData, mesh=None):
     """logL of constrained-eta params (eta [B, K]) from the column sums;
-    ``md`` may be the collapsed data."""
-    return _ll_terms(_constrained_terms(params.eta, params.p, md))
+    ``md`` may be the collapsed data.  Under a ``mesh`` the lanes of this
+    rank's loci are summed over the model group."""
+    return _ll_terms(_constrained_terms(params.eta, params.p, md), mesh,
+                     MODEL_AXIS)
 
 
-def log_likelihood(params: Params, md: ModelData):
-    """logL of full-layout params (logL_admixture)."""
-    return _ll_terms(_terms(params.eta, params.p, md))
+def log_likelihood(params: Params, md: ModelData, mesh=None):
+    """logL of full-layout params (logL_admixture); under a ``mesh`` the
+    terms of this rank's block, summed over the model group, then the
+    data group."""
+    return _ll_terms(_sum_loci(_terms(params.eta, params.p, md), mesh), mesh)
 
 
 def posterior_allele_mass(params: Params, md: ModelData,

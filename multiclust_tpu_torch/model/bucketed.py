@@ -160,6 +160,15 @@ class BucketedData(NamedTuple):
         return max(b.M for b in self.buckets)
 
     @property
+    def I_total(self) -> int:
+        """Individuals of the whole panel (a mesh splits only its rows)."""
+        return self.buckets[0].I_total
+
+    @property
+    def L_total(self) -> int:
+        return self.L
+
+    @property
     def device(self) -> torch.device:
         return self.c.device
 
@@ -180,7 +189,7 @@ def bucketize_model_data(md: ModelData, plan: JaggedPlan) -> BucketedData:
             x=md.x[..., :M_b].index_select(1, idx).contiguous(), miss=miss,
             mask=md.mask[:, :M_b].index_select(0, idx),
             n_alleles=md.n_alleles.index_select(0, idx),
-            c=miss.sum(dim=1, dtype=md.dtype)))
+            c=miss.sum(dim=1, dtype=md.dtype), block=md.block))
     return BucketedData(buckets=tuple(buckets), perm=perm,
                         inv=torch.as_tensor(plan.inv_order, device=md.device),
                         c=md.c, plan=plan)

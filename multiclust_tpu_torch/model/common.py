@@ -80,6 +80,9 @@ class ModelData(NamedTuple):
     c: Tensor          # [I] missing totals, compute dtype
     x0: Optional[Tensor] = None  # [I, L] allele-0 counts, storage dtype
     x1: Optional[Tensor] = None  # [I, L] allele-1 counts, storage dtype
+    # a rank's block of a meshed panel (runtime/mesh.shard_model_data):
+    # the global I and L and the block's offsets; None for a whole panel
+    block: Optional[object] = None
 
     @property
     def I(self) -> int:  # noqa: E743
@@ -92,6 +95,16 @@ class ModelData(NamedTuple):
     @property
     def M(self) -> int:
         return self.x.shape[2]
+
+    @property
+    def I_total(self) -> int:
+        """Individuals of the whole panel (of the block when unsharded)."""
+        return self.block.I if self.block is not None else self.I
+
+    @property
+    def L_total(self) -> int:
+        """Loci of the whole panel."""
+        return self.block.L if self.block is not None else self.L
 
     @property
     def device(self) -> torch.device:
@@ -223,7 +236,7 @@ def model_data_from_dataset(ds, dtype: torch.dtype = torch.float32,
 
 class EMConfig(NamedTuple):
     """Static EM configuration (the JAX package's model/common.EMConfig
-    without the mesh and the interpret mode)."""
+    without the interpret mode)."""
 
     admixture: bool = False
     eta_constrained: bool = False
@@ -258,6 +271,19 @@ class EMConfig(NamedTuple):
     # ops/fullstep_bi.pick_route), read from the device once per fit;
     # 0 = ask the device at each step
     scratch_budget: int = 0
+    # the process mesh of a multi-device fit (runtime/mesh.Mesh): the
+    # steps, logL and EM reductions then run on this rank's block and
+    # write their sums over the data and model groups out; None = one
+    # device
+    mesh: object = None
+
+    @property
+    def data_shards(self) -> int:
+        return self.mesh.data_shards if self.mesh is not None else 1
+
+    @property
+    def model_shards(self) -> int:
+        return self.mesh.model_shards if self.mesh is not None else 1
 
     @property
     def bi_repr_active(self) -> bool:

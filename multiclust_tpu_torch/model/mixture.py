@@ -18,6 +18,14 @@ per call; every other fit runs the plain products here, with the eta and
 p finish on the card when the kernels are on (no host read per step).  A
 jagged panel's bucketed layout (model/bucketed.py) sums the scores over
 its buckets and updates each bucket's p at its own M_b.
+
+Under a mesh (cfg.mesh, runtime/mesh.py) the same plain products run on
+this rank's block of rows and loci, as the JAX package keeps meshed
+mixture fits off its kernels (``_kernel_ok``, multiclust_tpu/model/
+mixture.py:176-178): the allele scores of this rank's loci are summed over
+the model group before log eta and the softmax, the expected counts and
+the responsibility sums over the data group before the finish (each sum
+the identity without a mesh).
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from multiclust_tpu_torch.ops.fullstep import fullstep_p
 from multiclust_tpu_torch.ops.mixture_bi import mixture_eta, \
     mixture_fullstep_biallelic, mixture_rows
 from multiclust_tpu_torch.ops.simplex import project_rows
+from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
+    sum_over
 
 Tensor = torch.Tensor
 
@@ -65,43 +75,49 @@ def _allele_scores(p: Tensor, md: ModelData) -> Tensor:
             @ logp.reshape(nb, K, -1).transpose(-1, -2))
 
 
-def scores(params: Params, md: ModelData) -> Tensor:
+def scores(params: Params, md: ModelData, mesh=None) -> Tensor:
     """[B, I, K] per-individual per-cluster log scores, float64; on a
     bucketed panel summed over the buckets, each cast to float64 at its
-    own M_b."""
+    own M_b.  Under a ``mesh`` the allele sums of this rank's loci are
+    summed over the model group before log eta is added."""
     if isinstance(md, BucketedData):
         s = sum(_allele_scores(p_b, md_b)
                 for md_b, p_b in zip(md.buckets, params.p))
     else:
         s = _allele_scores(params.p, md)
+    s = sum_over(mesh, s, MODEL_AXIS)
     return s + safe_log(params.eta).to(F64)[:, None, :]
 
 
-def _scores_bi(params: Params, md: ModelData, ploidy: int) -> Tensor:
+def _scores_bi(params: Params, md: ModelData, ploidy: int,
+               mesh=None) -> Tensor:
     """Biallelic missing-free scores in ONE [I, L] x [L, K] product: with
     x1 = ploidy - x0,
         sum_lm x_ilm log p_klm = x0 @ (log p0 - log p1)^T
-                                 + ploidy * sum_l log p1_kl."""
+                                 + ploidy * sum_l log p1_kl,
+    summed over the model group under a ``mesh``; then log eta."""
     logp = safe_log(params.p, md.mask).to(F64)       # [B, K, L, 2]
     d = (logp[..., 0] - logp[..., 1]).transpose(-1, -2)   # [B, L, K]
     base = ploidy * logp[..., 1].sum(dim=-1)          # [B, K]
-    return (_x0(md, F64) @ d
-            + (base + safe_log(params.eta).to(F64))[:, None, :])
+    s = sum_over(mesh, _x0(md, F64) @ d + base[:, None, :], MODEL_AXIS)
+    return s + safe_log(params.eta).to(F64)[:, None, :]
 
 
-def _posterior_and_ll(s: Tensor, dtype: torch.dtype):
+def _posterior_and_ll(s: Tensor, dtype: torch.dtype, mesh=None):
     """(v [B, I, K] in ``dtype``, logL [B], scale [B]): the row softmax
-    and the float64 sums of the per-individual logsumexp terms."""
+    and the float64 sums of the per-individual logsumexp terms (summed
+    over the data group under a ``mesh``)."""
     m = s.max(dim=-1, keepdim=True).values
     e = torch.exp(s - m)
     tot = e.sum(dim=-1, keepdim=True)
-    ll, scale = _ll_terms(torch.log(tot[..., 0]) + m[..., 0])
+    ll, scale = _ll_terms(torch.log(tot[..., 0]) + m[..., 0], mesh)
     return (e / tot).to(dtype), ll, scale
 
 
-def e_step(params: Params, md: ModelData):
+def e_step(params: Params, md: ModelData, mesh=None):
     """Posterior v [B, I, K] plus the logL of the input params."""
-    return _posterior_and_ll(scores(params, md), params.eta.dtype)
+    return _posterior_and_ll(scores(params, md, mesh), params.eta.dtype,
+                             mesh)
 
 
 def _bi_fast(md: ModelData, cfg: EMConfig) -> bool:
@@ -114,9 +130,10 @@ def _kernel_ok(md: ModelData, cfg: EMConfig, params: Params) -> bool:
     """The kernel route (ops/mixture_bi.py): kernels on (every float32 fit
     on CUDA, ``runtime/multistart.device_policy``), a biallelic panel with
     its x0/x1 planes, float32 parameters.  K above 128 raises in the
-    wrappers on CUDA tensors."""
-    return (cfg.use_pallas != "off" and cfg.biallelic and md.x0 is not None
-            and params.p.dtype == torch.float32)
+    wrappers on CUDA tensors.  Never under a mesh, as in the JAX
+    package."""
+    return (cfg.use_pallas != "off" and cfg.mesh is None and cfg.biallelic
+            and md.x0 is not None and params.p.dtype == torch.float32)
 
 
 def _on_card(cfg: EMConfig, t: Tensor) -> bool:
@@ -133,9 +150,9 @@ def log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
     elif _kernel_ok(md, cfg, params):
         lp0, x0, bias, lp1, x1 = _kernel_inputs(params, md, cfg)
         return _ll_terms(mixture_rows(lp0, x0, bias, lp1, x1)[1])
-    s = (_scores_bi(params, md, cfg.ploidy) if _bi_fast(md, cfg)
-         else scores(params, md))
-    _, ll, scale = _posterior_and_ll(s, params.eta.dtype)
+    s = (_scores_bi(params, md, cfg.ploidy, cfg.mesh) if _bi_fast(md, cfg)
+         else scores(params, md, cfg.mesh))
+    _, ll, scale = _posterior_and_ll(s, params.eta.dtype, cfg.mesh)
     return ll, scale
 
 
@@ -161,8 +178,9 @@ def _finish_p(pc: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
 
 def _finish_eta(v: Tensor, cfg: EMConfig) -> Tensor:
     """eta [B, K] = sum_i v / total, then the optional projection; with the
-    kernels on, the kernel route's eta finish on the K-padded sums."""
-    vsum = v.sum(dim=1)                               # [B, K]
+    kernels on, the kernel route's eta finish on the K-padded sums.  Under
+    a mesh the sums are summed over the data group first."""
+    vsum = sum_over(cfg.mesh, v.sum(dim=1), DATA_AXIS)    # [B, K]
     if _on_card(cfg, vsum):
         K = vsum.shape[-1]
         vpart = F.pad(vsum, (0, k_padded_size(K, 32) - K))[:, None]
@@ -179,9 +197,11 @@ def _finish_eta(v: Tensor, cfg: EMConfig) -> Tensor:
 
 
 def _counts_p(v: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
-    """p' from the expected counts v^T x over md's loci."""
+    """p' from the expected counts v^T x over md's loci (summed over the
+    data group under a mesh)."""
     nb, _, K = v.shape
-    pc = (v.transpose(-1, -2) @ md.x2d).reshape(nb, K, md.L, md.M)
+    pc = sum_over(cfg.mesh, (v.transpose(-1, -2) @ md.x2d).reshape(
+        nb, K, md.L, md.M), DATA_AXIS)
     return _finish_p(pc, md, cfg)
 
 
@@ -197,10 +217,11 @@ def m_step(v: Tensor, md: ModelData, cfg: EMConfig) -> Params:
 
 def _m_step_bi(v: Tensor, md: ModelData, cfg: EMConfig) -> Params:
     """Biallelic missing-free M-step in ONE product: with x1 = ploidy - x0,
-    pc1_kl = ploidy * sum_i v_ik - pc0_kl."""
+    pc1_kl = ploidy * sum_i v_ik - pc0_kl (both summed over the data
+    group under a mesh)."""
     pc0 = v.transpose(-1, -2) @ _x0(md, v.dtype)      # [B, K, L]
     pc1 = cfg.ploidy * v.sum(dim=1)[..., None] - pc0
-    pc = torch.stack([pc0, pc1], dim=-1)
+    pc = sum_over(cfg.mesh, torch.stack([pc0, pc1], dim=-1), DATA_AXIS)
     return Params(eta=_finish_eta(v, cfg), p=_finish_p(pc, md, cfg))
 
 
@@ -254,8 +275,10 @@ def em_step(params: Params, md: ModelData, cfg: EMConfig,
     elif _kernel_ok(md, cfg, params):
         return _em_step_bi_kernel(params, md, cfg, want_ll)
     if _bi_fast(md, cfg):
-        v, ll, scale = _posterior_and_ll(_scores_bi(params, md, cfg.ploidy),
-                                         params.p.dtype)
+        v, ll, scale = _posterior_and_ll(
+            _scores_bi(params, md, cfg.ploidy, cfg.mesh), params.p.dtype,
+            cfg.mesh)
         return _m_step_bi(v, md, cfg), ll, scale
-    v, ll, scale = e_step(params, md)
+    v, ll, scale = e_step(params, md, cfg.mesh)
     return m_step(v, md, cfg), ll, scale
+

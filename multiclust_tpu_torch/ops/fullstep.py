@@ -358,11 +358,18 @@ def admixture_fullstep(eta, p2, x2, c, miss, mask, *, k_true: int, lb: float,
     return eta_new, t, p_new
 
 
-def admixture_sweep_stats(eta, p2, x2, *, compute_t: bool = True):
+def admixture_sweep_stats(eta, p2, x2, miss=None, *, M: int = 0,
+                          k_true: int = 0, compute_t: bool = True):
     """Sweep statistics A [B, I, Kp], t [B, I], B [B, Kp, L*M] with no eta
     or p finish (``admixture_sweep_fused`` / ``admixture_sweep_stats``):
-    the same passes as the full step, with ``finish=False``."""
-    A, t = fullstep_rows(eta, p2, x2, k_true=eta.shape[-1], lb=0.0,
-                         project=False, compute_t=compute_t, finish=False)
-    return A, t, fullstep_cols(eta, p2, x2, k_true=eta.shape[-1],
-                               finish=False)
+    the same passes as the full step, with ``finish=False``.  With ``miss``
+    [I, L] (and ``M`` slots a locus) B has the miss fold; ``k_true`` (0:
+    all Kp lanes) is where the kernels' cluster loops stop, and B's rows
+    past it come out 0."""
+    k_true = k_true or eta.shape[-1]
+    A, t = fullstep_rows(eta, p2, x2, k_true=k_true, lb=0.0, project=False,
+                         compute_t=compute_t, finish=False, M=M)
+    if miss is None:
+        return A, t, fullstep_cols(eta, p2, x2, k_true=k_true, finish=False)
+    part = fullstep_partials(eta, p2, x2, miss, M=M, k_true=k_true)
+    return A, t, fullstep_p(p2, part, M=M, k_true=k_true, finish=False)

@@ -7,6 +7,9 @@ stop_condition em_alg.c:145-161).  The chain runs as a batch of one lane
 through the batched state machine of opt/em.py, with one host read of the
 stop flag per macro step; a ``trace`` (runtime/observe.make_trace_printer)
 gets the logL, the iteration count and the step kind from that same read.
+Under a mesh (cfg.mesh) the chain's parameters are this rank's block, and
+the wall-clock decision (-t) is rank 0's on every rank
+(runtime/mesh.past_deadline), as in multiclust_tpu/opt/driver.py:88-91.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from multiclust_tpu_torch.config import AccelScheme
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     map_params
 from multiclust_tpu_torch.opt import em as em_mod
+from multiclust_tpu_torch.runtime.mesh import past_deadline
 
 
 @dataclasses.dataclass
@@ -71,7 +75,7 @@ def fit(params0: Params, md: ModelData, cfg: EMConfig, *,
     accel = cfg.accel_scheme != int(AccelScheme.NONE)
 
     def timed_out() -> bool:
-        return bool(n_seconds) and (time.time() - t0) > n_seconds
+        return bool(n_seconds) and past_deadline(t0, n_seconds)
 
     def stopped(state, kind=None) -> bool:
         """The stop flag, and the trace line of the step just made (kind

@@ -21,6 +21,16 @@ A replicate lattice (model/common.Lattice) runs through the same machine:
 lanes on that replicate's counts.  So does a jagged panel's bucketed layout
 (model/bucketed.py): every helper below recurses into the tuple of
 per-bucket p, and the model steps dispatch on BucketedData.
+
+Under a mesh (cfg.mesh, runtime/mesh.py) the state holds this rank's block:
+eta by rows, p by loci.  The model steps and logL return global values, so
+every decision taken from them (convergence, stops, the adaptive interval,
+accepts and backtracking) is the same on every rank without a broadcast.
+The reductions over parameters made here are written out: a dot product's
+eta part is summed over the data group and its p part over the model group
+(eta is whole on each model group and p on each data group, so one sum
+over all ranks would count them M or D times), and the finiteness check
+over all ranks.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
     ModelData, Params, is_bi_repr, map_params, param_leaves
 from multiclust_tpu_torch.ops.fullstep_bi import p0_clip_bounds
 from multiclust_tpu_torch.ops.simplex import project_rows
+from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
+    any_over_world
 
 Tensor = torch.Tensor
 
@@ -71,11 +83,27 @@ def tree_sub(a: Params, b: Params) -> Params:
     return map_params(torch.sub, a, b)
 
 
-def tree_vdot(a: Params, b: Params) -> Tensor:
+def _sum_leaves(terms, cfg: Optional[EMConfig]) -> Tensor:
+    """Sum of per-leaf terms (eta's first, then each p's); under a mesh
+    eta's summed over the data group when eta is split by rows, p's over
+    the model group."""
+    mesh = cfg.mesh if cfg is not None else None
+    if mesh is None:
+        return sum(terms)
+    eta_t = terms[0]
+    if cfg.admixture and not cfg.eta_constrained:
+        eta_t = mesh.sum(eta_t, DATA_AXIS)
+    return eta_t + mesh.sum(sum(terms[1:]), MODEL_AXIS)
+
+
+def tree_vdot(a: Params, b: Params, cfg: Optional[EMConfig] = None
+              ) -> Tensor:
     """Per-lane dot product over every parameter block (step_size sums
-    the etaik and pklm blocks together, accel_em.c:140-184)."""
-    return sum((x * y).flatten(1).sum(dim=1)
-               for x, y in zip(param_leaves(a), param_leaves(b)))
+    the etaik and pklm blocks together, accel_em.c:140-184); over the
+    whole parameters under a mesh."""
+    return _sum_leaves([(x * y).flatten(1).sum(dim=1)
+                        for x, y in zip(param_leaves(a), param_leaves(b))],
+                       cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -177,11 +205,12 @@ def model_log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
     if isinstance(md, BucketedData):
         return admixture.log_likelihood_bucketed(params, md, cfg)
     if cfg.eta_constrained:
-        return admixture.log_likelihood_constrained(params, md)
+        return admixture.log_likelihood_constrained(params, md, cfg.mesh)
     if cfg.bi_repr_active and is_bi_repr(params):
         return admixture.log_likelihood_bi_repr(params, md,
-                                                k_true=cfg.k_true)
-    return admixture.log_likelihood(params, md)
+                                                k_true=cfg.k_true,
+                                                mesh=cfg.mesh)
+    return admixture.log_likelihood(params, md, cfg.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -201,9 +230,14 @@ def _converged(cfg: EMConfig, prev: Tensor, ll: Tensor, scale: Tensor,
     return torch.isfinite(prev) & ~keep
 
 
-def _params_finite(params: Params) -> Tensor:
-    return torch.stack([torch.isfinite(t).flatten(1).all(dim=1)
-                        for t in param_leaves(params)]).all(dim=0)
+def _params_finite(params: Params, cfg: Optional[EMConfig] = None
+                   ) -> Tensor:
+    """[B] every parameter finite; under a mesh on every rank's block."""
+    ok = torch.stack([torch.isfinite(t).flatten(1).all(dim=1)
+                      for t in param_leaves(params)]).all(dim=0)
+    if cfg is not None and cfg.mesh is not None:
+        ok = ~any_over_world(~ok)
+    return ok
 
 
 def _apply_stop(state: EMState, new_params: Params, ll: Tensor,
@@ -215,7 +249,7 @@ def _apply_stop(state: EMState, new_params: Params, ll: Tensor,
     # NaN detection inspects the parameters too: safe_log zeroes
     # non-finite contributions, so a poisoned parameter set can otherwise
     # give a finite-looking logL
-    nan_fail = ~torch.isfinite(ll) | ~_params_finite(new_params)
+    nan_fail = ~torch.isfinite(ll) | ~_params_finite(new_params, cfg)
     conv = _converged(cfg, state.logL, ll, scale, eps)
     iter_cap = (n_iter > max(cfg.max_iter, 1)) if cfg.max_iter > 0 \
         else torch.zeros_like(conv)
@@ -364,12 +398,13 @@ def _slot(ring: AccelRing, q: int, back: int):
             map_params(lambda b: b[lanes, idx], ring.v))
 
 
-def step_size(scheme: int, u: Params, v: Params) -> Tensor:
+def step_size(scheme: int, u: Params, v: Params,
+              cfg: Optional[EMConfig] = None) -> Tensor:
     """SQUAREM/QN1 step size per lane (step_size, accel_em.c:130-243)."""
-    utu = tree_vdot(u, u)
+    utu = tree_vdot(u, u, cfg)
     vmu = tree_sub(v, u)
-    utvu = tree_vdot(u, vmu)
-    vutvu = tree_vdot(vmu, vmu)
+    utvu = tree_vdot(u, vmu, cfg)
+    vutvu = tree_vdot(vmu, vmu, cfg)
     if scheme == int(AccelScheme.SQS1):
         s = utu / utvu
     elif scheme == int(AccelScheme.SQS2):
@@ -451,11 +486,11 @@ def qn_point(x0: Params, ring: AccelRing, cfg: EMConfig) -> Params:
         return t.reshape(nb, q, -1)
 
     U, V = param_leaves(ring.u), param_leaves(ring.v)
-    A = sum(torch.einsum("bqn,brn->bqr", flat(uu), flat(uu))
-            - torch.einsum("bqn,brn->bqr", flat(uu), flat(vv))
-            for uu, vv in zip(U, V))
-    c = sum(torch.einsum("bqn,bn->bq", flat(uu), un.reshape(nb, -1))
-            for uu, un in zip(U, param_leaves(u_new)))
+    A = _sum_leaves([torch.einsum("bqn,brn->bqr", flat(uu), flat(uu))
+                     - torch.einsum("bqn,brn->bqr", flat(uu), flat(vv))
+                     for uu, vv in zip(U, V)], cfg)
+    c = _sum_leaves([torch.einsum("bqn,bn->bq", flat(uu), un.reshape(nb, -1))
+                     for uu, un in zip(U, param_leaves(u_new))], cfg)
     y, info = torch.linalg.solve_ex(A, c)
     y = torch.where((info != 0)[:, None], torch.full_like(y, float("nan")),
                     y)
@@ -492,7 +527,7 @@ def _accel_jump(state: EMState, md: ModelData, cfg: EMConfig) -> EMState:
         ll, _ = model_log_likelihood(xt, md, cfg)
         accept = live & (ll > emll) & torch.isfinite(ll)
     else:
-        s = step_size(scheme, u, v)
+        s = step_size(scheme, u, v, cfg)
         s_ok = torch.isfinite(s)
 
         def make_point(sv):

@@ -17,6 +17,17 @@ I and L itself, so no row or loci padding exists here.  A jagged panel
 layout: starts are drawn and Rand-EM scored on the dense data, split by the
 plan before the first step, and merged back to dense original-order p at
 harvest, so outputs and checkpoints see the dense layout.
+
+Under a mesh (``--mesh DxM``, runtime/mesh.py) every rank holds the whole
+panel (per-process reads are a later slice) and keeps its block: the fit
+data is sliced after upload, starts are drawn as blocks of the unsharded
+ones (init/random.py), a warm start is sliced, and harvest gathers a
+chain's eta rows and p loci back to every rank.  Decisions taken from wall clocks go through
+``past_deadline``, and the chain batch and the router's scratch budget,
+read from each card's free memory, take the least over the ranks.  Jagged
+buckets compose with data-axis meshes only; a loci-split mesh keeps the
+dense layout, as the JAX package's ``_prepare_fit_data`` decides
+(multistart.py:729-736).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
 from multiclust_tpu_torch.model.mixture import e_step
 from multiclust_tpu_torch.ops.fullstep_bi import scratch_budget
 from multiclust_tpu_torch.opt import em as em_mod
+from multiclust_tpu_torch.runtime import mesh as mesh_mod
 
 
 def device_policy(opt: Options, device):
@@ -69,12 +81,16 @@ def device_policy(opt: Options, device):
 def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
     """Static EM config; ``md`` fixes has_missing and biallelic, and the
     data-pinned ``opt.ploidy`` (Options.synchronize) the biallelic
-    mixture's fold."""
-    if opt.mesh_shape:
-        raise NotImplementedError(
-            "meshes (--mesh) are not yet ported; see ROADMAP.md queue 1, "
-            "item 17")
+    mixture's fold.  ``opt.mesh_shape`` (D, M) builds the process mesh
+    (D = -1: every process on the data axis; (1, 1): none); a shape that
+    does not cover the process group raises ValueError."""
+    mesh = mesh_shape_of(opt)
+    if mesh is not None:
+        mesh = mesh_mod.cached_mesh(mesh)
     use_pallas, _ = device_policy(opt, md.device)
+    budget = scratch_budget(md.device) if use_pallas else 0
+    if mesh is not None:
+        budget = mesh_mod.world_min(budget)
     return EMConfig(
         admixture=opt.admixture, eta_constrained=opt.eta_constrained,
         do_projection=opt.do_projection,
@@ -91,7 +107,19 @@ def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
         k_true=K if (opt.admixture and not opt.eta_constrained) else 0,
         check_interval=opt.check_interval,
         # the router's scratch budget, read from the device once per fit
-        scratch_budget=scratch_budget(md.device) if use_pallas else 0)
+        scratch_budget=budget, mesh=mesh)
+
+
+def mesh_shape_of(opt: Options):
+    """The (D, M) mesh of ``opt``, with ``auto`` (D = -1) resolved over the
+    process group; None for one device, as the JAX CLI does
+    (cli.py:436-441)."""
+    if not opt.mesh_shape:
+        return None
+    D, M = opt.mesh_shape
+    if D == -1:
+        D = max(mesh_mod.world_size() // M, 1)
+    return None if (D, M) == (1, 1) else (D, M)
 
 
 def _pad_k(params: Params, cfg: EMConfig) -> Params:
@@ -120,6 +148,33 @@ def _to_fit_layout(params: Params, md, cfg: EMConfig) -> Params:
     if isinstance(bd, BucketedData):
         return split_params_like(params, bd)
     return _to_bi_repr(params, cfg)
+
+
+def _warm_block(warm: Params, md: ModelData, cfg: EMConfig) -> Params:
+    """This rank's block of a whole start given to the fit (a -Q/-P warm
+    start); drawn starts come as blocks (init/random.py)."""
+    if cfg.mesh is None:
+        return warm
+    return mesh_mod.shard_params(warm, cfg.mesh, md.I, md.L,
+                                 _per_individual(cfg))
+
+
+def _per_individual(cfg: EMConfig) -> bool:
+    """eta is [.., I, K] (split by rows under a mesh)."""
+    return cfg.admixture and not cfg.eta_constrained
+
+
+def lane_params(params_b: Params, lane: int, cfg: EMConfig,
+                md_fit) -> Params:
+    """Dense K-sized full-layout params of one lane of a chain batch in
+    the fit layout; under a mesh its eta rows and p loci gathered to every
+    rank first."""
+    params = map_params(lambda t: t[lane], params_b)
+    if cfg.mesh is not None:
+        bd = md_fit.reps[0] if isinstance(md_fit, Lattice) else md_fit
+        params = mesh_mod.gather_params(params, cfg.mesh, bd.I_total,
+                                        bd.L_total, _per_individual(cfg))
+    return _unpad_k(params, cfg, md_fit)
 
 
 def _unpad_k(params: Params, cfg: EMConfig, md_fit=None) -> Params:
@@ -180,6 +235,9 @@ def chain_batch(opt: Options, md: ModelData, K: int, cfg: EMConfig) -> int:
     if md.device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(md.device)
         B = min(B, int(CHAIN_MEMORY_SHARE * free) // chain_bytes(md, K, cfg))
+    if cfg.mesh is not None:
+        # ``md`` is this rank's block; every rank runs the same batch
+        B = mesh_mod.world_min(B)
     return max(B, 1)
 
 
@@ -276,7 +334,7 @@ def fit_batch(params_b: Params, md: ModelData, cfg: EMConfig, *,
     state = _make_state(params_b, md, cfg)
     timed_out = False
     while not bool(state.stopped.all()):
-        if n_seconds and (time.time() - t0) > n_seconds:
+        if n_seconds and mesh_mod.past_deadline(t0, n_seconds):
             timed_out = True
             break
         state = _segment(state, md, cfg, segment)
@@ -365,8 +423,7 @@ def _harvest(state: em_mod.EMState, cfg: EMConfig, md_fit):
             for f in ("logL", "converged", "n_iter", "failed", "mono_viol")}
 
     def get(lane):
-        return _unpad_k(map_params(lambda t: t[lane], state.params), cfg,
-                        md_fit)
+        return lane_params(state.params, lane, cfg, md_fit)
     return host, get
 
 
@@ -378,8 +435,13 @@ def _fit_data(md: ModelData, cfg: EMConfig,
     ``_prepare_fit_data`` (multistart.py:713-794) does.  Starts, the hard
     partition and AIC/BIC use ``md``; Rand-EM scores on the dense
     layout."""
-    dense = collapse_for_constrained(md) if (
-        cfg.admixture and cfg.eta_constrained) else md
+    constrained = cfg.admixture and cfg.eta_constrained
+    dense = collapse_for_constrained(md) if constrained else md
+    if cfg.mesh is not None:
+        # this rank's block; the collapsed data has one row, whole on
+        # every rank of a data group
+        dense = mesh_mod.shard_model_data(dense, cfg.mesh,
+                                          rows=not constrained)
     if plan is None:
         return dense, dense
     return bucketed.bucketize_model_data(dense, plan), dense
@@ -417,7 +479,8 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
         for lane in lanes:
             harvested[lane] = True
             if _bookkeep_lane(
-                    res, opt, n_parameters, md.I, float(host["logL"][lane]),
+                    res, opt, n_parameters, md.I_total,
+                    float(host["logL"][lane]),
                     bool(host["converged"][lane]),
                     int(host["n_iter"][lane]), bool(host["failed"][lane]),
                     bool(host["mono_viol"][lane]),
@@ -448,7 +511,7 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
         elif harvested.all():
             return  # nothing active and no more chains wanted
 
-        if opt.n_seconds and (time.time() - t0) > opt.n_seconds:
+        if opt.n_seconds and mesh_mod.past_deadline(t0, opt.n_seconds):
             # harvest the active lanes as timed out (best-so-far logL
             # counts, multiclust.c:538-560 with time_stop)
             if not bookkeep(np.nonzero(~harvested)[0], True):
@@ -460,7 +523,7 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
 
 def _single_init(gen, md, K, cfg, opt, codes, warm, md_score=None):
     if warm is not None:
-        return _pad_k(warm, cfg)
+        return _pad_k(_warm_block(warm, md, cfg), cfg)
     return _pad_k(rinit.initialize(
         gen, md, K, cfg, method=opt.initialization_method,
         procedure=opt.initialization_procedure,
@@ -485,7 +548,8 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     res = MaximizeResult(K=K)
     t0 = time.time()
     progress = _make_progress(opt, K, t0, quiet)
-    md_fit, md_score = _fit_data(md, cfg, bucketed.plan_for(md))
+    plan = bucketed.plan_for(md) if cfg.model_shards == 1 else None
+    md_fit, md_score = _fit_data(md, cfg, plan)
 
     if checkpoint_dir:
         from multiclust_tpu_torch.runtime import checkpoint as ckpt
@@ -505,11 +569,10 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
             _to_fit_layout(map_params(lambda t: t[None], params), md_fit,
                            cfg), md_fit, cfg)
         ll = float(state.logL[0])
-        res.best_params = _unpad_k(map_params(lambda t: t[0], state.params),
-                                   cfg, md_fit)
+        res.best_params = lane_params(state.params, 0, cfg, md_fit)
         res.max_logL = res.first_max_logL = ll
         res.aic = aic_fn(ll, n_parameters)
-        res.bic = bic_fn(ll, n_parameters, md.I)
+        res.bic = bic_fn(ll, n_parameters, md.I_total)
         res.n_init = res.n_launched = 1
         res.n_total_iter = res.n_max_iter = 1
         res.n_maxll_init = 1
@@ -539,7 +602,8 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     # -Q/-P warm start: every init identical (initialize_model,
     # rnd_init.c:74-76); one chain a round
     if warm is not None:
-        warm_b = map_params(lambda t: t[None], _pad_k(warm, cfg))
+        warm_b = map_params(lambda t: t[None],
+                            _pad_k(_warm_block(warm, md, cfg), cfg))
     if cfg.bi_repr_active:
         res.route = bi_route(1, md_fit, cfg, k_padded_size(K, 32)).describe()
     while True:
@@ -552,7 +616,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
                                           start_time=t0)
         host, get = _harvest(states, cfg, md_fit)
         done = _bookkeep_lane(
-            res, opt, n_parameters, md.I, float(host["logL"][0]),
+            res, opt, n_parameters, md.I_total, float(host["logL"][0]),
             bool(host["converged"][0]), int(host["n_iter"][0]),
             bool(host["failed"][0]), bool(host["mono_viol"][0]),
             lambda: get(0), timed_out, on_improve=on_improve,

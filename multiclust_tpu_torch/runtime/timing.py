@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from multiclust_tpu_torch.config import Options
+from multiclust_tpu_torch.runtime import mesh as mesh_mod
 from multiclust_tpu_torch.runtime.ksweep import estimate_model
 
 
@@ -100,11 +101,14 @@ def timed_model_estimation(seed: int, md, opt: Options,
         if res.n_targetll_times:
             st.target_reached += 1
 
-        esec = time.time() - start
-        st.total_seconds = esec
-        if not enough_time and esec > opt.repeat_seconds:
+        st.total_seconds = time.time() - start
+        # budget decisions are rank 0's on every rank of a meshed run: a
+        # rank that left the loop while another started a fit would hang
+        if not enough_time and mesh_mod.past_deadline(start,
+                                                      opt.repeat_seconds):
             enough_time = True
-        if opt.max_repeat_seconds and esec > opt.max_repeat_seconds:
+        if opt.max_repeat_seconds and mesh_mod.past_deadline(
+                start, opt.max_repeat_seconds):
             break
 
     n = st.n_repeats

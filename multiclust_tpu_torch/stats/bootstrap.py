@@ -29,7 +29,11 @@ device, not with libc ``rand()``):
 * a biallelic replicate is drawn straight into its two count planes (P
   Bernoulli comparisons a cell, in windows of loci), never as a one-hot
   [I, L, P, M] tensor;
-* replicates are not sharded over a mesh (ROADMAP item 17).
+* under a mesh (``--mesh``) every rank draws each whole replicate and its
+  starts from (seed, r), as in a single-process run, and fits its block of
+  rows and loci (``_fit_data``, the meshed lattices of the JAX package's
+  ``_shard_replicates`` / ``_shard_lattice_params``, :313-351), so the
+  replicates and their statistics are those of the unsharded run.
 
 The replicates of a jagged panel fit bucketed, as the JAX package's do
 (multiclust_tpu/stats/bootstrap.py:151-168): every replicate shares the
@@ -53,6 +57,7 @@ from multiclust_tpu_torch.model.common import Lattice, ModelData, Params, \
     column_window, k_padded_size, map_params
 from multiclust_tpu_torch.model.admixture import bi_route
 from multiclust_tpu_torch.runtime import checkpoint as ckpt
+from multiclust_tpu_torch.runtime import mesh as mesh_mod
 from multiclust_tpu_torch.runtime import multistart as ms
 from multiclust_tpu_torch.runtime.multistart import CHAIN_MEMORY_SHARE, \
     _draw_init_batch, _make_state, _pad_k, _segment, cfg_from_options, \
@@ -190,16 +195,18 @@ def fit_lattice(params: Params, reps, cfg, segment: int = 16):
 
 
 def replicate_chunk(md: ModelData, n_chains: int, n_reps: int,
-                    bytes_per_chain: int) -> int:
+                    bytes_per_chain: int, mesh=None) -> int:
     """Replicates a lattice fits at once: on CUDA as many as
     CHAIN_MEMORY_SHARE of the device's free memory holds, a replicate
     being its counts plus ``n_chains`` chains of ``bytes_per_chain``
-    (runtime/multistart.chain_bytes); all of them on the CPU."""
+    (runtime/multistart.chain_bytes); all of them on the CPU.  Every rank
+    of a ``mesh`` takes the least over the ranks."""
     if md.device.type != "cuda":
         return n_reps
     free, _ = torch.cuda.mem_get_info(md.device)
     per_rep = md.x.numel() * md.x.element_size() + n_chains * bytes_per_chain
-    return max(1, min(n_reps, int(CHAIN_MEMORY_SHARE * free) // per_rep))
+    chunk = max(1, min(n_reps, int(CHAIN_MEMORY_SHARE * free) // per_rep))
+    return chunk if mesh is None else mesh_mod.world_min(chunk)
 
 
 def _batched_ts(seed: int, md: ModelData, opt, h0_params: Params,
@@ -213,9 +220,10 @@ def _batched_ts(seed: int, md: ModelData, opt, h0_params: Params,
     B = max(opt.n_init, 1)
     ks = (opt.max_K - 1, opt.max_K)
     cfgs = {K: cfg_from_options(opt, K, md) for K in ks}
-    plan = bucketed.plan_for(md)
+    plan = bucketed.plan_for(md) if cfgs[ks[0]].model_shards == 1 else None
     out.chunk = replicate_chunk(
-        md, B, n_reps, max(chain_bytes(md, K, cfgs[K], plan) for K in ks))
+        md, B, n_reps, max(chain_bytes(md, K, cfgs[K], plan) for K in ks),
+        cfgs[ks[0]].mesh)
     for K in ks:
         if cfgs[K].bi_repr_active:
             out.routes[K] = bi_route(B, md, cfgs[K],

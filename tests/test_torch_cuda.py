@@ -1344,3 +1344,45 @@ def test_bucketed_api_fits_on_the_card(tmp_path, label, kw):
     for K, res in again.estimate.per_K.items():
         assert torch.equal(res.best_params.p,
                            out.estimate.per_K[K].best_params.p)
+
+
+@pytest.mark.cuda
+def test_mesh_collectives_under_nccl_at_world_size_one(tmp_path):
+    """runtime/mesh.py's helpers on card tensors through an NCCL group of
+    one rank: the sums over both subgroups (float32 and float64), the row
+    and loci gathers, broadcast and the host-flag helpers."""
+    _cuda()
+    import torch.distributed as dist
+
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
+
+    dev = mesh_mod.initialize_distributed(
+        num_processes=1, process_id=0, device="cuda",
+        init_method="file://" + str(tmp_path / "init"))
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = mesh_mod.make_mesh((1, 1))
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for dtype in (torch.float32, torch.float64):
+            x = torch.rand((2, 300, 32), generator=gen, device=dev,
+                           dtype=dtype)
+            # a mesh's sums skip an axis of one shard: the collectives run
+            # on its groups themselves, the gather as Mesh.gather makes it
+            for group, (lo, hi) in ((mesh.data_group, mesh.rows(300)),
+                                    (mesh.model_group, mesh.loci(300))):
+                got = x.clone()
+                dist.all_reduce(got, group=group)
+                assert torch.equal(got, x)
+                whole = x.new_zeros(x.shape)
+                whole.narrow(1, lo, hi - lo).copy_(x[:, lo:hi])
+                dist.all_reduce(whole, group=group)
+                assert torch.equal(whole, x)
+        y = torch.arange(4, device=dev, dtype=torch.float64)
+        assert torch.equal(mesh.broadcast(y.clone()), y)
+        assert mesh_mod.sync_host_flag(True) and \
+            not mesh_mod.sync_host_flag(False)
+        assert mesh_mod.world_min(11) == 11
+        flags = torch.tensor([False, True], device=dev)
+        assert torch.equal(mesh_mod.any_over_world(flags), flags)
+    finally:
+        dist.destroy_process_group()

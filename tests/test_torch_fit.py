@@ -229,7 +229,7 @@ def test_cli_runs_timing_and_bootstrap(tmp_path, capsys, argv, last):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-a", "-k", "3", "--mesh", "2x1"], "meshes"),
+    (["-a", "-k", "3", "--mesh", "2x1"], "mesh shape 2x1 does not cover 1 "),
 ])
 def test_cli_rejects_unported_flags(tmp_path, argv, what):
     from multiclust_tpu_torch.cli import UsageError

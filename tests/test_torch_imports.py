@@ -57,6 +57,7 @@ def test_port_runs_without_the_jax_package(tmp_path):
     assert "multiclust_tpu_torch.io.structure" in mods
     assert "multiclust_tpu_torch.stats.sim" in mods
     assert "multiclust_tpu_torch.model.bucketed" in mods
+    assert "multiclust_tpu_torch.runtime.mesh" in mods
     code = textwrap.dedent(f"""
         import importlib, os, sys
         import numpy as np
@@ -66,6 +67,8 @@ def test_port_runs_without_the_jax_package(tmp_path):
             importlib.import_module(name)
         import importlib.util
         assert importlib.util.find_spec("multiclust_tpu") is None
+        from multiclust_tpu_torch.runtime.mesh import make_mesh
+        assert make_mesh().shape == (1, 1)
         from multiclust_tpu_torch.api import fit_dataset
         from multiclust_tpu_torch.cli import main
         from multiclust_tpu_torch.config import Options
