@@ -127,7 +127,19 @@ each raising on failure:
    Each rank's launches are counted from 0 before its meshed step, and
    the wrappers it called are recorded with their sharded-variant flags:
    the kernels line's ``mesh`` entry holds both, shape by shape.  These
-   ranks share one card: their times are no multi-GPU speed.
+   ranks share one card: their times are no multi-GPU speed;
+20. per-process ingest (runtime/ingest.py): one 16384 x 2048 biallelic
+   STRUCTURE file, 1 % missing, from a seed; the CLI at ``-a -k 20 -n 2 -T
+   30`` on it single-process, as 2x1 and 2x2 gloo ranks on the one card
+   and through ``cli.main_meshed`` at NCCL world size 1, all at once, each
+   a child process of this script (``--ingest-child``, with a timeout).
+   Each rank's rows parsed, ModelData bytes (its block's, exactly), peak
+   allocation at the end of ingest (a 2x1 rank at most 0.6 of the
+   single-process run's) and of the run, host max RSS and wall; each run's
+   ``.part`` files joined in data-index order and rank 0's files held to
+   the single-process files (logL within the float32 noise floor of
+   opt/em.py, tables within 1e-4); the ranks' launches and sharded
+   variants go into the ``mesh`` entry as ``ingest 2x1`` and so on.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -153,6 +165,8 @@ The last two lines are the kernels' JSON record and the device record.
 
 import json
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -208,6 +222,12 @@ OUT_FILES = ("sim.str.admix.K=3.out.txt", "sim.str.admix.K=3.etaik.txt",
 MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
 MESH_TIMEOUT = 240
 MESH_FIT_ITERS = 300
+# the ingest phase's runs, at once on the one card (the NCCL run at world
+# size 1 through the ingest path)
+INGEST_RUNS = (("single", "single", None), ("nccl", "nccl", None),
+               ("2x1", "gloo", (2, 1)), ("2x2", "gloo", (2, 2)))
+INGEST_ITERS = 30
+INGEST_TIMEOUT = 240
 
 
 def card() -> str:
@@ -621,18 +641,23 @@ def phase_reference(build, dev):
 
 
 def write_structure_biallelic(path, counts, miss):
-    """STRUCTURE rows of a biallelic panel, one per allele copy."""
+    """STRUCTURE rows of a biallelic panel, one per allele copy: copy a
+    carries allele 1 when a < x0, allele 2 when observed otherwise, -9
+    when missing; each allele in a 3-character field, the rows built as
+    byte arrays."""
     I, L = miss.shape
-    with open(path, "w") as fh:
-        fh.write(" ".join(f"loc{l}" for l in range(L)) + "\n")
-        for i in range(I):
-            # copy a carries allele 1 when a < x0, allele 2 when
-            # observed otherwise, -9 when missing
-            for a in range(2):
-                obs = a < 2 - miss[i]
-                allele = np.where(a < counts[i, :, 0], 1, 2)
-                row = np.where(obs, allele, -9)
-                fh.write(f"ind{i} pop0 " + " ".join(map(str, row)) + "\n")
+    with open(path, "wb") as fh:
+        fh.write((" ".join(f"loc{l}" for l in range(L)) + "\n").encode())
+        for lo in range(0, I, 1024):
+            x0, ms = counts[lo:lo + 1024, :, 0], miss[lo:lo + 1024]
+            for i in range(x0.shape[0]):
+                for a in range(2):
+                    field = np.full((L, 3), ord(" "), np.uint8)
+                    field[:, 2] = np.where(a < x0[i], ord("1"), ord("2"))
+                    gone = a >= 2 - ms[i]
+                    field[gone, 1], field[gone, 2] = ord("-"), ord("9")
+                    fh.write(f"ind{lo + i} pop0".encode() + field.tobytes()
+                             + b"\n")
 
 
 def phase_cli(build, where):
@@ -2088,6 +2113,36 @@ def phase_jagged(build, dev, where):
 # ---------------------------------------------------------------------------
 # phase 19: the mesh
 
+def start_children(flag, task, n, init):
+    """``n`` child processes of this script, each in a session of its own
+    and started by a shell that forks it (the command after it keeps the
+    shell from exec-ing): a child forked straight from this process would
+    count this process's resident set in its ru_maxrss."""
+    return [subprocess.Popen(
+        ["sh", "-c", '"$@"; exit $?', "sh", sys.executable,
+         os.path.abspath(__file__), flag, task, str(r), str(n), init],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for r in range(n)]
+
+
+def wait_children(label, procs, t0, timeout):
+    """Wait for a group of children; a rank that fails or outlives
+    ``timeout`` (from ``t0``) fails the phase, with its output."""
+    try:
+        logs = [p.communicate(timeout=max(
+            1.0, timeout - (time.time() - t0)))[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+        raise RuntimeError(f"{label}: a process outlived {timeout} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{label} rank {r} exited {p.returncode}:\n"
+                               f"{log}")
+
+
+
 def phase_nccl_world_one(where):
     """NCCL at world size 1: the helpers of runtime/mesh.py on card
     tensors, through a process group of one rank."""
@@ -2313,25 +2368,10 @@ def phase_mesh(build, dev, where, tmp):
         task = os.path.join(tmp, f"mesh_{D}x{M}.json")
         with open(task, "w") as fh:
             json.dump({"shape": shape}, fh)
-        init = "file://" + os.path.join(tmp, f"init_{D}x{M}")
         t0 = time.time()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-child", task,
-             str(r), str(n), init], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(n)]
-        try:
-            logs = [p.communicate(timeout=max(
-                1.0, MESH_TIMEOUT - (time.time() - t0)))[0] for p in procs]
-        except subprocess.TimeoutExpired:
-            for p in procs:
-                p.kill()
-                p.wait()
-            raise RuntimeError(f"mesh {D}x{M}: a rank outlived "
-                               f"{MESH_TIMEOUT} s")
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            if p.returncode != 0:
-                raise RuntimeError(f"mesh {D}x{M} rank {r} exited "
-                                   f"{p.returncode}:\n{log}")
+        wait_children(f"mesh {D}x{M}", start_children(
+            "--mesh-child", task, n,
+            "file://" + os.path.join(tmp, f"init_{D}x{M}")), t0, MESH_TIMEOUT)
         recs = []
         for r in range(n):
             with open(f"{task}.rank{r}") as fh:
@@ -2423,6 +2463,260 @@ def mesh_record(results):
             for shape, recs in results.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: per-process ingest
+
+def model_data_bytes(md) -> int:
+    """Device bytes of a ModelData's tensors, each storage once (x is a
+    view of the two planes on a biallelic panel)."""
+    seen = {}
+    for t in (md.x, md.miss, md.mask, md.n_alleles, md.c, md.x0, md.x1):
+        if t is not None:
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def ingest_child(task: str, rank: int, world: int, init: str) -> int:
+    """A process of the ingest phase: the CLI on the phase's file, single-
+    process (``single``), as a rank of a gloo group on the one card
+    (``gloo``), or through ``cli.main_meshed`` at NCCL world size 1
+    (``nccl``).  Records the rows it parsed, its ModelData's bytes, the
+    peak allocation at the end of ingest (the ModelData on the card) and
+    at the end of the run, its host max RSS, its wall, its launches and
+    the wrappers with the sharded-variant flags its steps called; the
+    single-process run also the float32 noise floor of its best fit's
+    logL (opt/em.py)."""
+    t0 = time.time()
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import resource
+
+    import torch.distributed as dist
+
+    from multiclust_tpu_torch import cli
+    from multiclust_tpu_torch.model import admixture as adm
+    from multiclust_tpu_torch.model import common
+    from multiclust_tpu_torch.ops import build
+    from multiclust_tpu_torch.runtime import ingest
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
+
+    with open(task) as fh:
+        spec = json.load(fh)
+    mode, argv = spec["mode"], spec["argv"]
+    rec = {"rank": rank, "mode": mode}
+
+    def note_ingest(md, rows):
+        torch.cuda.synchronize()
+        rec.update(rows_parsed=rows, md_bytes=model_data_bytes(md),
+                   md_shape=[md.I, md.L, md.M],
+                   peak_ingest=torch.cuda.max_memory_allocated())
+
+    if mode == "single":
+        upload, write = common.model_data_from_dataset, cli._write_outputs
+
+        def uploaded(ds, *a, **kw):
+            md = upload(ds, *a, **kw)
+            note_ingest(md, ds.I)
+            return md
+
+        def written(opt, ds, md, K, mres):
+            write(opt, ds, md, K, mres)
+            best = mres.best_params
+            _, scale = adm.log_likelihood(
+                common.Params(eta=best.eta[None], p=best.p[None]), md)
+            rec["floor"] = (common.EMConfig().noise_factor
+                            * float(np.finfo(np.float32).eps)
+                            * float(scale[0]))
+        common.model_data_from_dataset = uploaded
+        cli._write_outputs = written
+    else:
+        load = ingest.load_structure_distributed
+
+        def loaded(*a, **kw):
+            md, info = load(*a, **kw)
+            note_ingest(md, info.hi - info.lo)
+            return md, info
+        ingest.load_structure_distributed = loaded
+        dev = mesh_mod.initialize_distributed(
+            num_processes=world, process_id=rank,
+            backend="nccl" if mode == "nccl" else "gloo", device="cuda",
+            init_method=init)
+        rec["backend"] = dist.get_backend()
+    calls = set()
+    spy_variants(calls)
+    build.reset_launch_counts()
+    if mode == "nccl":
+        rc = cli.main_meshed(cli.parse_args(argv), dev)
+    else:
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    rec.update(rc=rc, launches={k: v for k, v in build.LAUNCHES.items()
+                                if v},
+               variants=sorted(calls),
+               peak_fit=torch.cuda.max_memory_allocated(),
+               rss_kib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+               wall_s=time.time() - t0)
+    with open(f"{task}.rank{rank}", "w") as fh:
+        json.dump(rec, fh)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+PART = re.compile(r"^(.*)\.part(\d+)(\.txt)?$")
+NUMBER = r"-?\d+\.\d+(?:e[-+]\d+)?|-?\d+"
+
+
+def joined_outputs(out_dir):
+    """A meshed run's files by their single-process names, each table's
+    ``.part<d>`` row blocks joined in data-index order."""
+    files, parts = {}, {}
+    for name in os.listdir(out_dir):
+        with open(os.path.join(out_dir, name)) as fh:
+            text = fh.read()
+        m = PART.match(name)
+        if m is None:
+            files[name] = text
+        else:
+            parts.setdefault(m.group(1) + (m.group(3) or ""), []).append(
+                (int(m.group(2)), text))
+    for name, texts in parts.items():
+        files[name] = "".join(t for _, t in sorted(texts))
+    return files
+
+
+def compare_ingest_outputs(label, want, got, floor):
+    """The joined files of a meshed run against the single-process ones:
+    the text outside the numbers equal; logL within the float32 noise
+    floor (AIC and BIC within twice it), count.K within 1e-4 of I an
+    entry, every other number within 1e-4; returns the largest table
+    difference."""
+    assert sorted(got) == sorted(want), (label, sorted(got), sorted(want))
+    worst = 0.0
+    for name, a in want.items():
+        b = got[name]
+        assert re.sub(NUMBER, "#", a) == re.sub(NUMBER, "#", b), (label,
+                                                                  name)
+        va = np.array([float(v) for v in re.findall(NUMBER, a)])
+        vb = np.array([float(v) for v in re.findall(NUMBER, b)])
+        d = np.abs(va - vb)
+        if name.endswith(".out.txt"):
+            # logL, AIC, BIC, then count.K
+            assert d[0] <= floor and (d[1:3] <= 2 * floor + 2e-6).all(), (
+                label, name, va[:3], vb[:3], floor)
+            assert (d[3:] <= 1e-4 * I_FULL).all(), (label, name, va, vb)
+            assert va[3:].sum() == vb[3:].sum() == I_FULL, (label, name)
+            continue
+        assert (d <= 1e-4).all(), (label, name, float(d.max()))
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+    return worst
+
+
+def phase_ingest(where, tmp):
+    """Per-process ingest: the CLI at ``-a -k 20 -n 2`` with an iteration
+    cap on a 16384 x 2048 file, single-process, as 2x1 and 2x2 gloo ranks
+    on the one card and at NCCL world size 1 on the ingest path, all at
+    once; each run's joined files held to the single-process files, and
+    each rank's rows, ModelData bytes and peak allocations held to its
+    block.  Returns the records by run."""
+    from multiclust_tpu_torch.runtime.mesh import block
+
+    t0 = time.time()
+    rng = np.random.default_rng(20)
+    counts, miss = simulated_counts(rng, I_FULL, L_FULL, K_FULL, 0.01)
+    path = os.path.join(tmp, "ingest.str")
+    write_structure_biallelic(path, counts, miss)
+    del counts, miss
+    print(f"ingest: wrote {I_FULL} x {L_FULL} ({os.path.getsize(path)} "
+          f"bytes, 1 % missing) in {time.time() - t0:.1f} s", flush=True)
+    argv = ["-f", path, "-a", "-k", str(K_FULL), "-n", "2", "-T",
+            str(INGEST_ITERS)]
+    runs, procs = {}, {}
+    for name, mode, shape in INGEST_RUNS:
+        out = os.path.join(tmp, f"out_{name}")
+        os.makedirs(out)
+        n = shape[0] * shape[1] if shape else 1
+        task = os.path.join(tmp, f"ingest_{name}.json")
+        extra = ["--mesh", f"{shape[0]}x{shape[1]}"] if shape else []
+        with open(task, "w") as fh:
+            json.dump({"mode": mode, "argv": argv + ["-d", out] + extra}, fh)
+        runs[name] = (task, n, out, shape)
+        procs[name] = start_children(
+            "--ingest-child", task, n,
+            "file://" + os.path.join(tmp, f"init_ingest_{name}"))
+    t1 = time.time()
+    for name, group in procs.items():
+        wait_children(f"ingest {name}", group, t1, INGEST_TIMEOUT)
+
+    recs = {}
+    for name, (task, n, out, shape) in runs.items():
+        recs[name] = []
+        for r in range(n):
+            with open(f"{task}.rank{r}") as fh:
+                recs[name].append(json.load(fh))
+    single = recs["single"][0]
+    want = joined_outputs(runs["single"][2])
+    for name, (task, n, out, shape) in runs.items():
+        D, M = shape or (1, 1)
+        for q in recs[name]:
+            d, m = divmod(q["rank"], M)
+            r0, r1 = block(I_FULL, D, d)
+            l0, l1 = block(L_FULL, M, m)
+            assert q["rc"] == 0, (name, q)
+            assert q["rows_parsed"] == r1 - r0, (name, q)
+            assert q["md_shape"] == [r1 - r0, l1 - l0, 2], (name, q)
+            # the int8 planes and miss, c, mask and n_alleles of the block
+            rows, cols = r1 - r0, l1 - l0
+            assert q["md_bytes"] == 3 * rows * cols + 4 * rows + 6 * cols, (
+                name, q)
+            if name != "single":
+                assert q["backend"] == ("nccl" if name == "nccl"
+                                        else "gloo"), q
+            q["md_share"] = q["md_bytes"] / single["md_bytes"]
+            q["ingest_share"] = q["peak_ingest"] / single["peak_ingest"]
+            print(f"ingest {name} rank {q['rank']}: {q['rows_parsed']} rows "
+                  f"parsed, ModelData {q['md_bytes']} bytes "
+                  f"({q['md_share']:.3f} of single), peak allocated "
+                  f"{q['peak_ingest']} bytes at the end of ingest "
+                  f"({q['ingest_share']:.3f} of single), "
+                  f"{q['peak_fit']} at the end of the run, host max RSS "
+                  f"{q['rss_kib']} KiB, wall {q['wall_s']:.1f} s on {where}",
+                  flush=True)
+        if name == "2x1":
+            assert all(q["ingest_share"] <= 0.6 for q in recs[name]), \
+                recs[name]
+        if name != "single":
+            err = compare_ingest_outputs(name, want, joined_outputs(out),
+                                         single["floor"])
+            recs[name][0]["max_abs_err"] = err
+            print(f"ingest {name}: joined files against the single-process "
+                  f"files: max|d| {err:.3e} in the tables, logL within the "
+                  f"float32 noise floor {single['floor']:.4f}", flush=True)
+        if shape:
+            split = M > 1
+            for q in recs[name]:
+                assert q["variants"] == recs[name][0]["variants"], (name, q)
+                assert (f"admixture_fullstep_biallelic_chunked(emit_a="
+                        f"{split},emit_b=True)") in q["variants"], (name, q)
+                assert q["launches"].get("mc_fullstep_bi_p0", 0) > 0, q
+    print(f"ingest: the four runs at once on the one card ({where}): "
+          f"their walls share it and the host's cores; {time.time() - t0:.1f}"
+          f" s in all", flush=True)
+    return recs
+
+
+def ingest_record(recs):
+    """The ingest runs' part of the kernels line's ``mesh`` entry: each
+    meshed run's launches rank by rank, the wrappers with the
+    sharded-variant flags its steps called, and its largest table
+    difference against the single-process files."""
+    return {f"ingest {name}": {"cli": {
+        "launches_per_rank": [q["launches"] for q in qs],
+        "variants": qs[0]["variants"],
+        "max_abs_err": qs[0]["max_abs_err"]}}
+        for name, qs in recs.items() if name != "single"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2509,6 +2803,10 @@ def main() -> int:
         mesh_results = phase_mesh(build, dev, where, tmp)
     check_mesh_launches(mesh_results)
     print(f"mesh phase: {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ingest_results = phase_ingest(where, tmp)
+    print(f"ingest phase: {time.time() - t0:.1f} s", flush=True)
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
@@ -2569,7 +2867,9 @@ def main() -> int:
         kernel_record("fullstep_bi_chunked", SOURCE, CHUNK_TPU,
                       bio_launches["fullstep_bi_chunked"], b_errs["chunked"],
                       b_ms["chunked"], b_bnd["chunked"]))
-    record = {"kernels": kernels, "mesh": mesh_record(mesh_results)}
+    mesh_entry = mesh_record(mesh_results)
+    mesh_entry.update(ingest_record(ingest_results))
+    record = {"kernels": kernels, "mesh": mesh_entry}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2581,4 +2881,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         raise SystemExit(mesh_child(sys.argv[2], int(sys.argv[3]),
                                     int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:2] == ["--ingest-child"]:
+        raise SystemExit(ingest_child(sys.argv[2], int(sys.argv[3]),
+                                      int(sys.argv[4]), sys.argv[5]))
     raise SystemExit(main())

@@ -5,8 +5,9 @@ multi-start -> the bootstrap test when ``n_bootstrap`` asks for it.  The
 device defaults to ``cuda``; without a CUDA device they raise unless
 ``device="cpu"`` is passed.  A meshed fit (``mesh_shape``) runs in every
 process of a group that ``runtime/mesh.initialize_distributed`` joined,
-each on its own device with the whole panel; every process gets the whole
-results.
+each on its own device with its block of the panel: ``fit_file`` then
+reads and uploads only that block (runtime/ingest.py), and a panel given
+whole is sliced.  Every process gets the whole results.
 """
 
 from __future__ import annotations
@@ -54,15 +55,28 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# the JAX package's refusal of a multi-process K-sweep checkpoint
+# (multiclust_tpu/cli.py:474-478)
+CHECKPOINT_REFUSAL = ("--checkpoint (K-sweep state) is single-process only; "
+                      "bootstrap checkpointing (-b with --checkpoint) works "
+                      "multi-process")
+
+
 def check_ported(opt: Options) -> None:
-    """Raise NotImplementedError for options outside the ported slice."""
+    """Raise NotImplementedError for options outside the ported slice: a
+    multi-process K-sweep checkpoint, as the JAX package does."""
     from multiclust_tpu_torch.runtime.mesh import world_size
 
-    if opt.checkpoint_dir and world_size() > 1:
-        raise NotImplementedError(
-            "--checkpoint is single-process for now: multi-process "
-            "checkpoints come with per-process ingest and writers (ROADMAP.md "
-            "queue 1, item 17b)")
+    if opt.checkpoint_dir and not opt.n_bootstrap and world_size() > 1:
+        raise NotImplementedError(CHECKPOINT_REFUSAL)
+
+
+def _mesh_of(opt: Options):
+    from multiclust_tpu_torch.runtime.mesh import cached_mesh
+    from multiclust_tpu_torch.runtime.multistart import mesh_shape_of
+
+    shape = mesh_shape_of(opt)
+    return None if shape is None else cached_mesh(shape)
 
 
 def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
@@ -72,6 +86,7 @@ def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
     ``fit_dataset`` uploads) under the given options, then run the
     bootstrap test when ``n_bootstrap`` is set."""
     from multiclust_tpu_torch.init.random import codes_from_counts
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
     from multiclust_tpu_torch.runtime.ksweep import estimate_model
     from multiclust_tpu_torch.stats.bootstrap import run_bootstrap
 
@@ -80,19 +95,27 @@ def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
         opt = dataclasses.replace(opt, **kw)
     check_ported(opt)
     resolve_device(md.device)
+    mesh = _mesh_of(opt)
+    md, _ = mesh_mod.as_block(md, mesh)
     opt = opt.synchronize(md.I_total, ploidy)
     # allele codes seed the admixture starts only
     codes = (codes_from_counts(md.x, md.miss, ploidy) if opt.admixture
              else None)
-    free_p = int((md.n_alleles - 1).sum())
+    free_p = (md.n_alleles - 1).sum().cpu().numpy()
+    if md.block is not None:
+        free_p = mesh_mod.host_sum(free_p, mesh.model_group)
+    free_p = int(free_p)
 
     def n_parameters(K):
         # Dataset.n_parameters (multiclust.c:1267-1277)
         per_i = opt.admixture and not opt.eta_constrained
         return (md.I_total * (K - 1) if per_i else K - 1) + free_p * K
 
+    # a multi-process run checkpoints its bootstrap only, as the JAX CLI
     est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
-                         checkpoint_dir=opt.checkpoint_dir)
+                         checkpoint_dir=(opt.checkpoint_dir
+                                         if mesh_mod.world_size() == 1
+                                         else None))
     boot = None
     if opt.n_bootstrap:
         boot = run_bootstrap(opt.seed, md, opt, n_parameters, est.ts,
@@ -121,11 +144,29 @@ def fit_dataset(ds: Dataset, opt: Optional[Options] = None, *,
 
 def fit_file(path: str, opt: Optional[Options] = None, *, device="cuda",
              **kw) -> FitOutput:
-    """Read a STRUCTURE file and fit it on ``device``."""
+    """Read a STRUCTURE file and fit it on ``device``.  In a process group
+    of more than one process every process reads and uploads its block of
+    the ``mesh_shape`` mesh only (runtime/ingest.py); its FitOutput's
+    dataset is then the Dataset of its rows."""
     from multiclust_tpu_torch.io.structure import read_structure
+    from multiclust_tpu_torch.runtime.ingest import \
+        load_structure_distributed
+    from multiclust_tpu_torch.runtime.mesh import world_size
+    from multiclust_tpu_torch.runtime.multistart import device_policy
 
     opt = opt or Options()
     if kw:
         opt = dataclasses.replace(opt, **kw)
-    ds = read_structure(path, opt)
-    return fit_dataset(ds, opt, device=device)
+    if world_size() == 1:
+        return fit_dataset(read_structure(path, opt), opt, device=device)
+    check_ported(opt)
+    device = resolve_device(device)
+    mesh = _mesh_of(opt)
+    if mesh is None:
+        raise ValueError(f"{world_size()} processes fit on a mesh: pass "
+                         f"mesh_shape")
+    _, storage = device_policy(opt, device)
+    md, info = load_structure_distributed(
+        path, opt, mesh, dtype=getattr(torch, opt.dtype),
+        storage_dtype=storage, device=device)
+    return fit_model_data(md, opt.ploidy, opt, dataset=info.ds_local)

@@ -348,11 +348,13 @@ OPTIONS WITHOUT A REFERENCE COUNTERPART
 \t\tprocess on the data axis.  Each process is started with
 \t\tMULTICLUST_COORDINATOR=<host:port of process 0>,
 \t\tMULTICLUST_NUM_PROCESSES=<D*M> and MULTICLUST_PROCESS_ID=<rank>
-\t\t(NCCL on cuda, gloo on cpu); every process reads the whole file
-\t\tand process 0 writes the output files.
+\t\t(NCCL on cuda, gloo on cpu).  Each process reads and uploads
+\t\tonly its block of the file and writes the per-individual
+\t\ttables of its row block as <file>.part<d>; process 0 writes
+\t\tthe other output files.
 \t--checkpoint <dir>
 \t\tPersist/resume the multi-start sweep state and the bootstrap
-\t\t(single-process only for now).
+\t\t(multi-process runs: the bootstrap's only, with -b).
 \t--compile-cache <dir|off>
 \t\tAccepted for compatibility with the JAX CLI and unused.
 \t--check-interval <n>
@@ -430,8 +432,8 @@ def _main(argv: Optional[List[str]] = None) -> int:
         check_ported(opt)
     except NotImplementedError as e:
         raise UsageError(str(e))
-    # process 0 writes the output files; every process prints
-    writer = mesh_mod.rank() == 0
+    if n_proc > 1:
+        return main_meshed(opt, device)
 
     from multiclust_tpu_torch.io.structure import read_structure
     from multiclust_tpu_torch.io.warm_start import read_afile, read_pfile, \
@@ -443,7 +445,7 @@ def _main(argv: Optional[List[str]] = None) -> int:
     from multiclust_tpu_torch.runtime.multistart import device_policy
 
     ds = read_structure(opt.filename, opt)
-    if opt.imputation_method and opt.imputed_outfile and writer:
+    if opt.imputation_method and opt.imputed_outfile:
         # write the imputed dataset (read_file, read_file.c:295-296)
         from multiclust_tpu_torch.io.writers import write_data
         write_data(opt, ds, opt.imputed_outfile)
@@ -492,43 +494,117 @@ def _main(argv: Optional[List[str]] = None) -> int:
     def on_model_improve(K, mres):
         # best-so-far persistence: rewrite the per-K files whenever an
         # init improves the best logL (multiclust.c:584-600)
-        if writer and opt.write_files and mres.best_params is not None:
+        if opt.write_files and mres.best_params is not None:
             _write_outputs(opt, ds, md, K, mres)
 
     def on_model_done(K, mres):
-        if writer and opt.write_files and mres.best_params is not None:
+        if opt.write_files and mres.best_params is not None:
             _write_outputs(opt, ds, md, K, mres)
-        if opt.verbosity > 2 and mres.route:
-            # how the biallelic admixture step ran on the card
-            print(f"K = {K}: step route {mres.route}, "
-                  f"{mres.batch_chains} chains in lockstep")
-        if opt.verbosity > 2 and mres.buckets:
-            # the jagged panel's bucketing plan (model/bucketed.py)
-            print(f"K = {K}: jagged loci bucketed: {mres.buckets}")
-        if opt.verbosity:
-            print_model_state(opt, ds, mres, time.time() - t_start)
+        _report_model(opt, K, mres, t_start)
 
     est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
                          warm=warm, true_partition=truth,
                          on_model_done=on_model_done,
                          on_improve=on_model_improve,
                          checkpoint_dir=opt.checkpoint_dir)
+    _finish(opt, md, est, n_parameters)
+    return 0
+
+
+def _report_model(opt: Options, K: int, mres, t_start: float) -> None:
+    """The lines printed when K is done: how the step ran, and the model
+    state."""
+    if opt.verbosity > 2 and mres.route:
+        # how the biallelic admixture step ran on the card
+        print(f"K = {K}: step route {mres.route}, "
+              f"{mres.batch_chains} chains in lockstep")
+    if opt.verbosity > 2 and mres.buckets:
+        # the jagged panel's bucketing plan (model/bucketed.py)
+        print(f"K = {K}: jagged loci bucketed: {mres.buckets}")
+    if opt.verbosity:
+        print_model_state(opt, None, mres, time.time() - t_start)
+
+
+def _finish(opt: Options, md, est, n_parameters) -> None:
+    """After the K-sweep: -M's line, and the bootstrap test under -b."""
     if opt.parallel:
         # -M: stdout carries only the max log likelihood
         print(f"{est.last.max_logL:f}")
+    if not opt.n_bootstrap:
+        return
+    from multiclust_tpu_torch.stats.bootstrap import run_bootstrap
 
-    if opt.n_bootstrap:
-        from multiclust_tpu_torch.stats.bootstrap import run_bootstrap
+    def log(rep, ts, ntime):
+        print(f"Bootstrap dataset {rep + 1} (of {opt.n_bootstrap}): "
+              f"test statistics bs={ts:f} obs={est.ts:f} "
+              f"({ntime / (rep + 1):f})")
 
-        def log(rep, ts, ntime):
-            print(f"Bootstrap dataset {rep + 1} (of {opt.n_bootstrap}): "
-                  f"test statistics bs={ts:f} obs={est.ts:f} "
-                  f"({ntime / (rep + 1):f})")
+    bres = run_bootstrap(opt.seed, md, opt, n_parameters, est.ts,
+                         est.h0_params, opt.ploidy, log=log,
+                         checkpoint_dir=opt.checkpoint_dir)
+    print(f"p-value to reject H0: K={bres.null_K} is {bres.pvalue:f}")
 
-        bres = run_bootstrap(opt.seed, md, opt, n_parameters, est.ts,
-                             est.h0_params, ds.ploidy, log=log,
-                             checkpoint_dir=opt.checkpoint_dir)
-        print(f"p-value to reject H0: K={bres.null_K} is {bres.pvalue:f}")
+
+def main_meshed(opt: Options, device: torch.device) -> int:
+    """The CLI's multi-process run (multiclust_tpu/cli.py:457-573), in a
+    process group that ``runtime/mesh.initialize_distributed`` joined:
+    every rank reads and uploads its block of the panel
+    (runtime/ingest.py), computes its allele codes, starts and replicates
+    on that block, and writes the per-individual tables of its row block
+    as ``.part<d>`` files; rank 0 writes the replicated ones.  The K-sweep
+    runs without a checkpoint (``api.check_ported`` refuses one without
+    -b); the bootstrap checkpoints through rank 0.  A group of one process
+    runs it as a 1 x 1 mesh."""
+    from multiclust_tpu_torch.init.random import codes_from_counts
+    from multiclust_tpu_torch.io.warm_start import read_afile
+    from multiclust_tpu_torch.runtime import ingest
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
+    from multiclust_tpu_torch.runtime.ksweep import estimate_model
+    from multiclust_tpu_torch.runtime.multistart import device_policy, \
+        mesh_shape_of
+
+    mesh = mesh_mod.cached_mesh(mesh_shape_of(opt) or (1, 1))
+    dtype = getattr(torch, opt.dtype)
+    _, storage = device_policy(opt, device)
+    md, info = ingest.load_structure_distributed(
+        opt.filename, opt, mesh, dtype=dtype, storage_dtype=storage,
+        device=device)
+    if opt.imputation_method and opt.imputed_outfile:
+        ingest.write_data_distributed(opt, info, opt.imputed_outfile)
+    I_total = info.I_total
+    opt = opt.synchronize(I_total, opt.ploidy)
+    # allele codes of this rank's block seed the admixture starts
+    codes = (codes_from_counts(md.x, md.miss, opt.ploidy) if opt.admixture
+             else None)
+    warm = None
+    if opt.qfile and opt.pfile:
+        warm = ingest.warm_start_distributed(opt, info, dtype, device)
+    # the whole true partition on every rank (O(I) ints); each scores its
+    # rows (runtime/ingest.score_arand_distributed)
+    truth = read_afile(opt.afile, I_total)[0] if opt.afile else None
+    free_p = int((info.n_alleles - 1).sum())
+
+    def n_parameters(K):
+        # Dataset.n_parameters (multiclust.c:1267-1277) of the panel
+        per_i = opt.admixture and not opt.eta_constrained
+        return (I_total * (K - 1) if per_i else K - 1) + free_p * K
+
+    t_start = time.time()
+    if opt.n_repeat != 1:
+        from multiclust_tpu_torch.runtime.timing import timed_model_estimation
+        timed_model_estimation(opt.seed, md, opt, n_parameters, codes=codes,
+                               warm=warm, true_partition=truth)
+        return 0
+
+    def on_model_done(K, mres):
+        if opt.write_files and mres.best_params is not None:
+            ingest.write_outputs_distributed(opt, info, K, mres, md)
+        _report_model(opt, K, mres, t_start)
+
+    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
+                         warm=warm, true_partition=truth,
+                         on_model_done=on_model_done)
+    _finish(opt, md, est, n_parameters)
     return 0
 
 

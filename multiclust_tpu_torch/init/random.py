@@ -16,12 +16,16 @@ would all be identical.  So is its deviation from the reference's
 missing-data correction of ``random_individual_center`` (against center
 k's missing counts, not center 0's).
 
-Under a mesh (runtime/mesh.py) every rank makes the whole panel's draws
-from the same generator, so the starts equal the unsharded fit's, and
-counts its own block of them: the per-individual counts over its loci are
-summed over the model group, the per-locus counts over its rows over the
-data group, and a rank's start is its block (eta rows, p loci).  Every rank
-holds the whole panel (``md``, ``codes``) until the ingest is per process.
+Under a mesh (runtime/mesh.py) ``md`` and ``codes`` are this rank's block
+of the panel (a whole panel given under a mesh is sliced first,
+``mesh.as_block``).  Every rank makes the whole panel's draws from the same
+generator, window by window of loci sized from the panel's I and L, so the
+starts equal the unsharded fit's, and keeps and counts its block of them:
+the per-individual counts over its loci are summed over the model group,
+the per-locus counts over its rows over the data group, and a rank's start
+is its block (eta rows, p loci).  A mixture center's row reaches every
+rank of the data group from the rank that holds it, and a row's distances
+to the centers are summed over the model group.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from multiclust_tpu_torch.config import InitMethod, InitProcedure
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     column_window
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
-    world_min
+    as_block, host_max, sum_over, world_min
 
 Tensor = torch.Tensor
 
@@ -42,34 +46,50 @@ Tensor = torch.Tensor
 
 def random_individual_partition(gen: torch.Generator, md: ModelData,
                                 K: int) -> Tensor:
-    """I_K[i] ~ Uniform{0..K-1} (rnd_init.c:173-179)."""
-    return torch.randint(0, K, (md.I,), generator=gen, device=md.device)
+    """I_K[i] ~ Uniform{0..K-1} (rnd_init.c:173-179); of a block, its rows
+    of the whole panel's draw."""
+    r0, _ = md.offsets
+    return torch.randint(0, K, (md.I_total,), generator=gen,
+                         device=md.device)[r0:r0 + md.I]
 
 
 def random_individual_center(gen: torch.Generator, md: ModelData,
-                             K: int) -> Tensor:
+                             K: int, mesh=None) -> Tensor:
     """K distinct random centers; each individual joins the center nearest
     in L1 distance on the counts, with the missing-data correction
     (rnd_init.c:192-259):
         dist[i, k] = sum_lm |x_i - x_c| - sum_l |miss_i - miss_c| / n_l
     over the loci with any missing copy; each center joins its own
-    cluster."""
+    cluster.  Under a ``mesh`` ``md`` is this rank's block: the centers'
+    rows are summed over the data group from the ranks that hold them, and
+    the distances of its rows over the model group."""
     dev = md.device
     if K == 1:
         return torch.zeros(md.I, dtype=torch.int64, device=dev)
-    centers = torch.randperm(md.I, generator=gen, device=dev)[:K]
+    r0, _ = md.offsets
+    centers = torch.randperm(md.I_total, generator=gen, device=dev)[:K]
     x = md.x.to(md.dtype)
     missf = md.miss.to(md.dtype)
     denom = torch.clamp(md.n_alleles.to(md.dtype), min=1.0)
-    has_miss = missf.max(dim=0).values > 0            # [L]
+    own = (centers >= r0) & (centers < r0 + md.I)
+    local = (centers - r0)[own]
+    xc = x.new_zeros((K,) + tuple(x.shape[1:]))
+    xc[own] = x[local]
+    mc = missf.new_zeros((K, md.L))
+    mc[own] = missf[local]
+    xc = sum_over(mesh, xc, DATA_AXIS)
+    mc = sum_over(mesh, mc, DATA_AXIS)
+    has_miss = sum_over(mesh, (missf.max(dim=0).values > 0).to(torch.int32),
+                        DATA_AXIS) > 0                # [L]
     dists = []
-    for c in centers.tolist():                        # one [I, L, M] at a time
-        d = (x - x[c]).abs().sum(dim=(1, 2))
-        corr = torch.where(has_miss, (missf - missf[c]).abs() / denom,
+    for k in range(K):                                # one [I, L, M] at a time
+        d = (x - xc[k]).abs().sum(dim=(1, 2))
+        corr = torch.where(has_miss, (missf - mc[k]).abs() / denom,
                            torch.zeros_like(missf)).sum(dim=1)
         dists.append(d - corr)
-    assign = torch.argmin(torch.stack(dists, dim=1), dim=1)
-    assign[centers] = torch.arange(K, device=dev)
+    assign = torch.argmin(sum_over(mesh, torch.stack(dists, dim=1),
+                                   MODEL_AXIS), dim=1)
+    assign[local] = torch.arange(K, device=dev)[own]
     return assign
 
 
@@ -78,28 +98,19 @@ def parameters_from_partition_mixture(I_K: Tensor, md: ModelData,
     """Add-one-smoothed counts given a hard partition
     (initialize_parameters_mixture, rnd_init.c:268-339): eta [K], p [K, L,
     M].  Counts are exact integers, so bincounts and an index sum give the
-    JAX package's one-hot sums.  Under a ``mesh`` the p of this rank's
-    loci, from the counts of its rows summed over the data group."""
+    JAX package's one-hot sums.  Under a ``mesh`` ``md`` is this rank's
+    block and ``I_K`` its rows' clusters: the p of its loci, from the
+    counts of its rows summed over the data group."""
     dtype = md.dtype
-    eta = (1.0 + torch.bincount(I_K, minlength=K).to(dtype)) / (md.I + K)
-    (r0, r1), (l0, l1) = _block(md, mesh)
-    L = l1 - l0
-    pc = torch.zeros((K, L * md.M), dtype=dtype, device=md.device)
-    pc.index_add_(0, I_K[r0:r1],
-                  md.x[r0:r1, l0:l1].reshape(r1 - r0, -1).to(dtype))
-    if mesh is not None:
-        pc = mesh.sum(pc, DATA_AXIS)
-    pc = torch.where(md.mask[l0:l1][None], pc.reshape(K, L, md.M) + 1.0,
+    sizes = sum_over(mesh, torch.bincount(I_K, minlength=K).to(dtype),
+                     DATA_AXIS)
+    eta = (1.0 + sizes) / (md.I_total + K)
+    pc = torch.zeros((K, md.L * md.M), dtype=dtype, device=md.device)
+    pc.index_add_(0, I_K, md.x.reshape(md.I, -1).to(dtype))
+    pc = sum_over(mesh, pc, DATA_AXIS)
+    pc = torch.where(md.mask[None], pc.reshape(K, md.L, md.M) + 1.0,
                      torch.zeros((), dtype=dtype, device=md.device))
     return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
-
-
-def _block(md: ModelData, mesh):
-    """([r0, r1), [l0, l1)): this rank's rows and loci of the whole panel
-    ``md``, or all of them without a mesh."""
-    if mesh is None:
-        return (0, md.I), (0, md.L)
-    return mesh.rows(md.I), mesh.loci(md.L)
 
 
 # ---------------------------------------------------------------------------
@@ -115,12 +126,55 @@ INIT_BYTES = 8 << 30
 def init_window(md: ModelData, ploidy: int, budget: int = None) -> int:
     """Loci per window of an admixture start: all of L when the start's
     temporaries fit ``budget`` bytes (by default INIT_BYTES, and on CUDA at
-    most a quarter of what the device has free)."""
+    most a quarter of what the device has free).  Of a block, the window
+    of the whole panel: every rank draws each window whole."""
     if budget is None:
         budget = INIT_BYTES
         if md.device.type == "cuda":
             budget = min(budget, torch.cuda.mem_get_info(md.device)[0] // 4)
-    return column_window(md.L, INIT_BYTES_PER_COPY * md.I * ploidy, budget)
+    return column_window(md.L_total, INIT_BYTES_PER_COPY * md.I_total * ploidy,
+                         budget)
+
+
+def _window_labels(gen: torch.Generator, md: ModelData, codes: Tensor,
+                   K: int, method: InitMethod, window, own,
+                   n_max: int) -> Tensor:
+    """Cluster labels of the copies ``codes`` [I_b, L_b, P] of a window of
+    loci, or of this rank's block of it.  ``window`` = (I, lo, hi): the
+    whole panel's rows and the window's loci [lo, hi); ``own`` = (r0, a,
+    m0): the first row of ``codes`` in the panel, its first locus in the
+    window and in ``md``.  Every draw is made for the whole window, so the
+    generator's stream is that of the unsharded start, and the block of
+    the draws is kept.  ``n_max`` is the panel's largest n_alleles."""
+    I, lo, hi = window
+    r0, a, m0 = own
+    Ib, Lb, _ = codes.shape
+    dev = codes.device
+
+    def draw():
+        return torch.randint(0, K, (I, hi - lo, codes.shape[2]),
+                             generator=gen, device=dev)[r0:r0 + Ib, a:a + Lb]
+
+    if method == InitMethod.RANDOM_PARTITION or (K > 1 and n_max < K):
+        return torch.where(codes >= 0, draw(), -1)
+    if K == 1:
+        return torch.where(codes >= 0, 0, -1)
+    M = md.M
+    mask = md.mask[m0:m0 + Lb]
+    # random permutation of the slots of each locus; invalid slots last
+    noise = torch.rand((hi - lo, M), generator=gen, device=dev)[a:a + Lb]
+    noise = torch.where(mask, noise, 2.0)
+    rank = torch.argsort(torch.argsort(noise, dim=1), dim=1)
+    slots = torch.arange(M, device=dev)[None, :]
+    n_all = md.n_alleles[m0:m0 + Lb].to(torch.int64)[:, None]
+    # inv[l, m] = cluster of slot m, or -1 when slot m is not a center
+    ident = torch.where(slots < n_all, slots, -1)
+    inv = torch.where(n_all < K, ident, torch.where(rank < K, rank, -1))
+    inv = torch.where(mask, inv, -1)
+    loci = torch.arange(Lb, device=dev)[None, :, None]
+    matched = inv[loci, codes.clamp(min=0).long()]    # [I_b, L_b, P]
+    lab = torch.where(matched >= 0, matched, draw())
+    return torch.where(codes >= 0, lab, -1)
 
 
 def random_allele_partition(gen: torch.Generator, md: ModelData,
@@ -128,9 +182,9 @@ def random_allele_partition(gen: torch.Generator, md: ModelData,
     """Assign every observed allele copy to a random cluster
     (random_allele_partition, rnd_init.c:456-482).  Returns [I, L, P]
     cluster labels (-1 for missing copies)."""
-    lab = torch.randint(0, K, codes.shape, generator=gen,
-                        device=codes.device)
-    return torch.where(codes >= 0, lab, -1)
+    I, L, _ = codes.shape
+    return _window_labels(gen, md, codes, K, InitMethod.RANDOM_PARTITION,
+                          (I, 0, L), (0, 0, 0), 0)
 
 
 def random_allele_center(gen: torch.Generator, md: ModelData,
@@ -140,29 +194,10 @@ def random_allele_center(gen: torch.Generator, md: ModelData,
     cluster, the others are assigned at random (random_allele_center,
     rnd_init.c:496-580).  ``codes`` may cover only the loci [lo, hi) of
     ``md``."""
-    if K == 1:
-        return torch.where(codes >= 0, 0, -1)
-    if int(md.n_alleles.max()) < K:
-        return random_allele_partition(gen, md, codes, K)
     hi = md.L if hi is None else hi
-    L, M = hi - lo, md.M
-    dev = codes.device
-    mask = md.mask[lo:hi]
-    # random permutation of the slots of each locus; invalid slots last
-    noise = torch.rand((L, M), generator=gen, device=dev)
-    noise = torch.where(mask, noise, 2.0)
-    rank = torch.argsort(torch.argsort(noise, dim=1), dim=1)
-    slots = torch.arange(M, device=dev)[None, :]
-    n_all = md.n_alleles[lo:hi].to(torch.int64)[:, None]
-    # inv[l, m] = cluster of slot m, or -1 when slot m is not a center
-    ident = torch.where(slots < n_all, slots, -1)
-    inv = torch.where(n_all < K, ident, torch.where(rank < K, rank, -1))
-    inv = torch.where(mask, inv, -1)
-    loci = torch.arange(L, device=dev)[None, :, None]
-    matched = inv[loci, codes.clamp(min=0).long()]    # [I, L, P]
-    rnd = torch.randint(0, K, codes.shape, generator=gen, device=dev)
-    lab = torch.where(matched >= 0, matched, rnd)
-    return torch.where(codes >= 0, lab, -1)
+    return _window_labels(gen, md, codes, K, InitMethod.RANDOM_CENTERS,
+                          (codes.shape[0], lo, hi), (0, 0, lo),
+                          int(md.n_alleles.max()))
 
 
 def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
@@ -185,25 +220,23 @@ def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
     return copies[:, :K], pc
 
 
+
 def parameters_from_allele_counts(copies: Tensor, pc: Tensor,
                                   md: ModelData, n_copies: int,
                                   eta_constrained: bool = False,
                                   mesh=None) -> Params:
     """Add-one-smoothed parameters from the exact counts of a whole panel
-    (``n_copies`` = L x P copies per individual).  Under a ``mesh`` copies
-    are those of this rank's rows and pc of its loci of the whole panel
-    ``md``, each already summed over the other axis's ranks; the shared eta
-    of ``eta_constrained`` sums the rows over the data group."""
+    (``n_copies`` = L x P copies per individual).  Under a ``mesh`` ``md``
+    is this rank's block, copies those of its rows and pc of its loci,
+    each already summed over the other axis's ranks; the shared eta of
+    ``eta_constrained`` sums the rows over the data group."""
     K = copies.shape[1]
-    _, (l0, l1) = _block(md, mesh)
     if eta_constrained:
-        col = copies.sum(dim=0)
-        if mesh is not None:
-            col = mesh.sum(col, DATA_AXIS)
-        eta = (1.0 + col) / (md.I * n_copies + K)
+        col = sum_over(mesh, copies.sum(dim=0), DATA_AXIS)
+        eta = (1.0 + col) / (md.I_total * n_copies + K)
     else:
         eta = (1.0 + copies) / (n_copies + K)
-    pc = torch.where(md.mask[l0:l1][None], pc + 1.0, torch.zeros_like(pc))
+    pc = torch.where(md.mask[None], pc + 1.0, torch.zeros_like(pc))
     return Params(eta=eta, p=pc / pc.sum(dim=2, keepdim=True))
 
 
@@ -221,10 +254,10 @@ def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
                                          eta_constrained)
 
 
-def _allele_labels(gen, md, codes, K, method, lo=0, hi=None):
+def _allele_labels(gen, md, codes, K, method):
     if method == InitMethod.RANDOM_PARTITION:
         return random_allele_partition(gen, md, codes, K)
-    return random_allele_center(gen, md, codes, K, lo, hi)
+    return random_allele_center(gen, md, codes, K)
 
 
 def windowed_allele_start(gen: torch.Generator, md: ModelData,
@@ -235,21 +268,27 @@ def windowed_allele_start(gen: torch.Generator, md: ModelData,
     that no temporary grows with the whole I x L x P.  The counts are
     those of the unwindowed path for the same labels; the draws come in
     another order (one window after another), except with one window.
-    Under a ``mesh`` each window's labels are drawn whole and this rank
-    counts its block of them; its start is its block."""
-    _, L, P = codes.shape
-    (r0, r1), (l0, l1) = _block(md, mesh)
+    Under a ``mesh`` ``md`` and ``codes`` are this rank's block: each
+    window's labels are drawn whole and this rank counts its block of
+    them; its start is its block."""
+    I, L = md.I_total, md.L_total
+    r0, l0 = md.offsets
+    P = codes.shape[-1]
+    n_max = int(md.n_alleles.max())
+    if mesh is not None and mesh.model_shards > 1:
+        n_max = int(host_max(n_max, mesh.model_group))
     copies = None
     pcs = []
     for lo in range(0, L, window):
         hi = min(L, lo + window)
-        cw = codes[:, lo:hi]
-        labels = _allele_labels(gen, md, cw, K, method, lo, hi)
-        a, b = max(lo, l0) - lo, min(hi, l1) - lo    # this rank's loci
-        if a >= b:
+        g0, g1 = max(lo, l0), max(min(hi, l0 + md.L), lo)  # own loci
+        cw = codes[:, g0 - l0:g1 - l0]
+        # drawn on every rank, so that the generators stay in step
+        labels = _window_labels(gen, md, cw, K, method, (I, lo, hi),
+                                (r0, g0 - lo, g0 - l0), n_max)
+        if g0 >= g1:
             continue
-        cp, pc = allele_partition_counts(labels[r0:r1, a:b],
-                                         cw[r0:r1, a:b], md.M, K, md.dtype)
+        cp, pc = allele_partition_counts(labels, cw, md.M, K, md.dtype)
         copies = cp if copies is None else copies + cp
         pcs.append(pc)
     pc = torch.cat(pcs, dim=1)
@@ -270,6 +309,7 @@ def random_initialize(gen: torch.Generator, md: ModelData, K: int,
     admixture start whose temporaries exceed ``budget`` bytes
     (``init_window``) is drawn in windows of loci.  Under a ``mesh`` this
     rank's block of the start (every rank takes the least window)."""
+    md, codes = as_block(md, mesh, codes)
     if admixture:
         window = init_window(md, codes.shape[-1], budget)
         if mesh is not None:
@@ -285,15 +325,16 @@ def random_initialize(gen: torch.Generator, md: ModelData, K: int,
     if method == InitMethod.RANDOM_PARTITION:
         part = random_individual_partition(gen, md, K)
     else:
-        part = random_individual_center(gen, md, K)
+        part = random_individual_center(gen, md, K, mesh)
     return parameters_from_partition_mixture(part, md, K, mesh)
 
 
 def rand_em_chunk(md: ModelData, n: int, hbm_budget: float = 2e9) -> int:
     """Candidates to score at once: the plain scoring step materializes
-    about three [I, L*M] tensors per candidate."""
+    about three [I, L*M] tensors per candidate (of the whole panel, so
+    that every rank of a mesh scores in the same batches)."""
     itemsize = torch.finfo(md.dtype).bits // 8
-    per_cand = 3 * md.I * md.L * md.M * itemsize
+    per_cand = 3 * md.I_total * md.L_total * md.M * itemsize
     return max(1, min(n, int(hbm_budget // max(per_cand, 1))))
 
 
@@ -309,14 +350,15 @@ def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
     scored on ``md_score`` (the collapsed data of a constrained-eta fit;
     ``md`` by default) in batches of ``chunk`` lanes, in the layout the fit
     will run (the p0 layout through the kernel when it is active).  Under a
-    mesh ``md`` is the whole panel and ``md_score`` this rank's block: each
-    candidate is this rank's block of it, scored by the meshed step and
-    logL, so every rank keeps the same winner."""
+    mesh ``md`` and ``md_score`` are this rank's block: each candidate is
+    this rank's block of it, scored by the meshed step and logL, so every
+    rank keeps the same winner."""
     from multiclust_tpu_torch.opt.em import model_em_step, \
         model_log_likelihood
     from multiclust_tpu_torch.runtime.multistart import _pad_k, \
         _to_fit_layout
 
+    md, codes = as_block(md, cfg.mesh, codes)
     md_score = md if md_score is None else md_score
     n = n_rand_em_init if K > 1 else 1
     c = chunk or rand_em_chunk(md_score, n)
@@ -342,8 +384,10 @@ def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
                md_score: ModelData = None) -> Params:
     """One start (initialize_model, rnd_init.c:54-89), unbatched and
     unpadded: eta [I, K] (admixture) or [K] (mixture, constrained eta), p
-    [K, L, M]; under a mesh (cfg.mesh) this rank's block of it.
-    ``md_score`` is where Rand-EM scores its candidates."""
+    [K, L, M]; under a mesh (cfg.mesh) this rank's block of it, ``md`` and
+    ``codes`` being this rank's block or the whole panel.  ``md_score`` is
+    where Rand-EM scores its candidates."""
+    md, codes = as_block(md, cfg.mesh, codes)
     if procedure == InitProcedure.RAND_EM:
         return rand_em_initialize(gen, md, K, cfg, method, n_rand_em_init,
                                   codes, md_score=md_score)

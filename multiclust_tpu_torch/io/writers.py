@@ -91,13 +91,15 @@ def write_pklm(base: str, K: int, p: np.ndarray, n_alleles,
 
 
 def _write_big_table(path: str, header: str, ints: np.ndarray,
-                     floats: np.ndarray) -> None:
+                     floats: np.ndarray, trailer: str = "\n") -> None:
     """Bulk table write: native C++ writer when available (~30x faster -
     the engine rewrites these files on every best-so-far improvement,
-    multiclust.c:584-600), byte-identical Python fallback otherwise."""
+    multiclust.c:584-600), byte-identical Python fallback otherwise.
+    ``trailer`` ends the file (only the last of a table's row-block parts
+    carries it, runtime/ingest.write_outputs_distributed)."""
     from multiclust_tpu_torch.io import fastwrite
     if fastwrite.available():
-        fastwrite.write_table(path, header, "\n", ints, floats)
+        fastwrite.write_table(path, header, trailer, ints, floats)
         return
     fmt = "\t".join(["%d"] * ints.shape[1]
                     + ["%f"] * floats.shape[1]) + "\n"
@@ -105,7 +107,7 @@ def _write_big_table(path: str, header: str, ints: np.ndarray,
         fp.write(header)
         for iv, fv in zip(ints, floats):
             fp.write(fmt % (*iv, *fv))
-        fp.write("\n")
+        fp.write(trailer)
 
 
 def write_popq(opt: Options, ds: Dataset, K: int, mass: np.ndarray) -> None:

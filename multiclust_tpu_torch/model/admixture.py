@@ -544,13 +544,14 @@ def log_likelihood(params: Params, md: ModelData, mesh=None):
 
 def posterior_allele_mass(params: Params, md: ModelData,
                           eta_constrained: bool = False,
-                          budget: int = WINDOW_BYTES) -> Tensor:
+                          budget: int = WINDOW_BYTES, mesh=None) -> Tensor:
     """dik[i, k] = sum_{l,m} d_iklm, expected allele copies sourced from
     cluster k, for unbatched full-layout params (partition_admixture,
     write_file.c:350-382; indivq_admix :525-543; popq_admix :446-459).
     ``eta_constrained``: eta is the shared K-vector.  The [I, L*M]
     temporaries are made one window of loci at a time, about ``budget``
-    bytes each."""
+    bytes each.  Under a ``mesh`` md and params are this rank's block:
+    the sum over its loci is summed over the model group."""
     p = params.p                                      # [K, L, M]
     K = p.shape[0]
     eta = params.eta
@@ -565,4 +566,5 @@ def posterior_allele_mass(params: Params, md: ModelData,
         xw = md.x[:, lo:hi].reshape(md.I, -1).to(eta.dtype)
         a_w = _safe_div(xw, eta @ p2) @ p2.T
         A = a_w if A is None else A + a_w
+    A = sum_over(mesh, A, MODEL_AXIS)
     return eta * (A + md.c.to(eta.dtype)[:, None])

@@ -80,8 +80,9 @@ class ModelData(NamedTuple):
     c: Tensor          # [I] missing totals, compute dtype
     x0: Optional[Tensor] = None  # [I, L] allele-0 counts, storage dtype
     x1: Optional[Tensor] = None  # [I, L] allele-1 counts, storage dtype
-    # a rank's block of a meshed panel (runtime/mesh.shard_model_data):
-    # the global I and L and the block's offsets; None for a whole panel
+    # a rank's block of a meshed panel (runtime/mesh.shard_model_data, or
+    # model_data_from_block for a block read per process): the global I
+    # and L and the block's offsets; None for a whole panel
     block: Optional[object] = None
 
     @property
@@ -105,6 +106,13 @@ class ModelData(NamedTuple):
     def L_total(self) -> int:
         """Loci of the whole panel."""
         return self.block.L if self.block is not None else self.L
+
+    @property
+    def offsets(self) -> Tuple[int, int]:
+        """(first row, first locus) of the block in the whole panel; (0, 0)
+        for a whole panel."""
+        b = self.block
+        return (0, 0) if b is None else (b.row0, b.locus0)
 
     @property
     def device(self) -> torch.device:
@@ -165,22 +173,25 @@ def _to_device(a, device, dtype: torch.dtype) -> Tensor:
 
 
 def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
-                    device, storage_dtype: Optional[torch.dtype] = None
-                    ) -> ModelData:
+                    device, storage_dtype: Optional[torch.dtype] = None,
+                    planes: Optional[bool] = None) -> ModelData:
     """Build ModelData from array-likes (numpy or tensors).
 
     ``storage_dtype=torch.int8`` keeps x (and, for float32 compute, miss)
     as int8 on the device; counts never exceed the ploidy, so the cast is
-    exact."""
+    exact.  ``planes`` overrides whether the counts are held as the two
+    biallelic planes (by default: M = 2 and every locus given has two
+    alleles), so that every block of a panel takes the panel's layout."""
     device = torch.device(device)
     miss_dtype = (storage_dtype if (storage_dtype is not None
                                     and dtype == torch.float32) else dtype)
     mt = _to_device(miss, device, miss_dtype)
     n_all = torch.as_tensor(np.asarray(n_alleles) if not torch.is_tensor(
         n_alleles) else n_alleles).to(device=device, dtype=torch.int32)
-    biallelic = bool((n_all == 2).all())
+    if planes is None:
+        planes = np.shape(x)[2] == 2 and bool((n_all == 2).all())
     x0 = x1 = None
-    if np.shape(x)[2] == 2 and biallelic:
+    if planes:
         # the counts are held once, as two contiguous planes; x is a view.
         # A host array is split into planes on the host, so the device
         # never holds the panel twice
@@ -195,13 +206,18 @@ def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
         xt = planes.permute(1, 2, 0)
     else:
         xt = _to_device(x, device, storage_dtype or dtype)
+    if torch.is_tensor(miss):
+        c = mt.sum(dim=1, dtype=dtype)
+    else:
+        # a host panel's totals are summed on the host: summing the int8
+        # miss on the card in ``dtype`` makes a [I, L] transient of dtype
+        c = torch.as_tensor(np.asarray(miss).sum(axis=1)).to(device=device,
+                                                              dtype=dtype)
     return ModelData(
         x=xt, miss=mt,
         mask=torch.as_tensor(np.asarray(mask) if not torch.is_tensor(mask)
                              else mask).to(device=device, dtype=torch.bool),
-        n_alleles=n_all,
-        c=mt.sum(dim=1, dtype=dtype),
-        x0=x0, x1=x1)
+        n_alleles=n_all, c=c, x0=x0, x1=x1)
 
 
 def model_data_from_planes(planes: Tensor, miss: Tensor, *,
@@ -232,6 +248,39 @@ def model_data_from_dataset(ds, dtype: torch.dtype = torch.float32,
     return make_model_data(ds.counts, ds.miss, ds.mask, ds.n_alleles,
                            dtype=dtype, device=device,
                            storage_dtype=storage_dtype)
+
+
+def model_data_from_block(counts: np.ndarray, miss: np.ndarray,
+                          n_alleles: np.ndarray, I_total: int, row0: int,
+                          loci: Tuple[int, int], *,
+                          dtype: torch.dtype = torch.float32, device="cpu",
+                          storage_dtype: Optional[torch.dtype] = None
+                          ) -> ModelData:
+    """ModelData of one rank's block of a meshed panel of ``I_total``
+    individuals, from the host counts [I_b, L, M_b] and miss [I_b, L] of
+    the rows it parsed (from row ``row0``, every locus) and the panel's
+    n_alleles [L]: ``c`` is taken over every locus before the loci are
+    sliced, the allele lanes are padded to the panel's M, and only the
+    loci [l0, l1) = ``loci`` are uploaded.  ``block`` (runtime/mesh.Block)
+    marks the result as a block, which no fit slices again."""
+    from multiclust_tpu_torch.runtime.mesh import Block
+
+    n_alleles = np.asarray(n_alleles, np.int64)
+    L = n_alleles.shape[0]
+    M = int(n_alleles.max()) if L else 0
+    l0, l1 = loci
+    x = np.ascontiguousarray(counts[:, l0:l1])
+    if x.shape[2] < M:
+        x = np.pad(x, ((0, 0), (0, 0), (0, M - x.shape[2])))
+    own = n_alleles[l0:l1]
+    md = make_model_data(
+        x, np.ascontiguousarray(miss[:, l0:l1]),
+        np.arange(M)[None, :] < own[:, None], own, dtype=dtype,
+        device=device, storage_dtype=storage_dtype,
+        planes=M == 2 and bool((n_alleles == 2).all()))
+    c = torch.as_tensor(np.asarray(miss).sum(axis=1))
+    return md._replace(c=c.to(device=md.device, dtype=dtype),
+                       block=Block(I=I_total, L=L, row0=row0, locus0=l0))
 
 
 class EMConfig(NamedTuple):

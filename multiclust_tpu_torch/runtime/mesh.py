@@ -30,9 +30,13 @@ update from the same reduced statistics, so the replicas stay equal.
 Only ``all_reduce`` and ``broadcast`` are used: gloo takes CUDA tensors for
 those two (not for ``all_gather``), so one card can host a multi-rank check
 over gloo, and a gather is an ``all_reduce`` of a zero-filled global
-buffer.  A decision taken from reduced values is the same on every rank and
-needs no broadcast; one taken from a wall clock goes through
-``sync_host_flag``.
+buffer.  Host arrays (the per-process ingest's allele counts, label
+tables and histograms, contingency tables, locale names) cross ranks the
+same way, as tensors on ``_flag_device()`` (``host_sum``, ``host_max``,
+``host_any``, ``gather_strings``, ``broadcast_host``).  A decision taken
+from reduced values is the same on every rank and needs no broadcast; one
+taken from a wall clock or from rank 0's file system goes through
+``sync_host_flag`` or ``broadcast_host``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import os
 import time
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -156,6 +161,63 @@ def any_over_world(flags: Tensor) -> Tensor:
     t = flags.to(torch.int32)
     dist.all_reduce(t)
     return t > 0
+
+
+def _host_reduce(arr, op, group=None) -> np.ndarray:
+    """A host array reduced elementwise over ``group`` (the world by
+    default): it travels as a tensor on ``_flag_device()``, as every
+    collective of a run does.  Without a process group, the array."""
+    arr = np.asarray(arr)
+    if not dist.is_initialized():
+        return arr
+    t = torch.as_tensor(np.ascontiguousarray(arr)).to(_flag_device())
+    dist.all_reduce(t, op=op, group=group)
+    return t.cpu().numpy()
+
+
+def host_sum(arr, group=None) -> np.ndarray:
+    """The sum of a same-shaped host array over the ranks of ``group``
+    (counts, contingency tables, per-locale sums)."""
+    return _host_reduce(arr, dist.ReduceOp.SUM, group)
+
+
+def host_max(arr, group=None) -> np.ndarray:
+    """The elementwise maximum of a host array over ``group``."""
+    return _host_reduce(arr, dist.ReduceOp.MAX, group)
+
+
+def host_any(arr, group=None) -> np.ndarray:
+    """The elementwise OR of a bool host array over ``group``."""
+    return _host_reduce(np.asarray(arr).astype(np.int32),
+                        dist.ReduceOp.MAX, group) > 0
+
+
+def gather_strings(strings, index: int, n: int, group=None):
+    """The string lists of the ``n`` ranks of ``group``, in the order of
+    their ``index``: each list utf-8 encoded, newline-joined, written into
+    its row of a zero-filled [n, longest] uint8 buffer that is summed."""
+    data = np.frombuffer("\n".join(strings).encode(), np.uint8)
+    lens = np.zeros(n, np.int64)
+    lens[index] = data.size
+    lens = host_sum(lens, group)
+    buf = np.zeros((n, max(int(lens.max()), 1)), np.uint8)
+    buf[index, :data.size] = data
+    buf = host_sum(buf, group)
+    out = []
+    for row, ln in zip(buf, lens):
+        s = row[:int(ln)].tobytes().decode()
+        out.append(s.split("\n") if s else [])
+    return out
+
+
+def broadcast_host(arr) -> np.ndarray:
+    """Rank 0's host array on every rank (same shape and dtype on each)."""
+    arr = np.asarray(arr)
+    if not dist.is_initialized():
+        return arr
+    t = torch.as_tensor(np.ascontiguousarray(arr)).to(_flag_device())
+    dist.broadcast(t, src=0)
+    return t.cpu().numpy()
 
 
 def block(n: int, parts: int, index: int) -> Tuple[int, int]:
@@ -319,6 +381,20 @@ def shard_model_data(md, mesh: Mesh, rows: bool = True):
                      n_alleles=md.n_alleles[l0:l1].contiguous(),
                      c=md.c[r0:r1].contiguous(), x0=x0, x1=x1,
                      block=Block(I=I, L=L, row0=r0, locus0=l0))
+
+
+def as_block(md, mesh: Optional[Mesh], codes=None):
+    """(this rank's block of ``md``, of ``codes`` [I, L, P]): a whole panel
+    is sliced by ``shard_model_data``; a block (``md.block`` set: a panel
+    read per process, runtime/ingest.py) and a fit without a mesh pass as
+    they are."""
+    if mesh is None or md.block is not None:
+        return md, codes
+    blk = shard_model_data(md, mesh)
+    if codes is not None:
+        b = blk.block
+        codes = codes[b.row0:b.row0 + blk.I, b.locus0:b.locus0 + blk.L]
+    return blk, codes
 
 
 def _p_locus_dim(params) -> int:

@@ -18,11 +18,14 @@ layout: starts are drawn and Rand-EM scored on the dense data, split by the
 plan before the first step, and merged back to dense original-order p at
 harvest, so outputs and checkpoints see the dense layout.
 
-Under a mesh (``--mesh DxM``, runtime/mesh.py) every rank holds the whole
-panel (per-process reads are a later slice) and keeps its block: the fit
-data is sliced after upload, starts are drawn as blocks of the unsharded
-ones (init/random.py), a warm start is sliced, and harvest gathers a
-chain's eta rows and p loci back to every rank.  Decisions taken from wall clocks go through
+Under a mesh (``--mesh DxM``, runtime/mesh.py) every rank fits its block
+of rows and loci: the block it read (runtime/ingest.py), or its slice of a
+whole panel given to the fit.  Starts are drawn as blocks of the unsharded
+ones (init/random.py), a warm start is sliced, harvest gathers a chain's
+eta rows and p loci back to every rank, and the hard partition of the
+adjusted Rand index is scored through contingency tables summed over the
+ranks.  The fit's flags (any missing copy, every locus biallelic) are
+reduced over the ranks.  Decisions taken from wall clocks go through
 ``past_deadline``, and the chain batch and the router's scratch budget,
 read from each card's free memory, take the least over the ranks.  Jagged
 buckets compose with data-axis meshes only; a loci-split mesh keeps the
@@ -89,8 +92,15 @@ def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
         mesh = mesh_mod.cached_mesh(mesh)
     use_pallas, _ = device_policy(opt, md.device)
     budget = scratch_budget(md.device) if use_pallas else 0
+    has_missing = bool((md.miss > 0).any())
+    biallelic = md.M == 2 and bool((md.n_alleles == 2).all())
     if mesh is not None:
         budget = mesh_mod.world_min(budget)
+        if md.block is not None:
+            # a block sees its rows and loci only: the panel's flags
+            has_missing, mixed = mesh_mod.host_any([has_missing,
+                                                    not biallelic])
+            biallelic = not mixed
     return EMConfig(
         admixture=opt.admixture, eta_constrained=opt.eta_constrained,
         do_projection=opt.do_projection,
@@ -101,8 +111,7 @@ def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
         q=opt.q, n_init_iter=opt.n_init_iter, adjust_step=opt.adjust_step,
         monotonicity=opt.resolved_monotonicity(),
         use_pallas="on" if use_pallas else "off",
-        has_missing=bool((md.miss > 0).any()),
-        biallelic=md.M == 2 and bool((md.n_alleles == 2).all()),
+        has_missing=bool(has_missing), biallelic=bool(biallelic),
         ploidy=opt.ploidy,
         k_true=K if (opt.admixture and not opt.eta_constrained) else 0,
         check_interval=opt.check_interval,
@@ -155,7 +164,7 @@ def _warm_block(warm: Params, md: ModelData, cfg: EMConfig) -> Params:
     start); drawn starts come as blocks (init/random.py)."""
     if cfg.mesh is None:
         return warm
-    return mesh_mod.shard_params(warm, cfg.mesh, md.I, md.L,
+    return mesh_mod.shard_params(warm, cfg.mesh, md.I_total, md.L_total,
                                  _per_individual(cfg))
 
 
@@ -434,17 +443,30 @@ def _fit_data(md: ModelData, cfg: EMConfig,
     (``model.bucketed.plan_for``) after the collapse, as the JAX package's
     ``_prepare_fit_data`` (multistart.py:713-794) does.  Starts, the hard
     partition and AIC/BIC use ``md``; Rand-EM scores on the dense
-    layout."""
+    layout.  Under a mesh, this rank's block (``md`` when it is one); the
+    collapsed data has one row, whole on every rank of a data group."""
     constrained = cfg.admixture and cfg.eta_constrained
-    dense = collapse_for_constrained(md) if constrained else md
-    if cfg.mesh is not None:
-        # this rank's block; the collapsed data has one row, whole on
-        # every rank of a data group
-        dense = mesh_mod.shard_model_data(dense, cfg.mesh,
-                                          rows=not constrained)
+    md, _ = mesh_mod.as_block(md, cfg.mesh)
+    dense = md
+    if constrained:
+        dense = (collapse_for_constrained(md) if cfg.mesh is None
+                 else _collapse_block(md, cfg.mesh))
     if plan is None:
         return dense, dense
     return bucketed.bucketize_model_data(dense, plan), dense
+
+
+def _collapse_block(md: ModelData, mesh) -> ModelData:
+    """``collapse_for_constrained`` of a block: its rows' column sums
+    summed over the data group, and ``c`` the panel's missing total."""
+    dtype = md.dtype
+
+    def col(t):
+        return mesh.sum(t.to(dtype).sum(dim=0, keepdim=True),
+                        mesh_mod.DATA_AXIS)
+    return ModelData(x=col(md.x), miss=col(md.miss), mask=md.mask,
+                     n_alleles=md.n_alleles, c=col(md.c),
+                     block=md.block._replace(I=1, row0=0))
 
 
 def _run_continuous(gen, res: MaximizeResult, md: ModelData,
@@ -545,6 +567,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     multiclust.c:584-600); ``quiet`` suppresses the per-init progress
     lines (bootstrap replicate fits)."""
     cfg = cfg_from_options(opt, K, md)
+    md, codes = mesh_mod.as_block(md, cfg.mesh, codes)
     res = MaximizeResult(K=K)
     t0 = time.time()
     progress = _make_progress(opt, K, t0, quiet)
@@ -558,7 +581,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
         if loaded is not None:
             res = loaded
             if _regimes_satisfied(res, opt):
-                _score_arand(res, md, opt, true_partition)
+                _score_arand(res, md, opt, true_partition, cfg.mesh)
                 return res
 
     if isinstance(md_fit, BucketedData):
@@ -579,7 +602,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
         res.n_maxll_times = 1
         res.ever_converged = True
         res.seconds = time.time() - t0
-        _score_arand(res, md, opt, true_partition)
+        _score_arand(res, md, opt, true_partition, cfg.mesh)
         return res
 
     def checkpoint():
@@ -596,7 +619,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
                         n_parameters, codes, t0, on_improve=on_improve,
                         progress=progress)
         checkpoint()
-        _score_arand(res, md, opt, true_partition)
+        _score_arand(res, md, opt, true_partition, cfg.mesh)
         return res
 
     # -Q/-P warm start: every init identical (initialize_model,
@@ -630,7 +653,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
         checkpoint()
         if done:
             break
-    _score_arand(res, md, opt, true_partition)
+    _score_arand(res, md, opt, true_partition, cfg.mesh)
     return res
 
 
@@ -664,25 +687,42 @@ def _fit_serial_traced(gen, md, md_fit, md_score, K, cfg, opt, codes, warm,
 
 
 def posterior_mass(params: Params, md: ModelData, admixture: bool,
-                   eta_constrained: bool = False) -> torch.Tensor:
+                   eta_constrained: bool = False, mesh=None) -> torch.Tensor:
     """[I, K] cluster mass per individual of unbatched full-layout params:
     the mixture's posterior (partition_mixture, write_file.c:582-600), or
     the admixture's posterior allele mass (partition_admixture
-    :350-382)."""
+    :350-382).  Of a block (``md.block``, under ``mesh``): the whole
+    params' block, and the mass of its rows, summed over the model
+    group."""
+    if md.block is not None:
+        r0, l0 = md.offsets
+        eta = params.eta
+        if admixture and not eta_constrained:
+            eta = eta[r0:r0 + md.I]
+        params = Params(eta=eta, p=params.p[:, l0:l0 + md.L])
     if admixture:
-        return posterior_allele_mass(params, md, eta_constrained)
-    return e_step(Params(params.eta[None], params.p[None]), md)[0][0]
+        return posterior_allele_mass(params, md, eta_constrained, mesh=mesh)
+    return e_step(Params(params.eta[None], params.p[None]), md, mesh)[0][0]
 
 
 def hard_partition(params: Params, md: ModelData, admixture: bool,
-                   eta_constrained: bool = False) -> np.ndarray:
-    """MAP cluster per individual: the argmax of ``posterior_mass``."""
+                   eta_constrained: bool = False, mesh=None) -> np.ndarray:
+    """MAP cluster per individual (of a block's rows): the argmax of
+    ``posterior_mass``."""
     return torch.argmax(posterior_mass(params, md, admixture,
-                                       eta_constrained), dim=1).cpu().numpy()
+                                       eta_constrained, mesh),
+                        dim=1).cpu().numpy()
 
 
-def _score_arand(res: MaximizeResult, md, opt: Options, true_partition):
+def _score_arand(res: MaximizeResult, md, opt: Options, true_partition,
+                 mesh=None):
     if true_partition is None or res.best_params is None:
+        return
+    if md.block is not None:
+        from multiclust_tpu_torch.runtime.ingest import \
+            score_arand_distributed
+        res.arand = score_arand_distributed(opt, md, res.best_params,
+                                            true_partition, mesh)
         return
     from multiclust_tpu_torch.stats.rand_index import adjusted_rand
     res.arand = adjusted_rand(np.asarray(true_partition),

@@ -5,7 +5,9 @@ Repeats the whole model estimation at least n times / at least t seconds /
 at most m seconds and reports the mean and sd of the wall time, logL,
 iterations and initializations, and the AIC/BIC-chosen K.  Every repeat
 ends with the device idle (``torch.cuda.synchronize()`` on a CUDA
-device), so the clock reads finished work.
+device), so the clock reads finished work.  Under a mesh each repeat's
+adjusted Rand (-A) is scored inside the fit on the rank's block, through
+contingency tables summed over the ranks (runtime/ingest.py).
 """
 
 from __future__ import annotations

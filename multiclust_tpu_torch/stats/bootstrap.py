@@ -29,11 +29,17 @@ device, not with libc ``rand()``):
 * a biallelic replicate is drawn straight into its two count planes (P
   Bernoulli comparisons a cell, in windows of loci), never as a one-hot
   [I, L, P, M] tensor;
-* under a mesh (``--mesh``) every rank draws each whole replicate and its
-  starts from (seed, r), as in a single-process run, and fits its block of
-  rows and loci (``_fit_data``, the meshed lattices of the JAX package's
+* under a mesh (``--mesh``) ``md`` is this rank's block (a whole panel is
+  sliced first).  Every rank draws each window of loci of a replicate
+  whole from (seed, r), as in a single-process run, keeps its block of
+  rows and loci, draws the starts' blocks the same way (init/random.py)
+  and fits its block (the meshed lattices of the JAX package's
   ``_shard_replicates`` / ``_shard_lattice_params``, :313-351), so the
-  replicates and their statistics are those of the unsharded run.
+  replicates and their statistics are those of the unsharded run.  Rank 0
+  writes the checkpoints and a resume takes rank 0's view, broadcast
+  (the JAX package's ``_save_bootstrap_synced`` /
+  ``_load_bootstrap_synced``, :264-311): the ranks need not share a
+  filesystem.
 
 The replicates of a jagged panel fit bucketed, as the JAX package's do
 (multiclust_tpu/stats/bootstrap.py:151-168): every replicate shares the
@@ -96,51 +102,60 @@ def simulate_replicate(gen: torch.Generator, params: Params, md: ModelData,
     on md's device: its own counts, ``md``'s miss, mask, n_alleles and c.
     Each (i, l) draws ploidy - miss copies; invalid allele lanes stay 0.
     Temporaries are made one window of loci (about WINDOW_BYTES) at a
-    time."""
+    time.  Of a block (``md.block``), every window is drawn for the whole
+    panel's rows and loci, so the draws are the unsharded run's, and the
+    block of them is kept."""
     p = params.p                                      # [K, L, M]
     K = p.shape[0]
     dev = md.device
+    I, L = md.I_total, md.L_total
+    r0, l0 = md.offsets
+    rows = slice(r0, r0 + md.I)
     eta = params.eta
     if not admixture:
-        z = torch.multinomial(eta, md.I, replacement=True, generator=gen)
+        z = torch.multinomial(eta, I, replacement=True, generator=gen)[rows]
     elif eta.dim() == 1:                              # constrained eta
         eta = eta.expand(md.I, K)
+    else:
+        eta = eta[rows]
     bi = md.x0 is not None
     out = (torch.empty((2, md.I, md.L), dtype=md.x0.dtype, device=dev)
            if bi else torch.empty_like(md.x))
-    win = column_window(md.L, md.I * (3 * md.M * p.element_size() + 16))
-    for lo in range(0, md.L, win):
-        hi = min(md.L, lo + win)
+    win = column_window(L, I * (3 * md.M * p.element_size() + 16))
+    for lo in range(0, L, win):
+        hi = min(L, lo + win)
+        g0, g1 = max(lo, l0), max(min(hi, l0 + md.L), lo)  # own loci
+        cols, own = slice(g0 - lo, g1 - lo), slice(g0 - l0, g1 - l0)
         if admixture:
-            q = (eta @ p[:, lo:hi].reshape(K, -1)).reshape(md.I, hi - lo,
+            q = (eta @ p[:, g0:g1].reshape(K, -1)).reshape(md.I, g1 - g0,
                                                            md.M)
         else:
-            q = p[z, lo:hi]
-        n_obs = ploidy - md.miss[:, lo:hi].to(torch.int16)
+            q = p[z, g0:g1]
+        n_obs = ploidy - md.miss[:, own].to(torch.int16)
         if bi:
             # P Bernoulli comparisons a cell, straight into the planes
             q0 = q[..., 0] / (q[..., 0] + q[..., 1])
             x0 = torch.zeros_like(n_obs)
             for c in range(ploidy):
-                u = torch.rand(q0.shape, generator=gen, device=dev,
-                               dtype=q0.dtype)
+                u = torch.rand((I, hi - lo), generator=gen, device=dev,
+                               dtype=q0.dtype)[rows, cols]
                 x0 += (u < q0) & (n_obs > c)
-            out[0, :, lo:hi] = x0
-            out[1, :, lo:hi] = n_obs - x0
+            out[0, :, own] = x0
+            out[1, :, own] = n_obs - x0
             continue
         # a copy's allele by inverse CDF (bootstrap.c:95-120)
-        q = torch.where(md.mask[lo:hi], q, torch.zeros_like(q))
+        q = torch.where(md.mask[own], q, torch.zeros_like(q))
         cdf = q.cumsum(dim=-1)
         cdf = cdf / cdf[..., -1:]
-        last = (md.n_alleles[lo:hi].long() - 1).clamp(min=0)
+        last = (md.n_alleles[own].long() - 1).clamp(min=0)
         counts = torch.zeros(q.shape, dtype=torch.int32, device=dev)
         for c in range(ploidy):
-            u = torch.rand(n_obs.shape, generator=gen, device=dev,
-                           dtype=q.dtype)
+            u = torch.rand((I, hi - lo), generator=gen, device=dev,
+                           dtype=q.dtype)[rows, cols]
             slot = torch.minimum((u[..., None] > cdf).sum(dim=-1), last)
             counts.scatter_add_(2, slot[..., None],
                                 (n_obs > c)[..., None].to(torch.int32))
-        out[:, lo:hi] = counts
+        out[:, own] = counts
     if bi:
         return md._replace(x=out.permute(1, 2, 0), x0=out[0], x1=out[1])
     return md._replace(x=out)
@@ -198,7 +213,8 @@ def replicate_chunk(md: ModelData, n_chains: int, n_reps: int,
                     bytes_per_chain: int, mesh=None) -> int:
     """Replicates a lattice fits at once: on CUDA as many as
     CHAIN_MEMORY_SHARE of the device's free memory holds, a replicate
-    being its counts plus ``n_chains`` chains of ``bytes_per_chain``
+    being its counts (of this rank's block, under a ``mesh``) plus
+    ``n_chains`` chains of ``bytes_per_chain``
     (runtime/multistart.chain_bytes); all of them on the CPU.  Every rank
     of a ``mesh`` takes the least over the ranks."""
     if md.device.type != "cuda":
@@ -252,8 +268,8 @@ def _batched_ts(seed: int, md: ModelData, opt, h0_params: Params,
         new = (maxll[ks[1]] - maxll[ks[0]]).tolist()
         ts += new
         if checkpoint_dir:
-            ckpt.save_bootstrap(checkpoint_dir, ks[0], ks[1], n_reps, ts,
-                                len(ts), seed)
+            _save_bootstrap_synced(checkpoint_dir, ks[0], ks[1], n_reps, ts,
+                                   seed)
         yield from new
 
 
@@ -275,9 +291,37 @@ def _serial_ts(seed: int, md: ModelData, opt, n_parameters_fn,
                              codes=codes, bootstrap=True)
         ts.append(est.ts)
         if checkpoint_dir:
-            ckpt.save_bootstrap(checkpoint_dir, opt.max_K - 1, opt.max_K,
-                                opt.n_bootstrap, ts, len(ts), seed)
+            _save_bootstrap_synced(checkpoint_dir, opt.max_K - 1, opt.max_K,
+                                   opt.n_bootstrap, ts, seed)
         yield est.ts
+
+
+def _save_bootstrap_synced(directory: str, null_K: int, alt_K: int,
+                           n_reps: int, ts, seed: int) -> None:
+    """The checkpoint after a chunk or a replicate, written by rank 0: the
+    statistics are the same on every rank, so one writer suffices."""
+    if mesh_mod.rank() == 0:
+        ckpt.save_bootstrap(directory, null_K, alt_K, n_reps, ts, len(ts),
+                            seed)
+
+
+def _load_bootstrap_synced(directory: str, null_K: int, alt_K: int,
+                           n_reps: int, seed: int) -> Optional[np.ndarray]:
+    """The statistics a resume starts from: rank 0 reads its checkpoint
+    and broadcasts what it found (a count, -1 for none, then the
+    statistics), so every rank resumes from the same state."""
+    if mesh_mod.world_size() == 1:
+        return ckpt.load_bootstrap(directory, null_K, alt_K, n_reps, seed)
+    buf = np.zeros(n_reps + 1, np.float64)
+    buf[0] = -1
+    if mesh_mod.rank() == 0:
+        done = ckpt.load_bootstrap(directory, null_K, alt_K, n_reps, seed)
+        if done is not None:
+            buf[0] = len(done)
+            buf[1:1 + len(done)] = done
+    buf = mesh_mod.broadcast_host(buf)
+    n = int(buf[0])
+    return None if n < 0 else buf[1:1 + n]
 
 
 def run_bootstrap(seed: int, md: ModelData, opt, n_parameters_fn,
@@ -292,13 +336,16 @@ def run_bootstrap(seed: int, md: ModelData, opt, n_parameters_fn,
     chunk (batched) or replicate (serial), and a killed run resumes with
     the identical statistics and p-value."""
     t0 = time.time()
+    shape = ms.mesh_shape_of(opt)
+    if shape is not None:
+        md, _ = mesh_mod.as_block(md, mesh_mod.cached_mesh(shape))
     null_K, alt_K = opt.max_K - 1, opt.max_K
     out = BootstrapResult(ts_obs=ts_obs, ts_bs=[], pvalue=0.0,
                           null_K=null_K, alt_K=alt_K)
     done = []
     if checkpoint_dir:
-        loaded = ckpt.load_bootstrap(checkpoint_dir, null_K, alt_K,
-                                     opt.n_bootstrap, seed)
+        loaded = _load_bootstrap_synced(checkpoint_dir, null_K, alt_K,
+                                        opt.n_bootstrap, seed)
         if loaded is not None:
             done = loaded.tolist()
     if (opt.target_ll or opt.target_revisit or opt.n_seconds

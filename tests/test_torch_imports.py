@@ -58,6 +58,7 @@ def test_port_runs_without_the_jax_package(tmp_path):
     assert "multiclust_tpu_torch.stats.sim" in mods
     assert "multiclust_tpu_torch.model.bucketed" in mods
     assert "multiclust_tpu_torch.runtime.mesh" in mods
+    assert "multiclust_tpu_torch.runtime.ingest" in mods
     code = textwrap.dedent(f"""
         import importlib, os, sys
         import numpy as np

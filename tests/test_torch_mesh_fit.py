@@ -220,11 +220,37 @@ def _compare_outputs(one, two):
             rtol=1e-6, atol=1e-9, err_msg=name)
 
 
+PART = re.compile(r"^(.*)\.part(\d+)(\.txt)?$")
+
+
+def join_parts(src, dst):
+    """Copy the files of a meshed run's out dir ``src`` into ``dst``, each
+    table's ``.part<d>`` row blocks joined in data-index order under the
+    single-process file's name (the JAX package's layout)."""
+    os.makedirs(dst)
+    parts = {}
+    for name in os.listdir(src):
+        m = PART.match(name)
+        if m is None:
+            with open(os.path.join(src, name)) as fh, \
+                    open(os.path.join(dst, name), "w") as out:
+                out.write(fh.read())
+            continue
+        parts.setdefault(m.group(1) + (m.group(3) or ""), []).append(
+            (int(m.group(2)), name))
+    for whole, names in parts.items():
+        with open(os.path.join(dst, whole), "w") as out:
+            for _, name in sorted(names):
+                with open(os.path.join(src, name)) as fh:
+                    out.write(fh.read())
+
+
 def test_mesh_2x1_fits_cli_and_bootstrap(tmp_path):
     """Plain EM and SQUAREM fits on a 2x1 mesh reach the unsharded fit's
     iterations and logL; ``--mesh 2x1`` in two processes writes the files
-    of a single-process run; the bootstrap's statistics are the
-    unsharded run's."""
+    of a single-process run, the per-individual tables as row-block parts
+    that join into them; the bootstrap's statistics are the unsharded
+    run's."""
     from multiclust_tpu_torch.cli import main
 
     counts, miss, mask, n_all = biallelic_panel(12, 40, 30, 0.05)
@@ -245,7 +271,9 @@ def test_mesh_2x1_fits_cli_and_bootstrap(tmp_path):
     _check_fits(results, fits)
 
     assert main(argv + ["-d", outs[0]]) == 0
-    _compare_outputs(outs[0], outs[1])
+    joined = str(tmp_path / "joined")
+    join_parts(outs[1], joined)
+    _compare_outputs(outs[0], joined)
 
     want = bootstrap_case(boot)
     for r in results:
