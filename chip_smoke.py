@@ -139,7 +139,29 @@ each raising on failure:
    ``.part`` files joined in data-index order and rank 0's files held to
    the single-process files (logL within the float32 noise floor of
    opt/em.py, tables within 1e-4); the ranks' launches and sharded
-   variants go into the ``mesh`` entry as ``ingest 2x1`` and so on.
+   variants go into the ``mesh`` entry as ``ingest 2x1`` and so on;
+21. K above 128 (the wide kernels of csrc/wide.cuh): at K = 200 (224
+   lanes) and K = 1024 on a 16384 x 2048 panel, 1 % missing, 1 and 2
+   chains, the router's route and segments: the wide rows pass, its
+   finish and the wide biallelic columns pass each against its plain
+   version, the routed step and the t-only logL terms, reruns bit-equal,
+   the finish's raw sums and t bit-equal to the ordered ones, each
+   kernel's time at 2 chains on CUDA events (the biallelic columns pass
+   with the p0 epilogue its launcher runs) beside its plain version and
+   bound; every variant (compute_t off, emit_b, emit_a / a0,
+   kmask, project_eta off, project off, windows) on a ragged 1001 x 4099
+   panel; the generic step at M = 4 and on a ragged 1001 x 333 x M = 3
+   panel with the sweep statistics and an a0 / emit_a chain, the wide
+   generic columns pass timed on CUDA events; fits through
+   ``api.fit_model_data`` at K = 200 (plain EM and SQUAREM, cap 30; M = 4
+   and the jagged mix, cap 10) and K = 1024 (cap 10), each run's wide
+   launches counted from 0; a 600 x 500 warm-start fit at K = 200 within
+   the float32 noise floor of the float64 CPU fit; ``-a -k 200 -n 2 -T
+   30`` through the CLI on a 16384 x 2048 file; a 2x1 gloo step at K =
+   200 (``--wide-mesh-child``) held to the unsharded one; a step at 1056
+   lanes, which takes the plain step, launches nothing and prints its
+   notice once.  The kernels line's wide records carry their times at K =
+   200 and, under ``kp1024``, at K = 1024.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -525,9 +547,9 @@ def simulated_counts(rng, I, L, K, miss_rate):
     return np.stack([x0, 2 - miss - x0], axis=2), miss
 
 
-def check_fit(out, wall, label, where, md=None):
-    """Checks of a finished fit; ``md`` stands in for the host Dataset when
-    the panel was made on the device."""
+def check_fit(out, wall, label, where, md=None, K=K_FULL):
+    """Checks of a finished fit of ``K`` clusters; ``md`` stands in for the
+    host Dataset when the panel was made on the device."""
     res = out.best
     eta, p = res.best_params
     assert np.isfinite(res.max_logL) and not res.mono_viol, \
@@ -535,8 +557,8 @@ def check_fit(out, wall, label, where, md=None):
     assert not res.any_failed, label
     ds = out.dataset if md is None else md
     # the mixture shares one K-vector eta across individuals
-    assert eta.shape == ((ds.I, K_FULL) if eta.dim() == 2 else (K_FULL,))
-    assert p.shape == (K_FULL, ds.L, ds.M)
+    assert eta.shape == ((ds.I, K) if eta.dim() == 2 else (K,))
+    assert p.shape == (K, ds.L, ds.M)
     mask = torch.as_tensor(ds.mask, device=p.device)
     lb = 1e-8 * (1 - 1e-6)
     assert float(eta.min()) >= lb and float(p[:, mask].min()) >= lb, label
@@ -2717,6 +2739,595 @@ def ingest_record(recs):
         for name, qs in recs.items() if name != "single"}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: K above 128 (the wide kernels of csrc/wide.cuh)
+
+WIDE_SOURCE = "multiclust_tpu_torch/csrc/wide.cuh"
+# the TPU kernels each wide kernel replaces above 128 lanes: the streamed
+# step's two pass bodies (the main path's route) and the generic step
+WIDE_TPU = {"wide_rows": "multiclust_tpu/ops/kernels.py:887",
+            "wide_finish": FINISH_TPU,
+            "wide_cols_bi": P0_TPU,
+            "wide_cols_generic": GENERIC_TPU}
+WIDE_KERNELS = tuple(WIDE_TPU)
+# K = 200 (224 lanes) and the top of the TPU kernels' range, 1024 lanes
+WIDE_K = (200, 1024)
+WIDE_FIT_ITERS = {200: 30, 1024: 10}
+WIDE_CLI_K, WIDE_CLI_ITERS = 200, 30
+WIDE_MESH_TIMEOUT = 240
+
+
+def wide_step_checks(fb, args, route, K, W):
+    """Each wide kernel of the streamed step on the window [0, W) of
+    ``args`` against its plain version, reruns bit-equal, the finish's raw
+    sums and t bit-equal to the ordered ones; returns the errors and the
+    partials (for the timings)."""
+    e, p, a, z, c, m = args
+    fin = dict(k_true=K, lb=1e-8, project_eta=True)
+    win = dict(l_lo=0, l_hi=W)
+    apart, tpart = fb.rows_partials(e, p, a, z, seg_cols=route.seg_cols,
+                                    k_true=K, **win)
+    ref_a, ref_t = fb.rows_partials_reference(e, p, a, z, **win)
+    again = fb.rows_partials(e, p, a, z, seg_cols=route.seg_cols, k_true=K,
+                             **win)
+    torch.cuda.synchronize()
+    assert torch.equal(apart, again[0]) and torch.equal(tpart, again[1])
+    errs = {"rows": max(max_err(apart.sum(dim=1), ref_a[:, 0]),
+                        max_err_cast(tpart.double().sum(dim=1),
+                                     ref_t[:, 0]))}
+    del ref_a, again
+    got = fb.rows_finish(e, apart, tpart, c, **fin)
+    ref = fb.rows_finish_reference(e, apart, tpart, c, **fin)
+    errs["finish"] = max(max_err_cast(g, r) for g, r in zip(got, ref))
+    assert (got[0][..., K:] == 0).all()
+    again = fb.rows_finish(e, apart, tpart, c, **fin)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+    raw, t_raw = fb.rows_finish(e, apart, tpart, c, emit_a=True, **fin)
+    assert torch.equal(raw, fb.ordered_segment_sum(apart))
+    t_want = fb.ordered_segment_sum(tpart, dtype=torch.float64)
+    assert torch.equal(t_raw, t_want)
+    none, t_only = fb.rows_finish(e, None, tpart, c, **fin)
+    assert none is None and torch.equal(t_only, t_want)
+    del got, ref, again, raw
+    cw = dict(plb=1e-8, project=True, **win)
+    outs = (torch.zeros_like(p),)
+    fb.cols_window(e, p, a, z, m, outs, k_true=K, n_rseg=route.n_rseg, **cw)
+    want = (torch.zeros_like(p),)
+    fb.cols_window_reference(e, p, a, z, m, want, **cw)
+    again = (torch.zeros_like(p),)
+    fb.cols_window(e, p, a, z, m, again, k_true=K, n_rseg=route.n_rseg,
+                   **cw)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], again[0]) and (outs[0][:, K:] == 0).all()
+    errs["cols_bi"] = max_err(outs[0][..., :W], want[0][..., :W])
+    return errs, apart, tpart
+
+
+def phase_wide_kernels(fb, fs, build, dev, where):
+    """The wide kernels against their plain versions on the card: (a) at
+    16384 x 2048, 1 % missing, chain batches 1 and 2, K = 200 and 1024,
+    the router's route and segments: each kernel alone and the routed
+    step, reruns bit-equal, the finish's sums and t bit-equal to the
+    ordered ones, the t-only pass; each kernel's time at 2 chains
+    (CUDA events; the columns pass with its p0 epilogue) beside its plain
+    version's (CUDA events) and its bound; (b) every variant (miss,
+    compute_t, emit_b, emit_a / a0, kmask, project_eta off, project off, a
+    window) on a ragged 1001 x 4099 panel, streamed and chunked; (c) the
+    generic kernels at M = 4 on 16384 x 2048 and on a ragged 1001 x 333 x
+    M = 3 panel: the step, the sweep statistics (finish=False, the miss
+    fold) and an a0 / emit_a chain.  Returns errors, times and bounds by
+    (kernel, K)."""
+    from multiclust_tpu_torch.model.common import k_padded_size
+    from multiclust_tpu_torch.route_times import finish_bytes
+
+    rng = np.random.default_rng(21)
+    n_sm = fb.device_sm_count(dev)
+    errs = dict.fromkeys(WIDE_KERNELS, 0.0)
+    ms, bnd = {}, {}
+    kw = dict(lb=1e-8, plb=1e-8, project=True)
+    for K in WIDE_K:
+        Kp = k_padded_size(K, 32)
+        kc = fb.kc_of(K, Kp)
+        for B in (1, 2):
+            args = step_inputs(rng, B, I_FULL, L_FULL, K, Kp, 0.01, dev)
+            e, p, a, z, c, m = args
+            route = fb.pick_route(B, I_FULL, L_FULL, Kp, n_sm,
+                                  fb.scratch_budget(dev), K)
+            assert route.name in ("streamed", "chunked"), route
+            W = route.window
+            e_k, apart, tpart = wide_step_checks(fb, args, route, K, W)
+            for name, key in (("wide_rows", "rows"),
+                              ("wide_finish", "finish"),
+                              ("wide_cols_bi", "cols_bi")):
+                errs[name] = max(errs[name], e_k[key])
+            step = fb.admixture_fullstep_biallelic_routed(
+                *args, route=route, k_true=K, **kw)
+            ref = fb.admixture_fullstep_biallelic_streamed_reference(
+                *args, k_true=K, **kw)
+            e_step = max(max_err_cast(g, r) for g, r in zip(step, ref))
+            assert (step[0][..., K:] == 0).all() and (step[2][:, K:] == 0).all()
+            t_terms = fb.rows_log_likelihood_terms(e, p, a, z, k_true=K)
+            e_terms = max_err_cast(t_terms, ref[1])
+            del step, ref
+            print(f"wide K={K} ({Kp} lanes) {I_FULL} x {L_FULL} B={B}, "
+                  f"{route.describe()}: max|d| raw A + r, t {e_k['rows']:.3e}"
+                  f", eta', t {e_k['finish']:.3e}, p0' {e_k['cols_bi']:.3e}, "
+                  f"routed step {e_step:.3e}, logL terms alone "
+                  f"{e_terms:.3e} (rtol {RTOL}, atol {ATOL}); reruns "
+                  f"bit-equal, the finish's raw sums and t bit-equal to the "
+                  f"ordered ones", flush=True)
+            if B == 2:
+                fin = dict(k_true=K, lb=1e-8, project_eta=True)
+                win = dict(l_lo=0, l_hi=W)
+                cw = dict(plb=1e-8, project=True, **win)
+                outs = (torch.empty_like(p),)
+                n_cseg, n_rseg = apart.shape[1], route.n_rseg
+                calls = {
+                    "wide_rows": (
+                        lambda: fb.rows_partials(
+                            e, p, a, z, seg_cols=route.seg_cols, k_true=K,
+                            **win),
+                        lambda: fb.rows_partials_reference(e, p, a, z,
+                                                           **win)),
+                    "wide_finish": (
+                        lambda: fb.rows_finish(e, apart, tpart, c, **fin),
+                        lambda: fb.rows_finish_reference(e, apart, tpart, c,
+                                                         **fin)),
+                    "wide_cols_bi": (
+                        lambda: fb.cols_window(e, p, a, z, m, outs, k_true=K,
+                                               n_rseg=n_rseg, **cw),
+                        lambda: fb.cols_window_reference(e, p, a, z, m, outs,
+                                                         **cw))}
+                cells = B * I_FULL * W
+                live = finish_bytes(B, I_FULL, Kp, n_cseg, kc)
+                bounds = {
+                    "wide_rows": bound(
+                        tensors_bytes((e, p, a, z)) + 4 * B * n_cseg
+                        * I_FULL * (Kp + 1), (4 * K + 10) * cells),
+                    "wide_finish": (live[1] / HBM_BYTES_PER_S * 1e3,
+                                    "bytes",
+                                    live[0] / HBM_BYTES_PER_S * 1e3),
+                    "wide_cols_bi": bound(
+                        tensors_bytes((e, p, a, z, m))
+                        + 4 * B * n_rseg * 2 * Kp * W, (6 * K + 6) * cells)}
+                for name, (kernel, plain) in calls.items():
+                    k_ms = median_ms(kernel)
+                    ms[name, K] = (k_ms, median_ms(plain, n=3, warm=1))
+                    bnd[name, K] = bounds[name]
+                    print(f"wide K={K} {name} at 2 chains: kernel "
+                          f"{k_ms:.4f} ms, plain "
+                          f"{ms[name, K][1]:.3f} ms, bound "
+                          f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), "
+                          f"{100 * bounds[name][0] / k_ms:.1f} % of it, on "
+                          f"{where}", flush=True)
+                del calls, outs
+            del args, e, p, a, z, c, m, apart, tpart
+            torch.cuda.empty_cache()
+
+        # (b) every variant on a ragged panel, streamed and chunked
+        args = step_inputs(rng, 2, 1001, 4099, K, Kp, 0.03, dev)
+        variants = {"base": {}, "compute_t off": dict(compute_t=False),
+                    "emit_b": dict(emit_b=True),
+                    "emit_a + emit_b": dict(emit_a=True, emit_b=True),
+                    "kmask": dict(k_true=Kp, kmask=(
+                        torch.arange(Kp, device=dev) < K).float()),
+                    "project_eta off": dict(project_eta=False),
+                    "a0": dict(emit_a=True, emit_b=True, a0=torch.rand(
+                        (2, 1001, Kp), device=dev)),
+                    "project off": dict(project=False)}
+        e_var = 0.0
+        for label, extra in variants.items():
+            vkw = {**kw, "k_true": K, **extra}
+            ref = fb.admixture_fullstep_biallelic_chunked_reference(
+                *args, window=4099, **vkw)
+            for call in (dict(seg_cols=1056), dict(window=1312)):
+                fn = (fb.admixture_fullstep_biallelic_streamed
+                      if "seg_cols" in call
+                      else fb.admixture_fullstep_biallelic_chunked)
+                got = fn(*args, **call, **vkw)
+                again = fn(*args, **call, **vkw)
+                assert all(torch.equal(u, v) for u, v in zip(got, again))
+                e_var = max(e_var, max(max_err_cast(g, r)
+                                       for g, r in zip(got, ref)))
+        errs["wide_rows"] = max(errs["wide_rows"], e_var)
+        print(f"wide K={K} variants on 1001 x 4099, streamed (1056-column "
+              f"segments) and chunked (1312-column windows): "
+              f"{', '.join(variants)}: max|d| {e_var:.3e}, reruns "
+              f"bit-equal", flush=True)
+        del args, variants
+
+        # (c) the generic kernels
+        full_m = np.full(L_FULL, M_FULL)
+        for label, (B, I, L, n_all) in (
+                ("M=4", (2, I_FULL, L_FULL, full_m)),
+                ("ragged M=3", (1, 1001, 333, np.full(333, 3)))):
+            args = generic_inputs(210 + K, B, I, L, n_all, K, Kp, 0.01, dev)
+            eta, p2, x2, c, miss, mask = args
+            M = mask.shape[1]
+            gkw = dict(k_true=K, **kw)
+            got = fs.admixture_fullstep(*args, **gkw)
+            ref = fs.admixture_fullstep_reference(*args, **gkw)
+            e_step = max(max_err(g, r) for g, r in zip(got, ref))
+            again = fs.admixture_fullstep(*args, **gkw)
+            assert all(torch.equal(u, v) for u, v in zip(got, again))
+            assert (got[0][..., K:] == 0).all() and (got[2][:, K:] == 0).all()
+            del got, ref, again
+            part = fs.fullstep_partials(eta, p2, x2, miss, M=M, k_true=K)
+            part_ref = fs.fullstep_partials_reference(eta, p2, x2, miss)
+            e_cols = max_err(part.sum(dim=1), part_ref[:, 0])
+            assert (part[:, :, kc:] == 0).all()
+            sweep = fs.admixture_sweep_stats(eta, p2, x2, miss, M=M, k_true=K)
+            A_ref, t_ref = fs.fullstep_rows_reference(
+                eta, p2, x2, k_true=K, lb=0.0, project=False, finish=False)
+            e_sweep = max(max_err(sweep[0], A_ref), max_err(sweep[1], t_ref),
+                          max_err(sweep[2], part_ref[:, 0]))
+            del sweep, A_ref, t_ref
+            h = (L // 2) * M
+            rkw = dict(k_true=K, lb=1e-8, project=True)
+            halves = [(p2[..., :h].contiguous(), x2[:, :h].contiguous()),
+                      (p2[..., h:].contiguous(), x2[:, h:].contiguous())]
+            A, _ = fs.fullstep_rows(eta, *halves[0], c, finish=False, **rkw)
+            A_ref, _ = fs.fullstep_rows_reference(eta, *halves[0], c,
+                                                  finish=False, **rkw)
+            e2 = fs.fullstep_rows(eta, *halves[1], c, A, **rkw)
+            e2_ref = fs.fullstep_rows_reference(eta, *halves[1], c, A_ref,
+                                                **rkw)
+            e_chain = max([max_err(A, A_ref)]
+                          + [max_err(g, r) for g, r in zip(e2, e2_ref)])
+            del halves, A, A_ref, e2, e2_ref
+            errs["wide_cols_generic"] = max(errs["wide_cols_generic"],
+                                            e_cols, e_sweep)
+            errs["wide_rows"] = max(errs["wide_rows"], e_step, e_chain)
+            errs["wide_finish"] = max(errs["wide_finish"], e_step, e_chain)
+            print(f"wide K={K} generic {label} {I} x {L} B={B}: max|d| step "
+                  f"{e_step:.3e}, columns partials {e_cols:.3e}, sweep "
+                  f"statistics {e_sweep:.3e}, a0 / emit_a chain "
+                  f"{e_chain:.3e}; reruns bit-equal", flush=True)
+            if label == "M=4":
+                cols = lambda: fs.fullstep_partials(eta, p2, x2, miss, M=M,
+                                                    k_true=K)
+                k_ms = median_ms(cols)
+                p_ms = median_ms(lambda: fs.fullstep_partials_reference(
+                    eta, p2, x2, miss), n=3, warm=1)
+                lanes = B * I * L * M
+                ms["wide_cols_generic", K] = (k_ms, p_ms)
+                bnd["wide_cols_generic", K] = bound(
+                    tensors_bytes((eta, p2, x2, miss, part)),
+                    (4 * K + 3) * lanes)
+                b = bnd["wide_cols_generic", K]
+                print(f"wide K={K} wide_cols_generic at 2 chains, M=4: "
+                      f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+                      f"{b[0]:.4f} ms ({b[1]}), {100 * b[0] / k_ms:.1f} % of "
+                      f"it, on {where}", flush=True)
+            del args, eta, p2, x2, c, miss, mask, part, part_ref
+            torch.cuda.empty_cache()
+    return errs, ms, bnd
+
+
+def wide_fit_counts(K, I, L, n_alleles, seed, dev):
+    """Counts of an admixture-model panel of K clusters made on the card,
+    1 % missing, and its ModelData (int8 storage)."""
+    from multiclust_tpu_torch.model.common import make_model_data
+
+    counts, miss, mask = generic_counts(seed, I, L, n_alleles, K, 0.01, dev)
+    return make_model_data(counts, miss, mask,
+                           torch.as_tensor(n_alleles, device=dev),
+                           dtype=torch.float32, device=dev,
+                           storage_dtype=torch.int8)
+
+
+def phase_wide_fits(build, dev, where):
+    """The main path above 128 lanes: ``api.fit_model_data`` on a 16384 x
+    2048 biallelic panel made on the card (1 % missing, 2 chains): K = 200
+    plain EM and SQUAREM, cap 30, and K = 1024 plain EM, cap 10; then K =
+    200 on the M = 4 configuration and on the jagged mix (plain EM, cap
+    10).  The launches of each run counted from 0; returns the wide
+    kernels' launches in the K = 200 biallelic fits (the main path) and
+    the generic columns pass's in the M = 4 fit."""
+    from multiclust_tpu_torch.api import fit_model_data
+
+    launches = {}
+    for K in WIDE_K:
+        md = wide_fit_counts(K, I_FULL, L_FULL, np.full(L_FULL, 2), 220 + K,
+                             dev)
+        runs = [("plain EM", {})]
+        if K == 200:
+            runs.append(("SQUAREM", dict(accel_scheme=1)))
+        build.reset_launch_counts()
+        for label, extra in runs:
+            t0 = time.time()
+            out = fit_model_data(md, 2, admixture=True, min_K=K, max_K=K,
+                                 n_init=2, max_iter=WIDE_FIT_ITERS[K],
+                                 seed=3, verbosity=0, **extra)
+            torch.cuda.synchronize()
+            res = check_fit(out, time.time() - t0, f"wide K={K} {label}",
+                            where, md=md, K=K)
+            assert res.route.startswith(("streamed", "chunked")), res.route
+        wide = {name: build.LAUNCHES[name] for name in WIDE_KERNELS}
+        print(f"wide K={K} fits ({', '.join(r[0] for r in runs)}), route "
+              f"{res.route}: launches of the wide kernels {wide}; all "
+              f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
+              flush=True)
+        for name in ("wide_rows", "wide_finish", "wide_cols_bi"):
+            assert wide[name] > 0, (K, wide)
+        assert not build.LAUNCHES["mc_fullstep_bi_rows"], build.LAUNCHES
+        if K == 200:
+            launches.update(wide)
+        del md, out
+        torch.cuda.empty_cache()
+    K = 200
+    jag = np.where(np.random.default_rng(10).random(L_FULL) < 0.8, 2, 8)
+    for label, n_all in (("M=4", np.full(L_FULL, M_FULL)),
+                         ("jagged 80 % M=2 + 20 % M=8", jag)):
+        md = wide_fit_counts(K, I_FULL, L_FULL, n_all, 230, dev)
+        build.reset_launch_counts()
+        t0 = time.time()
+        out = fit_model_data(md, 2, admixture=True, min_K=K, max_K=K,
+                             n_init=2, max_iter=10, seed=3, verbosity=0)
+        torch.cuda.synchronize()
+        check_fit(out, time.time() - t0, f"wide K={K} generic {label}",
+                  where, md=md, K=K)
+        wide = {name: build.LAUNCHES[name] for name in WIDE_KERNELS}
+        print(f"wide K={K} generic {label}: launches of the wide kernels "
+              f"{wide}", flush=True)
+        for name in ("wide_rows", "wide_finish", "wide_cols_generic"):
+            assert wide[name] > 0, (label, wide)
+        if label == "M=4":
+            launches["wide_cols_generic"] = wide["wide_cols_generic"]
+        del md, out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_wide_reference(build, dev):
+    """A 30-iteration warm-start fit at K = 200 through the wide kernels
+    (600 x 500, the streamed route), held to the plain float64 fit on the
+    CPU over the same iterations: within the float32 noise floor of
+    opt/em.py."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+    from multiclust_tpu_torch.model import admixture as adm
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+    from multiclust_tpu_torch.opt.driver import fit
+    from multiclust_tpu_torch.runtime.multistart import _pad_k, _to_bi_repr
+
+    rng = np.random.default_rng(24)
+    I, L, K = 600, 500, 200
+    counts, miss = simulated_counts(rng, I, L, K, 0.01)
+    mask, n_all = np.ones((L, 2), bool), np.full(L, 2)
+    eta = rng.dirichlet(np.full(K, 2.0), size=I)
+    p0 = rng.uniform(0.2, 0.8, size=(K, L))
+    p = np.stack([p0, 1 - p0], axis=2)
+    base = dict(admixture=True, has_missing=True, biallelic=True, k_true=K,
+                max_iter=30, abs_error=1e-12, eta_lower_bound=1e-8,
+                p_lower_bound=1e-8)
+    md64 = model_data_from_numpy(counts, miss, mask, n_all)
+    cpu = fit(params_from_numpy(eta, p), md64, EMConfig(**base))
+    cfg = EMConfig(use_pallas="on", **base)
+    warm = params_from_numpy(eta, p, device=dev, dtype=torch.float32)
+    build.reset_launch_counts()
+    gpu = fit(_to_bi_repr(_pad_k(warm, cfg), cfg),
+              model_data_from_numpy(counts, miss, mask, n_all, device=dev,
+                                    dtype=torch.float32), cfg)
+    wide = {name: build.LAUNCHES[name] for name in WIDE_KERNELS}
+    best = cpu.params
+    _, scale = adm.log_likelihood(Params(eta=best.eta[None],
+                                         p=best.p[None]), md64)
+    floor = (EMConfig().noise_factor * float(np.finfo(np.float32).eps)
+             * float(scale[0]))
+    gap = abs(gpu.logL - cpu.logL)
+    print(f"wide reference fit K={K}: kernel path logL {gpu.logL:.4f} vs "
+          f"float64 CPU {cpu.logL:.4f} after {gpu.n_iter} iterations: gap "
+          f"{gap:.4f} against the float32 noise floor {floor:.4f}; launches "
+          f"{wide}", flush=True)
+    assert gpu.n_iter == cpu.n_iter == 31
+    assert gap <= floor, (gap, floor)
+    assert all(wide[n] >= 31 for n in ("wide_rows", "wide_finish",
+                                       "wide_cols_bi")), wide
+
+
+def phase_wide_cli(build, where, tmp):
+    """The CLI at ``-a -k 200 -n 2 -T 30`` on a 16384 x 2048 STRUCTURE
+    file (1 % missing): through the wide kernels, every output file
+    written."""
+    from multiclust_tpu_torch.cli import main
+
+    K = WIDE_CLI_K
+    rng = np.random.default_rng(25)
+    counts, miss = simulated_counts(rng, I_FULL, L_FULL, K, 0.01)
+    path = os.path.join(tmp, "wide.str")
+    write_structure_biallelic(path, counts, miss)
+    del counts, miss
+    build.reset_launch_counts()
+    t0 = time.time()
+    rc = main(["-f", path, "-a", "-k", str(K), "-n", "2", "-T",
+               str(WIDE_CLI_ITERS), "-s", "1", "-d", tmp])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    assert rc == 0, rc
+    outs = [f for f in os.listdir(tmp) if f"K={K}" in f or f"_{K}." in f]
+    assert len(outs) >= 5 and all(
+        os.path.getsize(os.path.join(tmp, f)) > 0 for f in outs), outs
+    wide = {name: build.LAUNCHES[name] for name in WIDE_KERNELS}
+    for name in ("wide_rows", "wide_finish", "wide_cols_bi"):
+        assert wide[name] > 0, wide
+    print(f"wide cli -a -k {K} -n 2 -T {WIDE_CLI_ITERS} on {I_FULL} x "
+          f"{L_FULL}: rc 0 in {wall:.1f} s, files {sorted(outs)}, launches "
+          f"{wide} on {where}", flush=True)
+
+
+def wide_mesh_step(md, start, mesh, build, K):
+    """One wide kernel step of ``start`` (the meshed one on this rank's
+    block when ``mesh`` is given): whole lanes, logL and launches."""
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.opt import em as em_mod
+    from multiclust_tpu_torch.runtime import multistart as ms
+
+    opt = Options(admixture=True, dtype="float32", use_pallas=True,
+                  mesh_shape=None if mesh is None else mesh.shape)
+    cfg = ms.cfg_from_options(opt, K, md)
+    md_fit, _ = ms._fit_data(md, cfg, None)
+    params = ms._to_fit_layout(
+        ms._pad_k(ms._warm_block(start, md, cfg), cfg), md_fit, cfg)
+    build.reset_launch_counts()
+    new, ll, _ = em_mod.model_em_step(params, md_fit, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    return [ms.lane_params(new, b, cfg, md_fit) for b in range(2)], ll, \
+        launches
+
+
+def wide_mesh_panel(dev, K):
+    """The main path's biallelic 16384 x 2048 panel (1 % missing) made on
+    the card from a seed, and a 2-chain start of K clusters."""
+    from multiclust_tpu_torch.model.common import Params
+
+    md = wide_fit_counts(K, I_FULL, L_FULL, np.full(L_FULL, 2), 240, dev)
+    gen = torch.Generator(device=dev).manual_seed(241)
+    eta = torch.rand((2, I_FULL, K), generator=gen, device=dev) + 0.05
+    p = torch.rand((2, K, L_FULL, 2), generator=gen, device=dev) + 0.05
+    return md, Params(eta=eta / eta.sum(-1, keepdim=True),
+                      p=p / p.sum(-1, keepdim=True))
+
+
+def wide_mesh_child(task: str, rank: int, world: int, init: str) -> int:
+    """A rank of the wide mesh step: joins the gloo group on the one card,
+    runs the meshed step at K = 200 on its block and writes its launches
+    (and rank 0 the whole results) next to ``task``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from multiclust_tpu_torch.ops import build
+    from multiclust_tpu_torch.runtime import mesh as mesh_mod
+
+    with open(task) as fh:
+        spec = json.load(fh)
+    dev = mesh_mod.initialize_distributed(
+        num_processes=world, process_id=rank, backend="gloo", device="cuda",
+        init_method=init)
+    mesh = mesh_mod.cached_mesh(tuple(spec["shape"]))
+    md, start = wide_mesh_panel(dev, spec["k"])
+    whole, ll, launches = wide_mesh_step(md, start, mesh, build, spec["k"])
+    if rank == 0:
+        torch.save({"whole": [(w.eta.cpu(), w.p.cpu()) for w in whole],
+                    "ll": ll.cpu()}, f"{task}.rank0.pt")
+    with open(f"{task}.rank{rank}", "w") as fh:
+        json.dump({"launches": launches}, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_wide_mesh(build, dev, where, tmp):
+    """A 2x1 gloo meshed step at K = 200 (224 lanes) on the one card,
+    held to the unsharded wide step run here first."""
+    K, shape = 200, (2, 1)
+    md, start = wide_mesh_panel(dev, K)
+    whole, ll, _ = wide_mesh_step(md, start, None, build, K)
+    ref = {"whole": [(w.eta.cpu(), w.p.cpu()) for w in whole],
+           "ll": ll.cpu()}
+    del md, start, whole
+    torch.cuda.empty_cache()
+    task = os.path.join(tmp, "wide_mesh.json")
+    with open(task, "w") as fh:
+        json.dump({"shape": shape, "k": K}, fh)
+    t0 = time.time()
+    wait_children("wide mesh 2x1", start_children(
+        "--wide-mesh-child", task, 2,
+        "file://" + os.path.join(tmp, "init_wide")), t0, WIDE_MESH_TIMEOUT)
+    got = torch.load(f"{task}.rank0.pt")
+    err = 0.0
+    for g, w in zip(got["whole"], ref["whole"]):
+        err = max(err, max_err(g[0], w[0]), max_err(g[1], w[1]))
+    torch.testing.assert_close(got["ll"], ref["ll"], rtol=1e-5, atol=0)
+    launches = []
+    for r in range(2):
+        with open(f"{task}.rank{r}") as fh:
+            launches.append(json.load(fh)["launches"])
+    for q in launches:
+        for name in ("wide_rows", "wide_finish", "wide_cols_bi"):
+            assert q.get(name, 0) >= 1, launches
+    print(f"wide mesh 2x1 step at K={K}: max|d| against the unsharded wide "
+          f"step {err:.3e} (rtol {RTOL}, atol {ATOL}); launches a rank "
+          f"{launches}; {time.time() - t0:.1f} s wall with the children's "
+          f"start-up, on {where}", flush=True)
+    return {"2x1 K=200": {"launches_per_rank": launches,
+                          "max_abs_err": err}}
+
+
+def phase_wide_beyond(build, dev, where):
+    """A step at 1056 lanes (K = 1040): the plain step, no kernel launched,
+    its one-time notice on stderr, and the plain step's own result."""
+    import contextlib
+    import io
+
+    from multiclust_tpu_torch.model import admixture as adm
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+
+    K, Kp = 1040, 1056
+    md = wide_fit_counts(K, 2048, 512, np.full(512, 2), 250, dev)
+    gen = torch.Generator(device=dev).manual_seed(251)
+    eta = torch.zeros((1, md.I, Kp), device=dev)
+    eta[..., :K] = torch.rand((1, md.I, K), generator=gen, device=dev) + 0.05
+    p = torch.zeros((1, Kp, md.L, 2), device=dev)
+    p[:, :K] = torch.rand((1, K, md.L, 2), generator=gen, device=dev) + 0.05
+    params = Params(eta=eta / eta.sum(-1, keepdim=True),
+                    p=p / p.sum(-1, keepdim=True).clamp(min=1e-30))
+    cfg = EMConfig(admixture=True, has_missing=True, use_pallas="on",
+                   biallelic=True, k_true=K)
+    assert not cfg.bi_repr_active
+    adm._K_BEYOND_NOTICED.discard(Kp)
+    build.reset_launch_counts()
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = adm.em_step(params, md, cfg)
+        adm.em_step(out[0], md, cfg)
+    torch.cuda.synchronize()
+    want = adm._em_step_unconstrained(params, md, cfg)
+    for g, w in zip((out[0].eta, out[0].p, out[1]),
+                    (want[0].eta, want[0].p, want[1])):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    notice = f"K lanes ({Kp}) exceed the CUDA kernels' range (1024)"
+    assert err.getvalue().count(notice) == 1, err.getvalue()
+    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    print(f"wide beyond: a step at {Kp} lanes took the plain step (no "
+          f"kernel launched; the notice once: {err.getvalue().strip()!r}) "
+          f"on {where}", flush=True)
+
+
+def phase_wide(fb, fs, build, dev, where):
+    """Phase 21: the admixture step at 128 < Kp <= 1024 through the wide
+    kernels, and above 1024 through the plain step; returns the kernels'
+    records and the mesh entry."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    errs, ms, bnd = phase_wide_kernels(fb, fs, build, dev, where)
+    print(f"wide kernels: {time.time() - t0:.1f} s", flush=True)
+    launches = phase_wide_fits(build, dev, where)
+    phase_wide_reference(build, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_wide_cli(build, where, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = phase_wide_mesh(build, dev, where, tmp)
+    phase_wide_beyond(build, dev, where)
+    records = []
+    for name in WIDE_KERNELS:
+        rec = kernel_record(name, WIDE_SOURCE, WIDE_TPU[name],
+                            launches[name], errs[name], ms[name, 200],
+                            bnd[name, 200])
+        rec["shape"] = (f"K = 200 on 224 lanes, {I_FULL} x {L_FULL}, 2 "
+                        f"chains, 1 % missing"
+                        + (", M = 4" if name == "wide_cols_generic" else ""))
+        if name == "wide_cols_bi":   # its launcher's epilogue, timed with it
+            rec["timed_with"] = "fullstep_bi_p0_kernel"
+        rec["kp1024"] = {"ms": ms[name, 1024][0],
+                         "plain_ms": ms[name, 1024][1],
+                         "bound_ms": bnd[name, 1024][0],
+                         "bound_by": bnd[name, 1024][1]}
+        records.append(rec)
+    print(f"wide phase: {time.time() - t0:.1f} s", flush=True)
+    return records, mesh
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2807,6 +3418,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ingest_results = phase_ingest(where, tmp)
     print(f"ingest phase: {time.time() - t0:.1f} s", flush=True)
+    wide_records, wide_mesh = phase_wide(fb, fs, build, dev, where)
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
@@ -2867,8 +3479,12 @@ def main() -> int:
         kernel_record("fullstep_bi_chunked", SOURCE, CHUNK_TPU,
                       bio_launches["fullstep_bi_chunked"], b_errs["chunked"],
                       b_ms["chunked"], b_bnd["chunked"]))
+    # the wide kernels (128 < Kp <= 1024), with their launches in the K =
+    # 200 main-path fits and their times at 224 lanes (1024 beside them)
+    kernels += wide_records
     mesh_entry = mesh_record(mesh_results)
     mesh_entry.update(ingest_record(ingest_results))
+    mesh_entry.update(wide_mesh)
     record = {"kernels": kernels, "mesh": mesh_entry}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2881,6 +3497,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         raise SystemExit(mesh_child(sys.argv[2], int(sys.argv[3]),
                                     int(sys.argv[4]), sys.argv[5]))
+    if sys.argv[1:2] == ["--wide-mesh-child"]:
+        raise SystemExit(wide_mesh_child(sys.argv[2], int(sys.argv[3]),
+                                         int(sys.argv[4]), sys.argv[5]))
     if sys.argv[1:2] == ["--ingest-child"]:
         raise SystemExit(ingest_child(sys.argv[2], int(sys.argv[3]),
                                       int(sys.argv[4]), sys.argv[5]))

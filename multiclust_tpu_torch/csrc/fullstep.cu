@@ -71,10 +71,12 @@
 // (ROADMAP queue 3, zero lanes).
 //
 // Ragged I and L*M edges are masked in the loads; the caller pads only K,
-// to Kp in {32, 64, 96, 128}.  Sums are in a fixed order: reruns are
-// bit-equal.
+// to Kp in {32, 64, 96, 128} for these kernels.  For 128 < Kp <= 1024 the
+// rows pass, its finish and the columns pass are the wide kernels of
+// wide.cuh (the generic cells, over L*M lanes); the p epilogue takes any
+// Kp.  Sums are in a fixed order: reruns are bit-equal.
 
-#include "tiles.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -486,16 +488,28 @@ extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
                                 int M, int Kp, int k_true, float lb,
                                 int project, int compute_t, int finish,
                                 int seg_cols, int n_seg, void* stream) {
-  if (!kp_ok(Kp) || seg_cols < 1) return (int)cudaErrorInvalidValue;
-  const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
-  const int R = NW * ROW_AR * lt.cw;
-  const size_t smem = sizeof(float) * (size_t)rows_smem_floats(Kp, lt, 0);
+  if (seg_cols < 1) return (int)cudaErrorInvalidValue;
   // every segment starts at a multiple of 4 when the rows and the
   // segment size do
   const int vec =
       LM % 4 == 0 && seg_cols % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
-  const dim3 grid((I + R - 1) / R, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
+  if (kp_wide(Kp)) {
+    // the generic cells at every M: at these Kp the cells are a few
+    // percent of a lane's work, so the sparse cells would save little
+    const int err = launch_rows_wide<Cells::kDense>(
+        eta, p2, x2, nullptr, apart, tpart, B, I, LM, Kp, k_true, 0, LM,
+        seg_cols, n_seg, compute_t, 1, vec, s);
+    if (err != 0) return err;
+    return launch_rows_finish_wide(eta, apart, tpart, a0, c, nullptr, out,
+                                   t_out, B, I, Kp, n_seg, k_true, lb,
+                                   !finish, project, compute_t, s);
+  }
+  if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
+  const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
+  const int R = NW * ROW_AR * lt.cw;
+  const size_t smem = sizeof(float) * (size_t)rows_smem_floats(Kp, lt, 0);
+  const dim3 grid((I + R - 1) / R, n_seg, B);
   const float* e = (const float*)eta;
   const float* p = (const float*)p2;
   const int8_t* x = (const int8_t*)x2;
@@ -538,14 +552,19 @@ extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
                                 void* part, int B, int I, int L, int M,
                                 int Kp, int k_true, int n_seg, int seg_rows,
                                 void* stream) {
-  if (!kp_ok(Kp) || M < 1) return (int)cudaErrorInvalidValue;
-  const LaneTile lt = lane_tile(k_true, Kp, 32);
-  const int TC = NW * COL_CT * lt.cw;
-  const size_t smem = (size_t)cols_smem_bytes(Kp, lt, M);
+  if (M < 1) return (int)cudaErrorInvalidValue;
   const int LM = L * M;
   // the tiles of x and miss arrive by cp.async where every row starts at
   // a multiple of 4 bytes, else by plain loads
   const int xv = LM % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
+  if (kp_wide(Kp))
+    return launch_cols_wide<Cells::kDense>(
+        eta, p2, x2, nullptr, miss, part, B, I, LM, L, M, Kp, k_true, 0, LM,
+        n_seg, seg_rows, xv, (cudaStream_t)stream);
+  if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
+  const LaneTile lt = lane_tile(k_true, Kp, 32);
+  const int TC = NW * COL_CT * lt.cw;
+  const size_t smem = (size_t)cols_smem_bytes(Kp, lt, M);
   const int mv = L % 4 == 0 && ((uintptr_t)miss & 3) == 0;
   const dim3 grid((LM + TC - 1) / TC, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
@@ -583,7 +602,7 @@ extern "C" int mc_fullstep_p(const void* p2, const void* part,
   const float* pt = (const float*)part;
   const uint8_t* mk = (const uint8_t*)mask;
   float* o = (float*)out;
-  const int kc = lane_tile(k_true, Kp, 32).kc;
+  const int kc = pass_kc(k_true, Kp);
   const int kl = kc < Kp ? kc : Kp;   // Kp = K = 3: the multi-allelic mixture
   // NT / G live (k, locus) rows a block; a thread's ring of p_depth(MJ)
   // segments, or of all of them where there are fewer

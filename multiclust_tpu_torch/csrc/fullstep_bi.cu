@@ -78,12 +78,16 @@
 //   and L edges are masked in the loads (zero x, zero eta or p0), not in
 //   the arithmetic.
 //
-// The caller pads only K, to Kp in {32, 64, 96, 128}.  Sums are in a
-// fixed order: reruns are bit-equal.  The tiles, the cp.async helpers, the
-// rows loop (rows_accumulate) and the rows finish live in tiles.cuh, which
-// the generic step (csrc/fullstep.cu) shares.
+// The caller pads only K, to Kp in {32, 64, 96, 128} for these kernels.
+// Sums are in a fixed order: reruns are bit-equal.  The tiles, the
+// cp.async helpers, the rows loop (rows_accumulate) and the rows finish
+// live in tiles.cuh, which the generic step (csrc/fullstep.cu) shares.
+// For 128 < Kp <= 1024 the segmented rows pass, the finish and the
+// columns pass are the wide kernels of wide.cuh (the p0 epilogue takes
+// any Kp); the pair (mc_fullstep_bi_rows) refuses those Kp: the streamed
+// step runs them.
 
-#include "tiles.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -466,6 +470,13 @@ inline int launch_p0(const float* p0, const float* part, float* p0_new,
 extern "C" void mc_fullstep_bi_tiles(int k_true, int Kp, int* kc,
                                      int* row_block, int* col_block,
                                      int* col_tile_rows) {
+  if (kp_wide(Kp)) {
+    *kc = wide_kc(k_true, Kp);
+    *row_block = WR;
+    *col_block = WTC;
+    *col_tile_rows = WRI;
+    return;
+  }
   pass_tiles(k_true, Kp, kc, row_block, col_block, col_tile_rows);
 }
 
@@ -514,13 +525,18 @@ extern "C" int mc_fullstep_bi_rows_seg(const void* eta, const void* p0,
                                        int l_lo, int l_hi, int seg_cols,
                                        int n_seg, int compute_t,
                                        int compute_a, void* stream) {
+  // every segment starts at a multiple of 4 when the window and the
+  // segment size do
+  const int vec = L % 4 == 0 && l_lo % 4 == 0 && seg_cols % 4 == 0;
+  if (kp_wide(Kp))
+    return launch_rows_wide<Cells::kBi>(eta, p0, x0, x1, apart, tpart, B, I,
+                                        L, Kp, k_true, l_lo, l_hi, seg_cols,
+                                        n_seg, compute_t, compute_a, vec,
+                                        (cudaStream_t)stream);
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
   const int R = NW * ROW_AR * lt.cw;
   const size_t smem = sizeof(float) * (size_t)rows_smem_floats(Kp, lt, 0);
-  // every segment starts at a multiple of 4 when the window and the
-  // segment size do
-  const int vec = L % 4 == 0 && l_lo % 4 == 0 && seg_cols % 4 == 0;
   const dim3 grid((I + R - 1) / R, n_seg, B);
   cudaStream_t s = (cudaStream_t)stream;
   const float* e = (const float*)eta;
@@ -554,6 +570,11 @@ extern "C" int mc_fullstep_bi_finish(const void* eta, const void* apart,
                                      int Kp, int n_seg, int k_true,
                                      float lb, int emit_a, int project_eta,
                                      int compute_t, void* stream) {
+  if (kp_wide(Kp))
+    return launch_rows_finish_wide(eta, apart, tpart, a0, c, kmask, out,
+                                   t_out, B, I, Kp, n_seg, k_true, lb, emit_a,
+                                   project_eta, compute_t,
+                                   (cudaStream_t)stream);
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   return launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B,
                             I, Kp, n_seg, k_true, lb, emit_a, project_eta,
@@ -571,6 +592,17 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
                                    int l_lo, int l_hi, int n_seg,
                                    int seg_rows, float plb, float pub,
                                    int project, void* stream) {
+  if (kp_wide(Kp)) {
+    const int vec = L % 4 == 0 && l_lo % 4 == 0;
+    const int err = launch_cols_wide<Cells::kBi>(
+        eta, p0, x0, x1, miss, part, B, I, L, L, 1, Kp, k_true, l_lo, l_hi,
+        n_seg, seg_rows, vec, (cudaStream_t)stream);
+    if (err != 0) return err;
+    return launch_p0((const float*)p0, (const float*)part, (float*)p0_new,
+                     (float*)b0_out, (float*)b1_out, B, Kp,
+                     wide_kc(k_true, Kp), L, l_lo, l_hi - l_lo, n_seg, plb,
+                     pub, project, (cudaStream_t)stream);
+  }
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   const LaneTile lt = lane_tile(k_true, Kp, 32);
   const int TC = NW * COL_CT * lt.cw;
@@ -612,10 +644,11 @@ extern "C" int mc_fullstep_bi_p0(const void* p0, const void* part,
                                  int B, int L, int Kp, int k_true, int l_lo,
                                  int l_hi, int n_seg, float plb, float pub,
                                  int project, void* stream) {
-  if (!kp_ok(Kp) || n_seg < 1) return (int)cudaErrorInvalidValue;
+  if (!(kp_ok(Kp) || kp_wide(Kp)) || n_seg < 1)
+    return (int)cudaErrorInvalidValue;
   return launch_p0((const float*)p0, (const float*)part, (float*)p0_new,
                    (float*)b0_out, (float*)b1_out, B, Kp,
-                   lane_tile(k_true, Kp, 32).kc, L, l_lo, l_hi - l_lo, n_seg,
+                   pass_kc(k_true, Kp), L, l_lo, l_hi - l_lo, n_seg,
                    plb, pub, project, (cudaStream_t)stream);
 }
 

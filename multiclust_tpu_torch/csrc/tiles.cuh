@@ -641,6 +641,8 @@ inline void pass_tiles(int k_true, int Kp, int* kc, int* row_block,
   *col_tile_rows = COL_DR * c.gl;
 }
 
+// the padded cluster counts of the kernels above (Kp <= 128); wide.cuh
+// has the wide test, 128 < Kp <= 1024
 inline bool kp_ok(int Kp) {
   return Kp == 32 || Kp == 64 || Kp == 96 || Kp == 128;
 }

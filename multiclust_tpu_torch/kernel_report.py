@@ -1,11 +1,14 @@
 """What the compiler made of the port's contraction kernels: the
 biallelic admixture ones (csrc/fullstep_bi.cu), the generic rows and
-columns passes (csrc/fullstep.cu) and the biallelic mixture rows and
-columns passes (csrc/mixture_bi.cu, one and two streams): registers,
-shared memory and spills (``nvcc -Xptxas -v``), and the static instruction
-mix of each kernel's machine code (``cuobjdump -sass``: FFMA against LDS,
-MUFU and the rest; DMMA, the float64 tensor-core product, counted on a
-line of its own for the mixture passes).
+columns passes (csrc/fullstep.cu), the biallelic mixture rows and
+columns passes (csrc/mixture_bi.cu, one and two streams) and the wide
+kernels of the admixture step for 128 < Kp <= 1024 (csrc/wide.cuh: the
+rows and columns passes with the biallelic and the generic cells, the
+finish at 32 lanes a thread, each built once for every Kp in its range): registers, shared memory and spills (``nvcc -Xptxas -v``),
+and the static instruction mix of each kernel's machine code
+(``cuobjdump -sass``: FFMA against LDS, MUFU and the rest; DMMA, the
+float64 tensor-core product, counted on a line of its own for the mixture
+passes).
 
 Run with ``python -m multiclust_tpu_torch.kernel_report [Kp ...]`` where
 nvcc and a CUDA toolkit are installed (default Kp: 32 and 128).  The mix counts
@@ -35,6 +38,13 @@ KERNELS = (("fullstep_bi_rows_kernel", ""),
            ("mix_cols_kernel", "Lb1E"))
 # the contraction kernels' names in the -Xptxas -v report
 CONTRACTIONS = "fullstep_(?:bi_)?(?:rows|cols)|mix_(?:rows|cols)"
+# the wide kernels (csrc/wide.cuh), and their instantiations: the cells
+# (a Cells value) or the finish's lanes a thread
+WIDE = "wide_(?:rows|cols|finish)_kernel"
+CELLS = ("kBi", "kDense", "kSparse")
+WIDE_KERNELS = (("wide_rows_kernel", "kBi"), ("wide_rows_kernel", "kDense"),
+                ("wide_cols_kernel", "kBi"), ("wide_cols_kernel", "kDense"),
+                ("wide_finish_kernel", 32))
 
 
 def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
@@ -57,9 +67,13 @@ def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
                 n = int(digits.group()[-k:])
                 ident = mangled[m.start():m.start() + n]
                 if n == len(ident) and ident.endswith("kernel"):
+                    rest = mangled[m.start() + n:]
                     targ = re.match(r"ILi(\d+)E(?:Lb([01])E|Li(\d+)E)?",
-                                    mangled[m.start() + n:])
-                    if targ and targ.group(2):
+                                    rest)
+                    cells = re.match(r"ILN\w*?CellsE(\d)E", rest)
+                    if cells:   # a Cells value, the wide passes' argument
+                        name = ident + f"<{CELLS[int(cells.group(1))]}>"
+                    elif targ and targ.group(2):
                         two = "true" if targ.group(2) == "1" else "false"
                         name = ident + f"<{targ.group(1)}, {two}>"
                     elif targ and targ.group(3):
@@ -75,17 +89,22 @@ def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
     return out
 
 
-def sass_mix(lib: Path, kernel: str, kp: int, targs: str = ""):
+def sass_mix(lib: Path, kernel: str, kp, targs: str = ""):
     """Opcode counts of one kernel's SASS (``targs``: its mangled template
-    arguments after Kp)."""
+    arguments after Kp; ``kp`` a name of CELLS: the wide passes' cells)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
+    if kp in CELLS:
+        tag = re.compile(rf"{len(kernel)}{kernel}ILN\w*?CellsE"
+                         rf"{CELLS.index(kp)}E")
+    else:
+        tag = re.compile(rf"{len(kernel)}{kernel}ILi{kp}E{targs}")
     counts = collections.Counter()
     inside = False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = f"{len(kernel)}{kernel}ILi{kp}E{targs}" in line
+            inside = tag.search(line) is not None
         elif inside:
             m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_]+)",
                          line)
@@ -100,6 +119,13 @@ def main(argv) -> int:
     report = lib.with_suffix(".ptxas.txt").read_text()
     for name, text in ptxas_lines(report, CONTRACTIONS):
         print(f"ptxas {name}: {text}", flush=True)
+    for name, text in ptxas_lines(report, WIDE):
+        print(f"ptxas {name}: {text}", flush=True)
+    for kernel, arg in WIDE_KERNELS:
+        mix = sass_mix(lib, kernel, arg)
+        top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))
+        print(f"sass {kernel}<{arg}>: {sum(mix.values())} instructions: "
+              f"{top}", flush=True)
     for kp in kps:
         for kernel, targs in KERNELS:
             mix = sass_mix(lib, kernel, kp, targs)

@@ -34,6 +34,8 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import sys
+
 import torch
 
 from multiclust_tpu_torch.model.bucketed import BucketedData, \
@@ -43,7 +45,7 @@ from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
 from multiclust_tpu_torch.ops.fullstep import admixture_fullstep, \
     admixture_sweep_stats, fullstep_cols, fullstep_p, fullstep_rows, \
     normalize_p
-from multiclust_tpu_torch.ops.fullstep_bi import Route, \
+from multiclust_tpu_torch.ops.fullstep_bi import KP_MAX, Route, \
     admixture_fullstep_biallelic_chunked, \
     admixture_fullstep_biallelic_routed, device_sm_count, p0_epilogue, \
     pick_route, rows_finish, rows_log_likelihood_terms, scratch_budget
@@ -232,15 +234,37 @@ def _sum_loci(per_i: Tensor, mesh) -> Tensor:
     return mesh.sum(per_i.to(torch.float64), MODEL_AXIS)
 
 
+_K_BEYOND_NOTICED = set()
+
+
+def _beyond_kernels(Kp: int) -> bool:
+    """Kp above the kernels' range: the step takes the plain formulation,
+    with a notice once per lane count, as the JAX package's Pallas step
+    does above its ladder (``_notice_k_beyond_ladder``,
+    multiclust_tpu/model/admixture.py:465-499; the reference's -k has no
+    bound, multiclust.c:1447-1453)."""
+    if Kp <= KP_MAX:
+        return False
+    if Kp not in _K_BEYOND_NOTICED:
+        _K_BEYOND_NOTICED.add(Kp)
+        print(f"multiclust-tpu: K lanes ({Kp}) exceed the CUDA kernels' "
+              f"range ({KP_MAX}); using the plain formulation",
+              file=sys.stderr)
+    return True
+
+
 def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
                      want_ll: bool = True):
     """Generic (multi-allelic) float32 step on the K-padded full layout
     (the single-device branch of _em_step_unconstrained_pallas,
     multiclust_tpu/model/admixture.py:477-574): one kernel triple per EM
     iteration for the whole chain batch (ops/fullstep.py), x read as its
-    int8 [I, L*M] view, p normalized and projected on the card."""
+    int8 [I, L*M] view, p normalized and projected on the card.  Above
+    KP_MAX lanes: the plain step, with the notice."""
     eta, p = params.eta, params.p                     # [B,I,Kp], [B,Kp,L,M]
     nb, Kp = p.shape[0], p.shape[1]
+    if _beyond_kernels(Kp):
+        return _em_step_unconstrained(params, md, cfg, want_ll)
     c, miss = _miss_inputs(md, cfg, eta.dtype)
     if cfg.mesh is not None:
         return _em_step_generic_meshed(params, md, cfg, want_ll, c, miss)
@@ -404,14 +428,15 @@ def _em_step_bucketed(params: Params, bd: BucketedData, cfg: EMConfig,
                       want_ll: bool = True):
     """The step on a bucketed panel (``_em_step_bucketed``,
     multiclust_tpu/model/admixture.py:879-932): float32 chains with the
-    kernels on take ``_bucketed_fullstep_chain``; every other step the
-    plain sweep one bucket at a time, A and t summed over the buckets, eta
-    updated once from the merged A."""
+    kernels on take ``_bucketed_fullstep_chain`` up to KP_MAX lanes; every
+    other step the plain sweep one bucket at a time, A and t summed over
+    the buckets, eta updated once from the merged A."""
     params = split_params_like(params, bd)
     eta = params.eta
     if cfg.eta_constrained:
         return _em_step_constrained_bucketed(params, bd, cfg, want_ll)
-    if cfg.use_pallas != "off" and eta.dtype == torch.float32:
+    if (cfg.use_pallas != "off" and eta.dtype == torch.float32
+            and not _beyond_kernels(eta.shape[-1])):
         return _bucketed_fullstep_chain(params, bd, cfg, want_ll)
     A, per_i, new_ps = None, None, []
     for md_b, p_b in zip(bd.buckets, params.p):

@@ -336,10 +336,15 @@ class EMConfig(NamedTuple):
 
     @property
     def bi_repr_active(self) -> bool:
-        """Chains carry the biallelic p0 layout (p [.., Kp, L])."""
+        """Chains carry the biallelic p0 layout (p [.., Kp, L]); not above
+        the kernels' Kp (ops/fullstep_bi.KP_MAX), where the fit takes the
+        plain step on the full layout, as the JAX package's shapes that do
+        not tile stay on it (its multistart._to_bi_repr)."""
+        from multiclust_tpu_torch.ops.fullstep_bi import KP_MAX
         return (self.use_pallas != "off" and self.admixture
                 and not self.eta_constrained and self.biallelic
-                and bool(self.k_true))
+                and bool(self.k_true)
+                and k_padded_size(self.k_true, 32) <= KP_MAX)
 
 
 def collapse_for_constrained(md: ModelData) -> ModelData:

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,14 +58,20 @@ _SIGNATURES = {
                  _P],
 }
 
-# a loop of launches that is a kernel of its own in the JAX package (the
-# chunked biallelic step) is counted under its own name as well: once per
-# window, where the loop launches the window's rows pass
-LOOP_COUNTS = ("fullstep_bi_chunked",)
+# Launches counted under a name of their own as well as the launcher's
+# (``launch(..., also=)``): a loop of launches that is a kernel of its own
+# in the JAX package (the chunked biallelic step), once per window, where
+# the loop launches the window's rows pass; and the wide kernels of
+# csrc/wide.cuh (128 < Kp <= 1024), which run behind the launchers of the
+# narrow ones: the rows pass (both steps), its finish (both steps; not the
+# t-only finish, which takes any Kp), the biallelic and the generic
+# columns pass
+EXTRA_COUNTS = ("fullstep_bi_chunked", "wide_rows", "wide_finish",
+                "wide_cols_bi", "wide_cols_generic")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0
-                            for name in tuple(_SIGNATURES) + LOOP_COUNTS}
+                            for name in tuple(_SIGNATURES) + EXTRA_COUNTS}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -189,9 +195,9 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def launch(name: str, device: torch.device, *args,
-           loop: Optional[str] = None) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream and count it
-    (and, for a launch made by one of LOOP_COUNTS, that loop too).
+           also: Tuple[str, ...] = ()) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream and count it,
+    and each of the EXTRA_COUNTS in ``also``.
 
     ``args`` are the launcher's arguments without the trailing stream."""
     lib = library()
@@ -202,8 +208,8 @@ def launch(name: str, device: torch.device, *args,
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.mc_error_string(err).decode()}")
     LAUNCHES[name] += 1
-    if loop is not None:
-        LAUNCHES[loop] += 1
+    for kernel in also:
+        LAUNCHES[kernel] += 1
 
 
 def reset_launch_counts() -> None:

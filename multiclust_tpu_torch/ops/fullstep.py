@@ -22,9 +22,14 @@ loops at the lane tile of ``k_true`` (``fullstep_bi.lane_tile``), so the
 segment arithmetic takes it (``fullstep_bi.row_segments``,
 ``cols_segments``).
 
+For 128 < Kp <= 1024 the rows pass, its finish and the columns pass are
+the wide kernels of ``csrc/wide.cuh`` (the generic cells at every M); the
+p epilogue takes any Kp.
+
 The wrappers launch the kernels for CUDA tensors and run the plain version
 only for CPU tensors; there is no fallback for CUDA tensors.  Shapes: a
-chain batch B leads.  eta [B, I, Kp] f32 with Kp in {32, 64, 96, 128}, p2
+chain batch B leads.  eta [B, I, Kp] f32 with Kp a multiple of 32 up to
+1024, p2
 [B, Kp, L*M] f32 (the [B, Kp, L, M] parameters flattened), x2 [I, L*M]
 int8, miss [I, L] int8 or None, c [I] f32 missing totals, mask [L, M] bool
 valid allele lanes.  Pad lanes (k >= k_true) of eta and p2 must be zero;
@@ -41,7 +46,7 @@ from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
 from multiclust_tpu_torch.ops.fullstep_bi import COLS_BLOCKS_PER_SM, \
     COLS_MAX_RSEG, SCRATCH_CAP, check_kp, col_segments, \
-    cols_tile, device_sm_count, row_segments
+    cols_tile, device_sm_count, is_wide, row_segments
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
@@ -257,7 +262,9 @@ def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,
                  _ptr(a0), apart.data_ptr(), tpart.data_ptr(),
                  out.data_ptr(), t.data_ptr(), B, I, LM, int(M), Kp,
                  int(k_true), float(lb), int(project), int(compute_t),
-                 int(finish), seg_cols, n_seg)
+                 int(finish), seg_cols, n_seg,
+                 also=("wide_rows", "wide_finish") if is_wide(Kp)
+                 else ())
     # summed over the segments in float64, returned as the plain version's
     return out, t.to(torch.float32)
 
@@ -291,7 +298,7 @@ def fullstep_partials(eta, p2, x2, miss=None, *, M: int, k_true: int = 0):
     build.launch("mc_fullstep_cols", eta.device,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(miss),
                  part.data_ptr(), B, I, L, M, Kp, int(k_true), n_seg,
-                 seg_rows)
+                 seg_rows, also=("wide_cols_generic",) if is_wide(Kp) else ())
     return part
 
 

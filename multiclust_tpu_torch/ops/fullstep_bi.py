@@ -31,15 +31,25 @@ Three routes run the step (``pick_route`` chooses, the counterpart of
   loop of such steps over column windows, raw A + r threaded from window
   to window through ``a0``/``emit_a``; it bounds the partials' scratch.
 
+For 128 < Kp <= 1024 (the TPU kernels' own range, ``_bi_k_fits`` and
+``_stream_vmem_fits``, kernels.py:653, :709) the segmented rows pass, its
+finish and the columns pass are the wide kernels of ``csrc/wide.cuh``:
+the cluster axis in chunks of 64 lanes, the accumulators in shared
+memory, their own tiles (``rows_block``, ``cols_tile``).  The pair has no
+wide kernel: ``pick_route`` sends those Kp down the streamed or chunked
+step, and ``fullstep_bi_rows`` refuses them.  Above 1024 no kernel runs:
+the model takes the plain step (``model/admixture.py``, the JAX package's
+XLA fallback).
+
 The wrappers launch the kernels for CUDA tensors and run the plain
 version only for CPU tensors; there is no fallback for CUDA tensors.
 Variants: ``miss``, ``compute_t`` and ``project`` on every route;
 ``emit_a``, ``emit_b``, ``a0``, a runtime ``kmask`` and ``project_eta`` on
 the streamed and chunked ones (which return t in float64).  Shapes: eta
-[B, I, Kp] f32 with Kp in {32, 64, 96, 128}, p0 [B, Kp, L] f32, x0/x1
-[I, L] int8, c [I] f32 missing totals, miss [I, L] int8 or None.  Pad
-lanes (k >= k_true) of eta and p0 must be zero and stay zero: the kernels
-neither load nor compute them.
+[B, I, Kp] f32 with Kp a multiple of 32 up to 1024, p0 [B, Kp, L] f32,
+x0/x1 [I, L] int8, c [I] f32 missing totals, miss [I, L] int8 or None.
+Pad lanes (k >= k_true) of eta and p0 must be zero and stay zero: the
+kernels neither load nor compute them.
 """
 
 from __future__ import annotations
@@ -54,7 +64,10 @@ from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
 
-KP_SUPPORTED = (32, 64, 96, 128)
+# the padded cluster counts of the narrow kernels (csrc/fullstep_bi.cu,
+# csrc/fullstep.cu), and the largest of the wide ones (csrc/wide.cuh)
+KP_NARROW = (32, 64, 96, 128)
+KP_MAX = 1024
 # tile constants of csrc/fullstep_bi.cu, under its names: warps a block;
 # rows a thread in the rows pass's A phase, columns a rows-pass tile, the
 # most row lanes of a rows-pass warp; columns a thread and rows a thread
@@ -62,6 +75,9 @@ KP_SUPPORTED = (32, 64, 96, 128)
 NW = 8
 ROW_AR, ROW_TL, ROW_CW_MAX = 4, 32, 8
 COL_CT, COL_DR = 4, 4
+# tile constants of csrc/wide.cuh: rows a rows-pass block, columns (lanes)
+# a columns-pass block, rows a columns-pass tile
+WR, WTC, WRI = 32, 16, 64
 # padded / degenerate columns have d = 0 with x = 0: the clamp keeps
 # 0 / d at 0 and 0 * log(d) at 0
 D_MIN = 1e-30
@@ -174,23 +190,44 @@ def lane_tile(k_true: int, Kp: int, cw_max: int = 32) -> LaneTile:
     return LaneTile(4 * gl * jt, jt, gl, min(32 // gl, cw_max))
 
 
+def is_wide(Kp: int) -> bool:
+    """Whether ``Kp`` runs the wide kernels (csrc/wide.cuh)."""
+    return Kp > KP_NARROW[-1]
+
+
+def kc_of(k_true: int, Kp: int) -> int:
+    """Lanes the passes compute for ``k_true`` clusters padded to ``Kp``
+    (``pass_kc`` of csrc/wide.cuh): the narrow lane tile's, or k_true
+    rounded up to 4 lanes for the wide kernels."""
+    if not is_wide(Kp):
+        return lane_tile(k_true, Kp).kc
+    k = Kp if not 1 <= k_true <= Kp else k_true
+    return -(-k // 4) * 4
+
+
 def rows_block(k_true: int, Kp: int) -> int:
     """Rows of a rows-pass block."""
+    if is_wide(Kp):
+        return WR
     return NW * ROW_AR * lane_tile(k_true, Kp, ROW_CW_MAX).cw
 
 
 def cols_tile(k_true: int, Kp: int) -> Tuple[int, int]:
     """(columns of a columns-pass block, rows of its eta tile)."""
+    if is_wide(Kp):
+        return WTC, WRI
     lt = lane_tile(k_true, Kp)
     return NW * COL_CT * lt.cw, COL_DR * lt.gl
 
 
 def check_kp(Kp: int) -> None:
-    """Raise for a padded cluster count the CUDA kernels do not take."""
-    if Kp not in KP_SUPPORTED:
-        raise ValueError(f"Kp={Kp}: the CUDA kernels take Kp in "
-                         f"{KP_SUPPORTED} (K <= 128); see ROADMAP.md queue 3, "
-                         f"'Kp > 128 on CUDA'")
+    """Raise for a padded cluster count the CUDA kernels do not take: a
+    multiple of 32 up to KP_MAX."""
+    if Kp % 32 or not 32 <= Kp <= KP_MAX:
+        raise ValueError(f"Kp={Kp}: the CUDA kernels take Kp a multiple of "
+                         f"32 up to {KP_MAX}; above that the fit takes the "
+                         f"plain step with a notice (model/admixture.py, "
+                         f"the JAX package's XLA fallback)")
 
 
 def _check_cuda_inputs(eta, p0, x0, x1, *extra):
@@ -226,6 +263,11 @@ def fullstep_bi_rows(eta, p0, x0, x1, c, *, k_true: int, lb: float,
             compute_t=compute_t)
     B, I, L, Kp = _check_cuda_inputs(
         eta, p0, x0, x1, ("c", c, torch.float32, (eta.shape[1],)))
+    if is_wide(Kp):
+        raise ValueError(f"Kp={Kp}: the pair's fused rows pass takes Kp <= "
+                         f"{KP_NARROW[-1]}; wider Kp run the streamed step "
+                         f"(pick_route, admixture_fullstep_biallelic_"
+                         f"streamed)")
     eta_new = torch.empty_like(eta)
     t = torch.empty((B, I), dtype=torch.float32, device=eta.device)
     build.launch("mc_fullstep_bi_rows", eta.device,
@@ -301,6 +343,13 @@ def admixture_fullstep_biallelic(eta, p0, x0, x1, c, miss=None, *,
 MIN_SEG_COLS = 256
 PAIR_BLOCKS_PER_SM = 20
 ROWS_BLOCKS_PER_SM = 20
+# The wide rows pass (Kp > 128) holds one or two blocks an SM (its
+# accumulators fill the shared memory), so it splits L only until the
+# grid holds WIDE_ROWS_BLOCKS_PER_SM blocks an SM, and never into more
+# segments than keep its partials [B, n, I, Kp] within SCRATCH_CAP
+# ("route_times --k 200" and "--k 1024" at 16384 x 2048: one segment
+# beats 2-32 at 1 and 2 chains, 512 and 1024 blocks of 32 rows).
+WIDE_ROWS_BLOCKS_PER_SM = 2
 # Columns pass ("columns pass: router row segments, n row segments"): it
 # splits I until its grid holds COLS_BLOCKS_PER_SM blocks an SM, in at
 # most COLS_MAX_RSEG segments (16384 x 2048 x 1 chain: 0.32 ms at 64
@@ -353,10 +402,17 @@ def row_segments(B: int, I: int, W: int, n_sm: int, *,
     alone fills the card (PAIR_BLOCKS_PER_SM a SM), else enough segments
     for ``per_sm`` blocks per SM when W allows, each segment >=
     MIN_SEG_COLS wide and a multiple of the tile.  The row block is that
-    of ``k_true`` clusters padded to ``Kp``."""
+    of ``k_true`` clusters padded to ``Kp``; a wide Kp splits as
+    WIDE_ROWS_BLOCKS_PER_SM says."""
     blocks = B * -(-I // rows_block(k_true, Kp))
     n = 1
-    if blocks < PAIR_BLOCKS_PER_SM * n_sm:
+    if is_wide(Kp):
+        if blocks < WIDE_ROWS_BLOCKS_PER_SM * n_sm:
+            n = max(1, min(-(-WIDE_ROWS_BLOCKS_PER_SM * n_sm // blocks),
+                           W // MIN_SEG_COLS,
+                           SCRATCH_CAP // (4 * B * I * (Kp + 1)),
+                           GRID_YZ_MAX))
+    elif blocks < PAIR_BLOCKS_PER_SM * n_sm:
         n = max(1, min(-(-per_sm * n_sm // blocks), W // MIN_SEG_COLS,
                        GRID_YZ_MAX))
     seg_cols = _ceil_to(-(-W // n), ROW_TL)
@@ -411,9 +467,11 @@ def pick_route(B: int, I: int, L: int, Kp: int, n_sm: int,
     """The route of a step for a chain batch of B on an I x L panel: the
     pair when its rows grid fills the SMs, the streamed step when it does
     not, the chunked loop when the columns pass's partials over all L
-    would take more than ``budget`` bytes even in one row segment.
-    ``k_true`` (0: Kp) sets the kernels' tiles.  Raises when no window fits
-    or an index would overflow."""
+    would take more than ``budget`` bytes even in one row segment.  A wide
+    Kp (> 128) never takes the pair: its streamed step runs one rows
+    segment where the pair would run.  ``k_true`` (0: Kp) sets the
+    kernels' tiles.  Raises when no window fits or an index would
+    overflow."""
     check_kp(Kp)
     if L > L_MAX or B > GRID_YZ_MAX:
         raise ValueError(f"L={L} or B={B} beyond the kernels' index range "
@@ -421,7 +479,7 @@ def pick_route(B: int, I: int, L: int, Kp: int, n_sm: int,
 
     def route(name: str, W: int) -> Route:
         n_cseg, seg_cols = row_segments(B, I, W, n_sm, k_true=k_true, Kp=Kp)
-        if name == "streamed" and n_cseg == 1:
+        if name == "streamed" and n_cseg == 1 and not is_wide(Kp):
             name, n_cseg, seg_cols = "pair", 0, 0
         n_rseg, _ = cols_row_segments(B, I, W, Kp, n_sm, k_true, budget)
         return Route(name, seg_cols, W, window_scratch_bytes(
@@ -583,7 +641,9 @@ def rows_partials(eta, p0, x0, x1, *, l_lo: int, l_hi: int, seg_cols: int,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
                  x1.data_ptr(), build.ptr(apart), tpart.data_ptr(),
                  B, I, L, Kp, int(k_true), l_lo, l_hi, seg_cols, n_seg,
-                 int(compute_t), int(compute_a), loop=loop)
+                 int(compute_t), int(compute_a),
+                 also=(() if loop is None else (loop,))
+                 + (("wide_rows",) if is_wide(Kp) else ()))
     return apart, tpart
 
 
@@ -646,7 +706,9 @@ def rows_finish(eta, apart, tpart, c, a0=None, kmask=None, *, k_true: int,
                  eta.data_ptr(), build.ptr(apart), tpart.data_ptr(),
                  build.ptr(a0), c.data_ptr(), build.ptr(kmask),
                  build.ptr(out), t.data_ptr(), B, I, Kp, n_seg, int(k_true),
-                 float(lb), int(emit_a), int(project_eta), int(compute_t))
+                 float(lb), int(emit_a), int(project_eta), int(compute_t),
+                 also=("wide_finish",) if is_wide(Kp) and out is not None
+                 else ())
     return out, t
 
 
@@ -715,7 +777,8 @@ def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
                  outs[0].data_ptr() if emit_b else None,
                  outs[1].data_ptr() if emit_b else None,
                  B, I, L, Kp, int(k_true), l_lo, l_hi, n_seg, seg_rows, lo,
-                 hi, int(project))
+                 hi, int(project),
+                 also=("wide_cols_bi",) if is_wide(Kp) else ())
 
 
 # ---------------------------------------------------------------------------
@@ -742,7 +805,7 @@ def ordered_segment_sum(parts: Tensor, seed: Optional[Tensor] = None, *,
 def p0_epilogue_reference(p0, part, outs, *, l_lo: int, l_hi: int,
                           k_true: int, plb: float, project: bool) -> None:
     """Plain version of ``p0_epilogue``."""
-    kc = lane_tile(k_true, p0.shape[1]).kc
+    kc = kc_of(k_true, p0.shape[1])
     b0, b1 = (ordered_segment_sum(part[:, :, a]) for a in (0, 1))
     b0[:, kc:] = 0.0
     b1[:, kc:] = 0.0

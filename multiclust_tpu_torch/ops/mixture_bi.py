@@ -35,7 +35,7 @@ import torch
 
 from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
-from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX, check_kp, \
+from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX, KP_NARROW, \
     device_sm_count, p0_clip_bounds
 from multiclust_tpu_torch.ops.simplex import project_rows
 
@@ -44,6 +44,16 @@ Tensor = torch.Tensor
 # the columns pass's tiling in csrc/mixture_bi.cu (ColsTile): warps a
 # block, rows a stage; the row-segment count is chosen here
 NW, COL_RI = 8, 32
+
+
+def check_kp(Kp: int) -> None:
+    """Raise for a padded cluster count the mixture kernels do not take:
+    they have no wide version yet (the admixture kernels do)."""
+    if Kp not in KP_NARROW:
+        raise ValueError(f"Kp={Kp}: the mixture kernels take Kp in "
+                         f"{KP_NARROW} (K <= 128); see ROADMAP.md, order of "
+                         f"next PRs, item 1, 'the mixture's wide kernels "
+                         f"(Kp > 128)'")
 
 
 def cols_tile(Kp: int, two: bool) -> int:

@@ -16,9 +16,12 @@ operations over 67 TFLOP/s, the counts chip_smoke.py uses) and the share
 of it that the best time reaches.  The first line is the card's name and
 power limit.
 
-``--k K`` times another cluster count (padded to the next of 32, 64, 96,
-128 lanes) and ``--shapes IxL,IxL`` other panels, for the kernels' wider
-instantiations: ``--k 100 --shapes 16384x2048,8192x131072``.
+``--k K`` times another cluster count (padded to a multiple of 32 lanes,
+at most 1024) and ``--shapes IxL,IxL`` other panels, for the kernels' wider
+instantiations: ``--k 100 --shapes 16384x2048,8192x131072``.  Above 128
+lanes the wide kernels (csrc/wide.cuh) run, and the pair, which has no
+wide kernel, is left out: ``--k 200`` and ``--k 1024``, alone or with
+``--kernels``, ``--generic`` or ``--jagged``.
 
 ``--mixture`` times the biallelic mixture step instead (16384 x 2048 by
 default; one stream, the ploidy fold, and two streams, 2 % missing) at the
@@ -210,9 +213,10 @@ def time_shape(I: int, L: int, dev) -> None:
         ref = fb.admixture_fullstep_biallelic_streamed_reference(
             eta, p0, x0, x1, c, miss, **kw)
         steps = {"routed": lambda: fb.admixture_fullstep_biallelic_routed(
-            eta, p0, x0, x1, c, miss, route=route, **kw),
-            "pair": lambda: fb.admixture_fullstep_biallelic(
-            eta, p0, x0, x1, c, miss, **kw)}
+            eta, p0, x0, x1, c, miss, route=route, **kw)}
+        if not fb.is_wide(KP):   # the pair has no wide kernel
+            steps["pair"] = lambda: fb.admixture_fullstep_biallelic(
+                eta, p0, x0, x1, c, miss, **kw)
         for n_seg in (2, 4, 8, 16, 32):
             sc = -(-L // n_seg // 32) * 32
             steps[f"streamed, {n_seg} segments"] = (
@@ -232,8 +236,9 @@ def time_shape(I: int, L: int, dev) -> None:
         cells = B * I * L
         row_kw = dict(k_true=K, lb=1e-8, project=True)
         fin = dict(k_true=K, lb=1e-8, project_eta=True)
-        rows = {"unsegmented (fused finish)": median_ms(
-            lambda: fb.fullstep_bi_rows(eta, p0, x0, x1, c, **row_kw))}
+        rows = {} if fb.is_wide(KP) else {
+            "unsegmented (fused finish)": median_ms(
+                lambda: fb.fullstep_bi_rows(eta, p0, x0, x1, c, **row_kw))}
         for n_seg in (1, 2, 4, 8, 16, 32):
             sc = -(-L // n_seg // 32) * 32
 
@@ -292,15 +297,19 @@ def lanes_panel(seed: int, I: int, L: int, M: int, dev):
 
 
 # the generic step's kernels by name, as the profiler sees them
-GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel",),
-                   "rows finish": ("rows_finish_kernel",),
-                   "columns pass": ("fullstep_cols_kernel",),
+GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel", "wide_rows_kernel"),
+                   "rows finish": ("rows_finish_kernel",
+                                   "wide_finish_kernel"),
+                   "columns pass": ("fullstep_cols_kernel",
+                                    "wide_cols_kernel"),
                    "p epilogue": ("fullstep_p_kernel",)}
-# the biallelic step's, on any of its routes
+# the biallelic step's, on any of its routes (the wide kernels above 128
+# lanes)
 BI_KERNELS = {"rows pass": ("fullstep_bi_rows_seg_kernel",
-                            "fullstep_bi_rows_kernel"),
-              "rows finish": ("rows_finish_kernel",),
-              "columns pass": ("fullstep_bi_cols_kernel",),
+                            "fullstep_bi_rows_kernel", "wide_rows_kernel"),
+              "rows finish": ("rows_finish_kernel", "wide_finish_kernel"),
+              "columns pass": ("fullstep_bi_cols_kernel",
+                               "wide_cols_kernel"),
               "p0 epilogue": ("fullstep_bi_p0_kernel",)}
 
 
@@ -358,7 +367,7 @@ def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
     x0, x1 = planes[0], planes[1]
     c = miss.sum(dim=1, dtype=torch.float32)
     n_sm = fb.device_sm_count(dev)
-    kc = fb.lane_tile(K, KP).kc
+    kc = fb.kc_of(K, KP)
     for B in chains:
         eta, p0 = device_step_params(2, B, I, L, K, KP, dev)
         route = fb.pick_route(B, I, L, KP, n_sm, fb.scratch_budget(dev), K)
@@ -409,7 +418,7 @@ def time_finish_alone(I: int, L: int, chains, n: int, dev) -> None:
     back, so the partials the launch before read sit in the 50 MB L2 as
     far as they fit, and with a 256 MB buffer written before each launch,
     so they come from device memory; each with its bounds."""
-    kc = fb.lane_tile(K, KP).kc
+    kc = fb.kc_of(K, KP)
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(2 ** 26, device=dev)   # 256 MB
     n_sm = fb.device_sm_count(dev)
@@ -503,7 +512,7 @@ def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
         n_sm = fb.device_sm_count(dev)
         n_cseg = fb.row_segments(B, I, L * M, n_sm, k_true=K, Kp=KP)[0]
         n_rseg = fs.cols_segments(B, I, L * M, KP, n_sm, K)[0]
-        kc = fb.lane_tile(K, KP).kc
+        kc = fb.kc_of(K, KP)
         ms_of = lambda b: tuple(n / HBM_BYTES_PER_S * 1e3 for n in b)
         bounds = {"rows pass": bound_ms((eta, p2, x2, c, eta, c),
                                         (4 * K + 5) * lanes),

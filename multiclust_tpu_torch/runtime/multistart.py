@@ -63,10 +63,13 @@ def device_policy(opt: Options, device):
     """``(use_pallas, storage_dtype)`` for a fit on ``device``, as
     Options.device_policy does for JAX backends (config.py:250-273): the
     kernels are on for float32 fits on CUDA, where counts are stored int8
-    (admixture: the biallelic pair on biallelic panels, the generic triple
-    on any other; mixture: the biallelic mixture kernels on biallelic
-    panels, the plain products with the eta and p finish on the card on
-    any other); CPU fits run the plain step in the compute dtype.
+    (admixture: the routed biallelic step on biallelic panels, the generic
+    triple on any other, both to Kp = 1024, the wide kernels above Kp =
+    128 and the plain step with a one-time notice above 1024, as the JAX
+    package falls back to XLA there; mixture: the biallelic mixture
+    kernels on biallelic panels up to Kp = 128, above which they refuse,
+    the plain products with the eta and p finish on the card on any
+    other panel); CPU fits run the plain step in the compute dtype.
     ``opt.use_pallas`` overrides the kernel choice on the CPU only: on CUDA
     the kernels are the one route of a float32 fit."""
     on_cuda = torch.device(device).type == "cuda"
@@ -212,9 +215,10 @@ def chain_bytes(md: ModelData, K: int, cfg: EMConfig,
     """Bytes one chain holds while it runs: its parameters, about eight
     more tensors of their size (the new iterate, the selects of the state
     machine, a trial point) and the secant ring's 2 q copies, plus the
-    step's scratch for one chain (the biallelic route's own count; the
-    generic and mixture steps' partials are of the size of p).  A
-    bucketed panel (or ``plan``) counts its tight lanes."""
+    step's scratch for one chain (the biallelic route's own count, its
+    rows partials bounded at a wide Kp by ``row_segments``; the generic
+    and mixture steps' partials are of the size of p).  A bucketed panel
+    (or ``plan``) counts its tight lanes."""
     itemsize = torch.finfo(md.dtype).bits // 8
     Kp = k_padded_size(K, 32) if cfg.use_pallas != "off" else K
     if isinstance(md, BucketedData):

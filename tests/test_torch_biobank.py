@@ -512,8 +512,8 @@ def test_router_cases():
     assert tight.n_rseg == 1
     with pytest.raises(MemoryError, match="bytes"):
         fb.pick_route(2, 8192, 131072, 32, 132, 1 << 16)
-    with pytest.raises(ValueError, match="Kp=160"):
-        fb.pick_route(1, 100, 100, 160, 132, cap)
+    with pytest.raises(ValueError, match="Kp=1056"):
+        fb.pick_route(1, 100, 100, 1056, 132, cap)
     with pytest.raises(ValueError, match="index range"):
         fb.pick_route(1, 100, 2 ** 31 - 1, 32, 132, cap)
     assert fb.scratch_budget("cpu") == cap and fb.device_sm_count("cpu") == 132

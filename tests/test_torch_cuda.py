@@ -269,16 +269,18 @@ def test_generic_sweep_and_a0_chain_match_plain(K, Kp):
 
 @pytest.mark.cuda
 def test_generic_kernels_refuse_kp160():
+    """The edge of the generic kernels' range moved from Kp = 160 to 1056:
+    beyond 1024 they refuse, naming the plain step."""
     dev = _cuda()
-    eta = torch.zeros(1, 8, 160, device=dev)
-    p2 = torch.zeros(1, 160, 12, device=dev)
+    eta = torch.zeros(1, 8, 1056, device=dev)
+    p2 = torch.zeros(1, 1056, 12, device=dev)
     x2 = torch.zeros(8, 12, dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
-        fs.fullstep_rows(eta, p2, x2, k_true=150, lb=0.0, project=False)
-    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
+        fs.fullstep_rows(eta, p2, x2, k_true=1050, lb=0.0, project=False)
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
         fs.fullstep_cols(eta, p2, x2, None,
                          torch.ones(4, 3, dtype=torch.bool, device=dev),
-                         k_true=150)
+                         k_true=1050)
 
 
 def _mix_args(seed, B, I, L, K, Kp, miss_rate, ploidy, dev):
@@ -684,13 +686,13 @@ def test_streamed_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="dtype"):
         fb.rows_partials(eta, p0, x0.float(), x1, l_lo=0, l_hi=256,
                          seg_cols=64)
-    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
         fb.admixture_fullstep_biallelic_streamed(
-            torch.zeros(1, 8, 160, device=dev),
-            torch.zeros(1, 160, 12, device=dev),
+            torch.zeros(1, 8, 1056, device=dev),
+            torch.zeros(1, 1056, 12, device=dev),
             torch.zeros(8, 12, dtype=torch.int8, device=dev),
             torch.zeros(8, 12, dtype=torch.int8, device=dev),
-            torch.zeros(8, device=dev), k_true=150, lb=0.0, plb=0.0,
+            torch.zeros(8, device=dev), k_true=1050, lb=0.0, plb=0.0,
             project=False)
 
 
@@ -1386,3 +1388,320 @@ def test_mesh_collectives_under_nccl_at_world_size_one(tmp_path):
         assert torch.equal(mesh_mod.any_over_world(flags), flags)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the wide kernels (csrc/wide.cuh): 128 < Kp <= 1024
+
+WIDE_LANES = [(130, 160), (200, 224), (500, 512), (1024, 1024)]
+WIDE_COUNTS = ("wide_rows", "wide_finish", "wide_cols_bi")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_LANES)
+@pytest.mark.parametrize("B,I,L,miss_rate,compute_t,seg_cols,window", [
+    (1, 1001, 4099, 0.02, True, 1056, 1312),    # ragged, byte loads
+    (2, 640, 2048, 0.0, False, 512, 768),       # aligned, vector loads
+])
+def test_wide_streamed_and_chunked_kernels_match_plain(
+        K, Kp, B, I, L, miss_rate, compute_t, seg_cols, window):
+    """The streamed and the chunked step at a wide Kp (the wide rows pass,
+    its finish, the wide biallelic columns pass and the p0 epilogue)
+    against the plain version, each wide kernel counted once a window;
+    reruns bit-equal; the pair refuses the Kp, naming the streamed
+    route."""
+    dev = _cuda()
+    args = _step_args(K + B, B, I, L, K, Kp, miss_rate, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=True, compute_t=compute_t)
+    ref = fb.admixture_fullstep_biallelic_streamed_reference(*args, **kw)
+    before = dict(build.LAUNCHES)
+    streamed = fb.admixture_fullstep_biallelic_streamed(
+        *args, seg_cols=seg_cols, **kw)
+    torch.cuda.synchronize()
+    for name in STREAM_KERNELS + WIDE_COUNTS:
+        assert build.LAUNCHES[name] == before[name] + 1, name
+    chunked = fb.admixture_fullstep_biallelic_chunked(*args, window=window,
+                                                      **kw)
+    torch.cuda.synchronize()
+    n_win = -(-L // window)
+    for name in WIDE_COUNTS:
+        assert build.LAUNCHES[name] == before[name] + 1 + n_win, name
+    for got in (streamed, chunked):
+        _stream_close(got, ref)
+        assert (got[0][..., K:] == 0).all() and (got[2][:, K:] == 0).all()
+    for fn, extra in ((fb.admixture_fullstep_biallelic_streamed,
+                       dict(seg_cols=seg_cols)),
+                      (fb.admixture_fullstep_biallelic_chunked,
+                       dict(window=window))):
+        a, b = fn(*args, **extra, **kw), fn(*args, **extra, **kw)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    with pytest.raises(ValueError, match=f"Kp={Kp}.*streamed"):
+        fb.admixture_fullstep_biallelic(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(200, 224), (1000, 1024)])
+@pytest.mark.parametrize("variant", ["emit_b", "emit_ab", "kmask",
+                                     "project_eta_off", "a0", "no_project"])
+@pytest.mark.parametrize("route", ["streamed", "chunked"])
+def test_wide_streamed_variants_match_plain(K, Kp, variant, route):
+    dev = _cuda()
+    args = _step_args(7, 2, 1001, 4099, K, Kp, 0.03, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+    extra = {}
+    if variant.startswith("emit"):
+        kw.update(emit_b=True, emit_a=variant == "emit_ab")
+    elif variant == "kmask":
+        kw["k_true"] = Kp
+        extra["kmask"] = (torch.arange(Kp, device=dev) < K).float()
+    elif variant == "project_eta_off":
+        kw["project_eta"] = False
+    elif variant == "a0":
+        kw.update(emit_a=True, emit_b=True)
+        extra["a0"] = torch.rand((2, 1001, Kp), device=dev)
+    else:
+        kw["project"] = False
+    if route == "streamed":
+        got = fb.admixture_fullstep_biallelic_streamed(
+            *args, seg_cols=1056, **kw, **extra)
+    else:
+        got = fb.admixture_fullstep_biallelic_chunked(
+            *args, window=1312, **kw, **extra)
+    ref = fb.admixture_fullstep_biallelic_chunked_reference(
+        *args, window=4099, **kw, **extra)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == (4 if kw.get("emit_b") else 3)
+    _stream_close(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_LANES)
+def test_wide_logl_terms_match_plain(K, Kp):
+    """The t-only rows pass (A stages skipped) and its t-only finish, in
+    one and in several column segments."""
+    dev = _cuda()
+    eta, p0, x0, x1, _, _ = _step_args(K, 2, 1001, 2051, K, Kp, 0.0, dev)
+    want = fb.rows_log_likelihood_terms(eta.cpu(), p0.cpu(), x0.cpu(),
+                                        x1.cpu(), k_true=K)
+    for seg_cols in (None, 512):
+        before = build.LAUNCHES["wide_rows"]
+        got = fb.rows_log_likelihood_terms(eta, p0, x0, x1, k_true=K,
+                                           seg_cols=seg_cols)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["wide_rows"] == before + 1
+        torch.testing.assert_close(got.cpu(), want, **F32)
+
+
+def _wide_finish_args(seed, B, I, K, Kp, n_seg, dev):
+    """As _finish_args, with the pad lanes past the wide kernels' kc."""
+    rng = np.random.default_rng(seed)
+    kc = fb.kc_of(K, Kp)
+    eta = np.zeros((B, I, Kp), np.float32)
+    eta[..., :K] = rng.dirichlet(np.full(K, 0.3), size=(B, I))
+    apart = rng.uniform(-1.0, 3.0, size=(B, n_seg, I, Kp)).astype(np.float32)
+    apart[..., kc:] = apart[..., kc:kc + 1]
+    t = lambda a: torch.tensor(a, device=dev)
+    return (t(eta), t(apart),
+            t(rng.normal(-50.0, 20.0, size=(B, n_seg, I)).astype(np.float32)),
+            t(rng.uniform(0.0, 2.0, size=(B, I, Kp)).astype(np.float32)),
+            t(rng.uniform(0.0, 4.0, size=I).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(130, 160), (198, 224), (1021, 1024)])
+@pytest.mark.parametrize("n_seg", [1, 3, 64])
+def test_wide_finish_and_p0_epilogue_sum_the_segments_in_order(K, Kp,
+                                                               n_seg):
+    """The wide finish: raw A (emit_a, with and without a0) and t
+    bit-equal to the partials added one segment after another, pad lanes
+    included; eta' (static lanes, a runtime kmask, the Michelot off)
+    against the plain finish of that sum; reruns bit-equal.  The p0
+    epilogue at the wide kc: NaN past it is not read."""
+    dev = _cuda()
+    I = 1001 if n_seg <= 3 else 301
+    kmask = (torch.arange(Kp, device=dev) < K - 3).float()
+    for B in (1, 3):
+        eta, apart, tpart, a0, c = _wide_finish_args(K + n_seg + B, B, I,
+                                                     K, Kp, n_seg, dev)
+        fin = dict(k_true=K, lb=0.01)
+        t_want = fb.ordered_segment_sum(tpart, dtype=torch.float64)
+        for seed in (None, a0):
+            got, t = fb.rows_finish(eta, apart, tpart, c, seed, **fin,
+                                    project_eta=True, emit_a=True)
+            assert torch.equal(got, fb.ordered_segment_sum(apart, seed))
+            assert torch.equal(t, t_want)
+        araw = fb.ordered_segment_sum(apart)
+        for kw in (dict(project_eta=True), dict(project_eta=False),
+                   dict(project_eta=True, kmask=kmask)):
+            got, t = fb.rows_finish(eta, apart, tpart, c, **fin, **kw)
+            again = fb.rows_finish(eta, apart, tpart, c, **fin, **kw)
+            want = fb.finish_eta_reference(eta, araw, c, **fin, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **F32)
+            assert (got[..., K:] == 0).all()
+            assert torch.equal(t, t_want)
+            assert torch.equal(got, again[0]) and torch.equal(t, again[1])
+    kc = fb.kc_of(K, Kp)
+    rng = np.random.default_rng(K + n_seg)
+    L, lo, hi = 1003, 1, 1000
+    part = rng.uniform(0.0, 50.0, size=(2, n_seg, 2, Kp, hi - lo))
+    part[:, :, :, kc:] = np.nan
+    part = torch.tensor(part.astype(np.float32), device=dev)
+    p0 = np.zeros((2, Kp, L), np.float32)
+    p0[:, :K] = rng.uniform(0.0, 1.0, size=(2, K, L))
+    p0 = torch.tensor(p0, device=dev)
+    b = [fb.ordered_segment_sum(part[:, :, a]) for a in (0, 1)]
+    for out in b:
+        out[:, kc:] = 0.0
+    got = torch.zeros_like(p0)
+    fb.p0_epilogue(p0, part, (got,), l_lo=lo, l_hi=hi, k_true=K, plb=0.05,
+                   project=True)
+    want = fb.p0_update_reference(p0[..., lo:hi], *b, plb=0.05, project=True)
+    torch.testing.assert_close(got[..., lo:hi], want, **F32)
+    assert (got[:, kc:] == 0).all()
+
+
+_WIDE_GENERIC_CASES = [
+    # B, I, L, M, K, Kp, miss_rate, compute_t, project
+    (1, 1001, 333, 3, 130, 160, 0.02, True, True),   # ragged I and L*M
+    (2, 777, 129, 4, 200, 224, 0.0, True, True),
+    (1, 300, 101, 8, 500, 512, 0.05, False, True),
+    (2, 257, 61, 5, 1024, 1024, 0.02, True, False),
+    (1, 1024, 64, 4, 198, 224, 0.02, True, True),    # aligned, vector loads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,L,M,K,Kp,miss_rate,compute_t,project",
+                         _WIDE_GENERIC_CASES)
+def test_wide_generic_kernels_match_plain(B, I, L, M, K, Kp, miss_rate,
+                                          compute_t, project):
+    """The generic step at a wide Kp (the wide rows pass with the generic
+    cells and its finish, the wide generic columns pass, the p epilogue)
+    against its plain version, each wide kernel counted; the sweep
+    statistics (finish=False, with the miss fold) and an a0 / emit_a chain
+    of two launches; reruns bit-equal."""
+    dev = _cuda()
+    args = _generic_args(K + L, B, I, L, M, K, Kp, miss_rate, dev)
+    eta, p2, x2, c, miss, mask = args
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=project,
+              compute_t=compute_t)
+    before = dict(build.LAUNCHES)
+    got = fs.admixture_fullstep(*args, **kw)
+    ref = fs.admixture_fullstep_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for name in GENERIC_KERNELS + ("wide_rows", "wide_finish",
+                                   "wide_cols_generic"):
+        assert build.LAUNCHES[name] == before[name] + 1, name
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **F32)
+    eta_new, _, p_new = got
+    assert (eta_new[..., K:] == 0).all() and (p_new[:, K:] == 0).all()
+    assert (p_new[..., ~mask] == 0).all()
+    again = fs.admixture_fullstep(*args, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    sweep = fs.admixture_sweep_stats(eta, p2, x2, miss, M=M, k_true=K)
+    A_ref, t_ref = fs.fullstep_rows_reference(eta, p2, x2, k_true=K, lb=0.0,
+                                              project=False, finish=False)
+    B_ref = fs.fullstep_cols_reference(eta, p2, x2, miss, finish=False)
+    for g, r in zip(sweep, (A_ref, t_ref, B_ref)):
+        torch.testing.assert_close(g, r, **F32)
+    h = (L // 2) * M
+    halves = [(p2[..., :h].contiguous(), x2[:, :h].contiguous()),
+              (p2[..., h:].contiguous(), x2[:, h:].contiguous())]
+    rkw = dict(k_true=K, lb=0.01, project=True)
+    A, _ = fs.fullstep_rows(eta, *halves[0], c, finish=False, **rkw)
+    A_ref, _ = fs.fullstep_rows_reference(eta, *halves[0], c, finish=False,
+                                          **rkw)
+    torch.testing.assert_close(A, A_ref, **F32)
+    e2, t2 = fs.fullstep_rows(eta, *halves[1], c, A, **rkw)
+    e2_ref, t2_ref = fs.fullstep_rows_reference(eta, *halves[1], c, A_ref,
+                                                **rkw)
+    torch.testing.assert_close(e2, e2_ref, **F32)
+    torch.testing.assert_close(t2, t2_ref, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp", [160, 224, 512, 1024])
+def test_wide_tiles_match_the_python_mirror(Kp):
+    """kc, the rows-pass block and the columns-pass tile of the wide
+    kernels against ``kc_of``, ``rows_block`` and ``cols_tile``."""
+    _cuda()
+    lib = build.library()
+    for K in list(range(0, 40)) + list(range(Kp - 40, Kp + 1)):
+        kc, row_block, col_block, col_rows = build.kernel_tiles(lib, K, Kp)
+        assert kc == fb.kc_of(K, Kp)
+        assert row_block == fb.rows_block(K, Kp)
+        assert (col_block, col_rows) == fb.cols_tile(K, Kp)
+
+
+def _plain_raises(monkeypatch):
+    """Every plain version of a kernel, and the plain step, raise."""
+    from multiclust_tpu_torch.model import admixture as tadm
+
+    def boom(*a, **kw):
+        raise AssertionError("a plain function ran in a kernel fit")
+    for module in (fb, fs):
+        for name in dir(module):
+            if name.endswith("_reference"):
+                monkeypatch.setattr(module, name, boom)
+    for name in ("_em_step_unconstrained", "_sweep", "_sweep_stats"):
+        monkeypatch.setattr(tadm, name, boom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [200, 1000])
+@pytest.mark.parametrize("panel,accel", [("biallelic", 0), ("biallelic", 1),
+                                         ("M=4", 0), ("jagged", 1)])
+def test_wide_float32_fits_run_no_plain_function(monkeypatch, K, panel,
+                                                 accel):
+    """A float32 fit on the card at Kp = 224 and 1024 (plain EM and
+    SQUAREM; biallelic, M = 4 and a jagged panel) runs the wide kernels
+    and not one plain function: they are patched to raise."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.convert import model_data_from_numpy
+
+    dev = _cuda()
+    rng = np.random.default_rng(K + accel)
+    I, L = 1100, 256
+    if panel == "biallelic":
+        M, Ml = 2, np.full(L, 2)
+    elif panel == "M=4":
+        M, Ml = 4, np.full(L, 4)
+    else:
+        M, Ml = 8, np.where(rng.random(L) < 0.8, 2, 8)
+    mask = np.arange(M)[None] < Ml[:, None]
+    miss = rng.binomial(2, 0.01, size=(I, L))
+    freq = np.broadcast_to(mask / Ml[:, None], (I, L, M))
+    counts = rng.multinomial(2 - miss, freq)
+    md = model_data_from_numpy(counts, miss, mask, Ml, device=dev,
+                               dtype=torch.float32)
+    _plain_raises(monkeypatch)
+    build.reset_launch_counts()
+    out = fit_model_data(md, 2, admixture=True, min_K=K, max_K=K, n_init=2,
+                         max_iter=4, seed=3, verbosity=0,
+                         accel_scheme=accel)
+    res = out.estimate.per_K[K]
+    assert np.isfinite(res.max_logL) and not res.any_failed
+    assert build.LAUNCHES["wide_rows"] > 0 and build.LAUNCHES["wide_finish"]
+    cols = "wide_cols_bi" if panel == "biallelic" else "wide_cols_generic"
+    assert build.LAUNCHES[cols] > 0, build.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_wide_kernels_build_without_spills():
+    """The -Xptxas -v report of the wide kernels: the rows and columns
+    passes with both cells and the finish, in both admixture sources where
+    each is built, none spilling."""
+    from multiclust_tpu_torch.kernel_report import WIDE, ptxas_lines
+
+    _cuda()
+    build.library()
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    lines = ptxas_lines(report, WIDE)
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in text
+               for _, text in lines), lines
+    assert sorted(name for name, _ in lines) == [
+        "wide_cols_kernel<kBi>", "wide_cols_kernel<kDense>",
+        "wide_finish_kernel<32>", "wide_finish_kernel<32>",
+        "wide_rows_kernel<kBi>", "wide_rows_kernel<kDense>"], lines

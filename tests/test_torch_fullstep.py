@@ -360,14 +360,14 @@ def test_fit_dataset_takes_the_generic_route(monkeypatch):
 
 
 def test_cuda_wrappers_refuse_unsupported_shapes():
-    """The wrappers validate before launching: Kp above 128 raises with
-    the ROADMAP item (no fallback), as do more than M_MAX allele slots,
+    """The wrappers validate before launching: Kp above 1024 raises with
+    the plain route's name (no fallback), as do more than M_MAX allele slots,
     lanes that are not whole loci, a p epilogue without its mask and a
     k_true (where the kernels' cluster loops stop) outside [0, Kp]."""
     x = torch.zeros(8, 10, dtype=torch.int8)
-    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
-        fs._check_cuda_inputs(torch.zeros(1, 8, 160), torch.zeros(1, 160, 10),
-                              x)
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
+        fs._check_cuda_inputs(torch.zeros(1, 8, 1056),
+                              torch.zeros(1, 1056, 10), x)
     with pytest.raises(ValueError, match="x2 dtype"):
         fs._check_cuda_inputs(torch.zeros(1, 8, 32), torch.zeros(1, 32, 10),
                               x.float())

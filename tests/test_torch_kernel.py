@@ -113,12 +113,12 @@ def test_fullstep_f64_matches_xla_step(miss_rate, project):
 
 
 def test_wrapper_refuses_unsupported_cuda_shapes():
-    """The CUDA path validates before launching: Kp above 128 raises
+    """The CUDA path validates before launching: Kp above 1024 raises
     (no fallback), as does a non-int8 genotype plane."""
-    eta = torch.zeros(1, 8, 160)
-    p0 = torch.zeros(1, 160, 5)
+    eta = torch.zeros(1, 8, 1056)
+    p0 = torch.zeros(1, 1056, 5)
     x = torch.zeros(8, 5, dtype=torch.int8)
-    with pytest.raises(ValueError, match="Kp=160"):
+    with pytest.raises(ValueError, match="Kp=1056"):
         fb._check_cuda_inputs(eta, p0, x, x)
     with pytest.raises(ValueError, match="x1 dtype"):
         fb._check_cuda_inputs(torch.zeros(1, 8, 32), torch.zeros(1, 32, 5),
