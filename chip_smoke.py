@@ -161,7 +161,26 @@ each raising on failure:
    200 (``--wide-mesh-child``) held to the unsharded one; a step at 1056
    lanes, which takes the plain step, launches nothing and prints its
    notice once.  The kernels line's wide records carry their times at K =
-   200 and, under ``kp1024``, at K = 1024.
+   200 and, under ``kp1024``, at K = 1024;
+22. the mixture above 128 lanes (the wide kernels of csrc/mixture_bi.cu):
+   at K = 200 (224 lanes) and K = 1024 on 16384 x 2048, chain batches 1
+   and 2, one stream (missing-free) and two (1 % missing): the wide rows
+   pass (scores and softmax), columns pass and eta finish each against
+   its plain version, the step and the sweep, reruns bit-equal, v and the
+   partials 0 past K; each kernel's time at 2 chains, one stream, on CUDA
+   events beside its plain version's, its bound and one float64
+   torch.matmul of its product; every Kp of the range on a ragged 1001 x
+   4099 panel; fits through ``api.fit_model_data`` at K = 200 (plain EM
+   and SQUAREM, cap 30, and plain EM at 1 % missing) and K = 1024 (cap
+   10), an M = 4 and a jagged panel at K = 200 (cap 10; the wide eta
+   finish and the generic p epilogue at 200 lanes), each run's launches
+   counted from 0; a 600 x 500 warm-start fit at K = 200 within the
+   float32 noise floor of the float64 CPU fit; ``-k 200 -n 2 -T 30``
+   through the CLI on a 16384 x 2048 file; steps at 1056 lanes, which
+   take the plain step, launch nothing and print nothing; the compiler's
+   report of the wide mixture kernels, none spilling.  Their records in
+   the kernels line carry the times at K = 200 and, under ``kp1024``, at
+   K = 1024.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -172,8 +191,9 @@ passes: the same rate).  The segment reductions (the finish, the p0
 epilogue, the generic p epilogue) must read only the live lanes of their
 partials (the lane tile of K): their ``bound_ms`` counts those bytes, and
 ``bound_every_tensor_ms`` every tensor of the call once beside it.
-``library_ms`` of the mixture rows and columns passes is one float64
-torch.matmul of the pass's product (the softmax left out), the port's
+``library_ms`` of the mixture rows and columns passes (narrow and wide)
+is one float64 torch.matmul of the pass's product (the softmax left out),
+the port's
 plain arithmetic in one library call; no single PyTorch call computes the
 other functions (phase 6 prints two float32 matmuls a generic pass beside
 them), so theirs is null.
@@ -547,12 +567,14 @@ def simulated_counts(rng, I, L, K, miss_rate):
     return np.stack([x0, 2 - miss - x0], axis=2), miss
 
 
-def check_fit(out, wall, label, where, md=None, K=K_FULL):
+def check_fit(out, wall, label, where, md=None, K=K_FULL, mono=True):
     """Checks of a finished fit of ``K`` clusters; ``md`` stands in for the
-    host Dataset when the panel was made on the device."""
+    host Dataset when the panel was made on the device.  ``mono=False``
+    leaves a monotonicity violation to the caller, who holds it to another
+    fit's."""
     res = out.best
     eta, p = res.best_params
-    assert np.isfinite(res.max_logL) and not res.mono_viol, \
+    assert np.isfinite(res.max_logL) and not (mono and res.mono_viol), \
         (label, res.max_logL, res.mono_viol, res.n_iter_all)
     assert not res.any_failed, label
     ds = out.dataset if md is None else md
@@ -1091,7 +1113,7 @@ def phase_mixture_kernels(mb, build, dev, where):
         errs["eta"] = max(errs["eta"], e_eta)
         errs["rows"] = max(errs["rows"], e_t)
         errs["p"] = max(errs["p"], e_p)
-        sweep = mb.mixture_sweep_stats(*args)
+        sweep = mb.mixture_sweep_stats(*args, k_true=K)
         sweep_ref = mb.mixture_sweep_stats_reference(*args)
         torch.cuda.synchronize()
         e_sw = max(max_err(g, r) for g, r in zip(sweep, sweep_ref)
@@ -1112,24 +1134,26 @@ def phase_mixture_kernels(mb, build, dev, where):
     # each pass alone at the fit's shape (chain batch 2, missing-free)
     lp0, x0, bias, _, _ = mixture_step_inputs(70, 2, I_FULL, L_FULL, K, Kp,
                                               0.0, dev)
-    v, _ = mb.mixture_rows(lp0, x0, bias)
-    part, vpart = mb.mixture_partials(v, x0)
+    v, _ = mb.mixture_rows(lp0, x0, bias, k_true=K)
+    part, vpart = mb.mixture_partials(v, x0, k_true=K)
     _, vtot = mb.mixture_eta(vpart, k_true=K, lb=1e-8, project=True)
     eta_kw = dict(k_true=K, lb=1e-8, project=True)
     p_kw = dict(plb=1e-8, ploidy=2, project=True)
     passes = {
-        "rows": (lambda: mb.mixture_rows(lp0, x0, bias),
+        "rows": (lambda: mb.mixture_rows(lp0, x0, bias, k_true=K),
                  lambda: mb.mixture_rows_reference(lp0, x0, bias)),
         # the partials, compared summed over segments
         "cols": (lambda: tuple(t.sum(dim=1)
-                               for t in mb.mixture_partials(v, x0)),
+                               for t in mb.mixture_partials(v, x0,
+                                                            k_true=K)),
                  lambda: tuple(t[:, 0]
                                for t in mb.mixture_cols_reference(v, x0))),
         "eta": (lambda: mb.mixture_eta(vpart, **eta_kw),
                 lambda: mb.mixture_eta_reference(vpart, **eta_kw)),
         "p": (lambda: (mb.mixture_p(part, vtot, **p_kw),),
               lambda: (mb.mixture_p_reference(part, vtot, **p_kw),)),
-        "sweep": (lambda: mb.mixture_sweep_stats(lp0, x0, bias)[:3],
+        "sweep": (lambda: mb.mixture_sweep_stats(lp0, x0, bias,
+                                                 k_true=K)[:3],
                   lambda: mb.mixture_sweep_stats_reference(lp0, x0,
                                                            bias)[:3]),
     }
@@ -1171,7 +1195,7 @@ def phase_mixture_kernels(mb, build, dev, where):
     # the sweep's launches, counted from 0 on a call of its own (no fit
     # calls it)
     build.reset_launch_counts()
-    mb.mixture_sweep_stats(lp0, x0, bias)
+    mb.mixture_sweep_stats(lp0, x0, bias, k_true=K)
     torch.cuda.synchronize()
     sweep_launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
     assert sweep_launches == {"mc_mix_rows": 1, "mc_mix_cols": 1,
@@ -1749,7 +1773,7 @@ def phase_biobank_mixture_kernels(mb, dev, where):
         e_eta, e_t, e_p = (max_err(g, r) for g, r in zip(got, ref))
         assert (got[0][:, K:] == 0).all()
         del got, ref
-        sweep = mb.mixture_sweep_stats(*args)
+        sweep = mb.mixture_sweep_stats(*args, k_true=K)
         sweep_ref = mb.mixture_sweep_stats_reference(*args)
         torch.cuda.synchronize()
         e_sw = max(max_err(g, r) for g, r in zip(sweep, sweep_ref)
@@ -1760,7 +1784,8 @@ def phase_biobank_mixture_kernels(mb, dev, where):
         v[..., :K] = torch.softmax(torch.randn((B, I_BIO, K), generator=gen,
                                                device=dev), dim=-1)
         x0, x1 = args[1], args[4]
-        cols = [t.sum(dim=1) for t in mb.mixture_partials(v, x0, x1)]
+        cols = [t.sum(dim=1)
+                for t in mb.mixture_partials(v, x0, x1, k_true=K)]
         cols_ref = [t[:, 0] for t in mb.mixture_cols_reference(v, x0, x1)]
         torch.cuda.synchronize()
         e_c = max(max_err(g, r) for g, r in zip(cols, cols_ref))
@@ -3328,6 +3353,425 @@ def phase_wide(fb, fs, build, dev, where):
     return records, mesh
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the mixture above 128 lanes (the wide kernels of
+# csrc/mixture_bi.cu)
+
+# the TPU kernels each wide mixture kernel replaces above 128 lanes: the
+# step's scores pass and counts pass; the eta finish is the step's
+MIX_WIDE_TPU = {"wide_mix_rows": "multiclust_tpu/ops/kernels.py:1139",
+                "wide_mix_cols": "multiclust_tpu/ops/kernels.py:1172",
+                "wide_mix_eta": MIX_TPU}
+MIX_WIDE_KERNELS = tuple(MIX_WIDE_TPU)
+MIX_WIDE_FIT_ITERS = {200: 30, 1024: 10}
+
+
+def wide_mixture_pass_calls(mb, args, K):
+    """(kernel, plain) callables of each wide mixture pass on the step
+    inputs ``args``, with the inputs of the columns pass and the eta
+    finish made by the kernels before them."""
+    lp0, x0, bias, lp1, x1 = args
+    v, _ = mb.mixture_rows(lp0, x0, bias, lp1, x1, k_true=K)
+    _, vpart = mb.mixture_partials(v, x0, x1, k_true=K)
+    ekw = dict(k_true=K, lb=1e-8, project=True)
+    calls = {
+        "wide_mix_rows": (
+            lambda: mb.mixture_rows(lp0, x0, bias, lp1, x1, k_true=K),
+            lambda: mb.mixture_rows_reference(lp0, x0, bias, lp1, x1)),
+        # the partials, compared summed over segments
+        "wide_mix_cols": (
+            lambda: tuple(t.sum(dim=1) for t in mb.mixture_partials(
+                v, x0, x1, k_true=K)),
+            lambda: tuple(t[:, 0] for t in mb.mixture_cols_reference(
+                v, x0, x1))),
+        "wide_mix_eta": (lambda: mb.mixture_eta(vpart, **ekw),
+                         lambda: mb.mixture_eta_reference(vpart, **ekw))}
+    return calls, v, vpart
+
+
+def phase_wide_mixture_kernels(mb, dev, where):
+    """The wide mixture kernels against their plain versions on the card:
+    at 16384 x 2048, K = 200 and 1024, chain batches 1 and 2, one stream
+    (missing-free) and two (1 % missing): the step, the sweep and each
+    pass alone, reruns bit-equal, v and the partials 0 past K; each pass's
+    time at 2 chains, one stream (CUDA events) beside its plain version's,
+    its bound and the float64 matmul of its product; then every Kp of the
+    range on a ragged 1001 x 4099 panel.  Returns errors, times, bounds
+    and library times by (kernel, K)."""
+    from multiclust_tpu_torch.model.common import k_padded_size
+    from multiclust_tpu_torch.route_times import mixture_step_inputs
+
+    errs = dict.fromkeys(MIX_WIDE_KERNELS, 0.0)
+    ms, bnd, lib = {}, {}, {}
+    for K in WIDE_K:
+        Kp = k_padded_size(K, 32)
+        kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
+        for B in (1, 2):
+            for miss_rate in (0.0, 0.01):
+                args = mixture_step_inputs(400 + K + B, B, I_FULL, L_FULL, K,
+                                           Kp, miss_rate, dev)
+                got = mb.mixture_fullstep_biallelic(*args, **kw)
+                ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
+                again = mb.mixture_fullstep_biallelic(*args, **kw)
+                torch.cuda.synchronize()
+                e_step = max(max_err(g, r) for g, r in zip(got, ref))
+                assert all(torch.equal(g, a) for g, a in zip(got, again))
+                assert (got[0][:, K:] == 0).all()
+                del got, ref, again
+                sweep = mb.mixture_sweep_stats(*args, k_true=K)
+                sweep_ref = mb.mixture_sweep_stats_reference(*args)
+                torch.cuda.synchronize()
+                e_sw = max(max_err(g, r) for g, r in zip(sweep, sweep_ref)
+                           if g is not None)
+                assert (sweep[0][..., K:] == 0).all()
+                del sweep, sweep_ref
+                calls, v, vpart = wide_mixture_pass_calls(mb, args, K)
+                assert (v[..., K:] == 0).all() and (vpart[..., K:] == 0).all()
+                e_pass = {}
+                for name, (kernel, plain) in calls.items():
+                    k_out, p_out, again = kernel(), plain(), kernel()
+                    torch.cuda.synchronize()
+                    e_pass[name] = max(max_err(g, r)
+                                       for g, r in zip(k_out, p_out))
+                    assert all(torch.equal(g, a)
+                               for g, a in zip(k_out, again)), name
+                    errs[name] = max(errs[name], e_pass[name], e_step)
+                    del k_out, p_out, again
+                print(f"wide mixture K={K} ({Kp} lanes) {I_FULL} x {L_FULL} "
+                      f"B={B} miss={miss_rate:.2f}: max|d| step {e_step:.3e}"
+                      f", sweep {e_sw:.3e}, "
+                      + ", ".join(f"{n} {e:.3e}" for n, e in e_pass.items())
+                      + f" (rtol {RTOL}, atol {ATOL}); reruns bit-equal",
+                      flush=True)
+                if B == 2 and not miss_rate:
+                    lp0, x0, bias = args[:3]
+                    cells = B * I_FULL * L_FULL
+                    t_rows = mb.mixture_rows(lp0, x0, bias, k_true=K)[1]
+                    part = mb.mixture_partials(v, x0, k_true=K)[0][:, :1]
+                    bounds = {
+                        "wide_mix_rows": bound(
+                            tensors_bytes((lp0, x0, bias, v, t_rows)),
+                            2 * K * cells + 20 * B * I_FULL * K),
+                        "wide_mix_cols": bound(tensors_bytes((v, x0, part)),
+                                               2 * K * cells),
+                        "wide_mix_eta": bound(
+                            tensors_bytes((vpart,)) + 8 * B * Kp,
+                            10 * vpart.numel())}
+                    for name, (kernel, plain) in calls.items():
+                        ms[name, K] = (median_ms(kernel),
+                                       median_ms(plain, n=5, warm=1))
+                        bnd[name, K] = bounds[name]
+                    # the yardstick the port never calls: each contraction
+                    # pass's product alone, one float64 torch.matmul on
+                    # K-wide operands (the plain version's arithmetic)
+                    xx = x0.double()
+                    lp_t = lp0[:, :K].double().transpose(1, 2)
+                    v_t = v[..., :K].double().transpose(1, 2).contiguous()
+                    lib["wide_mix_rows", K] = median_ms(
+                        lambda: torch.matmul(xx, lp_t), n=5, warm=1)
+                    lib["wide_mix_cols", K] = median_ms(
+                        lambda: torch.matmul(v_t, xx), n=5, warm=1)
+                    lib["wide_mix_eta", K] = None
+                    del xx, lp_t, v_t, t_rows, part
+                    for name in MIX_WIDE_KERNELS:
+                        b = bnd[name, K]
+                        print(f"wide mixture K={K} {name} at 2 chains, one "
+                              f"stream: kernel {ms[name, K][0]:.4f} ms, "
+                              f"plain {ms[name, K][1]:.3f} ms, bound "
+                              f"{b[0]:.4f} ms ({b[1]}), "
+                              f"{100 * b[0] / ms[name, K][0]:.1f} % of it, "
+                              f"float64 matmul "
+                              + ("none" if lib[name, K] is None
+                                 else f"{lib[name, K]:.3f} ms")
+                              + f" on {where}", flush=True)
+                del args, calls, v, vpart
+                torch.cuda.empty_cache()
+    # every Kp of the range on a ragged panel, one stream and two
+    for K, Kp in ((150, 160), (200, 224), (500, 512), (1024, 1024)):
+        e_rag = 0.0
+        for miss_rate in (0.0, 0.03):
+            args = mixture_step_inputs(450 + K, 2, 1001, 4099, K, Kp,
+                                       miss_rate, dev)
+            kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
+            got = mb.mixture_fullstep_biallelic(*args, **kw)
+            ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
+            again = mb.mixture_fullstep_biallelic(*args, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, a) for g, a in zip(got, again))
+            e_rag = max(e_rag, max(max_err(g, r) for g, r in zip(got, ref)))
+            calls, _, _ = wide_mixture_pass_calls(mb, args, K)
+            for name, (kernel, plain) in calls.items():
+                err = max(max_err(g, r) for g, r in zip(kernel(), plain()))
+                errs[name] = max(errs[name], err)
+                e_rag = max(e_rag, err)
+            del args, got, ref, again, calls
+        print(f"wide mixture K={K} ({Kp} lanes) ragged 1001 x 4099, B=2, one "
+              f"stream and two: max|d| {e_rag:.3e}; reruns bit-equal",
+              flush=True)
+    return errs, ms, bnd, lib
+
+
+def phase_wide_mixture_fits(build, dev, where):
+    """Mixture fits above 128 lanes through ``api.fit_model_data`` on
+    16384 x 2048 panels made on the card, 2 chains: K = 200 plain EM and
+    SQUAREM (cap 30, missing-free: one stream) and plain EM at 1 % missing
+    (two streams), K = 1024 plain EM (cap 10); then K = 200 on an M = 4
+    and on the jagged mix (cap 10; the plain products with the wide eta
+    finish and the generic p epilogue).  The launches of each run counted
+    from 0; returns the wide kernels' launches in the K = 200 missing-free
+    fits (the main path)."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model.common import model_data_from_planes
+    from multiclust_tpu_torch.route_times import mixture_planes
+
+    launches = {}
+    for K in WIDE_K:
+        runs = [("plain EM", 0.0, {})]
+        if K == 200:
+            runs += [("SQUAREM", 0.0, dict(accel_scheme=1)),
+                     ("plain EM 1 % missing", 0.01, {})]
+        for label, miss_rate, extra in runs:
+            planes = mixture_planes(460 + K, I_FULL, L_FULL, K, miss_rate,
+                                    dev)
+            md = model_data_from_planes(*planes)
+            fit_kw = dict(admixture=False, min_K=K, max_K=K, n_init=2,
+                          max_iter=MIX_WIDE_FIT_ITERS[K], seed=3,
+                          verbosity=0, **extra)
+            build.reset_launch_counts()
+            t0 = time.time()
+            out = fit_model_data(md, 2, **fit_kw)
+            torch.cuda.synchronize()
+            accel = bool(extra)
+            res = check_fit(out, time.time() - t0,
+                            f"wide mixture K={K} {label}", where, md=md, K=K,
+                            mono=not accel)
+            wide = {n: build.LAUNCHES[n] for n in MIX_WIDE_KERNELS}
+            print(f"wide mixture K={K} {label}: launches {wide}, all "
+                  f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
+                  flush=True)
+            steps = res.n_iter_all // 2
+            for name in MIX_WIDE_KERNELS + ("mc_mix_p",):
+                assert build.LAUNCHES[name] >= steps > 0, (name, K, label)
+            assert not any(build.LAUNCHES[n]
+                           for n in BI_KERNELS + GENERIC_KERNELS)
+            if K == 200 and not miss_rate:
+                for name in MIX_WIDE_KERNELS:
+                    launches[name] = launches.get(name, 0) + wide[name]
+            if accel:
+                wide_mixture_squarem_against_plain(
+                    res, md, model_data_from_planes(*planes,
+                                                    dtype=torch.float64),
+                    fit_kw, where)
+            del md, out, planes
+            torch.cuda.empty_cache()
+    K = 200
+    jag = np.where(np.random.default_rng(10).random(L_FULL) < 0.8, 2, 8)
+    for label, n_all in (("M=4", np.full(L_FULL, M_FULL)),
+                         ("jagged 80 % M=2 + 20 % M=8", jag)):
+        md = wide_fit_counts(K, I_FULL, L_FULL, n_all, 470, dev)
+        build.reset_launch_counts()
+        t0 = time.time()
+        out = fit_model_data(md, 2, admixture=False, min_K=K, max_K=K,
+                             n_init=2, max_iter=10, seed=3, verbosity=0)
+        torch.cuda.synchronize()
+        res = check_fit(out, time.time() - t0, f"wide mixture K={K} {label}",
+                        where, md=md, K=K)
+        print(f"wide mixture K={K} {label}: launches "
+              f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
+              flush=True)
+        steps = res.n_iter_all // 2
+        assert build.LAUNCHES["wide_mix_eta"] >= steps > 0, label
+        assert build.LAUNCHES["mc_fullstep_p"] >= steps, label
+        assert not build.LAUNCHES["mc_mix_rows"], label
+        del md, out
+        torch.cuda.empty_cache()
+    return launches
+
+
+def wide_mixture_squarem_against_plain(res, md, md64, fit_kw, where):
+    """The wide-kernel SQUAREM fit ``res`` held to the same fit through the
+    plain products on the card (the model's kernel gates patched off), from
+    the same starts: the same iterations and monotonicity flag, the logL
+    within the float32 noise floor of opt/em.py.  On this panel at K = 200
+    SQUAREM records a monotonicity violation on both routes (ROADMAP queue
+    3); the float64 fit on the card from the same starts is printed beside
+    them (``md64``, the panel's float64 ModelData)."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model import mixture as mix
+    from multiclust_tpu_torch.model.common import EMConfig
+
+    gates = mix._kernel_ok, mix._on_card
+    mix._kernel_ok = mix._on_card = lambda *a, **k: False
+    try:
+        plain = fit_model_data(md, 2, **fit_kw).best
+    finally:
+        mix._kernel_ok, mix._on_card = gates
+    f64 = fit_model_data(md64, 2, dtype="float64", **fit_kw).best
+    floor = (EMConfig().noise_factor * float(np.finfo(np.float32).eps)
+             * abs(plain.max_logL))
+    gap = abs(res.max_logL - plain.max_logL)
+    print(f"SQUAREM K={fit_kw['max_K']}: wide kernels logL "
+          f"{res.max_logL:.4f}, {res.n_iter_all} iterations, monotonicity "
+          f"violated {bool(res.mono_viol)}; plain products on the card "
+          f"{plain.max_logL:.4f}, {plain.n_iter_all}, "
+          f"{bool(plain.mono_viol)}: gap {gap:.4f} against the float32 "
+          f"noise floor {floor:.4f}; float64 on the card {f64.max_logL:.4f}, "
+          f"{f64.n_iter_all}, {bool(f64.mono_viol)} on {where}", flush=True)
+    assert res.n_iter_all == plain.n_iter_all, (res.n_iter_all,
+                                                plain.n_iter_all)
+    assert bool(res.mono_viol) == bool(plain.mono_viol)
+    assert gap <= floor, (gap, floor)
+
+
+def phase_wide_mixture_reference(build, dev):
+    """A 30-iteration-cap warm-start mixture fit at K = 200 through the
+    wide kernels (600 x 500, 5 % missing, weakly separated clusters),
+    held to the plain float64 fit on the CPU: within the float32 noise
+    floor of opt/em.py."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+    from multiclust_tpu_torch.model import mixture as mix
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+    from multiclust_tpu_torch.opt.driver import fit
+
+    I, L, K = 600, 500, 200
+    counts, miss = mixture_counts(81, I, L, K, 0.05, "cpu", spread=0.04)
+    mask, n_all = np.ones((L, 2), bool), np.full(L, 2)
+    rng = np.random.default_rng(82)
+    eta = rng.dirichlet(np.full(K, 3.0))
+    p0 = rng.uniform(0.2, 0.8, size=(K, L))
+    p = np.stack([p0, 1 - p0], axis=2)
+    base = dict(admixture=False, has_missing=True, biallelic=True, ploidy=2,
+                max_iter=30, abs_error=1e-12, eta_lower_bound=1e-8,
+                p_lower_bound=1e-8)
+    md64 = model_data_from_numpy(counts, miss, mask, n_all)
+    cpu = fit(params_from_numpy(eta, p), md64, EMConfig(**base))
+    build.reset_launch_counts()
+    gpu = fit(params_from_numpy(eta, p, device=dev, dtype=torch.float32),
+              model_data_from_numpy(counts, miss, mask, n_all, device=dev,
+                                    dtype=torch.float32),
+              EMConfig(use_pallas="on", **base))
+    wide = {n: build.LAUNCHES[n] for n in MIX_WIDE_KERNELS}
+    _, scale = mix.log_likelihood(Params(eta=cpu.params.eta[None],
+                                         p=cpu.params.p[None]), md64,
+                                  EMConfig(**base))
+    floor = (EMConfig().noise_factor * float(np.finfo(np.float32).eps)
+             * float(scale[0]))
+    gap = abs(gpu.logL - cpu.logL)
+    print(f"wide mixture reference fit K={K}: kernel path logL "
+          f"{gpu.logL:.4f} after {gpu.n_iter} iterations vs float64 CPU "
+          f"{cpu.logL:.4f} after {cpu.n_iter}: gap {gap:.4f} against the "
+          f"float32 noise floor {floor:.4f}; launches {wide}", flush=True)
+    assert gpu.n_iter <= 31 and cpu.n_iter <= 31
+    assert gap <= floor, (gap, floor)
+    assert all(wide[n] >= gpu.n_iter for n in MIX_WIDE_KERNELS), wide
+
+
+def phase_wide_mixture_cli(build, dev, where, tmp):
+    """The CLI at ``-k 200 -n 2 -T 30`` (the mixture, no -a) on a 16384 x
+    2048 STRUCTURE file of a mixture-model panel: through the wide
+    kernels, every output file written."""
+    from multiclust_tpu_torch.cli import main
+
+    K = WIDE_CLI_K
+    counts, miss = mixture_counts(480, I_FULL, L_FULL, K, 0.0, dev)
+    path = os.path.join(tmp, "wide_mix.str")
+    write_structure_biallelic(path, counts, miss)
+    del counts, miss
+    build.reset_launch_counts()
+    t0 = time.time()
+    rc = main(["-f", path, "-k", str(K), "-n", "2", "-T",
+               str(WIDE_CLI_ITERS), "-s", "1", "-d", tmp])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    assert rc == 0, rc
+    outs = [f for f in os.listdir(tmp) if f != "wide_mix.str"]
+    assert len(outs) == 5 and all(
+        os.path.getsize(os.path.join(tmp, f)) > 0 for f in outs), outs
+    wide = {n: build.LAUNCHES[n] for n in MIX_WIDE_KERNELS}
+    assert all(n > 0 for n in wide.values()), wide
+    print(f"wide mixture cli -k {K} -n 2 -T {WIDE_CLI_ITERS} on {I_FULL} x "
+          f"{L_FULL}: rc 0 in {wall:.1f} s, files {sorted(outs)}, launches "
+          f"{wide} on {where}", flush=True)
+
+
+def phase_wide_mixture_beyond(build, dev, where):
+    """A mixture step at 1056 lanes (K = 1040), one stream and two: the
+    plain step, no kernel launched, nothing printed, and the step with the
+    kernels off."""
+    import contextlib
+    import io
+
+    from multiclust_tpu_torch.model import mixture as mix
+    from multiclust_tpu_torch.model.common import EMConfig, Params, \
+        model_data_from_planes
+    from multiclust_tpu_torch.route_times import mixture_planes
+
+    K = 1040
+    for miss_rate in (0.0, 0.01):
+        md = model_data_from_planes(*mixture_planes(490, 2048, 512, 8,
+                                                    miss_rate, dev))
+        gen = torch.Generator(device=dev).manual_seed(491)
+        eta = torch.rand((1, K), generator=gen, device=dev) + 0.05
+        p = torch.rand((1, K, md.L, 2), generator=gen, device=dev) + 0.05
+        params = Params(eta=eta / eta.sum(-1, keepdim=True),
+                        p=p / p.sum(-1, keepdim=True))
+        kw = dict(admixture=False, biallelic=True,
+                  has_missing=bool(miss_rate), ploidy=2)
+        cfg = EMConfig(use_pallas="on", **kw)
+        assert not mix._kernel_ok(md, cfg, params)
+        build.reset_launch_counts()
+        text = io.StringIO()
+        with contextlib.redirect_stderr(text), \
+                contextlib.redirect_stdout(text):
+            got = mix.em_step(params, md, cfg)
+        torch.cuda.synchronize()
+        want = mix.em_step(params, md, EMConfig(use_pallas="off", **kw))
+        for g, w in zip((got[0].eta, got[0].p, got[1]),
+                        (want[0].eta, want[0].p, want[1])):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        assert not text.getvalue(), text.getvalue()
+        assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    print(f"wide mixture beyond: steps at 1056 lanes took the plain step "
+          f"(no kernel launched, nothing printed), one stream and two, on "
+          f"{where}", flush=True)
+
+
+def phase_wide_mixture(mb, build, dev, where):
+    """Phase 22: the mixture at 128 < Kp <= 1024 through the wide mixture
+    kernels, and above 1024 through the plain step; returns the kernels'
+    records."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    errs, ms, bnd, lib = phase_wide_mixture_kernels(mb, dev, where)
+    print(f"wide mixture kernels: {time.time() - t0:.1f} s", flush=True)
+    launches = phase_wide_mixture_fits(build, dev, where)
+    phase_wide_mixture_reference(build, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_wide_mixture_cli(build, dev, where, tmp)
+    phase_wide_mixture_beyond(build, dev, where)
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    from multiclust_tpu_torch.kernel_report import MIX_WIDE, ptxas_lines
+    for name, text in ptxas_lines(report, MIX_WIDE):
+        print(f"ptxas {name}: {text}", flush=True)
+        assert " 0 bytes spill stores, 0 bytes spill loads" in text, name
+    records = []
+    for name in MIX_WIDE_KERNELS:
+        rec = kernel_record(name, MIX_SOURCE, MIX_WIDE_TPU[name],
+                            launches[name], errs[name], ms[name, 200],
+                            bnd[name, 200], lib[name, 200])
+        rec["shape"] = (f"K = 200 on 224 lanes, {I_FULL} x {L_FULL}, 2 "
+                        f"chains, one stream")
+        rec["kp1024"] = {"ms": ms[name, 1024][0],
+                         "plain_ms": ms[name, 1024][1],
+                         "bound_ms": bnd[name, 1024][0],
+                         "bound_by": bnd[name, 1024][1],
+                         "library_ms": lib[name, 1024]}
+        records.append(rec)
+    print(f"wide mixture phase: {time.time() - t0:.1f} s", flush=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3419,6 +3863,7 @@ def main() -> int:
         ingest_results = phase_ingest(where, tmp)
     print(f"ingest phase: {time.time() - t0:.1f} s", flush=True)
     wide_records, wide_mesh = phase_wide(fb, fs, build, dev, where)
+    wide_mix_records = phase_wide_mixture(mb, build, dev, where)
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
@@ -3482,6 +3927,9 @@ def main() -> int:
     # the wide kernels (128 < Kp <= 1024), with their launches in the K =
     # 200 main-path fits and their times at 224 lanes (1024 beside them)
     kernels += wide_records
+    # the mixture's wide kernels, with their launches in the K = 200
+    # missing-free fits and their times at 224 lanes (1024 beside them)
+    kernels += wide_mix_records
     mesh_entry = mesh_record(mesh_results)
     mesh_entry.update(ingest_record(ingest_results))
     mesh_entry.update(wide_mesh)

@@ -61,21 +61,45 @@
 // row t + 4 p of a 16-row step (columns pass: bank-free float64 loads of
 // v).
 //
-// Cluster tiles stop at K: the rows pass reads the live lanes from the
-// bias (a lane past the last one above -1e29 is a pad lane, whose v is
-// exactly 0) and computes ceil(K / 8) tiles of 8; the columns pass skips,
-// a stage at a time, every tile of 8 clusters whose v is all zero in the
-// stage (pad lanes always; its products would add exactly 0) and writes
-// zeros for the pad rows, which the p0 epilogue reads.
+// Cluster tiles stop at K: both passes take k_true (clipped to [1, Kp])
+// and compute ceil(K / 8) tiles of 8; the rows pass writes v = 0 past K,
+// the columns pass writes zeros for the pad rows, which the p0 epilogue
+// reads.  The caller's K-pad lanes (lp 0, bias -1e30) are those of the
+// plain versions, which know no k_true.
 //
+// Wide passes (128 < Kp <= 1024, the TPU kernels' own range: the Pallas
+// step admits Kp up to 1024, `_stream_vmem_fits`, kernels.py:709-735).
+// The narrow passes keep a row's (or a locus tile's) whole cluster axis in
+// float64 accumulators, 4 doubles a thread per 8 clusters: 512 a thread
+// at Kp = 1024 against 255 registers.  The wide passes cut the cluster
+// axis into chunks of MIX_WK = 128 lanes and run the KP = 128 tiles of the
+// narrow passes on each chunk, the chunk a grid axis:
+//
+// * rows pass, two launches: the scores of a (128 rows, chunk, chain)
+//   block written as float64 s [B, I, Kp] (268 MB at 16384 x 1024 x 2
+//   chains, moved twice: a small part of the contraction's time), then
+//   one warp a row for the softmax over at most 32 doubles a lane.  An
+//   online softmax across the chunks would drop the scratch (later work).
+// * columns pass: the block's chunk is a factor of the grid's z axis; v is
+//   read at row stride Kp, the lanes past Kp of a last, partial chunk as
+//   zeros, and each chunk writes its lanes of the same partials.
+// * eta finish: the narrow kernel at KJ = 32 values a lane, with Kp at run
+//   time (michelot_warp at KJ = 32, as wide.cuh's finish runs it).
+//
+// The wide passes add no arithmetic: the same float64 products in the same
+// order over L (rows) or the segment's rows (columns), so a chunk's scores
+// and partials are those the KP = 128 pass computes for those lanes.  The
+// bound is the narrow passes' (below) at K lanes; the scratch s adds 16
+// bytes a row and lane to the rows pass.
+
 // Bound: two contractions of I x L x K per stream (scores and B) on the
 // float64 tensor cores (67 TFLOP/s dense, the rate of float32 outside
 // them); x is one byte per cell per stream and is read twice, against
 // once by the TPU's single-pass kernel.  Both passes reach about 40 % of
 // that bound at 16384 x 2048, K = 20, and 44-47 % at K = 100 (PERF.md):
 // a warp issues its fragment loads and conversions beside each DMMA.
-// Ragged I and L are masked here; the caller pads only K, to Kp in {32,
-// 64, 96, 128}.
+// Ragged I and L are masked here; the caller pads only K, to Kp a
+// multiple of 32 up to 1024.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,13 +114,13 @@ constexpr int NT = 256;       // threads per block, every kernel
 constexpr int NW = NT / 32;   // warps per block
 constexpr int ROW_R = 16 * NW;  // rows per rows-pass block (16 per warp)
 constexpr int COL_RI = 32;    // rows per columns-pass stage
+// the wide passes (128 < Kp <= KP_WIDE_MAX): cluster lanes a chunk, each
+// chunk run by the KP = 128 tiles of the narrow passes
+constexpr int MIX_WK = 128;
+constexpr int KP_WIDE_MAX = 1024;
 // v sums: stages a thread sums in float32 before it adds them to its
 // float64 slots (the v sums of a segment stay float64 at any length)
 constexpr int VSUM_ST = 32;
-// a lane whose bias is at most this is a K-pad lane (model/mixture.py pads
-// with PAD_BIAS = -1e30; a CPU test in tests/test_torch_mixture.py checks
-// PAD_BIAS against this)
-constexpr float PAD_BIAS_MAX = -1e29f;
 
 using mc::FULL;
 using mc::michelot_warp;
@@ -147,16 +171,18 @@ struct RowsTile {
   static constexpr int SMEM = D_BYTES + F_BYTES + X_BYTES;
 };
 
-// Warp w owns rows 16 w .. 16 w + 15 of the block and all live cluster
-// tiles: an m16 x n8 float64 accumulator per 8 clusters (A = x, B = lp^T,
-// the contraction over loci), kept over the whole of L.  `vec`: every row
-// of x and lp is 16-byte aligned (cp.async); otherwise plain loads.
+// The scores of a rows-pass block: warp w owns rows row0 + 16 w .. + 15
+// and the first nt_live cluster tiles of the KP lanes whose lp rows start
+// at lp0_b (lp1_b), row stride L: an m16 x n8 float64 accumulator per 8
+// clusters (A = x, B = lp^T, the contraction over loci), kept over the
+// whole of L.  `vec`: every row of x and lp is 16-byte aligned (cp.async);
+// otherwise plain loads.
 template <int KP, bool X1>
-__global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
-    const float* __restrict__ lp0, const float* __restrict__ lp1,
-    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    const float* __restrict__ bias, float* __restrict__ v_out,
-    float* __restrict__ t_out, int I, int L, int vec) {
+__device__ __forceinline__ void rows_scores(
+    double (&acc)[KP / 8][4], const float* __restrict__ lp0_b,
+    const float* __restrict__ lp1_b, const int8_t* __restrict__ x0,
+    const int8_t* __restrict__ x1, int row0, int I, int L, int nt_live,
+    int vec) {
   using T = RowsTile<KP, X1>;
   constexpr int NS = T::NS, TL = T::TL, XS = T::XS, PS = T::PS;
   constexpr int NT8 = KP / 8;
@@ -166,22 +192,6 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z;
-  const int row0 = blockIdx.x * ROW_R;
-  const float* bias_b = bias + (size_t)b * KP;
-  const float* lp0_b = lp0 + (size_t)b * KP * L;
-  const float* lp1_b = X1 ? lp1 + (size_t)b * KP * L : lp0_b;
-
-  // live cluster tiles: up to the last lane above the pad bias (all Kp
-  // lanes if none is)
-  int kc = 0;
-#pragma unroll
-  for (int j = 0; j < KP / 32; ++j) {
-    const unsigned m =
-        __ballot_sync(FULL, !(bias_b[lane + 32 * j] <= PAD_BIAS_MAX));
-    if (m) kc = 32 * j + 32 - __clz(m);
-  }
-  const int nt_live = kc ? (kc + 7) / 8 : NT8;
   const int KC = 8 * nt_live;
   const int n_st = (L + TL - 1) / TL;
 
@@ -239,7 +249,6 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     }
   };
 
-  double acc[NT8][4];
 #pragma unroll
   for (int n = 0; n < NT8; ++n)
 #pragma unroll
@@ -287,6 +296,27 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     }
     __syncthreads();
   }
+}
+
+// The rows pass at Kp = KP <= 128: a block's 128 rows over all kt live
+// lanes (k_true clipped to [1, KP]), then the row softmax and t.
+template <int KP, bool X1>
+__global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
+    const float* __restrict__ lp0, const float* __restrict__ lp1,
+    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
+    const float* __restrict__ bias, float* __restrict__ v_out,
+    float* __restrict__ t_out, int I, int L, int kt, int vec) {
+  constexpr int NT8 = KP / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * ROW_R;
+  const float* bias_b = bias + (size_t)b * KP;
+  const float* lp0_b = lp0 + (size_t)b * KP * L;
+  const int nt_live = (kt + 7) / 8;
+  double acc[NT8][4];
+  rows_scores<KP, X1>(acc, lp0_b, X1 ? lp1 + (size_t)b * KP * L : lp0_b, x0,
+                      x1, row0, I, L, nt_live, vec);
 
   // epilogue, rows g and g + 8 of the warp: lanes 4 g .. 4 g + 3 hold a
   // row's scores, clusters 8 n + 2 t + {0, 1}
@@ -300,7 +330,7 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     for (int n = 0; n < NT8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        if (n < nt_live)
+        if (8 * n + 2 * t + j < kt)
           m = fmax(m, acc[n][2 * h + j] + (double)bias_b[8 * n + 2 * t + j]);
     m = warp4_max(m);
     float e[NT8][2], part = 0.f;
@@ -308,7 +338,7 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     for (int n = 0; n < NT8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        e[n][j] = n < nt_live
+        e[n][j] = 8 * n + 2 * t + j < kt
                       ? expf((float)(acc[n][2 * h + j] +
                                      (double)bias_b[8 * n + 2 * t + j] - m))
                       : 0.f;
@@ -328,6 +358,82 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
   }
 }
 
+// The wide rows pass (128 < Kp <= 1024), first launch: block (128 rows,
+// cluster chunk of MIX_WK lanes, chain) runs the scores of the KP = 128
+// pass on its chunk's live tiles and writes s = acc + bias in float64 to
+// s_out [B, I, Kp] (lanes past the chunk's live tiles are not written;
+// the softmax reads the lanes below kt only).
+template <bool X1>
+__global__ void __launch_bounds__(NT, 1) mix_rows_wide_kernel(
+    const float* __restrict__ lp0, const float* __restrict__ lp1,
+    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
+    const float* __restrict__ bias, double* __restrict__ s_out, int I,
+    int L, int Kp, int kt, int vec) {
+  constexpr int NT8 = MIX_WK / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, k0 = blockIdx.y * MIX_WK;
+  const int row0 = blockIdx.x * ROW_R;
+  const int nt_live = min(NT8, (kt - k0 + 7) / 8);
+  const float* bias_b = bias + (size_t)b * Kp + k0;
+  const float* lp0_b = lp0 + ((size_t)b * Kp + k0) * L;
+  double acc[NT8][4];
+  rows_scores<MIX_WK, X1>(
+      acc, lp0_b, X1 ? lp1 + ((size_t)b * Kp + k0) * L : lp0_b, x0, x1, row0,
+      I, L, nt_live, vec);
+  // rows g and g + 8 of the warp, clusters 8 n + 2 t + {0, 1}
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 16 * warp + g + 8 * h;
+    if (row < I) {
+      double* s = s_out + ((size_t)b * I + row) * Kp + k0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+        if (n < nt_live)
+          *reinterpret_cast<double2*>(s + 8 * n) = make_double2(
+              acc[n][2 * h] + (double)bias_b[8 * n + 2 * t],
+              acc[n][2 * h + 1] + (double)bias_b[8 * n + 2 * t + 1]);
+    }
+  }
+}
+
+// The wide rows pass, second launch: one warp a row takes the row max of
+// its float64 scores over the lanes k < kt (lane owns k = lane + 32 j, at
+// most KP_WIDE_MAX / 32 values a lane), then e = expf(s - m), the float32
+// total, v = e / total (0 past kt, up to Kp) and t = log(total) + m, as the
+// narrow epilogue does.
+__global__ void __launch_bounds__(NT) mix_softmax_kernel(
+    const double* __restrict__ s_in, float* __restrict__ v_out,
+    float* __restrict__ t_out, int I, int Kp, int kt) {
+  constexpr int KJ = KP_WIDE_MAX / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * NW + warp;
+  if (row >= I) return;   // warps share nothing
+  const size_t br = (size_t)blockIdx.y * I + row;
+  const double* s = s_in + br * Kp;
+  double sv[KJ], m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = lane + 32 * j;
+    sv[j] = k < kt ? s[k] : -INFINITY;
+    m = fmax(m, sv[j]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmax(m, __shfl_xor_sync(FULL, m, o));
+  float e[KJ], part = 0.f;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    e[j] = lane + 32 * j < kt ? expf((float)(sv[j] - m)) : 0.f;
+    part += e[j];
+  }
+  const float tot = warp_sum(part);
+  float* v = v_out + br * Kp;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < Kp) v[lane + 32 * j] = e[j] / tot;
+  if (lane == 0) t_out[br] = (float)((double)logf(tot) + m);
+}
+
 // ---------------------------------------------------------------------------
 // columns pass
 
@@ -336,9 +442,11 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
 // contraction over rows), 4 NS NTW float64 accumulators a thread (at most
 // 32); the block's NW warps are WL locus warps x WN cluster warps, TC = 16
 // WL loci.  MINB blocks an SM: two where ptxas fits the kernel in 128
-// registers with no spill (Kp = 32, one stream: 110 registers; the others
-// spill 8-168 bytes there, measured), else one.  ops/mixture_bi.cols_tile
-// and cols_blocks_per_sm mirror TC and MINB.
+// registers with no spill (one stream at Kp = 32 and 96: 89 and 128
+// registers with one block an SM asked, measured; the others take 140-227
+// there), else one.  The wide pass runs the
+// KP = 128 tiles on each chunk.  ops/mixture_bi.cols_tile and
+// cols_blocks_per_sm mirror TC and MINB.
 constexpr int cols_ntw(int nt8, int ns) {
   for (int d = nt8; d > 1; --d)
     if (nt8 % d == 0 && ns * d <= 8 && NW % (nt8 / d) == 0) return d;
@@ -353,7 +461,7 @@ struct ColsTile {
   static constexpr int WN = NT8 / NTW;
   static constexpr int WL = NW / WN;
   static constexpr int TC = 16 * WL;
-  static constexpr int MINB = KP == 32 && !X1 ? 2 : 1;
+  static constexpr int MINB = (KP == 32 || KP == 96) && !X1 ? 2 : 1;
   // bytes an x row (the 16-bit reads of 4 rows x 4 words hit distinct
   // banks), doubles a v row (4 past a multiple of 16, likewise)
   static constexpr int XS = TC + 16;
@@ -362,22 +470,27 @@ struct ColsTile {
   static constexpr int F_BYTES = 2 * COL_RI * KP * 4;
   static constexpr int X_BYTES = 3 * NS * COL_RI * XS;
   static constexpr int S_BYTES = COL_RI * KP * 8;   // float64 v sums
-  static constexpr int SMEM =
-      D_BYTES + F_BYTES + X_BYTES + S_BYTES + 2 * NW * 4;
+  static constexpr int SMEM = D_BYTES + F_BYTES + X_BYTES + S_BYTES;
 };
 
-// Block (locus tile, row segment, chain).  Warp (wl, wn) owns loci col0 +
-// 16 wl .. 16 wl + 15 and cluster tiles wn NTW ..; in a 16-row step, slot
-// p of thread t is row t + 4 p.  The v sums of the first locus tile's
-// blocks are taken from the thread's own copies of v: float32 over at
-// most VSUM_ST stages, then added to the thread's own float64 slots of
-// `vs` (no barrier), and summed over the rows of a stage in float64 at the
-// end.
+// One columns-pass block: the loci col0 .. col0 + TC - 1 over the rows of
+// row segment `seg` of this chain, for the KP lanes of v starting at v_b
+// (row stride vs; lanes at or past kv are read as zeros), of which the
+// first nt_live tiles of 8 are computed (the others stay 0).  Writes the
+// segment's partials to out [NS][.][L] (lane k at out + (s ko + k) L, for
+// k < kv) and, from the first locus tile's blocks, the segment's v sums
+// to vp_out[k], k < kv.  Warp (wl, wn) owns loci col0 + 16 wl .. + 15 and
+// cluster tiles wn NTW ..; in a 16-row step, slot p of thread t is row t +
+// 4 p.  The v sums are taken from the thread's own copies of v: float32
+// over at most VSUM_ST stages, then added to the thread's own float64
+// slots of `vs` (no barrier), and summed over the rows of a stage in
+// float64 at the end.
 template <int KP, bool X1>
-__global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
-    const float* __restrict__ v, const int8_t* __restrict__ x0,
-    const int8_t* __restrict__ x1, float* __restrict__ part,
-    float* __restrict__ vpart, int I, int L, int seg_rows, int vec) {
+__device__ __forceinline__ void cols_block(
+    const float* __restrict__ v_b, int vs_row, int kv, int nt_live,
+    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
+    float* __restrict__ out, int ko, float* __restrict__ vp_out, int I,
+    int L, int seg, int seg_rows, int vec) {
   using T = ColsTile<KP, X1>;
   constexpr int NS = T::NS, NTW = T::NTW, TC = T::TC;
   constexpr int XS = T::XS, VS = T::VS, RI = COL_RI;
@@ -386,16 +499,13 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
   float* vf = reinterpret_cast<float*>(dyn_smem4) + T::D_BYTES / 4;
   int8_t* xs = reinterpret_cast<int8_t*>(dyn_smem4) + T::D_BYTES + T::F_BYTES;
   double* vs = reinterpret_cast<double*>(xs + T::X_BYTES);
-  uint32_t* flags = reinterpret_cast<uint32_t*>(vs + RI * KP);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wl = warp % T::WL, wn = warp / T::WL;
-  const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
   const int col0 = blockIdx.x * TC;
   const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
   const bool first = blockIdx.x == 0;
-  const float* v_b = v + (size_t)b * I * KP;
   const int n_st = (r_hi - r_lo + RI - 1) / RI;
 
   auto issue = [&](int st) {
@@ -405,9 +515,9 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
     for (int j = 0; j < JV; ++j) {
       const int e = tid + NT * j, r = e / (KP / 4), c4 = 4 * (e % (KP / 4));
       const int row = r0 + r;
-      const bool ok = row < r_hi;
-      cp_async16(fd + r * KP + c4, v_b + (size_t)(ok ? row : r_lo) * KP + c4,
-                 ok ? 16 : 0);
+      const bool ok = row < r_hi && c4 < kv;
+      cp_async16(fd + r * KP + c4,
+                 ok ? v_b + (size_t)row * vs_row + c4 : v_b, ok ? 16 : 0);
     }
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
@@ -429,11 +539,10 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
     }
     cp_async_commit();
   };
-  // the float64 v tile of stage st from this thread's own copies, the
-  // warp's bits of the cluster tiles with a nonzero v, and (first locus
-  // tile) the v sums of the thread's chunks, element 4 (tid + NT j) + q
-  // of a [RI, KP] stage: float32 in registers over VSUM_ST stages, then
-  // added to the same element of vs in float64
+  // the float64 v tile of stage st from this thread's own copies and
+  // (first locus tile) the v sums of the thread's chunks, element 4 (tid +
+  // NT j) + q of a [RI, KP] stage: float32 in registers over VSUM_ST
+  // stages, then added to the same element of vs in float64
   float vsum[JV][4];
   auto flush_vsum = [&]() {
 #pragma unroll
@@ -454,7 +563,6 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
   auto convert = [&](int st) {
     const float* fs = vf + (st & 1) * RI * KP;
     double* ds = vd + (st & 1) * RI * VS;
-    uint32_t bits = 0u;
 #pragma unroll
     for (int j = 0; j < JV; ++j) {
       const int e = tid + NT * j, r = e / (KP / 4), c4 = 4 * (e % (KP / 4));
@@ -462,8 +570,6 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
       double2* d = reinterpret_cast<double2*>(ds + r * VS + c4);
       d[0] = make_double2(f.x, f.y);
       d[1] = make_double2(f.z, f.w);
-      if (f.x != 0.f || f.y != 0.f || f.z != 0.f || f.w != 0.f)
-        bits |= 1u << (c4 / 8);
       if (first) {
         vsum[j][0] += f.x;
         vsum[j][1] += f.y;
@@ -472,8 +578,6 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
       }
     }
     if (first && st % VSUM_ST == VSUM_ST - 1) flush_vsum();
-    bits = __reduce_or_sync(FULL, bits);
-    if (lane == 0) flags[(st & 1) * NW + warp] = bits;
   };
 
   double acc[NS][NTW][4];
@@ -493,11 +597,6 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
     if (st + 2 < n_st) issue(st + 2); else cp_async_commit();
     cp_async_wait<1>();
     if (st + 1 < n_st) convert(st + 1);
-    const uint4 f0 = *reinterpret_cast<const uint4*>(flags + (st & 1) * NW);
-    const uint4 f1 =
-        *reinterpret_cast<const uint4*>(flags + (st & 1) * NW + 4);
-    const uint32_t live =
-        f0.x | f0.y | f0.z | f0.w | f1.x | f1.y | f1.z | f1.w;
     const int8_t* xt = xs + (st % 3) * NS * RI * XS + 16 * wl + 2 * g;
     const double* dt = vd + (st & 1) * RI * VS;
 #pragma unroll
@@ -516,7 +615,7 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
 #pragma unroll
       for (int n = 0; n < NTW; ++n) {
         const int nt = wn * NTW + n;
-        if ((live >> nt) & 1u) {
+        if (nt < nt_live) {
           double bb[4];
 #pragma unroll
           for (int p = 0; p < 4; ++p)
@@ -529,9 +628,8 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
     __syncthreads();
   }
 
-  // part[b][seg][stream][k][l]: a thread holds loci 2 g, 2 g + 1 of its
-  // warp's tile for clusters 8 nt + 2 t + {0, 1}
-  float* out = part + ((size_t)b * n_seg + seg) * NS * KP * L;
+  // a thread holds loci 2 g, 2 g + 1 of its warp's tile for clusters
+  // 8 nt + 2 t + {0, 1}
   const int lc = col0 + 16 * wl + 2 * g;
 #pragma unroll
   for (int s = 0; s < NS; ++s)
@@ -540,8 +638,9 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         const int k = 8 * (wn * NTW + n) + 2 * t + jj;
+        if (k >= kv) continue;
         const float o0 = (float)acc[s][n][jj], o1 = (float)acc[s][n][2 + jj];
-        float* dst = out + ((size_t)s * KP + k) * L + lc;
+        float* dst = out + ((size_t)s * ko + k) * L + lc;
         if (vec && lc + 2 <= L) {
           *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
         } else {
@@ -555,31 +654,74 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
     // slots, then summed over the stage's rows in order in float64
     flush_vsum();
     __syncthreads();
-    if (tid < KP) {
-      double s = 0.0;
-      for (int r = 0; r < RI; ++r) s += vs[r * KP + tid];
-      vpart[((size_t)b * n_seg + seg) * KP + tid] = (float)s;
+    if (tid < KP && tid < kv) {
+      double sum = 0.0;
+      for (int r = 0; r < RI; ++r) sum += vs[r * KP + tid];
+      vp_out[tid] = (float)sum;
     }
   }
 }
 
-// eta finish: one warp per chain; vtot = the segments' v sums in segment
-// order (deterministic), then eta' = Michelot(vtot / sum vtot).  Pad lanes
-// of vtot are exactly 0.
-template <int KP>
+// The columns pass at Kp = KP <= 128: block (locus tile, row segment,
+// chain) over the live tiles of kt lanes; writes part[b][seg][stream][k]
+// [l] and, from the first locus tile, vpart[b][seg][k].
+template <int KP, bool X1>
+__global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
+    const float* __restrict__ v, const int8_t* __restrict__ x0,
+    const int8_t* __restrict__ x1, float* __restrict__ part,
+    float* __restrict__ vpart, int I, int L, int seg_rows, int kt, int vec) {
+  constexpr int NS = X1 ? 2 : 1;
+  const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
+  const size_t bs = (size_t)b * n_seg + seg;
+  cols_block<KP, X1>(v + (size_t)b * I * KP, KP, KP, (kt + 7) / 8, x0, x1,
+                     part + bs * NS * KP * L, KP, vpart + bs * KP, I, L, seg,
+                     seg_rows, vec);
+}
+
+// The wide columns pass (128 < Kp <= 1024): block (locus tile, row
+// segment, chain x cluster chunk) runs the KP = 128 tiles on its chunk's
+// MIX_WK lanes of v (row stride Kp; the last chunk may hold fewer lanes
+// than MIX_WK, read as zeros) and writes the chunk's lanes of the same
+// part [B, n_seg, NS, Kp, L] and vpart [B, n_seg, Kp].
+template <bool X1>
+__global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
+    const float* __restrict__ v, const int8_t* __restrict__ x0,
+    const int8_t* __restrict__ x1, float* __restrict__ part,
+    float* __restrict__ vpart, int I, int L, int Kp, int seg_rows, int kt,
+    int vec) {
+  constexpr int NS = X1 ? 2 : 1;
+  const int n_ch = (Kp + MIX_WK - 1) / MIX_WK;
+  const int b = blockIdx.z / n_ch, k0 = (blockIdx.z % n_ch) * MIX_WK;
+  const int seg = blockIdx.y, n_seg = gridDim.y;
+  const size_t bs = (size_t)b * n_seg + seg;
+  const int nt_live = max(0, min(MIX_WK / 8, (kt - k0 + 7) / 8));
+  cols_block<MIX_WK, X1>(v + (size_t)b * I * Kp + k0, Kp,
+                         min(MIX_WK, Kp - k0), nt_live, x0, x1,
+                         part + (bs * NS * Kp + k0) * L, Kp,
+                         vpart + bs * Kp + k0, I, L, seg, seg_rows, vec);
+}
+
+// eta finish: one warp per chain, lane owns k = lane + 32 j (KJ values a
+// lane, the lanes at or past Kp none); vtot = the segments' v sums in
+// segment order (deterministic), then eta' = Michelot(vtot / sum vtot)
+// over the lanes k < k_true.  Pad lanes of vtot are exactly 0.  KJ = Kp /
+// 32 at Kp <= 128; the wide finish is one instantiation at KJ = 32.
+template <int KJ>
 __global__ void __launch_bounds__(32) mix_eta_kernel(
     const float* __restrict__ vpart, float* __restrict__ vtot,
-    float* __restrict__ eta, int n_seg, int k_true, float lb, int project) {
-  constexpr int KJ = KP / 32;
+    float* __restrict__ eta, int Kp, int n_seg, int k_true, float lb,
+    int project) {
   const int b = blockIdx.x, lane = threadIdx.x;
   float w[KJ], part = 0.f;
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
     const int k = lane + 32 * j;
     float s = 0.f;
-    for (int q = 0; q < n_seg; ++q)
-      s += vpart[((size_t)b * n_seg + q) * KP + k];
-    vtot[(size_t)b * KP + k] = s;
+    if (k < Kp) {
+      for (int q = 0; q < n_seg; ++q)
+        s += vpart[((size_t)b * n_seg + q) * Kp + k];
+      vtot[(size_t)b * Kp + k] = s;
+    }
     w[j] = s;
     part += s;
   }
@@ -588,7 +730,8 @@ __global__ void __launch_bounds__(32) mix_eta_kernel(
   for (int j = 0; j < KJ; ++j) w[j] = w[j] / tot;
   if (project) michelot_warp<KJ>(w, lane, k_true, lb);
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) eta[(size_t)b * KP + lane + 32 * j] = w[j];
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < Kp) eta[(size_t)b * Kp + lane + 32 * j] = w[j];
 }
 
 // p0 epilogue: B0 (B1) = the segments' partials summed in segment order
@@ -634,11 +777,24 @@ static bool aligned16(const void* p) {
   return p == nullptr || ((uintptr_t)p & 15u) == 0;
 }
 
+static bool kp_narrow(int Kp) {
+  return Kp == 32 || Kp == 64 || Kp == 96 || Kp == 128;
+}
+static bool kp_wide(int Kp) {
+  return Kp > 128 && Kp <= KP_WIDE_MAX && Kp % 32 == 0;
+}
+// the lanes the passes compute for k_true clusters (outside [1, Kp]: Kp)
+static int live_lanes(int k_true, int Kp) {
+  return k_true < 1 || k_true > Kp ? Kp : k_true;
+}
+
+// The rows pass: v [B, I, Kp] and t [B, I].  At 128 < Kp <= 1024 `s_buf`
+// is the [B, I, Kp] float64 scratch of the wide pass's two launches (the
+// scores and the softmax); it is not read at Kp <= 128 and may be null.
 extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
                            const void* x1, const void* bias, void* v_out,
-                           void* t_out, int B, int I, int L, int Kp,
-                           void* stream) {
-  const dim3 grid((I + ROW_R - 1) / ROW_R, 1, B);
+                           void* t_out, void* s_buf, int B, int I, int L,
+                           int Kp, int k_true, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* a = (const float*)lp0;
   const float* c = (const float*)lp1;
@@ -650,7 +806,30 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
   const bool two = lp1 != nullptr;
   const int vec = L % 16 == 0 && aligned16(lp0) && aligned16(lp1) &&
                   aligned16(x0) && aligned16(x1);
+  const int kt = live_lanes(k_true, Kp);
   int err = 0;
+  if (kp_wide(Kp)) {
+    if (s_buf == nullptr || !aligned16(s_buf))
+      return (int)cudaErrorInvalidValue;
+    double* sb = (double*)s_buf;
+    const dim3 grid((I + ROW_R - 1) / ROW_R, (kt + MIX_WK - 1) / MIX_WK, B);
+#define MC_ROWS_WIDE(X1)                                                     \
+  {                                                                          \
+    auto kern = mix_rows_wide_kernel<X1>;                                    \
+    constexpr int smem = RowsTile<MIX_WK, X1>::SMEM;                         \
+    err = allow_smem(kern);                                                  \
+    if (err == 0)                                                            \
+      kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, sb, I, L, Kp, kt, vec);    \
+  }
+    if (two) MC_ROWS_WIDE(true) else MC_ROWS_WIDE(false)
+#undef MC_ROWS_WIDE
+    if (err == 0) err = (int)cudaGetLastError();
+    if (err == 0)
+      mix_softmax_kernel<<<dim3((I + NW - 1) / NW, B), NT, 0, s>>>(
+          sb, v, t, I, Kp, kt);
+    return err ? err : (int)cudaGetLastError();
+  }
+  const dim3 grid((I + ROW_R - 1) / ROW_R, 1, B);
 #define MC_ROWS_ONE(KP, X1)                                                  \
   {                                                                          \
     auto kern = mix_rows_kernel<KP, X1>;                                     \
@@ -658,7 +837,7 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
     static_assert(smem <= SMEM_MAX, "rows-pass tiles exceed shared memory");\
     err = allow_smem(kern);                                                  \
     if (err == 0)                                                            \
-      kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, v, t, I, L, vec);          \
+      kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, v, t, I, L, kt, vec);      \
   }
 #define MC_ROWS(KP)              \
   if (two) MC_ROWS_ONE(KP, true) \
@@ -675,9 +854,13 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
   return err ? err : (int)cudaGetLastError();
 }
 
+// The columns pass: part [B, n_seg, 1|2, Kp, L] and vpart [B, n_seg, Kp];
+// at 128 < Kp <= 1024 the grid's z axis runs the chains x the cluster
+// chunks.
 extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
                            void* part, void* vpart, int B, int I, int L,
-                           int Kp, int n_seg, int seg_rows, void* stream) {
+                           int Kp, int n_seg, int seg_rows, int k_true,
+                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* vv = (const float*)v;
   const int8_t* x = (const int8_t*)x0;
@@ -688,7 +871,24 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
   if (!aligned16(v)) return (int)cudaErrorMisalignedAddress;
   const int vec = L % 16 == 0 && aligned16(x0) && aligned16(x1) &&
                   aligned16(part);
+  const int kt = live_lanes(k_true, Kp);
   int err = 0;
+  if (kp_wide(Kp)) {
+    const int n_ch = (Kp + MIX_WK - 1) / MIX_WK;
+#define MC_COLS_WIDE(X1)                                                     \
+  {                                                                          \
+    using T = ColsTile<MIX_WK, X1>;                                          \
+    auto kern = mix_cols_wide_kernel<X1>;                                    \
+    const dim3 grid((L + T::TC - 1) / T::TC, n_seg, B * n_ch);               \
+    err = allow_smem(kern);                                                  \
+    if (err == 0)                                                            \
+      kern<<<grid, NT, T::SMEM, s>>>(vv, x, z, pt, vp, I, L, Kp, seg_rows,   \
+                                     kt, vec);                               \
+  }
+    if (two) MC_COLS_WIDE(true) else MC_COLS_WIDE(false)
+#undef MC_COLS_WIDE
+    return err ? err : (int)cudaGetLastError();
+  }
 #define MC_COLS_ONE(KP, X1)                                                  \
   {                                                                          \
     using T = ColsTile<KP, X1>;                                              \
@@ -697,7 +897,8 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
     const dim3 grid((L + T::TC - 1) / T::TC, n_seg, B);                      \
     err = allow_smem(kern);                                                  \
     if (err == 0)                                                            \
-      kern<<<grid, NT, T::SMEM, s>>>(vv, x, z, pt, vp, I, L, seg_rows, vec); \
+      kern<<<grid, NT, T::SMEM, s>>>(vv, x, z, pt, vp, I, L, seg_rows, kt,   \
+                                     vec);                                   \
   }
 #define MC_COLS(KP)              \
   if (two) MC_COLS_ONE(KP, true) \
@@ -714,10 +915,9 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
   return err ? err : (int)cudaGetLastError();
 }
 
-template <int KP, bool X1>
-static int cols_tile_info(int* tc, int* blocks) {
+template <int KP, bool X1, typename Kernel>
+static int cols_tile_info(Kernel kern, int* tc, int* blocks) {
   using T = ColsTile<KP, X1>;
-  auto kern = mix_cols_kernel<KP, X1>;
   *tc = T::TC;
   const int err = allow_smem(kern);
   if (err) return err;
@@ -727,14 +927,22 @@ static int cols_tile_info(int* tc, int* blocks) {
 
 // The columns pass's tile for Kp and one (two = 0) or two streams: loci a
 // block (TC), rows a stage, and the blocks an SM of the current device
-// holds; ops/mixture_bi.cols_tile, COL_RI and cols_blocks_per_sm mirror
-// them.  Returns cudaErrorInvalidValue for a Kp the kernels do not take.
+// holds (at 128 < Kp <= 1024 the wide kernel's, the KP = 128 tile);
+// ops/mixture_bi.cols_tile, COL_RI and cols_blocks_per_sm mirror them.
+// Returns cudaErrorInvalidValue for a Kp the kernels do not take.
 extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
                             int* blocks) {
   *rows = COL_RI;
+  if (kp_wide(Kp))
+    return two ? cols_tile_info<MIX_WK, true>(mix_cols_wide_kernel<true>, tc,
+                                              blocks)
+               : cols_tile_info<MIX_WK, false>(mix_cols_wide_kernel<false>,
+                                               tc, blocks);
 #define MC_TILE(KP)                                                      \
-  return two ? cols_tile_info<KP, true>(tc, blocks)                      \
-             : cols_tile_info<KP, false>(tc, blocks)
+  return two ? cols_tile_info<KP, true>(mix_cols_kernel<KP, true>, tc,   \
+                                        blocks)                          \
+             : cols_tile_info<KP, false>(mix_cols_kernel<KP, false>, tc, \
+                                         blocks)
   switch (Kp) {
     case 32: MC_TILE(32);
     case 64: MC_TILE(64);
@@ -745,6 +953,7 @@ extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
 #undef MC_TILE
 }
 
+// The eta finish: one instantiation a narrow Kp, KJ = 32 for the wide ones.
 extern "C" int mc_mix_eta(const void* vpart, void* vtot, void* eta, int B,
                           int Kp, int n_seg, int k_true, float lb,
                           int project, void* stream) {
@@ -752,19 +961,27 @@ extern "C" int mc_mix_eta(const void* vpart, void* vtot, void* eta, int B,
   const float* vp = (const float*)vpart;
   float* vt = (float*)vtot;
   float* e = (float*)eta;
-#define MC_ETA(KP)                                                           \
-  mix_eta_kernel<KP><<<B, 32, 0, s>>>(vp, vt, e, n_seg, k_true, lb, project)
-  switch (Kp) {
-    case 32: MC_ETA(32); break;
-    case 64: MC_ETA(64); break;
-    case 96: MC_ETA(96); break;
-    case 128: MC_ETA(128); break;
-    default: return (int)cudaErrorInvalidValue;
+  const int kt = k_true > Kp ? Kp : k_true;
+#define MC_ETA(KJ)                                                        \
+  mix_eta_kernel<KJ><<<B, 32, 0, s>>>(vp, vt, e, Kp, n_seg, kt, lb, project)
+  if (kp_wide(Kp)) {
+    MC_ETA(KP_WIDE_MAX / 32);
+  } else if (kp_narrow(Kp)) {
+    switch (Kp / 32) {
+      case 1: MC_ETA(1); break;
+      case 2: MC_ETA(2); break;
+      case 3: MC_ETA(3); break;
+      case 4: MC_ETA(4); break;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
 #undef MC_ETA
   return (int)cudaGetLastError();
 }
 
+// The p0 epilogue takes any Kp (one thread a (chain, k, l)); the wrapper
+// admits the multiples of 32 up to KP_WIDE_MAX.
 extern "C" int mc_mix_p(const void* part, const void* vtot, void* out0,
                         void* out1, int B, int Kp, int L, int n_seg, int two,
                         float plb, float pub, float ploidy, int project,

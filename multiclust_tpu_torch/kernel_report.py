@@ -4,11 +4,14 @@ columns passes (csrc/fullstep.cu), the biallelic mixture rows and
 columns passes (csrc/mixture_bi.cu, one and two streams) and the wide
 kernels of the admixture step for 128 < Kp <= 1024 (csrc/wide.cuh: the
 rows and columns passes with the biallelic and the generic cells, the
-finish at 32 lanes a thread, each built once for every Kp in its range): registers, shared memory and spills (``nvcc -Xptxas -v``),
+finish at 32 lanes a thread, each built once for every Kp in its range)
+and of the mixture step (csrc/mixture_bi.cu: the rows pass's scores and
+softmax, the columns pass, one and two streams, and the eta finish at 32
+lanes a thread): registers, shared memory and spills (``nvcc -Xptxas -v``),
 and the static instruction mix of each kernel's machine code
 (``cuobjdump -sass``: FFMA against LDS, MUFU and the rest; DMMA, the
 float64 tensor-core product, counted on a line of its own for the mixture
-passes).
+passes, the wide ones too).
 
 Run with ``python -m multiclust_tpu_torch.kernel_report [Kp ...]`` where
 nvcc and a CUDA toolkit are installed (default Kp: 32 and 128).  The mix counts
@@ -45,6 +48,15 @@ CELLS = ("kBi", "kDense", "kSparse")
 WIDE_KERNELS = (("wide_rows_kernel", "kBi"), ("wide_rows_kernel", "kDense"),
                 ("wide_cols_kernel", "kBi"), ("wide_cols_kernel", "kDense"),
                 ("wide_finish_kernel", 32))
+# the mixture's wide kernels (csrc/mixture_bi.cu), and their mangled
+# template arguments: the contraction passes' second stream, the eta
+# finish's lanes a thread
+MIX_WIDE = "mix_(?:rows_wide|cols_wide|softmax|eta)_kernel"
+MIX_WIDE_KERNELS = (("mix_rows_wide_kernel", "ILb0E"),
+                    ("mix_rows_wide_kernel", "ILb1E"),
+                    ("mix_cols_wide_kernel", "ILb0E"),
+                    ("mix_cols_wide_kernel", "ILb1E"),
+                    ("mix_softmax_kernel", "E"), ("mix_eta_kernel", "ILi32E"))
 
 
 def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
@@ -71,8 +83,12 @@ def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
                     targ = re.match(r"ILi(\d+)E(?:Lb([01])E|Li(\d+)E)?",
                                     rest)
                     cells = re.match(r"ILN\w*?CellsE(\d)E", rest)
+                    flag = re.match(r"ILb([01])E", rest)
                     if cells:   # a Cells value, the wide passes' argument
                         name = ident + f"<{CELLS[int(cells.group(1))]}>"
+                    elif flag:   # a bool alone: the second stream
+                        name = ident + ("<true>" if flag.group(1) == "1"
+                                        else "<false>")
                     elif targ and targ.group(2):
                         two = "true" if targ.group(2) == "1" else "false"
                         name = ident + f"<{targ.group(1)}, {two}>"
@@ -91,11 +107,15 @@ def ptxas_lines(report: str, pattern: str = "fullstep_bi"):
 
 def sass_mix(lib: Path, kernel: str, kp, targs: str = ""):
     """Opcode counts of one kernel's SASS (``targs``: its mangled template
-    arguments after Kp; ``kp`` a name of CELLS: the wide passes' cells)."""
+    arguments after Kp; ``kp`` a name of CELLS: the wide passes' cells;
+    ``kp`` None: ``targs`` are all of its mangled template arguments, or
+    "E" for none)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    if kp in CELLS:
+    if kp is None:
+        tag = re.compile(rf"{len(kernel)}{kernel}{targs}")
+    elif kp in CELLS:
         tag = re.compile(rf"{len(kernel)}{kernel}ILN\w*?CellsE"
                          rf"{CELLS.index(kp)}E")
     else:
@@ -121,11 +141,18 @@ def main(argv) -> int:
         print(f"ptxas {name}: {text}", flush=True)
     for name, text in ptxas_lines(report, WIDE):
         print(f"ptxas {name}: {text}", flush=True)
+    for name, text in ptxas_lines(report, MIX_WIDE):
+        print(f"ptxas {name}: {text}", flush=True)
     for kernel, arg in WIDE_KERNELS:
         mix = sass_mix(lib, kernel, arg)
         top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))
         print(f"sass {kernel}<{arg}>: {sum(mix.values())} instructions: "
               f"{top}", flush=True)
+    for kernel, targs in MIX_WIDE_KERNELS:
+        mix = sass_mix(lib, kernel, None, targs)
+        top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))
+        print(f"sass {kernel} {targs}: {sum(mix.values())} instructions: "
+              f"{top}; DMMA {mix['DMMA']}", flush=True)
     for kp in kps:
         for kernel, targs in KERNELS:
             mix = sass_mix(lib, kernel, kp, targs)

@@ -15,7 +15,11 @@ Every function takes a chain batch: eta [B, K], p [B, K, L, M] in the
 full, unpadded layout.  Float32 biallelic fits with the kernels on run
 ``_em_step_bi_kernel`` (ops/mixture_bi.py), which K-pads lp and the bias
 per call; every other fit runs the plain products here, with the eta and
-p finish on the card when the kernels are on (no host read per step).  A
+p finish on the card when the kernels are on (no host read per step).
+The kernels take K padded to at most KP_MAX = 1024 lanes; above that
+every mixture step is the plain one, with no notice, as the JAX package
+falls through to XLA (``_em_step_bi_kernel`` returning None,
+multiclust_tpu/model/mixture.py:328-331).  A
 jagged panel's bucketed layout (model/bucketed.py) sums the scores over
 its buckets and updates each bucket's p at its own M_b.
 
@@ -41,6 +45,7 @@ from multiclust_tpu_torch.model.bucketed import BucketedData, \
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     k_padded_size, safe_log
 from multiclust_tpu_torch.ops.fullstep import fullstep_p
+from multiclust_tpu_torch.ops.fullstep_bi import KP_MAX
 from multiclust_tpu_torch.ops.mixture_bi import mixture_eta, \
     mixture_fullstep_biallelic, mixture_rows
 from multiclust_tpu_torch.ops.simplex import project_rows
@@ -49,7 +54,8 @@ from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
 
 Tensor = torch.Tensor
 
-# K-pad lanes of the kernel's bias: their posterior mass is exactly 0
+# K-pad lanes of the kernel route's bias: their posterior mass is exactly
+# 0 in the plain versions (the kernels stop at k_true)
 PAD_BIAS = -1e30
 
 
@@ -126,20 +132,29 @@ def _bi_fast(md: ModelData, cfg: EMConfig) -> bool:
     return cfg.biallelic and not cfg.has_missing and md.M == 2
 
 
+def _in_range(K: int) -> bool:
+    """K clusters pad to a Kp the mixture kernels take (at most KP_MAX
+    lanes)."""
+    return k_padded_size(K, 32) <= KP_MAX
+
+
 def _kernel_ok(md: ModelData, cfg: EMConfig, params: Params) -> bool:
     """The kernel route (ops/mixture_bi.py): kernels on (every float32 fit
     on CUDA, ``runtime/multistart.device_policy``), a biallelic panel with
-    its x0/x1 planes, float32 parameters.  K above 128 raises in the
-    wrappers on CUDA tensors.  Never under a mesh, as in the JAX
-    package."""
+    its x0/x1 planes, float32 parameters, K padded to at most KP_MAX
+    lanes (narrow kernels up to 128, the wide ones above).  Never under a
+    mesh, as in the JAX package."""
     return (cfg.use_pallas != "off" and cfg.mesh is None and cfg.biallelic
-            and md.x0 is not None and params.p.dtype == torch.float32)
+            and md.x0 is not None and params.p.dtype == torch.float32
+            and _in_range(params.K))
 
 
-def _on_card(cfg: EMConfig, t: Tensor) -> bool:
-    """The eta and p finish go through the kernels (their plain versions
-    on CPU tensors) when the kernels are on for a float32 fit."""
-    return cfg.use_pallas != "off" and t.dtype == torch.float32
+def _on_card(cfg: EMConfig, t: Tensor, K: int) -> bool:
+    """The eta and p finish of K clusters go through the kernels (their
+    plain versions on CPU tensors) when the kernels are on for a float32
+    fit and K pads to at most KP_MAX lanes."""
+    return (cfg.use_pallas != "off" and t.dtype == torch.float32
+            and _in_range(K))
 
 
 def log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
@@ -149,7 +164,8 @@ def log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
         params = split_params_like(params, md)
     elif _kernel_ok(md, cfg, params):
         lp0, x0, bias, lp1, x1 = _kernel_inputs(params, md, cfg)
-        return _ll_terms(mixture_rows(lp0, x0, bias, lp1, x1)[1])
+        return _ll_terms(mixture_rows(lp0, x0, bias, lp1, x1,
+                                      k_true=params.K)[1])
     s = (_scores_bi(params, md, cfg.ploidy, cfg.mesh) if _bi_fast(md, cfg)
          else scores(params, md, cfg.mesh))
     _, ll, scale = _posterior_and_ll(s, params.eta.dtype, cfg.mesh)
@@ -164,7 +180,7 @@ def _finish_p(pc: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
     plb = cfg.p_lower_bound
     maskf = md.mask.to(pc.dtype)
     pc = pc + plb * maskf
-    if _on_card(cfg, pc):
+    if _on_card(cfg, pc, pc.shape[1]):
         nb, K, L, M = pc.shape
         p2 = maskf.reshape(1, 1, -1).expand(nb, K, -1).contiguous()
         return fullstep_p(p2, pc.reshape(nb, 1, K, L * M), md.mask, M=M,
@@ -181,8 +197,8 @@ def _finish_eta(v: Tensor, cfg: EMConfig) -> Tensor:
     kernels on, the kernel route's eta finish on the K-padded sums.  Under
     a mesh the sums are summed over the data group first."""
     vsum = sum_over(cfg.mesh, v.sum(dim=1), DATA_AXIS)    # [B, K]
-    if _on_card(cfg, vsum):
-        K = vsum.shape[-1]
+    K = vsum.shape[-1]
+    if _on_card(cfg, vsum, K):
         vpart = F.pad(vsum, (0, k_padded_size(K, 32) - K))[:, None]
         eta, _ = mixture_eta(vpart.contiguous(), k_true=K,
                              lb=cfg.eta_lower_bound,

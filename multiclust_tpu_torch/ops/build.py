@@ -51,8 +51,9 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mc_fullstep_p": [_P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "mc_mix_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _P],
+    "mc_mix_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mc_mix_eta": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "mc_mix_p": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I,
                  _P],
@@ -61,13 +62,15 @@ _SIGNATURES = {
 # Launches counted under a name of their own as well as the launcher's
 # (``launch(..., also=)``): a loop of launches that is a kernel of its own
 # in the JAX package (the chunked biallelic step), once per window, where
-# the loop launches the window's rows pass; and the wide kernels of
-# csrc/wide.cuh (128 < Kp <= 1024), which run behind the launchers of the
-# narrow ones: the rows pass (both steps), its finish (both steps; not the
-# t-only finish, which takes any Kp), the biallelic and the generic
-# columns pass
+# the loop launches the window's rows pass; and the wide kernels (128 <
+# Kp <= 1024), which run behind the launchers of the narrow ones: of
+# csrc/wide.cuh the rows pass (both steps), its finish (both steps; not
+# the t-only finish, which takes any Kp), the biallelic and the generic
+# columns pass; of csrc/mixture_bi.cu the mixture's rows pass (its scores
+# and its softmax, one call of the launcher), columns pass and eta finish
 EXTRA_COUNTS = ("fullstep_bi_chunked", "wide_rows", "wide_finish",
-                "wide_cols_bi", "wide_cols_generic")
+                "wide_cols_bi", "wide_cols_generic", "wide_mix_rows",
+                "wide_mix_cols", "wide_mix_eta")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0

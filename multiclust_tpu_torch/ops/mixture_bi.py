@@ -12,17 +12,21 @@ partials' fixed-order sum, normalized and projected: ``_finish_eta``,
 which JAX runs in XLA) and a p0 epilogue (the p0 update of
 ``_mix_counts_kernel``).  The rows and columns passes contract on the
 float64 tensor cores, as the plain versions' float64 products do; their
-cluster tiles stop at K, which the rows pass reads from the bias (pad
-lanes -1e30) and the columns pass from v (tiles whose v is all zero).
-``finish=False`` returns the raw statistics
+cluster tiles stop at ``k_true``.  At 128 < Kp <= 1024 (KP_MAX, the TPU
+kernels' own range) the same launchers run the wide passes: the KP = 128
+tiles on each chunk of 128 cluster lanes, the rows pass's scores in a
+float64 scratch and a softmax launch, and the eta finish at 32 lanes a
+thread.  ``finish=False`` returns the raw statistics
 instead; rows, columns and the raw epilogue together are the sweep
 (``mixture_sweep_stats``).  Every step of the finish runs on the card, so
 a kernel-route EM step never reads the host.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
-only for CPU tensors; there is no fallback for CUDA tensors.  Shapes: a
-chain batch B leads.  lp0/lp1 [B, Kp, L] f32 with Kp in {32, 64, 96, 128},
-bias [B, Kp] f32 (K-pad lanes -1e30, their lp 0), x0/x1 [I, L] int8.
+only for CPU tensors; there is no fallback for CUDA tensors, and a Kp
+above KP_MAX raises there (the model runs the plain step above it, as the
+JAX package runs XLA).  Shapes: a chain batch B leads.  lp0/lp1 [B, Kp, L]
+f32 with Kp a multiple of 32 up to 1024, bias [B, Kp] f32 (K-pad lanes
+-1e30, their lp 0), x0/x1 [I, L] int8.
 One-stream calls (x1 None) fold x1 = ploidy - x0 (lp0 = log p0 - log p1);
 two-stream calls carry missing data.
 """
@@ -35,25 +39,37 @@ import torch
 
 from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
-from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX, KP_NARROW, \
-    device_sm_count, p0_clip_bounds
+from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX, KP_MAX, \
+    KP_NARROW, device_sm_count, p0_clip_bounds
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
 
 # the columns pass's tiling in csrc/mixture_bi.cu (ColsTile): warps a
-# block, rows a stage; the row-segment count is chosen here
-NW, COL_RI = 8, 32
+# block, rows a stage; the row-segment count is chosen here.  WK: cluster
+# lanes a chunk of the wide passes (MIX_WK), each run by the KP = 128 tiles
+NW, COL_RI, WK = 8, 32, 128
 
 
 def check_kp(Kp: int) -> None:
     """Raise for a padded cluster count the mixture kernels do not take:
-    they have no wide version yet (the admixture kernels do)."""
-    if Kp not in KP_NARROW:
-        raise ValueError(f"Kp={Kp}: the mixture kernels take Kp in "
-                         f"{KP_NARROW} (K <= 128); see ROADMAP.md, order of "
-                         f"next PRs, item 1, 'the mixture's wide kernels "
-                         f"(Kp > 128)'")
+    the multiples of 32 up to KP_MAX; above it the model's step takes the
+    plain formulation."""
+    if Kp % 32 or not 32 <= Kp <= KP_MAX:
+        raise ValueError(f"Kp={Kp}: the mixture kernels take a multiple of "
+                         f"32 up to {KP_MAX}; above that the mixture "
+                         f"takes the plain step (model/mixture._kernel_ok)")
+
+
+def is_wide(Kp: int) -> bool:
+    """Kp of the wide passes (128 < Kp <= KP_MAX)."""
+    return Kp > KP_NARROW[-1]
+
+
+def chunks(Kp: int) -> int:
+    """Cluster chunks of WK lanes the wide passes cut Kp into (1 at Kp <=
+    128)."""
+    return -(-Kp // WK) if is_wide(Kp) else 1
 
 
 def cols_tile(Kp: int, two: bool) -> int:
@@ -62,8 +78,9 @@ def cols_tile(Kp: int, two: bool) -> int:
     reports it): a warp computes one tile of 16 loci by ``ntw`` tiles of 8
     clusters, at most 8 float64 accumulator tiles a thread over the
     streams, and the block's NW warps split the Kp / 8 cluster tiles into
-    groups of ``ntw``."""
-    ns, nt8 = (2 if two else 1), Kp // 8
+    groups of ``ntw``; the wide pass runs the tile of Kp = WK on each
+    chunk."""
+    ns, nt8 = (2 if two else 1), min(Kp, WK) // 8
     ntw = next((d for d in range(nt8, 1, -1)
                 if nt8 % d == 0 and ns * d <= 8 and NW % (nt8 // d) == 0), 1)
     return 16 * (NW // (nt8 // ntw))
@@ -71,8 +88,8 @@ def cols_tile(Kp: int, two: bool) -> int:
 
 def cols_blocks_per_sm(Kp: int, two: bool) -> int:
     """Columns-pass blocks an SM holds (``ColsTile::MINB``): two at Kp = 32
-    with one stream, one elsewhere."""
-    return 2 if Kp == 32 and not two else 1
+    and 96 with one stream, one elsewhere (the wide pass too)."""
+    return 2 if Kp in (32, 96) and not two else 1
 
 
 def cols_segments(I: int, L: int, B: int, Kp: int, two: bool,
@@ -82,8 +99,9 @@ def cols_segments(I: int, L: int, B: int, Kp: int, two: bool,
     passing them (a block is a tile of ``cols_tile`` loci of one chain; a
     wave a few blocks past the slots costs a second wave, and fewer
     segments mean fewer partials to write and sum), each segment whole
-    stages of COL_RI rows and at least 4 of them, at most GRID_YZ_MAX."""
-    blocks = -(-L // cols_tile(Kp, two)) * B
+    stages of COL_RI rows and at least 4 of them, at most GRID_YZ_MAX.  A
+    wide pass has a block for each cluster chunk as well."""
+    blocks = -(-L // cols_tile(Kp, two)) * B * chunks(Kp)
     n_seg = max(1, min(cols_blocks_per_sm(Kp, two) * n_sm // blocks,
                        -(-I // (4 * COL_RI)), GRID_YZ_MAX))
     seg_rows = -(-I // n_seg)
@@ -198,8 +216,9 @@ def _check(name: str, t: Tensor, dev, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def mixture_rows(lp0, x0, bias, lp1=None, x1=None):
-    """Rows pass: (v [B, I, Kp], t [B, I])."""
+def mixture_rows(lp0, x0, bias, lp1=None, x1=None, *, k_true: int = 0):
+    """Rows pass: (v [B, I, Kp], t [B, I]); the kernels compute the lanes
+    below ``k_true`` (0: all Kp) and write v = 0 past it."""
     if not lp0.is_cuda:
         return mixture_rows_reference(lp0, x0, bias, lp1, x1)
     if (lp1 is None) != (x1 is None):
@@ -216,15 +235,20 @@ def mixture_rows(lp0, x0, bias, lp1=None, x1=None):
         _check("x1", x1, dev, torch.int8, (I, L))
     v = torch.empty((B, I, Kp), dtype=torch.float32, device=dev)
     t = torch.empty((B, I), dtype=torch.float32, device=dev)
+    # the wide pass's float64 scores, between its two launches
+    s = (torch.empty((B, I, Kp), dtype=torch.float64, device=dev)
+         if is_wide(Kp) else None)
     build.launch("mc_mix_rows", dev, lp0.data_ptr(), _ptr(lp1),
                  x0.data_ptr(), _ptr(x1), bias.data_ptr(), v.data_ptr(),
-                 t.data_ptr(), B, I, L, Kp)
+                 t.data_ptr(), _ptr(s), B, I, L, Kp, int(k_true),
+                 also=("wide_mix_rows",) if is_wide(Kp) else ())
     return v, t
 
 
-def mixture_partials(v, x0, x1=None):
+def mixture_partials(v, x0, x1=None, *, k_true: int = 0):
     """Columns pass: the per-row-segment B partials [B, n_seg, 1|2, Kp, L]
-    and v sums [B, n_seg, Kp]."""
+    and v sums [B, n_seg, Kp]; the kernels compute the lanes below
+    ``k_true`` (0: all Kp) and write zeros past it."""
     if not v.is_cuda:
         return mixture_cols_reference(v, x0, x1)
     B, I, Kp = v.shape
@@ -235,6 +259,9 @@ def mixture_partials(v, x0, x1=None):
     _check("x0", x0, dev, torch.int8, (I, L))
     if x1 is not None:
         _check("x1", x1, dev, torch.int8, (I, L))
+    if B * chunks(Kp) > GRID_YZ_MAX:
+        raise ValueError(f"{B} chains x {chunks(Kp)} cluster chunks exceed "
+                         f"the grid's {GRID_YZ_MAX}")
     ns = 1 if x1 is None else 2
     n_seg, seg_rows = cols_segments(I, L, B, Kp, ns == 2,
                                     device_sm_count(dev))
@@ -243,7 +270,8 @@ def mixture_partials(v, x0, x1=None):
     vpart = torch.empty((B, n_seg, Kp), dtype=torch.float32, device=dev)
     build.launch("mc_mix_cols", dev, v.data_ptr(), x0.data_ptr(), _ptr(x1),
                  part.data_ptr(), vpart.data_ptr(), B, I, L, Kp, n_seg,
-                 seg_rows)
+                 seg_rows, int(k_true),
+                 also=("wide_mix_cols",) if is_wide(Kp) else ())
     return part, vpart
 
 
@@ -260,7 +288,8 @@ def mixture_eta(vpart, *, k_true: int, lb: float, project: bool):
     eta = torch.empty_like(vtot)
     build.launch("mc_mix_eta", vpart.device, vpart.data_ptr(),
                  vtot.data_ptr(), eta.data_ptr(), B, Kp, n_seg, int(k_true),
-                 float(lb), int(project))
+                 float(lb), int(project),
+                 also=("wide_mix_eta",) if is_wide(Kp) else ())
     return eta, vtot
 
 
@@ -272,6 +301,7 @@ def mixture_p(part, vtot, *, plb: float, ploidy: int, project: bool,
         return mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
                                    project=project, finish=finish)
     B, n_seg, ns, Kp, L = part.shape
+    check_kp(Kp)
     dev = part.device
     _check("part", part, dev, torch.float32, (B, n_seg, ns, Kp, L))
     if finish:
@@ -292,19 +322,20 @@ def mixture_fullstep_biallelic(lp0, x0, bias, lp1=None, x1=None, *,
     """One biallelic mixture EM step for a chain batch: (eta' [B, Kp],
     t [B, I], p0' [B, Kp, L]).  The eta Michelot and the p0 clip share
     ``project`` (cfg.do_projection)."""
-    v, t = mixture_rows(lp0, x0, bias, lp1, x1)
-    part, vpart = mixture_partials(v, x0, x1)
+    v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=k_true)
+    part, vpart = mixture_partials(v, x0, x1, k_true=k_true)
     eta, vtot = mixture_eta(vpart, k_true=k_true, lb=lb, project=project)
     return eta, t, mixture_p(part, vtot, plb=plb, ploidy=ploidy,
                              project=project)
 
 
-def mixture_sweep_stats(lp0, x0, bias, lp1=None, x1=None):
+def mixture_sweep_stats(lp0, x0, bias, lp1=None, x1=None, *,
+                        k_true: int = 0):
     """Sweep statistics v, t, B0 [B, Kp, L] and B1 (None for one stream)
     with no eta or p finish (``mixture_sweep_resident``): the same passes
     as the full step, with the raw epilogue."""
-    v, t = mixture_rows(lp0, x0, bias, lp1, x1)
-    part, _ = mixture_partials(v, x0, x1)
+    v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=k_true)
+    part, _ = mixture_partials(v, x0, x1, k_true=k_true)
     b0, b1 = mixture_p(part, None, plb=0.0, ploidy=0, project=False,
                        finish=False)
     return v, t, b0, b1

@@ -30,7 +30,10 @@ CUDA-event time over ``--reps`` calls, the device time of each of its
 kernels inside it (torch.profiler: the rows pass, the columns pass, the
 eta finish, the p0 epilogue), the two passes' bounds (their operations on
 the float64 tensor cores at 67 TFLOP/s, or their tensors over 3.35 TB/s)
-and the share reached, and the plain step and plain rows pass.
+and the share reached, and the plain step and plain rows pass; above 128
+lanes (``--k 200``, ``--k 1024``) the wide passes.  A tree whose mixture
+kernels refuse the lanes (before the wide ones) times its plain step
+alone, so parent and change are timed by the same file.
 ``--mixture --fit`` runs ``api.fit_model_data`` on a mixture panel made on
 the card from seed 80 instead, 2 chains, plain EM with the adaptive
 interval twice (the first fit of a process also pays the library's load),
@@ -553,9 +556,12 @@ def time_generic_fits(I: int, L: int, M: int, dev) -> None:
               f"init + EM {res.seconds:.3f} s", flush=True)
 
 
-# the mixture step's kernels by name, as the profiler sees them
-MIXTURE_KERNELS = {"rows pass": ("mix_rows_kernel",),
-                   "columns pass": ("mix_cols_kernel",),
+# the mixture step's kernels by name, as the profiler sees them (the wide
+# rows pass is two kernels, its scores and its softmax)
+MIXTURE_KERNELS = {"rows pass": ("mix_rows_kernel", "mix_rows_wide_kernel",
+                                 "mix_softmax_kernel"),
+                   "columns pass": ("mix_cols_kernel",
+                                    "mix_cols_wide_kernel"),
                    "eta finish": ("mix_eta_kernel",),
                    "p0 epilogue": ("mix_p_kernel",)}
 
@@ -609,12 +615,33 @@ def mixture_step_inputs(seed: int, B: int, I: int, L: int, K: int,
     return lp0, x0, bias, lp1, (2 - miss - x0).to(torch.int8)
 
 
+def _mixture_kernels_take(Kp: int) -> bool:
+    """Whether this tree's mixture kernels take Kp lanes (a tree before the
+    wide mixture kernels refuses Kp > 128)."""
+    try:
+        mb.check_kp(Kp)
+    except ValueError:
+        return False
+    return True
+
+
 def time_mixture(I: int, L: int, chains, n: int, dev) -> None:
     kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
     for two in (False, True):
         for B in chains:
             args = mixture_step_inputs(60 + B, B, I, L, K, KP,
                                        0.02 if two else 0.0, dev)
+            streams = "two streams" if two else "one stream"
+            if not _mixture_kernels_take(KP):
+                plain_ms = median_ms(
+                    lambda: mb.mixture_fullstep_biallelic_reference(
+                        *args, **kw), max(2, n // 4))
+                print(f"mixture {I} x {L}, {streams}, {B} chains: the "
+                      f"kernels refuse {KP} lanes; plain step "
+                      f"{plain_ms:.3f} ms on CUDA events", flush=True)
+                del args
+                torch.cuda.empty_cache()
+                continue
 
             def step():
                 return mb.mixture_fullstep_biallelic(*args, **kw)
@@ -639,7 +666,6 @@ def time_mixture(I: int, L: int, chains, n: int, dev) -> None:
             bounds = {"rows pass": bound_ms((lp0, x0, bias, lp1, x1, v, t),
                                             flop + 20 * v.numel()),
                       "columns pass": bound_ms((v, x0, x1, part), flop)}
-            streams = "two streams" if two else "one stream"
             print(f"mixture {I} x {L}, {streams}, {B} chains: step "
                   f"{step_ms:.3f} ms (plain {plain_ms:.3f}, plain rows pass "
                   f"{plain_rows_ms:.3f}) on CUDA events", flush=True)

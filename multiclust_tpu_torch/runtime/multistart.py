@@ -67,9 +67,11 @@ def device_policy(opt: Options, device):
     triple on any other, both to Kp = 1024, the wide kernels above Kp =
     128 and the plain step with a one-time notice above 1024, as the JAX
     package falls back to XLA there; mixture: the biallelic mixture
-    kernels on biallelic panels up to Kp = 128, above which they refuse,
-    the plain products with the eta and p finish on the card on any
-    other panel); CPU fits run the plain step in the compute dtype.
+    kernels on biallelic panels, the plain products with the eta and p
+    finish on the card on any other panel, both to Kp = 1024, the wide
+    kernels above Kp = 128 and the plain step with no notice above 1024,
+    as the JAX package's mixture falls through to XLA); CPU fits run the
+    plain step in the compute dtype.
     ``opt.use_pallas`` overrides the kernel choice on the CPU only: on CUDA
     the kernels are the one route of a float32 fit."""
     on_cuda = torch.device(device).type == "cuda"

@@ -419,17 +419,17 @@ def test_mixture_columns_pass_in_one_long_segment(Kp, K, two):
 
 @pytest.mark.cuda
 def test_mixture_kernels_stop_at_the_live_lanes():
-    """The rows pass reads the live lanes from the bias (pads: PAD_BIAS) and
-    computes ceil(K / 8) tiles of 8 whatever the pad lanes' lp hold; with
-    no live lane it computes all Kp.  The columns pass skips the tiles
-    whose v is all zero, a pad tile and one in the middle alike, and
-    writes zeros there."""
+    """The rows pass computes the ceil(k_true / 8) tiles of 8 below k_true
+    whatever the pad lanes' lp hold, and writes v = 0 past k_true; with
+    k_true 0 it computes all Kp.  The columns pass computes the tiles below
+    k_true: a tile whose v is all zero, between live ones, comes out 0,
+    and so do the pad tiles."""
     dev = _cuda()
     lp0, x0, bias, _, _ = _mix_args(12, 2, 600, 512, 20, 64, 0.0, 2, dev)
     noisy = lp0.clone()
     noisy[:, 20:] = torch.randn_like(noisy[:, 20:])
     for lp in (lp0, noisy):
-        got = mb.mixture_rows(lp, x0, bias)
+        got = mb.mixture_rows(lp, x0, bias, k_true=20)
         ref = mb.mixture_rows_reference(lp, x0, bias)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, **F32)
@@ -439,9 +439,9 @@ def test_mixture_kernels_stop_at_the_live_lanes():
     torch.testing.assert_close(v, torch.full_like(v, 1 / 64), **F32)
     torch.testing.assert_close(
         t, mb.mixture_rows_reference(lp0, x0, flat)[1], **F32)
-    v = mb.mixture_rows(lp0, x0, bias)[0].clone()
+    v = mb.mixture_rows(lp0, x0, bias, k_true=20)[0].clone()
     v[..., 8:16] = 0   # a dead tile between live ones
-    part, vpart = mb.mixture_partials(v, x0)
+    part, vpart = mb.mixture_partials(v, x0, k_true=20)
     part_ref, vpart_ref = mb.mixture_cols_reference(v, x0)
     torch.testing.assert_close(part.sum(dim=1), part_ref[:, 0], **F32)
     torch.testing.assert_close(vpart.sum(dim=1), vpart_ref[:, 0], **F32)
@@ -449,11 +449,12 @@ def test_mixture_kernels_stop_at_the_live_lanes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Kp", [32, 64, 96, 128])
+@pytest.mark.parametrize("Kp", [32, 64, 96, 128, 160, 224, 512, 1024])
 def test_mixture_tiles_match_the_python_mirror(Kp):
     """``cols_tile``, COL_RI and ``cols_blocks_per_sm``, which choose the
     columns pass's segments, against the built library's own tile
-    (csrc/mixture_bi.cu) and the compiled kernel's occupancy."""
+    (csrc/mixture_bi.cu; above 128 lanes the wide pass's) and the compiled
+    kernel's occupancy."""
     _cuda()
     lib = build.library()
     for two in (False, True):
@@ -464,8 +465,9 @@ def test_mixture_tiles_match_the_python_mirror(Kp):
 @pytest.mark.cuda
 def test_mixture_passes_run_on_the_float64_tensor_cores():
     """The machine code of both mixture contraction kernels, at every Kp
-    and both stream variants, holds DMMA instructions (kernel_report's
-    opcode mix, from cuobjdump)."""
+    and both stream variants, and of the wide passes' score and columns
+    kernels, holds DMMA instructions (kernel_report's opcode mix, from
+    cuobjdump)."""
     from multiclust_tpu_torch.kernel_report import sass_mix
 
     _cuda()
@@ -475,20 +477,30 @@ def test_mixture_passes_run_on_the_float64_tensor_cores():
             for targs in ("Lb0E", "Lb1E"):
                 mix = sass_mix(lib, kernel, kp, targs)
                 assert mix["DMMA"] > 0, (kernel, kp, targs, mix)
+    for kernel in ("mix_rows_wide_kernel", "mix_cols_wide_kernel"):
+        for targs in ("ILb0E", "ILb1E"):
+            mix = sass_mix(lib, kernel, None, targs)
+            assert mix["DMMA"] > 0, (kernel, targs, mix)
 
 
 @pytest.mark.cuda
 def test_mixture_kernels_refuse_kp160():
+    """The edge of the mixture kernels' range moved from Kp = 160 to 1056:
+    beyond 1024 every wrapper refuses, naming the plain step."""
     dev = _cuda()
-    lp = torch.zeros(1, 160, 12, device=dev)
+    lp = torch.zeros(1, 1056, 12, device=dev)
     x = torch.zeros(8, 12, dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
-        mb.mixture_rows(lp, x, torch.zeros(1, 160, device=dev))
-    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
-        mb.mixture_partials(torch.zeros(1, 8, 160, device=dev), x)
-    with pytest.raises(ValueError, match="Kp=160.*ROADMAP"):
-        mb.mixture_eta(torch.zeros(1, 1, 160, device=dev), k_true=150,
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
+        mb.mixture_rows(lp, x, torch.zeros(1, 1056, device=dev))
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
+        mb.mixture_partials(torch.zeros(1, 8, 1056, device=dev), x)
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
+        mb.mixture_eta(torch.zeros(1, 1, 1056, device=dev), k_true=1050,
                        lb=0.0, project=False)
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
+        mb.mixture_p(torch.zeros(1, 1, 1, 1056, 12, device=dev),
+                     torch.zeros(1, 1056, device=dev), plb=0.0, ploidy=2,
+                     project=False)
 
 
 def _mixture_fit_inputs(dev, M, missing_rate, seed=3):
@@ -868,8 +880,8 @@ def test_tiles_match_the_python_mirror(Kp):
 def test_build_reports_no_spills():
     """The -Xptxas -v report of every kernel of csrc/fullstep_bi.cu, of
     the generic rows and columns passes of csrc/fullstep.cu and of the
-    mixture rows and columns passes of csrc/mixture_bi.cu (both stream
-    variants): none spills, at every Kp; the rows finish (with A at every
+    mixture rows and columns passes of csrc/mixture_bi.cu, narrow and wide
+    (both stream variants): none spills, at every Kp; the rows finish (with A at every
     Kp, and t-only) in both admixture sources and the generic p epilogue
     at every lane split (G lanes a locus, MJ slots a lane; up to M = 1024)
     among them."""
@@ -902,8 +914,12 @@ def test_build_reports_no_spills():
         assert f"fullstep_p_kernel<{g}, {mj}>" in names, names
     # the finish kernels are built into both admixture sources (4 + 1
     # instances each), the generic rows pass with its dense and its
-    # sparse cells; 8 generic p epilogues; 16 mixture passes
-    assert len(names) == 59, names
+    # sparse cells; 8 generic p epilogues; 16 mixture passes and the 4
+    # wide ones (scores and columns, one and two streams)
+    for kernel in ("mix_rows_wide_kernel", "mix_cols_wide_kernel"):
+        for two in ("false", "true"):
+            assert f"{kernel}<{two}>" in names, (kernel, names)
+    assert len(names) == 63, names
 
 
 # ---------------------------------------------------------------------------
@@ -1705,3 +1721,214 @@ def test_wide_kernels_build_without_spills():
         "wide_cols_kernel<kBi>", "wide_cols_kernel<kDense>",
         "wide_finish_kernel<32>", "wide_finish_kernel<32>",
         "wide_rows_kernel<kBi>", "wide_rows_kernel<kDense>"], lines
+
+
+# ---------------------------------------------------------------------------
+# the mixture's wide kernels (128 < Kp <= 1024, csrc/mixture_bi.cu)
+
+WIDE_MIX = ("wide_mix_rows", "wide_mix_cols", "wide_mix_eta")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,L,K,Kp,miss_rate,ploidy,project", [
+    (1, 1001, 4099, 150, 160, 0.0, 2, True),     # ragged I and L
+    (2, 1001, 4099, 200, 224, 0.02, 2, True),
+    (2, 777, 2048, 200, 224, 0.0, 2, False),     # aligned L (cp.async)
+    (1, 600, 1000, 500, 512, 0.02, 2, True),
+    (2, 513, 2048, 1000, 1024, 0.0, 2, True),
+    (1, 300, 333, 1024, 1024, 0.02, 4, True),    # every lane live
+    (2, 4000, 96, 129, 160, 0.0, 2, True),       # many row segments
+    (1, 130, 160, 161, 192, 0.02, 2, True),      # K one past a chunk
+])
+def test_wide_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate,
+                                          ploidy, project):
+    """The wide rows pass, columns pass and eta finish, the p0 epilogue at
+    wide Kp, the step and the sweep against their plain versions; v, the
+    partials and the v sums are 0 past K; reruns are bit-equal; each call
+    launches each wide kernel once.  The eta bound 1e-4 keeps K lb below
+    1 up to K = 1024, as the projection needs."""
+    dev = _cuda()
+    args = _mix_args(K, B, I, L, K, Kp, miss_rate, ploidy, dev)
+    lp0, x0, bias, lp1, x1 = args
+    kw = dict(k_true=K, lb=1e-4, plb=1e-3, ploidy=ploidy, project=project)
+    before = dict(build.LAUNCHES)
+    got = mb.mixture_fullstep_biallelic(*args, **kw)
+    torch.cuda.synchronize()
+    for name in WIDE_MIX + MIX_KERNELS:
+        assert build.LAUNCHES[name] == before[name] + 1, name
+    ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, **F32)
+    assert (got[0][:, K:] == 0).all()
+    if project:
+        assert float(got[0][:, :K].min()) >= 1e-4 * (1 - 1e-6)
+    torch.testing.assert_close(got[0].sum(dim=1), torch.ones(B, device=dev),
+                               rtol=0, atol=1e-5)
+    again = mb.mixture_fullstep_biallelic(*args, **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+    v, t = mb.mixture_rows(lp0, x0, bias, lp1, x1, k_true=K)
+    v_ref, t_ref = mb.mixture_rows_reference(lp0, x0, bias, lp1, x1)
+    torch.testing.assert_close(v, v_ref, **F32)
+    torch.testing.assert_close(t, t_ref, **F32)
+    assert (v[..., K:] == 0).all()
+    part, vpart = mb.mixture_partials(v, x0, x1, k_true=K)
+    part_ref, vpart_ref = mb.mixture_cols_reference(v, x0, x1)
+    torch.testing.assert_close(part.sum(dim=1), part_ref[:, 0], **F32)
+    torch.testing.assert_close(vpart.sum(dim=1), vpart_ref[:, 0], **F32)
+    assert (part[..., K:, :] == 0).all() and (vpart[..., K:] == 0).all()
+    again = mb.mixture_partials(v, x0, x1, k_true=K)
+    assert torch.equal(part, again[0]) and torch.equal(vpart, again[1])
+    ekw = dict(k_true=K, lb=1e-4, project=project)
+    for g, r in zip(mb.mixture_eta(vpart, **ekw),
+                    mb.mixture_eta_reference(vpart, **ekw)):
+        torch.testing.assert_close(g, r, **F32)
+
+    sweep = mb.mixture_sweep_stats(*args, k_true=K)
+    sweep_ref = mb.mixture_sweep_stats_reference(*args)
+    assert (sweep[3] is None) == (miss_rate == 0)
+    for g, r in zip(sweep, sweep_ref):
+        if g is not None:
+            torch.testing.assert_close(g, r, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp", [160, 224, 1024])
+def test_wide_mixture_eta_projects_like_plain(Kp):
+    """The wide eta finish (32 lanes a thread) on sums that pin lanes at
+    the lower bound, 1, 3 and 40 segments, every lane or a few live."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(Kp)
+    for K in (Kp, Kp - 31, 129):
+        for n_seg in (1, 3, 40):
+            vpart = torch.zeros((2, n_seg, Kp), device=dev)
+            vpart[..., :K] = torch.rand((2, n_seg, K), generator=gen,
+                                        device=dev) ** 8
+            kw = dict(k_true=K, lb=2e-4, project=True)
+            got = mb.mixture_eta(vpart, **kw)
+            ref = mb.mixture_eta_reference(vpart, **kw)
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g, r, **F32)
+            assert (got[0][:, K:] == 0).all()
+            assert float(got[0][:, :K].min()) >= 2e-4 * (1 - 1e-6)
+
+
+def _mixture_plain_raises(monkeypatch):
+    """Every plain version of a mixture kernel, and of the generic p
+    epilogue, raises."""
+    def boom(*a, **kw):
+        raise AssertionError("a plain function ran in a kernel fit")
+    for module in (mb, fs):
+        for name in dir(module):
+            if name.endswith("_reference"):
+                monkeypatch.setattr(module, name, boom)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [200, 1000])
+@pytest.mark.parametrize("panel,accel", [("biallelic", 0), ("missing", 1),
+                                         ("M=4", 0), ("jagged", 0)])
+def test_wide_mixture_fits_run_no_plain_function(monkeypatch, K, panel,
+                                                 accel):
+    """A float32 mixture fit on the card at Kp = 224 and 1024 (plain EM and
+    SQUAREM; biallelic one stream and two, M = 4 and a jagged panel) runs
+    the wide kernels and no plain version of one: the biallelic fits the
+    three wide kernels and the p0 epilogue, the others the plain products
+    with the wide eta finish and the generic p epilogue at K lanes."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.convert import model_data_from_numpy
+
+    dev = _cuda()
+    rng = np.random.default_rng(K + accel)
+    I, L = 1100, 256
+    if panel in ("biallelic", "missing"):
+        M, Ml = 2, np.full(L, 2)
+    elif panel == "M=4":
+        M, Ml = 4, np.full(L, 4)
+    else:
+        M, Ml = 8, np.where(rng.random(L) < 0.8, 2, 8)
+    mask = np.arange(M)[None] < Ml[:, None]
+    miss = rng.binomial(2, 0.0 if panel == "biallelic" else 0.01,
+                        size=(I, L))
+    freq = np.broadcast_to(mask / Ml[:, None], (I, L, M))
+    counts = rng.multinomial(2 - miss, freq)
+    md = model_data_from_numpy(counts, miss, mask, Ml, device=dev,
+                               dtype=torch.float32)
+    _mixture_plain_raises(monkeypatch)
+    build.reset_launch_counts()
+    out = fit_model_data(md, 2, admixture=False, min_K=K, max_K=K,
+                         n_init=2, max_iter=4, seed=3, verbosity=0,
+                         accel_scheme=accel)
+    res = out.estimate.per_K[K]
+    assert np.isfinite(res.max_logL) and not res.any_failed
+    assert build.LAUNCHES["wide_mix_eta"] > 0, build.LAUNCHES
+    if M == 2:
+        assert build.LAUNCHES["wide_mix_rows"] > 0
+        assert build.LAUNCHES["wide_mix_cols"] > 0
+        assert build.LAUNCHES["mc_mix_p"] > 0
+    else:
+        assert build.LAUNCHES["mc_fullstep_p"] > 0
+        assert not build.LAUNCHES["mc_mix_rows"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [2, 4])
+def test_mixture_step_above_1024_lanes_launches_nothing(M, capsys):
+    """At Kp = 1056 (K = 1040) the mixture step is the plain one: no kernel
+    launched, nothing printed, the plain step's own result."""
+    from multiclust_tpu_torch.model import mixture
+    from multiclust_tpu_torch.model.common import EMConfig, make_model_data
+
+    dev = _cuda()
+    K, I, L = 1040, 300, 64
+    rng = np.random.default_rng(M)
+    miss = rng.binomial(2, 0.02, size=(I, L))
+    counts = rng.multinomial(2 - miss, np.full(M, 1 / M), size=(I, L))
+    mask = np.ones((L, M), bool)
+    md = make_model_data(torch.as_tensor(counts, device=dev),
+                         torch.as_tensor(miss, device=dev),
+                         torch.as_tensor(mask, device=dev),
+                         torch.full((L,), M, device=dev),
+                         dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    eta = torch.rand((1, K), generator=gen, device=dev) + 0.05
+    p = torch.rand((1, K, L, M), generator=gen, device=dev) + 0.05
+    from multiclust_tpu_torch.model.common import Params
+    params = Params(eta=eta / eta.sum(-1, keepdim=True),
+                    p=p / p.sum(-1, keepdim=True))
+    cfg = EMConfig(admixture=False, use_pallas="on", biallelic=M == 2,
+                   has_missing=True, ploidy=2)
+    assert not mixture._kernel_ok(md, cfg, params)
+    build.reset_launch_counts()
+    capsys.readouterr()
+    got = mixture.em_step(params, md, cfg)
+    torch.cuda.synchronize()
+    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    out = capsys.readouterr()
+    assert out.out == out.err == ""
+    off = EMConfig(admixture=False, use_pallas="off", biallelic=M == 2,
+                   has_missing=True, ploidy=2)
+    want = mixture.em_step(params, md, off)
+    for g, w in zip((got[0].eta, got[0].p, got[1]),
+                    (want[0].eta, want[0].p, want[1])):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_wide_mixture_kernels_build_without_spills():
+    """The -Xptxas -v report of the mixture's wide kernels: the score and
+    columns kernels (one and two streams), the softmax and the eta finish
+    at 32 lanes a thread, none spilling."""
+    from multiclust_tpu_torch.kernel_report import MIX_WIDE, ptxas_lines
+
+    _cuda()
+    build.library()
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    lines = [(n, t) for n, t in ptxas_lines(report, MIX_WIDE)
+             if "wide" in n or "softmax" in n or n.endswith("<32>")]
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in text
+               for _, text in lines), lines
+    assert sorted(name for name, _ in lines) == [
+        "mix_cols_wide_kernel<false>", "mix_cols_wide_kernel<true>",
+        "mix_eta_kernel<32>", "mix_rows_wide_kernel<false>",
+        "mix_rows_wide_kernel<true>", "mix_softmax_kernel"], lines

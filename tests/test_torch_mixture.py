@@ -603,7 +603,7 @@ def test_mixture_cols_tile_mirror(Kp, two):
     pass's ColsTile (the card's tests hold it to the built library): the
     block's loci are one 16-locus MMA tile for each of its locus warps, at
     most 32 float64 accumulators a thread; two blocks an SM only at Kp =
-    32 with one stream."""
+    32 and 96 with one stream."""
     from multiclust_tpu_torch.ops import mixture_bi as mb
 
     tc = mb.cols_tile(Kp, two)
@@ -613,8 +613,8 @@ def test_mixture_cols_tile_mirror(Kp, two):
     wn = mb.NW // wl                        # cluster warps
     assert wl * wn == mb.NW and nt8 % wn == 0
     assert 4 * ns * (nt8 // wn) <= 32
-    assert mb.cols_blocks_per_sm(Kp, two) == (2 if (Kp, two) == (32, False)
-                                              else 1)
+    assert mb.cols_blocks_per_sm(Kp, two) == (
+        2 if (Kp, two) in ((32, False), (96, False)) else 1)
 
 
 @pytest.mark.parametrize("I,L,B", [(1, 17, 1), (40, 2048, 2),
@@ -678,26 +678,24 @@ def test_kernel_report_names_the_mixture_passes():
 
 @pytest.mark.parametrize("miss_rate", [0.0, 0.02])
 def test_pad_bias_marks_the_pad_lanes_for_the_rows_kernel(miss_rate):
-    """model/mixture.PAD_BIAS, the bias of the K-pad lanes, lies at or below
-    the threshold under which csrc/mixture_bi.cu's rows pass takes a lane
-    for a pad lane (PAD_BIAS_MAX), and the live lanes' bias above it, in
-    inputs built as route_times.mixture_step_inputs builds them for
-    chip_smoke.py."""
-    import re
-    from pathlib import Path
-
+    """model/mixture.PAD_BIAS, the bias of the K-pad lanes, gives them
+    exactly zero posterior mass in the rows pass's plain version (which
+    knows no k_true; the kernels stop at k_true, csrc/mixture_bi.cu no
+    longer reads the bias for it): v is 0 there and v and t equal the
+    same pass over the live lanes alone, in inputs built as
+    route_times.mixture_step_inputs builds them for chip_smoke.py."""
     from multiclust_tpu_torch.ops import mixture_bi as mb
     from multiclust_tpu_torch.route_times import mixture_step_inputs
 
-    src = Path(mb.__file__).parents[1] / "csrc" / "mixture_bi.cu"
-    m = re.search(r"constexpr float PAD_BIAS_MAX = ([-+0-9.e]+)f;",
-                  src.read_text())
-    threshold = np.float32(m.group(1))
-    assert np.float32(tmix.PAD_BIAS) <= threshold
     K, Kp = 5, 32
-    _, _, bias, _, _ = mixture_step_inputs(3, 2, 40, 300, K, Kp, miss_rate,
-                                           "cpu")
+    lp0, x0, bias, lp1, x1 = mixture_step_inputs(3, 2, 40, 300, K, Kp,
+                                                 miss_rate, "cpu")
     assert bias.dtype == torch.float32
     assert (bias[:, K:] == tmix.PAD_BIAS).all()
-    assert (bias[:, K:] <= float(threshold)).all()
-    assert (bias[:, :K] > float(threshold)).all()
+    assert (bias[:, :K] > tmix.PAD_BIAS / 10).all()
+    v, t = mb.mixture_rows_reference(lp0, x0, bias, lp1, x1)
+    assert (v[..., K:] == 0).all()
+    live = mb.mixture_rows_reference(
+        lp0[:, :K], x0, bias[:, :K], None if lp1 is None else lp1[:, :K], x1)
+    torch.testing.assert_close(v[..., :K], live[0], rtol=0, atol=0)
+    torch.testing.assert_close(t, live[1], rtol=0, atol=0)
