@@ -104,6 +104,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 
 #include "simplex.cuh"
 #include "smem.cuh"
@@ -354,45 +355,6 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
             make_float2(e[n][0] / tot, e[n][1] / tot);
       if (t == 0)
         t_out[(size_t)b * I + row] = (float)((double)logf(tot) + m);
-    }
-  }
-}
-
-// The wide rows pass (128 < Kp <= 1024), first launch: block (128 rows,
-// cluster chunk of MIX_WK lanes, chain) runs the scores of the KP = 128
-// pass on its chunk's live tiles and writes s = acc + bias in float64 to
-// s_out [B, I, Kp] (lanes past the chunk's live tiles are not written;
-// the softmax reads the lanes below kt only).
-template <bool X1>
-__global__ void __launch_bounds__(NT, 1) mix_rows_wide_kernel(
-    const float* __restrict__ lp0, const float* __restrict__ lp1,
-    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    const float* __restrict__ bias, double* __restrict__ s_out, int I,
-    int L, int Kp, int kt, int vec) {
-  constexpr int NT8 = MIX_WK / 8;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, k0 = blockIdx.y * MIX_WK;
-  const int row0 = blockIdx.x * ROW_R;
-  const int nt_live = min(NT8, (kt - k0 + 7) / 8);
-  const float* bias_b = bias + (size_t)b * Kp + k0;
-  const float* lp0_b = lp0 + ((size_t)b * Kp + k0) * L;
-  double acc[NT8][4];
-  rows_scores<MIX_WK, X1>(
-      acc, lp0_b, X1 ? lp1 + ((size_t)b * Kp + k0) * L : lp0_b, x0, x1, row0,
-      I, L, nt_live, vec);
-  // rows g and g + 8 of the warp, clusters 8 n + 2 t + {0, 1}
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 16 * warp + g + 8 * h;
-    if (row < I) {
-      double* s = s_out + ((size_t)b * I + row) * Kp + k0 + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NT8; ++n)
-        if (n < nt_live)
-          *reinterpret_cast<double2*>(s + 8 * n) = make_double2(
-              acc[n][2 * h] + (double)bias_b[8 * n + 2 * t],
-              acc[n][2 * h + 1] + (double)bias_b[8 * n + 2 * t + 1]);
     }
   }
 }
@@ -678,27 +640,391 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
                      seg_rows, vec);
 }
 
-// The wide columns pass (128 < Kp <= 1024): block (locus tile, row
-// segment, chain x cluster chunk) runs the KP = 128 tiles on its chunk's
-// MIX_WK lanes of v (row stride Kp; the last chunk may hold fewer lanes
-// than MIX_WK, read as zeros) and writes the chunk's lanes of the same
-// part [B, n_seg, NS, Kp, L] and vpart [B, n_seg, Kp].
-template <bool X1>
+// ---------------------------------------------------------------------------
+// the wide passes (128 < Kp <= 1024)
+
+// A block of either wide pass owns a chunk of MIX_WK cluster lanes and BM
+// rows (rows pass) or loci (columns pass).  Its 8 warps form WM warp rows
+// of MT tiles of 16 by WN warp columns of NTW tiles of 8 lanes; warp
+// column wc owns the chunk's lane tiles wc, wc + WN, wc + 2 WN, ... (so a
+// chunk whose tiles stop at k_true spreads its live tiles over the
+// columns), and warp w sits in warp row w % WM (the two warps of one SM
+// sub-partition, w and w + 4, hold different lane tiles).  A stage is
+// MIX_TK loci (rows pass) or rows (columns pass) of both operands, as
+// they lie in device memory (int8 x, float32 lp or v), copied by cp.async
+// into a ring of ST stages with one barrier a stage; a fragment converts
+// its values to float64 in registers, so each x value is converted once
+// for the warp's NTW lane tiles and each lp or v value once for its MT
+// tiles.
+constexpr int MIX_TK = 32;
+
+template <int MT, int NTW>
+struct WideWarps {
+  static constexpr int WN = MIX_WK / (8 * NTW);
+  static constexpr int WM = NW / WN;
+  static constexpr int BM = 16 * MT * WM;
+  static_assert(WN * WM == NW, "the warps tile the block");
+};
+
+// count q (0-3) of four int8 counts packed in w as float64; XD: by one
+// float64 subtraction (2^52 + 2^31 + n is the double whose low word is
+// n + 2^31), else by a conversion
+template <bool XD>
+__device__ __forceinline__ double xcount_f64(uint32_t w, int q) {
+  if constexpr (XD) {
+    const uint32_t n = (uint32_t)(int)(int8_t)(w >> (8 * q)) ^ 0x80000000u;
+    return __hiloint2double(0x43300000, (int)n) - 4503601774854144.0;
+  } else {
+    return xcount(w, q);
+  }
+}
+
+// Shared memory of a wide rows-pass block, a stage: for each stream the x
+// tile [BM][XS] bytes and the lp tile [MIX_WK][LS] floats of MIX_TK loci.
+// XS = MIX_TK + 16: the 32-bit reads of rows g (8 of them) and words t
+// hit 32 banks; LS = MIX_TK + 16: the 16-byte reads of a quarter warp
+// (lanes 2 g, t) hit distinct banks.
+template <bool X1, int MT, int NTW>
+struct WideRowsTile {
+  using W = WideWarps<MT, NTW>;
+  static constexpr int NS = X1 ? 2 : 1;
+  static constexpr int ST = X1 ? 3 : 4;
+  static constexpr int XS = MIX_TK + 16;
+  static constexpr int LS = MIX_TK + 16;
+  static constexpr int X_BYTES = W::BM * XS;
+  static constexpr int S_BYTES = X_BYTES + MIX_WK * LS * 4;   // a stream
+  static constexpr int STAGE = NS * S_BYTES;
+  static constexpr int SMEM = ST * STAGE;
+};
+
+// The wide rows pass (128 < Kp <= 1024), first launch: block (BM rows,
+// chunk of MIX_WK lanes, chain) computes the scores of its rows on the
+// chunk's live lane tiles (below kt) over the whole of L, A = x and B =
+// lp^T (slot p of thread t: locus 4 t + p of a 16-locus step), and writes
+// s = acc + bias in float64 to s_out [B, I, Kp] (the other lanes are not
+// written: the softmax reads the lanes below kt only).
+template <bool X1, int MT, int NTW, bool XD>
+__global__ void __launch_bounds__(NT, 1) mix_rows_wide_kernel(
+    const float* __restrict__ lp0, const float* __restrict__ lp1,
+    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
+    const float* __restrict__ bias, double* __restrict__ s_out, int I,
+    int L, int Kp, int kt, int vec) {
+  using T = WideRowsTile<X1, MT, NTW>;
+  using W = typename T::W;
+  constexpr int NS = T::NS, ST = T::ST, XS = T::XS, LS = T::LS;
+  constexpr int BM = W::BM, WN = W::WN, TK = MIX_TK;
+  char* smem = reinterpret_cast<char*>(dyn_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % W::WM, wc = warp / W::WM;
+  const int b = blockIdx.z, k0 = blockIdx.y * MIX_WK;
+  const int row0 = blockIdx.x * BM;
+  const int nt_live = min(MIX_WK / 8, (kt - k0 + 7) / 8);
+  const int KC = 8 * nt_live;   // lp rows copied
+  const int n_st = (L + TK - 1) / TK;
+  const float* lp0_b = lp0 + ((size_t)b * Kp + k0) * L;
+  const float* lp1_b = X1 ? lp1 + ((size_t)b * Kp + k0) * L : lp0_b;
+
+  auto issue = [&](int st) {
+    char* stage = smem + (st % ST) * T::STAGE;
+    const int l0 = st * TK;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int8_t* x = s ? x1 : x0;
+      const float* lp = s ? lp1_b : lp0_b;
+      int8_t* xd = reinterpret_cast<int8_t*>(stage + s * T::S_BYTES);
+      float* ld = reinterpret_cast<float*>(stage + s * T::S_BYTES +
+                                           T::X_BYTES);
+      for (int e = tid; e < BM * (TK / 16); e += NT) {
+        const int r = e / (TK / 16), c16 = 16 * (e % (TK / 16));
+        const int row = row0 + r, col = l0 + c16;
+        const int n = row < I ? min(16, L - col) : 0;
+        const int8_t* src = x + (size_t)row * L + col;
+        int8_t* dst = xd + r * XS + c16;
+        if (vec) {
+          cp_async16(dst, n > 0 ? src : x, max(n, 0));
+        } else {
+#pragma unroll
+          for (int q = 0; q < 16; ++q) dst[q] = q < n ? src[q] : 0;
+        }
+      }
+      for (int e = tid; e < KC * (TK / 4); e += NT) {
+        const int k = e / (TK / 4), c4 = 4 * (e % (TK / 4)), col = l0 + c4;
+        const int n = min(4, L - col);
+        const float* src = lp + (size_t)k * L + col;
+        float* dst = ld + k * LS + c4;
+        if (vec) {
+          cp_async16(dst, n > 0 ? src : lp, 4 * max(n, 0));
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) dst[q] = q < n ? src[q] : 0.f;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  double acc[MT][NTW][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
+
+#pragma unroll
+  for (int st = 0; st < ST - 1; ++st) {
+    if (st < n_st) issue(st); else cp_async_commit();
+  }
+  for (int st = 0; st < n_st; ++st) {
+    // stage st has landed for every thread, and every warp is done with
+    // stage st - 1, whose slot the next copies take
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (st + ST - 1 < n_st) issue(st + ST - 1); else cp_async_commit();
+    const char* stage = smem + (st % ST) * T::STAGE;
+#pragma unroll
+    for (int c = 0; c < TK / 16; ++c) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int8_t* xt =
+            reinterpret_cast<const int8_t*>(stage + s * T::S_BYTES);
+        const float* lt = reinterpret_cast<const float*>(
+            stage + s * T::S_BYTES + T::X_BYTES);
+        double bb[NTW][4];
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          if (wc + WN * j < nt_live) {
+            const float4 f = *reinterpret_cast<const float4*>(
+                lt + (8 * (wc + WN * j) + g) * LS + 16 * c + 4 * t);
+            bb[j][0] = f.x;
+            bb[j][1] = f.y;
+            bb[j][2] = f.z;
+            bb[j][3] = f.w;
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          // rows g and g + 8 of the tile, loci 16 c + 4 t .. + 3
+          const int8_t* xr =
+              xt + (16 * (wm * MT + m) + g) * XS + 16 * c + 4 * t;
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(xr);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(xr + 8 * XS);
+          double a[8];
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            a[2 * p] = xcount_f64<XD>(w0, p);
+            a[2 * p + 1] = xcount_f64<XD>(w1, p);
+          }
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+            if (wc + WN * j < nt_live) dmma16(acc[m][j], a, bb[j]);
+        }
+      }
+    }
+  }
+
+  // rows g and g + 8 of each tile, lanes 8 (wc + WN j) + 2 t + {0, 1}
+  const float* bias_b = bias + (size_t)b * Kp + k0;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * (wm * MT + m) + g + 8 * h;
+      if (row >= I) continue;
+      double* s = s_out + ((size_t)b * I + row) * Kp + k0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const int k = 8 * (wc + WN * j);
+        if (wc + WN * j < nt_live)
+          *reinterpret_cast<double2*>(s + k) = make_double2(
+              acc[m][j][2 * h] + (double)bias_b[k + 2 * t],
+              acc[m][j][2 * h + 1] + (double)bias_b[k + 2 * t + 1]);
+      }
+    }
+}
+
+// Shared memory of a wide columns-pass block, a stage: the v tile
+// [MIX_TK][VS] floats and for each stream the x tile [MIX_TK][XS] bytes
+// of MIX_TK rows.  VS = MIX_WK + 8: the reads of rows t (4) and lanes g
+// (8) hit 32 banks; XS = BM + 16: the 16-bit reads of rows t and locus
+// pairs g hit distinct banks.  One stream: 4 locus tiles of 16 a warp;
+// two: 2 a stream (4 NS MT NTW float64 accumulators a thread, at most 64).
+template <bool X1, int MT, int NTW>
+struct WideColsTile {
+  using W = WideWarps<MT, NTW>;
+  static constexpr int NS = X1 ? 2 : 1;
+  static constexpr int ST = 4;
+  static constexpr int XS = W::BM + 16;
+  static constexpr int VS = MIX_WK + 8;
+  static constexpr int X_BYTES = MIX_TK * XS;   // a stream
+  static constexpr int V_BYTES = MIX_TK * VS * 4;
+  static constexpr int STAGE = V_BYTES + NS * X_BYTES;
+  static constexpr int SMEM = ST * STAGE;
+};
+
+// The wide columns pass (128 < Kp <= 1024): block (BM loci, row segment,
+// chain x chunk of MIX_WK lanes) sums over the segment's rows A = x^T (a
+// tile's rows g and g + 8 are loci 2 g and 2 g + 1, one 16-bit read) and
+// B = v (slot p of thread t: row t + 4 p of a 16-row step) on the chunk's
+// live lane tiles (v at row stride Kp; the lanes past Kp of a last,
+// partial chunk read as zeros) and writes the chunk's lanes below Kp of
+// part [B, n_seg, NS, Kp, L] (0 past kt); the blocks of the first locus
+// tile also write the segment's v sums of those lanes to vpart [B, n_seg,
+// Kp], each thread summing half a stage's rows of one lane in float64.
+template <bool X1, int MT, int NTW, bool XD>
 __global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
     const float* __restrict__ v, const int8_t* __restrict__ x0,
     const int8_t* __restrict__ x1, float* __restrict__ part,
     float* __restrict__ vpart, int I, int L, int Kp, int seg_rows, int kt,
     int vec) {
-  constexpr int NS = X1 ? 2 : 1;
+  using T = WideColsTile<X1, MT, NTW>;
+  using W = typename T::W;
+  constexpr int NS = T::NS, ST = T::ST, XS = T::XS, VS = T::VS;
+  constexpr int BM = W::BM, WN = W::WN, TK = MIX_TK;
+  static_assert(NT == 2 * MIX_WK, "two threads a lane sum v");
+  char* smem = reinterpret_cast<char*>(dyn_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % W::WM, wc = warp / W::WM;
   const int n_ch = (Kp + MIX_WK - 1) / MIX_WK;
   const int b = blockIdx.z / n_ch, k0 = (blockIdx.z % n_ch) * MIX_WK;
   const int seg = blockIdx.y, n_seg = gridDim.y;
-  const size_t bs = (size_t)b * n_seg + seg;
+  const int col0 = blockIdx.x * BM;
+  const int kv = min(MIX_WK, Kp - k0);   // the chunk's lanes below Kp
   const int nt_live = max(0, min(MIX_WK / 8, (kt - k0 + 7) / 8));
-  cols_block<MIX_WK, X1>(v + (size_t)b * I * Kp + k0, Kp,
-                         min(MIX_WK, Kp - k0), nt_live, x0, x1,
-                         part + (bs * NS * Kp + k0) * L, Kp,
-                         vpart + bs * Kp + k0, I, L, seg, seg_rows, vec);
+  const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
+  const int n_st = (r_hi - r_lo + TK - 1) / TK;
+  const bool first = blockIdx.x == 0;
+  const float* v_b = v + (size_t)b * I * Kp + k0;
+
+  auto issue = [&](int st) {
+    char* stage = smem + (st % ST) * T::STAGE;
+    const int r0 = r_lo + st * TK;
+    float* vd = reinterpret_cast<float*>(stage);
+    for (int e = tid; e < TK * (MIX_WK / 4); e += NT) {
+      const int r = e / (MIX_WK / 4), c4 = 4 * (e % (MIX_WK / 4));
+      const int row = r0 + r;
+      const bool ok = row < r_hi && c4 < kv;
+      cp_async16(vd + r * VS + c4, ok ? v_b + (size_t)row * Kp + c4 : v_b,
+                 ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int8_t* x = s ? x1 : x0;
+      int8_t* xd = reinterpret_cast<int8_t*>(stage + T::V_BYTES +
+                                             s * T::X_BYTES);
+      for (int e = tid; e < TK * (BM / 16); e += NT) {
+        const int r = e / (BM / 16), c16 = 16 * (e % (BM / 16));
+        const int row = r0 + r, col = col0 + c16;
+        const int n = row < r_hi ? min(16, L - col) : 0;
+        const int8_t* src = x + (size_t)row * L + col;
+        int8_t* dst = xd + r * XS + c16;
+        if (vec) {
+          cp_async16(dst, n > 0 ? src : x, max(n, 0));
+        } else {
+#pragma unroll
+          for (int q = 0; q < 16; ++q) dst[q] = q < n ? src[q] : 0;
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  double acc[NS][MT][NTW][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[s][m][j][q] = 0.0;
+  double vsum = 0.0;   // lane tid % MIX_WK, rows of half tid / MIX_WK
+
+#pragma unroll
+  for (int st = 0; st < ST - 1; ++st) {
+    if (st < n_st) issue(st); else cp_async_commit();
+  }
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();
+    if (st + ST - 1 < n_st) issue(st + ST - 1); else cp_async_commit();
+    const char* stage = smem + (st % ST) * T::STAGE;
+    const float* vt = reinterpret_cast<const float*>(stage);
+    if (first) {   // uniform across the block
+      const float* vc = vt + (tid / MIX_WK) * (TK / 2) * VS + tid % MIX_WK;
+#pragma unroll
+      for (int r = 0; r < TK / 2; ++r) vsum += (double)vc[r * VS];
+    }
+#pragma unroll
+    for (int c = 0; c < TK / 16; ++c) {
+      double bb[NTW][4];
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        if (wc + WN * j < nt_live) {
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            bb[j][p] = vt[(16 * c + t + 4 * p) * VS + 8 * (wc + WN * j) + g];
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int8_t* xt = reinterpret_cast<const int8_t*>(
+                               stage + T::V_BYTES + s * T::X_BYTES) +
+                           (16 * c + t) * XS + 2 * g;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          double a[8];
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const uint32_t w = *reinterpret_cast<const uint16_t*>(
+                xt + 4 * p * XS + 16 * (wm * MT + m));
+            a[2 * p] = xcount_f64<XD>(w, 0);
+            a[2 * p + 1] = xcount_f64<XD>(w, 1);
+          }
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+            if (wc + WN * j < nt_live) dmma16(acc[s][m][j], a, bb[j]);
+        }
+      }
+    }
+  }
+
+  // a thread holds loci 2 g, 2 g + 1 of each tile for lanes 8 (wc + WN j)
+  // + 2 t + {0, 1}
+  const size_t bs = (size_t)b * n_seg + seg;
+  float* out = part + (bs * NS * Kp + k0) * L;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int lc = col0 + 16 * (wm * MT + m) + 2 * g;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int k = 8 * (wc + WN * j) + 2 * t + jj;
+          if (k >= kv) continue;
+          const float o0 = (float)acc[s][m][j][jj];
+          const float o1 = (float)acc[s][m][j][2 + jj];
+          float* dst = out + ((size_t)s * Kp + k) * L + lc;
+          if (vec && lc + 2 <= L) {
+            *reinterpret_cast<float2*>(dst) = make_float2(o0, o1);
+          } else {
+            if (lc < L) dst[0] = o0;
+            if (lc + 1 < L) dst[1] = o1;
+          }
+        }
+    }
+
+  if (first) {   // the two halves' sums of each lane, in order
+    __syncthreads();
+    double* half = reinterpret_cast<double*>(smem);
+    if (tid >= MIX_WK) half[tid - MIX_WK] = vsum;
+    __syncthreads();
+    if (tid < kv) vpart[bs * Kp + k0 + tid] = (float)(vsum + half[tid]);
+  }
 }
 
 // eta finish: one warp per chain, lane owns k = lane + 32 j (KJ values a
@@ -783,6 +1109,12 @@ static bool kp_narrow(int Kp) {
 static bool kp_wide(int Kp) {
   return Kp > 128 && Kp <= KP_WIDE_MAX && Kp % 32 == 0;
 }
+// the wide passes' variant (tuning): MC_MIX_WIDE_VARIANT
+static int wide_variant() {
+  const char* e = getenv("MC_MIX_WIDE_VARIANT");
+  return e ? atoi(e) : 0;
+}
+
 // the lanes the passes compute for k_true clusters (outside [1, Kp]: Kp)
 static int live_lanes(int k_true, int Kp) {
   return k_true < 1 || k_true > Kp ? Kp : k_true;
@@ -812,16 +1144,26 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
     if (s_buf == nullptr || !aligned16(s_buf))
       return (int)cudaErrorInvalidValue;
     double* sb = (double*)s_buf;
-    const dim3 grid((I + ROW_R - 1) / ROW_R, (kt + MIX_WK - 1) / MIX_WK, B);
-#define MC_ROWS_WIDE(X1)                                                     \
+#define MC_ROWS_WIDE(X1, MT, NTW, XD)                                        \
   {                                                                          \
-    auto kern = mix_rows_wide_kernel<X1>;                                    \
-    constexpr int smem = RowsTile<MIX_WK, X1>::SMEM;                         \
+    auto kern = mix_rows_wide_kernel<X1, MT, NTW, XD>;                       \
+    constexpr int smem = WideRowsTile<X1, MT, NTW>::SMEM;                    \
+    static_assert(smem <= SMEM_MAX, "wide rows tiles exceed shared memory"); \
+    const dim3 grid((I + WideWarps<MT, NTW>::BM - 1) / WideWarps<MT, NTW>::BM,\
+                    (kt + MIX_WK - 1) / MIX_WK, B);                          \
     err = allow_smem(kern);                                                  \
     if (err == 0)                                                            \
       kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, sb, I, L, Kp, kt, vec);    \
   }
-    if (two) MC_ROWS_WIDE(true) else MC_ROWS_WIDE(false)
+#define MC_ROWS_WIDE_V(X1)                                                   \
+  switch (wide_variant()) {                                                  \
+    case 1: MC_ROWS_WIDE(X1, 2, 8, false); break;                            \
+    case 2: MC_ROWS_WIDE(X1, 4, 4, true); break;                             \
+    case 3: MC_ROWS_WIDE(X1, 2, 8, true); break;                             \
+    default: MC_ROWS_WIDE(X1, 4, 4, false); break;                           \
+  }
+    if (two) MC_ROWS_WIDE_V(true) else MC_ROWS_WIDE_V(false)
+#undef MC_ROWS_WIDE_V
 #undef MC_ROWS_WIDE
     if (err == 0) err = (int)cudaGetLastError();
     if (err == 0)
@@ -875,17 +1217,33 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
   int err = 0;
   if (kp_wide(Kp)) {
     const int n_ch = (Kp + MIX_WK - 1) / MIX_WK;
-#define MC_COLS_WIDE(X1)                                                     \
+#define MC_COLS_WIDE(X1, MT, NTW, XD)                                        \
   {                                                                          \
-    using T = ColsTile<MIX_WK, X1>;                                          \
-    auto kern = mix_cols_wide_kernel<X1>;                                    \
-    const dim3 grid((L + T::TC - 1) / T::TC, n_seg, B * n_ch);               \
+    using T = WideColsTile<X1, MT, NTW>;                                     \
+    auto kern = mix_cols_wide_kernel<X1, MT, NTW, XD>;                       \
+    static_assert(T::SMEM <= SMEM_MAX, "wide columns tiles exceed shared "   \
+                                       "memory");                            \
+    const dim3 grid((L + T::W::BM - 1) / T::W::BM, n_seg, B * n_ch);         \
     err = allow_smem(kern);                                                  \
     if (err == 0)                                                            \
       kern<<<grid, NT, T::SMEM, s>>>(vv, x, z, pt, vp, I, L, Kp, seg_rows,   \
                                      kt, vec);                               \
   }
-    if (two) MC_COLS_WIDE(true) else MC_COLS_WIDE(false)
+    if (two) {
+      switch (wide_variant()) {
+        case 1: MC_COLS_WIDE(true, 1, 8, false); break;
+        case 2: MC_COLS_WIDE(true, 2, 4, true); break;
+        case 3: MC_COLS_WIDE(true, 1, 8, true); break;
+        default: MC_COLS_WIDE(true, 2, 4, false); break;
+      }
+    } else {
+      switch (wide_variant()) {
+        case 1: MC_COLS_WIDE(false, 2, 8, false); break;
+        case 2: MC_COLS_WIDE(false, 4, 4, true); break;
+        case 3: MC_COLS_WIDE(false, 2, 8, true); break;
+        default: MC_COLS_WIDE(false, 4, 4, false); break;
+      }
+    }
 #undef MC_COLS_WIDE
     return err ? err : (int)cudaGetLastError();
   }
@@ -925,6 +1283,16 @@ static int cols_tile_info(Kernel kern, int* tc, int* blocks) {
                                                             T::SMEM);
 }
 
+template <bool X1, int MT, int NTW, typename Kernel>
+static int wide_cols_tile_info(Kernel kern, int* tc, int* blocks) {
+  using T = WideColsTile<X1, MT, NTW>;
+  *tc = T::W::BM;
+  const int err = allow_smem(kern);
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, NT,
+                                                            T::SMEM);
+}
+
 // The columns pass's tile for Kp and one (two = 0) or two streams: loci a
 // block (TC), rows a stage, and the blocks an SM of the current device
 // holds (at 128 < Kp <= 1024 the wide kernel's, the KP = 128 tile);
@@ -933,11 +1301,13 @@ static int cols_tile_info(Kernel kern, int* tc, int* blocks) {
 extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
                             int* blocks) {
   *rows = COL_RI;
-  if (kp_wide(Kp))
-    return two ? cols_tile_info<MIX_WK, true>(mix_cols_wide_kernel<true>, tc,
-                                              blocks)
-               : cols_tile_info<MIX_WK, false>(mix_cols_wide_kernel<false>,
-                                               tc, blocks);
+  if (kp_wide(Kp)) {
+    *rows = MIX_TK;
+    return two ? wide_cols_tile_info<true, 2, 4>(
+                     mix_cols_wide_kernel<true, 2, 4, false>, tc, blocks)
+               : wide_cols_tile_info<false, 4, 4>(
+                     mix_cols_wide_kernel<false, 4, 4, false>, tc, blocks);
+  }
 #define MC_TILE(KP)                                                      \
   return two ? cols_tile_info<KP, true>(mix_cols_kernel<KP, true>, tc,   \
                                         blocks)                          \

@@ -47,8 +47,10 @@ Tensor = torch.Tensor
 
 # the columns pass's tiling in csrc/mixture_bi.cu (ColsTile): warps a
 # block, rows a stage; the row-segment count is chosen here.  WK: cluster
-# lanes a chunk of the wide passes (MIX_WK), each run by the KP = 128 tiles
+# lanes a chunk of the wide passes (MIX_WK); WIDE_TC: loci a wide
+# columns-pass block (WideColsTile's BM) for one and two streams
 NW, COL_RI, WK = 8, 32, 128
+WIDE_TC = {False: 128, True: 64}
 
 
 def check_kp(Kp: int) -> None:
@@ -78,9 +80,11 @@ def cols_tile(Kp: int, two: bool) -> int:
     reports it): a warp computes one tile of 16 loci by ``ntw`` tiles of 8
     clusters, at most 8 float64 accumulator tiles a thread over the
     streams, and the block's NW warps split the Kp / 8 cluster tiles into
-    groups of ``ntw``; the wide pass runs the tile of Kp = WK on each
-    chunk."""
-    ns, nt8 = (2 if two else 1), min(Kp, WK) // 8
+    groups of ``ntw``.  The wide pass (``WideColsTile``) takes WIDE_TC
+    loci on each chunk of WK lanes."""
+    if is_wide(Kp):
+        return WIDE_TC[two]
+    ns, nt8 = (2 if two else 1), Kp // 8
     ntw = next((d for d in range(nt8, 1, -1)
                 if nt8 % d == 0 and ns * d <= 8 and NW % (nt8 // d) == 0), 1)
     return 16 * (NW // (nt8 // ntw))

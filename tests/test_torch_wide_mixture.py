@@ -347,14 +347,14 @@ def test_check_kp_takes_multiples_of_32_to_1024():
 
 @pytest.mark.parametrize("Kp", [160, 224, 512, 1024])
 def test_wide_cols_tile_and_segments(Kp):
-    """The wide columns pass runs the Kp = 128 tile on each chunk of 128
-    lanes; its row segments cover I exactly, in whole stages, and with the
-    chunk blocks counted fit one wave of the card where there is more than
-    one segment."""
+    """The wide columns pass takes blocks of 128 loci (one stream) or 64
+    (two) on each chunk of 128 lanes, whatever Kp; its row segments cover
+    I exactly, in whole stages, and with the chunk blocks counted fit one
+    wave of the card where there is more than one segment."""
     from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX
 
     for two in (False, True):
-        assert mb.cols_tile(Kp, two) == mb.cols_tile(128, two)
+        assert mb.cols_tile(Kp, two) == (64 if two else 128)
         assert mb.cols_blocks_per_sm(Kp, two) == 1
         for I, L, B in ((1, 17, 1), (16384, 2048, 1), (16384, 2048, 2),
                         (8192, 131072, 2), (131071, 64, 7), (4000, 96, 2)):
