@@ -152,7 +152,8 @@ each raising on failure:
    kmask, project_eta off, project off, windows) on a ragged 1001 x 4099
    panel; the generic step at M = 4 and on a ragged 1001 x 333 x M = 3
    panel with the sweep statistics and an a0 / emit_a chain, the wide
-   generic columns pass timed on CUDA events; fits through
+   generic columns pass timed on CUDA events, the rows and columns
+   passes beside the float32 matmuls of their contractions; fits through
    ``api.fit_model_data`` at K = 200 (plain EM and SQUAREM, cap 30; M = 4
    and the jagged mix, cap 10) and K = 1024 (cap 10), each run's wide
    launches counted from 0; a 600 x 500 warm-start fit at K = 200 within
@@ -170,7 +171,8 @@ each raising on failure:
    partials 0 past K; each kernel's time at 2 chains, one stream, on CUDA
    events beside its plain version's, its bound and one float64
    torch.matmul of its product; every Kp of the range on a ragged 1001 x
-   4099 panel; fits through ``api.fit_model_data`` at K = 200 (plain EM
+   4099 panel (and 130 live lanes of 512); fits through
+   ``api.fit_model_data`` at K = 200 (plain EM
    and SQUAREM, cap 30, and plain EM at 1 % missing) and K = 1024 (cap
    10), an M = 4 and a jagged panel at K = 200 (cap 10; the wide eta
    finish and the generic p epilogue at 200 lanes), each run's launches
@@ -196,7 +198,10 @@ is one float64 torch.matmul of the pass's product (the softmax left out),
 the port's
 plain arithmetic in one library call; no single PyTorch call computes the
 other functions (phase 6 prints two float32 matmuls a generic pass beside
-them), so theirs is null.
+them), so theirs is null.  The wide admixture rows and columns passes
+(phase 21) carry the float32 matmuls of their contractions under
+``yardstick_matmuls_ms`` (and ``kp1024``'s), a yardstick the port never
+calls.
 
 Records of kernels the mesh phase launched name the sharded variants it
 took (``mesh_variants``) and their launches on each rank of each shape
@@ -2840,7 +2845,9 @@ def phase_wide_kernels(fb, fs, build, dev, where):
     window) on a ragged 1001 x 4099 panel, streamed and chunked; (c) the
     generic kernels at M = 4 on 16384 x 2048 and on a ragged 1001 x 333 x
     M = 3 panel: the step, the sweep statistics (finish=False, the miss
-    fold) and an a0 / emit_a chain.  Returns errors, times and bounds by
+    fold) and an a0 / emit_a chain.  Beside the rows and columns passes
+    (W1, W3, W4) the float32 matmuls of their contractions, a yardstick
+    the port never calls.  Returns errors, times, bounds and yardsticks by
     (kernel, K)."""
     from multiclust_tpu_torch.model.common import k_padded_size
     from multiclust_tpu_torch.route_times import finish_bytes
@@ -2848,7 +2855,7 @@ def phase_wide_kernels(fb, fs, build, dev, where):
     rng = np.random.default_rng(21)
     n_sm = fb.device_sm_count(dev)
     errs = dict.fromkeys(WIDE_KERNELS, 0.0)
-    ms, bnd = {}, {}
+    ms, bnd, yard = {}, {}, {}
     kw = dict(lb=1e-8, plb=1e-8, project=True)
     for K in WIDE_K:
         Kp = k_padded_size(K, 32)
@@ -2926,6 +2933,27 @@ def phase_wide_kernels(fb, fs, build, dev, where):
                           f"{100 * bounds[name][0] / k_ms:.1f} % of it, on "
                           f"{where}", flush=True)
                 del calls, outs
+                # the yardstick the port never calls: each pass's
+                # contractions alone, float32 torch.matmul (TF32 off) on
+                # K-wide operands: d = eta p0 and A = w p0^T (the rows
+                # pass; p1 = 1 - p0 folds into one product), d and B =
+                # eta^T w over the x0 and x1 planes (the columns pass)
+                e_k, p_k = e[..., :K].contiguous(), p[:, :K, :W].contiguous()
+                w = torch.rand((B, I_FULL, 2 * W), device=dev)
+                w1 = w[..., :W].contiguous()
+                yard["wide_rows", K] = median_ms(
+                    lambda: (e_k @ p_k, w1 @ p_k.transpose(1, 2)))
+                yard["wide_cols_bi", K] = median_ms(
+                    lambda: (e_k @ p_k, e_k.transpose(1, 2) @ w))
+                print(f"wide K={K} yardstick, not a route of the port: the "
+                      f"float32 matmuls of the rows pass's contractions "
+                      f"(d, A) {yard['wide_rows', K]:.4f} ms, of the "
+                      f"columns pass's (d, B0 and B1) "
+                      f"{yard['wide_cols_bi', K]:.4f} ms; the kernels "
+                      f"{ms['wide_rows', K][0]:.4f} and "
+                      f"{ms['wide_cols_bi', K][0]:.4f} ms on {where}",
+                      flush=True)
+                del e_k, p_k, w, w1
             del args, e, p, a, z, c, m, apart, tpart
             torch.cuda.empty_cache()
 
@@ -3020,13 +3048,22 @@ def phase_wide_kernels(fb, fs, build, dev, where):
                     tensors_bytes((eta, p2, x2, miss, part)),
                     (4 * K + 3) * lanes)
                 b = bnd["wide_cols_generic", K]
+                # the yardstick: d = eta p and B = eta^T w over L x M lanes
+                e_k, p_k = eta[..., :K].contiguous(), p2[:, :K].contiguous()
+                w = torch.rand((B, I, L * M), device=dev)
+                yard["wide_cols_generic", K] = median_ms(
+                    lambda: (e_k @ p_k, e_k.transpose(1, 2) @ w))
+                del e_k, p_k, w
                 print(f"wide K={K} wide_cols_generic at 2 chains, M=4: "
                       f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
                       f"{b[0]:.4f} ms ({b[1]}), {100 * b[0] / k_ms:.1f} % of "
-                      f"it, on {where}", flush=True)
+                      f"it; yardstick, not a route of the port: the float32 "
+                      f"matmuls of its contractions (d, B) "
+                      f"{yard['wide_cols_generic', K]:.4f} ms, on {where}",
+                      flush=True)
             del args, eta, p2, x2, c, miss, mask, part, part_ref
             torch.cuda.empty_cache()
-    return errs, ms, bnd
+    return errs, ms, bnd, yard
 
 
 def wide_fit_counts(K, I, L, n_alleles, seed, dev):
@@ -3325,7 +3362,7 @@ def phase_wide(fb, fs, build, dev, where):
     records and the mesh entry."""
     t0 = time.time()
     torch.cuda.empty_cache()
-    errs, ms, bnd = phase_wide_kernels(fb, fs, build, dev, where)
+    errs, ms, bnd, yard = phase_wide_kernels(fb, fs, build, dev, where)
     print(f"wide kernels: {time.time() - t0:.1f} s", flush=True)
     launches = phase_wide_fits(build, dev, where)
     phase_wide_reference(build, dev)
@@ -3348,6 +3385,11 @@ def phase_wide(fb, fs, build, dev, where):
                          "plain_ms": ms[name, 1024][1],
                          "bound_ms": bnd[name, 1024][0],
                          "bound_by": bnd[name, 1024][1]}
+        # no single PyTorch call computes these functions (library_ms
+        # null); the float32 matmuls of their contractions beside them
+        if (name, 200) in yard:
+            rec["yardstick_matmuls_ms"] = yard[name, 200]
+            rec["kp1024"]["yardstick_matmuls_ms"] = yard[name, 1024]
         records.append(rec)
     print(f"wide phase: {time.time() - t0:.1f} s", flush=True)
     return records, mesh
@@ -3487,7 +3529,8 @@ def phase_wide_mixture_kernels(mb, dev, where):
                 del args, calls, v, vpart
                 torch.cuda.empty_cache()
     # every Kp of the range on a ragged panel, one stream and two
-    for K, Kp in ((150, 160), (200, 224), (500, 512), (1024, 1024)):
+    for K, Kp in ((150, 160), (200, 224), (500, 512), (1024, 1024),
+                  (130, 512)):
         e_rag = 0.0
         for miss_rate in (0.0, 0.03):
             args = mixture_step_inputs(450 + K, 2, 1001, 4099, K, Kp,

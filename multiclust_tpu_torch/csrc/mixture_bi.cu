@@ -71,26 +71,51 @@
 // step admits Kp up to 1024, `_stream_vmem_fits`, kernels.py:709-735).
 // The narrow passes keep a row's (or a locus tile's) whole cluster axis in
 // float64 accumulators, 4 doubles a thread per 8 clusters: 512 a thread
-// at Kp = 1024 against 255 registers.  The wide passes cut the cluster
-// axis into chunks of MIX_WK = 128 lanes and run the KP = 128 tiles of the
-// narrow passes on each chunk, the chunk a grid axis:
+// at Kp = 1024 against 255 registers.  The wide passes cut the live lanes
+// (ceil(k_true / 8) tiles of 8) into chunks of at most MIX_WK = 128 lanes
+// that differ by at most one tile (K = 200: 104 + 96 lanes, not 128 + 72),
+// and give each chunk kernels of their own:
 //
-// * rows pass, two launches: the scores of a (128 rows, chunk, chain)
-//   block written as float64 s [B, I, Kp] (268 MB at 16384 x 1024 x 2
-//   chains, moved twice: a small part of the contraction's time), then
-//   one warp a row for the softmax over at most 32 doubles a lane.  An
-//   online softmax across the chunks would drop the scratch (later work).
-// * columns pass: the block's chunk is a factor of the grid's z axis; v is
-//   read at row stride Kp, the lanes past Kp of a last, partial chunk as
-//   zeros, and each chunk writes its lanes of the same partials.
+// * What bounds them on this card: the float64 tensor cores (67 TFLOP/s,
+//   about 128 FMA an SM-clock: one m16n8k16 DMMA is 16 SM-clocks of the
+//   SM's rate) are reached only through `mma.sync`; `wgmma` has no
+//   float64 form, so the lever is how DMMA is fed.  Both contractions are
+//   bound by operations (2 I L K a stream each); the rest is feeding them.
+// * Warp tiles of 4 x 4 DMMA tiles (64 rows or loci x 32 lanes, 64
+//   float64 accumulators a thread; 2 x 4 a stream in the two-stream
+//   columns pass), 8 warps a block of 128 (64) x 128: each B fragment
+//   serves 4 DMMAs and each A fragment 4, about a third of the narrow
+//   tiles' shared-memory bytes a DMMA.  Fragments are converted to
+//   float64 in registers (x from int8, lp and v from float32) as they are
+//   built: no conversion pass through shared memory (converting each x
+//   tile once a block into float64 high words there measured slower).
+// * Operands stream as they lie in device memory (int8 x, float32 lp or
+//   v) through cp.async rings of two stages of 128 loci or rows (64 loci
+//   with two streams), one barrier a stage: 8 16-locus steps of products
+//   between barriers.
+// * A warp owns the chunk's lane tiles wc, wc + 4, ...; a stage's products
+//   run through code made for the warp's number of live tiles, chosen once
+//   a stage, so no test sits between two DMMAs (a test before each DMMA
+//   measured markedly slower).
+// * rows pass, two launches: a persistent grid over (128 rows, chunk,
+//   chain) tiles, each block taking every gridDim.x-th, writes the float64
+//   scores s [B, I, Kp] (268 MB at 16384 x 1024 x 2 chains); then one warp
+//   a row loads all its scores, takes the float64 max, expf(s - m), the
+//   float32 total, v = e / total and t = log(total) + m, as the narrow
+//   epilogue forms them.
+// * columns pass: grid (128 loci, row segment, chain x chunk); v is read
+//   at row stride Kp; each locus tile also sums v over its segment for
+//   its share of the chunk's lanes (float32 within a stage, float64
+//   across, a fixed order), so no block carries the v sums alone; the
+//   first chunk's blocks write zeros past the live tiles.
 // * eta finish: the narrow kernel at KJ = 32 values a lane, with Kp at run
 //   time (michelot_warp at KJ = 32, as wide.cuh's finish runs it).
 //
-// The wide passes add no arithmetic: the same float64 products in the same
-// order over L (rows) or the segment's rows (columns), so a chunk's scores
-// and partials are those the KP = 128 pass computes for those lanes.  The
-// bound is the narrow passes' (below) at K lanes; the scratch s adds 16
-// bytes a row and lane to the rows pass.
+// The products stay IEEE float64 on the tensor cores, summed in a fixed
+// order over L (rows) or the segment's rows (columns); no atomics, so
+// reruns are bit-equal.  The bound is the narrow passes' (below) at K
+// lanes; the scratch s adds 16 bytes a row and lane to the rows pass.
+// PERF.md (PR 15) holds their shares of it at 16384 x 2048.
 
 // Bound: two contractions of I x L x K per stream (scores and B) on the
 // float64 tensor cores (67 TFLOP/s dense, the rate of float32 outside
@@ -104,7 +129,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <stdlib.h>
 
 #include "simplex.cuh"
 #include "smem.cuh"
@@ -115,8 +139,8 @@ constexpr int NT = 256;       // threads per block, every kernel
 constexpr int NW = NT / 32;   // warps per block
 constexpr int ROW_R = 16 * NW;  // rows per rows-pass block (16 per warp)
 constexpr int COL_RI = 32;    // rows per columns-pass stage
-// the wide passes (128 < Kp <= KP_WIDE_MAX): cluster lanes a chunk, each
-// chunk run by the KP = 128 tiles of the narrow passes
+// the wide passes (128 < Kp <= KP_WIDE_MAX): cluster lanes a chunk, at
+// most
 constexpr int MIX_WK = 128;
 constexpr int KP_WIDE_MAX = 1024;
 // v sums: stages a thread sums in float32 before it adds them to its
@@ -360,39 +384,49 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
 }
 
 // The wide rows pass, second launch: one warp a row takes the row max of
-// its float64 scores over the lanes k < kt (lane owns k = lane + 32 j, at
-// most KP_WIDE_MAX / 32 values a lane), then e = expf(s - m), the float32
-// total, v = e / total (0 past kt, up to Kp) and t = log(total) + m, as the
-// narrow epilogue does.
+// its float64 scores over the lanes k < kt (lane owns k = 2 (lane + 32 j)
+// + {0, 1}, KJ >= Kp / 64 pairs a lane), then e = expf(s - m),
+// the float32 total, v = e / total (0 past kt, up to Kp) and t =
+// log(total) + m, as the narrow epilogue does.  Every pair is loaded
+// before the first is used (a pair at or past kt loads the last live
+// lane's, which the scores kernel wrote, and is masked after).
+template <int KJ>
 __global__ void __launch_bounds__(NT) mix_softmax_kernel(
     const double* __restrict__ s_in, float* __restrict__ v_out,
     float* __restrict__ t_out, int I, int Kp, int kt) {
-  constexpr int KJ = KP_WIDE_MAX / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * NW + warp;
   if (row >= I) return;   // warps share nothing
   const size_t br = (size_t)blockIdx.y * I + row;
-  const double* s = s_in + br * Kp;
-  double sv[KJ], m = -INFINITY;
+  const double2* s = reinterpret_cast<const double2*>(s_in + br * Kp);
+  const int last = (kt - 1) / 2;
+  double2 sv[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) sv[j] = s[min(lane + 32 * j, last)];
+  double m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
-    const int k = lane + 32 * j;
-    sv[j] = k < kt ? s[k] : -INFINITY;
-    m = fmax(m, sv[j]);
+    const int k = 2 * (lane + 32 * j);
+    if (k < kt) m = fmax(m, sv[j].x);
+    if (k + 1 < kt) m = fmax(m, sv[j].y);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmax(m, __shfl_xor_sync(FULL, m, o));
-  float e[KJ], part = 0.f;
+  float2 e[KJ];
+  float part = 0.f;
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
-    e[j] = lane + 32 * j < kt ? expf((float)(sv[j] - m)) : 0.f;
-    part += e[j];
+    const int k = 2 * (lane + 32 * j);
+    e[j].x = k < kt ? expf((float)(sv[j].x - m)) : 0.f;
+    e[j].y = k + 1 < kt ? expf((float)(sv[j].y - m)) : 0.f;
+    part += e[j].x + e[j].y;
   }
   const float tot = warp_sum(part);
-  float* v = v_out + br * Kp;
+  float2* v = reinterpret_cast<float2*>(v_out + br * Kp);
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
-    if (lane + 32 * j < Kp) v[lane + 32 * j] = e[j] / tot;
+    if (2 * (lane + 32 * j) < Kp)
+      v[lane + 32 * j] = make_float2(e[j].x / tot, e[j].y / tot);
   if (lane == 0) t_out[br] = (float)((double)logf(tot) + m);
 }
 
@@ -406,9 +440,8 @@ __global__ void __launch_bounds__(NT) mix_softmax_kernel(
 // WL loci.  MINB blocks an SM: two where ptxas fits the kernel in 128
 // registers with no spill (one stream at Kp = 32 and 96: 89 and 128
 // registers with one block an SM asked, measured; the others take 140-227
-// there), else one.  The wide pass runs the
-// KP = 128 tiles on each chunk.  ops/mixture_bi.cols_tile and
-// cols_blocks_per_sm mirror TC and MINB.
+// there), else one.  ops/mixture_bi.cols_tile and cols_blocks_per_sm
+// mirror TC and MINB (and WideColsTile's, above 128 lanes).
 constexpr int cols_ntw(int nt8, int ns) {
   for (int d = nt8; d > 1; --d)
     if (nt8 % d == 0 && ns * d <= 8 && NW % (nt8 / d) == 0) return d;
@@ -643,20 +676,19 @@ __global__ void __launch_bounds__(NT, ColsTile<KP, X1>::MINB) mix_cols_kernel(
 // ---------------------------------------------------------------------------
 // the wide passes (128 < Kp <= 1024)
 
-// A block of either wide pass owns a chunk of MIX_WK cluster lanes and BM
-// rows (rows pass) or loci (columns pass).  Its 8 warps form WM warp rows
-// of MT tiles of 16 by WN warp columns of NTW tiles of 8 lanes; warp
-// column wc owns the chunk's lane tiles wc, wc + WN, wc + 2 WN, ... (so a
-// chunk whose tiles stop at k_true spreads its live tiles over the
-// columns), and warp w sits in warp row w % WM (the two warps of one SM
-// sub-partition, w and w + 4, hold different lane tiles).  A stage is
-// MIX_TK loci (rows pass) or rows (columns pass) of both operands, as
-// they lie in device memory (int8 x, float32 lp or v), copied by cp.async
-// into a ring of ST stages with one barrier a stage; a fragment converts
-// its values to float64 in registers, so each x value is converted once
-// for the warp's NTW lane tiles and each lp or v value once for its MT
-// tiles.
-constexpr int MIX_TK = 32;
+// A block of either wide pass owns a chunk of at most MIX_WK cluster lanes
+// and BM rows (rows pass) or loci (columns pass).  Its 8 warps form WM
+// warp rows of MT tiles of 16 by WN warp columns of NTW tiles of 8 lanes;
+// warp column wc owns the chunk's lane tiles wc, wc + WN, wc + 2 WN, ...,
+// and warp w sits in warp row w % WM (the two warps of one SM
+// sub-partition, w and w + 4, hold different lane tiles).  A stage is TK
+// loci (rows pass) or rows (columns pass) of both operands as they lie in
+// device memory (int8 x, float32 lp or v), copied by cp.async into a ring
+// of WIDE_ST stages with one barrier a stage; a fragment converts its
+// values to float64 in registers.  A warp runs a stage's products through
+// code made for its number of live lane tiles NJ (0 to NTW), chosen once
+// a stage: no test between two DMMAs.
+constexpr int WIDE_ST = 2;
 
 template <int MT, int NTW>
 struct WideWarps {
@@ -666,237 +698,334 @@ struct WideWarps {
   static_assert(WN * WM == NW, "the warps tile the block");
 };
 
-// count q (0-3) of four int8 counts packed in w as float64; XD: by one
-// float64 subtraction (2^52 + 2^31 + n is the double whose low word is
-// n + 2^31), else by a conversion
-template <bool XD>
-__device__ __forceinline__ double xcount_f64(uint32_t w, int q) {
-  if constexpr (XD) {
-    const uint32_t n = (uint32_t)(int)(int8_t)(w >> (8 * q)) ^ 0x80000000u;
-    return __hiloint2double(0x43300000, (int)n) - 4503601774854144.0;
+// the warp's live lane tiles: j < NTW with wc + WN j < nt_live
+template <int NTW, int WN>
+__device__ __forceinline__ int live_tiles(int nt_live, int wc) {
+  return max(0, min(NTW, (nt_live - wc + WN - 1) / WN));
+}
+
+// The live lane tiles (nt = ceil(kt / 8)) cut into chunks of at most
+// MIX_WK / 8 tiles that differ by at most one tile: their count, and the
+// first tile and tile count of chunk c.
+__host__ __device__ __forceinline__ int wide_chunks(int kt) {
+  return ((kt + 7) / 8 + MIX_WK / 8 - 1) / (MIX_WK / 8);
+}
+__device__ __forceinline__ void chunk_tiles(int c, int kt, int* t0,
+                                            int* n) {
+  const int nt = (kt + 7) / 8, n_ch = wide_chunks(kt);
+  const int q = nt / n_ch, r = nt % n_ch;
+  *t0 = c * q + min(c, r);
+  *n = q + (c < r ? 1 : 0);
+}
+
+template <int N>
+struct Count {
+  static constexpr int value = N;
+};
+
+// f(Count<nj>()) for a runtime nj in [0, N]
+template <int N, typename F>
+__device__ __forceinline__ void with_count(int nj, F&& f) {
+  if constexpr (N == 0) {
+    f(Count<0>());
   } else {
-    return xcount(w, q);
+    if (nj == N)
+      f(Count<N>());
+    else
+      with_count<N - 1>(nj, f);
   }
 }
 
-// Shared memory of a wide rows-pass block, a stage: for each stream the x
-// tile [BM][XS] bytes and the lp tile [MIX_WK][LS] floats of MIX_TK loci.
-// XS = MIX_TK + 16: the 32-bit reads of rows g (8 of them) and words t
-// hit 32 banks; LS = MIX_TK + 16: the 16-byte reads of a quarter warp
-// (lanes 2 g, t) hit distinct banks.
-template <bool X1, int MT, int NTW>
+// The wide rows-pass block: 4 x 4 DMMA tiles a warp (64 rows x 32 lanes,
+// 64 float64 accumulators a thread), 128 rows; TK = 128 loci a stage (64
+// with two streams).  Shared memory a stage, for each stream: the x tile
+// [BM][XS] bytes and the lp tile [MIX_WK][LS] floats.  XS = TK + 16: the
+// 32-bit reads of rows g (8) and words t hit 32 banks; LS = TK + 16: the
+// 16-byte reads of a quarter warp (lanes 2 g, t) hit distinct banks.
+template <bool X1>
 struct WideRowsTile {
+  static constexpr int MT = 4, NTW = 4;
   using W = WideWarps<MT, NTW>;
   static constexpr int NS = X1 ? 2 : 1;
-  static constexpr int ST = X1 ? 3 : 4;
-  static constexpr int XS = MIX_TK + 16;
-  static constexpr int LS = MIX_TK + 16;
+  static constexpr int TK = X1 ? 64 : 128;
+  static constexpr int XS = TK + 16;
+  static constexpr int LS = TK + 16;
   static constexpr int X_BYTES = W::BM * XS;
   static constexpr int S_BYTES = X_BYTES + MIX_WK * LS * 4;   // a stream
   static constexpr int STAGE = NS * S_BYTES;
-  static constexpr int SMEM = ST * STAGE;
+  static constexpr int SMEM = WIDE_ST * STAGE;
 };
 
-// The wide rows pass (128 < Kp <= 1024), first launch: block (BM rows,
-// chunk of MIX_WK lanes, chain) computes the scores of its rows on the
-// chunk's live lane tiles (below kt) over the whole of L, A = x and B =
-// lp^T (slot p of thread t: locus 4 t + p of a 16-locus step), and writes
-// s = acc + bias in float64 to s_out [B, I, Kp] (the other lanes are not
-// written: the softmax reads the lanes below kt only).
-template <bool X1, int MT, int NTW, bool XD>
+// One stage of the rows pass's products for a warp with NJ live lane
+// tiles: A = x (rows g and g + 8 of a tile), B = lp^T, slot p of thread t
+// locus 4 t + p of a 16-locus step.
+template <bool X1, int NJ>
+__device__ __forceinline__ void wide_rows_stage(
+    double (&acc)[WideRowsTile<X1>::MT][WideRowsTile<X1>::NTW][4],
+    const char* stage, int wm, int wc, int g, int t) {
+  using T = WideRowsTile<X1>;
+  constexpr int MT = T::MT, XS = T::XS, LS = T::LS, WN = T::W::WN;
+#pragma unroll
+  for (int c = 0; c < T::TK / 16; ++c) {
+#pragma unroll
+    for (int s = 0; s < T::NS; ++s) {
+      const int8_t* xt =
+          reinterpret_cast<const int8_t*>(stage + s * T::S_BYTES) +
+          (16 * wm * MT + g) * XS + 16 * c + 4 * t;
+      const float* lt =
+          reinterpret_cast<const float*>(stage + s * T::S_BYTES +
+                                         T::X_BYTES) +
+          (8 * wc + g) * LS + 16 * c + 4 * t;
+      double bb[NJ > 0 ? NJ : 1][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(lt + 8 * WN * j * LS);
+        bb[j][0] = f.x;
+        bb[j][1] = f.y;
+        bb[j][2] = f.z;
+        bb[j][3] = f.w;
+      }
+#pragma unroll
+      for (int m = 0; NJ > 0 && m < MT; ++m) {
+        const uint32_t w0 =
+            *reinterpret_cast<const uint32_t*>(xt + 16 * m * XS);
+        const uint32_t w1 =
+            *reinterpret_cast<const uint32_t*>(xt + (16 * m + 8) * XS);
+        double a[8];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          a[2 * p] = xcount(w0, p);
+          a[2 * p + 1] = xcount(w1, p);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dmma16(acc[m][j], a, bb[j]);
+      }
+    }
+  }
+}
+
+// The wide rows pass (128 < Kp <= 1024), first launch: a persistent grid
+// over the tiles (BM rows, chunk of live lane tiles, chain), each block
+// taking every gridDim.x-th.  A tile's scores over the whole of L on its
+// chunk's lanes are written as s = acc + bias in float64 to s_out [B, I,
+// Kp] (the lanes past the live tiles are not written: the softmax reads
+// the lanes below kt only).
+template <bool X1>
 __global__ void __launch_bounds__(NT, 1) mix_rows_wide_kernel(
     const float* __restrict__ lp0, const float* __restrict__ lp1,
     const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
     const float* __restrict__ bias, double* __restrict__ s_out, int I,
-    int L, int Kp, int kt, int vec) {
-  using T = WideRowsTile<X1, MT, NTW>;
+    int L, int Kp, int kt, int B, int vec) {
+  using T = WideRowsTile<X1>;
   using W = typename T::W;
-  constexpr int NS = T::NS, ST = T::ST, XS = T::XS, LS = T::LS;
-  constexpr int BM = W::BM, WN = W::WN, TK = MIX_TK;
+  constexpr int NS = T::NS, TK = T::TK, XS = T::XS, LS = T::LS;
+  constexpr int MT = T::MT, NTW = T::NTW, BM = W::BM, WN = W::WN;
+  constexpr int ST = WIDE_ST;
   char* smem = reinterpret_cast<char*>(dyn_smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp % W::WM, wc = warp / W::WM;
-  const int b = blockIdx.z, k0 = blockIdx.y * MIX_WK;
-  const int row0 = blockIdx.x * BM;
-  const int nt_live = min(MIX_WK / 8, (kt - k0 + 7) / 8);
-  const int KC = 8 * nt_live;   // lp rows copied
+  const int n_rt = (I + BM - 1) / BM;
+  const int n_tiles = n_rt * B * wide_chunks(kt);
   const int n_st = (L + TK - 1) / TK;
-  const float* lp0_b = lp0 + ((size_t)b * Kp + k0) * L;
-  const float* lp1_b = X1 ? lp1 + ((size_t)b * Kp + k0) * L : lp0_b;
 
-  auto issue = [&](int st) {
-    char* stage = smem + (st % ST) * T::STAGE;
-    const int l0 = st * TK;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const int8_t* x = s ? x1 : x0;
-      const float* lp = s ? lp1_b : lp0_b;
-      int8_t* xd = reinterpret_cast<int8_t*>(stage + s * T::S_BYTES);
-      float* ld = reinterpret_cast<float*>(stage + s * T::S_BYTES +
-                                           T::X_BYTES);
-      for (int e = tid; e < BM * (TK / 16); e += NT) {
-        const int r = e / (TK / 16), c16 = 16 * (e % (TK / 16));
-        const int row = row0 + r, col = l0 + c16;
-        const int n = row < I ? min(16, L - col) : 0;
-        const int8_t* src = x + (size_t)row * L + col;
-        int8_t* dst = xd + r * XS + c16;
-        if (vec) {
-          cp_async16(dst, n > 0 ? src : x, max(n, 0));
-        } else {
-#pragma unroll
-          for (int q = 0; q < 16; ++q) dst[q] = q < n ? src[q] : 0;
-        }
-      }
-      for (int e = tid; e < KC * (TK / 4); e += NT) {
-        const int k = e / (TK / 4), c4 = 4 * (e % (TK / 4)), col = l0 + c4;
-        const int n = min(4, L - col);
-        const float* src = lp + (size_t)k * L + col;
-        float* dst = ld + k * LS + c4;
-        if (vec) {
-          cp_async16(dst, n > 0 ? src : lp, 4 * max(n, 0));
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) dst[q] = q < n ? src[q] : 0.f;
-        }
-      }
-    }
-    cp_async_commit();
-  };
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = (tile % n_rt) * BM;
+    const int b = (tile / n_rt) % B;
+    int t0, nt_live;
+    chunk_tiles(tile / (n_rt * B), kt, &t0, &nt_live);
+    const int k0 = 8 * t0;
+    const int nj = live_tiles<NTW, WN>(nt_live, wc);
+    const int KC = 8 * nt_live;   // lp rows copied
+    const float* lp0_b = lp0 + ((size_t)b * Kp + k0) * L;
+    const float* lp1_b = X1 ? lp1 + ((size_t)b * Kp + k0) * L : lp0_b;
 
-  double acc[MT][NTW][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < NTW; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
-
-#pragma unroll
-  for (int st = 0; st < ST - 1; ++st) {
-    if (st < n_st) issue(st); else cp_async_commit();
-  }
-  for (int st = 0; st < n_st; ++st) {
-    // stage st has landed for every thread, and every warp is done with
-    // stage st - 1, whose slot the next copies take
-    cp_async_wait<ST - 2>();
-    __syncthreads();
-    if (st + ST - 1 < n_st) issue(st + ST - 1); else cp_async_commit();
-    const char* stage = smem + (st % ST) * T::STAGE;
-#pragma unroll
-    for (int c = 0; c < TK / 16; ++c) {
+    auto issue = [&](int st) {
+      char* stage = smem + (st % ST) * T::STAGE;
+      const int l0 = st * TK;
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
-        const int8_t* xt =
-            reinterpret_cast<const int8_t*>(stage + s * T::S_BYTES);
-        const float* lt = reinterpret_cast<const float*>(
-            stage + s * T::S_BYTES + T::X_BYTES);
-        double bb[NTW][4];
+        const int8_t* x = s ? x1 : x0;
+        const float* lp = s ? lp1_b : lp0_b;
+        int8_t* xd = reinterpret_cast<int8_t*>(stage + s * T::S_BYTES);
+        float* ld = reinterpret_cast<float*>(stage + s * T::S_BYTES +
+                                             T::X_BYTES);
+        for (int e = tid; e < BM * (TK / 16); e += NT) {
+          const int r = e / (TK / 16), c16 = 16 * (e % (TK / 16));
+          const int row = row0 + r, col = l0 + c16;
+          const int n = row < I ? min(16, L - col) : 0;
+          const int8_t* src = x + (size_t)row * L + col;
+          int8_t* dst = xd + r * XS + c16;
+          if (vec) {
+            cp_async16(dst, n > 0 ? src : x, max(n, 0));
+          } else {
+#pragma unroll
+            for (int q = 0; q < 16; ++q) dst[q] = q < n ? src[q] : 0;
+          }
+        }
+        for (int e = tid; e < KC * (TK / 4); e += NT) {
+          const int k = e / (TK / 4), c4 = 4 * (e % (TK / 4)), col = l0 + c4;
+          const int n = min(4, L - col);
+          const float* src = lp + (size_t)k * L + col;
+          float* dst = ld + k * LS + c4;
+          if (vec) {
+            cp_async16(dst, n > 0 ? src : lp, 4 * max(n, 0));
+          } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) dst[q] = q < n ? src[q] : 0.f;
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+    double acc[MT][NTW][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
+
+    __syncthreads();   // every warp is done with the last tile's ring
+#pragma unroll
+    for (int st = 0; st < ST - 1; ++st) {
+      if (st < n_st) issue(st); else cp_async_commit();
+    }
+    for (int st = 0; st < n_st; ++st) {
+      // stage st has landed for every thread, and every warp is done with
+      // stage st - 1, whose slot the next copies take
+      cp_async_wait<ST - 2>();
+      __syncthreads();
+      if (st + ST - 1 < n_st) issue(st + ST - 1); else cp_async_commit();
+      const char* stage = smem + (st % ST) * T::STAGE;
+      with_count<NTW>(nj, [&](auto n) {
+        wide_rows_stage<X1, decltype(n)::value>(acc, stage, wm, wc, g, t);
+      });
+    }
+
+    // rows g and g + 8 of each tile, lanes 8 (wc + WN j) + 2 t + {0, 1}
+    const float* bias_b = bias + (size_t)b * Kp + k0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 16 * (wm * MT + m) + g + 8 * h;
+        if (row >= I) continue;
+        double* s = s_out + ((size_t)b * I + row) * Kp + k0 + 2 * t;
 #pragma unroll
         for (int j = 0; j < NTW; ++j) {
-          if (wc + WN * j < nt_live) {
-            const float4 f = *reinterpret_cast<const float4*>(
-                lt + (8 * (wc + WN * j) + g) * LS + 16 * c + 4 * t);
-            bb[j][0] = f.x;
-            bb[j][1] = f.y;
-            bb[j][2] = f.z;
-            bb[j][3] = f.w;
-          }
+          const int k = 8 * (wc + WN * j);
+          if (j < nj)
+            *reinterpret_cast<double2*>(s + k) = make_double2(
+                acc[m][j][2 * h] + (double)bias_b[k + 2 * t],
+                acc[m][j][2 * h + 1] + (double)bias_b[k + 2 * t + 1]);
+        }
+      }
+  }
+}
+
+// The wide columns-pass block: 4 x 4 DMMA tiles a warp with one stream
+// (64 loci x 32 lanes, 128 loci a block), 2 x 4 a stream with two (64
+// loci a block), 64 float64 accumulators a thread; TK = 128 rows a stage.
+// Shared memory a stage: the v tile [TK][VS] floats and for each stream
+// the x tile [TK][XS] bytes.  VS = MIX_WK + 8: the reads of rows t (4) and
+// lanes g (8) hit 32 banks; XS = BM + 16: the 16-bit reads of rows t and
+// locus pairs g hit distinct banks.
+template <bool X1>
+struct WideColsTile {
+  static constexpr int MT = X1 ? 2 : 4, NTW = 4;
+  using W = WideWarps<MT, NTW>;
+  static constexpr int NS = X1 ? 2 : 1;
+  static constexpr int TK = 128;
+  static constexpr int XS = W::BM + 16;
+  static constexpr int VS = MIX_WK + 8;
+  static constexpr int X_BYTES = TK * XS;   // a stream
+  static constexpr int V_BYTES = TK * VS * 4;
+  static constexpr int STAGE = V_BYTES + NS * X_BYTES;
+  static constexpr int SMEM = WIDE_ST * STAGE;
+};
+
+// One stage of the columns pass's products for a warp with NJ live lane
+// tiles: A = x^T (a tile's rows g and g + 8 are loci 2 g and 2 g + 1, one
+// 16-bit read), B = v, slot p of thread t row t + 4 p of a 16-row step.
+template <bool X1, int NJ>
+__device__ __forceinline__ void wide_cols_stage(
+    double (&acc)[X1 ? 2 : 1][WideColsTile<X1>::MT][4][4],
+    const char* stage, int wm, int wc, int g, int t) {
+  using T = WideColsTile<X1>;
+  constexpr int MT = T::MT, XS = T::XS, VS = T::VS, WN = T::W::WN;
+#pragma unroll
+  for (int c = 0; c < T::TK / 16; ++c) {
+    const float* vt = reinterpret_cast<const float*>(stage) +
+                      (16 * c + t) * VS + 8 * wc + g;
+    const int8_t* xt = reinterpret_cast<const int8_t*>(stage + T::V_BYTES) +
+                       (16 * c + t) * XS + 16 * wm * MT + 2 * g;
+    double bb[NJ > 0 ? NJ : 1][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int p = 0; p < 4; ++p) bb[j][p] = vt[4 * p * VS + 8 * WN * j];
+#pragma unroll
+    for (int s = 0; NJ > 0 && s < T::NS; ++s) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        double a[8];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const uint32_t w = *reinterpret_cast<const uint16_t*>(
+              xt + s * T::X_BYTES + 4 * p * XS + 16 * m);
+          a[2 * p] = xcount(w, 0);
+          a[2 * p + 1] = xcount(w, 1);
         }
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          // rows g and g + 8 of the tile, loci 16 c + 4 t .. + 3
-          const int8_t* xr =
-              xt + (16 * (wm * MT + m) + g) * XS + 16 * c + 4 * t;
-          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(xr);
-          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(xr + 8 * XS);
-          double a[8];
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            a[2 * p] = xcount_f64<XD>(w0, p);
-            a[2 * p + 1] = xcount_f64<XD>(w1, p);
-          }
-#pragma unroll
-          for (int j = 0; j < NTW; ++j)
-            if (wc + WN * j < nt_live) dmma16(acc[m][j], a, bb[j]);
-        }
+        for (int j = 0; j < NJ; ++j) dmma16(acc[s][m][j], a, bb[j]);
       }
     }
   }
-
-  // rows g and g + 8 of each tile, lanes 8 (wc + WN j) + 2 t + {0, 1}
-  const float* bias_b = bias + (size_t)b * Kp + k0;
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 16 * (wm * MT + m) + g + 8 * h;
-      if (row >= I) continue;
-      double* s = s_out + ((size_t)b * I + row) * Kp + k0 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        const int k = 8 * (wc + WN * j);
-        if (wc + WN * j < nt_live)
-          *reinterpret_cast<double2*>(s + k) = make_double2(
-              acc[m][j][2 * h] + (double)bias_b[k + 2 * t],
-              acc[m][j][2 * h + 1] + (double)bias_b[k + 2 * t + 1]);
-      }
-    }
 }
 
-// Shared memory of a wide columns-pass block, a stage: the v tile
-// [MIX_TK][VS] floats and for each stream the x tile [MIX_TK][XS] bytes
-// of MIX_TK rows.  VS = MIX_WK + 8: the reads of rows t (4) and lanes g
-// (8) hit 32 banks; XS = BM + 16: the 16-bit reads of rows t and locus
-// pairs g hit distinct banks.  One stream: 4 locus tiles of 16 a warp;
-// two: 2 a stream (4 NS MT NTW float64 accumulators a thread, at most 64).
-template <bool X1, int MT, int NTW>
-struct WideColsTile {
-  using W = WideWarps<MT, NTW>;
-  static constexpr int NS = X1 ? 2 : 1;
-  static constexpr int ST = 4;
-  static constexpr int XS = W::BM + 16;
-  static constexpr int VS = MIX_WK + 8;
-  static constexpr int X_BYTES = MIX_TK * XS;   // a stream
-  static constexpr int V_BYTES = MIX_TK * VS * 4;
-  static constexpr int STAGE = V_BYTES + NS * X_BYTES;
-  static constexpr int SMEM = ST * STAGE;
-};
-
 // The wide columns pass (128 < Kp <= 1024): block (BM loci, row segment,
-// chain x chunk of MIX_WK lanes) sums over the segment's rows A = x^T (a
-// tile's rows g and g + 8 are loci 2 g and 2 g + 1, one 16-bit read) and
-// B = v (slot p of thread t: row t + 4 p of a 16-row step) on the chunk's
-// live lane tiles (v at row stride Kp; the lanes past Kp of a last,
-// partial chunk read as zeros) and writes the chunk's lanes below Kp of
-// part [B, n_seg, NS, Kp, L] (0 past kt); the blocks of the first locus
-// tile also write the segment's v sums of those lanes to vpart [B, n_seg,
-// Kp], each thread summing half a stage's rows of one lane in float64.
-template <bool X1, int MT, int NTW, bool XD>
+// chain x chunk of live lane tiles) sums x^T v over the segment's rows on
+// the chunk's lanes (v at row stride Kp) and writes them to part [B,
+// n_seg, NS, Kp, L], and the segment's v sums of its share of those lanes
+// to vpart [B, n_seg, Kp] (each locus tile sums ceil(lanes / tiles) of
+// them, a thread one lane over every rg_n-th row: float32 within a stage,
+// float64 across, the row groups in order at the end).  The first chunk's
+// blocks write zeros to the lanes past the live tiles.
+template <bool X1>
 __global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
     const float* __restrict__ v, const int8_t* __restrict__ x0,
     const int8_t* __restrict__ x1, float* __restrict__ part,
     float* __restrict__ vpart, int I, int L, int Kp, int seg_rows, int kt,
     int vec) {
-  using T = WideColsTile<X1, MT, NTW>;
+  using T = WideColsTile<X1>;
   using W = typename T::W;
-  constexpr int NS = T::NS, ST = T::ST, XS = T::XS, VS = T::VS;
-  constexpr int BM = W::BM, WN = W::WN, TK = MIX_TK;
-  static_assert(NT == 2 * MIX_WK, "two threads a lane sum v");
+  constexpr int NS = T::NS, TK = T::TK, XS = T::XS, VS = T::VS;
+  constexpr int MT = T::MT, NTW = T::NTW, BM = W::BM, WN = W::WN;
+  constexpr int ST = WIDE_ST;
   char* smem = reinterpret_cast<char*>(dyn_smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp % W::WM, wc = warp / W::WM;
-  const int n_ch = (Kp + MIX_WK - 1) / MIX_WK;
-  const int b = blockIdx.z / n_ch, k0 = (blockIdx.z % n_ch) * MIX_WK;
+  const int n_ch = wide_chunks(kt), c = blockIdx.z % n_ch;
+  const int b = blockIdx.z / n_ch;
+  int t0, nt_live;
+  chunk_tiles(c, kt, &t0, &nt_live);
+  const int k0 = 8 * t0, kv = 8 * nt_live;   // the chunk's lanes
   const int seg = blockIdx.y, n_seg = gridDim.y;
   const int col0 = blockIdx.x * BM;
-  const int kv = min(MIX_WK, Kp - k0);   // the chunk's lanes below Kp
-  const int nt_live = max(0, min(MIX_WK / 8, (kt - k0 + 7) / 8));
+  const int nj = live_tiles<NTW, WN>(nt_live, wc);
   const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
   const int n_st = (r_hi - r_lo + TK - 1) / TK;
-  const bool first = blockIdx.x == 0;
   const float* v_b = v + (size_t)b * I * Kp + k0;
+  // the v sums: this locus tile's share of the chunk's lanes, ks from k_lo
+  // (a thread: lane k_lo + tid % ks, rows tid / ks + rg_n i of a stage)
+  const int ks = (kv + gridDim.x - 1) / gridDim.x;
+  const int k_lo = blockIdx.x * ks, nk = max(0, min(ks, kv - k_lo));
+  const int rg_n = NT / ks, rg = tid / ks;
+  const bool summing = nk > 0 && rg < rg_n && tid % ks < nk;
 
   auto issue = [&](int st) {
     char* stage = smem + (st % ST) * T::STAGE;
@@ -940,7 +1069,7 @@ __global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
       for (int j = 0; j < NTW; ++j)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[s][m][j][q] = 0.0;
-  double vsum = 0.0;   // lane tid % MIX_WK, rows of half tid / MIX_WK
+  double vsum = 0.0;
 
 #pragma unroll
   for (int st = 0; st < ST - 1; ++st) {
@@ -951,48 +1080,20 @@ __global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
     __syncthreads();
     if (st + ST - 1 < n_st) issue(st + ST - 1); else cp_async_commit();
     const char* stage = smem + (st % ST) * T::STAGE;
-    const float* vt = reinterpret_cast<const float*>(stage);
-    if (first) {   // uniform across the block
-      const float* vc = vt + (tid / MIX_WK) * (TK / 2) * VS + tid % MIX_WK;
-#pragma unroll
-      for (int r = 0; r < TK / 2; ++r) vsum += (double)vc[r * VS];
+    if (summing) {
+      const float* vc = reinterpret_cast<const float*>(stage) + rg * VS +
+                        k_lo + tid % ks;
+      float part = 0.f;
+      for (int r = 0; rg + r < TK; r += rg_n) part += vc[r * VS];
+      vsum += (double)part;
     }
-#pragma unroll
-    for (int c = 0; c < TK / 16; ++c) {
-      double bb[NTW][4];
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        if (wc + WN * j < nt_live) {
-#pragma unroll
-          for (int p = 0; p < 4; ++p)
-            bb[j][p] = vt[(16 * c + t + 4 * p) * VS + 8 * (wc + WN * j) + g];
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const int8_t* xt = reinterpret_cast<const int8_t*>(
-                               stage + T::V_BYTES + s * T::X_BYTES) +
-                           (16 * c + t) * XS + 2 * g;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          double a[8];
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const uint32_t w = *reinterpret_cast<const uint16_t*>(
-                xt + 4 * p * XS + 16 * (wm * MT + m));
-            a[2 * p] = xcount_f64<XD>(w, 0);
-            a[2 * p + 1] = xcount_f64<XD>(w, 1);
-          }
-#pragma unroll
-          for (int j = 0; j < NTW; ++j)
-            if (wc + WN * j < nt_live) dmma16(acc[s][m][j], a, bb[j]);
-        }
-      }
-    }
+    with_count<NTW>(nj, [&](auto n) {
+      wide_cols_stage<X1, decltype(n)::value>(acc, stage, wm, wc, g, t);
+    });
   }
 
   // a thread holds loci 2 g, 2 g + 1 of each tile for lanes 8 (wc + WN j)
-  // + 2 t + {0, 1}
+  // + 2 t + {0, 1}; the warp's dead tiles hold zeros
   const size_t bs = (size_t)b * n_seg + seg;
   float* out = part + (bs * NS * Kp + k0) * L;
 #pragma unroll
@@ -1018,12 +1119,26 @@ __global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
         }
     }
 
-  if (first) {   // the two halves' sums of each lane, in order
-    __syncthreads();
-    double* half = reinterpret_cast<double*>(smem);
-    if (tid >= MIX_WK) half[tid - MIX_WK] = vsum;
-    __syncthreads();
-    if (tid < kv) vpart[bs * Kp + k0 + tid] = (float)(vsum + half[tid]);
+  // each lane's row groups summed in order
+  __syncthreads();   // every warp is done with the ring
+  double* sums = reinterpret_cast<double*>(smem);
+  sums[tid] = vsum;
+  __syncthreads();
+  if (tid < nk) {
+    double tot = 0.0;
+    for (int q = 0; q < rg_n; ++q) tot += sums[q * ks + tid];
+    vpart[bs * Kp + k0 + k_lo + tid] = (float)tot;
+  }
+  // the lanes past the live tiles: zeros, from the first chunk's blocks
+  const int k_dead = 8 * ((kt + 7) / 8);
+  if (c == 0) {
+    const int nl = min(BM, L - col0), nd = Kp - k_dead;
+    for (int e = tid; e < NS * nd * nl; e += NT) {
+      const int s = e / (nd * nl), k = k_dead + e / nl % nd;
+      part[((bs * NS + s) * Kp + k) * L + col0 + e % nl] = 0.f;
+    }
+    if (blockIdx.x == 0)
+      for (int k = k_dead + tid; k < Kp; k += NT) vpart[bs * Kp + k] = 0.f;
   }
 }
 
@@ -1109,12 +1224,6 @@ static bool kp_narrow(int Kp) {
 static bool kp_wide(int Kp) {
   return Kp > 128 && Kp <= KP_WIDE_MAX && Kp % 32 == 0;
 }
-// the wide passes' variant (tuning): MC_MIX_WIDE_VARIANT
-static int wide_variant() {
-  const char* e = getenv("MC_MIX_WIDE_VARIANT");
-  return e ? atoi(e) : 0;
-}
-
 // the lanes the passes compute for k_true clusters (outside [1, Kp]: Kp)
 static int live_lanes(int k_true, int Kp) {
   return k_true < 1 || k_true > Kp ? Kp : k_true;
@@ -1122,7 +1231,8 @@ static int live_lanes(int k_true, int Kp) {
 
 // The rows pass: v [B, I, Kp] and t [B, I].  At 128 < Kp <= 1024 `s_buf`
 // is the [B, I, Kp] float64 scratch of the wide pass's two launches (the
-// scores and the softmax); it is not read at Kp <= 128 and may be null.
+// scores, on at most one block an SM, and the softmax); it is not read at
+// Kp <= 128 and may be null.
 extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
                            const void* x1, const void* bias, void* v_out,
                            void* t_out, void* s_buf, int B, int I, int L,
@@ -1144,32 +1254,36 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
     if (s_buf == nullptr || !aligned16(s_buf))
       return (int)cudaErrorInvalidValue;
     double* sb = (double*)s_buf;
-#define MC_ROWS_WIDE(X1, MT, NTW, XD)                                        \
+    int n_sm = 0, dev = 0;
+    err = (int)cudaGetDevice(&dev);
+    if (err == 0)
+      err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                        dev);
+    if (err) return err;
+#define MC_ROWS_WIDE(X1)                                                     \
   {                                                                          \
-    auto kern = mix_rows_wide_kernel<X1, MT, NTW, XD>;                       \
-    constexpr int smem = WideRowsTile<X1, MT, NTW>::SMEM;                    \
+    auto kern = mix_rows_wide_kernel<X1>;                                    \
+    constexpr int smem = WideRowsTile<X1>::SMEM;                             \
     static_assert(smem <= SMEM_MAX, "wide rows tiles exceed shared memory"); \
-    const dim3 grid((I + WideWarps<MT, NTW>::BM - 1) / WideWarps<MT, NTW>::BM,\
-                    (kt + MIX_WK - 1) / MIX_WK, B);                          \
+    constexpr int BM = WideRowsTile<X1>::W::BM;                              \
+    const int tiles = (I + BM - 1) / BM * B * wide_chunks(kt);               \
     err = allow_smem(kern);                                                  \
     if (err == 0)                                                            \
-      kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, sb, I, L, Kp, kt, vec);    \
+      kern<<<tiles < n_sm ? tiles : n_sm, NT, smem, s>>>(                    \
+          a, c, x, z, bs, sb, I, L, Kp, kt, B, vec);                         \
   }
-#define MC_ROWS_WIDE_V(X1)                                                   \
-  switch (wide_variant()) {                                                  \
-    case 1: MC_ROWS_WIDE(X1, 2, 8, false); break;                            \
-    case 2: MC_ROWS_WIDE(X1, 4, 4, true); break;                             \
-    case 3: MC_ROWS_WIDE(X1, 2, 8, true); break;                             \
-    default: MC_ROWS_WIDE(X1, 4, 4, false); break;                           \
-  }
-    if (two) MC_ROWS_WIDE_V(true) else MC_ROWS_WIDE_V(false)
-#undef MC_ROWS_WIDE_V
+    if (two) MC_ROWS_WIDE(true) else MC_ROWS_WIDE(false)
 #undef MC_ROWS_WIDE
     if (err == 0) err = (int)cudaGetLastError();
-    if (err == 0)
-      mix_softmax_kernel<<<dim3((I + NW - 1) / NW, B), NT, 0, s>>>(
-          sb, v, t, I, Kp, kt);
-    return err ? err : (int)cudaGetLastError();
+    if (err) return err;
+    const dim3 sgrid((I + NW - 1) / NW, B);
+    if (Kp <= 256)
+      mix_softmax_kernel<4><<<sgrid, NT, 0, s>>>(sb, v, t, I, Kp, kt);
+    else if (Kp <= 512)
+      mix_softmax_kernel<8><<<sgrid, NT, 0, s>>>(sb, v, t, I, Kp, kt);
+    else
+      mix_softmax_kernel<16><<<sgrid, NT, 0, s>>>(sb, v, t, I, Kp, kt);
+    return (int)cudaGetLastError();
   }
   const dim3 grid((I + ROW_R - 1) / ROW_R, 1, B);
 #define MC_ROWS_ONE(KP, X1)                                                  \
@@ -1197,8 +1311,8 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
 }
 
 // The columns pass: part [B, n_seg, 1|2, Kp, L] and vpart [B, n_seg, Kp];
-// at 128 < Kp <= 1024 the grid's z axis runs the chains x the cluster
-// chunks.
+// at 128 < Kp <= 1024 the grid's z axis runs the chains x the chunks of
+// k_true's live lanes (wide_chunks).
 extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
                            void* part, void* vpart, int B, int I, int L,
                            int Kp, int n_seg, int seg_rows, int k_true,
@@ -1216,11 +1330,11 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
   const int kt = live_lanes(k_true, Kp);
   int err = 0;
   if (kp_wide(Kp)) {
-    const int n_ch = (Kp + MIX_WK - 1) / MIX_WK;
-#define MC_COLS_WIDE(X1, MT, NTW, XD)                                        \
+    const int n_ch = wide_chunks(kt);
+#define MC_COLS_WIDE(X1)                                                     \
   {                                                                          \
-    using T = WideColsTile<X1, MT, NTW>;                                     \
-    auto kern = mix_cols_wide_kernel<X1, MT, NTW, XD>;                       \
+    using T = WideColsTile<X1>;                                              \
+    auto kern = mix_cols_wide_kernel<X1>;                                    \
     static_assert(T::SMEM <= SMEM_MAX, "wide columns tiles exceed shared "   \
                                        "memory");                            \
     const dim3 grid((L + T::W::BM - 1) / T::W::BM, n_seg, B * n_ch);         \
@@ -1229,21 +1343,7 @@ extern "C" int mc_mix_cols(const void* v, const void* x0, const void* x1,
       kern<<<grid, NT, T::SMEM, s>>>(vv, x, z, pt, vp, I, L, Kp, seg_rows,   \
                                      kt, vec);                               \
   }
-    if (two) {
-      switch (wide_variant()) {
-        case 1: MC_COLS_WIDE(true, 1, 8, false); break;
-        case 2: MC_COLS_WIDE(true, 2, 4, true); break;
-        case 3: MC_COLS_WIDE(true, 1, 8, true); break;
-        default: MC_COLS_WIDE(true, 2, 4, false); break;
-      }
-    } else {
-      switch (wide_variant()) {
-        case 1: MC_COLS_WIDE(false, 2, 8, false); break;
-        case 2: MC_COLS_WIDE(false, 4, 4, true); break;
-        case 3: MC_COLS_WIDE(false, 2, 8, true); break;
-        default: MC_COLS_WIDE(false, 4, 4, false); break;
-      }
-    }
+    if (two) MC_COLS_WIDE(true) else MC_COLS_WIDE(false)
 #undef MC_COLS_WIDE
     return err ? err : (int)cudaGetLastError();
   }
@@ -1283,9 +1383,8 @@ static int cols_tile_info(Kernel kern, int* tc, int* blocks) {
                                                             T::SMEM);
 }
 
-template <bool X1, int MT, int NTW, typename Kernel>
+template <typename T, typename Kernel>
 static int wide_cols_tile_info(Kernel kern, int* tc, int* blocks) {
-  using T = WideColsTile<X1, MT, NTW>;
   *tc = T::W::BM;
   const int err = allow_smem(kern);
   if (err) return err;
@@ -1295,18 +1394,19 @@ static int wide_cols_tile_info(Kernel kern, int* tc, int* blocks) {
 
 // The columns pass's tile for Kp and one (two = 0) or two streams: loci a
 // block (TC), rows a stage, and the blocks an SM of the current device
-// holds (at 128 < Kp <= 1024 the wide kernel's, the KP = 128 tile);
-// ops/mixture_bi.cols_tile, COL_RI and cols_blocks_per_sm mirror them.
+// holds (at 128 < Kp <= 1024 the wide kernel's, WideColsTile);
+// ops/mixture_bi.cols_tile, cols_stage_rows and cols_blocks_per_sm mirror
+// them.
 // Returns cudaErrorInvalidValue for a Kp the kernels do not take.
 extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
                             int* blocks) {
   *rows = COL_RI;
   if (kp_wide(Kp)) {
-    *rows = MIX_TK;
-    return two ? wide_cols_tile_info<true, 2, 4>(
-                     mix_cols_wide_kernel<true, 2, 4, false>, tc, blocks)
-               : wide_cols_tile_info<false, 4, 4>(
-                     mix_cols_wide_kernel<false, 4, 4, false>, tc, blocks);
+    *rows = WideColsTile<false>::TK;
+    return two ? wide_cols_tile_info<WideColsTile<true>>(
+                     mix_cols_wide_kernel<true>, tc, blocks)
+               : wide_cols_tile_info<WideColsTile<false>>(
+                     mix_cols_wide_kernel<false>, tc, blocks);
   }
 #define MC_TILE(KP)                                                      \
   return two ? cols_tile_info<KP, true>(mix_cols_kernel<KP, true>, tc,   \

@@ -49,14 +49,16 @@ WIDE_KERNELS = (("wide_rows_kernel", "kBi"), ("wide_rows_kernel", "kDense"),
                 ("wide_cols_kernel", "kBi"), ("wide_cols_kernel", "kDense"),
                 ("wide_finish_kernel", 32))
 # the mixture's wide kernels (csrc/mixture_bi.cu), and their mangled
-# template arguments: the contraction passes' second stream, the eta
-# finish's lanes a thread
+# template arguments: the contraction passes' second stream, the
+# softmax's score pairs a lane, the eta finish's lanes a thread
 MIX_WIDE = "mix_(?:rows_wide|cols_wide|softmax|eta)_kernel"
 MIX_WIDE_KERNELS = (("mix_rows_wide_kernel", "ILb0E"),
                     ("mix_rows_wide_kernel", "ILb1E"),
                     ("mix_cols_wide_kernel", "ILb0E"),
                     ("mix_cols_wide_kernel", "ILb1E"),
-                    ("mix_softmax_kernel", "E"), ("mix_eta_kernel", "ILi32E"))
+                    ("mix_softmax_kernel", "ILi4E"),
+                    ("mix_softmax_kernel", "ILi16E"),
+                    ("mix_eta_kernel", "ILi32E"))
 
 
 def ptxas_lines(report: str, pattern: str = "fullstep_bi"):

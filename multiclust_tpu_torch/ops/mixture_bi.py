@@ -13,10 +13,11 @@ which JAX runs in XLA) and a p0 epilogue (the p0 update of
 ``_mix_counts_kernel``).  The rows and columns passes contract on the
 float64 tensor cores, as the plain versions' float64 products do; their
 cluster tiles stop at ``k_true``.  At 128 < Kp <= 1024 (KP_MAX, the TPU
-kernels' own range) the same launchers run the wide passes: the KP = 128
-tiles on each chunk of 128 cluster lanes, the rows pass's scores in a
-float64 scratch and a softmax launch, and the eta finish at 32 lanes a
-thread.  ``finish=False`` returns the raw statistics
+kernels' own range) the same launchers run the wide passes: 128 x 128
+block tiles of 4 x 4 float64 DMMA tiles a warp on balanced chunks of at
+most 128 of the ``k_true`` live lanes (``chunks``), the rows pass's
+scores in a float64 scratch and a softmax launch, and the eta finish at
+32 lanes a thread.  ``finish=False`` returns the raw statistics
 instead; rows, columns and the raw epilogue together are the sweep
 (``mixture_sweep_stats``).  Every step of the finish runs on the card, so
 a kernel-route EM step never reads the host.
@@ -47,10 +48,10 @@ Tensor = torch.Tensor
 
 # the columns pass's tiling in csrc/mixture_bi.cu (ColsTile): warps a
 # block, rows a stage; the row-segment count is chosen here.  WK: cluster
-# lanes a chunk of the wide passes (MIX_WK); WIDE_TC: loci a wide
-# columns-pass block (WideColsTile's BM) for one and two streams
+# lanes a chunk of the wide passes (MIX_WK, at most); the wide columns
+# pass (WideColsTile): loci a block for one and two streams, rows a stage
 NW, COL_RI, WK = 8, 32, 128
-WIDE_TC = {False: 128, True: 64}
+WIDE_TC, WIDE_RI = {False: 128, True: 64}, 128
 
 
 def check_kp(Kp: int) -> None:
@@ -68,10 +69,15 @@ def is_wide(Kp: int) -> bool:
     return Kp > KP_NARROW[-1]
 
 
-def chunks(Kp: int) -> int:
-    """Cluster chunks of WK lanes the wide passes cut Kp into (1 at Kp <=
-    128)."""
-    return -(-Kp // WK) if is_wide(Kp) else 1
+def chunks(Kp: int, k_true: int = 0) -> int:
+    """Cluster chunks the wide passes cut the live lanes into (1 at Kp <=
+    128): the ceil(k_true / 8) live tiles of 8 lanes (k_true outside [1,
+    Kp]: Kp) in chunks of at most WK lanes that differ by at most one
+    tile (csrc/mixture_bi.cu, ``wide_chunks``)."""
+    if not is_wide(Kp):
+        return 1
+    tiles = -(-(k_true if 1 <= k_true <= Kp else Kp) // 8)
+    return -(-tiles // (WK // 8))
 
 
 def cols_tile(Kp: int, two: bool) -> int:
@@ -81,13 +87,19 @@ def cols_tile(Kp: int, two: bool) -> int:
     clusters, at most 8 float64 accumulator tiles a thread over the
     streams, and the block's NW warps split the Kp / 8 cluster tiles into
     groups of ``ntw``.  The wide pass (``WideColsTile``) takes WIDE_TC
-    loci on each chunk of WK lanes."""
+    loci on each chunk of at most WK lanes."""
     if is_wide(Kp):
         return WIDE_TC[two]
     ns, nt8 = (2 if two else 1), Kp // 8
     ntw = next((d for d in range(nt8, 1, -1)
                 if nt8 % d == 0 and ns * d <= 8 and NW % (nt8 // d) == 0), 1)
     return 16 * (NW // (nt8 // ntw))
+
+
+def cols_stage_rows(Kp: int) -> int:
+    """Rows a columns-pass stage (``mc_mix_tiles`` reports it): COL_RI,
+    WIDE_RI in the wide pass."""
+    return WIDE_RI if is_wide(Kp) else COL_RI
 
 
 def cols_blocks_per_sm(Kp: int, two: bool) -> int:
@@ -97,19 +109,21 @@ def cols_blocks_per_sm(Kp: int, two: bool) -> int:
 
 
 def cols_segments(I: int, L: int, B: int, Kp: int, two: bool,
-                  n_sm: int) -> Tuple[int, int]:
+                  n_sm: int, k_true: int = 0) -> Tuple[int, int]:
     """(segments, rows per segment) of I for the columns pass: as many
     row segments as fill the card's block slots in one wave without
     passing them (a block is a tile of ``cols_tile`` loci of one chain; a
     wave a few blocks past the slots costs a second wave, and fewer
     segments mean fewer partials to write and sum), each segment whole
-    stages of COL_RI rows and at least 4 of them, at most GRID_YZ_MAX.  A
-    wide pass has a block for each cluster chunk as well."""
-    blocks = -(-L // cols_tile(Kp, two)) * B * chunks(Kp)
+    stages (``cols_stage_rows``) and at least 4 of them, at most
+    GRID_YZ_MAX.  A wide pass has a block for each cluster chunk of
+    k_true's lanes as well."""
+    ri = cols_stage_rows(Kp)
+    blocks = -(-L // cols_tile(Kp, two)) * B * chunks(Kp, k_true)
     n_seg = max(1, min(cols_blocks_per_sm(Kp, two) * n_sm // blocks,
-                       -(-I // (4 * COL_RI)), GRID_YZ_MAX))
+                       -(-I // (4 * ri)), GRID_YZ_MAX))
     seg_rows = -(-I // n_seg)
-    seg_rows = -(-seg_rows // COL_RI) * COL_RI
+    seg_rows = -(-seg_rows // ri) * ri
     return -(-I // seg_rows), seg_rows
 
 
@@ -252,7 +266,8 @@ def mixture_rows(lp0, x0, bias, lp1=None, x1=None, *, k_true: int = 0):
 def mixture_partials(v, x0, x1=None, *, k_true: int = 0):
     """Columns pass: the per-row-segment B partials [B, n_seg, 1|2, Kp, L]
     and v sums [B, n_seg, Kp]; the kernels compute the lanes below
-    ``k_true`` (0: all Kp) and write zeros past it."""
+    ``k_true`` (0: all Kp) and write zeros past it (above 128 lanes the v
+    sums too: v is 0 there on the rows pass's output)."""
     if not v.is_cuda:
         return mixture_cols_reference(v, x0, x1)
     B, I, Kp = v.shape
@@ -263,12 +278,13 @@ def mixture_partials(v, x0, x1=None, *, k_true: int = 0):
     _check("x0", x0, dev, torch.int8, (I, L))
     if x1 is not None:
         _check("x1", x1, dev, torch.int8, (I, L))
-    if B * chunks(Kp) > GRID_YZ_MAX:
-        raise ValueError(f"{B} chains x {chunks(Kp)} cluster chunks exceed "
-                         f"the grid's {GRID_YZ_MAX}")
+    n_ch = chunks(Kp, k_true)
+    if B * n_ch > GRID_YZ_MAX:
+        raise ValueError(f"{B} chains x {n_ch} cluster chunks exceed the "
+                         f"grid's {GRID_YZ_MAX}")
     ns = 1 if x1 is None else 2
     n_seg, seg_rows = cols_segments(I, L, B, Kp, ns == 2,
-                                    device_sm_count(dev))
+                                    device_sm_count(dev), k_true)
     part = torch.empty((B, n_seg, ns, Kp, L), dtype=torch.float32,
                        device=dev)
     vpart = torch.empty((B, n_seg, Kp), dtype=torch.float32, device=dev)

@@ -27,8 +27,9 @@ wide kernel, is left out: ``--k 200`` and ``--k 1024``, alone or with
 default; one stream, the ploidy fold, and two streams, 2 % missing) at the
 chain batches ``--chains``: the step held to its plain version, its median
 CUDA-event time over ``--reps`` calls, the device time of each of its
-kernels inside it (torch.profiler: the rows pass, the columns pass, the
-eta finish, the p0 epilogue), the two passes' bounds (their operations on
+kernels inside it (torch.profiler: the rows pass, above 128 lanes its
+softmax on a line of its own, the columns pass, the eta finish, the p0
+epilogue), the passes' bounds (their operations on
 the float64 tensor cores at 67 TFLOP/s, or their tensors over 3.35 TB/s)
 and the share reached, and the plain step and plain rows pass; above 128
 lanes (``--k 200``, ``--k 1024``) the wide passes.  A tree whose mixture
@@ -557,9 +558,10 @@ def time_generic_fits(I: int, L: int, M: int, dev) -> None:
 
 
 # the mixture step's kernels by name, as the profiler sees them (the wide
-# rows pass is two kernels, its scores and its softmax)
-MIXTURE_KERNELS = {"rows pass": ("mix_rows_kernel", "mix_rows_wide_kernel",
-                                 "mix_softmax_kernel"),
+# rows pass is two kernels, its scores and its softmax, each on a line of
+# its own)
+MIXTURE_KERNELS = {"rows pass": ("mix_rows_kernel", "mix_rows_wide_kernel"),
+                   "rows softmax (wide)": ("mix_softmax_kernel",),
                    "columns pass": ("mix_cols_kernel",
                                     "mix_cols_wide_kernel"),
                    "eta finish": ("mix_eta_kernel",),
@@ -666,13 +668,21 @@ def time_mixture(I: int, L: int, chains, n: int, dev) -> None:
             bounds = {"rows pass": bound_ms((lp0, x0, bias, lp1, x1, v, t),
                                             flop + 20 * v.numel()),
                       "columns pass": bound_ms((v, x0, x1, part), flop)}
+            if mb.is_wide(KP):
+                # the softmax reads the float64 scores of the K live
+                # lanes and writes v and t
+                bounds["rows softmax (wide)"] = (
+                    (8 * B * I * K + 4 * v.numel() + 4 * t.numel())
+                    / HBM_BYTES_PER_S * 1e3)
             print(f"mixture {I} x {L}, {streams}, {B} chains: step "
                   f"{step_ms:.3f} ms (plain {plain_ms:.3f}, plain rows pass "
                   f"{plain_rows_ms:.3f}) on CUDA events", flush=True)
             for label, ms in dev_ms.items():
                 line = f"  {label}: {ms:.3f} ms of device time a step"
-                if not ms:
+                if not ms and label in bounds:
                     line = f"  {label}: not measured (no device events)"
+                elif not ms:
+                    continue   # the narrow rows pass has no softmax
                 elif label in bounds:
                     line += (f"; bound {bounds[label]:.3f} ms, "
                              f"{100 * bounds[label] / ms:.1f} % of it")

@@ -451,15 +451,16 @@ def test_mixture_kernels_stop_at_the_live_lanes():
 @pytest.mark.cuda
 @pytest.mark.parametrize("Kp", [32, 64, 96, 128, 160, 224, 512, 1024])
 def test_mixture_tiles_match_the_python_mirror(Kp):
-    """``cols_tile``, COL_RI and ``cols_blocks_per_sm``, which choose the
-    columns pass's segments, against the built library's own tile
-    (csrc/mixture_bi.cu; above 128 lanes the wide pass's) and the compiled
-    kernel's occupancy."""
+    """``cols_tile``, ``cols_stage_rows`` and ``cols_blocks_per_sm``, which
+    choose the columns pass's segments, against the built library's own
+    tile (csrc/mixture_bi.cu; above 128 lanes the wide pass's) and the
+    compiled kernel's occupancy."""
     _cuda()
     lib = build.library()
     for two in (False, True):
         assert build.mixture_tiles(lib, Kp, two) == (
-            mb.cols_tile(Kp, two), mb.COL_RI, mb.cols_blocks_per_sm(Kp, two))
+            mb.cols_tile(Kp, two), mb.cols_stage_rows(Kp),
+            mb.cols_blocks_per_sm(Kp, two))
 
 
 @pytest.mark.cuda
@@ -1739,6 +1740,14 @@ WIDE_MIX = ("wide_mix_rows", "wide_mix_cols", "wide_mix_eta")
     (1, 300, 333, 1024, 1024, 0.02, 4, True),    # every lane live
     (2, 4000, 96, 129, 160, 0.0, 2, True),       # many row segments
     (1, 130, 160, 161, 192, 0.02, 2, True),      # K one past a chunk
+    # phase 22's ragged panel at every wide Kp, the other stream variant
+    (2, 1001, 4099, 150, 160, 0.03, 2, True),
+    (2, 1001, 4099, 200, 224, 0.0, 2, True),
+    (2, 1001, 4099, 500, 512, 0.0, 2, True),
+    (2, 1001, 4099, 1000, 1024, 0.03, 2, True),
+    # one chunk of 17 live lane tiles on 512 lanes: the rest zero-filled
+    (2, 1001, 4099, 130, 512, 0.0, 2, True),
+    (2, 1001, 4099, 130, 512, 0.03, 2, True),
 ])
 def test_wide_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate,
                                           ploidy, project):
@@ -1917,8 +1926,9 @@ def test_mixture_step_above_1024_lanes_launches_nothing(M, capsys):
 @pytest.mark.cuda
 def test_wide_mixture_kernels_build_without_spills():
     """The -Xptxas -v report of the mixture's wide kernels: the score and
-    columns kernels (one and two streams), the softmax and the eta finish
-    at 32 lanes a thread, none spilling."""
+    columns kernels (one and two streams), the softmax at 4, 8 and 16
+    score pairs a lane and the eta finish at 32 lanes a thread, none
+    spilling."""
     from multiclust_tpu_torch.kernel_report import MIX_WIDE, ptxas_lines
 
     _cuda()
@@ -1931,4 +1941,5 @@ def test_wide_mixture_kernels_build_without_spills():
     assert sorted(name for name, _ in lines) == [
         "mix_cols_wide_kernel<false>", "mix_cols_wide_kernel<true>",
         "mix_eta_kernel<32>", "mix_rows_wide_kernel<false>",
-        "mix_rows_wide_kernel<true>", "mix_softmax_kernel"], lines
+        "mix_rows_wide_kernel<true>", "mix_softmax_kernel<16>",
+        "mix_softmax_kernel<4>", "mix_softmax_kernel<8>"], lines

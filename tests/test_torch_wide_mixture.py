@@ -250,6 +250,41 @@ def test_warm_start_fit_k200_matches_jax():
     assert abs(f32.logL - tr.logL) <= floor, (f32.logL, tr.logL, floor)
 
 
+@pytest.mark.parametrize("start", [0, 1, 2, 3])
+def test_squarem_monotonicity_matches_jax_k150(start):
+    """Whether SQUAREM's monotonicity record on a mixture panel with many
+    clusters is the port's own: float64 SQUAREM fits through the JAX
+    driver and the port from the same start, drawn by the JAX package's
+    random-centers init and carried across by ``convert.params_from_numpy``,
+    on a 600 x 400 mixture-model panel at K = 150 (160 lanes), with
+    monotonicity fatal, so that a violation stops a fit where it happens:
+    both record a violation at the same iteration with the same logL, or
+    neither does (here neither does)."""
+    from multiclust_tpu.init.random import initialize as jax_initialize
+    from multiclust_tpu_torch.route_times import mixture_planes
+
+    I, L, K = 600, 400, 150
+    planes, miss = mixture_planes(150 + start, I, L, K, 0.0, "cpu")
+    ds = dataset_from_counts(planes.permute(1, 2, 0).long().numpy(),
+                             miss.long().numpy(), 2)
+    base = dict(admixture=False, biallelic=True, has_missing=False,
+                ploidy=2, max_iter=100, accel_scheme=1,
+                monotonicity="fatal", eta_lower_bound=1e-8,
+                p_lower_bound=1e-8)
+    jmd = jax_model_data(ds, dtype=jnp.float64)
+    jcfg = JaxEMConfig(**base)
+    p0 = jax_initialize(jax.random.PRNGKey(start), jmd, K, jcfg)
+    jr = jax_fit(p0, jmd, jcfg)
+    tr = fit(params_from_numpy(np.array(p0.eta), np.array(p0.p)),
+             model_data_from_dataset(ds, dtype=torch.float64),
+             EMConfig(**base))
+    j_viol = bool(np.asarray(jr.state.mono_viol).any())
+    assert bool(tr.state.mono_viol[0]) == j_viol
+    assert tr.n_iter == jr.n_iter, (tr.n_iter, jr.n_iter)
+    np.testing.assert_allclose(tr.logL, jr.logL, rtol=1e-10)
+    assert not j_viol
+
+
 # ---------------------------------------------------------------------------
 # the gate at 1024 lanes
 
@@ -348,28 +383,48 @@ def test_check_kp_takes_multiples_of_32_to_1024():
 @pytest.mark.parametrize("Kp", [160, 224, 512, 1024])
 def test_wide_cols_tile_and_segments(Kp):
     """The wide columns pass takes blocks of 128 loci (one stream) or 64
-    (two) on each chunk of 128 lanes, whatever Kp; its row segments cover
-    I exactly, in whole stages, and with the chunk blocks counted fit one
-    wave of the card where there is more than one segment."""
+    (two) on each chunk of live lanes, whatever Kp, in stages of 128 rows;
+    its row segments cover I exactly, in whole stages, and with the chunk
+    blocks of k_true's lanes counted fit one wave of the card where there
+    is more than one segment."""
     from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX
 
+    assert mb.cols_stage_rows(Kp) == 128
     for two in (False, True):
         assert mb.cols_tile(Kp, two) == (64 if two else 128)
         assert mb.cols_blocks_per_sm(Kp, two) == 1
-        for I, L, B in ((1, 17, 1), (16384, 2048, 1), (16384, 2048, 2),
-                        (8192, 131072, 2), (131071, 64, 7), (4000, 96, 2)):
-            n_seg, seg_rows = mb.cols_segments(I, L, B, Kp, two, 132)
-            assert 1 <= n_seg <= GRID_YZ_MAX
-            assert seg_rows % mb.COL_RI == 0
-            assert (n_seg - 1) * seg_rows < I <= n_seg * seg_rows
-            blocks = -(-L // mb.cols_tile(Kp, two)) * B * mb.chunks(Kp)
-            assert n_seg == 1 or n_seg * blocks <= 132
+        for k_true in (0, Kp - 31, 129):
+            for I, L, B in ((1, 17, 1), (16384, 2048, 1), (16384, 2048, 2),
+                            (8192, 131072, 2), (131071, 64, 7),
+                            (4000, 96, 2)):
+                n_seg, seg_rows = mb.cols_segments(I, L, B, Kp, two, 132,
+                                                   k_true)
+                assert 1 <= n_seg <= GRID_YZ_MAX
+                assert seg_rows % mb.cols_stage_rows(Kp) == 0
+                assert (n_seg - 1) * seg_rows < I <= n_seg * seg_rows
+                blocks = (-(-L // mb.cols_tile(Kp, two)) * B
+                          * mb.chunks(Kp, k_true))
+                assert n_seg == 1 or n_seg * blocks <= 132
+
+
+@pytest.mark.parametrize("Kp", [160, 224, 512, 1024])
+def test_wide_chunks_count_the_live_tiles(Kp):
+    """The wide passes cut the ceil(k_true / 8) live lane tiles into
+    ``chunks(Kp, k_true)`` chunks of at most 16 tiles (128 lanes), as
+    csrc/mixture_bi.cu's ``wide_chunks`` does; k_true 0 or past Kp takes
+    every lane, so ``chunks(Kp)`` is ceil(Kp / 128)."""
+    for k_true in range(0, Kp + 2):
+        live = k_true if 1 <= k_true <= Kp else Kp
+        assert mb.chunks(Kp, k_true) == -(-(-(-live // 8)) // 16)
+    assert mb.chunks(Kp) == -(-Kp // 128)
+    assert mb.chunks(1024, 130) == 2 and mb.chunks(224, 200) == 2
+    assert mb.chunks(128, 100) == 1
 
 
 def test_kernel_report_names_the_wide_mixture_kernels():
     """``kernel_report.ptxas_lines`` names the mixture's wide kernels: the
-    score and columns kernels by their stream flag, the softmax, and the
-    eta finish by its lanes a thread."""
+    score and columns kernels by their stream flag, the softmax by its
+    score pairs a lane, and the eta finish by its lanes a thread."""
     from multiclust_tpu_torch.kernel_report import MIX_WIDE, ptxas_lines
 
     def entry(mangled, regs):
@@ -383,10 +438,10 @@ def test_kernel_report_names_the_wide_mixture_kernels():
                     168)
               + entry(pre + "20mix_cols_wide_kernelILb0EEEvPKfPKaS4_PfS5_"
                       "iiiiii", 190)
-              + entry(pre + "18mix_softmax_kernelEPKdPfS2_iii", 96)
+              + entry(pre + "18mix_softmax_kernelILi16EEvPKdPfS3_iii", 96)
               + entry(pre + "14mix_eta_kernelILi32EEEvPKfPfS2_iiiifi", 80)
               + entry(pre + "14mix_eta_kernelILi2EEEvPKfPfS2_iiiifi", 40))
     names = [name for name, _ in ptxas_lines(report, MIX_WIDE)]
     assert names == ["mix_rows_wide_kernel<true>",
-                     "mix_cols_wide_kernel<false>", "mix_softmax_kernel",
+                     "mix_cols_wide_kernel<false>", "mix_softmax_kernel<16>",
                      "mix_eta_kernel<32>", "mix_eta_kernel<2>"]
