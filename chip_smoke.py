@@ -143,9 +143,11 @@ each raising on failure:
 21. K above 128 (the wide kernels of csrc/wide.cuh): at K = 200 (224
    lanes) and K = 1024 on a 16384 x 2048 panel, 1 % missing, 1 and 2
    chains, the router's route and segments: the wide rows pass, its
-   finish and the wide biallelic columns pass each against its plain
-   version, the routed step and the t-only logL terms, reruns bit-equal,
-   the finish's raw sums and t bit-equal to the ordered ones, each
+   finish and the wide biallelic columns pass (a d launch and a B launch
+   on the float64 tensor cores a column sub-window) each against its
+   plain version, the routed step and the t-only logL terms, reruns
+   bit-equal, the finish's raw sums and t and the columns pass's raw
+   B0/B1 (emit_b) bit-equal to the ordered sums of their partials, each
    kernel's time at 2 chains on CUDA events (the biallelic columns pass
    with the p0 epilogue its launcher runs) beside its plain version and
    bound; every variant (compute_t off, emit_b, emit_a / a0,
@@ -161,8 +163,10 @@ each raising on failure:
    30`` through the CLI on a 16384 x 2048 file; a 2x1 gloo step at K =
    200 (``--wide-mesh-child``) held to the unsharded one; a step at 1056
    lanes, which takes the plain step, launches nothing and prints its
-   notice once.  The kernels line's wide records carry their times at K =
-   200 and, under ``kp1024``, at K = 1024;
+   notice once; the compiler's report of the wide kernels, none
+   spilling.  The kernels line's wide records carry their times at K =
+   200 and, under ``kp1024``, at K = 1024, and the columns passes'
+   records the registers of their two kernels;
 22. the mixture above 128 lanes (the wide kernels of csrc/mixture_bi.cu):
    at K = 200 (224 lanes) and K = 1024 on 16384 x 2048, chain batches 1
    and 2, one stream (missing-free) and two (1 % missing): the wide rows
@@ -2830,6 +2834,20 @@ def wide_step_checks(fb, args, route, K, W):
     torch.cuda.synchronize()
     assert torch.equal(outs[0], again[0]) and (outs[0][:, K:] == 0).all()
     errs["cols_bi"] = max_err(outs[0][..., :W], want[0][..., :W])
+    del want, again
+    # the columns pass's partials alone: the raw B0/B1 of its epilogue
+    # (emit_b) are their ordered sums, lanes past kc zero
+    part = fb.cols_partials(e, p, a, z, m, k_true=K, n_rseg=route.n_rseg,
+                            **win)
+    raw = (torch.zeros_like(p), torch.zeros_like(p))
+    fb.cols_window(e, p, a, z, m, raw, k_true=K, n_rseg=route.n_rseg, **cw)
+    torch.cuda.synchronize()
+    kc = fb.kc_of(K, p.shape[1])
+    for s in (0, 1):
+        ordered = fb.ordered_segment_sum(part[:, :, s])
+        ordered[:, kc:] = 0.0
+        assert torch.equal(raw[s][..., :W], ordered), s
+    del part, raw, ordered
     return errs, apart, tpart
 
 
@@ -3371,6 +3389,19 @@ def phase_wide(fb, fs, build, dev, where):
     with tempfile.TemporaryDirectory() as tmp:
         mesh = phase_wide_mesh(build, dev, where, tmp)
     phase_wide_beyond(build, dev, where)
+    from multiclust_tpu_torch.kernel_report import WIDE, ptxas_lines
+    report = build.library_path().with_suffix(".ptxas.txt").read_text()
+    regs = {}
+    for name, text in ptxas_lines(report, WIDE):
+        print(f"ptxas {name}: {text}", flush=True)
+        assert " 0 bytes spill stores, 0 bytes spill loads" in text, name
+        regs[name] = int(re.search(r"Used (\d+) registers", text).group(1))
+    # the columns passes' two launches (the d launch is one kernel for
+    # both cells, built in both sources)
+    cols_kernels = {"wide_cols_bi": ("wide_cols_d_kernel",
+                                     "wide_cols_b_kernel<kBi>"),
+                    "wide_cols_generic": ("wide_cols_d_kernel",
+                                          "wide_cols_b_kernel<kDense>")}
     records = []
     for name in WIDE_KERNELS:
         rec = kernel_record(name, WIDE_SOURCE, WIDE_TPU[name],
@@ -3381,6 +3412,8 @@ def phase_wide(fb, fs, build, dev, where):
                         + (", M = 4" if name == "wide_cols_generic" else ""))
         if name == "wide_cols_bi":   # its launcher's epilogue, timed with it
             rec["timed_with"] = "fullstep_bi_p0_kernel"
+        if name in cols_kernels:
+            rec["registers"] = {k: regs[k] for k in cols_kernels[name]}
         rec["kp1024"] = {"ms": ms[name, 1024][0],
                          "plain_ms": ms[name, 1024][1],
                          "bound_ms": bnd[name, 1024][0],

@@ -546,12 +546,15 @@ extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
 }
 
 // Columns pass in n_seg row segments of seg_rows rows (n_seg <= 65535):
-// part [B, n_seg, Kp, L*M]; miss may be null.
+// part [B, n_seg, Kp, L*M]; miss may be null.  At 128 < Kp <= 1024 the
+// wide pass runs in lane sub-windows of sub_cols lanes through `scratch`
+// (16-byte aligned, 4 B I sub_cols bytes: d of a sub-window); narrower Kp
+// take neither.
 extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
                                 const void* x2, const void* miss,
                                 void* part, int B, int I, int L, int M,
                                 int Kp, int k_true, int n_seg, int seg_rows,
-                                void* stream) {
+                                void* scratch, int sub_cols, void* stream) {
   if (M < 1) return (int)cudaErrorInvalidValue;
   const int LM = L * M;
   // the tiles of x and miss arrive by cp.async where every row starts at
@@ -559,8 +562,10 @@ extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
   const int xv = LM % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
   if (kp_wide(Kp))
     return launch_cols_wide<Cells::kDense>(
-        eta, p2, x2, nullptr, miss, part, B, I, LM, L, M, Kp, k_true, 0, LM,
-        n_seg, seg_rows, xv, (cudaStream_t)stream);
+        eta, p2, x2, nullptr, miss, part, scratch, B, I, LM, L, M, Kp,
+        k_true, 0, LM, 0, LM, n_seg, seg_rows, sub_cols,
+        LM % 4 == 0 && ((uintptr_t)p2 & 15) == 0, xv,
+        L % 4 == 0 && ((uintptr_t)miss & 3) == 0, (cudaStream_t)stream);
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   const LaneTile lt = lane_tile(k_true, Kp, 32);
   const int TC = NW * COL_CT * lt.cw;
@@ -587,6 +592,22 @@ extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
   }
 #undef MC_COLS
   return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// the tiles of the wide columns pass (csrc/wide.cuh) for the biallelic
+// (generic = 0) or the generic cells: columns of a B-launch block, rows of
+// its stage, cluster lanes of a chunk at most, rows and columns of a
+// d-launch tile, lanes of a d stage; for the tests of their mirror
+extern "C" void mc_wide_cols_tiles(int generic, int* cols, int* stage_rows,
+                                   int* chunk, int* d_rows, int* d_cols,
+                                   int* d_lanes) {
+  *cols = generic ? WideColsTile<Cells::kDense>::BC
+                  : WideColsTile<Cells::kBi>::BC;
+  *stage_rows = WB_K;
+  *chunk = CHUNK_LANES;
+  *d_rows = WD_M;
+  *d_cols = WD_N;
+  *d_lanes = WD_K;
 }
 
 // M <= 1024: G lanes per (k, locus) row, MJ slots per lane; the lanes of

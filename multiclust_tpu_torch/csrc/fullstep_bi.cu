@@ -473,8 +473,8 @@ extern "C" void mc_fullstep_bi_tiles(int k_true, int Kp, int* kc,
   if (kp_wide(Kp)) {
     *kc = wide_kc(k_true, Kp);
     *row_block = WR;
-    *col_block = WTC;
-    *col_tile_rows = WRI;
+    *col_block = WideColsTile<Cells::kBi>::BC;
+    *col_tile_rows = WB_K;
     return;
   }
   pass_tiles(k_true, Kp, kc, row_block, col_block, col_tile_rows);
@@ -583,7 +583,11 @@ extern "C" int mc_fullstep_bi_finish(const void* eta, const void* apart,
 
 // Columns pass and epilogue over the window [l_lo, l_hi); `part` holds
 // [B, n_seg, 2, Kp, l_hi - l_lo].  b0_out/b1_out non-null: the epilogue
-// writes the raw B0/B1 there instead of the p0 update (emit_b).
+// writes the raw B0/B1 there instead of the p0 update (emit_b); all three
+// null: the pass alone, its partials in `part`.  At 128 <
+// Kp <= 1024 the wide pass runs in column sub-windows of sub_cols columns
+// through `scratch` (16-byte aligned, 4 B I (sub_cols + 1) bytes: d of a
+// sub-window and the rows' eta sums); narrower Kp take neither.
 extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
                                    const void* x0, const void* x1,
                                    const void* miss, void* part,
@@ -591,13 +595,19 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
                                    int B, int I, int L, int Kp, int k_true,
                                    int l_lo, int l_hi, int n_seg,
                                    int seg_rows, float plb, float pub,
-                                   int project, void* stream) {
+                                   int project, void* scratch, int sub_cols,
+                                   void* stream) {
   if (kp_wide(Kp)) {
-    const int vec = L % 4 == 0 && l_lo % 4 == 0;
+    const int row4 = L % 4 == 0 && l_lo % 4 == 0;
+    const int vec_x = row4 && ((uintptr_t)x0 & 3) == 0 &&
+                      ((uintptr_t)x1 & 3) == 0;
+    const int vec_m = row4 && ((uintptr_t)miss & 3) == 0;
+    const int vec_p = row4 && ((uintptr_t)p0 & 15) == 0;
     const int err = launch_cols_wide<Cells::kBi>(
-        eta, p0, x0, x1, miss, part, B, I, L, L, 1, Kp, k_true, l_lo, l_hi,
-        n_seg, seg_rows, vec, (cudaStream_t)stream);
-    if (err != 0) return err;
+        eta, p0, x0, x1, miss, part, scratch, B, I, L, L, 1, Kp, k_true,
+        l_lo, l_hi, l_lo, l_hi - l_lo, n_seg, seg_rows, sub_cols, vec_p,
+        vec_x, vec_m, (cudaStream_t)stream);
+    if (err != 0 || (!p0_new && !b0_out && !b1_out)) return err;
     return launch_p0((const float*)p0, (const float*)part, (float*)p0_new,
                      (float*)b0_out, (float*)b1_out, B, Kp,
                      wide_kc(k_true, Kp), L, l_lo, l_hi - l_lo, n_seg, plb,
@@ -631,7 +641,7 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
   }
 #undef MC_COLS
   if (err == 0) err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  if (err != 0 || (!p0_new && !b0_out && !b1_out)) return err;
   return launch_p0(p, pt, (float*)p0_new, (float*)b0_out, (float*)b1_out, B,
                    Kp, lt.kc, L, l_lo, W, n_seg, plb, pub, project, s);
 }

@@ -18,23 +18,19 @@
 // cluster axis in registers: 4 JT clusters x 4 rows a thread, which at Kp
 // = 1024 would be 512 floats a thread against the 255 registers there are,
 // and eta rows of a 128-row block of 512 KiB against 227 KiB of shared
-// memory.  Here the cluster axis is cut into chunks of WK = 64 lanes and
-// the accumulators live in shared memory:
+// memory.
 //
-// * rows pass: a block owns WR = 32 rows of one column segment and keeps
-//   their A [32][kc] in shared memory (130 KiB at Kp = 1024).  For each
-//   tile of WTL = 64 columns it runs one stage a chunk for d = eta @ p
-//   (the chunk's eta [32][64] and p [64][64] arrive by cp.async into a
-//   ring of two stages), the cells into w [32][64], then one stage a chunk
-//   for A += w @ p^T (the chunk's p again, from L2).  A thread computes 2
-//   rows x 4 columns of d and 2 rows x 4 lanes of A.
-// * columns pass: a block owns WTC = 16 columns (lanes) of one row segment
-//   and keeps their B0/B1 (or B) [16][kc] in shared memory.  For each tile
-//   of WRI = 64 rows: one stage a chunk for d (eta [64][64] and p [64][16]
-//   chunks), the cells into u [16][64] (transposed, so that the B stages
-//   read four rows as a float4), then one stage a chunk for B += eta^T u
-//   (the chunk's eta again).  A thread computes 1 row x 4 columns of d and
-//   4 lanes x 1 column x both alleles of B.
+// * rows pass: the cluster axis in chunks of WK = 64 lanes, the
+//   accumulators in shared memory.  A block owns WR = 32 rows of one
+//   column segment and keeps their A [32][kc] in shared memory (130 KiB
+//   at Kp = 1024).  For each tile of WTL = 64 columns it runs one stage a
+//   chunk for d = eta @ p (the chunk's eta [32][64] and p [64][64] arrive
+//   by cp.async into a ring of two stages), the cells into w [32][64],
+//   then one stage a chunk for A += w @ p^T (the chunk's p again, from
+//   L2).  A thread computes 2 rows x 4 columns of d and 2 rows x 4 lanes
+//   of A, IEEE float32 fmaf on the CUDA cores: 0.19-0.31 shared-memory
+//   loads a FMA, one or two blocks an SM, two barriers a stage (a first
+//   version, 22 % of its bound, PERF.md).
 // * finish: one warp a row as in tiles.cuh, but the partials are read
 //   straight from device memory into registers (a row's KJ = Kp / 32
 //   values a lane, at most 32), with Kp taken at run time: one
@@ -42,31 +38,73 @@
 //   with 48 registers and an 8-byte spill, PERF.md; the finish is a small
 //   part of a step).  The t-only finish is tiles.cuh's
 //   rows_finish_t_kernel, which takes any Kp.
+// * columns pass: two launches for each column sub-window, both products
+//   on the float64 tensor cores (`mma.sync` m16n8k16 DMMA, csrc/dmma.cuh;
+//   `wgmma` has no float64 form).  d needs a row's whole cluster axis and
+//   B's accumulators [kc x columns x alleles] fit a block only for a few
+//   columns (the first version kept B0/B1 [16][kc] in shared memory, so
+//   eta streamed W / 16 times from L2 and both products ran on fmaf at
+//   13-19 % of the bound); so d is written once and read once a chunk:
+//   - d launch (`wide_cols_d_kernel`): a persistent grid over tiles of
+//     128 rows x 128 columns; eta and p stream as float32 by cp.async in
+//     stages of 64 lanes (a ring of two, one barrier a stage) and are
+//     converted to float64 as a warp's fragments are built; 4 x 4 DMMA
+//     tiles a warp (64 rows x 32 columns).  d is rounded to float32 once
+//     into a scratch plane [B, I, sub-window]; with the biallelic cells
+//     the first column tile also writes each row's eta summed over its kc
+//     lanes (one warp a row, float64, lanes in a fixed order).
+//   - B launch (`wide_cols_b_kernel`): block (column tile, row segment,
+//     chain x lane chunk), the live lanes (ceil(kc / 8) tiles of 8) in
+//     balanced chunks of at most 128 (csrc/dmma.cuh), 64-row stages of
+//     the chunk's eta, d, x (and miss, and the rows' eta sums) in a
+//     cp.async ring of two.  Each stage forms its cells in float32 into
+//     shared memory, as the narrow kernels form them (u = x *
+//     __frcp_rn(max(d, DMIN)) + miss, the second allele on srow - d; the
+//     generic cells a zero d counting as 1, miss by the lane's locus),
+//     a barrier, then B += eta^T u on DMMA, 4 x 4 tiles a warp (2 x 4 a
+//     stream with two, which share each eta fragment); a warp runs a
+//     stage through code made for its number of live lane tiles.  The
+//     block's float64 sums are rounded to float32 once, as the segment's
+//     partials.  Biallelic blocks take 64 columns, generic ones 128.
+//   - The wrapper (ops/fullstep_bi.cols_sub_cols) cuts the window into
+//     sub-windows of whole d tiles so that the scratch stays within
+//     SCRATCH_CAP (192 MiB: 1536 columns at 2 chains x 16384 rows); the
+//     launcher loops the two launches over them, each writing its columns
+//     of the same partials.
+//   d is written rather than the cells u: one plane against the
+//   biallelic cells' two, and one d kernel for both cells; the B launch
+//   reads x (a byte a cell) beside d and forms the cells again a chunk.
 //
-// Bound, and what the design does about it: the same four contractions as
-// the narrow kernels (d twice, A, B0/B1), 2 Kp FMA a cell and pass, IEEE
-// float32 fmaf on the CUDA cores (no TF32, no fast-math); against a few
-// bytes of x a cell this is instruction issue first, and the staged
-// chunks come from L2 (each eta chunk of the rows pass and each p chunk of
-// the columns pass once a tile, the other operand twice).  This first
-// version wants to be right and simple: 0.19-0.31 shared-memory loads a
-// FMA, one or two blocks an SM (shared memory), two barriers a stage.
-// Faster versions (wgmma, TMA, 3xTF32) are later work (ROADMAP queue 2).
+// Bound: the same contractions as the narrow kernels (d twice, A, B0/B1;
+// the generic d twice, A, B), 2 kc FMA a cell and product: against a few
+// bytes of x a cell, operations first, on fmaf (rows pass) or DMMA
+// (columns pass) at the same 67 TFLOP/s.  The columns pass's d scratch
+// adds 4 bytes a cell written and 4 read a chunk.
+//
+// Sums that are float64 in the columns pass since the DMMA redesign: d
+// over the lanes, each row's eta sum srow, and B within a row segment
+// (the fmaf version summed all three in float32); d and srow are rounded
+// to float32 before the cells (d1 = srow - d in float32), the partials
+// once at the end of a segment; the segments still add in float32 in
+// segment order in the epilogues.
 //
 // Where the loops stop: the cluster loops run over kc = k_true rounded up
-// to 4 lanes (the d stages stop there; the last chunk's A and B stages
-// compute their 64 lanes, the lanes past kc on zeros), and the outputs
-// past kc are written as the narrow kernels write them: the row's sum of
-// w1 (biallelic A + r) or 0.  K stays padded to 32 lanes (Kp = 224 for K
-// = 200): no layout of runtime/multistart.py changes.
+// to 4 lanes (the rows pass's d stages stop there; its last chunk's A
+// stages compute their 64 lanes on zeros past kc; the columns pass's d
+// stages stop at kc rounded up to 16, its B launch at the live tiles of
+// 8), and the outputs past kc are written as the narrow kernels write
+// them: the row's sum of w1 (biallelic A + r) or 0.  K stays padded to 32
+// lanes (Kp = 224 for K = 200): no layout of runtime/multistart.py
+// changes.
 //
 // No atomics: every sum runs in a fixed order (d and the row sums over
 // lanes in order, A over columns, B over rows, the finish over segments,
 // t in float64), so reruns are bit-equal.  Ragged I and L edges and the
-// lanes past kc are zeros in the staged chunks and in x, not masks in the
+// lanes past kc are zeros in the staged tiles and in x, not masks in the
 // arithmetic.
 #pragma once
 
+#include "dmma.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -75,12 +113,8 @@ constexpr int KP_WIDE_MAX = 1024;
 constexpr int WK = 64;     // cluster lanes a chunk
 constexpr int WR = 32;     // rows a rows-pass block
 constexpr int WTL = 64;    // columns a rows-pass tile
-constexpr int WTC = 16;    // columns (lanes) a columns-pass block
-constexpr int WRI = 64;    // rows a columns-pass tile
 constexpr int WES = WK + 4;    // a staged eta chunk row
-constexpr int WPS = WTL + 4;   // a staged p chunk row (rows pass), a w row
-constexpr int WCS = WTC + 4;   // a staged p chunk row (columns pass)
-constexpr int WUS = WRI + 4;   // a u row (columns pass, one column)
+constexpr int WPS = WTL + 4;   // a staged p chunk row, a w row
 
 // the wide test beside tiles.cuh's kp_ok (Kp <= 128)
 inline bool kp_wide(int Kp) {
@@ -105,20 +139,12 @@ __host__ __device__ inline int wide_acc_stride(int kc) {
 }
 
 constexpr int ROWS_STAGE = WR * WES + WK * WPS;
-constexpr int COLS_STAGE = WRI * WES + WK * WCS;
 
 // shared memory of a rows-pass block, in floats: a_s [WR][KA], w_s [WR]
 // [WPS], a ring of two stages (eta chunk [WR][WES], p chunk [WK][WPS]),
 // t_s [WR], r_s [WR]
 inline int rows_wide_smem_floats(int kc) {
   return WR * wide_acc_stride(kc) + WR * WPS + 2 * ROWS_STAGE + 2 * WR;
-}
-
-// shared memory of a columns-pass block, in floats: b_s [NA][WTC][KA],
-// u_s [NA][WTC][WUS], a ring of two stages (eta chunk [WRI][WES], p chunk
-// [WK][WCS])
-inline int cols_wide_smem_floats(int kc, int NA) {
-  return NA * WTC * wide_acc_stride(kc) + NA * WTC * WUS + 2 * COLS_STAGE;
 }
 
 // ---------------------------------------------------------------------------
@@ -444,209 +470,489 @@ inline int launch_rows_finish_wide(const void* eta, const void* apart,
   return (int)cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
-// columns pass
+// columns pass: a d launch, then a B launch, for each column sub-window
 
-// Block (x = WTC columns of the window, y = row segment, z = chain) covers
-// the rows [y seg_rows, + seg_rows) and the columns [l_lo + x WTC, + WTC)
-// of the window [l_lo, l_hi) of arrays with row stride L (x and p) and
-// ML (miss, a locus per M columns), and writes that segment's partials
-// part [B, n_seg, NA, Kp, l_hi - l_lo], lanes past kc written 0.  C = kBi
-// (NA = 2): B0/B1 = eta^T (x0 / d0 + miss), eta^T (x1 / d1 + miss) with the
-// clamped d0, d1; kDense (NA = 1): B = eta^T (x0 / d + miss) over lanes,
-// a zero d counting as 1.  miss may be null.
+// Both launches: 8 warps in WC_WM warp rows x WC_WN warp columns, a warp
+// 16 MT rows (or columns) x WC_NTW tiles of 8 columns (or lanes).
+constexpr int WC_WM = 2, WC_WN = 4, WC_NTW = 4;
+static_assert(WC_WM * WC_WN == NW, "the warps tile the block");
+static_assert(8 * WC_NTW * WC_WN == CHUNK_LANES, "a B block takes a chunk");
+
+// d launch: tiles of WD_M rows x WD_N columns, stages of WD_K lanes.  WD_ES
+// = WD_K + 4: a fragment's scalar eta reads (rows g, lanes t + 4 p) hit
+// banks 4 g + t; WD_PS = WD_N + 8: its p reads (lanes t + 4 p, columns g)
+// hit 8 t + g.
+constexpr int WD_M = 16 * 4 * WC_WM, WD_N = 8 * WC_NTW * WC_WN, WD_K = 64;
+constexpr int WD_ES = WD_K + 4, WD_PS = WD_N + 8;
+constexpr int WD_STAGE = 4 * (WD_M * WD_ES + WD_K * WD_PS);   // bytes
+constexpr int WD_SMEM = 2 * WD_STAGE;
+
+// B launch: stages of WB_K rows; WB_ES = CHUNK_LANES + 8: a fragment's eta
+// reads (rows t + 4 p, lanes g) hit banks 8 t + g.
+constexpr int WB_K = 64, WB_ES = CHUNK_LANES + 8;
+
+// The B block of the cells C: BC columns (MT tiles of 16 a warp and
+// stream), NS streams.  Shared memory, in bytes: two stages of [the eta
+// chunk WB_K x WB_ES floats, d WB_K x DS floats, x0 (x1) WB_K x BC bytes,
+// miss WB_K x MS bytes, the rows' eta sums WB_K floats (kBi)], then the
+// cells u [NS][WB_K][US] floats.  US = BC + 8: a fragment's float2 reads
+// of u (rows t + 4 p, columns 2 g, 2 g + 1) hit banks 8 t + 2 g (+ 1).
+// MS: the generic cells' loci of BC lanes from a 4-byte boundary.
 template <Cells C>
-__global__ void __launch_bounds__(NT, 2) wide_cols_kernel(
+struct WideColsTile {
+  static constexpr int NS = C == Cells::kBi ? 2 : 1;
+  static constexpr int MT = NS == 2 ? 2 : 4;
+  static constexpr int BC = 16 * MT * WC_WM;
+  static constexpr int DS = BC + 4, US = BC + 8;
+  static constexpr int MS = NS == 2 ? BC : BC + 8;
+  static constexpr int D_OFF = 4 * WB_K * WB_ES;
+  static constexpr int X_OFF = D_OFF + 4 * WB_K * DS;
+  static constexpr int M_OFF = X_OFF + NS * WB_K * BC;
+  static constexpr int S_OFF = M_OFF + WB_K * MS;
+  static constexpr int STAGE = S_OFF + (NS == 2 ? 4 * WB_K : 0);
+  static constexpr int U_OFF = 2 * STAGE;
+  static constexpr int SMEM = U_OFF + 4 * NS * WB_K * US;
+  static_assert(STAGE % 16 == 0 && SMEM <= SMEM_MAX, "B block smem");
+};
+static_assert(WD_SMEM <= SMEM_MAX, "d block smem");
+
+// The d launch: a persistent grid over the tiles (WD_M rows, WD_N columns
+// of the sub-window [s0, s1), chain), each block taking every
+// gridDim.x-th.  d = eta @ p over the lanes below kc on the float64 tensor
+// cores (4 x 4 DMMA tiles a warp, 64 rows x 32 columns; eta and p staged
+// as float32 by cp.async, converted in registers), summed in float64 over
+// the lanes in order and rounded to float32 once into d_out [B, I, ds]
+// (column c at c - s0).  With srow non-null the tiles of the first column
+// tile also write each row's eta summed over its kc lanes (float64, one
+// warp a row, lanes in a fixed order) to srow [B, I].  p has row stride L.
+__global__ void __launch_bounds__(NT, 1) wide_cols_d_kernel(
     const float* __restrict__ eta, const float* __restrict__ p,
-    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    const int8_t* __restrict__ miss, float* __restrict__ part, int I, int L,
-    int ML, int M, int Kp, int kc, int l_lo, int l_hi, int seg_rows,
-    int vec) {
-  constexpr bool BI = C == Cells::kBi;
-  constexpr int NA = BI ? 2 : 1;
-  const int n_ch = (kc + WK - 1) / WK, KA = wide_acc_stride(kc);
-  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
-  const int dr = tid >> 2, dc = tid & 3;
-  const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
-  const int col0 = l_lo + blockIdx.x * WTC;
-  const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
-  const float* eta_b = eta + (size_t)b * I * Kp;
-  const float* p_b = p + (size_t)b * Kp * L;
-  float* b_s = reinterpret_cast<float*>(dyn_smem4);
-  float* u_s = b_s + NA * WTC * KA;
-  float* ring = u_s + NA * WTC * WUS;
+    float* __restrict__ d_out, float* __restrict__ srow, int B, int I,
+    int L, int Kp, int kc, int s0, int s1, int ds, int vec) {
+  constexpr int MT = 4, ST = 2;
+  char* smem = reinterpret_cast<char*>(dyn_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WC_WM, wc = warp / WC_WM;
+  const int n_rt = (I + WD_M - 1) / WD_M;
+  const int n_ct = (s1 - s0 + WD_N - 1) / WD_N;
+  const int n_tiles = n_rt * n_ct * B;
+  const int n_st = (kc + WD_K - 1) / WD_K;
 
-  const int n_tile = r_hi > r_lo ? (r_hi - r_lo + WRI - 1) / WRI : 0;
-  const int per_tile = 2 * n_ch;
-  const int n_stage = n_tile * per_tile;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int ct = tile % n_ct, rt = tile / n_ct % n_rt;
+    const int b = tile / (n_ct * n_rt);
+    const int row0 = rt * WD_M, col0 = s0 + ct * WD_N;
+    const float* eta_b = eta + (size_t)b * I * Kp;
+    const float* p_b = p + (size_t)b * Kp * L;
 
-  // stage s into ring slot s % 2: a d stage brings the chunk's eta rows
-  // and p columns, a B stage the chunk's eta rows
-  auto issue = [&](int s) {
-    if (s < n_stage) {
-      const int tile = s / per_tile, j = s % per_tile;
-      const int r0 = r_lo + tile * WRI;
-      const int k0 = (j < n_ch ? j : j - n_ch) * WK;
-      float* e_st = ring + (s & 1) * COLS_STAGE;
-      float* p_st = e_st + WRI * WES;
-      for (int e = tid; e < WRI * (WK / 4); e += NT) {
-        const int r = e / (WK / 4), k4 = 4 * (e % (WK / 4));
-        const int row = r0 + r, k = k0 + k4;
-        const bool ok = row < r_hi && k < kc;
-        cp_async16(e_st + r * WES + k4,
+    auto issue = [&](int st) {
+      float* es = reinterpret_cast<float*>(smem + (st % ST) * WD_STAGE);
+      float* ps = es + WD_M * WD_ES;
+      const int k0 = st * WD_K;
+      for (int e = tid; e < WD_M * (WD_K / 4); e += NT) {
+        const int r = e / (WD_K / 4), k4 = 4 * (e % (WD_K / 4));
+        const int row = row0 + r, k = k0 + k4;
+        const bool ok = row < I && k < kc;
+        cp_async16(es + r * WD_ES + k4,
                    ok ? eta_b + (size_t)row * Kp + k : eta_b, ok ? 16 : 0);
       }
-      if (j < n_ch) {
-        for (int e = tid; e < WK * (WTC / 4); e += NT) {
-          const int k = e / (WTC / 4), c4 = 4 * (e % (WTC / 4));
-          const int kk = k0 + k, col = col0 + c4;
-          const int n = kk < kc ? min(4, l_hi - col) : 0;
-          float* dst = p_st + k * WCS + c4;
-          if (vec) {
-            cp_async16(dst, n > 0 ? p_b + (size_t)kk * L + col : p_b,
-                       n > 0 ? 4 * n : 0);
-          } else {
+      for (int e = tid; e < WD_K * (WD_N / 4); e += NT) {
+        const int k = e / (WD_N / 4), c4 = 4 * (e % (WD_N / 4));
+        const int kk = k0 + k, col = col0 + c4;
+        const int n = kk < kc ? max(0, min(4, s1 - col)) : 0;
+        float* dst = ps + k * WD_PS + c4;
+        if (vec) {
+          cp_async16(dst, n > 0 ? p_b + (size_t)kk * L + col : p_b, 4 * n);
+        } else {
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-              dst[q] = q < n ? p_b[(size_t)kk * L + col + q] : 0.f;
-          }
+          for (int q = 0; q < 4; ++q)
+            dst[q] = q < n ? p_b[(size_t)kk * L + col + q] : 0.f;
         }
       }
+      cp_async_commit();
+    };
+
+    double acc[MT][WC_NTW][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < WC_NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
+
+    __syncthreads();   // every warp is done with the last tile's ring
+    issue(0);
+    if (srow != nullptr && ct == 0) {
+      for (int r = warp; r < WD_M && row0 + r < I; r += NW) {
+        const float* er = eta_b + (size_t)(row0 + r) * Kp;
+        double sum = 0.0;
+        for (int k = lane; k < kc; k += 32) sum += (double)er[k];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(mc::FULL, sum, o);
+        if (lane == 0) srow[(size_t)b * I + row0 + r] = (float)sum;
+      }
+    }
+    for (int st = 0; st < n_st; ++st) {
+      cp_async_wait<0>();
+      __syncthreads();   // stage st landed; every warp is done with st - 1
+      if (st + 1 < n_st) issue(st + 1); else cp_async_commit();
+      const float* es =
+          reinterpret_cast<const float*>(smem + (st % ST) * WD_STAGE);
+      const float* ps = es + WD_M * WD_ES;
+      const int nc = (min(WD_K, kc - st * WD_K) + 15) / 16;
+      for (int c = 0; c < nc; ++c) {
+        double bb[WC_NTW][4];
+#pragma unroll
+        for (int j = 0; j < WC_NTW; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            bb[j][q] = ps[(16 * c + t + 4 * q) * WD_PS + 32 * wc + 8 * j + g];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float* ea = es + (64 * wm + 16 * m + g) * WD_ES + 16 * c + t;
+          double a[8];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            a[2 * q] = ea[4 * q];
+            a[2 * q + 1] = ea[8 * WD_ES + 4 * q];
+          }
+#pragma unroll
+          for (int j = 0; j < WC_NTW; ++j) dmma16(acc[m][j], a, bb[j]);
+        }
+      }
+    }
+
+    // rows g and g + 8 of each tile, columns 32 wc + 8 j + 2 t + {0, 1}
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 64 * wm + 16 * m + g + 8 * h;
+        if (row >= I) continue;
+        float* dr = d_out + ((size_t)b * I + row) * ds + (col0 - s0);
+#pragma unroll
+        for (int j = 0; j < WC_NTW; ++j) {
+          const int c = 32 * wc + 8 * j + 2 * t;
+          const float o0 = (float)acc[m][j][2 * h];
+          const float o1 = (float)acc[m][j][2 * h + 1];
+          if (col0 + c + 1 < s1)
+            *reinterpret_cast<float2*>(dr + c) = make_float2(o0, o1);
+          else if (col0 + c < s1)
+            dr[c] = o0;
+        }
+      }
+  }
+}
+
+// bytes [c0, c0 + 4 nw) of the rows r0 .. r0 + WB_K - 1 of an int8 plane
+// with row stride ld into dst (row stride dstride), zeros at rows >= r_hi
+// and at bytes >= c_hi; vec: 4-byte cp.async (c0 and ld multiples of 4,
+// the plane 4-byte aligned), else plain loads
+__device__ __forceinline__ void stage_bytes(int8_t* dst, int dstride,
+                                            const int8_t* src, int ld,
+                                            int r0, int r_hi, int c0,
+                                            int c_hi, int nw, int vec) {
+  for (int e = threadIdx.x; e < WB_K * nw; e += NT) {
+    const int r = e / nw, w = e % nw, row = r0 + r, col = c0 + 4 * w;
+    const int n = row < r_hi ? max(0, min(4, c_hi - col)) : 0;
+    int8_t* o = dst + r * dstride + 4 * w;
+    if (vec) {
+      cp_async4(o, n > 0 ? src + (size_t)row * ld + col : src, n);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        o[q] = q < n ? src[(size_t)row * ld + col + q] : (int8_t)0;
+    }
+  }
+}
+
+// One stage of the B launch's products for a warp with NJ live lane
+// tiles: A = u^T (a tile's rows g and g + 8 are columns 2 g and 2 g + 1,
+// one float2 read), B = eta, slot p of thread t row t + 4 p of a 16-row
+// step.
+template <Cells C, int NJ>
+__device__ __forceinline__ void wide_cols_b_stage(
+    double (&acc)[WideColsTile<C>::NS][WideColsTile<C>::MT][WC_NTW][4],
+    const float* es, const float* us, int wm, int wc, int g, int t) {
+  using T = WideColsTile<C>;
+  constexpr int MT = T::MT, US = T::US;
+  // two streams: one 16-row step at a time (fully unrolled, the kernel
+  // built at 254 registers with an 8-byte spill)
+  constexpr int STEPS = T::NS == 2 ? 1 : WB_K / 16;
+#pragma unroll STEPS
+  for (int c = 0; c < WB_K / 16; ++c) {
+    const float* et = es + (16 * c + t) * WB_ES + 8 * wc + g;
+    double bb[NJ > 0 ? NJ : 1][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        bb[j][q] = et[4 * q * WB_ES + 8 * WC_WN * j];
+#pragma unroll
+    for (int s = 0; NJ > 0 && s < T::NS; ++s) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* ut = us + (s * WB_K + 16 * c + t) * US +
+                          16 * (wm * MT + m) + 2 * g;
+        double a[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 f = *reinterpret_cast<const float2*>(ut + 4 * q * US);
+          a[2 * q] = f.x;
+          a[2 * q + 1] = f.y;
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dmma16(acc[s][m][j], a, bb[j]);
+      }
+    }
+  }
+}
+
+// The B launch: block (BC columns of the sub-window [s0, s1), row
+// segment, chain x chunk of the live lane tiles of kc) forms the cells of
+// each stage in float32 from d (the d launch's, at row stride ds), x and
+// miss, as the narrow kernels form them: kBi u0/u1 = x0 / d0 + m, x1 / d1
+// + m with d0 = max(d, DMIN), d1 = max(srow - d, DMIN); kDense u = x / d +
+// m with a zero d counting as 1 and m the lane's locus count (locus c /
+// M, miss at row stride ML).  Then B = eta^T u over the segment's rows on
+// the chunk's lanes on the float64 tensor cores, summed in float64 in row
+// order and rounded once into part [B, n_seg, NS, Kp, WP] (column c at c
+// - p_lo).  The first chunk's blocks write zeros to the lanes past the
+// live tiles.  x, miss have row stride L (kBi: miss too); miss may be
+// null.
+template <Cells C>
+__global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
+    const float* __restrict__ eta, const float* __restrict__ d,
+    const float* __restrict__ srow, const int8_t* __restrict__ x0,
+    const int8_t* __restrict__ x1, const int8_t* __restrict__ miss,
+    float* __restrict__ part, int I, int L, int ML, int M, int Kp, int kc,
+    int s0, int s1, int ds, int p_lo, int WP, int seg_rows, int vec_x,
+    int vec_m) {
+  using T = WideColsTile<C>;
+  constexpr bool BI = C == Cells::kBi;
+  constexpr int NS = T::NS, MT = T::MT, BC = T::BC, ST = 2;
+  constexpr int DS = T::DS, MS = T::MS, US = T::US;
+  char* smem = reinterpret_cast<char*>(dyn_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WC_WM, wc = warp / WC_WM;
+  const int n_ch = wide_chunks(kc), c = blockIdx.z % n_ch;
+  const int b = blockIdx.z / n_ch;
+  int t0, nt_live;
+  chunk_tiles(c, kc, &t0, &nt_live);
+  const int k0 = 8 * t0, kv = 8 * nt_live;   // the chunk's lanes
+  const int nj = live_tiles<WC_NTW, WC_WN>(nt_live, wc);
+  const int seg = blockIdx.y, n_seg = gridDim.y;
+  const int col0 = s0 + blockIdx.x * BC;
+  const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
+  const int n_st = r_hi > r_lo ? (r_hi - r_lo + WB_K - 1) / WB_K : 0;
+  const float* eta_b = eta + (size_t)b * I * Kp + k0;
+  const float* d_b = d + (size_t)b * I * ds + (col0 - s0);
+  const float* srow_b = BI ? srow + (size_t)b * I : nullptr;
+  // the generic cells' loci: [m_lo, m_hi) cover the block's lanes below
+  // s1, staged from m_base (a 4-byte boundary on the vector path)
+  const int m_lo = col0 / M;
+  const int m_hi = min(ML, (min(s1, col0 + BC) - 1) / M + 1);
+  const int m_base = vec_m ? m_lo & ~3 : m_lo;
+  float* us = reinterpret_cast<float*>(smem + T::U_OFF);
+
+  auto issue = [&](int st) {
+    char* stage = smem + (st % ST) * T::STAGE;
+    const int r0 = r_lo + st * WB_K;
+    float* es = reinterpret_cast<float*>(stage);
+    for (int e = tid; e < WB_K * (CHUNK_LANES / 4); e += NT) {
+      const int r = e / (CHUNK_LANES / 4), c4 = 4 * (e % (CHUNK_LANES / 4));
+      if (c4 >= kv) continue;   // lanes past the chunk: not read
+      const int row = r0 + r;
+      const bool ok = row < r_hi;
+      cp_async16(es + r * WB_ES + c4, ok ? eta_b + (size_t)row * Kp + c4
+                                         : eta_b, ok ? 16 : 0);
+    }
+    float* dst = reinterpret_cast<float*>(stage + T::D_OFF);
+    for (int e = tid; e < WB_K * (BC / 4); e += NT) {
+      const int r = e / (BC / 4), c4 = 4 * (e % (BC / 4));
+      const int row = r0 + r;
+      const int n = row < r_hi ? max(0, min(4, s1 - col0 - c4)) : 0;
+      cp_async16(dst + r * DS + c4, n > 0 ? d_b + (size_t)row * ds + c4
+                                          : d_b, 4 * n);
+    }
+    int8_t* xs = reinterpret_cast<int8_t*>(stage + T::X_OFF);
+    stage_bytes(xs, BC, x0, L, r0, r_hi, col0, s1, BC / 4, vec_x);
+    if constexpr (BI) {
+      stage_bytes(xs + WB_K * BC, BC, x1, L, r0, r_hi, col0, s1, BC / 4,
+                  vec_x);
+      if (miss != nullptr)
+        stage_bytes(reinterpret_cast<int8_t*>(stage + T::M_OFF), MS, miss,
+                    L, r0, r_hi, col0, s1, BC / 4, vec_m);
+      if (tid < WB_K) {
+        const int row = r0 + tid;
+        const bool ok = row < r_hi;
+        cp_async4(reinterpret_cast<float*>(stage + T::S_OFF) + tid,
+                  ok ? srow_b + row : srow_b, ok ? 4 : 0);
+      }
+    } else if (miss != nullptr) {
+      stage_bytes(reinterpret_cast<int8_t*>(stage + T::M_OFF), MS, miss, ML,
+                  r0, r_hi, m_base, m_hi, (m_hi - m_base + 3) / 4, vec_m);
     }
     cp_async_commit();
   };
 
-  // d and the cells: row dr of the tile x columns 4 dc .. 4 dc + 3; B:
-  // column hi x lanes k0 + 4 lo .. + 3 of a chunk, both alleles
-  float d[4], srow = 0.f;
-  uint32_t xa = 0u, xb = 0u, xm = 0u;
-  issue(0);
-  for (int s = 0; s < n_stage; ++s) {
-    issue(s + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const int tile = s / per_tile, j = s % per_tile;
-    const float* e_st = ring + (s & 1) * COLS_STAGE;
-    const float* p_st = e_st + WRI * WES;
-    if (j < n_ch) {
-      if (j == 0) {
-        srow = 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) d[q] = 0.f;
-        const int row = r_lo + tile * WRI + dr, col = col0 + 4 * dc;
-        const int n = row < r_hi ? l_hi - col : 0;
-        const size_t off = (size_t)row * L + col;
-        xa = load_x4(x0, off, n, vec);
-        if constexpr (BI) {
-          xb = load_x4(x1, off, n, vec);
-          xm = miss != nullptr ? load_x4(miss, (size_t)row * ML + col, n, vec)
-                               : 0u;
-        } else {
-          // each lane's locus count, byte q for lane col + q
-          xm = 0u;
-          if (miss != nullptr) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              if (q < n)
-                xm |= (uint32_t)(uint8_t)miss[(size_t)row * ML + (col + q) / M]
-                      << (8 * q);
-          }
-        }
-      }
-      const int kn = min(WK, kc - j * WK);
-      for (int k4 = 0; k4 < kn; k4 += 4) {
-        float4 pv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) pv[q] = ld4(p_st + (k4 + q) * WCS + 4 * dc);
-        const float4 ev = ld4(e_st + dr * WES + k4);
-        d_row(d, ev, pv);
-        if constexpr (BI) srow += (ev.x + ev.y) + (ev.z + ev.w);
-      }
-      if (j == n_ch - 1) {   // the tile's cells, into u_s [a][column][row]
+  // the stage's cells, four columns a thread, into us [NS][WB_K][US]
+  auto cells = [&](const char* stage) {
+    const float* dst = reinterpret_cast<const float*>(stage + T::D_OFF);
+    const int8_t* xs = reinterpret_cast<const int8_t*>(stage + T::X_OFF);
+    const int8_t* ms = reinterpret_cast<const int8_t*>(stage + T::M_OFF);
+    for (int e = tid; e < WB_K * (BC / 4); e += NT) {
+      const int r = e / (BC / 4), c4 = 4 * (e % (BC / 4));
+      const float4 dv = *reinterpret_cast<const float4*>(dst + r * DS + c4);
+      const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+      const uint32_t xa = *reinterpret_cast<const uint32_t*>(xs + r * BC + c4);
+      float u0[4], u1[4];
+      if constexpr (BI) {
+        const uint32_t xb = *reinterpret_cast<const uint32_t*>(
+            xs + (WB_K + r) * BC + c4);
+        const uint32_t xm = miss != nullptr
+            ? *reinterpret_cast<const uint32_t*>(ms + r * MS + c4) : 0u;
+        const float sr = reinterpret_cast<const float*>(stage + T::S_OFF)[r];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float m = x_byte(xm, q);
-          float* u = u_s + (4 * dc + q) * WUS + dr;
-          if constexpr (BI) {
-            u[0] = fmaf(x_byte(xa, q), __frcp_rn(fmaxf(d[q], DMIN)), m);
-            u[WTC * WUS] =
-                fmaf(x_byte(xb, q), __frcp_rn(fmaxf(srow - d[q], DMIN)), m);
-          } else {
-            const float sd = d[q] > 0.f ? d[q] : 1.f;
-            u[0] = fmaf(x_byte(xa, q), __frcp_rn(sd), m);
-          }
+          u0[q] = fmaf(x_byte(xa, q), __frcp_rn(fmaxf(dd[q], DMIN)), m);
+          u1[q] = fmaf(x_byte(xb, q), __frcp_rn(fmaxf(sr - dd[q], DMIN)), m);
+        }
+        *reinterpret_cast<float4*>(us + (WB_K + r) * US + c4) =
+            make_float4(u1[0], u1[1], u1[2], u1[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = col0 + c4 + q;
+          const float m = miss != nullptr && col < s1
+              ? (float)ms[r * MS + col / M - m_base] : 0.f;
+          const float sd = dd[q] > 0.f ? dd[q] : 1.f;
+          u0[q] = fmaf(x_byte(xa, q), __frcp_rn(sd), m);
         }
       }
-    } else {   // a B stage: the chunk's lanes, over the tile's rows
-      const int k0 = (j - n_ch) * WK;
-      float acc[NA][4];
-#pragma unroll
-      for (int a = 0; a < NA; ++a) {
-        const float* bp = b_s + (a * WTC + hi) * KA + k0 + 4 * lo;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[a][q] = tile == 0 ? 0.f : bp[q];
-      }
-#pragma unroll 2
-      for (int r = 0; r < WRI; r += 4) {
-        float4 ev[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ev[i] = ld4(e_st + (r + i) * WES + 4 * lo);
-#pragma unroll
-        for (int a = 0; a < NA; ++a) {
-          const float4 u = ld4(u_s + (a * WTC + hi) * WUS + r);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            float v = acc[a][q];
-            v = fmaf(f4_get(ev[0], q), u.x, v);
-            v = fmaf(f4_get(ev[1], q), u.y, v);
-            v = fmaf(f4_get(ev[2], q), u.z, v);
-            v = fmaf(f4_get(ev[3], q), u.w, v);
-            acc[a][q] = v;
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < NA; ++a) {
-        float* bp = b_s + (a * WTC + hi) * KA + k0 + 4 * lo;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bp[q] = acc[a][q];
-      }
+      *reinterpret_cast<float4*>(us + r * US + c4) =
+          make_float4(u0[0], u0[1], u0[2], u0[3]);
     }
-    __syncthreads();
+  };
+
+  double acc[NS][MT][WC_NTW][4];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < WC_NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[s][m][j][q] = 0.0;
+
+  if (n_st > 0) issue(0);
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<0>();
+    __syncthreads();   // stage st landed; every warp is done with st - 1
+    if (st + 1 < n_st) issue(st + 1); else cp_async_commit();
+    const char* stage = smem + (st % ST) * T::STAGE;
+    cells(stage);
+    __syncthreads();   // the stage's cells are in us
+    with_count<WC_NTW>(nj, [&](auto n) {
+      wide_cols_b_stage<C, decltype(n)::value>(
+          acc, reinterpret_cast<const float*>(stage), us, wm, wc, g, t);
+    });
   }
 
-  // part[b][seg][a][k][column of the window]: lanes k < kc, then zeros
-  const size_t W = (size_t)(l_hi - l_lo);
-  float* out = part + ((size_t)b * n_seg + seg) * NA * Kp * W;
-  for (int e = tid; e < NA * Kp * WTC; e += NT) {
-    const int cc = e % WTC, k = (e / WTC) % Kp, a = e / (WTC * Kp);
-    const int col = col0 + cc;
-    if (col < l_hi)
-      out[((size_t)a * Kp + k) * W + (col - l_lo)] =
-          k < kc && n_tile > 0 ? b_s[(a * WTC + cc) * KA + k] : 0.f;
+  // a thread holds columns 2 g, 2 g + 1 of each tile for lanes 8 (wc +
+  // WC_WN j) + 2 t + {0, 1} of the chunk; the warp's dead tiles hold zeros
+  const size_t bs = (size_t)b * n_seg + seg;
+  float* out = part + (bs * NS * Kp + k0) * (size_t)WP;
+  const bool pair = WP % 2 == 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int lc = col0 + 16 * (wm * MT + m) + 2 * g;
+#pragma unroll
+      for (int j = 0; j < WC_NTW; ++j)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int k = 8 * (wc + WC_WN * j) + 2 * t + jj;
+          if (k >= kv) continue;
+          const float o0 = (float)acc[s][m][j][jj];
+          const float o1 = (float)acc[s][m][j][2 + jj];
+          float* o = out + ((size_t)s * Kp + k) * WP + (lc - p_lo);
+          if (pair && lc + 1 < s1) {
+            *reinterpret_cast<float2*>(o) = make_float2(o0, o1);
+          } else {
+            if (lc < s1) o[0] = o0;
+            if (lc + 1 < s1) o[1] = o1;
+          }
+        }
+    }
+  // the lanes past the live tiles: zeros, from the first chunk's blocks
+  const int k_dead = 8 * ((kc + 7) / 8);
+  if (c == 0 && k_dead < Kp) {
+    const int nl = min(BC, s1 - col0), nd = Kp - k_dead;
+    for (int e = tid; e < NS * nd * nl; e += NT) {
+      const int s = e / (nd * nl), k = k_dead + e / nl % nd;
+      part[((bs * NS + s) * Kp + k) * WP + (col0 - p_lo) + e % nl] = 0.f;
+    }
   }
 }
 
-// launches the wide columns pass over B chains (n_seg <= 65535); returns
-// the launch's cudaError_t
+// launches the wide columns pass over B chains on the columns [l_lo, l_hi)
+// of arrays with row stride L (p, x; kBi: miss) and ML (the generic
+// cells' miss, a locus per M columns): for each sub-window of sub_cols
+// columns a d launch into the scratch (d [B, I, sub_cols], then, for kBi,
+// the rows' eta sums [B, I], which the first sub-window's d launch writes)
+// and a B launch into part [B, n_seg, NS, Kp, WP] (column c at c - p_lo).
+// vec_p, vec_x, vec_m: p, x and miss may be staged by cp.async (16-byte
+// rows of p, 4-byte words of x and miss).  Returns the first nonzero
+// cudaError_t.
 template <Cells C>
 inline int launch_cols_wide(const void* eta, const void* p, const void* x0,
                             const void* x1, const void* miss, void* part,
-                            int B, int I, int L, int ML, int M, int Kp,
-                            int k_true, int l_lo, int l_hi, int n_seg,
-                            int seg_rows, int vec, cudaStream_t s) {
-  const int kc = wide_kc(k_true, Kp);
-  const int NA = C == Cells::kBi ? 2 : 1;
-  const size_t smem = sizeof(float) * (size_t)cols_wide_smem_floats(kc, NA);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem(wide_cols_kernel<C>);
+                            void* scratch, int B, int I, int L, int ML,
+                            int M, int Kp, int k_true, int l_lo, int l_hi,
+                            int p_lo, int WP, int n_seg, int seg_rows,
+                            int sub_cols, int vec_p, int vec_x, int vec_m,
+                            cudaStream_t s) {
+  using T = WideColsTile<C>;
+  const int kc = wide_kc(k_true, Kp), n_ch = wide_chunks(kc);
+  if (scratch == nullptr || ((uintptr_t)scratch & 15) || sub_cols < 4 ||
+      sub_cols % 4 || M < 1 || (size_t)B * n_ch > 65535)
+    return (int)cudaErrorInvalidValue;
+  int n_sm = 0, dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err == 0) err = allow_smem(wide_cols_d_kernel);
+  if (err == 0) err = allow_smem(wide_cols_b_kernel<C>);
   if (err != 0) return err;
-  const dim3 grid((l_hi - l_lo + WTC - 1) / WTC, n_seg, B);
-  wide_cols_kernel<C><<<grid, NT, smem, s>>>(
-      (const float*)eta, (const float*)p, (const int8_t*)x0,
-      (const int8_t*)x1, (const int8_t*)miss, (float*)part, I, L, ML, M, Kp,
-      kc, l_lo, l_hi, seg_rows, vec);
-  return (int)cudaGetLastError();
+  float* d = (float*)scratch;
+  float* srow = C == Cells::kBi ? d + (size_t)B * I * sub_cols : nullptr;
+  for (int s0 = l_lo; s0 < l_hi; s0 += sub_cols) {
+    const int s1 = l_hi - s0 < sub_cols ? l_hi : s0 + sub_cols;
+    const int tiles = (I + WD_M - 1) / WD_M * ((s1 - s0 + WD_N - 1) / WD_N)
+                      * B;
+    wide_cols_d_kernel<<<tiles < n_sm ? tiles : n_sm, NT, WD_SMEM, s>>>(
+        (const float*)eta, (const float*)p, d, s0 == l_lo ? srow : nullptr,
+        B, I, L, Kp, kc, s0, s1, sub_cols, vec_p);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const dim3 grid((s1 - s0 + T::BC - 1) / T::BC, n_seg, B * n_ch);
+    wide_cols_b_kernel<C><<<grid, NT, T::SMEM, s>>>(
+        (const float*)eta, d, srow, (const int8_t*)x0, (const int8_t*)x1,
+        (const int8_t*)miss, (float*)part, I, L, ML, M, Kp, kc, s0, s1,
+        sub_cols, p_lo, WP, seg_rows, vec_x, vec_m);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 }  // namespace

@@ -3,15 +3,16 @@ biallelic admixture ones (csrc/fullstep_bi.cu), the generic rows and
 columns passes (csrc/fullstep.cu), the biallelic mixture rows and
 columns passes (csrc/mixture_bi.cu, one and two streams) and the wide
 kernels of the admixture step for 128 < Kp <= 1024 (csrc/wide.cuh: the
-rows and columns passes with the biallelic and the generic cells, the
-finish at 32 lanes a thread, each built once for every Kp in its range)
+rows pass and the columns pass's B launch with the biallelic and the
+generic cells, the columns pass's d launch, the finish at 32 lanes a
+thread, each built once for every Kp in its range)
 and of the mixture step (csrc/mixture_bi.cu: the rows pass's scores and
 softmax, the columns pass, one and two streams, and the eta finish at 32
 lanes a thread): registers, shared memory and spills (``nvcc -Xptxas -v``),
 and the static instruction mix of each kernel's machine code
 (``cuobjdump -sass``: FFMA against LDS, MUFU and the rest; DMMA, the
 float64 tensor-core product, counted on a line of its own for the mixture
-passes, the wide ones too).
+passes and the wide kernels).
 
 Run with ``python -m multiclust_tpu_torch.kernel_report [Kp ...]`` where
 nvcc and a CUDA toolkit are installed (default Kp: 32 and 128).  The mix counts
@@ -43,10 +44,12 @@ KERNELS = (("fullstep_bi_rows_kernel", ""),
 CONTRACTIONS = "fullstep_(?:bi_)?(?:rows|cols)|mix_(?:rows|cols)"
 # the wide kernels (csrc/wide.cuh), and their instantiations: the cells
 # (a Cells value) or the finish's lanes a thread
-WIDE = "wide_(?:rows|cols|finish)_kernel"
+WIDE = "wide_(?:rows|cols_d|cols_b|finish)_kernel"
 CELLS = ("kBi", "kDense", "kSparse")
 WIDE_KERNELS = (("wide_rows_kernel", "kBi"), ("wide_rows_kernel", "kDense"),
-                ("wide_cols_kernel", "kBi"), ("wide_cols_kernel", "kDense"),
+                ("wide_cols_d_kernel", None),
+                ("wide_cols_b_kernel", "kBi"),
+                ("wide_cols_b_kernel", "kDense"),
                 ("wide_finish_kernel", 32))
 # the mixture's wide kernels (csrc/mixture_bi.cu), and their mangled
 # template arguments: the contraction passes' second stream, the
@@ -146,10 +149,11 @@ def main(argv) -> int:
     for name, text in ptxas_lines(report, MIX_WIDE):
         print(f"ptxas {name}: {text}", flush=True)
     for kernel, arg in WIDE_KERNELS:
-        mix = sass_mix(lib, kernel, arg)
+        mix = sass_mix(lib, kernel, arg, "E" if arg is None else "")
         top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))
-        print(f"sass {kernel}<{arg}>: {sum(mix.values())} instructions: "
-              f"{top}", flush=True)
+        label = kernel if arg is None else f"{kernel}<{arg}>"
+        print(f"sass {label}: {sum(mix.values())} instructions: {top}; "
+              f"DMMA {mix['DMMA']}", flush=True)
     for kernel, targs in MIX_WIDE_KERNELS:
         mix = sass_mix(lib, kernel, None, targs)
         top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))

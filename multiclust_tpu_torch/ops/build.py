@@ -41,14 +41,14 @@ _SIGNATURES = {
                               _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                            _P],
+                            _P, _I, _P],
     "mc_fullstep_bi_p0": [_P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
                          _P],
     "mc_fullstep_cols": [_P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "mc_fullstep_p": [_P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -160,6 +160,9 @@ def library() -> ctypes.CDLL:
         lib.mc_fullstep_bi_tiles.argtypes = [_I, _I] + [
             ctypes.POINTER(ctypes.c_int)] * 4
         lib.mc_fullstep_bi_tiles.restype = None
+        lib.mc_wide_cols_tiles.argtypes = [_I] + [
+            ctypes.POINTER(ctypes.c_int)] * 6
+        lib.mc_wide_cols_tiles.restype = None
         lib.mc_mix_tiles.argtypes = [_I, _I] + [
             ctypes.POINTER(ctypes.c_int)] * 3
         lib.mc_mix_tiles.restype = ctypes.c_int
@@ -176,6 +179,16 @@ def kernel_tiles(lib: ctypes.CDLL, k_true: int, Kp: int):
     kernels share."""
     out = [ctypes.c_int() for _ in range(4)]
     lib.mc_fullstep_bi_tiles(k_true, Kp, *(ctypes.byref(o) for o in out))
+    return tuple(o.value for o in out)
+
+
+def wide_cols_tiles(lib: ctypes.CDLL, generic: bool):
+    """(columns of a B-launch block, rows of its stage, lanes of a chunk
+    at most, rows and columns of a d-launch tile, lanes of a d stage) of
+    the wide columns pass for the biallelic or the generic cells, as
+    ``lib``'s mc_wide_cols_tiles has them (csrc/wide.cuh)."""
+    out = [ctypes.c_int() for _ in range(6)]
+    lib.mc_wide_cols_tiles(int(generic), *(ctypes.byref(o) for o in out))
     return tuple(o.value for o in out)
 
 

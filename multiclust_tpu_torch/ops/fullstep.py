@@ -23,8 +23,10 @@ segment arithmetic takes it (``fullstep_bi.row_segments``,
 ``cols_segments``).
 
 For 128 < Kp <= 1024 the rows pass, its finish and the columns pass are
-the wide kernels of ``csrc/wide.cuh`` (the generic cells at every M); the
-p epilogue takes any Kp.
+the wide kernels of ``csrc/wide.cuh`` (the generic cells at every M; the
+columns pass a d launch and a B launch on the float64 tensor cores for
+each lane sub-window, ``fullstep_bi.cols_sub_cols``); the p epilogue
+takes any Kp.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 only for CPU tensors; there is no fallback for CUDA tensors.  Shapes: a
@@ -45,8 +47,8 @@ import torch
 from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
 from multiclust_tpu_torch.ops.fullstep_bi import COLS_BLOCKS_PER_SM, \
-    COLS_MAX_RSEG, SCRATCH_CAP, check_kp, col_segments, \
-    cols_tile, device_sm_count, is_wide, row_segments
+    COLS_MAX_RSEG, SCRATCH_CAP, check_kp, col_segments, cols_sub_cols, \
+    cols_tile, device_sm_count, is_wide, kc_of, row_segments, wide_chunks
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
@@ -209,12 +211,19 @@ def _check_cuda_inputs(eta, p2, x2, *extra):
 def cols_segments(B: int, I: int, LM: int, Kp: int, n_sm: int,
                   k_true: int = 0) -> Tuple[int, int]:
     """(row segments, rows per segment) of the columns pass: enough for
-    COLS_BLOCKS_PER_SM blocks an SM at the tile of ``k_true``, at most
-    COLS_MAX_RSEG, with the partials [B, n, Kp, L*M] no larger than
-    SCRATCH_CAP or than the int8 x the pass reads, and at least one."""
-    tc, ri = cols_tile(k_true, Kp)
-    n_want, _ = col_segments(I, LM, B, n_sm, tc=tc, ri=ri,
-                             per_sm=COLS_BLOCKS_PER_SM)
+    COLS_BLOCKS_PER_SM blocks an SM at the tile of ``k_true`` (at a wide
+    Kp, as many as fill the card in one wave over a lane sub-window's B
+    blocks, as ``fullstep_bi.cols_row_segments``), at most COLS_MAX_RSEG,
+    with the partials [B, n, Kp, L*M] no larger than SCRATCH_CAP or than
+    the int8 x the pass reads, and at least one."""
+    tc, ri = cols_tile(k_true, Kp, generic=True)
+    if is_wide(Kp):
+        blocks = (-(-cols_sub_cols(B, I, LM, bi=False) // tc) * B
+                  * wide_chunks(kc_of(k_true, Kp)))
+        n_want = min(n_sm // blocks, -(-I // (4 * ri)))
+    else:
+        n_want, _ = col_segments(I, LM, B, n_sm, tc=tc, ri=ri,
+                                 per_sm=COLS_BLOCKS_PER_SM)
     n = max(1, min(n_want, COLS_MAX_RSEG, SCRATCH_CAP // (4 * B * Kp * LM),
                    I // (4 * B * Kp)))
     seg_rows = -(-I // n)
@@ -295,10 +304,16 @@ def fullstep_partials(eta, p2, x2, miss=None, *, M: int, k_true: int = 0):
                                     device_sm_count(eta.device), k_true)
     part = torch.empty((B, n_seg, Kp, LM), dtype=torch.float32,
                        device=eta.device)
+    sub, scratch = 0, None
+    if is_wide(Kp):   # d of a lane sub-window (fullstep_bi.cols_sub_cols)
+        sub = cols_sub_cols(B, I, LM, bi=False)
+        scratch = torch.empty(B * I * sub, dtype=torch.float32,
+                              device=eta.device)
     build.launch("mc_fullstep_cols", eta.device,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(miss),
                  part.data_ptr(), B, I, L, M, Kp, int(k_true), n_seg,
-                 seg_rows, also=("wide_cols_generic",) if is_wide(Kp) else ())
+                 seg_rows, _ptr(scratch), sub,
+                 also=("wide_cols_generic",) if is_wide(Kp) else ())
     return part
 
 

@@ -33,11 +33,15 @@ Three routes run the step (``pick_route`` chooses, the counterpart of
 
 For 128 < Kp <= 1024 (the TPU kernels' own range, ``_bi_k_fits`` and
 ``_stream_vmem_fits``, kernels.py:653, :709) the segmented rows pass, its
-finish and the columns pass are the wide kernels of ``csrc/wide.cuh``:
-the cluster axis in chunks of 64 lanes, the accumulators in shared
-memory, their own tiles (``rows_block``, ``cols_tile``).  The pair has no
-wide kernel: ``pick_route`` sends those Kp down the streamed or chunked
-step, and ``fullstep_bi_rows`` refuses them.  Above 1024 no kernel runs:
+finish and the columns pass are the wide kernels of ``csrc/wide.cuh``,
+with their own tiles (``rows_block``, ``cols_tile``): the rows pass with
+the cluster axis in chunks of 64 lanes and its accumulators in shared
+memory; the columns pass as two launches on the float64 tensor cores for
+each column sub-window (d = eta @ p into a scratch plane, then B0/B1 on
+balanced lane chunks of at most WIDE_CHUNK), the sub-windows keeping that
+scratch within SCRATCH_CAP (``cols_sub_cols``).  The pair has no wide
+kernel: ``pick_route`` sends those Kp down the streamed or chunked step,
+and ``fullstep_bi_rows`` refuses them.  Above 1024 no kernel runs:
 the model takes the plain step (``model/admixture.py``, the JAX package's
 XLA fallback).
 
@@ -75,9 +79,14 @@ KP_MAX = 1024
 NW = 8
 ROW_AR, ROW_TL, ROW_CW_MAX = 4, 32, 8
 COL_CT, COL_DR = 4, 4
-# tile constants of csrc/wide.cuh: rows a rows-pass block, columns (lanes)
-# a columns-pass block, rows a columns-pass tile
-WR, WTC, WRI = 32, 16, 64
+# tile constants of csrc/wide.cuh: rows a rows-pass block; the columns
+# pass's B launch: columns of a block with the biallelic and the generic
+# cells, rows a stage, cluster lanes a chunk at most (``wide_chunks``);
+# its d launch: rows and columns of a tile (a sub-window's columns are
+# whole d tiles where they can be, ``cols_sub_cols``)
+WR = 32
+WTC, WTC_GENERIC, WRI, WIDE_CHUNK = 64, 128, 64, 128
+WD_TILE = 128
 # padded / degenerate columns have d = 0 with x = 0: the clamp keeps
 # 0 / d at 0 and 0 * log(d) at 0
 D_MIN = 1e-30
@@ -212,12 +221,22 @@ def rows_block(k_true: int, Kp: int) -> int:
     return NW * ROW_AR * lane_tile(k_true, Kp, ROW_CW_MAX).cw
 
 
-def cols_tile(k_true: int, Kp: int) -> Tuple[int, int]:
-    """(columns of a columns-pass block, rows of its eta tile)."""
+def cols_tile(k_true: int, Kp: int, generic: bool = False
+              ) -> Tuple[int, int]:
+    """(columns of a columns-pass block, rows of its eta tile); a wide
+    Kp's B launch takes WTC columns with the biallelic cells (two
+    streams) and WTC_GENERIC with the generic ones (``generic``)."""
     if is_wide(Kp):
-        return WTC, WRI
+        return (WTC_GENERIC if generic else WTC), WRI
     lt = lane_tile(k_true, Kp)
     return NW * COL_CT * lt.cw, COL_DR * lt.gl
+
+
+def wide_chunks(kc: int) -> int:
+    """Cluster chunks of the wide columns pass's B launch for kc live
+    lanes: ceil(kc / 8) tiles of 8 in chunks of at most WIDE_CHUNK lanes
+    (csrc/dmma.cuh, ``wide_chunks``)."""
+    return -(-(-(-kc // 8)) // (WIDE_CHUNK // 8))
 
 
 def check_kp(Kp: int) -> None:
@@ -394,6 +413,47 @@ def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def cols_sub_cols(B: int, I: int, W: int, *, bi: bool = True,
+                  cap: Optional[int] = None) -> int:
+    """Columns a sub-window of the wide columns pass takes over a window
+    of W columns: the d launch writes d [B, I, sub] float32 (and, ``bi``,
+    the rows' eta sums [B, I]) to a scratch that the B launch reads, and
+    that scratch stays within ``cap`` bytes.  All of W (rounded up to 4)
+    when it fits, else W in balanced sub-windows of whole d tiles (WD_TILE
+    columns; ROW_TL where not even one tile fits).  ``cap`` None:
+    SCRATCH_CAP.  Raises when not even ROW_TL columns fit."""
+    cap = SCRATCH_CAP if cap is None else cap
+    per_col = 4 * B * I
+    most = (cap - (per_col if bi else 0)) // per_col
+    if most >= _ceil_to(W, 4):
+        return _ceil_to(W, 4)
+    step = WD_TILE if most >= WD_TILE else ROW_TL
+    most = most // step * step
+    if most < ROW_TL:
+        raise MemoryError(
+            f"the wide columns pass's scratch for B={B} x I={I} rows takes "
+            f"{per_col * ROW_TL} bytes for {ROW_TL} columns, over the cap "
+            f"of {cap} bytes")
+    n = -(-W // most)
+    return _ceil_to(-(-W // n), step)
+
+
+def cols_sub_windows(l_lo: int, l_hi: int, sub_cols: int):
+    """The sub-windows [lo, hi) the wide columns pass runs on the window
+    [l_lo, l_hi), as the launcher loops (csrc/wide.cuh,
+    ``launch_cols_wide``)."""
+    return [(a, min(l_hi, a + sub_cols)) for a in range(l_lo, l_hi,
+                                                         sub_cols)]
+
+
+def cols_scratch_bytes(B: int, I: int, W: int, *, bi: bool = True,
+                       cap: Optional[int] = None) -> int:
+    """Bytes of the wide columns pass's scratch over a window of W
+    columns: d of one sub-window, and the rows' eta sums (``bi``)."""
+    sub = cols_sub_cols(B, I, W, bi=bi, cap=cap)
+    return 4 * B * I * (sub + (1 if bi else 0))
+
+
 def row_segments(B: int, I: int, W: int, n_sm: int, *,
                  per_sm: int = ROWS_BLOCKS_PER_SM, k_true: int = 0,
                  Kp: int = 32) -> Tuple[int, int]:
@@ -424,13 +484,20 @@ def cols_row_segments(B: int, I: int, W: int, Kp: int, n_sm: int,
                       budget: Optional[int] = None) -> Tuple[int, int]:
     """(row segments, rows per segment) of the columns pass over a window
     of W columns: as many as fill the card at the tile of ``k_true``
-    (``col_segments`` for COLS_BLOCKS_PER_SM blocks an SM), but no more
-    than COLS_MAX_RSEG, than keep the partials within ``budget`` bytes
+    (``col_segments`` for COLS_BLOCKS_PER_SM blocks an SM; at a wide Kp,
+    whose B launch holds one block an SM, as many as fill one wave with a
+    sub-window's blocks, each segment at least 4 stages), but no more than
+    COLS_MAX_RSEG, than keep the partials within ``budget`` bytes
     (SCRATCH_CAP when None) or below the bytes of x the pass reads, and at
     least one."""
     tc, ri = cols_tile(k_true, Kp)
-    n_want, _ = col_segments(I, W, B, n_sm, tc=tc, ri=ri,
-                             per_sm=COLS_BLOCKS_PER_SM)
+    if is_wide(Kp):
+        blocks = (-(-cols_sub_cols(B, I, W) // tc) * B
+                  * wide_chunks(kc_of(k_true, Kp)))
+        n_want = min(n_sm // blocks, -(-I // (4 * ri)))
+    else:
+        n_want, _ = col_segments(I, W, B, n_sm, tc=tc, ri=ri,
+                                 per_sm=COLS_BLOCKS_PER_SM)
     cap = SCRATCH_CAP if budget is None else budget
     n = max(1, min(n_want, COLS_MAX_RSEG, cap // (8 * B * Kp * W),
                    3 * I // (8 * Kp)))
@@ -452,14 +519,16 @@ def cols_partials_bytes(B: int, I: int, W: int, Kp: int, n_sm: int,
 def window_scratch_bytes(B: int, I: int, W: int, Kp: int, n_sm: int,
                          n_cseg: int, k_true: int = 0,
                          budget: Optional[int] = None) -> int:
-    """Bytes of partials one window of W columns allocates: the columns
-    pass's, and the segmented rows pass's [B, n_cseg, I, Kp + 1] (none for
-    the pair, n_cseg = 0).  The rows pass's need no bound: it splits L
-    only while B x I is small, so they stay near ROWS_BLOCKS_PER_SM blocks
-    an SM x a block's rows x Kp, or are as large as eta itself (one
-    segment)."""
+    """Bytes of scratch one window of W columns allocates: the columns
+    pass's partials, the segmented rows pass's [B, n_cseg, I, Kp + 1]
+    (none for the pair, n_cseg = 0) and, at a wide Kp, the columns pass's
+    d scratch (``cols_scratch_bytes``, within SCRATCH_CAP by its own
+    sub-windows).  The rows pass's need no bound: it splits L only while B
+    x I is small, so they stay near ROWS_BLOCKS_PER_SM blocks an SM x a
+    block's rows x Kp, or are as large as eta itself (one segment)."""
     return (cols_partials_bytes(B, I, W, Kp, n_sm, k_true, budget)
-            + 4 * B * n_cseg * I * (Kp + 1))
+            + 4 * B * n_cseg * I * (Kp + 1)
+            + (cols_scratch_bytes(B, I, W) if is_wide(Kp) else 0))
 
 
 def pick_route(B: int, I: int, L: int, Kp: int, n_sm: int,
@@ -749,10 +818,36 @@ def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
     step passes its route's, chosen within the fit's scratch budget; 0,
     for a caller without a route, takes ``cols_row_segments`` within
     SCRATCH_CAP."""
-    emit_b = len(outs) == 2
     if not eta.is_cuda:
         return cols_window_reference(eta, p0, x0, x1, miss, outs, l_lo=l_lo,
                                      l_hi=l_hi, plb=plb, project=project)
+    _cols_launch(eta, p0, x0, x1, miss, outs, l_lo=l_lo, l_hi=l_hi,
+                 plb=plb, project=project, k_true=k_true, n_rseg=n_rseg)
+
+
+def cols_partials(eta, p0, x0, x1, miss=None, *, l_lo: int, l_hi: int,
+                  k_true: int = 0, n_rseg: int = 0) -> Tensor:
+    """The columns pass alone over the window [l_lo, l_hi): its raw
+    partials [B, n_seg, 2, Kp, l_hi - l_lo] of B0/B1 (with the miss fold)
+    a row segment, the lanes past the kernels' kc zero (``cols_window``
+    runs the p0 epilogue on them; ``k_true`` and ``n_rseg`` as there).
+    The plain version returns one segment."""
+    if not eta.is_cuda:
+        _, _, b0, b1 = window_stats_reference(
+            eta, p0, x0, x1, miss, l_lo, l_hi, compute_t=False,
+            want_a=False)
+        return torch.stack((b0, b1), dim=1)[:, None]
+    return _cols_launch(eta, p0, x0, x1, miss, (), l_lo=l_lo, l_hi=l_hi,
+                        plb=0.0, project=False, k_true=k_true, n_rseg=n_rseg)
+
+
+def _cols_launch(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
+                 plb: float, project: bool, k_true: int,
+                 n_rseg: int) -> Tensor:
+    """Launch the columns pass over [l_lo, l_hi) with its epilogue into
+    ``outs`` ((p0',), (B0, B1), or () for the pass alone); returns the
+    partials."""
+    emit_b = len(outs) == 2
     extra = ()
     if miss is not None:
         extra = (("miss", miss, torch.int8, tuple(x0.shape)),)
@@ -770,15 +865,21 @@ def cols_window(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
         raise ValueError(f"{n_seg} row segments exceed the grid's limit")
     part = torch.empty((B, n_seg, 2, Kp, W), dtype=torch.float32,
                        device=eta.device)
+    sub, scratch = 0, None
+    if is_wide(Kp):
+        sub = cols_sub_cols(B, I, W)
+        scratch = torch.empty(B * I * (sub + 1), dtype=torch.float32,
+                              device=eta.device)
     build.launch("mc_fullstep_bi_cols", eta.device,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
                  x1.data_ptr(), build.ptr(miss), part.data_ptr(),
-                 None if emit_b else outs[0].data_ptr(),
+                 outs[0].data_ptr() if len(outs) == 1 else None,
                  outs[0].data_ptr() if emit_b else None,
                  outs[1].data_ptr() if emit_b else None,
                  B, I, L, Kp, int(k_true), l_lo, l_hi, n_seg, seg_rows, lo,
-                 hi, int(project),
+                 hi, int(project), build.ptr(scratch), sub,
                  also=("wide_cols_bi",) if is_wide(Kp) else ())
+    return part
 
 
 # ---------------------------------------------------------------------------

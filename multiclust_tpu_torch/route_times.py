@@ -75,6 +75,14 @@ in L2 as far as they fit) and with L2 flushed before each launch (a 256 MB
 buffer written): the device time of each with the finish's bounds.  It
 calls only the finish's wrapper and its plain version.
 
+``--squarem --k 200`` runs the SQUAREM fit of chip_smoke.py's phase 22
+(its K = 200 missing-free mixture panel, drawn on the host) from two
+starts of the port's init drawn on the host (``squarem_case``), in float64
+and through the float32 kernels, monotonicity fatal: the iterations,
+whether a violation stopped the fit, and the logL, beside the digests of
+the panel and the starts, which the JAX package's fit on the CPU from the
+same starts is held to (tests/test_torch_wide_mixture.py, marked slow).
+
 ``--jagged`` times the admixture step on a jagged panel instead: the mix of
 bench.py:199-201 (80 % of the loci with 2 alleles, the rest 8,
 interleaved; 16384 x 2048 by default, 1 % missing), made on the card from
@@ -301,19 +309,24 @@ def lanes_panel(seed: int, I: int, L: int, M: int, dev):
 
 
 # the generic step's kernels by name, as the profiler sees them
+# (above 128 lanes the columns pass is two kernels, a d launch and a B
+# launch, before PR 16 one, wide_cols_kernel; the d launch's share is
+# printed on a line of its own)
+WIDE_COLS = ("wide_cols_kernel", "wide_cols_d_kernel", "wide_cols_b_kernel")
+D_LAUNCH = "columns pass: its d launch (wide)"
 GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel", "wide_rows_kernel"),
                    "rows finish": ("rows_finish_kernel",
                                    "wide_finish_kernel"),
-                   "columns pass": ("fullstep_cols_kernel",
-                                    "wide_cols_kernel"),
+                   "columns pass": ("fullstep_cols_kernel",) + WIDE_COLS,
+                   D_LAUNCH: ("wide_cols_d_kernel",),
                    "p epilogue": ("fullstep_p_kernel",)}
 # the biallelic step's, on any of its routes (the wide kernels above 128
 # lanes)
 BI_KERNELS = {"rows pass": ("fullstep_bi_rows_seg_kernel",
                             "fullstep_bi_rows_kernel", "wide_rows_kernel"),
               "rows finish": ("rows_finish_kernel", "wide_finish_kernel"),
-              "columns pass": ("fullstep_bi_cols_kernel",
-                               "wide_cols_kernel"),
+              "columns pass": ("fullstep_bi_cols_kernel",) + WIDE_COLS,
+              D_LAUNCH: ("wide_cols_d_kernel",),
               "p0 epilogue": ("fullstep_bi_p0_kernel",)}
 
 
@@ -405,6 +418,7 @@ def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
                             if fin[0] else None),
             "columns pass": bound_ms((eta, p0, x0, x1, miss, p0),
                                      (6 * K + 6) * cells),
+            D_LAUNCH: bound_ms((eta, p0), 2 * K * cells),
             "p0 epilogue": tuple(b / HBM_BYTES_PER_S * 1e3 for b in epi)}
         print(f"{I} x {L}, K = {K} on {KP} lanes, {B} chains: router "
               f"{route.describe()}; routed step {step_ms:.4f} ms on CUDA "
@@ -523,6 +537,7 @@ def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
                   "rows finish": ms_of(finish_bytes(B, I, KP, n_cseg, kc)),
                   "columns pass": bound_ms((eta, p2, x2, miss, p2),
                                            (4 * K + 3) * lanes),
+                  D_LAUNCH: bound_ms((eta, p2), 2 * K * lanes),
                   "p epilogue": ms_of(p_bytes(B, KP, L * M, n_rseg,
                                               min(kc, KP)))}
         print(f" {B} chains: step {step_ms:.3f} ms (plain {plain_ms:.3f}); "
@@ -570,51 +585,122 @@ MIXTURE_KERNELS = {"rows pass": ("mix_rows_kernel", "mix_rows_wide_kernel"),
 
 def mixture_planes(seed: int, I: int, L: int, K: int, miss_rate: float,
                    dev, spread=None):
-    """Mixture-model genotypes drawn on ``dev`` from ``seed``
-    (``count_planes``): individual i belongs to cluster z_i ~ eta, each
-    observed copy carries allele 0 with probability P0[z_i, l], uniform on
-    [0.1, 0.9] per cluster, or with ``spread`` one shared locus frequency
-    plus N(0, spread) per cluster (weakly separated clusters).  Returns
-    the two int8 count planes [2, I, L] and miss [I, L] int8."""
+    """Mixture-model genotypes drawn on the host from ``seed``
+    (``count_planes`` with a CPU generator, so that every machine draws the
+    same panel) and uploaded to ``dev``: individual i belongs to cluster
+    z_i ~ eta, each observed copy carries allele 0 with probability P0[z_i,
+    l], uniform on [0.1, 0.9] per cluster, or with ``spread`` one shared
+    locus frequency plus N(0, spread) per cluster (weakly separated
+    clusters).  Returns the two int8 count planes [2, I, L] and miss [I, L]
+    int8."""
     rng = np.random.default_rng(seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
     eta = rng.dirichlet(np.full(K, 5.0))
     if spread is None:
         P0 = rng.uniform(0.1, 0.9, size=(K, L))
     else:
         P0 = np.clip(rng.uniform(0.2, 0.8, size=L)
                      + rng.normal(0.0, spread, size=(K, L)), 0.05, 0.95)
-    P0 = torch.tensor(P0, dtype=torch.float32, device=dev)
-    z = torch.tensor(rng.choice(K, size=I, p=eta), device=dev)
-    return count_planes(gen, I, L, miss_rate, lambda lo, hi: P0[z[lo:hi]],
-                        dev)
+    P0 = torch.tensor(P0, dtype=torch.float32)
+    z = torch.tensor(rng.choice(K, size=I, p=eta))
+    planes, miss = count_planes(gen, I, L, miss_rate,
+                                lambda lo, hi: P0[z[lo:hi]], "cpu")
+    return planes.to(dev), miss.to(dev)
 
 
-def mixture_step_inputs(seed: int, B: int, I: int, L: int, K: int,
-                        Kp: int, miss_rate: float, dev):
-    """Kernel-route inputs of the mixture step on ``dev``, K-padded as
-    model/mixture.py builds them (pads: lp 0, bias PAD_BIAS): lp0 [B, Kp, L],
-    x0 int8 [I, L], bias [B, Kp], and lp1 / x1 with missing data (two
-    streams); missing-free inputs fold x1 = 2 - x0 into lp0 = log p0 -
-    log p1 and the bias."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    p0 = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
-    eta = torch.rand((B, K), generator=gen, device=dev) + 0.1
-    eta /= eta.sum(dim=-1, keepdim=True)
-    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
-            < miss_rate).sum(dim=-1)
-    x0 = sum(((torch.rand((I, L), generator=gen, device=dev) < 0.5)
-              & (a < 2 - miss)).to(torch.int8) for a in range(2))
-    lp0 = torch.zeros((B, Kp, L), device=dev)
-    bias = torch.full((B, Kp), PAD_BIAS, device=dev)
-    if not miss_rate:
-        lp0[:, :K] = torch.log(p0) - torch.log1p(-p0)
-        bias[:, :K] = 2 * torch.log1p(-p0).sum(dim=-1) + torch.log(eta)
-        return lp0, x0, bias, None, None
-    lp1 = torch.zeros_like(lp0)
-    lp0[:, :K], lp1[:, :K] = torch.log(p0), torch.log1p(-p0)
-    bias[:, :K] = torch.log(eta)
-    return lp0, x0, bias, lp1, (2 - miss - x0).to(torch.int8)
+# the options of the SQUAREM fit that chip_smoke.py's phase 22 runs at
+# K = 200 on a missing-free mixture panel (seed 460 + K)
+SQUAREM_FIT = dict(admixture=False, n_init=2, max_iter=30, seed=3,
+                   accel_scheme=1)
+
+
+def squarem_case(I: int, L: int, K: int):
+    """Phase 22's SQUAREM fit at K on the host: its panel (drawn on the
+    host), the EMConfig that ``api.fit_model_data`` builds for its options
+    (``runtime.multistart.cfg_from_options``) with monotonicity fatal, so
+    that a fit stops where a violation is recorded, and two starts drawn
+    as the API draws them (``multistart._draw_init_batch``: random
+    centers) but from a CPU generator seeded with the API's seed, on the
+    panel's float64 ModelData on the host (the distances are sums of
+    integers: exact).  They are the same on every machine, so that a fit
+    on the card and the JAX package's fit on the CPU start from the same
+    parameters (eta [K], p [K, L, 2] float64 numpy arrays,
+    ``convert.params_from_numpy``).  Returns (planes, miss, the host
+    Dataset, its float64 ModelData, the starts, the EMConfig)."""
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.convert import dataset_from_counts
+    from multiclust_tpu_torch.model.common import model_data_from_dataset
+    from multiclust_tpu_torch.runtime.multistart import _draw_init_batch, \
+        cfg_from_options
+
+    planes, miss = mixture_planes(460 + K, I, L, K, 0.0, "cpu")
+    ds = dataset_from_counts(planes.permute(1, 2, 0).long().numpy(),
+                             miss.long().numpy(), 2)
+    md = model_data_from_dataset(ds, dtype=torch.float64)
+    opt = Options(min_K=K, max_K=K, **SQUAREM_FIT).synchronize(I, 2)
+    cfg = cfg_from_options(opt, K, md)._replace(monotonicity="fatal")
+    batch = _draw_init_batch(torch.Generator().manual_seed(opt.seed),
+                             opt.n_init, md, K, cfg, opt, None)
+    starts = [(batch.eta[i].numpy(), batch.p[i].numpy())
+              for i in range(opt.n_init)]
+    return planes, miss, ds, md, starts, cfg
+
+
+def digest(*arrays) -> str:
+    """A short hash of the arrays' bytes, to show two machines drew the
+    same panel and starts."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()[:16]
+
+
+def time_squarem(I: int, L: int, dev) -> None:
+    """Phase 22's SQUAREM fit at K on the card: through
+    ``api.fit_model_data`` on the panel as phase 22 runs it (2 chains,
+    monotonicity as the options have it: recorded), then from each start
+    of ``squarem_case`` in float64 (the plain products) and float32 (the
+    kernels), monotonicity fatal: iterations, whether a violation stopped
+    the fit, logL and wall; the digests of the panel and of the starts."""
+    import time
+
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.convert import params_from_numpy
+    from multiclust_tpu_torch.model.common import model_data_from_dataset, \
+        model_data_from_planes
+    from multiclust_tpu_torch.opt.driver import fit
+
+    planes, miss, ds, md, starts, cfg = squarem_case(I, L, K)
+    del md
+    print(f"squarem K={K} {I} x {L}: panel digest "
+          f"{digest(planes.numpy(), miss.numpy())}, starts "
+          f"{[digest(*s) for s in starts]}", flush=True)
+    md = model_data_from_planes(planes.to(dev), miss.to(dev))
+    res = fit_model_data(md, 2, min_K=K, max_K=K, verbosity=0,
+                         **SQUAREM_FIT).estimate.per_K[K]
+    print(f"squarem K={K} api.fit_model_data (phase 22's fit): "
+          f"{res.n_iter_all} iterations over the chains, monotonicity "
+          f"violated {bool(res.mono_viol)}, logL {res.max_logL:.6f}",
+          flush=True)
+    for dtype in (torch.float64, torch.float32):
+        md = (model_data_from_dataset(ds, dtype=dtype, device=dev)
+              if dtype == torch.float64
+              else model_data_from_planes(planes.to(dev), miss.to(dev)))
+        run_cfg = cfg._replace(use_pallas="on" if dtype == torch.float32
+                               else "off")
+        for i, (eta, p) in enumerate(starts):
+            t0 = time.time()
+            res = fit(params_from_numpy(eta, p, device=dev, dtype=dtype),
+                      md, run_cfg)
+            torch.cuda.synchronize()
+            print(f"squarem K={K} start {i} {str(dtype)[6:]}"
+                  f"{' kernels' if dtype == torch.float32 else ''}: "
+                  f"{res.n_iter} iterations, monotonicity violated "
+                  f"{bool(res.state.mono_viol[0])}, logL {res.logL:.6f}, "
+                  f"{time.time() - t0:.2f} s", flush=True)
+        del md
 
 
 def _mixture_kernels_take(Kp: int) -> bool:
@@ -887,13 +973,14 @@ def main(argv=None) -> int:
     ap.add_argument("--chains", default="1,2,4")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--fit", action="store_true")
+    ap.add_argument("--squarem", action="store_true")
     args = ap.parse_args(argv)
     K, KP = args.k, -(-args.k // 32) * 32
     if args.shapes:
         SHAPES = tuple(tuple(int(n) for n in s.split("x"))
                        for s in args.shapes.split(","))
     elif (args.generic or args.mixture or args.jagged or args.kernels
-          or args.finish_alone):
+          or args.finish_alone or args.squarem):
         SHAPES = ((16384, 2048),)
     if not torch.cuda.is_available():
         print("route_times: no CUDA device", file=sys.stderr)
@@ -906,7 +993,9 @@ def main(argv=None) -> int:
     print(f"K = {K} on {KP} lanes", flush=True)
     for I, L in SHAPES:
         chains = [int(b) for b in args.chains.split(",")]
-        if args.kernels:
+        if args.squarem:
+            time_squarem(I, L, dev)
+        elif args.kernels:
             time_bi_kernels(I, L, chains, args.reps, dev)
         elif args.finish_alone:
             time_finish_alone(I, L, chains, args.reps, dev)

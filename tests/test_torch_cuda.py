@@ -1650,6 +1650,185 @@ def test_wide_tiles_match_the_python_mirror(Kp):
         assert kc == fb.kc_of(K, Kp)
         assert row_block == fb.rows_block(K, Kp)
         assert (col_block, col_rows) == fb.cols_tile(K, Kp)
+    # the columns pass's two launches, both cells
+    for generic in (False, True):
+        assert build.wide_cols_tiles(lib, generic) == (
+            fb.cols_tile(0, Kp, generic)[0], fb.WRI, fb.WIDE_CHUNK,
+            fb.WD_TILE, fb.WD_TILE, 64)
+
+
+# the redesigned wide columns pass (csrc/wide.cuh: a d launch and a B
+# launch a column sub-window, both on the float64 tensor cores)
+
+def _raw_bi(part, kc):
+    """B0/B1 of the partials [B, S, 2, Kp, W] added one segment after
+    another, the lanes past kc zero: what the p0 epilogue's raw output
+    (emit_b) must equal bit for bit."""
+    raw = [fb.ordered_segment_sum(part[:, :, a]) for a in (0, 1)]
+    for r in raw:
+        r[:, kc:] = 0.0
+    return raw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_LANES)
+@pytest.mark.parametrize("I,L,l_lo,l_hi,miss_rate", [
+    (1001, 4099, 0, 4099, 0.02),   # ragged I and L (L % 4 != 0): byte loads
+    (1001, 4099, 5, 3001, 0.0),    # a window at l_lo > 0, no miss
+    (640, 2048, 512, 2048, 0.03),  # aligned: vector loads, a window
+    (640, 2048, 0, 2048, 0.0),     # aligned, all of L, no miss
+])
+def test_wide_cols_bi_partials_match_plain(K, Kp, I, L, l_lo, l_hi,
+                                           miss_rate):
+    """The wide biallelic columns pass alone (``cols_partials``) at the
+    router's row segments, one and three: the partials' ordered sums
+    against the plain B0/B1 (miss folded), the lanes past kc zero; the
+    epilogue's raw B0/B1 (emit_b) bit-equal to those ordered sums and its
+    p0' against the plain update; one wide launch a call; reruns
+    bit-equal."""
+    dev = _cuda()
+    B = 2
+    eta, p0, x0, x1, _, miss = _step_args(K + l_lo, B, I, L, K, Kp,
+                                          miss_rate, dev)
+    kc = fb.kc_of(K, Kp)
+    win = dict(l_lo=l_lo, l_hi=l_hi)
+    _, _, b0, b1 = fb.window_stats_reference(eta, p0, x0, x1, miss, l_lo,
+                                             l_hi, compute_t=False,
+                                             want_a=False)
+    want_p = fb.p0_update_reference(p0[..., l_lo:l_hi], b0, b1, plb=0.05,
+                                    project=True)
+    for n_rseg in (0, 1, 3):
+        before = build.LAUNCHES["wide_cols_bi"]
+        part = fb.cols_partials(eta, p0, x0, x1, miss, k_true=K,
+                                n_rseg=n_rseg, **win)
+        again = fb.cols_partials(eta, p0, x0, x1, miss, k_true=K,
+                                 n_rseg=n_rseg, **win)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["wide_cols_bi"] == before + 2
+        assert torch.equal(part, again)
+        assert n_rseg == 0 or part.shape[1] == n_rseg
+        assert (part[:, :, :, kc:] == 0).all()
+        raw = _raw_bi(part, kc)
+        torch.testing.assert_close(raw[0], b0, **F32)
+        torch.testing.assert_close(raw[1], b1, **F32)
+        outs = (torch.zeros_like(p0), torch.zeros_like(p0))
+        fb.cols_window(eta, p0, x0, x1, miss, outs, plb=0.05, project=True,
+                       k_true=K, n_rseg=n_rseg, **win)
+        p_new = torch.zeros_like(p0)
+        fb.cols_window(eta, p0, x0, x1, miss, (p_new,), plb=0.05,
+                       project=True, k_true=K, n_rseg=n_rseg, **win)
+        torch.cuda.synchronize()
+        for o, r in zip(outs, raw):
+            assert torch.equal(o[..., l_lo:l_hi], r)
+        torch.testing.assert_close(p_new[..., l_lo:l_hi], want_p, **F32)
+        assert (p_new[:, K:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_LANES)
+@pytest.mark.parametrize("l_lo,l_hi", [(0, 4099), (3, 2050)])
+def test_wide_cols_sub_windows_are_one_window(monkeypatch, K, Kp, l_lo,
+                                              l_hi):
+    """A scratch cap small enough for several sub-windows (d launch + B
+    launch each, the rows' eta sums from the first): the partials
+    bit-equal to those of one sub-window at the same row segments, and
+    the generic cells' partials the same; the scratch each plan allocates
+    within its cap."""
+    dev = _cuda()
+    B, I, L = 2, 1001, 4099
+    eta, p0, x0, x1, _, miss = _step_args(K, B, I, L, K, Kp, 0.02, dev)
+    win = dict(l_lo=l_lo, l_hi=l_hi, k_true=K, n_rseg=3)
+    whole = fb.cols_partials(eta, p0, x0, x1, miss, **win)
+    assert fb.cols_sub_cols(B, I, l_hi - l_lo) >= l_hi - l_lo
+    cap = 4 * B * I * 300
+    monkeypatch.setattr(fb, "SCRATCH_CAP", cap)
+    sub = fb.cols_sub_cols(B, I, l_hi - l_lo)
+    assert sub == 256 and fb.cols_scratch_bytes(B, I, l_hi - l_lo) <= cap
+    assert len(fb.cols_sub_windows(l_lo, l_hi, sub)) > 4
+    split = fb.cols_partials(eta, p0, x0, x1, miss, **win)
+    torch.cuda.synchronize()
+    assert torch.equal(split, whole)
+    monkeypatch.undo()
+    M = 3
+    g_eta, p2, x2, _, g_miss, _ = _generic_args(K + 1, B, I, 333, M, K, Kp,
+                                                0.02, dev)
+    whole = fs.fullstep_partials(g_eta, p2, x2, g_miss, M=M, k_true=K)
+    monkeypatch.setattr(fb, "SCRATCH_CAP", cap)
+    monkeypatch.setattr(fs, "SCRATCH_CAP", cap)
+    assert fb.cols_sub_cols(B, I, 333 * M, bi=False) == 256
+    split = fs.fullstep_partials(g_eta, p2, x2, g_miss, M=M, k_true=K)
+    torch.cuda.synchronize()
+    if split.shape == whole.shape:
+        assert torch.equal(split, whole)
+    torch.testing.assert_close(fb.ordered_segment_sum(split),
+                               fb.ordered_segment_sum(whole), **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_LANES)
+@pytest.mark.parametrize("I,L,M,miss_rate", [
+    (1001, 333, 3, 0.02),   # ragged I and L*M = 999 (not a multiple of 4)
+    (640, 512, 2, 0.0),     # M = 2, aligned, no miss
+    (777, 129, 4, 0.03),    # M = 4, L % 4 != 0 (miss by bytes)
+])
+def test_wide_cols_generic_partials_match_plain(K, Kp, I, L, M, miss_rate):
+    """The wide generic columns pass: its partials' ordered sum against
+    the plain B (miss folded), the lanes past kc zero; the p epilogue's
+    raw B (finish=False) bit-equal to that ordered sum; one wide launch a
+    call; reruns bit-equal."""
+    dev = _cuda()
+    B = 2
+    eta, p2, x2, _, miss, mask = _generic_args(K + L, B, I, L, M, K, Kp,
+                                               miss_rate, dev)
+    kc = fb.kc_of(K, Kp)
+    before = build.LAUNCHES["wide_cols_generic"]
+    part = fs.fullstep_partials(eta, p2, x2, miss, M=M, k_true=K)
+    again = fs.fullstep_partials(eta, p2, x2, miss, M=M, k_true=K)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["wide_cols_generic"] == before + 2
+    assert torch.equal(part, again)
+    assert (part[:, :, kc:] == 0).all()
+    want = fb.ordered_segment_sum(part)
+    ref = fs.fullstep_partials_reference(eta, p2, x2, miss)[:, 0]
+    torch.testing.assert_close(want, ref, **F32)
+    raw = fs.fullstep_p(p2, part, M=M, k_true=K, finish=False)
+    assert torch.equal(raw, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(200, 224), (1000, 1024)])
+def test_wide_bucketed_step_matches_plain(K, Kp):
+    """The bucketed admixture step at a wide Kp on a jagged panel (buckets
+    at M_b = 2, 3, 4 and 8): each bucket's wide columns pass (its partials'
+    ordered sum against the plain B, bit-equal raw B from the p epilogue),
+    and the whole step against its plain version; reruns bit-equal."""
+    from multiclust_tpu_torch.model import admixture as adm
+
+    dev = _cuda()
+    md, bd, params, cfg = _jagged_panel(dev, I=1001, K=K, Kp=Kp)
+    kc = fb.kc_of(K, Kp)
+    for bucket, p in zip(bd.buckets, params.p):
+        Mb = bucket.M
+        p2 = p.reshape(p.shape[0], Kp, -1).contiguous()
+        part = fs.fullstep_partials(params.eta, p2, bucket.x_lanes,
+                                    bucket.miss, M=Mb, k_true=K)
+        assert (part[:, :, kc:] == 0).all()
+        want = fb.ordered_segment_sum(part)
+        ref = fs.fullstep_partials_reference(params.eta, p2, bucket.x_lanes,
+                                             bucket.miss)[:, 0]
+        torch.testing.assert_close(want, ref, **F32)
+        assert torch.equal(fs.fullstep_p(p2, part, M=Mb, k_true=K,
+                                         finish=False), want)
+    before = build.LAUNCHES["wide_cols_generic"]
+    got = adm.em_step(params, bd, cfg, True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["wide_cols_generic"] == before + len(bd.buckets)
+    ref = adm.em_step(params, bd, cfg._replace(use_pallas="off"), True)
+    for g, r in zip(got[0].p, ref[0].p):
+        torch.testing.assert_close(g, r, **F32)
+    torch.testing.assert_close(got[0].eta, ref[0].eta, **F32)
+    again = adm.em_step(params, bd, cfg, True)
+    assert all(torch.equal(g, a) for g, a in zip(got[0].p, again[0].p))
 
 
 def _plain_raises(monkeypatch):
@@ -1719,7 +1898,8 @@ def test_wide_kernels_build_without_spills():
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in text
                for _, text in lines), lines
     assert sorted(name for name, _ in lines) == [
-        "wide_cols_kernel<kBi>", "wide_cols_kernel<kDense>",
+        "wide_cols_b_kernel<kBi>", "wide_cols_b_kernel<kDense>",
+        "wide_cols_d_kernel", "wide_cols_d_kernel",
         "wide_finish_kernel<32>", "wide_finish_kernel<32>",
         "wide_rows_kernel<kBi>", "wide_rows_kernel<kDense>"], lines
 

@@ -35,7 +35,7 @@ from multiclust_tpu_torch.model import admixture as tadm
 from multiclust_tpu_torch.model import bucketed as tbk
 from multiclust_tpu_torch.model.common import EMConfig, Params, \
     k_padded_size, make_model_data, model_data_from_dataset
-from multiclust_tpu_torch.ops import fullstep_bi as fb
+from multiclust_tpu_torch.ops import fullstep as fs, fullstep_bi as fb
 from multiclust_tpu_torch.runtime import multistart as tms
 from multiclust_tpu_torch.runtime.ksweep import estimate_model
 
@@ -291,11 +291,116 @@ def test_pick_route_wide(Kp):
             assert rows <= max(cap, 4 * B * I * (Kp + 1))
             cols = fb.cols_partials_bytes(B, I, r.window, Kp, 132, K, budget)
             assert cols <= budget
-            assert r.scratch_bytes == cols + rows
+            # the columns pass's d scratch, within SCRATCH_CAP on its own
+            d = fb.cols_scratch_bytes(B, I, r.window)
+            assert 0 < d <= cap
+            assert r.scratch_bytes == cols + rows + d
     assert fb.rows_block(K, Kp) == fb.WR
     assert fb.cols_tile(K, Kp) == (fb.WTC, fb.WRI)
+    assert fb.cols_tile(K, Kp, generic=True) == (fb.WTC_GENERIC, fb.WRI)
     assert fb.kc_of(K, Kp) == K and fb.kc_of(0, Kp) == Kp
     assert fb.kc_of(K - 2, Kp) == K
+
+
+# the columns pass's sub-windows (a d launch and a B launch each)
+
+@pytest.mark.parametrize("B,I,W,l_lo,cap", [
+    (2, 16384, 2048, 0, None),            # two sub-windows at the cap
+    (2, 16384, 8192, 0, None),            # the generic lanes at M = 4
+    (1, 16384, 2048, 0, None),            # one
+    (2, 1001, 4099, 3, 4 * 2 * 1001 * 300),   # a window, a small cap
+    (32, 16384, 2048, 0, None),           # not one d tile: ROW_TL columns
+    (2, 8192, 131072, 64, None),          # biobank width
+])
+@pytest.mark.parametrize("bi", [True, False])
+def test_cols_sub_windows_cover_the_window(B, I, W, l_lo, cap, bi):
+    """The sub-windows the wide columns pass runs cover [l_lo, l_lo + W)
+    exactly and in order, each as wide as the plan's sub_cols but the
+    last; the scratch they share (d [B, I, sub_cols], and the rows' eta
+    sums with the biallelic cells) stays within the cap; sub_cols is a
+    multiple of the d tile, of ROW_TL where not one d tile fits, or all of
+    the window rounded up to 4 columns; no more sub-windows than the cap
+    needs."""
+    limit = fb.SCRATCH_CAP if cap is None else cap
+    sub = fb.cols_sub_cols(B, I, W, bi=bi, cap=cap)
+    wins = fb.cols_sub_windows(l_lo, l_lo + W, sub)
+    assert wins[0][0] == l_lo and wins[-1][1] == l_lo + W
+    assert all(a[1] == b[0] for a, b in zip(wins, wins[1:]))
+    assert all(hi - lo == sub for lo, hi in wins[:-1])
+    assert 0 < wins[-1][1] - wins[-1][0] <= sub
+    scratch = fb.cols_scratch_bytes(B, I, W, bi=bi, cap=cap)
+    assert scratch == 4 * B * I * (sub + bi) <= limit
+    if len(wins) == 1:
+        assert sub == -(-W // 4) * 4
+    else:
+        step = fb.WD_TILE if sub >= fb.WD_TILE else fb.ROW_TL
+        assert sub % step == 0
+        # one sub-window fewer would not fit
+        most = (limit - 4 * B * I * bi) // (4 * B * I) // step * step
+        assert len(wins) == -(-W // most)
+
+
+def test_cols_sub_cols_refuses_what_no_sub_window_fits():
+    with pytest.raises(MemoryError, match="over the cap"):
+        fb.cols_sub_cols(2, 16384, 2048, cap=4 * 2 * 16384 * 16)
+    assert fb.cols_sub_cols(2, 16384, 2048, cap=4 * 2 * 16384 * 33) == 32
+
+
+@pytest.mark.parametrize("Kp", [32, 128, 160, 224, 1024])
+def test_window_scratch_counts_the_wide_d_scratch(Kp):
+    """``window_scratch_bytes``: the columns partials, the rows partials
+    and, at a wide Kp only, the columns pass's d scratch."""
+    B, I, W, K = 2, 16384, 2048, Kp - 20
+    cols = fb.cols_partials_bytes(B, I, W, Kp, 132, K)
+    rows = 4 * B * 3 * I * (Kp + 1)
+    d = fb.cols_scratch_bytes(B, I, W) if Kp > 128 else 0
+    assert fb.window_scratch_bytes(B, I, W, Kp, 132, 3, K) == cols + rows + d
+    if Kp > 128:
+        assert d == 4 * B * I * (fb.cols_sub_cols(B, I, W) + 1) > 0
+
+
+@pytest.mark.parametrize("Kp", [160, 224, 512, 1024])
+def test_pick_route_wide_takes_the_chunked_route_under_a_small_budget(Kp):
+    """A budget the partials of all L exceed sends a wide Kp down the
+    chunked loop, its window's partials within the budget, its scratch
+    counted with the d scratch of that window."""
+    B, I, L, K = 2, 16384, 2048, Kp - 20
+    full = fb.cols_partials_bytes(B, I, L, Kp, 132, K, 1 << 40)
+    budget = full // 3
+    r = fb.pick_route(B, I, L, Kp, 132, budget, K)
+    assert r.name == "chunked" and r.window < L
+    assert fb.cols_partials_bytes(B, I, r.window, Kp, 132, K,
+                                  budget) <= budget
+    n_cseg = -(-r.window // r.seg_cols)
+    assert r.scratch_bytes == fb.window_scratch_bytes(
+        B, I, r.window, Kp, 132, n_cseg, K, budget)
+    assert fb.pick_route(B, I, L, Kp, 132, fb.SCRATCH_CAP, K).name == \
+        "streamed"
+
+
+@pytest.mark.parametrize("K,Kp", [(130, 160), (200, 224), (500, 512),
+                                  (1024, 1024)])
+@pytest.mark.parametrize("B,I,W", [(1, 16384, 2048), (2, 16384, 2048),
+                                   (2, 1001, 4099), (4, 300, 8192)])
+def test_wide_cols_segments_follow_the_new_tiles(K, Kp, B, I, W):
+    """The wide columns pass's row segments: whole stages of WRI rows
+    covering I, a grid of at most one wave of B blocks (a sub-window's
+    column tiles x chains x lane chunks x segments) wherever it splits I,
+    at least 4 stages a segment; the generic cells' the same at their
+    block width."""
+    kc = fb.kc_of(K, Kp)
+    assert fb.wide_chunks(kc) == -(-kc // fb.WIDE_CHUNK)
+    for generic in (False, True):
+        if generic:
+            n, rows = fs.cols_segments(B, I, W, Kp, 132, K)
+        else:
+            n, rows = fb.cols_row_segments(B, I, W, Kp, 132, K)
+        tc = fb.cols_tile(K, Kp, generic)[0]
+        assert rows % fb.WRI == 0 and (n - 1) * rows < I <= n * rows
+        blocks = (-(-fb.cols_sub_cols(B, I, W, bi=not generic) // tc) * B
+                  * fb.wide_chunks(kc))
+        if n > 1:
+            assert n * blocks <= 132 and rows >= 4 * fb.WRI
 
 
 def test_check_kp_takes_multiples_of_32_to_1024():
@@ -415,8 +520,9 @@ def test_kernel_report_names_the_wide_kernels():
                 f"1 barriers\n")
 
     ns = "_ZN44_GLOBAL__N__fb59ccda_11_fullstep_cu_df92ba42"
-    report = (entry(ns + "16wide_cols_kernelILNS_5CellsE1EEEvPKfS3_PKaS5_S5_"
-                    "Pfiiiiiiiiii", 92)
+    report = (entry(ns + "18wide_cols_b_kernelILNS_5CellsE1EEEvPKfS3_S3_PKa"
+                    "S5_S5_Pfiiiiiiiiiiiiii", 168)
+              + entry(ns + "18wide_cols_d_kernelEPKfS2_PfS3_iiiiiiiii", 184)
               + entry(ns + "16wide_rows_kernelILNS_5CellsE0EEEvPKfS3_PKaS5_"
                       "PfS6_iiiiiiiiii", 122)
               + entry(ns + "18wide_finish_kernelILi32EEEvPKfS2_S2_S2_S2_S2_"
@@ -424,7 +530,7 @@ def test_kernel_report_names_the_wide_kernels():
               + entry(ns + "20fullstep_rows_kernelILi32ELNS_5CellsE1EEEvPKf",
                       80))
     assert [n for n, _ in ptxas_lines(report, WIDE)] == [
-        "wide_cols_kernel<kDense>", "wide_rows_kernel<kBi>",
-        "wide_finish_kernel<32>"]
+        "wide_cols_b_kernel<kDense>", "wide_cols_d_kernel",
+        "wide_rows_kernel<kBi>", "wide_finish_kernel<32>"]
     assert [n for n, _ in ptxas_lines(report, "fullstep_rows")] == [
         "fullstep_rows_kernel<32>"]

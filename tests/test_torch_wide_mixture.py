@@ -285,6 +285,41 @@ def test_squarem_monotonicity_matches_jax_k150(start):
     assert not j_viol
 
 
+@pytest.mark.slow
+def test_squarem_k200_panel_matches_jax():
+    """Whether the monotonicity violation that SQUAREM records on the K =
+    200 panel of chip_smoke.py's phase 22 (16384 x 2048, missing-free) is
+    the port's own: float64 SQUAREM fits through the JAX driver and the
+    port from the two starts of ``route_times.squarem_case`` (the port's
+    random-centers init drawn on the host, carried across by
+    ``convert.params_from_numpy``; ``route_times --squarem --k 200`` runs
+    the same fits on the card), monotonicity fatal, so that a violation
+    stops a fit where it happens: both stop at the same iteration with
+    the same verdict and the same logL.  Minutes of CPU and a few GiB:
+    run on its own (``-m slow``)."""
+    from multiclust_tpu_torch.route_times import digest, squarem_case
+
+    I, L, K = 16384, 2048, 200
+    planes, miss, ds, md, starts, cfg = squarem_case(I, L, K)
+    print(f"panel digest {digest(planes.numpy(), miss.numpy())}, starts "
+          f"{[digest(*st) for st in starts]}")
+    del planes, miss
+    jmd = jax_model_data(ds, dtype=jnp.float64)
+    del ds
+    jcfg = JaxEMConfig(**{f: getattr(cfg, f) for f in JaxEMConfig._fields})
+    for eta, p in starts:
+        jr = jax_fit(JaxParams(eta=jnp.asarray(eta), p=jnp.asarray(p)), jmd,
+                     jcfg)
+        tr = fit(params_from_numpy(eta, p), md, cfg)
+        j_viol = bool(np.asarray(jr.state.mono_viol).any())
+        print(f"JAX: {jr.n_iter} iterations, violated {j_viol}, logL "
+              f"{jr.logL:.6f}; port: {tr.n_iter}, "
+              f"{bool(tr.state.mono_viol[0])}, {tr.logL:.6f}")
+        assert bool(tr.state.mono_viol[0]) == j_viol
+        assert tr.n_iter == jr.n_iter, (tr.n_iter, jr.n_iter)
+        np.testing.assert_allclose(tr.logL, jr.logL, rtol=1e-10)
+
+
 # ---------------------------------------------------------------------------
 # the gate at 1024 lanes
 
