@@ -88,9 +88,10 @@ each raising on failure:
 16. biobank CLI: a 512 x 8192 STRUCTURE file, ``-a -k 3``, down the
    streamed route;
 17. bootstrap: ``api.fit_model_data`` with ``-k 3 -b 16 -n 2`` on two
-   16384 x 2048 panels made on the card, 1 % missing: the mixture model
-   on a mixture-model panel, and ``-a`` (iteration cap 100) on an
-   admixture-model panel; each replicate fit as a lattice of 16 x 2
+   16384 x 2048 panels, 1 % missing (the mixture-model one drawn on the
+   host and uploaded, the admixture-model one made on the card): the
+   mixture model on a mixture-model panel, and ``-a`` (iteration cap 100)
+   on an admixture-model panel; each replicate fit as a lattice of 16 x 2
    chains through the kernels of its route, with the launches counted
    from 0 on each run; replicate 0 refitted alone from the same starts
    (``fit_batch``) to the lattice's statistic; one lattice step at that
@@ -1090,8 +1091,8 @@ def phase_cli_generic(build, where):
 
 def mixture_counts(seed, I, L, K, miss_rate, dev, spread=None):
     """Mixture-model genotypes of ``route_times.mixture_planes`` (drawn on
-    ``dev`` from ``seed``; ``spread`` as there) as numpy counts [I, L, 2]
-    and miss [I, L]."""
+    the host from ``seed`` and uploaded to ``dev``; ``spread`` as there) as
+    numpy counts [I, L, 2] and miss [I, L]."""
     from multiclust_tpu_torch.route_times import mixture_planes
 
     planes, miss = mixture_planes(seed, I, L, K, miss_rate, dev, spread)
@@ -3589,9 +3590,10 @@ def phase_wide_mixture_kernels(mb, dev, where):
 
 def phase_wide_mixture_fits(build, dev, where):
     """Mixture fits above 128 lanes through ``api.fit_model_data`` on
-    16384 x 2048 panels made on the card, 2 chains: K = 200 plain EM and
-    SQUAREM (cap 30, missing-free: one stream) and plain EM at 1 % missing
-    (two streams), K = 1024 plain EM (cap 10); then K = 200 on an M = 4
+    16384 x 2048 panels (mixture-model ones drawn on the host and
+    uploaded, ``route_times.mixture_planes``), 2 chains: K = 200 plain EM
+    and SQUAREM (cap 30, missing-free: one stream) and plain EM at 1 %
+    missing (two streams), K = 1024 plain EM (cap 10); then K = 200 on an M = 4
     and on the jagged mix (cap 10; the plain products with the wide eta
     finish and the generic p epilogue).  The launches of each run counted
     from 0; returns the wide kernels' launches in the K = 200 missing-free
@@ -3668,10 +3670,10 @@ def wide_mixture_squarem_against_plain(res, md, md64, fit_kw, where):
     """The wide-kernel SQUAREM fit ``res`` held to the same fit through the
     plain products on the card (the model's kernel gates patched off), from
     the same starts: the same iterations and monotonicity flag, the logL
-    within the float32 noise floor of opt/em.py.  On this panel at K = 200
-    SQUAREM records a monotonicity violation on both routes (ROADMAP queue
-    3); the float64 fit on the card from the same starts is printed beside
-    them (``md64``, the panel's float64 ModelData)."""
+    within the float32 noise floor of opt/em.py (the same law drawn by a
+    CUDA generator recorded a violation on both routes; ROADMAP queue 3
+    closes that entry); the float64 fit on the card from the same starts
+    is printed beside them (``md64``, the panel's float64 ModelData)."""
     from multiclust_tpu_torch.api import fit_model_data
     from multiclust_tpu_torch.model import mixture as mix
     from multiclust_tpu_torch.model.common import EMConfig

@@ -603,7 +603,8 @@ extern "C" void mc_wide_cols_tiles(int generic, int* cols, int* stage_rows,
                                    int* d_lanes) {
   *cols = generic ? WideColsTile<Cells::kDense>::BC
                   : WideColsTile<Cells::kBi>::BC;
-  *stage_rows = WB_K;
+  *stage_rows = generic ? WideColsTile<Cells::kDense>::TK
+                        : WideColsTile<Cells::kBi>::TK;
   *chunk = CHUNK_LANES;
   *d_rows = WD_M;
   *d_cols = WD_N;

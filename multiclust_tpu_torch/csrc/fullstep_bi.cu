@@ -474,7 +474,7 @@ extern "C" void mc_fullstep_bi_tiles(int k_true, int Kp, int* kc,
     *kc = wide_kc(k_true, Kp);
     *row_block = WR;
     *col_block = WideColsTile<Cells::kBi>::BC;
-    *col_tile_rows = WB_K;
+    *col_tile_rows = WideColsTile<Cells::kBi>::TK;
     return;
   }
   pass_tiles(k_true, Kp, kc, row_block, col_block, col_tile_rows);

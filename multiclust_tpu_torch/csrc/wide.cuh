@@ -42,29 +42,34 @@
 //   on the float64 tensor cores (`mma.sync` m16n8k16 DMMA, csrc/dmma.cuh;
 //   `wgmma` has no float64 form).  d needs a row's whole cluster axis and
 //   B's accumulators [kc x columns x alleles] fit a block only for a few
-//   columns (the first version kept B0/B1 [16][kc] in shared memory, so
-//   eta streamed W / 16 times from L2 and both products ran on fmaf at
-//   13-19 % of the bound); so d is written once and read once a chunk:
+//   columns (B0/B1 [16][kc] in shared memory would stream eta W / 16
+//   times), so d is written once and read once a lane chunk:
 //   - d launch (`wide_cols_d_kernel`): a persistent grid over tiles of
 //     128 rows x 128 columns; eta and p stream as float32 by cp.async in
-//     stages of 64 lanes (a ring of two, one barrier a stage) and are
-//     converted to float64 as a warp's fragments are built; 4 x 4 DMMA
+//     stages of 64 lanes (a ring of two, one barrier a stage, a block's
+//     tiles one stream of stages) and are converted to float64 as a
+//     warp's fragments are built; 4 x 4 DMMA
 //     tiles a warp (64 rows x 32 columns).  d is rounded to float32 once
 //     into a scratch plane [B, I, sub-window]; with the biallelic cells
 //     the first column tile also writes each row's eta summed over its kc
 //     lanes (one warp a row, float64, lanes in a fixed order).
 //   - B launch (`wide_cols_b_kernel`): block (column tile, row segment,
 //     chain x lane chunk), the live lanes (ceil(kc / 8) tiles of 8) in
-//     balanced chunks of at most 128 (csrc/dmma.cuh), 64-row stages of
-//     the chunk's eta, d, x (and miss, and the rows' eta sums) in a
-//     cp.async ring of two.  Each stage forms its cells in float32 into
-//     shared memory, as the narrow kernels form them (u = x *
+//     balanced chunks of at most 128 (csrc/dmma.cuh), stages of 64 rows
+//     (48 with the generic cells).  cp.async rings of two bring the
+//     chunk's eta and, a stage ahead, the cells' inputs (d, x, miss, the
+//     rows' eta sums).  The cells are formed in float32 into shared
+//     memory (two stages of u), as the narrow kernels form them (u = x *
 //     __frcp_rn(max(d, DMIN)) + miss, the second allele on srow - d; the
-//     generic cells a zero d counting as 1, miss by the lane's locus),
-//     a barrier, then B += eta^T u on DMMA, 4 x 4 tiles a warp (2 x 4 a
-//     stream with two, which share each eta fragment); a warp runs a
-//     stage through code made for its number of live lane tiles.  The
-//     block's float64 sums are rounded to float32 once, as the segment's
+//     generic cells a zero d counting as 1, miss by the lane's locus);
+//     B += eta^T u runs on DMMA, 4 x 4 tiles a warp (2 x 4 a stream with
+//     two, which share each eta fragment), through code made for the
+//     warp's number of live lane tiles.  One barrier a stage: between two
+//     a warp forms the next stage's cells and runs this stage's products,
+//     half the warps in each order, so that forming the cells overlaps
+//     the tensor cores (with a barrier between the two, W3 and W4 took
+//     6-31 % longer, PERF.md).  The block's
+//     float64 sums are rounded to float32 once, as the segment's
 //     partials.  Biallelic blocks take 64 columns, generic ones 128.
 //   - The wrapper (ops/fullstep_bi.cols_sub_cols) cuts the window into
 //     sub-windows of whole d tiles so that the scratch stays within
@@ -489,44 +494,52 @@ constexpr int WD_ES = WD_K + 4, WD_PS = WD_N + 8;
 constexpr int WD_STAGE = 4 * (WD_M * WD_ES + WD_K * WD_PS);   // bytes
 constexpr int WD_SMEM = 2 * WD_STAGE;
 
-// B launch: stages of WB_K rows; WB_ES = CHUNK_LANES + 8: a fragment's eta
-// reads (rows t + 4 p, lanes g) hit banks 8 t + g.
-constexpr int WB_K = 64, WB_ES = CHUNK_LANES + 8;
+// B launch: WB_ES = CHUNK_LANES + 8: a fragment's eta reads (rows t + 4
+// p, lanes g) hit banks 8 t + g.
+constexpr int WB_ES = CHUNK_LANES + 8;
 
 // The B block of the cells C: BC columns (MT tiles of 16 a warp and
-// stream), NS streams.  Shared memory, in bytes: two stages of [the eta
-// chunk WB_K x WB_ES floats, d WB_K x DS floats, x0 (x1) WB_K x BC bytes,
-// miss WB_K x MS bytes, the rows' eta sums WB_K floats (kBi)], then the
-// cells u [NS][WB_K][US] floats.  US = BC + 8: a fragment's float2 reads
-// of u (rows t + 4 p, columns 2 g, 2 g + 1) hit banks 8 t + 2 g (+ 1).
-// MS: the generic cells' loci of BC lanes from a 4-byte boundary.
+// stream), NS streams, stages of TK rows.  Shared memory, in bytes: a ring
+// of two eta-chunk stages [TK][WB_ES] floats; a ring of two stages of the
+// cells' inputs (d [TK][DS] floats, x0 (x1) [TK][BC] bytes, miss [TK][MS]
+// bytes, kBi: the rows' eta sums [TK] floats); two stages of the cells u
+// [NS][TK][US] floats.  US = BC + 8: a fragment's float2 reads of u (rows
+// t + 4 p, columns 2 g, 2 g + 1) hit banks 8 t + 2 g (+ 1).  MS: the
+// generic cells' loci of BC lanes from a 4-byte boundary.  The generic
+// block takes 48-row stages, so that its three rings fit.
 template <Cells C>
 struct WideColsTile {
   static constexpr int NS = C == Cells::kBi ? 2 : 1;
   static constexpr int MT = NS == 2 ? 2 : 4;
   static constexpr int BC = 16 * MT * WC_WM;
+  static constexpr int TK = NS == 2 ? 64 : 48;
   static constexpr int DS = BC + 4, US = BC + 8;
   static constexpr int MS = NS == 2 ? BC : BC + 8;
-  static constexpr int D_OFF = 4 * WB_K * WB_ES;
-  static constexpr int X_OFF = D_OFF + 4 * WB_K * DS;
-  static constexpr int M_OFF = X_OFF + NS * WB_K * BC;
-  static constexpr int S_OFF = M_OFF + WB_K * MS;
-  static constexpr int STAGE = S_OFF + (NS == 2 ? 4 * WB_K : 0);
-  static constexpr int U_OFF = 2 * STAGE;
-  static constexpr int SMEM = U_OFF + 4 * NS * WB_K * US;
-  static_assert(STAGE % 16 == 0 && SMEM <= SMEM_MAX, "B block smem");
+  static constexpr int E_STAGE = 4 * TK * WB_ES;
+  static constexpr int C_X = 4 * TK * DS;   // offsets in a cells stage
+  static constexpr int C_M = C_X + NS * TK * BC;
+  static constexpr int C_S = C_M + TK * MS;
+  static constexpr int C_STAGE = C_S + (NS == 2 ? 4 * TK : 0);
+  static constexpr int U_STAGE = 4 * NS * TK * US;
+  static constexpr int C_OFF = 2 * E_STAGE;
+  static constexpr int U_OFF = C_OFF + 2 * C_STAGE;
+  static constexpr int SMEM = U_OFF + 2 * U_STAGE;
+  static_assert(E_STAGE % 16 == 0 && C_STAGE % 16 == 0 && C_X % 16 == 0 &&
+                SMEM <= SMEM_MAX, "B block smem");
 };
 static_assert(WD_SMEM <= SMEM_MAX, "d block smem");
 
 // The d launch: a persistent grid over the tiles (WD_M rows, WD_N columns
 // of the sub-window [s0, s1), chain), each block taking every
-// gridDim.x-th.  d = eta @ p over the lanes below kc on the float64 tensor
-// cores (4 x 4 DMMA tiles a warp, 64 rows x 32 columns; eta and p staged
-// as float32 by cp.async, converted in registers), summed in float64 over
-// the lanes in order and rounded to float32 once into d_out [B, I, ds]
-// (column c at c - s0).  With srow non-null the tiles of the first column
-// tile also write each row's eta summed over its kc lanes (float64, one
-// warp a row, lanes in a fixed order) to srow [B, I].  p has row stride L.
+// gridDim.x-th, their stages one stream through the ring (the next
+// tile's first stage lands while a tile's d is written).  d = eta @ p
+// over the lanes below kc on the float64 tensor cores (4 x 4 DMMA tiles a
+// warp, 64 rows x 32 columns; eta and p staged as float32 by cp.async,
+// converted in registers), summed in float64 over the lanes in order and
+// rounded to float32 once into d_out [B, I, ds] (column c at c - s0).
+// With srow non-null the tiles of the first column tile also write each
+// row's eta summed over its kc lanes (float64, one warp a row, lanes in a
+// fixed order) to srow [B, I].  p has row stride L.
 __global__ void __launch_bounds__(NT, 1) wide_cols_d_kernel(
     const float* __restrict__ eta, const float* __restrict__ p,
     float* __restrict__ d_out, float* __restrict__ srow, int B, int I,
@@ -540,28 +553,38 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_d_kernel(
   const int n_ct = (s1 - s0 + WD_N - 1) / WD_N;
   const int n_tiles = n_rt * n_ct * B;
   const int n_st = (kc + WD_K - 1) / WD_K;
+  const int n_mine = (int)blockIdx.x < n_tiles
+      ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int total = n_mine * n_st;   // the block's stages
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  // stage gs of the block: stage gs % n_st of its tile gs / n_st
+  struct Where {
+    int st, ct, b, row0, col0;
+  };
+  auto where = [&](int gs) {
+    const int tile = blockIdx.x + gs / n_st * gridDim.x;
     const int ct = tile % n_ct, rt = tile / n_ct % n_rt;
-    const int b = tile / (n_ct * n_rt);
-    const int row0 = rt * WD_M, col0 = s0 + ct * WD_N;
-    const float* eta_b = eta + (size_t)b * I * Kp;
-    const float* p_b = p + (size_t)b * Kp * L;
-
-    auto issue = [&](int st) {
-      float* es = reinterpret_cast<float*>(smem + (st % ST) * WD_STAGE);
+    return Where{gs % n_st, ct, tile / (n_ct * n_rt), rt * WD_M,
+                 s0 + ct * WD_N};
+  };
+  auto issue = [&](int gs) {
+    if (gs < total) {
+      const Where w = where(gs);
+      const float* eta_b = eta + (size_t)w.b * I * Kp;
+      const float* p_b = p + (size_t)w.b * Kp * L;
+      float* es = reinterpret_cast<float*>(smem + (gs % ST) * WD_STAGE);
       float* ps = es + WD_M * WD_ES;
-      const int k0 = st * WD_K;
+      const int k0 = w.st * WD_K;
       for (int e = tid; e < WD_M * (WD_K / 4); e += NT) {
         const int r = e / (WD_K / 4), k4 = 4 * (e % (WD_K / 4));
-        const int row = row0 + r, k = k0 + k4;
+        const int row = w.row0 + r, k = k0 + k4;
         const bool ok = row < I && k < kc;
         cp_async16(es + r * WD_ES + k4,
                    ok ? eta_b + (size_t)row * Kp + k : eta_b, ok ? 16 : 0);
       }
       for (int e = tid; e < WD_K * (WD_N / 4); e += NT) {
         const int k = e / (WD_N / 4), c4 = 4 * (e % (WD_N / 4));
-        const int kk = k0 + k, col = col0 + c4;
+        const int kk = k0 + k, col = w.col0 + c4;
         const int n = kk < kc ? max(0, min(4, s1 - col)) : 0;
         float* dst = ps + k * WD_PS + c4;
         if (vec) {
@@ -572,91 +595,94 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_d_kernel(
             dst[q] = q < n ? p_b[(size_t)kk * L + col + q] : 0.f;
         }
       }
-      cp_async_commit();
-    };
-
-    double acc[MT][WC_NTW][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int j = 0; j < WC_NTW; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
-
-    __syncthreads();   // every warp is done with the last tile's ring
-    issue(0);
-    if (srow != nullptr && ct == 0) {
-      for (int r = warp; r < WD_M && row0 + r < I; r += NW) {
-        const float* er = eta_b + (size_t)(row0 + r) * Kp;
-        double sum = 0.0;
-        for (int k = lane; k < kc; k += 32) sum += (double)er[k];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          sum += __shfl_xor_sync(mc::FULL, sum, o);
-        if (lane == 0) srow[(size_t)b * I + row0 + r] = (float)sum;
-      }
     }
-    for (int st = 0; st < n_st; ++st) {
-      cp_async_wait<0>();
-      __syncthreads();   // stage st landed; every warp is done with st - 1
-      if (st + 1 < n_st) issue(st + 1); else cp_async_commit();
-      const float* es =
-          reinterpret_cast<const float*>(smem + (st % ST) * WD_STAGE);
-      const float* ps = es + WD_M * WD_ES;
-      const int nc = (min(WD_K, kc - st * WD_K) + 15) / 16;
-      for (int c = 0; c < nc; ++c) {
-        double bb[WC_NTW][4];
+    cp_async_commit();
+  };
+
+  double acc[MT][WC_NTW][4];
+  issue(0);
+  for (int gs = 0; gs < total; ++gs) {
+    const Where w = where(gs);
+    if (w.st == 0) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
         for (int j = 0; j < WC_NTW; ++j)
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            bb[j][q] = ps[(16 * c + t + 4 * q) * WD_PS + 32 * wc + 8 * j + g];
+          for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
+      if (srow != nullptr && w.ct == 0) {
+        for (int r = warp; r < WD_M && w.row0 + r < I; r += NW) {
+          const float* er = eta + ((size_t)w.b * I + w.row0 + r) * Kp;
+          double sum = 0.0;
+          for (int k = lane; k < kc; k += 32) sum += (double)er[k];
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float* ea = es + (64 * wm + 16 * m + g) * WD_ES + 16 * c + t;
-          double a[8];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            a[2 * q] = ea[4 * q];
-            a[2 * q + 1] = ea[8 * WD_ES + 4 * q];
-          }
-#pragma unroll
-          for (int j = 0; j < WC_NTW; ++j) dmma16(acc[m][j], a, bb[j]);
+          for (int o = 16; o > 0; o >>= 1)
+            sum += __shfl_xor_sync(mc::FULL, sum, o);
+          if (lane == 0) srow[(size_t)w.b * I + w.row0 + r] = (float)sum;
         }
       }
     }
-
-    // rows g and g + 8 of each tile, columns 32 wc + 8 j + 2 t + {0, 1}
+    cp_async_wait<0>();
+    __syncthreads();   // stage gs landed; every warp is done with gs - 1
+    issue(gs + 1);
+    const float* es =
+        reinterpret_cast<const float*>(smem + (gs % ST) * WD_STAGE);
+    const float* ps = es + WD_M * WD_ES;
+    const int nc = (min(WD_K, kc - w.st * WD_K) + 15) / 16;
+    for (int c = 0; c < nc; ++c) {
+      double bb[WC_NTW][4];
+#pragma unroll
+      for (int j = 0; j < WC_NTW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          bb[j][q] = ps[(16 * c + t + 4 * q) * WD_PS + 32 * wc + 8 * j + g];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* ea = es + (64 * wm + 16 * m + g) * WD_ES + 16 * c + t;
+        double a[8];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          a[2 * q] = ea[4 * q];
+          a[2 * q + 1] = ea[8 * WD_ES + 4 * q];
+        }
+#pragma unroll
+        for (int j = 0; j < WC_NTW; ++j) dmma16(acc[m][j], a, bb[j]);
+      }
+    }
+    if (w.st + 1 < n_st) continue;
+    // the tile's d: rows g and g + 8 of each DMMA tile, columns 32 wc + 8
+    // j + 2 t + {0, 1}
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = row0 + 64 * wm + 16 * m + g + 8 * h;
+        const int row = w.row0 + 64 * wm + 16 * m + g + 8 * h;
         if (row >= I) continue;
-        float* dr = d_out + ((size_t)b * I + row) * ds + (col0 - s0);
+        float* dr = d_out + ((size_t)w.b * I + row) * ds + (w.col0 - s0);
 #pragma unroll
         for (int j = 0; j < WC_NTW; ++j) {
           const int c = 32 * wc + 8 * j + 2 * t;
           const float o0 = (float)acc[m][j][2 * h];
           const float o1 = (float)acc[m][j][2 * h + 1];
-          if (col0 + c + 1 < s1)
+          if (w.col0 + c + 1 < s1)
             *reinterpret_cast<float2*>(dr + c) = make_float2(o0, o1);
-          else if (col0 + c < s1)
+          else if (w.col0 + c < s1)
             dr[c] = o0;
         }
       }
   }
 }
 
-// bytes [c0, c0 + 4 nw) of the rows r0 .. r0 + WB_K - 1 of an int8 plane
+// bytes [c0, c0 + 4 nw) of the rows r0 .. r0 + TK - 1 of an int8 plane
 // with row stride ld into dst (row stride dstride), zeros at rows >= r_hi
 // and at bytes >= c_hi; vec: 4-byte cp.async (c0 and ld multiples of 4,
 // the plane 4-byte aligned), else plain loads
+template <int TK>
 __device__ __forceinline__ void stage_bytes(int8_t* dst, int dstride,
                                             const int8_t* src, int ld,
                                             int r0, int r_hi, int c0,
                                             int c_hi, int nw, int vec) {
-  for (int e = threadIdx.x; e < WB_K * nw; e += NT) {
+  for (int e = threadIdx.x; e < TK * nw; e += NT) {
     const int r = e / nw, w = e % nw, row = r0 + r, col = c0 + 4 * w;
     const int n = row < r_hi ? max(0, min(4, c_hi - col)) : 0;
     int8_t* o = dst + r * dstride + 4 * w;
@@ -679,12 +705,12 @@ __device__ __forceinline__ void wide_cols_b_stage(
     double (&acc)[WideColsTile<C>::NS][WideColsTile<C>::MT][WC_NTW][4],
     const float* es, const float* us, int wm, int wc, int g, int t) {
   using T = WideColsTile<C>;
-  constexpr int MT = T::MT, US = T::US;
+  constexpr int MT = T::MT, US = T::US, TK = T::TK;
   // two streams: one 16-row step at a time (fully unrolled, the kernel
   // built at 254 registers with an 8-byte spill)
-  constexpr int STEPS = T::NS == 2 ? 1 : WB_K / 16;
+  constexpr int STEPS = T::NS == 2 ? 1 : TK / 16;
 #pragma unroll STEPS
-  for (int c = 0; c < WB_K / 16; ++c) {
+  for (int c = 0; c < TK / 16; ++c) {
     const float* et = es + (16 * c + t) * WB_ES + 8 * wc + g;
     double bb[NJ > 0 ? NJ : 1][4];
 #pragma unroll
@@ -696,7 +722,7 @@ __device__ __forceinline__ void wide_cols_b_stage(
     for (int s = 0; NJ > 0 && s < T::NS; ++s) {
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const float* ut = us + (s * WB_K + 16 * c + t) * US +
+        const float* ut = us + (s * TK + 16 * c + t) * US +
                           16 * (wm * MT + m) + 2 * g;
         double a[8];
 #pragma unroll
@@ -721,9 +747,12 @@ __device__ __forceinline__ void wide_cols_b_stage(
 // M, miss at row stride ML).  Then B = eta^T u over the segment's rows on
 // the chunk's lanes on the float64 tensor cores, summed in float64 in row
 // order and rounded once into part [B, n_seg, NS, Kp, WP] (column c at c
-// - p_lo).  The first chunk's blocks write zeros to the lanes past the
-// live tiles.  x, miss have row stride L (kBi: miss too); miss may be
-// null.
+// - p_lo).  One barrier a stage: between two barriers a warp forms the
+// next stage's cells and runs this stage's products, half the warps in
+// one order and half in the other, so that each SM sub-partition has a
+// warp on the tensor cores while the other forms cells.  The first
+// chunk's blocks write zeros to the lanes past the live tiles.  x, miss
+// have row stride L (kBi: miss too); miss may be null.
 template <Cells C>
 __global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
     const float* __restrict__ eta, const float* __restrict__ d,
@@ -734,12 +763,15 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
     int vec_m) {
   using T = WideColsTile<C>;
   constexpr bool BI = C == Cells::kBi;
-  constexpr int NS = T::NS, MT = T::MT, BC = T::BC, ST = 2;
+  constexpr int NS = T::NS, MT = T::MT, BC = T::BC, TK = T::TK;
   constexpr int DS = T::DS, MS = T::MS, US = T::US;
+  // a thread forms the cells of columns cq .. cq + 3 of rows rq + RSTEP i
+  constexpr int RSTEP = NT / (BC / 4);
   char* smem = reinterpret_cast<char*>(dyn_smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp % WC_WM, wc = warp / WC_WM;
+  const int cq = 4 * (tid % (BC / 4)), rq = tid / (BC / 4);
   const int n_ch = wide_chunks(kc), c = blockIdx.z % n_ch;
   const int b = blockIdx.z / n_ch;
   int t0, nt_live;
@@ -749,22 +781,30 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
   const int seg = blockIdx.y, n_seg = gridDim.y;
   const int col0 = s0 + blockIdx.x * BC;
   const int r_lo = seg * seg_rows, r_hi = min(I, r_lo + seg_rows);
-  const int n_st = r_hi > r_lo ? (r_hi - r_lo + WB_K - 1) / WB_K : 0;
+  const int n_st = r_hi > r_lo ? (r_hi - r_lo + TK - 1) / TK : 0;
   const float* eta_b = eta + (size_t)b * I * Kp + k0;
   const float* d_b = d + (size_t)b * I * ds + (col0 - s0);
   const float* srow_b = BI ? srow + (size_t)b * I : nullptr;
   // the generic cells' loci: [m_lo, m_hi) cover the block's lanes below
-  // s1, staged from m_base (a 4-byte boundary on the vector path)
+  // s1, staged from m_base (a 4-byte boundary on the vector path); a byte
+  // a column of the thread's, its locus's offset there (255: no miss)
   const int m_lo = col0 / M;
   const int m_hi = min(ML, (min(s1, col0 + BC) - 1) / M + 1);
   const int m_base = vec_m ? m_lo & ~3 : m_lo;
-  float* us = reinterpret_cast<float*>(smem + T::U_OFF);
+  uint32_t m_off = 0xffffffffu;
+  if (!BI && miss != nullptr) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = col0 + cq + q;
+      const uint32_t o = col < s1 ? (uint32_t)(col / M - m_base) : 255u;
+      m_off = (m_off & ~(255u << (8 * q))) | (o << (8 * q));
+    }
+  }
 
-  auto issue = [&](int st) {
-    char* stage = smem + (st % ST) * T::STAGE;
-    const int r0 = r_lo + st * WB_K;
-    float* es = reinterpret_cast<float*>(stage);
-    for (int e = tid; e < WB_K * (CHUNK_LANES / 4); e += NT) {
+  auto issue_eta = [&](int st) {
+    float* es = reinterpret_cast<float*>(smem + (st & 1) * T::E_STAGE);
+    const int r0 = r_lo + st * TK;
+    for (int e = tid; e < TK * (CHUNK_LANES / 4); e += NT) {
       const int r = e / (CHUNK_LANES / 4), c4 = 4 * (e % (CHUNK_LANES / 4));
       if (c4 >= kv) continue;   // lanes past the chunk: not read
       const int row = r0 + r;
@@ -772,71 +812,77 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
       cp_async16(es + r * WB_ES + c4, ok ? eta_b + (size_t)row * Kp + c4
                                          : eta_b, ok ? 16 : 0);
     }
-    float* dst = reinterpret_cast<float*>(stage + T::D_OFF);
-    for (int e = tid; e < WB_K * (BC / 4); e += NT) {
+  };
+  auto issue_cells = [&](int st) {
+    char* stage = smem + T::C_OFF + (st & 1) * T::C_STAGE;
+    const int r0 = r_lo + st * TK;
+    float* dst = reinterpret_cast<float*>(stage);
+    for (int e = tid; e < TK * (BC / 4); e += NT) {
       const int r = e / (BC / 4), c4 = 4 * (e % (BC / 4));
       const int row = r0 + r;
       const int n = row < r_hi ? max(0, min(4, s1 - col0 - c4)) : 0;
       cp_async16(dst + r * DS + c4, n > 0 ? d_b + (size_t)row * ds + c4
                                           : d_b, 4 * n);
     }
-    int8_t* xs = reinterpret_cast<int8_t*>(stage + T::X_OFF);
-    stage_bytes(xs, BC, x0, L, r0, r_hi, col0, s1, BC / 4, vec_x);
+    int8_t* xs = reinterpret_cast<int8_t*>(stage + T::C_X);
+    stage_bytes<TK>(xs, BC, x0, L, r0, r_hi, col0, s1, BC / 4, vec_x);
     if constexpr (BI) {
-      stage_bytes(xs + WB_K * BC, BC, x1, L, r0, r_hi, col0, s1, BC / 4,
-                  vec_x);
+      stage_bytes<TK>(xs + TK * BC, BC, x1, L, r0, r_hi, col0, s1, BC / 4,
+                      vec_x);
       if (miss != nullptr)
-        stage_bytes(reinterpret_cast<int8_t*>(stage + T::M_OFF), MS, miss,
-                    L, r0, r_hi, col0, s1, BC / 4, vec_m);
-      if (tid < WB_K) {
+        stage_bytes<TK>(reinterpret_cast<int8_t*>(stage + T::C_M), MS, miss,
+                        L, r0, r_hi, col0, s1, BC / 4, vec_m);
+      if (tid < TK) {
         const int row = r0 + tid;
         const bool ok = row < r_hi;
-        cp_async4(reinterpret_cast<float*>(stage + T::S_OFF) + tid,
+        cp_async4(reinterpret_cast<float*>(stage + T::C_S) + tid,
                   ok ? srow_b + row : srow_b, ok ? 4 : 0);
       }
     } else if (miss != nullptr) {
-      stage_bytes(reinterpret_cast<int8_t*>(stage + T::M_OFF), MS, miss, ML,
-                  r0, r_hi, m_base, m_hi, (m_hi - m_base + 3) / 4, vec_m);
+      stage_bytes<TK>(reinterpret_cast<int8_t*>(stage + T::C_M), MS, miss,
+                      ML, r0, r_hi, m_base, m_hi, (m_hi - m_base + 3) / 4,
+                      vec_m);
     }
-    cp_async_commit();
   };
 
-  // the stage's cells, four columns a thread, into us [NS][WB_K][US]
-  auto cells = [&](const char* stage) {
-    const float* dst = reinterpret_cast<const float*>(stage + T::D_OFF);
-    const int8_t* xs = reinterpret_cast<const int8_t*>(stage + T::X_OFF);
-    const int8_t* ms = reinterpret_cast<const int8_t*>(stage + T::M_OFF);
-    for (int e = tid; e < WB_K * (BC / 4); e += NT) {
-      const int r = e / (BC / 4), c4 = 4 * (e % (BC / 4));
-      const float4 dv = *reinterpret_cast<const float4*>(dst + r * DS + c4);
+  // stage st's cells, four columns a thread, into its u stage [NS][TK][US]
+  auto cells = [&](int st) {
+    const char* stage = smem + T::C_OFF + (st & 1) * T::C_STAGE;
+    float* us = reinterpret_cast<float*>(smem + T::U_OFF +
+                                         (st & 1) * T::U_STAGE);
+    const float* dst = reinterpret_cast<const float*>(stage);
+    const int8_t* xs = reinterpret_cast<const int8_t*>(stage + T::C_X);
+    const int8_t* ms = reinterpret_cast<const int8_t*>(stage + T::C_M);
+#pragma unroll 2
+    for (int r = rq; r < TK; r += RSTEP) {
+      const float4 dv = *reinterpret_cast<const float4*>(dst + r * DS + cq);
       const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
-      const uint32_t xa = *reinterpret_cast<const uint32_t*>(xs + r * BC + c4);
+      const uint32_t xa = *reinterpret_cast<const uint32_t*>(xs + r * BC + cq);
       float u0[4], u1[4];
       if constexpr (BI) {
         const uint32_t xb = *reinterpret_cast<const uint32_t*>(
-            xs + (WB_K + r) * BC + c4);
+            xs + (TK + r) * BC + cq);
         const uint32_t xm = miss != nullptr
-            ? *reinterpret_cast<const uint32_t*>(ms + r * MS + c4) : 0u;
-        const float sr = reinterpret_cast<const float*>(stage + T::S_OFF)[r];
+            ? *reinterpret_cast<const uint32_t*>(ms + r * MS + cq) : 0u;
+        const float sr = reinterpret_cast<const float*>(stage + T::C_S)[r];
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float m = x_byte(xm, q);
           u0[q] = fmaf(x_byte(xa, q), __frcp_rn(fmaxf(dd[q], DMIN)), m);
           u1[q] = fmaf(x_byte(xb, q), __frcp_rn(fmaxf(sr - dd[q], DMIN)), m);
         }
-        *reinterpret_cast<float4*>(us + (WB_K + r) * US + c4) =
+        *reinterpret_cast<float4*>(us + (TK + r) * US + cq) =
             make_float4(u1[0], u1[1], u1[2], u1[3]);
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int col = col0 + c4 + q;
-          const float m = miss != nullptr && col < s1
-              ? (float)ms[r * MS + col / M - m_base] : 0.f;
+          const uint32_t o = (m_off >> (8 * q)) & 255u;
+          const float m = o != 255u ? (float)ms[r * MS + o] : 0.f;
           const float sd = dd[q] > 0.f ? dd[q] : 1.f;
           u0[q] = fmaf(x_byte(xa, q), __frcp_rn(sd), m);
         }
       }
-      *reinterpret_cast<float4*>(us + r * US + c4) =
+      *reinterpret_cast<float4*>(us + r * US + cq) =
           make_float4(u0[0], u0[1], u0[2], u0[3]);
     }
   };
@@ -851,18 +897,41 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[s][m][j][q] = 0.0;
 
-  if (n_st > 0) issue(0);
+  auto products = [&](int st) {
+    const float* es =
+        reinterpret_cast<const float*>(smem + (st & 1) * T::E_STAGE);
+    const float* us = reinterpret_cast<const float*>(smem + T::U_OFF +
+                                                     (st & 1) * T::U_STAGE);
+    with_count<WC_NTW>(nj, [&](auto n) {
+      wide_cols_b_stage<C, decltype(n)::value>(acc, es, us, wm, wc, g, t);
+    });
+  };
+
+  // the rings: eta of stage st and the cells' inputs of stage st + 1 land
+  // together, one commit group an iteration
+  if (n_st > 0) {
+    issue_eta(0);
+    issue_cells(0);
+  }
+  cp_async_commit();
+  if (n_st > 1) issue_cells(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();   // stage 0's eta and cell inputs landed
+  if (n_st > 0) cells(0);
+  const bool cells_first = warp < NW / 2;
   for (int st = 0; st < n_st; ++st) {
     cp_async_wait<0>();
-    __syncthreads();   // stage st landed; every warp is done with st - 1
-    if (st + 1 < n_st) issue(st + 1); else cp_async_commit();
-    const char* stage = smem + (st % ST) * T::STAGE;
-    cells(stage);
-    __syncthreads();   // the stage's cells are in us
-    with_count<WC_NTW>(nj, [&](auto n) {
-      wide_cols_b_stage<C, decltype(n)::value>(
-          acc, reinterpret_cast<const float*>(stage), us, wm, wc, g, t);
-    });
+    // stage st's cells are in u; its eta and the next stage's cell inputs
+    // landed; every warp is done with the slots the copies below take
+    __syncthreads();
+    if (st + 1 < n_st) issue_eta(st + 1);
+    if (st + 2 < n_st) issue_cells(st + 2);
+    cp_async_commit();
+    const bool more = st + 1 < n_st;
+    if (cells_first && more) cells(st + 1);
+    products(st);
+    if (!cells_first && more) cells(st + 1);
   }
 
   // a thread holds columns 2 g, 2 g + 1 of each tile for lanes 8 (wc +

@@ -218,9 +218,9 @@ def cols_segments(B: int, I: int, LM: int, Kp: int, n_sm: int,
     the int8 x the pass reads, and at least one."""
     tc, ri = cols_tile(k_true, Kp, generic=True)
     if is_wide(Kp):
-        blocks = (-(-cols_sub_cols(B, I, LM, bi=False) // tc) * B
-                  * wide_chunks(kc_of(k_true, Kp)))
-        n_want = min(n_sm // blocks, -(-I // (4 * ri)))
+        n_ch = wide_chunks(kc_of(k_true, Kp))
+        sub = cols_sub_cols(B, I, LM, n_ch, n_sm, bi=False)
+        n_want = min(n_sm // (-(-sub // tc) * B * n_ch), -(-I // (4 * ri)))
     else:
         n_want, _ = col_segments(I, LM, B, n_sm, tc=tc, ri=ri,
                                  per_sm=COLS_BLOCKS_PER_SM)
@@ -306,7 +306,8 @@ def fullstep_partials(eta, p2, x2, miss=None, *, M: int, k_true: int = 0):
                        device=eta.device)
     sub, scratch = 0, None
     if is_wide(Kp):   # d of a lane sub-window (fullstep_bi.cols_sub_cols)
-        sub = cols_sub_cols(B, I, LM, bi=False)
+        sub = cols_sub_cols(B, I, LM, wide_chunks(kc_of(k_true, Kp)),
+                            device_sm_count(eta.device), bi=False)
         scratch = torch.empty(B * I * sub, dtype=torch.float32,
                               device=eta.device)
     build.launch("mc_fullstep_cols", eta.device,

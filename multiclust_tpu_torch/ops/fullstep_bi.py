@@ -80,13 +80,14 @@ NW = 8
 ROW_AR, ROW_TL, ROW_CW_MAX = 4, 32, 8
 COL_CT, COL_DR = 4, 4
 # tile constants of csrc/wide.cuh: rows a rows-pass block; the columns
-# pass's B launch: columns of a block with the biallelic and the generic
-# cells, rows a stage, cluster lanes a chunk at most (``wide_chunks``);
-# its d launch: rows and columns of a tile (a sub-window's columns are
-# whole d tiles where they can be, ``cols_sub_cols``)
+# pass's B launch: columns of a block and rows a stage with the biallelic
+# and with the generic cells, cluster lanes a chunk at most
+# (``wide_chunks``); its d launch: rows and columns of a tile (a
+# sub-window's columns are whole d tiles where they can be,
+# ``cols_sub_cols``)
 WR = 32
-WTC, WTC_GENERIC, WRI, WIDE_CHUNK = 64, 128, 64, 128
-WD_TILE = 128
+WTC, WRI, WTC_GENERIC, WRI_GENERIC = 64, 64, 128, 48
+WIDE_CHUNK, WD_TILE = 128, 128
 # padded / degenerate columns have d = 0 with x = 0: the clamp keeps
 # 0 / d at 0 and 0 * log(d) at 0
 D_MIN = 1e-30
@@ -224,10 +225,11 @@ def rows_block(k_true: int, Kp: int) -> int:
 def cols_tile(k_true: int, Kp: int, generic: bool = False
               ) -> Tuple[int, int]:
     """(columns of a columns-pass block, rows of its eta tile); a wide
-    Kp's B launch takes WTC columns with the biallelic cells (two
-    streams) and WTC_GENERIC with the generic ones (``generic``)."""
+    Kp's B launch takes WTC columns and WRI-row stages with the biallelic
+    cells (two streams), WTC_GENERIC and WRI_GENERIC with the generic
+    ones (``generic``)."""
     if is_wide(Kp):
-        return (WTC_GENERIC if generic else WTC), WRI
+        return (WTC_GENERIC, WRI_GENERIC) if generic else (WTC, WRI)
     lt = lane_tile(k_true, Kp)
     return NW * COL_CT * lt.cw, COL_DR * lt.gl
 
@@ -380,6 +382,11 @@ COLS_MAX_RSEG = 64
 # them costs up to 3 % of a step at the biobank shapes ("step chunked"
 # against "step streamed").
 SCRATCH_CAP = 192 << 20
+# The wide columns pass's B launch holds one block an SM: a column
+# sub-window whose grid would end in a wave filled below this share is
+# narrowed to whole waves (at 16384 x 8192 lanes, 2 chains, K = 1024:
+# 1024-lane sub-windows of 128 blocks, not 1408 of 176)
+WAVE_FILL = 0.9
 # grid y/z limit, and the widest L whose int column arithmetic cannot
 # overflow in the kernels
 GRID_YZ_MAX = 65535
@@ -413,27 +420,34 @@ def _ceil_to(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def cols_sub_cols(B: int, I: int, W: int, *, bi: bool = True,
-                  cap: Optional[int] = None) -> int:
+def cols_sub_cols(B: int, I: int, W: int, chunks: int, n_sm: int, *,
+                  bi: bool = True) -> int:
     """Columns a sub-window of the wide columns pass takes over a window
     of W columns: the d launch writes d [B, I, sub] float32 (and, ``bi``,
     the rows' eta sums [B, I]) to a scratch that the B launch reads, and
-    that scratch stays within ``cap`` bytes.  All of W (rounded up to 4)
+    that scratch stays within SCRATCH_CAP.  All of W (rounded up to 4)
     when it fits, else W in balanced sub-windows of whole d tiles (WD_TILE
-    columns; ROW_TL where not even one tile fits).  ``cap`` None:
-    SCRATCH_CAP.  Raises when not even ROW_TL columns fit."""
-    cap = SCRATCH_CAP if cap is None else cap
+    columns; ROW_TL where not even one tile fits).  A sub-window whose B
+    grid (its column tiles x B chains x ``chunks`` lane chunks; row
+    segments fill a first wave) would end in a wave of the ``n_sm`` SMs it
+    fills below WAVE_FILL is narrowed to whole waves.  Raises when not
+    even ROW_TL columns fit."""
     per_col = 4 * B * I
-    most = (cap - (per_col if bi else 0)) // per_col
-    if most >= _ceil_to(W, 4):
-        return _ceil_to(W, 4)
-    step = WD_TILE if most >= WD_TILE else ROW_TL
-    most = most // step * step
+    most = (SCRATCH_CAP - (per_col if bi else 0)) // per_col
     if most < ROW_TL:
         raise MemoryError(
             f"the wide columns pass's scratch for B={B} x I={I} rows takes "
             f"{per_col * ROW_TL} bytes for {ROW_TL} columns, over the cap "
-            f"of {cap} bytes")
+            f"of {SCRATCH_CAP} bytes")
+    step = WD_TILE if most >= WD_TILE else ROW_TL
+    tc, per_tile = (WTC if bi else WTC_GENERIC), B * chunks
+    blocks = -(-min(most, W) // tc) * per_tile
+    waves = -(-blocks // n_sm)
+    if blocks > n_sm and blocks < WAVE_FILL * waves * n_sm:
+        most = min(most, max((waves - 1) * n_sm // per_tile * tc, step))
+    if most >= _ceil_to(W, 4):
+        return _ceil_to(W, 4)
+    most = most // step * step
     n = -(-W // most)
     return _ceil_to(-(-W // n), step)
 
@@ -446,11 +460,12 @@ def cols_sub_windows(l_lo: int, l_hi: int, sub_cols: int):
                                                          sub_cols)]
 
 
-def cols_scratch_bytes(B: int, I: int, W: int, *, bi: bool = True,
-                       cap: Optional[int] = None) -> int:
+def cols_scratch_bytes(B: int, I: int, W: int, chunks: int, n_sm: int, *,
+                       bi: bool = True) -> int:
     """Bytes of the wide columns pass's scratch over a window of W
-    columns: d of one sub-window, and the rows' eta sums (``bi``)."""
-    sub = cols_sub_cols(B, I, W, bi=bi, cap=cap)
+    columns: d of one sub-window (``cols_sub_cols``), and the rows' eta
+    sums (``bi``)."""
+    sub = cols_sub_cols(B, I, W, chunks, n_sm, bi=bi)
     return 4 * B * I * (sub + (1 if bi else 0))
 
 
@@ -492,9 +507,9 @@ def cols_row_segments(B: int, I: int, W: int, Kp: int, n_sm: int,
     least one."""
     tc, ri = cols_tile(k_true, Kp)
     if is_wide(Kp):
-        blocks = (-(-cols_sub_cols(B, I, W) // tc) * B
-                  * wide_chunks(kc_of(k_true, Kp)))
-        n_want = min(n_sm // blocks, -(-I // (4 * ri)))
+        n_ch = wide_chunks(kc_of(k_true, Kp))
+        sub = cols_sub_cols(B, I, W, n_ch, n_sm)
+        n_want = min(n_sm // (-(-sub // tc) * B * n_ch), -(-I // (4 * ri)))
     else:
         n_want, _ = col_segments(I, W, B, n_sm, tc=tc, ri=ri,
                                  per_sm=COLS_BLOCKS_PER_SM)
@@ -528,7 +543,8 @@ def window_scratch_bytes(B: int, I: int, W: int, Kp: int, n_sm: int,
     block's rows x Kp, or are as large as eta itself (one segment)."""
     return (cols_partials_bytes(B, I, W, Kp, n_sm, k_true, budget)
             + 4 * B * n_cseg * I * (Kp + 1)
-            + (cols_scratch_bytes(B, I, W) if is_wide(Kp) else 0))
+            + (cols_scratch_bytes(B, I, W, wide_chunks(kc_of(k_true, Kp)),
+                                  n_sm) if is_wide(Kp) else 0))
 
 
 def pick_route(B: int, I: int, L: int, Kp: int, n_sm: int,
@@ -867,7 +883,8 @@ def _cols_launch(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
                        device=eta.device)
     sub, scratch = 0, None
     if is_wide(Kp):
-        sub = cols_sub_cols(B, I, W)
+        sub = cols_sub_cols(B, I, W, wide_chunks(kc_of(k_true, Kp)),
+                            device_sm_count(eta.device))
         scratch = torch.empty(B * I * (sub + 1), dtype=torch.float32,
                               device=eta.device)
     build.launch("mc_fullstep_bi_cols", eta.device,

@@ -310,8 +310,8 @@ def lanes_panel(seed: int, I: int, L: int, M: int, dev):
 
 # the generic step's kernels by name, as the profiler sees them
 # (above 128 lanes the columns pass is two kernels, a d launch and a B
-# launch, before PR 16 one, wide_cols_kernel; the d launch's share is
-# printed on a line of its own)
+# launch; a tree of the one-kernel design names it wide_cols_kernel; the
+# d launch's share is printed on a line of its own)
 WIDE_COLS = ("wide_cols_kernel", "wide_cols_d_kernel", "wide_cols_b_kernel")
 D_LAUNCH = "columns pass: its d launch (wide)"
 GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel", "wide_rows_kernel"),
@@ -701,6 +701,33 @@ def time_squarem(I: int, L: int, dev) -> None:
                   f"{bool(res.state.mono_viol[0])}, logL {res.logL:.6f}, "
                   f"{time.time() - t0:.2f} s", flush=True)
         del md
+
+
+def mixture_step_inputs(seed: int, B: int, I: int, L: int, K: int,
+                        Kp: int, miss_rate: float, dev):
+    """Kernel-route inputs of the mixture step on ``dev``, K-padded as
+    model/mixture.py builds them (pads: lp 0, bias PAD_BIAS): lp0 [B, Kp, L],
+    x0 int8 [I, L], bias [B, Kp], and lp1 / x1 with missing data (two
+    streams); missing-free inputs fold x1 = 2 - x0 into lp0 = log p0 -
+    log p1 and the bias."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p0 = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
+    eta = torch.rand((B, K), generator=gen, device=dev) + 0.1
+    eta /= eta.sum(dim=-1, keepdim=True)
+    miss = (torch.rand((I, L, 2), generator=gen, device=dev)
+            < miss_rate).sum(dim=-1)
+    x0 = sum(((torch.rand((I, L), generator=gen, device=dev) < 0.5)
+              & (a < 2 - miss)).to(torch.int8) for a in range(2))
+    lp0 = torch.zeros((B, Kp, L), device=dev)
+    bias = torch.full((B, Kp), PAD_BIAS, device=dev)
+    if not miss_rate:
+        lp0[:, :K] = torch.log(p0) - torch.log1p(-p0)
+        bias[:, :K] = 2 * torch.log1p(-p0).sum(dim=-1) + torch.log(eta)
+        return lp0, x0, bias, None, None
+    lp1 = torch.zeros_like(lp0)
+    lp0[:, :K], lp1[:, :K] = torch.log(p0), torch.log1p(-p0)
+    bias[:, :K] = torch.log(eta)
+    return lp0, x0, bias, lp1, (2 - miss - x0).to(torch.int8)
 
 
 def _mixture_kernels_take(Kp: int) -> bool:

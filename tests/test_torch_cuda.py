@@ -1653,8 +1653,8 @@ def test_wide_tiles_match_the_python_mirror(Kp):
     # the columns pass's two launches, both cells
     for generic in (False, True):
         assert build.wide_cols_tiles(lib, generic) == (
-            fb.cols_tile(0, Kp, generic)[0], fb.WRI, fb.WIDE_CHUNK,
-            fb.WD_TILE, fb.WD_TILE, 64)
+            fb.cols_tile(0, Kp, generic) + (fb.WIDE_CHUNK, fb.WD_TILE,
+                                             fb.WD_TILE, 64))
 
 
 # the redesigned wide columns pass (csrc/wide.cuh: a d launch and a B
@@ -1738,12 +1738,14 @@ def test_wide_cols_sub_windows_are_one_window(monkeypatch, K, Kp, l_lo,
     B, I, L = 2, 1001, 4099
     eta, p0, x0, x1, _, miss = _step_args(K, B, I, L, K, Kp, 0.02, dev)
     win = dict(l_lo=l_lo, l_hi=l_hi, k_true=K, n_rseg=3)
+    plan = (fb.wide_chunks(fb.kc_of(K, Kp)), fb.device_sm_count(dev))
     whole = fb.cols_partials(eta, p0, x0, x1, miss, **win)
-    assert fb.cols_sub_cols(B, I, l_hi - l_lo) >= l_hi - l_lo
+    assert fb.cols_sub_cols(B, I, l_hi - l_lo, *plan) >= l_hi - l_lo
     cap = 4 * B * I * 300
     monkeypatch.setattr(fb, "SCRATCH_CAP", cap)
-    sub = fb.cols_sub_cols(B, I, l_hi - l_lo)
-    assert sub == 256 and fb.cols_scratch_bytes(B, I, l_hi - l_lo) <= cap
+    sub = fb.cols_sub_cols(B, I, l_hi - l_lo, *plan)
+    assert sub == 256
+    assert fb.cols_scratch_bytes(B, I, l_hi - l_lo, *plan) <= cap
     assert len(fb.cols_sub_windows(l_lo, l_hi, sub)) > 4
     split = fb.cols_partials(eta, p0, x0, x1, miss, **win)
     torch.cuda.synchronize()
@@ -1755,7 +1757,7 @@ def test_wide_cols_sub_windows_are_one_window(monkeypatch, K, Kp, l_lo,
     whole = fs.fullstep_partials(g_eta, p2, x2, g_miss, M=M, k_true=K)
     monkeypatch.setattr(fb, "SCRATCH_CAP", cap)
     monkeypatch.setattr(fs, "SCRATCH_CAP", cap)
-    assert fb.cols_sub_cols(B, I, 333 * M, bi=False) == 256
+    assert fb.cols_sub_cols(B, I, 333 * M, *plan, bi=False) == 256
     split = fs.fullstep_partials(g_eta, p2, x2, g_miss, M=M, k_true=K)
     torch.cuda.synchronize()
     if split.shape == whole.shape:

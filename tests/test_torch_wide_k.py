@@ -292,12 +292,14 @@ def test_pick_route_wide(Kp):
             cols = fb.cols_partials_bytes(B, I, r.window, Kp, 132, K, budget)
             assert cols <= budget
             # the columns pass's d scratch, within SCRATCH_CAP on its own
-            d = fb.cols_scratch_bytes(B, I, r.window)
+            d = fb.cols_scratch_bytes(B, I, r.window,
+                                      fb.wide_chunks(fb.kc_of(K, Kp)), 132)
             assert 0 < d <= cap
             assert r.scratch_bytes == cols + rows + d
     assert fb.rows_block(K, Kp) == fb.WR
     assert fb.cols_tile(K, Kp) == (fb.WTC, fb.WRI)
-    assert fb.cols_tile(K, Kp, generic=True) == (fb.WTC_GENERIC, fb.WRI)
+    assert fb.cols_tile(K, Kp, generic=True) == (fb.WTC_GENERIC,
+                                                 fb.WRI_GENERIC)
     assert fb.kc_of(K, Kp) == K and fb.kc_of(0, Kp) == Kp
     assert fb.kc_of(K - 2, Kp) == K
 
@@ -313,7 +315,8 @@ def test_pick_route_wide(Kp):
     (2, 8192, 131072, 64, None),          # biobank width
 ])
 @pytest.mark.parametrize("bi", [True, False])
-def test_cols_sub_windows_cover_the_window(B, I, W, l_lo, cap, bi):
+def test_cols_sub_windows_cover_the_window(B, I, W, l_lo, cap, bi,
+                                          monkeypatch):
     """The sub-windows the wide columns pass runs cover [l_lo, l_lo + W)
     exactly and in order, each as wide as the plan's sub_cols but the
     last; the scratch they share (d [B, I, sub_cols], and the rows' eta
@@ -321,14 +324,17 @@ def test_cols_sub_windows_cover_the_window(B, I, W, l_lo, cap, bi):
     multiple of the d tile, of ROW_TL where not one d tile fits, or all of
     the window rounded up to 4 columns; no more sub-windows than the cap
     needs."""
-    limit = fb.SCRATCH_CAP if cap is None else cap
-    sub = fb.cols_sub_cols(B, I, W, bi=bi, cap=cap)
+    if cap is not None:
+        monkeypatch.setattr(fb, "SCRATCH_CAP", cap)
+    limit = fb.SCRATCH_CAP
+    # one lane chunk: the wave rule leaves these plans to the cap
+    sub = fb.cols_sub_cols(B, I, W, 1, 132, bi=bi)
     wins = fb.cols_sub_windows(l_lo, l_lo + W, sub)
     assert wins[0][0] == l_lo and wins[-1][1] == l_lo + W
     assert all(a[1] == b[0] for a, b in zip(wins, wins[1:]))
     assert all(hi - lo == sub for lo, hi in wins[:-1])
     assert 0 < wins[-1][1] - wins[-1][0] <= sub
-    scratch = fb.cols_scratch_bytes(B, I, W, bi=bi, cap=cap)
+    scratch = fb.cols_scratch_bytes(B, I, W, 1, 132, bi=bi)
     assert scratch == 4 * B * I * (sub + bi) <= limit
     if len(wins) == 1:
         assert sub == -(-W // 4) * 4
@@ -340,10 +346,36 @@ def test_cols_sub_windows_cover_the_window(B, I, W, l_lo, cap, bi):
         assert len(wins) == -(-W // most)
 
 
-def test_cols_sub_cols_refuses_what_no_sub_window_fits():
+@pytest.mark.parametrize("B,I,W,Kp,bi", [
+    (2, 16384, 8192, 1024, False),   # M = 4 lanes: 1408 -> 1024 lanes
+    (2, 16384, 2048, 1024, True),    # 256 blocks, 97 % of two waves: kept
+    (2, 16384, 8192, 224, False),    # 44 blocks: row segments fill a wave
+    (2, 8192, 131072, 1024, True),   # biobank width
+    (1, 65536, 16384, 512, False),
+])
+def test_cols_sub_windows_end_in_full_waves(B, I, W, Kp, bi):
+    """With the card's SMs the sub-window plan keeps the B launch's grid
+    (column tiles x chains x lane chunks) within one wave, or ends it in
+    a wave filled to at least WAVE_FILL, or takes the narrowest
+    sub-window; within the cap's plan either way."""
+    n_sm, n_ch = 132, fb.wide_chunks(Kp)
+    tc = fb.WTC if bi else fb.WTC_GENERIC
+    sub = fb.cols_sub_cols(B, I, W, n_ch, n_sm, bi=bi)
+    assert sub <= fb.cols_sub_cols(B, I, W, 1, 1 << 20, bi=bi)
+    blocks = -(-sub // tc) * B * n_ch
+    waves = -(-blocks // n_sm)
+    assert (blocks <= n_sm or blocks >= fb.WAVE_FILL * waves * n_sm
+            or sub == fb.WD_TILE)
+    if (B, W, Kp, bi) == (2, 8192, 1024, False):
+        assert sub == 1024 and blocks == 128
+
+
+def test_cols_sub_cols_refuses_what_no_sub_window_fits(monkeypatch):
+    monkeypatch.setattr(fb, "SCRATCH_CAP", 4 * 2 * 16384 * 16)
     with pytest.raises(MemoryError, match="over the cap"):
-        fb.cols_sub_cols(2, 16384, 2048, cap=4 * 2 * 16384 * 16)
-    assert fb.cols_sub_cols(2, 16384, 2048, cap=4 * 2 * 16384 * 33) == 32
+        fb.cols_sub_cols(2, 16384, 2048, 1, 132)
+    monkeypatch.setattr(fb, "SCRATCH_CAP", 4 * 2 * 16384 * 33)
+    assert fb.cols_sub_cols(2, 16384, 2048, 1, 132) == 32
 
 
 @pytest.mark.parametrize("Kp", [32, 128, 160, 224, 1024])
@@ -353,10 +385,11 @@ def test_window_scratch_counts_the_wide_d_scratch(Kp):
     B, I, W, K = 2, 16384, 2048, Kp - 20
     cols = fb.cols_partials_bytes(B, I, W, Kp, 132, K)
     rows = 4 * B * 3 * I * (Kp + 1)
-    d = fb.cols_scratch_bytes(B, I, W) if Kp > 128 else 0
+    plan = (fb.wide_chunks(fb.kc_of(K, Kp)), 132)
+    d = fb.cols_scratch_bytes(B, I, W, *plan) if Kp > 128 else 0
     assert fb.window_scratch_bytes(B, I, W, Kp, 132, 3, K) == cols + rows + d
     if Kp > 128:
-        assert d == 4 * B * I * (fb.cols_sub_cols(B, I, W) + 1) > 0
+        assert d == 4 * B * I * (fb.cols_sub_cols(B, I, W, *plan) + 1) > 0
 
 
 @pytest.mark.parametrize("Kp", [160, 224, 512, 1024])
@@ -383,11 +416,11 @@ def test_pick_route_wide_takes_the_chunked_route_under_a_small_budget(Kp):
 @pytest.mark.parametrize("B,I,W", [(1, 16384, 2048), (2, 16384, 2048),
                                    (2, 1001, 4099), (4, 300, 8192)])
 def test_wide_cols_segments_follow_the_new_tiles(K, Kp, B, I, W):
-    """The wide columns pass's row segments: whole stages of WRI rows
-    covering I, a grid of at most one wave of B blocks (a sub-window's
-    column tiles x chains x lane chunks x segments) wherever it splits I,
-    at least 4 stages a segment; the generic cells' the same at their
-    block width."""
+    """The wide columns pass's row segments: whole stages covering I, a
+    grid of at most one wave of B blocks (a sub-window's column tiles x
+    chains x lane chunks x segments) wherever it splits I, at least 4
+    stages a segment; the generic cells' the same at their block width
+    and stage."""
     kc = fb.kc_of(K, Kp)
     assert fb.wide_chunks(kc) == -(-kc // fb.WIDE_CHUNK)
     for generic in (False, True):
@@ -395,12 +428,13 @@ def test_wide_cols_segments_follow_the_new_tiles(K, Kp, B, I, W):
             n, rows = fs.cols_segments(B, I, W, Kp, 132, K)
         else:
             n, rows = fb.cols_row_segments(B, I, W, Kp, 132, K)
-        tc = fb.cols_tile(K, Kp, generic)[0]
-        assert rows % fb.WRI == 0 and (n - 1) * rows < I <= n * rows
-        blocks = (-(-fb.cols_sub_cols(B, I, W, bi=not generic) // tc) * B
-                  * fb.wide_chunks(kc))
+        tc, ri = fb.cols_tile(K, Kp, generic)
+        assert rows % ri == 0 and (n - 1) * rows < I <= n * rows
+        sub = fb.cols_sub_cols(B, I, W, fb.wide_chunks(kc), 132,
+                               bi=not generic)
+        blocks = -(-sub // tc) * B * fb.wide_chunks(kc)
         if n > 1:
-            assert n * blocks <= 132 and rows >= 4 * fb.WRI
+            assert n * blocks <= 132 and rows >= 4 * ri
 
 
 def test_check_kp_takes_multiples_of_32_to_1024():
