@@ -2795,7 +2795,10 @@ WIDE_MESH_TIMEOUT = 240
 def wide_step_checks(fb, args, route, K, W):
     """Each wide kernel of the streamed step on the window [0, W) of
     ``args`` against its plain version, reruns bit-equal, the finish's raw
-    sums and t bit-equal to the ordered ones; returns the errors and the
+    sums and t bit-equal to the ordered ones; the rows pass alone (its d
+    and A launches) and inside the step's window, where both passes run on
+    one d (``window_partials``): its partials and the columns pass's
+    bit-equal to those of each pass alone; returns the errors and the
     partials (for the timings)."""
     e, p, a, z, c, m = args
     fin = dict(k_true=K, lb=1e-8, project_eta=True)
@@ -2848,7 +2851,13 @@ def wide_step_checks(fb, args, route, K, W):
         ordered = fb.ordered_segment_sum(part[:, :, s])
         ordered[:, kc:] = 0.0
         assert torch.equal(raw[s][..., :W], ordered), s
-    del part, raw, ordered
+    # both passes on one d: the partials of each pass alone, bit for bit
+    shared = fb.window_partials(e, p, a, z, m, seg_cols=route.seg_cols,
+                                k_true=K, n_rseg=route.n_rseg, **win)
+    torch.cuda.synchronize()
+    assert torch.equal(shared[0], apart) and torch.equal(shared[1], tpart)
+    assert torch.equal(shared[2], part)
+    del part, raw, ordered, shared
     return errs, apart, tpart
 
 
@@ -2866,15 +2875,16 @@ def phase_wide_kernels(fb, fs, build, dev, where):
     M = 3 panel: the step, the sweep statistics (finish=False, the miss
     fold) and an a0 / emit_a chain.  Beside the rows and columns passes
     (W1, W3, W4) the float32 matmuls of their contractions, a yardstick
-    the port never calls.  Returns errors, times, bounds and yardsticks by
-    (kernel, K)."""
+    the port never calls; the routed step with both passes on one d and
+    in the order that runs d for each.  Returns errors, times, bounds and
+    yardsticks by (kernel, K), and the step times by K."""
     from multiclust_tpu_torch.model.common import k_padded_size
     from multiclust_tpu_torch.route_times import finish_bytes
 
     rng = np.random.default_rng(21)
     n_sm = fb.device_sm_count(dev)
     errs = dict.fromkeys(WIDE_KERNELS, 0.0)
-    ms, bnd, yard = {}, {}, {}
+    ms, bnd, yard, steps = {}, {}, {}, {}
     kw = dict(lb=1e-8, plb=1e-8, project=True)
     for K in WIDE_K:
         Kp = k_padded_size(K, 32)
@@ -2951,6 +2961,19 @@ def phase_wide_kernels(fb, fs, build, dev, where):
                           f"{bounds[name][0]:.4f} ms ({bounds[name][1]}), "
                           f"{100 * bounds[name][0] / k_ms:.1f} % of it, on "
                           f"{where}", flush=True)
+                # the routed step with both passes on one d, and in the
+                # order that runs d for each (d + A, then d + B)
+                steps[K] = {
+                    label: median_ms(
+                        lambda share=share: fb.admixture_fullstep_biallelic_routed(
+                            *args, route=route, k_true=K, share_d=share,
+                            **kw))
+                    for label, share in (("shared d", True),
+                                         ("unshared d", False))}
+                print(f"wide K={K} routed step at 2 chains: "
+                      + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  steps[K].items()) + f", on {where}",
+                      flush=True)
                 del calls, outs
                 # the yardstick the port never calls: each pass's
                 # contractions alone, float32 torch.matmul (TF32 off) on
@@ -3082,7 +3105,7 @@ def phase_wide_kernels(fb, fs, build, dev, where):
                       flush=True)
             del args, eta, p2, x2, c, miss, mask, part, part_ref
             torch.cuda.empty_cache()
-    return errs, ms, bnd, yard
+    return errs, ms, bnd, yard, steps
 
 
 def wide_fit_counts(K, I, L, n_alleles, seed, dev):
@@ -3104,10 +3127,11 @@ def phase_wide_fits(build, dev, where):
     200 on the M = 4 configuration and on the jagged mix (plain EM, cap
     10).  The launches of each run counted from 0; returns the wide
     kernels' launches in the K = 200 biallelic fits (the main path) and
-    the generic columns pass's in the M = 4 fit."""
+    the generic columns pass's in the M = 4 fit, and those of the K = 1024
+    fit."""
     from multiclust_tpu_torch.api import fit_model_data
 
-    launches = {}
+    launches, launches_1024 = {}, {}
     for K in WIDE_K:
         md = wide_fit_counts(K, I_FULL, L_FULL, np.full(L_FULL, 2), 220 + K,
                              dev)
@@ -3132,8 +3156,7 @@ def phase_wide_fits(build, dev, where):
         for name in ("wide_rows", "wide_finish", "wide_cols_bi"):
             assert wide[name] > 0, (K, wide)
         assert not build.LAUNCHES["mc_fullstep_bi_rows"], build.LAUNCHES
-        if K == 200:
-            launches.update(wide)
+        (launches if K == 200 else launches_1024).update(wide)
         del md, out
         torch.cuda.empty_cache()
     K = 200
@@ -3157,7 +3180,7 @@ def phase_wide_fits(build, dev, where):
             launches["wide_cols_generic"] = wide["wide_cols_generic"]
         del md, out
         torch.cuda.empty_cache()
-    return launches
+    return launches, launches_1024
 
 
 def phase_wide_reference(build, dev):
@@ -3381,9 +3404,10 @@ def phase_wide(fb, fs, build, dev, where):
     records and the mesh entry."""
     t0 = time.time()
     torch.cuda.empty_cache()
-    errs, ms, bnd, yard = phase_wide_kernels(fb, fs, build, dev, where)
+    errs, ms, bnd, yard, steps = phase_wide_kernels(fb, fs, build, dev,
+                                                    where)
     print(f"wide kernels: {time.time() - t0:.1f} s", flush=True)
-    launches = phase_wide_fits(build, dev, where)
+    launches, launches_1024 = phase_wide_fits(build, dev, where)
     phase_wide_reference(build, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_wide_cli(build, where, tmp)
@@ -3397,9 +3421,13 @@ def phase_wide(fb, fs, build, dev, where):
         print(f"ptxas {name}: {text}", flush=True)
         assert " 0 bytes spill stores, 0 bytes spill loads" in text, name
         regs[name] = int(re.search(r"Used (\d+) registers", text).group(1))
-    # the columns passes' two launches (the d launch is one kernel for
-    # both cells, built in both sources)
-    cols_kernels = {"wide_cols_bi": ("wide_cols_d_kernel",
+    # each pass's launches (the d launch is one kernel for both cells and
+    # both passes, built in both sources; a step runs it once for both)
+    pass_kernels = {"wide_rows": ("wide_cols_d_kernel",
+                                  "wide_rows_a_kernel<kBi>"),
+                    "wide_finish": ("wide_finish_kernel<8>",
+                                    "wide_finish_kernel<32>"),
+                    "wide_cols_bi": ("wide_cols_d_kernel",
                                      "wide_cols_b_kernel<kBi>"),
                     "wide_cols_generic": ("wide_cols_d_kernel",
                                           "wide_cols_b_kernel<kDense>")}
@@ -3413,12 +3441,18 @@ def phase_wide(fb, fs, build, dev, where):
                         + (", M = 4" if name == "wide_cols_generic" else ""))
         if name == "wide_cols_bi":   # its launcher's epilogue, timed with it
             rec["timed_with"] = "fullstep_bi_p0_kernel"
-        if name in cols_kernels:
-            rec["registers"] = {k: regs[k] for k in cols_kernels[name]}
+        # the kernels behind the record (the finish: at K = 200 and 1024)
+        rec["registers"] = {k: regs[k] for k in pass_kernels[name]}
         rec["kp1024"] = {"ms": ms[name, 1024][0],
                          "plain_ms": ms[name, 1024][1],
                          "bound_ms": bnd[name, 1024][0],
                          "bound_by": bnd[name, 1024][1]}
+        if name in launches_1024:
+            rec["kp1024"]["launches"] = launches_1024[name]
+        if name == "wide_rows":   # timed through rows_partials: d + A
+            rec["timed_with"] = "wide_cols_d_kernel"
+            rec["routed_step_ms"] = steps[200]
+            rec["kp1024"]["routed_step_ms"] = steps[1024]
         # no single PyTorch call computes these functions (library_ms
         # null); the float32 matmuls of their contractions beside them
         if (name, 200) in yard:

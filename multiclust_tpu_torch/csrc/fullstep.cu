@@ -73,8 +73,9 @@
 // Ragged I and L*M edges are masked in the loads; the caller pads only K,
 // to Kp in {32, 64, 96, 128} for these kernels.  For 128 < Kp <= 1024 the
 // rows pass, its finish and the columns pass are the wide kernels of
-// wide.cuh (the generic cells, over L*M lanes); the p epilogue takes any
-// Kp.  Sums are in a fixed order: reruns are bit-equal.
+// wide.cuh (the generic cells, over L*M lanes), and a step runs both
+// passes on one d (mc_fullstep_step); the p epilogue takes any Kp.  Sums
+// are in a fixed order: reruns are bit-equal.
 
 #include "wide.cuh"
 
@@ -469,6 +470,28 @@ __global__ void __launch_bounds__(NT) fullstep_p_kernel(
     if (live && m < M) out[off + m] = v[j];
   }
 }
+// The wide launches of the generic step over its L*M lanes: the rows
+// pass (tpart non-null) over lane segments of seg_cols, the columns pass
+// (part non-null) over row segments of seg_rows, through the scratch of d
+// (sub_cols lanes).  x and miss by cp.async where every row starts at a
+// multiple of 4 bytes.
+inline WideLaunch wide_lanes(const void* eta, const void* p2,
+                             const void* x2, const void* miss, void* apart,
+                             void* tpart, void* part, void* scratch, int B,
+                             int I, int L, int M, int Kp, int k_true,
+                             int seg_cols, int n_cseg, int compute_t,
+                             int n_rseg, int seg_rows, int sub_cols) {
+  const int LM = L * M;
+  const int vec_x = LM % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
+  const int vec_p = LM % 4 == 0 && ((uintptr_t)p2 & 15) == 0;
+  return WideLaunch{eta, p2, x2, nullptr, miss, scratch, B, I, LM, Kp,
+                    k_true, 0, LM, sub_cols, vec_p, apart, tpart, seg_cols,
+                    n_cseg, compute_t, 1,
+                    vec_p && vec_x && seg_cols % 4 == 0, part, L, M, 0, LM,
+                    n_rseg, seg_rows, vec_x,
+                    L % 4 == 0 && ((uintptr_t)miss & 3) == 0};
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/build.py).  Pointers are
@@ -480,14 +503,18 @@ __global__ void __launch_bounds__(NT) fullstep_p_kernel(
 // scratch apart [B, n_seg, I, Kp] and tpart [B, n_seg, I], then its
 // finish: eta' (or the raw A when finish = 0) into out [B, I, Kp] and t
 // into t_out [B, I] float64.  c and a0 may be null.  M: the allele slots
-// a locus, or 0 when the caller does not say (the dense cells).
+// a locus, or 0 when the caller does not say (the dense cells).  At 128 <
+// Kp <= 1024 a d launch and the A launch for each lane sub-window of
+// sub_cols lanes through `scratch` (16-byte aligned, 4 B I sub_cols
+// bytes); narrower Kp take neither.
 extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
                                 const void* x2, const void* c,
                                 const void* a0, void* apart, void* tpart,
                                 void* out, void* t_out, int B, int I, int LM,
                                 int M, int Kp, int k_true, float lb,
                                 int project, int compute_t, int finish,
-                                int seg_cols, int n_seg, void* stream) {
+                                int seg_cols, int n_seg, void* scratch,
+                                int sub_cols, void* stream) {
   if (seg_cols < 1) return (int)cudaErrorInvalidValue;
   // every segment starts at a multiple of 4 when the rows and the
   // segment size do
@@ -497,9 +524,10 @@ extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
   if (kp_wide(Kp)) {
     // the generic cells at every M: at these Kp the cells are a few
     // percent of a lane's work, so the sparse cells would save little
-    const int err = launch_rows_wide<Cells::kDense>(
-        eta, p2, x2, nullptr, apart, tpart, B, I, LM, Kp, k_true, 0, LM,
-        seg_cols, n_seg, compute_t, 1, vec, s);
+    const int err = launch_wide<Cells::kDense>(
+        wide_lanes(eta, p2, x2, nullptr, apart, tpart, nullptr, scratch, B, I,
+                   LM, 1, Kp, k_true, seg_cols, n_seg, compute_t, 0, 0,
+                   sub_cols), s);
     if (err != 0) return err;
     return launch_rows_finish_wide(eta, apart, tpart, a0, c, nullptr, out,
                                    t_out, B, I, Kp, n_seg, k_true, lb,
@@ -561,11 +589,10 @@ extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
   // a multiple of 4 bytes, else by plain loads
   const int xv = LM % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
   if (kp_wide(Kp))
-    return launch_cols_wide<Cells::kDense>(
-        eta, p2, x2, nullptr, miss, part, scratch, B, I, LM, L, M, Kp,
-        k_true, 0, LM, 0, LM, n_seg, seg_rows, sub_cols,
-        LM % 4 == 0 && ((uintptr_t)p2 & 15) == 0, xv,
-        L % 4 == 0 && ((uintptr_t)miss & 3) == 0, (cudaStream_t)stream);
+    return launch_wide<Cells::kDense>(
+        wide_lanes(eta, p2, x2, miss, nullptr, nullptr, part, scratch, B, I,
+                   L, M, Kp, k_true, 0, 0, 0, n_seg, seg_rows, sub_cols),
+        (cudaStream_t)stream);
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   const LaneTile lt = lane_tile(k_true, Kp, 32);
   const int TC = NW * COL_CT * lt.cw;
@@ -592,6 +619,36 @@ extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
   }
 #undef MC_COLS
   return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// The generic step's two passes at 128 < Kp <= 1024 on one d for each
+// lane sub-window of sub_cols lanes (`scratch`: 16-byte aligned, 4 B I
+// sub_cols bytes): the rows pass's partials apart [B, n_cseg, I, Kp] and
+// tpart [B, n_cseg, I] over segments of seg_cols lanes and the columns
+// pass's partials part [B, n_rseg, Kp, L*M] over segments of seg_rows
+// rows (miss may be null), then the rows finish into out and t_out as
+// mc_fullstep_rows has it.  The p epilogue (mc_fullstep_p) follows.
+extern "C" int mc_fullstep_step(const void* eta, const void* p2,
+                                const void* x2, const void* c,
+                                const void* a0, const void* miss,
+                                void* apart, void* tpart, void* out,
+                                void* t_out, void* part, void* scratch,
+                                int B, int I, int L, int M, int Kp,
+                                int k_true, float lb, int project,
+                                int compute_t, int finish, int seg_cols,
+                                int n_cseg, int n_rseg, int seg_rows,
+                                int sub_cols, void* stream) {
+  if (!kp_wide(Kp) || M < 1 || seg_cols < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_wide<Cells::kDense>(
+      wide_lanes(eta, p2, x2, miss, apart, tpart, part, scratch, B, I, L, M,
+                 Kp, k_true, seg_cols, n_cseg, compute_t, n_rseg, seg_rows,
+                 sub_cols), s);
+  if (err != 0) return err;
+  return launch_rows_finish_wide(eta, apart, tpart, a0, c, nullptr, out,
+                                 t_out, B, I, Kp, n_cseg, k_true, lb,
+                                 !finish, project, compute_t, s);
 }
 
 // the tiles of the wide columns pass (csrc/wide.cuh) for the biallelic

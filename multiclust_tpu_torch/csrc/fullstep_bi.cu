@@ -84,8 +84,9 @@
 // live in tiles.cuh, which the generic step (csrc/fullstep.cu) shares.
 // For 128 < Kp <= 1024 the segmented rows pass, the finish and the
 // columns pass are the wide kernels of wide.cuh (the p0 epilogue takes
-// any Kp); the pair (mc_fullstep_bi_rows) refuses those Kp: the streamed
-// step runs them.
+// any Kp), and a step's window runs both passes on one d
+// (mc_fullstep_bi_window); the pair (mc_fullstep_bi_rows) refuses those
+// Kp: the streamed step runs them.
 
 #include "wide.cuh"
 
@@ -459,6 +460,29 @@ inline int launch_p0(const float* p0, const float* part, float* p0_new,
   return (int)cudaGetLastError();
 }
 
+// The wide launches of a biallelic window [l_lo, l_hi): the rows pass
+// (tpart non-null; apart null: t alone) over column segments of seg_cols,
+// the columns pass (part non-null) over row segments of seg_rows, through
+// the scratch of d (sub_cols columns) and the rows' eta sums.
+inline WideLaunch wide_window(const void* eta, const void* p0,
+                              const void* x0, const void* x1,
+                              const void* miss, void* apart, void* tpart,
+                              void* part, void* scratch, int B, int I, int L,
+                              int Kp, int k_true, int l_lo, int l_hi,
+                              int seg_cols, int n_cseg, int compute_t,
+                              int n_rseg, int seg_rows, int sub_cols) {
+  const int row4 = L % 4 == 0 && l_lo % 4 == 0;
+  const int vec_x = row4 && ((uintptr_t)x0 & 3) == 0 &&
+                    ((uintptr_t)x1 & 3) == 0;
+  const int vec_p = row4 && ((uintptr_t)p0 & 15) == 0;
+  return WideLaunch{eta, p0, x0, x1, miss, scratch, B, I, L, Kp, k_true,
+                    l_lo, l_hi, sub_cols, vec_p, apart, tpart, seg_cols,
+                    n_cseg, compute_t, apart != nullptr,
+                    vec_p && vec_x && seg_cols % 4 == 0, part, L, 1, l_lo,
+                    l_hi - l_lo, n_rseg, seg_rows, vec_x,
+                    row4 && ((uintptr_t)miss & 3) == 0};
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (ops/build.py).  Pointers are
@@ -472,7 +496,7 @@ extern "C" void mc_fullstep_bi_tiles(int k_true, int Kp, int* kc,
                                      int* col_tile_rows) {
   if (kp_wide(Kp)) {
     *kc = wide_kc(k_true, Kp);
-    *row_block = WR;
+    *row_block = WA_M;
     *col_block = WideColsTile<Cells::kBi>::BC;
     *col_tile_rows = WideColsTile<Cells::kBi>::TK;
     return;
@@ -517,22 +541,27 @@ extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
 }
 
 // Segmented rows pass over the window [l_lo, l_hi) in n_seg segments of
-// seg_cols columns (n_seg <= 65535, the grid's y limit).
+// seg_cols columns (n_seg <= 65535, the grid's y limit).  At 128 < Kp <=
+// 1024 a d launch and the A launch for each column sub-window of sub_cols
+// columns through `scratch` (16-byte aligned, 4 B I (sub_cols + 1) bytes:
+// d of a sub-window and the rows' eta sums); narrower Kp take neither.
 extern "C" int mc_fullstep_bi_rows_seg(const void* eta, const void* p0,
                                        const void* x0, const void* x1,
                                        void* apart, void* tpart, int B,
                                        int I, int L, int Kp, int k_true,
                                        int l_lo, int l_hi, int seg_cols,
                                        int n_seg, int compute_t,
-                                       int compute_a, void* stream) {
+                                       int compute_a, void* scratch,
+                                       int sub_cols, void* stream) {
   // every segment starts at a multiple of 4 when the window and the
   // segment size do
   const int vec = L % 4 == 0 && l_lo % 4 == 0 && seg_cols % 4 == 0;
   if (kp_wide(Kp))
-    return launch_rows_wide<Cells::kBi>(eta, p0, x0, x1, apart, tpart, B, I,
-                                        L, Kp, k_true, l_lo, l_hi, seg_cols,
-                                        n_seg, compute_t, compute_a, vec,
-                                        (cudaStream_t)stream);
+    return launch_wide<Cells::kBi>(
+        wide_window(eta, p0, x0, x1, nullptr, compute_a ? apart : nullptr,
+                    tpart, nullptr, scratch, B, I, L, Kp, k_true, l_lo, l_hi,
+                    seg_cols, n_seg, compute_t, 0, 0, sub_cols),
+        (cudaStream_t)stream);
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
   const int R = NW * ROW_AR * lt.cw;
@@ -598,15 +627,10 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
                                    int project, void* scratch, int sub_cols,
                                    void* stream) {
   if (kp_wide(Kp)) {
-    const int row4 = L % 4 == 0 && l_lo % 4 == 0;
-    const int vec_x = row4 && ((uintptr_t)x0 & 3) == 0 &&
-                      ((uintptr_t)x1 & 3) == 0;
-    const int vec_m = row4 && ((uintptr_t)miss & 3) == 0;
-    const int vec_p = row4 && ((uintptr_t)p0 & 15) == 0;
-    const int err = launch_cols_wide<Cells::kBi>(
-        eta, p0, x0, x1, miss, part, scratch, B, I, L, L, 1, Kp, k_true,
-        l_lo, l_hi, l_lo, l_hi - l_lo, n_seg, seg_rows, sub_cols, vec_p,
-        vec_x, vec_m, (cudaStream_t)stream);
+    const int err = launch_wide<Cells::kBi>(
+        wide_window(eta, p0, x0, x1, miss, nullptr, nullptr, part, scratch,
+                    B, I, L, Kp, k_true, l_lo, l_hi, 0, 0, 0, n_seg,
+                    seg_rows, sub_cols), (cudaStream_t)stream);
     if (err != 0 || (!p0_new && !b0_out && !b1_out)) return err;
     return launch_p0((const float*)p0, (const float*)part, (float*)p0_new,
                      (float*)b0_out, (float*)b1_out, B, Kp,
@@ -644,6 +668,33 @@ extern "C" int mc_fullstep_bi_cols(const void* eta, const void* p0,
   if (err != 0 || (!p0_new && !b0_out && !b1_out)) return err;
   return launch_p0(p, pt, (float*)p0_new, (float*)b0_out, (float*)b1_out, B,
                    Kp, lt.kc, L, l_lo, W, n_seg, plb, pub, project, s);
+}
+
+// Both passes of a window [l_lo, l_hi) at 128 < Kp <= 1024 on one d for
+// each column sub-window of sub_cols columns (`scratch` as for
+// mc_fullstep_bi_cols): the rows pass's partials apart [B, n_cseg, I, Kp]
+// and tpart [B, n_cseg, I] over segments of seg_cols columns, and the
+// columns pass's partials part [B, n_rseg, 2, Kp, l_hi - l_lo] over
+// segments of seg_rows rows (miss may be null).  The finish
+// (mc_fullstep_bi_finish) and the epilogue (mc_fullstep_bi_p0) follow.
+extern "C" int mc_fullstep_bi_window(const void* eta, const void* p0,
+                                     const void* x0, const void* x1,
+                                     const void* miss, void* apart,
+                                     void* tpart, void* part, void* scratch,
+                                     int B, int I, int L, int Kp,
+                                     int k_true, int l_lo, int l_hi,
+                                     int seg_cols, int n_cseg,
+                                     int compute_t, int n_rseg,
+                                     int seg_rows, int sub_cols,
+                                     void* stream) {
+  if (!kp_wide(Kp) || apart == nullptr || tpart == nullptr ||
+      part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_wide<Cells::kBi>(
+      wide_window(eta, p0, x0, x1, miss, apart, tpart, part, scratch, B, I,
+                  L, Kp, k_true, l_lo, l_hi, seg_cols, n_cseg, compute_t,
+                  n_rseg, seg_rows, sub_cols),
+      (cudaStream_t)stream);
 }
 
 // The epilogue alone over the window [l_lo, l_hi) from partials `part`

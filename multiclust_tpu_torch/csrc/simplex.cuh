@@ -26,8 +26,10 @@ __device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 // 32 j) onto {x >= lb on the valid lanes, sum = 1}; the other lanes end
 // at 0.  `valid` is the true-lane set: static (k < k_true) or read from a
 // runtime mask, as the TPU's `_michelot_tile` takes either.  The free
-// lanes are counted by ballot: whole numbers, equal to a warp sum of
-// them, so a pass needs one warp sum (of w) where the passes are latency.
+// lanes are counted a lane at a time and reduced once a pass (one
+// __reduce_add_sync, not a ballot a slot): whole numbers, equal to a warp
+// sum of them, so a pass needs one warp sum (of w) where the passes are
+// latency; a pass pinned a lane exactly when the count fell.
 template <int KJ>
 __device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
                                    float lb) {
@@ -40,17 +42,16 @@ __device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
   auto free_lanes = [&]() {
     int n = 0;
 #pragma unroll
-    for (int j = 0; j < KJ; ++j) n += __popc(__ballot_sync(FULL, fr[j]));
-    return (float)n;
+    for (int j = 0; j < KJ; ++j) n += fr[j] ? 1 : 0;
+    return __reduce_add_sync(FULL, n);
   };
-  float nf = free_lanes();
+  int nf = free_lanes();
   while (true) {
     float cs = 0.f;
 #pragma unroll
     for (int j = 0; j < KJ; ++j) cs += w[j];
     cs = warp_sum(cs);
-    const float off = (cs - 1.f) / fmaxf(nf, 1.f);
-    bool pinned = false;
+    const float off = (cs - 1.f) / fmaxf((float)nf, 1.f);
 #pragma unroll
     for (int j = 0; j < KJ; ++j) {
       if (fr[j]) {
@@ -58,15 +59,15 @@ __device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
         if (w2 < lb) {
           w[j] = lb;
           fr[j] = false;
-          pinned = true;
         } else {
           w[j] = w2;
         }
       }
     }
-    const bool any_pinned = __any_sync(FULL, pinned);
-    nf = free_lanes();
-    if (!any_pinned || nf < 0.5f) break;
+    const int left = free_lanes();
+    const bool any_pinned = left < nf;
+    nf = left;
+    if (!any_pinned || nf == 0) break;
   }
 #pragma unroll
   for (int j = 0; j < KJ; ++j)

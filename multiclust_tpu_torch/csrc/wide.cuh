@@ -1,6 +1,6 @@
 // The admixture step's passes for 128 < Kp <= 1024: the wide rows pass
-// (biallelic and generic cells), its wide finish, and the wide columns
-// pass (biallelic and generic cells).  csrc/fullstep_bi.cu and
+// and the wide columns pass (biallelic and generic cells), on one d launch
+// for both, and the rows pass's wide finish.  csrc/fullstep_bi.cu and
 // csrc/fullstep.cu send every Kp in that range here; Kp <= 128 keeps the
 // kernels of tiles.cuh and of those sources.
 //
@@ -18,95 +18,89 @@
 // cluster axis in registers: 4 JT clusters x 4 rows a thread, which at Kp
 // = 1024 would be 512 floats a thread against the 255 registers there are,
 // and eta rows of a 128-row block of 512 KiB against 227 KiB of shared
-// memory.
+// memory.  So d = eta @ p, which needs a row's whole cluster axis, is
+// written once to a scratch plane and read by the contractions that need
+// a lane chunk at a time; all three products run on the float64 tensor
+// cores (`mma.sync` m16n8k16 DMMA, csrc/dmma.cuh; `wgmma` has no float64
+// form) on float32 operands converted in registers, 4 x 4 DMMA tiles a
+// warp.
 //
-// * rows pass: the cluster axis in chunks of WK = 64 lanes, the
-//   accumulators in shared memory.  A block owns WR = 32 rows of one
-//   column segment and keeps their A [32][kc] in shared memory (130 KiB
-//   at Kp = 1024).  For each tile of WTL = 64 columns it runs one stage a
-//   chunk for d = eta @ p (the chunk's eta [32][64] and p [64][64] arrive
-//   by cp.async into a ring of two stages), the cells into w [32][64],
-//   then one stage a chunk for A += w @ p^T (the chunk's p again, from
-//   L2).  A thread computes 2 rows x 4 columns of d and 2 rows x 4 lanes
-//   of A, IEEE float32 fmaf on the CUDA cores: 0.19-0.31 shared-memory
-//   loads a FMA, one or two blocks an SM, two barriers a stage (a first
-//   version, 22 % of its bound, PERF.md).
-// * finish: one warp a row as in tiles.cuh, but the partials are read
-//   straight from device memory into registers (a row's KJ = Kp / 32
-//   values a lane, at most 32), with Kp taken at run time: one
-//   instantiation, KJ = 32 (a second one at KJ = 8 for Kp <= 256 built
-//   with 48 registers and an 8-byte spill, PERF.md; the finish is a small
-//   part of a step).  The t-only finish is tiles.cuh's
-//   rows_finish_t_kernel, which takes any Kp.
-// * columns pass: two launches for each column sub-window, both products
-//   on the float64 tensor cores (`mma.sync` m16n8k16 DMMA, csrc/dmma.cuh;
-//   `wgmma` has no float64 form).  d needs a row's whole cluster axis and
-//   B's accumulators [kc x columns x alleles] fit a block only for a few
-//   columns (B0/B1 [16][kc] in shared memory would stream eta W / 16
-//   times), so d is written once and read once a lane chunk:
-//   - d launch (`wide_cols_d_kernel`): a persistent grid over tiles of
-//     128 rows x 128 columns; eta and p stream as float32 by cp.async in
-//     stages of 64 lanes (a ring of two, one barrier a stage, a block's
-//     tiles one stream of stages) and are converted to float64 as a
-//     warp's fragments are built; 4 x 4 DMMA
-//     tiles a warp (64 rows x 32 columns).  d is rounded to float32 once
-//     into a scratch plane [B, I, sub-window]; with the biallelic cells
-//     the first column tile also writes each row's eta summed over its kc
-//     lanes (one warp a row, float64, lanes in a fixed order).
-//   - B launch (`wide_cols_b_kernel`): block (column tile, row segment,
-//     chain x lane chunk), the live lanes (ceil(kc / 8) tiles of 8) in
-//     balanced chunks of at most 128 (csrc/dmma.cuh), stages of 64 rows
-//     (48 with the generic cells).  cp.async rings of two bring the
-//     chunk's eta and, a stage ahead, the cells' inputs (d, x, miss, the
-//     rows' eta sums).  The cells are formed in float32 into shared
-//     memory (two stages of u), as the narrow kernels form them (u = x *
-//     __frcp_rn(max(d, DMIN)) + miss, the second allele on srow - d; the
-//     generic cells a zero d counting as 1, miss by the lane's locus);
-//     B += eta^T u runs on DMMA, 4 x 4 tiles a warp (2 x 4 a stream with
-//     two, which share each eta fragment), through code made for the
-//     warp's number of live lane tiles.  One barrier a stage: between two
-//     a warp forms the next stage's cells and runs this stage's products,
-//     half the warps in each order, so that forming the cells overlaps
-//     the tensor cores (with a barrier between the two, W3 and W4 took
-//     6-31 % longer, PERF.md).  The block's
-//     float64 sums are rounded to float32 once, as the segment's
-//     partials.  Biallelic blocks take 64 columns, generic ones 128.
-//   - The wrapper (ops/fullstep_bi.cols_sub_cols) cuts the window into
-//     sub-windows of whole d tiles so that the scratch stays within
-//     SCRATCH_CAP (192 MiB: 1536 columns at 2 chains x 16384 rows); the
-//     launcher loops the two launches over them, each writing its columns
-//     of the same partials.
-//   d is written rather than the cells u: one plane against the
-//   biallelic cells' two, and one d kernel for both cells; the B launch
-//   reads x (a byte a cell) beside d and forms the cells again a chunk.
+// * d launch (`wide_cols_d_kernel`): a persistent grid over tiles of 128
+//   rows x 128 columns of a column sub-window; eta and p stream by
+//   cp.async in stages of 64 lanes (a ring of two, one barrier a stage, a
+//   block's tiles one stream of stages).  d is summed in float64 over the
+//   lanes in order and rounded to float32 once into a scratch plane [B, I,
+//   sub-window]; with the biallelic cells the first column tile also
+//   writes each row's eta summed over its kc lanes (one warp a row,
+//   float64, lanes in a fixed order).
+// * A launch, the rows pass (`wide_rows_a_kernel`): block (128 rows x a
+//   lane chunk, column segment, chain), the live lanes (ceil(kc / 8) tiles
+//   of 8) in balanced chunks of at most 128 (csrc/dmma.cuh).  It walks the
+//   segment's columns of the sub-window in stages of 32; cp.async rings of
+//   two bring, a stage ahead, the chunk's p columns and the cells' inputs
+//   (d, x0 / x1; the rows' eta sums once).  The cells are formed in float32
+//   into shared memory as the narrow kernels form them (kBi: u = x0 /
+//   max(d, DMIN) - x1 / max(srow - d, DMIN), r = the row's sum of the
+//   second term, t = x0 log d0 + x1 log d1; kDense: u = x / d with a zero d
+//   counting as 1), then A += u p^T on DMMA, summed in float64 over the
+//   segment's columns in order and rounded to float32 once.  One barrier a
+//   stage: between two, a warp forms the next stage's cells and runs this
+//   stage's products, half the warps in each order.  Every chunk sums r
+//   (it forms w1 anyway); only the first chunk's blocks take the logs of
+//   t and write t and the lanes past the live tiles.  compute_a == 0 (the
+//   t-only logL): one chunk, no products.
+// * B launch, the columns pass (`wide_cols_b_kernel`): block (column tile,
+//   row segment, chain x lane chunk), stages of 64 rows (48 with the
+//   generic cells); cp.async rings of two bring the chunk's eta and, a
+//   stage ahead, the cells' inputs (d, x, miss, the rows' eta sums).  The
+//   cells are formed in float32 into shared memory (u = x *
+//   __frcp_rn(max(d, DMIN)) + miss, the second allele on srow - d; the
+//   generic cells a zero d counting as 1, miss by the lane's locus); B +=
+//   eta^T u runs on DMMA (2 x 4 tiles a stream with two, which share each
+//   eta fragment), through code made for the warp's number of live lane
+//   tiles, with the same one barrier a stage (with a barrier between cells
+//   and products, W3 and W4 took 6-31 % longer, PERF.md).  The block's
+//   float64 sums are rounded to float32 once, as the segment's partials.
+//   Biallelic blocks take 64 columns, generic ones 128.
+// * The launcher (`launch_wide`) cuts the window into sub-windows of whole
+//   d tiles so that the scratch stays within SCRATCH_CAP (192 MiB: 1536
+//   columns at 2 chains x 16384 rows; ops/fullstep_bi.cols_sub_cols) and
+//   runs, for each, the d launch and then the A launch, the B launch or
+//   both on that d: a step that runs both passes on the same (eta, p)
+//   computes d once (three contractions, not four).  A column segment of
+//   the rows pass that spans several sub-windows gets each sub-window's
+//   part added to its partials in sub-window order (float32; no atomics).
+// * finish (`wide_finish_kernel<KJ>`): one warp a row as in tiles.cuh, the
+//   partials read straight from device memory into registers (KJ = 8, 16
+//   or 32 values a lane for Kp <= 256, 512, 1024), the Michelot passes of
+//   simplex.cuh.  The t-only finish is tiles.cuh's rows_finish_t_kernel,
+//   which takes any Kp.
 //
-// Bound: the same contractions as the narrow kernels (d twice, A, B0/B1;
-// the generic d twice, A, B), 2 kc FMA a cell and product: against a few
-// bytes of x a cell, operations first, on fmaf (rows pass) or DMMA
-// (columns pass) at the same 67 TFLOP/s.  The columns pass's d scratch
-// adds 4 bytes a cell written and 4 read a chunk.
+// Bound: the contractions d, A and B0/B1 (the generic d, A and B), 2 kc
+// FMA a cell and product: against a few bytes of x a cell, operations
+// first, on DMMA at 67 TFLOP/s.  The d scratch adds 4 bytes a cell written
+// and 4 read a lane chunk and pass.
 //
-// Sums that are float64 in the columns pass since the DMMA redesign: d
-// over the lanes, each row's eta sum srow, and B within a row segment
-// (the fmaf version summed all three in float32); d and srow are rounded
-// to float32 before the cells (d1 = srow - d in float32), the partials
-// once at the end of a segment; the segments still add in float32 in
-// segment order in the epilogues.
+// Sums that are float64: d over the lanes, each row's eta sum srow, A
+// within a segment's sub-window and B within a row segment (the fmaf
+// versions summed them in float32); d and srow are rounded to float32
+// before the cells (d1 = srow - d in float32), the partials once at the
+// end of a block; a segment's sub-windows, and the segments in the finish
+// and the epilogues, add in float32 in order; t in float32 within a
+// segment, float64 across segments.
 //
-// Where the loops stop: the cluster loops run over kc = k_true rounded up
-// to 4 lanes (the rows pass's d stages stop there; its last chunk's A
-// stages compute their 64 lanes on zeros past kc; the columns pass's d
-// stages stop at kc rounded up to 16, its B launch at the live tiles of
-// 8), and the outputs past kc are written as the narrow kernels write
-// them: the row's sum of w1 (biallelic A + r) or 0.  K stays padded to 32
-// lanes (Kp = 224 for K = 200): no layout of runtime/multistart.py
-// changes.
+// Where the loops stop: kc = k_true rounded up to 4 lanes (the d stages
+// stop at kc rounded up to 16, the A and B launches at the live tiles of
+// 8, on zeros past kc), and the outputs past kc are written as the narrow
+// kernels write them: the row's sum of w1 (biallelic A + r) or 0.  K stays
+// padded to 32 lanes (Kp = 224 for K = 200): no layout of
+// runtime/multistart.py changes.
 //
 // No atomics: every sum runs in a fixed order (d and the row sums over
-// lanes in order, A over columns, B over rows, the finish over segments,
-// t in float64), so reruns are bit-equal.  Ragged I and L edges and the
-// lanes past kc are zeros in the staged tiles and in x, not masks in the
-// arithmetic.
+// lanes in order, A over columns, B over rows, the sub-windows, the
+// finish over segments), so reruns are bit-equal.  Ragged I and L edges
+// and the lanes past kc are zeros in the staged tiles and in x, not masks
+// in the arithmetic.
 #pragma once
 
 #include "dmma.cuh"
@@ -115,11 +109,6 @@
 namespace {
 
 constexpr int KP_WIDE_MAX = 1024;
-constexpr int WK = 64;     // cluster lanes a chunk
-constexpr int WR = 32;     // rows a rows-pass block
-constexpr int WTL = 64;    // columns a rows-pass tile
-constexpr int WES = WK + 4;    // a staged eta chunk row
-constexpr int WPS = WTL + 4;   // a staged p chunk row, a w row
 
 // the wide test beside tiles.cuh's kp_ok (Kp <= 128)
 inline bool kp_wide(int Kp) {
@@ -137,347 +126,8 @@ inline int pass_kc(int k_true, int Kp) {
   return kp_wide(Kp) ? wide_kc(k_true, Kp) : lane_tile(k_true, Kp, 32).kc;
 }
 
-// row stride of the shared accumulators: whole chunks, then 16 floats so
-// that rows r and r + 1 start 16 banks apart
-__host__ __device__ inline int wide_acc_stride(int kc) {
-  return (kc + WK - 1) / WK * WK + 16;
-}
-
-constexpr int ROWS_STAGE = WR * WES + WK * WPS;
-
-// shared memory of a rows-pass block, in floats: a_s [WR][KA], w_s [WR]
-// [WPS], a ring of two stages (eta chunk [WR][WES], p chunk [WK][WPS]),
-// t_s [WR], r_s [WR]
-inline int rows_wide_smem_floats(int kc) {
-  return WR * wide_acc_stride(kc) + WR * WPS + 2 * ROWS_STAGE + 2 * WR;
-}
-
 // ---------------------------------------------------------------------------
-// rows pass
-
-// Block (x = WR rows, y = column segment, z = chain) covers the columns
-// [l_lo + y seg_cols, + seg_cols) of the window [l_lo, l_hi) of arrays
-// with row stride L and writes its raw A (+ r) and t as that segment's
-// partials, apart [B, n_seg, I, Kp] (lanes past kc: r, or 0) and tpart
-// [B, n_seg, I].  C = kBi: the biallelic cells over the planes x0, x1
-// (rows_accumulate's, tiles.cuh); kDense: the generic cells over x0 (x1
-// unused).  compute_a == 0: only t (the A stages are not run).
-template <Cells C>
-__global__ void __launch_bounds__(NT, 2) wide_rows_kernel(
-    const float* __restrict__ eta, const float* __restrict__ p,
-    const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    float* __restrict__ apart, float* __restrict__ tpart_out, int I, int L,
-    int Kp, int kc, int l_lo, int l_hi, int seg_cols, int compute_t,
-    int compute_a, int vec) {
-  constexpr bool BI = C == Cells::kBi;
-  const int n_ch = (kc + WK - 1) / WK, KA = wide_acc_stride(kc);
-  const int tid = threadIdx.x, hi = tid >> 4, lo = tid & 15;
-  const int b = blockIdx.z, seg = blockIdx.y, n_seg = gridDim.y;
-  const int row0 = blockIdx.x * WR;
-  const int c_lo = l_lo + seg * seg_cols;
-  const int c_hi = min(l_hi, c_lo + seg_cols);
-  const float* eta_b = eta + (size_t)b * I * Kp;
-  const float* p_b = p + (size_t)b * Kp * L;
-  float* a_s = reinterpret_cast<float*>(dyn_smem4);
-  float* w_s = a_s + WR * KA;
-  float* ring = w_s + WR * WPS;
-  float* t_s = ring + 2 * ROWS_STAGE;
-  float* r_s = t_s + WR;
-
-  // the block's stages: each column tile has n_ch d stages, then (with
-  // compute_a) n_ch A stages
-  const int n_tile = (c_hi - c_lo + WTL - 1) / WTL;
-  const int per_tile = compute_a ? 2 * n_ch : n_ch;
-  const int n_stage = n_tile * per_tile;
-
-  // stage s into ring slot s % 2: a d stage brings the chunk's eta rows
-  // and p columns, an A stage the chunk's p columns
-  auto issue = [&](int s) {
-    if (s < n_stage) {
-      const int tile = s / per_tile, j = s % per_tile;
-      const int l0 = c_lo + tile * WTL;
-      const int k0 = (j < n_ch ? j : j - n_ch) * WK;
-      float* e_st = ring + (s & 1) * ROWS_STAGE;
-      float* p_st = e_st + WR * WES;
-      if (j < n_ch) {
-        for (int e = tid; e < WR * (WK / 4); e += NT) {
-          const int r = e / (WK / 4), k4 = 4 * (e % (WK / 4));
-          const int row = row0 + r, k = k0 + k4;
-          const bool ok = row < I && k < kc;
-          cp_async16(e_st + r * WES + k4,
-                     ok ? eta_b + (size_t)row * Kp + k : eta_b, ok ? 16 : 0);
-        }
-      }
-      for (int e = tid; e < WK * (WTL / 4); e += NT) {
-        const int k = e / (WTL / 4), c4 = 4 * (e % (WTL / 4));
-        const int kk = k0 + k, col = l0 + c4;
-        const int n = kk < kc ? min(4, c_hi - col) : 0;
-        float* dst = p_st + k * WPS + c4;
-        if (vec) {
-          cp_async16(dst, n > 0 ? p_b + (size_t)kk * L + col : p_b,
-                     n > 0 ? 4 * n : 0);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            dst[q] = q < n ? p_b[(size_t)kk * L + col + q] : 0.f;
-        }
-      }
-    }
-    cp_async_commit();
-  };
-
-  // d and the cells: rows hi + 16 i (i < 2) x columns 4 lo .. 4 lo + 3 of
-  // the tile; A: rows hi + 16 i x lanes k0 + lo + 16 q (q < 4) of a chunk
-  float d[2][4], srow[2];
-  uint32_t xa[2], xb[2];
-  float tacc[2] = {0.f, 0.f}, racc[2] = {0.f, 0.f};
-  issue(0);
-  for (int s = 0; s < n_stage; ++s) {
-    issue(s + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    const int tile = s / per_tile, j = s % per_tile;
-    const float* e_st = ring + (s & 1) * ROWS_STAGE;
-    const float* p_st = e_st + WR * WES;
-    if (j < n_ch) {
-      if (j == 0) {
-        const int col = c_lo + tile * WTL + 4 * lo;
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          srow[i] = 0.f;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) d[i][q] = 0.f;
-          const int row = row0 + hi + 16 * i;
-          const int n = row < I ? c_hi - col : 0;
-          const size_t off = (size_t)row * L + col;
-          xa[i] = load_x4(x0, off, n, vec);
-          if constexpr (BI) xb[i] = load_x4(x1, off, n, vec);
-        }
-      }
-      const int kn = min(WK, kc - j * WK);
-      for (int k4 = 0; k4 < kn; k4 += 4) {
-        float4 pv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) pv[q] = ld4(p_st + (k4 + q) * WPS + 4 * lo);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float4 ev = ld4(e_st + (hi + 16 * i) * WES + k4);
-          d_row(d[i], ev, pv);
-          if constexpr (BI) srow[i] += (ev.x + ev.y) + (ev.z + ev.w);
-        }
-      }
-      if (j == n_ch - 1) {   // the tile's cells
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float wv[4], tt = 0.f, rr = 0.f;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if constexpr (BI) {
-              const float a0 = x_byte(xa[i], q), a1 = x_byte(xb[i], q);
-              const float dd0 = fmaxf(d[i][q], DMIN);
-              const float dd1 = fmaxf(srow[i] - d[i][q], DMIN);
-              const float w0 = a0 * __frcp_rn(dd0), w1 = a1 * __frcp_rn(dd1);
-              if (compute_t) tt += a0 * logf(dd0) + a1 * logf(dd1);
-              rr += w1;
-              wv[q] = w0 - w1;
-            } else {
-              const float xv = x_byte(xa[i], q);
-              const float sd = d[i][q] > 0.f ? d[i][q] : 1.f;
-              wv[q] = xv * __frcp_rn(sd);   // 0 where x = 0
-              if (compute_t && xv > 0.f) tt += xv * logf(sd);
-            }
-          }
-          tacc[i] += tt;
-          racc[i] += rr;
-          if (compute_a)
-            *reinterpret_cast<float4*>(w_s + (hi + 16 * i) * WPS + 4 * lo) =
-                make_float4(wv[0], wv[1], wv[2], wv[3]);
-        }
-      }
-    } else {   // an A stage: the chunk's lanes, over the tile's columns
-      const int k0 = (j - n_ch) * WK;
-      float acc[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[i][q] = tile == 0 ? 0.f
-                                : a_s[(hi + 16 * i) * KA + k0 + lo + 16 * q];
-#pragma unroll 4
-      for (int c4 = 0; c4 < WTL; c4 += 4) {
-        const float4 wa = ld4(w_s + hi * WPS + c4);
-        const float4 wb = ld4(w_s + (hi + 16) * WPS + c4);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 pk = ld4(p_st + (lo + 16 * q) * WPS + c4);
-          float v = acc[0][q];
-          v = fmaf(wa.x, pk.x, v);
-          v = fmaf(wa.y, pk.y, v);
-          v = fmaf(wa.z, pk.z, v);
-          v = fmaf(wa.w, pk.w, v);
-          acc[0][q] = v;
-          v = acc[1][q];
-          v = fmaf(wb.x, pk.x, v);
-          v = fmaf(wb.y, pk.y, v);
-          v = fmaf(wb.z, pk.z, v);
-          v = fmaf(wb.w, pk.w, v);
-          acc[1][q] = v;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          a_s[(hi + 16 * i) * KA + k0 + lo + 16 * q] = acc[i][q];
-    }
-    __syncthreads();
-  }
-
-  // each row's t and sum of w1 over its 16 column lanes, in a fixed order
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float tt = tacc[i], rr = racc[i];
-#pragma unroll
-    for (int o = 1; o < 16; o <<= 1) {
-      tt += __shfl_xor_sync(mc::FULL, tt, o);
-      if constexpr (BI) rr += __shfl_xor_sync(mc::FULL, rr, o);
-    }
-    if (lo == 0) {
-      t_s[hi + 16 * i] = tt;
-      r_s[hi + 16 * i] = rr;
-    }
-  }
-  __syncthreads();
-  const size_t o0 = ((size_t)b * n_seg + seg) * I;
-  if (tid < WR && row0 + tid < I) tpart_out[o0 + row0 + tid] = t_s[tid];
-  if (!compute_a) return;
-  for (int e = tid; e < WR * Kp; e += NT) {
-    const int r = e / Kp, k = e % Kp, row = row0 + r;
-    if (row < I) {
-      const float rr = BI ? r_s[r] : 0.f;
-      apart[(o0 + row) * Kp + k] = k < kc ? a_s[r * KA + k] + rr : rr;
-    }
-  }
-}
-
-// launches the wide rows pass over B chains (n_seg <= 65535); returns the
-// launch's cudaError_t
-template <Cells C>
-inline int launch_rows_wide(const void* eta, const void* p, const void* x0,
-                            const void* x1, void* apart, void* tpart, int B,
-                            int I, int L, int Kp, int k_true, int l_lo,
-                            int l_hi, int seg_cols, int n_seg, int compute_t,
-                            int compute_a, int vec, cudaStream_t s) {
-  const int kc = wide_kc(k_true, Kp);
-  const size_t smem = sizeof(float) * (size_t)rows_wide_smem_floats(kc);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const int err = allow_smem(wide_rows_kernel<C>);
-  if (err != 0) return err;
-  wide_rows_kernel<C><<<dim3((I + WR - 1) / WR, n_seg, B), NT, smem, s>>>(
-      (const float*)eta, (const float*)p, (const int8_t*)x0,
-      (const int8_t*)x1, (float*)apart, (float*)tpart, I, L, Kp, kc, l_lo,
-      l_hi, seg_cols, compute_t, compute_a, vec);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// rows finish
-
-// The finish of rows_finish_kernel (tiles.cuh) for 128 < Kp <= 32 KJ: the
-// segments' partials on top of the a0 seed, in segment order (A in
-// float32, t in float64), then the raw A (emit_a) or eta' =
-// Michelot(normalize(eta (A + c))) over the lanes k < k_true or the
-// runtime kmask.  One warp a row, lane owns k = lane + 32 j; the lanes
-// read are those below kc and, under emit_a, lane kc for every pad lane
-// (the value the rows passes write to each of them).  c, a0 and kmask may
-// be null; pad lanes of eta must be zero.
-template <int KJ>
-__global__ void __launch_bounds__(NT) wide_finish_kernel(
-    const float* __restrict__ eta, const float* __restrict__ apart,
-    const float* __restrict__ tpart, const float* __restrict__ a0,
-    const float* __restrict__ c, const float* __restrict__ kmask,
-    float* __restrict__ out, double* __restrict__ t_out, int I, int Kp,
-    int n_seg, int kc, int k_true, float lb, int emit_a, int project_eta,
-    int compute_t) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * NW + warp;
-  if (row >= I) return;   // warps share nothing
-  const int b = blockIdx.y;
-  const size_t br = (size_t)b * I + row;
-  const int pad = emit_a && kc < Kp ? kc : -1;
-  int kcol[KJ];
-  float a[KJ], e[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    const int k = lane + 32 * j;
-    kcol[j] = k >= Kp ? -1 : k < kc ? k : pad;
-    a[j] = a0 != nullptr && kcol[j] >= 0 ? a0[br * Kp + k] : 0.f;
-    e[j] = !emit_a && k < kc ? eta[br * Kp + k] : 0.f;
-  }
-  const float ci = c != nullptr ? c[row] : 0.f;
-  double tt = 0.0;
-  for (int s = 0; s < n_seg; ++s) {
-    const size_t bs = ((size_t)b * n_seg + s) * I + row;
-    const float* ap = apart + bs * Kp;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j)
-      if (kcol[j] >= 0) a[j] += ap[kcol[j]];
-    if (compute_t && lane == 0) tt += (double)tpart[bs];
-  }
-  if (lane == 0) t_out[br] = tt;
-  float* o = out + br * Kp;
-  if (!emit_a) {
-    float part = 0.f;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      a[j] = e[j] * (a[j] + ci);
-      part += a[j];
-    }
-    const float tot = warp_sum(part);
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) a[j] = tot > 0.f ? a[j] / tot : e[j];
-    if (project_eta) {
-      bool valid[KJ];
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const int k = lane + 32 * j;
-        valid[j] = k < Kp && (kmask != nullptr ? kmask[k] > 0.5f : k < k_true);
-      }
-      mc::michelot_warp_mask<KJ>(a, valid, lb);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < KJ; ++j)
-    if (lane + 32 * j < Kp) o[lane + 32 * j] = a[j];
-}
-
-// launches the finish over B chains of I rows at a wide Kp; `out` null:
-// only t (tiles.cuh's t-only kernel, which takes any Kp); returns the
-// launch's cudaError_t
-inline int launch_rows_finish_wide(const void* eta, const void* apart,
-                                   const void* tpart, const void* a0,
-                                   const void* c, const void* kmask,
-                                   void* out, void* t_out, int B, int I,
-                                   int Kp, int n_seg, int k_true, float lb,
-                                   int emit_a, int project_eta,
-                                   int compute_t, cudaStream_t s) {
-  if (out == nullptr)
-    return launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B,
-                              I, Kp, n_seg, k_true, lb, emit_a, project_eta,
-                              compute_t, s);
-  const int kc = wide_kc(k_true, Kp);
-  const dim3 grid((I + NW - 1) / NW, B);
-  wide_finish_kernel<KP_WIDE_MAX / 32><<<grid, NT, 0, s>>>(
-      (const float*)eta, (const float*)apart, (const float*)tpart,
-      (const float*)a0, (const float*)c, (const float*)kmask, (float*)out,
-      (double*)t_out, I, Kp, n_seg, kc, k_true, lb, emit_a, project_eta,
-      compute_t);
-  return (int)cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// columns pass: a d launch, then a B launch, for each column sub-window
+// the d launch and the columns pass's B launch
 
 // Both launches: 8 warps in WC_WM warp rows x WC_WN warp columns, a warp
 // 16 MT rows (or columns) x WC_NTW tiles of 8 columns (or lanes).
@@ -972,27 +622,458 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
   }
 }
 
-// launches the wide columns pass over B chains on the columns [l_lo, l_hi)
-// of arrays with row stride L (p, x; kBi: miss) and ML (the generic
-// cells' miss, a locus per M columns): for each sub-window of sub_cols
-// columns a d launch into the scratch (d [B, I, sub_cols], then, for kBi,
-// the rows' eta sums [B, I], which the first sub-window's d launch writes)
-// and a B launch into part [B, n_seg, NS, Kp, WP] (column c at c - p_lo).
-// vec_p, vec_x, vec_m: p, x and miss may be staged by cp.async (16-byte
-// rows of p, 4-byte words of x and miss).  Returns the first nonzero
-// cudaError_t.
+// ---------------------------------------------------------------------------
+// rows pass: the A launch on a sub-window's d
+
+// A block: WA_M rows (WC_WM warp rows of 4 tiles of 16) x a lane chunk
+// (WC_WN warp columns of WC_NTW tiles of 8, tile wc + WC_WN j), stages of
+// WA_K columns.  WA_S = WA_K + 4: a fragment's reads of u (rows g, columns
+// t + 4 q) and of p (lanes g, columns t + 4 q) hit banks 4 g + t.  Shared
+// memory, in bytes: a ring of two p-chunk stages [CHUNK_LANES][WA_S]
+// floats, two stages of the cells u [WA_M][WA_S], a ring of two stages of
+// the cells' inputs (d [WA_M][WA_S] floats, x0 and x1 [WA_M][WA_K] bytes),
+// the rows' eta sums, and their t and r.
+constexpr int WA_M = 16 * 4 * WC_WM, WA_K = 32, WA_S = WA_K + 4;
+constexpr int WA_P_STAGE = 4 * CHUNK_LANES * WA_S;
+constexpr int WA_U_STAGE = 4 * WA_M * WA_S;
+constexpr int WA_C_X = 4 * WA_M * WA_S;   // x0 in a cells-input stage
+constexpr int WA_C_STAGE = WA_C_X + 2 * WA_M * WA_K;
+constexpr int WA_U_OFF = 2 * WA_P_STAGE;
+constexpr int WA_C_OFF = WA_U_OFF + 2 * WA_U_STAGE;
+constexpr int WA_S_OFF = WA_C_OFF + 2 * WA_C_STAGE;   // srow, t, r [WA_M]
+constexpr int WA_SMEM = WA_S_OFF + 3 * 4 * WA_M;
+static_assert(WA_P_STAGE % 16 == 0 && WA_C_STAGE % 16 == 0 &&
+              WA_C_X % 16 == 0 && WA_SMEM <= SMEM_MAX, "A block smem");
+static_assert(WA_M == 128 && NT / (WA_K / 4) == 32, "cells: 4 rows a thread");
+
+// One stage of the A launch's products for a warp with NJ live lane tiles:
+// A = u (rows g, g + 8 of a 16-row tile), B = p^T (lanes g of an 8-lane
+// tile), slot q of thread t column t + 4 q of a 16-column step.
+template <int NJ>
+__device__ __forceinline__ void wide_rows_a_stage(
+    double (&acc)[4][WC_NTW][4], const float* ps, const float* us, int wm,
+    int wc, int g, int t) {
+#pragma unroll
+  for (int c = 0; c < WA_K / 16; ++c) {
+    double bb[NJ > 0 ? NJ : 1][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* pt = ps + (8 * (wc + WC_WN * j) + g) * WA_S + 16 * c + t;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) bb[j][q] = pt[4 * q];
+    }
+#pragma unroll
+    for (int m = 0; NJ > 0 && m < 4; ++m) {
+      const float* ut = us + (64 * wm + 16 * m + g) * WA_S + 16 * c + t;
+      double a[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[2 * q] = ut[4 * q];
+        a[2 * q + 1] = ut[8 * WA_S + 4 * q];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dmma16(acc[m][j], a, bb[j]);
+    }
+  }
+}
+
+// The A launch: block (x: lane chunk + n_ch x row tile of WA_M rows, y:
+// column segment among those the sub-window [s0, s1) meets, z: chain)
+// forms the cells of the segment's columns in [s0, s1) from d (the d
+// launch's, column c at c - s0, row stride ds), x and (kBi) the rows' eta
+// sums srow, then A = u p^T over those columns on the chunk's lanes, summed
+// in float64 and rounded once; it writes A + r (kBi; A with kDense) to the
+// segment's partials apart [B, n_seg, I, Kp] and, for the first chunk, t to
+// tpart [B, n_seg, I] and r (or 0) to the lanes past the live tiles, or
+// adds them there when the segment began in an earlier sub-window.  The
+// segments are [l_lo + s seg_cols, + seg_cols).  x and p have row stride
+// L; vec: p, d and x staged by cp.async (every stage's first column a
+// multiple of 4), else by plain loads.  compute_a == 0: one chunk on the
+// grid, t alone (apart unused).
 template <Cells C>
-inline int launch_cols_wide(const void* eta, const void* p, const void* x0,
-                            const void* x1, const void* miss, void* part,
-                            void* scratch, int B, int I, int L, int ML,
-                            int M, int Kp, int k_true, int l_lo, int l_hi,
-                            int p_lo, int WP, int n_seg, int seg_rows,
-                            int sub_cols, int vec_p, int vec_x, int vec_m,
-                            cudaStream_t s) {
+__global__ void __launch_bounds__(NT, 1) wide_rows_a_kernel(
+    const float* __restrict__ p, const float* __restrict__ d,
+    const float* __restrict__ srow, const int8_t* __restrict__ x0,
+    const int8_t* __restrict__ x1, float* __restrict__ apart,
+    float* __restrict__ tpart, int I, int L, int Kp, int kc, int l_lo,
+    int seg_cols, int n_seg, int s0, int s1, int ds, int compute_t,
+    int compute_a, int vec) {
+  constexpr bool BI = C == Cells::kBi;
+  // a thread forms the cells of columns cq .. cq + 3 of rows rq + RSTEP i
+  constexpr int RSTEP = NT / (WA_K / 4), RI = WA_M / RSTEP;
+  char* smem = reinterpret_cast<char*>(dyn_smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WC_WM, wc = warp / WC_WM;
+  const int cq = 4 * (tid % (WA_K / 4)), rq = tid / (WA_K / 4);
+  const int n_ch = compute_a ? wide_chunks(kc) : 1;
+  const int c = blockIdx.x % n_ch, row0 = blockIdx.x / n_ch * WA_M;
+  const int b = blockIdx.z;
+  const int seg = (s0 - l_lo) / seg_cols + blockIdx.y;
+  const int start = l_lo + seg * seg_cols;
+  const int c_lo = max(start, s0), c_hi = min(start + seg_cols, s1);
+  const bool accumulate = start < s0;
+  const bool t_on = compute_t && c == 0;
+  int t0, nt_live;
+  chunk_tiles(c, kc, &t0, &nt_live);
+  const int k0 = 8 * t0, kv = compute_a ? 8 * nt_live : 0;
+  const int nj = compute_a ? live_tiles<WC_NTW, WC_WN>(nt_live, wc) : 0;
+  const int n_st = (c_hi - c_lo + WA_K - 1) / WA_K;
+  const float* p_b = p + ((size_t)b * Kp + k0) * L;
+  const float* d_b = d + (size_t)b * I * ds - s0;
+  float* srow_s = reinterpret_cast<float*>(smem + WA_S_OFF);
+  float* t_s = srow_s + WA_M;
+  float* r_s = t_s + WA_M;
+
+  auto issue_p = [&](int st) {
+    float* ps = reinterpret_cast<float*>(smem + (st & 1) * WA_P_STAGE);
+    const int col0 = c_lo + st * WA_K;
+    for (int e = tid; e < kv * (WA_K / 4); e += NT) {
+      const int k = e / (WA_K / 4), c4 = 4 * (e % (WA_K / 4));
+      const int col = col0 + c4;
+      const int n = k0 + k < kc ? max(0, min(4, c_hi - col)) : 0;
+      float* dst = ps + k * WA_S + c4;
+      if (vec) {
+        cp_async16(dst, n > 0 ? p_b + (size_t)k * L + col : p_b, 4 * n);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          dst[q] = q < n ? p_b[(size_t)k * L + col + q] : 0.f;
+      }
+    }
+  };
+  auto issue_cells = [&](int st) {
+    char* stage = smem + WA_C_OFF + (st & 1) * WA_C_STAGE;
+    const int col0 = c_lo + st * WA_K;
+    float* dd = reinterpret_cast<float*>(stage);
+    for (int e = tid; e < WA_M * (WA_K / 4); e += NT) {
+      const int r = e / (WA_K / 4), c4 = 4 * (e % (WA_K / 4));
+      const int row = row0 + r, col = col0 + c4;
+      const int n = row < I ? max(0, min(4, c_hi - col)) : 0;
+      const float* src = d_b + (size_t)row * ds + col;
+      float* dst = dd + r * WA_S + c4;
+      if (vec) {
+        cp_async16(dst, n > 0 ? src : d, 4 * n);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dst[q] = q < n ? src[q] : 0.f;
+      }
+    }
+    int8_t* xs = reinterpret_cast<int8_t*>(stage + WA_C_X);
+    stage_bytes<WA_M>(xs, WA_K, x0, L, row0, I, col0, c_hi, WA_K / 4, vec);
+    if constexpr (BI)
+      stage_bytes<WA_M>(xs + WA_M * WA_K, WA_K, x1, L, row0, I, col0, c_hi,
+                        WA_K / 4, vec);
+  };
+
+  // stage st's cells into its u stage; t and r of the thread's rows
+  float tacc[RI], racc[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) tacc[i] = racc[i] = 0.f;
+  auto cells = [&](int st) {
+    const char* stage = smem + WA_C_OFF + (st & 1) * WA_C_STAGE;
+    float* us = reinterpret_cast<float*>(smem + WA_U_OFF +
+                                         (st & 1) * WA_U_STAGE);
+    const float* dd = reinterpret_cast<const float*>(stage);
+    const int8_t* xs = reinterpret_cast<const int8_t*>(stage + WA_C_X);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = rq + RSTEP * i;
+      const float4 dv = *reinterpret_cast<const float4*>(dd + r * WA_S + cq);
+      const float dq[4] = {dv.x, dv.y, dv.z, dv.w};
+      const uint32_t xa = *reinterpret_cast<const uint32_t*>(
+          xs + r * WA_K + cq);
+      float u[4], tt = 0.f, rr = 0.f;
+      if constexpr (BI) {
+        const uint32_t xb = *reinterpret_cast<const uint32_t*>(
+            xs + (WA_M + r) * WA_K + cq);
+        const float sr = srow_s[r];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float a0 = x_byte(xa, q), a1 = x_byte(xb, q);
+          const float dd0 = fmaxf(dq[q], DMIN);
+          const float dd1 = fmaxf(sr - dq[q], DMIN);
+          const float w0 = a0 * __frcp_rn(dd0), w1 = a1 * __frcp_rn(dd1);
+          if (t_on) tt += a0 * logf(dd0) + a1 * logf(dd1);
+          rr += w1;
+          u[q] = w0 - w1;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float xv = x_byte(xa, q);
+          const float sd = dq[q] > 0.f ? dq[q] : 1.f;
+          u[q] = xv * __frcp_rn(sd);   // 0 where x = 0
+          if (t_on && xv > 0.f) tt += xv * logf(sd);
+        }
+      }
+      tacc[i] += tt;
+      racc[i] += rr;
+      if (compute_a)
+        *reinterpret_cast<float4*>(us + r * WA_S + cq) =
+            make_float4(u[0], u[1], u[2], u[3]);
+    }
+  };
+
+  double acc[4][WC_NTW][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int j = 0; j < WC_NTW; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
+  auto products = [&](int st) {
+    const float* ps =
+        reinterpret_cast<const float*>(smem + (st & 1) * WA_P_STAGE);
+    const float* us = reinterpret_cast<const float*>(smem + WA_U_OFF +
+                                                     (st & 1) * WA_U_STAGE);
+    with_count<WC_NTW>(nj, [&](auto n) {
+      wide_rows_a_stage<decltype(n)::value>(acc, ps, us, wm, wc, g, t);
+    });
+  };
+
+  // the rings: p of stage st and the cells' inputs of stage st + 1 land
+  // together, one commit group an iteration; the rows' eta sums with the
+  // first group
+  if (BI && tid < WA_M) {
+    const int row = row0 + tid;
+    const float* sb = srow + (size_t)b * I;
+    cp_async4(srow_s + tid, row < I ? sb + row : sb, row < I ? 4 : 0);
+  }
+  issue_p(0);
+  issue_cells(0);
+  cp_async_commit();
+  if (n_st > 1) issue_cells(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();   // stage 0's p and cell inputs landed
+  cells(0);
+  const bool cells_first = warp < NW / 2;
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<0>();
+    // stage st's cells are in u; its p and the next stage's cell inputs
+    // landed; every warp is done with the slots the copies below take
+    __syncthreads();
+    if (st + 1 < n_st) issue_p(st + 1);
+    if (st + 2 < n_st) issue_cells(st + 2);
+    cp_async_commit();
+    const bool more = st + 1 < n_st;
+    if (cells_first && more) cells(st + 1);
+    products(st);
+    if (!cells_first && more) cells(st + 1);
+  }
+
+  // each row's t and r over its WA_K / 4 column threads, in a fixed order
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    float tt = tacc[i], rr = racc[i];
+#pragma unroll
+    for (int o = 1; o < WA_K / 4; o <<= 1) {
+      tt += __shfl_xor_sync(mc::FULL, tt, o);
+      rr += __shfl_xor_sync(mc::FULL, rr, o);
+    }
+    if (tid % (WA_K / 4) == 0) {
+      t_s[rq + RSTEP * i] = tt;
+      r_s[rq + RSTEP * i] = BI ? rr : 0.f;
+    }
+  }
+  __syncthreads();
+  const size_t o0 = ((size_t)b * n_seg + seg) * I;
+  if (c == 0 && tid < WA_M && row0 + tid < I) {
+    float* o = tpart + o0 + row0 + tid;
+    *o = accumulate ? *o + t_s[tid] : t_s[tid];
+  }
+  if (!compute_a) return;
+  // a thread holds rows g, g + 8 of each tile and lanes 8 (wc + WC_WN j) +
+  // 2 t + {0, 1} of the chunk; the warp's dead tiles hold zeros
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = 64 * wm + 16 * m + g + 8 * h, row = row0 + rl;
+      if (row >= I) continue;
+      const float rr = r_s[rl];
+      float* ar = apart + (o0 + row) * Kp + k0;
+#pragma unroll
+      for (int j = 0; j < WC_NTW; ++j) {
+        const int k = 8 * (wc + WC_WN * j) + 2 * t;
+        if (k >= kv) continue;
+        float2 v = make_float2((float)acc[m][j][2 * h] + rr,
+                               (float)acc[m][j][2 * h + 1] + rr);
+        float2* o = reinterpret_cast<float2*>(ar + k);
+        if (accumulate) {
+          const float2 old = *o;
+          v = make_float2(old.x + v.x, old.y + v.y);
+        }
+        *o = v;
+      }
+    }
+  // the lanes past the live tiles: r (or 0), from the first chunk's blocks
+  const int k_dead = 8 * ((kc + 7) / 8);
+  if (c == 0 && k_dead < Kp) {
+    const int nd = Kp - k_dead;
+    for (int e = tid; e < WA_M * nd; e += NT) {
+      const int r = e / nd, row = row0 + r;
+      if (row >= I) continue;
+      float* o = apart + (o0 + row) * Kp + k_dead + e % nd;
+      *o = accumulate ? *o + r_s[r] : r_s[r];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// rows finish
+
+// The finish of rows_finish_kernel (tiles.cuh) for 128 < Kp <= 32 KJ: the
+// segments' partials on top of the a0 seed, in segment order (A in
+// float32, t in float64), then the raw A (emit_a) or eta' =
+// Michelot(normalize(eta (A + c))) over the lanes k < k_true or the
+// runtime kmask.  One warp a row, lane owns k = lane + 32 j; the lanes
+// read are those below kc and, under emit_a, lane kc for every pad lane
+// (the value the rows passes write to each of them).  c, a0 and kmask may
+// be null; pad lanes of eta must be zero.  Built for KJ = 8, 16 and 32
+// (Kp <= 256, 512, 1024), each bounded to the blocks an SM its registers
+// allow.
+template <int KJ>
+__global__ void __launch_bounds__(NT, KJ <= 8 ? 4 : KJ <= 16 ? 3 : 2)
+    wide_finish_kernel(const float* __restrict__ eta,
+                       const float* __restrict__ apart,
+                       const float* __restrict__ tpart,
+                       const float* __restrict__ a0,
+                       const float* __restrict__ c,
+                       const float* __restrict__ kmask,
+                       float* __restrict__ out, double* __restrict__ t_out,
+                       int I, int Kp, int n_seg, int kc, int k_true,
+                       float lb, int emit_a, int project_eta,
+                       int compute_t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = blockIdx.x * NW + warp;
+  if (row >= I) return;   // warps share nothing
+  const int b = blockIdx.y;
+  const size_t br = (size_t)b * I + row;
+  const int pad = emit_a && kc < Kp ? kc : -1;
+  // the lane of apart that slot j reads (-1: none)
+  auto col = [&](int j) {
+    const int k = lane + 32 * j;
+    return k >= Kp ? -1 : k < kc ? k : pad;
+  };
+  float a[KJ], e[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = lane + 32 * j;
+    a[j] = a0 != nullptr && col(j) >= 0 ? a0[br * Kp + k] : 0.f;
+    e[j] = !emit_a && k < kc ? eta[br * Kp + k] : 0.f;
+  }
+  const float ci = c != nullptr ? c[row] : 0.f;
+  double tt = 0.0;
+  for (int s = 0; s < n_seg; ++s) {
+    const size_t bs = ((size_t)b * n_seg + s) * I + row;
+    const float* ap = apart + bs * Kp;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+      if (col(j) >= 0) a[j] += ap[col(j)];
+    if (compute_t && lane == 0) tt += (double)tpart[bs];
+  }
+  if (lane == 0) t_out[br] = tt;
+  float* o = out + br * Kp;
+  if (!emit_a) {
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      a[j] = e[j] * (a[j] + ci);
+      part += a[j];
+    }
+    const float tot = warp_sum(part);
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) a[j] = tot > 0.f ? a[j] / tot : e[j];
+    if (project_eta) {
+      bool valid[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int k = lane + 32 * j;
+        valid[j] = k < Kp && (kmask != nullptr ? kmask[k] > 0.5f : k < k_true);
+      }
+      mc::michelot_warp_mask<KJ>(a, valid, lb);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < Kp) o[lane + 32 * j] = a[j];
+}
+
+// launches the finish over B chains of I rows at a wide Kp, at the KJ of
+// Kp; `out` null: only t (tiles.cuh's t-only kernel, which takes any Kp);
+// returns the launch's cudaError_t
+inline int launch_rows_finish_wide(const void* eta, const void* apart,
+                                   const void* tpart, const void* a0,
+                                   const void* c, const void* kmask,
+                                   void* out, void* t_out, int B, int I,
+                                   int Kp, int n_seg, int k_true, float lb,
+                                   int emit_a, int project_eta,
+                                   int compute_t, cudaStream_t s) {
+  if (out == nullptr)
+    return launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B,
+                              I, Kp, n_seg, k_true, lb, emit_a, project_eta,
+                              compute_t, s);
+  const int kc = wide_kc(k_true, Kp);
+  const dim3 grid((I + NW - 1) / NW, B);
+#define MC_FINISH(KJ)                                                       \
+  wide_finish_kernel<KJ><<<grid, NT, 0, s>>>(                               \
+      (const float*)eta, (const float*)apart, (const float*)tpart,          \
+      (const float*)a0, (const float*)c, (const float*)kmask, (float*)out,  \
+      (double*)t_out, I, Kp, n_seg, kc, k_true, lb, emit_a, project_eta,    \
+      compute_t)
+  if (Kp <= 256)
+    MC_FINISH(8);
+  else if (Kp <= 512)
+    MC_FINISH(16);
+  else
+    MC_FINISH(32);
+#undef MC_FINISH
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the launcher: a d launch, then the A launch, the B launch or both, for
+// each column sub-window
+
+// One wide launch sequence over B chains on the columns [l_lo, l_hi) of
+// arrays with row stride L (p, x; kBi: miss) and ML (the generic cells'
+// miss, a locus per M columns).  scratch: d [B, I, sub_cols] float32,
+// then, for kBi, the rows' eta sums [B, I] (16-byte aligned).
+// * the rows pass (tpart non-null): its partials apart [B, n_cseg, I, Kp]
+//   (with compute_a) and tpart [B, n_cseg, I] over column segments of
+//   seg_cols; vec_a: p, d and x of its stages by cp.async;
+// * the columns pass (part non-null): its partials part [B, n_rseg, NS,
+//   Kp, WP] (column c at c - p_lo) over row segments of seg_rows; vec_p,
+//   vec_x, vec_m: p, x and miss by cp.async (16-byte rows of p, 4-byte
+//   words of x and miss).
+struct WideLaunch {
+  const void *eta, *p, *x0, *x1, *miss;
+  void* scratch;
+  int B, I, L, Kp, k_true, l_lo, l_hi, sub_cols, vec_p;
+  void *apart, *tpart;
+  int seg_cols, n_cseg, compute_t, compute_a, vec_a;
+  void* part;
+  int ML, M, p_lo, WP, n_rseg, seg_rows, vec_x, vec_m;
+};
+
+// runs `w`: for each sub-window of sub_cols columns a d launch into the
+// scratch (the first also writes the rows' eta sums), then the A launch
+// and the B launch on that d, each where `w` asks for it; returns the
+// first nonzero cudaError_t
+template <Cells C>
+inline int launch_wide(const WideLaunch& w, cudaStream_t s) {
   using T = WideColsTile<C>;
-  const int kc = wide_kc(k_true, Kp), n_ch = wide_chunks(kc);
-  if (scratch == nullptr || ((uintptr_t)scratch & 15) || sub_cols < 4 ||
-      sub_cols % 4 || M < 1 || (size_t)B * n_ch > 65535)
+  const bool rows = w.tpart != nullptr, cols = w.part != nullptr;
+  const int kc = wide_kc(w.k_true, w.Kp), n_ch = wide_chunks(kc);
+  const int n_a = w.compute_a ? n_ch : 1;
+  const int n_rt = (w.I + WA_M - 1) / WA_M;
+  if (w.scratch == nullptr || ((uintptr_t)w.scratch & 15) ||
+      w.sub_cols < 4 || w.sub_cols % 4 || (size_t)w.B * n_ch > 65535 ||
+      (rows && (w.seg_cols < 1 || w.n_cseg > 65535 ||
+                (size_t)n_rt * n_a > 0x7fffffff)) ||
+      (cols && w.M < 1))
     return (int)cudaErrorInvalidValue;
   int n_sm = 0, dev = 0;
   int err = (int)cudaGetDevice(&dev);
@@ -1000,26 +1081,45 @@ inline int launch_cols_wide(const void* eta, const void* p, const void* x0,
     err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                       dev);
   if (err == 0) err = allow_smem(wide_cols_d_kernel);
-  if (err == 0) err = allow_smem(wide_cols_b_kernel<C>);
+  if (err == 0 && rows) err = allow_smem(wide_rows_a_kernel<C>);
+  if (err == 0 && cols) err = allow_smem(wide_cols_b_kernel<C>);
   if (err != 0) return err;
-  float* d = (float*)scratch;
-  float* srow = C == Cells::kBi ? d + (size_t)B * I * sub_cols : nullptr;
-  for (int s0 = l_lo; s0 < l_hi; s0 += sub_cols) {
-    const int s1 = l_hi - s0 < sub_cols ? l_hi : s0 + sub_cols;
-    const int tiles = (I + WD_M - 1) / WD_M * ((s1 - s0 + WD_N - 1) / WD_N)
-                      * B;
+  float* d = (float*)w.scratch;
+  float* srow =
+      C == Cells::kBi ? d + (size_t)w.B * w.I * w.sub_cols : nullptr;
+  for (int s0 = w.l_lo; s0 < w.l_hi; s0 += w.sub_cols) {
+    const int s1 = w.l_hi - s0 < w.sub_cols ? w.l_hi : s0 + w.sub_cols;
+    const int tiles = (w.I + WD_M - 1) / WD_M * ((s1 - s0 + WD_N - 1) / WD_N)
+                      * w.B;
     wide_cols_d_kernel<<<tiles < n_sm ? tiles : n_sm, NT, WD_SMEM, s>>>(
-        (const float*)eta, (const float*)p, d, s0 == l_lo ? srow : nullptr,
-        B, I, L, Kp, kc, s0, s1, sub_cols, vec_p);
+        (const float*)w.eta, (const float*)w.p, d,
+        s0 == w.l_lo ? srow : nullptr, w.B, w.I, w.L, w.Kp, kc, s0, s1,
+        w.sub_cols, w.vec_p);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
-    const dim3 grid((s1 - s0 + T::BC - 1) / T::BC, n_seg, B * n_ch);
-    wide_cols_b_kernel<C><<<grid, NT, T::SMEM, s>>>(
-        (const float*)eta, d, srow, (const int8_t*)x0, (const int8_t*)x1,
-        (const int8_t*)miss, (float*)part, I, L, ML, M, Kp, kc, s0, s1,
-        sub_cols, p_lo, WP, seg_rows, vec_x, vec_m);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
+    if (rows) {
+      // the column segments the sub-window meets
+      const int g0 = (s0 - w.l_lo) / w.seg_cols;
+      const int g1 = (s1 - 1 - w.l_lo) / w.seg_cols;
+      wide_rows_a_kernel<C><<<dim3(n_rt * n_a, g1 - g0 + 1, w.B), NT,
+                              WA_SMEM, s>>>(
+          (const float*)w.p, d, srow, (const int8_t*)w.x0,
+          (const int8_t*)w.x1, (float*)w.apart, (float*)w.tpart, w.I, w.L,
+          w.Kp, kc, w.l_lo, w.seg_cols, w.n_cseg, s0, s1, w.sub_cols,
+          w.compute_t, w.compute_a, w.vec_a);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+    if (cols) {
+      const dim3 grid((s1 - s0 + T::BC - 1) / T::BC, w.n_rseg, w.B * n_ch);
+      wide_cols_b_kernel<C><<<grid, NT, T::SMEM, s>>>(
+          (const float*)w.eta, d, srow, (const int8_t*)w.x0,
+          (const int8_t*)w.x1, (const int8_t*)w.miss, (float*)w.part, w.I,
+          w.L, w.ML, w.M, w.Kp, kc, s0, s1, w.sub_cols, w.p_lo, w.WP,
+          w.seg_rows, w.vec_x, w.vec_m);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
   }
   return 0;
 }

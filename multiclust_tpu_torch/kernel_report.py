@@ -3,9 +3,9 @@ biallelic admixture ones (csrc/fullstep_bi.cu), the generic rows and
 columns passes (csrc/fullstep.cu), the biallelic mixture rows and
 columns passes (csrc/mixture_bi.cu, one and two streams) and the wide
 kernels of the admixture step for 128 < Kp <= 1024 (csrc/wide.cuh: the
-rows pass and the columns pass's B launch with the biallelic and the
-generic cells, the columns pass's d launch, the finish at 32 lanes a
-thread, each built once for every Kp in its range)
+rows pass's A launch and the columns pass's B launch with the biallelic
+and the generic cells, the d launch both take, the finish at 8, 16 and
+32 lanes a thread, each built once for every Kp in its range)
 and of the mixture step (csrc/mixture_bi.cu: the rows pass's scores and
 softmax, the columns pass, one and two streams, and the eta finish at 32
 lanes a thread): registers, shared memory and spills (``nvcc -Xptxas -v``),
@@ -44,12 +44,14 @@ KERNELS = (("fullstep_bi_rows_kernel", ""),
 CONTRACTIONS = "fullstep_(?:bi_)?(?:rows|cols)|mix_(?:rows|cols)"
 # the wide kernels (csrc/wide.cuh), and their instantiations: the cells
 # (a Cells value) or the finish's lanes a thread
-WIDE = "wide_(?:rows|cols_d|cols_b|finish)_kernel"
+WIDE = "wide_(?:rows_a|cols_d|cols_b|finish)_kernel"
 CELLS = ("kBi", "kDense", "kSparse")
-WIDE_KERNELS = (("wide_rows_kernel", "kBi"), ("wide_rows_kernel", "kDense"),
+WIDE_KERNELS = (("wide_rows_a_kernel", "kBi"),
+                ("wide_rows_a_kernel", "kDense"),
                 ("wide_cols_d_kernel", None),
                 ("wide_cols_b_kernel", "kBi"),
                 ("wide_cols_b_kernel", "kDense"),
+                ("wide_finish_kernel", 8), ("wide_finish_kernel", 16),
                 ("wide_finish_kernel", 32))
 # the mixture's wide kernels (csrc/mixture_bi.cu), and their mangled
 # template arguments: the contraction passes' second stream, the

@@ -36,7 +36,7 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "mc_fullstep_bi_rows_seg": [_P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _P],
+                                _P, _I, _P],
     "mc_fullstep_bi_finish": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -44,13 +44,19 @@ _SIGNATURES = {
                             _P, _I, _P],
     "mc_fullstep_bi_p0": [_P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "mc_fullstep_bi_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
     "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                         _P],
+                         _P, _I, _P],
     "mc_fullstep_cols": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "mc_fullstep_p": [_P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "mc_fullstep_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
     "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _P],
     "mc_mix_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -64,9 +70,11 @@ _SIGNATURES = {
 # in the JAX package (the chunked biallelic step), once per window, where
 # the loop launches the window's rows pass; and the wide kernels (128 <
 # Kp <= 1024), which run behind the launchers of the narrow ones: of
-# csrc/wide.cuh the rows pass (both steps), its finish (both steps; not
-# the t-only finish, which takes any Kp), the biallelic and the generic
-# columns pass; of csrc/mixture_bi.cu the mixture's rows pass (its scores
+# csrc/wide.cuh the rows pass (its d and A launches; both steps), its
+# finish (both steps; not the t-only finish, which takes any Kp), the
+# biallelic and the generic columns pass (a launcher that runs both
+# passes on one d, mc_fullstep_bi_window or mc_fullstep_step, counts
+# each); of csrc/mixture_bi.cu the mixture's rows pass (its scores
 # and its softmax, one call of the launcher), columns pass and eta finish
 EXTRA_COUNTS = ("fullstep_bi_chunked", "wide_rows", "wide_finish",
                 "wide_cols_bi", "wide_cols_generic", "wide_mix_rows",

@@ -23,10 +23,11 @@ segment arithmetic takes it (``fullstep_bi.row_segments``,
 ``cols_segments``).
 
 For 128 < Kp <= 1024 the rows pass, its finish and the columns pass are
-the wide kernels of ``csrc/wide.cuh`` (the generic cells at every M; the
-columns pass a d launch and a B launch on the float64 tensor cores for
-each lane sub-window, ``fullstep_bi.cols_sub_cols``); the p epilogue
-takes any Kp.
+the wide kernels of ``csrc/wide.cuh`` (the generic cells at every M): for
+each lane sub-window (``fullstep_bi.cols_sub_cols``) a d launch, then the
+rows pass's A launch and the columns pass's B launch on the float64
+tensor cores; the step and the sweep statistics run both passes on one d
+(``rows_and_partials``; ``share_d``).  The p epilogue takes any Kp.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 only for CPU tensors; there is no fallback for CUDA tensors.  Shapes: a
@@ -47,8 +48,9 @@ import torch
 from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
 from multiclust_tpu_torch.ops.fullstep_bi import COLS_BLOCKS_PER_SM, \
-    COLS_MAX_RSEG, SCRATCH_CAP, check_kp, col_segments, cols_sub_cols, \
-    cols_tile, device_sm_count, is_wide, kc_of, row_segments, wide_chunks
+    COLS_MAX_RSEG, GRID_YZ_MAX, SCRATCH_CAP, check_kp, col_segments, \
+    cols_sub_cols, cols_tile, device_sm_count, is_wide, kc_of, \
+    row_segments, wide_chunks, wide_scratch
 from multiclust_tpu_torch.ops.simplex import project_rows
 
 Tensor = torch.Tensor
@@ -266,12 +268,14 @@ def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,
     tpart = torch.empty((B, n_seg, I), dtype=torch.float32, device=dev)
     out = torch.empty_like(eta)
     t = torch.empty((B, I), dtype=torch.float64, device=dev)
+    sub, scratch = (wide_scratch(B, I, LM, Kp, k_true, dev, bi=False)
+                    if is_wide(Kp) else (0, None))
     build.launch("mc_fullstep_rows", dev,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(c),
                  _ptr(a0), apart.data_ptr(), tpart.data_ptr(),
                  out.data_ptr(), t.data_ptr(), B, I, LM, int(M), Kp,
                  int(k_true), float(lb), int(project), int(compute_t),
-                 int(finish), seg_cols, n_seg,
+                 int(finish), seg_cols, n_seg, _ptr(scratch), sub,
                  also=("wide_rows", "wide_finish") if is_wide(Kp)
                  else ())
     # summed over the segments in float64, returned as the plain version's
@@ -304,18 +308,67 @@ def fullstep_partials(eta, p2, x2, miss=None, *, M: int, k_true: int = 0):
                                     device_sm_count(eta.device), k_true)
     part = torch.empty((B, n_seg, Kp, LM), dtype=torch.float32,
                        device=eta.device)
-    sub, scratch = 0, None
-    if is_wide(Kp):   # d of a lane sub-window (fullstep_bi.cols_sub_cols)
-        sub = cols_sub_cols(B, I, LM, wide_chunks(kc_of(k_true, Kp)),
-                            device_sm_count(eta.device), bi=False)
-        scratch = torch.empty(B * I * sub, dtype=torch.float32,
-                              device=eta.device)
+    sub, scratch = (wide_scratch(B, I, LM, Kp, k_true, eta.device, bi=False)
+                    if is_wide(Kp) else (0, None))
     build.launch("mc_fullstep_cols", eta.device,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(miss),
                  part.data_ptr(), B, I, L, M, Kp, int(k_true), n_seg,
                  seg_rows, _ptr(scratch), sub,
                  also=("wide_cols_generic",) if is_wide(Kp) else ())
     return part
+
+
+def rows_and_partials(eta, p2, x2, c=None, a0=None, miss=None, *, M: int,
+                      k_true: int, lb: float, project: bool,
+                      compute_t: bool = True, finish: bool = True):
+    """Both passes of a generic step at a wide Kp on one d a lane
+    sub-window (d launch, A launch, B launch), then the rows finish:
+    (eta' or, under ``finish=False``, raw A; t [B, I]; the columns pass's
+    partials [B, n_seg, Kp, L*M] for ``fullstep_p``).  Arguments as in
+    ``fullstep_rows`` and ``fullstep_partials``; the outputs are theirs,
+    bit for bit."""
+    L = _loci(p2.shape[-1], M)
+    _check_k_true(k_true, eta.shape[-1])
+    if not eta.is_cuda:
+        out, t = fullstep_rows_reference(
+            eta, p2, x2, c, a0, k_true=k_true, lb=lb, project=project,
+            compute_t=compute_t, finish=finish)
+        return out, t, fullstep_partials_reference(eta, p2, x2, miss)
+    extra = ()
+    if c is not None:
+        extra += (("c", c, torch.float32, (eta.shape[1],)),)
+    if a0 is not None:
+        extra += (("a0", a0, torch.float32, tuple(eta.shape)),)
+    if miss is not None:
+        extra += (("miss", miss, torch.int8, (eta.shape[1], L)),)
+    B, I, LM, Kp = _check_cuda_inputs(eta, p2, x2, *extra)
+    if not is_wide(Kp):
+        raise ValueError(f"Kp={Kp}: one d for both passes is the wide "
+                         f"kernels' (Kp > 128)")
+    dev = eta.device
+    n_sm = device_sm_count(dev)
+    n_cseg, seg_cols = row_segments(B, I, LM, n_sm, k_true=k_true, Kp=Kp)
+    n_rseg, seg_rows = cols_segments(B, I, LM, Kp, n_sm, k_true)
+    if max(n_cseg, n_rseg) > GRID_YZ_MAX:
+        raise ValueError(f"{n_cseg} lane segments or {n_rseg} row segments "
+                         f"exceed the grid's limit")
+    apart = torch.empty((B, n_cseg, I, Kp), dtype=torch.float32, device=dev)
+    tpart = torch.empty((B, n_cseg, I), dtype=torch.float32, device=dev)
+    out = torch.empty_like(eta)
+    t = torch.empty((B, I), dtype=torch.float64, device=dev)
+    part = torch.empty((B, n_rseg, Kp, LM), dtype=torch.float32, device=dev)
+    sub, scratch = wide_scratch(B, I, LM, Kp, k_true, dev, bi=False)
+    build.launch("mc_fullstep_step", dev,
+                 eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(c),
+                 _ptr(a0), _ptr(miss), apart.data_ptr(), tpart.data_ptr(),
+                 out.data_ptr(), t.data_ptr(), part.data_ptr(),
+                 scratch.data_ptr(), B, I, L, M, Kp, int(k_true), float(lb),
+                 int(project), int(compute_t), int(finish), seg_cols, n_cseg,
+                 n_rseg, seg_rows, sub,
+                 also=("wide_rows", "wide_finish", "wide_cols_generic"))
+    del apart, tpart, scratch
+    # t summed over the segments in float64, returned as the plain version's
+    return out, t.to(torch.float32), part
 
 
 def fullstep_p(p2, part, mask=None, *, M: int, k_true: int = 0,
@@ -369,10 +422,20 @@ def fullstep_cols(eta, p2, x2, miss=None, mask=None, *, k_true: int = 0,
 
 
 def admixture_fullstep(eta, p2, x2, c, miss, mask, *, k_true: int, lb: float,
-                       plb: float, project: bool, compute_t: bool = True):
+                       plb: float, project: bool, compute_t: bool = True,
+                       share_d: bool = True):
     """One generic admixture EM step for a chain batch:
     (eta' [B, I, Kp], t [B, I], p' [B, Kp, L, M]).  The eta Michelot and
-    the p projection share ``project`` (cfg.do_projection)."""
+    the p projection share ``project`` (cfg.do_projection).  At a wide Kp
+    both passes run on one d (``rows_and_partials``) unless ``share_d`` is
+    False (each pass computes d, the order before they shared it)."""
+    if share_d and is_wide(eta.shape[-1]):
+        M = mask.shape[1]
+        eta_new, t, part = rows_and_partials(
+            eta, p2, x2, c, None, miss, M=M, k_true=k_true, lb=lb,
+            project=project, compute_t=compute_t)
+        return eta_new, t, fullstep_p(p2, part, mask, M=M, k_true=k_true,
+                                      plb=plb, project=project)
     eta_new, t = fullstep_rows(eta, p2, x2, c, k_true=k_true, lb=lb,
                                project=project, compute_t=compute_t,
                                M=mask.shape[1])
@@ -382,14 +445,21 @@ def admixture_fullstep(eta, p2, x2, c, miss, mask, *, k_true: int, lb: float,
 
 
 def admixture_sweep_stats(eta, p2, x2, miss=None, *, M: int = 0,
-                          k_true: int = 0, compute_t: bool = True):
+                          k_true: int = 0, compute_t: bool = True,
+                          share_d: bool = True):
     """Sweep statistics A [B, I, Kp], t [B, I], B [B, Kp, L*M] with no eta
     or p finish (``admixture_sweep_fused`` / ``admixture_sweep_stats``):
     the same passes as the full step, with ``finish=False``.  With ``miss``
     [I, L] (and ``M`` slots a locus) B has the miss fold; ``k_true`` (0:
     all Kp lanes) is where the kernels' cluster loops stop, and B's rows
-    past it come out 0."""
+    past it come out 0.  ``share_d`` as in ``admixture_fullstep``."""
     k_true = k_true or eta.shape[-1]
+    if share_d and is_wide(eta.shape[-1]):
+        Ms = M if miss is not None else 1
+        A, t, part = rows_and_partials(
+            eta, p2, x2, None, None, miss, M=Ms, k_true=k_true, lb=0.0,
+            project=False, compute_t=compute_t, finish=False)
+        return A, t, fullstep_p(p2, part, M=Ms, k_true=k_true, finish=False)
     A, t = fullstep_rows(eta, p2, x2, k_true=k_true, lb=0.0, project=False,
                          compute_t=compute_t, finish=False, M=M)
     if miss is None:

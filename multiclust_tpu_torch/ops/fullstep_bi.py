@@ -34,16 +34,17 @@ Three routes run the step (``pick_route`` chooses, the counterpart of
 For 128 < Kp <= 1024 (the TPU kernels' own range, ``_bi_k_fits`` and
 ``_stream_vmem_fits``, kernels.py:653, :709) the segmented rows pass, its
 finish and the columns pass are the wide kernels of ``csrc/wide.cuh``,
-with their own tiles (``rows_block``, ``cols_tile``): the rows pass with
-the cluster axis in chunks of 64 lanes and its accumulators in shared
-memory; the columns pass as two launches on the float64 tensor cores for
-each column sub-window (d = eta @ p into a scratch plane, then B0/B1 on
-balanced lane chunks of at most WIDE_CHUNK), the sub-windows keeping that
-scratch within SCRATCH_CAP (``cols_sub_cols``).  The pair has no wide
-kernel: ``pick_route`` sends those Kp down the streamed or chunked step,
-and ``fullstep_bi_rows`` refuses them.  Above 1024 no kernel runs:
-the model takes the plain step (``model/admixture.py``, the JAX package's
-XLA fallback).
+with their own tiles (``rows_block``, ``cols_tile``), on the float64
+tensor cores: for each column sub-window a d launch (d = eta @ p into a
+scratch plane), then the rows pass's A launch (A = u p^T on blocks of WR
+rows x a balanced lane chunk of at most WIDE_CHUNK) and the columns pass's
+B launch (B0/B1 on the same chunks); the sub-windows keep that scratch
+within SCRATCH_CAP (``cols_sub_cols``).  A step's window runs both passes
+on one d (``window_partials``; ``share_d``), then the finish and the p0
+epilogue.  The pair has no wide kernel: ``pick_route`` sends those Kp down
+the streamed or chunked step, and ``fullstep_bi_rows`` refuses them.
+Above 1024 no kernel runs: the model takes the plain step
+(``model/admixture.py``, the JAX package's XLA fallback).
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 version only for CPU tensors; there is no fallback for CUDA tensors.
@@ -79,13 +80,13 @@ KP_MAX = 1024
 NW = 8
 ROW_AR, ROW_TL, ROW_CW_MAX = 4, 32, 8
 COL_CT, COL_DR = 4, 4
-# tile constants of csrc/wide.cuh: rows a rows-pass block; the columns
-# pass's B launch: columns of a block and rows a stage with the biallelic
-# and with the generic cells, cluster lanes a chunk at most
-# (``wide_chunks``); its d launch: rows and columns of a tile (a
-# sub-window's columns are whole d tiles where they can be,
-# ``cols_sub_cols``)
-WR = 32
+# tile constants of csrc/wide.cuh: rows of a rows-pass (A launch) block
+# and columns of its stage; the columns pass's B launch: columns of a
+# block and rows a stage with the biallelic and with the generic cells,
+# cluster lanes a chunk at most (``wide_chunks``; both launches); the d
+# launch: rows and columns of a tile (a sub-window's columns are whole d
+# tiles where they can be, ``cols_sub_cols``)
+WR, WA_COLS = 128, 32
 WTC, WRI, WTC_GENERIC, WRI_GENERIC = 64, 64, 128, 48
 WIDE_CHUNK, WD_TILE = 128, 128
 # padded / degenerate columns have d = 0 with x = 0: the clamp keeps
@@ -235,7 +236,7 @@ def cols_tile(k_true: int, Kp: int, generic: bool = False
 
 
 def wide_chunks(kc: int) -> int:
-    """Cluster chunks of the wide columns pass's B launch for kc live
+    """Cluster chunks of the wide passes' A and B launches for kc live
     lanes: ceil(kc / 8) tiles of 8 in chunks of at most WIDE_CHUNK lanes
     (csrc/dmma.cuh, ``wide_chunks``)."""
     return -(-(-(-kc // 8)) // (WIDE_CHUNK // 8))
@@ -364,12 +365,13 @@ def admixture_fullstep_biallelic(eta, p0, x0, x1, c, miss=None, *,
 MIN_SEG_COLS = 256
 PAIR_BLOCKS_PER_SM = 20
 ROWS_BLOCKS_PER_SM = 20
-# The wide rows pass (Kp > 128) holds one or two blocks an SM (its
-# accumulators fill the shared memory), so it splits L only until the
-# grid holds WIDE_ROWS_BLOCKS_PER_SM blocks an SM, and never into more
-# segments than keep its partials [B, n, I, Kp] within SCRATCH_CAP
-# ("route_times --k 200" and "--k 1024" at 16384 x 2048: one segment
-# beats 2-32 at 1 and 2 chains, 512 and 1024 blocks of 32 rows).
+# The wide rows pass (Kp > 128) holds one block an SM (its A launch's
+# DMMA accumulators take the registers), so it splits L only until the
+# grid (row blocks x lane chunks x chains) holds WIDE_ROWS_BLOCKS_PER_SM
+# blocks an SM, and never into more segments than keep its partials [B,
+# n, I, Kp] within SCRATCH_CAP (set for the fmaf rows pass: "route_times
+# --k 200" and "--k 1024" at 16384 x 2048, one segment beat 2-32 at 1 and
+# 2 chains).
 WIDE_ROWS_BLOCKS_PER_SM = 2
 # Columns pass ("columns pass: router row segments, n row segments"): it
 # splits I until its grid holds COLS_BLOCKS_PER_SM blocks an SM, in at
@@ -462,11 +464,43 @@ def cols_sub_windows(l_lo: int, l_hi: int, sub_cols: int):
 
 def cols_scratch_bytes(B: int, I: int, W: int, chunks: int, n_sm: int, *,
                        bi: bool = True) -> int:
-    """Bytes of the wide columns pass's scratch over a window of W
-    columns: d of one sub-window (``cols_sub_cols``), and the rows' eta
-    sums (``bi``)."""
+    """Bytes of the wide passes' scratch over a window of W columns: d of
+    one sub-window (``cols_sub_cols``), and the rows' eta sums (``bi``).
+    The rows pass, the columns pass and a step that runs both on one d
+    take the same."""
     sub = cols_sub_cols(B, I, W, chunks, n_sm, bi=bi)
     return 4 * B * I * (sub + (1 if bi else 0))
+
+
+def wide_scratch(B: int, I: int, W: int, Kp: int, k_true: int, device, *,
+                 bi: bool = True) -> Tuple[int, Tensor]:
+    """(sub_cols, scratch) of the wide passes over a window of W columns
+    on ``device``: the d plane of a sub-window [B, I, sub_cols] and, for
+    the biallelic cells, the rows' eta sums [B, I], float32."""
+    sub = cols_sub_cols(B, I, W, wide_chunks(kc_of(k_true, Kp)),
+                        device_sm_count(device), bi=bi)
+    return sub, torch.empty(B * I * (sub + (1 if bi else 0)),
+                            dtype=torch.float32, device=device)
+
+
+def rows_sub_segments(l_lo: int, l_hi: int, seg_cols: int, sub_cols: int):
+    """The wide rows pass's plan over the window [l_lo, l_hi), as the
+    launcher runs it (csrc/wide.cuh, ``launch_wide`` and
+    ``wide_rows_a_kernel``): for each sub-window [s0, s1) of sub_cols
+    columns, the column segments it meets as (segment, first column, end,
+    add): the segment's columns in the sub-window, and whether they are
+    added to partials an earlier sub-window wrote (the segment began
+    before s0) rather than written."""
+    plan = []
+    for s0, s1 in cols_sub_windows(l_lo, l_hi, sub_cols):
+        parts = []
+        for seg in range((s0 - l_lo) // seg_cols,
+                         (s1 - 1 - l_lo) // seg_cols + 1):
+            start = l_lo + seg * seg_cols
+            parts.append((seg, max(start, s0), min(start + seg_cols, s1),
+                          start < s0))
+        plan.append(((s0, s1), parts))
+    return plan
 
 
 def row_segments(B: int, I: int, W: int, n_sm: int, *,
@@ -478,10 +512,12 @@ def row_segments(B: int, I: int, W: int, n_sm: int, *,
     for ``per_sm`` blocks per SM when W allows, each segment >=
     MIN_SEG_COLS wide and a multiple of the tile.  The row block is that
     of ``k_true`` clusters padded to ``Kp``; a wide Kp splits as
-    WIDE_ROWS_BLOCKS_PER_SM says."""
+    WIDE_ROWS_BLOCKS_PER_SM says, its blocks one a row block and lane
+    chunk."""
     blocks = B * -(-I // rows_block(k_true, Kp))
     n = 1
     if is_wide(Kp):
+        blocks *= wide_chunks(kc_of(k_true, Kp))
         if blocks < WIDE_ROWS_BLOCKS_PER_SM * n_sm:
             n = max(1, min(-(-WIDE_ROWS_BLOCKS_PER_SM * n_sm // blocks),
                            W // MIN_SEG_COLS,
@@ -536,9 +572,9 @@ def window_scratch_bytes(B: int, I: int, W: int, Kp: int, n_sm: int,
                          budget: Optional[int] = None) -> int:
     """Bytes of scratch one window of W columns allocates: the columns
     pass's partials, the segmented rows pass's [B, n_cseg, I, Kp + 1]
-    (none for the pair, n_cseg = 0) and, at a wide Kp, the columns pass's
-    d scratch (``cols_scratch_bytes``, within SCRATCH_CAP by its own
-    sub-windows).  The rows pass's need no bound: it splits L only while B
+    (none for the pair, n_cseg = 0) and, at a wide Kp, the d scratch that
+    both passes read (``cols_scratch_bytes``, within SCRATCH_CAP by its
+    own sub-windows; a step's window holds all three at once).  The rows pass's need no bound: it splits L only while B
     x I is small, so they stay near ROWS_BLOCKS_PER_SM blocks an SM x a
     block's rows x Kp, or are as large as eta itself (one segment)."""
     return (cols_partials_bytes(B, I, W, Kp, n_sm, k_true, budget)
@@ -707,7 +743,8 @@ def rows_partials(eta, p0, x0, x1, *, l_lo: int, l_hi: int, seg_cols: int,
     """Segmented rows pass over the window [l_lo, l_hi): the segments' raw
     A + r partials [B, n_seg, I, Kp] (None without ``compute_a``) and t
     partials [B, n_seg, I].  ``k_true`` (0: all Kp lanes) is where the
-    kernel's cluster loops stop."""
+    kernel's cluster loops stop.  At a wide Kp the pass is a d launch and
+    an A launch a column sub-window (``wide_scratch``)."""
     if not eta.is_cuda:
         return rows_partials_reference(
             eta, p0, x0, x1, l_lo=l_lo, l_hi=l_hi, compute_t=compute_t,
@@ -722,14 +759,69 @@ def rows_partials(eta, p0, x0, x1, *, l_lo: int, l_hi: int, seg_cols: int,
     apart = (torch.empty((B, n_seg, I, Kp), dtype=torch.float32, device=dev)
              if compute_a else None)
     tpart = torch.empty((B, n_seg, I), dtype=torch.float32, device=dev)
+    sub, scratch = (wide_scratch(B, I, l_hi - l_lo, Kp, k_true, dev)
+                    if is_wide(Kp) else (0, None))
     build.launch("mc_fullstep_bi_rows_seg", dev,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
                  x1.data_ptr(), build.ptr(apart), tpart.data_ptr(),
                  B, I, L, Kp, int(k_true), l_lo, l_hi, seg_cols, n_seg,
-                 int(compute_t), int(compute_a),
+                 int(compute_t), int(compute_a), build.ptr(scratch), sub,
                  also=(() if loop is None else (loop,))
                  + (("wide_rows",) if is_wide(Kp) else ()))
     return apart, tpart
+
+
+def window_partials_reference(eta, p0, x0, x1, miss=None, *, l_lo: int,
+                              l_hi: int, compute_t: bool = True):
+    """Plain version of ``window_partials``: one segment of each."""
+    araw, t, b0, b1 = window_stats_reference(eta, p0, x0, x1, miss, l_lo,
+                                             l_hi, compute_t=compute_t)
+    return araw[:, None], t[:, None], torch.stack((b0, b1), dim=1)[:, None]
+
+
+def window_partials(eta, p0, x0, x1, miss=None, *, l_lo: int, l_hi: int,
+                    seg_cols: int, k_true: int, n_rseg: int = 0,
+                    compute_t: bool = True, loop: Optional[str] = None):
+    """Both passes of a step over the window [l_lo, l_hi) at a wide Kp on
+    one d a column sub-window (d launch, A launch, B launch): the rows
+    pass's partials (raw A + r [B, n_cseg, I, Kp] over segments of
+    ``seg_cols`` columns, t [B, n_cseg, I]) and the columns pass's [B,
+    n_rseg, 2, Kp, l_hi - l_lo] (B0/B1 with the miss fold; ``n_rseg`` as
+    in ``cols_window``).  ``rows_finish`` and ``p0_epilogue`` finish them;
+    the partials are those of ``rows_partials`` and ``cols_partials``, bit
+    for bit."""
+    if not eta.is_cuda:
+        return window_partials_reference(eta, p0, x0, x1, miss, l_lo=l_lo,
+                                         l_hi=l_hi, compute_t=compute_t)
+    extra = ()
+    if miss is not None:
+        extra = (("miss", miss, torch.int8, tuple(x0.shape)),)
+    B, I, L, Kp = _check_cuda_inputs(eta, p0, x0, x1, *extra)
+    _check_window(L, l_lo, l_hi, B)
+    if not is_wide(Kp):
+        raise ValueError(f"Kp={Kp}: one d for both passes is the wide "
+                         f"kernels' (Kp > {KP_NARROW[-1]})")
+    W = l_hi - l_lo
+    n_cseg = -(-W // max(seg_cols, 1))
+    n_seg, seg_rows = _cols_row_plan(B, I, W, Kp, k_true, n_rseg, eta.device)
+    if seg_cols <= 0 or max(n_cseg, n_seg) > GRID_YZ_MAX:
+        raise ValueError(f"{n_cseg} column segments of {seg_cols} columns "
+                         f"or {n_seg} row segments exceed the grid's limit")
+    dev = eta.device
+    apart = torch.empty((B, n_cseg, I, Kp), dtype=torch.float32, device=dev)
+    tpart = torch.empty((B, n_cseg, I), dtype=torch.float32, device=dev)
+    part = torch.empty((B, n_seg, 2, Kp, W), dtype=torch.float32,
+                       device=dev)
+    sub, scratch = wide_scratch(B, I, W, Kp, k_true, dev)
+    build.launch("mc_fullstep_bi_window", dev,
+                 eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
+                 x1.data_ptr(), build.ptr(miss), apart.data_ptr(),
+                 tpart.data_ptr(), part.data_ptr(), scratch.data_ptr(),
+                 B, I, L, Kp, int(k_true), l_lo, l_hi, seg_cols, n_cseg,
+                 int(compute_t), n_seg, seg_rows, sub,
+                 also=(() if loop is None else (loop,))
+                 + ("wide_rows", "wide_cols_bi"))
+    return apart, tpart, part
 
 
 def rows_finish_reference(eta, apart, tpart, c, a0=None, kmask=None, *,
@@ -857,6 +949,17 @@ def cols_partials(eta, p0, x0, x1, miss=None, *, l_lo: int, l_hi: int,
                         plb=0.0, project=False, k_true=k_true, n_rseg=n_rseg)
 
 
+def _cols_row_plan(B: int, I: int, W: int, Kp: int, k_true: int,
+                   n_rseg: int, device) -> Tuple[int, int]:
+    """(row segments, rows per segment) of the columns pass over a window
+    of W columns: ``n_rseg`` segments of whole stages (a routed step's),
+    or ``cols_row_segments`` within SCRATCH_CAP when it is 0."""
+    if n_rseg:
+        seg_rows = _ceil_to(-(-I // n_rseg), cols_tile(k_true, Kp)[1])
+        return -(-I // seg_rows), seg_rows
+    return cols_row_segments(B, I, W, Kp, device_sm_count(device), k_true)
+
+
 def _cols_launch(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
                  plb: float, project: bool, k_true: int,
                  n_rseg: int) -> Tensor:
@@ -871,22 +974,13 @@ def _cols_launch(eta, p0, x0, x1, miss, outs, *, l_lo: int, l_hi: int,
     _check_window(L, l_lo, l_hi, B)
     W = l_hi - l_lo
     lo, hi = p0_clip_bounds(plb)
-    if n_rseg:
-        seg_rows = _ceil_to(-(-I // n_rseg), cols_tile(k_true, Kp)[1])
-        n_seg = -(-I // seg_rows)
-    else:
-        n_seg, seg_rows = cols_row_segments(
-            B, I, W, Kp, device_sm_count(eta.device), k_true)
+    n_seg, seg_rows = _cols_row_plan(B, I, W, Kp, k_true, n_rseg, eta.device)
     if n_seg > GRID_YZ_MAX:
         raise ValueError(f"{n_seg} row segments exceed the grid's limit")
     part = torch.empty((B, n_seg, 2, Kp, W), dtype=torch.float32,
                        device=eta.device)
-    sub, scratch = 0, None
-    if is_wide(Kp):
-        sub = cols_sub_cols(B, I, W, wide_chunks(kc_of(k_true, Kp)),
-                            device_sm_count(eta.device))
-        scratch = torch.empty(B * I * (sub + 1), dtype=torch.float32,
-                              device=eta.device)
+    sub, scratch = (wide_scratch(B, I, W, Kp, k_true, eta.device)
+                    if is_wide(Kp) else (0, None))
     build.launch("mc_fullstep_bi_cols", eta.device,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
                  x1.data_ptr(), build.ptr(miss), part.data_ptr(),
@@ -978,7 +1072,8 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
                                          emit_a: bool = False,
                                          project_eta: Optional[bool] = None,
                                          a0: Optional[Tensor] = None,
-                                         n_rseg: int = 0):
+                                         n_rseg: int = 0,
+                                         share_d: bool = True):
     """The step as a loop over column windows of ``window`` columns (the
     last may be short), the contract of the JAX package's
     ``admixture_fullstep_biallelic_chunked``: raw A + r is threaded from
@@ -993,7 +1088,10 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
     apart from the p0 clip, which stays governed by ``project``; ``a0``
     seeds the first window; ``n_rseg`` fixes the columns pass's row
     segments (0: chosen to fill the card).  One window over all L is the
-    streamed step."""
+    streamed step.  At a wide Kp a window runs both passes on one d
+    (``window_partials``), then the finish and the p0 epilogue, unless
+    ``share_d`` is False: then the rows pass and the columns pass each
+    compute d (the order before they shared it, for timing)."""
     B, I, Kp = eta.shape
     L = p0.shape[-1]
     window = min(int(window), L)
@@ -1006,10 +1104,27 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
     outs = ((torch.empty_like(p0), torch.empty_like(p0)) if emit_b
             else (torch.empty_like(p0),))
     loop = "fullstep_bi_chunked" if window < L else None
+    shared = share_d and is_wide(Kp)
     t_sum = None
     for l_lo in range(0, L, window):
         l_hi = min(L, l_lo + window)
         last = l_hi == L
+        if shared:
+            apart, tpart, part = window_partials(
+                eta, p0, x0, x1, miss, l_lo=l_lo, l_hi=l_hi,
+                seg_cols=min(seg_cols, l_hi - l_lo), k_true=k_true,
+                n_rseg=n_rseg, compute_t=compute_t, loop=loop)
+            a0, t = rows_finish(eta, apart, tpart, c, a0, kmask,
+                                k_true=k_true, lb=lb,
+                                project_eta=project_eta,
+                                compute_t=compute_t,
+                                emit_a=emit_a or not last)
+            del apart, tpart
+            t_sum = t if t_sum is None else t_sum + t
+            p0_epilogue(p0, part, outs, l_lo=l_lo, l_hi=l_hi,
+                        k_true=k_true, plb=plb, project=project)
+            del part
+            continue
         a0, t = _rows_window(
             eta, p0, x0, x1, c, a0, kmask, l_lo=l_lo, l_hi=l_hi,
             seg_cols=min(seg_cols, l_hi - l_lo), k_true=k_true, lb=lb,
@@ -1102,8 +1217,10 @@ def rows_log_likelihood_terms(eta, p0, x0, x1, *, seg_cols=None,
 def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None, *,
                                         route: Route, k_true: int, lb: float,
                                         plb: float, project: bool,
-                                        compute_t: bool = True):
-    """One step by ``route`` (pick_route): (eta', t, p0')."""
+                                        compute_t: bool = True,
+                                        share_d: bool = True):
+    """One step by ``route`` (pick_route): (eta', t, p0'); ``share_d`` as
+    in ``admixture_fullstep_biallelic_chunked``."""
     if route.name == "pair":
         return admixture_fullstep_biallelic(
             eta, p0, x0, x1, c, miss, k_true=k_true, lb=lb, plb=plb,
@@ -1113,4 +1230,5 @@ def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None, *,
     return admixture_fullstep_biallelic_chunked(
         eta, p0, x0, x1, c, miss, window=route.window,
         seg_cols=route.seg_cols, k_true=k_true, lb=lb, plb=plb,
-        project=project, compute_t=compute_t, n_rseg=route.n_rseg)
+        project=project, compute_t=compute_t, n_rseg=route.n_rseg,
+        share_d=share_d)

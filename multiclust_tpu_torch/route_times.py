@@ -66,7 +66,11 @@ step held to its plain version, its median CUDA-event time over
 epilogue), each with its bound and the share reached; the finish's and
 the epilogue's bounds both ways, every tensor of the call once and only
 the live lanes (k below the lane tile of K) of the partials and of eta
-or p0.  ``--kernels --k 100`` and ``--shapes 8192x131072 --chains 2``
+or p0.  Above 128 lanes the d launch has a line of its own, each pass's
+line is held to its own launch's work, and it also prints the rows pass
+alone through ``rows_partials`` (d + A, held to both), the finish alone
+on its partials, and the step in the order that runs d for each pass
+(``share_d=False``, where the tree takes it), all on CUDA events.  ``--kernels --k 100`` and ``--shapes 8192x131072 --chains 2``
 time the wider kernels and the biobank panel.  It calls only the routed
 step and the plain version, so a parent tree is timed by the same file.
 ``--finish-alone`` times the rows finish alone instead, at the router's
@@ -308,26 +312,38 @@ def lanes_panel(seed: int, I: int, L: int, M: int, dev):
     return x.view(I, L * M), miss
 
 
-# the generic step's kernels by name, as the profiler sees them
-# (above 128 lanes the columns pass is two kernels, a d launch and a B
-# launch; a tree of the one-kernel design names it wide_cols_kernel; the
-# d launch's share is printed on a line of its own)
-WIDE_COLS = ("wide_cols_kernel", "wide_cols_d_kernel", "wide_cols_b_kernel")
-D_LAUNCH = "columns pass: its d launch (wide)"
-GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel", "wide_rows_kernel"),
+# the generic step's kernels by name, as the profiler sees them.  Above
+# 128 lanes d = eta @ p is a launch of its own (wide_cols_d_kernel), on a
+# line of its own: a tree whose step shares it runs one a sub-window for
+# both passes, a tree whose rows pass computes its own d (wide_rows_kernel,
+# the fmaf pass) one for the columns pass alone; the rows pass is then
+# the A launch (wide_rows_a_kernel) or that whole pass, the columns pass
+# the B launch (or, in a tree of the one-kernel design, wide_cols_kernel)
+WIDE_COLS = ("wide_cols_kernel", "wide_cols_b_kernel")
+WIDE_ROWS = ("wide_rows_kernel", "wide_rows_a_kernel")
+D_LAUNCH = "d launch (wide)"
+GENERIC_KERNELS = {"rows pass": ("fullstep_rows_kernel",) + WIDE_ROWS,
                    "rows finish": ("rows_finish_kernel",
                                    "wide_finish_kernel"),
-                   "columns pass": ("fullstep_cols_kernel",) + WIDE_COLS,
                    D_LAUNCH: ("wide_cols_d_kernel",),
+                   "columns pass": ("fullstep_cols_kernel",) + WIDE_COLS,
                    "p epilogue": ("fullstep_p_kernel",)}
 # the biallelic step's, on any of its routes (the wide kernels above 128
 # lanes)
 BI_KERNELS = {"rows pass": ("fullstep_bi_rows_seg_kernel",
-                            "fullstep_bi_rows_kernel", "wide_rows_kernel"),
+                            "fullstep_bi_rows_kernel") + WIDE_ROWS,
               "rows finish": ("rows_finish_kernel", "wide_finish_kernel"),
-              "columns pass": ("fullstep_bi_cols_kernel",) + WIDE_COLS,
               D_LAUNCH: ("wide_cols_d_kernel",),
+              "columns pass": ("fullstep_bi_cols_kernel",) + WIDE_COLS,
               "p0 epilogue": ("fullstep_bi_p0_kernel",)}
+
+
+def takes_share_d(fn) -> bool:
+    """Whether a step of this tree takes ``share_d`` (a tree before the
+    wide passes shared d does not)."""
+    import inspect
+
+    return "share_d" in inspect.signature(fn).parameters
 
 
 def finish_bytes(B: int, I: int, Kp: int, n_seg: int, kc: int):
@@ -397,6 +413,15 @@ def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
             eta, p0, x0, x1, c, miss, **kw))
         step_ms = median_ms(step, n)
         dev_ms = kernel_device_ms(step, n, BI_KERNELS)
+        wide = {}
+        if fb.is_wide(KP):
+            wide = wide_rows_times(eta, p0, x0, x1, c, route, n)
+            if takes_share_d(fb.admixture_fullstep_biallelic_routed):
+                # the order before the passes shared d: d + A, then d + B
+                wide["step, unshared d"] = median_ms(
+                    lambda: fb.admixture_fullstep_biallelic_routed(
+                        eta, p0, x0, x1, c, miss, route=route, share_d=False,
+                        **kw), n)
         # the bytes of every window's finish and epilogue
         ri = fb.cols_tile(K, KP)[1]
         seg_rows = -(-(-(-I // route.n_rseg)) // ri) * ri
@@ -411,13 +436,20 @@ def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
             epi = [a + b for a, b in zip(epi, p0_bytes(B, KP, W, n_rseg,
                                                        kc))]
         cells = B * I * L
+        # the passes' operations: the cells, d (2 K a cell), A (2 K) and
+        # B0/B1 (4 K); above 128 lanes d is a launch of its own line and
+        # each pass's line is held to its own launch's work (a tree whose
+        # rows pass computes d itself does more than its line's bound)
+        d_flop = 0 if fb.is_wide(KP) else 2 * K
         bounds = {
             "rows pass": bound_ms((eta, p0, x0, x1, c, eta, c),
-                                  (4 * K + 10) * cells),
+                                  (2 * K + d_flop + 10) * cells),
+            "rows pass alone (d + A)": bound_ms(
+                (eta, p0, x0, x1, c, eta, c), (4 * K + 10) * cells),
             "rows finish": (tuple(b / HBM_BYTES_PER_S * 1e3 for b in fin)
                             if fin[0] else None),
             "columns pass": bound_ms((eta, p0, x0, x1, miss, p0),
-                                     (6 * K + 6) * cells),
+                                     (4 * K + d_flop + 6) * cells),
             D_LAUNCH: bound_ms((eta, p0), 2 * K * cells),
             "p0 epilogue": tuple(b / HBM_BYTES_PER_S * 1e3 for b in epi)}
         print(f"{I} x {L}, K = {K} on {KP} lanes, {B} chains: router "
@@ -425,8 +457,34 @@ def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
               f"events", flush=True)
         for label, ms in dev_ms.items():
             print(_kernel_line(label, ms, bounds[label]), flush=True)
+        # the wide passes on CUDA events: the rows pass and its finish
+        # alone with their bounds (the finish's both ways), the step in the
+        # order that runs d for each pass
+        wide_bounds = {"rows pass alone (d + A)":
+                       bounds["rows pass alone (d + A)"],
+                       "rows finish alone": bounds["rows finish"]}
+        for label, ms in wide.items():
+            print(_kernel_line(label, ms, wide_bounds.get(label)).replace(
+                "of device time a step", "on CUDA events"), flush=True)
         del eta, p0
         torch.cuda.empty_cache()
+
+
+def wide_rows_times(eta, p0, x0, x1, c, route, n: int) -> dict:
+    """CUDA-event ms of the wide rows pass alone through ``rows_partials``
+    (its d and A launches, or the fmaf pass of a tree before them) at the
+    route's segments, and of its finish alone on those partials."""
+    L = p0.shape[-1]
+    win = dict(l_lo=0, l_hi=min(L, route.window), k_true=K)
+    seg = route.seg_cols or route.window
+    apart, tpart = fb.rows_partials(eta, p0, x0, x1, seg_cols=seg, **win)
+    fin = dict(k_true=K, lb=1e-8, project_eta=True)
+    out = {"rows pass alone (d + A)": median_ms(
+        lambda: fb.rows_partials(eta, p0, x0, x1, seg_cols=seg, **win), n),
+        "rows finish alone": median_ms(
+            lambda: fb.rows_finish(eta, apart, tpart, c, **fin), n)}
+    del apart, tpart
+    return out
 
 
 def time_finish_alone(I: int, L: int, chains, n: int, dev) -> None:
@@ -521,6 +579,12 @@ def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
         _held(step(), ref)
         del ref
         step_ms = median_ms(step, n)
+        unshared = ""
+        if fb.is_wide(KP) and takes_share_d(fs.admixture_fullstep):
+            # the order before the passes shared d: d + A, then d + B
+            un_ms = median_ms(lambda: fs.admixture_fullstep(
+                eta, p2, x2, c, miss, mask, share_d=False, **kw), n)
+            unshared = f", unshared d {un_ms:.3f} ms"
         cols_ms = median_ms(lambda: fs.fullstep_cols(
             eta, p2, x2, miss, mask, k_true=K, plb=1e-8, project=True), n)
         dev_ms = kernel_device_ms(step, n, GENERIC_KERNELS)
@@ -532,17 +596,18 @@ def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
         n_rseg = fs.cols_segments(B, I, L * M, KP, n_sm, K)[0]
         kc = fb.kc_of(K, KP)
         ms_of = lambda b: tuple(n / HBM_BYTES_PER_S * 1e3 for n in b)
+        d_flop = 0 if fb.is_wide(KP) else 2 * K   # as time_bi_kernels
         bounds = {"rows pass": bound_ms((eta, p2, x2, c, eta, c),
-                                        (4 * K + 5) * lanes),
+                                        (2 * K + d_flop + 5) * lanes),
                   "rows finish": ms_of(finish_bytes(B, I, KP, n_cseg, kc)),
                   "columns pass": bound_ms((eta, p2, x2, miss, p2),
-                                           (4 * K + 3) * lanes),
+                                           (2 * K + d_flop + 3) * lanes),
                   D_LAUNCH: bound_ms((eta, p2), 2 * K * lanes),
                   "p epilogue": ms_of(p_bytes(B, KP, L * M, n_rseg,
                                               min(kc, KP)))}
-        print(f" {B} chains: step {step_ms:.3f} ms (plain {plain_ms:.3f}); "
-              f"columns pass + p epilogue {cols_ms:.3f} ms on CUDA events",
-              flush=True)
+        print(f" {B} chains: step {step_ms:.3f} ms (plain {plain_ms:.3f})"
+              f"{unshared}; columns pass + p epilogue {cols_ms:.3f} ms on "
+              f"CUDA events", flush=True)
         for label, ms in dev_ms.items():
             print(_kernel_line(label, ms, bounds[label]), flush=True)
         del eta, p2

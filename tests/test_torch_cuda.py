@@ -1412,6 +1412,10 @@ def test_mesh_collectives_under_nccl_at_world_size_one(tmp_path):
 
 WIDE_LANES = [(130, 160), (200, 224), (500, 512), (1024, 1024)]
 WIDE_COUNTS = ("wide_rows", "wide_finish", "wide_cols_bi")
+# the launchers of a wide window: both passes on one d, the finish, the
+# p0 epilogue
+WIDE_STREAM_KERNELS = ("mc_fullstep_bi_window", "mc_fullstep_bi_finish",
+                       "mc_fullstep_bi_p0")
 
 
 @pytest.mark.cuda
@@ -1422,11 +1426,11 @@ WIDE_COUNTS = ("wide_rows", "wide_finish", "wide_cols_bi")
 ])
 def test_wide_streamed_and_chunked_kernels_match_plain(
         K, Kp, B, I, L, miss_rate, compute_t, seg_cols, window):
-    """The streamed and the chunked step at a wide Kp (the wide rows pass,
-    its finish, the wide biallelic columns pass and the p0 epilogue)
-    against the plain version, each wide kernel counted once a window;
-    reruns bit-equal; the pair refuses the Kp, naming the streamed
-    route."""
+    """The streamed and the chunked step at a wide Kp (both passes of a
+    window on one d, the wide finish, the p0 epilogue) against the plain
+    version, each wide kernel counted once a window and the narrow
+    launchers not at all; reruns bit-equal; the pair refuses the Kp,
+    naming the streamed route."""
     dev = _cuda()
     args = _step_args(K + B, B, I, L, K, Kp, miss_rate, dev)
     kw = dict(k_true=K, lb=0.01, plb=0.05, project=True, compute_t=compute_t)
@@ -1435,8 +1439,10 @@ def test_wide_streamed_and_chunked_kernels_match_plain(
     streamed = fb.admixture_fullstep_biallelic_streamed(
         *args, seg_cols=seg_cols, **kw)
     torch.cuda.synchronize()
-    for name in STREAM_KERNELS + WIDE_COUNTS:
+    for name in WIDE_STREAM_KERNELS + WIDE_COUNTS:
         assert build.LAUNCHES[name] == before[name] + 1, name
+    for name in ("mc_fullstep_bi_rows_seg", "mc_fullstep_bi_cols"):
+        assert build.LAUNCHES[name] == before[name], name
     chunked = fb.admixture_fullstep_biallelic_chunked(*args, window=window,
                                                       **kw)
     torch.cuda.synchronize()
@@ -1607,9 +1613,12 @@ def test_wide_generic_kernels_match_plain(B, I, L, M, K, Kp, miss_rate,
     got = fs.admixture_fullstep(*args, **kw)
     ref = fs.admixture_fullstep_reference(*args, **kw)
     torch.cuda.synchronize()
-    for name in GENERIC_KERNELS + ("wide_rows", "wide_finish",
-                                   "wide_cols_generic"):
+    # both passes on one d (mc_fullstep_step), then the p epilogue
+    for name in ("mc_fullstep_step", "mc_fullstep_p", "wide_rows",
+                 "wide_finish", "wide_cols_generic"):
         assert build.LAUNCHES[name] == before[name] + 1, name
+    for name in ("mc_fullstep_rows", "mc_fullstep_cols"):
+        assert build.LAUNCHES[name] == before[name], name
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, **F32)
     eta_new, _, p_new = got
@@ -1797,6 +1806,177 @@ def test_wide_cols_generic_partials_match_plain(K, Kp, I, L, M, miss_rate):
     assert torch.equal(raw, want)
 
 
+# the redesigned wide rows pass (csrc/wide.cuh: the A launch on the d
+# launch's d; kc 132, 200, 500 and 1024: not a multiple of 8, of 8 but not
+# 16, of 4 alone, all of Kp) and the finish at each of its lane counts
+WIDE_ROWS_LANES = [(130, 160), (198, 224), (500, 512), (1021, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_ROWS_LANES)
+@pytest.mark.parametrize("I,L,l_lo,l_hi,seg_cols", [
+    (1001, 4099, 0, 4099, 1056),   # ragged I and L: byte loads, 4 segments
+    (1001, 4099, 5, 3001, 3000),   # a window at l_lo > 0, one segment
+    (640, 2048, 512, 2048, 512),   # aligned: vector loads, 3 segments
+])
+def test_wide_rows_pass_matches_plain(K, Kp, I, L, l_lo, l_hi, seg_cols):
+    """The wide rows pass alone (a d launch and the A launch): the
+    segments' raw A + r (r on the lanes past kc) and t summed against the
+    plain version, with t and without; t alone (compute_a off) bit-equal
+    to the full pass's t; one wide launch a call; reruns bit-equal; an
+    emit_a chain of two windows through a0, finished on the second,
+    against the plain finish of the whole window."""
+    dev = _cuda()
+    eta, p0, x0, x1, c, _ = _step_args(K + I, 2, I, L, K, Kp, 0.02, dev)
+    win = dict(l_lo=l_lo, l_hi=l_hi)
+    ref_a, ref_t = fb.rows_partials_reference(eta, p0, x0, x1, **win)
+    n_seg = -(-(l_hi - l_lo) // seg_cols)
+    for compute_t in (True, False):
+        kw = dict(seg_cols=seg_cols, k_true=K, compute_t=compute_t, **win)
+        before = build.LAUNCHES["wide_rows"]
+        apart, tpart = fb.rows_partials(eta, p0, x0, x1, **kw)
+        again = fb.rows_partials(eta, p0, x0, x1, **kw)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["wide_rows"] == before + 2
+        assert torch.equal(apart, again[0]) and torch.equal(tpart, again[1])
+        assert apart.shape[1] == tpart.shape[1] == n_seg
+        torch.testing.assert_close(apart.sum(dim=1), ref_a[:, 0], **F32)
+        if compute_t:
+            torch.testing.assert_close(tpart.double().sum(dim=1),
+                                       ref_t[:, 0], **F32)
+            none, t_only = fb.rows_partials(eta, p0, x0, x1,
+                                            compute_a=False, **kw)
+            assert none is None and torch.equal(t_only, tpart)
+        else:
+            assert (tpart == 0).all()
+    mid = l_lo + (l_hi - l_lo) // 2
+    fin = dict(k_true=K, lb=0.001, project_eta=True)
+    a0 = None
+    for lo, hi, last in ((l_lo, mid, False), (mid, l_hi, True)):
+        part = fb.rows_partials(eta, p0, x0, x1, l_lo=lo, l_hi=hi,
+                                seg_cols=seg_cols, k_true=K)
+        a0, _ = fb.rows_finish(eta, *part, c, a0, **fin, emit_a=not last)
+    want = fb.finish_eta_reference(eta, ref_a[:, 0], c, **fin)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a0, want, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_ROWS_LANES)
+@pytest.mark.parametrize("l_lo,l_hi", [(0, 4099), (3, 2050)])
+def test_wide_rows_sub_windows_add_in_order(monkeypatch, K, Kp, l_lo, l_hi):
+    """A scratch cap small enough for several d sub-windows: segments
+    that each lie in one sub-window give partials bit-equal to those of
+    one sub-window; a segment spanning them all (each sub-window's part
+    added in order) against the plain version, reruns bit-equal; the
+    plan the launcher runs (``rows_sub_segments``) as the Python mirror
+    has it."""
+    dev = _cuda()
+    B, I, L = 2, 1001, 4099
+    eta, p0, x0, x1, _, _ = _step_args(K + 7, B, I, L, K, Kp, 0.02, dev)
+    win = dict(l_lo=l_lo, l_hi=l_hi, k_true=K)
+    whole = fb.rows_partials(eta, p0, x0, x1, seg_cols=256, **win)
+    cap = 4 * B * I * 300
+    monkeypatch.setattr(fb, "SCRATCH_CAP", cap)
+    plan = (fb.wide_chunks(fb.kc_of(K, Kp)), fb.device_sm_count(dev))
+    sub = fb.cols_sub_cols(B, I, l_hi - l_lo, *plan)
+    assert sub == 256
+    split = fb.rows_partials(eta, p0, x0, x1, seg_cols=256, **win)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(split, whole))
+    steps = fb.rows_sub_segments(l_lo, l_hi, l_hi - l_lo, sub)
+    assert len(steps) > 4 and all(len(p) == 1 for _, p in steps)
+    assert [p[0][3] for _, p in steps] == [False] + [True] * (len(steps) - 1)
+    one = fb.rows_partials(eta, p0, x0, x1, seg_cols=l_hi - l_lo, **win)
+    again = fb.rows_partials(eta, p0, x0, x1, seg_cols=l_hi - l_lo, **win)
+    ref_a, ref_t = fb.rows_partials_reference(eta, p0, x0, x1, l_lo=l_lo,
+                                              l_hi=l_hi)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(one, again))
+    torch.testing.assert_close(one[0][:, 0], ref_a[:, 0], **F32)
+    torch.testing.assert_close(one[1][:, 0].double(), ref_t[:, 0], **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", WIDE_ROWS_LANES)
+def test_wide_shared_d_matches_unshared(K, Kp):
+    """A step that runs both passes on one d against the order that runs
+    d for each pass (``share_d=False``): the biallelic streamed and
+    chunked step's p0' and raw B0/B1 (emit_b) and the generic step's p'
+    and sweep B bit-equal, eta' (or raw A) and t within the float32
+    tolerance; reruns bit-equal; one d launch for both passes counted as
+    one launch of each wide pass."""
+    dev = _cuda()
+    args = _step_args(K + 3, 2, 1001, 4099, K, Kp, 0.02, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+    for fn, call in ((fb.admixture_fullstep_biallelic_streamed,
+                      dict(seg_cols=1056)),
+                     (fb.admixture_fullstep_biallelic_chunked,
+                      dict(window=1312))):
+        for extra in ({}, dict(emit_b=True), dict(emit_a=True,
+                                                  emit_b=True)):
+            shared = fn(*args, **call, **kw, **extra)
+            again = fn(*args, **call, **kw, **extra)
+            unshared = fn(*args, **call, **kw, **extra, share_d=False)
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(shared, again))
+            for g, u in zip(shared[2:], unshared[2:]):
+                assert torch.equal(g, u)
+            _stream_close(shared[:2], unshared[:2])
+    eta, p2, x2, c, miss, mask = _generic_args(K + 5, 2, 1001, 333, 3, K,
+                                               Kp, 0.02, dev)
+    gkw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+    before = dict(build.LAUNCHES)
+    shared = fs.admixture_fullstep(eta, p2, x2, c, miss, mask, **gkw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mc_fullstep_step"] == before["mc_fullstep_step"] + 1
+    unshared = fs.admixture_fullstep(eta, p2, x2, c, miss, mask, **gkw,
+                                     share_d=False)
+    assert torch.equal(shared[2], unshared[2])
+    _stream_close(shared[:2], unshared[:2])
+    sw = fs.admixture_sweep_stats(eta, p2, x2, miss, M=3, k_true=K)
+    su = fs.admixture_sweep_stats(eta, p2, x2, miss, M=3, k_true=K,
+                                  share_d=False)
+    torch.cuda.synchronize()
+    assert torch.equal(sw[2], su[2])
+    _stream_close(sw[:2], su[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(130, 160), (250, 256), (300, 320),
+                                  (510, 512), (600, 640), (1021, 1024)])
+def test_wide_finish_instances_project_like_plain(K, Kp):
+    """The wide finish at each of its instances (8, 16 and 32 lanes a
+    thread: Kp <= 256, 512, 1024) on rows whose mass sits on a few lanes,
+    so that the Michelot passes pin most lanes at lb, with the static
+    lanes and with a runtime kmask: eta' against the plain finish of the
+    ordered sum, t bit-equal to it, reruns bit-equal."""
+    dev = _cuda()
+    rng = np.random.default_rng(K)
+    B, I, n_seg = 2, 777, 3
+    eta = np.zeros((B, I, Kp), np.float32)
+    eta[..., :K] = rng.dirichlet(np.full(K, 0.05), size=(B, I))
+    eta = torch.tensor(eta, device=dev)
+    _, apart, tpart, _, c = _wide_finish_args(K + 1, B, I, K, Kp, n_seg, dev)
+    lb = 0.5 / K
+    araw = fb.ordered_segment_sum(apart)
+    t_want = fb.ordered_segment_sum(tpart, dtype=torch.float64)
+    kmask = (torch.arange(Kp, device=dev) < K - 5).float()
+    for extra in ({}, dict(kmask=kmask)):
+        fin = dict(k_true=K, lb=lb, project_eta=True, **extra)
+        got, t = fb.rows_finish(eta, apart, tpart, c, **fin)
+        again = fb.rows_finish(eta, apart, tpart, c, **fin)
+        want = fb.finish_eta_reference(eta, araw, c, **fin)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **F32)
+        assert torch.equal(t, t_want)
+        assert torch.equal(got, again[0]) and torch.equal(t, again[1])
+        live = K - 5 if extra else K
+        pinned = (want[..., :live] <= lb * (1 + 1e-5)).float().mean()
+        assert pinned > 0.3, float(pinned)
+        assert (got[..., live:] == 0).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,Kp", [(200, 224), (1000, 1024)])
 def test_wide_bucketed_step_matches_plain(K, Kp):
@@ -1888,9 +2068,10 @@ def test_wide_float32_fits_run_no_plain_function(monkeypatch, K, panel,
 
 @pytest.mark.cuda
 def test_wide_kernels_build_without_spills():
-    """The -Xptxas -v report of the wide kernels: the rows and columns
-    passes with both cells and the finish, in both admixture sources where
-    each is built, none spilling."""
+    """The -Xptxas -v report of the wide kernels: the rows pass's A launch
+    and the columns pass's B launch with both cells, the d launch and the
+    finish at 8, 16 and 32 lanes a thread, in both admixture sources
+    where each is built, none spilling."""
     from multiclust_tpu_torch.kernel_report import WIDE, ptxas_lines
 
     _cuda()
@@ -1902,8 +2083,10 @@ def test_wide_kernels_build_without_spills():
     assert sorted(name for name, _ in lines) == [
         "wide_cols_b_kernel<kBi>", "wide_cols_b_kernel<kDense>",
         "wide_cols_d_kernel", "wide_cols_d_kernel",
+        "wide_finish_kernel<16>", "wide_finish_kernel<16>",
         "wide_finish_kernel<32>", "wide_finish_kernel<32>",
-        "wide_rows_kernel<kBi>", "wide_rows_kernel<kDense>"], lines
+        "wide_finish_kernel<8>", "wide_finish_kernel<8>",
+        "wide_rows_a_kernel<kBi>", "wide_rows_a_kernel<kDense>"], lines
 
 
 # ---------------------------------------------------------------------------

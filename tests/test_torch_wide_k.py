@@ -437,6 +437,150 @@ def test_wide_cols_segments_follow_the_new_tiles(K, Kp, B, I, W):
             assert n * blocks <= 132 and rows >= 4 * ri
 
 
+# the rows pass's A launch on the d launch's sub-windows (a Python mirror
+# of csrc/wide.cuh's plan, ``rows_sub_segments``)
+
+@pytest.mark.parametrize("l_lo,W,seg_cols,sub_cols", [
+    (0, 2048, 2048, 1024),    # one segment over two sub-windows
+    (0, 2048, 256, 1024),     # segments inside the sub-windows
+    (3, 4099, 1056, 256),     # ragged: segments span several sub-windows
+    (5, 2996, 3000, 4000),    # one sub-window, one segment
+    (64, 131072, 4096, 1536),  # biobank width: sub-windows cut segments
+])
+def test_rows_sub_segments_cover_each_segment_once(l_lo, W, seg_cols,
+                                                  sub_cols):
+    """Every column segment of the window is covered once, in column
+    order, by the pieces the sub-windows give it; each piece lies in its
+    sub-window; a segment's first piece is written and the rest added;
+    a sub-window meets its segments in order."""
+    l_hi = l_lo + W
+    plan = fb.rows_sub_segments(l_lo, l_hi, seg_cols, sub_cols)
+    assert [w for w, _ in plan] == fb.cols_sub_windows(l_lo, l_hi, sub_cols)
+    pieces = {}
+    for (s0, s1), parts in plan:
+        assert [p[0] for p in parts] == sorted(p[0] for p in parts)
+        for seg, lo, hi, add in parts:
+            assert s0 <= lo < hi <= s1
+            pieces.setdefault(seg, []).append((lo, hi, add))
+    n_seg = -(-W // seg_cols)
+    assert sorted(pieces) == list(range(n_seg))
+    for seg, ps in pieces.items():
+        start = l_lo + seg * seg_cols
+        assert ps[0][0] == start and ps[-1][1] == min(l_hi, start + seg_cols)
+        assert all(a[1] == b[0] for a, b in zip(ps, ps[1:]))
+        assert [add for _, _, add in ps] == [False] + [True] * (len(ps) - 1)
+
+
+@pytest.mark.parametrize("seg_cols,sub_cols", [(97, 32), (40, 64), (300, 48)])
+def test_rows_sub_segments_add_up_to_the_segments(seg_cols, sub_cols):
+    """The plan's pieces, each piece's raw A + r and t from the plain
+    statistics, written or added in plan order, give each segment's
+    partials of the plain rows pass (float64)."""
+    counts, miss, eta, p = _bi_panel(3, 37, 300, 130)
+    params, _ = _bi_port(eta, p, 130, torch.float64)
+    md = model_data_from_numpy(counts, miss, np.ones((300, 2), bool),
+                               np.full(300, 2))
+    args = (params.eta, params.p, md.x0, md.x1)
+    l_lo, l_hi = 7, 300
+    n_seg = -(-(l_hi - l_lo) // seg_cols)
+    A = [None] * n_seg
+    T = [None] * n_seg
+    for _, parts in fb.rows_sub_segments(l_lo, l_hi, seg_cols, sub_cols):
+        for seg, lo, hi, add in parts:
+            a, t = fb.rows_partials_reference(*args, l_lo=lo, l_hi=hi)
+            assert add == (A[seg] is not None)
+            A[seg] = a if A[seg] is None else A[seg] + a
+            T[seg] = t if T[seg] is None else T[seg] + t
+    for seg in range(n_seg):
+        lo = l_lo + seg * seg_cols
+        a, t = fb.rows_partials_reference(
+            *args, l_lo=lo, l_hi=min(l_hi, lo + seg_cols))
+        torch.testing.assert_close(A[seg], a, **F64)
+        torch.testing.assert_close(T[seg], t, **F64)
+
+
+@pytest.mark.parametrize("K,Kp,B,I,n_want", [
+    (200, 224, 2, 16384, 1),    # 512 blocks (256 row blocks x 2 chunks)
+    (200, 224, 1, 16384, 2),    # 256 blocks: two segments
+    (1024, 1024, 1, 16384, 1),  # 1024 blocks (8 chunks)
+    (130, 160, 1, 1001, 8),     # 16 blocks: segments of MIN_SEG_COLS
+])
+def test_wide_row_segments_count_row_blocks_and_lane_chunks(K, Kp, B, I,
+                                                            n_want):
+    """The wide rows pass's grid is its WR-row blocks times its lane
+    chunks times the chains: the router splits L into column segments
+    only while that grid holds fewer than WIDE_ROWS_BLOCKS_PER_SM blocks
+    an SM."""
+    assert fb.rows_block(K, Kp) == fb.WR == 128
+    blocks = B * -(-I // fb.WR) * fb.wide_chunks(fb.kc_of(K, Kp))
+    n, seg_cols = fb.row_segments(B, I, 2048, 132, k_true=K, Kp=Kp)
+    assert n == n_want and (n == 1) == (
+        blocks >= fb.WIDE_ROWS_BLOCKS_PER_SM * 132)
+    assert seg_cols % fb.ROW_TL == 0 and (n - 1) * seg_cols < 2048
+
+
+@pytest.mark.parametrize("B,I,W,Kp,bi", [(2, 16384, 2048, 224, True),
+                                         (2, 16384, 8192, 1024, False),
+                                         (1, 1001, 4099, 160, True)])
+def test_wide_scratch_is_what_the_router_counts(B, I, W, Kp, bi):
+    """The d scratch the wrappers allocate (``wide_scratch``) is the one
+    ``cols_scratch_bytes`` counts in ``window_scratch_bytes``, for the
+    rows pass, the columns pass and a step's shared d alike."""
+    K = Kp - 20
+    sub, scratch = fb.wide_scratch(B, I, W, Kp, K, "cpu", bi=bi)
+    plan = (fb.wide_chunks(fb.kc_of(K, Kp)), 132)
+    assert sub == fb.cols_sub_cols(B, I, W, *plan, bi=bi)
+    assert 4 * scratch.numel() == fb.cols_scratch_bytes(B, I, W, *plan,
+                                                        bi=bi)
+    assert scratch.dtype == torch.float32
+
+
+@pytest.mark.parametrize("K", WIDE_K)
+def test_shared_d_step_matches_the_unshared_one(K):
+    """The steps that run both passes on one d at a wide Kp (the chunked
+    and streamed biallelic step, with every variant; the generic step and
+    sweep statistics) against the order that runs them apart
+    (``share_d=False``), on the CPU's plain versions in float64."""
+    Kp = k_padded_size(K, 32)
+    counts, miss, eta, p = _bi_panel(5, 41, 203, K)
+    params, _ = _bi_port(eta, p, K, torch.float64)
+    md = model_data_from_numpy(counts, miss, np.ones((203, 2), bool),
+                               np.full(203, 2))
+    args = (params.eta, params.p, md.x0, md.x1, md.c, md.miss)
+    kw = dict(k_true=K, lb=1e-3, plb=1e-3, project=True)
+    kmask = (torch.arange(Kp) < K).to(torch.float64)
+    a0 = torch.rand((1, 41, Kp), dtype=torch.float64)
+    for extra in ({}, dict(emit_b=True), dict(compute_t=False),
+                  dict(emit_a=True, emit_b=True, a0=a0),
+                  dict(kmask=kmask, k_true=Kp)):
+        for call in (dict(window=64), dict(window=203, seg_cols=96)):
+            vkw = {**kw, **call, **extra}
+            got = fb.admixture_fullstep_biallelic_chunked(*args, **vkw)
+            want = fb.admixture_fullstep_biallelic_chunked(
+                *args, share_d=False, **vkw)
+            assert len(got) == len(want)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **F64)
+    counts, miss, mask, Ml, eta, p = _generic_panel(6, 33, 29, 4, K)
+    gmd = model_data_from_numpy(counts, miss, mask, Ml)
+    gpar = params_from_numpy(eta[None], p[None], dtype=torch.float64)
+    cfg = EMConfig(admixture=True, has_missing=True, k_true=K)
+    gpar = tms._pad_k(gpar, cfg._replace(use_pallas="on"))
+    p2 = gpar.p.reshape(1, Kp, -1)
+    gargs = (gpar.eta, p2, gmd.x_lanes, gmd.c, gmd.miss, gmd.mask)
+    got = fs.admixture_fullstep(*gargs, **kw)
+    want = fs.admixture_fullstep(*gargs, share_d=False, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F64)
+    sweep = dict(M=4, k_true=K)
+    got = fs.admixture_sweep_stats(gpar.eta, p2, gmd.x_lanes, gmd.miss,
+                                   **sweep)
+    want = fs.admixture_sweep_stats(gpar.eta, p2, gmd.x_lanes, gmd.miss,
+                                    share_d=False, **sweep)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **F64)
+
+
 def test_check_kp_takes_multiples_of_32_to_1024():
     """check_kp takes multiples of 32 up to 1024 and names the plain step
     above (tests/test_torch_cuda.py holds the pair's own refusal of a wide
@@ -557,14 +701,14 @@ def test_kernel_report_names_the_wide_kernels():
     report = (entry(ns + "18wide_cols_b_kernelILNS_5CellsE1EEEvPKfS3_S3_PKa"
                     "S5_S5_Pfiiiiiiiiiiiiii", 168)
               + entry(ns + "18wide_cols_d_kernelEPKfS2_PfS3_iiiiiiiii", 184)
-              + entry(ns + "16wide_rows_kernelILNS_5CellsE0EEEvPKfS3_PKaS5_"
-                      "PfS6_iiiiiiiiii", 122)
-              + entry(ns + "18wide_finish_kernelILi32EEEvPKfS2_S2_S2_S2_S2_"
-                      "PfPdiiiiifiii", 107)
+              + entry(ns + "18wide_rows_a_kernelILNS_5CellsE0EEEvPKfS3_S3_"
+                      "PKaS5_PfS6_iiiiiiiiiiiiii", 230)
+              + entry(ns + "18wide_finish_kernelILi8EEEvPKfS2_S2_S2_S2_S2_"
+                      "PfPdiiiiifiii", 56)
               + entry(ns + "20fullstep_rows_kernelILi32ELNS_5CellsE1EEEvPKf",
                       80))
     assert [n for n, _ in ptxas_lines(report, WIDE)] == [
         "wide_cols_b_kernel<kDense>", "wide_cols_d_kernel",
-        "wide_rows_kernel<kBi>", "wide_finish_kernel<32>"]
+        "wide_rows_a_kernel<kBi>", "wide_finish_kernel<8>"]
     assert [n for n, _ in ptxas_lines(report, "fullstep_rows")] == [
         "fullstep_rows_kernel<32>"]
