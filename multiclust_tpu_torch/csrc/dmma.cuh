@@ -1,7 +1,6 @@
 // The float64 tensor-core product (DMMA, `mma.sync` m16n8k16) and the lane
 // chunks of the wide passes, shared by the mixture's wide passes
-// (csrc/mixture_bi.cu) and the admixture's wide columns pass
-// (csrc/wide.cuh).
+// (csrc/mixture_bi.cu) and the admixture's wide passes (csrc/wide.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -35,14 +34,17 @@ __device__ __forceinline__ int live_tiles(int nt_live, int wc) {
 }
 
 // The live lane tiles (nt = ceil(kt / 8)) cut into chunks of at most
-// CHUNK_LANES / 8 tiles that differ by at most one tile: their count, and
-// the first tile and tile count of chunk c.
+// LANES / 8 tiles that differ by at most one tile: their count, and the
+// first tile and tile count of chunk c.  LANES: CHUNK_LANES, or the wider
+// chunks of the admixture's wide rows pass (csrc/wide.cuh, WA_LANES).
+template <int LANES = CHUNK_LANES>
 __host__ __device__ __forceinline__ int wide_chunks(int kt) {
-  return ((kt + 7) / 8 + CHUNK_LANES / 8 - 1) / (CHUNK_LANES / 8);
+  return ((kt + 7) / 8 + LANES / 8 - 1) / (LANES / 8);
 }
+template <int LANES = CHUNK_LANES>
 __device__ __forceinline__ void chunk_tiles(int c, int kt, int* t0,
                                             int* n) {
-  const int nt = (kt + 7) / 8, n_ch = wide_chunks(kt);
+  const int nt = (kt + 7) / 8, n_ch = wide_chunks<LANES>(kt);
   const int q = nt / n_ch, r = nt % n_ch;
   *t0 = c * q + min(c, r);
   *n = q + (c < r ? 1 : 0);

@@ -33,22 +33,23 @@
 //   sub-window]; with the biallelic cells the first column tile also
 //   writes each row's eta summed over its kc lanes (one warp a row,
 //   float64, lanes in a fixed order).
-// * A launch, the rows pass (`wide_rows_a_kernel`): block (128 rows x a
+// * A launch, the rows pass (`wide_rows_a_kernel`): block (64 rows x a
 //   lane chunk, column segment, chain), the live lanes (ceil(kc / 8) tiles
-//   of 8) in balanced chunks of at most 128 (csrc/dmma.cuh).  It walks the
-//   segment's columns of the sub-window in stages of 32; cp.async rings of
-//   two bring, a stage ahead, the chunk's p columns and the cells' inputs
-//   (d, x0 / x1; the rows' eta sums once).  The cells are formed in float32
-//   into shared memory as the narrow kernels form them (kBi: u = x0 /
-//   max(d, DMIN) - x1 / max(srow - d, DMIN), r = the row's sum of the
-//   second term, t = x0 log d0 + x1 log d1; kDense: u = x / d with a zero d
-//   counting as 1), then A += u p^T on DMMA, summed in float64 over the
-//   segment's columns in order and rounded to float32 once.  One barrier a
-//   stage: between two, a warp forms the next stage's cells and runs this
-//   stage's products, half the warps in each order.  Every chunk sums r
-//   (it forms w1 anyway); only the first chunk's blocks take the logs of
-//   t and write t and the lanes past the live tiles.  compute_a == 0 (the
-//   t-only logL): one chunk, no products.
+//   of 8) in balanced chunks of at most 256 (csrc/dmma.cuh), so that each
+//   cell is formed for as few chunks as the accumulators allow.  It walks
+//   the segment's columns of the sub-window in stages of 32; cp.async
+//   rings of two bring, a stage ahead, the chunk's p columns and the
+//   cells' inputs (d, x0 / x1; the rows' eta sums once).  The cells are
+//   formed in float32 into shared memory as the narrow kernels form them
+//   (kBi: u = x0 / max(d, DMIN) - x1 / max(srow - d, DMIN), r = the row's
+//   sum of the second term, t = x0 log d0 + x1 log d1; kDense: u = x / d
+//   with a zero d counting as 1), then A += u p^T on DMMA, summed in
+//   float64 over the segment's columns in order and rounded to float32
+//   once.  One barrier a stage: between two, a warp forms the next stage's
+//   cells and runs this stage's products, half the warps in each order.
+//   Every chunk sums r (it forms w1 anyway); only the first chunk's blocks
+//   take the logs of t and write t and the lanes past the live tiles.
+//   compute_a == 0 (the t-only logL): one chunk, no products.
 // * B launch, the columns pass (`wide_cols_b_kernel`): block (column tile,
 //   row segment, chain x lane chunk), stages of 64 rows (48 with the
 //   generic cells); cp.async rings of two bring the chunk's eta and, a
@@ -625,16 +626,21 @@ __global__ void __launch_bounds__(NT, 1) wide_cols_b_kernel(
 // ---------------------------------------------------------------------------
 // rows pass: the A launch on a sub-window's d
 
-// A block: WA_M rows (WC_WM warp rows of 4 tiles of 16) x a lane chunk
-// (WC_WN warp columns of WC_NTW tiles of 8, tile wc + WC_WN j), stages of
-// WA_K columns.  WA_S = WA_K + 4: a fragment's reads of u (rows g, columns
-// t + 4 q) and of p (lanes g, columns t + 4 q) hit banks 4 g + t.  Shared
-// memory, in bytes: a ring of two p-chunk stages [CHUNK_LANES][WA_S]
-// floats, two stages of the cells u [WA_M][WA_S], a ring of two stages of
-// the cells' inputs (d [WA_M][WA_S] floats, x0 and x1 [WA_M][WA_K] bytes),
-// the rows' eta sums, and their t and r.
-constexpr int WA_M = 16 * 4 * WC_WM, WA_K = 32, WA_S = WA_K + 4;
-constexpr int WA_P_STAGE = 4 * CHUNK_LANES * WA_S;
+// A block: WA_M rows (4 tiles of 16, every warp) x a lane chunk of at most
+// WA_LANES (WA_WN warps of WA_NTW tiles of 8, tile warp + WA_WN j), stages
+// of WA_K columns.  A chunk twice as wide as the B launch's, on half the
+// rows, keeps the accumulators a thread holds and forms each cell for
+// half as many chunks: at K = 200 one chunk, at 1024 four (with 128 x 128
+// blocks the cells took as long as the products, PERF.md).  WA_S = WA_K +
+// 4: a fragment's reads of u (rows g, columns t + 4 q) and of p (lanes g,
+// columns t + 4 q) hit banks 4 g + t.  Shared memory, in bytes: a ring of
+// two p-chunk stages [WA_LANES][WA_S] floats, two stages of the cells u
+// [WA_M][WA_S], a ring of two stages of the cells' inputs (d [WA_M][WA_S]
+// floats, x0 and x1 [WA_M][WA_K] bytes), the rows' eta sums, their t and
+// r.
+constexpr int WA_M = 64, WA_K = 32, WA_S = WA_K + 4;
+constexpr int WA_WN = NW, WA_NTW = 4, WA_LANES = 8 * WA_NTW * WA_WN;
+constexpr int WA_P_STAGE = 4 * WA_LANES * WA_S;
 constexpr int WA_U_STAGE = 4 * WA_M * WA_S;
 constexpr int WA_C_X = 4 * WA_M * WA_S;   // x0 in a cells-input stage
 constexpr int WA_C_STAGE = WA_C_X + 2 * WA_M * WA_K;
@@ -644,27 +650,28 @@ constexpr int WA_S_OFF = WA_C_OFF + 2 * WA_C_STAGE;   // srow, t, r [WA_M]
 constexpr int WA_SMEM = WA_S_OFF + 3 * 4 * WA_M;
 static_assert(WA_P_STAGE % 16 == 0 && WA_C_STAGE % 16 == 0 &&
               WA_C_X % 16 == 0 && WA_SMEM <= SMEM_MAX, "A block smem");
-static_assert(WA_M == 128 && NT / (WA_K / 4) == 32, "cells: 4 rows a thread");
+static_assert(WA_M == 16 * 4 && NT / (WA_K / 4) == 32,
+              "a warp's 4 row tiles; cells: 2 rows a thread");
 
 // One stage of the A launch's products for a warp with NJ live lane tiles:
 // A = u (rows g, g + 8 of a 16-row tile), B = p^T (lanes g of an 8-lane
 // tile), slot q of thread t column t + 4 q of a 16-column step.
 template <int NJ>
 __device__ __forceinline__ void wide_rows_a_stage(
-    double (&acc)[4][WC_NTW][4], const float* ps, const float* us, int wm,
-    int wc, int g, int t) {
+    double (&acc)[4][WA_NTW][4], const float* ps, const float* us, int wc,
+    int g, int t) {
 #pragma unroll
   for (int c = 0; c < WA_K / 16; ++c) {
     double bb[NJ > 0 ? NJ : 1][4];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float* pt = ps + (8 * (wc + WC_WN * j) + g) * WA_S + 16 * c + t;
+      const float* pt = ps + (8 * (wc + WA_WN * j) + g) * WA_S + 16 * c + t;
 #pragma unroll
       for (int q = 0; q < 4; ++q) bb[j][q] = pt[4 * q];
     }
 #pragma unroll
     for (int m = 0; NJ > 0 && m < 4; ++m) {
-      const float* ut = us + (64 * wm + 16 * m + g) * WA_S + 16 * c + t;
+      const float* ut = us + (16 * m + g) * WA_S + 16 * c + t;
       double a[8];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -704,9 +711,9 @@ __global__ void __launch_bounds__(NT, 1) wide_rows_a_kernel(
   char* smem = reinterpret_cast<char*>(dyn_smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % WC_WM, wc = warp / WC_WM;
+  const int wc = warp;
   const int cq = 4 * (tid % (WA_K / 4)), rq = tid / (WA_K / 4);
-  const int n_ch = compute_a ? wide_chunks(kc) : 1;
+  const int n_ch = compute_a ? wide_chunks<WA_LANES>(kc) : 1;
   const int c = blockIdx.x % n_ch, row0 = blockIdx.x / n_ch * WA_M;
   const int b = blockIdx.z;
   const int seg = (s0 - l_lo) / seg_cols + blockIdx.y;
@@ -715,9 +722,9 @@ __global__ void __launch_bounds__(NT, 1) wide_rows_a_kernel(
   const bool accumulate = start < s0;
   const bool t_on = compute_t && c == 0;
   int t0, nt_live;
-  chunk_tiles(c, kc, &t0, &nt_live);
+  chunk_tiles<WA_LANES>(c, kc, &t0, &nt_live);
   const int k0 = 8 * t0, kv = compute_a ? 8 * nt_live : 0;
-  const int nj = compute_a ? live_tiles<WC_NTW, WC_WN>(nt_live, wc) : 0;
+  const int nj = compute_a ? live_tiles<WA_NTW, WA_WN>(nt_live, wc) : 0;
   const int n_st = (c_hi - c_lo + WA_K - 1) / WA_K;
   const float* p_b = p + ((size_t)b * Kp + k0) * L;
   const float* d_b = d + (size_t)b * I * ds - s0;
@@ -815,11 +822,11 @@ __global__ void __launch_bounds__(NT, 1) wide_rows_a_kernel(
     }
   };
 
-  double acc[4][WC_NTW][4];
+  double acc[4][WA_NTW][4];
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
-    for (int j = 0; j < WC_NTW; ++j)
+    for (int j = 0; j < WA_NTW; ++j)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.0;
   auto products = [&](int st) {
@@ -827,8 +834,8 @@ __global__ void __launch_bounds__(NT, 1) wide_rows_a_kernel(
         reinterpret_cast<const float*>(smem + (st & 1) * WA_P_STAGE);
     const float* us = reinterpret_cast<const float*>(smem + WA_U_OFF +
                                                      (st & 1) * WA_U_STAGE);
-    with_count<WC_NTW>(nj, [&](auto n) {
-      wide_rows_a_stage<decltype(n)::value>(acc, ps, us, wm, wc, g, t);
+    with_count<WA_NTW>(nj, [&](auto n) {
+      wide_rows_a_stage<decltype(n)::value>(acc, ps, us, wc, g, t);
     });
   };
 
@@ -884,19 +891,19 @@ __global__ void __launch_bounds__(NT, 1) wide_rows_a_kernel(
     *o = accumulate ? *o + t_s[tid] : t_s[tid];
   }
   if (!compute_a) return;
-  // a thread holds rows g, g + 8 of each tile and lanes 8 (wc + WC_WN j) +
+  // a thread holds rows g, g + 8 of each tile and lanes 8 (wc + WA_WN j) +
   // 2 t + {0, 1} of the chunk; the warp's dead tiles hold zeros
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int rl = 64 * wm + 16 * m + g + 8 * h, row = row0 + rl;
+      const int rl = 16 * m + g + 8 * h, row = row0 + rl;
       if (row >= I) continue;
       const float rr = r_s[rl];
       float* ar = apart + (o0 + row) * Kp + k0;
 #pragma unroll
-      for (int j = 0; j < WC_NTW; ++j) {
-        const int k = 8 * (wc + WC_WN * j) + 2 * t;
+      for (int j = 0; j < WA_NTW; ++j) {
+        const int k = 8 * (wc + WA_WN * j) + 2 * t;
         if (k >= kv) continue;
         float2 v = make_float2((float)acc[m][j][2 * h] + rr,
                                (float)acc[m][j][2 * h + 1] + rr);
@@ -1067,7 +1074,7 @@ inline int launch_wide(const WideLaunch& w, cudaStream_t s) {
   using T = WideColsTile<C>;
   const bool rows = w.tpart != nullptr, cols = w.part != nullptr;
   const int kc = wide_kc(w.k_true, w.Kp), n_ch = wide_chunks(kc);
-  const int n_a = w.compute_a ? n_ch : 1;
+  const int n_a = w.compute_a ? wide_chunks<WA_LANES>(kc) : 1;
   const int n_rt = (w.I + WA_M - 1) / WA_M;
   if (w.scratch == nullptr || ((uintptr_t)w.scratch & 15) ||
       w.sub_cols < 4 || w.sub_cols % 4 || (size_t)w.B * n_ch > 65535 ||

@@ -44,11 +44,12 @@ from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     WINDOW_BYTES, column_window, is_bi_repr, safe_log
 from multiclust_tpu_torch.ops.fullstep import admixture_fullstep, \
     admixture_sweep_stats, fullstep_cols, fullstep_p, fullstep_rows, \
-    normalize_p
+    normalize_p, rows_and_partials
 from multiclust_tpu_torch.ops.fullstep_bi import KP_MAX, Route, \
     admixture_fullstep_biallelic_chunked, \
-    admixture_fullstep_biallelic_routed, device_sm_count, p0_epilogue, \
-    pick_route, rows_finish, rows_log_likelihood_terms, scratch_budget
+    admixture_fullstep_biallelic_routed, device_sm_count, is_wide, \
+    p0_epilogue, pick_route, rows_finish, rows_log_likelihood_terms, \
+    scratch_budget
 from multiclust_tpu_torch.ops.simplex import project_rows
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     sum_over
@@ -461,40 +462,57 @@ def _bucketed_fullstep_chain(params: Params, bd: BucketedData,
     Every pass reads the OLD eta.  Each bucket's columns pass and p
     epilogue then update its p, as the JAX package's consolidated epilogue
     ``_bucketed_p_epilogue`` (:687-717) does in one XLA pass for the same
-    per-locus function."""
+    per-locus function.  Above 128 lanes a bucket's two passes run on one
+    d (``ops/fullstep.rows_and_partials``) and its p epilogue follows."""
     eta = params.eta                                  # [B, I, Kp]
     nb, Kp = eta.shape[0], eta.shape[-1]
     kw = dict(k_true=cfg.k_true or Kp, project=cfg.do_projection)
     c = bd.c.to(eta.dtype) if cfg.has_missing else None
     last = len(bd.buckets) - 1
-    A, per_i = None, None
+    A, per_i, new_ps = None, None, []
     for j, (md_b, p_b) in enumerate(zip(bd.buckets, params.p)):
-        A, t_b = fullstep_rows(
-            eta, p_b.reshape(nb, Kp, -1), md_b.x_lanes,
-            c if j == last else None, A, lb=float(cfg.eta_lower_bound),
-            compute_t=want_ll, finish=j == last, M=md_b.M, **kw)
+        p2 = p_b.reshape(nb, Kp, -1)
+        rkw = dict(lb=float(cfg.eta_lower_bound), compute_t=want_ll,
+                   finish=j == last, M=md_b.M, **kw)
+        c_j = c if j == last else None
+        if is_wide(Kp):
+            A, t_b, part = rows_and_partials(
+                eta, p2, md_b.x_lanes, c_j, A,
+                md_b.miss if cfg.has_missing else None, **rkw)
+            new_ps.append(_generic_p(eta, p2, md_b, cfg, kw["k_true"],
+                                     part))
+        else:
+            A, t_b = fullstep_rows(eta, p2, md_b.x_lanes, c_j, A, **rkw)
         if want_ll:
             t_b = t_b.to(torch.float64)
             per_i = t_b if per_i is None else per_i + t_b
-    new_ps = tuple(
-        _generic_p(eta, p_b.reshape(nb, Kp, -1), md_b, cfg, kw["k_true"])
-        for md_b, p_b in zip(bd.buckets, params.p))
+    if not new_ps:
+        new_ps = [_generic_p(eta, p_b.reshape(nb, Kp, -1), md_b, cfg,
+                             kw["k_true"])
+                  for md_b, p_b in zip(bd.buckets, params.p)]
     ll, scale = _ll_terms(per_i, cfg.mesh) if want_ll else _no_ll(eta)
-    return Params(eta=A, p=new_ps), ll, scale
+    return Params(eta=A, p=tuple(new_ps)), ll, scale
 
 
 def _generic_p(eta: Tensor, p2: Tensor, md: ModelData, cfg: EMConfig,
-               k_true: int) -> Tensor:
+               k_true: int, part: Optional[Tensor] = None) -> Tensor:
     """p' of one block of loci through the generic columns pass and p
-    epilogue; under a mesh the raw B (``finish=False``) is summed over the
-    data group before the epilogue."""
+    epilogue, or through the epilogue alone on the columns pass's
+    partials ``part`` where a step has them; under a mesh the raw B
+    (``finish=False``) is summed over the data group before the
+    epilogue."""
     kw = dict(k_true=k_true, plb=float(cfg.p_lower_bound),
               project=cfg.do_projection)
     miss = md.miss if cfg.has_missing else None
     if cfg.mesh is None:
+        if part is not None:
+            return fullstep_p(p2, part, md.mask, M=md.M, **kw)
         return fullstep_cols(eta, p2, md.x_lanes, miss, md.mask, **kw)
-    Bm = fullstep_cols(eta, p2, md.x_lanes, miss, md.mask, k_true=k_true,
-                       finish=False)
+    if part is not None:
+        Bm = fullstep_p(p2, part, M=md.M, k_true=k_true, finish=False)
+    else:
+        Bm = fullstep_cols(eta, p2, md.x_lanes, miss, md.mask,
+                           k_true=k_true, finish=False)
     Bm = cfg.mesh.sum(Bm, DATA_AXIS)
     return fullstep_p(p2, Bm[:, None], md.mask, M=md.M, **kw)
 

@@ -37,11 +37,11 @@ finish and the columns pass are the wide kernels of ``csrc/wide.cuh``,
 with their own tiles (``rows_block``, ``cols_tile``), on the float64
 tensor cores: for each column sub-window a d launch (d = eta @ p into a
 scratch plane), then the rows pass's A launch (A = u p^T on blocks of WR
-rows x a balanced lane chunk of at most WIDE_CHUNK) and the columns pass's
-B launch (B0/B1 on the same chunks); the sub-windows keep that scratch
-within SCRATCH_CAP (``cols_sub_cols``).  A step's window runs both passes
-on one d (``window_partials``; ``share_d``), then the finish and the p0
-epilogue.  The pair has no wide kernel: ``pick_route`` sends those Kp down
+rows x a balanced lane chunk of at most WA_CHUNK) and the columns pass's
+B launch (B0/B1 on chunks of at most WIDE_CHUNK); the sub-windows keep
+that scratch within SCRATCH_CAP (``cols_sub_cols``).  A step's window runs
+both passes on one d (``window_partials``; ``share_d``), then the finish
+and the p0 epilogue.  The pair has no wide kernel: ``pick_route`` sends those Kp down
 the streamed or chunked step, and ``fullstep_bi_rows`` refuses them.
 Above 1024 no kernel runs: the model takes the plain step
 (``model/admixture.py``, the JAX package's XLA fallback).
@@ -80,13 +80,14 @@ KP_MAX = 1024
 NW = 8
 ROW_AR, ROW_TL, ROW_CW_MAX = 4, 32, 8
 COL_CT, COL_DR = 4, 4
-# tile constants of csrc/wide.cuh: rows of a rows-pass (A launch) block
-# and columns of its stage; the columns pass's B launch: columns of a
-# block and rows a stage with the biallelic and with the generic cells,
-# cluster lanes a chunk at most (``wide_chunks``; both launches); the d
-# launch: rows and columns of a tile (a sub-window's columns are whole d
-# tiles where they can be, ``cols_sub_cols``)
-WR, WA_COLS = 128, 32
+# tile constants of csrc/wide.cuh: rows of a rows-pass (A launch) block,
+# columns of its stage and cluster lanes of its chunk at most; the columns
+# pass's B launch: columns of a block and rows a stage with the biallelic
+# and with the generic cells, cluster lanes a chunk at most
+# (``wide_chunks``); the d launch: rows and columns of a tile (a
+# sub-window's columns are whole d tiles where they can be,
+# ``cols_sub_cols``)
+WR, WA_COLS, WA_CHUNK = 64, 32, 256
 WTC, WRI, WTC_GENERIC, WRI_GENERIC = 64, 64, 128, 48
 WIDE_CHUNK, WD_TILE = 128, 128
 # padded / degenerate columns have d = 0 with x = 0: the clamp keeps
@@ -235,11 +236,12 @@ def cols_tile(k_true: int, Kp: int, generic: bool = False
     return NW * COL_CT * lt.cw, COL_DR * lt.gl
 
 
-def wide_chunks(kc: int) -> int:
-    """Cluster chunks of the wide passes' A and B launches for kc live
-    lanes: ceil(kc / 8) tiles of 8 in chunks of at most WIDE_CHUNK lanes
-    (csrc/dmma.cuh, ``wide_chunks``)."""
-    return -(-(-(-kc // 8)) // (WIDE_CHUNK // 8))
+def wide_chunks(kc: int, lanes: int = WIDE_CHUNK) -> int:
+    """Cluster chunks of a wide launch for kc live lanes: ceil(kc / 8)
+    tiles of 8 in chunks of at most ``lanes`` (csrc/dmma.cuh,
+    ``wide_chunks``): WIDE_CHUNK for the columns pass's B launch, WA_CHUNK
+    for the rows pass's A launch."""
+    return -(-(-(-kc // 8)) // (lanes // 8))
 
 
 def check_kp(Kp: int) -> None:
@@ -424,10 +426,10 @@ def _ceil_to(n: int, m: int) -> int:
 
 def cols_sub_cols(B: int, I: int, W: int, chunks: int, n_sm: int, *,
                   bi: bool = True) -> int:
-    """Columns a sub-window of the wide columns pass takes over a window
-    of W columns: the d launch writes d [B, I, sub] float32 (and, ``bi``,
-    the rows' eta sums [B, I]) to a scratch that the B launch reads, and
-    that scratch stays within SCRATCH_CAP.  All of W (rounded up to 4)
+    """Columns a sub-window of the wide passes takes over a window of W
+    columns: the d launch writes d [B, I, sub] float32 (and, ``bi``, the
+    rows' eta sums [B, I]) to a scratch that the A and B launches read,
+    and that scratch stays within SCRATCH_CAP.  All of W (rounded up to 4)
     when it fits, else W in balanced sub-windows of whole d tiles (WD_TILE
     columns; ROW_TL where not even one tile fits).  A sub-window whose B
     grid (its column tiles x B chains x ``chunks`` lane chunks; row
@@ -517,7 +519,7 @@ def row_segments(B: int, I: int, W: int, n_sm: int, *,
     blocks = B * -(-I // rows_block(k_true, Kp))
     n = 1
     if is_wide(Kp):
-        blocks *= wide_chunks(kc_of(k_true, Kp))
+        blocks *= wide_chunks(kc_of(k_true, Kp), WA_CHUNK)
         if blocks < WIDE_ROWS_BLOCKS_PER_SM * n_sm:
             n = max(1, min(-(-WIDE_ROWS_BLOCKS_PER_SM * n_sm // blocks),
                            W // MIN_SEG_COLS,

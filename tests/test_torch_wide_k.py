@@ -500,19 +500,21 @@ def test_rows_sub_segments_add_up_to_the_segments(seg_cols, sub_cols):
 
 
 @pytest.mark.parametrize("K,Kp,B,I,n_want", [
-    (200, 224, 2, 16384, 1),    # 512 blocks (256 row blocks x 2 chunks)
+    (200, 224, 2, 16384, 1),    # 512 blocks (256 row blocks, one chunk)
     (200, 224, 1, 16384, 2),    # 256 blocks: two segments
-    (1024, 1024, 1, 16384, 1),  # 1024 blocks (8 chunks)
+    (1024, 1024, 1, 16384, 1),  # 1024 blocks (4 chunks)
     (130, 160, 1, 1001, 8),     # 16 blocks: segments of MIN_SEG_COLS
 ])
 def test_wide_row_segments_count_row_blocks_and_lane_chunks(K, Kp, B, I,
                                                             n_want):
     """The wide rows pass's grid is its WR-row blocks times its lane
-    chunks times the chains: the router splits L into column segments
-    only while that grid holds fewer than WIDE_ROWS_BLOCKS_PER_SM blocks
-    an SM."""
-    assert fb.rows_block(K, Kp) == fb.WR == 128
-    blocks = B * -(-I // fb.WR) * fb.wide_chunks(fb.kc_of(K, Kp))
+    chunks (of at most WA_CHUNK lanes) times the chains: the router splits
+    L into column segments only while that grid holds fewer than
+    WIDE_ROWS_BLOCKS_PER_SM blocks an SM."""
+    assert fb.rows_block(K, Kp) == fb.WR == 64
+    kc = fb.kc_of(K, Kp)
+    assert fb.wide_chunks(kc, fb.WA_CHUNK) == -(-kc // fb.WA_CHUNK)
+    blocks = B * -(-I // fb.WR) * fb.wide_chunks(kc, fb.WA_CHUNK)
     n, seg_cols = fb.row_segments(B, I, 2048, 132, k_true=K, Kp=Kp)
     assert n == n_want and (n == 1) == (
         blocks >= fb.WIDE_ROWS_BLOCKS_PER_SM * 132)
