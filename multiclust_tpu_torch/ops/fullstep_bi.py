@@ -80,14 +80,13 @@ KP_MAX = 1024
 NW = 8
 ROW_AR, ROW_TL, ROW_CW_MAX = 4, 32, 8
 COL_CT, COL_DR = 4, 4
-# tile constants of csrc/wide.cuh: rows of a rows-pass (A launch) block,
-# columns of its stage and cluster lanes of its chunk at most; the columns
-# pass's B launch: columns of a block and rows a stage with the biallelic
-# and with the generic cells, cluster lanes a chunk at most
-# (``wide_chunks``); the d launch: rows and columns of a tile (a
-# sub-window's columns are whole d tiles where they can be,
-# ``cols_sub_cols``)
-WR, WA_COLS, WA_CHUNK = 64, 32, 256
+# tile constants of csrc/wide.cuh: rows of a rows-pass (A launch) block
+# and cluster lanes of its chunk at most; the columns pass's B launch:
+# columns of a block and rows a stage with the biallelic and with the
+# generic cells, cluster lanes a chunk at most (``wide_chunks``); the d
+# launch: rows and columns of a tile (a sub-window's columns are whole d
+# tiles where they can be, ``cols_sub_cols``)
+WR, WA_CHUNK = 64, 256
 WTC, WRI, WTC_GENERIC, WRI_GENERIC = 64, 64, 128, 48
 WIDE_CHUNK, WD_TILE = 128, 128
 # padded / degenerate columns have d = 0 with x = 0: the clamp keeps
