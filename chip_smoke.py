@@ -2962,14 +2962,19 @@ def phase_wide_kernels(fb, fs, build, dev, where):
                           f"{100 * bounds[name][0] / k_ms:.1f} % of it, on "
                           f"{where}", flush=True)
                 # the routed step with both passes on one d, and in the
-                # order that runs d for each (d + A, then d + B)
+                # order that runs d for each (d + A, then d + B): the rows
+                # and columns passes' wrappers in turn
+                from multiclust_tpu_torch.route_times import \
+                    bi_step_unshared
                 steps[K] = {
-                    label: median_ms(
-                        lambda share=share: fb.admixture_fullstep_biallelic_routed(
-                            *args, route=route, k_true=K, share_d=share,
-                            **kw))
-                    for label, share in (("shared d", True),
-                                         ("unshared d", False))}
+                    "shared d": median_ms(
+                        lambda: fb.admixture_fullstep_biallelic_routed(
+                            *args, route=route, k_true=K, **kw)),
+                    "unshared d": median_ms(
+                        lambda: bi_step_unshared(
+                            *args, window=route.window,
+                            seg_cols=route.seg_cols, n_rseg=route.n_rseg,
+                            k_true=K, **kw))}
                 print(f"wide K={K} routed step at 2 chains: "
                       + ", ".join(f"{k} {v:.4f} ms" for k, v in
                                   steps[K].items()) + f", on {where}",

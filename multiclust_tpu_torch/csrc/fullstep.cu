@@ -484,12 +484,39 @@ inline WideLaunch wide_lanes(const void* eta, const void* p2,
   const int LM = L * M;
   const int vec_x = LM % 4 == 0 && ((uintptr_t)x2 & 3) == 0;
   const int vec_p = LM % 4 == 0 && ((uintptr_t)p2 & 15) == 0;
-  return WideLaunch{eta, p2, x2, nullptr, miss, scratch, B, I, LM, Kp,
-                    k_true, 0, LM, sub_cols, vec_p, apart, tpart, seg_cols,
-                    n_cseg, compute_t, 1,
-                    vec_p && vec_x && seg_cols % 4 == 0, part, L, M, 0, LM,
-                    n_rseg, seg_rows, vec_x,
-                    L % 4 == 0 && ((uintptr_t)miss & 3) == 0};
+  WideLaunch w{};
+  w.eta = eta;
+  w.p = p2;
+  w.x0 = x2;
+  w.x1 = nullptr;
+  w.miss = miss;
+  w.scratch = scratch;
+  w.B = B;
+  w.I = I;
+  w.L = LM;
+  w.Kp = Kp;
+  w.k_true = k_true;
+  w.l_lo = 0;
+  w.l_hi = LM;
+  w.sub_cols = sub_cols;
+  w.vec_p = vec_p;
+  w.apart = apart;
+  w.tpart = tpart;
+  w.seg_cols = seg_cols;
+  w.n_cseg = n_cseg;
+  w.compute_t = compute_t;
+  w.compute_a = 1;
+  w.vec_a = vec_p && vec_x && seg_cols % 4 == 0;
+  w.part = part;
+  w.ML = L;
+  w.M = M;
+  w.p_lo = 0;
+  w.WP = LM;
+  w.n_rseg = n_rseg;
+  w.seg_rows = seg_rows;
+  w.vec_x = vec_x;
+  w.vec_m = L % 4 == 0 && ((uintptr_t)miss & 3) == 0;
+  return w;
 }
 
 }  // namespace

@@ -475,12 +475,39 @@ inline WideLaunch wide_window(const void* eta, const void* p0,
   const int vec_x = row4 && ((uintptr_t)x0 & 3) == 0 &&
                     ((uintptr_t)x1 & 3) == 0;
   const int vec_p = row4 && ((uintptr_t)p0 & 15) == 0;
-  return WideLaunch{eta, p0, x0, x1, miss, scratch, B, I, L, Kp, k_true,
-                    l_lo, l_hi, sub_cols, vec_p, apart, tpart, seg_cols,
-                    n_cseg, compute_t, apart != nullptr,
-                    vec_p && vec_x && seg_cols % 4 == 0, part, L, 1, l_lo,
-                    l_hi - l_lo, n_rseg, seg_rows, vec_x,
-                    row4 && ((uintptr_t)miss & 3) == 0};
+  WideLaunch w{};
+  w.eta = eta;
+  w.p = p0;
+  w.x0 = x0;
+  w.x1 = x1;
+  w.miss = miss;
+  w.scratch = scratch;
+  w.B = B;
+  w.I = I;
+  w.L = L;
+  w.Kp = Kp;
+  w.k_true = k_true;
+  w.l_lo = l_lo;
+  w.l_hi = l_hi;
+  w.sub_cols = sub_cols;
+  w.vec_p = vec_p;
+  w.apart = apart;
+  w.tpart = tpart;
+  w.seg_cols = seg_cols;
+  w.n_cseg = n_cseg;
+  w.compute_t = compute_t;
+  w.compute_a = apart != nullptr;
+  w.vec_a = vec_p && vec_x && seg_cols % 4 == 0;
+  w.part = part;
+  w.ML = L;
+  w.M = 1;
+  w.p_lo = l_lo;
+  w.WP = l_hi - l_lo;
+  w.n_rseg = n_rseg;
+  w.seg_rows = seg_rows;
+  w.vec_x = vec_x;
+  w.vec_m = row4 && ((uintptr_t)miss & 3) == 0;
+  return w;
 }
 
 }  // namespace

@@ -27,7 +27,7 @@ the wide kernels of ``csrc/wide.cuh`` (the generic cells at every M): for
 each lane sub-window (``fullstep_bi.cols_sub_cols``) a d launch, then the
 rows pass's A launch and the columns pass's B launch on the float64
 tensor cores; the step and the sweep statistics run both passes on one d
-(``rows_and_partials``; ``share_d``).  The p epilogue takes any Kp.
+(``rows_and_partials``).  The p epilogue takes any Kp.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 only for CPU tensors; there is no fallback for CUDA tensors.  Shapes: a
@@ -422,14 +422,12 @@ def fullstep_cols(eta, p2, x2, miss=None, mask=None, *, k_true: int = 0,
 
 
 def admixture_fullstep(eta, p2, x2, c, miss, mask, *, k_true: int, lb: float,
-                       plb: float, project: bool, compute_t: bool = True,
-                       share_d: bool = True):
+                       plb: float, project: bool, compute_t: bool = True):
     """One generic admixture EM step for a chain batch:
     (eta' [B, I, Kp], t [B, I], p' [B, Kp, L, M]).  The eta Michelot and
     the p projection share ``project`` (cfg.do_projection).  At a wide Kp
-    both passes run on one d (``rows_and_partials``) unless ``share_d`` is
-    False (each pass computes d, the order before they shared it)."""
-    if share_d and is_wide(eta.shape[-1]):
+    both passes run on one d (``rows_and_partials``)."""
+    if is_wide(eta.shape[-1]):
         M = mask.shape[1]
         eta_new, t, part = rows_and_partials(
             eta, p2, x2, c, None, miss, M=M, k_true=k_true, lb=lb,
@@ -445,16 +443,16 @@ def admixture_fullstep(eta, p2, x2, c, miss, mask, *, k_true: int, lb: float,
 
 
 def admixture_sweep_stats(eta, p2, x2, miss=None, *, M: int = 0,
-                          k_true: int = 0, compute_t: bool = True,
-                          share_d: bool = True):
+                          k_true: int = 0, compute_t: bool = True):
     """Sweep statistics A [B, I, Kp], t [B, I], B [B, Kp, L*M] with no eta
     or p finish (``admixture_sweep_fused`` / ``admixture_sweep_stats``):
     the same passes as the full step, with ``finish=False``.  With ``miss``
     [I, L] (and ``M`` slots a locus) B has the miss fold; ``k_true`` (0:
     all Kp lanes) is where the kernels' cluster loops stop, and B's rows
-    past it come out 0.  ``share_d`` as in ``admixture_fullstep``."""
+    past it come out 0.  At a wide Kp both passes run on one d
+    (``rows_and_partials``)."""
     k_true = k_true or eta.shape[-1]
-    if share_d and is_wide(eta.shape[-1]):
+    if is_wide(eta.shape[-1]):
         Ms = M if miss is not None else 1
         A, t, part = rows_and_partials(
             eta, p2, x2, None, None, miss, M=Ms, k_true=k_true, lb=0.0,

@@ -40,8 +40,8 @@ scratch plane), then the rows pass's A launch (A = u p^T on blocks of WR
 rows x a balanced lane chunk of at most WA_CHUNK) and the columns pass's
 B launch (B0/B1 on chunks of at most WIDE_CHUNK); the sub-windows keep
 that scratch within SCRATCH_CAP (``cols_sub_cols``).  A step's window runs
-both passes on one d (``window_partials``; ``share_d``), then the finish
-and the p0 epilogue.  The pair has no wide kernel: ``pick_route`` sends those Kp down
+both passes on one d (``window_partials``), then the finish and the p0
+epilogue.  The pair has no wide kernel: ``pick_route`` sends those Kp down
 the streamed or chunked step, and ``fullstep_bi_rows`` refuses them.
 Above 1024 no kernel runs: the model takes the plain step
 (``model/admixture.py``, the JAX package's XLA fallback).
@@ -370,9 +370,12 @@ ROWS_BLOCKS_PER_SM = 20
 # DMMA accumulators take the registers), so it splits L only until the
 # grid (row blocks x lane chunks x chains) holds WIDE_ROWS_BLOCKS_PER_SM
 # blocks an SM, and never into more segments than keep its partials [B,
-# n, I, Kp] within SCRATCH_CAP (set for the fmaf rows pass: "route_times
-# --k 200" and "--k 1024" at 16384 x 2048, one segment beat 2-32 at 1 and
-# 2 chains).
+# n, I, Kp] within SCRATCH_CAP.  Set for the fmaf rows pass ("route_times
+# --k 200" and "--k 1024" at 16384 x 2048: one segment beat 2-32 at 1 and
+# 2 chains); for the A launch, the one case where it splits there (K =
+# 200, 1 chain: 256 blocks, two segments) times as one segment does
+# ("route_times --kernels --k 200 --chains 1": 2.167-2.211 ms against
+# 2.179-2.180 on an H100 at 700 W).
 WIDE_ROWS_BLOCKS_PER_SM = 2
 # Columns pass ("columns pass: router row segments, n row segments"): it
 # splits I until its grid holds COLS_BLOCKS_PER_SM blocks an SM, in at
@@ -457,8 +460,7 @@ def cols_sub_cols(B: int, I: int, W: int, chunks: int, n_sm: int, *,
 
 def cols_sub_windows(l_lo: int, l_hi: int, sub_cols: int):
     """The sub-windows [lo, hi) the wide columns pass runs on the window
-    [l_lo, l_hi), as the launcher loops (csrc/wide.cuh,
-    ``launch_cols_wide``)."""
+    [l_lo, l_hi), as the launcher loops (csrc/wide.cuh, ``launch_wide``)."""
     return [(a, min(l_hi, a + sub_cols)) for a in range(l_lo, l_hi,
                                                          sub_cols)]
 
@@ -1073,8 +1075,7 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
                                          emit_a: bool = False,
                                          project_eta: Optional[bool] = None,
                                          a0: Optional[Tensor] = None,
-                                         n_rseg: int = 0,
-                                         share_d: bool = True):
+                                         n_rseg: int = 0):
     """The step as a loop over column windows of ``window`` columns (the
     last may be short), the contract of the JAX package's
     ``admixture_fullstep_biallelic_chunked``: raw A + r is threaded from
@@ -1090,9 +1091,7 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
     seeds the first window; ``n_rseg`` fixes the columns pass's row
     segments (0: chosen to fill the card).  One window over all L is the
     streamed step.  At a wide Kp a window runs both passes on one d
-    (``window_partials``), then the finish and the p0 epilogue, unless
-    ``share_d`` is False: then the rows pass and the columns pass each
-    compute d (the order before they shared it, for timing)."""
+    (``window_partials``), then the finish and the p0 epilogue."""
     B, I, Kp = eta.shape
     L = p0.shape[-1]
     window = min(int(window), L)
@@ -1105,12 +1104,11 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
     outs = ((torch.empty_like(p0), torch.empty_like(p0)) if emit_b
             else (torch.empty_like(p0),))
     loop = "fullstep_bi_chunked" if window < L else None
-    shared = share_d and is_wide(Kp)
     t_sum = None
     for l_lo in range(0, L, window):
         l_hi = min(L, l_lo + window)
         last = l_hi == L
-        if shared:
+        if is_wide(Kp):
             apart, tpart, part = window_partials(
                 eta, p0, x0, x1, miss, l_lo=l_lo, l_hi=l_hi,
                 seg_cols=min(seg_cols, l_hi - l_lo), k_true=k_true,
@@ -1218,10 +1216,8 @@ def rows_log_likelihood_terms(eta, p0, x0, x1, *, seg_cols=None,
 def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None, *,
                                         route: Route, k_true: int, lb: float,
                                         plb: float, project: bool,
-                                        compute_t: bool = True,
-                                        share_d: bool = True):
-    """One step by ``route`` (pick_route): (eta', t, p0'); ``share_d`` as
-    in ``admixture_fullstep_biallelic_chunked``."""
+                                        compute_t: bool = True):
+    """One step by ``route`` (pick_route): (eta', t, p0')."""
     if route.name == "pair":
         return admixture_fullstep_biallelic(
             eta, p0, x0, x1, c, miss, k_true=k_true, lb=lb, plb=plb,
@@ -1231,5 +1227,4 @@ def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None, *,
     return admixture_fullstep_biallelic_chunked(
         eta, p0, x0, x1, c, miss, window=route.window,
         seg_cols=route.seg_cols, k_true=k_true, lb=lb, plb=plb,
-        project=project, compute_t=compute_t, n_rseg=route.n_rseg,
-        share_d=share_d)
+        project=project, compute_t=compute_t, n_rseg=route.n_rseg)

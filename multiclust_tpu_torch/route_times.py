@@ -69,10 +69,31 @@ the live lanes (k below the lane tile of K) of the partials and of eta
 or p0.  Above 128 lanes the d launch has a line of its own, each pass's
 line is held to its own launch's work, and it also prints the rows pass
 alone through ``rows_partials`` (d + A, held to both), the finish alone
-on its partials, and the step in the order that runs d for each pass
-(``share_d=False``, where the tree takes it), all on CUDA events.  ``--kernels --k 100`` and ``--shapes 8192x131072 --chains 2``
-time the wider kernels and the biobank panel.  It calls only the routed
-step and the plain version, so a parent tree is timed by the same file.
+on its partials, the step in the order that runs d for each pass
+(``bi_step_unshared``) and, where the router splits the rows pass into
+column segments, the step at one segment, all on CUDA events.
+``--kernels --k 100`` and ``--shapes 8192x131072 --chains 2`` time the
+wider kernels and the biobank panel.  It calls only the routed step, the
+rows and columns passes' wrappers and the plain version, so a parent
+tree is timed by the same file.
+
+``--accuracy`` measures the float32 kernels' rounding against float64
+instead, at K (``--k``): (a) one routed step on the panel of ``--kernels``
+at each chain batch of ``--chains``: the raw A + r (``rows_partials`` and
+``rows_finish`` at the route's segments), t, eta' and p0' against the
+plain step in float64 on the same (float32) inputs, each as its largest
+absolute error and its error's norm over the reference's; (b) the
+30-iteration warm start of chip_smoke.py's phase 21 (600 x 500, 1 %
+missing, ``warm_start_case``) from ``--seeds`` (24 is the phase's): the
+fit through the kernels and the float64 fit on the CPU, their logL gap
+after iterations 1, 2, 5, 10, 20 and 31 against the float32 noise floor,
+and the float32 logL terms of the float64 fit's last parameters (the rows
+pass, t only) against their float64 sum, the rounding of the logL alone;
+(c) along the float64 trajectory of that warm start, what each step
+through the kernels loses in logL against the float64 step from the same
+parameters, for the step and for eta' or p0' alone (``warm_start_steps``).
+It calls only the routed step, the rows pass's wrappers, the fit and the
+plain versions, so a parent tree is measured by the same file.
 ``--finish-alone`` times the rows finish alone instead, at the router's
 column segments for each chain batch, launched back to back (its partials
 in L2 as far as they fit) and with L2 flushed before each launch (a 256 MB
@@ -285,6 +306,218 @@ def time_shape(I: int, L: int, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def _errs(got, ref) -> str:
+    """Largest absolute error of ``got`` against ``ref`` and the error's
+    norm over the reference's, both in float64."""
+    d = got.to(torch.float64) - ref.to(torch.float64)
+    rel = float(d.norm() / ref.to(torch.float64).norm().clamp(min=1e-300))
+    return f"max|d| {float(d.abs().max()):.3e}, |d|/|ref| {rel:.3e}"
+
+
+def step_accuracy(I: int, L: int, chains, dev) -> None:
+    """The routed step's outputs and its raw A + r against the plain step
+    in float64 on the same float32 inputs (``--accuracy`` (a))."""
+    kw = dict(k_true=K, lb=1e-8, plb=1e-8, project=True)
+    planes, miss = device_panel(1, I, L, K, 0.01, dev)
+    x0, x1 = planes[0], planes[1]
+    c = miss.sum(dim=1, dtype=torch.float32)
+    n_sm = fb.device_sm_count(dev)
+    for B in chains:
+        eta, p0 = device_step_params(2, B, I, L, K, KP, dev)
+        route = fb.pick_route(B, I, L, KP, n_sm, fb.scratch_budget(dev), K)
+        e64, p64, c64 = eta.double(), p0.double(), c.double()
+        got = fb.admixture_fullstep_biallelic_routed(
+            eta, p0, x0, x1, c, miss, route=route, **kw)
+        ref = fb.admixture_fullstep_biallelic_streamed_reference(
+            e64, p64, x0, x1, c64, miss, **kw)
+        W = min(L, route.window)
+        apart, tpart = fb.rows_partials(eta, p0, x0, x1, l_lo=0, l_hi=W,
+                                        seg_cols=route.seg_cols or W,
+                                        k_true=K)
+        araw, _ = fb.rows_finish(eta, apart, tpart, c, k_true=K, lb=1e-8,
+                                 project_eta=True, emit_a=True)
+        a_ref, _ = fb.rows_partials_reference(e64, p64, x0, x1, l_lo=0,
+                                              l_hi=W)
+        print(f"{I} x {L}, K = {K} on {KP} lanes, {B} chains, "
+              f"{route.describe()}, against float64: raw A + r of the "
+              f"first window {_errs(araw, a_ref[:, 0])}; t "
+              f"{_errs(got[1], ref[1])}; eta' {_errs(got[0], ref[0])}; p0' "
+              f"{_errs(got[2], ref[2])}", flush=True)
+        del eta, p0, e64, p64, got, ref, apart, tpart, araw, a_ref
+        torch.cuda.empty_cache()
+
+
+def warm_start_case(seed: int, I: int = 600, L: int = 500, K: int = 200):
+    """chip_smoke.py phase 21's warm start (``phase_wide_reference``, seed
+    24) drawn as it draws it from ``seed``: admixture-model counts [I, L,
+    2] (each copy draws a cluster from Q_i and an allele from P_k), miss
+    [I, L] with 1 % of the copies missing, and the start eta [I, K], p
+    [K, L, 2]."""
+    rng = np.random.default_rng(seed)
+    Q = rng.dirichlet(np.full(K, 0.5), size=I)
+    P0 = rng.beta(0.8, 0.8, size=(K, L)).clip(0.01, 0.99)
+    miss = rng.binomial(2, 0.01, size=(I, L))
+    x0 = rng.binomial(2 - miss, Q @ P0)
+    counts = np.stack([x0, 2 - miss - x0], axis=2)
+    eta = rng.dirichlet(np.full(K, 2.0), size=I)
+    p0 = rng.uniform(0.2, 0.8, size=(K, L))
+    return counts, miss, eta, np.stack([p0, 1 - p0], axis=2)
+
+
+def warm_start_accuracy(seeds, dev) -> None:
+    """``--accuracy`` (b): the warm start through the kernels against the
+    float64 CPU fit, the gap along the way, and the float32 logL of the
+    float64 fit's last parameters."""
+    from multiclust_tpu_torch.convert import model_data_from_numpy, \
+        params_from_numpy
+    from multiclust_tpu_torch.model import admixture as adm
+    from multiclust_tpu_torch.model.common import EMConfig, Params
+    from multiclust_tpu_torch.opt.driver import fit
+    from multiclust_tpu_torch.runtime.multistart import _pad_k, _to_bi_repr
+
+    K_W, at = 200, (1, 2, 5, 10, 20, 31)
+    for seed in seeds:
+        counts, miss, eta, p = warm_start_case(seed, K=K_W)
+        I, L = miss.shape
+        mask, n_all = np.ones((L, 2), bool), np.full(L, 2)
+        base = dict(admixture=True, has_missing=True, biallelic=True,
+                    k_true=K_W, max_iter=30, abs_error=1e-12,
+                    eta_lower_bound=1e-8, p_lower_bound=1e-8)
+        logl = {"cpu": {}, "gpu": {}}
+        md64 = model_data_from_numpy(counts, miss, mask, n_all)
+        cpu = fit(params_from_numpy(eta, p), md64, EMConfig(**base),
+                  trace=lambda ll, n, kind: logl["cpu"].__setitem__(n, ll))
+        cfg = EMConfig(use_pallas="on", **base)
+        md32 = model_data_from_numpy(counts, miss, mask, n_all, device=dev,
+                                     dtype=torch.float32)
+        gpu = fit(_to_bi_repr(_pad_k(params_from_numpy(
+            eta, p, device=dev, dtype=torch.float32), cfg), cfg), md32, cfg,
+            trace=lambda ll, n, kind: logl["gpu"].__setitem__(n, ll))
+        # the phase's floor: from the scale of the float64 fit's terms
+        best = cpu.params
+        _, scale = adm.log_likelihood(Params(eta=best.eta[None],
+                                             p=best.p[None]), md64)
+        floor = (cfg.noise_factor * float(np.finfo(np.float32).eps)
+                 * float(scale[0]))
+        # the float64 fit's last parameters, rounded to float32, on the
+        # kernels' layout: their logL terms through the rows pass (t
+        # only) and in float64 by the plain version
+        Kp = -(-K_W // 32) * 32
+        eta_l = torch.zeros((1, I, Kp), dtype=torch.float32, device=dev)
+        p0_l = torch.zeros((1, Kp, L), dtype=torch.float32, device=dev)
+        eta_l[0, :, :K_W] = best.eta.to(dev, torch.float32)
+        p0_l[0, :K_W] = best.p[..., 0].to(dev, torch.float32)
+        x0 = torch.tensor(counts[..., 0], dtype=torch.int8, device=dev)
+        x1 = torch.tensor(counts[..., 1], dtype=torch.int8, device=dev)
+        t32 = fb.rows_log_likelihood_terms(eta_l, p0_l, x0, x1, k_true=K_W)
+        _, t64 = fb.rows_partials_reference(eta_l.double(), p0_l.double(),
+                                            x0, x1, l_lo=0, l_hi=L,
+                                            compute_a=False)
+        ll32 = float(t32.to(torch.float64).sum())
+        ll64 = float(t64.sum())
+        # the kernel fit's last parameters: their logL through the rows
+        # pass, in float64 as they stand (d1 = the row's sum - d0) and in
+        # float64 with eta's rows scaled to sum to 1; each against the
+        # float64 fit's last parameters in float64
+        eta_g, p0_g = gpu.params.eta[None], gpu.params.p[None]
+        sums = eta_g.double().sum(dim=-1, keepdim=True)
+        best64 = (torch.zeros((1, I, Kp), dtype=torch.float64, device=dev),
+                  torch.zeros((1, Kp, L), dtype=torch.float64, device=dev))
+        best64[0][0, :, :K_W] = best.eta.to(dev)
+        best64[1][0, :K_W] = best.p[..., 0].to(dev)
+
+        def terms64(e_, p_) -> float:
+            return float(fb.rows_partials_reference(
+                e_, p_, x0, x1, l_lo=0, l_hi=L, compute_a=False)[1].sum())
+
+        ll_cpu = terms64(*best64)
+        ll_k = float(fb.rows_log_likelihood_terms(
+            eta_g, p0_g, x0, x1, k_true=K_W).to(torch.float64).sum())
+        ll_raw = terms64(eta_g.double(), p0_g.double())
+        ll_norm = terms64(eta_g.double() / sums, p0_g.double())
+        to_one = float((sums.float() == 1.0).double().mean())
+        gaps = ", ".join(f"{n}: {abs(logl['gpu'][n] - logl['cpu'][n]):.4f}"
+                         for n in at if n in logl["gpu"]
+                         and n in logl["cpu"])
+        print(f"warm start seed {seed}, {I} x {L}, K = {K_W}: "
+              f"{gpu.n_iter} / {cpu.n_iter} iterations, logL "
+              f"{gpu.logL:.4f} through the kernels against {cpu.logL:.4f} "
+              f"in float64: gap {abs(gpu.logL - cpu.logL):.4f}, noise floor "
+              f"{floor:.4f}; gap after iteration {gaps}; the float64 fit's "
+              f"last parameters in float32, logL through the rows pass "
+              f"{ll32:.4f} against {ll64:.4f} in float64: "
+              f"{abs(ll32 - ll64):.4f}; the kernel fit's last parameters "
+              f"less the float64 fit's, logL through the rows pass "
+              f"{ll_k - ll_cpu:+.4f}, in float64 {ll_raw - ll_cpu:+.4f}, "
+              f"in float64 with eta's rows summing to 1 "
+              f"{ll_norm - ll_cpu:+.4f}; their rows' sums less 1, mean "
+              f"{float((sums - 1).mean()):.3e}, {100 * to_one:.1f} % of "
+              f"the rows' sums 1 in float32", flush=True)
+
+
+def warm_start_steps(seeds, dev, n_steps: int = 30) -> None:
+    """``--accuracy`` (c): the warm start's float64 trajectory (the plain
+    step in float64 on ``dev``), each of its steps also taken through the
+    kernels from the same parameters rounded to float32.  Each step's
+    deficit is the float64 logL (plain terms) of the kernels' result less
+    that of the float64 step's, for the whole step and for eta' or p0'
+    alone (the other from float64), and for eta' with its rows scaled to
+    sum to 1 in float64 (what is left once the rounding of the rows' sums
+    is taken out); summed over the steps.  The rows' sums: the mean of
+    sum_k eta'_32 - 1 over the rows and steps.  The shrink is eta''s error
+    along the step, <eta'_32 - eta'_64, eta'_64 - eta> over |eta'_64 -
+    eta|^2: a step cut short reads below 0."""
+    K_W = 200
+    Kp = -(-K_W // 32) * 32
+    kw = dict(k_true=K_W, lb=1e-8, plb=1e-8, project=True)
+    n_sm = fb.device_sm_count(dev)
+    for seed in seeds:
+        counts, miss, eta, p = warm_start_case(seed, K=K_W)
+        I, L = miss.shape
+        x0 = torch.tensor(counts[..., 0], dtype=torch.int8, device=dev)
+        x1 = torch.tensor(counts[..., 1], dtype=torch.int8, device=dev)
+        m = torch.tensor(miss, dtype=torch.int8, device=dev)
+        c = m.sum(dim=1, dtype=torch.float64)
+        e = torch.zeros((1, I, Kp), dtype=torch.float64, device=dev)
+        p0 = torch.zeros((1, Kp, L), dtype=torch.float64, device=dev)
+        e[0, :, :K_W] = torch.tensor(eta, device=dev)
+        p0[0, :K_W] = torch.tensor(p[..., 0], device=dev)
+        route = fb.pick_route(1, I, L, Kp, n_sm, fb.scratch_budget(dev),
+                              K_W)
+
+        def logl(eta_, p0_) -> float:
+            return float(fb.rows_partials_reference(
+                eta_, p0_, x0, x1, l_lo=0, l_hi=L, compute_a=False)[1].sum())
+
+        deficit = np.zeros(4)
+        shrink, row_sum = [], []
+        for _ in range(n_steps):
+            ref = fb.admixture_fullstep_biallelic_streamed_reference(
+                e, p0, x0, x1, c, m, **kw)
+            got = fb.admixture_fullstep_biallelic_routed(
+                e.float(), p0.float(), x0, x1, c.float(), m, route=route,
+                **kw)
+            ge, gp = got[0].double(), got[2].double()
+            sums = ge.sum(dim=-1, keepdim=True)
+            row_sum.append(float((sums - 1).mean()))
+            base = logl(ref[0], ref[2])
+            deficit += (logl(ge, gp) - base, logl(ge, ref[2]) - base,
+                        logl(ref[0], gp) - base,
+                        logl(ge / sums, ref[2]) - base)
+            step = ref[0] - e
+            shrink.append(float(((ge - ref[0]) * step).sum()
+                                / (step * step).sum()))
+            e, p0 = ref[0], ref[2]
+        print(f"warm start seed {seed} along the float64 trajectory, "
+              f"{n_steps} steps through the kernels ({route.describe()}): "
+              f"logL deficit summed {deficit[0]:.5f} (eta' alone "
+              f"{deficit[1]:.5f}, p0' alone {deficit[2]:.5f}, eta' alone "
+              f"with its rows summing to 1 {deficit[3]:.5f}); rows' sums "
+              f"less 1, mean {np.mean(row_sum):.3e}; shrink of eta' along "
+              f"the step mean {np.mean(shrink):.3e}, first "
+              f"{shrink[0]:.3e}, last {shrink[-1]:.3e}", flush=True)
+
+
 def lanes_panel(seed: int, I: int, L: int, M: int, dev):
     """Admixture-model genotypes at M allele slots a locus, drawn on
     ``dev`` from ``seed`` in blocks of rows: x [I, L*M] int8 and miss [I,
@@ -338,12 +571,53 @@ BI_KERNELS = {"rows pass": ("fullstep_bi_rows_seg_kernel",
               "p0 epilogue": ("fullstep_bi_p0_kernel",)}
 
 
-def takes_share_d(fn) -> bool:
-    """Whether a step of this tree takes ``share_d`` (a tree before the
-    wide passes shared d does not)."""
-    import inspect
+def bi_step_unshared(eta, p0, x0, x1, c, miss=None, kmask=None, *,
+                     window: int, seg_cols: int, k_true: int, lb: float,
+                     plb: float, project: bool, compute_t: bool = True,
+                     emit_b: bool = False, emit_a: bool = False,
+                     project_eta=None, a0=None, n_rseg: int = 0):
+    """The chunked biallelic step in the order that runs d for each pass
+    (at a wide Kp: d + A, then d + B, a window), from the public pieces:
+    ``rows_partials`` and ``rows_finish``, then ``cols_window``.  What one
+    d for both passes saves is the routed step's time against this one's;
+    arguments and returns as ``admixture_fullstep_biallelic_chunked``
+    (``seg_cols`` given)."""
+    L = p0.shape[-1]
+    window = min(int(window), L)
+    if project_eta is None:
+        project_eta = project
+    outs = ((torch.empty_like(p0), torch.empty_like(p0)) if emit_b
+            else (torch.empty_like(p0),))
+    t_sum = None
+    for l_lo in range(0, L, window):
+        l_hi = min(L, l_lo + window)
+        apart, tpart = fb.rows_partials(
+            eta, p0, x0, x1, l_lo=l_lo, l_hi=l_hi,
+            seg_cols=min(seg_cols, l_hi - l_lo), compute_t=compute_t,
+            k_true=k_true)
+        a0, t = fb.rows_finish(eta, apart, tpart, c, a0, kmask,
+                               k_true=k_true, lb=lb, project_eta=project_eta,
+                               compute_t=compute_t,
+                               emit_a=emit_a or l_hi < L)
+        t_sum = t if t_sum is None else t_sum + t
+        fb.cols_window(eta, p0, x0, x1, miss, outs, l_lo=l_lo, l_hi=l_hi,
+                       plb=plb, project=project, k_true=k_true,
+                       n_rseg=n_rseg)
+    return (a0, t_sum) + outs
 
-    return "share_d" in inspect.signature(fn).parameters
+
+def generic_step_unshared(eta, p2, x2, c, miss, mask, *, k_true: int,
+                          lb: float, plb: float, project: bool,
+                          compute_t: bool = True):
+    """The generic step in the order that runs d for each pass, from the
+    public pieces ``fullstep_rows`` and ``fullstep_cols``; arguments and
+    returns as ``admixture_fullstep``."""
+    eta_new, t = fs.fullstep_rows(eta, p2, x2, c, k_true=k_true, lb=lb,
+                                  project=project, compute_t=compute_t,
+                                  M=mask.shape[1])
+    return eta_new, t, fs.fullstep_cols(eta, p2, x2, miss, mask,
+                                        k_true=k_true, plb=plb,
+                                        project=project)
 
 
 def finish_bytes(B: int, I: int, Kp: int, n_seg: int, kc: int):
@@ -416,12 +690,17 @@ def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
         wide = {}
         if fb.is_wide(KP):
             wide = wide_rows_times(eta, p0, x0, x1, c, route, n)
-            if takes_share_d(fb.admixture_fullstep_biallelic_routed):
-                # the order before the passes shared d: d + A, then d + B
-                wide["step, unshared d"] = median_ms(
+            # the order that runs d for each pass: d + A, then d + B
+            wide["step, unshared d"] = median_ms(
+                lambda: bi_step_unshared(
+                    eta, p0, x0, x1, c, miss, window=route.window,
+                    seg_cols=route.seg_cols, n_rseg=route.n_rseg, **kw), n)
+            if route.seg_cols < route.window:
+                # the router's column segments against one
+                one = route._replace(seg_cols=route.window)
+                wide["step, one rows segment"] = median_ms(
                     lambda: fb.admixture_fullstep_biallelic_routed(
-                        eta, p0, x0, x1, c, miss, route=route, share_d=False,
-                        **kw), n)
+                        eta, p0, x0, x1, c, miss, route=one, **kw), n)
         # the bytes of every window's finish and epilogue
         ri = fb.cols_tile(K, KP)[1]
         seg_rows = -(-(-(-I // route.n_rseg)) // ri) * ri
@@ -580,10 +859,10 @@ def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
         del ref
         step_ms = median_ms(step, n)
         unshared = ""
-        if fb.is_wide(KP) and takes_share_d(fs.admixture_fullstep):
-            # the order before the passes shared d: d + A, then d + B
-            un_ms = median_ms(lambda: fs.admixture_fullstep(
-                eta, p2, x2, c, miss, mask, share_d=False, **kw), n)
+        if fb.is_wide(KP):
+            # the order that runs d for each pass: d + A, then d + B
+            un_ms = median_ms(lambda: generic_step_unshared(
+                eta, p2, x2, c, miss, mask, **kw), n)
             unshared = f", unshared d {un_ms:.3f} ms"
         cols_ms = median_ms(lambda: fs.fullstep_cols(
             eta, p2, x2, miss, mask, k_true=K, plb=1e-8, project=True), n)
@@ -1066,13 +1345,15 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--fit", action="store_true")
     ap.add_argument("--squarem", action="store_true")
+    ap.add_argument("--accuracy", action="store_true")
+    ap.add_argument("--seeds", default="24,25,26")
     args = ap.parse_args(argv)
     K, KP = args.k, -(-args.k // 32) * 32
     if args.shapes:
         SHAPES = tuple(tuple(int(n) for n in s.split("x"))
                        for s in args.shapes.split(","))
     elif (args.generic or args.mixture or args.jagged or args.kernels
-          or args.finish_alone or args.squarem):
+          or args.finish_alone or args.squarem or args.accuracy):
         SHAPES = ((16384, 2048),)
     if not torch.cuda.is_available():
         print("route_times: no CUDA device", file=sys.stderr)
@@ -1087,6 +1368,8 @@ def main(argv=None) -> int:
         chains = [int(b) for b in args.chains.split(",")]
         if args.squarem:
             time_squarem(I, L, dev)
+        elif args.accuracy:
+            step_accuracy(I, L, chains, dev)
         elif args.kernels:
             time_bi_kernels(I, L, chains, args.reps, dev)
         elif args.finish_alone:
@@ -1105,6 +1388,10 @@ def main(argv=None) -> int:
             time_generic(I, L, args.m, chains, args.reps, dev)
         else:
             time_shape(I, L, dev)
+    if args.accuracy:
+        seeds = [int(s) for s in args.seeds.split(",")]
+        warm_start_steps(seeds, dev)
+        warm_start_accuracy(seeds, dev)
     print(f"peak allocation "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return 0

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from multiclust_tpu_torch import route_times as rt
 from multiclust_tpu_torch.model.mixture import PAD_BIAS
 from multiclust_tpu_torch.ops import build, fullstep as fs, \
     fullstep_bi as fb, mixture_bi as mb
@@ -1901,23 +1902,34 @@ def test_wide_rows_sub_windows_add_in_order(monkeypatch, K, Kp, l_lo, l_hi):
 @pytest.mark.parametrize("K,Kp", WIDE_ROWS_LANES)
 def test_wide_shared_d_matches_unshared(K, Kp):
     """A step that runs both passes on one d against the order that runs
-    d for each pass (``share_d=False``): the biallelic streamed and
-    chunked step's p0' and raw B0/B1 (emit_b) and the generic step's p'
-    and sweep B bit-equal, eta' (or raw A) and t within the float32
-    tolerance; reruns bit-equal; one d launch for both passes counted as
-    one launch of each wide pass."""
+    d for each pass, the public pieces in turn
+    (``route_times.bi_step_unshared`` / ``generic_step_unshared``): the
+    biallelic streamed and chunked step's p0' and raw B0/B1 (emit_b) and
+    the generic step's p' and sweep B bit-equal, eta' (or raw A) and t
+    within the float32 tolerance; ``window_partials`` and
+    ``rows_and_partials`` bit-equal to each pass's wrapper alone; reruns
+    bit-equal; one d launch for both passes counted as one launch of each
+    wide pass."""
     dev = _cuda()
     args = _step_args(K + 3, 2, 1001, 4099, K, Kp, 0.02, dev)
     kw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+    win = dict(l_lo=1312, l_hi=4099)
+    shared = fb.window_partials(*args[:4], args[5], seg_cols=1056, k_true=K,
+                                **win)
+    alone = fb.rows_partials(*args[:4], seg_cols=1056, k_true=K, **win) + (
+        fb.cols_partials(*args[:4], args[5], k_true=K, **win),)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(shared, alone))
     for fn, call in ((fb.admixture_fullstep_biallelic_streamed,
                       dict(seg_cols=1056)),
                      (fb.admixture_fullstep_biallelic_chunked,
-                      dict(window=1312))):
+                      dict(window=1312, seg_cols=1056))):
         for extra in ({}, dict(emit_b=True), dict(emit_a=True,
                                                   emit_b=True)):
             shared = fn(*args, **call, **kw, **extra)
             again = fn(*args, **call, **kw, **extra)
-            unshared = fn(*args, **call, **kw, **extra, share_d=False)
+            unshared = rt.bi_step_unshared(
+                *args, **{"window": 4099, **call}, **kw, **extra)
             torch.cuda.synchronize()
             assert all(torch.equal(u, v) for u, v in zip(shared, again))
             for g, u in zip(shared[2:], unshared[2:]):
@@ -1930,13 +1942,20 @@ def test_wide_shared_d_matches_unshared(K, Kp):
     shared = fs.admixture_fullstep(eta, p2, x2, c, miss, mask, **gkw)
     torch.cuda.synchronize()
     assert build.LAUNCHES["mc_fullstep_step"] == before["mc_fullstep_step"] + 1
-    unshared = fs.admixture_fullstep(eta, p2, x2, c, miss, mask, **gkw,
-                                     share_d=False)
+    unshared = rt.generic_step_unshared(eta, p2, x2, c, miss, mask, **gkw)
     assert torch.equal(shared[2], unshared[2])
     _stream_close(shared[:2], unshared[:2])
+    both = fs.rows_and_partials(eta, p2, x2, None, None, miss, M=3,
+                                k_true=K, lb=0.0, project=False,
+                                finish=False)
+    alone = fs.fullstep_rows(eta, p2, x2, k_true=K, lb=0.0, project=False,
+                             finish=False, M=3) + (
+        fs.fullstep_partials(eta, p2, x2, miss, M=3, k_true=K),)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(both, alone))
     sw = fs.admixture_sweep_stats(eta, p2, x2, miss, M=3, k_true=K)
-    su = fs.admixture_sweep_stats(eta, p2, x2, miss, M=3, k_true=K,
-                                  share_d=False)
+    su = alone[:2] + (fs.fullstep_p(p2, alone[2], M=3, k_true=K,
+                                    finish=False),)
     torch.cuda.synchronize()
     assert torch.equal(sw[2], su[2])
     _stream_close(sw[:2], su[:2])

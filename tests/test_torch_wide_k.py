@@ -35,6 +35,7 @@ from multiclust_tpu_torch.model import admixture as tadm
 from multiclust_tpu_torch.model import bucketed as tbk
 from multiclust_tpu_torch.model.common import EMConfig, Params, \
     k_padded_size, make_model_data, model_data_from_dataset
+from multiclust_tpu_torch import route_times as rt
 from multiclust_tpu_torch.ops import fullstep as fs, fullstep_bi as fb
 from multiclust_tpu_torch.runtime import multistart as tms
 from multiclust_tpu_torch.runtime.ksweep import estimate_model
@@ -541,8 +542,10 @@ def test_wide_scratch_is_what_the_router_counts(B, I, W, Kp, bi):
 def test_shared_d_step_matches_the_unshared_one(K):
     """The steps that run both passes on one d at a wide Kp (the chunked
     and streamed biallelic step, with every variant; the generic step and
-    sweep statistics) against the order that runs them apart
-    (``share_d=False``), on the CPU's plain versions in float64."""
+    sweep statistics) against the order that runs them apart, the public
+    pieces in turn (``route_times.bi_step_unshared`` /
+    ``generic_step_unshared``), on the CPU's plain versions in float64;
+    ``window_partials`` against ``rows_partials`` and ``cols_partials``."""
     Kp = k_padded_size(K, 32)
     counts, miss, eta, p = _bi_panel(5, 41, 203, K)
     params, _ = _bi_port(eta, p, K, torch.float64)
@@ -555,14 +558,21 @@ def test_shared_d_step_matches_the_unshared_one(K):
     for extra in ({}, dict(emit_b=True), dict(compute_t=False),
                   dict(emit_a=True, emit_b=True, a0=a0),
                   dict(kmask=kmask, k_true=Kp)):
-        for call in (dict(window=64), dict(window=203, seg_cols=96)):
+        for call in (dict(window=64, seg_cols=64),
+                     dict(window=203, seg_cols=96)):
             vkw = {**kw, **call, **extra}
             got = fb.admixture_fullstep_biallelic_chunked(*args, **vkw)
-            want = fb.admixture_fullstep_biallelic_chunked(
-                *args, share_d=False, **vkw)
+            want = rt.bi_step_unshared(*args, **vkw)
             assert len(got) == len(want)
             for g, w in zip(got, want):
                 torch.testing.assert_close(g, w, **F64)
+    win = dict(l_lo=64, l_hi=203)
+    apart, tpart, part = fb.window_partials(*args[:4], args[5], seg_cols=139,
+                                            k_true=K, **win)
+    rows = fb.rows_partials(*args[:4], seg_cols=139, k_true=K, **win)
+    cols = fb.cols_partials(*args[:4], args[5], k_true=K, **win)
+    for g, w in zip((apart, tpart, part), rows + (cols,)):
+        torch.testing.assert_close(g, w, **F64)
     counts, miss, mask, Ml, eta, p = _generic_panel(6, 33, 29, 4, K)
     gmd = model_data_from_numpy(counts, miss, mask, Ml)
     gpar = params_from_numpy(eta[None], p[None], dtype=torch.float64)
@@ -571,14 +581,17 @@ def test_shared_d_step_matches_the_unshared_one(K):
     p2 = gpar.p.reshape(1, Kp, -1)
     gargs = (gpar.eta, p2, gmd.x_lanes, gmd.c, gmd.miss, gmd.mask)
     got = fs.admixture_fullstep(*gargs, **kw)
-    want = fs.admixture_fullstep(*gargs, share_d=False, **kw)
+    want = rt.generic_step_unshared(*gargs, **kw)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **F64)
     sweep = dict(M=4, k_true=K)
     got = fs.admixture_sweep_stats(gpar.eta, p2, gmd.x_lanes, gmd.miss,
                                    **sweep)
-    want = fs.admixture_sweep_stats(gpar.eta, p2, gmd.x_lanes, gmd.miss,
-                                    share_d=False, **sweep)
+    A, t = fs.fullstep_rows(gpar.eta, p2, gmd.x_lanes, k_true=K, lb=0.0,
+                            project=False, finish=False, M=4)
+    part = fs.fullstep_partials(gpar.eta, p2, gmd.x_lanes, gmd.miss, M=4,
+                                k_true=K)
+    want = (A, t, fs.fullstep_p(p2, part, M=4, k_true=K, finish=False))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **F64)
 
