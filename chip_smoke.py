@@ -45,10 +45,12 @@ each raising on failure:
 8. generic CLI: a 512 x 200 STRUCTURE file with 3-6 alleles per locus and
    5 % missing, SQUAREM from Rand-EM starts;
 9. mixture kernels: the biallelic mixture step (rows pass, columns pass,
-   eta finish, p0 epilogue) and the sweep statistics against their plain
-   versions at I=16384, L=2048, K=20 (Kp=32), chain batches 1 and 4,
-   missing 0 % (one stream, the ploidy fold) and 2 % (two streams), the
-   columns pass with the segments its wrapper picks; each pass alone at
+   the finish: one launch each) and the sweep statistics against their
+   plain versions at I=16384, L=2048, K=20 (Kp=32), chain batches 1 and
+   4, missing 0 % (one stream, the ploidy fold) and 2 % (two streams),
+   the columns pass with the segments its wrapper picks; the finish on
+   those partials in both layouts, its vtot and raw B0 (B1) bit-equal to
+   the ordered segment sums; each pass alone at
    the fit's shape, beside a yardstick the port never calls (one
    torch.matmul of each pass's product, float64 and float32); the sweep's
    launches, counted on a call of its own (no fit calls it); the step at
@@ -171,16 +173,17 @@ each raising on failure:
 22. the mixture above 128 lanes (the wide kernels of csrc/mixture_bi.cu):
    at K = 200 (224 lanes) and K = 1024 on 16384 x 2048, chain batches 1
    and 2, one stream (missing-free) and two (1 % missing): the wide rows
-   pass (scores and softmax), columns pass and eta finish each against
-   its plain version, the step and the sweep, reruns bit-equal, v and the
-   partials 0 past K; each kernel's time at 2 chains, one stream, on CUDA
+   pass (scores and softmax), columns pass and finish each against its
+   plain version, the step and the sweep, reruns bit-equal, v and the
+   partials 0 past K, the finish's vtot and raw B bit-equal to the
+   ordered segment sums; each kernel's time at 2 chains, one stream, on CUDA
    events beside its plain version's, its bound and one float64
    torch.matmul of its product; every Kp of the range on a ragged 1001 x
    4099 panel (and 130 live lanes of 512); fits through
    ``api.fit_model_data`` at K = 200 (plain EM
    and SQUAREM, cap 30, and plain EM at 1 % missing) and K = 1024 (cap
-   10), an M = 4 and a jagged panel at K = 200 (cap 10; the wide eta
-   finish and the generic p epilogue at 200 lanes), each run's launches
+   10), an M = 4 and a jagged panel at K = 200 (cap 10; the finish's eta
+   half and the generic p epilogue at 200 lanes), each run's launches
    counted from 0; a 600 x 500 warm-start fit at K = 200 within the
    float32 noise floor of the float64 CPU fit; ``-k 200 -n 2 -T 30``
    through the CLI on a 16384 x 2048 file; steps at 1056 lanes, which
@@ -250,7 +253,7 @@ SWEEP_TPU = {"admixture_sweep_fused": "multiclust_tpu/ops/kernels.py:1510",
 MIX_TPU = "multiclust_tpu/ops/kernels.py:1215"
 MIX_SWEEP_TPU = "multiclust_tpu/ops/kernels.py:1361"
 MIX_SOURCE = "multiclust_tpu_torch/csrc/mixture_bi.cu"
-MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_eta", "mc_mix_p")
+MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_finish")
 I_BIO, L_BIO = 8192, 131072          # the wide biobank panel
 I_NARROW, L_NARROW = 2048, 524288    # the same cells, four times as wide
 BOOT_REPS = 16                       # bootstrap replicates (-b)
@@ -1100,6 +1103,47 @@ def mixture_counts(seed, I, L, K, miss_rate, dev, spread=None):
             miss.long().cpu().numpy())
 
 
+def check_mixture_finish(mb, build, part, vpart, kw) -> float:
+    """The finish on the columns pass's partials (the wrapper's own
+    segments): one launch a call, against its plain version; its vtot and
+    the raw B0 (B1) of its p half bit-equal to the ordered segment sums,
+    and the model's layout (eta [B, K], p [B, K, L, 2]) bit-equal to its
+    K-padded outputs.  Returns the largest error."""
+    from multiclust_tpu_torch.ops.fullstep_bi import ordered_segment_sum
+
+    before = dict(build.LAUNCHES)
+    got = mb.mixture_finish(part, vpart, **kw)
+    assert {n: build.LAUNCHES[n] - before[n] for n in build.LAUNCHES
+            if build.LAUNCHES[n] != before[n]} == (
+        {"mc_mix_finish": 1, "wide_mix_finish": 1}
+        if mb.is_wide(part.shape[3]) else {"mc_mix_finish": 1})
+    ref = mb.mixture_finish_reference(part, vpart, **kw)
+    model = mb.mixture_finish(part, vpart, params=True, **kw)
+    raw = mb.mixture_p(part, None, plb=0.0, ploidy=0, project=False,
+                       finish=False)
+    torch.cuda.synchronize()
+    err = max(max_err(g, r) for g, r in zip(got, ref))
+    assert torch.equal(got[1], ordered_segment_sum(vpart))
+    for s, b in enumerate(raw[:part.shape[2]]):
+        assert torch.equal(b, ordered_segment_sum(part[:, :, s]))
+    assert all(torch.equal(g, w) for g, w in zip(
+        model, mb.params_layout(got[0], got[2], kw["k_true"])))
+    return err
+
+
+def finish_bound(part, vpart, K):
+    """(bound_ms from the live lanes, "bytes", bound_ms of every tensor
+    once) of the finish in the model's layout: the partials and v sums
+    read, eta [B, K] and p [B, K, L, 2] written."""
+    from multiclust_tpu_torch.route_times import mix_finish_bytes
+
+    B, n_seg, ns, Kp, L = part.shape
+    live = mix_finish_bytes(B, n_seg, ns, K, L, True)
+    every = tensors_bytes(part, vpart) + 4 * B * (K + 2 * K * L)
+    return (live / HBM_BYTES_PER_S * 1e3, "bytes",
+            every / HBM_BYTES_PER_S * 1e3)
+
+
 def phase_mixture_kernels(mb, build, dev, where):
     """The mixture step and the sweep against their plain versions at the
     full shape, then each pass alone at the fit's shape (chain batch 2,
@@ -1109,20 +1153,28 @@ def phase_mixture_kernels(mb, build, dev, where):
     from multiclust_tpu_torch.route_times import mixture_step_inputs
 
     K, Kp = K_FULL, 32
-    errs = {"rows": 0.0, "cols": 0.0, "eta": 0.0, "p": 0.0, "sweep": 0.0}
+    errs = {"rows": 0.0, "cols": 0.0, "finish": 0.0, "sweep": 0.0}
     kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
+    fin_kw = dict(kw)
     for seed, (B, miss_rate) in enumerate(
             [(B, m) for B in (1, 4) for m in (0.0, 0.02)]):
         args = mixture_step_inputs(60 + seed, B, I_FULL, L_FULL, K, Kp,
                                    miss_rate, dev)
+        before = dict(build.LAUNCHES)
         got = mb.mixture_fullstep_biallelic(*args, **kw)
+        # one launch each of rows, columns and the finish
+        assert {n: build.LAUNCHES[n] - before[n] for n in MIX_KERNELS} \
+            == dict.fromkeys(MIX_KERNELS, 1)
         ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
         torch.cuda.synchronize()
         e_eta, e_t, e_p = (max_err(g, r) for g, r in zip(got, ref))
         assert (got[0][:, K:] == 0).all()
-        errs["eta"] = max(errs["eta"], e_eta)
+        v, _ = mb.mixture_rows(*args, k_true=K)
+        part, vpart = mb.mixture_partials(v, args[1], args[4], k_true=K)
+        e_fin = check_mixture_finish(mb, build, part, vpart, fin_kw)
+        del v, part, vpart
+        errs["finish"] = max(errs["finish"], e_eta, e_p, e_fin)
         errs["rows"] = max(errs["rows"], e_t)
-        errs["p"] = max(errs["p"], e_p)
         sweep = mb.mixture_sweep_stats(*args, k_true=K)
         sweep_ref = mb.mixture_sweep_stats_reference(*args)
         torch.cuda.synchronize()
@@ -1135,7 +1187,9 @@ def phase_mixture_kernels(mb, build, dev, where):
         cells = B * I_FULL * L_FULL
         print(f"mixture step B={B} miss={miss_rate:.2f}: max|d| "
               f"eta'={e_eta:.3e} t={e_t:.3e} p0'={e_p:.3e} sweep={e_sw:.3e} "
-              f"(rtol {RTOL}, atol {ATOL}); kernel {k_ms:.3f} ms "
+              f"finish on the columns pass's {args[0].shape[0]}-chain "
+              f"partials {e_fin:.3e}, its vtot and raw B bit-equal to the "
+              f"ordered sums (rtol {RTOL}, atol {ATOL}); kernel {k_ms:.3f} ms "
               f"({cells / k_ms / 1e6:.2f} Gcells/s), plain {p_ms:.3f} ms "
               f"({cells / p_ms / 1e6:.2f} Gcells/s) on {where}", flush=True)
         del args, got, ref, sweep, sweep_ref
@@ -1146,9 +1200,8 @@ def phase_mixture_kernels(mb, build, dev, where):
                                               0.0, dev)
     v, _ = mb.mixture_rows(lp0, x0, bias, k_true=K)
     part, vpart = mb.mixture_partials(v, x0, k_true=K)
-    _, vtot = mb.mixture_eta(vpart, k_true=K, lb=1e-8, project=True)
-    eta_kw = dict(k_true=K, lb=1e-8, project=True)
-    p_kw = dict(plb=1e-8, ploidy=2, project=True)
+    # the finish as the model's step runs it (its layout)
+    model_kw = dict(fin_kw, params=True)
     passes = {
         "rows": (lambda: mb.mixture_rows(lp0, x0, bias, k_true=K),
                  lambda: mb.mixture_rows_reference(lp0, x0, bias)),
@@ -1158,10 +1211,9 @@ def phase_mixture_kernels(mb, build, dev, where):
                                                             k_true=K)),
                  lambda: tuple(t[:, 0]
                                for t in mb.mixture_cols_reference(v, x0))),
-        "eta": (lambda: mb.mixture_eta(vpart, **eta_kw),
-                lambda: mb.mixture_eta_reference(vpart, **eta_kw)),
-        "p": (lambda: (mb.mixture_p(part, vtot, **p_kw),),
-              lambda: (mb.mixture_p_reference(part, vtot, **p_kw),)),
+        "finish": (lambda: mb.mixture_finish(part, vpart, **model_kw),
+                   lambda: mb.mixture_finish_reference(part, vpart,
+                                                       **model_kw)),
         "sweep": (lambda: mb.mixture_sweep_stats(lp0, x0, bias,
                                                  k_true=K)[:3],
                   lambda: mb.mixture_sweep_stats_reference(lp0, x0,
@@ -1169,13 +1221,13 @@ def phase_mixture_kernels(mb, build, dev, where):
     }
     # operations: one contraction of I x L x K each for the scores (rows)
     # and for B0 (columns), 2 a multiply-add (float64 on the tensor
-    # cores), and the softmax's ~20 a posterior; the finishes ~10 an entry
+    # cores), and the softmax's ~20 a posterior; the finish's bound is its
+    # bytes (finish_bound)
     cells = 2 * I_FULL * L_FULL
     flop = {"rows": 2 * K * cells + 20 * v.numel(), "cols": 2 * K * cells,
-            "eta": 10 * vpart.numel(), "p": 10 * lp0.numel(),
             "sweep": 4 * K * cells + 20 * v.numel()}
-    inputs = {"rows": (lp0, x0, bias), "cols": (v, x0), "eta": (vpart,),
-              "p": (part[:, :1], vtot), "sweep": (lp0, x0, bias)}
+    inputs = {"rows": (lp0, x0, bias), "cols": (v, x0),
+              "sweep": (lp0, x0, bias)}
     ms, bnd = {}, {}
     for name, (kernel, plain) in passes.items():
         got, ref = kernel(), plain()
@@ -1183,7 +1235,8 @@ def phase_mixture_kernels(mb, build, dev, where):
         err = max(max_err(g, r) for g, r in zip(got, ref))
         errs[name] = max(errs[name], err)
         ms[name] = (median_ms(kernel), median_ms(plain))
-        bnd[name] = bound(tensors_bytes(inputs[name], got), flop[name])
+        bnd[name] = (finish_bound(part, vpart, K) if name == "finish" else
+                     bound(tensors_bytes(inputs[name], got), flop[name]))
         print(f"mixture pass {name} B=2 miss=0.00: max|d| {err:.3e}; kernel "
               f"{ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms, bound "
               f"{bnd[name][0]:.3f} ms ({bnd[name][1]}) on {where}",
@@ -1209,7 +1262,7 @@ def phase_mixture_kernels(mb, build, dev, where):
     torch.cuda.synchronize()
     sweep_launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
     assert sweep_launches == {"mc_mix_rows": 1, "mc_mix_cols": 1,
-                              "mc_mix_eta": 0, "mc_mix_p": 1}, sweep_launches
+                              "mc_mix_finish": 1}, sweep_launches
     print(f"launches of one mixture_sweep_stats call: {sweep_launches}",
           flush=True)
     print(f"yardstick, not a route of the port: one matmul of the rows "
@@ -1220,7 +1273,7 @@ def phase_mixture_kernels(mb, build, dev, where):
           f"{library[torch.float32]['cols']:.3f} ms; the kernels "
           f"{ms['rows'][0]:.3f} and {ms['cols'][0]:.3f} ms on {where}",
           flush=True)
-    del lp0, x0, bias, v, part, vpart, vtot
+    del lp0, x0, bias, v, part, vpart
     torch.cuda.empty_cache()
 
     # Kp = 128 (K = 100) on an unaligned panel, one stream and two
@@ -1234,14 +1287,22 @@ def phase_mixture_kernels(mb, build, dev, where):
         e_eta, e_t, e_p = (max_err(g, r) for g, r in zip(got, ref))
         again = mb.mixture_fullstep_biallelic(*args, **kw128)
         assert all(torch.equal(g, a) for g, a in zip(got, again))
-        for name, err in (("eta", e_eta), ("rows", e_t), ("p", e_p)):
+        v, _ = mb.mixture_rows(*args, k_true=100)
+        part, vpart = mb.mixture_partials(v, args[1], args[4], k_true=100)
+        e_fin = check_mixture_finish(mb, build, part, vpart,
+                                     dict(fin_kw, k_true=100))
+        del v, part, vpart
+        for name, err in (("finish", max(e_eta, e_p, e_fin)),
+                          ("rows", e_t)):
             errs[name] = max(errs[name], err)
         step_ms = median_ms(
             lambda: mb.mixture_fullstep_biallelic(*args, **kw128), n=5,
             warm=1)
         print(f"mixture step Kp=128 (K=100, B=2, 4000 x 4001, miss="
               f"{miss_rate:.2f}): max|d| eta'={e_eta:.3e} t={e_t:.3e} "
-              f"p0'={e_p:.3e} (rtol {RTOL}, atol {ATOL}); reruns bit-equal; "
+              f"p0'={e_p:.3e}, finish {e_fin:.3e} (rtol {RTOL}, atol "
+              f"{ATOL}); vtot and raw B bit-equal to the ordered sums; "
+              f"reruns bit-equal; "
               f"{step_ms:.3f} ms on {where}", flush=True)
         del args, got, ref, again
     report = build.library_path().with_suffix(".ptxas.txt").read_text()
@@ -1280,10 +1341,13 @@ def phase_fit_mixture(build, dev, where):
     launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
     print(f"launches in the mixture fits: {dict(build.LAUNCHES)}",
           flush=True)
-    # one launch of each kernel serves the whole chain batch (2 lanes)
+    # one launch of each kernel serves the whole chain batch (2 lanes);
+    # a step launches one columns pass and one finish (SQUAREM's logL a
+    # rows pass alone)
     steps = sum(r.n_iter_all for r in fits) // 2
     for name, n in launches.items():
         assert n >= steps > 0, (name, n, steps)
+    assert launches["mc_mix_finish"] == launches["mc_mix_cols"], launches
     assert not any(build.LAUNCHES[name]
                    for name in BI_KERNELS + GENERIC_KERNELS)
     return launches
@@ -1327,7 +1391,7 @@ def phase_reference_mixture(build, dev):
 
 def phase_fit_mixture_generic(build, dev, where):
     """One M=4 mixture fit through the plain route: products in torch, the
-    eta finish and the p epilogue on the card."""
+    eta finish (the finish's eta half) and the p epilogue on the card."""
     from multiclust_tpu_torch.api import fit_dataset
     from multiclust_tpu_torch.convert import dataset_from_counts
 
@@ -1345,7 +1409,7 @@ def phase_fit_mixture_generic(build, dev, where):
     print(f"launches in the M=4 mixture fit: {dict(build.LAUNCHES)}",
           flush=True)
     steps = res.n_iter_all // 2
-    assert build.LAUNCHES["mc_mix_eta"] >= steps > 0
+    assert build.LAUNCHES["mc_mix_finish"] >= steps > 0
     assert build.LAUNCHES["mc_fullstep_p"] >= steps
     assert not build.LAUNCHES["mc_mix_rows"]
 
@@ -1769,7 +1833,7 @@ def phase_biobank_mixture_kernels(mb, dev, where):
 
     K, Kp, B = K_FULL, 32, 2
     kw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True)
-    errs = {"rows": 0.0, "cols": 0.0, "eta": 0.0, "p": 0.0, "sweep": 0.0}
+    errs = {"rows": 0.0, "cols": 0.0, "finish": 0.0, "sweep": 0.0}
     gen = torch.Generator(device=dev).manual_seed(107)
     for seed, miss_rate in ((108, 0.0), (109, 0.01)):
         args = mixture_step_inputs(seed, B, I_BIO, L_BIO, K, Kp, miss_rate,
@@ -1799,7 +1863,7 @@ def phase_biobank_mixture_kernels(mb, dev, where):
         cols_ref = [t[:, 0] for t in mb.mixture_cols_reference(v, x0, x1)]
         torch.cuda.synchronize()
         e_c = max(max_err(g, r) for g, r in zip(cols, cols_ref))
-        for name, err in (("eta", e_eta), ("rows", e_t), ("p", e_p),
+        for name, err in (("finish", max(e_eta, e_p)), ("rows", e_t),
                           ("sweep", e_sw), ("cols", e_c)):
             errs[name] = max(errs[name], err)
         print(f"mixture step {I_BIO} x {L_BIO} B={B} miss={miss_rate:.2f} "
@@ -2161,7 +2225,7 @@ def phase_jagged(build, dev, where):
           f"{where}", flush=True)
     build.reset_launch_counts()
     mix, _ = fit("mixture model, bucketed", admixture=False)
-    assert build.LAUNCHES["mc_mix_eta"] > 0 and \
+    assert build.LAUNCHES["mc_mix_finish"] > 0 and \
         build.LAUNCHES["mc_fullstep_p"] >= plan.n_buckets, build.LAUNCHES
     del md, bd
     torch.cuda.empty_cache()
@@ -3473,22 +3537,24 @@ def phase_wide(fb, fs, build, dev, where):
 # csrc/mixture_bi.cu)
 
 # the TPU kernels each wide mixture kernel replaces above 128 lanes: the
-# step's scores pass and counts pass; the eta finish is the step's
+# step's scores pass and counts pass; the finish is the step's
 MIX_WIDE_TPU = {"wide_mix_rows": "multiclust_tpu/ops/kernels.py:1139",
                 "wide_mix_cols": "multiclust_tpu/ops/kernels.py:1172",
-                "wide_mix_eta": MIX_TPU}
+                "wide_mix_finish": MIX_TPU}
 MIX_WIDE_KERNELS = tuple(MIX_WIDE_TPU)
 MIX_WIDE_FIT_ITERS = {200: 30, 1024: 10}
 
 
 def wide_mixture_pass_calls(mb, args, K):
     """(kernel, plain) callables of each wide mixture pass on the step
-    inputs ``args``, with the inputs of the columns pass and the eta
-    finish made by the kernels before them."""
+    inputs ``args``, with the inputs of the columns pass and the finish
+    made by the kernels before them; the finish in the model's layout,
+    as the fits run it."""
     lp0, x0, bias, lp1, x1 = args
     v, _ = mb.mixture_rows(lp0, x0, bias, lp1, x1, k_true=K)
-    _, vpart = mb.mixture_partials(v, x0, x1, k_true=K)
-    ekw = dict(k_true=K, lb=1e-8, project=True)
+    part, vpart = mb.mixture_partials(v, x0, x1, k_true=K)
+    fkw = dict(k_true=K, lb=1e-8, plb=1e-8, ploidy=2, project=True,
+               params=True)
     calls = {
         "wide_mix_rows": (
             lambda: mb.mixture_rows(lp0, x0, bias, lp1, x1, k_true=K),
@@ -3499,16 +3565,18 @@ def wide_mixture_pass_calls(mb, args, K):
                 v, x0, x1, k_true=K)),
             lambda: tuple(t[:, 0] for t in mb.mixture_cols_reference(
                 v, x0, x1))),
-        "wide_mix_eta": (lambda: mb.mixture_eta(vpart, **ekw),
-                         lambda: mb.mixture_eta_reference(vpart, **ekw))}
-    return calls, v, vpart
+        "wide_mix_finish": (
+            lambda: mb.mixture_finish(part, vpart, **fkw),
+            lambda: mb.mixture_finish_reference(part, vpart, **fkw))}
+    return calls, v, part, vpart
 
 
-def phase_wide_mixture_kernels(mb, dev, where):
+def phase_wide_mixture_kernels(mb, build, dev, where):
     """The wide mixture kernels against their plain versions on the card:
     at 16384 x 2048, K = 200 and 1024, chain batches 1 and 2, one stream
     (missing-free) and two (1 % missing): the step, the sweep and each
-    pass alone, reruns bit-equal, v and the partials 0 past K; each pass's
+    pass alone, reruns bit-equal, v and the partials 0 past K, the finish
+    on the partials as check_mixture_finish holds it; each pass's
     time at 2 chains, one stream (CUDA events) beside its plain version's,
     its bound and the float64 matmul of its product; then every Kp of the
     range on a ragged 1001 x 4099 panel.  Returns errors, times, bounds
@@ -3525,7 +3593,12 @@ def phase_wide_mixture_kernels(mb, dev, where):
             for miss_rate in (0.0, 0.01):
                 args = mixture_step_inputs(400 + K + B, B, I_FULL, L_FULL, K,
                                            Kp, miss_rate, dev)
+                before = dict(build.LAUNCHES)
                 got = mb.mixture_fullstep_biallelic(*args, **kw)
+                # one launch of each, the finish's two halves in one
+                assert {n: build.LAUNCHES[n] - before[n]
+                        for n in MIX_KERNELS + MIX_WIDE_KERNELS} == \
+                    dict.fromkeys(MIX_KERNELS + MIX_WIDE_KERNELS, 1)
                 ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
                 again = mb.mixture_fullstep_biallelic(*args, **kw)
                 torch.cuda.synchronize()
@@ -3540,8 +3613,10 @@ def phase_wide_mixture_kernels(mb, dev, where):
                            if g is not None)
                 assert (sweep[0][..., K:] == 0).all()
                 del sweep, sweep_ref
-                calls, v, vpart = wide_mixture_pass_calls(mb, args, K)
+                calls, v, part, vpart = wide_mixture_pass_calls(mb, args, K)
                 assert (v[..., K:] == 0).all() and (vpart[..., K:] == 0).all()
+                e_fin = check_mixture_finish(mb, build, part, vpart, kw)
+                errs["wide_mix_finish"] = max(errs["wide_mix_finish"], e_fin)
                 e_pass = {}
                 for name, (kernel, plain) in calls.items():
                     k_out, p_out, again = kernel(), plain(), kernel()
@@ -3556,22 +3631,23 @@ def phase_wide_mixture_kernels(mb, dev, where):
                       f"B={B} miss={miss_rate:.2f}: max|d| step {e_step:.3e}"
                       f", sweep {e_sw:.3e}, "
                       + ", ".join(f"{n} {e:.3e}" for n, e in e_pass.items())
-                      + f" (rtol {RTOL}, atol {ATOL}); reruns bit-equal",
+                      + f", finish in the K-padded layout {e_fin:.3e} "
+                      f"(rtol {RTOL}, atol {ATOL}); vtot and raw B "
+                      f"bit-equal to the ordered sums over "
+                      f"{part.shape[1]} segment(s); reruns bit-equal",
                       flush=True)
                 if B == 2 and not miss_rate:
                     lp0, x0, bias = args[:3]
                     cells = B * I_FULL * L_FULL
                     t_rows = mb.mixture_rows(lp0, x0, bias, k_true=K)[1]
-                    part = mb.mixture_partials(v, x0, k_true=K)[0][:, :1]
                     bounds = {
                         "wide_mix_rows": bound(
                             tensors_bytes((lp0, x0, bias, v, t_rows)),
                             2 * K * cells + 20 * B * I_FULL * K),
-                        "wide_mix_cols": bound(tensors_bytes((v, x0, part)),
-                                               2 * K * cells),
-                        "wide_mix_eta": bound(
-                            tensors_bytes((vpart,)) + 8 * B * Kp,
-                            10 * vpart.numel())}
+                        "wide_mix_cols": bound(
+                            tensors_bytes((v, x0, part[:, :1])),
+                            2 * K * cells),
+                        "wide_mix_finish": finish_bound(part, vpart, K)}
                     for name, (kernel, plain) in calls.items():
                         ms[name, K] = (median_ms(kernel),
                                        median_ms(plain, n=5, warm=1))
@@ -3586,8 +3662,8 @@ def phase_wide_mixture_kernels(mb, dev, where):
                         lambda: torch.matmul(xx, lp_t), n=5, warm=1)
                     lib["wide_mix_cols", K] = median_ms(
                         lambda: torch.matmul(v_t, xx), n=5, warm=1)
-                    lib["wide_mix_eta", K] = None
-                    del xx, lp_t, v_t, t_rows, part
+                    lib["wide_mix_finish", K] = None
+                    del xx, lp_t, v_t, t_rows
                     for name in MIX_WIDE_KERNELS:
                         b = bnd[name, K]
                         print(f"wide mixture K={K} {name} at 2 chains, one "
@@ -3599,7 +3675,7 @@ def phase_wide_mixture_kernels(mb, dev, where):
                               + ("none" if lib[name, K] is None
                                  else f"{lib[name, K]:.3f} ms")
                               + f" on {where}", flush=True)
-                del args, calls, v, vpart
+                del args, calls, v, part, vpart
                 torch.cuda.empty_cache()
     # every Kp of the range on a ragged panel, one stream and two
     for K, Kp in ((150, 160), (200, 224), (500, 512), (1024, 1024),
@@ -3615,12 +3691,14 @@ def phase_wide_mixture_kernels(mb, dev, where):
             torch.cuda.synchronize()
             assert all(torch.equal(g, a) for g, a in zip(got, again))
             e_rag = max(e_rag, max(max_err(g, r) for g, r in zip(got, ref)))
-            calls, _, _ = wide_mixture_pass_calls(mb, args, K)
+            calls, _, part, vpart = wide_mixture_pass_calls(mb, args, K)
+            e_rag = max(e_rag, check_mixture_finish(mb, build, part, vpart,
+                                                    kw))
             for name, (kernel, plain) in calls.items():
                 err = max(max_err(g, r) for g, r in zip(kernel(), plain()))
                 errs[name] = max(errs[name], err)
                 e_rag = max(e_rag, err)
-            del args, got, ref, again, calls
+            del args, got, ref, again, calls, part, vpart
         print(f"wide mixture K={K} ({Kp} lanes) ragged 1001 x 4099, B=2, one "
               f"stream and two: max|d| {e_rag:.3e}; reruns bit-equal",
               flush=True)
@@ -3633,8 +3711,8 @@ def phase_wide_mixture_fits(build, dev, where):
     uploaded, ``route_times.mixture_planes``), 2 chains: K = 200 plain EM
     and SQUAREM (cap 30, missing-free: one stream) and plain EM at 1 %
     missing (two streams), K = 1024 plain EM (cap 10); then K = 200 on an M = 4
-    and on the jagged mix (cap 10; the plain products with the wide eta
-    finish and the generic p epilogue).  The launches of each run counted
+    and on the jagged mix (cap 10; the plain products with the finish's
+    eta half and the generic p epilogue).  The launches of each run counted
     from 0; returns the wide kernels' launches in the K = 200 missing-free
     fits (the main path)."""
     from multiclust_tpu_torch.api import fit_model_data
@@ -3667,8 +3745,11 @@ def phase_wide_mixture_fits(build, dev, where):
                   f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
                   flush=True)
             steps = res.n_iter_all // 2
-            for name in MIX_WIDE_KERNELS + ("mc_mix_p",):
+            for name in MIX_WIDE_KERNELS + ("mc_mix_finish",):
                 assert build.LAUNCHES[name] >= steps > 0, (name, K, label)
+            # one finish a step, as one columns pass
+            assert build.LAUNCHES["mc_mix_finish"] == \
+                build.LAUNCHES["mc_mix_cols"], build.LAUNCHES
             assert not any(build.LAUNCHES[n]
                            for n in BI_KERNELS + GENERIC_KERNELS)
             if K == 200 and not miss_rate:
@@ -3697,7 +3778,7 @@ def phase_wide_mixture_fits(build, dev, where):
               f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
               flush=True)
         steps = res.n_iter_all // 2
-        assert build.LAUNCHES["wide_mix_eta"] >= steps > 0, label
+        assert build.LAUNCHES["wide_mix_finish"] >= steps > 0, label
         assert build.LAUNCHES["mc_fullstep_p"] >= steps, label
         assert not build.LAUNCHES["mc_mix_rows"], label
         del md, out
@@ -3860,7 +3941,7 @@ def phase_wide_mixture(mb, build, dev, where):
     records."""
     t0 = time.time()
     torch.cuda.empty_cache()
-    errs, ms, bnd, lib = phase_wide_mixture_kernels(mb, dev, where)
+    errs, ms, bnd, lib = phase_wide_mixture_kernels(mb, build, dev, where)
     print(f"wide mixture kernels: {time.time() - t0:.1f} s", flush=True)
     launches = phase_wide_mixture_fits(build, dev, where)
     phase_wide_mixture_reference(build, dev)
@@ -4006,11 +4087,13 @@ def main() -> int:
         kernel_record(name, GENERIC_SOURCE, tpu, sweep_launches, sweep_err,
                       sweep_ms, g_bnd["sweep"])
         for name, tpu in SWEEP_TPU.items()]
+    # the finish's record: the model's layout, as the fits run it; its
+    # bound from the live lanes, every tensor's beside it
     kernels += [
         kernel_record(f"mixture_{name}", MIX_SOURCE, MIX_TPU,
                       mix_launches[f"mc_mix_{name}"], m_errs[name],
                       m_ms[name], m_bnd[name], m_lib.get(name))
-        for name in ("rows", "cols", "eta", "p")]
+        for name in ("rows", "cols", "finish")]
     # the resident sweep's port is the mixture rows and columns passes
     # with the raw epilogue (finish=False); no fit calls it: its launches
     # are those of one mixture_sweep_stats call counted on their own, its

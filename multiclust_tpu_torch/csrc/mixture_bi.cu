@@ -1,5 +1,5 @@
 // Biallelic mixture EM step for Hopper (sm_90a): a rows pass, a columns
-// pass, an eta finish and a p0 epilogue.
+// pass and a finish (eta and p0).
 //
 // Replaces the Pallas TPU kernels `mixture_fullstep_biallelic` /
 // `_mix_scores_kernel`, `_mix_counts_kernel`
@@ -33,12 +33,30 @@
 //   its segment of I in stages of 32 rows and writes B0 (B1) as the
 //   segment's partial sums; the blocks of the first locus tile also write
 //   the segment's sum of v (for vtot).
-// * eta finish: one warp per chain sums the vtot partials in segment order,
-//   normalizes and projects eta with the warp Michelot of simplex.cuh.
-//   It never reads the host.
-// * p0 epilogue: one thread per (chain, k, l) sums the B partials in
-//   segment order and applies the p0 update; `finish` = 0 writes the raw
-//   B0 (B1) instead (the sweep statistics).
+// * finish, one launch a step (`mix_finish_kernel`): the first block of a
+//   chain's row runs the eta half, one warp that sums each lane's v
+//   partials in segment order (a batch of segments' slots loaded before
+//   any is added), normalizes and projects eta with a warp Michelot; the
+//   other blocks run the p half, a thread a (chain, k, 4 loci) that sums
+//   its B0 (B1) partials in segment order, 16-byte loads where L % 4 = 0,
+//   and with one stream its lane's vtot from the same v partials, so it
+//   waits for no other block, then applies the p0 update.  It writes eta'
+//   [B, Kp], vtot and p0' [B, Kp, L], or the model's parameters eta [B,
+//   K] and p [B, K, L, 2] = (p0', 1 - p0'), so the step makes no launch
+//   after it.  One half alone serves the other mixtures' eta
+//   (`mixture_eta`) and the sweep's raw B0 (B1) (`finish` = 0).  It
+//   never reads the host.  Bound: bytes, the partials read once and the
+//   outputs written once; the eta half is latency (a round trip to L2 a
+//   batch of segments, two warp reductions a Michelot pass), hidden
+//   behind the p blocks.  Measured slower at K = 1024 (PERF.md): a Michelot
+//   pass written as selects, every slot tested at once, took the eta
+//   half from 5.5 to 4.4 us alone but 110 registers at KJ = 32, a third
+//   of the p blocks' warps gone, the launch 25 % slower; bounded to 3
+//   blocks an SM it spilled.  So the eta half keeps to the p half's
+//   registers (78 at most).  It replaces the last row block of the TPU's
+//   counts pass (kernels.py:1196-1210), the eta update the JAX step runs
+//   in XLA (model/mixture.py:106-113) and the step's stack of (p0', 1 -
+//   p0') (:270-272).
 //
 // Both contractions run on the float64 tensor cores (`mma.sync` m16n8k16,
 // DMMA): x holds counts and lp and v are float32, so every product is
@@ -63,7 +81,7 @@
 //
 // Cluster tiles stop at K: both passes take k_true (clipped to [1, Kp])
 // and compute ceil(K / 8) tiles of 8; the rows pass writes v = 0 past K,
-// the columns pass writes zeros for the pad rows, which the p0 epilogue
+// the columns pass writes zeros for the pad rows, which the finish
 // reads.  The caller's K-pad lanes (lp 0, bias -1e30) are those of the
 // plain versions, which know no k_true.
 //
@@ -108,8 +126,8 @@
 //   its share of the chunk's lanes (float32 within a stage, float64
 //   across, a fixed order), so no block carries the v sums alone; the
 //   first chunk's blocks write zeros past the live tiles.
-// * eta finish: the narrow kernel at KJ = 32 values a lane, with Kp at run
-//   time (michelot_warp at KJ = 32, as wide.cuh's finish runs it).
+// * finish: the narrow kernel, its eta half at KJ = 8 / 16 / 32 values a
+//   lane by Kp <= 256 / 512 / 1024.
 //
 // The products stay IEEE float64 on the tensor cores, summed in a fixed
 // order over L (rows) or the segment's rows (columns); no atomics, so
@@ -149,7 +167,7 @@ constexpr int KP_WIDE_MAX = 1024;
 constexpr int VSUM_ST = 32;
 
 using mc::FULL;
-using mc::michelot_warp;
+using mc::michelot_warp_bits;
 using mc::warp_sum;
 
 // count q (0-3) of four int8 counts packed in w, as float64
@@ -1090,69 +1108,192 @@ __global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
   }
 }
 
-// eta finish: one warp per chain, lane owns k = lane + 32 j (KJ values a
-// lane, the lanes at or past Kp none); vtot = the segments' v sums in
-// segment order (deterministic), then eta' = Michelot(vtot / sum vtot)
-// over the lanes k < k_true.  Pad lanes of vtot are exactly 0.  KJ = Kp /
-// 32 at Kp <= 128; the wide finish is one instantiation at KJ = 32.
+// ---------------------------------------------------------------------------
+// finish: eta' and p0' (or the raw B0/B1) from the columns pass's partials,
+// one launch a step
+
+// The finish's arguments.  part [B, n_seg, 1|2, Kp, L]; vpart [B, v_seg,
+// Kp], the v sums (v_seg = n_seg, or 1 where the caller hands a vtot
+// already summed).  Eta half (eta non-null): vtot [B, Kp] (written where
+// non-null) and eta [B, Kp], or [B, k_true] under `params`.  p half (out0
+// non-null) over the lanes k < nk (Kp, or k_true under `params`) and
+// nq = ceil(L / 4) groups of 4 loci: out0 = p0' [B, Kp, L], the raw B0
+// under `finish` = 0 (out1 the raw B1 of two streams), or under `params`
+// the model's p [B, k_true, L, 2] = (p0', 1 - p0').
+struct FinishArgs {
+  const float* part;
+  const float* vpart;
+  float* vtot;
+  float* eta;
+  float* out0;
+  float* out1;
+  int Kp, L, n_seg, v_seg, two, k_true, nk, nq;
+  float lb, plb, pub, ploidy;
+  int project, finish, params, vec;
+};
+
+// segments a p thread loads (4 loci of each stream) before it adds any
+constexpr int FIN_SEG = 4;
+
+// The eta half, one warp (lane owns k = lane + 32 j, KJ slots a lane, the
+// slots at or past Kp none): vtot_k = the segments' v sums added in
+// segment order, the slots of a batch of SQ segments loaded before any is
+// added (one round trip to L2 a batch, not one a slot and segment; at
+// most 32 loads, and 8 segments, in flight a lane); then eta' =
+// Michelot(vtot / sum vtot) over the lanes k < k_true.  Pad lanes of
+// vtot are exactly 0.
 template <int KJ>
-__global__ void __launch_bounds__(32) mix_eta_kernel(
-    const float* __restrict__ vpart, float* __restrict__ vtot,
-    float* __restrict__ eta, int Kp, int n_seg, int k_true, float lb,
-    int project) {
-  const int b = blockIdx.x, lane = threadIdx.x;
-  float w[KJ], part = 0.f;
+__device__ __forceinline__ void finish_eta(const FinishArgs& a, int b,
+                                           int lane) {
+  constexpr int SQ = KJ >= 32 ? 1 : 32 / KJ < 8 ? 32 / KJ : 8;
+  const float* vp = a.vpart + (size_t)b * a.v_seg * a.Kp;
+  float w[KJ];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) w[j] = 0.f;
+  for (int q0 = 0; q0 < a.v_seg; q0 += SQ) {
+    float r[SQ][KJ];
+#pragma unroll
+    for (int u = 0; u < SQ; ++u)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const int k = lane + 32 * j;
+        r[u][j] = q0 + u < a.v_seg && k < a.Kp
+                      ? vp[(size_t)(q0 + u) * a.Kp + k] : 0.f;
+      }
+#pragma unroll
+    for (int u = 0; u < SQ; ++u)
+      if (q0 + u < a.v_seg)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) w[j] += r[u][j];
+  }
+  float part = 0.f;
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
     const int k = lane + 32 * j;
-    float s = 0.f;
-    if (k < Kp) {
-      for (int q = 0; q < n_seg; ++q)
-        s += vpart[((size_t)b * n_seg + q) * Kp + k];
-      vtot[(size_t)b * Kp + k] = s;
-    }
-    w[j] = s;
-    part += s;
+    if (a.vtot != nullptr && k < a.Kp) a.vtot[(size_t)b * a.Kp + k] = w[j];
+    part += w[j];
   }
   const float tot = warp_sum(part);
 #pragma unroll
   for (int j = 0; j < KJ; ++j) w[j] = w[j] / tot;
-  if (project) michelot_warp<KJ>(w, lane, k_true, lb);
+  if (a.project) michelot_warp_bits<KJ>(w, lane, a.k_true, a.lb);
+  const int ld = a.params ? a.k_true : a.Kp;
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
-    if (lane + 32 * j < Kp) eta[(size_t)b * Kp + lane + 32 * j] = w[j];
+    if (lane + 32 * j < ld) a.eta[(size_t)b * ld + lane + 32 * j] = w[j];
 }
 
-// p0 epilogue: B0 (B1) = the segments' partials summed in segment order
-// (deterministic), then the p0 update; `finish` = 0 writes raw B0 (B1).
-__global__ void __launch_bounds__(NT) mix_p_kernel(
-    const float* __restrict__ part, const float* __restrict__ vtot,
-    float* __restrict__ out0, float* __restrict__ out1, int Kp, int L,
-    int n_seg, int two, float plb, float pub, float ploidy, int project,
-    int finish) {
-  const int b = blockIdx.y;
-  const int KL = Kp * L;
-  const int kl = blockIdx.x * NT + threadIdx.x;
-  if (kl >= KL) return;
-  const int ns = two ? 2 : 1;
-  const float* pb = part + (size_t)b * n_seg * ns * KL + kl;
-  float b0 = 0.f, b1 = 0.f;
-  for (int s = 0; s < n_seg; ++s) {
-    b0 += pb[(size_t)(s * ns) * KL];
-    if (two) b1 += pb[(size_t)(s * ns + 1) * KL];
+// 4 loci from p: one 16-byte load where `vec`, else the n < 4 left and
+// zeros past them
+__device__ __forceinline__ void load4(float (&r)[4], const float* p, int vec,
+                                      int n) {
+  if (vec) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    r[0] = q.x;
+    r[1] = q.y;
+    r[2] = q.z;
+    r[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] = i < n ? p[i] : 0.f;
   }
-  const size_t o = (size_t)b * KL + kl;
-  if (!finish) {
-    out0[o] = b0;
-    if (two) out1[o] = b1;
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&r)[4],
+                                       int vec, int n) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (i < n) p[i] = r[i];
+  }
+}
+
+// The p half, one thread a (chain, lane k < nk, 4 loci): B0 (B1) = the
+// segments' partials added in segment order, FIN_SEG segments' loads
+// issued before any is added; with one stream the lane's vtot too, from
+// vpart in the eta half's order, so that no p block waits for the eta
+// half; then the p0 update, as the TPU kernel's last row block
+// (kernels.py:1196-1210) and the model's (p0', 1 - p0') under `params`.
+__device__ __forceinline__ void finish_p(const FinishArgs& a, int b,
+                                         int item) {
+  const int k = item / a.nq, l0 = 4 * (item - k * a.nq);
+  if (k >= a.nk) return;
+  const int L = a.L, n = min(4, L - l0), ns = a.two ? 2 : 1;
+  const size_t KL = (size_t)a.Kp * L;
+  const float* pb =
+      a.part + (size_t)b * a.n_seg * ns * KL + (size_t)k * L + l0;
+  float vt = 0.f;
+  if (a.finish && !a.two) {
+    const float* vb = a.vpart + (size_t)b * a.v_seg * a.Kp + k;
+    for (int q0 = 0; q0 < a.v_seg; q0 += FIN_SEG) {
+      float r[FIN_SEG];
+#pragma unroll
+      for (int u = 0; u < FIN_SEG; ++u)
+        r[u] = q0 + u < a.v_seg ? vb[(size_t)(q0 + u) * a.Kp] : 0.f;
+#pragma unroll
+      for (int u = 0; u < FIN_SEG; ++u)
+        if (q0 + u < a.v_seg) vt += r[u];
+    }
+  }
+  float b0[4] = {0.f, 0.f, 0.f, 0.f}, b1[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < a.n_seg; s0 += FIN_SEG) {
+    float r0[FIN_SEG][4], r1[FIN_SEG][4];
+#pragma unroll
+    for (int u = 0; u < FIN_SEG; ++u)
+      if (s0 + u < a.n_seg) {
+        const float* src = pb + (size_t)(s0 + u) * ns * KL;
+        load4(r0[u], src, a.vec, n);
+        if (a.two) load4(r1[u], src + KL, a.vec, n);
+      }
+#pragma unroll
+    for (int u = 0; u < FIN_SEG; ++u)
+      if (s0 + u < a.n_seg)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          b0[i] += r0[u][i];
+          if (a.two) b1[i] += r1[u][i];
+        }
+  }
+  if (!a.finish) {
+    const size_t o = ((size_t)b * a.Kp + k) * L + l0;
+    store4(a.out0 + o, b0, a.vec, n);
+    if (a.two) store4(a.out1 + o, b1, a.vec, n);
     return;
   }
-  const float pc0 = b0 + plb;
-  const float pc1 = two ? b1 + plb
-                        : ploidy * vtot[(size_t)b * Kp + kl / L] - b0 + plb;
-  float q = pc0 / (pc0 + pc1);
-  if (project) q = fminf(fmaxf(q, plb), pub);
-  out0[o] = q;
+  float q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float pc0 = b0[i] + a.plb;
+    const float pc1 = a.two ? b1[i] + a.plb : a.ploidy * vt - b0[i] + a.plb;
+    float p = pc0 / (pc0 + pc1);
+    if (a.project) p = fminf(fmaxf(p, a.plb), a.pub);
+    q[i] = p;
+  }
+  if (!a.params) {
+    store4(a.out0 + ((size_t)b * a.Kp + k) * L + l0, q, a.vec, n);
+    return;
+  }
+  // 1 - p0' in float32: the IEEE subtraction torch's 1.0 - p0n makes
+  float* dst = a.out0 + (((size_t)b * a.nk + k) * L + l0) * 2;
+  const float lo[4] = {q[0], 1.f - q[0], q[1], 1.f - q[1]};
+  const float hi[4] = {q[2], 1.f - q[2], q[3], 1.f - q[3]};
+  store4(dst, lo, a.vec, min(4, 2 * n));
+  store4(dst + 4, hi, a.vec, 2 * n - 4);
+}
+
+// The finish: block 0 of each chain's row runs the eta half (its first
+// warp; with an eta), the other blocks (all, without one) the p half,
+// NT threads a block of (lane, 4 loci) items.
+template <int KJ>
+__global__ void __launch_bounds__(NT) mix_finish_kernel(const FinishArgs a) {
+  const int b = blockIdx.y, eta_on = a.eta != nullptr;
+  if (eta_on && blockIdx.x == 0) {
+    if (threadIdx.x < 32) finish_eta<KJ>(a, b, threadIdx.x);
+    return;
+  }
+  finish_p(a, b, (blockIdx.x - eta_on) * NT + threadIdx.x);
 }
 
 }  // namespace
@@ -1371,43 +1512,67 @@ extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
 #undef MC_TILE
 }
 
-// The eta finish: one instantiation a narrow Kp, KJ = 32 for the wide ones.
-extern "C" int mc_mix_eta(const void* vpart, void* vtot, void* eta, int B,
-                          int Kp, int n_seg, int k_true, float lb,
-                          int project, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* vp = (const float*)vpart;
-  float* vt = (float*)vtot;
-  float* e = (float*)eta;
+// The finish, one launch: the eta half where eta is non-null (vtot too
+// where vtot is), the p half where out0 is (FinishArgs); the eta half's
+// slots a lane by Kp as the admixture's wide finish sizes them
+// (wide.cuh): Kp / 32 up to 128, then 8 / 16 / 32 at Kp <= 256 / 512 /
+// 1024; without the eta half the KJ = 1 instance (the fewest registers).
+// Returns cudaErrorInvalidValue for a Kp the kernels do not take or
+// arguments that do not go together.
+extern "C" int mc_mix_finish(const void* part, const void* vpart, void* vtot,
+                             void* eta, void* out0, void* out1, int B, int Kp,
+                             int L, int n_seg, int v_seg, int two,
+                             int k_true, float lb, float plb, float pub,
+                             float ploidy, int project, int finish,
+                             int params, void* stream) {
+  const bool eta_on = eta != nullptr, p_on = out0 != nullptr;
   const int kt = k_true > Kp ? Kp : k_true;
-#define MC_ETA(KJ)                                                        \
-  mix_eta_kernel<KJ><<<B, 32, 0, s>>>(vp, vt, e, Kp, n_seg, kt, lb, project)
-  if (kp_wide(Kp)) {
-    MC_ETA(KP_WIDE_MAX / 32);
-  } else if (kp_narrow(Kp)) {
-    switch (Kp / 32) {
-      case 1: MC_ETA(1); break;
-      case 2: MC_ETA(2); break;
-      case 3: MC_ETA(3); break;
-      case 4: MC_ETA(4); break;
-    }
-  } else {
+  if ((!kp_narrow(Kp) && !kp_wide(Kp)) || B < 1 || (!eta_on && !p_on) ||
+      (eta_on && (vpart == nullptr || v_seg < 1)) ||
+      (p_on && (part == nullptr || n_seg < 1 || L < 1)) ||
+      (p_on && finish && !two && (vpart == nullptr || v_seg < 1)) ||
+      (p_on && !finish && two && out1 == nullptr) ||
+      (params && (!finish || !eta_on || !p_on || kt < 1)))
     return (int)cudaErrorInvalidValue;
+  FinishArgs a;
+  a.part = (const float*)part;
+  a.vpart = (const float*)vpart;
+  a.vtot = (float*)vtot;
+  a.eta = (float*)eta;
+  a.out0 = (float*)out0;
+  a.out1 = (float*)out1;
+  a.Kp = Kp;
+  a.L = L;
+  a.n_seg = n_seg;
+  a.v_seg = v_seg;
+  a.two = two;
+  a.k_true = kt;
+  a.nk = params ? kt : Kp;
+  a.nq = (L + 3) / 4;
+  a.lb = lb;
+  a.plb = plb;
+  a.pub = pub;
+  a.ploidy = ploidy;
+  a.project = project;
+  a.finish = finish;
+  a.params = params;
+  a.vec = L % 4 == 0 && aligned16(part) && aligned16(out0) &&
+          aligned16(out1);
+  const long long items = p_on ? (long long)a.nk * a.nq : 0;
+  const long long blocks = (items + NT - 1) / NT + (eta_on ? 1 : 0);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int kj = !eta_on ? 1 : Kp <= 128 ? Kp / 32 : Kp <= 256 ? 8
+                 : Kp <= 512 ? 16 : 32;
+  switch (kj) {
+    case 1: mix_finish_kernel<1><<<grid, NT, 0, s>>>(a); break;
+    case 2: mix_finish_kernel<2><<<grid, NT, 0, s>>>(a); break;
+    case 3: mix_finish_kernel<3><<<grid, NT, 0, s>>>(a); break;
+    case 4: mix_finish_kernel<4><<<grid, NT, 0, s>>>(a); break;
+    case 8: mix_finish_kernel<8><<<grid, NT, 0, s>>>(a); break;
+    case 16: mix_finish_kernel<16><<<grid, NT, 0, s>>>(a); break;
+    default: mix_finish_kernel<32><<<grid, NT, 0, s>>>(a); break;
   }
-#undef MC_ETA
-  return (int)cudaGetLastError();
-}
-
-// The p0 epilogue takes any Kp (one thread a (chain, k, l)); the wrapper
-// admits the multiples of 32 up to KP_WIDE_MAX.
-extern "C" int mc_mix_p(const void* part, const void* vtot, void* out0,
-                        void* out1, int B, int Kp, int L, int n_seg, int two,
-                        float plb, float pub, float ploidy, int project,
-                        int finish, void* stream) {
-  const int KL = Kp * L;
-  const dim3 grid((KL + NT - 1) / NT, B);
-  mix_p_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)part, (const float*)vtot, (float*)out0, (float*)out1, Kp,
-      L, n_seg, two, plb, pub, ploidy, project, finish);
   return (int)cudaGetLastError();
 }

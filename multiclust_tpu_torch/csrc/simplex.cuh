@@ -84,6 +84,54 @@ __device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
   michelot_warp_mask<KJ>(w, valid, lb);
 }
 
+// The same passes with the free slots as the bits of one word (KJ <= 32),
+// not an array of flags: the same arithmetic in the same order, so the
+// same results, in registers for w alone (the mixture's finish keeps them
+// to let its p blocks, in the same kernel, hold more warps an SM).  A
+// pass gathers its pinned slots in a word of their own and clears them
+// after it, so no slot's test waits on the one before it.
+template <int KJ>
+__device__ void michelot_warp_bits(float (&w)[KJ], int lane, int k_true,
+                                   float lb) {
+  static_assert(KJ <= 32, "one bit a slot");
+  unsigned fr = 0u;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    if (lane + 32 * j < k_true) fr |= 1u << j;
+    else w[j] = 0.f;
+  }
+  const unsigned valid = fr;
+  int nf = __reduce_add_sync(FULL, __popc(fr));
+  while (true) {
+    float cs = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) cs += w[j];
+    cs = warp_sum(cs);
+    const float off = (cs - 1.f) / fmaxf((float)nf, 1.f);
+    unsigned pinned = 0u;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      if (fr >> j & 1u) {
+        const float w2 = w[j] - off;
+        if (w2 < lb) {
+          w[j] = lb;
+          pinned |= 1u << j;
+        } else {
+          w[j] = w2;
+        }
+      }
+    }
+    fr &= ~pinned;
+    const int left = __reduce_add_sync(FULL, __popc(fr));
+    const bool any_pinned = left < nf;
+    nf = left;
+    if (!any_pinned || nf == 0) break;
+  }
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (!(valid >> j & 1u)) w[j] = 0.f;
+}
+
 // Michelot projection of rows held by aligned groups of G lanes (lane g
 // of a group owns slots g + G j); bit j of `fr` marks slot j free (valid)
 // on entry, the others must hold 0.  Groups finish at different passes,

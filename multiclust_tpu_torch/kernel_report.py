@@ -7,8 +7,9 @@ rows pass's A launch and the columns pass's B launch with the biallelic
 and the generic cells, the d launch both take, the finish at 8, 16 and
 32 lanes a thread, each built once for every Kp in its range)
 and of the mixture step (csrc/mixture_bi.cu: the rows pass's scores and
-softmax, the columns pass, one and two streams, and the eta finish at 32
-lanes a thread): registers, shared memory and spills (``nvcc -Xptxas -v``),
+softmax, the columns pass, one and two streams, and the finish at 8, 16
+and 32 lanes a thread): registers, shared memory and spills (``nvcc
+-Xptxas -v``),
 and the static instruction mix of each kernel's machine code
 (``cuobjdump -sass``: FFMA against LDS, MUFU and the rest; DMMA, the
 float64 tensor-core product, counted on a line of its own for the mixture
@@ -55,15 +56,17 @@ WIDE_KERNELS = (("wide_rows_a_kernel", "kBi"),
                 ("wide_finish_kernel", 32))
 # the mixture's wide kernels (csrc/mixture_bi.cu), and their mangled
 # template arguments: the contraction passes' second stream, the
-# softmax's score pairs a lane, the eta finish's lanes a thread
-MIX_WIDE = "mix_(?:rows_wide|cols_wide|softmax|eta)_kernel"
+# softmax's score pairs a lane, the finish's eta slots a lane (the
+# pattern names the narrow finishes too)
+MIX_WIDE = "mix_(?:rows_wide|cols_wide|softmax|finish)_kernel"
 MIX_WIDE_KERNELS = (("mix_rows_wide_kernel", "ILb0E"),
                     ("mix_rows_wide_kernel", "ILb1E"),
                     ("mix_cols_wide_kernel", "ILb0E"),
                     ("mix_cols_wide_kernel", "ILb1E"),
                     ("mix_softmax_kernel", "ILi4E"),
                     ("mix_softmax_kernel", "ILi16E"),
-                    ("mix_eta_kernel", "ILi32E"))
+                    ("mix_finish_kernel", "ILi8E"),
+                    ("mix_finish_kernel", "ILi32E"))
 
 
 def ptxas_lines(report: str, pattern: str = "fullstep_bi"):

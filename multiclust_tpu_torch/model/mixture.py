@@ -47,7 +47,7 @@ from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
 from multiclust_tpu_torch.ops.fullstep import fullstep_p
 from multiclust_tpu_torch.ops.fullstep_bi import KP_MAX
 from multiclust_tpu_torch.ops.mixture_bi import mixture_eta, \
-    mixture_fullstep_biallelic, mixture_rows
+    mixture_finish, mixture_partials, mixture_rows
 from multiclust_tpu_torch.ops.simplex import project_rows
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     sum_over
@@ -264,19 +264,21 @@ def _kernel_inputs(params: Params, md: ModelData, cfg: EMConfig):
 def _em_step_bi_kernel(params: Params, md: ModelData, cfg: EMConfig,
                        want_ll: bool = True):
     """Biallelic mixture step through the kernels (the port of
-    ``_em_step_bi_kernel``, mixture.py:180-273): rows, columns, eta finish
-    and p0 epilogue for the whole chain batch, with no host read.  The
-    parameters stay in the full [B, K, L, 2] layout."""
+    ``_em_step_bi_kernel``, mixture.py:180-273): rows pass, the logL terms
+    of its t, columns pass, then the finish, which writes the new
+    parameters in the full [B, K, L, 2] layout (``mixture_finish(...,
+    params=True)``), for the whole chain batch, with no host read and no
+    launch after the finish."""
     K = params.K
     lp0, x0, bias, lp1, x1 = _kernel_inputs(params, md, cfg)
-    eta, t, p0n = mixture_fullstep_biallelic(
-        lp0, x0, bias, lp1, x1, k_true=K, lb=float(cfg.eta_lower_bound),
-        plb=float(cfg.p_lower_bound), ploidy=cfg.ploidy,
-        project=cfg.do_projection)
-    ll, scale = _ll_terms(t) if want_ll else _no_ll(eta)
-    p0n = p0n[:, :K]
-    return (Params(eta=eta[:, :K].contiguous(),
-                   p=torch.stack([p0n, 1.0 - p0n], dim=-1)), ll, scale)
+    v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=K)
+    ll, scale = _ll_terms(t) if want_ll else _no_ll(params.eta)
+    part, vpart = mixture_partials(v, x0, x1, k_true=K)
+    eta, p = mixture_finish(part, vpart, k_true=K,
+                            lb=float(cfg.eta_lower_bound),
+                            plb=float(cfg.p_lower_bound), ploidy=cfg.ploidy,
+                            project=cfg.do_projection, params=True)
+    return Params(eta=eta, p=p), ll, scale
 
 
 def em_step(params: Params, md: ModelData, cfg: EMConfig,

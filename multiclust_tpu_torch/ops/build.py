@@ -60,9 +60,9 @@ _SIGNATURES = {
     "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _P],
     "mc_mix_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "mc_mix_eta": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "mc_mix_p": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I,
-                 _P],
+    "mc_mix_finish": [_P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+                      _I, _P],
 }
 
 # Launches counted under a name of their own as well as the launcher's
@@ -75,10 +75,11 @@ _SIGNATURES = {
 # biallelic and the generic columns pass (a launcher that runs both
 # passes on one d, mc_fullstep_bi_window or mc_fullstep_step, counts
 # each); of csrc/mixture_bi.cu the mixture's rows pass (its scores
-# and its softmax, one call of the launcher), columns pass and eta finish
+# and its softmax, one call of the launcher), columns pass and finish
+# (either half alone too)
 EXTRA_COUNTS = ("fullstep_bi_chunked", "wide_rows", "wide_finish",
                 "wide_cols_bi", "wide_cols_generic", "wide_mix_rows",
-                "wide_mix_cols", "wide_mix_eta")
+                "wide_mix_cols", "wide_mix_finish")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0

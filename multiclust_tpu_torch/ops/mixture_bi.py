@@ -7,20 +7,25 @@ Replaces the Pallas TPU kernels ``mixture_fullstep_biallelic`` /
 ``mixture_sweep_resident`` / ``_mix_resident_kernel`` (:1316-1415).  The
 kernel source, ``csrc/mixture_bi.cu``, splits the step into a rows pass
 (scores, row softmax: v and the logsumexp t), a columns pass (per-segment
-partials of B0 = v^T x0, B1 = v^T x1, and of sum_i v), an eta finish (the
-partials' fixed-order sum, normalized and projected: ``_finish_eta``,
-which JAX runs in XLA) and a p0 epilogue (the p0 update of
-``_mix_counts_kernel``).  The rows and columns passes contract on the
-float64 tensor cores, as the plain versions' float64 products do; their
-cluster tiles stop at ``k_true``.  At 128 < Kp <= 1024 (KP_MAX, the TPU
-kernels' own range) the same launchers run the wide passes: 128 x 128
-block tiles of 4 x 4 float64 DMMA tiles a warp on balanced chunks of at
-most 128 of the ``k_true`` live lanes (``chunks``), the rows pass's
-scores in a float64 scratch and a softmax launch, and the eta finish at
-32 lanes a thread.  ``finish=False`` returns the raw statistics
-instead; rows, columns and the raw epilogue together are the sweep
-(``mixture_sweep_stats``).  Every step of the finish runs on the card, so
-a kernel-route EM step never reads the host.
+partials of B0 = v^T x0, B1 = v^T x1, and of sum_i v) and one finish
+launch: its eta half sums the v partials in a fixed order, normalizes and
+projects (``_finish_eta``, which JAX runs in XLA), its p half sums the B
+partials and applies the p0 update of ``_mix_counts_kernel``, each half
+summing vtot itself.  The finish writes the JAX function's outputs (eta',
+p0' [B, Kp, L]) or the model's parameters (eta [B, K], p [B, K, L, 2] =
+(p0', 1 - p0'), ``params=True``); either half runs alone as
+``mixture_eta`` (the other mixtures' eta) and ``mixture_p``.  The rows and
+columns passes contract on the float64 tensor cores, as the plain
+versions' float64 products do; their cluster tiles stop at ``k_true``.  At
+128 < Kp <= 1024 (KP_MAX, the TPU kernels' own range) the same launchers
+run the wide passes: 128 x 128 block tiles of 4 x 4 float64 DMMA tiles a
+warp on balanced chunks of at most 128 of the ``k_true`` live lanes
+(``chunks``), the rows pass's scores in a float64 scratch and a softmax
+launch, and the finish's eta half at 8, 16 or 32 lanes a thread.
+``finish=False`` returns the raw statistics instead; rows, columns and
+the raw p half together are the sweep (``mixture_sweep_stats``).  Every
+step of the finish runs on the card, so a kernel-route EM step never
+reads the host.
 
 The wrappers launch the kernels for CUDA tensors and run the plain version
 only for CPU tensors; there is no fallback for CUDA tensors, and a Kp
@@ -198,6 +203,29 @@ def mixture_p_reference(part: Tensor, vtot: Tensor, *, plb: float,
     return q
 
 
+def params_layout(eta: Tensor, p0: Tensor, k_true: int
+                  ) -> Tuple[Tensor, Tensor]:
+    """The model's parameters from the finish's K-padded outputs: eta [B,
+    K] and p [B, K, L, 2] = (p0', 1 - p0') over the k_true live lanes."""
+    p0 = p0[:, :k_true]
+    return (eta[:, :k_true].contiguous(),
+            torch.stack([p0, 1.0 - p0], dim=-1))
+
+
+def mixture_finish_reference(part: Tensor, vpart: Tensor, *, k_true: int,
+                             lb: float, plb: float, ploidy: int,
+                             project: bool, params: bool = False):
+    """Plain version of the finish, the eta finish and the p0 epilogue in
+    turn: (eta' [B, Kp], vtot [B, Kp], p0' [B, Kp, L]) from the partials
+    [B, S, 1|2, Kp, L] and the v sums [B, S, Kp], or under ``params``
+    the model's (eta [B, K], p [B, K, L, 2]) (``params_layout``)."""
+    eta, vtot = mixture_eta_reference(vpart, k_true=k_true, lb=lb,
+                                      project=project)
+    p0 = mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
+                             project=project)
+    return params_layout(eta, p0, k_true) if params else (eta, vtot, p0)
+
+
 def mixture_fullstep_biallelic_reference(lp0, x0, bias, lp1=None, x1=None,
                                          *, k_true: int, lb: float,
                                          plb: float, ploidy: int,
@@ -206,10 +234,10 @@ def mixture_fullstep_biallelic_reference(lp0, x0, bias, lp1=None, x1=None,
     p0' [B, Kp, L])."""
     v, t = mixture_rows_reference(lp0, x0, bias, lp1, x1)
     part, vpart = mixture_cols_reference(v, x0, x1)
-    eta, vtot = mixture_eta_reference(vpart, k_true=k_true, lb=lb,
-                                      project=project)
-    return eta, t, mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
-                                       project=project)
+    eta, _, p0 = mixture_finish_reference(part, vpart, k_true=k_true, lb=lb,
+                                          plb=plb, ploidy=ploidy,
+                                          project=project)
+    return eta, t, p0
 
 
 def mixture_sweep_stats_reference(lp0, x0, bias, lp1=None, x1=None):
@@ -295,9 +323,70 @@ def mixture_partials(v, x0, x1=None, *, k_true: int = 0):
     return part, vpart
 
 
+def _launch_finish(part, vpart, *, vtot=None, eta=None, out0=None,
+                   out1=None, k_true=0, lb=0.0, plb=0.0, ploidy=0,
+                   project=False, finish=True, params=False) -> None:
+    """One launch of the finish (``mc_mix_finish``): the eta half where
+    ``eta`` is given, the p half where ``out0`` is; shapes checked by the
+    callers."""
+    src = part if part is not None else vpart
+    Kp = src.shape[-2] if part is not None else src.shape[-1]
+    n_seg, two = ((part.shape[1], int(part.shape[2] == 2))
+                  if part is not None else (0, 0))
+    L = part.shape[-1] if part is not None else 0
+    lo, hi = p0_clip_bounds(plb)
+    build.launch("mc_mix_finish", src.device, _ptr(part), _ptr(vpart),
+                 _ptr(vtot), _ptr(eta), _ptr(out0), _ptr(out1),
+                 src.shape[0], Kp, L, n_seg,
+                 vpart.shape[1] if vpart is not None else 0, two,
+                 int(k_true), float(lb), lo, hi, float(ploidy), int(project),
+                 int(finish), int(params),
+                 also=("wide_mix_finish",) if is_wide(Kp) else ())
+
+
+def _check_part(part: Tensor):
+    """(B, n_seg, streams, Kp, L) of checked columns-pass partials."""
+    B, n_seg, ns, Kp, L = part.shape
+    check_kp(Kp)
+    _check("part", part, part.device, torch.float32, part.shape)
+    if ns not in (1, 2):
+        raise ValueError(f"part has {ns} streams, the kernels take 1 or 2")
+    return B, n_seg, ns, Kp, L
+
+
+def mixture_finish(part, vpart, *, k_true: int, lb: float, plb: float,
+                   ploidy: int, project: bool, params: bool = False):
+    """The finish, one launch: (eta' [B, Kp], vtot [B, Kp], p0' [B, Kp,
+    L]) from the columns pass's partials [B, S, 1|2, Kp, L] and v sums
+    [B, S, Kp]; under ``params`` the model's (eta [B, K], p [B, K, L, 2]
+    = (p0', 1 - p0')) for K = ``k_true`` in [1, Kp], written by the
+    kernel.  The eta Michelot and the p0 clip share ``project``."""
+    if not part.is_cuda:
+        return mixture_finish_reference(part, vpart, k_true=k_true, lb=lb,
+                                        plb=plb, ploidy=ploidy,
+                                        project=project, params=params)
+    B, n_seg, _, Kp, L = _check_part(part)
+    dev = part.device
+    _check("vpart", vpart, dev, torch.float32, (B, n_seg, Kp))
+    kw = dict(k_true=k_true, lb=lb, plb=plb, ploidy=ploidy, project=project)
+    if params:
+        if not 1 <= k_true <= Kp:
+            raise ValueError(f"k_true={k_true}: the model's layout takes 1 "
+                             f"to Kp={Kp} clusters")
+        eta = torch.empty((B, k_true), dtype=torch.float32, device=dev)
+        p = torch.empty((B, k_true, L, 2), dtype=torch.float32, device=dev)
+        _launch_finish(part, vpart, eta=eta, out0=p, params=True, **kw)
+        return eta, p
+    eta = torch.empty((B, Kp), dtype=torch.float32, device=dev)
+    vtot = torch.empty_like(eta)
+    p0 = torch.empty((B, Kp, L), dtype=torch.float32, device=dev)
+    _launch_finish(part, vpart, vtot=vtot, eta=eta, out0=p0, **kw)
+    return eta, vtot, p0
+
+
 def mixture_eta(vpart, *, k_true: int, lb: float, project: bool):
     """Eta finish: (eta' [B, Kp], vtot [B, Kp]) from the v sums [B, S,
-    Kp]."""
+    Kp]; the finish's eta half alone."""
     if not vpart.is_cuda:
         return mixture_eta_reference(vpart, k_true=k_true, lb=lb,
                                      project=project)
@@ -306,33 +395,29 @@ def mixture_eta(vpart, *, k_true: int, lb: float, project: bool):
     _check("vpart", vpart, vpart.device, torch.float32, (B, n_seg, Kp))
     vtot = torch.empty((B, Kp), dtype=torch.float32, device=vpart.device)
     eta = torch.empty_like(vtot)
-    build.launch("mc_mix_eta", vpart.device, vpart.data_ptr(),
-                 vtot.data_ptr(), eta.data_ptr(), B, Kp, n_seg, int(k_true),
-                 float(lb), int(project),
-                 also=("wide_mix_eta",) if is_wide(Kp) else ())
+    _launch_finish(None, vpart, vtot=vtot, eta=eta, k_true=k_true, lb=lb,
+                   project=project)
     return eta, vtot
 
 
 def mixture_p(part, vtot, *, plb: float, ploidy: int, project: bool,
               finish: bool = True):
     """p0 epilogue: p0' [B, Kp, L], or the raw (B0, B1) under
-    ``finish=False`` (B1 None for one stream; vtot may then be None)."""
+    ``finish=False`` (B1 None for one stream; vtot may then be None); the
+    finish's p half alone, vtot read as one segment of v sums."""
     if not part.is_cuda:
         return mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
                                    project=project, finish=finish)
-    B, n_seg, ns, Kp, L = part.shape
-    check_kp(Kp)
+    B, n_seg, ns, Kp, L = _check_part(part)
     dev = part.device
-    _check("part", part, dev, torch.float32, (B, n_seg, ns, Kp, L))
     if finish:
         _check("vtot", vtot, dev, torch.float32, (B, Kp))
     two = ns == 2
-    lo, hi = p0_clip_bounds(plb)
     out0 = torch.empty((B, Kp, L), dtype=torch.float32, device=dev)
     out1 = torch.empty_like(out0) if (two and not finish) else None
-    build.launch("mc_mix_p", dev, part.data_ptr(), _ptr(vtot),
-                 out0.data_ptr(), _ptr(out1), B, Kp, L, n_seg, int(two), lo,
-                 hi, float(ploidy), int(project), int(finish))
+    _launch_finish(part, vtot[:, None] if finish else None, out0=out0,
+                   out1=out1, plb=plb, ploidy=ploidy, project=project,
+                   finish=finish)
     return out0 if finish else (out0, out1)
 
 
@@ -340,20 +425,21 @@ def mixture_fullstep_biallelic(lp0, x0, bias, lp1=None, x1=None, *,
                                k_true: int, lb: float, plb: float,
                                ploidy: int, project: bool):
     """One biallelic mixture EM step for a chain batch: (eta' [B, Kp],
-    t [B, I], p0' [B, Kp, L]).  The eta Michelot and the p0 clip share
-    ``project`` (cfg.do_projection)."""
+    t [B, I], p0' [B, Kp, L]), three launches (rows, columns, finish).
+    The eta Michelot and the p0 clip share ``project``
+    (cfg.do_projection)."""
     v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=k_true)
     part, vpart = mixture_partials(v, x0, x1, k_true=k_true)
-    eta, vtot = mixture_eta(vpart, k_true=k_true, lb=lb, project=project)
-    return eta, t, mixture_p(part, vtot, plb=plb, ploidy=ploidy,
-                             project=project)
+    eta, _, p0 = mixture_finish(part, vpart, k_true=k_true, lb=lb, plb=plb,
+                                ploidy=ploidy, project=project)
+    return eta, t, p0
 
 
 def mixture_sweep_stats(lp0, x0, bias, lp1=None, x1=None, *,
                         k_true: int = 0):
     """Sweep statistics v, t, B0 [B, Kp, L] and B1 (None for one stream)
     with no eta or p finish (``mixture_sweep_resident``): the same passes
-    as the full step, with the raw epilogue."""
+    as the full step, with the finish's raw p half."""
     v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=k_true)
     part, _ = mixture_partials(v, x0, x1, k_true=k_true)
     b0, b1 = mixture_p(part, None, plb=0.0, ploidy=0, project=False,

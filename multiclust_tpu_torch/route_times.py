@@ -28,8 +28,8 @@ default; one stream, the ploidy fold, and two streams, 2 % missing) at the
 chain batches ``--chains``: the step held to its plain version, its median
 CUDA-event time over ``--reps`` calls, the device time of each of its
 kernels inside it (torch.profiler: the rows pass, above 128 lanes its
-softmax on a line of its own, the columns pass, the eta finish, the p0
-epilogue), the passes' bounds (their operations on
+softmax on a line of its own, the columns pass, the finish, or a parent
+tree's eta finish and p0 epilogue), the passes' bounds (their operations on
 the float64 tensor cores at 67 TFLOP/s, or their tensors over 3.35 TB/s)
 and the share reached, and the plain step and plain rows pass; above 128
 lanes (``--k 200``, ``--k 1024``) the wide passes.  A tree whose mixture
@@ -40,7 +40,14 @@ the card from seed 80 instead, 2 chains, plain EM with the adaptive
 interval twice (the first fit of a process also pays the library's load),
 cap 100, missing-free, then SQUAREM and plain EM at 1 % missing: the
 panels and fits of chip_smoke.py's phase 10; at 8192 x 131072
-(``--shapes``) plain EM twice, 1 % missing, cap 30.
+(``--shapes``) plain EM twice, 1 % missing, cap 30; then the Michelot
+passes of the eta finish along a fit at K (``fit_michelot_passes``).
+Each ``--mixture`` step's lines end with the finish: its device time in
+the step against its bound from the live lanes, its halves alone
+(``time_finish_halves``: the eta half as it runs, with one segment, and
+without Michelot; the p half) and the model's step (``em_step``, the
+parameters in the model's layout) on CUDA events with the device
+operations it runs.
 Like ``--generic`` it calls only the step's entry point, the fit's and the
 plain versions, so a parent tree is timed by the same file.
 
@@ -51,7 +58,9 @@ held to its plain version, its median CUDA-event time over ``--reps``
 calls, the device time of each of its kernels inside it (torch.profiler:
 the rows pass with its finish, the columns pass, the p epilogue), each
 pass's bound and the share of it reached, the columns pass with its
-epilogue on CUDA events, and the plain step.  ``--generic --fit`` runs
+epilogue on CUDA events, the plain step, the sweep statistics
+(``admixture_sweep_stats``) on CUDA events and the float32 matmul
+yardstick of both passes (``yardstick_ms``).  ``--generic --fit`` runs
 ``api.fit_dataset`` on the panel instead, 2 chains from seed 3, plain EM
 with the adaptive interval twice (the first fit of a process also pays
 the library's load) and then SQUAREM, cap 100.  This mode calls only the
@@ -72,6 +81,8 @@ alone through ``rows_partials`` (d + A, held to both), the finish alone
 on its partials, the step in the order that runs d for each pass
 (``bi_step_unshared``) and, where the router splits the rows pass into
 column segments, the step at one segment, all on CUDA events.
+Each chain batch ends with the float32 ``torch.matmul`` yardstick of
+the two passes' products (``yardstick_ms``), which the port never calls.
 ``--kernels --k 100`` and ``--shapes 8192x131072 --chains 2`` time the
 wider kernels and the biobank panel.  It calls only the routed step, the
 rows and columns passes' wrappers and the plain version, so a parent
@@ -745,8 +756,35 @@ def time_bi_kernels(I: int, L: int, chains, n: int, dev) -> None:
         for label, ms in wide.items():
             print(_kernel_line(label, ms, wide_bounds.get(label)).replace(
                 "of device time a step", "on CUDA events"), flush=True)
+        print(_yardstick_line(yardstick_ms(eta, p0, 2 * L, n)), flush=True)
         del eta, p0
         torch.cuda.empty_cache()
+
+
+def yardstick_ms(eta, p, lanes: int, n: int) -> dict:
+    """The float32 ``torch.matmul`` yardstick of an admixture step's two
+    passes, a library call the port never makes (TF32 off), on the K live
+    lanes: the rows pass's products d = eta p and A = w p^T, the columns
+    pass's d and B = eta^T w over ``lanes`` columns of w (the x0 and x1
+    planes: 2 L; or L x M); CUDA-event ms of each pass's pair."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    B, I, _ = eta.shape
+    e_k, p_k = eta[..., :K].contiguous(), p[:, :K].contiguous()
+    w = torch.rand((B, I, lanes), device=eta.device)
+    w1 = w[..., :p_k.shape[-1]].contiguous()
+    out = {"rows (d, A)": median_ms(
+               lambda: (e_k @ p_k, w1 @ p_k.transpose(1, 2)), n),
+           "columns (d, B)": median_ms(
+               lambda: (e_k @ p_k, e_k.transpose(1, 2) @ w), n)}
+    del e_k, p_k, w, w1
+    torch.cuda.empty_cache()
+    return out
+
+
+def _yardstick_line(yard: dict) -> str:
+    return ("  yardstick, not a route of the port: float32 matmuls of the "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in yard.items())
+            + f", together {sum(yard.values()):.3f} ms on CUDA events")
 
 
 def wide_rows_times(eta, p0, x0, x1, c, route, n: int) -> dict:
@@ -889,6 +927,13 @@ def time_generic(I: int, L: int, M: int, chains, n: int, dev) -> None:
               f"CUDA events", flush=True)
         for label, ms in dev_ms.items():
             print(_kernel_line(label, ms, bounds[label]), flush=True)
+        # the sweep statistics (admixture_sweep_fused / _stats): both
+        # passes with finish=False, against both yardstick pairs
+        sweep_ms = median_ms(lambda: fs.admixture_sweep_stats(
+            eta, p2, x2, miss, M=M, k_true=K), n)
+        print(f"  sweep statistics {sweep_ms:.3f} ms on CUDA events",
+              flush=True)
+        print(_yardstick_line(yardstick_ms(eta, p2, L * M, n)), flush=True)
         del eta, p2
         torch.cuda.empty_cache()
 
@@ -918,13 +963,183 @@ def time_generic_fits(I: int, L: int, M: int, dev) -> None:
 
 # the mixture step's kernels by name, as the profiler sees them (the wide
 # rows pass is two kernels, its scores and its softmax, each on a line of
-# its own)
+# its own); a tree before the one finish launch ran the eta finish and
+# the p0 epilogue as two kernels, named here so that this file times such
+# a parent too
 MIXTURE_KERNELS = {"rows pass": ("mix_rows_kernel", "mix_rows_wide_kernel"),
                    "rows softmax (wide)": ("mix_softmax_kernel",),
                    "columns pass": ("mix_cols_kernel",
                                     "mix_cols_wide_kernel"),
-                   "eta finish": ("mix_eta_kernel",),
-                   "p0 epilogue": ("mix_p_kernel",)}
+                   "finish": ("mix_finish_kernel",),
+                   "eta finish (parent)": ("mix_eta_kernel",),
+                   "p0 epilogue (parent)": ("mix_p_kernel",)}
+# the finish's kernels, the one launch or a parent's two
+FINISH_KERNELS = {"finish": ("mix_finish_kernel", "mix_eta_kernel",
+                             "mix_p_kernel")}
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, copies, fills) that one
+    call of ``fn`` ran, in the order they started (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(evs, key=lambda e: e.time_range.start)]
+
+
+def michelot_passes(w, k_true: int, lb: float):
+    """Passes of the warp Michelot (csrc/simplex.cuh) on each row of ``w``
+    [B, Kp] (eta before its projection), counted by running its loop in
+    float32 on the host: a pass subtracts the surplus from the free lanes
+    and pins those that fall below ``lb``; the loop ends after a pass that
+    pins none or leaves none free.  Returns one count a row."""
+    w = w.detach().float().cpu().clone()
+    fr = torch.arange(w.shape[-1])[None] < k_true
+    fr = fr.expand_as(w).clone()
+    w[~fr] = 0.0
+    nf = fr.sum(dim=-1)
+    active = torch.ones(w.shape[0], dtype=torch.bool)
+    passes = torch.zeros(w.shape[0], dtype=torch.int64)
+    while active.any():
+        off = (w.sum(dim=-1) - 1.0) / nf.clamp(min=1).float()
+        w2 = w - off[:, None]
+        live = fr & active[:, None]
+        pin = live & (w2 < lb)
+        w = torch.where(live, torch.where(pin, torch.full_like(w, lb), w2),
+                        w)
+        fr = fr & ~pin
+        left = fr.sum(dim=-1)
+        passes += active
+        active = active & (left < nf) & (left > 0)
+        nf = left
+    return passes
+
+
+def mix_finish_bytes(B: int, n_seg: int, ns: int, k: int, L: int,
+                     params: bool) -> float:
+    """Bytes the mixture's finish must move over ``k`` lanes: the B partials and the
+    v sums read once; eta', vtot and p0' [B, k, L] written once, or the
+    model's eta [B, k] and p [B, k, L, 2]."""
+    read = n_seg * ns * k * L + n_seg * k
+    written = k + 2 * k * L if params else 2 * k + k * L
+    return 4 * B * (read + written)
+
+
+def time_finish_halves(part, vpart, n: int) -> None:
+    """The finish's halves alone on the step's partials, launched back to
+    back (the partials in L2, as after the columns pass): the eta half
+    (``mixture_eta``) as it runs, with its segment loop cut to the first
+    segment and with its Michelot cut (projection off), the p half
+    (``mixture_p`` on the eta half's vtot), and where the tree has the one
+    launch (``mixture_finish``) both halves together in either layout;
+    device ms a launch
+    (torch.profiler) and CUDA-event ms of a call, and the Michelot passes
+    the step's eta takes."""
+    ekw = dict(k_true=K, lb=1e-8, project=True)
+    eta, vtot = mb.mixture_eta(vpart, **ekw)
+    one = vpart[:, :1].contiguous()
+    calls = {
+        "eta half": lambda: mb.mixture_eta(vpart, **ekw),
+        "eta half, one segment": lambda: mb.mixture_eta(one, **ekw),
+        "eta half, no Michelot": lambda: mb.mixture_eta(
+            vpart, k_true=K, lb=1e-8, project=False),
+        "p half": lambda: mb.mixture_p(part, vtot, plb=1e-8, ploidy=2,
+                                       project=True)}
+    if hasattr(mb, "mixture_finish"):
+        fkw = dict(ekw, plb=1e-8, ploidy=2)
+        calls["finish, both halves"] = lambda: mb.mixture_finish(
+            part, vpart, **fkw)
+        calls["finish, the model's layout"] = lambda: mb.mixture_finish(
+            part, vpart, params=True, **fkw)
+    for label, fn in calls.items():
+        dev_ms = kernel_device_ms(fn, n, FINISH_KERNELS)["finish"]
+        print(f"  {label} alone ({part.shape[1]} segments): "
+              f"{dev_ms:.4f} ms of device time a launch, "
+              f"{median_ms(fn, n):.4f} ms on CUDA events", flush=True)
+    w, _ = mb.mixture_eta(vpart, k_true=K, lb=1e-8, project=False)
+    passes = michelot_passes(w, K, 1e-8)
+    print(f"  Michelot passes on this step's eta: {passes.tolist()} (one a "
+          f"chain)", flush=True)
+    del eta, vtot, one
+
+
+def time_model_step(I: int, L: int, B: int, two: bool, n: int, dev) -> None:
+    """``model.mixture.em_step`` (the kernel route, K-padding, the logL
+    terms and the parameters in the model's layout included) on CUDA
+    events, the device operations it runs (torch.profiler: how many, and
+    the last one) and the finish's device time in it; the panel and the
+    parameters drawn on the card (``device_panel``, 2 % missing with
+    ``two``)."""
+    from multiclust_tpu_torch.model import mixture
+    from multiclust_tpu_torch.model.common import EMConfig, Params, \
+        model_data_from_planes
+
+    seed = 90 + B
+    md = model_data_from_planes(*device_panel(seed, I, L, K,
+                                              0.02 if two else 0.0, dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    eta = torch.rand((B, K), generator=gen, device=dev) + 0.1
+    p0 = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
+    params = Params(eta=eta / eta.sum(dim=-1, keepdim=True),
+                    p=torch.stack([p0, 1.0 - p0], dim=-1))
+    cfg = EMConfig(admixture=False, use_pallas="on", biallelic=True,
+                   has_missing=two, ploidy=2)
+
+    def step():
+        return mixture.em_step(params, md, cfg)
+
+    ops = device_ops(step)
+    finish_ms = kernel_device_ms(step, n, FINISH_KERNELS)["finish"]
+    print(f"  model step (em_step): {median_ms(step, n):.3f} ms on CUDA "
+          f"events, {len(ops)} device operations a step, the last "
+          f"{ops[-1][:60] if ops else None}; the finish "
+          f"{finish_ms:.4f} ms of device time in it", flush=True)
+    del params, md
+
+
+def fit_michelot_passes(I: int, L: int, dev) -> None:
+    """Michelot passes of the eta finish along chip_smoke.py's mixture fits
+    at K (phase 22's panel, seed 460 + K, missing-free, 2 chains, cap 30;
+    at K = 20 phase 10's, seed 80, cap 100): each step's v sums recorded
+    from the columns pass and counted by ``michelot_passes``."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.model import mixture
+    from multiclust_tpu_torch.model.common import model_data_from_planes
+
+    seed = 80 if K <= 128 else 460 + K
+    md = model_data_from_planes(*mixture_planes(seed, I, L, K, 0.0, dev))
+    seen = []
+    patched = [m for m in (mb, mixture) if hasattr(m, "mixture_partials")]
+    real = mb.mixture_partials
+
+    def record(*a, **kw):
+        part, vpart = real(*a, **kw)
+        seen.append(vpart.sum(dim=1).cpu())
+        return part, vpart
+
+    for m in patched:
+        m.mixture_partials = record
+    try:
+        res = fit_model_data(md, 2, admixture=False, min_K=K, max_K=K,
+                             n_init=2, max_iter=100 if K <= 128 else 30,
+                             seed=3, verbosity=0).best
+    finally:
+        for m in patched:
+            m.mixture_partials = real
+    passes = torch.cat([michelot_passes(v / v.sum(dim=-1, keepdim=True), K,
+                                        1e-8) for v in seen])
+    print(f"fit at K = {K} ({res.n_iter_all} iterations over the chains): "
+          f"Michelot passes of the eta finish over {len(seen)} steps x 2 "
+          f"chains: min {int(passes.min())}, median "
+          f"{float(passes.float().median()):.0f}, max {int(passes.max())}",
+          flush=True)
 
 
 def mixture_planes(seed: int, I: int, L: int, K: int, miss_rate: float,
@@ -1131,20 +1346,39 @@ def time_mixture(I: int, L: int, chains, n: int, dev) -> None:
                 bounds["rows softmax (wide)"] = (
                     (8 * B * I * K + 4 * v.numel() + 4 * t.numel())
                     / HBM_BYTES_PER_S * 1e3)
+            # the finish (or a parent's eta finish and p0 epilogue
+            # together) moves the partials and its outputs once
+            v_k, _ = mb.mixture_rows(lp0, x0, bias, lp1, x1, k_true=K)
+            parts, vparts = mb.mixture_partials(v_k, x0, x1, k_true=K)
+            del v_k
+            n_seg = parts.shape[1]
+            live = {params: mix_finish_bytes(B, n_seg, ns, K, L, params)
+                    / HBM_BYTES_PER_S * 1e3 for params in (False, True)}
+            fin = sum(ms for label, ms in dev_ms.items()
+                      if label in ("finish", "eta finish (parent)",
+                                   "p0 epilogue (parent)"))
+            bounds["finish"] = live[False]
             print(f"mixture {I} x {L}, {streams}, {B} chains: step "
                   f"{step_ms:.3f} ms (plain {plain_ms:.3f}, plain rows pass "
                   f"{plain_rows_ms:.3f}) on CUDA events", flush=True)
             for label, ms in dev_ms.items():
-                line = f"  {label}: {ms:.3f} ms of device time a step"
+                line = f"  {label}: {ms:.4f} ms of device time a step"
                 if not ms and label in bounds:
                     line = f"  {label}: not measured (no device events)"
                 elif not ms:
-                    continue   # the narrow rows pass has no softmax
+                    continue   # no softmax narrow, one finish or two
                 elif label in bounds:
-                    line += (f"; bound {bounds[label]:.3f} ms, "
+                    line += (f"; bound {bounds[label]:.4f} ms, "
                              f"{100 * bounds[label] / ms:.1f} % of it")
                 print(line, flush=True)
-            del args, v, t, part
+            print(f"  finish launches together: {fin:.4f} ms of device time "
+                  f"a step over {n_seg} segments; bound from the live lanes "
+                  f"{live[False]:.4f} ms (eta', vtot, p0' [B, K, L]), "
+                  f"{live[True]:.4f} ms in the model's layout (p [B, K, L, "
+                  f"2])", flush=True)
+            time_finish_halves(parts, vparts, n)
+            time_model_step(I, L, B, two, n, dev)
+            del args, v, t, part, parts, vparts
             torch.cuda.empty_cache()
 
 
@@ -1185,6 +1419,7 @@ def time_mixture_fits(I: int, L: int, dev) -> None:
     print("  device ms of the fit's kernels: " + ", ".join(
         f"{label} {ms:.3f}" for label, ms in dev_ms.items())
         + f"; together {sum(dev_ms.values()):.3f}", flush=True)
+    fit_michelot_passes(I, L, dev)
 
 
 def jagged_panel(seed: int, I: int, L: int, dev, n_alleles=None):

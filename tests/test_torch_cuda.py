@@ -20,7 +20,7 @@ from multiclust_tpu_torch.ops import build, fullstep as fs, \
 F32 = dict(rtol=1e-4, atol=5e-5)
 BI_KERNELS = ("mc_fullstep_bi_rows", "mc_fullstep_bi_cols")
 GENERIC_KERNELS = ("mc_fullstep_rows", "mc_fullstep_cols", "mc_fullstep_p")
-MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_eta", "mc_mix_p")
+MIX_KERNELS = ("mc_mix_rows", "mc_mix_cols", "mc_mix_finish")
 
 
 def _cuda():
@@ -332,8 +332,8 @@ def _mix_args(seed, B, I, L, K, Kp, miss_rate, ploidy, dev):
 ])
 def test_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate, ploidy,
                                      project):
-    """The four mixture kernels (rows, columns, eta finish, p0 epilogue)
-    and the sweep route against their plain versions; reruns are
+    """The three mixture launches (rows, columns, the finish) and the
+    sweep route against their plain versions; reruns are
     bit-equal (no atomics, fixed-order partial sums).  The columns pass
     runs with the segments its wrapper picks (one, a few or many)."""
     dev = _cuda()
@@ -363,6 +363,127 @@ def test_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate, ploidy,
         if g is not None:
             torch.testing.assert_close(g, r, **F32)
     assert (sweep[0][..., K:] == 0).all()
+
+
+def _finish_partials(seed, B, n_seg, two, K, Kp, L, dev):
+    """Partials as the columns pass leaves them, drawn on ``dev``: v sums
+    [B, n_seg, Kp] (cubed uniforms, so that the projection pins lanes) and
+    B0 (B1) [B, n_seg, 1|2, Kp, L] with B0 + B1 <= 2 vtot in each segment,
+    zeros past K."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ns = 2 if two else 1
+    vpart = torch.zeros((B, n_seg, Kp), device=dev)
+    vpart[..., :K] = 60 * torch.rand((B, n_seg, K), generator=gen,
+                                     device=dev) ** 3
+    u = torch.rand((B, n_seg, 1, K, L), generator=gen, device=dev)
+    kept = 2 * vpart[:, :, None, :K, None] * (
+        1 - 0.1 * torch.rand((B, n_seg, 1, K, L), generator=gen,
+                             device=dev))
+    part = torch.zeros((B, n_seg, ns, Kp, L), device=dev)
+    part[:, :, :1, :K] = kept * u
+    if two:
+        part[:, :, 1:, :K] = kept * (1 - u)
+    return part, vpart
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Kp", [(20, 32), (37, 64), (70, 96), (128, 128),
+                                  (150, 160), (200, 224), (500, 512),
+                                  (1000, 1024), (1024, 1024)])
+@pytest.mark.parametrize("two", [False, True])
+def test_mixture_finish_matches_plain(K, Kp, two):
+    """The finish, one launch, against its plain version at every eta
+    instance (1-4 slots a lane narrow, 8, 16 and 32 wide) on partials of
+    1, 3, 7 and 40 segments (more than a thread loads at once), 16-byte
+    and ragged loci, projection on and off: its vtot and its p half's raw
+    B0 (B1) bit-equal to the ordered segment sums, its halves alone
+    (``mixture_eta``, ``mixture_p``) bit-equal to it, the model's layout
+    bit-equal to its K-padded outputs, reruns bit-equal, one launch a
+    call."""
+    dev = _cuda()
+    counted = ("mc_mix_finish", "wide_mix_finish") if mb.is_wide(Kp) \
+        else ("mc_mix_finish",)
+    for n_seg, L, project in ((1, 2048, True), (3, 333, False),
+                              (7, 1024, True), (40, 97, True)):
+        B = 1 + n_seg % 3
+        part, vpart = _finish_partials(K + n_seg, B, n_seg, two, K, Kp, L,
+                                       dev)
+        lb = min(1e-3, 0.1 / K)
+        kw = dict(k_true=K, lb=lb, plb=1e-3, ploidy=2, project=project)
+        before = dict(build.LAUNCHES)
+        got = mb.mixture_finish(part, vpart, **kw)
+        torch.cuda.synchronize()
+        assert {n: build.LAUNCHES[n] - before[n] for n in build.LAUNCHES
+                if build.LAUNCHES[n] != before[n]} == dict.fromkeys(counted,
+                                                                    1)
+        ref = mb.mixture_finish_reference(part, vpart, **kw)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, **F32)
+        eta, vtot, p0 = got
+        assert torch.equal(vtot, fb.ordered_segment_sum(vpart))
+        assert (eta[:, K:] == 0).all()
+        if project:
+            assert float(eta[:, :K].min()) >= lb * (1 - 1e-6)
+        alone = mb.mixture_eta(vpart, k_true=K, lb=lb, project=project)
+        assert torch.equal(alone[0], eta) and torch.equal(alone[1], vtot)
+        assert torch.equal(mb.mixture_p(part, vtot, plb=1e-3, ploidy=2,
+                                        project=project), p0)
+        raw = mb.mixture_p(part, None, plb=0.0, ploidy=0, project=False,
+                           finish=False)
+        assert (raw[1] is None) == (not two)
+        for s in range(part.shape[2]):
+            assert torch.equal(raw[s], fb.ordered_segment_sum(part[:, :, s]))
+        model = mb.mixture_finish(part, vpart, params=True, **kw)
+        want = mb.params_layout(eta, p0, K)
+        assert model[1].shape == (B, K, L, 2)
+        assert all(torch.equal(g, w) for g, w in zip(model, want))
+        again = mb.mixture_finish(part, vpart, **kw)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [20, 200])
+@pytest.mark.parametrize("miss_rate", [0.0, 0.02])
+def test_mixture_model_step_ends_with_the_finish(K, miss_rate):
+    """The model's kernel step launches rows, columns and one finish, and
+    nothing after the finish (torch.profiler's device operations of one
+    step: the finish last, once, and no eta finish or p epilogue of their
+    own); its parameters bit-equal to the step's K-padded outputs taken
+    to the model's layout, as two finish launches and plain torch made
+    them."""
+    from multiclust_tpu_torch.model import mixture
+    from multiclust_tpu_torch.model.common import EMConfig, Params, \
+        model_data_from_planes
+
+    dev = _cuda()
+    B, I, L = 2, 3000, 1000
+    md = model_data_from_planes(*rt.device_panel(K, I, L, K, miss_rate,
+                                                 dev))
+    gen = torch.Generator(device=dev).manual_seed(K)
+    eta = torch.rand((B, K), generator=gen, device=dev) + 0.1
+    p0 = torch.rand((B, K, L), generator=gen, device=dev) * 0.96 + 0.02
+    params = Params(eta=eta / eta.sum(dim=-1, keepdim=True),
+                    p=torch.stack([p0, 1.0 - p0], dim=-1))
+    cfg = EMConfig(admixture=False, use_pallas="on", biallelic=True,
+                   has_missing=miss_rate > 0, ploidy=2)
+    assert mixture._kernel_ok(md, cfg, params)
+    before = dict(build.LAUNCHES)
+    got, ll, _ = mixture.em_step(params, md, cfg)
+    torch.cuda.synchronize()
+    assert {n: build.LAUNCHES[n] - before[n] for n in MIX_KERNELS} == \
+        dict.fromkeys(MIX_KERNELS, 1)
+    ops = rt.device_ops(lambda: mixture.em_step(params, md, cfg))
+    assert "mix_finish_kernel" in ops[-1], ops
+    assert sum("mix_finish_kernel" in op for op in ops) == 1, ops
+    assert not any("mix_eta_kernel" in op or "mix_p_kernel" in op
+                   for op in ops), ops
+    args = mixture._kernel_inputs(params, md, cfg)
+    eta_p, _, p0n = mb.mixture_fullstep_biallelic(
+        *args, k_true=K, lb=cfg.eta_lower_bound, plb=cfg.p_lower_bound,
+        ploidy=2, project=cfg.do_projection)
+    want = mb.params_layout(eta_p, p0n, K)
+    assert torch.equal(got.eta, want[0]) and torch.equal(got.p, want[1])
+    assert torch.isfinite(ll).all()
 
 
 @pytest.mark.cuda
@@ -503,6 +624,10 @@ def test_mixture_kernels_refuse_kp160():
         mb.mixture_p(torch.zeros(1, 1, 1, 1056, 12, device=dev),
                      torch.zeros(1, 1056, device=dev), plb=0.0, ploidy=2,
                      project=False)
+    with pytest.raises(ValueError, match="Kp=1056.*plain step"):
+        mb.mixture_finish(torch.zeros(1, 1, 1, 1056, 12, device=dev),
+                          torch.zeros(1, 1, 1056, device=dev), k_true=1050,
+                          lb=0.0, plb=0.0, ploidy=2, project=False)
 
 
 def _mixture_fit_inputs(dev, M, missing_rate, seed=3):
@@ -557,7 +682,8 @@ def test_mixture_blind_steps_read_no_host(M, missing_rate):
     if M == 2:
         assert all(launched[n] == 3 for n in MIX_KERNELS), launched
     else:
-        assert launched["mc_mix_eta"] == launched["mc_fullstep_p"] == 3
+        # the finish's eta half alone, then the generic p epilogue
+        assert launched["mc_mix_finish"] == launched["mc_fullstep_p"] == 3
     want = params_cpu
     for _ in range(3):
         want, _, _ = mixture.em_step(want, md_cpu, cfg, want_ll=False)
@@ -1307,7 +1433,8 @@ def test_bucketed_step_matches_plain(want_ll):
 
 @pytest.mark.cuda
 def test_bucketed_mixture_step_matches_plain():
-    """The bucketed mixture step, its eta finish (mc_mix_eta) and each
+    """The bucketed mixture step, its eta finish (the finish's eta half,
+    mc_mix_finish) and each
     bucket's p epilogue (mc_fullstep_p at M_b) on the card, against the
     plain finish on the same tensors."""
     from multiclust_tpu_torch.model import mixture as mix
@@ -1322,7 +1449,7 @@ def test_bucketed_mixture_step_matches_plain():
     cfg = cfg._replace(admixture=False, k_true=0)
     build.reset_launch_counts()
     got = mix.em_step(params, bd, cfg)
-    assert build.LAUNCHES["mc_mix_eta"] == 1
+    assert build.LAUNCHES["mc_mix_finish"] == 1
     assert build.LAUNCHES["mc_fullstep_p"] == len(bd.buckets)
     ref = mix.em_step(params, bd, cfg._replace(use_pallas="off"))
     torch.testing.assert_close(got[0].eta, ref[0].eta, **F32)
@@ -2111,7 +2238,7 @@ def test_wide_kernels_build_without_spills():
 # ---------------------------------------------------------------------------
 # the mixture's wide kernels (128 < Kp <= 1024, csrc/mixture_bi.cu)
 
-WIDE_MIX = ("wide_mix_rows", "wide_mix_cols", "wide_mix_eta")
+WIDE_MIX = ("wide_mix_rows", "wide_mix_cols", "wide_mix_finish")
 
 
 @pytest.mark.cuda
@@ -2135,8 +2262,8 @@ WIDE_MIX = ("wide_mix_rows", "wide_mix_cols", "wide_mix_eta")
 ])
 def test_wide_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate,
                                           ploidy, project):
-    """The wide rows pass, columns pass and eta finish, the p0 epilogue at
-    wide Kp, the step and the sweep against their plain versions; v, the
+    """The wide rows pass, columns pass and finish (and its eta half
+    alone), the step and the sweep against their plain versions; v, the
     partials and the v sums are 0 past K; reruns are bit-equal; each call
     launches each wide kernel once.  The eta bound 1e-4 keeps K lb below
     1 up to K = 1024, as the projection needs."""
@@ -2188,8 +2315,9 @@ def test_wide_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate,
 @pytest.mark.cuda
 @pytest.mark.parametrize("Kp", [160, 224, 1024])
 def test_wide_mixture_eta_projects_like_plain(Kp):
-    """The wide eta finish (32 lanes a thread) on sums that pin lanes at
-    the lower bound, 1, 3 and 40 segments, every lane or a few live."""
+    """The finish's eta half at wide Kp (8 or 32 slots a lane) on sums
+    that pin lanes at the lower bound, 1, 3 and 40 segments, every lane
+    or a few live."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(Kp)
     for K in (Kp, Kp - 31, 129):
@@ -2226,8 +2354,9 @@ def test_wide_mixture_fits_run_no_plain_function(monkeypatch, K, panel,
     """A float32 mixture fit on the card at Kp = 224 and 1024 (plain EM and
     SQUAREM; biallelic one stream and two, M = 4 and a jagged panel) runs
     the wide kernels and no plain version of one: the biallelic fits the
-    three wide kernels and the p0 epilogue, the others the plain products
-    with the wide eta finish and the generic p epilogue at K lanes."""
+    three wide kernels (the finish among them), the others the plain
+    products with the finish's eta half and the generic p epilogue at K
+    lanes."""
     from multiclust_tpu_torch.api import fit_model_data
     from multiclust_tpu_torch.convert import model_data_from_numpy
 
@@ -2254,11 +2383,12 @@ def test_wide_mixture_fits_run_no_plain_function(monkeypatch, K, panel,
                          accel_scheme=accel)
     res = out.estimate.per_K[K]
     assert np.isfinite(res.max_logL) and not res.any_failed
-    assert build.LAUNCHES["wide_mix_eta"] > 0, build.LAUNCHES
+    assert build.LAUNCHES["wide_mix_finish"] > 0, build.LAUNCHES
     if M == 2:
         assert build.LAUNCHES["wide_mix_rows"] > 0
         assert build.LAUNCHES["wide_mix_cols"] > 0
-        assert build.LAUNCHES["mc_mix_p"] > 0
+        assert build.LAUNCHES["mc_mix_finish"] == \
+            build.LAUNCHES["mc_mix_cols"]
     else:
         assert build.LAUNCHES["mc_fullstep_p"] > 0
         assert not build.LAUNCHES["mc_mix_rows"]
@@ -2311,19 +2441,21 @@ def test_mixture_step_above_1024_lanes_launches_nothing(M, capsys):
 def test_wide_mixture_kernels_build_without_spills():
     """The -Xptxas -v report of the mixture's wide kernels: the score and
     columns kernels (one and two streams), the softmax at 4, 8 and 16
-    score pairs a lane and the eta finish at 32 lanes a thread, none
-    spilling."""
+    score pairs a lane and the finish at each of its eta slots a lane
+    (1-4 narrow, 8, 16 and 32 wide), none spilling."""
     from multiclust_tpu_torch.kernel_report import MIX_WIDE, ptxas_lines
 
     _cuda()
     build.library()
     report = build.library_path().with_suffix(".ptxas.txt").read_text()
-    lines = [(n, t) for n, t in ptxas_lines(report, MIX_WIDE)
-             if "wide" in n or "softmax" in n or n.endswith("<32>")]
+    lines = ptxas_lines(report, MIX_WIDE)
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in text
                for _, text in lines), lines
     assert sorted(name for name, _ in lines) == [
         "mix_cols_wide_kernel<false>", "mix_cols_wide_kernel<true>",
-        "mix_eta_kernel<32>", "mix_rows_wide_kernel<false>",
+        "mix_finish_kernel<16>", "mix_finish_kernel<1>",
+        "mix_finish_kernel<2>", "mix_finish_kernel<32>",
+        "mix_finish_kernel<3>", "mix_finish_kernel<4>",
+        "mix_finish_kernel<8>", "mix_rows_wide_kernel<false>",
         "mix_rows_wide_kernel<true>", "mix_softmax_kernel<16>",
         "mix_softmax_kernel<4>", "mix_softmax_kernel<8>"], lines

@@ -666,7 +666,8 @@ def test_kernel_report_names_the_mixture_passes():
                       "2718223fullstep_bi_cols_kernelILi64EEEvPKfS2_PKaS4_S4_"
                       "S2_PfS5_S5_S5_iiiiiiiiffi", 128)
               + entry("_ZN53_GLOBAL__N__3e1c2b7a_13_mixture_bi_cu_9f0d1e2a_"
-                      "3141512mix_p_kernelEPKfS1_PfS2_iiiiifffii", 30))
+                      "3141517mix_finish_kernelILi1EEEvNS_10FinishArgsE",
+                      30))
     lines = ptxas_lines(report, CONTRACTIONS)
     assert [name for name, _ in lines] == [
         "mix_rows_kernel<32, true>", "mix_cols_kernel<128, false>",
@@ -699,3 +700,144 @@ def test_pad_bias_marks_the_pad_lanes_for_the_rows_kernel(miss_rate):
         lp0[:, :K], x0, bias[:, :K], None if lp1 is None else lp1[:, :K], x1)
     torch.testing.assert_close(v[..., :K], live[0], rtol=0, atol=0)
     torch.testing.assert_close(t, live[1], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the finish (eta' and p0' in one launch on the card) against the JAX
+# package
+
+# float32: the plain finish against the Pallas step in interpret mode
+# (its p0' through the kernel's Newton-refined reciprocal, kernels.py:145,
+# and B0 / B1 summed over the rows in another order; the ploidy fold's
+# pc1 = ploidy vtot - B0 cancels where p0' nears 1, so the two sums'
+# rounding shows there as an absolute error of a few ulps of 1) and
+# against _finish_eta; float64: against the XLA M-step
+FINISH_F32 = dict(rtol=1e-5, atol=1e-5)
+FINISH_F64 = dict(rtol=1e-10, atol=1e-10)
+FINISH_SEGMENTS = (1, 3, 7)
+
+
+def finish_case(Kp, K, two, project, seed):
+    """The port's plain finish (``mixture_finish`` on CPU tensors) on
+    partials of a JAX posterior cut into 1, 3 and 7 row segments, against
+    the JAX package: p0' against ``mixture_fullstep_biallelic`` in
+    interpret mode and eta' against ``_finish_eta`` in float32, both
+    against the XLA M-step in float64; the model's layout against the
+    K-padded outputs.  Numpy inputs from ``seed``: 48 x 128, one stream
+    (the ploidy fold) or two (10 % missing)."""
+    from multiclust_tpu.ops.kernels import mixture_fullstep_biallelic
+    from multiclust_tpu_torch.ops import mixture_bi as mb
+
+    rng = np.random.default_rng(seed)
+    I, L, ploidy = 48, 128, 2
+    lb, plb = min(0.01, 0.1 / K), 1e-3
+    miss = rng.binomial(2, 0.1 if two else 0.0, size=(I, L))
+    x0 = rng.binomial(2 - miss, rng.uniform(0.2, 0.8, size=(1, L)))
+    x1 = 2 - miss - x0
+    p0 = rng.uniform(0.05, 0.95, size=(K, L))
+    log_eta = np.log(rng.dirichlet(np.ones(K)))
+    lp0, lp1 = np.zeros((Kp, L), np.float32), np.zeros((Kp, L), np.float32)
+    bias = np.full((1, Kp), -1e30, np.float32)
+    if two:
+        lp0[:K], lp1[:K], bias[0, :K] = np.log(p0), np.log1p(-p0), log_eta
+    else:
+        lp0[:K] = np.log(p0) - np.log1p(-p0)
+        bias[0, :K] = ploidy * np.log1p(-p0).sum(1) + log_eta
+    jv, _, jp0 = mixture_fullstep_biallelic(
+        jnp.asarray(lp0), jnp.asarray(x0, jnp.int8), jnp.asarray(bias),
+        jnp.asarray(lp1) if two else None,
+        jnp.asarray(x1, jnp.int8) if two else None, ti=8, tl=L, plb=plb,
+        ploidy=ploidy, project=project, interpret=True)
+    jv = np.asarray(jv)
+    base = dict(admixture=False, biallelic=True, has_missing=two,
+                ploidy=ploidy, do_projection=project, eta_lower_bound=lb,
+                p_lower_bound=plb)
+    jmd = jax_model_data(dataset_from_counts(np.stack([x0, x1], -1), miss,
+                                             ploidy), dtype=jnp.float64)
+    v64 = jnp.asarray(jv[:, :K], jnp.float64)
+    want64 = (jmix.m_step if two else jmix._m_step_bi)(
+        v64, jmd, JaxEMConfig(**base))
+    want_eta = np.asarray(jmix._finish_eta(jnp.asarray(jv[:, :K]),
+                                           JaxEMConfig(**base)))
+    xs = [torch.as_tensor(x, dtype=torch.int8) for x in (x0, x1)]
+    kw = dict(k_true=K, lb=lb, plb=plb, ploidy=ploidy, project=project)
+    for n_seg in FINISH_SEGMENTS:
+        cuts = np.linspace(0, I, n_seg + 1).astype(int)
+        for dtype in (torch.float32, torch.float64):
+            v = torch.tensor(jv, dtype=dtype)[None]
+            segs = [mb.mixture_cols_reference(
+                v[:, lo:hi], xs[0][lo:hi], xs[1][lo:hi] if two else None)
+                for lo, hi in zip(cuts[:-1], cuts[1:])]
+            part = torch.cat([s[0] for s in segs], dim=1)
+            vpart = torch.cat([s[1] for s in segs], dim=1)
+            assert part.shape == (1, n_seg, 2 if two else 1, Kp, L)
+            eta, vtot, p0n = mb.mixture_finish(part, vpart, **kw)
+            torch.testing.assert_close(vtot, vpart.sum(dim=1), rtol=0,
+                                       atol=1e-5 * I)
+            assert (eta[:, K:] == 0).all()
+            if dtype == torch.float32:
+                np.testing.assert_allclose(p0n[0].numpy(), np.asarray(jp0),
+                                           **FINISH_F32)
+                np.testing.assert_allclose(eta[0, :K].numpy(), want_eta,
+                                           **FINISH_F32)
+            else:
+                np.testing.assert_allclose(
+                    p0n[0, :K].numpy(), np.asarray(want64.p)[..., 0],
+                    **FINISH_F64)
+                np.testing.assert_allclose(eta[0, :K].numpy(),
+                                           np.asarray(want64.eta),
+                                           **FINISH_F64)
+            got = mb.mixture_finish(part, vpart, params=True, **kw)
+            want = mb.params_layout(eta, p0n, K)
+            assert got[1].shape == (1, K, L, 2)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            if dtype == torch.float64:
+                np.testing.assert_allclose(got[1][0].numpy(),
+                                           np.asarray(want64.p),
+                                           **FINISH_F64)
+
+
+@pytest.mark.parametrize("Kp,K", [(32, 20), (128, 100)])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("project", [True, False])
+def test_finish_matches_jax(Kp, K, two, project):
+    """The plain finish at 32 and 128 lanes against the JAX package
+    (``finish_case``); test_torch_wide_mixture.py takes 224 and 1024."""
+    finish_case(Kp, K, two, project, seed=Kp + 2 * two + project)
+
+
+@pytest.mark.parametrize("K", [3, 200])
+@pytest.mark.parametrize("missing_rate", [0.0, 0.15])
+@pytest.mark.parametrize("want_ll", [True, False])
+def test_kernel_route_step_writes_the_params_of_two_launches(
+        K, missing_rate, want_ll):
+    """The model's kernel step, whose finish writes eta [B, K] and p [B,
+    K, L, 2] itself, equals on the CPU, bit for bit, the step as two
+    finish launches and the glue after them made it: the step's K-padded
+    outputs, eta[:, :K] and stack([p0', 1 - p0']) over the live lanes;
+    the logL terms too."""
+    from multiclust_tpu_torch.model.admixture import _ll_terms
+    from multiclust_tpu_torch.ops import mixture_bi as mb
+
+    ds, _ = _mixture_panel(61 + K, K=min(K, 3), missing_rate=missing_rate)
+    eta, p = _warm_mixture(62, ds, K)
+    md = model_data_from_dataset(ds, dtype=torch.float32)
+    cfg = EMConfig(use_pallas="on", **_cfg(ds, eta_lower_bound=1e-4,
+                                           p_lower_bound=1e-3))
+    params = params_from_numpy(np.stack([eta, eta[::-1]]),
+                               np.stack([p, p[::-1]]), dtype=torch.float32)
+    assert tmix._kernel_ok(md, cfg, params)
+    got, ll, scale = tmix.em_step(params, md, cfg, want_ll)
+    args = tmix._kernel_inputs(params, md, cfg)
+    eta_p, t, p0n = mb.mixture_fullstep_biallelic(
+        *args, k_true=K, lb=1e-4, plb=1e-3, ploidy=cfg.ploidy,
+        project=cfg.do_projection)
+    p0n = p0n[:, :K]
+    assert torch.equal(got.eta, eta_p[:, :K].contiguous())
+    assert torch.equal(got.p, torch.stack([p0n, 1.0 - p0n], dim=-1))
+    assert got.eta.is_contiguous() and got.p.is_contiguous()
+    if want_ll:
+        want_ll, want_scale = _ll_terms(t)
+        assert torch.equal(ll, want_ll) and torch.equal(scale, want_scale)
+    else:
+        assert not ll.any() and not scale.any()

@@ -320,14 +320,26 @@ def test_squarem_k200_panel_matches_jax():
         np.testing.assert_allclose(tr.logL, jr.logL, rtol=1e-10)
 
 
+@pytest.mark.parametrize("Kp,K", [(224, 200), (1024, 1000)])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("project", [True, False])
+def test_finish_matches_jax_wide(Kp, K, two, project):
+    """The plain finish at 224 and 1024 lanes (the wide kernels' eta half
+    at 8 and 32 slots a lane on the card) against the JAX package:
+    ``test_torch_mixture.finish_case``, its tolerances stated there."""
+    from test_torch_mixture import finish_case
+
+    finish_case(Kp, K, two, project, seed=Kp + 2 * two + project)
+
+
 # ---------------------------------------------------------------------------
 # the gate at 1024 lanes
 
 def _spy(monkeypatch, called):
     """Record the mixture wrappers and the generic p epilogue as called."""
     for module, name in ((tmix, "mixture_rows"), (tmix, "mixture_eta"),
-                         (tmix, "mixture_fullstep_biallelic"),
-                         (tmix, "fullstep_p")):
+                         (tmix, "mixture_partials"),
+                         (tmix, "mixture_finish"), (tmix, "fullstep_p")):
         real = getattr(module, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -361,7 +373,8 @@ def test_kernel_gate_at_1024_lanes(K, M, monkeypatch, capsys):
     if not in_range:
         assert not called, called
     elif M == 2:
-        assert called == {"mixture_fullstep_biallelic"}, called
+        assert called == {"mixture_rows", "mixture_partials",
+                          "mixture_finish"}, called
     else:
         assert called == {"mixture_eta", "fullstep_p"}, called
     want = tmix.em_step(params, md, EMConfig(use_pallas="off", **base))
@@ -459,7 +472,7 @@ def test_wide_chunks_count_the_live_tiles(Kp):
 def test_kernel_report_names_the_wide_mixture_kernels():
     """``kernel_report.ptxas_lines`` names the mixture's wide kernels: the
     score and columns kernels by their stream flag, the softmax by its
-    score pairs a lane, and the eta finish by its lanes a thread."""
+    score pairs a lane, and the finish by its eta slots a lane."""
     from multiclust_tpu_torch.kernel_report import MIX_WIDE, ptxas_lines
 
     def entry(mangled, regs):
@@ -474,9 +487,11 @@ def test_kernel_report_names_the_wide_mixture_kernels():
               + entry(pre + "20mix_cols_wide_kernelILb0EEEvPKfPKaS4_PfS5_"
                       "iiiiii", 190)
               + entry(pre + "18mix_softmax_kernelILi16EEvPKdPfS3_iii", 96)
-              + entry(pre + "14mix_eta_kernelILi32EEEvPKfPfS2_iiiifi", 80)
-              + entry(pre + "14mix_eta_kernelILi2EEEvPKfPfS2_iiiifi", 40))
+              + entry(pre + "17mix_finish_kernelILi32EEEvNS_10FinishArgsE",
+                      80)
+              + entry(pre + "17mix_finish_kernelILi2EEEvNS_10FinishArgsE",
+                      40))
     names = [name for name, _ in ptxas_lines(report, MIX_WIDE)]
     assert names == ["mix_rows_wide_kernel<true>",
                      "mix_cols_wide_kernel<false>", "mix_softmax_kernel<16>",
-                     "mix_eta_kernel<32>", "mix_eta_kernel<2>"]
+                     "mix_finish_kernel<32>", "mix_finish_kernel<2>"]
