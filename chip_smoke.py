@@ -1119,8 +1119,7 @@ def check_mixture_finish(mb, build, part, vpart, kw) -> float:
         if mb.is_wide(part.shape[3]) else {"mc_mix_finish": 1})
     ref = mb.mixture_finish_reference(part, vpart, **kw)
     model = mb.mixture_finish(part, vpart, params=True, **kw)
-    raw = mb.mixture_p(part, None, plb=0.0, ploidy=0, project=False,
-                       finish=False)
+    raw = mb.mixture_b(part)
     torch.cuda.synchronize()
     err = max(max_err(g, r) for g, r in zip(got, ref))
     assert torch.equal(got[1], ordered_segment_sum(vpart))

@@ -167,7 +167,7 @@ constexpr int KP_WIDE_MAX = 1024;
 constexpr int VSUM_ST = 32;
 
 using mc::FULL;
-using mc::michelot_warp_bits;
+using mc::michelot_warp;
 using mc::warp_sum;
 
 // count q (0-3) of four int8 counts packed in w, as float64
@@ -1176,7 +1176,7 @@ __device__ __forceinline__ void finish_eta(const FinishArgs& a, int b,
   const float tot = warp_sum(part);
 #pragma unroll
   for (int j = 0; j < KJ; ++j) w[j] = w[j] / tot;
-  if (a.project) michelot_warp_bits<KJ>(w, lane, a.k_true, a.lb);
+  if (a.project) michelot_warp<KJ>(w, lane, a.k_true, a.lb);
   const int ld = a.params ? a.k_true : a.Kp;
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
@@ -1285,13 +1285,18 @@ __device__ __forceinline__ void finish_p(const FinishArgs& a, int b,
 
 // The finish: block 0 of each chain's row runs the eta half (its first
 // warp; with an eta), the other blocks (all, without one) the p half,
-// NT threads a block of (lane, 4 loci) items.
+// NT threads a block of (lane, 4 loci) items.  KJ = 0 is the p half
+// alone, with no eta half compiled in.
 template <int KJ>
 __global__ void __launch_bounds__(NT) mix_finish_kernel(const FinishArgs a) {
-  const int b = blockIdx.y, eta_on = a.eta != nullptr;
-  if (eta_on && blockIdx.x == 0) {
-    if (threadIdx.x < 32) finish_eta<KJ>(a, b, threadIdx.x);
-    return;
+  const int b = blockIdx.y;
+  int eta_on = 0;
+  if constexpr (KJ > 0) {
+    eta_on = a.eta != nullptr;
+    if (eta_on && blockIdx.x == 0) {
+      if (threadIdx.x < 32) finish_eta<KJ>(a, b, threadIdx.x);
+      return;
+    }
   }
   finish_p(a, b, (blockIdx.x - eta_on) * NT + threadIdx.x);
 }
@@ -1516,7 +1521,7 @@ extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
 // where vtot is), the p half where out0 is (FinishArgs); the eta half's
 // slots a lane by Kp as the admixture's wide finish sizes them
 // (wide.cuh): Kp / 32 up to 128, then 8 / 16 / 32 at Kp <= 256 / 512 /
-// 1024; without the eta half the KJ = 1 instance (the fewest registers).
+// 1024; without the eta half the KJ = 0 instance, the p half alone.
 // Returns cudaErrorInvalidValue for a Kp the kernels do not take or
 // arguments that do not go together.
 extern "C" int mc_mix_finish(const void* part, const void* vpart, void* vtot,
@@ -1563,9 +1568,10 @@ extern "C" int mc_mix_finish(const void* part, const void* vpart, void* vtot,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks, B);
   cudaStream_t s = (cudaStream_t)stream;
-  const int kj = !eta_on ? 1 : Kp <= 128 ? Kp / 32 : Kp <= 256 ? 8
+  const int kj = !eta_on ? 0 : Kp <= 128 ? Kp / 32 : Kp <= 256 ? 8
                  : Kp <= 512 ? 16 : 32;
   switch (kj) {
+    case 0: mix_finish_kernel<0><<<grid, NT, 0, s>>>(a); break;
     case 1: mix_finish_kernel<1><<<grid, NT, 0, s>>>(a); break;
     case 2: mix_finish_kernel<2><<<grid, NT, 0, s>>>(a); break;
     case 3: mix_finish_kernel<3><<<grid, NT, 0, s>>>(a); break;

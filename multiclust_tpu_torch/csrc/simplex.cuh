@@ -24,83 +24,23 @@ __device__ __forceinline__ float warp_sum(float v) { return group_sum<32>(v); }
 
 // Michelot projection of one row held by one warp (lane owns k = lane +
 // 32 j) onto {x >= lb on the valid lanes, sum = 1}; the other lanes end
-// at 0.  `valid` is the true-lane set: static (k < k_true) or read from a
-// runtime mask, as the TPU's `_michelot_tile` takes either.  The free
-// lanes are counted a lane at a time and reduced once a pass (one
-// __reduce_add_sync, not a ballot a slot): whole numbers, equal to a warp
-// sum of them, so a pass needs one warp sum (of w) where the passes are
-// latency; a pass pinned a lane exactly when the count fell.
+// at 0.  Bit j of `valid` marks slot j of this lane as a true lane: static
+// (k < k_true) or read from a runtime mask, as the TPU's `_michelot_tile`
+// takes either.  The free slots are the bits of one word, not an array of
+// flags, so the passes keep registers for w alone.  They are counted a
+// lane at a time and reduced once a pass (one __reduce_add_sync, not a
+// ballot a slot): whole numbers, equal to a warp sum of them, so a pass
+// needs one warp sum (of w) where the passes are latency; a pass pinned a
+// lane exactly when the count fell.  A pass gathers its pinned slots in a
+// word of their own and clears them after it, so no slot's test waits on
+// the one before it.
 template <int KJ>
-__device__ void michelot_warp_mask(float (&w)[KJ], const bool (&valid)[KJ],
-                                   float lb) {
-  bool fr[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    fr[j] = valid[j];
-    if (!fr[j]) w[j] = 0.f;
-  }
-  auto free_lanes = [&]() {
-    int n = 0;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) n += fr[j] ? 1 : 0;
-    return __reduce_add_sync(FULL, n);
-  };
-  int nf = free_lanes();
-  while (true) {
-    float cs = 0.f;
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) cs += w[j];
-    cs = warp_sum(cs);
-    const float off = (cs - 1.f) / fmaxf((float)nf, 1.f);
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) {
-      if (fr[j]) {
-        const float w2 = w[j] - off;
-        if (w2 < lb) {
-          w[j] = lb;
-          fr[j] = false;
-        } else {
-          w[j] = w2;
-        }
-      }
-    }
-    const int left = free_lanes();
-    const bool any_pinned = left < nf;
-    nf = left;
-    if (!any_pinned || nf == 0) break;
-  }
+__device__ void michelot_warp_mask(float (&w)[KJ], unsigned valid, float lb) {
+  static_assert(KJ <= 32, "one bit a slot");
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
-    if (!valid[j]) w[j] = 0.f;
-}
-
-// the same with the static lane set k < k_true
-template <int KJ>
-__device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
-                              float lb) {
-  bool valid[KJ];
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) valid[j] = lane + 32 * j < k_true;
-  michelot_warp_mask<KJ>(w, valid, lb);
-}
-
-// The same passes with the free slots as the bits of one word (KJ <= 32),
-// not an array of flags: the same arithmetic in the same order, so the
-// same results, in registers for w alone (the mixture's finish keeps them
-// to let its p blocks, in the same kernel, hold more warps an SM).  A
-// pass gathers its pinned slots in a word of their own and clears them
-// after it, so no slot's test waits on the one before it.
-template <int KJ>
-__device__ void michelot_warp_bits(float (&w)[KJ], int lane, int k_true,
-                                   float lb) {
-  static_assert(KJ <= 32, "one bit a slot");
-  unsigned fr = 0u;
-#pragma unroll
-  for (int j = 0; j < KJ; ++j) {
-    if (lane + 32 * j < k_true) fr |= 1u << j;
-    else w[j] = 0.f;
-  }
-  const unsigned valid = fr;
+    if (!(valid >> j & 1u)) w[j] = 0.f;
+  unsigned fr = valid;
   int nf = __reduce_add_sync(FULL, __popc(fr));
   while (true) {
     float cs = 0.f;
@@ -130,6 +70,17 @@ __device__ void michelot_warp_bits(float (&w)[KJ], int lane, int k_true,
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
     if (!(valid >> j & 1u)) w[j] = 0.f;
+}
+
+// the same with the static lane set k < k_true
+template <int KJ>
+__device__ void michelot_warp(float (&w)[KJ], int lane, int k_true,
+                              float lb) {
+  unsigned valid = 0u;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+    if (lane + 32 * j < k_true) valid |= 1u << j;
+  michelot_warp_mask<KJ>(w, valid, lb);
 }
 
 // Michelot projection of rows held by aligned groups of G lanes (lane g

@@ -514,11 +514,11 @@ __global__ void __launch_bounds__(NT, fin_blocks(KP)) rows_finish_kernel(
 #pragma unroll
     for (int j = 0; j < KJ; ++j) a[j] = tot > 0.f ? a[j] / tot : e[j];
     if (project_eta) {
-      bool valid[KJ];
+      unsigned valid = 0u;
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const int k = lane + 32 * j;
-        valid[j] = kmask != nullptr ? kmask[k] > 0.5f : k < k_true;
+        if (kmask != nullptr ? kmask[k] > 0.5f : k < k_true) valid |= 1u << j;
       }
       mc::michelot_warp_mask<KJ>(a, valid, lb);
     }

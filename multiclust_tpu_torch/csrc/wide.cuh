@@ -994,11 +994,12 @@ __global__ void __launch_bounds__(NT, KJ <= 8 ? 4 : KJ <= 16 ? 3 : 2)
 #pragma unroll
     for (int j = 0; j < KJ; ++j) a[j] = tot > 0.f ? a[j] / tot : e[j];
     if (project_eta) {
-      bool valid[KJ];
+      unsigned valid = 0u;
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const int k = lane + 32 * j;
-        valid[j] = k < Kp && (kmask != nullptr ? kmask[k] > 0.5f : k < k_true);
+        if (k < Kp && (kmask != nullptr ? kmask[k] > 0.5f : k < k_true))
+          valid |= 1u << j;
       }
       mc::michelot_warp_mask<KJ>(a, valid, lb);
     }

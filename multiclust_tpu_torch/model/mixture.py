@@ -200,9 +200,8 @@ def _finish_eta(v: Tensor, cfg: EMConfig) -> Tensor:
     K = vsum.shape[-1]
     if _on_card(cfg, vsum, K):
         vpart = F.pad(vsum, (0, k_padded_size(K, 32) - K))[:, None]
-        eta, _ = mixture_eta(vpart.contiguous(), k_true=K,
-                             lb=cfg.eta_lower_bound,
-                             project=cfg.do_projection)
+        eta = mixture_eta(vpart.contiguous(), k_true=K,
+                          lb=cfg.eta_lower_bound, project=cfg.do_projection)
         return eta[:, :K].contiguous()
     eta = vsum / vsum.sum(dim=-1, keepdim=True)
     if cfg.do_projection:

@@ -13,8 +13,9 @@ projects (``_finish_eta``, which JAX runs in XLA), its p half sums the B
 partials and applies the p0 update of ``_mix_counts_kernel``, each half
 summing vtot itself.  The finish writes the JAX function's outputs (eta',
 p0' [B, Kp, L]) or the model's parameters (eta [B, K], p [B, K, L, 2] =
-(p0', 1 - p0'), ``params=True``); either half runs alone as
-``mixture_eta`` (the other mixtures' eta) and ``mixture_p``.  The rows and
+(p0', 1 - p0'), ``params=True``).  Either half runs alone: the eta half
+as ``mixture_eta`` (the other mixtures' eta), the p half without its p0
+update as ``mixture_b`` (the sweep's raw B0, B1).  The rows and
 columns passes contract on the float64 tensor cores, as the plain
 versions' float64 products do; their cluster tiles stop at ``k_true``.  At
 128 < Kp <= 1024 (KP_MAX, the TPU kernels' own range) the same launchers
@@ -22,8 +23,8 @@ run the wide passes: 128 x 128 block tiles of 4 x 4 float64 DMMA tiles a
 warp on balanced chunks of at most 128 of the ``k_true`` live lanes
 (``chunks``), the rows pass's scores in a float64 scratch and a softmax
 launch, and the finish's eta half at 8, 16 or 32 lanes a thread.
-``finish=False`` returns the raw statistics instead; rows, columns and
-the raw p half together are the sweep (``mixture_sweep_stats``).  Every
+Rows, columns and the raw p half together are the sweep
+(``mixture_sweep_stats``).  Every
 step of the finish runs on the card, so a kernel-route EM step never
 reads the host.
 
@@ -169,33 +170,36 @@ def mixture_cols_reference(v: Tensor, x0: Tensor,
 
 
 def mixture_eta_reference(vpart: Tensor, *, k_true: int, lb: float,
-                          project: bool) -> Tuple[Tensor, Tensor]:
+                          project: bool) -> Tensor:
     """Plain version of the eta finish (``_finish_eta``, mixture.py:106):
-    (eta' [B, Kp], vtot [B, Kp]) from the v sums [B, S, Kp]."""
+    eta' [B, Kp] from the v sums [B, S, Kp]."""
     vtot = vpart.sum(dim=1)
     eta = vtot / vtot.sum(dim=-1, keepdim=True)
     if project:
         lanes = torch.arange(eta.shape[-1], device=eta.device) < k_true
         eta = project_rows(eta, lanes, lb)
-    return eta, vtot
+    return eta
+
+
+def mixture_b_reference(part: Tensor) -> Tuple[Tensor, Optional[Tensor]]:
+    """Plain version of the raw p half: B0 [B, Kp, L] and B1 (None for one
+    stream), the partials [B, S, 1|2, Kp, L] summed over the segments."""
+    Bm = part.sum(dim=1)                              # [B, 1|2, Kp, L]
+    return Bm[:, 0], (Bm[:, 1] if Bm.shape[1] == 2 else None)
 
 
 def mixture_p_reference(part: Tensor, vtot: Tensor, *, plb: float,
-                        ploidy: int, project: bool, finish: bool = True):
+                        ploidy: int, project: bool) -> Tensor:
     """Plain version of the p0 epilogue (``_mix_counts_kernel``'s finish,
     kernels.py:1196-1210): p0' [B, Kp, L] from the partials [B, S, 1|2,
-    Kp, L], or the raw (B0, B1) under ``finish=False`` (B1 None for one
-    stream)."""
-    Bm = part.sum(dim=1)                              # [B, 1|2, Kp, L]
-    two = Bm.shape[1] == 2
-    if not finish:
-        return Bm[:, 0], (Bm[:, 1] if two else None)
-    pc0 = Bm[:, 0] + plb
-    if two:
-        pc1 = Bm[:, 1] + plb
+    Kp, L] and vtot [B, Kp]."""
+    b0, b1 = mixture_b_reference(part)
+    pc0 = b0 + plb
+    if b1 is not None:
+        pc1 = b1 + plb
     else:
         # sum_i v_ik x1_il = ploidy vtot_k - B0_kl (x1 = ploidy - x0)
-        pc1 = ploidy * vtot[..., None] - Bm[:, 0] + plb
+        pc1 = ploidy * vtot[..., None] - b0 + plb
     q = pc0 / (pc0 + pc1)
     if project:
         lo, hi = p0_clip_bounds(plb, q.dtype)
@@ -219,8 +223,9 @@ def mixture_finish_reference(part: Tensor, vpart: Tensor, *, k_true: int,
     turn: (eta' [B, Kp], vtot [B, Kp], p0' [B, Kp, L]) from the partials
     [B, S, 1|2, Kp, L] and the v sums [B, S, Kp], or under ``params``
     the model's (eta [B, K], p [B, K, L, 2]) (``params_layout``)."""
-    eta, vtot = mixture_eta_reference(vpart, k_true=k_true, lb=lb,
-                                      project=project)
+    eta = mixture_eta_reference(vpart, k_true=k_true, lb=lb,
+                                project=project)
+    vtot = vpart.sum(dim=1)
     p0 = mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
                              project=project)
     return params_layout(eta, p0, k_true) if params else (eta, vtot, p0)
@@ -246,9 +251,7 @@ def mixture_sweep_stats_reference(lp0, x0, bias, lp1=None, x1=None):
     stream)."""
     v, t = mixture_rows_reference(lp0, x0, bias, lp1, x1)
     part, _ = mixture_cols_reference(v, x0, x1)
-    b0, b1 = mixture_p_reference(part, None, plb=0.0, ploidy=0,
-                                 project=False, finish=False)
-    return v, t, b0, b1
+    return (v, t) + mixture_b_reference(part)
 
 
 def _check(name: str, t: Tensor, dev, dtype, shape) -> None:
@@ -385,40 +388,31 @@ def mixture_finish(part, vpart, *, k_true: int, lb: float, plb: float,
 
 
 def mixture_eta(vpart, *, k_true: int, lb: float, project: bool):
-    """Eta finish: (eta' [B, Kp], vtot [B, Kp]) from the v sums [B, S,
-    Kp]; the finish's eta half alone."""
+    """Eta finish: eta' [B, Kp] from the v sums [B, S, Kp]; the finish's
+    eta half alone."""
     if not vpart.is_cuda:
         return mixture_eta_reference(vpart, k_true=k_true, lb=lb,
                                      project=project)
     B, n_seg, Kp = vpart.shape
     check_kp(Kp)
     _check("vpart", vpart, vpart.device, torch.float32, (B, n_seg, Kp))
-    vtot = torch.empty((B, Kp), dtype=torch.float32, device=vpart.device)
-    eta = torch.empty_like(vtot)
-    _launch_finish(None, vpart, vtot=vtot, eta=eta, k_true=k_true, lb=lb,
+    eta = torch.empty((B, Kp), dtype=torch.float32, device=vpart.device)
+    _launch_finish(None, vpart, eta=eta, k_true=k_true, lb=lb,
                    project=project)
-    return eta, vtot
+    return eta
 
 
-def mixture_p(part, vtot, *, plb: float, ploidy: int, project: bool,
-              finish: bool = True):
-    """p0 epilogue: p0' [B, Kp, L], or the raw (B0, B1) under
-    ``finish=False`` (B1 None for one stream; vtot may then be None); the
-    finish's p half alone, vtot read as one segment of v sums."""
+def mixture_b(part):
+    """Raw B0 [B, Kp, L] and B1 (None for one stream) from the partials
+    [B, S, 1|2, Kp, L], summed in segment order: the finish's p half
+    alone, without its p0 update."""
     if not part.is_cuda:
-        return mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
-                                   project=project, finish=finish)
+        return mixture_b_reference(part)
     B, n_seg, ns, Kp, L = _check_part(part)
-    dev = part.device
-    if finish:
-        _check("vtot", vtot, dev, torch.float32, (B, Kp))
-    two = ns == 2
-    out0 = torch.empty((B, Kp, L), dtype=torch.float32, device=dev)
-    out1 = torch.empty_like(out0) if (two and not finish) else None
-    _launch_finish(part, vtot[:, None] if finish else None, out0=out0,
-                   out1=out1, plb=plb, ploidy=ploidy, project=project,
-                   finish=finish)
-    return out0 if finish else (out0, out1)
+    out0 = torch.empty((B, Kp, L), dtype=torch.float32, device=part.device)
+    out1 = torch.empty_like(out0) if ns == 2 else None
+    _launch_finish(part, None, out0=out0, out1=out1, finish=False)
+    return out0, out1
 
 
 def mixture_fullstep_biallelic(lp0, x0, bias, lp1=None, x1=None, *,
@@ -442,6 +436,4 @@ def mixture_sweep_stats(lp0, x0, bias, lp1=None, x1=None, *,
     as the full step, with the finish's raw p half."""
     v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=k_true)
     part, _ = mixture_partials(v, x0, x1, k_true=k_true)
-    b0, b1 = mixture_p(part, None, plb=0.0, ploidy=0, project=False,
-                       finish=False)
-    return v, t, b0, b1
+    return (v, t) + mixture_b(part)

@@ -45,7 +45,9 @@ passes of the eta finish along a fit at K (``fit_michelot_passes``).
 Each ``--mixture`` step's lines end with the finish: its device time in
 the step against its bound from the live lanes, its halves alone
 (``time_finish_halves``: the eta half as it runs, with one segment, and
-without Michelot; the p half) and the model's step (``em_step``, the
+without Michelot; the p half), the eta finish after each kind of work
+that can precede it (``time_eta_after``), the sweep statistics and their
+raw p half (``time_sweep``), and the model's step (``em_step``, the
 parameters in the model's layout) on CUDA events with the device
 operations it runs.
 Like ``--generic`` it calls only the step's entry point, the fit's and the
@@ -1032,42 +1034,105 @@ def mix_finish_bytes(B: int, n_seg: int, ns: int, k: int, L: int,
     return 4 * B * (read + written)
 
 
+def _eta_only(out):
+    """eta' of ``mixture_eta``, which in a parent tree also returned vtot."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def time_finish_halves(part, vpart, n: int) -> None:
     """The finish's halves alone on the step's partials, launched back to
     back (the partials in L2, as after the columns pass): the eta half
     (``mixture_eta``) as it runs, with its segment loop cut to the first
-    segment and with its Michelot cut (projection off), the p half
-    (``mixture_p`` on the eta half's vtot), and where the tree has the one
-    launch (``mixture_finish``) both halves together in either layout;
-    device ms a launch
-    (torch.profiler) and CUDA-event ms of a call, and the Michelot passes
-    the step's eta takes."""
+    segment and with its Michelot cut (projection off), the p half (with
+    the one launch: its p0 update, vtot summed from the v partials as in
+    the step; in a parent: ``mixture_p`` on the eta finish's vtot), and
+    where the tree has the one launch (``mixture_finish``) both halves
+    together in either layout; device ms a launch (torch.profiler) and
+    CUDA-event ms of a call, and the Michelot passes the step's eta
+    takes."""
     ekw = dict(k_true=K, lb=1e-8, project=True)
-    eta, vtot = mb.mixture_eta(vpart, **ekw)
     one = vpart[:, :1].contiguous()
     calls = {
         "eta half": lambda: mb.mixture_eta(vpart, **ekw),
         "eta half, one segment": lambda: mb.mixture_eta(one, **ekw),
         "eta half, no Michelot": lambda: mb.mixture_eta(
-            vpart, k_true=K, lb=1e-8, project=False),
-        "p half": lambda: mb.mixture_p(part, vtot, plb=1e-8, ploidy=2,
-                                       project=True)}
+            vpart, k_true=K, lb=1e-8, project=False)}
     if hasattr(mb, "mixture_finish"):
+        p0 = torch.empty((part.shape[0],) + part.shape[3:],
+                         device=part.device)
+        calls["p half"] = lambda: mb._launch_finish(
+            part, vpart, out0=p0, plb=1e-8, ploidy=2, project=True)
         fkw = dict(ekw, plb=1e-8, ploidy=2)
         calls["finish, both halves"] = lambda: mb.mixture_finish(
             part, vpart, **fkw)
         calls["finish, the model's layout"] = lambda: mb.mixture_finish(
             part, vpart, params=True, **fkw)
+    else:
+        _, vtot = mb.mixture_eta(vpart, **ekw)
+        calls["p half"] = lambda: mb.mixture_p(part, vtot, plb=1e-8,
+                                               ploidy=2, project=True)
     for label, fn in calls.items():
         dev_ms = kernel_device_ms(fn, n, FINISH_KERNELS)["finish"]
         print(f"  {label} alone ({part.shape[1]} segments): "
               f"{dev_ms:.4f} ms of device time a launch, "
               f"{median_ms(fn, n):.4f} ms on CUDA events", flush=True)
-    w, _ = mb.mixture_eta(vpart, k_true=K, lb=1e-8, project=False)
+    w = _eta_only(mb.mixture_eta(vpart, k_true=K, lb=1e-8, project=False))
     passes = michelot_passes(w, K, 1e-8)
     print(f"  Michelot passes on this step's eta: {passes.tolist()} (one a "
           f"chain)", flush=True)
-    del eta, vtot, one
+    del one, calls
+
+
+def time_eta_after(args, vpart, n: int) -> None:
+    """The eta finish (``mixture_eta`` on the step's v partials; a
+    parent's M3) timed after each kind of work that can precede it: itself
+    (launched back to back), the rows pass, the columns pass (its v
+    partials new, as in the step), a 256 MiB fill (the 50 MB L2 flushed:
+    the partials and the kernel's code read from HBM), and an idle wait of
+    ~50 us (torch.cuda._sleep).  Device ms of the eta launch alone
+    (torch.profiler), so that its time in the step can be set beside
+    these."""
+    ekw = dict(k_true=K, lb=1e-8, project=True)
+    lp0, x0, bias, lp1, x1 = args
+    v, _ = mb.mixture_rows(lp0, x0, bias, lp1, x1, k_true=K)
+    flush = torch.empty(64 * 2 ** 20, device=vpart.device)
+
+    def cols_then_eta():
+        _, vp = mb.mixture_partials(v, x0, x1, k_true=K)
+        mb.mixture_eta(vp, **ekw)
+
+    before = {
+        "itself": lambda: None,
+        "the rows pass": lambda: mb.mixture_rows(lp0, x0, bias, lp1, x1,
+                                                 k_true=K),
+        "a 256 MiB fill": lambda: flush.fill_(1.0),
+        "an idle wait of ~50 us": lambda: torch.cuda._sleep(100_000)}
+    eta_names = {"eta": ("mix_eta_kernel", "mix_finish_kernel")}
+    for label, pre in before.items():
+        def fn(pre=pre):
+            pre()
+            mb.mixture_eta(vpart, **ekw)
+        ms = kernel_device_ms(fn, n, eta_names)["eta"]
+        print(f"  eta finish after {label}: {ms:.4f} ms of device time a "
+              f"launch", flush=True)
+    ms = kernel_device_ms(cols_then_eta, n, eta_names)["eta"]
+    print(f"  eta finish after the columns pass: {ms:.4f} ms of device "
+          f"time a launch", flush=True)
+    del v, flush
+
+
+def time_sweep(args, n: int) -> None:
+    """``mixture_sweep_stats`` (rows, columns, the raw p half: the finish
+    launch without its eta half, or a parent's raw ``mix_p_kernel``): the
+    call on CUDA events and the raw p half's device ms."""
+    def sweep():
+        return mb.mixture_sweep_stats(*args, k_true=K)
+
+    raw = kernel_device_ms(sweep, n, {"raw": ("mix_finish_kernel",
+                                              "mix_p_kernel")})["raw"]
+    print(f"  sweep statistics: {median_ms(sweep, n):.3f} ms on CUDA "
+          f"events; its raw p half {raw:.4f} ms of device time a call",
+          flush=True)
 
 
 def time_model_step(I: int, L: int, B: int, two: bool, n: int, dev) -> None:
@@ -1377,6 +1442,8 @@ def time_mixture(I: int, L: int, chains, n: int, dev) -> None:
                   f"{live[True]:.4f} ms in the model's layout (p [B, K, L, "
                   f"2])", flush=True)
             time_finish_halves(parts, vparts, n)
+            time_eta_after(args, vparts, n)
+            time_sweep(args, n)
             time_model_step(I, L, B, two, n, dev)
             del args, v, t, part, parts, vparts
             torch.cuda.empty_cache()

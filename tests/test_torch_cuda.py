@@ -396,8 +396,8 @@ def test_mixture_finish_matches_plain(K, Kp, two):
     instance (1-4 slots a lane narrow, 8, 16 and 32 wide) on partials of
     1, 3, 7 and 40 segments (more than a thread loads at once), 16-byte
     and ragged loci, projection on and off: its vtot and its p half's raw
-    B0 (B1) bit-equal to the ordered segment sums, its halves alone
-    (``mixture_eta``, ``mixture_p``) bit-equal to it, the model's layout
+    B0 (B1) bit-equal to the ordered segment sums, its eta half alone
+    (``mixture_eta``) bit-equal to it, the model's layout
     bit-equal to its K-padded outputs, reruns bit-equal, one launch a
     call."""
     dev = _cuda()
@@ -425,11 +425,8 @@ def test_mixture_finish_matches_plain(K, Kp, two):
         if project:
             assert float(eta[:, :K].min()) >= lb * (1 - 1e-6)
         alone = mb.mixture_eta(vpart, k_true=K, lb=lb, project=project)
-        assert torch.equal(alone[0], eta) and torch.equal(alone[1], vtot)
-        assert torch.equal(mb.mixture_p(part, vtot, plb=1e-3, ploidy=2,
-                                        project=project), p0)
-        raw = mb.mixture_p(part, None, plb=0.0, ploidy=0, project=False,
-                           finish=False)
+        assert torch.equal(alone, eta)
+        raw = mb.mixture_b(part)
         assert (raw[1] is None) == (not two)
         for s in range(part.shape[2]):
             assert torch.equal(raw[s], fb.ordered_segment_sum(part[:, :, s]))
@@ -621,9 +618,7 @@ def test_mixture_kernels_refuse_kp160():
         mb.mixture_eta(torch.zeros(1, 1, 1056, device=dev), k_true=1050,
                        lb=0.0, project=False)
     with pytest.raises(ValueError, match="Kp=1056.*plain step"):
-        mb.mixture_p(torch.zeros(1, 1, 1, 1056, 12, device=dev),
-                     torch.zeros(1, 1056, device=dev), plb=0.0, ploidy=2,
-                     project=False)
+        mb.mixture_b(torch.zeros(1, 1, 1, 1056, 12, device=dev))
     with pytest.raises(ValueError, match="Kp=1056.*plain step"):
         mb.mixture_finish(torch.zeros(1, 1, 1, 1056, 12, device=dev),
                           torch.zeros(1, 1, 1056, device=dev), k_true=1050,
@@ -2300,9 +2295,8 @@ def test_wide_mixture_kernels_match_plain(B, I, L, K, Kp, miss_rate,
     again = mb.mixture_partials(v, x0, x1, k_true=K)
     assert torch.equal(part, again[0]) and torch.equal(vpart, again[1])
     ekw = dict(k_true=K, lb=1e-4, project=project)
-    for g, r in zip(mb.mixture_eta(vpart, **ekw),
-                    mb.mixture_eta_reference(vpart, **ekw)):
-        torch.testing.assert_close(g, r, **F32)
+    torch.testing.assert_close(mb.mixture_eta(vpart, **ekw),
+                               mb.mixture_eta_reference(vpart, **ekw), **F32)
 
     sweep = mb.mixture_sweep_stats(*args, k_true=K)
     sweep_ref = mb.mixture_sweep_stats_reference(*args)
@@ -2328,10 +2322,9 @@ def test_wide_mixture_eta_projects_like_plain(Kp):
             kw = dict(k_true=K, lb=2e-4, project=True)
             got = mb.mixture_eta(vpart, **kw)
             ref = mb.mixture_eta_reference(vpart, **kw)
-            for g, r in zip(got, ref):
-                torch.testing.assert_close(g, r, **F32)
-            assert (got[0][:, K:] == 0).all()
-            assert float(got[0][:, :K].min()) >= 2e-4 * (1 - 1e-6)
+            torch.testing.assert_close(got, ref, **F32)
+            assert (got[:, K:] == 0).all()
+            assert float(got[:, :K].min()) >= 2e-4 * (1 - 1e-6)
 
 
 def _mixture_plain_raises(monkeypatch):
@@ -2442,7 +2435,8 @@ def test_wide_mixture_kernels_build_without_spills():
     """The -Xptxas -v report of the mixture's wide kernels: the score and
     columns kernels (one and two streams), the softmax at 4, 8 and 16
     score pairs a lane and the finish at each of its eta slots a lane
-    (1-4 narrow, 8, 16 and 32 wide), none spilling."""
+    (1-4 narrow, 8, 16 and 32 wide) and its p half alone (0), none
+    spilling."""
     from multiclust_tpu_torch.kernel_report import MIX_WIDE, ptxas_lines
 
     _cuda()
@@ -2453,7 +2447,8 @@ def test_wide_mixture_kernels_build_without_spills():
                for _, text in lines), lines
     assert sorted(name for name, _ in lines) == [
         "mix_cols_wide_kernel<false>", "mix_cols_wide_kernel<true>",
-        "mix_finish_kernel<16>", "mix_finish_kernel<1>",
+        "mix_finish_kernel<0>", "mix_finish_kernel<16>",
+        "mix_finish_kernel<1>",
         "mix_finish_kernel<2>", "mix_finish_kernel<32>",
         "mix_finish_kernel<3>", "mix_finish_kernel<4>",
         "mix_finish_kernel<8>", "mix_rows_wide_kernel<false>",
