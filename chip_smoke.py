@@ -190,7 +190,33 @@ each raising on failure:
    take the plain step, launch nothing and print nothing; the compiler's
    report of the wide mixture kernels, none spilling.  Their records in
    the kernels line carry the times at K = 200 and, under ``kp1024``, at
-   K = 1024.
+   K = 1024;
+23. the mixed-K sweep (``MULTICLUST_SWEEP_MODE``, runtime/ksweep.py):
+   K-sweeps through ``api.fit_model_data`` in the modes ``static``,
+   ``merged`` (every K's chains in one lattice, each chain's true lanes
+   its ``Params.kmask``) and ``shared`` (the serial loop on that layout),
+   same seed and iteration cap: admixture on phase 1's 16384 x 2048
+   biallelic panel (1 % missing), K = 2..20, -n 8, plain EM, cap 20 (152
+   chains in the lattice); the mixture there, K = 2..20, -n 4; the M = 4
+   generic admixture panel of phase 8, K = 2..8, -n 4; and a wide case,
+   K = 129..140 (160 lanes) on 4096 x 2048, -n 2, admixture and mixture,
+   cap 8.  Per K: launched chains, iterations, best logL and its
+   difference from ``static`` (which must lie within the float32 noise
+   floor of opt/em.py for the panel: noise_factor x eps x the RMS scale of
+   the static fit's best logL terms; a lattice on another route than the
+   serial fits', the pair where they take the streamed step, within that
+   floor a step, cap + 1 of them), the AIC and BIC choice, and each
+   mode's wall with the model steps it ran and the chain-steps they
+   computed; then one EM step of the admixture and the mixture lattice
+   (152 and 76 chains of K = 2..20) against the same batch of K = 20
+   chains with no mask and against the sum of the 19 serial steps.  The launches of the masked kernels are counted from 0
+   over these runs and each must be launched; each masked kernel is then
+   held to its plain version (rtol 1e-4, atol 5e-5) on a batch of chains
+   of mixed K at the runs' shapes and timed there: the pair's rows pass,
+   the rows finish, the wide finish, the generic p epilogue, the mixture
+   rows pass, its wide scores and softmax, and the mixture finish (narrow,
+   and its eta half at 160 lanes), their records in the kernels line
+   named ``(kmask)``, their bounds from each chain's own K.
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -586,7 +612,7 @@ def check_fit(out, wall, label, where, md=None, K=K_FULL, mono=True):
     leaves a monotonicity violation to the caller, who holds it to another
     fit's."""
     res = out.best
-    eta, p = res.best_params
+    eta, p = res.best_params.eta, res.best_params.p
     assert np.isfinite(res.max_logL) and not (mono and res.mono_viol), \
         (label, res.max_logL, res.mono_viol, res.n_iter_all)
     assert not res.any_failed, label
@@ -2157,7 +2183,7 @@ def phase_jagged(build, dev, where):
             bk.worth_bucketing = real
         assert np.isfinite(res.max_logL) and not res.any_failed, label
         assert bool(res.buckets) != dense_forced, (label, res.buckets)
-        eta_b, p_b = res.best_params
+        eta_b, p_b = res.best_params.eta, res.best_params.p
         assert (p_b[:, ~panel.mask] == 0).all(), label
         # the fit's own noise floor (opt/em.py): from the scale of its
         # logL terms at the best parameters
@@ -3969,6 +3995,432 @@ def phase_wide_mixture(mb, build, dev, where):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the mixed-K sweep
+
+SWEEP_RUN_MODES = ("static", "merged", "shared")
+I_WIDE_SWEEP, L_WIDE_SWEEP = 4096, 2048
+# (label, admixture, panel, K range, -n, iteration cap)
+SWEEP_CASES = (
+    ("admixture", True, "biallelic", (2, 20), 8, 20),
+    ("mixture", False, "biallelic", (2, 20), 4, 20),
+    ("admixture M=4", True, "M=4", (2, 8), 4, 20),
+    ("wide admixture", True, "wide", (129, 140), 2, 8),
+    ("wide mixture", False, "wide", (129, 140), 2, 8),
+)
+MASKED_KERNELS = ("masked_pair_rows", "masked_rows_finish",
+                  "masked_wide_finish", "masked_p", "masked_mix_rows",
+                  "masked_mix_softmax", "masked_mix_finish")
+
+
+def sweep_panels(dev):
+    """The phase's panels on the card: phase 1's biallelic panel, phase 8's
+    M = 4 one (made on the card) and a 4096 x 2048 biallelic one."""
+    from multiclust_tpu_torch.convert import dataset_from_counts
+    from multiclust_tpu_torch.model.common import model_data_from_dataset
+
+    counts, miss = simulated_counts(np.random.default_rng(2), I_FULL, L_FULL,
+                                    K_FULL, 0.01)
+    bi = model_data_from_dataset(dataset_from_counts(counts, miss, 2),
+                                 dtype=torch.float32, device=dev,
+                                 storage_dtype=torch.int8)
+    return {"biallelic": bi,
+            "M=4": wide_fit_counts(K_FULL, I_FULL, L_FULL,
+                                   np.full(L_FULL, M_FULL), 42, dev),
+            "wide": wide_fit_counts(140, I_WIDE_SWEEP, L_WIDE_SWEEP,
+                                    np.full(L_WIDE_SWEEP, 2), 240, dev)}
+
+
+def sweep_fit(md, mode, kw):
+    """``api.fit_model_data`` of a K-sweep under MULTICLUST_SWEEP_MODE =
+    ``mode``: (its EstimateResult, wall seconds, (model steps, chain-steps
+    they computed))."""
+    from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.opt import em as em_mod
+
+    steps = [0, 0]
+    model_step = em_mod.model_em_step
+
+    def counted(params, *a, **k):
+        steps[0] += 1
+        steps[1] += params.eta.shape[0]
+        return model_step(params, *a, **k)
+    os.environ["MULTICLUST_SWEEP_MODE"] = mode
+    em_mod.model_em_step = counted
+    try:
+        t0 = time.time()
+        out = fit_model_data(md, 2, **kw)
+        torch.cuda.synchronize()
+        return out.estimate, time.time() - t0, tuple(steps)
+    finally:
+        em_mod.model_em_step = model_step
+        del os.environ["MULTICLUST_SWEEP_MODE"]
+
+
+def noise_floor(res, md, opt, K) -> float:
+    """The float32 noise floor of opt/em.py at ``res``'s best parameters:
+    noise_factor x eps x the RMS scale of their logL terms."""
+    from multiclust_tpu_torch.model.common import map_params
+    from multiclust_tpu_torch.opt.em import model_log_likelihood
+    from multiclust_tpu_torch.runtime.multistart import cfg_from_options
+
+    cfg = cfg_from_options(opt, K, md)
+    _, scale = model_log_likelihood(
+        map_params(lambda t: t[None], res.best_params), md, cfg)
+    return cfg.noise_factor * float(np.finfo(np.float32).eps) * float(scale)
+
+
+def phase_sweep_runs(build, dev, where):
+    """The phase's sweeps in the three modes; the masked kernels' launches
+    over them, counted from 0."""
+    from multiclust_tpu_torch.config import Options
+
+    panels = sweep_panels(dev)
+    build.reset_launch_counts()
+    walls, gaps = {}, []
+    for label, admixture, panel, (k_lo, k_hi), n_init, cap in SWEEP_CASES:
+        md = panels[panel]
+        kw = dict(admixture=admixture, min_K=k_lo, max_K=k_hi,
+                  n_init=n_init, max_iter=cap, seed=3, verbosity=0)
+        opt = Options(**kw).synchronize(md.I, 2)
+        runs = {}
+        for mode in SWEEP_RUN_MODES:
+            before = {n: build.LAUNCHES[n] for n in MASKED_KERNELS}
+            runs[mode] = sweep_fit(md, mode, kw)
+            walls[label, mode] = runs[mode][1]
+            masked = {n: build.LAUNCHES[n] - before[n]
+                      for n in MASKED_KERNELS if build.LAUNCHES[n] > before[n]}
+            est, _, (n_steps, chain_steps) = runs[mode]
+            print(f"sweep {label} K={k_lo}..{k_hi} -n {n_init} cap {cap} "
+                  f"{mode}: {runs[mode][1]:.2f} s wall, {n_steps} model "
+                  f"steps of {chain_steps} chain-steps; AIC K={est.aic_K}, "
+                  f"BIC K={est.bic_K}; masked launches {masked}; route "
+                  f"{est.per_K[k_hi].route or '-'} on {where}", flush=True)
+            if mode == "static":
+                assert not masked, masked
+            else:
+                assert masked, (label, mode)
+        want = runs["static"][0].per_K
+        for K in range(k_lo, k_hi + 1):
+            floor = noise_floor(want[K], md, opt, K)
+            line = [f"K={K}: static n_launched {want[K].n_launched}, "
+                    f"{want[K].n_iter_all} iterations, logL "
+                    f"{want[K].max_logL:.4f}"]
+            for mode in ("merged", "shared"):
+                got = runs[mode][0].per_K[K]
+                d = got.max_logL - want[K].max_logL
+                line.append(f"{mode} {got.n_launched}, {got.n_iter_all} "
+                            f"iterations, {got.max_logL:.4f} ({d:+.4f}, "
+                            f"{abs(d) / floor:.2f} floors)")
+                gaps.append((label, K, mode, got.n_launched,
+                             want[K].n_launched, d, floor, cap,
+                             got.route == want[K].route))
+                assert got.best_params.kmask is None
+            print(f"sweep {label} " + "; ".join(line)
+                  + f"; noise floor {floor:.4f}", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+    launches = {n: build.LAUNCHES[n] for n in MASKED_KERNELS}
+    print(f"masked launches in the phase's sweeps: {launches}", flush=True)
+    for name, n in launches.items():
+        assert n > 0, (name, launches)
+    # a mode on the serial fits' route: within the noise floor; the
+    # lattice on another route (the pair, its 152 chains filling the card,
+    # where 8 chains take the streamed step) rounds every step otherwise,
+    # and its chains, capped short of convergence, may drift apart by up
+    # to the floor a step
+    for label, K, mode, n_got, n_want, d, floor, cap, same in gaps:
+        assert n_got == n_want, (label, K, mode, n_got, n_want)
+        limit = floor if same else floor * (cap + 1)
+        assert abs(d) <= limit, (label, K, mode, d, floor, same)
+    a, m = walls["admixture", "merged"], walls["admixture", "static"]
+    print(f"sweep admixture K=2..20 -n 8 at {I_FULL} x {L_FULL}: the "
+          f"152-chain lattice (merged) {a:.2f} s against 19 serial fits of "
+          f"8 chains (static) {m:.2f} s: the lattice is "
+          f"{'faster' if a < m else 'slower'} ({m / a:.2f}x) on {where}",
+          flush=True)
+    return launches, panels
+
+
+def sweep_step_params(gen, ks, width, md, admixture, masked):
+    """Parameters of chains of K = ``ks`` clusters on ``width`` lanes (the
+    biallelic p0 layout for the admixture), drawn with ``gen``, with their
+    kmask where ``masked``."""
+    from multiclust_tpu_torch.model.common import Params
+
+    dev = md.device
+    B = len(ks)
+    lanes = torch.arange(width, device=dev)[None, :] < torch.as_tensor(
+        ks, device=dev)[:, None]
+    eta_shape = (B, md.I, width) if admixture else (B, width)
+    eta = torch.rand(eta_shape, generator=gen, device=dev) + 0.05
+    eta = eta * (lanes[:, None, :] if admixture else lanes)
+    eta = (eta / eta.sum(dim=-1, keepdim=True)).contiguous()
+    p0 = (0.02 + 0.96 * torch.rand((B, width, md.L), generator=gen,
+                                   device=dev)) * lanes[:, :, None]
+    p = p0 if admixture else torch.stack([p0, 1 - p0], dim=-1) \
+        * lanes[:, :, None, None]
+    return Params(eta=eta, p=p.contiguous(),
+                  kmask=lanes.float() if masked else None)
+
+
+def phase_sweep_steps(md, where):
+    """One EM step of the phase's lattices (152 admixture chains of K =
+    2..20 on the pair, k_true 20; 76 mixture chains, width 20) against the
+    sum of the 19 serial steps of each K's chains at k_true = K, and the
+    same lattice of K = 20 chains with no mask, median CUDA-event ms."""
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.opt.em import model_em_step
+    from multiclust_tpu_torch.runtime.multistart import cfg_from_options
+
+    gen = torch.Generator(device=md.device).manual_seed(19)
+    for label, admixture, n in (("admixture", True, 8),
+                                ("mixture", False, 4)):
+        opt = Options(admixture=admixture, min_K=2, max_K=K_FULL,
+                      n_init=n).synchronize(md.I, 2)
+
+        def step_ms(ks, masked, k_cfg):
+            width = 32 if admixture else k_cfg
+            params = sweep_step_params(gen, ks, width, md, admixture, masked)
+            cfg = cfg_from_options(opt, k_cfg, md)
+            t = median_ms(lambda: model_em_step(params, md, cfg), n=5,
+                          warm=2)
+            del params
+            return t
+        ks = [K for K in range(2, K_FULL + 1) for _ in range(n)]
+        lattice = step_ms(ks, True, K_FULL)
+        same = step_ms([K_FULL] * len(ks), False, K_FULL)
+        serial = [step_ms([K] * n, False, K) for K in range(2, K_FULL + 1)]
+        print(f"sweep step {label} {md.I} x {md.L}: the lattice of "
+              f"{len(ks)} chains (K = 2..{K_FULL}, masked) {lattice:.3f} ms; "
+              f"{len(ks)} chains of K = {K_FULL} unmasked {same:.3f} ms "
+              f"({lattice / same:.3f}x); 19 serial steps of {n} chains "
+              f"{sum(serial):.3f} ms in all (K = 2 {serial[0]:.3f}, K = "
+              f"{K_FULL} {serial[-1]:.3f}): the lattice "
+              f"{lattice / sum(serial):.2f}x of them on {where}",
+              flush=True)
+        torch.cuda.empty_cache()
+
+
+def mixed_lattice(rng, B, k_lo, k_hi, Kp, dev):
+    """[B, Kp] kmask of chains of k_lo..k_hi clusters (the first at
+    k_hi), and their K."""
+    ks = rng.integers(k_lo, k_hi + 1, size=B)
+    ks[0] = k_hi
+    km = (np.arange(Kp)[None] < ks[:, None]).astype(np.float32)
+    return torch.tensor(km, device=dev), ks
+
+
+def masked_step_inputs(rng, B, I, L, ks, km, dev):
+    """step_inputs of a lattice: eta and p0 zero outside each chain's lanes,
+    eta's rows renormalized over them."""
+    e, p, a, z, c, m = step_inputs(rng, B, I, L, int(ks.max()),
+                                   km.shape[1], 0.01, dev)
+    e = e * km[:, None, :]
+    e = (e / e.sum(dim=-1, keepdim=True)).contiguous()
+    return e, (p * km[:, :, None]).contiguous(), a, z, c, m
+
+
+def masked_mix_inputs(rng, md, km, ks, k_true):
+    """Mixture rows-pass inputs of a lattice on ``md``'s two streams: lp
+    of each chain's lanes, bias log eta there, 0 on the lanes outside the
+    chain's mask below k_true (scores that would lead, were they not
+    masked), the pad value past it."""
+    from multiclust_tpu_torch.model.mixture import PAD_BIAS
+
+    B, Kp = km.shape
+    L = md.L
+    dev = km.device
+    p0 = torch.tensor(rng.uniform(0.02, 0.98, size=(B, Kp, L)),
+                      dtype=torch.float32, device=dev) * km[:, :, None]
+    lp0 = torch.where(p0 > 0, torch.log(p0.clamp(min=1e-30)), 0.0)
+    lp1 = torch.where(p0 > 0, torch.log1p(-p0), 0.0)
+    eta = np.zeros((B, Kp), np.float32)
+    for b, K in enumerate(ks):
+        eta[b, :K] = rng.dirichlet(np.ones(K))
+    bias = torch.tensor(np.where(eta > 0, np.log(np.maximum(eta, 1e-30)),
+                                 0.0), dtype=torch.float32, device=dev)
+    bias[:, k_true:] = PAD_BIAS
+    return (lp0.contiguous(), md.x0, bias.contiguous(), lp1.contiguous(),
+            md.x1)
+
+
+def phase_masked_kernels(fb, fs, mb, dev, where, panels, launches):
+    """Each masked kernel against its plain version on a batch of chains of
+    mixed K at the sweeps' shapes, timed there; returns their records."""
+    from multiclust_tpu_torch.route_times import finish_bytes, \
+        mix_finish_bytes, p_bytes
+
+    rng = np.random.default_rng(23)
+    n_sm = fb.device_sm_count(dev)
+    recs = []
+
+    def record(name, source, replaces, counter, kernel, plain, n_bytes,
+               n_flop, check=None, lib=None, n_plain=3):
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = max(max_err(g, r) for g, r in zip(got, ref)
+                  if g is not None)
+        if check is not None:
+            check(got)
+        del got, ref
+        bnd = bound(n_bytes, n_flop)
+        ms = (median_ms(kernel), median_ms(plain, n=n_plain, warm=1))
+        lib_ms = median_ms(lib, n=5, warm=1) if lib is not None else None
+        print(f"{name}: max|d| {err:.3e} (rtol {RTOL}, atol {ATOL}); kernel "
+              f"{ms[0]:.4f} ms, plain {ms[1]:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}; {100 * bnd[0] / ms[0]:.1f} %)"
+              + (f", library {lib_ms:.3f} ms" if lib_ms is not None else "")
+              + f", {launches[counter]} launches in the sweeps, on {where}",
+              flush=True)
+        recs.append(kernel_record(name, source, replaces, launches[counter],
+                                  err, ms, bnd, lib_ms))
+        torch.cuda.empty_cache()
+
+    def off_zero(km):
+        def check(got):
+            eta = got[0]
+            off = (km < 0.5)[:, None, :].expand_as(eta)
+            assert (eta.masked_select(off) == 0).all()
+        return check
+
+    # the admixture: 8 chains of K = 2..20 on 32 lanes, k_true = 20
+    km, ks = mixed_lattice(rng, 8, 2, K_FULL, 32, dev)
+    e, p, a, z, c, m = masked_step_inputs(rng, 8, I_FULL, L_FULL, ks, km,
+                                          dev)
+    kw = dict(k_true=K_FULL, lb=1e-8, project=True, compute_t=True)
+    cells = I_FULL * L_FULL
+    record("fullstep_bi_rows (kmask)", SOURCE, TPU_KERNEL, "masked_pair_rows",
+           lambda: fb.fullstep_bi_rows(e, p, a, z, c, km, **kw),
+           lambda: fb.fullstep_bi_rows_reference(e, p, a, z, c, km, **kw),
+           tensors_bytes((e, p, a, z, c, km)) + 4 * (e.numel() + 8 * I_FULL),
+           sum(4 * int(k) + 10 for k in ks) * cells, off_zero(km))
+    n_cseg, seg_cols = fb.row_segments(8, I_FULL, L_FULL, n_sm,
+                                       k_true=K_FULL, Kp=32)
+    apart, tpart = fb.rows_partials(e, p, a, z, l_lo=0, l_hi=L_FULL,
+                                    seg_cols=seg_cols, k_true=K_FULL)
+    fkw = dict(k_true=K_FULL, lb=1e-8, project_eta=True)
+    record("rows_finish (kmask)", "multiclust_tpu_torch/csrc/tiles.cuh",
+           FINISH_TPU, "masked_rows_finish",
+           lambda: fb.rows_finish(e, apart, tpart, c, None, km, **fkw),
+           lambda: fb.rows_finish_reference(e, apart, tpart, c, None, km,
+                                            **fkw),
+           sum(finish_bytes(1, I_FULL, 32, n_cseg, int(k))[1] for k in ks),
+           0, off_zero(km))
+    del e, p, a, z, c, m, apart, tpart
+    torch.cuda.empty_cache()
+
+    # the wide finish: 4 chains of K = 129..140 on 160 lanes
+    md = panels["wide"]
+    km, ks = mixed_lattice(rng, 4, 129, 140, 160, dev)
+    e, p, a, z, c, _ = masked_step_inputs(rng, 4, md.I, md.L, ks, km, dev)
+    n_cseg, seg_cols = fb.row_segments(4, md.I, md.L, n_sm, k_true=140,
+                                       Kp=160)
+    apart, tpart = fb.rows_partials(e, p, a, z, l_lo=0, l_hi=md.L,
+                                    seg_cols=seg_cols, k_true=140)
+    fkw = dict(k_true=140, lb=1e-8, project_eta=True)
+    record("wide_finish (kmask)", "multiclust_tpu_torch/csrc/wide.cuh",
+           FINISH_TPU, "masked_wide_finish",
+           lambda: fb.rows_finish(e, apart, tpart, c, None, km, **fkw),
+           lambda: fb.rows_finish_reference(e, apart, tpart, c, None, km,
+                                            **fkw),
+           sum(finish_bytes(1, md.I, 160, n_cseg, int(k))[1] for k in ks),
+           0, off_zero(km))
+    del e, p, a, z, c, apart, tpart
+    torch.cuda.empty_cache()
+
+    # the generic p epilogue: 4 chains of K = 2..8, M = 4, 32 lanes
+    km, ks = mixed_lattice(rng, 4, 2, 8, 32, dev)
+    eta, p2, x2, c, miss, mask = generic_inputs(42, 4, I_FULL, L_FULL,
+                                                np.full(L_FULL, M_FULL), 8,
+                                                32, 0.01, dev)
+    eta = eta * km[:, None, :]
+    eta = (eta / eta.sum(dim=-1, keepdim=True)).contiguous()
+    p2 = (p2 * km[:, :, None]).contiguous()
+    part = fs.fullstep_partials(eta, p2, x2, miss, M=M_FULL, k_true=8)
+    pkw = dict(k_true=8, plb=1e-8, project=True)
+
+    def p_check(got):
+        off = (km < 0.5)[:, :, None, None].expand_as(got[0])
+        assert (got[0].masked_select(off) == 0).all()
+    LM = L_FULL * M_FULL
+    record("fullstep_p (kmask)", GENERIC_SOURCE, GENERIC_TPU, "masked_p",
+           lambda: (fs.fullstep_p(p2, part, mask, km, M=M_FULL, **pkw),),
+           lambda: (fs.fullstep_p_reference(p2, part, mask, km, **pkw),),
+           sum(p_bytes(1, 32, LM, part.shape[1], int(k))[1] for k in ks),
+           0, p_check)
+    del eta, p2, x2, c, miss, mask, part
+    torch.cuda.empty_cache()
+
+    # the mixture: 8 chains of K = 2..20 on 32 lanes (two streams), and 4
+    # of K = 129..140 on 160 lanes
+    for name, counter, md, B, (k_lo, k_hi), Kp in (
+            ("mixture_rows (kmask)", "masked_mix_rows", panels["biallelic"],
+             8, (2, K_FULL), 32),
+            ("mixture_rows_wide+softmax (kmask)", "masked_mix_softmax",
+             panels["wide"], 4, (129, 140), 160)):
+        km, ks = mixed_lattice(rng, B, k_lo, k_hi, Kp, dev)
+        args = masked_mix_inputs(rng, md, km, ks, k_hi)
+        flop = sum(2 * 2 * md.I * md.L * int(k) for k in ks)
+
+        def v_check(got, km=km):
+            off = (km < 0.5)[:, None, :].expand_as(got[0])
+            assert (got[0].masked_select(off) == 0).all()
+        xx = md.x0.double()
+        lp_t = args[0][:, :k_hi].double().transpose(1, 2)
+        record(name, MIX_SOURCE, MIX_TPU, counter,
+               lambda: mb.mixture_rows(*args, km, k_true=k_hi),
+               lambda: mb.mixture_rows_reference(*args, km),
+               tensors_bytes(args, km) + 4 * B * md.I * (Kp + 1), flop,
+               v_check, lib=lambda: torch.matmul(xx, lp_t))
+        del xx, lp_t
+        v, _ = mb.mixture_rows(*args, km, k_true=k_hi)
+        part, vpart = mb.mixture_partials(v, args[1], args[4], k_true=k_hi)
+        del v
+        fkw = dict(k_true=k_hi, lb=1e-8, plb=1e-8, ploidy=2, project=True,
+                   params=True)
+
+        def eta_check(got, km=km, k_hi=k_hi):
+            assert (got[0].masked_select(km[:, :k_hi] < 0.5) == 0).all()
+        if Kp == 32:
+            record("mixture_finish (kmask)", MIX_SOURCE, MIX_TPU,
+                   "masked_mix_finish",
+                   lambda: mb.mixture_finish(part, vpart, km, **fkw),
+                   lambda: mb.mixture_finish_reference(part, vpart, km,
+                                                       **fkw),
+                   sum(mix_finish_bytes(1, part.shape[1], 2, int(k), md.L,
+                                        True) for k in ks), 0, eta_check)
+        else:
+            # the finish's eta half at 160 lanes (KJ = 8): held to plain,
+            # its error in the record
+            got = mb.mixture_finish(part, vpart, km, **fkw)
+            ref = mb.mixture_finish_reference(part, vpart, km, **fkw)
+            torch.cuda.synchronize()
+            err = max(max_err(g, r) for g, r in zip(got, ref))
+            eta_check(got)
+            print(f"mixture_finish (kmask) at {Kp} lanes, {B} chains of "
+                  f"K = {k_lo}..{k_hi}: max|d| {err:.3e}", flush=True)
+            fin = next(r for r in recs
+                       if r["name"] == "mixture_finish (kmask)")
+            fin["max_abs_err"] = max(fin["max_abs_err"], err)
+            del got, ref
+        del part, vpart, args
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_sweep(fb, fs, mb, build, dev, where):
+    """Phase 23: the sweeps, then the masked kernels' checks and times."""
+    t0 = time.time()
+    launches, panels = phase_sweep_runs(build, dev, where)
+    phase_sweep_steps(panels["biallelic"], where)
+    t1 = time.time()
+    recs = phase_masked_kernels(fb, fs, mb, dev, where, panels, launches)
+    print(f"sweep phase: {time.time() - t0:.1f} s ({t1 - t0:.1f} s the "
+          f"sweeps and their steps) on {where}", flush=True)
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4061,6 +4513,7 @@ def main() -> int:
     print(f"ingest phase: {time.time() - t0:.1f} s", flush=True)
     wide_records, wide_mesh = phase_wide(fb, fs, build, dev, where)
     wide_mix_records = phase_wide_mixture(mb, build, dev, where)
+    masked_records = phase_sweep(fb, fs, mb, build, dev, where)
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
@@ -4129,6 +4582,9 @@ def main() -> int:
     # the mixture's wide kernels, with their launches in the K = 200
     # missing-free fits and their times at 224 lanes (1024 beside them)
     kernels += wide_mix_records
+    # the masked kernels (a per-chain kmask), with their launches in the
+    # mixed-K sweeps and their times on mixed-K batches at those shapes
+    kernels += masked_records
     mesh_entry = mesh_record(mesh_results)
     mesh_entry.update(ingest_record(ingest_results))
     mesh_entry.update(wide_mesh)

@@ -369,7 +369,9 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 3 : 2)
 // copies, so the ring needs no barrier.  Rows k >= kl (the lanes past the
 // lane tile of k_true, which the columns pass writes 0) are not read:
 // their threads do not exist, and the live rows' threads write them 0,
-// the value p' and B take there.  The free-slot set is one bit a slot,
+// the value p' and B take there.  With a kmask, a row k outside chain
+// b's mask (kmask[b km_stride + k] = 0) ends at 0 under `project`, as the
+// rows k >= k_true do.  The free-slot set is one bit a slot,
 // so no array of the group's Michelot leaves registers (MJ <= 32).
 constexpr int P_RING = 16;   // floats of a thread's ring
 
@@ -380,9 +382,9 @@ __host__ __device__ constexpr int p_depth(int MJ) {
 template <int G, int MJ>
 __global__ void __launch_bounds__(NT) fullstep_p_kernel(
     const float* __restrict__ p2, const float* __restrict__ part,
-    const uint8_t* __restrict__ mask, float* __restrict__ out, int Kp,
-    int kl, int L, int M, int n_seg, int k_true, float plb, int project,
-    int finish) {
+    const uint8_t* __restrict__ mask, const float* __restrict__ kmask,
+    float* __restrict__ out, int Kp, int kl, int L, int M, int n_seg,
+    int k_true, float plb, int project, int finish, int km_stride) {
   constexpr int D = p_depth(MJ);
   static_assert(MJ <= 32, "the free set holds one bit a slot");
   static_assert(4 * NT * MJ * D <= 48 * 1024,
@@ -459,7 +461,9 @@ __global__ void __launch_bounds__(NT) fullstep_p_kernel(
     v[j] = ((fr >> j & 1u) && tot > 0.f) ? v[j] / tot : 0.f;
   if (project) {
     mc::michelot_group<G, MJ>(v, fr, plb);
-    if (k >= k_true) {
+    // K-pad rows and the rows outside the chain's kmask stay 0
+    if (k >= k_true ||
+        (kmask != nullptr && !(kmask[(size_t)b * km_stride + k] > 0.5f))) {
 #pragma unroll
       for (int j = 0; j < MJ; ++j) v[j] = 0.f;
     }
@@ -529,19 +533,22 @@ inline WideLaunch wide_lanes(const void* eta, const void* p2,
 // Rows pass in n_seg segments of seg_cols lanes (n_seg <= 65535) into the
 // scratch apart [B, n_seg, I, Kp] and tpart [B, n_seg, I], then its
 // finish: eta' (or the raw A when finish = 0) into out [B, I, Kp] and t
-// into t_out [B, I] float64.  c and a0 may be null.  M: the allele slots
+// into t_out [B, I] float64, eta projected over chain b's lanes
+// kmask[b km_stride + k] where kmask is given (km_stride 0 or Kp).  c, a0
+// and kmask may be null.  M: the allele slots
 // a locus, or 0 when the caller does not say (the dense cells).  At 128 <
 // Kp <= 1024 a d launch and the A launch for each lane sub-window of
 // sub_cols lanes through `scratch` (16-byte aligned, 4 B I sub_cols
 // bytes); narrower Kp take neither.
 extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
                                 const void* x2, const void* c,
-                                const void* a0, void* apart, void* tpart,
-                                void* out, void* t_out, int B, int I, int LM,
-                                int M, int Kp, int k_true, float lb,
-                                int project, int compute_t, int finish,
-                                int seg_cols, int n_seg, void* scratch,
-                                int sub_cols, void* stream) {
+                                const void* a0, const void* kmask,
+                                void* apart, void* tpart, void* out,
+                                void* t_out, int B, int I, int LM, int M,
+                                int Kp, int k_true, float lb, int project,
+                                int compute_t, int finish, int seg_cols,
+                                int n_seg, void* scratch, int sub_cols,
+                                int km_stride, void* stream) {
   if (seg_cols < 1) return (int)cudaErrorInvalidValue;
   // every segment starts at a multiple of 4 when the rows and the
   // segment size do
@@ -556,9 +563,9 @@ extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
                    LM, 1, Kp, k_true, seg_cols, n_seg, compute_t, 0, 0,
                    sub_cols), s);
     if (err != 0) return err;
-    return launch_rows_finish_wide(eta, apart, tpart, a0, c, nullptr, out,
+    return launch_rows_finish_wide(eta, apart, tpart, a0, c, kmask, out,
                                    t_out, B, I, Kp, n_seg, k_true, lb,
-                                   !finish, project, compute_t, s);
+                                   !finish, project, compute_t, km_stride, s);
   }
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
@@ -595,9 +602,9 @@ extern "C" int mc_fullstep_rows(const void* eta, const void* p2,
 #undef MC_ROWS
   if (err == 0) err = (int)cudaGetLastError();
   if (err != 0) return err;
-  return launch_rows_finish(eta, apart, tpart, a0, c, nullptr, out, t_out,
+  return launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out,
                             B, I, Kp, n_seg, k_true, lb, !finish, project,
-                            compute_t, s);
+                            compute_t, km_stride, s);
 }
 
 // Columns pass in n_seg row segments of seg_rows rows (n_seg <= 65535):
@@ -654,17 +661,17 @@ extern "C" int mc_fullstep_cols(const void* eta, const void* p2,
 // tpart [B, n_cseg, I] over segments of seg_cols lanes and the columns
 // pass's partials part [B, n_rseg, Kp, L*M] over segments of seg_rows
 // rows (miss may be null), then the rows finish into out and t_out as
-// mc_fullstep_rows has it.  The p epilogue (mc_fullstep_p) follows.
+// mc_fullstep_rows has it (kmask and km_stride too).  The p epilogue (mc_fullstep_p) follows.
 extern "C" int mc_fullstep_step(const void* eta, const void* p2,
                                 const void* x2, const void* c,
                                 const void* a0, const void* miss,
-                                void* apart, void* tpart, void* out,
-                                void* t_out, void* part, void* scratch,
-                                int B, int I, int L, int M, int Kp,
-                                int k_true, float lb, int project,
+                                const void* kmask, void* apart, void* tpart,
+                                void* out, void* t_out, void* part,
+                                void* scratch, int B, int I, int L, int M,
+                                int Kp, int k_true, float lb, int project,
                                 int compute_t, int finish, int seg_cols,
                                 int n_cseg, int n_rseg, int seg_rows,
-                                int sub_cols, void* stream) {
+                                int sub_cols, int km_stride, void* stream) {
   if (!kp_wide(Kp) || M < 1 || seg_cols < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -673,9 +680,9 @@ extern "C" int mc_fullstep_step(const void* eta, const void* p2,
                  Kp, k_true, seg_cols, n_cseg, compute_t, n_rseg, seg_rows,
                  sub_cols), s);
   if (err != 0) return err;
-  return launch_rows_finish_wide(eta, apart, tpart, a0, c, nullptr, out,
+  return launch_rows_finish_wide(eta, apart, tpart, a0, c, kmask, out,
                                  t_out, B, I, Kp, n_cseg, k_true, lb,
-                                 !finish, project, compute_t, s);
+                                 !finish, project, compute_t, km_stride, s);
 }
 
 // the tiles of the wide columns pass (csrc/wide.cuh) for the biallelic
@@ -697,11 +704,13 @@ extern "C" void mc_wide_cols_tiles(int generic, int* cols, int* stage_rows,
 
 // M <= 1024: G lanes per (k, locus) row, MJ slots per lane; the lanes of
 // part past the lane tile of k_true must be zero (the columns pass writes
-// them so) and are not read
+// them so) and are not read.  kmask may be null; chain b's lanes are
+// kmask[b km_stride + k] (km_stride 0 or Kp).
 extern "C" int mc_fullstep_p(const void* p2, const void* part,
-                             const void* mask, void* out, int B, int Kp,
-                             int L, int M, int n_seg, int k_true, float plb,
-                             int project, int finish, void* stream) {
+                             const void* mask, const void* kmask, void* out,
+                             int B, int Kp, int L, int M, int n_seg,
+                             int k_true, float plb, int project, int finish,
+                             int km_stride, void* stream) {
   if (n_seg < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)p2;
@@ -716,7 +725,8 @@ extern "C" int mc_fullstep_p(const void* p2, const void* part,
   fullstep_p_kernel<G, MJ>                                                 \
       <<<dim3((unsigned)(((size_t)kl * L + NT / G - 1) / (NT / G)), B), NT, \
           4 * NT * MJ * (n_seg < p_depth(MJ) ? n_seg : p_depth(MJ)), s>>>(  \
-          p, pt, mk, o, Kp, kl, L, M, n_seg, k_true, plb, project, finish)
+          p, pt, mk, (const float*)kmask, o, Kp, kl, L, M, n_seg, k_true,  \
+          plb, project, finish, km_stride)
   if (M <= 4) MC_P(4, 1);
   else if (M <= 8) MC_P(8, 1);
   else if (M <= 16) MC_P(16, 1);

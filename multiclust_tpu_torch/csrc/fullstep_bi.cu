@@ -48,7 +48,12 @@
 //   loaded nor computed, and what is written there is exact (zeros, or
 //   the row's sum of w1 in the raw A + r, as the plain version has it).
 //   With a runtime kmask the caller states the largest K; the mask is not
-//   read in these loops.
+//   read in these loops.  It is read where eta is finished: the pair's
+//   rows pass and the finish of the segmented one project each chain
+//   over its row of the mask (kmask + b km_stride: km_stride 0 gives
+//   every chain one [Kp] mask, Kp a [B, Kp] mask of a mixed-K lattice),
+//   and a lane outside it ends at 0.  Its eta is 0 there, so it adds
+//   nothing to d, A or B0/B1 of its chain, and p0' there is 0.
 // * Columns pass: a warp owns 4 CW columns for a whole row segment, its
 //   p0 tile resident in shared memory and its B0/B1 tile (4 JT clusters x
 //   4 columns x 2 alleles a thread) in registers; the block's eight warps
@@ -103,10 +108,11 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
                             const int8_t* __restrict__ x0,
                             const int8_t* __restrict__ x1,
                             const float* __restrict__ c,
+                            const float* __restrict__ kmask,
                             float* __restrict__ eta_new,
                             float* __restrict__ t_out, int I, int L,
                             int k_true, float lb, int project, int compute_t,
-                            LaneTile lt, int vec) {
+                            int km_stride, LaneTile lt, int vec) {
   constexpr int KJ = KP / 32, JTM = KP / 32, ES = KP + 4, AS = KP + 1;
   const int KC = lt.kc, JT = lt.jt, GL = lt.gl, CW = lt.cw;
   const int RW = ROW_AR * CW, R = NW * RW;
@@ -143,6 +149,14 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
   for (int r = 0; r < RW; ++r)
     for (int k = KC + lane; k < KP; k += 32) a_s[(rw0 + r) * AS + k] = 0.f;
   __syncwarp();
+  // the lanes the Michelot projects: below k_true, or the chain's kmask row
+  unsigned valid = 0u;
+  const float* km = kmask != nullptr ? kmask + (size_t)b * km_stride : nullptr;
+#pragma unroll
+  for (int j = 0; j < KJ; ++j) {
+    const int k = lane + 32 * j;
+    if (km != nullptr ? km[k] > 0.5f : k < k_true) valid |= 1u << j;
+  }
 
   for (int rl = 0; rl < RW; ++rl) {
     const int r = rw0 + rl, row = row0 + r;
@@ -158,7 +172,7 @@ __global__ void __launch_bounds__(NT, KP <= 32 ? 2 : 1)
 #pragma unroll
     for (int j = 0; j < KJ; ++j)
       num[j] = tot > 0.f ? num[j] / tot : eta_s[r * ES + lane + 32 * j];
-    if (project) michelot_warp<KJ>(num, lane, k_true, lb);
+    if (project) mc::michelot_warp_mask<KJ>(num, valid, lb);
     float* out = eta_new + ((size_t)b * I + row) * KP;
 #pragma unroll
     for (int j = 0; j < KJ; ++j) out[lane + 32 * j] = num[j];
@@ -533,9 +547,10 @@ extern "C" void mc_fullstep_bi_tiles(int k_true, int Kp, int* kc,
 
 extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
                                    const void* x0, const void* x1,
-                                   const void* c, void* eta_new, void* t_out,
-                                   int B, int I, int L, int Kp, int k_true,
-                                   float lb, int project, int compute_t,
+                                   const void* c, const void* kmask,
+                                   void* eta_new, void* t_out, int B, int I,
+                                   int L, int Kp, int k_true, float lb,
+                                   int project, int compute_t, int km_stride,
                                    void* stream) {
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   const LaneTile lt = lane_tile(k_true, Kp, ROW_CW_MAX);
@@ -549,6 +564,7 @@ extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
   const int8_t* a = (const int8_t*)x0;
   const int8_t* z = (const int8_t*)x1;
   const float* cc = (const float*)c;
+  const float* km = (const float*)kmask;
   float* en = (float*)eta_new;
   float* t = (float*)t_out;
   int err = 0;
@@ -556,7 +572,8 @@ extern "C" int mc_fullstep_bi_rows(const void* eta, const void* p0,
   err = allow_smem(fullstep_bi_rows_kernel<KP>);            \
   if (err == 0)                                             \
   fullstep_bi_rows_kernel<KP><<<grid, NT, smem, s>>>        \
-  (e, p, a, z, cc, en, t, I, L, k_true, lb, project, compute_t, lt, vec)
+  (e, p, a, z, cc, km, en, t, I, L, k_true, lb, project, compute_t,      \
+   km_stride, lt, vec)
   switch (Kp) {
     case 32: MC_ROWS(32); break;
     case 64: MC_ROWS(64); break;
@@ -619,22 +636,24 @@ extern "C" int mc_fullstep_bi_rows_seg(const void* eta, const void* p0,
 }
 
 // Finish of the segmented rows pass; a0, kmask and out may be null.
+// Chain b's lanes are kmask[b km_stride + k] (km_stride 0 or Kp).
 extern "C" int mc_fullstep_bi_finish(const void* eta, const void* apart,
                                      const void* tpart, const void* a0,
                                      const void* c, const void* kmask,
                                      void* out, void* t_out, int B, int I,
                                      int Kp, int n_seg, int k_true,
                                      float lb, int emit_a, int project_eta,
-                                     int compute_t, void* stream) {
+                                     int compute_t, int km_stride,
+                                     void* stream) {
   if (kp_wide(Kp))
     return launch_rows_finish_wide(eta, apart, tpart, a0, c, kmask, out,
                                    t_out, B, I, Kp, n_seg, k_true, lb, emit_a,
-                                   project_eta, compute_t,
+                                   project_eta, compute_t, km_stride,
                                    (cudaStream_t)stream);
   if (!kp_ok(Kp)) return (int)cudaErrorInvalidValue;
   return launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B,
                             I, Kp, n_seg, k_true, lb, emit_a, project_eta,
-                            compute_t, (cudaStream_t)stream);
+                            compute_t, km_stride, (cudaStream_t)stream);
 }
 
 // Columns pass and epilogue over the window [l_lo, l_hi); `part` holds

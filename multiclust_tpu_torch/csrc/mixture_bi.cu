@@ -85,6 +85,18 @@
 // reads.  The caller's K-pad lanes (lp 0, bias -1e30) are those of the
 // plain versions, which know no k_true.
 //
+// A mixed-K lattice (a K-sweep's chains in one batch, each with its own
+// K) states its largest K as k_true and gives a runtime mask, chain b's
+// lanes at kmask + b km_stride (km_stride 0: one [Kp] mask for every
+// chain; Kp: a [B, Kp] mask).  The rows pass (its softmax, above 128
+// lanes) writes v = 0 outside the chain's lanes and keeps them out of
+// the row max and the logsumexp, as the JAX step masks its scores to
+// -inf (`_mask_scores`, multiclust_tpu/model/mixture.py:33-38); the
+// columns pass needs no mask, v being 0 there; the finish's eta half
+// normalizes over, and projects onto, the chain's lanes.  The p half
+// then finds B0 = B1 = 0 outside them, the lb-smoothed row (p0' = 1/2)
+// that the JAX step's M-step gives them too.
+//
 // Wide passes (128 < Kp <= 1024, the TPU kernels' own range: the Pallas
 // step admits Kp up to 1024, `_stream_vmem_fits`, kernels.py:709-735).
 // The narrow passes keep a row's (or a locus tile's) whole cluster axis in
@@ -167,7 +179,6 @@ constexpr int KP_WIDE_MAX = 1024;
 constexpr int VSUM_ST = 32;
 
 using mc::FULL;
-using mc::michelot_warp;
 using mc::warp_sum;
 
 // count q (0-3) of four int8 counts packed in w, as float64
@@ -333,8 +344,9 @@ template <int KP, bool X1>
 __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     const float* __restrict__ lp0, const float* __restrict__ lp1,
     const int8_t* __restrict__ x0, const int8_t* __restrict__ x1,
-    const float* __restrict__ bias, float* __restrict__ v_out,
-    float* __restrict__ t_out, int I, int L, int kt, int vec) {
+    const float* __restrict__ bias, const float* __restrict__ kmask,
+    float* __restrict__ v_out, float* __restrict__ t_out, int I, int L,
+    int kt, int vec, int km_stride) {
   constexpr int NT8 = KP / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -347,6 +359,17 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
   rows_scores<KP, X1>(acc, lp0_b, X1 ? lp1 + (size_t)b * KP * L : lp0_b, x0,
                       x1, row0, I, L, nt_live, vec);
 
+  // the lanes of this thread's clusters 8 n + 2 t + {0, 1} that count:
+  // below kt, and in the chain's kmask row where one is given
+  bool on[NT8][2];
+  const float* km = kmask != nullptr ? kmask + (size_t)b * km_stride : nullptr;
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int k = 8 * n + 2 * t + j;
+      on[n][j] = k < kt && (km == nullptr || km[k] > 0.5f);
+    }
   // epilogue, rows g and g + 8 of the warp: lanes 4 g .. 4 g + 3 hold a
   // row's scores, clusters 8 n + 2 t + {0, 1}
 #pragma unroll
@@ -359,7 +382,7 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     for (int n = 0; n < NT8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        if (8 * n + 2 * t + j < kt)
+        if (on[n][j])
           m = fmax(m, acc[n][2 * h + j] + (double)bias_b[8 * n + 2 * t + j]);
     m = warp4_max(m);
     float e[NT8][2], part = 0.f;
@@ -367,7 +390,7 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
     for (int n = 0; n < NT8; ++n)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        e[n][j] = 8 * n + 2 * t + j < kt
+        e[n][j] = on[n][j]
                       ? expf((float)(acc[n][2 * h + j] +
                                      (double)bias_b[8 * n + 2 * t + j] - m))
                       : 0.f;
@@ -393,26 +416,36 @@ __global__ void __launch_bounds__(NT, 1) mix_rows_kernel(
 // the float32 total, v = e / total (0 past kt, up to Kp) and t =
 // log(total) + m, as the narrow epilogue does.  Every pair is loaded
 // before the first is used (a pair at or past kt loads the last live
-// lane's, which the scores kernel wrote, and is masked after).
+// lane's, which the scores kernel wrote, and is masked after).  With a
+// kmask, a lane outside the chain's row counts as one past kt: out of
+// the max and the total, v = 0.
 template <int KJ>
 __global__ void __launch_bounds__(NT) mix_softmax_kernel(
-    const double* __restrict__ s_in, float* __restrict__ v_out,
-    float* __restrict__ t_out, int I, int Kp, int kt) {
+    const double* __restrict__ s_in, const float* __restrict__ kmask,
+    float* __restrict__ v_out, float* __restrict__ t_out, int I, int Kp,
+    int kt, int km_stride) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * NW + warp;
   if (row >= I) return;   // warps share nothing
   const size_t br = (size_t)blockIdx.y * I + row;
   const double2* s = reinterpret_cast<const double2*>(s_in + br * Kp);
   const int last = (kt - 1) / 2;
+  const float* km =
+      kmask != nullptr ? kmask + (size_t)blockIdx.y * km_stride : nullptr;
   double2 sv[KJ];
+  bool on[KJ][2];
 #pragma unroll
-  for (int j = 0; j < KJ; ++j) sv[j] = s[min(lane + 32 * j, last)];
+  for (int j = 0; j < KJ; ++j) {
+    sv[j] = s[min(lane + 32 * j, last)];
+    const int k = 2 * (lane + 32 * j);
+    on[j][0] = k < kt && (km == nullptr || km[k] > 0.5f);
+    on[j][1] = k + 1 < kt && (km == nullptr || km[k + 1] > 0.5f);
+  }
   double m = -INFINITY;
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
-    const int k = 2 * (lane + 32 * j);
-    if (k < kt) m = fmax(m, sv[j].x);
-    if (k + 1 < kt) m = fmax(m, sv[j].y);
+    if (on[j][0]) m = fmax(m, sv[j].x);
+    if (on[j][1]) m = fmax(m, sv[j].y);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = fmax(m, __shfl_xor_sync(FULL, m, o));
@@ -420,9 +453,8 @@ __global__ void __launch_bounds__(NT) mix_softmax_kernel(
   float part = 0.f;
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
-    const int k = 2 * (lane + 32 * j);
-    e[j].x = k < kt ? expf((float)(sv[j].x - m)) : 0.f;
-    e[j].y = k + 1 < kt ? expf((float)(sv[j].y - m)) : 0.f;
+    e[j].x = on[j][0] ? expf((float)(sv[j].x - m)) : 0.f;
+    e[j].y = on[j][1] ? expf((float)(sv[j].y - m)) : 0.f;
     part += e[j].x + e[j].y;
   }
   const float tot = warp_sum(part);
@@ -1119,15 +1151,17 @@ __global__ void __launch_bounds__(NT, 1) mix_cols_wide_kernel(
 // non-null) over the lanes k < nk (Kp, or k_true under `params`) and
 // nq = ceil(L / 4) groups of 4 loci: out0 = p0' [B, Kp, L], the raw B0
 // under `finish` = 0 (out1 the raw B1 of two streams), or under `params`
-// the model's p [B, k_true, L, 2] = (p0', 1 - p0').
+// the model's p [B, k_true, L, 2] = (p0', 1 - p0').  kmask (may be null):
+// chain b's lanes at kmask + b km_stride, which the eta half keeps to.
 struct FinishArgs {
   const float* part;
   const float* vpart;
+  const float* kmask;
   float* vtot;
   float* eta;
   float* out0;
   float* out1;
-  int Kp, L, n_seg, v_seg, two, k_true, nk, nq;
+  int Kp, L, n_seg, v_seg, two, k_true, nk, nq, km_stride;
   float lb, plb, pub, ploidy;
   int project, finish, params, vec;
 };
@@ -1140,8 +1174,8 @@ constexpr int FIN_SEG = 4;
 // segment order, the slots of a batch of SQ segments loaded before any is
 // added (one round trip to L2 a batch, not one a slot and segment; at
 // most 32 loads, and 8 segments, in flight a lane); then eta' =
-// Michelot(vtot / sum vtot) over the lanes k < k_true.  Pad lanes of
-// vtot are exactly 0.
+// Michelot(vtot / sum vtot) over the lanes k < k_true, or over the
+// chain's kmask row, the sum too.  Pad lanes of vtot are exactly 0.
 template <int KJ>
 __device__ __forceinline__ void finish_eta(const FinishArgs& a, int b,
                                            int lane) {
@@ -1166,17 +1200,23 @@ __device__ __forceinline__ void finish_eta(const FinishArgs& a, int b,
 #pragma unroll
         for (int j = 0; j < KJ; ++j) w[j] += r[u][j];
   }
+  const float* km =
+      a.kmask != nullptr ? a.kmask + (size_t)b * a.km_stride : nullptr;
+  unsigned valid = 0u;
   float part = 0.f;
 #pragma unroll
   for (int j = 0; j < KJ; ++j) {
     const int k = lane + 32 * j;
     if (a.vtot != nullptr && k < a.Kp) a.vtot[(size_t)b * a.Kp + k] = w[j];
+    if (km != nullptr ? k < a.Kp && km[k] > 0.5f : k < a.k_true)
+      valid |= 1u << j;
+    if (km != nullptr && !(valid >> j & 1u)) w[j] = 0.f;
     part += w[j];
   }
   const float tot = warp_sum(part);
 #pragma unroll
   for (int j = 0; j < KJ; ++j) w[j] = w[j] / tot;
-  if (a.project) michelot_warp<KJ>(w, lane, a.k_true, a.lb);
+  if (a.project) mc::michelot_warp_mask<KJ>(w, valid, a.lb);
   const int ld = a.params ? a.k_true : a.Kp;
 #pragma unroll
   for (int j = 0; j < KJ; ++j)
@@ -1326,17 +1366,20 @@ static int live_lanes(int k_true, int Kp) {
 // The rows pass: v [B, I, Kp] and t [B, I].  At 128 < Kp <= 1024 `s_buf`
 // is the [B, I, Kp] float64 scratch of the wide pass's two launches (the
 // scores, on at most one block an SM, and the softmax); it is not read at
-// Kp <= 128 and may be null.
+// Kp <= 128 and may be null.  kmask may be null: chain b's lanes are
+// kmask[b km_stride + k] (km_stride 0 or Kp).
 extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
-                           const void* x1, const void* bias, void* v_out,
-                           void* t_out, void* s_buf, int B, int I, int L,
-                           int Kp, int k_true, void* stream) {
+                           const void* x1, const void* bias,
+                           const void* kmask, void* v_out, void* t_out,
+                           void* s_buf, int B, int I, int L, int Kp,
+                           int k_true, int km_stride, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* a = (const float*)lp0;
   const float* c = (const float*)lp1;
   const int8_t* x = (const int8_t*)x0;
   const int8_t* z = (const int8_t*)x1;
   const float* bs = (const float*)bias;
+  const float* km = (const float*)kmask;
   float* v = (float*)v_out;
   float* t = (float*)t_out;
   const bool two = lp1 != nullptr;
@@ -1372,11 +1415,14 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
     if (err) return err;
     const dim3 sgrid((I + NW - 1) / NW, B);
     if (Kp <= 256)
-      mix_softmax_kernel<4><<<sgrid, NT, 0, s>>>(sb, v, t, I, Kp, kt);
+      mix_softmax_kernel<4><<<sgrid, NT, 0, s>>>(sb, km, v, t, I, Kp, kt,
+                                                 km_stride);
     else if (Kp <= 512)
-      mix_softmax_kernel<8><<<sgrid, NT, 0, s>>>(sb, v, t, I, Kp, kt);
+      mix_softmax_kernel<8><<<sgrid, NT, 0, s>>>(sb, km, v, t, I, Kp, kt,
+                                                 km_stride);
     else
-      mix_softmax_kernel<16><<<sgrid, NT, 0, s>>>(sb, v, t, I, Kp, kt);
+      mix_softmax_kernel<16><<<sgrid, NT, 0, s>>>(sb, km, v, t, I, Kp, kt,
+                                                  km_stride);
     return (int)cudaGetLastError();
   }
   const dim3 grid((I + ROW_R - 1) / ROW_R, 1, B);
@@ -1387,7 +1433,8 @@ extern "C" int mc_mix_rows(const void* lp0, const void* lp1, const void* x0,
     static_assert(smem <= SMEM_MAX, "rows-pass tiles exceed shared memory");\
     err = allow_smem(kern);                                                  \
     if (err == 0)                                                            \
-      kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, v, t, I, L, kt, vec);      \
+      kern<<<grid, NT, smem, s>>>(a, c, x, z, bs, km, v, t, I, L, kt, vec,   \
+                                  km_stride);                              \
   }
 #define MC_ROWS(KP)              \
   if (two) MC_ROWS_ONE(KP, true) \
@@ -1524,12 +1571,13 @@ extern "C" int mc_mix_tiles(int Kp, int two, int* tc, int* rows,
 // 1024; without the eta half the KJ = 0 instance, the p half alone.
 // Returns cudaErrorInvalidValue for a Kp the kernels do not take or
 // arguments that do not go together.
-extern "C" int mc_mix_finish(const void* part, const void* vpart, void* vtot,
-                             void* eta, void* out0, void* out1, int B, int Kp,
-                             int L, int n_seg, int v_seg, int two,
-                             int k_true, float lb, float plb, float pub,
-                             float ploidy, int project, int finish,
-                             int params, void* stream) {
+extern "C" int mc_mix_finish(const void* part, const void* vpart,
+                             const void* kmask, void* vtot, void* eta,
+                             void* out0, void* out1, int B, int Kp, int L,
+                             int n_seg, int v_seg, int two, int k_true,
+                             float lb, float plb, float pub, float ploidy,
+                             int project, int finish, int params,
+                             int km_stride, void* stream) {
   const bool eta_on = eta != nullptr, p_on = out0 != nullptr;
   const int kt = k_true > Kp ? Kp : k_true;
   if ((!kp_narrow(Kp) && !kp_wide(Kp)) || B < 1 || (!eta_on && !p_on) ||
@@ -1542,6 +1590,8 @@ extern "C" int mc_mix_finish(const void* part, const void* vpart, void* vtot,
   FinishArgs a;
   a.part = (const float*)part;
   a.vpart = (const float*)vpart;
+  a.kmask = (const float*)kmask;
+  a.km_stride = km_stride;
   a.vtot = (float*)vtot;
   a.eta = (float*)eta;
   a.out0 = (float*)out0;

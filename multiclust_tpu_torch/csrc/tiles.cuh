@@ -28,7 +28,6 @@ constexpr int COL_DR = 4;     // rows per thread, d phase of the columns pass
 constexpr int A_UNROLL = 8;
 constexpr float DMIN = 1e-30f;
 
-using mc::michelot_warp;
 using mc::warp_sum;
 
 // How the lanes of a warp and the registers of a thread split the cluster
@@ -347,7 +346,9 @@ __device__ __forceinline__ void rows_accumulate(
 // segment order on top of the a0 seed (A in float32, t in float64), then
 // either the raw A (emit_a: c is not added, the caller finishes) or eta' =
 // Michelot(normalize(eta (A + c))) over the static lanes k < k_true or the
-// runtime kmask.  It replaces the last column step of the TPU's streamed
+// runtime kmask, chain b's row at kmask + b km_stride (km_stride 0: one
+// [Kp] mask for every chain; Kp: a [B, Kp] mask, a mixed-K lattice's
+// chains each with its own lanes).  It replaces the last column step of the TPU's streamed
 // pass A (`_bi_istats_kernel`, multiclust_tpu/ops/kernels.py:887).
 //
 // Bound by device memory and by the latency of a row's finish (its warp
@@ -424,7 +425,7 @@ __global__ void __launch_bounds__(NT, fin_blocks(KP)) rows_finish_kernel(
     const float* __restrict__ c, const float* __restrict__ kmask,
     float* __restrict__ out, double* __restrict__ t_out, int I, int n_seg,
     int k_true, float lb, int emit_a, int project_eta, int compute_t,
-    FinishTile ft) {
+    int km_stride, FinishTile ft) {
   constexpr int KJ = KP / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * NW + warp;
@@ -514,11 +515,13 @@ __global__ void __launch_bounds__(NT, fin_blocks(KP)) rows_finish_kernel(
 #pragma unroll
     for (int j = 0; j < KJ; ++j) a[j] = tot > 0.f ? a[j] / tot : e[j];
     if (project_eta) {
+      const float* km =
+          kmask != nullptr ? kmask + (size_t)blockIdx.y * km_stride : nullptr;
       unsigned valid = 0u;
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const int k = lane + 32 * j;
-        if (kmask != nullptr ? kmask[k] > 0.5f : k < k_true) valid |= 1u << j;
+        if (km != nullptr ? km[k] > 0.5f : k < k_true) valid |= 1u << j;
       }
       mc::michelot_warp_mask<KJ>(a, valid, lb);
     }
@@ -571,7 +574,7 @@ inline int launch_rows_finish(const void* eta, const void* apart,
                               const void* c, const void* kmask, void* out,
                               void* t_out, int B, int I, int Kp, int n_seg,
                               int k_true, float lb, int emit_a,
-                              int project_eta, int compute_t,
+                              int project_eta, int compute_t, int km_stride,
                               cudaStream_t s) {
   if (out == nullptr) {
     const int slots = n_seg < FIN_T_DEPTH ? n_seg : FIN_T_DEPTH;
@@ -595,7 +598,7 @@ inline int launch_rows_finish(const void* eta, const void* apart,
   ((const float*)eta, (const float*)apart, (const float*)tpart,           \
    (const float*)a0, (const float*)c, (const float*)kmask, (float*)out,   \
    (double*)t_out, I, n_seg, k_true, lb, emit_a, project_eta, compute_t,  \
-   ft)
+   km_stride, ft)
   switch (Kp) {
     case 32: MC_FINISH(32); break;
     case 64: MC_FINISH(64); break;

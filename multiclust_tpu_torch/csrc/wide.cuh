@@ -935,7 +935,8 @@ __global__ void __launch_bounds__(NT, 1) wide_rows_a_kernel(
 // segments' partials on top of the a0 seed, in segment order (A in
 // float32, t in float64), then the raw A (emit_a) or eta' =
 // Michelot(normalize(eta (A + c))) over the lanes k < k_true or the
-// runtime kmask.  One warp a row, lane owns k = lane + 32 j; the lanes
+// runtime kmask (chain b's row at kmask + b km_stride, as in
+// rows_finish_kernel).  One warp a row, lane owns k = lane + 32 j; the lanes
 // read are those below kc and, under emit_a, lane kc for every pad lane
 // (the value the rows passes write to each of them).  c, a0 and kmask may
 // be null; pad lanes of eta must be zero.  Built for KJ = 8, 16 and 32
@@ -952,7 +953,7 @@ __global__ void __launch_bounds__(NT, KJ <= 8 ? 4 : KJ <= 16 ? 3 : 2)
                        float* __restrict__ out, double* __restrict__ t_out,
                        int I, int Kp, int n_seg, int kc, int k_true,
                        float lb, int emit_a, int project_eta,
-                       int compute_t) {
+                       int compute_t, int km_stride) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row = blockIdx.x * NW + warp;
   if (row >= I) return;   // warps share nothing
@@ -994,11 +995,13 @@ __global__ void __launch_bounds__(NT, KJ <= 8 ? 4 : KJ <= 16 ? 3 : 2)
 #pragma unroll
     for (int j = 0; j < KJ; ++j) a[j] = tot > 0.f ? a[j] / tot : e[j];
     if (project_eta) {
+      const float* km =
+          kmask != nullptr ? kmask + (size_t)b * km_stride : nullptr;
       unsigned valid = 0u;
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const int k = lane + 32 * j;
-        if (k < Kp && (kmask != nullptr ? kmask[k] > 0.5f : k < k_true))
+        if (k < Kp && (km != nullptr ? km[k] > 0.5f : k < k_true))
           valid |= 1u << j;
       }
       mc::michelot_warp_mask<KJ>(a, valid, lb);
@@ -1018,11 +1021,12 @@ inline int launch_rows_finish_wide(const void* eta, const void* apart,
                                    void* out, void* t_out, int B, int I,
                                    int Kp, int n_seg, int k_true, float lb,
                                    int emit_a, int project_eta,
-                                   int compute_t, cudaStream_t s) {
+                                   int compute_t, int km_stride,
+                                   cudaStream_t s) {
   if (out == nullptr)
     return launch_rows_finish(eta, apart, tpart, a0, c, kmask, out, t_out, B,
                               I, Kp, n_seg, k_true, lb, emit_a, project_eta,
-                              compute_t, s);
+                              compute_t, km_stride, s);
   const int kc = wide_kc(k_true, Kp);
   const dim3 grid((I + NW - 1) / NW, B);
 #define MC_FINISH(KJ)                                                       \
@@ -1030,7 +1034,7 @@ inline int launch_rows_finish_wide(const void* eta, const void* apart,
       (const float*)eta, (const float*)apart, (const float*)tpart,          \
       (const float*)a0, (const float*)c, (const float*)kmask, (float*)out,  \
       (double*)t_out, I, Kp, n_seg, kc, k_true, lb, emit_a, project_eta,    \
-      compute_t)
+      compute_t, km_stride)
   if (Kp <= 256)
     MC_FINISH(8);
   else if (Kp <= 512)

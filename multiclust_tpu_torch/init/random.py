@@ -16,6 +16,13 @@ would all be identical.  So is its deviation from the reference's
 missing-data correction of ``random_individual_center`` (against center
 k's missing counts, not center 0's).
 
+The dynamic-K starts of a mixed-K K-sweep lattice (``initialize_dyn``,
+the JAX package's ``initialize_dyn``, multiclust_tpu/init/random.py:
+358-450) are the static-K starts of the same generator, draw for draw,
+zero-padded to the lattice's lanes and carrying their ``kmask``; Rand-EM
+scores their candidates on that layout, through the masked step of the
+lattice's config.
+
 Under a mesh (runtime/mesh.py) ``md`` and ``codes`` are this rank's block
 of the panel (a whole panel given under a mesh is sliced first,
 ``mesh.as_block``).  Every rank makes the whole panel's draws from the same
@@ -34,7 +41,7 @@ import torch
 
 from multiclust_tpu_torch.config import InitMethod, InitProcedure
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
-    column_window
+    column_window, make_kmask, map_params, pad_params_k
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     as_block, host_max, sum_over, world_min
 
@@ -338,11 +345,31 @@ def rand_em_chunk(md: ModelData, n: int, hbm_budget: float = 2e9) -> int:
     return max(1, min(n, int(hbm_budget // max(per_cand, 1))))
 
 
+def with_kmask(params: Params, K: int, width: int) -> Params:
+    """Full-layout params of K clusters (a chain batch or one chain)
+    zero-padded to ``width`` lanes, with the kmask of their K true
+    lanes."""
+    p = params.p
+    kmask = make_kmask(K, width, p.dtype, p.device)
+    return pad_params_k(params, width)._replace(
+        kmask=kmask.expand(p.shape[:-3] + (width,)).contiguous())
+
+
+def random_initialize_dyn(gen: torch.Generator, md: ModelData, K: int,
+                          width: int, method: InitMethod,
+                          codes: Tensor = None, **kw) -> Params:
+    """``random_initialize`` of K clusters on the ``width`` lanes of a
+    mixed-K lattice: the same draws, padded, with the kmask (the JAX
+    package's ``random_initialize_dyn``)."""
+    return with_kmask(random_initialize(gen, md, K, method, codes, **kw), K,
+                      width)
+
+
 def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
                        cfg: EMConfig, method: InitMethod,
                        n_rand_em_init: int, codes: Tensor = None,
-                       md_score: ModelData = None, chunk: int = 0
-                       ) -> Params:
+                       md_score: ModelData = None, chunk: int = 0,
+                       width: int = 0) -> Params:
     """Rand-EM: run n starts through one EM step and keep the start whose
     refined logL is best (randem_initialize_mixture, rnd_init.c:123-161;
     randem_initialize_admixture :412-444).  The winning START, not its
@@ -352,7 +379,9 @@ def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
     will run (the p0 layout through the kernel when it is active).  Under a
     mesh ``md`` and ``md_score`` are this rank's block: each candidate is
     this rank's block of it, scored by the meshed step and logL, so every
-    rank keeps the same winner."""
+    rank keeps the same winner.  ``width`` > 0: the start of a mixed-K
+    lattice whose shared config is ``cfg``, candidates scored padded to
+    ``width`` lanes with their kmask, the winner returned so."""
     from multiclust_tpu_torch.opt.em import model_em_step, \
         model_log_likelihood
     from multiclust_tpu_torch.runtime.multistart import _pad_k, \
@@ -369,12 +398,13 @@ def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
              for _ in range(n)]
     lls = []
     for lo in range(0, n, c):
-        batch = Params(eta=torch.stack([p.eta for p in cands[lo:lo + c]]),
-                       p=torch.stack([p.p for p in cands[lo:lo + c]]))
-        batch = _to_fit_layout(_pad_k(batch, cfg), md_score, cfg)
+        batch = map_params(lambda *t: torch.stack(t), *cands[lo:lo + c])
+        batch = with_kmask(batch, K, width) if width else _pad_k(batch, cfg)
+        batch = _to_fit_layout(batch, md_score, cfg)
         stepped, _, _ = model_em_step(batch, md_score, cfg)
         lls.append(model_log_likelihood(stepped, md_score, cfg)[0])
-    return cands[int(torch.argmax(torch.cat(lls)))]
+    best = cands[int(torch.argmax(torch.cat(lls)))]
+    return with_kmask(best, K, width) if width else best
 
 
 def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
@@ -395,6 +425,26 @@ def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
                              admixture=cfg.admixture,
                              eta_constrained=cfg.eta_constrained,
                              mesh=cfg.mesh)
+
+
+def initialize_dyn(gen: torch.Generator, md: ModelData, K: int, width: int,
+                   cfg: EMConfig,
+                   method: InitMethod = InitMethod.RANDOM_CENTERS,
+                   procedure: InitProcedure = InitProcedure.NOTHING,
+                   n_rand_em_init: int = 50, codes: Tensor = None,
+                   md_score: ModelData = None) -> Params:
+    """``initialize`` of K clusters for a mixed-K lattice of ``width``
+    lanes whose shared config is ``cfg``: the same start, padded, with its
+    kmask (the JAX package's ``initialize_dyn``,
+    multiclust_tpu/init/random.py:393-450)."""
+    md, codes = as_block(md, cfg.mesh, codes)
+    if procedure == InitProcedure.RAND_EM:
+        return rand_em_initialize(gen, md, K, cfg, method, n_rand_em_init,
+                                  codes, md_score=md_score, width=width)
+    return random_initialize_dyn(gen, md, K, width, method, codes,
+                                 admixture=cfg.admixture,
+                                 eta_constrained=cfg.eta_constrained,
+                                 mesh=cfg.mesh)
 
 
 def codes_from_counts(counts: Tensor, miss: Tensor, ploidy: int) -> Tensor:

@@ -20,6 +20,15 @@ A jagged panel's bucketed layout (model/bucketed.py) runs the same sums one
 bucket at a time: A, t and the constrained step's a add up over the
 buckets, p is updated bucket by bucket at its own M_b, eta once.
 
+The chains of a mixed-K lattice (runtime/ksweep.py) carry their true
+lanes as ``params.kmask`` ([B, Kp], a row a chain): every route projects
+eta and keeps p over each chain's lanes (the JAX package's
+``_project_eta_rows`` / ``_normalize_p`` with a kmask,
+multiclust_tpu/model/admixture.py:58-88), the kernels through their
+runtime mask, and the step returns the mask with the new parameters.
+A chain's lanes outside its mask hold eta 0 and p 0, so they add nothing
+to any product.
+
 Under a mesh (cfg.mesh, runtime/mesh.py) every function runs on this
 rank's block of rows and loci and writes out the collectives GSPMD inserts
 for the JAX package: the per-individual sums over loci (A + r, t, the
@@ -50,7 +59,7 @@ from multiclust_tpu_torch.ops.fullstep_bi import KP_MAX, Route, \
     admixture_fullstep_biallelic_routed, device_sm_count, is_wide, \
     p0_epilogue, pick_route, rows_finish, rows_log_likelihood_terms, \
     scratch_budget
-from multiclust_tpu_torch.ops.simplex import project_rows
+from multiclust_tpu_torch.ops.simplex import kmask_lanes, project_rows
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     sum_over
 
@@ -73,16 +82,24 @@ def _k_valid(cfg: EMConfig, Kp: int, device) -> Optional[Tensor]:
     return torch.arange(Kp, device=device) < kt
 
 
-def _project_eta_rows(eta: Tensor, cfg: EMConfig) -> Tensor:
+def _project_eta_rows(eta: Tensor, cfg: EMConfig,
+                      kmask: Optional[Tensor] = None) -> Tensor:
+    """eta's rows projected onto the lanes below cfg.k_true, or onto each
+    chain's ``kmask`` lanes where one is given."""
+    if kmask is not None:
+        return project_rows(eta, kmask_lanes(kmask, eta.dim()),
+                            cfg.eta_lower_bound)
     kv = _k_valid(cfg, eta.shape[-1], eta.device)
     if kv is None:
         kv = torch.ones(eta.shape[-1], dtype=torch.bool, device=eta.device)
     return project_rows(eta, kv, cfg.eta_lower_bound)
 
 
-def _normalize_p(pc: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
+def _normalize_p(pc: Tensor, md: ModelData, cfg: EMConfig,
+                 kmask: Optional[Tensor] = None) -> Tensor:
     return normalize_p(pc, md.mask, k_true=cfg.k_true or pc.shape[-3],
-                       plb=cfg.p_lower_bound, project=cfg.do_projection)
+                       plb=cfg.p_lower_bound, project=cfg.do_projection,
+                       kmask=kmask)
 
 
 def _ll_terms(per_i: Tensor, mesh=None, axis: str = DATA_AXIS
@@ -108,16 +125,20 @@ def em_step(params: Params, md: ModelData, cfg: EMConfig,
     """One fused E+M iteration for a chain batch; the logL is that of the
     INPUT params.  ``want_ll=False`` skips the logL terms and returns
     zeros (the blind steps of opt/em.blind_plain_steps).  ``route`` fixes
-    the biallelic step's route (``bi_route`` picks it when None)."""
+    the biallelic step's route (``bi_route`` picks it when None).  The new
+    parameters carry the input's kmask."""
     if isinstance(md, BucketedData):
-        return _em_step_bucketed(params, md, cfg, want_ll)
-    if cfg.eta_constrained:
-        return _em_step_constrained(params, md, cfg, want_ll)
-    if cfg.bi_repr_active and is_bi_repr(params):
-        return _em_step_bi_repr(params, md, cfg, want_ll, route)
-    if cfg.use_pallas != "off" and params.p.dtype == torch.float32:
-        return _em_step_generic(params, md, cfg, want_ll)
-    return _em_step_unconstrained(params, md, cfg, want_ll)
+        out = _em_step_bucketed(params, md, cfg, want_ll)
+    elif cfg.eta_constrained:
+        out = _em_step_constrained(params, md, cfg, want_ll)
+    elif cfg.bi_repr_active and is_bi_repr(params):
+        out = _em_step_bi_repr(params, md, cfg, want_ll, route)
+    elif cfg.use_pallas != "off" and params.p.dtype == torch.float32:
+        out = _em_step_generic(params, md, cfg, want_ll)
+    else:
+        out = _em_step_unconstrained(params, md, cfg, want_ll)
+    new, ll, scale = out
+    return new._replace(kmask=params.kmask), ll, scale
 
 
 def _miss_inputs(md: ModelData, cfg: EMConfig, dtype):
@@ -152,7 +173,8 @@ def _em_step_bi_repr(params: Params, md: ModelData, cfg: EMConfig,
         return _em_step_bi_repr_meshed(params, md, cfg, want_ll, route)
     c, miss = _miss_inputs(md, cfg, eta.dtype)
     eta_new, per_i, p0n = admixture_fullstep_biallelic_routed(
-        eta, p0, md.x0, md.x1, c, miss, route=route, k_true=cfg.k_true,
+        eta, p0, md.x0, md.x1, c, miss, params.kmask, route=route,
+        k_true=cfg.k_true,
         lb=float(cfg.eta_lower_bound), plb=float(cfg.p_lower_bound),
         project=cfg.do_projection, compute_t=want_ll)
     ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
@@ -176,7 +198,7 @@ def _em_step_bi_repr_meshed(params: Params, md: ModelData, cfg: EMConfig,
     c, miss = _miss_inputs(md, cfg, eta.dtype)
     emit_a = mesh.model_shards > 1
     eta_new, per_i, b0, b1 = admixture_fullstep_biallelic_chunked(
-        eta, p0, md.x0, md.x1, c, miss, window=route.window,
+        eta, p0, md.x0, md.x1, c, miss, params.kmask, window=route.window,
         seg_cols=route.seg_cols or route.window, k_true=cfg.k_true, lb=lb,
         plb=plb, project=cfg.do_projection, compute_t=want_ll, emit_b=True,
         emit_a=emit_a, n_rseg=route.n_rseg)
@@ -187,8 +209,8 @@ def _em_step_bi_repr_meshed(params: Params, md: ModelData, cfg: EMConfig,
         eta_new, _ = rows_finish(
             eta, araw[:, None], eta.new_zeros((eta.shape[0], 1,
                                                eta.shape[1])), c,
-            k_true=cfg.k_true, lb=lb, project_eta=cfg.do_projection,
-            compute_t=False)
+            kmask=params.kmask, k_true=cfg.k_true, lb=lb,
+            project_eta=cfg.do_projection, compute_t=False)
     part = mesh.sum(torch.stack([b0, b1], dim=1), DATA_AXIS)
     p0n = torch.empty_like(p0)
     p0_epilogue(p0, part[:, None], (p0n,), l_lo=0, l_hi=p0.shape[-1],
@@ -271,7 +293,7 @@ def _em_step_generic(params: Params, md: ModelData, cfg: EMConfig,
         return _em_step_generic_meshed(params, md, cfg, want_ll, c, miss)
     eta_new, per_i, p_new = admixture_fullstep(
         eta, p.reshape(nb, Kp, -1), md.x_lanes, c, miss, md.mask,
-        k_true=cfg.k_true or Kp, lb=float(cfg.eta_lower_bound),
+        params.kmask, k_true=cfg.k_true or Kp, lb=float(cfg.eta_lower_bound),
         plb=float(cfg.p_lower_bound), project=cfg.do_projection,
         compute_t=want_ll)
     ll, scale = _ll_terms(per_i) if want_ll else _no_ll(eta)
@@ -291,16 +313,16 @@ def _em_step_generic_meshed(params: Params, md: ModelData, cfg: EMConfig,
     added, eta finished as a single segment) and the p epilogue on the
     merged statistics."""
     mesh = cfg.mesh
-    eta, p = params.eta, params.p
+    eta, p, kmask = params.eta, params.p, params.kmask
     nb, Kp = p.shape[0], p.shape[1]
     k_true = cfg.k_true or Kp
     lb = float(cfg.eta_lower_bound)
     p2 = p.reshape(nb, Kp, -1)
     if mesh.model_shards == 1:
         eta_new, per_i = fullstep_rows(
-            eta, p2, md.x_lanes, c, k_true=k_true, lb=lb,
+            eta, p2, md.x_lanes, c, None, kmask, k_true=k_true, lb=lb,
             project=cfg.do_projection, compute_t=want_ll, M=md.M)
-        p_new = _generic_p(eta, p2, md, cfg, k_true)
+        p_new = _generic_p(eta, p2, md, cfg, k_true, kmask=kmask)
     else:
         A, per_i, Bm = admixture_sweep_stats(
             eta, p2, md.x_lanes, miss, M=md.M, k_true=k_true,
@@ -310,18 +332,18 @@ def _em_step_generic_meshed(params: Params, md: ModelData, cfg: EMConfig,
             per_i = _sum_loci(per_i, mesh)
         eta_new, _ = rows_finish(
             eta, A[:, None], eta.new_zeros((nb, 1, eta.shape[1])), c,
-            k_true=k_true, lb=lb, project_eta=cfg.do_projection,
-            compute_t=False)
+            kmask=kmask, k_true=k_true, lb=lb,
+            project_eta=cfg.do_projection, compute_t=False)
         Bm = mesh.sum(Bm, DATA_AXIS)
-        p_new = fullstep_p(p2, Bm[:, None], md.mask, M=md.M, k_true=k_true,
-                           plb=float(cfg.p_lower_bound),
+        p_new = fullstep_p(p2, Bm[:, None], md.mask, kmask, M=md.M,
+                           k_true=k_true, plb=float(cfg.p_lower_bound),
                            project=cfg.do_projection)
     ll, scale = _ll_terms(per_i, mesh) if want_ll else _no_ll(eta)
     return Params(eta=eta_new, p=p_new), ll, scale
 
 
 def _sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
-           want_ll: bool):
+           want_ll: bool, kmask: Optional[Tensor] = None):
     """One block of loci's part of the plain step (``_bucket_sweep`` and
     ``_finish_bucket_p``, multiclust_tpu/model/admixture.py:662-684): (A
     [B, I, K] without c, t [B, I] or None, p' [B, K, L, M]).  Under a mesh
@@ -329,7 +351,7 @@ def _sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
     this rank's loci's."""
     A, t, Bm = _sweep_stats(eta, p, md, cfg, want_ll)
     Bm = sum_over(cfg.mesh, Bm, DATA_AXIS)
-    return A, t, _normalize_p(p * Bm, md, cfg)
+    return A, t, _normalize_p(p * Bm, md, cfg, kmask)
 
 
 def _sweep_stats(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
@@ -352,7 +374,8 @@ def _sweep_stats(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
     return w @ p2.transpose(-1, -2), t, Bm
 
 
-def _eta_update(eta: Tensor, A: Tensor, c: Tensor, cfg: EMConfig) -> Tensor:
+def _eta_update(eta: Tensor, A: Tensor, c: Tensor, cfg: EMConfig,
+                kmask: Optional[Tensor] = None) -> Tensor:
     """eta' from the merged A (c added when data are missing)."""
     if cfg.has_missing:
         A = A + c.to(A.dtype)[:, None]
@@ -364,7 +387,7 @@ def _eta_update(eta: Tensor, A: Tensor, c: Tensor, cfg: EMConfig) -> Tensor:
                                                     torch.ones_like(tot)),
                           eta)
     if cfg.do_projection:
-        eta_new = _project_eta_rows(eta_new, cfg)
+        eta_new = _project_eta_rows(eta_new, cfg, kmask)
     return eta_new
 
 
@@ -374,17 +397,18 @@ def _em_step_unconstrained(params: Params, md: ModelData, cfg: EMConfig,
     group before the eta update and the logL (the formulation GSPMD
     shards for the JAX package)."""
     mesh = cfg.mesh
-    A, t, p_new = _sweep(params.eta, params.p, md, cfg, want_ll)
+    A, t, p_new = _sweep(params.eta, params.p, md, cfg, want_ll,
+                         params.kmask)
     A = sum_over(mesh, A, MODEL_AXIS)
     if want_ll:
         t = _sum_loci(t, mesh)
     ll, scale = _ll_terms(t, mesh) if want_ll else _no_ll(params.eta)
-    return Params(eta=_eta_update(params.eta, A, md.c, cfg), p=p_new), \
-        ll, scale
+    return Params(eta=_eta_update(params.eta, A, md.c, cfg, params.kmask),
+                  p=p_new), ll, scale
 
 
 def _constrained_sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
-                       want_ll: bool):
+                       want_ll: bool, kmask: Optional[Tensor] = None):
     """One block of loci's part of the constrained step: (a [B, K], the
     per-lane logL terms [B, LM] or None, p' [B, K, L, M])."""
     nb, K = p.shape[0], p.shape[1]
@@ -397,14 +421,16 @@ def _constrained_sweep(eta: Tensor, p: Tensor, md: ModelData, cfg: EMConfig,
     S = _safe_div(colx, denom).reshape(nb, md.L, md.M) + msum[:, None]
     S = torch.where(md.mask, S, torch.zeros_like(S)).reshape(nb, -1)
     a = (p2 @ S[..., None])[..., 0]                   # [B, K]
-    return a, t, _normalize_p(p * S.reshape(nb, 1, md.L, md.M), md, cfg)
+    return a, t, _normalize_p(p * S.reshape(nb, 1, md.L, md.M), md, cfg,
+                              kmask)
 
 
-def _constrained_eta(eta: Tensor, a: Tensor, cfg: EMConfig) -> Tensor:
+def _constrained_eta(eta: Tensor, a: Tensor, cfg: EMConfig,
+                     kmask: Optional[Tensor] = None) -> Tensor:
     eta_num = eta * a
     eta_new = eta_num / eta_num.sum(dim=-1, keepdim=True)
     if cfg.do_projection:
-        eta_new = _project_eta_rows(eta_new, cfg)
+        eta_new = _project_eta_rows(eta_new, cfg, kmask)
     return eta_new
 
 
@@ -414,15 +440,16 @@ def _em_step_constrained(params: Params, md: ModelData, cfg: EMConfig,
     data enter only through the column sums sum_i x_ilm and sum_i miss_il,
     so ``md`` may be the collapsed 1-row data (collapse_for_constrained).
     The logL terms are per allele lane."""
-    a, t, p_new = _constrained_sweep(params.eta, params.p, md, cfg, want_ll)
+    a, t, p_new = _constrained_sweep(params.eta, params.p, md, cfg, want_ll,
+                                     params.kmask)
     mesh = cfg.mesh
     # the a-term and the logL lanes of this rank's loci: summed over the
     # model group (the collapsed data is whole on each data group)
     a = sum_over(mesh, a, MODEL_AXIS)
     ll, scale = (_ll_terms(t, mesh, MODEL_AXIS) if want_ll
                  else _no_ll(params.eta))
-    return Params(eta=_constrained_eta(params.eta, a, cfg), p=p_new), \
-        ll, scale
+    return Params(eta=_constrained_eta(params.eta, a, cfg, params.kmask),
+                  p=p_new), ll, scale
 
 
 def _em_step_bucketed(params: Params, bd: BucketedData, cfg: EMConfig,
@@ -441,14 +468,14 @@ def _em_step_bucketed(params: Params, bd: BucketedData, cfg: EMConfig,
         return _bucketed_fullstep_chain(params, bd, cfg, want_ll)
     A, per_i, new_ps = None, None, []
     for md_b, p_b in zip(bd.buckets, params.p):
-        A_b, t_b, p_new = _sweep(eta, p_b, md_b, cfg, want_ll)
+        A_b, t_b, p_new = _sweep(eta, p_b, md_b, cfg, want_ll, params.kmask)
         A = A_b if A is None else A + A_b
         if want_ll:
             per_i = t_b if per_i is None else per_i + t_b
         new_ps.append(p_new)
     ll, scale = _ll_terms(per_i, cfg.mesh) if want_ll else _no_ll(eta)
-    return Params(eta=_eta_update(eta, A, bd.c, cfg), p=tuple(new_ps)), \
-        ll, scale
+    return Params(eta=_eta_update(eta, A, bd.c, cfg, params.kmask),
+                  p=tuple(new_ps)), ll, scale
 
 
 def _bucketed_fullstep_chain(params: Params, bd: BucketedData,
@@ -464,7 +491,7 @@ def _bucketed_fullstep_chain(params: Params, bd: BucketedData,
     ``_bucketed_p_epilogue`` (:687-717) does in one XLA pass for the same
     per-locus function.  Above 128 lanes a bucket's two passes run on one
     d (``ops/fullstep.rows_and_partials``) and its p epilogue follows."""
-    eta = params.eta                                  # [B, I, Kp]
+    eta, kmask = params.eta, params.kmask             # [B, I, Kp]
     nb, Kp = eta.shape[0], eta.shape[-1]
     kw = dict(k_true=cfg.k_true or Kp, project=cfg.do_projection)
     c = bd.c.to(eta.dtype) if cfg.has_missing else None
@@ -475,46 +502,50 @@ def _bucketed_fullstep_chain(params: Params, bd: BucketedData,
         rkw = dict(lb=float(cfg.eta_lower_bound), compute_t=want_ll,
                    finish=j == last, M=md_b.M, **kw)
         c_j = c if j == last else None
+        km_j = kmask if j == last else None
         if is_wide(Kp):
             A, t_b, part = rows_and_partials(
                 eta, p2, md_b.x_lanes, c_j, A,
-                md_b.miss if cfg.has_missing else None, **rkw)
+                md_b.miss if cfg.has_missing else None, km_j, **rkw)
             new_ps.append(_generic_p(eta, p2, md_b, cfg, kw["k_true"],
-                                     part))
+                                     part, kmask))
         else:
-            A, t_b = fullstep_rows(eta, p2, md_b.x_lanes, c_j, A, **rkw)
+            A, t_b = fullstep_rows(eta, p2, md_b.x_lanes, c_j, A, km_j,
+                                   **rkw)
         if want_ll:
             t_b = t_b.to(torch.float64)
             per_i = t_b if per_i is None else per_i + t_b
     if not new_ps:
         new_ps = [_generic_p(eta, p_b.reshape(nb, Kp, -1), md_b, cfg,
-                             kw["k_true"])
+                             kw["k_true"], kmask=kmask)
                   for md_b, p_b in zip(bd.buckets, params.p)]
     ll, scale = _ll_terms(per_i, cfg.mesh) if want_ll else _no_ll(eta)
     return Params(eta=A, p=tuple(new_ps)), ll, scale
 
 
 def _generic_p(eta: Tensor, p2: Tensor, md: ModelData, cfg: EMConfig,
-               k_true: int, part: Optional[Tensor] = None) -> Tensor:
+               k_true: int, part: Optional[Tensor] = None,
+               kmask: Optional[Tensor] = None) -> Tensor:
     """p' of one block of loci through the generic columns pass and p
     epilogue, or through the epilogue alone on the columns pass's
     partials ``part`` where a step has them; under a mesh the raw B
     (``finish=False``) is summed over the data group before the
-    epilogue."""
+    epilogue.  ``kmask``: each chain's rows, the others kept 0."""
     kw = dict(k_true=k_true, plb=float(cfg.p_lower_bound),
               project=cfg.do_projection)
     miss = md.miss if cfg.has_missing else None
     if cfg.mesh is None:
         if part is not None:
-            return fullstep_p(p2, part, md.mask, M=md.M, **kw)
-        return fullstep_cols(eta, p2, md.x_lanes, miss, md.mask, **kw)
+            return fullstep_p(p2, part, md.mask, kmask, M=md.M, **kw)
+        return fullstep_cols(eta, p2, md.x_lanes, miss, md.mask, kmask,
+                             **kw)
     if part is not None:
         Bm = fullstep_p(p2, part, M=md.M, k_true=k_true, finish=False)
     else:
         Bm = fullstep_cols(eta, p2, md.x_lanes, miss, md.mask,
                            k_true=k_true, finish=False)
     Bm = cfg.mesh.sum(Bm, DATA_AXIS)
-    return fullstep_p(p2, Bm[:, None], md.mask, M=md.M, **kw)
+    return fullstep_p(p2, Bm[:, None], md.mask, kmask, M=md.M, **kw)
 
 
 def _em_step_constrained_bucketed(params: Params, bd: BucketedData,
@@ -526,14 +557,15 @@ def _em_step_constrained_bucketed(params: Params, bd: BucketedData,
     eta = params.eta
     a, ts, new_ps = None, [], []
     for md_b, p_b in zip(bd.buckets, params.p):
-        a_b, t_b, p_new = _constrained_sweep(eta, p_b, md_b, cfg, want_ll)
+        a_b, t_b, p_new = _constrained_sweep(eta, p_b, md_b, cfg, want_ll,
+                                             params.kmask)
         a = a_b if a is None else a + a_b
         ts.append(t_b)
         new_ps.append(p_new)
     ll, scale = (_ll_terms(torch.cat(ts, dim=-1)) if want_ll
                  else _no_ll(eta))
-    return Params(eta=_constrained_eta(eta, a, cfg), p=tuple(new_ps)), \
-        ll, scale
+    return Params(eta=_constrained_eta(eta, a, cfg, params.kmask),
+                  p=tuple(new_ps)), ll, scale
 
 
 def log_likelihood_bucketed(params: Params, bd: BucketedData,

@@ -197,7 +197,8 @@ def bucketize_model_data(md: ModelData, plan: JaggedPlan) -> BucketedData:
 
 def split_params_like(params: Params, bd: BucketedData) -> Params:
     """Dense p [.., K, L, M] -> the per-bucket tuple, zero off each
-    bucket's mask; a no-op on split params."""
+    bucket's mask; a no-op on split params.  eta and a kmask ride
+    along."""
     if isinstance(params.p, tuple):
         return params
     parts = []
@@ -206,7 +207,7 @@ def split_params_like(params: Params, bd: BucketedData) -> Params:
         part = params.p[..., :b.M].index_select(-2, bd.perm[lo:lo + b.L])
         parts.append(torch.where(b.mask, part, torch.zeros_like(part)))
         lo += b.L
-    return Params(eta=params.eta, p=tuple(parts))
+    return params._replace(p=tuple(parts))
 
 
 def merge_params_like(params: Params, bd: BucketedData) -> Params:
@@ -217,4 +218,4 @@ def merge_params_like(params: Params, bd: BucketedData) -> Params:
     M_full = bd.plan.M_full
     p_sorted = torch.cat([F.pad(pb, (0, M_full - pb.shape[-1]))
                           for pb in params.p], dim=-2)
-    return Params(eta=params.eta, p=p_sorted.index_select(-2, bd.inv))
+    return params._replace(p=p_sorted.index_select(-2, bd.inv))

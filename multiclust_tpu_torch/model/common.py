@@ -29,6 +29,14 @@ class Params(NamedTuple):
     # [..., K, L, M] full, [..., Kp, L] p0 layout, or a tuple of per-bucket
     # [..., K, L_b, M_b] (model/bucketed.py)
     p: Union[Tensor, Tuple[Tensor, ...]]
+    # [..., Kp] 1.0/0.0 mask of a chain's TRUE cluster lanes, the chains
+    # of a mixed-K K-sweep lattice (runtime/ksweep.py) each padded to the
+    # lattice's lanes: carried as data, so one batch runs every K (the JAX
+    # package's Params.kmask, multiclust_tpu/model/common.py:26-35).  None:
+    # cfg.k_true alone sets the lanes.  Float, not bool, so the vector
+    # arithmetic of opt/em.py treats it as inert data: a secant difference
+    # of it is exactly 0, and an accelerated point keeps its base's mask.
+    kmask: Optional[Tensor] = None
 
     @property
     def K(self) -> int:
@@ -43,13 +51,16 @@ def _map_leaves(fn, *xs):
 
 def map_params(fn, *ps: Params) -> Params:
     """Apply ``fn`` tensor by tensor across one or more Params (into each
-    bucket of a bucketed p)."""
+    bucket of a bucketed p, and to the kmask where the first has one)."""
     return Params(eta=fn(*(q.eta for q in ps)),
-                  p=_map_leaves(fn, *(q.p for q in ps)))
+                  p=_map_leaves(fn, *(q.p for q in ps)),
+                  kmask=(None if ps[0].kmask is None
+                         else fn(*(q.kmask for q in ps))))
 
 
 def param_leaves(params: Params) -> Tuple[Tensor, ...]:
-    """The tensors of ``params``: eta, then p or each bucket's p."""
+    """The tensors of ``params``: eta, then p or each bucket's p (not the
+    kmask, which is no parameter)."""
     p = params.p
     return (params.eta,) + (p if isinstance(p, tuple) else (p,))
 
@@ -386,14 +397,16 @@ def pad_params_k(params: Params, k_pad: int) -> Params:
     d = k_pad - K
     eta = torch.nn.functional.pad(params.eta, (0, d))
     p = torch.nn.functional.pad(params.p, (0, 0, 0, 0, 0, d))
-    return Params(eta=eta, p=p)
+    kmask = (None if params.kmask is None
+             else torch.nn.functional.pad(params.kmask, (0, d)))
+    return Params(eta=eta, p=p, kmask=kmask)
 
 
 def unpad_params_k(params: Params, k_true: int) -> Params:
-    """Inverse of pad_params_k (batched OK)."""
+    """Inverse of pad_params_k (batched OK); drops any kmask."""
     K = params.p.shape[-3]
     if k_true >= K:
-        return params
+        return params._replace(kmask=None)
     return Params(eta=params.eta[..., :k_true],
                   p=params.p[..., :k_true, :, :])
 

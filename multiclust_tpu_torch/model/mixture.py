@@ -23,6 +23,14 @@ multiclust_tpu/model/mixture.py:328-331).  A
 jagged panel's bucketed layout (model/bucketed.py) sums the scores over
 its buckets and updates each bucket's p at its own M_b.
 
+The chains of a mixed-K lattice (runtime/ksweep.py) carry their true
+lanes as ``params.kmask`` ([B, K], a row a chain): the scores of the other
+lanes are -inf, so they take no posterior mass and stay out of the
+logsumexp (``_mask_scores``, multiclust_tpu/model/mixture.py:33-38), eta
+is normalized and projected over the chain's lanes (``_finish_eta``), and
+p there becomes the lb-smoothed row of zero counts, as in the JAX step.
+The kernel route gives its kernels the mask.
+
 Under a mesh (cfg.mesh, runtime/mesh.py) the same plain products run on
 this rank's block of rows and loci, as the JAX package keeps meshed
 mixture fits off its kernels (``_kernel_ok``, multiclust_tpu/model/
@@ -48,7 +56,7 @@ from multiclust_tpu_torch.ops.fullstep import fullstep_p
 from multiclust_tpu_torch.ops.fullstep_bi import KP_MAX
 from multiclust_tpu_torch.ops.mixture_bi import mixture_eta, \
     mixture_finish, mixture_partials, mixture_rows
-from multiclust_tpu_torch.ops.simplex import project_rows
+from multiclust_tpu_torch.ops.simplex import kmask_lanes, project_rows
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     sum_over
 
@@ -81,6 +89,16 @@ def _allele_scores(p: Tensor, md: ModelData) -> Tensor:
             @ logp.reshape(nb, K, -1).transpose(-1, -2))
 
 
+def _mask_scores(s: Tensor, params: Params) -> Tensor:
+    """Scores [B, I, K] with the lanes outside each chain's kmask at
+    -inf: their eta is 0, which safe_log maps to 0, not -inf."""
+    if params.kmask is None:
+        return s
+    return torch.where(kmask_lanes(params.kmask, 3), s,
+                       torch.full((), -torch.inf, dtype=s.dtype,
+                                  device=s.device))
+
+
 def scores(params: Params, md: ModelData, mesh=None) -> Tensor:
     """[B, I, K] per-individual per-cluster log scores, float64; on a
     bucketed panel summed over the buckets, each cast to float64 at its
@@ -92,7 +110,8 @@ def scores(params: Params, md: ModelData, mesh=None) -> Tensor:
     else:
         s = _allele_scores(params.p, md)
     s = sum_over(mesh, s, MODEL_AXIS)
-    return s + safe_log(params.eta).to(F64)[:, None, :]
+    return _mask_scores(s + safe_log(params.eta).to(F64)[:, None, :],
+                        params)
 
 
 def _scores_bi(params: Params, md: ModelData, ploidy: int,
@@ -106,7 +125,8 @@ def _scores_bi(params: Params, md: ModelData, ploidy: int,
     d = (logp[..., 0] - logp[..., 1]).transpose(-1, -2)   # [B, L, K]
     base = ploidy * logp[..., 1].sum(dim=-1)          # [B, K]
     s = sum_over(mesh, _x0(md, F64) @ d + base[:, None, :], MODEL_AXIS)
-    return s + safe_log(params.eta).to(F64)[:, None, :]
+    return _mask_scores(s + safe_log(params.eta).to(F64)[:, None, :],
+                        params)
 
 
 def _posterior_and_ll(s: Tensor, dtype: torch.dtype, mesh=None):
@@ -163,8 +183,8 @@ def log_likelihood(params: Params, md: ModelData, cfg: EMConfig):
     if isinstance(md, BucketedData):
         params = split_params_like(params, md)
     elif _kernel_ok(md, cfg, params):
-        lp0, x0, bias, lp1, x1 = _kernel_inputs(params, md, cfg)
-        return _ll_terms(mixture_rows(lp0, x0, bias, lp1, x1,
+        lp0, x0, bias, lp1, x1, kmask = _kernel_inputs(params, md, cfg)
+        return _ll_terms(mixture_rows(lp0, x0, bias, lp1, x1, kmask,
                                       k_true=params.K)[1])
     s = (_scores_bi(params, md, cfg.ploidy, cfg.mesh) if _bi_fast(md, cfg)
          else scores(params, md, cfg.mesh))
@@ -192,23 +212,35 @@ def _finish_p(pc: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
     return p
 
 
-def _finish_eta(v: Tensor, cfg: EMConfig) -> Tensor:
-    """eta [B, K] = sum_i v / total, then the optional projection; with the
-    kernels on, the kernel route's eta finish on the K-padded sums.  Under
-    a mesh the sums are summed over the data group first."""
+def _finish_eta(v: Tensor, cfg: EMConfig, kmask=None) -> Tensor:
+    """eta [B, K] = sum_i v / total, then the optional projection, over
+    each chain's ``kmask`` lanes where one is given; with the kernels on,
+    the kernel route's eta finish on the K-padded sums.  Under a mesh the
+    sums are summed over the data group first."""
     vsum = sum_over(cfg.mesh, v.sum(dim=1), DATA_AXIS)    # [B, K]
     K = vsum.shape[-1]
     if _on_card(cfg, vsum, K):
-        vpart = F.pad(vsum, (0, k_padded_size(K, 32) - K))[:, None]
-        eta = mixture_eta(vpart.contiguous(), k_true=K,
-                          lb=cfg.eta_lower_bound, project=cfg.do_projection)
+        dK = k_padded_size(K, 32) - K
+        vpart = F.pad(vsum, (0, dK))[:, None]
+        eta = mixture_eta(vpart.contiguous(), _pad_kmask(kmask, dK),
+                          k_true=K, lb=cfg.eta_lower_bound,
+                          project=cfg.do_projection)
         return eta[:, :K].contiguous()
+    lanes = (torch.ones(K, dtype=torch.bool, device=vsum.device)
+             if kmask is None else kmask_lanes(kmask, 2))
+    vsum = torch.where(lanes, vsum, torch.zeros_like(vsum))
     eta = vsum / vsum.sum(dim=-1, keepdim=True)
     if cfg.do_projection:
-        eta = project_rows(eta, torch.ones(eta.shape[-1], dtype=torch.bool,
-                                           device=eta.device),
-                           cfg.eta_lower_bound)
+        eta = project_rows(eta, lanes, cfg.eta_lower_bound)
     return eta
+
+
+def _pad_kmask(kmask, dK: int):
+    """A kmask [B, K] padded with dK false lanes (the kernels' Kp), as a
+    contiguous float32 tensor; None stays None."""
+    if kmask is None:
+        return None
+    return F.pad(kmask, (0, dK)).to(torch.float32).contiguous()
 
 
 def _counts_p(v: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
@@ -220,31 +252,35 @@ def _counts_p(v: Tensor, md: ModelData, cfg: EMConfig) -> Tensor:
     return _finish_p(pc, md, cfg)
 
 
-def m_step(v: Tensor, md: ModelData, cfg: EMConfig) -> Params:
+def m_step(v: Tensor, md: ModelData, cfg: EMConfig, kmask=None) -> Params:
     """Parameter update given the posteriors (m_step_mixture); on a
-    bucketed panel eta is finished once and p bucket by bucket."""
+    bucketed panel eta is finished once and p bucket by bucket.  The
+    kmask (v is 0 outside it) sets eta's lanes and rides along."""
     if isinstance(md, BucketedData):
         p = tuple(_counts_p(v, md_b, cfg) for md_b in md.buckets)
     else:
         p = _counts_p(v, md, cfg)
-    return Params(eta=_finish_eta(v, cfg), p=p)
+    return Params(eta=_finish_eta(v, cfg, kmask), p=p, kmask=kmask)
 
 
-def _m_step_bi(v: Tensor, md: ModelData, cfg: EMConfig) -> Params:
+def _m_step_bi(v: Tensor, md: ModelData, cfg: EMConfig,
+               kmask=None) -> Params:
     """Biallelic missing-free M-step in ONE product: with x1 = ploidy - x0,
     pc1_kl = ploidy * sum_i v_ik - pc0_kl (both summed over the data
     group under a mesh)."""
     pc0 = v.transpose(-1, -2) @ _x0(md, v.dtype)      # [B, K, L]
     pc1 = cfg.ploidy * v.sum(dim=1)[..., None] - pc0
     pc = sum_over(cfg.mesh, torch.stack([pc0, pc1], dim=-1), DATA_AXIS)
-    return Params(eta=_finish_eta(v, cfg), p=_finish_p(pc, md, cfg))
+    return Params(eta=_finish_eta(v, cfg, kmask), p=_finish_p(pc, md, cfg),
+                  kmask=kmask)
 
 
 def _kernel_inputs(params: Params, md: ModelData, cfg: EMConfig):
-    """(lp0, x0, bias, lp1, x1) of the kernel route, K-padded to Kp =
-    32 lanes per call (mixture.py:218-230): missing-free panels stream x0
-    alone with lp0 = log p0 - log p1 and the ploidy fold in the bias;
-    panels with missing data stream both planes."""
+    """(lp0, x0, bias, lp1, x1, kmask) of the kernel route, K-padded to
+    Kp = 32 lanes per call (mixture.py:218-230): missing-free panels
+    stream x0 alone with lp0 = log p0 - log p1 and the ploidy fold in the
+    bias; panels with missing data stream both planes.  The kmask (None
+    without one) is padded with false lanes."""
     K = params.K
     dK = k_padded_size(K, 32) - K
     lp0 = safe_log(params.p[..., 0])                  # [B, K, L]
@@ -257,7 +293,8 @@ def _kernel_inputs(params: Params, md: ModelData, cfg: EMConfig):
         blk0, blk1, x1 = lp0 - lp1, None, None
         bias_k = cfg.ploidy * lp1.sum(dim=-1) + log_eta
     bias = F.pad(bias_k, (0, dK), value=PAD_BIAS)
-    return F.pad(blk0, (0, 0, 0, dK)), md.x0, bias, blk1, x1
+    return (F.pad(blk0, (0, 0, 0, dK)), md.x0, bias, blk1, x1,
+            _pad_kmask(params.kmask, dK))
 
 
 def _em_step_bi_kernel(params: Params, md: ModelData, cfg: EMConfig,
@@ -269,15 +306,15 @@ def _em_step_bi_kernel(params: Params, md: ModelData, cfg: EMConfig,
     params=True)``), for the whole chain batch, with no host read and no
     launch after the finish."""
     K = params.K
-    lp0, x0, bias, lp1, x1 = _kernel_inputs(params, md, cfg)
-    v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=K)
+    lp0, x0, bias, lp1, x1, kmask = _kernel_inputs(params, md, cfg)
+    v, t = mixture_rows(lp0, x0, bias, lp1, x1, kmask, k_true=K)
     ll, scale = _ll_terms(t) if want_ll else _no_ll(params.eta)
     part, vpart = mixture_partials(v, x0, x1, k_true=K)
-    eta, p = mixture_finish(part, vpart, k_true=K,
+    eta, p = mixture_finish(part, vpart, kmask, k_true=K,
                             lb=float(cfg.eta_lower_bound),
                             plb=float(cfg.p_lower_bound), ploidy=cfg.ploidy,
                             project=cfg.do_projection, params=True)
-    return Params(eta=eta, p=p), ll, scale
+    return Params(eta=eta, p=p, kmask=params.kmask), ll, scale
 
 
 def em_step(params: Params, md: ModelData, cfg: EMConfig,
@@ -295,7 +332,7 @@ def em_step(params: Params, md: ModelData, cfg: EMConfig,
         v, ll, scale = _posterior_and_ll(
             _scores_bi(params, md, cfg.ploidy, cfg.mesh), params.p.dtype,
             cfg.mesh)
-        return _m_step_bi(v, md, cfg), ll, scale
+        return _m_step_bi(v, md, cfg, params.kmask), ll, scale
     v, ll, scale = e_step(params, md, cfg.mesh)
-    return m_step(v, md, cfg), ll, scale
+    return m_step(v, md, cfg, params.kmask), ll, scale
 

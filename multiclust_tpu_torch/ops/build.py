@@ -32,13 +32,13 @@ _F = ctypes.c_float
 
 # argtypes of every exported launcher; each returns a cudaError_t as int
 _SIGNATURES = {
-    "mc_fullstep_bi_rows": [_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "mc_fullstep_bi_rows": [_P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "mc_fullstep_bi_rows_seg": [_P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _P, _I, _P],
     "mc_fullstep_bi_finish": [_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "mc_fullstep_bi_cols": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                             _P, _I, _P],
@@ -47,22 +47,22 @@ _SIGNATURES = {
     "mc_fullstep_bi_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P],
-    "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "mc_fullstep_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                         _P, _I, _P],
+                         _P, _I, _I, _P],
     "mc_fullstep_cols": [_P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    "mc_fullstep_p": [_P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "mc_fullstep_p": [_P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "mc_fullstep_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
-    "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                    _P],
+                         _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _P],
+    "mc_mix_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _P],
     "mc_mix_cols": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "mc_mix_finish": [_P, _P, _P, _P, _P, _P,
+    "mc_mix_finish": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
-                      _I, _P],
+                      _I, _I, _P],
 }
 
 # Launches counted under a name of their own as well as the launcher's
@@ -76,10 +76,18 @@ _SIGNATURES = {
 # passes on one d, mc_fullstep_bi_window or mc_fullstep_step, counts
 # each); of csrc/mixture_bi.cu the mixture's rows pass (its scores
 # and its softmax, one call of the launcher), columns pass and finish
-# (either half alone too)
+# (either half alone too); and the launches that read a runtime lane mask
+# (``Params.kmask``: one [Kp] mask, or a row a chain of a mixed-K
+# lattice): the pair's rows pass, the rows finish and the wide finish
+# where they project eta, the generic p epilogue, the mixture's rows pass
+# at most 128 lanes and its softmax launch above, and the mixture finish
+# where its eta half runs
 EXTRA_COUNTS = ("fullstep_bi_chunked", "wide_rows", "wide_finish",
                 "wide_cols_bi", "wide_cols_generic", "wide_mix_rows",
-                "wide_mix_cols", "wide_mix_finish")
+                "wide_mix_cols", "wide_mix_finish", "masked_pair_rows",
+                "masked_rows_finish", "masked_wide_finish", "masked_p",
+                "masked_mix_rows", "masked_mix_softmax",
+                "masked_mix_finish")
 
 # launches per kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0

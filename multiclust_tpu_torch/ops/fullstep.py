@@ -36,7 +36,10 @@ chain batch B leads.  eta [B, I, Kp] f32 with Kp a multiple of 32 up to
 [B, Kp, L*M] f32 (the [B, Kp, L, M] parameters flattened), x2 [I, L*M]
 int8, miss [I, L] int8 or None, c [I] f32 missing totals, mask [L, M] bool
 valid allele lanes.  Pad lanes (k >= k_true) of eta and p2 must be zero;
-the full step keeps them zero.
+the full step keeps them zero.  A runtime ``kmask`` (1.0/0.0 float32, one
+[Kp] mask or a [B, Kp] mask of a mixed-K lattice, a row a chain) sets the
+lanes each chain's eta finish projects onto and the rows its p epilogue
+keeps; ``k_true``, the lattice's largest K, still bounds the loops.
 """
 
 from __future__ import annotations
@@ -49,9 +52,9 @@ from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
 from multiclust_tpu_torch.ops.fullstep_bi import COLS_BLOCKS_PER_SM, \
     COLS_MAX_RSEG, GRID_YZ_MAX, SCRATCH_CAP, check_kp, col_segments, \
-    cols_sub_cols, cols_tile, device_sm_count, is_wide, kc_of, \
-    row_segments, wide_chunks, wide_scratch
-from multiclust_tpu_torch.ops.simplex import project_rows
+    cols_sub_cols, cols_tile, device_sm_count, finish_counts, is_wide, \
+    kc_of, kmask_arg, lanes_valid, row_segments, wide_chunks, wide_scratch
+from multiclust_tpu_torch.ops.simplex import kmask_lanes, project_rows
 
 Tensor = torch.Tensor
 
@@ -72,12 +75,13 @@ def _weights(eta: Tensor, p2: Tensor, x2: Tensor):
 
 
 def normalize_p(pc: Tensor, mask: Tensor, *, k_true: int, plb: float,
-                project: bool) -> Tensor:
+                project: bool, kmask: Optional[Tensor] = None) -> Tensor:
     """p from its unnormalized update pc [B, Kp, L, M] (``_normalize_p``,
     multiclust_tpu/model/admixture.py:72-88): each locus normalized over
     its M lanes, 0 where the mask is off or the total is 0; with
     ``project`` the masked Michelot with ``plb`` (a zero-mass cluster
-    becomes 1/n_alleles), and the K-pad rows k >= k_true kept 0."""
+    becomes 1/n_alleles), and the K-pad rows k >= k_true, or the rows
+    outside each chain's ``kmask``, kept 0."""
     tot = pc.sum(dim=-1, keepdim=True)
     ok = tot > 0
     p = torch.where(mask & ok, pc / torch.where(ok, tot, torch.ones_like(tot)),
@@ -85,6 +89,9 @@ def normalize_p(pc: Tensor, mask: Tensor, *, k_true: int, plb: float,
     if project:
         p = project_rows(p, mask, plb)
         Kp = p.shape[-3]
+        if kmask is not None:
+            p = torch.where(kmask_lanes(kmask, p.dim(), -3), p,
+                            torch.zeros_like(p))
         if k_true < Kp:
             kv = torch.arange(Kp, device=p.device) < k_true
             p = torch.where(kv[:, None, None], p, torch.zeros_like(p))
@@ -93,7 +100,8 @@ def normalize_p(pc: Tensor, mask: Tensor, *, k_true: int, plb: float,
 
 def fullstep_rows_reference(eta: Tensor, p2: Tensor, x2: Tensor,
                             c: Optional[Tensor] = None,
-                            a0: Optional[Tensor] = None, *, k_true: int,
+                            a0: Optional[Tensor] = None,
+                            kmask: Optional[Tensor] = None, *, k_true: int,
                             lb: float, project: bool,
                             compute_t: bool = True, finish: bool = True
                             ) -> Tuple[Tensor, Tensor]:
@@ -117,8 +125,9 @@ def fullstep_rows_reference(eta: Tensor, p2: Tensor, x2: Tensor,
     eta_new = torch.where(ok, num / torch.where(ok, tot, torch.ones_like(tot)),
                           eta)
     if project:
-        lanes = torch.arange(eta.shape[-1], device=eta.device) < k_true
-        eta_new = project_rows(eta_new, lanes, lb)
+        eta_new = project_rows(
+            eta_new, lanes_valid(eta.shape[-1], k_true, kmask, eta.device,
+                                  eta.dim()), lb)
     return eta_new, t
 
 
@@ -139,7 +148,8 @@ def fullstep_partials_reference(eta: Tensor, p2: Tensor, x2: Tensor,
 
 
 def fullstep_p_reference(p2: Tensor, part: Tensor,
-                         mask: Optional[Tensor] = None, *, k_true: int = 0,
+                         mask: Optional[Tensor] = None,
+                         kmask: Optional[Tensor] = None, *, k_true: int = 0,
                          plb: float = 0.0, project: bool = False,
                          finish: bool = True) -> Tensor:
     """Plain version of the p epilogue: the partials [B, S, Kp, L*M]
@@ -150,12 +160,13 @@ def fullstep_p_reference(p2: Tensor, part: Tensor,
         return Bm
     shape = Bm.shape[:2] + tuple(mask.shape)
     return normalize_p(p2.reshape(shape) * Bm.reshape(shape), mask,
-                       k_true=k_true, plb=plb, project=project)
+                       k_true=k_true, plb=plb, project=project, kmask=kmask)
 
 
 def fullstep_cols_reference(eta: Tensor, p2: Tensor, x2: Tensor,
                             miss: Optional[Tensor] = None,
-                            mask: Optional[Tensor] = None, *,
+                            mask: Optional[Tensor] = None,
+                            kmask: Optional[Tensor] = None, *,
                             k_true: int = 0, plb: float = 0.0,
                             project: bool = False, finish: bool = True
                             ) -> Tensor:
@@ -163,19 +174,19 @@ def fullstep_cols_reference(eta: Tensor, p2: Tensor, x2: Tensor,
     M], or raw B [B, Kp, L*M] under ``finish=False`` (with eta^T miss
     folded in when miss is given)."""
     return fullstep_p_reference(
-        p2, fullstep_partials_reference(eta, p2, x2, miss), mask,
+        p2, fullstep_partials_reference(eta, p2, x2, miss), mask, kmask,
         k_true=k_true, plb=plb, project=project, finish=finish)
 
 
-def admixture_fullstep_reference(eta, p2, x2, c, miss, mask, *, k_true: int,
-                                 lb: float, plb: float, project: bool,
-                                 compute_t: bool = True):
+def admixture_fullstep_reference(eta, p2, x2, c, miss, mask, kmask=None, *,
+                                 k_true: int, lb: float, plb: float,
+                                 project: bool, compute_t: bool = True):
     """Plain PyTorch version of the whole step: (eta', t, p')."""
     eta_new, t = fullstep_rows_reference(
-        eta, p2, x2, c, k_true=k_true, lb=lb, project=project,
+        eta, p2, x2, c, None, kmask, k_true=k_true, lb=lb, project=project,
         compute_t=compute_t)
-    p_new = fullstep_cols_reference(eta, p2, x2, miss, mask, k_true=k_true,
-                                    plb=plb, project=project)
+    p_new = fullstep_cols_reference(eta, p2, x2, miss, mask, kmask,
+                                    k_true=k_true, plb=plb, project=project)
     return eta_new, t, p_new
 
 
@@ -239,8 +250,8 @@ def _check_k_true(k_true: int, Kp: int) -> None:
                          f"kernels' cluster loops stop at k_true (0: Kp)")
 
 
-def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,
-                  project: bool, compute_t: bool = True,
+def fullstep_rows(eta, p2, x2, c=None, a0=None, kmask=None, *, k_true: int,
+                  lb: float, project: bool, compute_t: bool = True,
                   finish: bool = True, M: int = 0):
     """Rows pass: (eta' [B, I, Kp] in a new buffer, t [B, I]), or (raw A,
     t) under ``finish=False``; ``a0`` [B, I, Kp] seeds A.  ``k_true`` is
@@ -249,12 +260,13 @@ def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,
     (``fullstep_bi.row_segments``).  ``M`` the allele slots a locus where
     the caller knows them (0: not said): at M a multiple of 4 the kernel
     computes the reciprocals and logs of the set lanes only, with the same
-    result."""
+    result.  ``kmask`` ([Kp], or [B, Kp] a row a chain) sets the lanes the
+    eta finish projects onto."""
     _check_k_true(k_true, eta.shape[-1])
     if not eta.is_cuda:
         return fullstep_rows_reference(
-            eta, p2, x2, c, a0, k_true=k_true, lb=lb, project=project,
-            compute_t=compute_t, finish=finish)
+            eta, p2, x2, c, a0, kmask, k_true=k_true, lb=lb,
+            project=project, compute_t=compute_t, finish=finish)
     extra = ()
     if c is not None:
         extra += (("c", c, torch.float32, (eta.shape[1],)),)
@@ -266,18 +278,21 @@ def fullstep_rows(eta, p2, x2, c=None, a0=None, *, k_true: int, lb: float,
     dev = eta.device
     apart = torch.empty((B, n_seg, I, Kp), dtype=torch.float32, device=dev)
     tpart = torch.empty((B, n_seg, I), dtype=torch.float32, device=dev)
+    km, km_stride = kmask_arg(kmask, B, Kp, dev)
     out = torch.empty_like(eta)
     t = torch.empty((B, I), dtype=torch.float64, device=dev)
     sub, scratch = (wide_scratch(B, I, LM, Kp, k_true, dev, bi=False)
                     if is_wide(Kp) else (0, None))
     build.launch("mc_fullstep_rows", dev,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(c),
-                 _ptr(a0), apart.data_ptr(), tpart.data_ptr(),
+                 _ptr(a0), km, apart.data_ptr(), tpart.data_ptr(),
                  out.data_ptr(), t.data_ptr(), B, I, LM, int(M), Kp,
                  int(k_true), float(lb), int(project), int(compute_t),
                  int(finish), seg_cols, n_seg, _ptr(scratch), sub,
-                 also=("wide_rows", "wide_finish") if is_wide(Kp)
-                 else ())
+                 km_stride,
+                 also=(("wide_rows",) if is_wide(Kp) else ())
+                 + finish_counts(Kp, True, km is not None and project
+                                 and finish))
     # summed over the segments in float64, returned as the plain version's
     return out, t.to(torch.float32)
 
@@ -318,8 +333,8 @@ def fullstep_partials(eta, p2, x2, miss=None, *, M: int, k_true: int = 0):
     return part
 
 
-def rows_and_partials(eta, p2, x2, c=None, a0=None, miss=None, *, M: int,
-                      k_true: int, lb: float, project: bool,
+def rows_and_partials(eta, p2, x2, c=None, a0=None, miss=None, kmask=None,
+                      *, M: int, k_true: int, lb: float, project: bool,
                       compute_t: bool = True, finish: bool = True):
     """Both passes of a generic step at a wide Kp on one d a lane
     sub-window (d launch, A launch, B launch), then the rows finish:
@@ -331,8 +346,8 @@ def rows_and_partials(eta, p2, x2, c=None, a0=None, miss=None, *, M: int,
     _check_k_true(k_true, eta.shape[-1])
     if not eta.is_cuda:
         out, t = fullstep_rows_reference(
-            eta, p2, x2, c, a0, k_true=k_true, lb=lb, project=project,
-            compute_t=compute_t, finish=finish)
+            eta, p2, x2, c, a0, kmask, k_true=k_true, lb=lb,
+            project=project, compute_t=compute_t, finish=finish)
         return out, t, fullstep_partials_reference(eta, p2, x2, miss)
     extra = ()
     if c is not None:
@@ -358,33 +373,38 @@ def rows_and_partials(eta, p2, x2, c=None, a0=None, miss=None, *, M: int,
     t = torch.empty((B, I), dtype=torch.float64, device=dev)
     part = torch.empty((B, n_rseg, Kp, LM), dtype=torch.float32, device=dev)
     sub, scratch = wide_scratch(B, I, LM, Kp, k_true, dev, bi=False)
+    km, km_stride = kmask_arg(kmask, B, Kp, dev)
     build.launch("mc_fullstep_step", dev,
                  eta.data_ptr(), p2.data_ptr(), x2.data_ptr(), _ptr(c),
-                 _ptr(a0), _ptr(miss), apart.data_ptr(), tpart.data_ptr(),
-                 out.data_ptr(), t.data_ptr(), part.data_ptr(),
-                 scratch.data_ptr(), B, I, L, M, Kp, int(k_true), float(lb),
-                 int(project), int(compute_t), int(finish), seg_cols, n_cseg,
-                 n_rseg, seg_rows, sub,
-                 also=("wide_rows", "wide_finish", "wide_cols_generic"))
+                 _ptr(a0), _ptr(miss), km, apart.data_ptr(),
+                 tpart.data_ptr(), out.data_ptr(), t.data_ptr(),
+                 part.data_ptr(), scratch.data_ptr(), B, I, L, M, Kp,
+                 int(k_true), float(lb), int(project), int(compute_t),
+                 int(finish), seg_cols, n_cseg, n_rseg, seg_rows, sub,
+                 km_stride,
+                 also=("wide_rows", "wide_cols_generic")
+                 + finish_counts(Kp, True, km is not None and project
+                                 and finish))
     del apart, tpart, scratch
     # t summed over the segments in float64, returned as the plain version's
     return out, t.to(torch.float32), part
 
 
-def fullstep_p(p2, part, mask=None, *, M: int, k_true: int = 0,
+def fullstep_p(p2, part, mask=None, kmask=None, *, M: int, k_true: int = 0,
                plb: float = 0.0, project: bool = False, finish: bool = True):
     """p epilogue: p' [B, Kp, L, M] from the partials, or raw B [B, Kp,
     L*M] under ``finish=False``.  The kernel reads the partials' lanes
     below the lane tile of ``k_true``; the lanes past it must be zero, as
-    the columns pass writes them, and come out 0."""
+    the columns pass writes them, and come out 0; so, under ``project``,
+    do the rows outside a chain's ``kmask`` ([Kp] or [B, Kp])."""
     B, Kp, LM = p2.shape
     L = _loci(LM, M)
     if finish and (mask is None or tuple(mask.shape) != (L, M)):
         raise ValueError(f"the p epilogue needs the [L, M] = {[L, M]} "
                          f"allele mask")
     if not p2.is_cuda:
-        return fullstep_p_reference(p2, part, mask, k_true=k_true, plb=plb,
-                                    project=project, finish=finish)
+        return fullstep_p_reference(p2, part, mask, kmask, k_true=k_true,
+                                    plb=plb, project=project, finish=finish)
     if part.dim() != 4 or (part.shape[0], part.shape[2],
                            part.shape[3]) != (B, Kp, LM):
         raise ValueError(f"partials shape {tuple(part.shape)} against p2 "
@@ -395,21 +415,24 @@ def fullstep_p(p2, part, mask=None, *, M: int, k_true: int = 0,
         if t.device != p2.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: contiguous {dt} on {p2.device} "
                              f"expected")
+    km, km_stride = kmask_arg(kmask, B, Kp, p2.device)
     out = torch.empty_like(p2)
     build.launch("mc_fullstep_p", p2.device,
-                 p2.data_ptr(), part.data_ptr(), _ptr(mask), out.data_ptr(),
-                 B, Kp, L, M, part.shape[1], int(k_true), float(plb),
-                 int(project), int(finish))
+                 p2.data_ptr(), part.data_ptr(), _ptr(mask), km,
+                 out.data_ptr(), B, Kp, L, M, part.shape[1], int(k_true),
+                 float(plb), int(project), int(finish), km_stride,
+                 also=("masked_p",) if km is not None and project and finish
+                 else ())
     return out.view(B, Kp, L, M) if finish else out
 
 
-def fullstep_cols(eta, p2, x2, miss=None, mask=None, *, k_true: int = 0,
-                  plb: float = 0.0, project: bool = False,
+def fullstep_cols(eta, p2, x2, miss=None, mask=None, kmask=None, *,
+                  k_true: int = 0, plb: float = 0.0, project: bool = False,
                   finish: bool = True):
     """Columns pass and p epilogue: p' [B, Kp, L, M] (reads the OLD eta),
     or raw B [B, Kp, L*M] under ``finish=False``.  ``k_true`` (0: all Kp
     lanes) bounds both the kernels' cluster loops and the projection's
-    lanes."""
+    lanes; ``kmask`` as in ``fullstep_p``."""
     if mask is not None:
         M = mask.shape[1]
     elif miss is not None:
@@ -417,28 +440,31 @@ def fullstep_cols(eta, p2, x2, miss=None, mask=None, *, k_true: int = 0,
     else:
         M = 1
     part = fullstep_partials(eta, p2, x2, miss, M=M, k_true=k_true)
-    return fullstep_p(p2, part, mask, M=M, k_true=k_true, plb=plb,
+    return fullstep_p(p2, part, mask, kmask, M=M, k_true=k_true, plb=plb,
                       project=project, finish=finish)
 
 
-def admixture_fullstep(eta, p2, x2, c, miss, mask, *, k_true: int, lb: float,
-                       plb: float, project: bool, compute_t: bool = True):
+def admixture_fullstep(eta, p2, x2, c, miss, mask, kmask=None, *,
+                       k_true: int, lb: float, plb: float, project: bool,
+                       compute_t: bool = True):
     """One generic admixture EM step for a chain batch:
     (eta' [B, I, Kp], t [B, I], p' [B, Kp, L, M]).  The eta Michelot and
-    the p projection share ``project`` (cfg.do_projection).  At a wide Kp
-    both passes run on one d (``rows_and_partials``)."""
+    the p projection share ``project`` (cfg.do_projection) and take
+    ``kmask`` ([Kp] or [B, Kp]).  At a wide Kp both passes run on one d
+    (``rows_and_partials``)."""
     if is_wide(eta.shape[-1]):
         M = mask.shape[1]
         eta_new, t, part = rows_and_partials(
-            eta, p2, x2, c, None, miss, M=M, k_true=k_true, lb=lb,
+            eta, p2, x2, c, None, miss, kmask, M=M, k_true=k_true, lb=lb,
             project=project, compute_t=compute_t)
-        return eta_new, t, fullstep_p(p2, part, mask, M=M, k_true=k_true,
-                                      plb=plb, project=project)
-    eta_new, t = fullstep_rows(eta, p2, x2, c, k_true=k_true, lb=lb,
-                               project=project, compute_t=compute_t,
+        return eta_new, t, fullstep_p(p2, part, mask, kmask, M=M,
+                                      k_true=k_true, plb=plb,
+                                      project=project)
+    eta_new, t = fullstep_rows(eta, p2, x2, c, None, kmask, k_true=k_true,
+                               lb=lb, project=project, compute_t=compute_t,
                                M=mask.shape[1])
-    p_new = fullstep_cols(eta, p2, x2, miss, mask, k_true=k_true, plb=plb,
-                          project=project)
+    p_new = fullstep_cols(eta, p2, x2, miss, mask, kmask, k_true=k_true,
+                          plb=plb, project=project)
     return eta_new, t, p_new
 
 

@@ -48,9 +48,14 @@ Above 1024 no kernel runs: the model takes the plain step
 
 The wrappers launch the kernels for CUDA tensors and run the plain
 version only for CPU tensors; there is no fallback for CUDA tensors.
-Variants: ``miss``, ``compute_t`` and ``project`` on every route;
-``emit_a``, ``emit_b``, ``a0``, a runtime ``kmask`` and ``project_eta`` on
-the streamed and chunked ones (which return t in float64).  Shapes: eta
+Variants: ``miss``, ``compute_t``, ``project`` and a runtime ``kmask``
+on every route; ``emit_a``, ``emit_b``, ``a0`` and ``project_eta`` on
+the streamed and chunked ones (which return t in float64).  A ``kmask``
+(1.0/0.0 float32) is one [Kp] mask for every chain or a [B, Kp] mask of a
+mixed-K lattice, a row a chain: the eta finish of the pair's rows pass
+and of the finish kernel projects each chain over its row (``kmask_arg``),
+while ``k_true``, the lattice's largest K, still bounds the loops; a
+chain's lanes outside its row hold eta 0 and p0 0 and stay so.  Shapes: eta
 [B, I, Kp] f32 with Kp a multiple of 32 up to 1024, p0 [B, Kp, L] f32,
 x0/x1 [I, L] int8, c [I] f32 missing totals, miss [I, L] int8 or None.
 Pad lanes (k >= k_true) of eta and p0 must be zero and stay zero: the
@@ -65,7 +70,7 @@ import numpy as np
 import torch
 
 from multiclust_tpu_torch.ops import build
-from multiclust_tpu_torch.ops.simplex import project_rows
+from multiclust_tpu_torch.ops.simplex import kmask_lanes, project_rows
 
 Tensor = torch.Tensor
 
@@ -113,8 +118,9 @@ def _denominators(eta: Tensor, p0: Tensor):
 
 
 def fullstep_bi_rows_reference(eta: Tensor, p0: Tensor, x0: Tensor,
-                               x1: Tensor, c: Tensor, *, k_true: int,
-                               lb: float, project: bool,
+                               x1: Tensor, c: Tensor,
+                               kmask: Optional[Tensor] = None, *,
+                               k_true: int, lb: float, project: bool,
                                compute_t: bool = True
                                ) -> Tuple[Tensor, Tensor]:
     """Plain version of the rows pass: (eta' [B, I, Kp], t [B, I])."""
@@ -135,8 +141,9 @@ def fullstep_bi_rows_reference(eta: Tensor, p0: Tensor, x0: Tensor,
     eta_new = torch.where(ok, num / torch.where(ok, tot, torch.ones_like(tot)),
                           eta)
     if project:
-        lanes = torch.arange(eta.shape[-1], device=eta.device) < k_true
-        eta_new = project_rows(eta_new, lanes, lb)
+        eta_new = project_rows(
+            eta_new, lanes_valid(eta.shape[-1], k_true, kmask, eta.device,
+                                  eta.dim()), lb)
     return eta_new, t
 
 
@@ -167,12 +174,13 @@ def fullstep_bi_cols_reference(eta: Tensor, p0: Tensor, x0: Tensor,
 
 
 def admixture_fullstep_biallelic_reference(eta, p0, x0, x1, c, miss=None,
-                                           *, k_true: int, lb: float,
-                                           plb: float, project: bool,
+                                           kmask=None, *, k_true: int,
+                                           lb: float, plb: float,
+                                           project: bool,
                                            compute_t: bool = True):
     """Plain PyTorch version of the whole step: (eta', t, p0')."""
     eta_new, t = fullstep_bi_rows_reference(
-        eta, p0, x0, x1, c, k_true=k_true, lb=lb, project=project,
+        eta, p0, x0, x1, c, kmask, k_true=k_true, lb=lb, project=project,
         compute_t=compute_t)
     p0_new = fullstep_bi_cols_reference(eta, p0, x0, x1, miss, plb=plb,
                                         project=project)
@@ -277,13 +285,31 @@ def _check_cuda_inputs(eta, p0, x0, x1, *extra):
     return B, I, L, Kp
 
 
-def fullstep_bi_rows(eta, p0, x0, x1, c, *, k_true: int, lb: float,
-                     project: bool, compute_t: bool = True):
-    """Rows pass: (eta' [B, I, Kp] in a new buffer, t [B, I])."""
+def kmask_arg(kmask: Optional[Tensor], B: int, Kp: int, device):
+    """(pointer, chain stride) of a runtime lane mask for the kernels:
+    (None, 0) without one, stride 0 for a [Kp] mask every chain shares,
+    Kp for a [B, Kp] mask (a row a chain); contiguous float32 on
+    ``device``."""
+    if kmask is None:
+        return None, 0
+    if (tuple(kmask.shape) not in ((Kp,), (B, Kp))
+            or kmask.dtype != torch.float32 or kmask.device != device
+            or not kmask.is_contiguous()):
+        raise ValueError(f"kmask: contiguous float32 [{Kp}] or [{B}, {Kp}] "
+                         f"on {device} expected, got {kmask.dtype} "
+                         f"{tuple(kmask.shape)} on {kmask.device}")
+    return kmask.data_ptr(), Kp if kmask.dim() == 2 else 0
+
+
+def fullstep_bi_rows(eta, p0, x0, x1, c, kmask=None, *, k_true: int,
+                     lb: float, project: bool, compute_t: bool = True):
+    """Rows pass: (eta' [B, I, Kp] in a new buffer, t [B, I]); eta is
+    projected over the lanes below ``k_true`` or over each chain's row of
+    ``kmask`` ([Kp] or [B, Kp])."""
     if not eta.is_cuda:
         return fullstep_bi_rows_reference(
-            eta, p0, x0, x1, c, k_true=k_true, lb=lb, project=project,
-            compute_t=compute_t)
+            eta, p0, x0, x1, c, kmask, k_true=k_true, lb=lb,
+            project=project, compute_t=compute_t)
     B, I, L, Kp = _check_cuda_inputs(
         eta, p0, x0, x1, ("c", c, torch.float32, (eta.shape[1],)))
     if is_wide(Kp):
@@ -291,13 +317,15 @@ def fullstep_bi_rows(eta, p0, x0, x1, c, *, k_true: int, lb: float,
                          f"{KP_NARROW[-1]}; wider Kp run the streamed step "
                          f"(pick_route, admixture_fullstep_biallelic_"
                          f"streamed)")
+    km, km_stride = kmask_arg(kmask, B, Kp, eta.device)
     eta_new = torch.empty_like(eta)
     t = torch.empty((B, I), dtype=torch.float32, device=eta.device)
     build.launch("mc_fullstep_bi_rows", eta.device,
                  eta.data_ptr(), p0.data_ptr(), x0.data_ptr(),
-                 x1.data_ptr(), c.data_ptr(), eta_new.data_ptr(),
+                 x1.data_ptr(), c.data_ptr(), km, eta_new.data_ptr(),
                  t.data_ptr(), B, I, L, Kp, int(k_true), float(lb),
-                 int(project), int(compute_t))
+                 int(project), int(compute_t), km_stride,
+                 also=("masked_pair_rows",) if km is not None else ())
     return eta_new, t
 
 
@@ -328,16 +356,17 @@ def fullstep_bi_cols(eta, p0, x0, x1, miss=None, *, plb: float,
     return p0_new
 
 
-def admixture_fullstep_biallelic(eta, p0, x0, x1, c, miss=None, *,
-                                 k_true: int, lb: float, plb: float,
+def admixture_fullstep_biallelic(eta, p0, x0, x1, c, miss=None, kmask=None,
+                                 *, k_true: int, lb: float, plb: float,
                                  project: bool, compute_t: bool = True,
                                  n_rseg: int = 0):
     """One biallelic admixture EM step for a chain batch:
     (eta' [B, I, Kp], t [B, I], p0' [B, Kp, L]).  The p0 clip and the eta
-    Michelot share ``project`` (kernels.py:435, :452); ``n_rseg`` as in
-    ``cols_window``."""
-    eta_new, t = fullstep_bi_rows(eta, p0, x0, x1, c, k_true=k_true, lb=lb,
-                                  project=project, compute_t=compute_t)
+    Michelot share ``project`` (kernels.py:435, :452); ``kmask`` as in
+    ``fullstep_bi_rows``, ``n_rseg`` as in ``cols_window``."""
+    eta_new, t = fullstep_bi_rows(eta, p0, x0, x1, c, kmask, k_true=k_true,
+                                  lb=lb, project=project,
+                                  compute_t=compute_t)
     p0_new = fullstep_bi_cols(eta, p0, x0, x1, miss, plb=plb,
                               project=project, k_true=k_true, n_rseg=n_rseg)
     return eta_new, t, p0_new
@@ -644,9 +673,13 @@ def scratch_budget(device) -> int:
     return min(SCRATCH_CAP, free // 8)
 
 
-def _lanes_valid(Kp: int, k_true: int, kmask: Optional[Tensor], device):
+def lanes_valid(Kp: int, k_true: int, kmask: Optional[Tensor], device,
+                 ndim: int = 1):
+    """The lanes a Michelot keeps, shaped for a chain batch of ``ndim``
+    dims whose last is the cluster axis: those below ``k_true``, or each
+    chain's row of ``kmask``."""
     if kmask is not None:
-        return kmask.to(device).reshape(Kp) > 0.5
+        return kmask_lanes(kmask.to(device), ndim)
     return torch.arange(Kp, device=device) < k_true
 
 
@@ -703,8 +736,8 @@ def finish_eta_reference(eta: Tensor, araw: Tensor, c: Tensor, *,
                           eta)
     if project_eta:
         eta_new = project_rows(
-            eta_new, _lanes_valid(eta.shape[-1], k_true, kmask, eta.device),
-            lb)
+            eta_new, lanes_valid(eta.shape[-1], k_true, kmask, eta.device,
+                                  eta.dim()), lb)
     return eta_new
 
 
@@ -849,7 +882,8 @@ def rows_finish(eta, apart, tpart, c, a0=None, kmask=None, *, k_true: int,
     order (t in float64) on top of the ``a0`` seed, then the raw A + r
     (``emit_a``) or eta' with c added, normalized and projected over the
     static ``k_true`` lanes or the runtime ``kmask``.  Returns (eta' or
-    raw A + r, or None when ``apart`` is None; t [B, I] float64).  The
+    raw A + r, or None when ``apart`` is None; t [B, I] float64).
+    ``kmask`` is [Kp] (every chain) or [B, Kp] (a row a chain).  The
     kernel reads the lanes of ``apart`` below the lane tile of ``k_true``
     and, for ``emit_a``, the first lane past it as the value of every pad
     lane: the rows passes write one value a row there (the row's sum of
@@ -868,8 +902,6 @@ def rows_finish(eta, apart, tpart, c, a0=None, kmask=None, *, k_true: int,
         checks.append(("apart", apart, torch.float32, (B, n_seg, I, Kp)))
     if a0 is not None:
         checks.append(("a0", a0, torch.float32, (B, I, Kp)))
-    if kmask is not None:
-        checks.append(("kmask", kmask, torch.float32, (Kp,)))
     for name, t, dt, shape in checks:
         if (t.device != eta.device or t.dtype != dt
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -880,16 +912,31 @@ def rows_finish(eta, apart, tpart, c, a0=None, kmask=None, *, k_true: int,
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must start at a multiple of 16 bytes "
                              f"(the finish stages it by 16-byte copies)")
+    km, km_stride = kmask_arg(kmask, B, Kp, eta.device)
     out = torch.empty_like(eta) if apart is not None else None
     t = torch.empty((B, I), dtype=torch.float64, device=eta.device)
     build.launch("mc_fullstep_bi_finish", eta.device,
                  eta.data_ptr(), build.ptr(apart), tpart.data_ptr(),
-                 build.ptr(a0), c.data_ptr(), build.ptr(kmask),
-                 build.ptr(out), t.data_ptr(), B, I, Kp, n_seg, int(k_true),
-                 float(lb), int(emit_a), int(project_eta), int(compute_t),
-                 also=("wide_finish",) if is_wide(Kp) and out is not None
-                 else ())
+                 build.ptr(a0), c.data_ptr(), km, build.ptr(out),
+                 t.data_ptr(), B, I, Kp, n_seg, int(k_true), float(lb),
+                 int(emit_a), int(project_eta), int(compute_t), km_stride,
+                 also=finish_counts(Kp, out is not None,
+                                    km is not None and project_eta
+                                    and not emit_a))
     return out, t
+
+
+def finish_counts(Kp: int, eta_out: bool, masked: bool) -> Tuple[str, ...]:
+    """The names besides its launcher's that a rows finish launch counts
+    under: the wide finish above 128 lanes, and its masked instance
+    where a kmask projects eta (the t-only finish, ``eta_out`` false,
+    takes neither)."""
+    if not eta_out:
+        return ()
+    wide = is_wide(Kp)
+    return ((("wide_finish",) if wide else ())
+            + ((("masked_wide_finish" if wide else "masked_rows_finish"),)
+               if masked else ()))
 
 
 def _rows_window(eta, p0, x0, x1, c, a0, kmask, *, l_lo: int, l_hi: int,
@@ -1085,8 +1132,9 @@ def admixture_fullstep_biallelic_chunked(eta, p0, x0, x1, c, miss=None,
 
     Returns (eta', t [B, I] float64, p0'); under ``emit_b`` (eta', t, B0,
     B1) with the miss fold in B0/B1; under ``emit_a`` the first output is
-    the raw A + r (c not added).  ``kmask`` [Kp] 1.0/0.0 replaces the
-    static ``k_true`` lane set; ``project_eta`` switches the eta Michelot
+    the raw A + r (c not added).  ``kmask`` (1.0/0.0, [Kp] or [B, Kp] a
+    row a chain) replaces the static ``k_true`` lane set of the eta
+    Michelot; ``project_eta`` switches the eta Michelot
     apart from the p0 clip, which stays governed by ``project``; ``a0``
     seeds the first window; ``n_rseg`` fixes the columns pass's row
     segments (0: chosen to fill the card).  One window over all L is the
@@ -1213,18 +1261,20 @@ def rows_log_likelihood_terms(eta, p0, x0, x1, *, seg_cols=None,
                         compute_a=False)[1]
 
 
-def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None, *,
-                                        route: Route, k_true: int, lb: float,
-                                        plb: float, project: bool,
+def admixture_fullstep_biallelic_routed(eta, p0, x0, x1, c, miss=None,
+                                        kmask=None, *, route: Route,
+                                        k_true: int, lb: float, plb: float,
+                                        project: bool,
                                         compute_t: bool = True):
-    """One step by ``route`` (pick_route): (eta', t, p0')."""
+    """One step by ``route`` (pick_route): (eta', t, p0'); ``kmask`` as
+    in ``fullstep_bi_rows``."""
     if route.name == "pair":
         return admixture_fullstep_biallelic(
-            eta, p0, x0, x1, c, miss, k_true=k_true, lb=lb, plb=plb,
+            eta, p0, x0, x1, c, miss, kmask, k_true=k_true, lb=lb, plb=plb,
             project=project, compute_t=compute_t, n_rseg=route.n_rseg)
     if route.name not in ("streamed", "chunked"):
         raise ValueError(f"unknown route {route.name!r}")
     return admixture_fullstep_biallelic_chunked(
-        eta, p0, x0, x1, c, miss, window=route.window,
+        eta, p0, x0, x1, c, miss, kmask, window=route.window,
         seg_cols=route.seg_cols, k_true=k_true, lb=lb, plb=plb,
         project=project, compute_t=compute_t, n_rseg=route.n_rseg)

@@ -35,7 +35,13 @@ JAX package runs XLA).  Shapes: a chain batch B leads.  lp0/lp1 [B, Kp, L]
 f32 with Kp a multiple of 32 up to 1024, bias [B, Kp] f32 (K-pad lanes
 -1e30, their lp 0), x0/x1 [I, L] int8.
 One-stream calls (x1 None) fold x1 = ploidy - x0 (lp0 = log p0 - log p1);
-two-stream calls carry missing data.
+two-stream calls carry missing data.  A runtime ``kmask`` (1.0/0.0
+float32, one [Kp] mask or a [B, Kp] mask of a mixed-K lattice, a row a
+chain; ``fullstep_bi.kmask_arg``) keeps each chain to its lanes: the rows
+pass gives the others v = 0 and leaves them out of the logsumexp (the JAX
+step's ``_mask_scores``), the eta finish normalizes over and projects onto
+the chain's lanes; ``k_true``, the lattice's largest K, still bounds the
+loops.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ import torch
 from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import ptr as _ptr
 from multiclust_tpu_torch.ops.fullstep_bi import GRID_YZ_MAX, KP_MAX, \
-    KP_NARROW, device_sm_count, p0_clip_bounds
-from multiclust_tpu_torch.ops.simplex import project_rows
+    KP_NARROW, device_sm_count, kmask_arg, lanes_valid, p0_clip_bounds
+from multiclust_tpu_torch.ops.simplex import kmask_lanes, project_rows
 
 Tensor = torch.Tensor
 
@@ -139,17 +145,23 @@ def _streams(x0: Tensor, x1: Optional[Tensor]):
 
 def mixture_rows_reference(lp0: Tensor, x0: Tensor, bias: Tensor,
                            lp1: Optional[Tensor] = None,
-                           x1: Optional[Tensor] = None
+                           x1: Optional[Tensor] = None,
+                           kmask: Optional[Tensor] = None
                            ) -> Tuple[Tensor, Tensor]:
     """Plain version of the rows pass: (v [B, I, Kp], t [B, I]).  The
     scores and the softmax run in float64 whatever the input dtype: at L
     in the thousands |s| ~ 10^3, and float32 rounding of s alone would move
-    v by more than the kernel's 1e-4 tolerance."""
+    v by more than the kernel's 1e-4 tolerance.  Lanes outside a chain's
+    ``kmask`` score -inf."""
     dtype, f64 = lp0.dtype, torch.float64
     s = x0.to(f64) @ lp0.to(f64).transpose(-1, -2)    # [B, I, Kp]
     if lp1 is not None:
         s = s + x1.to(f64) @ lp1.to(f64).transpose(-1, -2)
     s = s + bias.to(f64)[:, None, :]
+    if kmask is not None:
+        s = torch.where(kmask_lanes(kmask, 3), s,
+                        torch.full((), -torch.inf, dtype=f64,
+                                   device=s.device))
     m = s.max(dim=-1, keepdim=True).values
     e = torch.exp(s - m)
     tot = e.sum(dim=-1, keepdim=True)
@@ -169,14 +181,18 @@ def mixture_cols_reference(v: Tensor, x0: Tensor,
     return part[:, None], v.sum(dim=1)[:, None]
 
 
-def mixture_eta_reference(vpart: Tensor, *, k_true: int, lb: float,
+def mixture_eta_reference(vpart: Tensor, kmask: Optional[Tensor] = None,
+                          *, k_true: int, lb: float,
                           project: bool) -> Tensor:
     """Plain version of the eta finish (``_finish_eta``, mixture.py:106):
-    eta' [B, Kp] from the v sums [B, S, Kp]."""
+    eta' [B, Kp] from the v sums [B, S, Kp], over each chain's ``kmask``
+    lanes where one is given."""
     vtot = vpart.sum(dim=1)
+    lanes = lanes_valid(vtot.shape[-1], k_true, kmask, vtot.device, 2)
+    if kmask is not None:
+        vtot = torch.where(lanes, vtot, torch.zeros_like(vtot))
     eta = vtot / vtot.sum(dim=-1, keepdim=True)
     if project:
-        lanes = torch.arange(eta.shape[-1], device=eta.device) < k_true
         eta = project_rows(eta, lanes, lb)
     return eta
 
@@ -216,14 +232,15 @@ def params_layout(eta: Tensor, p0: Tensor, k_true: int
             torch.stack([p0, 1.0 - p0], dim=-1))
 
 
-def mixture_finish_reference(part: Tensor, vpart: Tensor, *, k_true: int,
+def mixture_finish_reference(part: Tensor, vpart: Tensor,
+                             kmask: Optional[Tensor] = None, *, k_true: int,
                              lb: float, plb: float, ploidy: int,
                              project: bool, params: bool = False):
     """Plain version of the finish, the eta finish and the p0 epilogue in
     turn: (eta' [B, Kp], vtot [B, Kp], p0' [B, Kp, L]) from the partials
     [B, S, 1|2, Kp, L] and the v sums [B, S, Kp], or under ``params``
     the model's (eta [B, K], p [B, K, L, 2]) (``params_layout``)."""
-    eta = mixture_eta_reference(vpart, k_true=k_true, lb=lb,
+    eta = mixture_eta_reference(vpart, kmask, k_true=k_true, lb=lb,
                                 project=project)
     vtot = vpart.sum(dim=1)
     p0 = mixture_p_reference(part, vtot, plb=plb, ploidy=ploidy,
@@ -232,15 +249,15 @@ def mixture_finish_reference(part: Tensor, vpart: Tensor, *, k_true: int,
 
 
 def mixture_fullstep_biallelic_reference(lp0, x0, bias, lp1=None, x1=None,
-                                         *, k_true: int, lb: float,
-                                         plb: float, ploidy: int,
+                                         kmask=None, *, k_true: int,
+                                         lb: float, plb: float, ploidy: int,
                                          project: bool):
     """Plain PyTorch version of the whole step: (eta' [B, Kp], t [B, I],
     p0' [B, Kp, L])."""
-    v, t = mixture_rows_reference(lp0, x0, bias, lp1, x1)
+    v, t = mixture_rows_reference(lp0, x0, bias, lp1, x1, kmask)
     part, vpart = mixture_cols_reference(v, x0, x1)
-    eta, _, p0 = mixture_finish_reference(part, vpart, k_true=k_true, lb=lb,
-                                          plb=plb, ploidy=ploidy,
+    eta, _, p0 = mixture_finish_reference(part, vpart, kmask, k_true=k_true,
+                                          lb=lb, plb=plb, ploidy=ploidy,
                                           project=project)
     return eta, t, p0
 
@@ -265,11 +282,13 @@ def _check(name: str, t: Tensor, dev, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def mixture_rows(lp0, x0, bias, lp1=None, x1=None, *, k_true: int = 0):
+def mixture_rows(lp0, x0, bias, lp1=None, x1=None, kmask=None, *,
+                 k_true: int = 0):
     """Rows pass: (v [B, I, Kp], t [B, I]); the kernels compute the lanes
-    below ``k_true`` (0: all Kp) and write v = 0 past it."""
+    below ``k_true`` (0: all Kp) and write v = 0 past it and outside a
+    chain's ``kmask`` row."""
     if not lp0.is_cuda:
-        return mixture_rows_reference(lp0, x0, bias, lp1, x1)
+        return mixture_rows_reference(lp0, x0, bias, lp1, x1, kmask)
     if (lp1 is None) != (x1 is None):
         raise ValueError("lp1 and x1 come together (two-stream variant)")
     B, Kp, L = lp0.shape
@@ -282,15 +301,19 @@ def mixture_rows(lp0, x0, bias, lp1=None, x1=None, *, k_true: int = 0):
     if lp1 is not None:
         _check("lp1", lp1, dev, torch.float32, (B, Kp, L))
         _check("x1", x1, dev, torch.int8, (I, L))
+    km, km_stride = kmask_arg(kmask, B, Kp, dev)
     v = torch.empty((B, I, Kp), dtype=torch.float32, device=dev)
     t = torch.empty((B, I), dtype=torch.float32, device=dev)
     # the wide pass's float64 scores, between its two launches
     s = (torch.empty((B, I, Kp), dtype=torch.float64, device=dev)
          if is_wide(Kp) else None)
+    also = ("wide_mix_rows",) if is_wide(Kp) else ()
+    if km is not None:
+        also += ("masked_mix_softmax" if is_wide(Kp) else "masked_mix_rows",)
     build.launch("mc_mix_rows", dev, lp0.data_ptr(), _ptr(lp1),
-                 x0.data_ptr(), _ptr(x1), bias.data_ptr(), v.data_ptr(),
-                 t.data_ptr(), _ptr(s), B, I, L, Kp, int(k_true),
-                 also=("wide_mix_rows",) if is_wide(Kp) else ())
+                 x0.data_ptr(), _ptr(x1), bias.data_ptr(), km, v.data_ptr(),
+                 t.data_ptr(), _ptr(s), B, I, L, Kp, int(k_true), km_stride,
+                 also=also)
     return v, t
 
 
@@ -326,25 +349,29 @@ def mixture_partials(v, x0, x1=None, *, k_true: int = 0):
     return part, vpart
 
 
-def _launch_finish(part, vpart, *, vtot=None, eta=None, out0=None,
-                   out1=None, k_true=0, lb=0.0, plb=0.0, ploidy=0,
+def _launch_finish(part, vpart, kmask=None, *, vtot=None, eta=None,
+                   out0=None, out1=None, k_true=0, lb=0.0, plb=0.0, ploidy=0,
                    project=False, finish=True, params=False) -> None:
     """One launch of the finish (``mc_mix_finish``): the eta half where
-    ``eta`` is given, the p half where ``out0`` is; shapes checked by the
-    callers."""
+    ``eta`` is given (over each chain's ``kmask`` lanes where one is), the
+    p half where ``out0`` is; shapes checked by the callers."""
     src = part if part is not None else vpart
     Kp = src.shape[-2] if part is not None else src.shape[-1]
     n_seg, two = ((part.shape[1], int(part.shape[2] == 2))
                   if part is not None else (0, 0))
     L = part.shape[-1] if part is not None else 0
     lo, hi = p0_clip_bounds(plb)
-    build.launch("mc_mix_finish", src.device, _ptr(part), _ptr(vpart),
+    km, km_stride = kmask_arg(kmask if eta is not None else None,
+                              src.shape[0], Kp, src.device)
+    also = ("wide_mix_finish",) if is_wide(Kp) else ()
+    if km is not None:
+        also += ("masked_mix_finish",)
+    build.launch("mc_mix_finish", src.device, _ptr(part), _ptr(vpart), km,
                  _ptr(vtot), _ptr(eta), _ptr(out0), _ptr(out1),
                  src.shape[0], Kp, L, n_seg,
                  vpart.shape[1] if vpart is not None else 0, two,
                  int(k_true), float(lb), lo, hi, float(ploidy), int(project),
-                 int(finish), int(params),
-                 also=("wide_mix_finish",) if is_wide(Kp) else ())
+                 int(finish), int(params), km_stride, also=also)
 
 
 def _check_part(part: Tensor):
@@ -357,16 +384,19 @@ def _check_part(part: Tensor):
     return B, n_seg, ns, Kp, L
 
 
-def mixture_finish(part, vpart, *, k_true: int, lb: float, plb: float,
-                   ploidy: int, project: bool, params: bool = False):
+def mixture_finish(part, vpart, kmask=None, *, k_true: int, lb: float,
+                   plb: float, ploidy: int, project: bool,
+                   params: bool = False):
     """The finish, one launch: (eta' [B, Kp], vtot [B, Kp], p0' [B, Kp,
     L]) from the columns pass's partials [B, S, 1|2, Kp, L] and v sums
     [B, S, Kp]; under ``params`` the model's (eta [B, K], p [B, K, L, 2]
     = (p0', 1 - p0')) for K = ``k_true`` in [1, Kp], written by the
-    kernel.  The eta Michelot and the p0 clip share ``project``."""
+    kernel.  The eta Michelot and the p0 clip share ``project``; eta keeps
+    to each chain's ``kmask`` lanes ([Kp] or [B, Kp]) where one is
+    given."""
     if not part.is_cuda:
-        return mixture_finish_reference(part, vpart, k_true=k_true, lb=lb,
-                                        plb=plb, ploidy=ploidy,
+        return mixture_finish_reference(part, vpart, kmask, k_true=k_true,
+                                        lb=lb, plb=plb, ploidy=ploidy,
                                         project=project, params=params)
     B, n_seg, _, Kp, L = _check_part(part)
     dev = part.device
@@ -378,26 +408,28 @@ def mixture_finish(part, vpart, *, k_true: int, lb: float, plb: float,
                              f"to Kp={Kp} clusters")
         eta = torch.empty((B, k_true), dtype=torch.float32, device=dev)
         p = torch.empty((B, k_true, L, 2), dtype=torch.float32, device=dev)
-        _launch_finish(part, vpart, eta=eta, out0=p, params=True, **kw)
+        _launch_finish(part, vpart, kmask, eta=eta, out0=p, params=True,
+                       **kw)
         return eta, p
     eta = torch.empty((B, Kp), dtype=torch.float32, device=dev)
     vtot = torch.empty_like(eta)
     p0 = torch.empty((B, Kp, L), dtype=torch.float32, device=dev)
-    _launch_finish(part, vpart, vtot=vtot, eta=eta, out0=p0, **kw)
+    _launch_finish(part, vpart, kmask, vtot=vtot, eta=eta, out0=p0, **kw)
     return eta, vtot, p0
 
 
-def mixture_eta(vpart, *, k_true: int, lb: float, project: bool):
+def mixture_eta(vpart, kmask=None, *, k_true: int, lb: float,
+                project: bool):
     """Eta finish: eta' [B, Kp] from the v sums [B, S, Kp]; the finish's
-    eta half alone."""
+    eta half alone (``kmask`` as in ``mixture_finish``)."""
     if not vpart.is_cuda:
-        return mixture_eta_reference(vpart, k_true=k_true, lb=lb,
+        return mixture_eta_reference(vpart, kmask, k_true=k_true, lb=lb,
                                      project=project)
     B, n_seg, Kp = vpart.shape
     check_kp(Kp)
     _check("vpart", vpart, vpart.device, torch.float32, (B, n_seg, Kp))
     eta = torch.empty((B, Kp), dtype=torch.float32, device=vpart.device)
-    _launch_finish(None, vpart, eta=eta, k_true=k_true, lb=lb,
+    _launch_finish(None, vpart, kmask, eta=eta, k_true=k_true, lb=lb,
                    project=project)
     return eta
 
@@ -415,17 +447,17 @@ def mixture_b(part):
     return out0, out1
 
 
-def mixture_fullstep_biallelic(lp0, x0, bias, lp1=None, x1=None, *,
-                               k_true: int, lb: float, plb: float,
-                               ploidy: int, project: bool):
+def mixture_fullstep_biallelic(lp0, x0, bias, lp1=None, x1=None,
+                               kmask=None, *, k_true: int, lb: float,
+                               plb: float, ploidy: int, project: bool):
     """One biallelic mixture EM step for a chain batch: (eta' [B, Kp],
     t [B, I], p0' [B, Kp, L]), three launches (rows, columns, finish).
     The eta Michelot and the p0 clip share ``project``
-    (cfg.do_projection)."""
-    v, t = mixture_rows(lp0, x0, bias, lp1, x1, k_true=k_true)
+    (cfg.do_projection); ``kmask`` as in ``mixture_rows``."""
+    v, t = mixture_rows(lp0, x0, bias, lp1, x1, kmask, k_true=k_true)
     part, vpart = mixture_partials(v, x0, x1, k_true=k_true)
-    eta, _, p0 = mixture_finish(part, vpart, k_true=k_true, lb=lb, plb=plb,
-                                ploidy=ploidy, project=project)
+    eta, _, p0 = mixture_finish(part, vpart, kmask, k_true=k_true, lb=lb,
+                                plb=plb, ploidy=ploidy, project=project)
     return eta, t, p0
 
 

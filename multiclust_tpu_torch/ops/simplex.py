@@ -49,6 +49,20 @@ def project_rows(v: Tensor, mask: Tensor, lower_bound: float,
     return torch.where(mask, w, zero)
 
 
+def kmask_lanes(kmask: Tensor, ndim: int, axis: int = -1) -> Tensor:
+    """The true lanes of a runtime lane mask (``Params.kmask``: 1.0/0.0,
+    [Kp] for every chain or [B, Kp] a chain each) as bools shaped to
+    broadcast against a chain batch of ``ndim`` dims whose cluster axis
+    is ``axis`` (its leading dim the chain, for a [B, Kp] mask)."""
+    valid = kmask > 0.5
+    axis %= ndim
+    tail = (1,) * (ndim - axis - 1)
+    if valid.dim() == 2:
+        return valid.reshape(valid.shape[:1] + (1,) * (axis - 1)
+                             + valid.shape[1:] + tail)
+    return valid.reshape(valid.shape + tail)
+
+
 def michelot_reference(params, lower_bound: float, total: float = 1.0):
     """Direct numpy port of michelot_project (simplex.c:109-143): a test
     oracle for project_rows, not used in the compute path."""

@@ -22,6 +22,11 @@ lanes on that replicate's counts.  So does a jagged panel's bucketed layout
 (model/bucketed.py): every helper below recurses into the tuple of
 per-bucket p, and the model steps dispatch on BucketedData.
 
+The chains of a mixed-K lattice carry ``Params.kmask``: the tree helpers
+carry it like any leaf (a secant difference of it is 0), the accelerated
+points keep their base point's mask as it is, and the projection of a
+trial point keeps each chain to its lanes (multiclust_tpu/opt/em.py:395).
+
 Under a mesh (cfg.mesh, runtime/mesh.py) the state holds this rank's block:
 eta by rows, p by loci.  The model steps and logL return global values, so
 every decision taken from them (convergence, stops, the adaptive interval,
@@ -45,7 +50,7 @@ from multiclust_tpu_torch.model.bucketed import BucketedData
 from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
     ModelData, Params, is_bi_repr, map_params, param_leaves
 from multiclust_tpu_torch.ops.fullstep_bi import p0_clip_bounds
-from multiclust_tpu_torch.ops.simplex import project_rows
+from multiclust_tpu_torch.ops.simplex import kmask_lanes, project_rows
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     any_over_world
 
@@ -422,45 +427,61 @@ def step_size(scheme: int, u: Params, v: Params,
     return s
 
 
+def _point(fn, x0: Params, *deltas: Params) -> Params:
+    """An accelerated point ``fn`` of the base ``x0`` and its secant
+    increments, leaf by leaf, with the base's kmask as it is (its
+    increments are 0, but a non-finite step size would spoil it)."""
+    return map_params(fn, x0._replace(kmask=None),
+                      *(d._replace(kmask=None) for d in deltas)
+                      )._replace(kmask=x0.kmask)
+
+
 def squarem_point(x0: Params, u: Params, v: Params, s: Tensor) -> Params:
     """x' = x0 - 2 s u + s^2 (v - u)   (accelerated_update,
     accel_em.c:460-466)."""
     def pt(x, uu, vv):
         sb = _lanes(s, x)
         return x - 2.0 * sb * uu + sb * sb * (vv - uu)
-    return map_params(pt, x0, u, v)
+    return _point(pt, x0, u, v)
 
 
 def qn1_point(x0: Params, u: Params, v: Params, s: Tensor) -> Params:
     """x' = x0 + u + s v   (accelerated_update QN branch,
     accel_em.c:449-454)."""
-    return map_params(lambda x, uu, vv: x + uu + _lanes(s, x) * vv,
-                      x0, u, v)
+    return _point(lambda x, uu, vv: x + uu + _lanes(s, x) * vv, x0, u, v)
 
 
 def _project_params(params: Params, md: ModelData, cfg: EMConfig
                     ) -> Params:
     if not cfg.do_projection:
         return params
-    eta = admixture._project_eta_rows(params.eta, cfg)
+    kmask = params.kmask
+    eta = admixture._project_eta_rows(params.eta, cfg, kmask)
     if isinstance(params.p, tuple):
         # bucketed p: each bucket projected with its own mask
         # (multiclust_tpu/opt/em.py:396-408)
         bd = md.reps[0] if isinstance(md, Lattice) else md
         return Params(eta=eta, p=tuple(
-            _project_p(pb, md_b.mask, cfg)
-            for md_b, pb in zip(bd.buckets, params.p)))
+            _project_p(pb, md_b.mask, cfg, kmask)
+            for md_b, pb in zip(bd.buckets, params.p)), kmask=kmask)
     if cfg.bi_repr_active and is_bi_repr(params):
         # p0 layout: the closed 2-simplex projection of (p0, 1 - p0) is a
-        # clip, with the kernel's bounds
+        # clip, with the kernel's bounds; pad lanes it lifts are inert
+        # (their eta is 0) and the next step's p0 update zeroes them
         lo, hi = p0_clip_bounds(cfg.p_lower_bound, params.p.dtype)
-        return Params(eta=eta, p=torch.clamp(params.p, lo, hi))
-    return Params(eta=eta, p=_project_p(params.p, md.mask, cfg))
+        return Params(eta=eta, p=torch.clamp(params.p, lo, hi), kmask=kmask)
+    return Params(eta=eta, p=_project_p(params.p, md.mask, cfg, kmask),
+                  kmask=kmask)
 
 
-def _project_p(p: Tensor, mask: Tensor, cfg: EMConfig) -> Tensor:
-    """Full-layout p projected on ``mask``, K-pad rows kept zero."""
+def _project_p(p: Tensor, mask: Tensor, cfg: EMConfig,
+               kmask: Optional[Tensor] = None) -> Tensor:
+    """Full-layout p projected on ``mask``, K-pad rows (or the rows
+    outside each chain's ``kmask``) kept zero."""
     p = project_rows(p, mask, cfg.p_lower_bound)
+    if kmask is not None:
+        return torch.where(kmask_lanes(kmask, p.dim(), -3), p,
+                           torch.zeros_like(p))
     kv = admixture._k_valid(cfg, p.shape[-3], p.device)
     if kv is not None:
         p = torch.where(kv[:, None, None], p, torch.zeros_like(p))
@@ -498,7 +519,7 @@ def qn_point(x0: Params, ring: AccelRing, cfg: EMConfig) -> Params:
     def upd(x, ua, vv):
         return x + ua + torch.einsum("bq,bqn->bn", y,
                                      flat(vv)).reshape(x.shape)
-    return map_params(upd, x0, u_add, ring.v)
+    return _point(upd, x0, u_add, ring.v)
 
 
 def accel_macro_step(state: EMState, md: ModelData,

@@ -1,16 +1,45 @@
 """K-sweep and model selection (multiclust_tpu/runtime/ksweep.py;
 estimate_model, multiclust.c:365-452).
 
-Fits K = min_K..max_K one after another (or only H0 and Ha when
-bootstrapping: null_K = max_K - 1, alt_K = max_K, synchronize
-multiclust.c:874-877), each K with its own static ``k_true`` and its own
-generator stream, tracks the AIC/BIC argmin, and records the
+Fits K = min_K..max_K (or only H0 and Ha when bootstrapping: null_K =
+max_K - 1, alt_K = max_K, synchronize multiclust.c:874-877), each K with
+its own generator stream, tracks the AIC/BIC argmin, and records the
 likelihood-ratio test statistic of the bootstrap.
+
+``MULTICLUST_SWEEP_MODE`` picks how the K >= 2 fits run, with the JAX
+package's values (ksweep.py:83-106):
+
+* ``auto`` (the default) and ``static``: one K after another, each with
+  its own static ``k_true`` (the reference's loop);
+* ``shared``: the same serial loop, every K's chains padded to the lanes
+  of the sweep's largest K and carrying their true lanes as
+  ``Params.kmask`` (``maximize_likelihood(..., shared_k=)``), where every
+  K >= 2 pads to one 32-lane count;
+* ``merged``: every K's chains at once, in one mixed-K lattice
+  (``swept_maximize``), where ``swept_eligible`` admits it; else as
+  ``shared``.
+
+Both need a fit with no warm start and no checkpoint, on a CUDA device (as
+the JAX package needs an accelerator); K = 1 stays on its single-start
+path.  Each K keeps its stream, chain batch and bookkeeping, so every mode
+fits the same chains and gives the same per-K results up to rounding.
+
+``auto`` is the serial loop here, where the JAX package's ``auto`` is
+``shared`` on an accelerator.  Its reason there is one compiled program
+for every K, the kernels taking K as a static argument; the port's
+kernels take K at run time and compile nothing per K, and they stop their
+lanes at K, which a shared layout sets to the sweep's largest K for every
+chain.  On the CPU the JAX ``auto`` is the serial loop too.  ``merged``
+is the one way a K-sweep puts several K's chains on the card at once; it
+pays when the K's chains run about as long, and otherwise every K waits
+for the slowest (the JAX package measured 34 s against 9 s on a mixture
+sweep).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -18,9 +47,12 @@ import numpy as np
 import torch
 
 from multiclust_tpu_torch.config import Options
-from multiclust_tpu_torch.model.common import ModelData, Params
+from multiclust_tpu_torch.model.common import ModelData, Params, \
+    k_padded_size
 from multiclust_tpu_torch.runtime.multistart import MaximizeResult, \
-    maximize_likelihood
+    maximize_likelihood, sweep_device, swept_eligible, swept_maximize
+
+SWEEP_MODES = ("auto", "static", "shared", "merged")
 
 
 @dataclasses.dataclass
@@ -40,6 +72,16 @@ class EstimateResult:
         return self.per_K[max(self.per_K)]
 
 
+def sweep_mode() -> str:
+    """``MULTICLUST_SWEEP_MODE`` (default ``auto``); ValueError for a value
+    outside SWEEP_MODES."""
+    mode = os.environ.get("MULTICLUST_SWEEP_MODE", "auto")
+    if mode not in SWEEP_MODES:
+        raise ValueError(f"MULTICLUST_SWEEP_MODE={mode!r}: one of "
+                         f"{', '.join(SWEEP_MODES)}")
+    return mode
+
+
 def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
                    codes=None, warm=None, true_partition=None,
                    bootstrap: bool = False, on_model_done=None,
@@ -49,7 +91,8 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
     ``on_model_done(K, res)`` when K is finished.  ``bootstrap`` marks a
     replicate fit: no ``on_improve`` and no per-init progress lines, as
     in the reference (:584 ``!bootstrap``).  ``checkpoint_dir`` persists
-    and resumes each K (runtime/checkpoint.py)."""
+    and resumes each K (runtime/checkpoint.py).  The sweep mode is read
+    from the environment (``sweep_mode``)."""
     t0 = time.time()
     if opt.n_bootstrap:
         ks = [opt.max_K - 1, opt.max_K]
@@ -57,17 +100,37 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
         ks = list(range(opt.min_K, opt.max_K + 1))
     # one generator stream per K, as the JAX package splits one key per K
     seeds = np.random.SeedSequence(seed).generate_state(len(ks))
+    gens = {K: torch.Generator(device=md.device).manual_seed(int(s))
+            for K, s in zip(ks, seeds)}
+    mode = sweep_mode()
+    eligible = warm is None and checkpoint_dir is None and mode not in (
+        "auto", "static")
+    k2 = [K for K in ks if K >= 2]
+    swept: Dict[int, MaximizeResult] = {}
+    shared_k = 0
+    if eligible and mode == "merged" and swept_eligible(opt, md, ks):
+        swept = swept_maximize(
+            [(K, gens[K]) for K in k2], md, opt, n_parameters_fn,
+            codes=codes, true_partition=true_partition,
+            on_improve=on_improve if not bootstrap else None,
+            quiet=bootstrap)
+    elif (eligible and sweep_device(md) and opt.verbosity <= 3
+          and len(k2) > 1
+          and k_padded_size(min(k2), 32) == k_padded_size(max(k2), 32)):
+        shared_k = max(k2)
     per_K: Dict[int, MaximizeResult] = {}
     min_aic = min_bic = float("inf")
     aic_K = bic_K = ks[0]
-    for K, s in zip(ks, seeds):
-        gen = torch.Generator(device=md.device).manual_seed(int(s))
-        res = maximize_likelihood(
-            gen, md, K, opt, n_parameters_fn(K), codes=codes, warm=warm,
-            true_partition=true_partition, checkpoint_dir=checkpoint_dir,
-            on_improve=((lambda r, K=K: on_improve(K, r))
-                        if on_improve and not bootstrap else None),
-            quiet=bootstrap)
+    for K in ks:
+        res = swept.get(K)
+        if res is None:
+            res = maximize_likelihood(
+                gens[K], md, K, opt, n_parameters_fn(K), codes=codes,
+                warm=warm, true_partition=true_partition,
+                checkpoint_dir=checkpoint_dir,
+                on_improve=((lambda r, K=K: on_improve(K, r))
+                            if on_improve and not bootstrap else None),
+                quiet=bootstrap, shared_k=shared_k if K >= 2 else 0)
         per_K[K] = res
         if res.aic < min_aic:
             min_aic, aic_K = res.aic, K

@@ -31,6 +31,15 @@ read from each card's free memory, take the least over the ranks.  Jagged
 buckets compose with data-axis meshes only; a loci-split mesh keeps the
 dense layout, as the JAX package's ``_prepare_fit_data`` decides
 (multistart.py:729-736).
+
+A K-sweep may run its K's chains on one shared lane layout, each chain
+carrying its true lanes as ``Params.kmask`` (runtime/ksweep.py): the
+serial loop of ``maximize_likelihood(..., shared_k=)`` per K, or every K
+at once in one lattice (``swept_maximize``, the JAX package's
+multistart.py:952-1093).  The config is the sweep's largest K's, the
+chains are padded to its lanes (``lattice_lanes``), and each K keeps the
+generator stream, chain batch, refill schedule and completion-order
+bookkeeping of its own serial loop, so the same chains are fitted.
 """
 
 from __future__ import annotations
@@ -136,13 +145,26 @@ def mesh_shape_of(opt: Options):
     return None if (D, M) == (1, 1) else (D, M)
 
 
+def lattice_lanes(K: int, cfg: EMConfig) -> int:
+    """Lanes of a chain of K clusters: K padded to 32 where the admixture
+    kernels run (``_pad_k``), else K.  With the config of a K-sweep's
+    largest K, the lanes every chain of its lattice shares."""
+    if (cfg.use_pallas != "off" and cfg.admixture
+            and not cfg.eta_constrained and cfg.k_true):
+        return k_padded_size(K, 32)
+    return K
+
+
 def _pad_k(params: Params, cfg: EMConfig) -> Params:
     """K-pad admixture params to the kernel's 32-lane layout (pads zero);
     no-op for the plain path."""
-    if (cfg.use_pallas != "off" and cfg.admixture
-            and not cfg.eta_constrained and cfg.k_true):
-        return pad_params_k(params, k_padded_size(cfg.k_true, 32))
-    return params
+    return pad_params_k(params, lattice_lanes(cfg.k_true, cfg))
+
+
+def static_cfg(cfg: EMConfig, K: int) -> EMConfig:
+    """The config a K-cluster fit of its own runs under, from a shared
+    lattice's (only k_true differs)."""
+    return cfg._replace(k_true=K) if cfg.k_true else cfg
 
 
 def _to_bi_repr(params: Params, cfg: EMConfig) -> Params:
@@ -150,8 +172,8 @@ def _to_bi_repr(params: Params, cfg: EMConfig) -> Params:
     (model/common.EMConfig.bi_repr_active); no-op when inactive."""
     if not cfg.bi_repr_active or is_bi_repr(params):
         return params
-    return Params(eta=params.eta.contiguous(),
-                  p=params.p[..., 0].contiguous())
+    return params._replace(eta=params.eta.contiguous(),
+                           p=params.p[..., 0].contiguous())
 
 
 def _to_fit_layout(params: Params, md, cfg: EMConfig) -> Params:
@@ -179,30 +201,36 @@ def _per_individual(cfg: EMConfig) -> bool:
 
 
 def lane_params(params_b: Params, lane: int, cfg: EMConfig,
-                md_fit) -> Params:
+                md_fit, k_lane: int = 0) -> Params:
     """Dense K-sized full-layout params of one lane of a chain batch in
     the fit layout; under a mesh its eta rows and p loci gathered to every
-    rank first."""
-    params = map_params(lambda t: t[lane], params_b)
+    rank first.  ``k_lane``: the lane's own K in a shared layout."""
+    params = map_params(lambda t: t[lane], params_b._replace(kmask=None))
     if cfg.mesh is not None:
         bd = md_fit.reps[0] if isinstance(md_fit, Lattice) else md_fit
         params = mesh_mod.gather_params(params, cfg.mesh, bd.I_total,
                                         bd.L_total, _per_individual(cfg))
-    return _unpad_k(params, cfg, md_fit)
+    return _unpad_k(params, cfg, md_fit, k_lane)
 
 
-def _unpad_k(params: Params, cfg: EMConfig, md_fit=None) -> Params:
+def _unpad_k(params: Params, cfg: EMConfig, md_fit=None,
+             k_lane: int = 0) -> Params:
     """Back to dense K-sized full-layout params in original locus order
-    (harvest time only); bucketed p is merged by ``md_fit``'s plan."""
+    (harvest time only), with no kmask; bucketed p is merged by
+    ``md_fit``'s plan.  ``k_lane`` (0: cfg.k_true) is the chain's own K
+    where chains of several K share a layout, a fact of the host
+    (the JAX package's ``_unpad_k(k_lane=)``, multistart.py:126-156)."""
+    params = params._replace(kmask=None)
+    kt_cfg = k_lane or cfg.k_true
     if isinstance(params.p, tuple):
         params = merge_params_like(params, md_fit)
     if cfg.bi_repr_active and is_bi_repr(params):
-        kt = cfg.k_true or params.p.shape[-2]
+        kt = kt_cfg or params.p.shape[-2]
         p0 = params.p[..., :kt, :]
         params = Params(eta=params.eta[..., :kt],
                         p=torch.stack([p0, 1.0 - p0], dim=-1))
-    if cfg.k_true and params.p.shape[-3] != cfg.k_true:
-        params = unpad_params_k(params, cfg.k_true)
+    if kt_cfg and params.p.shape[-3] != kt_cfg:
+        params = unpad_params_k(params, kt_cfg)
     return params
 
 
@@ -306,15 +334,19 @@ def _host_converged(opt: Options, a: float, b: float) -> bool:
 
 def _draw_init_batch(gen: torch.Generator, n: int, md: ModelData, K: int,
                      cfg: EMConfig, opt: Options, codes,
-                     md_score: Optional[ModelData] = None) -> Params:
-    starts = [rinit.initialize(gen, md, K, cfg,
-                               method=opt.initialization_method,
-                               procedure=opt.initialization_procedure,
-                               n_rand_em_init=opt.n_rand_em_init,
-                               codes=codes, md_score=md_score)
+                     md_score: Optional[ModelData] = None,
+                     width: int = 0) -> Params:
+    """n starts of K clusters from ``gen``, stacked; ``width`` > 0: the
+    dynamic-K starts of a lattice of that many lanes, whose shared config
+    is ``cfg`` (``_draw_init_batch_dyn``, multistart.py:352-358)."""
+    kw = dict(method=opt.initialization_method,
+              procedure=opt.initialization_procedure,
+              n_rand_em_init=opt.n_rand_em_init, codes=codes,
+              md_score=md_score)
+    starts = [rinit.initialize_dyn(gen, md, K, width, cfg, **kw) if width
+              else rinit.initialize(gen, md, K, cfg, **kw)
               for _ in range(n)]
-    return Params(eta=torch.stack([s.eta for s in starts]),
-                  p=torch.stack([s.p for s in starts]))
+    return map_params(lambda *t: torch.stack(t), *starts)
 
 
 def _make_state(params_b: Params, md: ModelData, cfg: EMConfig
@@ -432,13 +464,14 @@ def _bookkeep_lane(res: MaximizeResult, opt: Options, n_parameters: int,
 
 
 def _harvest(state: em_mod.EMState, cfg: EMConfig, md_fit):
-    """Host copies of the per-lane results and a lane -> params getter
-    (dense params: bucketed p merged by ``md_fit``'s plan)."""
+    """Host copies of the per-lane results and a (lane, its K in a shared
+    layout, or 0) -> params getter (dense params: bucketed p merged by
+    ``md_fit``'s plan)."""
     host = {f: getattr(state, f).cpu().numpy()
             for f in ("logL", "converged", "n_iter", "failed", "mono_viol")}
 
-    def get(lane):
-        return lane_params(state.params, lane, cfg, md_fit)
+    def get(lane, k_lane=0):
+        return lane_params(state.params, lane, cfg, md_fit, k_lane)
     return host, get
 
 
@@ -475,28 +508,40 @@ def _collapse_block(md: ModelData, mesh) -> ModelData:
                      block=md.block._replace(I=1, row0=0))
 
 
+def _chains(opt: Options, md_fit, K: int, cfg: EMConfig) -> int:
+    """The chain batch of K's serial loop (``cfg`` that of a fit of K
+    alone): ``chain_batch``, at most n_init under a fixed count."""
+    B = chain_batch(opt, md_fit, K, cfg)
+    if not (opt.target_revisit or opt.target_ll or opt.n_seconds):
+        B = min(B, opt.n_init)
+    return B
+
+
 def _run_continuous(gen, res: MaximizeResult, md: ModelData,
                     md_fit: ModelData, md_score: ModelData, K: int,
                     cfg: EMConfig, opt: Options, n_parameters: int, codes,
                     t0: float, segment: int = 16, on_improve=None,
-                    progress=None) -> None:
+                    progress=None, shared_k: int = 0) -> None:
     """Continuous batching: B chains run in lockstep segments; a stopped
     lane is harvested and refilled with a fresh start at once instead of
     idling until the slowest chain finishes.  Starts are drawn on ``md``
-    and Rand-EM scored on ``md_score``; the chains run on ``md_fit``."""
+    and Rand-EM scored on ``md_score``; the chains run on ``md_fit``.
+    ``shared_k`` (the JAX package's ``shared_Kp``): ``cfg`` is that of the
+    sweep's largest K, and the chains run padded to its lanes with their
+    kmask, each K on the layout its sweep shares."""
     fixed_n = (not opt.target_revisit and not opt.target_ll
                and not opt.n_seconds)
-    B = chain_batch(opt, md_fit, K, cfg)
-    if fixed_n:
-        B = min(B, opt.n_init)
+    B = _chains(opt, md_fit, K, static_cfg(cfg, K))
     res.batch_chains = B
+    width = lattice_lanes(shared_k, cfg) if shared_k else 0
     if cfg.bi_repr_active:
-        res.route = bi_route(B, md_fit, cfg, k_padded_size(K, 32)).describe()
+        res.route = bi_route(B, md_fit, cfg,
+                             width or k_padded_size(K, 32)).describe()
 
     def fresh_states(n):
-        pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
-                                     md_score), cfg)
-        return _make_state(pb, md_fit, cfg)
+        pb = _draw_init_batch(gen, n, md, K, cfg, opt, codes, md_score,
+                              width)
+        return _make_state(pb if width else _pad_k(pb, cfg), md_fit, cfg)
 
     state = fresh_states(B)
     launched = B
@@ -512,7 +557,7 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
                     bool(host["converged"][lane]),
                     int(host["n_iter"][lane]), bool(host["failed"][lane]),
                     bool(host["mono_viol"][lane]),
-                    lambda ln=lane: get(ln), timed_out,
+                    lambda ln=lane: get(ln, K if width else 0), timed_out,
                     on_improve=on_improve, progress=progress):
                 return True
         return False
@@ -563,16 +608,23 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
                         opt: Options, n_parameters: int, codes=None,
                         warm: Optional[Params] = None, true_partition=None,
                         checkpoint_dir: Optional[str] = None,
-                        on_improve=None, quiet: bool = False
-                        ) -> MaximizeResult:
+                        on_improve=None, quiet: bool = False,
+                        shared_k: int = 0) -> MaximizeResult:
     """Maximize over initializations (maximize_likelihood,
     multiclust.c:471-656).  ``checkpoint_dir`` persists the counters, the
     best parameters and ``gen``'s state after every batch of chains and
     resumes from them (runtime/checkpoint.py); ``on_improve(res)`` fires
     whenever an init improves the best logL (best-so-far outputs,
     multiclust.c:584-600); ``quiet`` suppresses the per-init progress
-    lines (bootstrap replicate fits)."""
-    cfg = cfg_from_options(opt, K, md)
+    lines (bootstrap replicate fits).  ``shared_k`` (K >= 2, no warm start,
+    no checkpoint, verbosity <= 3): the chains run on the shared layout
+    of a sweep whose largest K it is, with their kmask
+    (``_run_continuous``); the same chains as without it."""
+    if shared_k and (K < 2 or warm is not None or checkpoint_dir
+                     or opt.verbosity > 3):
+        raise ValueError("a shared layout takes K >= 2 fitted from drawn "
+                         "starts, with no checkpoint, at verbosity <= 3")
+    cfg = cfg_from_options(opt, shared_k or K, md)
     md, codes = mesh_mod.as_block(md, cfg.mesh, codes)
     res = MaximizeResult(K=K)
     t0 = time.time()
@@ -623,7 +675,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     if not serial and warm is None:
         _run_continuous(gen, res, md, md_fit, md_score, K, cfg, opt,
                         n_parameters, codes, t0, on_improve=on_improve,
-                        progress=progress)
+                        progress=progress, shared_k=shared_k)
         checkpoint()
         _score_arand(res, md, opt, true_partition, cfg.mesh)
         return res
@@ -661,6 +713,153 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
             break
     _score_arand(res, md, opt, true_partition, cfg.mesh)
     return res
+
+
+def sweep_device(md: ModelData) -> bool:
+    """A K-sweep may share one lane layout: its fit runs on a CUDA device
+    (the JAX package asks ``device_policy()[0]``, an accelerator)."""
+    return md.device.type == "cuda"
+
+
+# bytes the chain states of a mixed-K lattice may hold at once
+# (multistart.py:946-949)
+SWEPT_STATE_BYTES = 4e9
+
+
+def swept_eligible(opt: Options, md: ModelData, ks) -> bool:
+    """The gate of the mixed-K lattice (``swept_eligible``, the JAX
+    package's multistart.py:918-949, condition for condition): at least
+    two K >= 2 under the fixed-count regime, at verbosity <= 3, with no
+    mesh, on a CUDA fit device, every K >= 2 padded to one 32-lane
+    count, and every K's chain states resident at once within
+    SWEPT_STATE_BYTES (about (3 + 2 q) copies of eta and p a chain).
+    Everything else runs the serial loop (estimate_model,
+    multiclust.c:365-452)."""
+    ks = [K for K in ks if K >= 2]
+    if len(ks) < 2:
+        return False
+    if (opt.target_ll or opt.target_revisit or opt.n_seconds
+            or opt.verbosity > 3 or opt.n_init < 1):
+        return False
+    if opt.mesh_shape:
+        return False
+    if not sweep_device(md):
+        return False
+    if k_padded_size(min(ks), 32) != k_padded_size(max(ks), 32):
+        return False
+    Kp = k_padded_size(max(ks), 32)
+    B = min(opt.batch_chains or min(max(opt.n_init, 1), MAX_AUTO_CHAINS),
+            opt.n_init)
+    per_chain = (md.I * Kp + Kp * md.L * md.M) * 4
+    copies = 3 + 2 * (opt.q if int(opt.accel_scheme) else 0)
+    return len(ks) * B * per_chain * copies < SWEPT_STATE_BYTES
+
+
+def swept_maximize(gens_by_K, md: ModelData, opt: Options, n_parameters_fn,
+                   codes=None, true_partition=None, on_improve=None,
+                   quiet: bool = False, segment: int = 16):
+    """Fit every K of a K-sweep as ONE mixed-K chain lattice
+    (``swept_maximize``, the JAX package's multistart.py:952-1093).
+
+    ``gens_by_K``: (K, generator) pairs, K >= 2, each generator the one
+    the serial loop gives K.  The config is the largest K's; every chain
+    runs on its lanes (``lattice_lanes``) with its kmask.  Each K's group
+    keeps its own generator stream, chain batch (that of its serial loop,
+    ``chain_batch`` under K's own config), refill schedule and
+    completion-order bookkeeping, so the lattice fits the chains the
+    serial loop fits, and each K's results match it up to the rounding of
+    a wider batch.  Fixed-count regime only (``swept_eligible``).
+    ``on_improve(K, res)`` fires as ``estimate_model``'s does.  Returns
+    {K: MaximizeResult}."""
+    ks = [K for K, _ in gens_by_K]
+    cfg = cfg_from_options(opt, max(ks), md)
+    t0 = time.time()
+    plan = bucketed.plan_for(md)
+    md_fit, md_score = _fit_data(md, cfg, plan)
+    width = lattice_lanes(max(ks), cfg)
+    groups = []
+    off = 0
+    for K, gen in gens_by_K:
+        B = _chains(opt, md_fit, K, static_cfg(cfg, K))
+        res = MaximizeResult(K=K, batch_chains=B,
+                             buckets=plan.describe() if plan else "")
+        groups.append(dict(K=K, gen=gen, B=B, off=off, res=res,
+                           harvested=np.zeros(B, dtype=bool), launched=B,
+                           done=False, n_parameters=n_parameters_fn(K),
+                           progress=_make_progress(opt, K, t0, quiet)))
+        off += B
+    route = (bi_route(off, md_fit, cfg, width).describe()
+             if cfg.bi_repr_active else "")
+
+    def draws(g, n):
+        return _draw_init_batch(g["gen"], n, md, g["K"], cfg, opt, codes,
+                                md_score, width)
+
+    def cat(parts):
+        return map_params(lambda *t: torch.cat(t), *parts)
+
+    state = _make_state(cat([draws(g, g["B"]) for g in groups]), md_fit,
+                        cfg)
+    while not all(g["done"] for g in groups):
+        stopped = state.stopped.cpu().numpy()
+        if any((stopped[g["off"]:g["off"] + g["B"]] & ~g["harvested"]).any()
+               for g in groups if not g["done"]):
+            host, get = _harvest(state, cfg, md_fit)
+            for g in groups:
+                if g["done"]:
+                    continue
+                sl = slice(g["off"], g["off"] + g["B"])
+                for lane in np.nonzero(stopped[sl] & ~g["harvested"])[0]:
+                    g["harvested"][lane] = True
+                    ln = g["off"] + int(lane)
+                    if _bookkeep_lane(
+                            g["res"], opt, g["n_parameters"], md.I_total,
+                            float(host["logL"][ln]),
+                            bool(host["converged"][ln]),
+                            int(host["n_iter"][ln]),
+                            bool(host["failed"][ln]),
+                            bool(host["mono_viol"][ln]),
+                            lambda ln=ln, K=g["K"]: get(ln, K), False,
+                            on_improve=((lambda r, K=g["K"]:
+                                         on_improve(K, r))
+                                        if on_improve else None),
+                            progress=g["progress"]):
+                        g["done"] = True
+                        break
+
+        # refill each unfinished group's harvested lanes from its own
+        # stream, as its serial loop does; one state update a pass
+        lanes, parts = [], []
+        for g in groups:
+            if g["done"] or g["launched"] >= opt.n_init:
+                continue
+            refillable = np.nonzero(g["harvested"])[0]
+            nref = min(refillable.size, opt.n_init - g["launched"])
+            if not nref:
+                continue
+            parts.append(draws(g, nref))
+            lanes.append(g["off"] + refillable[:nref])
+            g["launched"] += nref
+            g["harvested"][refillable[:nref]] = False
+        if parts:
+            idx = torch.as_tensor(np.concatenate(lanes),
+                                  device=md_fit.device)
+            fresh = _make_state(cat(parts), md_fit, cfg)
+            state = em_mod.tree_map(
+                lambda old, new: old.index_copy(0, idx, new), state, fresh)
+        elif all(g["done"] or g["harvested"].all() for g in groups):
+            break  # nothing runs and no more chains are wanted
+        if not all(g["done"] for g in groups):
+            state = _segment(state, md_fit, cfg, segment)
+
+    out = {}
+    for g in groups:
+        res = g["res"]
+        res.route = route
+        res.seconds = time.time() - t0
+        _score_arand(res, md, opt, true_partition)
+        out[g["K"]] = res
+    return out
 
 
 def _regimes_satisfied(res: MaximizeResult, opt: Options) -> bool:

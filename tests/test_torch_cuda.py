@@ -1474,7 +1474,7 @@ def test_bucketed_api_fits_on_the_card(tmp_path, label, kw):
     out = fit_model_data(md, 2, **opts)
     for res in out.estimate.per_K.values():
         assert res.buckets == bd.plan.describe(), res.buckets
-        eta, p = res.best_params
+        eta, p = res.best_params.eta, res.best_params.p
         assert np.isfinite(res.max_logL) and not res.any_failed
         assert p.shape == (res.K, md.L, md.M) and p.is_cuda
         assert (p[:, ~md.mask] == 0).all()
@@ -2454,3 +2454,226 @@ def test_wide_mixture_kernels_build_without_spills():
         "mix_finish_kernel<8>", "mix_rows_wide_kernel<false>",
         "mix_rows_wide_kernel<true>", "mix_softmax_kernel<16>",
         "mix_softmax_kernel<4>", "mix_softmax_kernel<8>"], lines
+
+
+# ---------------------------------------------------------------------------
+# the per-chain lane mask of a mixed-K lattice (Params.kmask, [B, Kp])
+
+def _mixed_masks(seed, B, k_max, Kp, dev):
+    """[B, Kp] 1.0/0.0 masks of chains with K from 2 to ``k_max`` (the first
+    chain at k_max), and their K."""
+    rng = np.random.default_rng(seed)
+    ks = rng.integers(2, k_max + 1, size=B)
+    ks[0] = k_max
+    km = (np.arange(Kp)[None, :] < ks[:, None]).astype(np.float32)
+    return torch.tensor(km, device=dev), ks
+
+
+def _masked_args(seed, B, I, L, k_max, Kp, miss_rate, dev):
+    """_step_args of a lattice: eta and p0 zero outside each chain's lanes,
+    eta's rows renormalized over them."""
+    km, ks = _mixed_masks(seed, B, k_max, Kp, dev)
+    eta, p0, x0, x1, c, miss = _step_args(seed, B, I, L, k_max, Kp,
+                                          miss_rate, dev)
+    eta = eta * km[:, None, :]
+    eta = (eta / eta.sum(dim=-1, keepdim=True)).contiguous()
+    return (eta, (p0 * km[:, :, None]).contiguous(), x0, x1, c, miss), km
+
+
+def _lanes_kept(km, eta, p):
+    """Every lane outside a chain's mask is exactly 0 in eta and p."""
+    off = km < 0.5
+    assert (eta.masked_select(off[:, None, :].expand_as(eta)) == 0).all()
+    p_off = off.reshape(off.shape + (1,) * (p.dim() - 2)).expand_as(p)
+    assert (p.masked_select(p_off) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp,k_max", [(32, 20), (64, 50), (128, 100),
+                                      (160, 140)])
+@pytest.mark.parametrize("route", ["pair", "streamed"])
+def test_masked_biallelic_step_matches_plain(Kp, k_max, route):
+    """The biallelic step of a mixed-K batch (chains of 2..k_max clusters,
+    k_true = k_max) with a [B, Kp] kmask against the plain step with it:
+    the pair's fused finish (Kp <= 128) and the streamed step's finish
+    (rows_finish_kernel, above 128 wide_finish_kernel), each chain
+    projected over its own lanes, the lanes outside them exactly 0; the
+    masked launches counted."""
+    if route == "pair" and Kp > 128:
+        pytest.skip("the pair takes Kp <= 128")
+    dev = _cuda()
+    args, km = _masked_args(Kp, 5, 777, 513, k_max, Kp, 0.02, dev)
+    kw = dict(k_true=k_max, lb=0.01, plb=0.05, project=True)
+    before = dict(build.LAUNCHES)
+    if route == "pair":
+        got = fb.admixture_fullstep_biallelic(*args, km, **kw)
+        counted = "masked_pair_rows"
+    else:
+        got = fb.admixture_fullstep_biallelic_streamed(*args, km, **kw)
+        counted = ("masked_wide_finish" if fb.is_wide(Kp)
+                   else "masked_rows_finish")
+    ref = fb.admixture_fullstep_biallelic_reference(*args, km, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[counted] == before[counted] + 1
+    _stream_close(got, ref)
+    _lanes_kept(km, got[0], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp,K", [(32, 20), (64, 50), (128, 100),
+                                  (160, 140)])
+def test_kmask_of_every_chain_is_the_static_launch(Kp, K):
+    """A [Kp] kmask (chain stride 0) and a [B, Kp] kmask whose rows are all
+    the lanes below K give the static launch's bits: the biallelic finish
+    (pair and streamed), the generic step and the mixture step."""
+    dev = _cuda()
+    B = 3
+    lanes = (torch.arange(Kp, device=dev) < K).float()
+    masks = (lanes, lanes.expand(B, Kp).contiguous())
+    args = _step_args(K, B, 600, 300, K, Kp, 0.02, dev)
+    kw = dict(k_true=K, lb=0.01, plb=0.05, project=True)
+    steps = [fb.admixture_fullstep_biallelic_streamed]
+    if not fb.is_wide(Kp):
+        steps.append(fb.admixture_fullstep_biallelic)
+    for step in steps:
+        want = step(*args, **kw)
+        for km in masks:
+            for g, w in zip(step(*args, km, **kw), want):
+                assert torch.equal(g, w)
+    eta, p2, x2, c, miss, mask = _generic_args(K, B, 500, 97, 3, K, Kp,
+                                               0.02, dev)
+    want = fs.admixture_fullstep(eta, p2, x2, c, miss, mask, **kw)
+    for km in masks:
+        got = fs.admixture_fullstep(eta, p2, x2, c, miss, mask, km, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    margs = _mix_args(K, B, 500, 300, K, Kp, 0.02, 2, dev)
+    mkw = dict(k_true=K, lb=1e-3, plb=1e-3, ploidy=2, project=True)
+    want = mb.mixture_fullstep_biallelic(*margs, **mkw)
+    for km in masks:
+        got = mb.mixture_fullstep_biallelic(*margs, km, **mkw)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp,k_max", [(32, 20), (64, 50), (128, 100),
+                                      (160, 140)])
+def test_masked_generic_step_matches_plain(Kp, k_max):
+    """The generic step of a mixed-K batch with a [B, Kp] kmask against
+    its plain version: the rows finish (wide above 128) projects each
+    chain over its lanes, the p epilogue keeps the others 0."""
+    dev = _cuda()
+    B = 4
+    km, _ = _mixed_masks(Kp + 1, B, k_max, Kp, dev)
+    eta, p2, x2, c, miss, mask = _generic_args(Kp, B, 513, 77, 3, k_max, Kp,
+                                               0.03, dev)
+    eta = eta * km[:, None, :]
+    eta = (eta / eta.sum(dim=-1, keepdim=True)).contiguous()
+    p2 = (p2 * km[:, :, None]).contiguous()
+    kw = dict(k_true=k_max, lb=0.01, plb=0.05, project=True)
+    before = dict(build.LAUNCHES)
+    got = fs.admixture_fullstep(eta, p2, x2, c, miss, mask, km, **kw)
+    ref = fs.admixture_fullstep_reference(eta, p2, x2, c, miss, mask, km,
+                                          **kw)
+    torch.cuda.synchronize()
+    finish = "masked_wide_finish" if fb.is_wide(Kp) else "masked_rows_finish"
+    for name in (finish, "masked_p"):
+        assert build.LAUNCHES[name] == before[name] + 1, name
+    _stream_close(got, ref)
+    _lanes_kept(km, got[0], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Kp,k_max", [(32, 20), (64, 50), (128, 100),
+                                      (160, 140)])
+@pytest.mark.parametrize("miss_rate", [0.0, 0.02])
+def test_masked_mixture_step_matches_plain(Kp, k_max, miss_rate):
+    """The mixture step of a mixed-K batch with a [B, Kp] kmask against its
+    plain version: outside each chain's lanes the rows pass (its softmax
+    launch above 128) gives v = 0 though their scores would lead (bias
+    0, lp 0), and the finish's eta half keeps to the chain's lanes."""
+    dev = _cuda()
+    B = 4
+    km, _ = _mixed_masks(Kp + 2, B, k_max, Kp, dev)
+    lp0, x0, bias, lp1, x1 = _mix_args(Kp, B, 700, 301, k_max, Kp,
+                                       miss_rate, 2, dev)
+    off = km < 0.5
+    lp0 = lp0.masked_fill(off[:, :, None], 0.0)
+    lp1 = None if lp1 is None else lp1.masked_fill(off[:, :, None], 0.0)
+    bias = torch.where(off & (torch.arange(Kp, device=dev) < k_max),
+                       torch.zeros_like(bias), bias)
+    args = (lp0, x0, bias, lp1, x1, km)
+    kw = dict(k_true=k_max, lb=1e-3, plb=1e-3, ploidy=2, project=True)
+    before = dict(build.LAUNCHES)
+    got = mb.mixture_fullstep_biallelic(*args, **kw)
+    ref = mb.mixture_fullstep_biallelic_reference(*args, **kw)
+    torch.cuda.synchronize()
+    rows = "masked_mix_softmax" if mb.is_wide(Kp) else "masked_mix_rows"
+    for name in (rows, "masked_mix_finish"):
+        assert build.LAUNCHES[name] == before[name] + 1, name
+    _stream_close(got, ref)
+    assert (got[0].masked_select(off) == 0).all()
+    v, _ = mb.mixture_rows(*args[:5], km, k_true=k_max)
+    assert (v.masked_select(off[:, None, :].expand_as(v)) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("admixture", [True, False])
+def test_merged_sweep_on_the_card(admixture):
+    """A two-K merged sweep (K = 2, 3) through ``estimate_model`` with
+    MULTICLUST_SWEEP_MODE=merged on the card against the static sweep:
+    the same chains launched, each K's best logL within the float32 noise
+    floor of opt/em.py for the panel, the masked kernels launched."""
+    import os
+
+    from multiclust_tpu_torch.config import Options
+    from multiclust_tpu_torch.convert import dataset_from_counts
+    from multiclust_tpu_torch.init.random import codes_from_counts
+    from multiclust_tpu_torch.model.common import map_params, \
+        model_data_from_dataset
+    from multiclust_tpu_torch.opt.em import model_log_likelihood
+    from multiclust_tpu_torch.runtime.ksweep import estimate_model
+    from multiclust_tpu_torch.runtime.multistart import cfg_from_options
+
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    I, L = 600, 400
+    p = rng.uniform(0.05, 0.95, size=(3, L))
+    z = rng.integers(0, 3, size=I)
+    miss = rng.binomial(2, 0.01, size=(I, L))
+    x0 = rng.binomial(2 - miss, p[z])
+    counts = np.stack([x0, 2 - miss - x0], axis=-1)
+    ds = dataset_from_counts(counts, miss, 2)
+    md = model_data_from_dataset(ds, dtype=torch.float32, device=dev,
+                                 storage_dtype=torch.int8)
+    codes = codes_from_counts(md.x, md.miss, 2)
+    opt = Options(admixture=admixture, min_K=2, max_K=3, n_init=3,
+                  max_iter=500, write_files=False).synchronize(I, 2)
+
+    def run(mode):
+        os.environ["MULTICLUST_SWEEP_MODE"] = mode
+        try:
+            return estimate_model(3, md, opt, lambda K: ds.n_parameters(
+                K, admixture, False), codes=codes).per_K
+        finally:
+            del os.environ["MULTICLUST_SWEEP_MODE"]
+
+    want = run("static")
+    before = dict(build.LAUNCHES)
+    got = run("merged")
+    counted = {n for n in build.LAUNCHES if n.startswith("masked_")
+               and build.LAUNCHES[n] > before[n]}
+    if admixture:
+        assert counted & {"masked_pair_rows", "masked_rows_finish"}, counted
+    else:
+        assert {"masked_mix_rows", "masked_mix_finish"} <= counted, counted
+    for K in (2, 3):
+        cfg = cfg_from_options(opt, K, md)
+        _, scale = model_log_likelihood(
+            map_params(lambda t: t[None], want[K].best_params), md, cfg)
+        floor = cfg.noise_factor * np.finfo(np.float32).eps * float(scale)
+        assert got[K].n_launched == want[K].n_launched == 3
+        assert abs(got[K].max_logL - want[K].max_logL) <= floor, (
+            K, got[K].max_logL, want[K].max_logL, floor)
+        assert got[K].best_params.kmask is None

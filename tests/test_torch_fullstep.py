@@ -348,7 +348,7 @@ def test_fit_dataset_takes_the_generic_route(monkeypatch):
     out = fit_dataset(dataset_from(ds), options_from(opt), device="cpu")
     res = out.best
     assert calls and np.isfinite(res.max_logL) and not res.mono_viol
-    eta, p = res.best_params
+    eta, p = res.best_params.eta, res.best_params.p
     assert eta.shape == (ds.I, 3) and p.shape == (3, ds.L, ds.M)
     np.testing.assert_allclose(p.sum(dim=-1).numpy(), 1.0, rtol=1e-5)
     assert (p[:, ~torch.as_tensor(ds.mask)] == 0).all()
