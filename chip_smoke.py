@@ -194,28 +194,36 @@ each raising on failure:
 23. the mixed-K sweep (``MULTICLUST_SWEEP_MODE``, runtime/ksweep.py):
    K-sweeps through ``api.fit_model_data`` in the modes ``static``,
    ``merged`` (every K's chains in one lattice, each chain's true lanes
-   its ``Params.kmask``) and ``shared`` (the serial loop on that layout),
+   its ``Params.kmask``) and ``shared`` (the serial loop, as ``static``),
    same seed and iteration cap: admixture on phase 1's 16384 x 2048
    biallelic panel (1 % missing), K = 2..20, -n 8, plain EM, cap 20 (152
    chains in the lattice); the mixture there, K = 2..20, -n 4; the M = 4
    generic admixture panel of phase 8, K = 2..8, -n 4; and a wide case,
    K = 129..140 (160 lanes) on 4096 x 2048, -n 2, admixture and mixture,
-   cap 8.  Per K: launched chains, iterations, best logL and its
-   difference from ``static`` (which must lie within the float32 noise
-   floor of opt/em.py for the panel: noise_factor x eps x the RMS scale of
-   the static fit's best logL terms; a lattice on another route than the
-   serial fits', the pair where they take the streamed step, within that
-   floor a step, cap + 1 of them), the AIC and BIC choice, and each
-   mode's wall with the model steps it ran and the chain-steps they
-   computed; then one EM step of the admixture and the mixture lattice
-   (152 and 76 chains of K = 2..20) against the same batch of K = 20
-   chains with no mask and against the sum of the 19 serial steps.  The launches of the masked kernels are counted from 0
-   over these runs and each must be launched; each masked kernel is then
-   held to its plain version (rtol 1e-4, atol 5e-5) on a batch of chains
-   of mixed K at the runs' shapes and timed there: the pair's rows pass,
-   the rows finish, the wide finish, the generic p epilogue, the mixture
-   rows pass, its wide scores and softmax, and the mixture finish (narrow,
-   and its eta half at 160 lanes), their records in the kernels line
+   cap 8.  Where the lattice runs the biallelic step on another route
+   than the serial fits (the pair where 8 chains take the streamed step),
+   the static sweep runs once more with every step forced onto the
+   lattice's route.  Per K: launched chains, iterations, best logL and its
+   difference from ``static``, the AIC and BIC choice, and each mode's
+   wall with the model steps it ran and the chain-steps they computed.
+   ``shared`` must equal ``static`` exactly; ``merged`` must lie within
+   the float32 noise floor of opt/em.py for the panel (noise_factor x eps
+   x the RMS scale of the static fit's best logL terms) of the static
+   sweep on its own route, and, where that route is not the serial fits',
+   within the floor beyond the route's own move of the static sweep.
+   Then one EM step of the admixture and the mixture lattice (152 and 76
+   chains of K = 2..20) against the same batch of K = 20 chains with no
+   mask and against the sum of the 19 serial steps.  The launches of the
+   masked kernels are counted from 0 over these runs and each must be
+   launched; each masked kernel is then held to its plain version (rtol
+   1e-4, atol 5e-5) at the batch its lattice gives it (152 chains for the
+   pair's rows pass, in groups of 8 for its plain version; 28 for the
+   rows finish and the generic p epilogue; 24 for the wide finish and the
+   wide mixture rows pass; 76 for the mixture rows pass and finish) and
+   timed there: the pair's rows pass, the rows finish, the wide finish,
+   the generic p epilogue, the mixture rows pass, its wide scores and
+   softmax, and the mixture finish (narrow, and its eta half at 160
+   lanes), their records in the kernels line
    named ``(kmask)``, their bounds from each chain's own K.
 
 Every kernel's record carries its bound: the least time this card could
@@ -4070,9 +4078,40 @@ def noise_floor(res, md, opt, K) -> float:
     return cfg.noise_factor * float(np.finfo(np.float32).eps) * float(scale)
 
 
+def lattice_route(md, opt, est):
+    """The biallelic step's route of a merged sweep's lattice (its chains
+    of every K >= 2 at the largest K's config and lanes), or None where
+    the step takes no route (the mixture, the generic layout)."""
+    from multiclust_tpu_torch.model.admixture import bi_route
+    from multiclust_tpu_torch.runtime.multistart import cfg_from_options, \
+        lattice_lanes
+
+    ks = [K for K in est.per_K if K >= 2]
+    cfg = cfg_from_options(opt, max(ks), md)
+    if not cfg.bi_repr_active:
+        return None
+    B = sum(est.per_K[K].batch_chains for K in ks)
+    return bi_route(B, md, cfg, lattice_lanes(max(ks), cfg))
+
+
+def sweep_fit_on_route(md, kw, route):
+    """``sweep_fit`` of the static sweep with every biallelic step forced
+    onto ``route``, the route its merged lattice takes."""
+    from multiclust_tpu_torch.model import admixture
+
+    pick = admixture.bi_route
+    admixture.bi_route = lambda *a, **k: route
+    try:
+        return sweep_fit(md, "static", kw)
+    finally:
+        admixture.bi_route = pick
+
+
 def phase_sweep_runs(build, dev, where):
-    """The phase's sweeps in the three modes; the masked kernels' launches
-    over them, counted from 0."""
+    """The phase's sweeps in the three modes and, where the merged lattice
+    runs the biallelic step on another route than the serial fits, the
+    static sweep forced onto the lattice's route; the masked kernels'
+    launches over them, counted from 0."""
     from multiclust_tpu_torch.config import Options
 
     panels = sweep_panels(dev)
@@ -4084,9 +4123,10 @@ def phase_sweep_runs(build, dev, where):
                   n_init=n_init, max_iter=cap, seed=3, verbosity=0)
         opt = Options(**kw).synchronize(md.I, 2)
         runs = {}
-        for mode in SWEEP_RUN_MODES:
+
+        def run(mode, fit):
             before = {n: build.LAUNCHES[n] for n in MASKED_KERNELS}
-            runs[mode] = sweep_fit(md, mode, kw)
+            runs[mode] = fit()
             walls[label, mode] = runs[mode][1]
             masked = {n: build.LAUNCHES[n] - before[n]
                       for n in MASKED_KERNELS if build.LAUNCHES[n] > before[n]}
@@ -4096,43 +4136,68 @@ def phase_sweep_runs(build, dev, where):
                   f"steps of {chain_steps} chain-steps; AIC K={est.aic_K}, "
                   f"BIC K={est.bic_K}; masked launches {masked}; route "
                   f"{est.per_K[k_hi].route or '-'} on {where}", flush=True)
-            if mode == "static":
-                assert not masked, masked
-            else:
-                assert masked, (label, mode)
+            assert bool(masked) == (mode == "merged"), (label, mode, masked)
+        for mode in SWEEP_RUN_MODES:
+            run(mode, lambda mode=mode: sweep_fit(md, mode, kw))
         want = runs["static"][0].per_K
+        route = lattice_route(md, opt, runs["merged"][0])
+        if route is not None and any(
+                runs["merged"][0].per_K[K].route != want[K].route
+                for K in want):
+            # the witness: the serial fits on the lattice's route, which
+            # tells the route's rounding from the mask's
+            run("static on the lattice's route",
+                lambda: sweep_fit_on_route(md, kw, route))
+            print(f"sweep {label}: the lattice's route, forced on the "
+                  f"static sweep: {route.describe()}", flush=True)
+        witness = runs.get("static on the lattice's route")
         for K in range(k_lo, k_hi + 1):
             floor = noise_floor(want[K], md, opt, K)
             line = [f"K={K}: static n_launched {want[K].n_launched}, "
                     f"{want[K].n_iter_all} iterations, logL "
                     f"{want[K].max_logL:.4f}"]
-            for mode in ("merged", "shared"):
+            for mode in runs:
+                if mode == "static":
+                    continue
                 got = runs[mode][0].per_K[K]
                 d = got.max_logL - want[K].max_logL
                 line.append(f"{mode} {got.n_launched}, {got.n_iter_all} "
                             f"iterations, {got.max_logL:.4f} ({d:+.4f}, "
                             f"{abs(d) / floor:.2f} floors)")
-                gaps.append((label, K, mode, got.n_launched,
-                             want[K].n_launched, d, floor, cap,
-                             got.route == want[K].route))
                 assert got.best_params.kmask is None
+            merged = runs["merged"][0].per_K[K]
+            drift = None
+            if merged.route != want[K].route:
+                w = witness[0].per_K[K]
+                drift = w.max_logL - want[K].max_logL
+                dw = merged.max_logL - w.max_logL
+                line.append(f"merged against the static sweep on its route "
+                            f"{dw:+.4f} ({abs(dw) / floor:.2f} floors)")
+                gaps.append((label, K, "merged / static on its route",
+                             merged.n_launched, w.n_launched, dw, floor))
+            gaps.append((label, K, "merged", merged.n_launched,
+                         want[K].n_launched,
+                         merged.max_logL - want[K].max_logL,
+                         floor + abs(drift or 0.0)))
+            shared = runs["shared"][0].per_K[K]
+            assert (shared.max_logL, shared.n_iter_all, shared.n_launched) \
+                == (want[K].max_logL, want[K].n_iter_all,
+                    want[K].n_launched), (label, K, "shared")
             print(f"sweep {label} " + "; ".join(line)
                   + f"; noise floor {floor:.4f}", flush=True)
-        del runs
+        del runs, witness
         torch.cuda.empty_cache()
     launches = {n: build.LAUNCHES[n] for n in MASKED_KERNELS}
     print(f"masked launches in the phase's sweeps: {launches}", flush=True)
     for name, n in launches.items():
         assert n > 0, (name, launches)
-    # a mode on the serial fits' route: within the noise floor; the
-    # lattice on another route (the pair, its 152 chains filling the card,
-    # where 8 chains take the streamed step) rounds every step otherwise,
-    # and its chains, capped short of convergence, may drift apart by up
-    # to the floor a step
-    for label, K, mode, n_got, n_want, d, floor, cap, same in gaps:
-        assert n_got == n_want, (label, K, mode, n_got, n_want)
-        limit = floor if same else floor * (cap + 1)
-        assert abs(d) <= limit, (label, K, mode, d, floor, same)
+    # merged against the serial fits: within the noise floor on the same
+    # route (the lattice against the static sweep forced onto its route);
+    # against the serial fits on their own route, within the floor beyond
+    # what that route change alone moved the static sweep
+    for label, K, what, n_got, n_want, d, limit in gaps:
+        assert n_got == n_want, (label, K, what, n_got, n_want)
+        assert abs(d) <= limit, (label, K, what, d, limit)
     a, m = walls["admixture", "merged"], walls["admixture", "static"]
     print(f"sweep admixture K=2..20 -n 8 at {I_FULL} x {L_FULL}: the "
           f"152-chain lattice (merged) {a:.2f} s against 19 serial fits of "
@@ -4202,13 +4267,21 @@ def phase_sweep_steps(md, where):
         torch.cuda.empty_cache()
 
 
-def mixed_lattice(rng, B, k_lo, k_hi, Kp, dev):
-    """[B, Kp] kmask of chains of k_lo..k_hi clusters (the first at
-    k_hi), and their K."""
-    ks = rng.integers(k_lo, k_hi + 1, size=B)
-    ks[0] = k_hi
+def lattice_mask(k_lo, k_hi, n, Kp, dev):
+    """[B, Kp] kmask of a merged sweep's lattice, ``n`` chains of each K =
+    k_lo..k_hi in turn as ``swept_maximize`` lays them out, and their K."""
+    ks = np.repeat(np.arange(k_lo, k_hi + 1), n)
     km = (np.arange(Kp)[None] < ks[:, None]).astype(np.float32)
     return torch.tensor(km, device=dev), ks
+
+
+def in_groups(fn, n_chains, size):
+    """``fn(lo, hi)`` over chain groups [lo, hi) of ``size``, each output
+    concatenated over the groups: a plain version over a lattice whose
+    [B, I, L] temporaries would not fit on the card at once."""
+    parts = [fn(lo, min(lo + size, n_chains))
+             for lo in range(0, n_chains, size)]
+    return tuple(torch.cat(t) for t in zip(*parts))
 
 
 def masked_step_inputs(rng, B, I, L, ks, km, dev):
@@ -4246,12 +4319,15 @@ def masked_mix_inputs(rng, md, km, ks, k_true):
 
 
 def phase_masked_kernels(fb, fs, mb, dev, where, panels, launches):
-    """Each masked kernel against its plain version on a batch of chains of
-    mixed K at the sweeps' shapes, timed there; returns their records."""
+    """Each masked kernel against its plain version at the batch the
+    phase's merged lattices give it (each K's chains in turn, as
+    ``swept_maximize`` lays them out), timed there; returns their
+    records."""
     from multiclust_tpu_torch.route_times import finish_bytes, \
         mix_finish_bytes, p_bytes
 
     rng = np.random.default_rng(23)
+    gen = torch.Generator(device=dev).manual_seed(23)
     n_sm = fb.device_sm_count(dev)
     recs = []
 
@@ -4284,38 +4360,63 @@ def phase_masked_kernels(fb, fs, mb, dev, where, panels, launches):
             assert (eta.masked_select(off) == 0).all()
         return check
 
-    # the admixture: 8 chains of K = 2..20 on 32 lanes, k_true = 20
-    km, ks = mixed_lattice(rng, 8, 2, K_FULL, 32, dev)
-    e, p, a, z, c, m = masked_step_inputs(rng, 8, I_FULL, L_FULL, ks, km,
-                                          dev)
+    # the pair's rows pass: the admixture lattice, 152 chains of K = 2..20
+    # on 32 lanes, k_true 20, on the sweep's panel; the plain version 8
+    # chains at a time
+    md = panels["biallelic"]
+    km, ks = lattice_mask(2, K_FULL, 8, 32, dev)
+    B = len(ks)
+    prm = sweep_step_params(gen, ks, 32, md, True, True)
+    e, p, a, z, c = prm.eta, prm.p, md.x0, md.x1, md.c.float()
+    del prm
     kw = dict(k_true=K_FULL, lb=1e-8, project=True, compute_t=True)
-    cells = I_FULL * L_FULL
+    out = fb.fullstep_bi_rows(e, p, a, z, c, km, **kw)
+    out_bytes = tensors_bytes(out)
+    del out
     record("fullstep_bi_rows (kmask)", SOURCE, TPU_KERNEL, "masked_pair_rows",
            lambda: fb.fullstep_bi_rows(e, p, a, z, c, km, **kw),
-           lambda: fb.fullstep_bi_rows_reference(e, p, a, z, c, km, **kw),
-           tensors_bytes((e, p, a, z, c, km)) + 4 * (e.numel() + 8 * I_FULL),
-           sum(4 * int(k) + 10 for k in ks) * cells, off_zero(km))
-    n_cseg, seg_cols = fb.row_segments(8, I_FULL, L_FULL, n_sm,
-                                       k_true=K_FULL, Kp=32)
-    apart, tpart = fb.rows_partials(e, p, a, z, l_lo=0, l_hi=L_FULL,
-                                    seg_cols=seg_cols, k_true=K_FULL)
-    fkw = dict(k_true=K_FULL, lb=1e-8, project_eta=True)
+           lambda: in_groups(lambda lo, hi: fb.fullstep_bi_rows_reference(
+               e[lo:hi], p[lo:hi], a, z, c, km[lo:hi], **kw), B, 8),
+           tensors_bytes((e, p, a, z, c, km)) + out_bytes,
+           sum(4 * int(k) + 10 for k in ks) * md.I * md.L, off_zero(km),
+           n_plain=2)
+    del e, p
+    torch.cuda.empty_cache()
+
+    # the rows finish: the M = 4 lattice, 28 chains of K = 2..8, 32 lanes,
+    # at the generic rows pass's segment count (partials of the biallelic
+    # segmented pass on the sweep's panel)
+    km, ks = lattice_mask(2, 8, 4, 32, dev)
+    prm = sweep_step_params(gen, ks, 32, md, True, True)
+    e = prm.eta
+    n_g, _ = fb.row_segments(len(ks), md.I, md.L * M_FULL, n_sm, k_true=8,
+                             Kp=32)
+    seg_cols = -(-md.L // (n_g * fb.ROW_TL)) * fb.ROW_TL
+    apart, tpart = fb.rows_partials(e, prm.p, md.x0, md.x1, l_lo=0,
+                                    l_hi=md.L, seg_cols=seg_cols, k_true=8)
+    del prm
+    n_cseg = apart.shape[1]
+    print(f"rows_finish (kmask): {len(ks)} chains, {n_cseg} segments (the "
+          f"generic pass's {n_g})", flush=True)
+    fkw = dict(k_true=8, lb=1e-8, project_eta=True)
     record("rows_finish (kmask)", "multiclust_tpu_torch/csrc/tiles.cuh",
            FINISH_TPU, "masked_rows_finish",
            lambda: fb.rows_finish(e, apart, tpart, c, None, km, **fkw),
            lambda: fb.rows_finish_reference(e, apart, tpart, c, None, km,
                                             **fkw),
-           sum(finish_bytes(1, I_FULL, 32, n_cseg, int(k))[1] for k in ks),
+           sum(finish_bytes(1, md.I, 32, n_cseg, int(k))[1] for k in ks),
            0, off_zero(km))
-    del e, p, a, z, c, m, apart, tpart
+    del e, apart, tpart, c
     torch.cuda.empty_cache()
 
-    # the wide finish: 4 chains of K = 129..140 on 160 lanes
+    # the wide finish: the wide admixture lattice, 24 chains of K =
+    # 129..140 on 160 lanes
     md = panels["wide"]
-    km, ks = mixed_lattice(rng, 4, 129, 140, 160, dev)
-    e, p, a, z, c, _ = masked_step_inputs(rng, 4, md.I, md.L, ks, km, dev)
-    n_cseg, seg_cols = fb.row_segments(4, md.I, md.L, n_sm, k_true=140,
-                                       Kp=160)
+    km, ks = lattice_mask(129, 140, 2, 160, dev)
+    e, p, a, z, c, _ = masked_step_inputs(rng, len(ks), md.I, md.L, ks, km,
+                                          dev)
+    n_cseg, seg_cols = fb.row_segments(len(ks), md.I, md.L, n_sm,
+                                       k_true=140, Kp=160)
     apart, tpart = fb.rows_partials(e, p, a, z, l_lo=0, l_hi=md.L,
                                     seg_cols=seg_cols, k_true=140)
     fkw = dict(k_true=140, lb=1e-8, project_eta=True)
@@ -4329,9 +4430,10 @@ def phase_masked_kernels(fb, fs, mb, dev, where, panels, launches):
     del e, p, a, z, c, apart, tpart
     torch.cuda.empty_cache()
 
-    # the generic p epilogue: 4 chains of K = 2..8, M = 4, 32 lanes
-    km, ks = mixed_lattice(rng, 4, 2, 8, 32, dev)
-    eta, p2, x2, c, miss, mask = generic_inputs(42, 4, I_FULL, L_FULL,
+    # the generic p epilogue: the M = 4 lattice, 28 chains of K = 2..8, 32
+    # lanes
+    km, ks = lattice_mask(2, 8, 4, 32, dev)
+    eta, p2, x2, c, miss, mask = generic_inputs(42, len(ks), I_FULL, L_FULL,
                                                 np.full(L_FULL, M_FULL), 8,
                                                 32, 0.01, dev)
     eta = eta * km[:, None, :]
@@ -4352,14 +4454,15 @@ def phase_masked_kernels(fb, fs, mb, dev, where, panels, launches):
     del eta, p2, x2, c, miss, mask, part
     torch.cuda.empty_cache()
 
-    # the mixture: 8 chains of K = 2..20 on 32 lanes (two streams), and 4
-    # of K = 129..140 on 160 lanes
-    for name, counter, md, B, (k_lo, k_hi), Kp in (
+    # the mixture: its lattice, 76 chains of K = 2..20 on 32 lanes (two
+    # streams), and the wide one, 24 chains of K = 129..140 on 160 lanes
+    for name, counter, md, n, (k_lo, k_hi), Kp in (
             ("mixture_rows (kmask)", "masked_mix_rows", panels["biallelic"],
-             8, (2, K_FULL), 32),
+             4, (2, K_FULL), 32),
             ("mixture_rows_wide+softmax (kmask)", "masked_mix_softmax",
-             panels["wide"], 4, (129, 140), 160)):
-        km, ks = mixed_lattice(rng, B, k_lo, k_hi, Kp, dev)
+             panels["wide"], 2, (129, 140), 160)):
+        km, ks = lattice_mask(k_lo, k_hi, n, Kp, dev)
+        B = len(ks)
         args = masked_mix_inputs(rng, md, km, ks, k_hi)
         flop = sum(2 * 2 * md.I * md.L * int(k) for k in ks)
 

@@ -8,15 +8,17 @@ and the generic cells, the d launch both take, the finish at 8, 16 and
 32 lanes a thread, each built once for every Kp in its range)
 and of the mixture step (csrc/mixture_bi.cu: the rows pass's scores and
 softmax, the columns pass, one and two streams, and the finish at 8, 16
-and 32 lanes a thread): registers, shared memory and spills (``nvcc
--Xptxas -v``),
+and 32 lanes a thread), and of the admixture's narrow rows finish and
+generic p epilogue (csrc/tiles.cuh, csrc/fullstep.cu): registers, shared
+memory and spills (``nvcc -Xptxas -v``),
 and the static instruction mix of each kernel's machine code
 (``cuobjdump -sass``: FFMA against LDS, MUFU and the rest; DMMA, the
 float64 tensor-core product, counted on a line of its own for the mixture
 passes and the wide kernels).
 
 Run with ``python -m multiclust_tpu_torch.kernel_report [Kp ...]`` where
-nvcc and a CUDA toolkit are installed (default Kp: 32 and 128).  The mix counts
+nvcc and a CUDA toolkit are installed (default Kp: 32 and 128);
+``--ptxas`` prints the registers, shared memory and spills alone.  The mix counts
 every instruction of a kernel once, the byte-load path and the prologue
 included; the loops over a tile are fully unrolled, so the counts of FFMA,
 MUFU and LDS are those of one tile plus that fringe.
@@ -43,6 +45,8 @@ KERNELS = (("fullstep_bi_rows_kernel", ""),
            ("mix_cols_kernel", "Lb1E"))
 # the contraction kernels' names in the -Xptxas -v report
 CONTRACTIONS = "fullstep_(?:bi_)?(?:rows|cols)|mix_(?:rows|cols)"
+# the narrow finish and the generic p epilogue
+FINISHES = "rows_finish|fullstep_p"
 # the wide kernels (csrc/wide.cuh), and their instantiations: the cells
 # (a Cells value) or the finish's lanes a thread
 WIDE = "wide_(?:rows_a|cols_d|cols_b|finish)_kernel"
@@ -144,15 +148,14 @@ def sass_mix(lib: Path, kernel: str, kp, targs: str = ""):
 
 
 def main(argv) -> int:
-    kps = [int(a) for a in argv] or [32, 128]
+    kps = [int(a) for a in argv if a != "--ptxas"] or [32, 128]
     lib = build.build()
     report = lib.with_suffix(".ptxas.txt").read_text()
-    for name, text in ptxas_lines(report, CONTRACTIONS):
-        print(f"ptxas {name}: {text}", flush=True)
-    for name, text in ptxas_lines(report, WIDE):
-        print(f"ptxas {name}: {text}", flush=True)
-    for name, text in ptxas_lines(report, MIX_WIDE):
-        print(f"ptxas {name}: {text}", flush=True)
+    for pattern in (CONTRACTIONS, WIDE, MIX_WIDE, FINISHES):
+        for name, text in ptxas_lines(report, pattern):
+            print(f"ptxas {name}: {text}", flush=True)
+    if "--ptxas" in argv:
+        return 0
     for kernel, arg in WIDE_KERNELS:
         mix = sass_mix(lib, kernel, arg, "E" if arg is None else "")
         top = ", ".join(f"{op} {n}" for op, n in mix.most_common(14))

@@ -9,31 +9,28 @@ likelihood-ratio test statistic of the bootstrap.
 ``MULTICLUST_SWEEP_MODE`` picks how the K >= 2 fits run, with the JAX
 package's values (ksweep.py:83-106):
 
-* ``auto`` (the default) and ``static``: one K after another, each with
-  its own static ``k_true`` (the reference's loop);
-* ``shared``: the same serial loop, every K's chains padded to the lanes
-  of the sweep's largest K and carrying their true lanes as
-  ``Params.kmask`` (``maximize_likelihood(..., shared_k=)``), where every
-  K >= 2 pads to one 32-lane count;
-* ``merged``: every K's chains at once, in one mixed-K lattice
-  (``swept_maximize``), where ``swept_eligible`` admits it; else as
-  ``shared``.
+* ``auto`` (the default), ``static`` and ``shared``: one K after
+  another, each with its own static ``k_true`` (the reference's loop);
+* ``merged``: every K >= 2's chains at once, in one mixed-K lattice
+  (``swept_maximize``), each chain carrying its true lanes as
+  ``Params.kmask``, where the fit has no warm start and no checkpoint and
+  ``swept_eligible`` admits it; else the serial loop.  K = 1 stays on its
+  single-start path.  Each K keeps its stream, chain batch and
+  bookkeeping, so the lattice fits the same chains and gives the same
+  per-K results up to rounding.
 
-Both need a fit with no warm start and no checkpoint, on a CUDA device (as
-the JAX package needs an accelerator); K = 1 stays on its single-start
-path.  Each K keeps its stream, chain batch and bookkeeping, so every mode
-fits the same chains and gives the same per-K results up to rounding.
-
-``auto`` is the serial loop here, where the JAX package's ``auto`` is
-``shared`` on an accelerator.  Its reason there is one compiled program
-for every K, the kernels taking K as a static argument; the port's
-kernels take K at run time and compile nothing per K, and they stop their
-lanes at K, which a shared layout sets to the sweep's largest K for every
-chain.  On the CPU the JAX ``auto`` is the serial loop too.  ``merged``
-is the one way a K-sweep puts several K's chains on the card at once; it
-pays when the K's chains run about as long, and otherwise every K waits
-for the slowest (the JAX package measured 34 s against 9 s on a mixture
-sweep).
+``shared`` is accepted for the JAX package's sake and runs the serial
+loop.  There it pads every K's chains to the lanes of the sweep's largest
+K (one 32-lane count) with their kmask, so that one compiled program
+serves every K, the kernels taking K as a static argument; for the same
+reason the JAX ``auto`` is ``shared`` on an accelerator.  The port's
+kernels take K at run time and compile nothing per K, and every K of
+such a sweep already runs on those 32 lanes, so the shared layout would
+only widen each chain's lanes of work from K to the largest K.  On the
+CPU the JAX ``auto`` is the serial loop too.  ``merged`` is the one way a
+K-sweep puts several K's chains on the card at once; it pays when the
+K's chains run about as long, and otherwise every K waits for the
+slowest (the JAX package measured 34 s against 9 s on a mixture sweep).
 """
 
 from __future__ import annotations
@@ -47,10 +44,9 @@ import numpy as np
 import torch
 
 from multiclust_tpu_torch.config import Options
-from multiclust_tpu_torch.model.common import ModelData, Params, \
-    k_padded_size
+from multiclust_tpu_torch.model.common import ModelData, Params
 from multiclust_tpu_torch.runtime.multistart import MaximizeResult, \
-    maximize_likelihood, sweep_device, swept_eligible, swept_maximize
+    maximize_likelihood, swept_eligible, swept_maximize
 
 SWEEP_MODES = ("auto", "static", "shared", "merged")
 
@@ -102,22 +98,14 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
     seeds = np.random.SeedSequence(seed).generate_state(len(ks))
     gens = {K: torch.Generator(device=md.device).manual_seed(int(s))
             for K, s in zip(ks, seeds)}
-    mode = sweep_mode()
-    eligible = warm is None and checkpoint_dir is None and mode not in (
-        "auto", "static")
-    k2 = [K for K in ks if K >= 2]
     swept: Dict[int, MaximizeResult] = {}
-    shared_k = 0
-    if eligible and mode == "merged" and swept_eligible(opt, md, ks):
+    if (sweep_mode() == "merged" and warm is None and checkpoint_dir is None
+            and swept_eligible(opt, md, ks)):
         swept = swept_maximize(
-            [(K, gens[K]) for K in k2], md, opt, n_parameters_fn,
+            [(K, gens[K]) for K in ks if K >= 2], md, opt, n_parameters_fn,
             codes=codes, true_partition=true_partition,
             on_improve=on_improve if not bootstrap else None,
             quiet=bootstrap)
-    elif (eligible and sweep_device(md) and opt.verbosity <= 3
-          and len(k2) > 1
-          and k_padded_size(min(k2), 32) == k_padded_size(max(k2), 32)):
-        shared_k = max(k2)
     per_K: Dict[int, MaximizeResult] = {}
     min_aic = min_bic = float("inf")
     aic_K = bic_K = ks[0]
@@ -130,7 +118,7 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
                 checkpoint_dir=checkpoint_dir,
                 on_improve=((lambda r, K=K: on_improve(K, r))
                             if on_improve and not bootstrap else None),
-                quiet=bootstrap, shared_k=shared_k if K >= 2 else 0)
+                quiet=bootstrap)
         per_K[K] = res
         if res.aic < min_aic:
             min_aic, aic_K = res.aic, K

@@ -32,14 +32,13 @@ buckets compose with data-axis meshes only; a loci-split mesh keeps the
 dense layout, as the JAX package's ``_prepare_fit_data`` decides
 (multistart.py:729-736).
 
-A K-sweep may run its K's chains on one shared lane layout, each chain
-carrying its true lanes as ``Params.kmask`` (runtime/ksweep.py): the
-serial loop of ``maximize_likelihood(..., shared_k=)`` per K, or every K
-at once in one lattice (``swept_maximize``, the JAX package's
-multistart.py:952-1093).  The config is the sweep's largest K's, the
-chains are padded to its lanes (``lattice_lanes``), and each K keeps the
-generator stream, chain batch, refill schedule and completion-order
-bookkeeping of its own serial loop, so the same chains are fitted.
+A K-sweep may run every K's chains at once in one mixed-K lattice
+(``swept_maximize``, the JAX package's multistart.py:952-1093,
+runtime/ksweep.py), each chain carrying its true lanes as
+``Params.kmask``.  The config is the sweep's largest K's, the chains are
+padded to its lanes (``lattice_lanes``), and each K keeps the generator
+stream, chain batch, refill schedule and completion-order bookkeeping of
+its own serial loop, so the same chains are fitted.
 """
 
 from __future__ import annotations
@@ -162,7 +161,7 @@ def _pad_k(params: Params, cfg: EMConfig) -> Params:
 
 
 def static_cfg(cfg: EMConfig, K: int) -> EMConfig:
-    """The config a K-cluster fit of its own runs under, from a shared
+    """The config a K-cluster fit of its own runs under, from a mixed-K
     lattice's (only k_true differs)."""
     return cfg._replace(k_true=K) if cfg.k_true else cfg
 
@@ -204,7 +203,7 @@ def lane_params(params_b: Params, lane: int, cfg: EMConfig,
                 md_fit, k_lane: int = 0) -> Params:
     """Dense K-sized full-layout params of one lane of a chain batch in
     the fit layout; under a mesh its eta rows and p loci gathered to every
-    rank first.  ``k_lane``: the lane's own K in a shared layout."""
+    rank first.  ``k_lane``: the lane's own K in a mixed-K lattice."""
     params = map_params(lambda t: t[lane], params_b._replace(kmask=None))
     if cfg.mesh is not None:
         bd = md_fit.reps[0] if isinstance(md_fit, Lattice) else md_fit
@@ -464,9 +463,9 @@ def _bookkeep_lane(res: MaximizeResult, opt: Options, n_parameters: int,
 
 
 def _harvest(state: em_mod.EMState, cfg: EMConfig, md_fit):
-    """Host copies of the per-lane results and a (lane, its K in a shared
-    layout, or 0) -> params getter (dense params: bucketed p merged by
-    ``md_fit``'s plan)."""
+    """Host copies of the per-lane results and a (lane, its K in a
+    mixed-K lattice, or 0) -> params getter (dense params: bucketed p
+    merged by ``md_fit``'s plan)."""
     host = {f: getattr(state, f).cpu().numpy()
             for f in ("logL", "converged", "n_iter", "failed", "mono_viol")}
 
@@ -521,27 +520,22 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
                     md_fit: ModelData, md_score: ModelData, K: int,
                     cfg: EMConfig, opt: Options, n_parameters: int, codes,
                     t0: float, segment: int = 16, on_improve=None,
-                    progress=None, shared_k: int = 0) -> None:
+                    progress=None) -> None:
     """Continuous batching: B chains run in lockstep segments; a stopped
     lane is harvested and refilled with a fresh start at once instead of
     idling until the slowest chain finishes.  Starts are drawn on ``md``
-    and Rand-EM scored on ``md_score``; the chains run on ``md_fit``.
-    ``shared_k`` (the JAX package's ``shared_Kp``): ``cfg`` is that of the
-    sweep's largest K, and the chains run padded to its lanes with their
-    kmask, each K on the layout its sweep shares."""
+    and Rand-EM scored on ``md_score``; the chains run on ``md_fit``."""
     fixed_n = (not opt.target_revisit and not opt.target_ll
                and not opt.n_seconds)
-    B = _chains(opt, md_fit, K, static_cfg(cfg, K))
+    B = _chains(opt, md_fit, K, cfg)
     res.batch_chains = B
-    width = lattice_lanes(shared_k, cfg) if shared_k else 0
     if cfg.bi_repr_active:
-        res.route = bi_route(B, md_fit, cfg,
-                             width or k_padded_size(K, 32)).describe()
+        res.route = bi_route(B, md_fit, cfg, k_padded_size(K, 32)).describe()
 
     def fresh_states(n):
-        pb = _draw_init_batch(gen, n, md, K, cfg, opt, codes, md_score,
-                              width)
-        return _make_state(pb if width else _pad_k(pb, cfg), md_fit, cfg)
+        pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
+                                     md_score), cfg)
+        return _make_state(pb, md_fit, cfg)
 
     state = fresh_states(B)
     launched = B
@@ -557,7 +551,7 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
                     bool(host["converged"][lane]),
                     int(host["n_iter"][lane]), bool(host["failed"][lane]),
                     bool(host["mono_viol"][lane]),
-                    lambda ln=lane: get(ln, K if width else 0), timed_out,
+                    lambda ln=lane: get(ln), timed_out,
                     on_improve=on_improve, progress=progress):
                 return True
         return False
@@ -608,23 +602,16 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
                         opt: Options, n_parameters: int, codes=None,
                         warm: Optional[Params] = None, true_partition=None,
                         checkpoint_dir: Optional[str] = None,
-                        on_improve=None, quiet: bool = False,
-                        shared_k: int = 0) -> MaximizeResult:
+                        on_improve=None, quiet: bool = False
+                        ) -> MaximizeResult:
     """Maximize over initializations (maximize_likelihood,
     multiclust.c:471-656).  ``checkpoint_dir`` persists the counters, the
     best parameters and ``gen``'s state after every batch of chains and
     resumes from them (runtime/checkpoint.py); ``on_improve(res)`` fires
     whenever an init improves the best logL (best-so-far outputs,
     multiclust.c:584-600); ``quiet`` suppresses the per-init progress
-    lines (bootstrap replicate fits).  ``shared_k`` (K >= 2, no warm start,
-    no checkpoint, verbosity <= 3): the chains run on the shared layout
-    of a sweep whose largest K it is, with their kmask
-    (``_run_continuous``); the same chains as without it."""
-    if shared_k and (K < 2 or warm is not None or checkpoint_dir
-                     or opt.verbosity > 3):
-        raise ValueError("a shared layout takes K >= 2 fitted from drawn "
-                         "starts, with no checkpoint, at verbosity <= 3")
-    cfg = cfg_from_options(opt, shared_k or K, md)
+    lines (bootstrap replicate fits)."""
+    cfg = cfg_from_options(opt, K, md)
     md, codes = mesh_mod.as_block(md, cfg.mesh, codes)
     res = MaximizeResult(K=K)
     t0 = time.time()
@@ -675,7 +662,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     if not serial and warm is None:
         _run_continuous(gen, res, md, md_fit, md_score, K, cfg, opt,
                         n_parameters, codes, t0, on_improve=on_improve,
-                        progress=progress, shared_k=shared_k)
+                        progress=progress)
         checkpoint()
         _score_arand(res, md, opt, true_partition, cfg.mesh)
         return res
@@ -716,8 +703,9 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
 
 
 def sweep_device(md: ModelData) -> bool:
-    """A K-sweep may share one lane layout: its fit runs on a CUDA device
-    (the JAX package asks ``device_policy()[0]``, an accelerator)."""
+    """A K-sweep may run as one mixed-K lattice: its fit runs on a CUDA
+    device (the JAX package asks ``device_policy()[0]``, an
+    accelerator)."""
     return md.device.type == "cuda"
 
 

@@ -6,8 +6,9 @@ steps on the same inputs (float64 to rtol 1e-12, as tests/test_ksweep.py
 holds the JAX step to its static one; float32 against the Pallas kernels
 in interpret mode at rtol 2e-5 / atol 1e-5), each chain of a batch of
 mixed K to the JAX step of its own K.  Its ``merged`` lattice
-(``swept_maximize``) and ``shared`` serial loop are held to its own static
-sweep chain for chain, as tests/test_ksweep.py holds the JAX package's.
+(``swept_maximize``) is held to its own static sweep chain for chain, as
+tests/test_ksweep.py holds the JAX package's; ``shared`` is the static
+serial loop.
 """
 
 import jax
@@ -295,7 +296,6 @@ def _sweep(ds, md, opt, codes, seed, mode, monkeypatch):
     with the sweep's device gate opened on the CPU."""
     monkeypatch.setenv("MULTICLUST_SWEEP_MODE", mode)
     monkeypatch.setattr(ms, "sweep_device", lambda md: True)
-    monkeypatch.setattr(ksweep, "sweep_device", lambda md: True)
     return ksweep.estimate_model(
         seed, md, opt, lambda K: ds.n_parameters(
             K, opt.admixture, opt.eta_constrained), codes=codes).per_K
@@ -318,8 +318,8 @@ def _check(got, want, rtol):
                                   "mixture", "constrained", "jagged",
                                   "float32 kernels"])
 def test_sweep_matches_static(mode, case, monkeypatch):
-    """The merged lattice and the shared serial loop give each K the
-    static sweep's n_launched, n_init, max_logL, AIC and BIC (rtol 1e-9
+    """The merged lattice and the shared mode (the serial loop) give each
+    K the static sweep's n_launched, n_init, max_logL, AIC and BIC (rtol 1e-9
     with plain EM in float64, 1e-5 accelerated, as tests/test_ksweep.py
     holds the JAX package's; 1e-6 for float32 through the kernels' plain
     versions, the p0 layout), and harvest dense parameters with no
@@ -368,27 +368,31 @@ def test_merged_lattice_is_one_batch(monkeypatch):
 
 
 def test_auto_and_static_are_the_serial_loop(monkeypatch):
-    """``auto`` (the default) and ``static`` run the serial loop with
-    static K, bit for bit, even where the shared layout is allowed; an
-    unknown mode is refused."""
+    """``auto`` (the default), ``static`` and ``shared`` run the serial
+    loop with static K and no kmask, bit for bit, even where the merged
+    lattice is allowed; an unknown mode is refused."""
     ds = _dataset(41, I=40, L=20)
     md = model_data_from_dataset(ds, dtype=torch.float64)
     codes = codes_from_counts(md.x.to(torch.int64), md.miss, 2)
     opt = Options(admixture=True, min_K=2, max_K=3, n_init=2, max_iter=100,
                   write_files=False).synchronize(ds.I, 2)
     seen = []
-    orig = ms.maximize_likelihood
+    orig = em_mod.model_em_step
 
-    def spy(*a, shared_k=0, **k):
-        seen.append(shared_k)
-        return orig(*a, shared_k=shared_k, **k)
-    monkeypatch.setattr(ksweep, "maximize_likelihood", spy)
+    def spy(params, *a, **k):
+        seen.append(params.kmask is None)
+        return orig(params, *a, **k)
+    monkeypatch.setattr(em_mod, "model_em_step", spy)
+    monkeypatch.setattr(ksweep, "swept_maximize", None)
     auto = _sweep(ds, md, opt, codes, 5, "auto", monkeypatch)
-    static = _sweep(ds, md, opt, codes, 5, "static", monkeypatch)
-    assert seen == [0, 0, 0, 0]
-    for K in auto:
-        assert auto[K].max_logL == static[K].max_logL
-        assert torch.equal(auto[K].best_params.p, static[K].best_params.p)
+    for mode in ("static", "shared"):
+        other = _sweep(ds, md, opt, codes, 5, mode, monkeypatch)
+        for K in auto:
+            assert auto[K].max_logL == other[K].max_logL
+            assert auto[K].n_iter_all == other[K].n_iter_all
+            assert torch.equal(auto[K].best_params.p,
+                               other[K].best_params.p)
+    assert seen and all(seen)
     monkeypatch.setenv("MULTICLUST_SWEEP_MODE", "swept")
     with pytest.raises(ValueError, match="MULTICLUST_SWEEP_MODE"):
         ksweep.estimate_model(5, md, opt, lambda K: 1, codes=codes)
@@ -396,7 +400,8 @@ def test_auto_and_static_are_the_serial_loop(monkeypatch):
 
 def test_warm_and_checkpoint_keep_the_serial_loop(monkeypatch, tmp_path):
     """A warm start or a checkpoint keeps a ``merged`` or ``shared`` sweep
-    on the static serial loop, as in the JAX package."""
+    on the static serial loop, as in the JAX package: one serial fit per
+    K."""
     ds = _dataset(42, I=30, L=20)
     md = model_data_from_dataset(ds, dtype=torch.float64)
     codes = codes_from_counts(md.x.to(torch.int64), md.miss, 2)
@@ -405,15 +410,15 @@ def test_warm_and_checkpoint_keep_the_serial_loop(monkeypatch, tmp_path):
     seen = []
     orig = ms.maximize_likelihood
     monkeypatch.setattr(ksweep, "maximize_likelihood",
-                        lambda *a, shared_k=0, **k: seen.append(shared_k)
-                        or orig(*a, shared_k=shared_k, **k))
+                        lambda gen, md, K, *a, **k: seen.append(K)
+                        or orig(gen, md, K, *a, **k))
     monkeypatch.setattr(ksweep, "swept_maximize", None)
+    monkeypatch.setattr(ms, "sweep_device", lambda md: True)
     for mode in ("merged", "shared"):
         monkeypatch.setenv("MULTICLUST_SWEEP_MODE", mode)
-        monkeypatch.setattr(ksweep, "sweep_device", lambda md: True)
         ksweep.estimate_model(5, md, opt, lambda K: 1, codes=codes,
                               checkpoint_dir=str(tmp_path / mode))
-    assert seen == [0, 0, 0, 0]
+    assert seen == [2, 3, 2, 3]
 
 
 def _gate_opt(**kw):

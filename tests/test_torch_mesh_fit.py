@@ -48,9 +48,8 @@ def _model_data(case):
 
 def fit_case(case, mesh=None):
     """A multi-start fit at K from the case's warm start, or from starts
-    drawn from a seed without one (on the shared layout of a sweep to the
-    case's ``shared_k``, kmask chains, where it has one): its logL,
-    iterations and whole best parameters."""
+    drawn from a seed without one: its logL, iterations and whole best
+    parameters."""
     from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.model.common import Params
     from multiclust_tpu_torch.runtime.multistart import maximize_likelihood
@@ -63,8 +62,7 @@ def fit_case(case, mesh=None):
     else:
         codes = codes_from_counts(md.x, md.miss, 2)
     res = maximize_likelihood(torch.Generator().manual_seed(1), md, K,
-                              _opt(case, mesh), 100, codes=codes, warm=warm,
-                              shared_k=case.get("shared_k", 0))
+                              _opt(case, mesh), 100, codes=codes, warm=warm)
     return dict(logL=res.max_logL, n_iter=res.n_iter_all,
                 eta=res.best_params.eta.numpy(),
                 p=res.best_params.p.numpy())
@@ -161,11 +159,6 @@ def _fit_cases():
                  max_iter=60),
             dict(drawn, kind="fit", name="drawn_mixture", n_init=2,
                  admixture=False, max_iter=60),
-            # the shared layout of a K-sweep to 5: kmask chains meshed
-            dict(drawn, kind="fit", name="drawn_shared", n_init=2,
-                 procedure=1, max_iter=60, shared_k=5),
-            dict(drawn, kind="fit", name="drawn_mixture_shared", n_init=2,
-                 admixture=False, max_iter=60, shared_k=5),
             dict(drawn, kind="start", name="starts")]
 
 
