@@ -668,7 +668,7 @@ def phase_fit(build, dev, where):
     plain = timed_fit("plain EM")
     squarem = timed_fit("SQUAREM", accel_scheme=1)
     launches = {name: build.LAUNCHES[name] for name in STREAM_KERNELS}
-    print(f"launches in the 2-chain fits: {dict(build.LAUNCHES)} (route "
+    print(f"launches in the 2-chain fits: {build.kernel_launches()} (route "
           f"{plain.route})", flush=True)
     assert plain.route.startswith("streamed"), plain.route
     # one launch of each pass serves the whole chain batch (2 lanes)
@@ -681,8 +681,8 @@ def phase_fit(build, dev, where):
     many = timed_fit(f"plain EM, {PAIR_CHAINS} chains", n_init=PAIR_CHAINS,
                      batch_chains=PAIR_CHAINS, max_iter=10)
     pair = {name: build.LAUNCHES[name] for name in BI_KERNELS}
-    print(f"launches in the {PAIR_CHAINS}-chain fit: {dict(build.LAUNCHES)} "
-          f"(route {many.route})", flush=True)
+    print(f"launches in the {PAIR_CHAINS}-chain fit: "
+          f"{build.kernel_launches()} (route {many.route})", flush=True)
     assert many.route.startswith("pair"), many.route
     assert many.batch_chains == PAIR_CHAINS
     steps = many.n_iter_all // PAIR_CHAINS
@@ -1043,7 +1043,7 @@ def phase_fit_generic(build, dev, where):
     plain = timed_fit("M=4 plain EM")
     squarem = timed_fit("M=4 SQUAREM", accel_scheme=1)
     launches = {name: build.LAUNCHES[name] for name in GENERIC_KERNELS}
-    print(f"launches in the M=4 fits: {dict(build.LAUNCHES)}", flush=True)
+    print(f"launches in the M=4 fits: {build.kernel_launches()}", flush=True)
     # one launch of each kernel serves the whole chain batch (2 lanes)
     steps = (plain.n_iter_all + squarem.n_iter_all) // 2
     for name, n in launches.items():
@@ -1145,10 +1145,10 @@ def check_mixture_finish(mb, build, part, vpart, kw) -> float:
     K-padded outputs.  Returns the largest error."""
     from multiclust_tpu_torch.ops.fullstep_bi import ordered_segment_sum
 
-    before = dict(build.LAUNCHES)
+    before = build.kernel_launches()
     got = mb.mixture_finish(part, vpart, **kw)
-    assert {n: build.LAUNCHES[n] - before[n] for n in build.LAUNCHES
-            if build.LAUNCHES[n] != before[n]} == (
+    assert {n: v - before[n] for n, v in build.kernel_launches().items()
+            if v != before[n]} == (
         {"mc_mix_finish": 1, "wide_mix_finish": 1}
         if mb.is_wide(part.shape[3]) else {"mc_mix_finish": 1})
     ref = mb.mixture_finish_reference(part, vpart, **kw)
@@ -1193,7 +1193,7 @@ def phase_mixture_kernels(mb, build, dev, where):
             [(B, m) for B in (1, 4) for m in (0.0, 0.02)]):
         args = mixture_step_inputs(60 + seed, B, I_FULL, L_FULL, K, Kp,
                                    miss_rate, dev)
-        before = dict(build.LAUNCHES)
+        before = build.kernel_launches()
         got = mb.mixture_fullstep_biallelic(*args, **kw)
         # one launch each of rows, columns and the finish
         assert {n: build.LAUNCHES[n] - before[n] for n in MIX_KERNELS} \
@@ -1372,7 +1372,7 @@ def phase_fit_mixture(build, dev, where):
             timed_fit("mixture SQUAREM", 0.0, accel_scheme=1),
             timed_fit("mixture plain EM 1 % missing", 0.01)]
     launches = {name: build.LAUNCHES[name] for name in MIX_KERNELS}
-    print(f"launches in the mixture fits: {dict(build.LAUNCHES)}",
+    print(f"launches in the mixture fits: {build.kernel_launches()}",
           flush=True)
     # one launch of each kernel serves the whole chain batch (2 lanes);
     # a step launches one columns pass and one finish (SQUAREM's logL a
@@ -1439,7 +1439,7 @@ def phase_fit_mixture_generic(build, dev, where):
                       verbosity=2)
     torch.cuda.synchronize()
     res = check_fit(out, time.time() - t0, "mixture M=4 plain EM", where)
-    print(f"launches in the M=4 mixture fit: {dict(build.LAUNCHES)}",
+    print(f"launches in the M=4 mixture fit: {build.kernel_launches()}",
           flush=True)
     steps = res.n_iter_all // 2
     assert build.LAUNCHES["mc_mix_finish"] >= steps > 0
@@ -1782,7 +1782,7 @@ def phase_biobank_fits(build, dev, where):
     torch.cuda.empty_cache()
     launches = {name: build.LAUNCHES[name]
                 for name in STREAM_KERNELS + ("fullstep_bi_chunked",)}
-    print(f"launches in the biobank fits: {dict(build.LAUNCHES)}",
+    print(f"launches in the biobank fits: {build.kernel_launches()}",
           flush=True)
     # one launch of each kernel serves the whole chain batch (2 lanes),
     # and the chunked loop makes one for each of its windows
@@ -1986,8 +1986,8 @@ def phase_bootstrap(build, dev, where, cli_path):
         mixture_planes
     from multiclust_tpu_torch.runtime.multistart import _to_bi_repr, \
         cfg_from_options, fit_batch
-    from multiclust_tpu_torch.runtime.observe import profile
     from multiclust_tpu_torch.stats import bootstrap as bs
+    from torch.profiler import ProfilerActivity, profile
 
     K, B, n_reps, seed = 3, 2, BOOT_REPS, 11
     base = dict(min_K=K, max_K=K, n_init=B, n_bootstrap=n_reps, seed=seed,
@@ -2000,7 +2000,7 @@ def phase_bootstrap(build, dev, where, cli_path):
         out = fit_model_data(md, 2, admixture=admixture, **base, **kw)
         torch.cuda.synchronize()
         wall = time.time() - t0
-        launches = dict(build.LAUNCHES)
+        launches = build.kernel_launches()
         boot = out.bootstrap
         ts = np.asarray(boot.ts_bs)
         cells = md.I * md.L * md.M * boot.chain_iterations
@@ -2070,7 +2070,8 @@ def phase_bootstrap(build, dev, where, cli_path):
     with tempfile.TemporaryDirectory() as ckpt_dir:
         # the checkpointed run under torch.profiler: the device's busy
         # share of a bootstrap whose lattices loop over their replicates
-        with profile(os.path.join(ckpt_dir, "profile")) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             first, _, w1 = run("admixture, checkpointed", md, True,
                                max_iter=100, checkpoint_dir=ckpt_dir)
         busy = sum(ev.self_device_time_total for ev in prof.key_averages()
@@ -2388,7 +2389,7 @@ def mesh_step(md, start, mesh, build, n_timed=3):
     build.reset_launch_counts()
     new, ll, scale = em_mod.model_em_step(params, md_fit, cfg)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    launches = {k: v for k, v in build.kernel_launches().items() if v}
     if mesh is not None:
         dist.barrier()
     t0 = time.time()
@@ -2704,8 +2705,8 @@ def ingest_child(task: str, rank: int, world: int, init: str) -> int:
     else:
         rc = cli.main(argv)
     torch.cuda.synchronize()
-    rec.update(rc=rc, launches={k: v for k, v in build.LAUNCHES.items()
-                                if v},
+    rec.update(rc=rc, launches={k: v for k, v
+                                in build.kernel_launches().items() if v},
                variants=sorted(calls),
                peak_fit=torch.cuda.max_memory_allocated(),
                rss_kib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
@@ -3251,9 +3252,9 @@ def phase_wide_fits(build, dev, where):
                             where, md=md, K=K)
             assert res.route.startswith(("streamed", "chunked")), res.route
         wide = {name: build.LAUNCHES[name] for name in WIDE_KERNELS}
+        ran = {k: v for k, v in build.kernel_launches().items() if v}
         print(f"wide K={K} fits ({', '.join(r[0] for r in runs)}), route "
-              f"{res.route}: launches of the wide kernels {wide}; all "
-              f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
+              f"{res.route}: launches of the wide kernels {wide}; all {ran}",
               flush=True)
         for name in ("wide_rows", "wide_finish", "wide_cols_bi"):
             assert wide[name] > 0, (K, wide)
@@ -3378,7 +3379,7 @@ def wide_mesh_step(md, start, mesh, build, K):
     build.reset_launch_counts()
     new, ll, _ = em_mod.model_em_step(params, md_fit, cfg)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    launches = {k: v for k, v in build.kernel_launches().items() if v}
     return [ms.lane_params(new, b, cfg, md_fit) for b in range(2)], ll, \
         launches
 
@@ -3494,7 +3495,7 @@ def phase_wide_beyond(build, dev, where):
         torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
     notice = f"K lanes ({Kp}) exceed the CUDA kernels' range (1024)"
     assert err.getvalue().count(notice) == 1, err.getvalue()
-    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    assert not any(build.kernel_launches().values()), build.LAUNCHES
     print(f"wide beyond: a step at {Kp} lanes took the plain step (no "
           f"kernel launched; the notice once: {err.getvalue().strip()!r}) "
           f"on {where}", flush=True)
@@ -3626,7 +3627,7 @@ def phase_wide_mixture_kernels(mb, build, dev, where):
             for miss_rate in (0.0, 0.01):
                 args = mixture_step_inputs(400 + K + B, B, I_FULL, L_FULL, K,
                                            Kp, miss_rate, dev)
-                before = dict(build.LAUNCHES)
+                before = build.kernel_launches()
                 got = mb.mixture_fullstep_biallelic(*args, **kw)
                 # one launch of each, the finish's two halves in one
                 assert {n: build.LAUNCHES[n] - before[n]
@@ -3774,8 +3775,8 @@ def phase_wide_mixture_fits(build, dev, where):
                             f"wide mixture K={K} {label}", where, md=md, K=K,
                             mono=not accel)
             wide = {n: build.LAUNCHES[n] for n in MIX_WIDE_KERNELS}
-            print(f"wide mixture K={K} {label}: launches {wide}, all "
-                  f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
+            ran = {k: v for k, v in build.kernel_launches().items() if v}
+            print(f"wide mixture K={K} {label}: launches {wide}, all {ran}",
                   flush=True)
             steps = res.n_iter_all // 2
             for name in MIX_WIDE_KERNELS + ("mc_mix_finish",):
@@ -3807,8 +3808,8 @@ def phase_wide_mixture_fits(build, dev, where):
         torch.cuda.synchronize()
         res = check_fit(out, time.time() - t0, f"wide mixture K={K} {label}",
                         where, md=md, K=K)
-        print(f"wide mixture K={K} {label}: launches "
-              f"{ {k: v for k, v in build.LAUNCHES.items() if v} }",
+        ran = {k: v for k, v in build.kernel_launches().items() if v}
+        print(f"wide mixture K={K} {label}: launches {ran}",
               flush=True)
         steps = res.n_iter_all // 2
         assert build.LAUNCHES["wide_mix_finish"] >= steps > 0, label
@@ -3962,7 +3963,7 @@ def phase_wide_mixture_beyond(build, dev, where):
                         (want[0].eta, want[0].p, want[1])):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
         assert not text.getvalue(), text.getvalue()
-        assert not any(build.LAUNCHES.values()), build.LAUNCHES
+        assert not any(build.kernel_launches().values()), build.LAUNCHES
     print(f"wide mixture beyond: steps at 1056 lanes took the plain step "
           f"(no kernel launched, nothing printed), one stream and two, on "
           f"{where}", flush=True)

@@ -85,26 +85,40 @@ def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
     generated there, model/common.model_data_from_planes; or the one
     ``fit_dataset`` uploads) under the given options, then run the
     bootstrap test when ``n_bootstrap`` is set."""
+    from multiclust_tpu_torch.runtime import observe
+
+    with observe.fit(md.device):
+        return _fit_model_data(md, ploidy, opt, dataset, kw)
+
+
+def _fit_model_data(md, ploidy: int, opt: Optional[Options],
+                    dataset: Optional[Dataset], kw) -> FitOutput:
     from multiclust_tpu_torch.init.random import codes_from_counts
+    from multiclust_tpu_torch.ops.build import count
     from multiclust_tpu_torch.runtime import mesh as mesh_mod
     from multiclust_tpu_torch.runtime.ksweep import estimate_model
+    from multiclust_tpu_torch.runtime.observe import span
     from multiclust_tpu_torch.stats.bootstrap import run_bootstrap
 
-    opt = opt or Options()
-    if kw:
-        opt = dataclasses.replace(opt, **kw)
-    check_ported(opt)
-    resolve_device(md.device)
-    mesh = _mesh_of(opt)
-    md, _ = mesh_mod.as_block(md, mesh)
-    opt = opt.synchronize(md.I_total, ploidy)
+    with span("mc.plan"):
+        opt = opt or Options()
+        if kw:
+            opt = dataclasses.replace(opt, **kw)
+        check_ported(opt)
+        resolve_device(md.device)
+        mesh = _mesh_of(opt)
+        md, _ = mesh_mod.as_block(md, mesh)
+        opt = opt.synchronize(md.I_total, ploidy)
+        count("host.syncs")
+        free_p = (md.n_alleles - 1).sum().cpu().numpy()
+        if md.block is not None:
+            free_p = mesh_mod.host_sum(free_p, mesh.model_group)
+        free_p = int(free_p)
     # allele codes seed the admixture starts only
-    codes = (codes_from_counts(md.x, md.miss, ploidy) if opt.admixture
-             else None)
-    free_p = (md.n_alleles - 1).sum().cpu().numpy()
-    if md.block is not None:
-        free_p = mesh_mod.host_sum(free_p, mesh.model_group)
-    free_p = int(free_p)
+    codes = None
+    if opt.admixture:
+        with span("mc.codes"):
+            codes = codes_from_counts(md.x, md.miss, ploidy)
 
     def n_parameters(K):
         # Dataset.n_parameters (multiclust.c:1267-1277)

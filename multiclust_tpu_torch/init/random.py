@@ -42,10 +42,15 @@ import torch
 from multiclust_tpu_torch.config import InitMethod, InitProcedure
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     column_window, make_kmask, map_params, pad_params_k
+from multiclust_tpu_torch.ops.build import count
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     as_block, host_max, sum_over, world_min
 
 Tensor = torch.Tensor
+
+
+# host reads of a CUDA bincount: its input's least and largest value
+BINCOUNT_SYNCS = 2
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +84,8 @@ def random_individual_center(gen: torch.Generator, md: ModelData,
     missf = md.miss.to(md.dtype)
     denom = torch.clamp(md.n_alleles.to(md.dtype), min=1.0)
     own = (centers >= r0) & (centers < r0 + md.I)
+    # each index by ``own`` reads its count of True on the host
+    count("host.syncs", 4)
     local = (centers - r0)[own]
     xc = x.new_zeros((K,) + tuple(x.shape[1:]))
     xc[own] = x[local]
@@ -109,6 +116,7 @@ def parameters_from_partition_mixture(I_K: Tensor, md: ModelData,
     block and ``I_K`` its rows' clusters: the p of its loci, from the
     counts of its rows summed over the data group."""
     dtype = md.dtype
+    count("host.syncs", BINCOUNT_SYNCS)
     sizes = sum_over(mesh, torch.bincount(I_K, minlength=K).to(dtype),
                      DATA_AXIS)
     eta = (1.0 + sizes) / (md.I_total + K)
@@ -138,6 +146,7 @@ def init_window(md: ModelData, ploidy: int, budget: int = None) -> int:
     if budget is None:
         budget = INIT_BYTES
         if md.device.type == "cuda":
+            count("host.mem_queries")
             budget = min(budget, torch.cuda.mem_get_info(md.device)[0] // 4)
     return column_window(md.L_total, INIT_BYTES_PER_COPY * md.I_total * ploidy,
                          budget)
@@ -202,6 +211,7 @@ def random_allele_center(gen: torch.Generator, md: ModelData,
     rnd_init.c:496-580).  ``codes`` may cover only the loci [lo, hi) of
     ``md``."""
     hi = md.L if hi is None else hi
+    count("host.syncs")
     return _window_labels(gen, md, codes, K, InitMethod.RANDOM_CENTERS,
                           (codes.shape[0], lo, hi), (0, 0, lo),
                           int(md.n_alleles.max()))
@@ -222,6 +232,7 @@ def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
     slot = torch.where(valid, codes.long(), M)        # M = discard bin
     loci = torch.arange(L, device=dev)[None, :, None]
     idx = (lab * L + loci) * (M + 1) + slot
+    count("host.syncs", BINCOUNT_SYNCS)
     pc = torch.bincount(idx.reshape(-1), minlength=(K + 1) * L * (M + 1))
     pc = pc.reshape(K + 1, L, M + 1)[:K, :, :M].to(dtype)
     return copies[:, :K], pc
@@ -281,6 +292,7 @@ def windowed_allele_start(gen: torch.Generator, md: ModelData,
     I, L = md.I_total, md.L_total
     r0, l0 = md.offsets
     P = codes.shape[-1]
+    count("host.syncs")
     n_max = int(md.n_alleles.max())
     if mesh is not None and mesh.model_shards > 1:
         n_max = int(host_max(n_max, mesh.model_group))
@@ -401,8 +413,10 @@ def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
         batch = map_params(lambda *t: torch.stack(t), *cands[lo:lo + c])
         batch = with_kmask(batch, K, width) if width else _pad_k(batch, cfg)
         batch = _to_fit_layout(batch, md_score, cfg)
-        stepped, _, _ = model_em_step(batch, md_score, cfg)
+        stepped, _, _ = model_em_step(batch, md_score, cfg,
+                                      counter="init")
         lls.append(model_log_likelihood(stepped, md_score, cfg)[0])
+    count("host.syncs")
     best = cands[int(torch.argmax(torch.cat(lls)))]
     return with_kmask(best, K, width) if width else best
 

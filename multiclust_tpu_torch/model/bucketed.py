@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from multiclust_tpu_torch.model.common import ModelData, Params
+from multiclust_tpu_torch.ops.build import count
 
 Tensor = torch.Tensor
 
@@ -129,6 +130,7 @@ def plan_for(md: ModelData) -> Optional[JaggedPlan]:
     Reads n_alleles from the device once."""
     if md.M <= 2:
         return None
+    count("host.syncs")
     n_all = md.n_alleles.cpu().numpy()
     if not worth_bucketing(n_all):
         return None

@@ -89,9 +89,26 @@ EXTRA_COUNTS = ("fullstep_bi_chunked", "wide_rows", "wide_finish",
                 "masked_mix_rows", "masked_mix_softmax",
                 "masked_mix_finish")
 
-# launches per kernel since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {name: 0
-                            for name in tuple(_SIGNATURES) + EXTRA_COUNTS}
+# The spans of a fit (runtime/observe.span), and the program's counters,
+# kept in LAUNCHES beside the launches under dotted names that no kernel
+# has (``kernel_launches`` leaves them out): the model steps and
+# chain-steps of EM (``em.``) and of Rand-EM's scoring of its candidate
+# starts (``init.``), counted in opt/em.model_em_step by the chains of the
+# batch stepped; the host's reads of a device value (``host.syncs``) and
+# its queries of the device's free memory (``host.mem_queries``), counted
+# where they are made; and, from a fit run under a profiler, each span's
+# summed stream time in whole microseconds (``span_us.<span>``) and its
+# count (``span_n.<span>``).  reset_launch_counts zeroes them too.
+SPANS = ("mc.fit", "mc.codes", "mc.plan", "mc.init", "mc.em", "mc.harvest")
+COUNTERS = ("em.model_steps", "em.chain_steps", "init.model_steps",
+            "init.chain_steps", "host.syncs", "host.mem_queries") + tuple(
+                f"span_{what}.{span}" for what in ("us", "n")
+                for span in SPANS)
+
+# launches per kernel, and the counters, since the last
+# reset_launch_counts()
+LAUNCHES: Dict[str, int] = {
+    name: 0 for name in tuple(_SIGNATURES) + EXTRA_COUNTS + COUNTERS}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -243,6 +260,16 @@ def launch(name: str, device: torch.device, *args,
     LAUNCHES[name] += 1
     for kernel in also:
         LAUNCHES[kernel] += 1
+
+
+def kernel_launches() -> Dict[str, int]:
+    """LAUNCHES by kernel name, without the program's COUNTERS."""
+    return {name: n for name, n in LAUNCHES.items() if name not in COUNTERS}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (one of COUNTERS)."""
+    LAUNCHES[name] += n
 
 
 def reset_launch_counts() -> None:

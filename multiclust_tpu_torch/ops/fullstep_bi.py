@@ -669,6 +669,7 @@ def scratch_budget(device) -> int:
     device = torch.device(device)
     if device.type != "cuda":
         return SCRATCH_CAP
+    build.count("host.mem_queries")
     free, _ = torch.cuda.mem_get_info(device)
     return min(SCRATCH_CAP, free // 8)
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multiclust_tpu_torch.ops.build import count
+
 Tensor = torch.Tensor
 
 
@@ -35,7 +37,10 @@ def project_rows(v: Tensor, mask: Tensor, lower_bound: float,
     w = torch.where(mask, v, zero)
     free = mask
     done = torch.zeros(v.shape[:-1], dtype=torch.bool, device=v.device)
-    while not bool(done.all()):
+    while True:
+        count("host.syncs")
+        if bool(done.all()):
+            break
         n_free = free.sum(dim=-1).to(dtype)
         csum = w.sum(dim=-1)
         offset = (csum - total) / torch.clamp(n_free, min=1.0)

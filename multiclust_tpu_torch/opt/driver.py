@@ -23,8 +23,10 @@ import torch
 from multiclust_tpu_torch.config import AccelScheme
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     map_params
+from multiclust_tpu_torch.ops.build import count
 from multiclust_tpu_torch.opt import em as em_mod
 from multiclust_tpu_torch.runtime.mesh import past_deadline
+from multiclust_tpu_torch.runtime.observe import span
 
 
 @dataclasses.dataclass
@@ -68,8 +70,9 @@ def fit(params0: Params, md: ModelData, cfg: EMConfig, *,
     t0 = time.time() if start_time is None else start_time
     params0 = map_params(lambda t: t[None], params0)
     if params0.K == 1:
-        return FitResult(state=em_mod.fit_k1(params0, md, cfg),
-                         seconds=time.time() - t0)
+        with span("mc.em"):
+            state = em_mod.fit_k1(params0, md, cfg)
+        return FitResult(state=state, seconds=time.time() - t0)
 
     state = em_mod.init_state(params0, cfg)
     accel = cfg.accel_scheme != int(AccelScheme.NONE)
@@ -80,20 +83,27 @@ def fit(params0: Params, md: ModelData, cfg: EMConfig, *,
     def stopped(state, kind=None) -> bool:
         """The stop flag, and the trace line of the step just made (kind
         None: from the state's accel flag), in one host read."""
-        if trace is None:
-            return bool(state.stopped[0])
-        ll, n, acc, stop = torch.stack([
-            state.logL[0], state.n_iter[0].double(),
-            state.accel_step[0].double(), state.stopped[0].double()]).tolist()
-        trace(ll, int(n), kind or cfg_label(cfg, bool(acc)))
-        return bool(stop)
+        with span("mc.harvest"):
+            count("host.syncs")
+            if trace is None:
+                return bool(state.stopped[0])
+            ll, n, acc, stop = torch.stack([
+                state.logL[0], state.n_iter[0].double(),
+                state.accel_step[0].double(),
+                state.stopped[0].double()]).tolist()
+            trace(ll, int(n), kind or cfg_label(cfg, bool(acc)))
+            return bool(stop)
+
+    def stepped(step, state):
+        with span("mc.em"):
+            return step(state, md, cfg)
 
     # warmup (em_alg.c:61-64)
     stop = False
     for _ in range(cfg.n_init_iter):
         if stop or timed_out():
             break
-        state = em_mod.plain_step(state, md, cfg)
+        state = stepped(em_mod.plain_step, state)
         stop = stopped(state, "EM")
 
     time_stop = False
@@ -102,7 +112,7 @@ def fit(params0: Params, md: ModelData, cfg: EMConfig, *,
         for _ in range(cfg.q - 1):
             if stop or timed_out():
                 break
-            state = em_mod.two_em_steps(state, md, cfg)[0]
+            state = stepped(em_mod.two_em_steps, state)[0]
             stop = stopped(state, "EM")
 
     step = em_mod.accel_macro_step if accel else em_mod.plain_macro_step
@@ -110,7 +120,7 @@ def fit(params0: Params, md: ModelData, cfg: EMConfig, *,
         if timed_out():
             time_stop = True
             break
-        state = step(state, md, cfg)
+        state = stepped(step, state)
         stop = stopped(state)
     return FitResult(state=state, time_stop=time_stop,
                      seconds=time.time() - t0)

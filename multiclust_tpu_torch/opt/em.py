@@ -14,7 +14,9 @@ terms; on float64 the floor is negligible and reference semantics hold.
 
 Host reads: blind runs never read the device.  The adaptive interval is
 read once per macro step, an accelerated macro step reads whether any lane
-still runs, and backtracking reads one flag per trial.
+still runs, and backtracking reads one flag per trial.  Each read counts
+as ``host.syncs``, and each model step under ``em.model_steps`` and, by
+the chains of its batch, ``em.chain_steps`` (ops/build.COUNTERS).
 
 A replicate lattice (model/common.Lattice) runs through the same machine:
 ``model_em_step`` and ``model_log_likelihood`` step each live replicate's
@@ -49,6 +51,7 @@ from multiclust_tpu_torch.model import admixture, mixture
 from multiclust_tpu_torch.model.bucketed import BucketedData
 from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
     ModelData, Params, is_bi_repr, map_params, param_leaves
+from multiclust_tpu_torch.ops.build import count
 from multiclust_tpu_torch.ops.fullstep_bi import p0_clip_bounds
 from multiclust_tpu_torch.ops.simplex import kmask_lanes, project_rows
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
@@ -190,11 +193,17 @@ def _over_replicates(fn, params: Params, lat: Lattice, stopped_out):
 
 
 def model_em_step(params: Params, md: ModelData, cfg: EMConfig,
-                  want_ll: bool = True):
+                  want_ll: bool = True, counter: str = "em"):
+    """One EM step of every chain of the batch, counted as one model step
+    and as a chain-step a chain under ``counter`` (``em``; ``init`` for
+    Rand-EM's scoring of starts); a lattice's live replicates each count
+    one."""
     if isinstance(md, Lattice):
         return _over_replicates(
-            lambda p, m: model_em_step(p, m, cfg, want_ll), params, md,
-            lambda p: (p,) + admixture._no_ll(p.eta))
+            lambda p, m: model_em_step(p, m, cfg, want_ll, counter),
+            params, md, lambda p: (p,) + admixture._no_ll(p.eta))
+    count(f"{counter}.model_steps")
+    count(f"{counter}.chain_steps", params.eta.shape[0])
     if not cfg.admixture:
         return mixture.em_step(params, md, cfg, want_ll)
     return admixture.em_step(params, md, cfg, want_ll)
@@ -346,6 +355,7 @@ def plain_macro_step(state: EMState, md: ModelData,
         n_lane = state.interval - 1
         # one host read: the blind-run length, and whether any lane runs
         # (a macro step of stopped lanes only is a no-op)
+        count("host.syncs")
         n_max, n_live = torch.stack([torch.where(live, n_lane, 0).max(),
                                      live.sum()]).tolist()
         if not n_live:
@@ -529,6 +539,7 @@ def accel_macro_step(state: EMState, md: ModelData,
     optional Varadhan backtracking, falling back to the EM iterate.  A
     macro step of stopped lanes only changes nothing, so it returns at
     once after one host read."""
+    count("host.syncs")
     if not bool((~state.stopped).any()):
         return state
     return _accel_jump(state, md, cfg)
@@ -562,6 +573,7 @@ def _accel_jump(state: EMState, md: ModelData, cfg: EMConfig) -> EMState:
         # (accel_em.c:76-82); one host read per trial
         for _ in range(cfg.adjust_step):
             active = (ll < emll) & (s < -1.0)
+            count("host.syncs")
             if not bool(active.any()):
                 break
             s = torch.where(active, (s - 1.0) / 2.0, s)

@@ -39,6 +39,11 @@ runtime/ksweep.py), each chain carrying its true lanes as
 padded to its lanes (``lattice_lanes``), and each K keeps the generator
 stream, chain batch, refill schedule and completion-order bookkeeping of
 its own serial loop, so the same chains are fitted.
+
+Under a profiler a fit's layers here open the spans of runtime/observe.py:
+``mc.plan`` (the config, the chain batch and the route), ``mc.init`` (the
+starts drawn and padded), ``mc.em`` (chain states made and segments of
+steps run) and ``mc.harvest`` (the stop flags read, and the harvest).
 """
 
 from __future__ import annotations
@@ -62,9 +67,11 @@ from multiclust_tpu_torch.model.common import EMConfig, Lattice, \
     ModelData, Params, collapse_for_constrained, is_bi_repr, \
     k_padded_size, map_params, pad_params_k, unpad_params_k
 from multiclust_tpu_torch.model.mixture import e_step
+from multiclust_tpu_torch.ops.build import count
 from multiclust_tpu_torch.ops.fullstep_bi import scratch_budget
 from multiclust_tpu_torch.opt import em as em_mod
 from multiclust_tpu_torch.runtime import mesh as mesh_mod
+from multiclust_tpu_torch.runtime.observe import span
 
 
 def device_policy(opt: Options, device):
@@ -107,6 +114,7 @@ def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
     budget = scratch_budget(md.device) if use_pallas else 0
     has_missing = bool((md.miss > 0).any())
     biallelic = md.M == 2 and bool((md.n_alleles == 2).all())
+    count("host.syncs", 1 + (md.M == 2))
     if mesh is not None:
         budget = mesh_mod.world_min(budget)
         if md.block is not None:
@@ -275,6 +283,7 @@ def chain_batch(opt: Options, md: ModelData, K: int, cfg: EMConfig) -> int:
         return opt.batch_chains
     B = min(max(opt.n_init, 1), MAX_AUTO_CHAINS)
     if md.device.type == "cuda":
+        count("host.mem_queries")
         free, _ = torch.cuda.mem_get_info(md.device)
         B = min(B, int(CHAIN_MEMORY_SHARE * free) // chain_bytes(md, K, cfg))
     if cfg.mesh is not None:
@@ -377,13 +386,19 @@ def fit_batch(params_b: Params, md: ModelData, cfg: EMConfig, *,
     """Run a batch of chains to convergence, reading the stop flags once
     per segment of macro steps; returns (EMState batch, timed_out)."""
     t0 = time.time() if start_time is None else start_time
-    state = _make_state(params_b, md, cfg)
+    with span("mc.em"):
+        state = _make_state(params_b, md, cfg)
     timed_out = False
-    while not bool(state.stopped.all()):
+    while True:
+        with span("mc.harvest"):
+            count("host.syncs")
+            if bool(state.stopped.all()):
+                break
         if n_seconds and mesh_mod.past_deadline(t0, n_seconds):
             timed_out = True
             break
-        state = _segment(state, md, cfg, segment)
+        with span("mc.em"):
+            state = _segment(state, md, cfg, segment)
     return state, timed_out
 
 
@@ -466,8 +481,9 @@ def _harvest(state: em_mod.EMState, cfg: EMConfig, md_fit):
     """Host copies of the per-lane results and a (lane, its K in a
     mixed-K lattice, or 0) -> params getter (dense params: bucketed p
     merged by ``md_fit``'s plan)."""
-    host = {f: getattr(state, f).cpu().numpy()
-            for f in ("logL", "converged", "n_iter", "failed", "mono_viol")}
+    fields = ("logL", "converged", "n_iter", "failed", "mono_viol")
+    count("host.syncs", len(fields))
+    host = {f: getattr(state, f).cpu().numpy() for f in fields}
 
     def get(lane, k_lane=0):
         return lane_params(state.params, lane, cfg, md_fit, k_lane)
@@ -527,17 +543,21 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
     and Rand-EM scored on ``md_score``; the chains run on ``md_fit``."""
     fixed_n = (not opt.target_revisit and not opt.target_ll
                and not opt.n_seconds)
-    B = _chains(opt, md_fit, K, cfg)
-    res.batch_chains = B
-    if cfg.bi_repr_active:
-        res.route = bi_route(B, md_fit, cfg, k_padded_size(K, 32)).describe()
+    with span("mc.plan"):
+        B = _chains(opt, md_fit, K, cfg)
+        res.batch_chains = B
+        if cfg.bi_repr_active:
+            res.route = bi_route(B, md_fit, cfg,
+                                 k_padded_size(K, 32)).describe()
 
-    def fresh_states(n):
-        pb = _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
-                                     md_score), cfg)
-        return _make_state(pb, md_fit, cfg)
+    def starts(n):
+        return _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
+                                       md_score), cfg)
 
-    state = fresh_states(B)
+    with span("mc.init"):
+        pb = starts(B)
+    with span("mc.em"):
+        state = _make_state(pb, md_fit, cfg)
     launched = B
     harvested = np.zeros(B, dtype=bool)
 
@@ -557,10 +577,12 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
         return False
 
     while True:
-        stopped = state.stopped.cpu().numpy()
-        fresh_lanes = np.nonzero(stopped & ~harvested)[0]
-        if fresh_lanes.size and bookkeep(fresh_lanes, False):
-            return
+        with span("mc.harvest"):
+            count("host.syncs")
+            stopped = state.stopped.cpu().numpy()
+            fresh_lanes = np.nonzero(stopped & ~harvested)[0]
+            if fresh_lanes.size and bookkeep(fresh_lanes, False):
+                return
 
         want_more = (launched < opt.n_init) if fixed_n else True
         refillable = np.nonzero(harvested)[0]
@@ -569,10 +591,14 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
             if fixed_n:
                 nref = min(nref, opt.n_init - launched)
             lanes = refillable[:nref]
-            idx = torch.as_tensor(lanes, device=md_fit.device)
-            fresh = fresh_states(nref)
-            state = em_mod.tree_map(
-                lambda old, new: old.index_copy(0, idx, new), state, fresh)
+            with span("mc.init"):
+                count("host.syncs")     # the lanes' copy to the device
+                idx = torch.as_tensor(lanes, device=md_fit.device)
+                pb = starts(nref)
+            with span("mc.em"):
+                state = em_mod.tree_map(
+                    lambda old, new: old.index_copy(0, idx, new), state,
+                    _make_state(pb, md_fit, cfg))
             launched += nref
             harvested[lanes] = False
         elif harvested.all():
@@ -581,11 +607,13 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
         if opt.n_seconds and mesh_mod.past_deadline(t0, opt.n_seconds):
             # harvest the active lanes as timed out (best-so-far logL
             # counts, multiclust.c:538-560 with time_stop)
-            if not bookkeep(np.nonzero(~harvested)[0], True):
-                res.time_stop = True
+            with span("mc.harvest"):
+                if not bookkeep(np.nonzero(~harvested)[0], True):
+                    res.time_stop = True
             return
 
-        state = _segment(state, md_fit, cfg, segment)
+        with span("mc.em"):
+            state = _segment(state, md_fit, cfg, segment)
 
 
 def _single_init(gen, md, K, cfg, opt, codes, warm, md_score=None):
@@ -611,13 +639,14 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     whenever an init improves the best logL (best-so-far outputs,
     multiclust.c:584-600); ``quiet`` suppresses the per-init progress
     lines (bootstrap replicate fits)."""
-    cfg = cfg_from_options(opt, K, md)
-    md, codes = mesh_mod.as_block(md, cfg.mesh, codes)
-    res = MaximizeResult(K=K)
-    t0 = time.time()
-    progress = _make_progress(opt, K, t0, quiet)
-    plan = bucketed.plan_for(md) if cfg.model_shards == 1 else None
-    md_fit, md_score = _fit_data(md, cfg, plan)
+    with span("mc.plan"):
+        cfg = cfg_from_options(opt, K, md)
+        md, codes = mesh_mod.as_block(md, cfg.mesh, codes)
+        res = MaximizeResult(K=K)
+        t0 = time.time()
+        progress = _make_progress(opt, K, t0, quiet)
+        plan = bucketed.plan_for(md) if cfg.model_shards == 1 else None
+        md_fit, md_score = _fit_data(md, cfg, plan)
 
     if checkpoint_dir:
         from multiclust_tpu_torch.runtime import checkpoint as ckpt
@@ -632,12 +661,17 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     if isinstance(md_fit, BucketedData):
         res.buckets = md_fit.plan.describe()
     if K == 1:
-        params = _single_init(gen, md, K, cfg, opt, codes, warm, md_score)
-        state = em_mod.fit_k1(
-            _to_fit_layout(map_params(lambda t: t[None], params), md_fit,
-                           cfg), md_fit, cfg)
-        ll = float(state.logL[0])
-        res.best_params = lane_params(state.params, 0, cfg, md_fit)
+        with span("mc.init"):
+            params = _single_init(gen, md, K, cfg, opt, codes, warm,
+                                  md_score)
+        with span("mc.em"):
+            state = em_mod.fit_k1(
+                _to_fit_layout(map_params(lambda t: t[None], params),
+                               md_fit, cfg), md_fit, cfg)
+        with span("mc.harvest"):
+            count("host.syncs")
+            ll = float(state.logL[0])
+            res.best_params = lane_params(state.params, 0, cfg, md_fit)
         res.max_logL = res.first_max_logL = ll
         res.aic = aic_fn(ll, n_parameters)
         res.bic = bic_fn(ll, n_parameters, md.I_total)
@@ -670,8 +704,9 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     # -Q/-P warm start: every init identical (initialize_model,
     # rnd_init.c:74-76); one chain a round
     if warm is not None:
-        warm_b = map_params(lambda t: t[None],
-                            _pad_k(_warm_block(warm, md, cfg), cfg))
+        with span("mc.init"):
+            warm_b = map_params(lambda t: t[None],
+                                _pad_k(_warm_block(warm, md, cfg), cfg))
     if cfg.bi_repr_active:
         res.route = bi_route(1, md_fit, cfg, k_padded_size(K, 32)).describe()
     while True:
@@ -682,13 +717,14 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
             states, timed_out = fit_batch(warm_b, md_fit, cfg,
                                           n_seconds=opt.n_seconds,
                                           start_time=t0)
-        host, get = _harvest(states, cfg, md_fit)
-        done = _bookkeep_lane(
-            res, opt, n_parameters, md.I_total, float(host["logL"][0]),
-            bool(host["converged"][0]), int(host["n_iter"][0]),
-            bool(host["failed"][0]), bool(host["mono_viol"][0]),
-            lambda: get(0), timed_out, on_improve=on_improve,
-            progress=progress)
+        with span("mc.harvest"):
+            host, get = _harvest(states, cfg, md_fit)
+            done = _bookkeep_lane(
+                res, opt, n_parameters, md.I_total, float(host["logL"][0]),
+                bool(host["converged"][0]), int(host["n_iter"][0]),
+                bool(host["failed"][0]), bool(host["mono_viol"][0]),
+                lambda: get(0), timed_out, on_improve=on_improve,
+                progress=progress)
         # warm starts are deterministic; more chains are pointless unless
         # a count/target regime explicitly asks for them
         if (warm is not None and res.n_launched >= opt.n_init
@@ -760,24 +796,26 @@ def swept_maximize(gens_by_K, md: ModelData, opt: Options, n_parameters_fn,
     ``on_improve(K, res)`` fires as ``estimate_model``'s does.  Returns
     {K: MaximizeResult}."""
     ks = [K for K, _ in gens_by_K]
-    cfg = cfg_from_options(opt, max(ks), md)
-    t0 = time.time()
-    plan = bucketed.plan_for(md)
-    md_fit, md_score = _fit_data(md, cfg, plan)
-    width = lattice_lanes(max(ks), cfg)
-    groups = []
-    off = 0
-    for K, gen in gens_by_K:
-        B = _chains(opt, md_fit, K, static_cfg(cfg, K))
-        res = MaximizeResult(K=K, batch_chains=B,
-                             buckets=plan.describe() if plan else "")
-        groups.append(dict(K=K, gen=gen, B=B, off=off, res=res,
-                           harvested=np.zeros(B, dtype=bool), launched=B,
-                           done=False, n_parameters=n_parameters_fn(K),
-                           progress=_make_progress(opt, K, t0, quiet)))
-        off += B
-    route = (bi_route(off, md_fit, cfg, width).describe()
-             if cfg.bi_repr_active else "")
+    with span("mc.plan"):
+        cfg = cfg_from_options(opt, max(ks), md)
+        t0 = time.time()
+        plan = bucketed.plan_for(md)
+        md_fit, md_score = _fit_data(md, cfg, plan)
+        width = lattice_lanes(max(ks), cfg)
+        groups = []
+        off = 0
+        for K, gen in gens_by_K:
+            B = _chains(opt, md_fit, K, static_cfg(cfg, K))
+            res = MaximizeResult(K=K, batch_chains=B,
+                                 buckets=plan.describe() if plan else "")
+            groups.append(dict(K=K, gen=gen, B=B, off=off, res=res,
+                               harvested=np.zeros(B, dtype=bool),
+                               launched=B, done=False,
+                               n_parameters=n_parameters_fn(K),
+                               progress=_make_progress(opt, K, t0, quiet)))
+            off += B
+        route = (bi_route(off, md_fit, cfg, width).describe()
+                 if cfg.bi_repr_active else "")
 
     def draws(g, n):
         return _draw_init_batch(g["gen"], n, md, g["K"], cfg, opt, codes,
@@ -786,59 +824,72 @@ def swept_maximize(gens_by_K, md: ModelData, opt: Options, n_parameters_fn,
     def cat(parts):
         return map_params(lambda *t: torch.cat(t), *parts)
 
-    state = _make_state(cat([draws(g, g["B"]) for g in groups]), md_fit,
-                        cfg)
+    with span("mc.init"):
+        pb = cat([draws(g, g["B"]) for g in groups])
+    with span("mc.em"):
+        state = _make_state(pb, md_fit, cfg)
     while not all(g["done"] for g in groups):
-        stopped = state.stopped.cpu().numpy()
-        if any((stopped[g["off"]:g["off"] + g["B"]] & ~g["harvested"]).any()
-               for g in groups if not g["done"]):
-            host, get = _harvest(state, cfg, md_fit)
-            for g in groups:
-                if g["done"]:
-                    continue
-                sl = slice(g["off"], g["off"] + g["B"])
-                for lane in np.nonzero(stopped[sl] & ~g["harvested"])[0]:
-                    g["harvested"][lane] = True
-                    ln = g["off"] + int(lane)
-                    if _bookkeep_lane(
-                            g["res"], opt, g["n_parameters"], md.I_total,
-                            float(host["logL"][ln]),
-                            bool(host["converged"][ln]),
-                            int(host["n_iter"][ln]),
-                            bool(host["failed"][ln]),
-                            bool(host["mono_viol"][ln]),
-                            lambda ln=ln, K=g["K"]: get(ln, K), False,
-                            on_improve=((lambda r, K=g["K"]:
-                                         on_improve(K, r))
-                                        if on_improve else None),
-                            progress=g["progress"]):
-                        g["done"] = True
-                        break
+        with span("mc.harvest"):
+            count("host.syncs")
+            stopped = state.stopped.cpu().numpy()
+            if any((stopped[g["off"]:g["off"] + g["B"]]
+                    & ~g["harvested"]).any()
+                   for g in groups if not g["done"]):
+                host, get = _harvest(state, cfg, md_fit)
+                for g in groups:
+                    if g["done"]:
+                        continue
+                    sl = slice(g["off"], g["off"] + g["B"])
+                    fresh = np.nonzero(stopped[sl] & ~g["harvested"])[0]
+                    for lane in fresh:
+                        g["harvested"][lane] = True
+                        ln = g["off"] + int(lane)
+                        if _bookkeep_lane(
+                                g["res"], opt, g["n_parameters"],
+                                md.I_total,
+                                float(host["logL"][ln]),
+                                bool(host["converged"][ln]),
+                                int(host["n_iter"][ln]),
+                                bool(host["failed"][ln]),
+                                bool(host["mono_viol"][ln]),
+                                lambda ln=ln, K=g["K"]: get(ln, K), False,
+                                on_improve=((lambda r, K=g["K"]:
+                                             on_improve(K, r))
+                                            if on_improve else None),
+                                progress=g["progress"]):
+                            g["done"] = True
+                            break
 
         # refill each unfinished group's harvested lanes from its own
         # stream, as its serial loop does; one state update a pass
-        lanes, parts = [], []
-        for g in groups:
-            if g["done"] or g["launched"] >= opt.n_init:
-                continue
-            refillable = np.nonzero(g["harvested"])[0]
-            nref = min(refillable.size, opt.n_init - g["launched"])
-            if not nref:
-                continue
-            parts.append(draws(g, nref))
-            lanes.append(g["off"] + refillable[:nref])
-            g["launched"] += nref
-            g["harvested"][refillable[:nref]] = False
+        with span("mc.init"):
+            lanes, parts = [], []
+            for g in groups:
+                if g["done"] or g["launched"] >= opt.n_init:
+                    continue
+                refillable = np.nonzero(g["harvested"])[0]
+                nref = min(refillable.size, opt.n_init - g["launched"])
+                if not nref:
+                    continue
+                parts.append(draws(g, nref))
+                lanes.append(g["off"] + refillable[:nref])
+                g["launched"] += nref
+                g["harvested"][refillable[:nref]] = False
+            if parts:
+                count("host.syncs")     # the lanes' copy to the device
+                idx = torch.as_tensor(np.concatenate(lanes),
+                                      device=md_fit.device)
+                pb = cat(parts)
         if parts:
-            idx = torch.as_tensor(np.concatenate(lanes),
-                                  device=md_fit.device)
-            fresh = _make_state(cat(parts), md_fit, cfg)
-            state = em_mod.tree_map(
-                lambda old, new: old.index_copy(0, idx, new), state, fresh)
+            with span("mc.em"):
+                state = em_mod.tree_map(
+                    lambda old, new: old.index_copy(0, idx, new), state,
+                    _make_state(pb, md_fit, cfg))
         elif all(g["done"] or g["harvested"].all() for g in groups):
             break  # nothing runs and no more chains are wanted
         if not all(g["done"] for g in groups):
-            state = _segment(state, md_fit, cfg, segment)
+            with span("mc.em"):
+                state = _segment(state, md_fit, cfg, segment)
 
     out = {}
     for g in groups:
@@ -872,7 +923,8 @@ def _fit_serial_traced(gen, md, md_fit, md_score, K, cfg, opt, codes, warm,
     from multiclust_tpu_torch.opt.driver import fit
     from multiclust_tpu_torch.runtime.observe import make_trace_printer
 
-    params = _single_init(gen, md, K, cfg, opt, codes, warm, md_score)
+    with span("mc.init"):
+        params = _single_init(gen, md, K, cfg, opt, codes, warm, md_score)
     out = fit(_to_fit_layout(params, md_fit, cfg), md_fit, cfg,
               n_seconds=opt.n_seconds, start_time=t0,
               trace=make_trace_printer(opt.verbosity))
@@ -902,6 +954,7 @@ def hard_partition(params: Params, md: ModelData, admixture: bool,
                    eta_constrained: bool = False, mesh=None) -> np.ndarray:
     """MAP cluster per individual (of a block's rows): the argmax of
     ``posterior_mass``."""
+    count("host.syncs")
     return torch.argmax(posterior_mass(params, md, admixture,
                                        eta_constrained, mesh),
                         dim=1).cpu().numpy()

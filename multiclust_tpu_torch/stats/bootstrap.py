@@ -62,6 +62,7 @@ from multiclust_tpu_torch.model import bucketed
 from multiclust_tpu_torch.model.common import Lattice, ModelData, Params, \
     column_window, k_padded_size, map_params
 from multiclust_tpu_torch.model.admixture import bi_route
+from multiclust_tpu_torch.ops.build import count
 from multiclust_tpu_torch.runtime import checkpoint as ckpt
 from multiclust_tpu_torch.runtime import mesh as mesh_mod
 from multiclust_tpu_torch.runtime import multistart as ms
@@ -219,6 +220,7 @@ def replicate_chunk(md: ModelData, n_chains: int, n_reps: int,
     of a ``mesh`` takes the least over the ranks."""
     if md.device.type != "cuda":
         return n_reps
+    count("host.mem_queries")
     free, _ = torch.cuda.mem_get_info(md.device)
     per_rep = md.x.numel() * md.x.element_size() + n_chains * bytes_per_chain
     chunk = max(1, min(n_reps, int(CHAIN_MEMORY_SHARE * free) // per_rep))

@@ -1482,7 +1482,7 @@ def test_bucketed_api_fits_on_the_card(tmp_path, label, kw):
                                    rtol=0, atol=1e-5)
     build.reset_launch_counts()
     again = fit_model_data(md, 2, **opts)
-    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    assert not any(build.kernel_launches().values()), build.LAUNCHES
     for K, res in again.estimate.per_K.items():
         assert torch.equal(res.best_params.p,
                            out.estimate.per_K[K].best_params.p)
@@ -2419,7 +2419,7 @@ def test_mixture_step_above_1024_lanes_launches_nothing(M, capsys):
     capsys.readouterr()
     got = mixture.em_step(params, md, cfg)
     torch.cuda.synchronize()
-    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+    assert not any(build.kernel_launches().values()), build.LAUNCHES
     out = capsys.readouterr()
     assert out.out == out.err == ""
     off = EMConfig(admixture=False, use_pallas="off", biallelic=M == 2,
