@@ -79,7 +79,9 @@ each raising on failure:
 13. biobank fits: ``api.fit_model_data`` on that panel, 2 chains, plain EM
    with the adaptive interval and then SQUAREM, iteration cap 50, and one
    plain-EM fit at 2048 x 524288, which the router sends down the chunked
-   loop; the route, iterations/s, cells/s and the peak allocation;
+   loop; the route, iterations/s, cells/s and the peak allocation; the
+   admixture starts' counts launch once a window of each start (16
+   windows a start on both panels);
 14. biobank reference: a warm-start 30-iteration fit at 256 x 131072
    through the kernels, held to the float64 CPU fit;
 15. biobank mixture: the mixture step and the sweep at 8192 x 131072, 2
@@ -224,7 +226,15 @@ each raising on failure:
    the generic p epilogue, the mixture rows pass, its wide scores and
    softmax, and the mixture finish (narrow, and its eta half at 160
    lanes), their records in the kernels line
-   named ``(kmask)``, their bounds from each chain's own K.
+   named ``(kmask)``, their bounds from each chain's own K;
+24. the admixture start's counts (csrc/allele_counts.cu): one window of
+   the HGDP 650Y panel as a start draws it (938 x 71,544 loci, 2 copies,
+   K = 7, 0.2 % of the genotypes missing, int8 codes a column slice of a
+   wider panel, the raw int64 draw), then K = 200 at M = 4 and K = 1024
+   at M = 2: the kernel's copies and pc equal to the plain version's, its
+   median CUDA-event ms beside its bound (9 bytes a copy and the outputs
+   over 3.35 TB/s) and the plain version's; the records' launches are
+   those of the biobank fits (phase 13).
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -1744,11 +1754,21 @@ def phase_biobank_fits(build, dev, where):
     panels made on the card: 8192 x 131072 under plain EM and SQUAREM (the
     streamed route), 2048 x 524288 under plain EM (the chunked loop)."""
     from multiclust_tpu_torch.api import fit_model_data
+    from multiclust_tpu_torch.init.random import init_window
     from multiclust_tpu_torch.model.common import model_data_from_planes
     from multiclust_tpu_torch.route_times import device_panel
 
     base = dict(admixture=True, min_K=K_FULL, max_K=K_FULL, n_init=2,
                 seed=3, verbosity=2)
+
+    def count_windows(md, fits):
+        # every start counts each window of its loci in one launch
+        windows = -(-md.L // init_window(md, 2))
+        starts = sum(r.n_launched for r in fits)
+        print(f"admixture starts' counts: {starts} starts x {windows} "
+              f"windows of {md.I} x {md.L}", flush=True)
+        assert windows > 1 and starts > 0, (windows, starts)
+        return starts * windows
 
     def timed_fit(md, label, route, **kw):
         torch.cuda.reset_peak_memory_stats()
@@ -1770,20 +1790,27 @@ def phase_biobank_fits(build, dev, where):
     fits = [timed_fit(md, "biobank plain EM", "streamed", max_iter=50),
             timed_fit(md, "biobank SQUAREM", "streamed", max_iter=50,
                       accel_scheme=1)]
-    del md
-    torch.cuda.empty_cache()
     stream_steps = sum(r.n_iter_all for r in fits) // 2
     assert build.LAUNCHES["mc_fullstep_bi_rows_seg"] >= stream_steps > 0
     assert not build.LAUNCHES["fullstep_bi_chunked"]
+    counts = count_windows(md, fits)
+    assert build.LAUNCHES["mc_allele_counts"] == counts, \
+        (build.LAUNCHES["mc_allele_counts"], counts)
+    del md
+    torch.cuda.empty_cache()
     md = model_data_from_planes(*device_panel(101, I_NARROW, L_NARROW,
                                               K_FULL, 0.01, dev))
     narrow = timed_fit(md, "narrow plain EM", "chunked", max_iter=20)
+    counts += count_windows(md, [narrow])
     del md
     torch.cuda.empty_cache()
     launches = {name: build.LAUNCHES[name]
-                for name in STREAM_KERNELS + ("fullstep_bi_chunked",)}
+                for name in STREAM_KERNELS + ("fullstep_bi_chunked",
+                                              "mc_allele_counts")}
     print(f"launches in the biobank fits: {build.kernel_launches()}",
           flush=True)
+    assert launches["mc_allele_counts"] == counts, \
+        (launches["mc_allele_counts"], counts)
     # one launch of each kernel serves the whole chain batch (2 lanes),
     # and the chunked loop makes one for each of its windows
     steps = stream_steps + narrow.n_iter_all // 2
@@ -4525,6 +4552,61 @@ def phase_sweep(fb, fs, mb, build, dev, where):
     return recs
 
 
+# phase 24: the admixture start's counts
+
+COUNT_SHAPE = (938, 71544, 2)     # a window of hgdp650k's start, 2 copies
+COUNT_CASES = ((7, 2), (200, 4), (1024, 2))  # (K, M)
+
+
+def phase_allele_counts(build, dev, where, launches):
+    """Phase 24: ``init/random.allele_partition_counts`` on the card
+    against its plain version, exact, at a window of hgdp650k's start;
+    returns the kernel's records, one a (K, M) case, each with
+    ``launches``, the kernel's launches in the biobank fits (one a window
+    of each start)."""
+    from multiclust_tpu_torch.init import random as rinit
+
+    t0 = time.time()
+    I, L, P = COUNT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(24)
+    records = []
+    for K, M in COUNT_CASES:
+        panel = torch.randint(0, M, (I, L + 64, P), generator=gen,
+                              device=dev, dtype=torch.int8)
+        gone = torch.rand((I, L + 64), generator=gen, device=dev) < 0.002
+        panel[gone] = -1                            # whole genotypes
+        codes = panel[:, 32:32 + L]
+        labels = torch.randint(0, K, (I, L, P), generator=gen, device=dev)
+        before = build.LAUNCHES["mc_allele_counts"]
+        got = rinit.allele_partition_counts(labels, codes, M, K,
+                                            torch.float32)
+        want = rinit.allele_partition_counts_reference(labels, codes, M, K,
+                                                       torch.float32)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["mc_allele_counts"] == before + 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (K, M)
+        ms = median_ms(lambda: rinit.allele_partition_counts(
+            labels, codes, M, K, torch.float32))
+        plain_ms = median_ms(lambda: rinit.allele_partition_counts_reference(
+            labels, codes, M, K, torch.float32), n=5, warm=1)
+        bnd = bound(tensors_bytes(labels, codes) + 4 * (I * K + K * L * M),
+                    0)
+        print(f"allele counts {I} x {L} x {P}, K={K}, M={M}: kernel "
+              f"{ms:.3f} ms against {bnd[0]:.3f} ms ({bnd[1]}): "
+              f"{100 * bnd[0] / ms:.1f} %; plain {plain_ms:.3f} ms; exact; "
+              f"on {where}", flush=True)
+        records.append(kernel_record(
+            f"allele_counts K={K} M={M}",
+            "multiclust_tpu_torch/csrc/allele_counts.cu",
+            "none (the JAX package counts with XLA one-hot sums, "
+            "multiclust_tpu/init/random.py:148-158)",
+            launches, 0.0, (ms, plain_ms), bnd))
+        del panel, codes, labels, got, want
+        torch.cuda.empty_cache()
+    print(f"allele counts phase: {time.time() - t0:.1f} s", flush=True)
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4618,6 +4700,8 @@ def main() -> int:
     wide_records, wide_mesh = phase_wide(fb, fs, build, dev, where)
     wide_mix_records = phase_wide_mixture(mb, build, dev, where)
     masked_records = phase_sweep(fb, fs, mb, build, dev, where)
+    count_records = phase_allele_counts(build, dev, where,
+                                        bio_launches["mc_allele_counts"])
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
@@ -4689,6 +4773,9 @@ def main() -> int:
     # the masked kernels (a per-chain kmask), with their launches in the
     # mixed-K sweeps and their times on mixed-K batches at those shapes
     kernels += masked_records
+    # the admixture start's counts, with their launches in the biobank
+    # fits
+    kernels += count_records
     mesh_entry = mesh_record(mesh_results)
     mesh_entry.update(ingest_record(ingest_results))
     mesh_entry.update(wide_mesh)

@@ -23,6 +23,13 @@ zero-padded to the lattice's lanes and carrying their ``kmask``; Rand-EM
 scores their candidates on that layout, through the masked step of the
 lattice's config.
 
+The counts of a labelled window (``allele_partition_counts``) are one
+launch of a hand-written CUDA kernel on the card (csrc/allele_counts.cu;
+no host read) and the plain version's scatter and bincount on the CPU;
+integers both ways, so the starts are the same bit for bit.  A start hands
+the kernel the raw draw where every copy's label is drawn: it skips
+missing copies itself.
+
 Under a mesh (runtime/mesh.py) ``md`` and ``codes`` are this rank's block
 of the panel (a whole panel given under a mesh is sliced first,
 ``mesh.as_block``).  Every rank makes the whole panel's draws from the same
@@ -42,6 +49,7 @@ import torch
 from multiclust_tpu_torch.config import InitMethod, InitProcedure
 from multiclust_tpu_torch.model.common import EMConfig, ModelData, Params, \
     column_window, make_kmask, map_params, pad_params_k
+from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import count
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     as_block, host_max, sum_over, world_min
@@ -132,8 +140,9 @@ def parameters_from_partition_mixture(I_K: Tensor, md: ModelData,
 # admixture model
 
 # a start holds about this many bytes of int64 temporaries per allele copy
-# (labels, matches, draws, slots, bin indices); a panel whose I x L x P
-# copies need more than the budget is drawn one window of loci at a time
+# (labels, matches, draws; the plain counts' slots and bin indices, which
+# the CUDA counts do without); a panel whose I x L x P copies need more
+# than the budget is drawn one window of loci at a time
 INIT_BYTES_PER_COPY = 64
 INIT_BYTES = 8 << 30
 
@@ -161,7 +170,10 @@ def _window_labels(gen: torch.Generator, md: ModelData, codes: Tensor,
     m0): the first row of ``codes`` in the panel, its first locus in the
     window and in ``md``.  Every draw is made for the whole window, so the
     generator's stream is that of the unsharded start, and the block of
-    the draws is kept.  ``n_max`` is the panel's largest n_alleles."""
+    the draws is kept.  ``n_max`` is the panel's largest n_alleles.
+    Where every copy's label is the random draw, the draw itself: a
+    missing copy keeps its label, which the counts skip; elsewhere -1 at
+    missing copies."""
     I, lo, hi = window
     r0, a, m0 = own
     Ib, Lb, _ = codes.shape
@@ -172,7 +184,7 @@ def _window_labels(gen: torch.Generator, md: ModelData, codes: Tensor,
                              generator=gen, device=dev)[r0:r0 + Ib, a:a + Lb]
 
     if method == InitMethod.RANDOM_PARTITION or (K > 1 and n_max < K):
-        return torch.where(codes >= 0, draw(), -1)
+        return draw()
     if K == 1:
         return torch.where(codes >= 0, 0, -1)
     M = md.M
@@ -193,14 +205,28 @@ def _window_labels(gen: torch.Generator, md: ModelData, codes: Tensor,
     return torch.where(codes >= 0, lab, -1)
 
 
+def _allele_labels(gen: torch.Generator, md: ModelData, codes: Tensor,
+                   K: int, method: InitMethod, lo: int = 0,
+                   hi: int = None) -> Tensor:
+    """The labels of the copies ``codes`` of the loci [lo, hi) of ``md``
+    (by default as many as ``codes`` has), drawn whole, to be counted:
+    ``_window_labels`` of one window."""
+    hi = lo + codes.shape[1] if hi is None else hi
+    n_max = 0
+    if method != InitMethod.RANDOM_PARTITION:
+        count("host.syncs")
+        n_max = int(md.n_alleles.max())
+    return _window_labels(gen, md, codes, K, method,
+                          (codes.shape[0], lo, hi), (0, 0, lo), n_max)
+
+
 def random_allele_partition(gen: torch.Generator, md: ModelData,
                             codes: Tensor, K: int) -> Tensor:
     """Assign every observed allele copy to a random cluster
     (random_allele_partition, rnd_init.c:456-482).  Returns [I, L, P]
     cluster labels (-1 for missing copies)."""
-    I, L, _ = codes.shape
-    return _window_labels(gen, md, codes, K, InitMethod.RANDOM_PARTITION,
-                          (I, 0, L), (0, 0, 0), 0)
+    return torch.where(codes >= 0, _allele_labels(
+        gen, md, codes, K, InitMethod.RANDOM_PARTITION), -1)
 
 
 def random_allele_center(gen: torch.Generator, md: ModelData,
@@ -209,19 +235,18 @@ def random_allele_center(gen: torch.Generator, md: ModelData,
     """Per-locus random center alleles; copies matching a center join its
     cluster, the others are assigned at random (random_allele_center,
     rnd_init.c:496-580).  ``codes`` may cover only the loci [lo, hi) of
-    ``md``."""
+    ``md``.  Returns -1 for missing copies."""
     hi = md.L if hi is None else hi
-    count("host.syncs")
-    return _window_labels(gen, md, codes, K, InitMethod.RANDOM_CENTERS,
-                          (codes.shape[0], lo, hi), (0, 0, lo),
-                          int(md.n_alleles.max()))
+    return torch.where(codes >= 0, _allele_labels(
+        gen, md, codes, K, InitMethod.RANDOM_CENTERS, lo, hi), -1)
 
 
-def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
-                            dtype: torch.dtype):
-    """Exact counts of a labelled window of loci: copies [I, K], the
-    copies of each individual given to each cluster, and pc [K, L, M], the
-    copies of each allele slot given to each cluster."""
+def allele_partition_counts_reference(labels: Tensor, codes: Tensor,
+                                      M: int, K: int, dtype: torch.dtype):
+    """Plain version of ``allele_partition_counts``: a scatter of ones
+    into copies and a bincount of the copies' (cluster, locus, slot)
+    bins; on CUDA tensors the bincount reads its input's range on the
+    host."""
     I, L, P = codes.shape
     dev = codes.device
     valid = codes >= 0
@@ -237,6 +262,41 @@ def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
     pc = pc.reshape(K + 1, L, M + 1)[:K, :, :M].to(dtype)
     return copies[:, :K], pc
 
+
+def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
+                            dtype: torch.dtype):
+    """Exact counts of a labelled window of loci: copies [I, K], the
+    copies of each individual given to each cluster, and pc [K, L, M], the
+    copies of each allele slot given to each cluster.  A missing copy
+    (code < 0) is skipped whatever its label, so ``labels`` may be the raw
+    draw.  On CUDA one launch of ``mc_allele_counts``
+    (csrc/allele_counts.cu), which reads ``labels`` (int64) and ``codes``
+    (int8 or int16) in place at their row strides, their L x P axis
+    contiguous, and reads nothing back to the host; on the CPU the plain
+    version."""
+    if not codes.is_cuda:
+        return allele_partition_counts_reference(labels, codes, M, K, dtype)
+    I, L, P = codes.shape
+    dev = codes.device
+    for name, t, types in (("labels", labels, (torch.int64,)),
+                           ("codes", codes, (torch.int8, torch.int16))):
+        if (t.device != dev or t.dtype not in types
+                or tuple(t.shape) != (I, L, P)
+                or (L > 1 and t.stride(1) != P)
+                or (P > 1 and t.stride(2) != 1)):
+            raise ValueError(
+                f"{name}: {' or '.join(map(str, types))} {(I, L, P)} on "
+                f"{dev} with a contiguous L x P axis expected, got "
+                f"{t.dtype} {tuple(t.shape)} at strides {t.stride()} on "
+                f"{t.device}")
+    copies = torch.zeros((I, K), dtype=torch.int32, device=dev)
+    pc = torch.zeros((K, L, M), dtype=torch.int32, device=dev)
+    if codes.numel():
+        build.launch("mc_allele_counts", dev, labels.data_ptr(),
+                     codes.data_ptr(), copies.data_ptr(), pc.data_ptr(),
+                     I, L, P, M, K, labels.stride(0), codes.stride(0),
+                     codes.element_size())
+    return copies.to(dtype), pc.to(dtype)
 
 
 def parameters_from_allele_counts(copies: Tensor, pc: Tensor,
@@ -270,12 +330,6 @@ def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
     copies, pc = allele_partition_counts(labels, codes, md.M, K, md.dtype)
     return parameters_from_allele_counts(copies, pc, md, L * P,
                                          eta_constrained)
-
-
-def _allele_labels(gen, md, codes, K, method):
-    if method == InitMethod.RANDOM_PARTITION:
-        return random_allele_partition(gen, md, codes, K)
-    return random_allele_center(gen, md, codes, K)
 
 
 def windowed_allele_start(gen: torch.Generator, md: ModelData,

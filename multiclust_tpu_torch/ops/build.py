@@ -29,6 +29,7 @@ BUILD_DIR = PKG_DIR / "build"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 
 # argtypes of every exported launcher; each returns a cudaError_t as int
 _SIGNATURES = {
@@ -63,6 +64,8 @@ _SIGNATURES = {
     "mc_mix_finish": [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
                       _I, _I, _P],
+    "mc_allele_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _I,
+                         _P],
 }
 
 # Launches counted under a name of their own as well as the launcher's

@@ -412,6 +412,45 @@ def test_windowed_init_counts_are_exact(method):
     assert torch.equal(a.eta, b.eta) and torch.equal(a.p, b.p)
 
 
+@pytest.mark.parametrize("method", [InitMethod.RANDOM_CENTERS,
+                                    InitMethod.RANDOM_PARTITION])
+def test_init_counts_on_the_cpu_take_the_plain_path(method):
+    """On CPU tensors ``allele_partition_counts`` is the plain version: it
+    launches no kernel and counts its bincount's host reads; a raw draw
+    (missing copies keep their label) counts as the masked labels do, at
+    the column slice of a window."""
+    from multiclust_tpu_torch.ops import build
+
+    md, _, _ = _md(59, I=30, L=200)
+    K = 3
+    codes = rinit.codes_from_counts(md.x, md.miss, 2)
+    assert bool((codes < 0).any())
+    gen = lambda: torch.Generator().manual_seed(4)
+    masked = rinit.random_allele_partition(gen(), md, codes, K)
+    raw = rinit._allele_labels(gen(), md, codes, K,
+                               InitMethod.RANDOM_PARTITION)
+    assert torch.equal(torch.where(codes >= 0, raw, -1), masked)
+    assert bool((raw[codes < 0] >= 0).all())
+    before = dict(build.LAUNCHES)
+    window = (slice(None), slice(40, 104))
+    got = rinit.allele_partition_counts(raw[window], codes[window], md.M, K,
+                                        md.dtype)
+    assert build.LAUNCHES["host.syncs"] == before["host.syncs"] + \
+        rinit.BINCOUNT_SYNCS
+    assert build.kernel_launches() == {
+        n: v for n, v in before.items() if n not in build.COUNTERS}
+    want = rinit.allele_partition_counts_reference(
+        masked[window], codes[window], md.M, K, md.dtype)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # the start that counts the raw draw is the start of the masked labels
+    start = rinit.random_initialize(gen(), md, K, method, codes)
+    lab = (rinit.random_allele_partition(gen(), md, codes, K)
+           if method == InitMethod.RANDOM_PARTITION
+           else rinit.random_allele_center(gen(), md, codes, K))
+    again = rinit.parameters_from_allele_partition(lab, codes, md, K)
+    assert torch.equal(start.eta, again.eta) and torch.equal(start.p, again.p)
+
+
 def test_model_data_from_planes_is_the_uploaded_panel():
     counts, miss, _, _ = _panel(57, I=20, L=50)
     want = make_model_data(counts, miss, np.ones((50, 2), bool),

@@ -2677,3 +2677,101 @@ def test_merged_sweep_on_the_card(admixture):
         assert abs(got[K].max_logL - want[K].max_logL) <= floor, (
             K, got[K].max_logL, want[K].max_logL, floor)
         assert got[K].best_params.kmask is None
+
+
+# ---------------------------------------------------------------------------
+# the admixture start's allele-partition counts (csrc/allele_counts.cu)
+
+def _count_inputs(seed, I, L, M, K, small, raw, dev, ploidy=2):
+    """A window of loci cut from a wider panel as the starts cut it: codes
+    [I, L, P] a column slice of [I, L + 9, P] with 3 % of the genotypes
+    missing, labels a block of a wider draw (``raw``: missing copies keep
+    their draw) or its ``torch.where`` with -1 at missing copies."""
+    rng = np.random.default_rng(seed)
+    full = rng.integers(0, M, size=(I, L + 9, ploidy))
+    full[rng.random((I, L + 9)) < 0.03] = -1
+    codes = torch.as_tensor(full, device=dev).to(small)[:, 4:4 + L]
+    draw = torch.randint(0, K, (I + 5, L + 6, ploidy), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed))[2:2 + I, 3:3 + L]
+    labels = draw if raw else torch.where(codes >= 0, draw, -1)
+    return labels, codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 7, 200, 1024])
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("small", [torch.int8, torch.int16])
+@pytest.mark.parametrize("raw", [True, False])
+def test_allele_counts_kernel_matches_plain(K, M, small, raw):
+    """One launch of ``mc_allele_counts`` gives the plain version's copies
+    and pc exactly, on a column slice of the codes at its row stride with
+    missing copies, from the raw draw and from the masked labels."""
+    from multiclust_tpu_torch.init import random as rinit
+
+    dev = _cuda()
+    labels, codes = _count_inputs(K + M, 301, 777, M, K, small, raw, dev)
+    assert not codes.is_contiguous() and bool((codes < 0).any())
+    before = dict(build.LAUNCHES)
+    got = rinit.allele_partition_counts(labels, codes, M, K, torch.float32)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mc_allele_counts"] == \
+        before["mc_allele_counts"] + 1
+    assert build.LAUNCHES["host.syncs"] == before["host.syncs"]
+    masked = torch.where(codes >= 0, labels, -1)
+    want = rinit.allele_partition_counts_reference(masked, codes, M, K,
+                                                   torch.float32)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    assert float(got[0].sum()) == float((codes >= 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,M,K,constrained", [
+    ("RANDOM_CENTERS", 2, 7, False),      # SNPs at K > 2: the raw draw
+    ("RANDOM_PARTITION", 2, 3, True),
+    ("RANDOM_CENTERS", 4, 3, False),      # matched centers: masked labels
+])
+def test_windowed_start_counts_on_the_card(monkeypatch, method, M, K,
+                                           constrained):
+    """A whole admixture start on the card, drawn in several windows of
+    loci, equals bit for bit (eta and p) the start of the same generator
+    seed counted by the plain version; the kernel launches once a window
+    and leaves out the plain version's two host reads a window."""
+    from multiclust_tpu_torch.config import InitMethod
+    from multiclust_tpu_torch.convert import model_data_from_numpy
+    from multiclust_tpu_torch.init import random as rinit
+
+    dev = _cuda()
+    rng = np.random.default_rng(K + M)
+    I, L = 300, 1000
+    miss = np.where(rng.random((I, L)) < 0.02, 2, 0)   # whole genotypes
+    counts = rng.multinomial(2, np.full(M, 1 / M), size=(I, L))
+    counts[miss > 0] = 0
+    md = model_data_from_numpy(counts, miss, np.ones((L, M), bool),
+                               np.full(L, M), device=dev,
+                               dtype=torch.float32)
+    codes = rinit.codes_from_counts(md.x, md.miss, 2)
+    budget = rinit.INIT_BYTES_PER_COPY * I * 2 * 96
+    n_win = -(-L // rinit.init_window(md, 2, budget))
+    assert n_win == 11
+    kw = dict(eta_constrained=constrained, budget=budget)
+
+    def start():
+        gen = torch.Generator(device=dev).manual_seed(21)
+        before = dict(build.LAUNCHES)
+        out = rinit.random_initialize(gen, md, K, InitMethod[method], codes,
+                                      **kw)
+        torch.cuda.synchronize()
+        return out, {n: build.LAUNCHES[n] - before[n]
+                     for n in ("mc_allele_counts", "host.syncs")}
+
+    got, counted = start()
+    monkeypatch.setattr(rinit, "allele_partition_counts",
+                        rinit.allele_partition_counts_reference)
+    want, plain = start()
+    assert torch.equal(got.eta, want.eta) and torch.equal(got.p, want.p)
+    assert counted["mc_allele_counts"] == n_win
+    assert plain["mc_allele_counts"] == 0
+    assert plain["host.syncs"] - counted["host.syncs"] == \
+        rinit.BINCOUNT_SYNCS * n_win
