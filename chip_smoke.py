@@ -40,8 +40,10 @@ each raising on failure:
    an unaligned panel, rerun bit-equal, and their compiler report;
 7. generic fits: ``api.fit_dataset`` on a simulated 16384 x 2048, M=4,
    K=20 panel with 1 % missing (plain EM with the adaptive interval, then
-   SQUAREM), with the generic kernels' launch counts; then a small
-   warm-start M=5 fit held to the float64 CPU path;
+   SQUAREM), with the generic kernels' launch counts and the codes'
+   counts kernel's (``mc_allele_counts``: one launch a window of each
+   start, every window counted); then a small warm-start M=5 fit held to
+   the float64 CPU path;
 8. generic CLI: a 512 x 200 STRUCTURE file with 3-6 alleles per locus and
    5 % missing, SQUAREM from Rand-EM starts;
 9. mixture kernels: the biallelic mixture step (rows pass, columns pass,
@@ -81,7 +83,8 @@ each raising on failure:
    plain-EM fit at 2048 x 524288, which the router sends down the chunked
    loop; the route, iterations/s, cells/s and the peak allocation; the
    admixture starts' counts launch once a window of each start (16
-   windows a start on both panels);
+   windows a start on both panels), read from the int8 count planes
+   (``mc_allele_counts_planes``; the codes' kernel not at all);
 14. biobank reference: a warm-start 30-iteration fit at 256 x 131072
    through the kernels, held to the float64 CPU fit;
 15. biobank mixture: the mixture step and the sweep at 8192 x 131072, 2
@@ -233,8 +236,14 @@ each raising on failure:
    wider panel, the raw int64 draw), then K = 200 at M = 4 and K = 1024
    at M = 2: the kernel's copies and pc equal to the plain version's, its
    median CUDA-event ms beside its bound (9 bytes a copy and the outputs
-   over 3.35 TB/s) and the plain version's; the records' launches are
-   those of the biobank fits (phase 13).
+   over 3.35 TB/s) and the plain version's; then the planes' variant
+   (``allele_partition_counts_planes``) on the same HGDP window at K = 7
+   and on a 10^6 x 64 window of TeraStructure's panel at K = 6, the
+   planes cut at a column offset and a row block: equal to the codes'
+   kernel and to the plain version, both kernels timed (8 bytes a copy,
+   2 a genotype and the outputs over 3.35 TB/s); the codes' kernel's
+   records carry its launches in the generic fits (phase 7), the planes'
+   kernel's its launches in the biobank fits (phase 13).
 
 Every kernel's record carries its bound: the least time this card could
 take for the same work, the larger of the bytes the call must move (its
@@ -1059,7 +1068,13 @@ def phase_fit_generic(build, dev, where):
     for name, n in launches.items():
         assert n >= steps > 0, (name, n, steps)
     assert not any(build.LAUNCHES[name] for name in BI_KERNELS)
-    return launches
+    # the multi-allelic starts count each window from its codes
+    counts, windows = (build.LAUNCHES[name] for name in ("mc_allele_counts",
+                                                         "init.windows"))
+    assert counts == windows >= plain.n_launched + squarem.n_launched, \
+        (counts, windows)
+    assert not build.LAUNCHES["mc_allele_counts_planes"]
+    return dict(launches, mc_allele_counts=counts)
 
 
 def phase_reference_generic(dev):
@@ -1794,8 +1809,10 @@ def phase_biobank_fits(build, dev, where):
     assert build.LAUNCHES["mc_fullstep_bi_rows_seg"] >= stream_steps > 0
     assert not build.LAUNCHES["fullstep_bi_chunked"]
     counts = count_windows(md, fits)
-    assert build.LAUNCHES["mc_allele_counts"] == counts, \
-        (build.LAUNCHES["mc_allele_counts"], counts)
+    # the int8 planes' starts count from the planes: no codes
+    assert build.LAUNCHES["mc_allele_counts_planes"] == counts, \
+        (build.LAUNCHES["mc_allele_counts_planes"], counts)
+    assert not build.LAUNCHES["mc_allele_counts"]
     del md
     torch.cuda.empty_cache()
     md = model_data_from_planes(*device_panel(101, I_NARROW, L_NARROW,
@@ -1806,11 +1823,12 @@ def phase_biobank_fits(build, dev, where):
     torch.cuda.empty_cache()
     launches = {name: build.LAUNCHES[name]
                 for name in STREAM_KERNELS + ("fullstep_bi_chunked",
-                                              "mc_allele_counts")}
+                                              "mc_allele_counts_planes")}
     print(f"launches in the biobank fits: {build.kernel_launches()}",
           flush=True)
-    assert launches["mc_allele_counts"] == counts, \
-        (launches["mc_allele_counts"], counts)
+    assert launches["mc_allele_counts_planes"] == counts, \
+        (launches["mc_allele_counts_planes"], counts)
+    assert not build.LAUNCHES["mc_allele_counts"]
     # one launch of each kernel serves the whole chain batch (2 lanes),
     # and the chunked loop makes one for each of its windows
     steps = stream_steps + narrow.n_iter_all // 2
@@ -2054,7 +2072,7 @@ def phase_bootstrap(build, dev, where, cli_path):
         maxll = {}
         for k in (K - 1, K):
             cfg = cfg_from_options(opt, k, md)
-            starts = [bs.replicate_starts(seed, r, k, rep, cfg, opt, 2)
+            starts = [bs.replicate_starts(seed, r, k, rep, cfg, opt)
                       for r, rep in enumerate(reps)]
             state, _ = fit_batch(starts[0], bs._fit_data(reps[0], cfg), cfg)
             maxll[k] = float(state.logL.max())
@@ -4556,14 +4574,19 @@ def phase_sweep(fb, fs, mb, build, dev, where):
 
 COUNT_SHAPE = (938, 71544, 2)     # a window of hgdp650k's start, 2 copies
 COUNT_CASES = ((7, 2), (200, 4), (1024, 2))  # (K, M)
+# windows of a start read from the count planes: hgdp650k's, and one of
+# TeraStructure's 10^6 x 10^4 panel (about 64 loci); (I, L, K)
+PLANE_CASES = ((938, 71544, 7), (1_000_000, 64, 6))
 
 
-def phase_allele_counts(build, dev, where, launches):
+def phase_allele_counts(build, dev, where, launches, plane_launches):
     """Phase 24: ``init/random.allele_partition_counts`` on the card
-    against its plain version, exact, at a window of hgdp650k's start;
-    returns the kernel's records, one a (K, M) case, each with
-    ``launches``, the kernel's launches in the biobank fits (one a window
-    of each start)."""
+    against its plain version, exact, at a window of hgdp650k's start,
+    then the planes' variant (``plane_counts_case``); returns the kernels'
+    records, one a case, the codes' kernel's with ``launches``, its
+    launches in the generic fits, the planes' kernel's with
+    ``plane_launches``, its launches in the biobank fits (one a window of
+    each start)."""
     from multiclust_tpu_torch.init import random as rinit
 
     t0 = time.time()
@@ -4603,8 +4626,66 @@ def phase_allele_counts(build, dev, where, launches):
             launches, 0.0, (ms, plain_ms), bnd))
         del panel, codes, labels, got, want
         torch.cuda.empty_cache()
+    for I, L, K in PLANE_CASES:
+        records.append(plane_counts_case(build, dev, where, gen, I, L, K,
+                                         plane_launches))
     print(f"allele counts phase: {time.time() - t0:.1f} s", flush=True)
     return records
+
+
+def plane_counts_case(build, dev, where, gen, I, L, K, launches):
+    """``allele_partition_counts_planes`` at one window of I x L genotypes
+    cut from wider planes (at a column offset and a row block), against
+    the codes' kernel on the codes ``codes_from_counts`` gives and against
+    the plain version, exact; both kernels timed.  Its record, with the
+    planes' kernel's launches in the biobank fits."""
+    from multiclust_tpu_torch.init import random as rinit
+
+    P = 2
+    wide = (I + 8, L + 64)
+    miss = (torch.rand(wide, generator=gen, device=dev) < 0.002).to(
+        torch.int8) * 2                              # whole genotypes
+    x0 = (torch.rand(wide, generator=gen, device=dev) < 0.5).to(torch.int8)
+    x0 += (torch.rand(wide, generator=gen, device=dev) < 0.5).to(torch.int8)
+    x0 = torch.where(miss > 0, torch.zeros_like(x0), x0)
+    cut = (slice(4, 4 + I), slice(32, 32 + L))
+    x0w, missw = x0[cut], miss[cut]
+    codes = rinit.codes_from_counts(
+        torch.stack([x0w, P - missw - x0w], dim=2), missw, P)
+    labels = torch.randint(0, K, (I, L, P), generator=gen, device=dev)
+    before = build.LAUNCHES["mc_allele_counts_planes"]
+    got = rinit.allele_partition_counts_planes(labels, x0w, missw, K,
+                                               torch.float32)
+    by_codes = rinit.allele_partition_counts(labels, codes, 2, K,
+                                             torch.float32)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mc_allele_counts_planes"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, by_codes)), (I, L, K)
+    want = rinit.allele_partition_counts_reference(labels, codes, 2, K,
+                                                   torch.float32)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), (I, L, K)
+    ms = median_ms(lambda: rinit.allele_partition_counts_planes(
+        labels, x0w, missw, K, torch.float32))
+    codes_ms = median_ms(lambda: rinit.allele_partition_counts(
+        labels, codes, 2, K, torch.float32))
+    plain_ms = median_ms(lambda: rinit.allele_partition_counts_reference(
+        labels, codes, 2, K, torch.float32), n=3, warm=1)
+    bnd = bound(tensors_bytes(labels) + 2 * I * L + 4 * (I * K + K * L * 2),
+                0)
+    print(f"allele counts from the planes {I} x {L} x {P}, K={K}: kernel "
+          f"{ms:.3f} ms against {bnd[0]:.3f} ms ({bnd[1]}): "
+          f"{100 * bnd[0] / ms:.1f} %; the codes' kernel {codes_ms:.3f} ms; "
+          f"plain {plain_ms:.3f} ms; exact; on {where}", flush=True)
+    rec = kernel_record(
+        f"allele_counts_planes {I}x{L} K={K}",
+        "multiclust_tpu_torch/csrc/allele_counts.cu",
+        "none (the JAX package counts with XLA one-hot sums, "
+        "multiclust_tpu/init/random.py:148-158)",
+        launches, 0.0, (ms, plain_ms), bnd)
+    rec["codes_kernel_ms"] = codes_ms
+    del x0, miss, codes, labels, got, by_codes, want
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -4700,8 +4781,9 @@ def main() -> int:
     wide_records, wide_mesh = phase_wide(fb, fs, build, dev, where)
     wide_mix_records = phase_wide_mixture(mb, build, dev, where)
     masked_records = phase_sweep(fb, fs, mb, build, dev, where)
-    count_records = phase_allele_counts(build, dev, where,
-                                        bio_launches["mc_allele_counts"])
+    count_records = phase_allele_counts(
+        build, dev, where, launches["mc_allele_counts"],
+        bio_launches["mc_allele_counts_planes"])
 
     # the pair: its launches in the 32-chain fit, its times at that batch
     kernels = [
@@ -4773,8 +4855,8 @@ def main() -> int:
     # the masked kernels (a per-chain kmask), with their launches in the
     # mixed-K sweeps and their times on mixed-K batches at those shapes
     kernels += masked_records
-    # the admixture start's counts, with their launches in the biobank
-    # fits
+    # the admixture start's counts: the codes' kernel with its launches in
+    # the generic fits, the planes' kernel with its in the biobank fits
     kernels += count_records
     mesh_entry = mesh_record(mesh_results)
     mesh_entry.update(ingest_record(ingest_results))

@@ -93,7 +93,6 @@ def fit_model_data(md, ploidy: int, opt: Optional[Options] = None, *,
 
 def _fit_model_data(md, ploidy: int, opt: Optional[Options],
                     dataset: Optional[Dataset], kw) -> FitOutput:
-    from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.ops.build import count
     from multiclust_tpu_torch.runtime import mesh as mesh_mod
     from multiclust_tpu_torch.runtime.ksweep import estimate_model
@@ -107,18 +106,13 @@ def _fit_model_data(md, ploidy: int, opt: Optional[Options],
         check_ported(opt)
         resolve_device(md.device)
         mesh = _mesh_of(opt)
-        md, _ = mesh_mod.as_block(md, mesh)
+        md = mesh_mod.as_block(md, mesh)
         opt = opt.synchronize(md.I_total, ploidy)
         count("host.syncs")
         free_p = (md.n_alleles - 1).sum().cpu().numpy()
         if md.block is not None:
             free_p = mesh_mod.host_sum(free_p, mesh.model_group)
         free_p = int(free_p)
-    # allele codes seed the admixture starts only
-    codes = None
-    if opt.admixture:
-        with span("mc.codes"):
-            codes = codes_from_counts(md.x, md.miss, ploidy)
 
     def n_parameters(K):
         # Dataset.n_parameters (multiclust.c:1267-1277)
@@ -126,7 +120,7 @@ def _fit_model_data(md, ploidy: int, opt: Optional[Options],
         return (md.I_total * (K - 1) if per_i else K - 1) + free_p * K
 
     # a multi-process run checkpoints its bootstrap only, as the JAX CLI
-    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
+    est = estimate_model(opt.seed, md, opt, n_parameters,
                          checkpoint_dir=(opt.checkpoint_dir
                                          if mesh_mod.world_size() == 1
                                          else None))

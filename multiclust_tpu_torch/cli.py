@@ -438,7 +438,6 @@ def _main(argv: Optional[List[str]] = None) -> int:
     from multiclust_tpu_torch.io.structure import read_structure
     from multiclust_tpu_torch.io.warm_start import read_afile, read_pfile, \
         read_qfile
-    from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.model.common import Params, \
         model_data_from_dataset
     from multiclust_tpu_torch.runtime.ksweep import estimate_model
@@ -454,9 +453,6 @@ def _main(argv: Optional[List[str]] = None) -> int:
     _, storage = device_policy(opt, device)
     md = model_data_from_dataset(ds, dtype=dtype, device=device,
                                  storage_dtype=storage)
-    # allele codes seed the admixture starts only
-    codes = (codes_from_counts(md.x, md.miss, ds.ploidy) if opt.admixture
-             else None)
 
     warm = None
     if opt.qfile and opt.pfile:
@@ -487,8 +483,8 @@ def _main(argv: Optional[List[str]] = None) -> int:
 
     if opt.n_repeat != 1:
         from multiclust_tpu_torch.runtime.timing import timed_model_estimation
-        timed_model_estimation(opt.seed, md, opt, n_parameters, codes=codes,
-                               warm=warm, true_partition=truth)
+        timed_model_estimation(opt.seed, md, opt, n_parameters, warm=warm,
+                               true_partition=truth)
         return 0
 
     def on_model_improve(K, mres):
@@ -502,8 +498,8 @@ def _main(argv: Optional[List[str]] = None) -> int:
             _write_outputs(opt, ds, md, K, mres)
         _report_model(opt, K, mres, t_start)
 
-    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
-                         warm=warm, true_partition=truth,
+    est = estimate_model(opt.seed, md, opt, n_parameters, warm=warm,
+                         true_partition=truth,
                          on_model_done=on_model_done,
                          on_improve=on_model_improve,
                          checkpoint_dir=opt.checkpoint_dir)
@@ -549,13 +545,12 @@ def main_meshed(opt: Options, device: torch.device) -> int:
     """The CLI's multi-process run (multiclust_tpu/cli.py:457-573), in a
     process group that ``runtime/mesh.initialize_distributed`` joined:
     every rank reads and uploads its block of the panel
-    (runtime/ingest.py), computes its allele codes, starts and replicates
-    on that block, and writes the per-individual tables of its row block
-    as ``.part<d>`` files; rank 0 writes the replicated ones.  The K-sweep
+    (runtime/ingest.py), draws its starts and replicates on that block,
+    and writes the per-individual tables of its row block as ``.part<d>``
+    files; rank 0 writes the replicated ones.  The K-sweep
     runs without a checkpoint (``api.check_ported`` refuses one without
     -b); the bootstrap checkpoints through rank 0.  A group of one process
     runs it as a 1 x 1 mesh."""
-    from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.io.warm_start import read_afile
     from multiclust_tpu_torch.runtime import ingest
     from multiclust_tpu_torch.runtime import mesh as mesh_mod
@@ -573,9 +568,6 @@ def main_meshed(opt: Options, device: torch.device) -> int:
         ingest.write_data_distributed(opt, info, opt.imputed_outfile)
     I_total = info.I_total
     opt = opt.synchronize(I_total, opt.ploidy)
-    # allele codes of this rank's block seed the admixture starts
-    codes = (codes_from_counts(md.x, md.miss, opt.ploidy) if opt.admixture
-             else None)
     warm = None
     if opt.qfile and opt.pfile:
         warm = ingest.warm_start_distributed(opt, info, dtype, device)
@@ -592,8 +584,8 @@ def main_meshed(opt: Options, device: torch.device) -> int:
     t_start = time.time()
     if opt.n_repeat != 1:
         from multiclust_tpu_torch.runtime.timing import timed_model_estimation
-        timed_model_estimation(opt.seed, md, opt, n_parameters, codes=codes,
-                               warm=warm, true_partition=truth)
+        timed_model_estimation(opt.seed, md, opt, n_parameters, warm=warm,
+                               true_partition=truth)
         return 0
 
     def on_model_done(K, mres):
@@ -601,8 +593,8 @@ def main_meshed(opt: Options, device: torch.device) -> int:
             ingest.write_outputs_distributed(opt, info, K, mres, md)
         _report_model(opt, K, mres, t_start)
 
-    est = estimate_model(opt.seed, md, opt, n_parameters, codes=codes,
-                         warm=warm, true_partition=truth,
+    est = estimate_model(opt.seed, md, opt, n_parameters, warm=warm,
+                         true_partition=truth,
                          on_model_done=on_model_done)
     _finish(opt, md, est, n_parameters)
     return 0

@@ -18,15 +18,25 @@
 // draw of a copy's label.  The counts are integers (int32), so the result
 // does not depend on the order of the adds.
 //
+// A biallelic panel's window is counted from its count planes instead
+// (allele_counts_planes_kernel, mc_allele_counts_planes): no code tensor
+// exists, and each copy's code is derived in registers from the allele-0
+// and missing planes (int8 [I, L], read in place at the panel's row
+// stride from the window's first locus) as codes_from_counts would give
+// it: copy a of genotype (i, l) is slot 0 where a < x0, slot 1 where
+// a < P - miss, and missing after.  The same counts for the same labels.
+//
 // Bound: bytes.  Each copy's label (int64, 8 B) and code (int8, 1 B; int16
-// above 127 slots) is read once, 9 B a copy over 3.35 TB/s; the outputs
-// (I K + K L M ints) are small beside them.  No host read.
+// above 127 slots) is read once, 9 B a copy over 3.35 TB/s; from the
+// planes, 8 B a copy and 2 B a genotype.  The outputs (I K + K L M ints)
+// are small beside them.  No host read.
 //
 // Design.  A block of CT threads takes a tile of C loci (C P contiguous
 // copies a row) and a range of rows.  Its threads read labels and codes
-// along the contiguous L x P axis of each row (rows at the strides given,
-// so a column slice of the panel's codes or of a wider draw is read in
-// place) and count in shared memory, a shared atomic a copy into each:
+// (or the planes' bytes of a copy's genotype) along the contiguous L x P
+// axis of each row (rows at the strides given, so a column slice of the
+// panel's codes or of a wider draw is read in place) and count in shared
+// memory, a shared atomic a copy into each:
 // pc of the tile's loci over all the range's rows, and copies of a chunk
 // of RC rows.  The 32 copies of a warp lie in one row at different loci
 // or allele copies, so their pc adds rarely meet on one address; their
@@ -99,13 +109,53 @@ __host__ __device__ __forceinline__ int count_smem_ints(const CountTile& t,
   return t.kt * t.c * M + t.rc * t.kt;
 }
 
+// A source of the copies' codes, in two steps so that a row's loads are
+// all sent out before any code is worked out: ``load`` reads what a copy's
+// code comes from, ``code`` derives the code from it (the copy a of its
+// genotype, the ploidy P).
+
+// the window's codes [I, L, P]: the tile's copies of a row lie at l0 P + j
 template <typename Code>
-__global__ void __launch_bounds__(CT) allele_counts_kernel(
-    const long long* __restrict__ labels, const Code* __restrict__ codes,
+struct CodeSource {
+  const Code* __restrict__ codes;
+  long long stride;                        // elements between rows
+
+  __device__ __forceinline__ int load(int row, int l0, int P, int j,
+                                      int loc) const {
+    return (int)__ldg(codes + (long long)row * stride + (long long)l0 * P +
+                      j);
+  }
+  __device__ __forceinline__ int code(int v, int a, int P) const {
+    return v;
+  }
+};
+
+// the count planes of a biallelic panel: copy a of genotype (i, l) is
+// allele 0 where a < x0, allele 1 where a < P - miss, and missing after
+// (codes_from_counts' order, the planes adding up to the ploidy); both
+// bytes of a genotype are loaded, packed, and serve its P copies
+struct PlaneSource {
+  const int8_t* __restrict__ x0;
+  const int8_t* __restrict__ miss;
+  long long stride;                        // bytes between rows
+
+  __device__ __forceinline__ int load(int row, int l0, int P, int j,
+                                      int loc) const {
+    const long long g = (long long)row * stride + l0 + loc;
+    return (int)(uint8_t)__ldg(x0 + g) | ((int)(uint8_t)__ldg(miss + g) << 8);
+  }
+  __device__ __forceinline__ int code(int v, int a, int P) const {
+    return a < (v & 0xff) ? 0 : (a < P - (v >> 8) ? 1 : -1);
+  }
+};
+
+// the counts of one block: a tile of loci, a slab of clusters, a range of
+// rows (see the design above); ``src`` gives each copy's code
+template <typename Source>
+__device__ __forceinline__ void count_block(
+    int* count_smem, const long long* __restrict__ labels, Source src,
     int* __restrict__ copies, int* __restrict__ pc, int I, int L, int P,
-    int M, int K, long long lab_stride, long long code_stride,
-    CountTile t) {
-  extern __shared__ int count_smem[];
+    int M, int K, long long lab_stride, const CountTile& t) {
   int b = blockIdx.x;
   const int slab = b % t.n_slab;
   b /= t.n_slab;
@@ -125,33 +175,35 @@ __global__ void __launch_bounds__(CT) allele_counts_kernel(
   const int rp = CT / t.tpr;               // rows a pass of the block
   const int row_sub = threadIdx.x / t.tpr;
   const int jt = threadIdx.x % t.tpr;
-  int pco[CQ];                             // a copy's locus offset in pcs
+  int loc[CQ], cpy[CQ];                    // a copy's locus in the tile, copy
 #pragma unroll
-  for (int q = 0; q < CQ; ++q) pco[q] = ((jt + q * t.tpr) / P) * M;
+  for (int q = 0; q < CQ; ++q) {
+    loc[q] = (jt + q * t.tpr) / P;
+    cpy[q] = (jt + q * t.tpr) % P;
+  }
   const long long* lab0 = labels + (long long)l0 * P;
-  const Code* code0 = codes + (long long)l0 * P;
 
   for (int r_c = r_lo; r_c < r_hi; r_c += t.rc) {
     const int nr = min(t.rc, r_hi - r_c);
     for (int rs = row_sub; rs < nr; rs += rp) {
       const long long* lr = lab0 + (long long)(r_c + rs) * lab_stride;
-      const Code* cr = code0 + (long long)(r_c + rs) * code_stride;
-      long long lab[CQ];
-      int code[CQ];
+      long long lab[CQ];                   // -1 past the tile: skipped
+      int v[CQ];
 #pragma unroll
       for (int q = 0; q < CQ; ++q) {
         const int j = jt + q * t.tpr;
         const bool in = q < t.nq && j < cp;
         lab[q] = in ? __ldg(lr + j) : -1;
-        code[q] = in ? (int)__ldg(cr + j) : -1;
+        v[q] = in ? src.load(r_c + rs, l0, P, j, loc[q]) : 0;
       }
 #pragma unroll
       for (int q = 0; q < CQ; ++q) {
         if (q >= t.nq) break;              // the same in the block
         const long long k = lab[q] - k0;
-        const bool ok = code[q] >= 0 && code[q] < M && k >= 0 && k < kt;
+        const int c = src.code(v[q], cpy[q], P);
+        const bool ok = c >= 0 && c < M && k >= 0 && k < kt;
         if (ok) {
-          atomicAdd(pcs + (int)k * cm + pco[q] + code[q], 1);
+          atomicAdd(pcs + (int)k * cm + loc[q] * M + c, 1);
           atomicAdd(cps + rs * t.kt + (int)k, 1);
         }
       }
@@ -179,10 +231,31 @@ __global__ void __launch_bounds__(CT) allele_counts_kernel(
 }
 
 template <typename Code>
-int launch_counts(const long long* labels, const Code* codes, int* copies,
-                  int* pc, int I, int L, int P, int M, int K,
-                  long long lab_stride, long long code_stride,
-                  cudaStream_t s) {
+__global__ void __launch_bounds__(CT) allele_counts_kernel(
+    const long long* __restrict__ labels, const Code* __restrict__ codes,
+    int* __restrict__ copies, int* __restrict__ pc, int I, int L, int P,
+    int M, int K, long long lab_stride, long long code_stride,
+    CountTile t) {
+  extern __shared__ int count_smem[];
+  count_block(count_smem, labels, CodeSource<Code>{codes, code_stride},
+              copies, pc, I, L, P, M, K, lab_stride, t);
+}
+
+// the counts of a biallelic window read from its count planes (M = 2)
+__global__ void __launch_bounds__(CT) allele_counts_planes_kernel(
+    const long long* __restrict__ labels, const int8_t* __restrict__ x0,
+    const int8_t* __restrict__ miss, int* __restrict__ copies,
+    int* __restrict__ pc, int I, int L, int P, int K, long long lab_stride,
+    long long plane_stride, CountTile t) {
+  extern __shared__ int count_smem[];
+  count_block(count_smem, labels, PlaneSource{x0, miss, plane_stride},
+              copies, pc, I, L, P, 2, K, lab_stride, t);
+}
+
+// launch ``kernel`` over the tile of a window (its args then the tile)
+template <typename Kernel, typename... Args>
+int launch_counts(Kernel kernel, int I, int L, int P, int M, int K,
+                  cudaStream_t s, Args... args) {
   CountTile t = count_tile(L, P, M, K);
   if (t.n_slab == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(int) * (size_t)count_smem_ints(t, M);
@@ -192,8 +265,8 @@ int launch_counts(const long long* labels, const Code* codes, int* copies,
     err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev);
   if (err == 0)
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, allele_counts_kernel<Code>, CT, smem);
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                             CT, smem);
   if (err != 0) return err;
   // row ranges: as many as fill the card in one wave, each at least a
   // chunk of rows
@@ -205,8 +278,7 @@ int launch_counts(const long long* labels, const Code* codes, int* copies,
   t.n_rr = (I + t.rows - 1) / t.rows;
   const long long blocks = tiles * t.n_rr;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  allele_counts_kernel<Code><<<(unsigned)blocks, CT, smem, s>>>(
-      labels, codes, copies, pc, I, L, P, M, K, lab_stride, code_stride, t);
+  kernel<<<(unsigned)blocks, CT, smem, s>>>(args..., t);
   return (int)cudaGetLastError();
 }
 
@@ -228,10 +300,29 @@ extern "C" int mc_allele_counts(const void* labels, const void* codes,
   int* p = (int*)pc;
   cudaStream_t s = (cudaStream_t)stream;
   if (code_bytes == 1)
-    return launch_counts(lab, (const int8_t*)codes, cp, p, I, L, P, M, K,
-                         lab_stride, code_stride, s);
+    return launch_counts(allele_counts_kernel<int8_t>, I, L, P, M, K, s, lab,
+                         (const int8_t*)codes, cp, p, I, L, P, M, K,
+                         lab_stride, code_stride);
   if (code_bytes == 2)
-    return launch_counts(lab, (const int16_t*)codes, cp, p, I, L, P, M, K,
-                         lab_stride, code_stride, s);
+    return launch_counts(allele_counts_kernel<int16_t>, I, L, P, M, K, s,
+                         lab, (const int16_t*)codes, cp, p, I, L, P, M, K,
+                         lab_stride, code_stride);
   return (int)cudaErrorInvalidValue;
+}
+
+// copies [I, K] and pc [K, L, 2] (int32, zeroed by the caller) of a
+// biallelic window: labels (int64) [I, L, P] with a contiguous L x P
+// axis, rows lab_stride elements apart, and the window's allele-0 and
+// missing planes (int8) [I, L], rows plane_stride bytes apart
+extern "C" int mc_allele_counts_planes(const void* labels, const void* x0,
+                                       const void* miss, void* copies,
+                                       void* pc, int I, int L, int P, int K,
+                                       long long lab_stride,
+                                       long long plane_stride, void* stream) {
+  if (I <= 0 || L <= 0 || P <= 0 || K <= 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_counts(allele_counts_planes_kernel, I, L, P, 2, K,
+                       (cudaStream_t)stream, (const long long*)labels,
+                       (const int8_t*)x0, (const int8_t*)miss, (int*)copies,
+                       (int*)pc, I, L, P, K, lab_stride, plane_stride);
 }

@@ -30,8 +30,17 @@ integers both ways, so the starts are the same bit for bit.  A start hands
 the kernel the raw draw where every copy's label is drawn: it skips
 missing copies itself.
 
-Under a mesh (runtime/mesh.py) ``md`` and ``codes`` are this rank's block
-of the panel (a whole panel given under a mesh is sliced first,
+A start makes no allele codes of the whole panel: each window of loci
+takes the codes of its own slice of the counts (``_window_codes``; on a
+panel held as int8 count planes, from the allele-0 and missing planes
+alone, ``plane_codes``), and on the card a window whose labels are all
+the raw draw (SNPs at K > 2) is counted from those planes themselves by
+the kernel's planes variant (``allele_partition_counts_planes``).  No
+temporary grows with the whole I x L x P, and the start is the one the
+whole panel's codes give, draw for draw.
+
+Under a mesh (runtime/mesh.py) ``md`` is this rank's block of the
+panel (a whole panel given under a mesh is sliced first,
 ``mesh.as_block``).  Every rank makes the whole panel's draws from the same
 generator, window by window of loci sized from the panel's I and L, so the
 starts equal the unsharded fit's, and keeps and counts its block of them:
@@ -53,6 +62,7 @@ from multiclust_tpu_torch.ops import build
 from multiclust_tpu_torch.ops.build import count
 from multiclust_tpu_torch.runtime.mesh import DATA_AXIS, MODEL_AXIS, \
     as_block, host_max, sum_over, world_min
+from multiclust_tpu_torch.runtime.observe import span
 
 Tensor = torch.Tensor
 
@@ -141,8 +151,9 @@ def parameters_from_partition_mixture(I_K: Tensor, md: ModelData,
 
 # a start holds about this many bytes of int64 temporaries per allele copy
 # (labels, matches, draws; the plain counts' slots and bin indices, which
-# the CUDA counts do without); a panel whose I x L x P copies need more
-# than the budget is drawn one window of loci at a time
+# the CUDA counts do without; the window's codes, a few bytes); a panel
+# whose I x L x P copies need more than the budget is drawn one window of
+# loci at a time
 INIT_BYTES_PER_COPY = 64
 INIT_BYTES = 8 << 30
 
@@ -161,9 +172,16 @@ def init_window(md: ModelData, ploidy: int, budget: int = None) -> int:
                          budget)
 
 
+def _raw_labels(method: InitMethod, K: int, n_max: int) -> bool:
+    """Whether every copy's label is the random draw: a random partition,
+    or random centers where no locus has K alleles to match (``n_max`` the
+    panel's largest n_alleles)."""
+    return method == InitMethod.RANDOM_PARTITION or (K > 1 and n_max < K)
+
+
 def _window_labels(gen: torch.Generator, md: ModelData, codes: Tensor,
                    K: int, method: InitMethod, window, own,
-                   n_max: int) -> Tensor:
+                   n_max: int, shape=None) -> Tensor:
     """Cluster labels of the copies ``codes`` [I_b, L_b, P] of a window of
     loci, or of this rank's block of it.  ``window`` = (I, lo, hi): the
     whole panel's rows and the window's loci [lo, hi); ``own`` = (r0, a,
@@ -171,19 +189,20 @@ def _window_labels(gen: torch.Generator, md: ModelData, codes: Tensor,
     window and in ``md``.  Every draw is made for the whole window, so the
     generator's stream is that of the unsharded start, and the block of
     the draws is kept.  ``n_max`` is the panel's largest n_alleles.
-    Where every copy's label is the random draw, the draw itself: a
-    missing copy keeps its label, which the counts skip; elsewhere -1 at
-    missing copies."""
+    Where every copy's label is the random draw (``_raw_labels``), the
+    draw itself: a missing copy keeps its label, which the counts skip,
+    and ``codes`` may be None with ``shape`` its (I_b, L_b, P); elsewhere
+    -1 at missing copies."""
     I, lo, hi = window
     r0, a, m0 = own
-    Ib, Lb, _ = codes.shape
-    dev = codes.device
+    Ib, Lb, P = codes.shape if codes is not None else shape
+    dev = md.device
 
     def draw():
-        return torch.randint(0, K, (I, hi - lo, codes.shape[2]),
-                             generator=gen, device=dev)[r0:r0 + Ib, a:a + Lb]
+        return torch.randint(0, K, (I, hi - lo, P), generator=gen,
+                             device=dev)[r0:r0 + Ib, a:a + Lb]
 
-    if method == InitMethod.RANDOM_PARTITION or (K > 1 and n_max < K):
+    if _raw_labels(method, K, n_max):
         return draw()
     if K == 1:
         return torch.where(codes >= 0, 0, -1)
@@ -273,30 +292,101 @@ def allele_partition_counts(labels: Tensor, codes: Tensor, M: int, K: int,
     (csrc/allele_counts.cu), which reads ``labels`` (int64) and ``codes``
     (int8 or int16) in place at their row strides, their L x P axis
     contiguous, and reads nothing back to the host; on the CPU the plain
-    version."""
+    version.  Timed as ``mc.init.counts``; counted as a window
+    (``init.windows``)."""
+    count("init.windows")
     if not codes.is_cuda:
-        return allele_partition_counts_reference(labels, codes, M, K, dtype)
+        with span("mc.init.counts"):
+            return allele_partition_counts_reference(labels, codes, M, K,
+                                                     dtype)
     I, L, P = codes.shape
     dev = codes.device
-    for name, t, types in (("labels", labels, (torch.int64,)),
-                           ("codes", codes, (torch.int8, torch.int16))):
-        if (t.device != dev or t.dtype not in types
-                or tuple(t.shape) != (I, L, P)
-                or (L > 1 and t.stride(1) != P)
-                or (P > 1 and t.stride(2) != 1)):
-            raise ValueError(
-                f"{name}: {' or '.join(map(str, types))} {(I, L, P)} on "
-                f"{dev} with a contiguous L x P axis expected, got "
-                f"{t.dtype} {tuple(t.shape)} at strides {t.stride()} on "
-                f"{t.device}")
+    _check_layout(dev, "labels", labels, (torch.int64,), (I, L, P))
+    _check_layout(dev, "codes", codes, (torch.int8, torch.int16), (I, L, P))
     copies = torch.zeros((I, K), dtype=torch.int32, device=dev)
     pc = torch.zeros((K, L, M), dtype=torch.int32, device=dev)
-    if codes.numel():
-        build.launch("mc_allele_counts", dev, labels.data_ptr(),
-                     codes.data_ptr(), copies.data_ptr(), pc.data_ptr(),
-                     I, L, P, M, K, labels.stride(0), codes.stride(0),
-                     codes.element_size())
+    with span("mc.init.counts"):
+        if codes.numel():
+            build.launch("mc_allele_counts", dev, labels.data_ptr(),
+                         codes.data_ptr(), copies.data_ptr(), pc.data_ptr(),
+                         I, L, P, M, K, labels.stride(0), codes.stride(0),
+                         codes.element_size())
     return copies.to(dtype), pc.to(dtype)
+
+
+def allele_partition_counts_planes(labels: Tensor, x0: Tensor, miss: Tensor,
+                                   K: int, dtype: torch.dtype):
+    """``allele_partition_counts`` of a biallelic window read from its
+    count planes on the card, with no codes: one launch of
+    ``mc_allele_counts_planes`` (csrc/allele_counts.cu), which derives
+    each copy's code from the allele-0 plane ``x0`` and the missing plane
+    ``miss`` (int8 [I, L], a column slice of the panel's planes at their
+    row stride) as ``plane_codes`` gives it, and reads ``labels`` (int64
+    [I, L, P], P the ploidy) in place.  The planes must add up to the
+    ploidy with the other allele's, as a panel's do."""
+    I, L, P = labels.shape
+    dev = labels.device
+    if dev.type != "cuda":
+        raise ValueError(f"the planes' counts run on a CUDA device; "
+                         f"labels on {dev}")
+    _check_layout(dev, "labels", labels, (torch.int64,), (I, L, P))
+    _check_layout(dev, "x0", x0, (torch.int8,), (I, L))
+    _check_layout(dev, "miss", miss, (torch.int8,), (I, L))
+    if I > 1 and miss.stride(0) != x0.stride(0):
+        raise ValueError(f"x0 and miss at one row stride expected, got "
+                         f"{x0.stride(0)} and {miss.stride(0)}")
+    count("init.windows")
+    copies = torch.zeros((I, K), dtype=torch.int32, device=dev)
+    pc = torch.zeros((K, L, 2), dtype=torch.int32, device=dev)
+    with span("mc.init.counts"):
+        if labels.numel():
+            build.launch("mc_allele_counts_planes", dev, labels.data_ptr(),
+                         x0.data_ptr(), miss.data_ptr(), copies.data_ptr(),
+                         pc.data_ptr(), I, L, P, K, labels.stride(0),
+                         x0.stride(0))
+    return copies.to(dtype), pc.to(dtype)
+
+
+def _check_layout(dev, name: str, t: Tensor, types, shape) -> None:
+    """Raise unless ``t`` lies on ``dev`` in one of ``types`` at ``shape``
+    with its axes after the first contiguous (rows at any stride)."""
+    inner = [int(torch.Size(shape[j + 1:]).numel())
+             for j in range(1, len(shape))]
+    if (t.device != dev or t.dtype not in types
+            or tuple(t.shape) != tuple(shape)
+            or any(n > 1 and t.stride(j) != st
+                   for j, (n, st) in enumerate(zip(shape[1:], inner), 1))):
+        raise ValueError(
+            f"{name}: {' or '.join(map(str, types))} {tuple(shape)} on "
+            f"{dev} with contiguous axes after the rows expected, got "
+            f"{t.dtype} {tuple(t.shape)} at strides {t.stride()} on "
+            f"{t.device}")
+
+
+def _int8_planes(md: ModelData) -> bool:
+    """Whether ``md`` is a biallelic panel held as int8 count planes (the
+    allele-0 plane and the missing plane)."""
+    return md.x0 is not None and md.x0.dtype == md.miss.dtype == torch.int8
+
+
+def plane_codes(x0: Tensor, miss: Tensor, ploidy: int) -> Tensor:
+    """The codes ``codes_from_counts`` gives a biallelic window (int8 [I,
+    L, P]), from its int8 allele-0 and missing planes alone: copy a is
+    slot 0 where a < x0, slot 1 where a < ploidy - miss, and missing (-1)
+    after, that is (a >= x0) - 2 (a >= ploidy - miss), in four int8
+    passes."""
+    a = torch.arange(ploidy, dtype=torch.int8, device=x0.device)
+    beyond = (a >= (ploidy - miss)[..., None]).view(torch.int8)
+    return torch.sub((a >= x0[..., None]).view(torch.int8), beyond,
+                     alpha=2)
+
+
+def _window_codes(md: ModelData, m0: int, m1: int, ploidy: int) -> Tensor:
+    """The allele codes of the loci [m0, m1) of ``md``, made from their
+    slice of the counts: on int8 count planes ``plane_codes``."""
+    if _int8_planes(md):
+        return plane_codes(md.x0[:, m0:m1], md.miss[:, m0:m1], ploidy)
+    return codes_from_counts(md.x[:, m0:m1], md.miss[:, m0:m1], ploidy)
 
 
 def parameters_from_allele_counts(copies: Tensor, pc: Tensor,
@@ -332,69 +422,75 @@ def parameters_from_allele_partition(labels: Tensor, codes: Tensor,
                                          eta_constrained)
 
 
-def windowed_allele_start(gen: torch.Generator, md: ModelData,
-                          codes: Tensor, K: int, method: InitMethod,
-                          eta_constrained: bool, window: int,
-                          mesh=None) -> Params:
-    """An admixture start drawn and counted ``window`` loci at a time, so
-    that no temporary grows with the whole I x L x P.  The counts are
-    those of the unwindowed path for the same labels; the draws come in
-    another order (one window after another), except with one window.
-    Under a ``mesh`` ``md`` and ``codes`` are this rank's block: each
-    window's labels are drawn whole and this rank counts its block of
-    them; its start is its block."""
+def windowed_allele_start(gen: torch.Generator, md: ModelData, K: int,
+                          method: InitMethod, eta_constrained: bool,
+                          window: int, ploidy: int, mesh=None) -> Params:
+    """An admixture start of ``ploidy`` copies a genotype, drawn and
+    counted ``window`` loci at a time from the codes of each window's own
+    slice of the counts (``_window_codes``), or, where every copy's label
+    is the raw draw, on the card from an int8 panel's count planes
+    (``allele_partition_counts_planes``), so that no temporary grows with
+    the whole I x L x P.  The counts are those of the whole panel's
+    codes for the same labels; the draws come one window after another,
+    so with one window they are the whole panel's draw.  Under a ``mesh``
+    ``md`` is this rank's block: each window's labels are drawn whole and
+    this rank counts its block of them; its start is its block."""
     I, L = md.I_total, md.L_total
     r0, l0 = md.offsets
-    P = codes.shape[-1]
     count("host.syncs")
     n_max = int(md.n_alleles.max())
     if mesh is not None and mesh.model_shards > 1:
         n_max = int(host_max(n_max, mesh.model_group))
+    # the raw draw's windows of int8 planes on the card are counted from
+    # the planes themselves, in less time than their codes take to make
+    from_planes = (_raw_labels(method, K, n_max)
+                   and md.device.type == "cuda" and _int8_planes(md))
     copies = None
     pcs = []
     for lo in range(0, L, window):
         hi = min(L, lo + window)
         g0, g1 = max(lo, l0), max(min(hi, l0 + md.L), lo)  # own loci
-        cw = codes[:, g0 - l0:g1 - l0]
+        m0, m1 = g0 - l0, max(g1, g0) - l0
+        cw = None if from_planes else _window_codes(md, m0, m1, ploidy)
         # drawn on every rank, so that the generators stay in step
         labels = _window_labels(gen, md, cw, K, method, (I, lo, hi),
-                                (r0, g0 - lo, g0 - l0), n_max)
+                                (r0, g0 - lo, m0), n_max,
+                                (md.I, m1 - m0, ploidy))
         if g0 >= g1:
             continue
-        cp, pc = allele_partition_counts(labels, cw, md.M, K, md.dtype)
+        if from_planes:
+            cp, pc = allele_partition_counts_planes(
+                labels, md.x0[:, m0:m1], md.miss[:, m0:m1], K, md.dtype)
+        else:
+            cp, pc = allele_partition_counts(labels, cw, md.M, K, md.dtype)
         copies = cp if copies is None else copies + cp
         pcs.append(pc)
     pc = torch.cat(pcs, dim=1)
     if mesh is not None:
         copies = mesh.sum(copies, MODEL_AXIS)
         pc = mesh.sum(pc, DATA_AXIS)
-    return parameters_from_allele_counts(copies, pc, md, L * P,
+    return parameters_from_allele_counts(copies, pc, md, L * ploidy,
                                          eta_constrained, mesh)
 
 
 def random_initialize(gen: torch.Generator, md: ModelData, K: int,
-                      method: InitMethod, codes: Tensor = None, *,
-                      admixture: bool = True,
+                      method: InitMethod, *, admixture: bool = True,
                       eta_constrained: bool = False,
-                      budget: int = None, mesh=None) -> Params:
-    """One random start of the admixture model (allele partitions, from
-    ``codes``) or of the mixture model (individual partitions).  An
-    admixture start whose temporaries exceed ``budget`` bytes
-    (``init_window``) is drawn in windows of loci.  Under a ``mesh`` this
-    rank's block of the start (every rank takes the least window)."""
-    md, codes = as_block(md, mesh, codes)
+                      budget: int = None, mesh=None,
+                      ploidy: int = 2) -> Params:
+    """One random start of the admixture model (allele partitions of
+    ``ploidy`` copies a genotype) or of the mixture model (individual
+    partitions).  An admixture start is drawn in windows of loci whose
+    temporaries fit ``budget`` bytes (``init_window``; one window where the
+    whole panel fits).  Under a ``mesh`` this rank's block of the start
+    (every rank takes the least window)."""
+    md = as_block(md, mesh)
     if admixture:
-        window = init_window(md, codes.shape[-1], budget)
+        window = init_window(md, ploidy, budget)
         if mesh is not None:
-            return windowed_allele_start(gen, md, codes, K, method,
-                                         eta_constrained, world_min(window),
-                                         mesh)
-        if window < md.L:
-            return windowed_allele_start(gen, md, codes, K, method,
-                                         eta_constrained, window)
-        labels = _allele_labels(gen, md, codes, K, method)
-        return parameters_from_allele_partition(labels, codes, md, K,
-                                                eta_constrained)
+            window = world_min(window)
+        return windowed_allele_start(gen, md, K, method, eta_constrained,
+                                     window, ploidy, mesh)
     if method == InitMethod.RANDOM_PARTITION:
         part = random_individual_partition(gen, md, K)
     else:
@@ -422,19 +518,17 @@ def with_kmask(params: Params, K: int, width: int) -> Params:
 
 
 def random_initialize_dyn(gen: torch.Generator, md: ModelData, K: int,
-                          width: int, method: InitMethod,
-                          codes: Tensor = None, **kw) -> Params:
+                          width: int, method: InitMethod, **kw) -> Params:
     """``random_initialize`` of K clusters on the ``width`` lanes of a
     mixed-K lattice: the same draws, padded, with the kmask (the JAX
     package's ``random_initialize_dyn``)."""
-    return with_kmask(random_initialize(gen, md, K, method, codes, **kw), K,
-                      width)
+    return with_kmask(random_initialize(gen, md, K, method, **kw), K, width)
 
 
 def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
                        cfg: EMConfig, method: InitMethod,
-                       n_rand_em_init: int, codes: Tensor = None,
-                       md_score: ModelData = None, chunk: int = 0,
+                       n_rand_em_init: int, md_score: ModelData = None,
+                       chunk: int = 0,
                        width: int = 0) -> Params:
     """Rand-EM: run n starts through one EM step and keep the start whose
     refined logL is best (randem_initialize_mixture, rnd_init.c:123-161;
@@ -453,14 +547,13 @@ def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
     from multiclust_tpu_torch.runtime.multistart import _pad_k, \
         _to_fit_layout
 
-    md, codes = as_block(md, cfg.mesh, codes)
+    md = as_block(md, cfg.mesh)
     md_score = md if md_score is None else md_score
     n = n_rand_em_init if K > 1 else 1
     c = chunk or rand_em_chunk(md_score, n)
-    cands = [random_initialize(gen, md, K, method, codes,
-                               admixture=cfg.admixture,
+    cands = [random_initialize(gen, md, K, method, admixture=cfg.admixture,
                                eta_constrained=cfg.eta_constrained,
-                               mesh=cfg.mesh)
+                               mesh=cfg.mesh, ploidy=cfg.ploidy)
              for _ in range(n)]
     lls = []
     for lo in range(0, n, c):
@@ -478,41 +571,40 @@ def rand_em_initialize(gen: torch.Generator, md: ModelData, K: int,
 def initialize(gen: torch.Generator, md: ModelData, K: int, cfg: EMConfig,
                method: InitMethod = InitMethod.RANDOM_CENTERS,
                procedure: InitProcedure = InitProcedure.NOTHING,
-               n_rand_em_init: int = 50, codes: Tensor = None,
+               n_rand_em_init: int = 50,
                md_score: ModelData = None) -> Params:
     """One start (initialize_model, rnd_init.c:54-89), unbatched and
     unpadded: eta [I, K] (admixture) or [K] (mixture, constrained eta), p
-    [K, L, M]; under a mesh (cfg.mesh) this rank's block of it, ``md`` and
-    ``codes`` being this rank's block or the whole panel.  ``md_score`` is
-    where Rand-EM scores its candidates."""
-    md, codes = as_block(md, cfg.mesh, codes)
+    [K, L, M]; under a mesh (cfg.mesh) this rank's block of it, ``md``
+    being this rank's block or the whole panel.  ``md_score`` is where
+    Rand-EM scores its candidates."""
+    md = as_block(md, cfg.mesh)
     if procedure == InitProcedure.RAND_EM:
         return rand_em_initialize(gen, md, K, cfg, method, n_rand_em_init,
-                                  codes, md_score=md_score)
-    return random_initialize(gen, md, K, method, codes,
-                             admixture=cfg.admixture,
+                                  md_score=md_score)
+    return random_initialize(gen, md, K, method, admixture=cfg.admixture,
                              eta_constrained=cfg.eta_constrained,
-                             mesh=cfg.mesh)
+                             mesh=cfg.mesh, ploidy=cfg.ploidy)
 
 
 def initialize_dyn(gen: torch.Generator, md: ModelData, K: int, width: int,
                    cfg: EMConfig,
                    method: InitMethod = InitMethod.RANDOM_CENTERS,
                    procedure: InitProcedure = InitProcedure.NOTHING,
-                   n_rand_em_init: int = 50, codes: Tensor = None,
+                   n_rand_em_init: int = 50,
                    md_score: ModelData = None) -> Params:
     """``initialize`` of K clusters for a mixed-K lattice of ``width``
     lanes whose shared config is ``cfg``: the same start, padded, with its
     kmask (the JAX package's ``initialize_dyn``,
     multiclust_tpu/init/random.py:393-450)."""
-    md, codes = as_block(md, cfg.mesh, codes)
+    md = as_block(md, cfg.mesh)
     if procedure == InitProcedure.RAND_EM:
         return rand_em_initialize(gen, md, K, cfg, method, n_rand_em_init,
-                                  codes, md_score=md_score, width=width)
-    return random_initialize_dyn(gen, md, K, width, method, codes,
+                                  md_score=md_score, width=width)
+    return random_initialize_dyn(gen, md, K, width, method,
                                  admixture=cfg.admixture,
                                  eta_constrained=cfg.eta_constrained,
-                                 mesh=cfg.mesh)
+                                 mesh=cfg.mesh, ploidy=cfg.ploidy)
 
 
 def codes_from_counts(counts: Tensor, miss: Tensor, ploidy: int) -> Tensor:

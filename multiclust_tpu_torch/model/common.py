@@ -183,6 +183,21 @@ def _to_device(a, device, dtype: torch.dtype) -> Tensor:
     return a.to(device=device, dtype=dtype)
 
 
+# cells of a block of rows that ``row_sums`` casts at a time
+ROW_SUM_CELLS = 1 << 26
+
+
+def row_sums(t: Tensor, dtype: torch.dtype) -> Tensor:
+    """``t.sum(dim=1, dtype=dtype)`` of an [I, L] tensor, a block of rows
+    at a time: a sum into another dtype casts its whole input first, which
+    for a biobank panel's int8 plane is a transient of [I, L] floats."""
+    rows = max(1, ROW_SUM_CELLS // max(t.shape[1], 1))
+    if t.shape[0] <= rows:
+        return t.sum(dim=1, dtype=dtype)
+    return torch.cat([t[lo:lo + rows].sum(dim=1, dtype=dtype)
+                      for lo in range(0, t.shape[0], rows)])
+
+
 def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
                     device, storage_dtype: Optional[torch.dtype] = None,
                     planes: Optional[bool] = None) -> ModelData:
@@ -218,7 +233,7 @@ def make_model_data(x, miss, mask, n_alleles, *, dtype: torch.dtype,
     else:
         xt = _to_device(x, device, storage_dtype or dtype)
     if torch.is_tensor(miss):
-        c = mt.sum(dim=1, dtype=dtype)
+        c = row_sums(mt, dtype)
     else:
         # a host panel's totals are summed on the host: summing the int8
         # miss on the card in ``dtype`` makes a [I, L] transient of dtype
@@ -248,7 +263,7 @@ def model_data_from_planes(planes: Tensor, miss: Tensor, *,
         x=planes.permute(1, 2, 0), miss=miss,
         mask=torch.ones((L, 2), dtype=torch.bool, device=dev),
         n_alleles=torch.full((L,), 2, dtype=torch.int32, device=dev),
-        c=miss.sum(dim=1, dtype=dtype), x0=planes[0], x1=planes[1])
+        c=row_sums(miss, dtype), x0=planes[0], x1=planes[1])
 
 
 def model_data_from_dataset(ds, dtype: torch.dtype = torch.float32,

@@ -66,6 +66,8 @@ _SIGNATURES = {
                       _I, _I, _P],
     "mc_allele_counts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _I,
                          _P],
+    "mc_allele_counts_planes": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
+                                _LL, _P],
 }
 
 # Launches counted under a name of their own as well as the launcher's
@@ -97,14 +99,18 @@ EXTRA_COUNTS = ("fullstep_bi_chunked", "wide_rows", "wide_finish",
 # has (``kernel_launches`` leaves them out): the model steps and
 # chain-steps of EM (``em.``) and of Rand-EM's scoring of its candidate
 # starts (``init.``), counted in opt/em.model_em_step by the chains of the
-# batch stepped; the host's reads of a device value (``host.syncs``) and
-# its queries of the device's free memory (``host.mem_queries``), counted
-# where they are made; and, from a fit run under a profiler, each span's
-# summed stream time in whole microseconds (``span_us.<span>``) and its
-# count (``span_n.<span>``).  reset_launch_counts zeroes them too.
-SPANS = ("mc.fit", "mc.codes", "mc.plan", "mc.init", "mc.em", "mc.harvest")
+# batch stepped; the windows of loci an admixture start counts
+# (``init.windows``); the host's reads of a device value (``host.syncs``)
+# and its queries of the device's free memory (``host.mem_queries``),
+# counted where they are made; and, from a fit run under a profiler, each
+# span's summed stream time in whole microseconds (``span_us.<span>``) and
+# its count (``span_n.<span>``); the start's counts (``mc.init.counts``)
+# lie inside ``mc.init``.  reset_launch_counts zeroes them too.
+SPANS = ("mc.fit", "mc.plan", "mc.init", "mc.init.counts", "mc.em",
+         "mc.harvest")
 COUNTERS = ("em.model_steps", "em.chain_steps", "init.model_steps",
-            "init.chain_steps", "host.syncs", "host.mem_queries") + tuple(
+            "init.chain_steps", "init.windows", "host.syncs",
+            "host.mem_queries") + tuple(
                 f"span_{what}.{span}" for what in ("us", "n")
                 for span in SPANS)
 

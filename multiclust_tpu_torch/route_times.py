@@ -1264,7 +1264,7 @@ def squarem_case(I: int, L: int, K: int):
     opt = Options(min_K=K, max_K=K, **SQUAREM_FIT).synchronize(I, 2)
     cfg = cfg_from_options(opt, K, md)._replace(monotonicity="fatal")
     batch = _draw_init_batch(torch.Generator().manual_seed(opt.seed),
-                             opt.n_init, md, K, cfg, opt, None)
+                             opt.n_init, md, K, cfg, opt)
     starts = [(batch.eta[i].numpy(), batch.p[i].numpy())
               for i in range(opt.n_init)]
     return planes, miss, ds, md, starts, cfg

@@ -79,7 +79,7 @@ def sweep_mode() -> str:
 
 
 def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
-                   codes=None, warm=None, true_partition=None,
+                   warm=None, true_partition=None,
                    bootstrap: bool = False, on_model_done=None,
                    on_improve=None, checkpoint_dir=None) -> EstimateResult:
     """``n_parameters_fn(K) -> int`` gives the AIC/BIC parameter count;
@@ -103,7 +103,7 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
             and swept_eligible(opt, md, ks)):
         swept = swept_maximize(
             [(K, gens[K]) for K in ks if K >= 2], md, opt, n_parameters_fn,
-            codes=codes, true_partition=true_partition,
+            true_partition=true_partition,
             on_improve=on_improve if not bootstrap else None,
             quiet=bootstrap)
     per_K: Dict[int, MaximizeResult] = {}
@@ -113,8 +113,8 @@ def estimate_model(seed: int, md: ModelData, opt: Options, n_parameters_fn,
         res = swept.get(K)
         if res is None:
             res = maximize_likelihood(
-                gens[K], md, K, opt, n_parameters_fn(K), codes=codes,
-                warm=warm, true_partition=true_partition,
+                gens[K], md, K, opt, n_parameters_fn(K), warm=warm,
+                true_partition=true_partition,
                 checkpoint_dir=checkpoint_dir,
                 on_improve=((lambda r, K=K: on_improve(K, r))
                             if on_improve and not bootstrap else None),

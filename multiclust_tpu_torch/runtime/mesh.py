@@ -383,18 +383,14 @@ def shard_model_data(md, mesh: Mesh, rows: bool = True):
                      block=Block(I=I, L=L, row0=r0, locus0=l0))
 
 
-def as_block(md, mesh: Optional[Mesh], codes=None):
-    """(this rank's block of ``md``, of ``codes`` [I, L, P]): a whole panel
-    is sliced by ``shard_model_data``; a block (``md.block`` set: a panel
-    read per process, runtime/ingest.py) and a fit without a mesh pass as
-    they are."""
+def as_block(md, mesh: Optional[Mesh]):
+    """This rank's block of ``md``: a whole panel is sliced by
+    ``shard_model_data``; a block (``md.block`` set: a panel read per
+    process, runtime/ingest.py) and a fit without a mesh pass as they
+    are."""
     if mesh is None or md.block is not None:
-        return md, codes
-    blk = shard_model_data(md, mesh)
-    if codes is not None:
-        b = blk.block
-        codes = codes[b.row0:b.row0 + blk.I, b.locus0:b.locus0 + blk.L]
-    return blk, codes
+        return md
+    return shard_model_data(md, mesh)
 
 
 def _p_locus_dim(params) -> int:

@@ -112,7 +112,8 @@ def cfg_from_options(opt: Options, K: int, md: ModelData) -> EMConfig:
         mesh = mesh_mod.cached_mesh(mesh)
     use_pallas, _ = device_policy(opt, md.device)
     budget = scratch_budget(md.device) if use_pallas else 0
-    has_missing = bool((md.miss > 0).any())
+    # the largest count, not a mask: no [I, L] temporary of a biobank panel
+    has_missing = md.miss.numel() > 0 and bool(md.miss.amax() > 0)
     biallelic = md.M == 2 and bool((md.n_alleles == 2).all())
     count("host.syncs", 1 + (md.M == 2))
     if mesh is not None:
@@ -341,7 +342,7 @@ def _host_converged(opt: Options, a: float, b: float) -> bool:
 
 
 def _draw_init_batch(gen: torch.Generator, n: int, md: ModelData, K: int,
-                     cfg: EMConfig, opt: Options, codes,
+                     cfg: EMConfig, opt: Options,
                      md_score: Optional[ModelData] = None,
                      width: int = 0) -> Params:
     """n starts of K clusters from ``gen``, stacked; ``width`` > 0: the
@@ -349,8 +350,7 @@ def _draw_init_batch(gen: torch.Generator, n: int, md: ModelData, K: int,
     is ``cfg`` (``_draw_init_batch_dyn``, multistart.py:352-358)."""
     kw = dict(method=opt.initialization_method,
               procedure=opt.initialization_procedure,
-              n_rand_em_init=opt.n_rand_em_init, codes=codes,
-              md_score=md_score)
+              n_rand_em_init=opt.n_rand_em_init, md_score=md_score)
     starts = [rinit.initialize_dyn(gen, md, K, width, cfg, **kw) if width
               else rinit.initialize(gen, md, K, cfg, **kw)
               for _ in range(n)]
@@ -500,7 +500,7 @@ def _fit_data(md: ModelData, cfg: EMConfig,
     layout.  Under a mesh, this rank's block (``md`` when it is one); the
     collapsed data has one row, whole on every rank of a data group."""
     constrained = cfg.admixture and cfg.eta_constrained
-    md, _ = mesh_mod.as_block(md, cfg.mesh)
+    md = mesh_mod.as_block(md, cfg.mesh)
     dense = md
     if constrained:
         dense = (collapse_for_constrained(md) if cfg.mesh is None
@@ -534,7 +534,7 @@ def _chains(opt: Options, md_fit, K: int, cfg: EMConfig) -> int:
 
 def _run_continuous(gen, res: MaximizeResult, md: ModelData,
                     md_fit: ModelData, md_score: ModelData, K: int,
-                    cfg: EMConfig, opt: Options, n_parameters: int, codes,
+                    cfg: EMConfig, opt: Options, n_parameters: int,
                     t0: float, segment: int = 16, on_improve=None,
                     progress=None) -> None:
     """Continuous batching: B chains run in lockstep segments; a stopped
@@ -551,8 +551,8 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
                                  k_padded_size(K, 32)).describe()
 
     def starts(n):
-        return _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, codes,
-                                       md_score), cfg)
+        return _pad_k(_draw_init_batch(gen, n, md, K, cfg, opt, md_score),
+                      cfg)
 
     with span("mc.init"):
         pb = starts(B)
@@ -616,18 +616,17 @@ def _run_continuous(gen, res: MaximizeResult, md: ModelData,
             state = _segment(state, md_fit, cfg, segment)
 
 
-def _single_init(gen, md, K, cfg, opt, codes, warm, md_score=None):
+def _single_init(gen, md, K, cfg, opt, warm, md_score=None):
     if warm is not None:
         return _pad_k(_warm_block(warm, md, cfg), cfg)
     return _pad_k(rinit.initialize(
         gen, md, K, cfg, method=opt.initialization_method,
         procedure=opt.initialization_procedure,
-        n_rand_em_init=opt.n_rand_em_init, codes=codes,
-        md_score=md_score), cfg)
+        n_rand_em_init=opt.n_rand_em_init, md_score=md_score), cfg)
 
 
 def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
-                        opt: Options, n_parameters: int, codes=None,
+                        opt: Options, n_parameters: int,
                         warm: Optional[Params] = None, true_partition=None,
                         checkpoint_dir: Optional[str] = None,
                         on_improve=None, quiet: bool = False
@@ -641,7 +640,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     lines (bootstrap replicate fits)."""
     with span("mc.plan"):
         cfg = cfg_from_options(opt, K, md)
-        md, codes = mesh_mod.as_block(md, cfg.mesh, codes)
+        md = mesh_mod.as_block(md, cfg.mesh)
         res = MaximizeResult(K=K)
         t0 = time.time()
         progress = _make_progress(opt, K, t0, quiet)
@@ -662,8 +661,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
         res.buckets = md_fit.plan.describe()
     if K == 1:
         with span("mc.init"):
-            params = _single_init(gen, md, K, cfg, opt, codes, warm,
-                                  md_score)
+            params = _single_init(gen, md, K, cfg, opt, warm, md_score)
         with span("mc.em"):
             state = em_mod.fit_k1(
                 _to_fit_layout(map_params(lambda t: t[None], params),
@@ -695,7 +693,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     serial = opt.verbosity > 3
     if not serial and warm is None:
         _run_continuous(gen, res, md, md_fit, md_score, K, cfg, opt,
-                        n_parameters, codes, t0, on_improve=on_improve,
+                        n_parameters, t0, on_improve=on_improve,
                         progress=progress)
         checkpoint()
         _score_arand(res, md, opt, true_partition, cfg.mesh)
@@ -712,7 +710,7 @@ def maximize_likelihood(gen: torch.Generator, md: ModelData, K: int,
     while True:
         if serial:
             states, timed_out = _fit_serial_traced(
-                gen, md, md_fit, md_score, K, cfg, opt, codes, warm, t0)
+                gen, md, md_fit, md_score, K, cfg, opt, warm, t0)
         else:
             states, timed_out = fit_batch(warm_b, md_fit, cfg,
                                           n_seconds=opt.n_seconds,
@@ -780,7 +778,7 @@ def swept_eligible(opt: Options, md: ModelData, ks) -> bool:
 
 
 def swept_maximize(gens_by_K, md: ModelData, opt: Options, n_parameters_fn,
-                   codes=None, true_partition=None, on_improve=None,
+                   true_partition=None, on_improve=None,
                    quiet: bool = False, segment: int = 16):
     """Fit every K of a K-sweep as ONE mixed-K chain lattice
     (``swept_maximize``, the JAX package's multistart.py:952-1093).
@@ -818,8 +816,8 @@ def swept_maximize(gens_by_K, md: ModelData, opt: Options, n_parameters_fn,
                  if cfg.bi_repr_active else "")
 
     def draws(g, n):
-        return _draw_init_batch(g["gen"], n, md, g["K"], cfg, opt, codes,
-                                md_score, width)
+        return _draw_init_batch(g["gen"], n, md, g["K"], cfg, opt, md_score,
+                                width)
 
     def cat(parts):
         return map_params(lambda *t: torch.cat(t), *parts)
@@ -915,8 +913,7 @@ def _regimes_satisfied(res: MaximizeResult, opt: Options) -> bool:
     return False
 
 
-def _fit_serial_traced(gen, md, md_fit, md_score, K, cfg, opt, codes, warm,
-                       t0):
+def _fit_serial_traced(gen, md, md_fit, md_score, K, cfg, opt, warm, t0):
     """One chain, traced line by line at verbosity > MINIMAL (the trace
     reads the logL, the iteration and the step kind in the one host read
     a step makes); returns (its state, a batch of one, timed_out)."""
@@ -924,7 +921,7 @@ def _fit_serial_traced(gen, md, md_fit, md_score, K, cfg, opt, codes, warm,
     from multiclust_tpu_torch.runtime.observe import make_trace_printer
 
     with span("mc.init"):
-        params = _single_init(gen, md, K, cfg, opt, codes, warm, md_score)
+        params = _single_init(gen, md, K, cfg, opt, warm, md_score)
     out = fit(_to_fit_layout(params, md_fit, cfg), md_fit, cfg,
               n_seconds=opt.n_seconds, start_time=t0,
               trace=make_trace_printer(opt.verbosity))

@@ -65,7 +65,7 @@ def repeat_seed(seed: int, n: int) -> int:
 
 
 def timed_model_estimation(seed: int, md, opt: Options,
-                           n_parameters_fn, codes=None, warm=None,
+                           n_parameters_fn, warm=None,
                            true_partition=None,
                            emit: Optional[Callable[[str], None]] = None
                            ) -> TimingStats:
@@ -76,7 +76,7 @@ def timed_model_estimation(seed: int, md, opt: Options,
 
     while st.n_repeats < opt.n_repeat or not enough_time:
         est = estimate_model(repeat_seed(seed, st.n_repeats), md, opt,
-                             n_parameters_fn, codes=codes, warm=warm,
+                             n_parameters_fn, warm=warm,
                              true_partition=true_partition)
         if md.device.type == "cuda":
             torch.cuda.synchronize(md.device)

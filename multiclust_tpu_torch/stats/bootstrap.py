@@ -57,7 +57,6 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from multiclust_tpu_torch.init.random import codes_from_counts
 from multiclust_tpu_torch.model import bucketed
 from multiclust_tpu_torch.model.common import Lattice, ModelData, Params, \
     column_window, k_padded_size, map_params
@@ -170,7 +169,7 @@ def draw_replicate(seed: int, rep: int, md: ModelData, h0_params: Params,
 
 
 def replicate_starts(seed: int, rep: int, K: int, rep_md: ModelData, cfg,
-                     opt, ploidy: int) -> Params:
+                     opt) -> Params:
     """The ``opt.n_init`` starts of replicate ``rep`` at K (K-padded as the
     fit runs them), drawn on ``rep_md`` and scored by Rand-EM on its
     collapsed data under constrained eta: those the serial regime's
@@ -178,10 +177,8 @@ def replicate_starts(seed: int, rep: int, K: int, rep_md: ModelData, cfg,
     ks = (opt.max_K - 1, opt.max_K)
     gen = _generator(rep_md.device, np.random.SeedSequence(
         int(_seeds(seed, rep)[1])).generate_state(len(ks))[ks.index(K)])
-    codes = (codes_from_counts(rep_md.x, rep_md.miss, ploidy)
-             if opt.admixture else None)
     return _pad_k(_draw_init_batch(gen, max(opt.n_init, 1), rep_md, K, cfg,
-                                   opt, codes, _fit_data(rep_md, cfg)), cfg)
+                                   opt, _fit_data(rep_md, cfg)), cfg)
 
 
 def _fit_data(rep_md: ModelData, cfg,
@@ -255,7 +252,7 @@ def _batched_ts(seed: int, md: ModelData, opt, h0_params: Params,
                                  opt.admixture)
             for K in ks:
                 starts[K].append(replicate_starts(seed, r, K, rep, cfgs[K],
-                                                  opt, ploidy))
+                                                  opt))
             # the fit data depend on the model type, not on K
             fit_reps.append(_fit_data(rep, cfgs[ks[0]], plan))
             del rep
@@ -286,11 +283,8 @@ def _serial_ts(seed: int, md: ModelData, opt, n_parameters_fn,
     ts = list(done)
     for r in range(len(ts), opt.n_bootstrap):
         rep = draw_replicate(seed, r, md, h0_params, ploidy, opt.admixture)
-        codes = (codes_from_counts(rep.x, rep.miss, ploidy)
-                 if opt.admixture else None)
         est = estimate_model(int(_seeds(seed, r)[1]), rep, opt,
-                             n_parameters_fn,
-                             codes=codes, bootstrap=True)
+                             n_parameters_fn, bootstrap=True)
         ts.append(est.ts)
         if checkpoint_dir:
             _save_bootstrap_synced(checkpoint_dir, opt.max_K - 1, opt.max_K,
@@ -340,7 +334,7 @@ def run_bootstrap(seed: int, md: ModelData, opt, n_parameters_fn,
     t0 = time.time()
     shape = ms.mesh_shape_of(opt)
     if shape is not None:
-        md, _ = mesh_mod.as_block(md, mesh_mod.cached_mesh(shape))
+        md = mesh_mod.as_block(md, mesh_mod.cached_mesh(shape))
     null_K, alt_K = opt.max_K - 1, opt.max_K
     out = BootstrapResult(ts_obs=ts_obs, ts_bs=[], pvalue=0.0,
                           null_K=null_K, alt_K=alt_K)

@@ -394,7 +394,7 @@ def test_windowed_init_counts_are_exact(method):
     assert rinit.init_window(md, 2, budget) == 48
     assert rinit.init_window(md, 2) == md.L
     start = rinit.random_initialize(torch.Generator().manual_seed(2), md, K,
-                                    method, codes, budget=budget)
+                                    method, budget=budget)
     assert start.eta.shape == (30, K) and start.p.shape == (K, 200, 2)
     # add-one smoothing over every copy, observed or not: a row of eta
     # sums to (K + observed copies) / (K + L P)
@@ -405,7 +405,7 @@ def test_windowed_init_counts_are_exact(method):
                                torch.ones(K, 200).double())
     assert float(start.p.min()) > 0 and float(start.eta.min()) > 0
     a = rinit.random_initialize(torch.Generator().manual_seed(3), md, K,
-                                method, codes)
+                                method)
     lab = rinit._allele_labels(torch.Generator().manual_seed(3), md, codes,
                                K, method)
     b = rinit.parameters_from_allele_partition(lab, codes, md, K)
@@ -443,7 +443,7 @@ def test_init_counts_on_the_cpu_take_the_plain_path(method):
         masked[window], codes[window], md.M, K, md.dtype)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     # the start that counts the raw draw is the start of the masked labels
-    start = rinit.random_initialize(gen(), md, K, method, codes)
+    start = rinit.random_initialize(gen(), md, K, method)
     lab = (rinit.random_allele_partition(gen(), md, codes, K)
            if method == InitMethod.RANDOM_PARTITION
            else rinit.random_allele_center(gen(), md, codes, K))

@@ -25,7 +25,6 @@ from multiclust_tpu.stats.sim import simulate_mixture
 from multiclust_tpu_torch.config import Options
 from multiclust_tpu_torch.convert import model_data_from_numpy, \
     options_from, params_from_numpy
-from multiclust_tpu_torch.init.random import codes_from_counts
 from multiclust_tpu_torch.model.common import map_params, \
     model_data_from_dataset
 from multiclust_tpu_torch.opt import em as em_mod
@@ -122,7 +121,7 @@ def test_lattice_equals_each_replicate_fitted_alone(label, kw):
     reps = [bs.simulate_replicate(bs._generator("cpu", r), h0, md, 2, True)
             for r in range(R)]
     starts = [_draw_init_batch(bs._generator("cpu", 20 + r), B, rep, K, cfg,
-                               opt, codes_from_counts(rep.x, rep.miss, 2))
+                               opt)
               for r, rep in enumerate(reps)]
     lat = bs.fit_lattice(map_params(lambda *t: torch.cat(t), *starts), reps,
                          cfg)
@@ -214,11 +213,10 @@ def test_simulate_replicate_mixture_clusters_follow_eta():
 def _observed(ds, opt, seed=0):
     md = model_data_from_dataset(ds, dtype=torch.float64)
     opt = opt.synchronize(ds.I, ds.ploidy)
-    codes = codes_from_counts(md.x, md.miss, 2) if opt.admixture else None
 
     def npar(K):
         return ds.n_parameters(K, opt.admixture, opt.eta_constrained)
-    est = estimate_model(seed, md, opt, npar, codes=codes)
+    est = estimate_model(seed, md, opt, npar)
     return md, opt, npar, est
 
 
@@ -291,8 +289,7 @@ def test_frozen_squarem_macro_steps_return_at_once(monkeypatch):
                   accel_scheme=1, adjust_step=3,
                   dtype="float64").synchronize(ds.I, 2)
     cfg = cfg_from_options(opt, 3, md)
-    start = _draw_init_batch(bs._generator("cpu", 1), 3, md, 3, cfg, opt,
-                             codes_from_counts(md.x, md.miss, 2))
+    start = _draw_init_batch(bs._generator("cpu", 1), 3, md, 3, cfg, opt)
     calls = []
     real = em_mod.two_em_steps
     monkeypatch.setattr(em_mod, "two_em_steps",

@@ -21,7 +21,6 @@ from multiclust_tpu.runtime.multistart import maximize_likelihood as \
 from multiclust_tpu.stats.sim import simulate_mixture
 from multiclust_tpu_torch.config import Options
 from multiclust_tpu_torch.convert import options_from
-from multiclust_tpu_torch.init.random import codes_from_counts
 from multiclust_tpu_torch.model.common import model_data_from_dataset
 from multiclust_tpu_torch.runtime import checkpoint as ckpt
 from multiclust_tpu_torch.runtime.ksweep import estimate_model
@@ -134,8 +133,7 @@ def _bootstrap_setup(rng, **kw):
 
     def npar(K):
         return ds.n_parameters(K, True, False)
-    est = estimate_model(0, md, opt, npar,
-                         codes=codes_from_counts(md.x, md.miss, 2))
+    est = estimate_model(0, md, opt, npar)
     return md, opt, npar, est
 
 

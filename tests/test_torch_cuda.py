@@ -1256,7 +1256,7 @@ def _lattice(dev, admixture, R=3, B=2, I=2048, L=1024, K=3):
         rng.dirichlet(np.ones(K), size=I if admixture else None),
         np.stack([p0, 1 - p0], axis=2), device=dev, dtype=torch.float32)
     reps = [bs.draw_replicate(7, r, md, h0, 2, admixture) for r in range(R)]
-    starts = [bs.replicate_starts(7, r, K, rep, cfg, opt, 2)
+    starts = [bs.replicate_starts(7, r, K, rep, cfg, opt)
               for r, rep in enumerate(reps)]
     params = _to_bi_repr(map_params(lambda *t: torch.cat(t), *starts), cfg)
     return md, reps, params, cfg
@@ -2629,7 +2629,6 @@ def test_merged_sweep_on_the_card(admixture):
 
     from multiclust_tpu_torch.config import Options
     from multiclust_tpu_torch.convert import dataset_from_counts
-    from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.model.common import map_params, \
         model_data_from_dataset
     from multiclust_tpu_torch.opt.em import model_log_likelihood
@@ -2647,7 +2646,6 @@ def test_merged_sweep_on_the_card(admixture):
     ds = dataset_from_counts(counts, miss, 2)
     md = model_data_from_dataset(ds, dtype=torch.float32, device=dev,
                                  storage_dtype=torch.int8)
-    codes = codes_from_counts(md.x, md.miss, 2)
     opt = Options(admixture=admixture, min_K=2, max_K=3, n_init=3,
                   max_iter=500, write_files=False).synchronize(I, 2)
 
@@ -2655,7 +2653,7 @@ def test_merged_sweep_on_the_card(admixture):
         os.environ["MULTICLUST_SWEEP_MODE"] = mode
         try:
             return estimate_model(3, md, opt, lambda K: ds.n_parameters(
-                K, admixture, False), codes=codes).per_K
+                K, admixture, False)).per_K
         finally:
             del os.environ["MULTICLUST_SWEEP_MODE"]
 
@@ -2736,8 +2734,10 @@ def test_windowed_start_counts_on_the_card(monkeypatch, method, M, K,
                                            constrained):
     """A whole admixture start on the card, drawn in several windows of
     loci, equals bit for bit (eta and p) the start of the same generator
-    seed counted by the plain version; the kernel launches once a window
-    and leaves out the plain version's two host reads a window."""
+    seed counted by the plain version; a kernel launches once a window
+    (the planes' kernel on the raw draw of an int8 SNP panel, the codes'
+    kernel elsewhere) and leaves out the plain version's two host reads a
+    window."""
     from multiclust_tpu_torch.config import InitMethod
     from multiclust_tpu_torch.convert import model_data_from_numpy
     from multiclust_tpu_torch.init import random as rinit
@@ -2751,7 +2751,6 @@ def test_windowed_start_counts_on_the_card(monkeypatch, method, M, K,
     md = model_data_from_numpy(counts, miss, np.ones((L, M), bool),
                                np.full(L, M), device=dev,
                                dtype=torch.float32)
-    codes = rinit.codes_from_counts(md.x, md.miss, 2)
     budget = rinit.INIT_BYTES_PER_COPY * I * 2 * 96
     n_win = -(-L // rinit.init_window(md, 2, budget))
     assert n_win == 11
@@ -2760,18 +2759,142 @@ def test_windowed_start_counts_on_the_card(monkeypatch, method, M, K,
     def start():
         gen = torch.Generator(device=dev).manual_seed(21)
         before = dict(build.LAUNCHES)
-        out = rinit.random_initialize(gen, md, K, InitMethod[method], codes,
-                                      **kw)
+        out = rinit.random_initialize(gen, md, K, InitMethod[method], **kw)
         torch.cuda.synchronize()
         return out, {n: build.LAUNCHES[n] - before[n]
-                     for n in ("mc_allele_counts", "host.syncs")}
+                     for n in ("mc_allele_counts", "mc_allele_counts_planes",
+                               "host.syncs")}
 
     got, counted = start()
     monkeypatch.setattr(rinit, "allele_partition_counts",
                         rinit.allele_partition_counts_reference)
+    monkeypatch.setattr(
+        rinit, "allele_partition_counts_planes",
+        lambda labels, x0, miss, K, dtype:
+        rinit.allele_partition_counts_reference(
+            labels, rinit.plane_codes(x0, miss, 2), 2, K, dtype))
     want, plain = start()
     assert torch.equal(got.eta, want.eta) and torch.equal(got.p, want.p)
-    assert counted["mc_allele_counts"] == n_win
-    assert plain["mc_allele_counts"] == 0
+    from_planes = M == 2 and rinit._int8_planes(md)
+    assert counted["mc_allele_counts"] == (0 if from_planes else n_win)
+    assert counted["mc_allele_counts_planes"] == (n_win if from_planes
+                                                  else 0)
+    assert plain["mc_allele_counts"] == plain["mc_allele_counts_planes"] == 0
     assert plain["host.syncs"] - counted["host.syncs"] == \
         rinit.BINCOUNT_SYNCS * n_win
+
+
+def _plane_inputs(seed, I, L, K, missing, dev):
+    """A window of count planes as a start cuts it from a panel's planes:
+    x0 and miss (int8) a row block and a column slice of [I + 7, L + 9]
+    planes (``missing``: 3 % of the genotypes missing whole, 2 % one copy),
+    its codes from ``codes_from_counts``, and labels a block of a wider
+    raw draw."""
+    from multiclust_tpu_torch.init import random as rinit
+
+    rng = np.random.default_rng(seed)
+    miss = np.zeros((I + 7, L + 9), np.int64)
+    if missing:
+        miss[rng.random(miss.shape) < 0.03] = 2
+        miss[rng.random(miss.shape) < 0.02] = 1
+    x0 = rng.binomial(2 - miss, 0.4)
+    x0w, missw = (torch.as_tensor(t, device=dev).to(torch.int8)[3:3 + I,
+                                                                 4:4 + L]
+                  for t in (x0, miss))
+    codes = rinit.codes_from_counts(
+        torch.stack([x0w, 2 - missw - x0w], dim=2), missw, 2)
+    labels = torch.randint(0, K, (I + 5, L + 6, 2), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed))[2:2 + I, 3:3 + L]
+    return labels, x0w, missw, codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [6, 7, 200])
+@pytest.mark.parametrize("missing", [True, False])
+def test_allele_counts_planes_kernel_matches_codes_kernel(K, missing):
+    """One launch of ``mc_allele_counts_planes`` gives exactly the codes'
+    kernel's and the plain version's copies and pc, on a row block and a
+    column slice of int8 planes, with and without missing copies, from
+    the raw draw; it reads nothing back to the host."""
+    from multiclust_tpu_torch.init import random as rinit
+
+    dev = _cuda()
+    labels, x0, miss, codes = _plane_inputs(K, 301, 777, K, missing, dev)
+    assert not x0.is_contiguous()
+    assert bool((codes < 0).any()) == missing
+    assert torch.equal(rinit.plane_codes(x0, miss, 2), codes)
+    before = dict(build.LAUNCHES)
+    got = rinit.allele_partition_counts_planes(labels, x0, miss, K,
+                                               torch.float32)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mc_allele_counts_planes"] == \
+        before["mc_allele_counts_planes"] + 1
+    assert build.LAUNCHES["mc_allele_counts"] == before["mc_allele_counts"]
+    assert build.LAUNCHES["host.syncs"] == before["host.syncs"]
+    by_codes = rinit.allele_partition_counts(labels, codes, 2, K,
+                                             torch.float32)
+    masked = torch.where(codes >= 0, labels, -1)
+    plain = rinit.allele_partition_counts_reference(masked, codes, 2, K,
+                                                    torch.float32)
+    for g, c, w in zip(got, by_codes, plain):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, c) and torch.equal(g, w)
+    assert float(got[0].sum()) == float((codes >= 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,K,constrained", [
+    ("RANDOM_CENTERS", 6, False),         # SNPs at K > 2: the raw draw
+    ("RANDOM_PARTITION", 2, True),
+    ("RANDOM_CENTERS", 2, False),         # copies matching centers
+])
+def test_planes_start_on_the_card(monkeypatch, method, K, constrained):
+    """An admixture start of an int8 planes panel on the card, drawn in
+    several windows, equals bit for bit the start whose windows take their
+    slice of the whole panel's codes and the codes' kernel; where every
+    label is the raw draw it launches the planes' kernel once a window and
+    the codes' kernel never, elsewhere the codes' kernel on the codes of
+    the window's slice of the planes."""
+    from multiclust_tpu_torch.config import InitMethod
+    from multiclust_tpu_torch.init import random as rinit
+    from multiclust_tpu_torch.model.common import model_data_from_planes
+
+    dev = _cuda()
+    rng = np.random.default_rng(K)
+    I, L = 300, 1000
+    miss = np.where(rng.random((I, L)) < 0.02, 2, 0)
+    x0 = rng.binomial(2 - miss, 0.3)
+    planes = torch.as_tensor(np.stack([x0, 2 - miss - x0]),
+                             device=dev).to(torch.int8).contiguous()
+    md = model_data_from_planes(planes,
+                                torch.as_tensor(miss, device=dev).to(
+                                    torch.int8))
+    codes = rinit.codes_from_counts(md.x, md.miss, 2)
+    budget = rinit.INIT_BYTES_PER_COPY * I * 2 * 96
+    n_win = -(-L // rinit.init_window(md, 2, budget))
+    assert n_win == 11
+
+    def start():
+        gen = torch.Generator(device=dev).manual_seed(21)
+        before = dict(build.LAUNCHES)
+        out = rinit.random_initialize(gen, md, K, InitMethod[method],
+                                      eta_constrained=constrained,
+                                      budget=budget)
+        torch.cuda.synchronize()
+        return out, {n: build.LAUNCHES[n] - before[n]
+                     for n in ("mc_allele_counts", "mc_allele_counts_planes",
+                               "init.windows")}
+
+    got, counted = start()
+    monkeypatch.setattr(rinit, "_int8_planes", lambda md: False)
+    monkeypatch.setattr(rinit, "_window_codes",
+                        lambda md, m0, m1, P: codes[:, m0:m1])
+    want, sliced = start()
+    assert torch.equal(got.eta, want.eta) and torch.equal(got.p, want.p)
+    assert sliced == {"mc_allele_counts": n_win,
+                      "mc_allele_counts_planes": 0, "init.windows": n_win}
+    raw = method == "RANDOM_PARTITION" or K > 2
+    assert counted == {"mc_allele_counts": 0 if raw else n_win,
+                       "mc_allele_counts_planes": n_win if raw else 0,
+                       "init.windows": n_win}

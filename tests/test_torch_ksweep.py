@@ -28,7 +28,6 @@ from multiclust_tpu.stats.sim import random_model, simulate_admixture_fast
 from multiclust_tpu_torch.config import InitMethod, InitProcedure, Options
 from multiclust_tpu_torch.convert import dataset_from_counts
 from multiclust_tpu_torch.init import random as rinit
-from multiclust_tpu_torch.init.random import codes_from_counts
 from multiclust_tpu_torch.model.common import EMConfig, Params, \
     make_model_data, model_data_from_dataset
 from multiclust_tpu_torch.opt import em as em_mod
@@ -271,10 +270,9 @@ def test_dynamic_starts_are_the_static_ones_padded(admixture, procedure):
     keeps the same winner."""
     ds = _dataset(6, I=40, L=30, M=2)
     md = model_data_from_dataset(ds, dtype=torch.float64)
-    codes = codes_from_counts(md.x.to(torch.int64), md.miss, 2)
     K, width = 3, 7
     kw = dict(method=InitMethod.RANDOM_CENTERS, procedure=procedure,
-              n_rand_em_init=4, codes=codes)
+              n_rand_em_init=4)
     static = rinit.initialize(torch.Generator().manual_seed(5), md, K,
                               EMConfig(admixture=admixture,
                                        k_true=K if admixture else 0), **kw)
@@ -291,14 +289,14 @@ def test_dynamic_starts_are_the_static_ones_padded(admixture, procedure):
 # ---------------------------------------------------------------------------
 # merged and shared sweeps against the static sweep
 
-def _sweep(ds, md, opt, codes, seed, mode, monkeypatch):
+def _sweep(ds, md, opt, seed, mode, monkeypatch):
     """estimate_model's per-K results under MULTICLUST_SWEEP_MODE=mode,
     with the sweep's device gate opened on the CPU."""
     monkeypatch.setenv("MULTICLUST_SWEEP_MODE", mode)
     monkeypatch.setattr(ms, "sweep_device", lambda md: True)
     return ksweep.estimate_model(
         seed, md, opt, lambda K: ds.n_parameters(
-            K, opt.admixture, opt.eta_constrained), codes=codes).per_K
+            K, opt.admixture, opt.eta_constrained)).per_K
 
 
 def _check(got, want, rtol):
@@ -330,7 +328,6 @@ def test_sweep_matches_static(mode, case, monkeypatch):
     f32 = case == "float32 kernels"
     md = model_data_from_dataset(
         ds, dtype=torch.float32 if f32 else torch.float64)
-    codes = codes_from_counts(md.x.to(torch.int64), md.miss, 2)
     accel = int(case[-1]) if case.startswith("accel") else 0
     opt = Options(admixture=case != "mixture",
                   eta_constrained=case == "constrained", min_K=2,
@@ -342,8 +339,8 @@ def test_sweep_matches_static(mode, case, monkeypatch):
                                             if case == "jagged"
                                             else InitProcedure.NOTHING),
                   write_files=False).synchronize(ds.I, ds.ploidy)
-    want = _sweep(ds, md, opt, codes, 7, "static", monkeypatch)
-    got = _sweep(ds, md, opt, codes, 7, mode, monkeypatch)
+    want = _sweep(ds, md, opt, 7, "static", monkeypatch)
+    got = _sweep(ds, md, opt, 7, mode, monkeypatch)
     _check(got, want, 1e-6 if f32 else 1e-5 if accel else 1e-9)
 
 
@@ -352,7 +349,6 @@ def test_merged_lattice_is_one_batch(monkeypatch):
     step of the lattice holds all K's chains, with their masks."""
     ds = _dataset(31, I=40, L=20)
     md = model_data_from_dataset(ds, dtype=torch.float64)
-    codes = codes_from_counts(md.x.to(torch.int64), md.miss, 2)
     opt = Options(admixture=True, min_K=2, max_K=4, n_init=2, max_iter=30,
                   write_files=False).synchronize(ds.I, 2)
     widths = []
@@ -363,7 +359,7 @@ def test_merged_lattice_is_one_batch(monkeypatch):
             widths.append(tuple(params.kmask.sum(dim=-1).tolist()))
         return orig(params, *a, **k)
     monkeypatch.setattr(em_mod, "model_em_step", spy)
-    _sweep(ds, md, opt, codes, 3, "merged", monkeypatch)
+    _sweep(ds, md, opt, 3, "merged", monkeypatch)
     assert (2.0, 2.0, 3.0, 3.0, 4.0, 4.0) in widths
 
 
@@ -373,7 +369,6 @@ def test_auto_and_static_are_the_serial_loop(monkeypatch):
     lattice is allowed; an unknown mode is refused."""
     ds = _dataset(41, I=40, L=20)
     md = model_data_from_dataset(ds, dtype=torch.float64)
-    codes = codes_from_counts(md.x.to(torch.int64), md.miss, 2)
     opt = Options(admixture=True, min_K=2, max_K=3, n_init=2, max_iter=100,
                   write_files=False).synchronize(ds.I, 2)
     seen = []
@@ -384,9 +379,9 @@ def test_auto_and_static_are_the_serial_loop(monkeypatch):
         return orig(params, *a, **k)
     monkeypatch.setattr(em_mod, "model_em_step", spy)
     monkeypatch.setattr(ksweep, "swept_maximize", None)
-    auto = _sweep(ds, md, opt, codes, 5, "auto", monkeypatch)
+    auto = _sweep(ds, md, opt, 5, "auto", monkeypatch)
     for mode in ("static", "shared"):
-        other = _sweep(ds, md, opt, codes, 5, mode, monkeypatch)
+        other = _sweep(ds, md, opt, 5, mode, monkeypatch)
         for K in auto:
             assert auto[K].max_logL == other[K].max_logL
             assert auto[K].n_iter_all == other[K].n_iter_all
@@ -395,7 +390,7 @@ def test_auto_and_static_are_the_serial_loop(monkeypatch):
     assert seen and all(seen)
     monkeypatch.setenv("MULTICLUST_SWEEP_MODE", "swept")
     with pytest.raises(ValueError, match="MULTICLUST_SWEEP_MODE"):
-        ksweep.estimate_model(5, md, opt, lambda K: 1, codes=codes)
+        ksweep.estimate_model(5, md, opt, lambda K: 1)
 
 
 def test_warm_and_checkpoint_keep_the_serial_loop(monkeypatch, tmp_path):
@@ -404,7 +399,6 @@ def test_warm_and_checkpoint_keep_the_serial_loop(monkeypatch, tmp_path):
     K."""
     ds = _dataset(42, I=30, L=20)
     md = model_data_from_dataset(ds, dtype=torch.float64)
-    codes = codes_from_counts(md.x.to(torch.int64), md.miss, 2)
     opt = Options(admixture=True, min_K=2, max_K=3, n_init=2, max_iter=50,
                   write_files=False).synchronize(ds.I, 2)
     seen = []
@@ -416,7 +410,7 @@ def test_warm_and_checkpoint_keep_the_serial_loop(monkeypatch, tmp_path):
     monkeypatch.setattr(ms, "sweep_device", lambda md: True)
     for mode in ("merged", "shared"):
         monkeypatch.setenv("MULTICLUST_SWEEP_MODE", mode)
-        ksweep.estimate_model(5, md, opt, lambda K: 1, codes=codes,
+        ksweep.estimate_model(5, md, opt, lambda K: 1,
                               checkpoint_dir=str(tmp_path / mode))
     assert seen == [2, 3, 2, 3]
 

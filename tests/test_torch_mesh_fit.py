@@ -50,19 +50,16 @@ def fit_case(case, mesh=None):
     """A multi-start fit at K from the case's warm start, or from starts
     drawn from a seed without one: its logL, iterations and whole best
     parameters."""
-    from multiclust_tpu_torch.init.random import codes_from_counts
     from multiclust_tpu_torch.model.common import Params
     from multiclust_tpu_torch.runtime.multistart import maximize_likelihood
 
     md = _model_data(case)
-    warm = codes = None
+    warm = None
     if "eta" in case:
         warm = Params(eta=torch.tensor(case["eta"]),
                       p=torch.tensor(case["p"]))
-    else:
-        codes = codes_from_counts(md.x, md.miss, 2)
     res = maximize_likelihood(torch.Generator().manual_seed(1), md, K,
-                              _opt(case, mesh), 100, codes=codes, warm=warm)
+                              _opt(case, mesh), 100, warm=warm)
     return dict(logL=res.max_logL, n_iter=res.n_iter_all,
                 eta=res.best_params.eta.numpy(),
                 p=res.best_params.p.numpy())
@@ -83,7 +80,6 @@ def start_case(case, mesh=None):
         opt = _opt(dict(case, admixture=admix, constrained=constrained),
                    mesh)
         cfg = ms.cfg_from_options(opt, K, md)
-        codes = rinit.codes_from_counts(md.x, md.miss, 2) if admix else None
         _, md_score = ms._fit_data(md, cfg, None)
         for method, procedure in ((InitMethod.RANDOM_PARTITION,
                                    InitProcedure.NOTHING),
@@ -93,7 +89,7 @@ def start_case(case, mesh=None):
                                    InitProcedure.RAND_EM)):
             start = rinit.initialize(
                 torch.Generator().manual_seed(5), md, K, cfg, method,
-                procedure, n_rand_em_init=3, codes=codes, md_score=md_score)
+                procedure, n_rand_em_init=3, md_score=md_score)
             if mesh is not None:
                 start = mesh_mod.gather_params(start, mesh, md.I, md.L,
                                                admix and not constrained)

@@ -384,9 +384,7 @@ def test_k1_matches_jax(model):
                       jax_model_data(ds, dtype=jnp.float64), opt, n_par,
                       codes=None if codes is None else jnp.asarray(codes))
     tmd = model_data_from_dataset(ds, dtype=torch.float64)
-    te = estimate_model(0, tmd, options_from(opt), n_par,
-                        codes=None if codes is None
-                        else rinit.codes_from_counts(tmd.x, tmd.miss, 2))
+    te = estimate_model(0, tmd, options_from(opt), n_par)
     # K = 1 starts are draw-free: every copy joins the one cluster
     np.testing.assert_allclose(te.per_K[1].max_logL, je.per_K[1].max_logL,
                                rtol=1e-10)
@@ -400,11 +398,10 @@ def test_rand_em_scores_constrained_candidates_on_collapsed_data():
     scoring draw."""
     ds = _admixture_panel(40, I=40, L=50)
     md = model_data_from_dataset(ds, dtype=torch.float64)
-    codes = rinit.codes_from_counts(md.x, md.miss, 2)
     cfg = EMConfig(admixture=True, eta_constrained=True)
     picks = [rinit.rand_em_initialize(
         torch.Generator().manual_seed(5), md, 3, cfg,
-        InitMethod.RANDOM_PARTITION, 6, codes, md_score=score, chunk=4)
+        InitMethod.RANDOM_PARTITION, 6, md_score=score, chunk=4)
         for score in (collapse_for_constrained(md), md)]
     assert torch.equal(picks[0].eta, picks[1].eta)
     assert picks[0].eta.shape == (3,)

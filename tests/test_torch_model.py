@@ -299,18 +299,16 @@ def test_init_draws_are_valid_and_use_every_label(method, K):
 def test_rand_em_keeps_best_scoring_draw():
     ds = _dataset(12, I=30, L=40, missing_rate=0.0)
     md = model_data_from_dataset(ds, dtype=torch.float64)
-    codes = rinit.codes_from_counts(md.x, md.miss, 2)
     cfg = EMConfig(admixture=True, has_missing=False)
     K, n = 3, 6
     best = rinit.rand_em_initialize(torch.Generator().manual_seed(5), md, K,
                                     cfg, InitMethod.RANDOM_PARTITION, n,
-                                    codes, chunk=4)
+                                    chunk=4)
     gen = torch.Generator().manual_seed(5)
     scores = []
     cands = []
     for _ in range(n):
-        c = rinit.random_initialize(gen, md, K, InitMethod.RANDOM_PARTITION,
-                                    codes)
+        c = rinit.random_initialize(gen, md, K, InitMethod.RANDOM_PARTITION)
         stepped, _, _ = tadm.em_step(Params(c.eta[None], c.p[None]), md, cfg)
         scores.append(float(tadm.log_likelihood(stepped, md)[0][0]))
         cands.append(c)
